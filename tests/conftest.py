@@ -24,6 +24,11 @@ jax.config.update("jax_platforms", "cpu")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     """Drop compiled XLA programs after each test module: a full-suite
