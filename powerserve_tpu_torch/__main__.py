@@ -2,6 +2,8 @@
 
 Commands:
   run    generate from a prompt (see run.py; --device cuda|cpu)
+  serve  OpenAI-compatible HTTP server (see serving/server.py;
+         --device cuda|cpu, --paged-pages N --page-size P)
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ def main() -> int:
     if cmd == "run":
         from .run import main as run_main
         return run_main(argv)
+    if cmd == "serve":
+        from .serving.server import main as serve_main
+        return serve_main(argv)
     print(f"unknown command '{cmd}'\n{__doc__}")
     return 1
 

@@ -36,6 +36,17 @@
 // Masked scores use the same finite -1e30 as the JAX reference, so a
 // row with no visible position averages V over the T positions instead
 // of dividing by zero.
+//
+// Paged mode replaces powerserve_tpu/ops/flash_decode.py::
+// flash_decode_paged (normalized output; its state mode is not ported).
+// The same kernel body: only the address of a staged row changes, from
+// the slot's contiguous slab to pool page page_table[s, t / page], row
+// t % page, token by token, so a 64-token chunk may span several pages
+// (page = 8) or part of one (page = 128). Visibility stays in logical
+// coordinates; chunks no row sees are skipped before their page-table
+// entries are read, and an unallocated entry (= P) is clipped into the
+// pool, as the TPU kernel clips it, for the hidden positions that may
+// still be staged.
 #include "common.cuh"
 
 namespace {
@@ -92,8 +103,9 @@ __host__ __device__ size_t smem_layout(int R, int Tq, int T, int D,
 
 __global__ __launch_bounds__(kThreads) void flash_decode_kernel(
     const float* q, const int8_t* kq, const float* ks, const int8_t* vq,
-    const float* vs, const uint8_t* vis, float* m_part, float* l_part,
-    float* acc_part, int Tq, int H, int Hkv, int T, int D, float scale) {
+    const float* vs, const uint8_t* vis, const int* page_table, int page,
+    int n_pages, float* m_part, float* l_part, float* acc_part, int Tq, int H,
+    int Hkv, int T, int D, float scale) {
   const int h = blockIdx.x, s = blockIdx.y, split = blockIdx.z;
   const int G = H / Hkv, R = G * Tq;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -143,11 +155,16 @@ __global__ __launch_bounds__(kThreads) void flash_decode_kernel(
   __syncthreads();
   const int n_list = *sm.count;
 
+  // cache row (token row of kv head h) of logical position t: the slot's
+  // contiguous slab, or through the page table (an entry P = unallocated
+  // is clipped into the pool; only hidden positions can map there)
   const long slab = ((long)s * Hkv + h) * T;
-  const int8_t* kbase = kq + slab * D;
-  const int8_t* vbase = vq + slab * D;
-  const float* ksb = ks + slab;
-  const float* vsb = vs + slab;
+  const int* pt_s = page_table ? page_table + (long)s * (T / page) : nullptr;
+  auto row_of = [&](int t) -> long {
+    if (!pt_s) return slab + t;
+    const int pg = min(max(pt_s[t / page], 0), n_pages - 1);
+    return ((long)pg * Hkv + h) * page + t % page;
+  };
 
   auto issue = [&](int c, int stage) {
     const int t0 = c * kChunk, nt = min(kChunk, T - t0);
@@ -156,12 +173,14 @@ __global__ __launch_bounds__(kThreads) void flash_decode_kernel(
     const int words = nt * D / 4;
     for (int e = tid; e < words; e += kThreads) {
       int t = (e * 4) / D, d = e * 4 - t * D;
-      cp_async4(kb + t * pitch + d, kbase + (long)t0 * D + e * 4);
-      cp_async4(vb + t * pitch + d, vbase + (long)t0 * D + e * 4);
+      const long row = row_of(t0 + t) * D + d;
+      cp_async4(kb + t * pitch + d, kq + row);
+      cp_async4(vb + t * pitch + d, vq + row);
     }
     for (int t = tid; t < nt; t += kThreads) {
-      cp_async4(sm.kss + stage * kChunk + t, ksb + t0 + t);
-      cp_async4(sm.vss + stage * kChunk + t, vsb + t0 + t);
+      const long row = row_of(t0 + t);
+      cp_async4(sm.kss + stage * kChunk + t, ks + row);
+      cp_async4(sm.vss + stage * kChunk + t, vs + row);
     }
     cp_async_commit();
   };
@@ -283,14 +302,13 @@ PS_EXPORT int ps_flash_decode_splits(int T) {
   return ((T + kChunk - 1) / kChunk + kSplitChunks - 1) / kSplitChunks;
 }
 
-// m_part/l_part f32 [S, Hkv, splits, G*Tq], acc_part f32
-// [S, Hkv, splits, G*Tq, D] (splits from ps_flash_decode_splits).
-// Returns a CUDA error code (0 on success).
-PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
-                              const void* vq, const void* vs, const void* vis,
-                              void* m_part, void* l_part, void* acc_part,
-                              void* out, int S, int Tq, int H, int Hkv, int T,
-                              int D, float scale, void* stream_ptr) {
+namespace {
+
+int launch(const void* q, const void* kq, const void* ks, const void* vq,
+           const void* vs, const void* vis, const int* page_table, int page,
+           int n_pages, void* m_part, void* l_part, void* acc_part, void* out,
+           int S, int Tq, int H, int Hkv, int T, int D, float scale,
+           void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int R = (H / Hkv) * Tq;
   const size_t smem = smem_layout(R, Tq, T, D, nullptr, nullptr);
@@ -306,8 +324,40 @@ PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
       reinterpret_cast<const float*>(q), reinterpret_cast<const int8_t*>(kq),
       reinterpret_cast<const float*>(ks), reinterpret_cast<const int8_t*>(vq),
       reinterpret_cast<const float*>(vs), reinterpret_cast<const uint8_t*>(vis),
-      mp, lp, ap, Tq, H, Hkv, T, D, scale);
+      page_table, page, n_pages, mp, lp, ap, Tq, H, Hkv, T, D, scale);
   flash_decode_combine_kernel<<<dim3(Hkv, S), kThreads, 0, stream>>>(
       mp, lp, ap, reinterpret_cast<float*>(out), Tq, H, Hkv, D, n_split);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// m_part/l_part f32 [S, Hkv, splits, G*Tq], acc_part f32
+// [S, Hkv, splits, G*Tq, D] (splits from ps_flash_decode_splits).
+// Returns a CUDA error code (0 on success).
+PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
+                              const void* vq, const void* vs, const void* vis,
+                              void* m_part, void* l_part, void* acc_part,
+                              void* out, int S, int Tq, int H, int Hkv, int T,
+                              int D, float scale, void* stream_ptr) {
+  return launch(q, kq, ks, vq, vs, vis, nullptr, 1, 1, m_part, l_part,
+                acc_part, out, S, Tq, H, Hkv, T, D, scale, stream_ptr);
+}
+
+// The paged pool: kq/vq int8 [P, Hkv, page, D], ks/vs f32 [P, Hkv, page],
+// page_table int32 [S, max_pages] (P = unallocated), vis uint8
+// [S, Tq, max_pages * page] over logical positions; scratch as above with
+// T = max_pages * page.
+PS_EXPORT int ps_flash_decode_paged(const void* q, const void* kq,
+                                    const void* ks, const void* vq,
+                                    const void* vs, const void* page_table,
+                                    const void* vis, void* m_part,
+                                    void* l_part, void* acc_part, void* out,
+                                    int S, int Tq, int H, int Hkv,
+                                    int max_pages, int page, int n_pages,
+                                    int D, float scale, void* stream_ptr) {
+  return launch(q, kq, ks, vq, vs, vis,
+                reinterpret_cast<const int*>(page_table), page, n_pages,
+                m_part, l_part, acc_part, out, S, Tq, H, Hkv,
+                max_pages * page, D, scale, stream_ptr);
 }

@@ -1,0 +1,544 @@
+"""Continuous-batching scheduler: requests -> slots of one batched model.
+
+Every decode tick advances ALL decoding slots in one forward per step
+(`decode_horizon` steps per tick); prefill runs chunk-wise over every
+prefilling slot at once, with priority over decode but never starving it
+(`decode_every`); each request carries its own sampling parameters and
+random generator. The cache is the dense int8 KVCache or, with
+hp.paged_pages > 0, the paged pool, where admission defers while the
+pool is dry and decode preempts the youngest request by recompute.
+
+The plain path of the JAX package's scheduler: speculation, EAGLE,
+multimodal prefill, meshes and double-buffered ticks are not ported.
+Only the scheduler thread touches the device; submit() is thread-safe.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core.config import HyperParams, ModelConfig
+from ..core.device import resolve_device
+from ..core.logging import get_logger
+from ..kv.cache import KVCache
+from ..kv.paged import PagedKVCache, PagePool
+from ..models.llama import LlamaModel
+from ..sampling.sampler import PenaltyState, sample_logits_batched
+
+log = get_logger("scheduler")
+
+N_TOP = 8  # top-logprob alternatives recorded per step
+
+
+@dataclass
+class Request:
+    prompt_ids: list[int]
+    max_tokens: int = 128
+    temperature: float = 0.8
+    top_k: int = 40
+    top_p: float = 0.95
+    penalty_repeat: float = 1.0
+    # subtractive OpenAI-style penalties over the recent-token window
+    penalty_freq: float = 0.0
+    penalty_present: float = 0.0
+    stop_ids: set[int] = field(default_factory=set)
+    # explicit per-request seed (OpenAI `seed`): the slot's generator is
+    # seeded with it, so the samples reproduce whatever else runs
+    seed: int | None = None
+    # top-logprob alternatives to record per token (0 = off)
+    logprobs: int = 0
+    # receives token ids, then None when finished
+    sink: Callable[[int | None], None] = lambda t: None
+    id: int = 0
+    # set by the consumer to abort (e.g. a stop string matched in the
+    # decoded text); the scheduler frees the slot on its next tick
+    cancelled: bool = False
+    # filled by the scheduler
+    n_generated: int = 0
+    finish_reason: str = ""
+    token_logprobs: list = field(default_factory=list)  # [float]
+    top_logprobs: list = field(default_factory=list)  # [[(id, lp)]]
+    submitted_at: float = 0.0
+
+
+@dataclass
+class _Slot:
+    req: Request | None = None
+    prefill_off: int = 0
+    cur_token: int = 0
+    prefilling: bool = False
+    # tokens generated while resident: the recompute payload if the
+    # paged pool preempts the slot (emitted tokens are never re-emitted)
+    generated: list = field(default_factory=list)
+
+
+class PrefixCache:
+    """LRU of prompt-prefix KV snapshots. Requests that share a prefix
+    (system prompts, few-shot headers) skip its prefill: the KV of
+    positions 0..n-1 depends only on tokens 0..n-1, so reuse is exact."""
+
+    def __init__(self, capacity: int, min_len: int):
+        self.capacity = capacity
+        self.min_len = min_len
+        self.entries: dict[tuple, dict] = {}
+        self._order: list[tuple] = []  # eviction order
+        self.hits = 0
+        self.misses = 0
+
+    def match(self, prompt_ids: list[int]) -> tuple[int, dict] | None:
+        """Longest cached entry that is a prefix of prompt_ids."""
+        best = None
+        t = tuple(prompt_ids)
+        for key, saved in self.entries.items():
+            n = len(key)
+            if n <= len(t) and t[:n] == key and (best is None or n > best[0]):
+                best = (n, saved)
+        if best is None:
+            self.misses += 1
+        else:
+            self.hits += 1
+        return best
+
+    def put(self, prefix_ids: list[int], saved: dict) -> None:
+        key = tuple(prefix_ids)
+        if key in self.entries or len(key) < self.min_len:
+            return
+        if len(self._order) >= self.capacity and self._order:
+            self.entries.pop(self._order.pop(0), None)
+        self.entries[key] = saved
+        self._order.append(key)
+
+
+class BatchScheduler:
+    """Owns the KV cache and the step loop; thread-safe submit()."""
+
+    def __init__(self, model: LlamaModel, cfg: ModelConfig,
+                 hp: HyperParams | None = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.hp = hp or HyperParams()
+        llm = cfg.llm
+        if self.hp.kv_dtype != "int8":
+            raise ValueError("the port keeps an int8 KV cache only")
+        self.S = self.hp.max_slots
+        self.max_seq = self.hp.max_seq_len or llm.seq_len
+        self.chunk = max(int(self.hp.batch_size), 8)
+        self.horizon = max(int(self.hp.decode_horizon), 1)
+        self.pool: PagePool | None = None
+        if self.hp.paged_pages > 0:
+            page = max(int(self.hp.page_size), 8)
+            self.kv = PagedKVCache.create(
+                llm.n_layers, self.S, self.max_seq, llm.n_kv_heads,
+                llm.head_size, self.device, n_pages=int(self.hp.paged_pages),
+                page_size=page)
+            self.max_seq = self.kv.max_seq  # rounded up to whole pages
+            self.pool = PagePool(int(self.hp.paged_pages), self.S,
+                                 self.kv.max_pages, page)
+        else:
+            self.kv = KVCache.create(llm.n_layers, self.S, self.max_seq,
+                                     llm.n_kv_heads, llm.head_size,
+                                     self.device)
+        self.penalty = PenaltyState.create(
+            self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
+        # one generator per slot, re-seeded at each admission
+        self.generators = [torch.Generator(device=self.device)
+                           for _ in range(self.S)]
+        self.slots = [_Slot() for _ in range(self.S)]
+        self.prefix_cache = None
+        if self.hp.prefix_cache > 0:
+            self.prefix_cache = PrefixCache(
+                self.hp.prefix_cache, max(int(self.hp.prefix_cache_min), 1))
+        # /metrics counters
+        self.n_requests = 0
+        self.n_tokens_generated = 0
+        self.n_prompt_tokens = 0
+        self.n_preemptions = 0
+        self.started_at = time.time()
+        # sliding windows for latency percentiles (seconds)
+        self._ttft: deque = deque(maxlen=512)
+        self._req_latency: deque = deque(maxlen=512)
+        # requests deferred by pool backpressure, and preempted ones:
+        # admitted before anything in `pending`
+        self._waitq: deque[Request] = deque()
+        self.pending: queue.Queue[Request] = queue.Queue()
+        self._ids = itertools.count()
+        self._tick = 0
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    # -- front door -----------------------------------------------------------
+
+    def submit(self, req: Request) -> Request:
+        req.id = next(self._ids)
+        req.submitted_at = time.time()
+        self.pending.put(req)
+        self._wake.set()
+        return req
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="batch-scheduler")
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for s in self.slots if s.req is not None)
+
+    # -- slot bookkeeping -------------------------------------------------------
+
+    def _emit(self, req: Request, tok: int | None) -> None:
+        """Deliver to the consumer's sink (a consumer that went away must
+        never kill the scheduler thread); records TTFT at the first token
+        and the request latency at the end."""
+        if req.submitted_at:
+            if tok is None:
+                self._req_latency.append(time.time() - req.submitted_at)
+            elif req.n_generated == 1:
+                self._ttft.append(time.time() - req.submitted_at)
+        try:
+            req.sink(tok)
+        except Exception:  # noqa: BLE001 — the consumer's failure, not ours
+            req.cancelled = True
+
+    def _free_slot(self, i: int) -> None:
+        if self.pool is not None:
+            self.pool.release(i)
+        self.slots[i] = _Slot()
+
+    def _preempt(self, i: int) -> None:
+        """Recompute preemption: free slot i's pages and re-queue its
+        request with prompt = prompt + generated so far; a later prefill
+        rebuilds the KV, so greedy continuations are unchanged and
+        emitted tokens are never emitted again."""
+        s = self.slots[i]
+        req = s.req
+        req.prompt_ids = list(req.prompt_ids) + s.generated
+        self._waitq.appendleft(req)
+        self._free_slot(i)
+        self.n_preemptions += 1
+        log.debug(f"req {req.id}: preempted (paged pool dry)")
+
+    def _ensure_decode_pages(self, decoding: list[int]) -> list[int]:
+        """Paged mode: grow each decoding slot's pages to cover this
+        tick's `horizon` writes. When the pool runs dry the YOUNGEST
+        page-holding request is preempted first (least work lost); a slot
+        that is itself the youngest preempts itself. A lone request the
+        pool cannot serve finishes with 'length'."""
+        pos = self.kv.pos.tolist()
+        keep = []
+        for i in decoding:
+            s = self.slots[i]
+            if s.req is None:  # preempted as a victim earlier this tick
+                continue
+            while not self.pool.ensure(i, pos[i] + self.horizon):
+                victims = [j for j in range(self.S)
+                           if j != i and self.slots[j].req is not None
+                           and self.pool.owned[j]]
+                if victims:
+                    v = max(victims, key=lambda j: self.slots[j].req.id)
+                    if self.slots[v].req.id > s.req.id:
+                        self._preempt(v)
+                        continue  # retry with the freed pages
+                    self._preempt(i)
+                    break
+                s.req.finish_reason = "length"
+                self._emit(s.req, None)
+                self._free_slot(i)
+                break
+            else:
+                keep.append(i)
+        self.pool.flush(self.kv)
+        # a slot kept earlier may have been a later slot's victim
+        return [i for i in keep if self.slots[i].req is not None]
+
+    def _next_pending(self) -> Request | None:
+        if self._waitq:
+            return self._waitq.popleft()
+        try:
+            return self.pending.get_nowait()
+        except queue.Empty:
+            return None
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.req is not None:
+                continue
+            req = self._next_pending()
+            if req is None:
+                break
+            # clamp client-supplied max_tokens, then keep the prompt's
+            # tail so prompt + generation fit the slot
+            req.max_tokens = max(1, min(req.max_tokens, self.max_seq - 1))
+            if len(req.prompt_ids) >= self.max_seq:
+                keep = max(1, self.max_seq - req.max_tokens - 1)
+                req.prompt_ids = req.prompt_ids[-keep:]
+            if self.pool is not None:
+                if not self.pool.ensure(i, len(req.prompt_ids) + 1):
+                    # pool dry: return any partial grant, hold the request
+                    # until a resident slot finishes or is preempted
+                    self.pool.release(i)
+                    self._waitq.appendleft(req)
+                    break
+                self.pool.flush(self.kv)
+            slot.req = req
+            slot.prefill_off = 0
+            slot.prefilling = True
+            slot.cur_token = req.prompt_ids[-1]
+            slot.generated = []
+            self.kv.reset_slot(i)
+            if self.prefix_cache is not None:
+                hit = self.prefix_cache.match(req.prompt_ids[:-1])
+                if hit is not None:
+                    n, saved = hit
+                    self.kv.restore_slot_prefix(i, saved)
+                    slot.prefill_off = n
+                    log.debug(f"req {req.id}: prefix cache hit ({n} tok)")
+            self.penalty.reset_slot(i)
+            if (req.penalty_repeat != 1.0 or req.penalty_freq
+                    or req.penalty_present):
+                # penalties count the prompt's tokens too
+                self.penalty.seed_slot(i, req.prompt_ids)
+            seed = (req.seed if req.seed is not None
+                    else self.hp.sampler.seed + req.id * 7919 + i)
+            self.generators[i].manual_seed(seed)
+            self.n_requests += 1
+            self.n_prompt_tokens += len(req.prompt_ids)
+            log.debug(f"req {req.id} -> slot {i}")
+
+    # -- device ticks -----------------------------------------------------------
+
+    @torch.no_grad()
+    def _prefill_tick(self) -> bool:
+        """Advance every prefilling slot by one chunk. True if any ran."""
+        C = self.chunk
+        tokens = np.zeros((self.S, C), np.int64)
+        positions = np.full((self.S, C), -1, np.int64)
+        active = np.zeros(self.S, bool)
+        stores: list[tuple[int, list[int]]] = []
+        for i, slot in enumerate(self.slots):
+            if slot.req is None or not slot.prefilling:
+                continue
+            prompt = slot.req.prompt_ids[:-1]  # the last token feeds decode
+            off = slot.prefill_off
+            part = prompt[off:off + C]
+            if not part:
+                slot.prefilling = False
+                continue
+            tokens[i, :len(part)] = part
+            positions[i, :len(part)] = off + np.arange(len(part))
+            active[i] = True
+            slot.prefill_off += len(part)
+            if slot.prefill_off >= len(prompt):
+                slot.prefilling = False
+                if self.prefix_cache is not None:
+                    stores.append((i, prompt))
+        if not active.any():
+            return False
+        dev = self.device
+        self.model(self.kv, torch.from_numpy(tokens).to(dev),
+                   torch.from_numpy(positions).to(dev),
+                   active=torch.from_numpy(active).to(dev),
+                   logits_mode="none")
+        for i, prefix in stores:
+            if len(prefix) >= self.prefix_cache.min_len:
+                self.prefix_cache.put(
+                    prefix, self.kv.save_slot_prefix(i, len(prefix)))
+        return True
+
+    def _cancel_tick(self) -> None:
+        """Free slots whose consumer aborted (e.g. a stop-string match)."""
+        for i, s in enumerate(self.slots):
+            if s.req is not None and s.req.cancelled:
+                if not s.req.finish_reason:
+                    s.req.finish_reason = "stop"
+                self._emit(s.req, None)
+                self._free_slot(i)
+
+    @torch.no_grad()
+    def _decode_tick(self) -> bool:
+        decoding = [i for i, s in enumerate(self.slots)
+                    if s.req is not None and not s.prefilling]
+        if not decoding:
+            return False
+        if self.pool is not None:
+            decoding = self._ensure_decode_pages(decoding)
+            if not decoding:
+                return True  # preemptions / finishes were work
+        dev = self.device
+        S = self.S
+        tokens = torch.zeros(S, dtype=torch.int64)
+        active = torch.zeros(S, dtype=torch.bool)
+        temp = torch.zeros(S)
+        top_k = torch.zeros(S, dtype=torch.int64)
+        top_p = torch.ones(S)
+        pen = torch.ones(S)
+        pfreq = torch.zeros(S)
+        ppres = torch.zeros(S)
+        gens: list[torch.Generator | None] = [None] * S
+        for i in decoding:
+            r = self.slots[i].req
+            tokens[i] = self.slots[i].cur_token
+            active[i] = True
+            temp[i], top_k[i], top_p[i] = r.temperature, r.top_k, r.top_p
+            pen[i], pfreq[i] = r.penalty_repeat, r.penalty_freq
+            ppres[i] = r.penalty_present
+            if r.temperature > 0:
+                gens[i] = self.generators[i]
+        tok, active, temp, top_k, top_p, pen, pfreq, ppres = (
+            t.to(dev) for t in (tokens, active, temp, top_k, top_p, pen,
+                                pfreq, ppres))
+        vocab = self.cfg.llm.vocab_size
+        out_tok, out_lp, out_ti, out_tlp = [], [], [], []
+        for _ in range(self.horizon):
+            positions = torch.where(active, self.kv.pos.long(), -1)[:, None]
+            logits = self.model(self.kv, tok[:, None], positions,
+                                active=active, logits_mode="last")
+            tok = sample_logits_batched(
+                logits, temp, top_k, top_p, gens, state=self.penalty,
+                penalty_repeat=pen, penalty_freq=pfreq,
+                penalty_present=ppres, vocab_size=vocab)
+            self.penalty.push(tok, active)
+            # logprobs of the RAW model logits (before penalties and
+            # temperature): the OpenAI fields report the model's
+            # distribution, not the sampling distribution
+            lf = logits.float()[:, :vocab]
+            lse = torch.logsumexp(lf, dim=-1)
+            out_tok.append(tok)
+            out_lp.append(lf.gather(1, tok[:, None])[:, 0] - lse)
+            tv, ti = torch.topk(lf, N_TOP, dim=-1)
+            out_ti.append(ti)
+            out_tlp.append(tv - lse[:, None])
+        # one host fetch per tick
+        toks = torch.stack(out_tok, 1).cpu().tolist()
+        lps = torch.stack(out_lp, 1).cpu().tolist()
+        top_i = torch.stack(out_ti, 1).cpu().tolist()
+        top_lp = torch.stack(out_tlp, 1).cpu().tolist()
+        # positions after the tick, as the JAX scheduler's capacity check
+        # reads them
+        pos_host = self.kv.pos.cpu().tolist()
+        for i in decoding:
+            s = self.slots[i]
+            done = False
+            for h in range(self.horizon):
+                t = int(toks[i][h])
+                s.cur_token = t
+                s.generated.append(t)
+                s.req.n_generated += 1
+                self.n_tokens_generated += 1
+                if s.req.logprobs > 0:
+                    n = min(s.req.logprobs, N_TOP)
+                    s.req.token_logprobs.append(float(lps[i][h]))
+                    s.req.top_logprobs.append(
+                        list(zip(top_i[i][h][:n], top_lp[i][h][:n])))
+                self._emit(s.req, t)
+                if s.req.cancelled:
+                    s.req.finish_reason = s.req.finish_reason or "stop"
+                    done = True
+                elif t in s.req.stop_ids:
+                    s.req.finish_reason = "stop"
+                    done = True
+                elif s.req.n_generated >= s.req.max_tokens:
+                    s.req.finish_reason = "length"
+                    done = True
+                elif pos_host[i] + h + 1 >= self.max_seq - 1:
+                    s.req.finish_reason = "length"
+                    done = True
+                if done:
+                    break
+            if done:
+                self._emit(s.req, None)
+                self._free_slot(i)
+        return True
+
+    def step(self) -> bool:
+        """One scheduler iteration; True if work was done. Prefill has
+        priority (new requests start fast), but decoding slots get a tick
+        at least every `decode_every` iterations, so a stream of long
+        prompts cannot starve running generations."""
+        self._cancel_tick()
+        self._admit()
+        self._tick += 1
+        every = max(int(self.hp.decode_every), 1)
+        if self._prefill_tick():
+            if self._tick % every == 0:
+                self._decode_tick()
+            return True
+        return self._decode_tick()
+
+    # -- metrics and the thread ---------------------------------------------
+
+    @staticmethod
+    def _pct(window, q: float) -> float:
+        if not window:
+            return 0.0
+        xs = sorted(window)
+        return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+    def metrics(self) -> dict:
+        """Counters and latency percentiles for /metrics, over sliding
+        windows of the last 512 requests: ttft = submit -> first token,
+        latency = submit -> done."""
+        up = max(time.time() - self.started_at, 1e-9)
+        out = {
+            "requests_total": self.n_requests,
+            "prompt_tokens_total": self.n_prompt_tokens,
+            "generated_tokens_total": self.n_tokens_generated,
+            "slots_active": self.n_active,
+            "slots_total": self.S,
+            "queue_depth": self.pending.qsize(),
+            "uptime_seconds": up,
+            "generated_tokens_per_second": self.n_tokens_generated / up,
+            "prefix_cache_hits": (self.prefix_cache.hits
+                                  if self.prefix_cache else 0),
+            "prefix_cache_misses": (self.prefix_cache.misses
+                                    if self.prefix_cache else 0),
+        }
+        if self.pool is not None:
+            out["paged_pages_total"] = self.pool.n_pages
+            out["paged_pages_free"] = self.pool.n_free
+            out["paged_preemptions_total"] = self.n_preemptions
+            out["paged_deferred_requests"] = len(self._waitq)
+        for name, win in (("ttft_seconds", self._ttft),
+                          ("request_latency_seconds", self._req_latency)):
+            for q in (0.5, 0.9, 0.99):
+                out[f"{name}_p{int(q * 100)}"] = self._pct(win, q)
+        return out
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                busy = self.step()
+            except Exception:  # noqa: BLE001 — the server must keep serving
+                # a failed step fails every in-flight request and the
+                # scheduler goes on with the next ones
+                log.exception("scheduler step failed; resetting slots")
+                for i, s in enumerate(self.slots):
+                    if s.req is not None:
+                        s.req.finish_reason = "error"
+                        self._emit(s.req, None)
+                        self._free_slot(i)
+                busy = False
+            if not busy:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()

@@ -1,1 +1,1 @@
-"""The int8 KV cache."""
+"""The int8 KV cache: dense per-slot slabs or the paged pool."""

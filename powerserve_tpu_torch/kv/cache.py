@@ -10,6 +10,10 @@ The JAX package updates the cache functionally; here writes go into the
 same tensors, and the contents match the JAX cache entry for entry.
 Positions outside [0, max_seq) — inactive slots are fed -1 — are dropped,
 as JAX's scatter mode="drop" drops them.
+
+kv/paged.py's PagedKVCache keeps the same method names and signatures
+(write_index/write, the mask and pos ops, the prefix snapshots), so the
+model's forward and the scheduler take either cache.
 """
 
 from __future__ import annotations
@@ -130,3 +134,22 @@ class KVCache:
         """Clear one slot."""
         self.mask[slot] = False
         self.pos[slot] = 0
+
+    def save_slot_prefix(self, slot: int, n: int) -> dict:
+        """Snapshot the first n cached tokens of one slot: copies, so
+        later writes into the slot leave the snapshot as it was (a prompt
+        prefix cache entry). Format: {"n", "k", "v" [L, H, n, D],
+        "k_scale", "v_scale" [L, H, n]}, shared with the paged pool."""
+        return {"n": n,
+                "k": self.k[:, slot, :, :n].clone(),
+                "v": self.v[:, slot, :, :n].clone(),
+                "k_scale": self.k_scale[:, slot, :, :n].clone(),
+                "v_scale": self.v_scale[:, slot, :, :n].clone()}
+
+    def restore_slot_prefix(self, slot: int, saved: dict) -> None:
+        """Write a saved prefix into a slot; mask/pos cover exactly it."""
+        n = saved["n"]
+        for name in ("k", "v", "k_scale", "v_scale"):
+            getattr(self, name)[:, slot, :, :n] = saved[name]
+        self.mask[slot] = torch.arange(self.max_seq, device=self.device) < n
+        self.pos[slot] = n

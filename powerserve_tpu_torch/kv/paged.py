@@ -1,0 +1,209 @@
+"""Paged int8 KV pool: memory oversubscription across batch slots.
+
+The dense KVCache reserves max_seq positions for every slot. Here K/V
+live in a shared pool of fixed-size pages ([L, P, Hkv, page, D]) and
+each slot maps its logical positions onto pool pages through a page
+table, so the cache holds P * page tokens however many slots there are
+and however long one of them may grow (vLLM-style paging).
+
+  k/v        [L, P, Hkv, page, D] int8 pool slabs
+  k_scale/
+  v_scale    [L, P, Hkv, page] f32 per-(token, head) scales
+  page_table [S, max_pages] int32 — pool page id, or P = unallocated
+  mask       [S, T_logical] bool (T_logical = max_pages * page)
+  pos        [S] int32
+
+Writes translate logical positions to (page, row) and drop positions
+outside [0, T_logical) or on an unallocated page, as JAX's scatter
+mode="drop" drops them (an index of P or -1 never reaches the pool).
+The mask and pos ops are the dense cache's: they never touch K/V. The
+page table is pushed from the host allocator `PagePool`, which the
+scheduler drives between device steps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..ops.flash_decode import gather_pages
+from .cache import KVCache
+
+
+class PagedKVCache(KVCache):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: torch.Tensor, v_scale: torch.Tensor,
+                 page_table: torch.Tensor, mask: torch.Tensor,
+                 pos: torch.Tensor, page_size: int):
+        super().__init__(k, v, k_scale, v_scale, mask, pos)
+        self.page_table = page_table
+        self.page_size = page_size
+
+    @classmethod
+    def create(cls, n_layers: int, n_slots: int, max_seq: int,
+               n_kv_heads: int, head_dim: int,
+               device: str | torch.device | None = None, *, n_pages: int,
+               page_size: int = 64) -> "PagedKVCache":
+        """max_seq: per-slot logical capacity (rounded up to whole pages);
+        n_pages: pool capacity — oversubscribed when n_pages * page_size
+        < n_slots * max_seq."""
+        dev = resolve_device(device)
+        max_pages = -(-max_seq // page_size)
+        shape = (n_layers, n_pages, n_kv_heads, page_size, head_dim)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=dev),
+                   torch.zeros(shape, dtype=torch.int8, device=dev),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                   torch.full((n_slots, max_pages), n_pages,
+                              dtype=torch.int32, device=dev),
+                   torch.zeros(n_slots, max_pages * page_size,
+                               dtype=torch.bool, device=dev),
+                   torch.zeros(n_slots, dtype=torch.int32, device=dev),
+                   page_size)
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1]
+
+    @property
+    def n_slots(self) -> int:
+        return self.page_table.shape[0]
+
+    @property
+    def max_pages(self) -> int:
+        return self.page_table.shape[1]
+
+    @property
+    def max_seq(self) -> int:
+        """Logical per-slot capacity."""
+        return self.max_pages * self.page_size
+
+    def locate(self, positions: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """[S, ...] logical positions -> (pool pages, rows in the page).
+        Out-of-range positions and unallocated pages give page P."""
+        P = self.n_pages
+        ok = (positions >= 0) & (positions < self.max_seq)
+        pidx = torch.where(ok, positions // self.page_size, 0).long()
+        rows = torch.arange(self.n_slots, device=positions.device)
+        rows = rows.reshape((-1,) + (1,) * (positions.dim() - 1))
+        pages = self.page_table[rows, pidx]
+        pages = torch.where(ok & (pages < P), pages, P)
+        offs = torch.where(ok, positions % self.page_size, 0)
+        return pages, offs
+
+    def write_index(self, positions: torch.Tensor) -> tuple:
+        """(slot, batch column, pool page, row) of every entry of
+        positions [S, Tq] that lands on an allocated page."""
+        pages, offs = self.locate(positions)
+        s_idx, t_idx = (pages < self.n_pages).nonzero(as_tuple=True)
+        return (s_idx, t_idx, pages[s_idx, t_idx].long(),
+                offs[s_idx, t_idx].long())
+
+    def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+              index: tuple) -> None:
+        """Quantize k_new/v_new [S, Tq, Hkv, D] and store them for one
+        layer at `index` (from write_index)."""
+        s_idx, t_idx, pages, offs = index
+        for pool, scales, new in ((self.k, self.k_scale, k_new),
+                                  (self.v, self.v_scale, v_new)):
+            qv, sv = self.quantize_kv(new)
+            pool[layer][pages, :, offs] = qv[s_idx, t_idx]
+            scales[layer][pages, :, offs] = sv[s_idx, t_idx]
+
+    def gather_slab(self, slab: torch.Tensor) -> torch.Tensor:
+        """One layer's pool slab [P, Hkv, page(, D)] -> the per-slot view
+        [S, Hkv, T_logical(, D)] in the dense cache's layout
+        (unallocated pages read a clipped pool page; hidden by the mask)."""
+        return gather_pages(slab, self.page_table)
+
+    def save_slot_prefix(self, slot: int, n: int) -> dict:
+        """The first n tokens of one slot as dense copies, in the dense
+        cache's snapshot format (so prefix-cache entries interoperate)."""
+        n_pg = -(-n // self.page_size)
+        pt = self.page_table[slot, :n_pg].long().clamp(max=self.n_pages - 1)
+
+        def dense(pool):  # [L, P, H, page(, D)] -> [L, H, n(, D)]
+            g = pool[:, pt].movedim(2, 1)  # [L, H, n_pg, page(, D)]
+            g = g.reshape((pool.shape[0], pool.shape[2],
+                           n_pg * self.page_size) + tuple(pool.shape[4:]))
+            return g[:, :, :n].clone()
+
+        return {"n": n, "k": dense(self.k), "v": dense(self.v),
+                "k_scale": dense(self.k_scale),
+                "v_scale": dense(self.v_scale)}
+
+    def restore_slot_prefix(self, slot: int, saved: dict) -> None:
+        """Write a dense snapshot into this slot's (allocated) pages;
+        mask/pos cover exactly the prefix."""
+        n = saved["n"]
+        positions = torch.full((self.n_slots, n), -1, dtype=torch.int64,
+                               device=self.device)
+        positions[slot] = torch.arange(n, device=self.device)
+        _, t_idx, pages, offs = self.write_index(positions)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            # the two index tensors around a slice put their axis first:
+            # the target is [n, L, H(, D)]
+            vals = saved[name].movedim(2, 0)  # [n, L, H(, D)]
+            getattr(self, name)[:, pages, :, offs] = vals[t_idx]
+        self.mask[slot] = torch.arange(self.max_seq, device=self.device) < n
+        self.pos[slot] = n
+
+    def assign_pages(self, table: np.ndarray) -> None:
+        """Replace the whole page table ([S, max_pages], P = unallocated)."""
+        self.page_table.copy_(torch.from_numpy(np.asarray(table, np.int32)))
+
+
+class PagePool:
+    """Host-side page allocator: a free list and per-slot ownership.
+
+    The scheduler calls ensure()/release() between device steps and
+    pushes `table` (the numpy mirror) with flush() when it changed. No
+    device state lives here."""
+
+    def __init__(self, n_pages: int, n_slots: int, max_pages: int,
+                 page_size: int):
+        self.n_pages = n_pages
+        self.page_size = page_size
+        self.max_pages = max_pages
+        self._free: list[int] = list(range(n_pages))
+        self.owned: list[list[int]] = [[] for _ in range(n_slots)]
+        self.table = np.full((n_slots, max_pages), n_pages, np.int32)
+        self.dirty = False
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def ensure(self, slot: int, n_tokens: int) -> bool:
+        """Grow `slot`'s mapping to cover n_tokens logical positions.
+        False (allocating nothing further) when the pool or the slot's
+        logical range runs out: the caller preempts or defers."""
+        need = -(-n_tokens // self.page_size)
+        if need > self.max_pages:
+            return False
+        cur = len(self.owned[slot])
+        while cur < need:
+            if not self._free:
+                return False
+            pg = self._free.pop()
+            self.table[slot, cur] = pg
+            self.owned[slot].append(pg)
+            cur += 1
+            self.dirty = True
+        return True
+
+    def release(self, slot: int) -> None:
+        """Return all of a slot's pages to the pool."""
+        if self.owned[slot]:
+            self._free.extend(self.owned[slot])
+            self.owned[slot] = []
+            self.table[slot, :] = self.n_pages
+            self.dirty = True
+
+    def flush(self, kv: PagedKVCache) -> None:
+        """Push the mirror to the device page table if it changed."""
+        if self.dirty:
+            kv.assign_pages(self.table)
+            self.dirty = False

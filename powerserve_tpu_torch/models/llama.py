@@ -11,8 +11,14 @@ outputs, int8 KV cache with per-(token, head) scales.
 Each layer writes its new K/V into the cache in place before attention
 (the JAX main path defers the write past the layer scan to dodge an XLA
 aliasing cost; the cache contents are the same). Decode-sized batches
-(Tq <= 16) attend through the flash-decode kernel, prefill chunks through
-the plain gqa_attention_quant.
+(Tq <= 16) attend through the flash-decode kernel over the visibility
+that build_visibility gives; larger batches are prefill chunks (each
+slot's real lanes contiguous from positions[:, 0], padding at the end)
+and attend through the flash-prefill kernel, which computes that
+visibility itself. The cache is the dense KVCache or the paged pool
+(kv/paged.py): paged decode reads the pool through the page table in
+the paged flash-decode kernel; paged prefill attends over the gathered
+slot view, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,14 +31,34 @@ from torch import nn
 from ..core.config import LLMConfig
 from ..core.quant import QK
 from ..kv.cache import KVCache
-from ..ops.attention import build_visibility, gqa_attention_quant
+from ..kv.paged import PagedKVCache
+from ..ops.attention import build_visibility
 from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
-from ..ops.flash_decode import flash_decode_quant
+from ..ops.flash_decode import flash_decode_paged, flash_decode_quant
+from ..ops.flash_prefill import flash_prefill_quant
 from ..ops.fused import fused_linear
 from ..ops.qmatmul import QLinear, qmatmul
 
 # the largest query batch that attends through the flash-decode kernel
 DECODE_MAX_TQ = 16
+
+
+def attention(kv: KVCache, layer: int, q: torch.Tensor,
+              vis: torch.Tensor | None, start: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """One layer's attention over the cache (the new K/V already
+    written): q [S, Tq, H, D]; vis [S, Tq, T] for decode-sized batches
+    (None for prefill); start [S] = positions[:, 0]; kv.mask as before
+    this batch. Returns f32 [S, Tq, H * D]."""
+    slabs = (kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer])
+    decode = q.shape[1] <= DECODE_MAX_TQ
+    if isinstance(kv, PagedKVCache):
+        if decode:
+            return flash_decode_paged(q, *slabs, kv.page_table, vis, scale)
+        slabs = tuple(kv.gather_slab(t) for t in slabs)
+    if decode:
+        return flash_decode_quant(q, *slabs, vis, scale)
+    return flash_prefill_quant(q, *slabs, kv.mask, start, scale)
 
 
 class QEmbedding(nn.Module):
@@ -87,7 +113,8 @@ class LlamaLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, llm: LLMConfig, kv: KVCache,
                 layer: int, cos: torch.Tensor, sin: torch.Tensor,
-                vis: torch.Tensor, index: tuple) -> torch.Tensor:
+                vis: torch.Tensor | None, start: torch.Tensor,
+                index: tuple) -> torch.Tensor:
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
         eps = llm.norm_eps
@@ -112,13 +139,7 @@ class LlamaLayer(nn.Module):
         k = apply_rope(k, cos, sin, llm.rope.rope_type)
 
         kv.write(layer, k, v, index)
-        cache = (kv.k[layer], kv.k_scale[layer], kv.v[layer],
-                 kv.v_scale[layer])
-        scale = 1.0 / math.sqrt(D)
-        if Tq <= DECODE_MAX_TQ:
-            attn = flash_decode_quant(q, *cache, vis, scale)
-        else:
-            attn = gqa_attention_quant(q, *cache, vis, scale)
+        attn = attention(kv, layer, q, vis, start, 1.0 / math.sqrt(D))
         attn_out = qmatmul(attn.reshape(S * Tq, -1).to(torch.bfloat16),
                            self.wo)
         x = x + attn_out.reshape(S, Tq, -1).to(x.dtype)
@@ -159,9 +180,12 @@ class LlamaModel(nn.Module):
                 logits_mode: str = "last") -> torch.Tensor:
         """One forward pass over a batch of slots; updates kv in place.
 
+        kv: the dense KVCache or the paged PagedKVCache.
         tokens/positions: [S, Tq] (positions drive RoPE and the cache
-        writes; -1 or >= max_seq are not written). active: [S] bool rows
-        whose pos advances (default all).
+        writes; -1 or >= max_seq are not written). For Tq > DECODE_MAX_TQ
+        each slot's real positions must run contiguously from
+        positions[:, 0], padding (-1) at the end — a prefill chunk.
+        active: [S] bool rows whose pos advances (default all).
         logits_mode: "last" -> f32 [S, vocab] for the final position;
           "all" -> [S, Tq, vocab]; "argmax" -> greedy tokens int32 [S];
           "none" -> [S, 0].
@@ -170,10 +194,12 @@ class LlamaModel(nn.Module):
         S, Tq = tokens.shape
         x = self.embed.lookup(tokens).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
-        vis = build_visibility(kv.mask, positions)
+        vis = (build_visibility(kv.mask, positions) if Tq <= DECODE_MAX_TQ
+               else None)
+        start = positions[:, 0]
         index = kv.write_index(positions)
         for i, layer in enumerate(self.layers):
-            x = layer(x, llm, kv, i, cos, sin, vis, index)
+            x = layer(x, llm, kv, i, cos, sin, vis, start, index)
         kv.advance(positions, active=active)
 
         if logits_mode == "none":

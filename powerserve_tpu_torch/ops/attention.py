@@ -1,9 +1,10 @@
 """Masked GQA attention over the int8 KV cache (plain PyTorch).
 
 The visibility mask combines the cache's mask with the new batch's
-positions, so one code path serves chunked prefill and decode. Decode-
-sized batches go to the flash-decode kernel (ops/flash_decode.py);
-`gqa_attention_quant` is the prefill attention of this slice.
+positions, so one code path serves chunked prefill and decode. The model
+attends through the kernels (ops/flash_decode.py for decode-sized
+batches, ops/flash_prefill.py for prefill chunks); `gqa_attention_quant`
+is the one-softmax reference the tests hold their twins against.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0}
+LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
+            "flash_prefill": 0, "flash_decode_paged": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -129,6 +130,14 @@ def lib() -> ctypes.CDLL:
         L.ps_flash_decode_smem.restype = ctypes.c_size_t
         L.ps_flash_decode_splits.argtypes = [I]
         L.ps_flash_decode_splits.restype = I
+        L.ps_flash_decode_paged.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
+                                            I, I, I, I, I, I, I, I, F, P]
+        L.ps_flash_decode_paged.restype = I
+        L.ps_flash_prefill.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                       I, F, P]
+        L.ps_flash_prefill.restype = I
+        L.ps_flash_prefill_smem.argtypes = [I, I]
+        L.ps_flash_prefill_smem.restype = ctypes.c_size_t
         _lib = L
     return _lib
 

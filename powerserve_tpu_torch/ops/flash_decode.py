@@ -22,6 +22,13 @@ can also match the JAX kernel's 512-token chunks exactly.
 A row that sees no position at all averages V over the T positions (the
 masked scores are a finite -1e30, as in the JAX reference); the JAX
 Pallas kernel averages over T rounded up to its chunk instead.
+
+`flash_decode_paged` is the same attention over the paged pool
+(kv/paged.py): the kernel reads logical position t of slot s from pool
+page page_table[s, t // page], row t % page; the twin
+`flash_decode_paged_reference` gathers the slot views and runs the dense
+twin. Unallocated entries (= P) are clipped into the pool in both; only
+hidden positions map there.
 """
 
 from __future__ import annotations
@@ -83,6 +90,52 @@ def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(S, Tq, H * D)
 
 
+def gather_pages(slab: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """Pool slab [P, H, page(, D)] -> per-slot view [S, H, MP * page(, D)]
+    through page_table [S, MP] (entries clipped into [0, P))."""
+    S, MP = page_table.shape
+    pt = page_table.long().clamp(0, slab.shape[0] - 1)
+    out = slab[pt].movedim(2, 1)  # [S, H, MP, page(, D)]
+    return out.reshape((S, slab.shape[1], MP * slab.shape[2])
+                       + tuple(slab.shape[3:]))
+
+
+def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                 ks_pool: torch.Tensor, v_pool: torch.Tensor,
+                                 vs_pool: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 visibility: torch.Tensor, scale: float,
+                                 chunk: int = KERNEL_CHUNK,
+                                 split: int | None = KERNEL_SPLIT
+                                 ) -> torch.Tensor:
+    """Plain PyTorch twin of the paged kernel: the gathered slot views
+    through the dense twin. Pools [P, Hkv, page(, D)], page_table int32
+    [S, MP], visibility bool [S, Tq, MP * page]."""
+    return flash_decode_quant_reference(
+        q, *(gather_pages(t, page_table)
+             for t in (k_pool, ks_pool, v_pool, vs_pool)),
+        visibility, scale, chunk, split)
+
+
+def _splits_scratch(L, S: int, Hkv: int, R: int, T: int, D: int,
+                    dev: torch.device):
+    n_split = L.ps_flash_decode_splits(T)
+    m_part = torch.empty(S, Hkv, n_split, R, dtype=torch.float32, device=dev)
+    acc_part = torch.empty(S, Hkv, n_split, R, D, dtype=torch.float32,
+                           device=dev)
+    return m_part, torch.empty_like(m_part), acc_part
+
+
+def _check_smem(L, dev: torch.device, R: int, Tq: int, T: int, D: int,
+                name: str) -> None:
+    smem = L.ps_flash_decode_smem(R, Tq, T, D)
+    limit = cuda_lib.max_dynamic_smem(dev)
+    if smem > limit:
+        raise ValueError(f"{name}: G*Tq={R}, T={T}, D={D} needs {smem} bytes "
+                         f"of shared memory, the card has {limit}")
+
+
 def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                       vq: torch.Tensor, vs: torch.Tensor,
                       visibility: torch.Tensor, scale: float) -> torch.Tensor:
@@ -104,18 +157,9 @@ def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         cuda_lib.require(t, name, dev, (torch.float32,), (S, Hkv, T))
     cuda_lib.require(vis, "visibility", dev, (torch.uint8,), (S, Tq, T))
     L = cuda_lib.lib()
-    smem = L.ps_flash_decode_smem((H // Hkv) * Tq, Tq, T, D)
-    limit = cuda_lib.max_dynamic_smem(dev)
-    if smem > limit:
-        raise ValueError(f"flash_decode: G*Tq={(H // Hkv) * Tq}, T={T}, D={D} "
-                         f"needs "
-                         f"{smem} bytes of shared memory, the card has {limit}")
     R = (H // Hkv) * Tq
-    n_split = L.ps_flash_decode_splits(T)
-    m_part = torch.empty(S, Hkv, n_split, R, dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty(S, Hkv, n_split, R, D, dtype=torch.float32,
-                           device=dev)
+    _check_smem(L, dev, R, Tq, T, D, "flash_decode")
+    m_part, l_part, acc_part = _splits_scratch(L, S, Hkv, R, T, D, dev)
     out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
     rc = L.ps_flash_decode(q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                            vq.data_ptr(), vs.data_ptr(), vis.data_ptr(),
@@ -141,3 +185,62 @@ def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         raise ValueError(f"the kernel stages {KERNEL_CHUNK}-token chunks in "
                          f"{KERNEL_SPLIT}-token splits, got {chunk}, {split}")
     return flash_decode_cuda(q, kq, ks, vq, vs, visibility, scale)
+
+
+def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
+                            ks_pool: torch.Tensor, v_pool: torch.Tensor,
+                            vs_pool: torch.Tensor, page_table: torch.Tensor,
+                            visibility: torch.Tensor,
+                            scale: float) -> torch.Tensor:
+    """Launch csrc/flash_decode.cu in paged mode (one CUDA device)."""
+    dev = q.device
+    S, Tq, H, D = q.shape
+    if k_pool.dim() != 4:
+        raise ValueError(f"k_pool must be [P, Hkv, page, D], got "
+                         f"{tuple(k_pool.shape)}")
+    P, Hkv, page = k_pool.shape[:3]
+    MP = page_table.shape[1]
+    T = MP * page
+    if H % Hkv or D % 4:
+        raise ValueError(f"H={H}, Hkv={Hkv}, D={D}: need H % Hkv == 0 and "
+                         f"D % 4 == 0")
+    q = q.float().contiguous()
+    vis = visibility.contiguous().view(torch.uint8)
+    pt = page_table.to(torch.int32).contiguous()
+    cuda_lib.require(q, "q", dev, (torch.float32,), (S, Tq, H, D))
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        cuda_lib.require(t, name, dev, (torch.int8,), (P, Hkv, page, D))
+    for name, t in (("ks_pool", ks_pool), ("vs_pool", vs_pool)):
+        cuda_lib.require(t, name, dev, (torch.float32,), (P, Hkv, page))
+    cuda_lib.require(pt, "page_table", dev, (torch.int32,), (S, MP))
+    cuda_lib.require(vis, "visibility", dev, (torch.uint8,), (S, Tq, T))
+    L = cuda_lib.lib()
+    R = (H // Hkv) * Tq
+    _check_smem(L, dev, R, Tq, T, D, "flash_decode_paged")
+    m_part, l_part, acc_part = _splits_scratch(L, S, Hkv, R, T, D, dev)
+    out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+    rc = L.ps_flash_decode_paged(
+        q.data_ptr(), k_pool.data_ptr(), ks_pool.data_ptr(),
+        v_pool.data_ptr(), vs_pool.data_ptr(), pt.data_ptr(), vis.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        out.data_ptr(), S, Tq, H, Hkv, MP, page, P, D, float(scale),
+        cuda_lib.stream(dev))
+    cuda_lib.LAUNCHES["flash_decode_paged"] += 1
+    cuda_lib.check(rc, "flash_decode_paged")
+    return out
+
+
+def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                       ks_pool: torch.Tensor, v_pool: torch.Tensor,
+                       vs_pool: torch.Tensor, page_table: torch.Tensor,
+                       visibility: torch.Tensor, scale: float) -> torch.Tensor:
+    """q: [S, Tq, H, D]; k_pool/v_pool: [P, Hkv, page, D] int8;
+    ks_pool/vs_pool: [P, Hkv, page]; page_table: [S, MP] int32 (P =
+    unallocated); visibility: [S, Tq, MP * page] bool.
+    Returns [S, Tq, H*D] f32."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_reference(q, k_pool, ks_pool, v_pool,
+                                            vs_pool, page_table, visibility,
+                                            scale)
+    return flash_decode_paged_cuda(q, k_pool, ks_pool, v_pool, vs_pool,
+                                   page_table, visibility, scale)

@@ -5,6 +5,11 @@ Softmax -> TopP -> Normalize -> Stochastic, with the repeat-penalty
 window in a per-slot ring buffer. Draws come from an explicit
 torch.Generator (they differ from jax.random's for the same seed; the
 greedy path draws nothing).
+
+`sample_dist_batched` / `sample_logits_batched` are the scheduler's
+chain: every slot carries its own temperature, top-k, top-p and
+penalties as [S] tensors, and draws from its own generator, so a
+request with a seed reproduces its samples whatever else runs.
 """
 
 from __future__ import annotations
@@ -139,3 +144,88 @@ def sample_logits(logits: torch.Tensor, cfg: SamplerConfig,
     probs = apply_top_p(probs, cfg.top_p, cfg.min_keep)
     probs = probs / probs.sum(dim=-1, keepdim=True)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def sample_dist_batched(logits: torch.Tensor, temperature: torch.Tensor,
+                        top_k: torch.Tensor, top_p: torch.Tensor,
+                        state: PenaltyState | None = None,
+                        penalty_repeat: torch.Tensor | None = None,
+                        penalty_freq: torch.Tensor | None = None,
+                        penalty_present: torch.Tensor | None = None,
+                        max_top_k: int = 64,
+                        vocab_size: int | None = None) -> torch.Tensor:
+    """Each slot's sampling distribution [S, V] (normalized) after the
+    chain penalties -> top-k -> temperature -> top-p; a slot with
+    temperature <= 0 gets a one-hot at its post-penalty argmax.
+
+    Penalties count every token of the slot's window: positive logits of
+    those tokens are divided by penalty_repeat and negative ones
+    multiplied, then lf -= count * penalty_freq + present *
+    penalty_present (the OpenAI frequency/presence penalties). top_k <= 0
+    means max_top_k."""
+    S, V = logits.shape
+    lf = logits.float()
+    if vocab_size is not None and vocab_size < V:
+        col = torch.arange(V, device=lf.device)[None, :]
+        lf = torch.where(col < vocab_size, lf, NEG_INF)
+    if state is not None and (penalty_repeat is not None
+                              or penalty_freq is not None
+                              or penalty_present is not None):
+        idx = torch.where(state.recent >= 0, state.recent.long(), V)
+        counts = torch.zeros(S, V + 1, dtype=torch.float32, device=lf.device)
+        counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+        counts = counts[:, :V]
+        present = counts > 0
+        if penalty_repeat is not None:
+            pr = penalty_repeat[:, None]
+            lf = torch.where(present, torch.where(lf > 0, lf / pr, lf * pr),
+                             lf)
+        if penalty_freq is not None:
+            lf = lf - counts * penalty_freq[:, None]
+        if penalty_present is not None:
+            lf = lf - present.float() * penalty_present[:, None]
+    greedy_tok = torch.argmax(lf, dim=-1)
+
+    kmax = min(max_top_k, V)
+    kth = torch.topk(lf, kmax, dim=-1).values  # [S, kmax] descending
+    k_eff = torch.clamp(torch.where(top_k <= 0, kmax, top_k), 1, kmax)
+    thr = torch.gather(kth, 1, (k_eff - 1).long()[:, None])
+    lf = torch.where(lf < thr, NEG_INF, lf)
+
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    probs = torch.softmax(lf / temp, dim=-1)
+
+    sorted_probs = torch.sort(probs, dim=-1, descending=True).values
+    csum = torch.cumsum(sorted_probs, dim=-1)
+    keep = (csum - sorted_probs) < top_p[:, None]
+    keep[:, 0] = True
+    pthr = torch.where(keep, sorted_probs, torch.inf).amin(dim=-1,
+                                                          keepdim=True)
+    probs = torch.where(probs >= pthr, probs, 0.0)
+    probs = probs / torch.clamp(probs.sum(dim=-1, keepdim=True), min=1e-30)
+    onehot = torch.nn.functional.one_hot(greedy_tok, V).float()
+    return torch.where(temperature[:, None] <= 0.0, onehot, probs)
+
+
+def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
+                          top_k: torch.Tensor, top_p: torch.Tensor,
+                          generators: list[torch.Generator | None],
+                          state: PenaltyState | None = None,
+                          penalty_repeat: torch.Tensor | None = None,
+                          penalty_freq: torch.Tensor | None = None,
+                          penalty_present: torch.Tensor | None = None,
+                          max_top_k: int = 64,
+                          vocab_size: int | None = None) -> torch.Tensor:
+    """Per-slot sampling with tensor parameters [S] -> token ids [S]
+    (int64). Slot i draws from generators[i]; a slot whose generator is
+    None takes the argmax of its distribution without a draw (the caller
+    passes None for greedy slots, temperature <= 0, so the host needs no
+    look at the device to know which slots draw)."""
+    probs = sample_dist_batched(logits, temperature, top_k, top_p, state,
+                                penalty_repeat, penalty_freq,
+                                penalty_present, max_top_k, vocab_size)
+    tokens = torch.argmax(probs, dim=-1)
+    for i, gen in enumerate(generators):
+        if gen is not None:
+            tokens[i] = torch.multinomial(probs[i], 1, generator=gen)[0]
+    return tokens

@@ -1,0 +1,105 @@
+"""In-process serving API: the model registry and the continuous-batching
+scheduler behind a small synchronous surface, no HTTP — for Python hosts
+(notebooks, agent frameworks, test harnesses) that embed the engine:
+
+    from powerserve_tpu_torch.serving.local import LocalServer
+
+    srv = LocalServer("/path/to/models", model="llama8b")  # device cuda
+    text = srv.completion("The capital of France is", max_tokens=16)
+    for piece in srv.completion("Tell me a story", stream=True):
+        print(piece, end="", flush=True)
+    reply = srv.chat([{"role": "user", "content": "hi"}])
+    srv.close()
+
+Same semantics as the HTTP server: chat templates, UTF-8-safe streaming,
+stop strings and ids, per-request sampling. Thread-safe: requests ride
+the scheduler's own queue.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import torch
+
+from ..core.config import HyperParams
+from .server import (IncrementalDecoder, ModelContext, ServerContext,
+                     StopMatcher, _sampling_from_body, _text_messages,
+                     generate)
+
+SAMPLING_KEYS = {"max_tokens", "temperature", "top_k", "top_p",
+                 "repeat_penalty", "frequency_penalty", "presence_penalty",
+                 "seed"}
+
+
+class LocalServer:
+    """Synchronous in-process front end over ServerContext."""
+
+    def __init__(self, model_root, model: str = "",
+                 hp: HyperParams | None = None,
+                 device: str | torch.device | None = None):
+        self.ctx = ServerContext(model_root, model, hp or HyperParams(),
+                                 device)
+        self.default_model = model
+
+    def _stream(self, mctx: ModelContext, prompt_ids: list[int],
+                sampling: dict, stop_strings: list[str]) -> Iterator[str]:
+        tok = mctx.tokenizer
+        stop_ids = set(tok.stop_ids)
+        dec = IncrementalDecoder(tok)
+        matcher = StopMatcher(stop_strings)
+        for t, req in generate(mctx, prompt_ids, sampling, stop_ids):
+            piece = matcher.push(dec.push(t) if t not in stop_ids else "")
+            if matcher.stopped:
+                req.cancelled = True
+            if piece:
+                yield piece
+            if matcher.stopped:
+                return
+        # end of stream: the decoder's held-back bytes and the matcher's
+        # unmatched tail
+        tail = matcher.push(dec.flush())
+        if not matcher.stopped:
+            tail += matcher.flush()
+        if tail:
+            yield tail
+
+    @staticmethod
+    def _sampling(kw: dict) -> dict:
+        """The request body's sampling keys, with the server's defaults."""
+        unknown = set(kw) - SAMPLING_KEYS
+        if unknown:
+            raise TypeError(f"unknown sampling params: {sorted(unknown)}")
+        return _sampling_from_body(kw)
+
+    def completion(self, prompt: str, model: str | None = None,
+                   stream: bool = False, stop: list[str] | None = None,
+                   **sampling):
+        """Plain completion. stream=False -> str; True -> piece iterator."""
+        mctx = self.ctx.get(model or self.default_model)
+        it = self._stream(mctx, mctx.tokenize(prompt),
+                          self._sampling(sampling), stop or [])
+        return it if stream else "".join(it)
+
+    def chat(self, messages: list[dict], model: str | None = None,
+             stream: bool = False, stop: list[str] | None = None,
+             **sampling):
+        """Chat completion through the model's chat template."""
+        mctx = self.ctx.get(model or self.default_model)
+        prompt = mctx.tokenizer.apply_chat_template(_text_messages(messages))
+        it = self._stream(mctx, mctx.tokenize(prompt),
+                          self._sampling(sampling), stop or [])
+        return it if stream else "".join(it)
+
+    def metrics(self, model: str | None = None) -> dict:
+        return self.ctx.get(model or self.default_model).scheduler.metrics()
+
+    def close(self) -> None:
+        self.ctx.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

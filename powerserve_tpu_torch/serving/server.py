@@ -1,0 +1,597 @@
+"""OpenAI-compatible HTTP server over the continuous-batching scheduler.
+
+  POST /completion, /completions, /v1/completions
+  POST /chat/completions, /v1/chat/completions
+  GET  /v1/models, /health, /metrics
+
+SSE streaming emits `data: {...}` chunks then `data: [DONE]`, with
+UTF-8-safe text chunking; response bodies carry the JAX server's keys.
+Built on the standard library's ThreadingHTTPServer (the machine with
+the GPU has no aiohttp): each request gets a handler thread that
+tokenizes, submits to the model's BatchScheduler and waits on a queue;
+only the scheduler thread touches the device. Streams are chunked
+`text/event-stream` responses.
+
+Not ported yet, and answered with a 400: speculative model names
+("main+draft", EAGLE heads), VLM models and images, sessions.
+
+    python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
+        --page-size P] [--max-slots S] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import threading
+import time
+import uuid
+from dataclasses import dataclass, field
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import torch
+
+from ..core.config import HyperParams, ModelConfig, WorkspaceConfig
+from ..core.device import resolve_device
+from ..core.logging import get_logger
+from ..engine.scheduler import BatchScheduler, Request
+from ..models.llama import LlamaModel
+from ..models.loader import load_gguf_model
+from ..tokenizer import Tokenizer
+
+log = get_logger("server")
+
+
+class HTTPError(Exception):
+    """An error answered with `status` and a plain-text body."""
+
+    def __init__(self, status: int, text: str):
+        super().__init__(text)
+        self.status = status
+        self.text = text
+
+
+class IncrementalDecoder:
+    """UTF-8-safe streaming detokenizer: holds back text that ends in a
+    partial multibyte sequence."""
+
+    def __init__(self, tokenizer: Tokenizer):
+        self.tok = tokenizer
+        self.ids: list[int] = []
+        self.emitted = 0
+
+    def push(self, token_id: int) -> str:
+        self.ids.append(token_id)
+        text = self.tok.to_string(self.ids)
+        if text.endswith("�"):
+            return ""
+        out = text[self.emitted:]
+        self.emitted = len(text)
+        return out
+
+    def flush(self) -> str:
+        text = self.tok.to_string(self.ids)
+        out = text[self.emitted:]
+        self.emitted = len(text)
+        return out
+
+
+class StopMatcher:
+    """Stop-string detection over streamed text with holdback: text that
+    could be the prefix of a stop string is buffered until disambiguated
+    (`.push("<|e") -> ""` then `.push("nd|>") -> stop`)."""
+
+    def __init__(self, stops: list[str]):
+        self.stops = [s for s in stops if s]
+        self.buf = ""
+        self.stopped = False
+
+    def push(self, piece: str) -> str:
+        """Text safe to emit; sets .stopped when a stop string matched
+        (the emitted text excludes it)."""
+        if not self.stops:
+            return piece
+        self.buf += piece
+        hits = [(self.buf.find(s), s) for s in self.stops if s in self.buf]
+        if hits:
+            i, _ = min(hits)
+            out, self.buf = self.buf[:i], ""
+            self.stopped = True
+            return out
+        hold = 0
+        for s in self.stops:
+            for ln in range(min(len(s) - 1, len(self.buf)), 0, -1):
+                if self.buf.endswith(s[:ln]):
+                    hold = max(hold, ln)
+                    break
+        cut = len(self.buf) - hold
+        out, self.buf = self.buf[:cut], self.buf[cut:]
+        return out
+
+    def flush(self) -> str:
+        out, self.buf = self.buf, ""
+        return out
+
+
+@dataclass
+class ModelContext:
+    name: str
+    scheduler: BatchScheduler
+    tokenizer: Tokenizer
+    # tokenizers build lazy tables at first use: handler threads encode
+    # one at a time
+    lock: threading.Lock = field(default_factory=threading.Lock)
+
+    def tokenize(self, text: str, **kw) -> list[int]:
+        with self.lock:
+            return self.tokenizer.tokenize(text, **kw)
+
+
+class ServerContext:
+    """Model registry: names resolve to model dirs under `model_root`,
+    loaded at first use onto `device` (default cuda), each with its own
+    scheduler thread."""
+
+    def __init__(self, model_root: str | Path, default_model: str = "",
+                 hp: HyperParams | None = None,
+                 device: str | torch.device | None = None):
+        self.root = Path(model_root)
+        self.default_model = default_model
+        self.hp = hp or HyperParams()
+        self.device = resolve_device(device)
+        self.models: dict[str, ModelContext] = {}
+        self._lock = threading.Lock()
+
+    def resolve_dir(self, name: str) -> Path:
+        p = self.root / name
+        if p.is_dir():
+            return p
+        if name in ("", "default") and (self.root / "weights.gguf").exists():
+            return self.root
+        raise HTTPError(404, f"unknown model '{name}'")
+
+    @staticmethod
+    def _is_vlm_dir(d: Path) -> bool:
+        if (d / "vision.gguf").exists():
+            return True
+        cfg = d / "config.json"
+        if not cfg.exists():
+            return False
+        try:
+            archs = json.loads(cfg.read_text()).get("architectures", [])
+        except json.JSONDecodeError:
+            return False
+        return any("InternVL" in a for a in archs)
+
+    def register(self, name: str, model: LlamaModel, cfg: ModelConfig,
+                 tokenizer: Tokenizer) -> ModelContext:
+        """Serve an already built model under `name`."""
+        sched = BatchScheduler(model, cfg, self.hp, self.device)
+        sched.start()
+        ctx = ModelContext(name, sched, tokenizer)
+        with self._lock:
+            self.models[name] = ctx
+        return ctx
+
+    def get(self, name: str) -> ModelContext:
+        name = name or self.default_model or "default"
+        with self._lock:
+            if name in self.models:
+                return self.models[name]
+            if "+" in name:
+                raise HTTPError(400, f"model '{name}': speculative decoding "
+                                     f"(draft and EAGLE models) is not "
+                                     f"ported yet")
+            d = self.resolve_dir(name)
+            if self._is_vlm_dir(d):
+                raise HTTPError(400, f"model '{name}': vision-language "
+                                     f"models are not ported yet")
+            cfg, model = load_gguf_model(d, device=self.device)
+            sched = BatchScheduler(model, cfg, self.hp, self.device)
+            sched.start()
+            ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d))
+            self.models[name] = ctx
+            return ctx
+
+    def close(self) -> None:
+        with self._lock:
+            for m in self.models.values():
+                m.scheduler.stop()
+            self.models.clear()
+
+
+def _now_id(prefix: str) -> str:
+    return f"{prefix}-{uuid.uuid4().hex[:24]}"
+
+
+def _stops_from_body(body: dict) -> list[str]:
+    stop = body.get("stop")
+    if stop is None:
+        return []
+    if isinstance(stop, str):
+        return [stop]
+    return [s for s in stop if isinstance(s, str)]
+
+
+def _logprobs_from_body(body: dict, chat: bool) -> int:
+    """The two OpenAI shapes as a top-N count (0 = off). Completions:
+    `logprobs: <int|null>`. Chat: `logprobs: <bool>` + `top_logprobs:
+    <int>`. The chosen token's logprob is always reported when on."""
+    lp = body.get("logprobs")
+    if chat:
+        if not lp:
+            return 0
+        return max(int(body.get("top_logprobs", 0)), 1)
+    if lp is None or lp is False:
+        return 0
+    return max(int(lp), 1)
+
+
+def _sampling_from_body(body: dict, chat: bool = False) -> dict:
+    """OpenAI `frequency_penalty`/`presence_penalty` are the sampler's
+    subtractive penalties; `repeat_penalty` is the multiplicative
+    llama.cpp-style one."""
+    seed = body.get("seed")
+    return dict(
+        temperature=float(body.get("temperature", 0.8)),
+        top_k=int(body.get("top_k", 40)),
+        top_p=float(body.get("top_p", 0.95)),
+        penalty_repeat=float(body.get("repeat_penalty", 1.0)),
+        penalty_freq=float(body.get("frequency_penalty", 0.0)),
+        penalty_present=float(body.get("presence_penalty", 0.0)),
+        max_tokens=int(body.get("max_tokens", body.get("n_predict", 128))),
+        seed=None if seed is None else int(seed),
+        logprobs=_logprobs_from_body(body, chat),
+    )
+
+
+def _text_messages(messages: list[dict]) -> list[dict]:
+    """OpenAI messages with text content (content arrays of text parts
+    are joined); images are not ported yet."""
+    out = []
+    for m in messages:
+        content = m.get("content", "")
+        if isinstance(content, list):
+            parts = []
+            for p in content:
+                if p.get("type") == "text":
+                    parts.append(p.get("text", ""))
+                elif p.get("type") == "image_url":
+                    raise HTTPError(400, "images are not ported yet")
+            content = "".join(parts)
+        out.append({"role": m.get("role", "user"), "content": content})
+    return out
+
+
+def _logprobs_payload(tok: Tokenizer, ids: list[int], req: Request,
+                      chat: bool) -> dict:
+    """The OpenAI logprobs object from the scheduler's per-token records."""
+    n = min(len(ids), len(req.token_logprobs))
+    if chat:
+        return {"content": [{
+            "token": tok.to_string([ids[i]]),
+            "logprob": req.token_logprobs[i],
+            "top_logprobs": [{"token": tok.to_string([t]), "logprob": lp}
+                             for t, lp in req.top_logprobs[i]],
+        } for i in range(n)]}
+    toks, offs, off = [], [], 0
+    for i in range(n):
+        s = tok.to_string([ids[i]])
+        toks.append(s)
+        offs.append(off)
+        off += len(s)
+    return {
+        "tokens": toks,
+        "token_logprobs": req.token_logprobs[:n],
+        "top_logprobs": [{tok.to_string([t]): lp
+                          for t, lp in req.top_logprobs[i]}
+                         for i in range(n)],
+        "text_offset": offs,
+    }
+
+
+def generate(ctx: ModelContext, prompt_ids: list[int], sampling: dict,
+             stop_ids: set[int]):
+    """Submit to the scheduler; yield (token id, request) as they come.
+    A consumer that stops early cancels the request."""
+    q: queue.Queue = queue.Queue()
+    req = Request(prompt_ids=list(prompt_ids), stop_ids=stop_ids,
+                  sink=q.put, **sampling)
+    ctx.scheduler.submit(req)
+    try:
+        while True:
+            tok = q.get()
+            if tok is None:
+                return
+            yield tok, req
+    finally:
+        if not req.finish_reason:
+            req.cancelled = True
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server_ctx: ServerContext  # set on the subclass make_server builds
+
+    def log_message(self, fmt, *args):  # noqa: D401 — quiet access log
+        log.debug("%s " + fmt, self.address_string(), *args)
+
+    # -- plumbing ----------------------------------------------------------
+
+    def _send(self, status: int, body: bytes, ctype: str) -> None:
+        self.send_response(status)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _json(self, obj: dict, status: int = 200) -> None:
+        self._send(status, json.dumps(obj).encode(),
+                   "application/json; charset=utf-8")
+
+    def _text(self, text: str, status: int = 200) -> None:
+        self._send(status, text.encode(), "text/plain; charset=utf-8")
+
+    def _chunk(self, data: bytes) -> None:
+        self.wfile.write(f"{len(data):x}\r\n".encode() + data + b"\r\n")
+        self.wfile.flush()
+
+    def _event(self, obj) -> None:
+        payload = obj if isinstance(obj, str) else json.dumps(obj)
+        self._chunk(f"data: {payload}\n\n".encode())
+
+    def _body(self) -> dict:
+        n = int(self.headers.get("Content-Length") or 0)
+        try:
+            return json.loads(self.rfile.read(n) or b"{}")
+        except json.JSONDecodeError as e:
+            raise HTTPError(400, f"invalid JSON body: {e}") from e
+
+    def _dispatch(self, routes: dict) -> None:
+        fn = routes.get(self.path.split("?", 1)[0])
+        try:
+            if fn is None:
+                raise HTTPError(404, "404: Not Found")
+            fn()
+        except HTTPError as e:
+            self._text(e.text, e.status)
+        except (BrokenPipeError, ConnectionResetError):
+            self.close_connection = True
+        except Exception as exc:  # noqa: BLE001 — answer, keep serving
+            log.exception("request failed")
+            self._json({"error": {"message": str(exc),
+                                  "type": type(exc).__name__}}, 500)
+
+    def do_GET(self) -> None:  # noqa: N802 — http.server's name
+        self._dispatch({"/v1/models": self._models, "/health": self._health,
+                        "/metrics": self._metrics})
+
+    def do_POST(self) -> None:  # noqa: N802 — http.server's name
+        routes = {r: self._completion for r in
+                  ("/completion", "/completions", "/v1/completions")}
+        routes.update({r: self._chat for r in
+                       ("/chat/completions", "/v1/chat/completions")})
+        self._dispatch(routes)
+
+    # -- routes --------------------------------------------------------------
+
+    def _completion(self) -> None:
+        body = self._body()
+        model_name = body.get("model", self.server_ctx.default_model)
+        if body.get("session"):
+            raise HTTPError(400, "sessions are not ported yet")
+        ctx = self.server_ctx.get(model_name)
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, list):
+            prompt = "".join(prompt)
+        prompt_ids = ctx.tokenize(
+            prompt, parse_special=bool(body.get("parse_special", True)))
+        self._respond(ctx, prompt_ids, _sampling_from_body(body), chat=False,
+                      stream=bool(body.get("stream")),
+                      model_name=model_name or ctx.name,
+                      stop_strings=_stops_from_body(body))
+
+    def _chat(self) -> None:
+        body = self._body()
+        model_name = body.get("model", self.server_ctx.default_model)
+        if body.get("session"):
+            raise HTTPError(400, "sessions are not ported yet")
+        ctx = self.server_ctx.get(model_name)
+        messages = _text_messages(body.get("messages", []))
+        prompt = ctx.tokenizer.apply_chat_template(messages)
+        self._respond(ctx, ctx.tokenize(prompt),
+                      _sampling_from_body(body, chat=True), chat=True,
+                      stream=bool(body.get("stream")),
+                      model_name=model_name or ctx.name,
+                      stop_strings=_stops_from_body(body))
+
+    def _models(self) -> None:
+        ctx = self.server_ctx
+        names = list(ctx.models) or [ctx.default_model or "default"]
+        data = []
+        for n in names:
+            entry = {"id": n, "object": "model", "created": 0,
+                     "owned_by": "powerserve_tpu"}
+            m = ctx.models.get(n)
+            if m is not None:
+                llm = m.scheduler.cfg.llm
+                entry["meta"] = {"n_ctx": m.scheduler.max_seq,
+                                 "n_params_embd": llm.dim,
+                                 "n_layers": llm.n_layers,
+                                 "vocab_size": llm.vocab_size}
+            data.append(entry)
+        self._json({"object": "list", "data": data})
+
+    def _health(self) -> None:
+        self._json({"status": "ok",
+                    "models_loaded": list(self.server_ctx.models)})
+
+    def _metrics(self) -> None:
+        lines = [f'powerserve_{k}{{model="{name}"}} {v}'
+                 for name, m in list(self.server_ctx.models.items())
+                 for k, v in m.scheduler.metrics().items()]
+        self._text("\n".join(lines) + "\n")
+
+    def _respond(self, ctx: ModelContext, prompt_ids: list[int],
+                 sampling: dict, chat: bool, stream: bool, model_name: str,
+                 stop_strings: list[str]) -> None:
+        tok = ctx.tokenizer
+        stop_ids = set(tok.stop_ids)
+        rid = _now_id("chatcmpl" if chat else "cmpl")
+        created = int(time.time())
+        obj = ("chat.completion.chunk" if chat else "text_completion")
+        want_logprobs = sampling.get("logprobs", 0) > 0
+        matcher = StopMatcher(stop_strings)
+        gen_ids: list[int] = []
+        last_req = None
+
+        def usage() -> dict:
+            n = last_req.n_generated if last_req else 0
+            return {"prompt_tokens": len(prompt_ids), "completion_tokens": n,
+                    "total_tokens": len(prompt_ids) + n}
+
+        def finish_reason() -> str:
+            if matcher.stopped:
+                return "stop"
+            if last_req is not None and last_req.finish_reason:
+                return last_req.finish_reason
+            return "stop"
+
+        if stream:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def chunk(piece: str) -> dict:
+                return {"id": rid, "object": obj, "created": created,
+                        "model": model_name,
+                        "choices": [{"index": 0,
+                                     **({"delta": {"content": piece}} if chat
+                                        else {"text": piece}),
+                                     "finish_reason": None}]}
+
+            dec = IncrementalDecoder(tok)
+            if chat:
+                self._event({"id": rid, "object": obj, "created": created,
+                             "model": model_name,
+                             "choices": [{"index": 0,
+                                          "delta": {"role": "assistant"},
+                                          "finish_reason": None}]})
+            for t, req in generate(ctx, prompt_ids, sampling, stop_ids):
+                last_req = req
+                gen_ids.append(t)
+                piece = matcher.push(dec.push(t) if t not in stop_ids else "")
+                if matcher.stopped:
+                    req.cancelled = True
+                if piece:
+                    self._event(chunk(piece))
+                if matcher.stopped:
+                    break
+            tail = ""
+            if not matcher.stopped:
+                tail = matcher.push(dec.flush())
+                if matcher.stopped and last_req is not None:
+                    last_req.cancelled = True
+                else:
+                    tail += matcher.flush()
+            if tail:
+                self._event(chunk(tail))
+            choice = {"index": 0, **({"delta": {}} if chat else {"text": ""}),
+                      "finish_reason": finish_reason()}
+            if want_logprobs and last_req is not None:
+                choice["logprobs"] = _logprobs_payload(tok, gen_ids, last_req,
+                                                       chat)
+            self._event({"id": rid, "object": obj, "created": created,
+                         "model": model_name, "choices": [choice],
+                         "usage": usage()})
+            self._event("[DONE]")
+            self._chunk(b"")
+            return
+
+        ids: list[int] = []
+        for t, req in generate(ctx, prompt_ids, sampling, stop_ids):
+            last_req = req
+            gen_ids.append(t)
+            if t not in stop_ids:
+                ids.append(t)
+            # decode-so-far check: cancel at the first stop-string match
+            if stop_strings and any(s in tok.to_string(ids)
+                                    for s in stop_strings):
+                req.cancelled = True
+                break
+        text = tok.to_string(ids)
+        if matcher.stops:
+            out = matcher.push(text)
+            if not matcher.stopped:
+                out += matcher.flush()
+            text = out
+        lp_obj = (_logprobs_payload(tok, gen_ids, last_req, chat)
+                  if want_logprobs and last_req is not None else None)
+        lp = {"logprobs": lp_obj} if lp_obj else {}
+        if chat:
+            choice = {"index": 0,
+                      "message": {"role": "assistant", "content": text},
+                      **lp, "finish_reason": finish_reason()}
+        else:
+            choice = {"index": 0, "text": text, **lp,
+                      "finish_reason": finish_reason()}
+        self._json({"id": rid, "object": "chat.completion" if chat
+                    else "text_completion", "created": created,
+                    "model": model_name, "choices": [choice],
+                    "usage": usage()})
+
+
+def make_server(ctx: ServerContext, host: str = "127.0.0.1",
+                port: int = 8080) -> ThreadingHTTPServer:
+    """An HTTP server for `ctx` bound to (host, port); port 0 picks a free
+    one (server.server_address). Call serve_forever() to run it."""
+    handler = type("Handler", (_Handler,), {"server_ctx": ctx})
+    server = ThreadingHTTPServer((host, port), handler)
+    server.daemon_threads = True
+    return server
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="powerserve_tpu_torch serve")
+    ap.add_argument("-d", "--model-root", required=True,
+                    help="dir of model dirs, one model dir, or a workspace")
+    ap.add_argument("--model", default="default")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--paged-pages", type=int, default=0,
+                    help="paged KV pool size in pages (0 = dense per-slot "
+                         "KV); slots share the pool, with recompute "
+                         "preemption when it runs dry")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="tokens per KV page (with --paged-pages)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (kernels) or cpu (plain PyTorch path)")
+    args = ap.parse_args(argv)
+
+    root = Path(args.model_root)
+    if (root / "workspace.json").exists():
+        ws = WorkspaceConfig.load(root)
+        hp = ws.hyper_params
+        root_dir, default = ws.main_model_dir.parent, ws.main_model_dir.name
+    else:
+        hp, root_dir, default = HyperParams(), root, args.model
+    hp.max_slots = args.max_slots
+    if args.paged_pages:
+        hp.paged_pages = args.paged_pages
+        hp.page_size = args.page_size
+    ctx = ServerContext(root_dir, default, hp, args.device)
+    server = make_server(ctx, args.host, args.port)
+    log.info(f"serving on http://{args.host}:{server.server_address[1]}")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        ctx.close()
+    return 0

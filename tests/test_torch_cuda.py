@@ -20,7 +20,10 @@ import torch
 from powerserve_tpu_torch.core.gguf import GGMLType
 from powerserve_tpu_torch.ops import cuda_lib
 from powerserve_tpu_torch.ops.flash_decode import (
-    flash_decode_cuda, flash_decode_quant_reference)
+    flash_decode_cuda, flash_decode_paged_cuda, flash_decode_paged_reference,
+    flash_decode_quant_reference)
+from powerserve_tpu_torch.ops.flash_prefill import (
+    flash_prefill_cuda, flash_prefill_quant_reference)
 from powerserve_tpu_torch.ops.fused import (fused_head_cuda,
                                             fused_linear_reference,
                                             norm_rounding_slack)
@@ -152,6 +155,123 @@ def test_flash_decode_skips_unseen_chunks(dev, seen):
     vis[1, :, 1500] = True  # a lone visible token far out
     args = (q, kq, ks, vq, vs, vis, 1.0 / D ** 0.5)
     _close(flash_decode_cuda(*args), flash_decode_quant_reference(*args))
+
+
+def _cache(g, dev, S, Hkv, T, D):
+    kq, vq = (torch.randint(-127, 128, (S, Hkv, T, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+              for _ in range(2))
+    return kq, ks, vq, vs
+
+
+def _close_flips(got, ref, vs, rel=1e-4):
+    """Kernel and twin sum the f32 scores in another order, so p * vs,
+    rounded to bf16 before the value product, may round the other way
+    where it sits next to a rounding midpoint. Each such flip moves a
+    whole head row by one bf16 ulp (2^-8) of that term's p / l * |bf16(vs)
+    * vq|, and all of them together by at most 2^-8 * 127 * max vs. At
+    most 1 in 100 outputs may exceed 1e-4 of the largest output, and none
+    by more than that bound."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    err = (got - ref).abs()
+    tol = rel * max(1.0, ref.abs().max().item())
+    flip = 2.0 ** -8 * 127 * vs.float().abs().max().item()
+    assert (err > tol).float().mean().item() <= 1e-2, err.max().item()
+    assert (err <= tol + flip).all(), (err.max().item(), flip)
+
+
+@pytest.mark.parametrize("S,Tq,H,Hkv,D,T,starts,committed", [
+    (1, 512, 32, 8, 128, 2048, [0], [0]),
+    (8, 128, 32, 8, 128, 2048, [-1, 0, 5, 300, 1920, 2047, 2048, 64],
+     [0, 0, 5, 300, 0, 900, 0, 64]),
+    (2, 40, 8, 2, 64, 333, [0, 290], [0, 290]),
+    (2, 24, 4, 2, 16, 100, [3, -1], [3, 0]),
+    (3, 70, 4, 4, 32, 250, [0, 17, 180], [0, 17, 0]),
+    (2, 33, 14, 2, 64, 129, [1, 96], [1, 50]),
+    (1, 17, 64, 8, 128, 64, [0], [0]),
+])
+def test_flash_prefill_kernel(dev, S, Tq, H, Hkv, D, T, starts, committed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T + Tq)
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    # a committed prefix of `committed[s]` positions, plus scattered bits
+    mask = torch.arange(T, device=dev)[None, :] < torch.tensor(
+        committed, device=dev)[:, None]
+    mask[-1, T // 2] = True
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, mask, start, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_prefill"]
+    got = flash_prefill_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_prefill"] == before + 1
+    assert torch.isfinite(got).all()
+    _close_flips(got, flash_prefill_quant_reference(*args), vs)
+
+
+def test_flash_prefill_row_that_sees_nothing(dev):
+    """start = -1 and no committed bit: row 0 sees nothing and averages V
+    over all T positions (no chunk is skipped for that block)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    S, Tq, H, Hkv, D, T = 1, 20, 8, 2, 64, 300
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+    start = torch.tensor([-1], dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, mask, start, 1.0 / D ** 0.5)
+    got = flash_prefill_cuda(*args)
+    _close_flips(got, flash_prefill_quant_reference(*args), vs)
+    mean_v = (vs.to(torch.bfloat16).float()[..., None]
+              * vq.float()).mean(dim=2)  # [S, Hkv, D]
+    row0 = got[0, 0].reshape(Hkv, H // Hkv, D)
+    _close(row0, mean_v[0, :, None].expand_as(row0))
+
+
+def _page_table(g, dev, S, MP, P, n_alloc):
+    """Each slot owns the first n_alloc[s] logical pages, mapped to
+    scrambled pool pages; the rest read P (unallocated)."""
+    perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
+    pt = torch.full((S, MP), P, dtype=torch.int32, device=dev)
+    used = 0
+    for s, n in enumerate(n_alloc):
+        pt[s, :n] = perm[used:used + n]
+        used += n
+    return pt
+
+
+@pytest.mark.parametrize("page", [8, 16, 64, 128])
+@pytest.mark.parametrize("S,Tq,H,Hkv,D,MP_tokens", [
+    (8, 1, 32, 8, 128, 2048), (3, 2, 8, 2, 64, 512), (2, 1, 4, 2, 16, 256)])
+def test_flash_decode_paged_kernel(dev, page, S, Tq, H, Hkv, D, MP_tokens):
+    g = torch.Generator(device=dev)
+    g.manual_seed(page + S)
+    MP = MP_tokens // page
+    filled = [min(MP_tokens - 1, 600 + 37 * s) for s in range(S)]
+    n_alloc = [min(MP, -(-(f + 1) // page)) for f in filled]
+    P = sum(n_alloc) + 3
+    pt = _page_table(g, dev, S, MP, P, n_alloc)
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kp, vp = (torch.randint(-127, 128, (P, Hkv, page, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ksp, vsp = (torch.rand(P, Hkv, page, generator=g, device=dev) * 0.05
+                for _ in range(2))
+    T = MP * page
+    vis = (torch.arange(T, device=dev)[None, None, :]
+           < torch.tensor(filled, device=dev)[:, None, None]).expand(
+               S, Tq, T).clone()
+    args = (q, kp, ksp, vp, vsp, pt, vis, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_decode_paged"]
+    got = flash_decode_paged_cuda(*args)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_decode_paged"] == before + 1
+    _close_flips(got, flash_decode_paged_reference(*args), vsp)
+    # a row that sees nothing reads clipped unallocated pages, finite
+    vis[0, 0] = False
+    got = flash_decode_paged_cuda(*args)
+    assert torch.isfinite(got).all()
+    _close_flips(got, flash_decode_paged_reference(*args), vsp)
 
 
 def test_forward_cuda_matches_cpu(dev, tmp_path):

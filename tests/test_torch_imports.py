@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor any module of
-powerserve_tpu, its kernel wrappers run the plain twins on CPU tensors,
-and its entry points refuse to fall back to the CPU on their own."""
+powerserve_tpu (nor aiohttp, which the machine with the GPU lacks), its
+kernel wrappers run the plain twins on CPU tensors, and its entry points
+refuse to fall back to the CPU on their own."""
 
 import ast
 import pathlib
@@ -35,7 +36,7 @@ def test_no_jax_or_reference_imports():
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "powerserve_tpu"):
+            if top in ("jax", "jaxlib", "powerserve_tpu", "aiohttp"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
 
@@ -44,7 +45,7 @@ def test_imports_with_jax_blocked():
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
                for p in _port_sources() if p.name != "__init__.py"]
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'powerserve_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'powerserve_tpu', 'aiohttp'):\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
@@ -58,7 +59,9 @@ def test_imports_with_jax_blocked():
 def test_cpu_tensors_run_the_plain_twins():
     from powerserve_tpu_torch.core.gguf import GGMLType
     from powerserve_tpu_torch.ops import cuda_lib
-    from powerserve_tpu_torch.ops.flash_decode import flash_decode_quant
+    from powerserve_tpu_torch.ops.flash_decode import (flash_decode_paged,
+                                                       flash_decode_quant)
+    from powerserve_tpu_torch.ops.flash_prefill import flash_prefill_quant
     from powerserve_tpu_torch.ops.fused import fused_linear
     from powerserve_tpu_torch.ops.qmatmul import QLinear, qmatmul
 
@@ -73,6 +76,12 @@ def test_cpu_tensors_run_the_plain_twins():
     ks = torch.zeros(1, 1, 8)
     flash_decode_quant(torch.ones(1, 1, 2, 16), kq, ks, kq, ks,
                        torch.ones(1, 1, 8, dtype=torch.bool), 0.25)
+    flash_prefill_quant(torch.ones(1, 20, 2, 16), kq, ks, kq, ks,
+                        torch.zeros(1, 8, dtype=torch.bool),
+                        torch.zeros(1, dtype=torch.int32), 0.25)
+    flash_decode_paged(torch.ones(1, 1, 2, 16), kq, ks, kq, ks,
+                       torch.zeros(1, 1, dtype=torch.int32),
+                       torch.ones(1, 1, 8, dtype=torch.bool), 0.25)
     assert cuda_lib.launch_counts() == before
 
 
@@ -82,8 +91,12 @@ def test_entry_points_default_to_cuda(tmp_path):
     from powerserve_tpu_torch import run
     from powerserve_tpu_torch.core.gguf import GGMLType
     from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler
     from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.kv.paged import PagedKVCache
     from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.serving import server
+    from powerserve_tpu_torch.serving.local import LocalServer
     from powerserve_tpu_torch.tools.bench_params import make_device_params
     from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
 
@@ -99,6 +112,16 @@ def test_entry_points_default_to_cuda(tmp_path):
         InferenceEngine(model, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.main(["-d", str(ws), "-n", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache.create(1, 1, 8, 1, 16, n_pages=2, page_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchScheduler(model, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.ServerContext(ws)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalServer(ws)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server.main(["-d", str(ws), "--port", "0"])
     # asked for explicitly, the CPU works
     assert run.main(["-d", str(ws), "-n", "2", "--temperature", "0",
                      "--device", "cpu", "--no-progress"]) == 0
