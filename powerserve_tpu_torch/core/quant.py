@@ -767,6 +767,27 @@ def repack_gguf_tensor(payload: np.ndarray, ggml_type: int,
     raise NotImplementedError(f"repack for ggml type {t}")
 
 
+MXU_GROUP = 128  # W8 scale granularity: one scale per 128-deep int8 dot
+
+
+def requantize_w8(qt: QuantizedTensor,
+                  group: int = MXU_GROUP) -> tuple[np.ndarray, np.ndarray]:
+    """Exact dequant, then symmetric int8 with per-(group, n) scales: the
+    W8 weight format. Each `group`-deep int8 partial sum of the matmul
+    then takes one scale multiply-add.
+    Returns (q8 int8 [K, N], scales f32 [K // group, N])."""
+    w = qt.dequant()  # [K, N] f32, exact
+    k, n = w.shape
+    if k % group:
+        raise ValueError(f"K={k} not divisible by scale group {group}")
+    wg = w.reshape(k // group, group, n)
+    amax = np.abs(wg).max(axis=1)  # [K//group, N]
+    scales = (amax / 127.0).astype(np.float32)
+    inv = np.where(scales > 0, 1.0 / np.where(scales == 0, 1.0, scales), 0.0)
+    q8 = np.clip(np.round(wg * inv[:, None, :]), -127, 127)
+    return q8.astype(np.int8).reshape(k, n), scales
+
+
 def choose_pack_group(k: int, max_group: int = 2048) -> int:
     """Largest group G <= max_group with K % G == 0 and G % 64 == 0.
 

@@ -26,18 +26,54 @@
 //    m16n8k16 bf16 -> f32 on it. No cp.async pipeline, ldmatrix or
 //    wgmma yet: those, and TMA, are the next steps.
 // Ragged M, N are masked in both; K is a multiple of 32 by format.
+//
+// Grouped mode (ps_qmatmul_grouped) replaces the same TPU kernel called
+// with `tile_ids` (qmatmul_grouped, the MoE expert FFN): the weights are
+// a stack of E slabs [E, ...], rows [i * tile_m, (i + 1) * tile_m) of x
+// multiply slab tile_ids[i]. Each block reads its tile's slab index from
+// device memory (the TPU's scalar prefetch) and offsets its weight
+// pointers; ids are clipped into the stack, so padding tiles read in
+// bounds. tile_m <= 16 runs the GEMV with f32 weights (one grid z per
+// tile), tile_m = 128 the tensor-core tile with bf16 weights (one block
+// row per tile): numerics follow the tile, not the total row count. The
+// bound counts the bytes of the distinct slabs the ids name.
 #include "common.cuh"
 
 namespace {
 
+// Where the expert stack's slabs lie; tile_ids null for a plain weight.
+struct Slabs {
+  const int* tile_ids;
+  int n_slabs;
+  long q_stride;  // bytes between slabs of q
+  long s_stride;  // elements between slabs of scales (and bias)
+};
+
+__device__ __forceinline__ QWeight pick_slab(QWeight w, const Slabs& sl,
+                                             int tile) {
+  if (!sl.tile_ids) return w;
+  const int e = min(max(sl.tile_ids[tile], 0), sl.n_slabs - 1);
+  const long sb = (long)e * sl.s_stride * (w.scale_bf16 ? 2 : 4);
+  w.q += (long)e * sl.q_stride;
+  w.scales = reinterpret_cast<const char*>(w.scales) + sb;
+  if (w.bias) w.bias = reinterpret_cast<const char*>(w.bias) + sb;
+  return w;
+}
+
 constexpr int kGemvCols = 128;  // 32 lanes x 4 columns
 constexpr int kGemvWarps = 8;
 
+// M rows per tile (grid z), P rows in all; out (or the split-K partial
+// buffer) is [gridDim.y, P, N].
 template <int MT>
-__global__ __launch_bounds__(256) void qmm_gemv_kernel(QWeight w,
+__global__ __launch_bounds__(256) void qmm_gemv_kernel(QWeight w, Slabs sl,
                                                        const __nv_bfloat16* x,
-                                                       int M, float* out,
+                                                       int M, long P,
+                                                       float* out,
                                                        int kb_per_split) {
+  const int tile = blockIdx.z;
+  w = pick_slab(w, sl, tile);
+  x += (long)tile * M * w.K;
   const int lane = threadIdx.x;
   const int ty = threadIdx.y;
   const int n0 = (blockIdx.x * 32 + lane) * 4;
@@ -55,7 +91,7 @@ __global__ __launch_bounds__(256) void qmm_gemv_kernel(QWeight w,
       gemv_block<MT>(w, kb, n0, vec, x, w.K, M, acc);
 
   __shared__ float red[kGemvWarps][kGemvCols];
-  float* o = out + (long)blockIdx.y * M * w.N;
+  float* o = out + ((long)blockIdx.y * P + (long)tile * M) * w.N;
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (m < M) {
@@ -110,9 +146,10 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
 // 64 x 32 = 4 x 4 mma tiles. Per 32-row K step (one scale block): the
 // x tile is copied to shared memory as is, the weight tile is
 // dequantized in f32 and stored as bf16 [n][k], then two k16 mma steps.
-__global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w,
+__global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w, Slabs sl,
                                                       const __nv_bfloat16* x,
                                                       int M, float* out) {
+  w = pick_slab(w, sl, blockIdx.y);  // grouped: one 128-row tile per slab
   __shared__ __align__(16) __nv_bfloat16 As[TBM][TPITCH];
   __shared__ __align__(16) __nv_bfloat16 Bs[TBN][TPITCH];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -215,13 +252,44 @@ __global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w,
 }
 
 template <int MT>
-void launch_gemv(const QWeight& w, const __nv_bfloat16* x, int M, float* dst,
-                 int splits, cudaStream_t stream) {
+void launch_gemv(const QWeight& w, const Slabs& sl, const __nv_bfloat16* x,
+                 int M, int tiles, float* dst, int splits,
+                 cudaStream_t stream) {
   const int KB = w.K / 32;
   const int kb_per_split = (KB + splits - 1) / splits;
-  dim3 grid((w.N + kGemvCols - 1) / kGemvCols, splits);
+  dim3 grid((w.N + kGemvCols - 1) / kGemvCols, splits, tiles);
   dim3 block(32, kGemvWarps);
-  qmm_gemv_kernel<MT><<<grid, block, 0, stream>>>(w, x, M, dst, kb_per_split);
+  qmm_gemv_kernel<MT><<<grid, block, 0, stream>>>(w, sl, x, M,
+                                                  (long)M * tiles, dst,
+                                                  kb_per_split);
+}
+
+// M rows per tile, `tiles` tiles (1 for a plain weight).
+int run_qmatmul(const QWeight& w, const Slabs& sl, const __nv_bfloat16* xb,
+                int M, int tiles, float* o, float* partial, int splits,
+                cudaStream_t stream) {
+  if (M <= 16) {
+    float* dst = splits > 1 ? partial : o;
+    if (M <= 1)
+      launch_gemv<1>(w, sl, xb, M, tiles, dst, splits, stream);
+    else if (M <= 2)
+      launch_gemv<2>(w, sl, xb, M, tiles, dst, splits, stream);
+    else if (M <= 4)
+      launch_gemv<4>(w, sl, xb, M, tiles, dst, splits, stream);
+    else if (M <= 8)
+      launch_gemv<8>(w, sl, xb, M, tiles, dst, splits, stream);
+    else
+      launch_gemv<16>(w, sl, xb, M, tiles, dst, splits, stream);
+    if (splits > 1) {
+      long mn = (long)M * tiles * w.N;
+      splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+          dst, splits, mn, o);
+    }
+  } else {
+    dim3 grid((w.N + TBN - 1) / TBN, (M * tiles + TBM - 1) / TBM);
+    qmm_mma_kernel<<<grid, 256, 0, stream>>>(w, sl, xb, M * tiles, o);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -232,31 +300,34 @@ PS_EXPORT int ps_qmatmul(const void* x, const void* q, const void* scales,
                          const void* bias, void* out, void* partial, int M,
                          int K, int N, int packed, int group, int offset,
                          int scale_bf16, int splits, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   QWeight w{reinterpret_cast<const uint8_t*>(q), scales, bias, K, N,
             packed, group, offset, scale_bf16};
-  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-  float* o = reinterpret_cast<float*>(out);
-  if (M <= 16) {
-    float* dst = splits > 1 ? reinterpret_cast<float*>(partial) : o;
-    if (M <= 1)
-      launch_gemv<1>(w, xb, M, dst, splits, stream);
-    else if (M <= 2)
-      launch_gemv<2>(w, xb, M, dst, splits, stream);
-    else if (M <= 4)
-      launch_gemv<4>(w, xb, M, dst, splits, stream);
-    else if (M <= 8)
-      launch_gemv<8>(w, xb, M, dst, splits, stream);
-    else
-      launch_gemv<16>(w, xb, M, dst, splits, stream);
-    if (splits > 1) {
-      long mn = (long)M * N;
-      splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-          dst, splits, mn, o);
-    }
-  } else {
-    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    qmm_mma_kernel<<<grid, 256, 0, stream>>>(w, xb, M, o);
-  }
-  return (int)cudaGetLastError();
+  Slabs sl{nullptr, 1, 0, 0};
+  return run_qmatmul(w, sl, reinterpret_cast<const __nv_bfloat16*>(x), M, 1,
+                     reinterpret_cast<float*>(out),
+                     reinterpret_cast<float*>(partial), splits,
+                     reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// Grouped: x bf16 [P, K] with P = tiles * tile_m; q, scales, bias stacks
+// of n_slabs slabs; tile_ids int32 [tiles]; tile_m <= 16 or 128; out f32
+// [P, N]; partial f32 [splits, P, N] when tile_m <= 16 and splits > 1.
+PS_EXPORT int ps_qmatmul_grouped(const void* x, const void* q,
+                                 const void* scales, const void* bias,
+                                 const void* tile_ids, void* out,
+                                 void* partial, int P, int K, int N,
+                                 int packed, int group, int offset,
+                                 int scale_bf16, int n_slabs, int tile_m,
+                                 int splits, void* stream_ptr) {
+  if (tile_m <= 0 || P % tile_m || (tile_m > 16 && tile_m != TBM))
+    return (int)cudaErrorInvalidValue;
+  QWeight w{reinterpret_cast<const uint8_t*>(q), scales, bias, K, N,
+            packed, group, offset, scale_bf16};
+  const long q_rows = packed ? K / 2 : K;
+  Slabs sl{reinterpret_cast<const int*>(tile_ids), n_slabs, q_rows * N,
+           (long)(K / 32) * N};
+  return run_qmatmul(w, sl, reinterpret_cast<const __nv_bfloat16*>(x),
+                     tile_m, P / tile_m, reinterpret_cast<float*>(out),
+                     reinterpret_cast<float*>(partial), splits,
+                     reinterpret_cast<cudaStream_t>(stream_ptr));
 }

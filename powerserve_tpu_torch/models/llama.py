@@ -1,6 +1,7 @@
 """Llama-family transformer (llama, qwen2 = llama + QKV bias, qwen3 =
-llama + QK-norm): the dense branch of the JAX package's forward as
-nn.Modules with a Python loop over the layers.
+llama + QK-norm, and mixture-of-experts FFNs as in Mixtral and
+Qwen3-MoE): the JAX package's forward as nn.Modules with a Python loop
+over the layers.
 
 LlamaLayer holds one layer's weights (the JAX LayerWeights, unstacked)
 and LlamaModel the embedding, the layers, the final norm and the
@@ -19,6 +20,16 @@ visibility itself. The cache is the dense KVCache or the paged pool
 (kv/paged.py): paged decode reads the pool through the page table in
 the paged flash-decode kernel; paged prefill attends over the gathered
 slot view, as the JAX package does.
+
+An MoE layer routes each token to its top n_experts_used experts (f32
+router, softmax, top-k, weights renormalized) and runs the expert FFNs
+on one of three routes, chosen from the shapes alone as the JAX package
+chooses them (moe_route): a single token reads only its k routed slabs;
+a batch of at least MOE_GROUP_MIN rows, or a decode batch whose grouped
+layout reads fewer slabs than all experts, goes through the grouped
+dispatch (ops/moe.py, qmatmul_grouped); other batches run every expert
+on every row with the weights of unrouted pairs set to 0. No route reads
+the routed ids on the host.
 """
 
 from __future__ import annotations
@@ -37,10 +48,37 @@ from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
 from ..ops.flash_decode import flash_decode_paged, flash_decode_quant
 from ..ops.flash_prefill import flash_prefill_quant
 from ..ops.fused import fused_linear
-from ..ops.qmatmul import QLinear, qmatmul
+from ..ops.moe import combine, group_dispatch
+from ..ops.qmatmul import QLinear, qmatmul, qmatmul_grouped
 
 # the largest query batch that attends through the flash-decode kernel
 DECODE_MAX_TQ = 16
+# MoE dispatch: the grouped M tile of a prefill-sized batch, and the
+# batch from which the grouped route always wins (the JAX package's
+# defaults, models/llama.py)
+MOE_BLOCK_M = 128
+MOE_DECODE_BLOCK_M = 16
+MOE_GROUP_MIN = 64
+
+
+def moe_grouped_decode_wins(a: int, n_local: int,
+                            bm: int = MOE_DECODE_BLOCK_M) -> bool:
+    """Grouped dispatch of a decode batch with `a` assignments reads at
+    most ceil(a / bm) + min(a, n_local) expert slabs, the dense route all
+    n_local: group when that is strictly fewer."""
+    return (a + bm - 1) // bm + min(a, n_local) < n_local
+
+
+def moe_route(rows: int, k: int, n_experts: int) -> tuple[str, int]:
+    """(route, block_m) of an MoE FFN over `rows` token rows: "single",
+    "grouped" (block_m MOE_BLOCK_M or MOE_DECODE_BLOCK_M) or "dense"."""
+    if rows == 1:
+        return "single", 1
+    if rows >= MOE_GROUP_MIN:
+        return "grouped", MOE_BLOCK_M
+    if moe_grouped_decode_wins(rows * k, n_experts):
+        return "grouped", MOE_DECODE_BLOCK_M
+    return "dense", 0
 
 
 def attention(kv: KVCache, layer: int, q: torch.Tensor,
@@ -82,10 +120,13 @@ class QEmbedding(nn.Module):
 
 class LlamaLayer(nn.Module):
     """One decoder layer. Fused projections (wqkv, wgu) when the loader
-    could concatenate them, else the separate ones."""
+    could concatenate them, else the separate ones. An MoE layer has a
+    router (f32 [dim, E]) and three expert stacks in place of the dense
+    FFN."""
 
     def __init__(self, attn_norm: torch.Tensor, ffn_norm: torch.Tensor, *,
-                 wo: QLinear, w_down: QLinear, wqkv: QLinear | None = None,
+                 wo: QLinear, w_down: QLinear | None = None,
+                 wqkv: QLinear | None = None,
                  bqkv: torch.Tensor | None = None, wq: QLinear | None = None,
                  wk: QLinear | None = None, wv: QLinear | None = None,
                  bq: torch.Tensor | None = None,
@@ -93,18 +134,32 @@ class LlamaLayer(nn.Module):
                  bv: torch.Tensor | None = None, wgu: QLinear | None = None,
                  w_gate: QLinear | None = None, w_up: QLinear | None = None,
                  q_norm: torch.Tensor | None = None,
-                 k_norm: torch.Tensor | None = None):
+                 k_norm: torch.Tensor | None = None,
+                 router: torch.Tensor | None = None,
+                 w_gate_exps: QLinear | None = None,
+                 w_up_exps: QLinear | None = None,
+                 w_down_exps: QLinear | None = None):
         super().__init__()
-        if (wqkv is None) == (wq is None) or (wgu is None) == (w_gate is None):
+        experts = (w_gate_exps, w_up_exps, w_down_exps)
+        if router is not None:
+            ffn_ok = (all(e is not None and e.n_slabs for e in experts)
+                      and wgu is None and w_gate is None and w_down is None)
+        else:
+            ffn_ok = ((wgu is None) != (w_gate is None)
+                      and w_down is not None)
+        if (wqkv is None) == (wq is None) or not ffn_ok:
             raise ValueError("give either wqkv or wq/wk/wv, and either wgu "
-                             "or w_gate/w_up")
+                             "or w_gate/w_up with w_down, or a router with "
+                             "the three expert stacks")
         for name, t in (("attn_norm", attn_norm), ("ffn_norm", ffn_norm),
                         ("bqkv", bqkv), ("bq", bq), ("bk", bk), ("bv", bv),
-                        ("q_norm", q_norm), ("k_norm", k_norm)):
+                        ("q_norm", q_norm), ("k_norm", k_norm),
+                        ("router", router)):
             self.register_buffer(name, t)
         self.wqkv, self.wq, self.wk, self.wv = wqkv, wq, wk, wv
         self.wo, self.wgu, self.w_gate, self.w_up = wo, wgu, w_gate, w_up
         self.w_down = w_down
+        self.w_gate_exps, self.w_up_exps, self.w_down_exps = experts
 
     @staticmethod
     def _lin(h: torch.Tensor, w: QLinear, b: torch.Tensor | None):
@@ -146,6 +201,9 @@ class LlamaLayer(nn.Module):
 
         h2 = rms_norm(x, self.ffn_norm, eps).to(torch.bfloat16)
         h2 = h2.reshape(S * Tq, -1)
+        if self.router is not None:
+            down = self.moe_ffn(h2, llm.n_experts_used)
+            return x + down.reshape(S, Tq, -1).to(x.dtype)
         if self.wgu is not None:
             gu = qmatmul(h2, self.wgu)
             f = gu.shape[-1] // 2
@@ -155,6 +213,51 @@ class LlamaLayer(nn.Module):
         act = silu_hadamard(gate, up).to(torch.bfloat16)
         down = qmatmul(act, self.w_down)
         return x + down.reshape(S, Tq, -1).to(x.dtype)
+
+    def route(self, h: torch.Tensor, k: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Top-k experts of each row of h [N, dim]: (ids [N, k], weights
+        f32 [N, k]), the softmax over all experts renormalized over the k
+        chosen (floored at 1e-9)."""
+        logits = h.float() @ self.router.float()
+        probs = torch.softmax(logits, dim=-1)
+        topw, topi = torch.topk(probs, k, dim=-1)
+        return topi, topw / topw.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    def _experts(self, h: torch.Tensor, mm) -> torch.Tensor:
+        """silu(h @ gate) * (h @ up) @ down, each product through mm."""
+        g = mm(h, self.w_gate_exps)
+        u = mm(h, self.w_up_exps)
+        return mm(silu_hadamard(g, u).to(torch.bfloat16), self.w_down_exps)
+
+    def moe_ffn(self, h: torch.Tensor, k: int) -> torch.Tensor:
+        """The expert FFN of rows h [N, dim] (bf16) -> f32 [N, dim]."""
+        n = h.shape[0]
+        n_exp = self.w_gate_exps.n_slabs
+        topi, topw = self.route(h, k)
+        route, bm = moe_route(n, k, n_exp)
+        if route == "single":
+            # the k routed slabs only, as k one-row tiles; the outputs
+            # summed in routing order
+            ids = topi[0].to(torch.int32)
+            y = self._experts(h.expand(k, -1),
+                              lambda a, w: qmatmul_grouped(a, w, ids, 1))
+            out = torch.zeros_like(y[:1])
+            for j in range(k):
+                out = out + y[j:j + 1] * topw[0, j]
+            return out
+        if route == "grouped":
+            tok, w, tile_e = group_dispatch(topi, topw, n_exp, 0, bm)
+            y = self._experts(h[tok.clamp(min=0).long()],
+                              lambda a, e: qmatmul_grouped(a, e, tile_e, bm))
+            return combine(y, tok, w, n, k)
+        out = torch.zeros(n, h.shape[-1], dtype=torch.float32,
+                          device=h.device)
+        for e in range(n_exp):
+            y = self._experts(h, lambda a, w: qmatmul(a, w.slab(e)))
+            w_e = torch.where(topi == e, topw, 0.0).sum(dim=-1)
+            out = out + y * w_e[:, None]
+        return out
 
 
 class LlamaModel(nn.Module):

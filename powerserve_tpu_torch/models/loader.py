@@ -4,6 +4,8 @@ carry-over of parameters that were loaded elsewhere as numpy arrays.
 Tensor names follow the GGUF/llama.cpp convention (token_embd.weight,
 blk.{i}.attn_q.weight, ...). Every GGUF type other than Q4_0, Q4_K and
 Q8_0 is requantized to Q8_0 at load (core/quant.py:repack_gguf_tensor).
+MoE layers (Mixtral-as-llama, Qwen3-MoE) carry ffn_gate_inp (the router)
+and 3-D ffn_{gate,up,down}_exps tensors, loaded as expert stacks.
 
 RoPE layout: llama.cpp's HF->GGUF converter permutes Wq/Wk so that
 adjacent-pair rotation (NORM) matches HF's half rotation; qwen2-family
@@ -121,6 +123,7 @@ def _concat_qlinear(parts: list[QLinear | None]) -> QLinear | None:
     for p in parts[1:]:
         if (p.packed != head.packed or p.unsigned != head.unsigned
                 or p.pack_group != head.pack_group
+                or p.scale_group != head.scale_group
                 or p.in_features != head.in_features
                 or p.scales.dtype != head.scales.dtype
                 or (p.bias is None) != (head.bias is None)):
@@ -133,12 +136,13 @@ def _concat_qlinear(parts: list[QLinear | None]) -> QLinear | None:
         packed=head.packed, unsigned=head.unsigned,
         in_features=head.in_features,
         out_features=sum(p.out_features for p in parts),
-        pack_group=head.pack_group)
+        pack_group=head.pack_group, scale_group=head.scale_group)
 
 
 def fuse_layer(w: dict) -> dict:
     """Fuse the QKV and gate/up projections of one layer's weight dict
-    into single matmuls where their formats agree."""
+    into single matmuls where their formats agree (MoE layers have no
+    dense gate/up but still fuse QKV)."""
     out = dict(w)
     wqkv = _concat_qlinear([w.get("wq"), w.get("wk"), w.get("wv")])
     if wqkv is not None:
@@ -163,11 +167,27 @@ def _lm_head_from_embedding(emb: QEmbedding) -> QLinear:
 
 
 def _qlinear_from_gguf(reader: GGUFReader, name: str, pack: bool,
-                       device: torch.device) -> QLinear:
+                       device: torch.device, mxu: bool = False) -> QLinear:
     info = reader.tensors[name]
     qt = repack_gguf_tensor(reader.tensor_raw(name), info.ggml_type,
                             info.shape)
-    return QLinear.from_quantized(qt, pack=pack, device=device)
+    return QLinear.from_quantized(qt, pack=pack, device=device, mxu=mxu)
+
+
+def _qlinear_experts(reader: GGUFReader, name: str, pack: bool,
+                     device: torch.device) -> QLinear:
+    """3-D expert tensor [E, N_out, K_in] -> an expert stack. ggml stores
+    the experts contiguously (slowest axis), so the payload splits into E
+    equal 2-D payloads."""
+    info = reader.tensors[name]
+    n_exp = info.shape[0]
+    raw = reader.tensor_raw(name)
+    per = raw.size // n_exp
+    parts = [QLinear.from_quantized(
+        repack_gguf_tensor(raw[e * per:(e + 1) * per], info.ggml_type,
+                           tuple(info.shape[1:])), pack=pack, device="cpu")
+        for e in range(n_exp)]
+    return QLinear.stack(parts).to(device)
 
 
 def _embedding_from_gguf(reader: GGUFReader, name: str,
@@ -190,10 +210,14 @@ def _float_from_gguf(reader: GGUFReader, name: str,
 
 def load_gguf_model(path: str | os.PathLike, pack: bool = True,
                     fuse: bool = True,
-                    device: str | torch.device | None = None
-                    ) -> tuple[ModelConfig, LlamaModel]:
+                    device: str | torch.device | None = None,
+                    mxu: bool = False) -> tuple[ModelConfig, LlamaModel]:
     """Load weights.gguf (or a model dir holding it) onto `device`
-    (default cuda). Dense llama-family models only."""
+    (default cuda). Llama-family models, dense or MoE.
+
+    mxu=True requantizes the attention, dense FFN and lm_head projections
+    whose K is a multiple of 128 to the W8 format (core/quant.py:
+    requantize_w8); expert stacks and the tied embedding keep theirs."""
     dev = resolve_device(device)
     p = Path(path)
     if p.is_dir():
@@ -203,17 +227,20 @@ def load_gguf_model(path: str | os.PathLike, pack: bool = True,
     layers = []
     for i in range(cfg.llm.n_layers):
         pre = f"blk.{i}."
-        if pre + "ffn_gate_exps.weight" in reader.tensors:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet")
-        w = {name: _qlinear_from_gguf(reader, pre + gguf, pack, dev)
-             for name, gguf in (("wq", "attn_q.weight"),
-                                ("wk", "attn_k.weight"),
-                                ("wv", "attn_v.weight"),
-                                ("wo", "attn_output.weight"),
-                                ("w_gate", "ffn_gate.weight"),
-                                ("w_up", "ffn_up.weight"),
-                                ("w_down", "ffn_down.weight"))}
+        projs = [("wq", "attn_q.weight"), ("wk", "attn_k.weight"),
+                 ("wv", "attn_v.weight"), ("wo", "attn_output.weight")]
+        moe = pre + "ffn_gate_exps.weight" in reader.tensors
+        if not moe:
+            projs += [("w_gate", "ffn_gate.weight"), ("w_up", "ffn_up.weight"),
+                      ("w_down", "ffn_down.weight")]
+        w = {name: _qlinear_from_gguf(reader, pre + gguf, pack, dev, mxu)
+             for name, gguf in projs}
+        if moe:
+            router = reader.tensor_float(pre + "ffn_gate_inp.weight")
+            w["router"] = _tensor(router.T.astype(np.float32), dev)
+            for name in ("gate", "up", "down"):
+                w[f"w_{name}_exps"] = _qlinear_experts(
+                    reader, f"{pre}ffn_{name}_exps.weight", pack, dev)
         for name, gguf in (("attn_norm", "attn_norm.weight"),
                            ("ffn_norm", "ffn_norm.weight"),
                            ("q_norm", "attn_q_norm.weight"),
@@ -225,7 +252,7 @@ def load_gguf_model(path: str | os.PathLike, pack: bool = True,
     embed = _embedding_from_gguf(reader, "token_embd.weight", dev)
     out_norm = _float_from_gguf(reader, "output_norm.weight", dev)
     if "output.weight" in reader.tensors:
-        lm_head = _qlinear_from_gguf(reader, "output.weight", pack, dev)
+        lm_head = _qlinear_from_gguf(reader, "output.weight", pack, dev, mxu)
         cfg.llm.tie_embeddings = False
     else:
         lm_head = _lm_head_from_embedding(embed)
@@ -270,6 +297,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig | LLMConfig,
     scales, bias plus its metadata (packed, unsigned, in_features,
     out_features, pack_group, scale_group); "layers" leaves are stacked
     on a leading [L] axis (or "layers" is a list of per-layer dicts).
+    Expert stacks are [L, E, ...] in the stacked tree, [E, ...] per layer.
     Absent or None fields are absent weights."""
     dev = resolve_device(device)
     llm = cfg.llm if isinstance(cfg, ModelConfig) else cfg
@@ -282,7 +310,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig | LLMConfig,
                  else [stacked] * llm.n_layers)
     fields = ("attn_norm", "ffn_norm", "wqkv", "bqkv", "wq", "wk", "wv",
               "bq", "bk", "bv", "wo", "wgu", "w_gate", "w_up", "w_down",
-              "q_norm", "k_norm")
+              "q_norm", "k_norm", "router", "w_gate_exps", "w_up_exps",
+              "w_down_exps")
     layers = []
     for i, lw in enumerate(per_layer):
         idx = None if isinstance(stacked, (list, tuple)) else i
@@ -295,9 +324,6 @@ def params_from_numpy(tree: dict, cfg: ModelConfig | LLMConfig,
                 kw[name] = _qlinear_from_tree(leaf, dev, idx)
             else:
                 kw[name] = _tensor(leaf if idx is None else leaf[idx], dev)
-        if lw.get("router") is not None:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet")
         layers.append(LlamaLayer(**kw))
     return LlamaModel(llm, embed, layers, _tensor(tree["out_norm"], dev),
                       _qlinear_from_tree(tree["lm_head"], dev))

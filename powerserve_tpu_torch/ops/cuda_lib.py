@@ -34,7 +34,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
-            "flash_prefill": 0, "flash_decode_paged": 0}
+            "flash_prefill": 0, "flash_decode_paged": 0,
+            "qmatmul_grouped": 0, "qmatmul_w8": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -120,6 +121,10 @@ def lib() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         L.ps_qmatmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         L.ps_qmatmul.restype = I
+        L.ps_qmatmul_grouped.argtypes = [P] * 7 + [I] * 10 + [P]
+        L.ps_qmatmul_grouped.restype = I
+        L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 4 + [P]
+        L.ps_qmatmul_w8.restype = I
         L.ps_fused_head.argtypes = [P, I, P, F, P, P, P, I, I, I, I, I, I, I,
                                     P, P, P, P, P]
         L.ps_fused_head.restype = I

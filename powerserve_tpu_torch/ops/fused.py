@@ -11,7 +11,9 @@ fused_linear launches the kernel for up to 16 rows of CUDA tensors (the
 decode-sized batches it is for); CPU tensors run the plain twin
 `fused_linear_reference`. More than 16 rows (the prefill "all" logits)
 compose the same norm with the qmatmul kernel, as the JAX package does
-past its fused kernel's M <= 16.
+past its fused kernel's M <= 16. A W8 lm_head is not the fused kernel's
+format: on every device it takes the same composition with the W8
+qmatmul (the JAX package's `fusable` refuses it too).
 """
 
 from __future__ import annotations
@@ -103,9 +105,9 @@ def fused_linear(lin: QLinear, *, norm: tuple, argmax: bool = False,
     occurrence on ties, as jnp.argmax)."""
     x, norm_w = norm
     x = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not lin.w8:
         return fused_linear_reference(lin, x, norm_w, argmax, eps)
-    if x.shape[0] > FUSED_MAX_M:
+    if x.shape[0] > FUSED_MAX_M or lin.w8:
         y = qmatmul(rms_norm(x, norm_w, eps).to(torch.bfloat16), lin)
         return y.argmax(dim=-1).to(torch.int32) if argmax else y
     return fused_head_cuda(lin, x, norm_w, argmax, eps)

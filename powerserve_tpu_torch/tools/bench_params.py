@@ -6,7 +6,10 @@ kernel timing is that of real weights of the same formats.
 Like the JAX package's tools/bench_params.py: fused wqkv / gate|up
 projections, bf16 scales (and Q4_K minimums), int8 embedding with f32
 scales, vocabulary padded to a multiple of 256 (vocab_size is the padded
-size).
+size). MoE presets get a router uniform in [-0.05, 0.05] and expert
+stacks (gate and up dim -> ffn, down ffn -> dim, one slab per expert).
+quant "w8" gives the W8 format: int8 weights with f32 scales in
+[0.001, 0.021) per 128 rows, no minimum.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from ..core.config import LLMConfig, ModelConfig, RopeConfig
 from ..core.device import resolve_device
-from ..core.quant import QK, choose_pack_group
+from ..core.quant import MXU_GROUP, QK, choose_pack_group
 from ..models.llama import LlamaLayer, LlamaModel, QEmbedding
 from ..ops.elementwise import ROPE_TYPE_NORM
 from ..ops.qmatmul import QLinear
@@ -23,26 +26,35 @@ from .synthetic import PRESETS
 
 
 def _rand_qlinear(g: torch.Generator, k: int, n: int, quant: str,
-                  dev: torch.device) -> QLinear:
+                  dev: torch.device, experts: int = 0) -> QLinear:
+    """A random [K, N] weight, or a stack of `experts` slabs."""
+    lead = (experts,) if experts else ()
     kb = k // QK
 
-    def uniform(shape, lo, width):
-        return (torch.rand(shape, generator=g, device=dev) * width
-                + lo).to(torch.bfloat16)
+    def uniform(shape, lo, width, dtype=torch.bfloat16):
+        return (torch.rand(lead + shape, generator=g, device=dev) * width
+                + lo).to(dtype)
 
+    def int8(rows):
+        return torch.randint(-128, 128, lead + (rows, n), generator=g,
+                             device=dev, dtype=torch.int8)
+
+    if quant == "w8":
+        return QLinear(int8(k), uniform((k // MXU_GROUP, n), 0.001, 0.02,
+                                        torch.float32), None, packed=False,
+                       unsigned=False, in_features=k, out_features=n,
+                       scale_group=MXU_GROUP)
     scales = uniform((kb, n), 0.001, 0.02)
     if quant in ("q4_0", "q4_k"):
-        q = torch.randint(0, 256, (k // 2, n), generator=g, device=dev,
-                          dtype=torch.uint8)
+        q = torch.randint(0, 256, lead + (k // 2, n), generator=g,
+                          device=dev, dtype=torch.uint8)
         bias = uniform((kb, n), 0.0, 0.01) if quant == "q4_k" else None
         return QLinear(q, scales, bias, packed=True,
                        unsigned=quant == "q4_k", in_features=k,
                        out_features=n, pack_group=choose_pack_group(k))
     if quant != "q8_0":
-        raise ValueError(f"quant {quant!r}: q4_0, q4_k or q8_0")
-    q = torch.randint(-128, 128, (k, n), generator=g, device=dev,
-                      dtype=torch.int8)
-    return QLinear(q, scales, None, packed=False, unsigned=False,
+        raise ValueError(f"quant {quant!r}: q4_0, q4_k, q8_0 or w8")
+    return QLinear(int8(k), scales, None, packed=False, unsigned=False,
                    in_features=k, out_features=n)
 
 
@@ -51,12 +63,13 @@ def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
                        device: str | torch.device | None = None
                        ) -> tuple[ModelConfig, LlamaModel]:
     """(ModelConfig, LlamaModel) with random weights on `device`
-    (default cuda). Dense presets only."""
+    (default cuda)."""
     dev = resolve_device(device)
     p = PRESETS[preset]
-    if p.get("experts"):
-        raise NotImplementedError("mixture-of-experts presets are not "
-                                  "ported yet")
+    E = int(p.get("experts", 0))
+    if E and quant == "w8":
+        raise ValueError("W8 expert slabs are not ported: MoE presets take "
+                         "q4_0, q4_k or q8_0")
     dim, ffn, L = p["dim"], p["ffn"], p["layers"]
     H, Hkv, V = p["heads"], p["kv_heads"], p["vocab"]
     hd = dim // H
@@ -64,12 +77,22 @@ def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     ones = torch.ones(dim, dtype=torch.float32, device=dev)
+
+    def ffn_weights() -> dict:
+        if not E:
+            return dict(wgu=_rand_qlinear(g, dim, 2 * ffn, quant, dev),
+                        w_down=_rand_qlinear(g, ffn, dim, quant, dev))
+        return dict(
+            router=torch.rand((dim, E), generator=g, device=dev) * 0.1 - 0.05,
+            w_gate_exps=_rand_qlinear(g, dim, ffn, quant, dev, E),
+            w_up_exps=_rand_qlinear(g, dim, ffn, quant, dev, E),
+            w_down_exps=_rand_qlinear(g, ffn, dim, quant, dev, E))
+
     layers = [LlamaLayer(
         ones, ones,
         wqkv=_rand_qlinear(g, dim, (H + 2 * Hkv) * hd, quant, dev),
         wo=_rand_qlinear(g, H * hd, dim, quant, dev),
-        wgu=_rand_qlinear(g, dim, 2 * ffn, quant, dev),
-        w_down=_rand_qlinear(g, ffn, dim, quant, dev)) for _ in range(L)]
+        **ffn_weights()) for _ in range(L)]
     embed = QEmbedding(
         torch.randint(-128, 128, (vpad, dim), generator=g, device=dev,
                       dtype=torch.int8),
@@ -79,6 +102,7 @@ def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
     rope = RopeConfig(n_dims=hd, freq_base=500000.0, rope_type=ROPE_TYPE_NORM)
     llm = LLMConfig(dim=dim, hidden_dim=ffn, n_layers=L, n_heads=H,
                     n_kv_heads=Hkv, head_size=hd, seq_len=2048,
-                    vocab_size=vpad, kv_dim=Hkv * hd, rope=rope)
+                    vocab_size=vpad, kv_dim=Hkv * hd, rope=rope,
+                    n_experts=E, n_experts_used=int(p.get("experts_used", 2)))
     model = LlamaModel(llm, embed, layers, ones, lm_head)
     return ModelConfig(arch=p["arch"], llm=llm), model

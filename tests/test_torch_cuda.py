@@ -27,8 +27,9 @@ from powerserve_tpu_torch.ops.flash_prefill import (
 from powerserve_tpu_torch.ops.fused import (fused_head_cuda,
                                             fused_linear_reference,
                                             norm_rounding_slack)
-from powerserve_tpu_torch.ops.qmatmul import (QLinear, qmatmul_cuda,
-                                              qmatmul_reference)
+from powerserve_tpu_torch.ops.qmatmul import (
+    QLinear, qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
+    qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -299,3 +300,137 @@ def test_forward_cuda_matches_cpu(dev, tmp_path):
     _close(b1, b0, rel=2e-2)
     assert torch.equal(p0, p1)
     assert (k0.int() - k1.int()).abs().max() <= 1
+
+
+def _stack(fmt, e, k, n, pack, seed, bf16):
+    return QLinear.stack([_lin(fmt, k, n, pack, seed + i, bf16)
+                          for i in range(e)])
+
+
+@pytest.mark.parametrize("fmt,k,n,pack", [
+    (GGMLType.Q4_K, 512, 384, True), (GGMLType.Q8_0, 256, 200, False),
+    (GGMLType.Q4_0, 256, 130, True), (GGMLType.Q4_K, 256, 96, False)])
+@pytest.mark.parametrize("block_m,tiles", [
+    (16, [3, 0, 3, 1, 2]), (128, [1, 3, 0]), (1, [2, 0, 1, 1]),
+    (8, [0, 3])])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_qmatmul_grouped_kernel(dev, fmt, k, n, pack, block_m, tiles, bf16):
+    """Each tile against its slab; the last tiles pad (they repeat the
+    last expert, as group_dispatch's padding does) and must read in
+    bounds; an id past the stack clips to the last slab."""
+    lin = _stack(fmt, 4, k, n, pack, seed=k + n, bf16=bf16).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + block_m)
+    x = torch.randn(len(tiles) * block_m, k, generator=g, device=dev)
+    ids = torch.tensor(tiles + [3, 9][:1 + (block_m <= 8)], dtype=torch.int32,
+                       device=dev)
+    x = torch.cat([x, torch.randn(block_m * (ids.numel() - len(tiles)), k,
+                                  generator=g, device=dev)])
+    before = cuda_lib.launch_counts()["qmatmul_grouped"]
+    got = qmatmul_grouped_cuda(x, lin, ids, block_m)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["qmatmul_grouped"] == before + 1
+    _close(got, qmatmul_grouped_reference(x, lin, ids, block_m))
+    # tile i is the dense kernel's product with slab ids[i] at the same
+    # numerics (f32 weights up to 16 rows, bf16 at 128)
+    for i, e in enumerate(ids.clamp(max=3).tolist()):
+        rows = slice(i * block_m, (i + 1) * block_m)
+        _close(got[rows], qmatmul_reference(x[rows], lin.slab(e)))
+
+
+@pytest.mark.parametrize("k,n", [(1024, 256), (512, 200), (256, 1),
+                                 (4096, 640)])
+@pytest.mark.parametrize("m", [1, 3, 16, 17, 48, 130])
+def test_qmatmul_w8_kernel(dev, k, n, m):
+    """Exact int32 block dots on both sides: only the f32 sum over the
+    blocks is taken in another order."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + m)
+    q = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(k // 128, n, generator=g, device=dev) * 0.02 + 0.001
+    lin = QLinear(q, s, None, packed=False, unsigned=False, in_features=k,
+                  out_features=n, scale_group=128)
+    x = torch.randn(m, k, generator=g, device=dev) * 2
+    x[0] = 0.0  # a zero row: scale 0, output 0
+    before = cuda_lib.launch_counts()["qmatmul_w8"]
+    got = qmatmul_w8_cuda(x, lin)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["qmatmul_w8"] == before + 1
+    _close(got, qmatmul_w8_reference(x, lin))
+    assert not got[0].any()
+
+
+def test_moe_forward_cuda_matches_cpu(dev, tmp_path):
+    """tiny-moe through each route on the card and on the cpu; each MoE
+    FFN runs without a host sync."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.llama import moe_route
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    outs = {}
+    for name, kw in (("e4", {}), ("e64", dict(experts=64))):
+        ws = make_synthetic_gguf(tmp_path / name, "tiny-moe", GGMLType.Q8_0,
+                                 seed=1, seq_len=128, **kw)
+        for device in ("cpu", dev):
+            cfg, model = load_gguf_model(ws / "model", device=device)
+            llm = cfg.llm
+            res = []
+            for S, T in ((1, 70), (8, 3), (1, 1)):
+                kv = KVCache.create(llm.n_layers, S, 128, llm.n_kv_heads,
+                                    llm.head_size, device)
+                toks = (torch.arange(S * T, device=device).reshape(S, T)
+                        * 7 % 250 + 3)
+                pos = torch.arange(T, device=device).expand(S, T).clone()
+                layer = model.layers[0]
+                h = torch.randn(S * T, llm.dim, device=device,
+                                generator=torch.Generator(device).manual_seed(
+                                    0)).to(torch.bfloat16)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        layer.moe_ffn(h, llm.n_experts_used)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                res.append((moe_route(S * T, llm.n_experts_used,
+                                      llm.n_experts),
+                            model(kv, toks, pos, logits_mode="all").cpu()))
+            outs[name, str(device)] = res
+        for (ra, a), (rb, b) in zip(outs[name, "cpu"], outs[name, str(dev)]):
+            assert ra == rb
+            _close(b, a, rel=2e-2)
+    routes = {r for rs in outs.values() for r, _ in rs}
+    assert {r for r, _ in routes} == {"single", "grouped", "dense"}
+    assert ("grouped", 16) in routes and ("grouped", 128) in routes
+
+
+def test_w8_forward_cuda_matches_cpu(dev, tmp_path):
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    ws = make_synthetic_gguf(tmp_path, "tiny-k", GGMLType.Q4_K, seed=0,
+                             seq_len=64)
+    outs = []
+    for device in ("cpu", dev):
+        cfg, model = load_gguf_model(ws / "model", device=device, mxu=True)
+        llm = cfg.llm
+        kv = KVCache.create(llm.n_layers, 2, 64, llm.n_kv_heads,
+                            llm.head_size, device)
+        toks = torch.arange(40, device=device).reshape(2, 20) + 5
+        pos = torch.arange(20, device=device).expand(2, 20).clone()
+        before = cuda_lib.launch_counts()
+        a = model(kv, toks, pos, logits_mode="all")
+        b = model(kv, toks[:, :1], kv.pos[:, None].long(), logits_mode="last")
+        after = cuda_lib.launch_counts()
+        if device != "cpu":
+            assert after["qmatmul_w8"] > before["qmatmul_w8"]
+            assert after["fused_head"] == before["fused_head"]
+        outs.append((a.cpu(), b.cpu()))
+    (a0, b0), (a1, b1) = outs
+    # an int8 rounding of an activation may flip on either side (1/127 of
+    # its row's largest value): logits agree to ~1e-2 of the range
+    _close(a1, a0, rel=3e-2)
+    _close(b1, b0, rel=3e-2)

@@ -62,8 +62,11 @@ def test_cpu_tensors_run_the_plain_twins():
     from powerserve_tpu_torch.ops.flash_decode import (flash_decode_paged,
                                                        flash_decode_quant)
     from powerserve_tpu_torch.ops.flash_prefill import flash_prefill_quant
+    from powerserve_tpu_torch.core.quant import quantize, repack_gguf_tensor
     from powerserve_tpu_torch.ops.fused import fused_linear
-    from powerserve_tpu_torch.ops.qmatmul import QLinear, qmatmul
+    from powerserve_tpu_torch.ops.moe import combine, group_dispatch
+    from powerserve_tpu_torch.ops.qmatmul import (QLinear, qmatmul,
+                                                  qmatmul_grouped)
 
     import numpy as np
 
@@ -72,6 +75,17 @@ def test_cpu_tensors_run_the_plain_twins():
                              device="cpu")
     qmatmul(torch.ones(2, 64), lin)
     fused_linear(lin, norm=(torch.ones(1, 64), torch.ones(64)), argmax=True)
+    stack = QLinear.stack([lin, lin])
+    topi = torch.tensor([[1, 0]])
+    tok, w, tile_e = group_dispatch(topi, torch.ones(1, 2), 2, 0, 16)
+    y = qmatmul_grouped(torch.ones(tok.shape[0], 64), stack, tile_e, 16)
+    combine(y, tok, w, 1, 2)
+    w8 = QLinear.from_quantized(repack_gguf_tensor(
+        quantize(np.ones((32, 128), np.float32), GGMLType.Q8_0),
+        GGMLType.Q8_0, (32, 128)), device="cpu", mxu=True)
+    assert w8.w8
+    qmatmul(torch.ones(3, 128), w8)
+    fused_linear(w8, norm=(torch.ones(1, 128), torch.ones(128)), argmax=True)
     kq = torch.zeros(1, 1, 8, 16, dtype=torch.int8)
     ks = torch.zeros(1, 1, 8)
     flash_decode_quant(torch.ones(1, 1, 2, 16), kq, ks, kq, ks,
