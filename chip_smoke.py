@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
              CUDA-event times (warm, L2 flushed, median of 25), the bound
              at 3.35 TB/s or 989 TFLOP/s bf16 (W8: 1,979 TOP/s int8;
              attention: over the positions this run's inputs make
-             visible; the grouped qmatmul: the bytes of the slabs its
-             tile ids name); flash-prefill at run's shape, the scheduler's
+             visible; the grouped qmatmul: its routed rows, padding left
+             out, and the bytes of the slabs its tile ids name);
+             flash-prefill at run's shape, the scheduler's
              bucket and a ragged T, paged flash-decode with pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
@@ -48,17 +49,25 @@ Phases, each printing one JSON line:
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route),
-             one S = 8 decode step (the dense route) on the kernels against
-             the plain twins on the card; qwen3moe-lite (128 experts, top-8,
-             4 layers): one S = 8 decode step (grouped, block_m 16) and one
-             512-token prefill (grouped, block_m 128) against the twins;
+             one S = 8 decode step (grouped, block_m 16) on the kernels
+             against the plain twins on the card; qwen3moe-lite (128
+             experts, top-8, 4 layers): one S = 8 decode step (grouped,
+             block_m 16) and one 512-token prefill (grouped, block_m 128)
+             against the twins;
              every route of the MoE FFN once under
              torch.cuda.set_sync_debug_mode("error")
   serve_moe_full_width  mixtral-lite behind the HTTP server, with the
              traffic of serve_full_width
   w8_full_width  llama-8b in the W8 format: the full_width paths; every
              projection and the lm_head go through the W8 kernel and the
-             fused head never launches
+             fused head never launches; every W8 product of the 512-token
+             prefill and of the decode step against the W8 twin on its
+             own input; the a8 codes that differ between the step on the
+             kernels and on the twins, layer by layer
+  w8_requantized  the same, on llama-8b Q4_K weights requantized to W8
+             (core/quant.py's requantize_w8 on the card), held end to
+             end as full_width is: the prefill and the decode step
+             against the twins within LOGIT_REL
 Then the kernels line (launch counts from each kernel's own path: the
 llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
@@ -393,9 +402,11 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     #    top-2 over 8 experts by a seeded softmax, block_m 128), qwen3moe-
     #    lite's decode gate projection (8 tokens, top-8 of 128, block_m
     #    16) and the single-token route (one token, its 2 routed slabs as
-    #    one-row tiles). Tolerance: f32 sums in another order. Bound: x,
-    #    tile ids and out once, the bytes of the distinct slabs the ids
-    #    name; 2 * P * N * K operations over all P rows, padding included
+    #    one-row tiles). Tolerance: f32 sums in another order. Bound: the
+    #    routed rows of x and of out once (n_tok * k of the P rows; the
+    #    rest is padding that combine weighs by 0), the tile ids, the bytes
+    #    of the distinct slabs the ids name; 2 * n_tok * k * N * K
+    #    operations
     grp_rows = []
     for case, E, k, n_tok, K, N, bm in (
             ("mixtral-lite prefill gate", 8, 2, 512, 4096, 3584, 128),
@@ -413,12 +424,14 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         err = check(f"qmatmul_grouped {case}",
                     qmatmul_grouped_cuda(x, stack, ids, bm), ref, 1e-4)
         distinct = int(ids.unique().numel())
-        p_rows = x.shape[0]
-        b, by = bound_ms(nbytes(x, ids) + distinct * stack.nbytes() // E
-                         + p_rows * N * 4, 2.0 * p_rows * N * K)
+        routed = n_tok * k
+        b, by = bound_ms(routed * K * x.element_size() + nbytes(ids)
+                         + distinct * stack.nbytes() // E + routed * N * 4,
+                         2.0 * routed * N * K)
         grp_rows.append(dict(
-            case=case, experts=E, top_k=k, tokens=n_tok, P=p_rows,
-            block_m=bm, k=K, n=N, distinct_slabs=distinct, max_abs_err=err,
+            case=case, experts=E, top_k=k, tokens=n_tok, P=x.shape[0],
+            routed_rows=routed, block_m=bm, k=K, n=N,
+            distinct_slabs=distinct, max_abs_err=err,
             ms=timer(lambda: qmatmul_grouped_cuda(x, stack, ids, bm)),
             plain_ms=timer(lambda: qmatmul_grouped_reference(x, stack, ids,
                                                              bm), reps=5),
@@ -670,8 +683,74 @@ def w8_calls_check(fn) -> tuple[float, int]:
     return max(errs), len(errs)
 
 
-def phase_full_width(dev: torch.device, cfg, model, preset: str = "llama-8b",
-                     quant: str = "q4_k") -> tuple[dict, dict]:
+def a8_flips(run, n_layers: int) -> dict:
+    """The int8 activation codes of every W8 product of run({}) (the
+    kernels) against those of run(plain_routes()) (the twins), call by
+    call: how many differ in each layer (its four products) and in the
+    lm_head, and by how much at most."""
+    from unittest import mock
+
+    import powerserve_tpu_torch.ops.qmatmul as qm
+
+    real = qm.quantize_activations
+
+    def codes(routes: dict) -> list[torch.Tensor]:
+        out = []
+
+        def record(x):
+            x8, sx = real(x)
+            out.append(x8)
+            return x8, sx
+
+        with mock.patch.object(qm, "quantize_activations", record):
+            run(routes)
+        return out
+
+    got, ref = codes({}), codes(plain_routes())
+    per = (len(got) - 1) // n_layers
+    if len(got) != len(ref) or len(got) != per * n_layers + 1:
+        raise AssertionError(f"a8 codes of {len(got)} and {len(ref)} W8 "
+                             f"products over {n_layers} layers")
+    diff = [(a.int() - b.int()).abs() for a, b in zip(got, ref)]
+    flips = [int((d > 0).sum()) for d in diff]
+    return dict(codes_per_step=sum(d.numel() for d in diff),
+                flipped_by_layer=[sum(flips[i * per:(i + 1) * per])
+                                  for i in range(n_layers)],
+                flipped_head=flips[-1],
+                max_code_diff=max(int(d.max()) for d in diff))
+
+
+def w8_requantize(model) -> None:
+    """Every projection and the lm_head of a GGUF-format model replaced in
+    place by its W8 requantization: core/quant.py's requantize_w8 (per
+    128 rows, symmetric int8 of the exact dequantized weights) on the
+    card."""
+    from powerserve_tpu_torch.core.quant import MXU_GROUP
+    from powerserve_tpu_torch.ops.qmatmul import QLinear, dequant
+
+    def w8(lin: QLinear) -> QLinear:
+        w = dequant(lin)
+        k, n = w.shape
+        wg = w.reshape(k // MXU_GROUP, MXU_GROUP, n)
+        scales = wg.abs().amax(dim=1) / 127.0
+        inv = torch.where(scales > 0,
+                          1.0 / torch.where(scales == 0, 1.0, scales), 0.0)
+        q8 = torch.clamp(torch.round(wg * inv[:, None, :]), -127, 127)
+        return QLinear(q8.to(torch.int8).reshape(k, n), scales, None,
+                       packed=False, unsigned=False, in_features=k,
+                       out_features=n, scale_group=MXU_GROUP)
+
+    for layer in model.layers:
+        for name in ("wqkv", "wo", "wgu", "w_down"):
+            setattr(layer, name, w8(getattr(layer, name)))
+    model.lm_head = w8(model.lm_head)
+
+
+def phase_full_width(dev: torch.device, cfg, model, phase: str,
+                     hold_end_to_end: bool = True) -> tuple[dict, dict]:
+    """llama-8b's run paths on `model` (GGUF-format or W8). The prefill
+    and one decode step are held against the twins within LOGIT_REL if
+    `hold_end_to_end`, else their gaps are only reported."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
@@ -690,7 +769,7 @@ def phase_full_width(dev: torch.device, cfg, model, preset: str = "llama-8b",
     counted = Counted()
     # W8: every projection and the lm_head through the W8 kernel, so the
     # GGUF qmatmul and the fused head never launch
-    w8 = quant == "w8"
+    w8 = model.lm_head.w8
     mm = ("qmatmul_w8",) if w8 else ("qmatmul", "fused_head")
     absent = ("qmatmul", "fused_head") if w8 else ()
 
@@ -716,38 +795,36 @@ def phase_full_width(dev: torch.device, cfg, model, preset: str = "llama-8b",
         return step_on(routes, lambda: model(
             c, first[:, None], kv.pos.long()[:, None], logits_mode="last")[0])
 
-    checks: dict = {}
+    def prefill_into_fresh_cache():
+        c = KVCache.create(llm.n_layers, 1, max_seq, llm.n_kv_heads,
+                           llm.head_size, dev)
+        return prefill_step(model, prompt[None].to(dev),
+                            torch.arange(n_prompt, device=dev)[None], c)
+
+    checks: dict = {"held_end_to_end": hold_end_to_end}
     if w8:
-        # int8 activations make the forward discontinuous: a last-bit
-        # difference next to a rounding midpoint moves an activation by
-        # 1/127 of its row's largest value, and these random full-range
-        # int8 weights make attention nearly a hard maximum, so such a
-        # flip can carry through 32 layers. The step is held against the
-        # twins call by call instead: every W8 product of the step on the
-        # kernels against the W8 twin on the same input; the end-to-end
-        # gap is reported
-        checks["w8_calls_max_err"], checks["w8_calls"] = w8_calls_check(
-            lambda: step({}))
-        checks["decode_step_logit_gap_end_to_end"] = logit_gap(
-            step({}), step(plain_routes()))
-    else:
-        # the same 512-token prefill with flash_prefill_quant sent to its
-        # twin on the card, into a fresh cache
-        kv_twin = KVCache.create(llm.n_layers, 1, max_seq, llm.n_kv_heads,
-                                 llm.head_size, dev)
-        cuda_lib.reset_launch_counts()
-        logits_twin = step_on(
-            dict(flash_prefill_quant=flash_prefill_quant_reference),
-            lambda: prefill_step(model, prompt[None].to(dev),
-                                 torch.arange(n_prompt, device=dev)[None],
-                                 kv_twin))
-        if cuda_lib.launch_counts()["flash_prefill"]:
-            raise AssertionError("the twin prefill launched the kernel")
-        checks["prefill_logit_gap"] = near_tie_agree(
-            "prefill on the flash-prefill kernel", logits, logits_twin)
-        del kv_twin, logits_twin
-        checks["decode_step_logit_gap"] = near_tie_agree(
-            "decode step", step({}), step(plain_routes()))
+        # every W8 product of the prefill (M = 512) and of the decode step
+        # (M = 1) on the kernel against the W8 twin on the same input
+        (checks["w8_prefill_calls_max_err"],
+         checks["w8_prefill_calls"]) = w8_calls_check(prefill_into_fresh_cache)
+        checks["w8_step_calls_max_err"], checks["w8_step_calls"] = \
+            w8_calls_check(lambda: step({}))
+        checks["a8_codes"] = a8_flips(step, llm.n_layers)
+    # the same 512-token prefill with flash_prefill_quant sent to its twin
+    # on the card, into a fresh cache; one decode step on the kernels
+    # against the plain twins
+    cuda_lib.reset_launch_counts()
+    logits_twin = step_on(
+        dict(flash_prefill_quant=flash_prefill_quant_reference),
+        prefill_into_fresh_cache)
+    if cuda_lib.launch_counts()["flash_prefill"]:
+        raise AssertionError("the twin prefill launched the kernel")
+    pairs = {"prefill_logit_gap": (logits, logits_twin),
+             "decode_step_logit_gap": (step({}), step(plain_routes()))}
+    for key, (got, ref) in pairs.items():
+        checks[key] = (near_tie_agree(f"{phase} {key}", got, ref)
+                       if hold_end_to_end else logit_gap(got, ref))
+    del logits_twin, pairs
 
     toks, decode_s = counted("decode_scan", all3,
                              lambda: decode_scan(model, first, kv, n_decode),
@@ -768,9 +845,7 @@ def phase_full_width(dev: torch.device, cfg, model, preset: str = "llama-8b",
     if scan_ids != gen_ids:
         raise AssertionError(f"decode_scan (argmax head) {scan_ids} != "
                              f"generate (logits head) {gen_ids}")
-    phase = "w8_full_width" if w8 else "full_width"
-    return ({"phase": phase, "preset": preset, "quant": quant,
-             "layers": llm.n_layers, "vocab": llm.vocab_size,
+    return ({"phase": phase, "layers": llm.n_layers, "vocab": llm.vocab_size,
              "prefill_tokens": n_prompt,
              "prefill_tok_s": n_prompt / prefill_s, **checks,
              "decode_tokens": n_decode, "decode_tok_s": n_decode / decode_s,
@@ -781,8 +856,8 @@ def phase_full_width(dev: torch.device, cfg, model, preset: str = "llama-8b",
              "card": card_line()}, counted.launches["generate"])
 
 
-def moe_ffn_without_sync(label: str, layer, h: torch.Tensor, k: int,
-                         n_experts: int) -> tuple:
+def moe_ffn_without_sync(label: str, layer, h: torch.Tensor,
+                         k: int) -> tuple:
     """One MoE FFN under torch.cuda.set_sync_debug_mode("error"): a host
     read of the routed ids raises. Returns its (route, block_m)."""
     from powerserve_tpu_torch.models.llama import moe_route
@@ -797,7 +872,7 @@ def moe_ffn_without_sync(label: str, layer, h: torch.Tensor, k: int,
         torch.cuda.set_sync_debug_mode("default")
     if out.shape != (h.shape[0], h.shape[1]) or not torch.isfinite(out).all():
         raise AssertionError(f"{label}: MoE FFN out {tuple(out.shape)}")
-    return moe_route(h.shape[0], k, n_experts)
+    return moe_route(h.shape[0])
 
 
 def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
@@ -844,8 +919,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
         for rows in rows_list:
             h = torch.randn(rows, llm.dim, generator=g).to(dev, torch.bfloat16)
             out.append(moe_ffn_without_sync(f"{label} {rows} rows", layer, h,
-                                            llm.n_experts_used,
-                                            llm.n_experts))
+                                            llm.n_experts_used))
         return out
 
     # -- mixtral-lite: 8 experts of width 3584, top-2, 32 layers
@@ -874,20 +948,19 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
                                                       stats=stats)))
     if len(ids) != n_new or not all(0 <= t < llm.vocab_size for t in ids):
         raise AssertionError(f"mixtral-lite generate gave {ids}")
-    k, n_exp = llm.n_experts_used, llm.n_experts
-    mx.update(routes_generate=[moe_route(n_prompt, k, n_exp),
-                               moe_route(1, k, n_exp)],
+    mx.update(routes_generate=[moe_route(n_prompt), moe_route(1)],
               generate_prefill_tok_s=stats.prefill_speed,
               generate_decode_tok_s=stats.decode_speed, generate_s=gen_s,
               tokens=ids[:16], peak_mem_gb=torch.cuda.max_memory_allocated(
                   dev) / 1e9)
     del engine
-    # S = 8 decode: 16 assignments over 8 experts, the dense route
+    # S = 8 decode: 16 assignments over 8 experts, grouped at block_m 16
     kv, nxt = decode_batch(model, llm, 8, 64)
-    mx["decode_step_route"] = moe_route(8, k, n_exp)
+    mx["decode_step_route"] = moe_route(8)
     mx["decode_step_logit_gap"] = twin_step(
         "mixtral-lite S=8 decode step", model, kv, nxt,
-        "mixtral-lite decode step", ("qmatmul", "flash_decode", "fused_head"))
+        "mixtral-lite decode step",
+        ("qmatmul", "qmatmul_grouped", "flash_decode", "fused_head"))
     del kv
     routes["mixtral-lite"] = sync_free("mixtral-lite", model, llm,
                                        (1, 8, 512))
@@ -902,8 +975,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
                                     "experts": llm_q.n_experts,
                                     "top_k": llm_q.n_experts_used}
     kv, nxt = decode_batch(model_q, llm_q, 8, 64)
-    qw["decode_step_route"] = moe_route(8, llm_q.n_experts_used,
-                                        llm_q.n_experts)
+    qw["decode_step_route"] = moe_route(8)
     qw["decode_step_logit_gap"] = twin_step(
         "qwen3moe-lite S=8 decode step", model_q, kv, nxt,
         "qwen3moe-lite decode step",
@@ -921,8 +993,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     got, prefill_s = counted("qwen3moe-lite prefill",
                              ("qmatmul", "qmatmul_grouped", "flash_prefill",
                               "fused_head"), lambda: prefill({}))
-    qw.update(prefill_route=moe_route(n_prompt, llm_q.n_experts_used,
-                                      llm_q.n_experts),
+    qw.update(prefill_route=moe_route(n_prompt),
               prefill_tok_s=n_prompt / prefill_s,
               prefill_logit_gap=near_tie_agree("qwen3moe-lite prefill", got,
                                                prefill(plain_routes())))
@@ -930,8 +1001,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
                                         (8, 512))
     del model_q
     seen = {tuple(r) for rs in routes.values() for r in rs}
-    if seen != {("single", 1), ("dense", 0), ("grouped", 16),
-                ("grouped", 128)}:
+    if seen != {("single", 1), ("grouped", 16), ("grouped", 128)}:
         raise AssertionError(f"MoE routes driven: {seen}")
     result.update(sync_free_routes=routes, launches=counted.launches)
     return result, mixtral_launches, mixtral
@@ -1216,8 +1286,7 @@ def phase_serve(devices=("cuda", "cpu")) -> dict:
 SERVE_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode_paged")
 
 
-def phase_serve_full_width(dev: torch.device, cfg, model,
-                           preset: str = "llama-8b", quant: str = "q4_k",
+def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                            need: tuple = SERVE_NEED) -> tuple[dict, dict]:
     """A full-width model (random weights) behind the HTTP server: 8 slots
     over a paged pool of 128 pages of 64 tokens (half of 8 x 2048, yet
@@ -1250,14 +1319,14 @@ def phase_serve_full_width(dev: torch.device, cfg, model,
                      paged_pages=128, page_size=64)
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        ctx = ServerContext(tmp, preset, hp, dev)
-        mctx = ctx.register(preset, model, cfg, tok)
+        ctx = ServerContext(tmp, "model", hp, dev)
+        mctx = ctx.register("model", model, cfg, tok)
         server = serving(ctx)
         port = server.server_address[1]
         try:
             pool = mctx.scheduler.pool
             calls = [lambda t=t: http_call(port, "POST", "/v1/completions", {
-                "model": preset, "prompt": t, "max_tokens": n_new,
+                "model": "model", "prompt": t, "max_tokens": n_new,
                 "temperature": 0}) for t in texts]
             peak_used = [0]
             done = threading.Event()
@@ -1279,21 +1348,20 @@ def phase_serve_full_width(dev: torch.device, cfg, model,
                 done.set()
                 launches = cuda_lib.launch_counts()
             watcher.join(timeout=5)
-            label = f"serve_full_width {preset}"
-            rec.check(label)
+            rec.check(phase)
             finish = []
             for status, data in replies:
                 if status != 200:
-                    raise AssertionError(f"{label}: {status} {data[:200]}")
+                    raise AssertionError(f"{phase}: {status} {data[:200]}")
                 finish.append(json.loads(data)["choices"][0]["finish_reason"])
             tokens = rec.tokens()
             n_tokens = [len(ids) for ids in tokens.values()]
             if finish != ["length"] * 8 or n_tokens != [n_new] * 8:
-                raise AssertionError(f"{label}: finish {finish}, "
+                raise AssertionError(f"{phase}: finish {finish}, "
                                      f"tokens {n_tokens}")
             missing = [k for k in need if not launches[k]]
             if missing:
-                raise AssertionError(f"{label} did not launch {missing}: "
+                raise AssertionError(f"{phase} did not launch {missing}: "
                                      f"{launches}")
             metrics = metrics_of(port)
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1311,12 +1379,10 @@ def phase_serve_full_width(dev: torch.device, cfg, model,
         engine.reset()
         want = list(engine.generate(list(prompt), n_new,
                                     stop_fn=tok.should_stop))
-        gaps.append(agree(f"{label} vs generate", ids, want, engine,
+        gaps.append(agree(f"{phase} vs generate", ids, want, engine,
                           list(prompt)))
     del engine
-    phase = ("serve_full_width" if preset == "llama-8b"
-             else "serve_moe_full_width")
-    return ({"phase": phase, "preset": preset, "quant": quant, "slots": 8, "pool_pages": 128, "page": 64,
+    return ({"phase": phase, "slots": 8, "pool_pages": 128, "page": 64,
              "prompt_tokens": sorted(len(p) for p in tokens),
              "new_tokens": n_new, "wall_s": wall,
              "generated_tok_s": 8 * n_new / wall,
@@ -1359,23 +1425,35 @@ def main() -> int:
     torch.cuda.synchronize()
     emit({"phase": "params", "preset": "llama-8b", "quant": "q4_k",
           "build_s": time.perf_counter() - t0})
-    full, counts = phase_full_width(dev, cfg, model)
+    full, counts = phase_full_width(dev, cfg, model, "full_width")
     emit(full)
-    serve, serve_counts = phase_serve_full_width(dev, cfg, model)
+    serve, serve_counts = phase_serve_full_width(dev, cfg, model,
+                                                 "serve_full_width")
     emit(serve)
     del cfg, model
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
     emit(moe)
     serve_moe, _ = phase_serve_full_width(
-        dev, cfg, model, "mixtral-lite", "q4_k",
+        dev, cfg, model, "serve_moe_full_width",
         SERVE_NEED + ("qmatmul_grouped",))
     emit(serve_moe)
     del cfg, model
     torch.cuda.empty_cache()
+    # on random full-range int8 weights the kernels and the twins agree
+    # product by product but not end to end: their int8 activation codes
+    # agree through the early layers, then jump apart in the last ones
+    # (PERF.md). That model is held product by product; Q4_K weights
+    # requantized to W8 are held end to end
     cfg, model = make_device_params("llama-8b", "w8", seed=0, device=dev)
-    w8, w8_counts = phase_full_width(dev, cfg, model, "llama-8b", "w8")
+    w8, w8_counts = phase_full_width(dev, cfg, model, "w8_full_width",
+                                     hold_end_to_end=False)
     emit(w8)
+    del cfg, model
+    torch.cuda.empty_cache()
+    cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+    w8_requantize(model)
+    emit(phase_full_width(dev, cfg, model, "w8_requantized")[0])
     del cfg, model
     # launches from the run of each kernel's own path
     own = {"flash_prefill": serve_counts, "flash_decode_paged": serve_counts,

@@ -23,13 +23,15 @@ slot view, as the JAX package does.
 
 An MoE layer routes each token to its top n_experts_used experts (f32
 router, softmax, top-k, weights renormalized) and runs the expert FFNs
-on one of three routes, chosen from the shapes alone as the JAX package
-chooses them (moe_route): a single token reads only its k routed slabs;
-a batch of at least MOE_GROUP_MIN rows, or a decode batch whose grouped
-layout reads fewer slabs than all experts, goes through the grouped
-dispatch (ops/moe.py, qmatmul_grouped); other batches run every expert
-on every row with the weights of unrouted pairs set to 0. No route reads
-the routed ids on the host.
+on a route chosen from the shapes alone (moe_route): a single token
+reads only its k routed slabs; any larger batch goes through the grouped
+dispatch (ops/moe.py, qmatmul_grouped), in tiles of GROUPED_MMA_M rows
+from MOE_GROUP_MIN rows on, else of GEMV_MAX_M. The JAX package also
+has a dense route, every expert on every row, for decode batches whose
+grouped layout reads as many slabs as all experts; on the H100 it took
+longer than the grouped route at every batch measured
+(tools/moe_routes.py), so the port leaves it out. No route reads the
+routed ids on the host.
 """
 
 from __future__ import annotations
@@ -49,36 +51,22 @@ from ..ops.flash_decode import flash_decode_paged, flash_decode_quant
 from ..ops.flash_prefill import flash_prefill_quant
 from ..ops.fused import fused_linear
 from ..ops.moe import combine, group_dispatch
-from ..ops.qmatmul import QLinear, qmatmul, qmatmul_grouped
+from ..ops.qmatmul import (GEMV_MAX_M, GROUPED_MMA_M, QLinear, qmatmul,
+                           qmatmul_grouped)
 
 # the largest query batch that attends through the flash-decode kernel
 DECODE_MAX_TQ = 16
-# MoE dispatch: the grouped M tile of a prefill-sized batch, and the
-# batch from which the grouped route always wins (the JAX package's
-# defaults, models/llama.py)
-MOE_BLOCK_M = 128
-MOE_DECODE_BLOCK_M = 16
+# MoE dispatch: the batch from which the grouped route takes the
+# tensor-core tile (the JAX package's default, models/llama.py)
 MOE_GROUP_MIN = 64
 
 
-def moe_grouped_decode_wins(a: int, n_local: int,
-                            bm: int = MOE_DECODE_BLOCK_M) -> bool:
-    """Grouped dispatch of a decode batch with `a` assignments reads at
-    most ceil(a / bm) + min(a, n_local) expert slabs, the dense route all
-    n_local: group when that is strictly fewer."""
-    return (a + bm - 1) // bm + min(a, n_local) < n_local
-
-
-def moe_route(rows: int, k: int, n_experts: int) -> tuple[str, int]:
-    """(route, block_m) of an MoE FFN over `rows` token rows: "single",
-    "grouped" (block_m MOE_BLOCK_M or MOE_DECODE_BLOCK_M) or "dense"."""
+def moe_route(rows: int) -> tuple[str, int]:
+    """(route, block_m) of an MoE FFN over `rows` token rows: "single"
+    or "grouped"."""
     if rows == 1:
         return "single", 1
-    if rows >= MOE_GROUP_MIN:
-        return "grouped", MOE_BLOCK_M
-    if moe_grouped_decode_wins(rows * k, n_experts):
-        return "grouped", MOE_DECODE_BLOCK_M
-    return "dense", 0
+    return "grouped", GROUPED_MMA_M if rows >= MOE_GROUP_MIN else GEMV_MAX_M
 
 
 def attention(kv: KVCache, layer: int, q: torch.Tensor,
@@ -233,9 +221,8 @@ class LlamaLayer(nn.Module):
     def moe_ffn(self, h: torch.Tensor, k: int) -> torch.Tensor:
         """The expert FFN of rows h [N, dim] (bf16) -> f32 [N, dim]."""
         n = h.shape[0]
-        n_exp = self.w_gate_exps.n_slabs
         topi, topw = self.route(h, k)
-        route, bm = moe_route(n, k, n_exp)
+        route, bm = moe_route(n)
         if route == "single":
             # the k routed slabs only, as k one-row tiles; the outputs
             # summed in routing order
@@ -246,18 +233,11 @@ class LlamaLayer(nn.Module):
             for j in range(k):
                 out = out + y[j:j + 1] * topw[0, j]
             return out
-        if route == "grouped":
-            tok, w, tile_e = group_dispatch(topi, topw, n_exp, 0, bm)
-            y = self._experts(h[tok.clamp(min=0).long()],
-                              lambda a, e: qmatmul_grouped(a, e, tile_e, bm))
-            return combine(y, tok, w, n, k)
-        out = torch.zeros(n, h.shape[-1], dtype=torch.float32,
-                          device=h.device)
-        for e in range(n_exp):
-            y = self._experts(h, lambda a, w: qmatmul(a, w.slab(e)))
-            w_e = torch.where(topi == e, topw, 0.0).sum(dim=-1)
-            out = out + y * w_e[:, None]
-        return out
+        tok, w, tile_e = group_dispatch(topi, topw, self.w_gate_exps.n_slabs,
+                                        0, bm)
+        y = self._experts(h[tok.clamp(min=0).long()],
+                          lambda a, e: qmatmul_grouped(a, e, tile_e, bm))
+        return combine(y, tok, w, n, k)
 
 
 class LlamaModel(nn.Module):

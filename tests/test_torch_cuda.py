@@ -394,15 +394,14 @@ def test_moe_forward_cuda_matches_cpu(dev, tmp_path):
                         layer.moe_ffn(h, llm.n_experts_used)
                     finally:
                         torch.cuda.set_sync_debug_mode("default")
-                res.append((moe_route(S * T, llm.n_experts_used,
-                                      llm.n_experts),
+                res.append((moe_route(S * T),
                             model(kv, toks, pos, logits_mode="all").cpu()))
             outs[name, str(device)] = res
         for (ra, a), (rb, b) in zip(outs[name, "cpu"], outs[name, str(dev)]):
             assert ra == rb
             _close(b, a, rel=2e-2)
     routes = {r for rs in outs.values() for r, _ in rs}
-    assert {r for r, _ in routes} == {"single", "grouped", "dense"}
+    assert {r for r, _ in routes} == {"single", "grouped"}
     assert ("grouped", 16) in routes and ("grouped", 128) in routes
 
 

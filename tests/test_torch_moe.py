@@ -172,8 +172,8 @@ def _spy_routes(monkeypatch) -> tuple[list, list]:
     seen, gaps = [], []
     real_route, real_topk = tllama.moe_route, tllama.LlamaLayer.route
 
-    def spy(rows, k, n_experts):
-        seen.append(real_route(rows, k, n_experts))
+    def spy(rows):
+        seen.append(real_route(rows))
         return seen[-1]
 
     def route(self, h, k):
@@ -197,10 +197,12 @@ def _steps(name):
     if name == "single":  # a 5-token prefill (dense), then one token
         return ("single", 1), [(toks[:1, :5], np.arange(5)[None], "none"),
                                (toks[:1, 5:6], np.full((1, 1), 5), "last")]
-    # S = 8 decode after an S = 8 prefill of 3 tokens each
+    # S = 8 decode after an S = 8 prefill of 3 tokens each. "dense" is
+    # named for the route the JAX package takes there (16 assignments
+    # over 4 experts: its dense route over every expert); the port's
+    # grouped route at block_m 16 is held against it
     pos = np.broadcast_to(np.arange(3), (8, 3))
-    route = ("dense", 0) if name == "dense" else ("grouped", 16)
-    return route, [(toks[:, :3], pos, "none"),
+    return ("grouped", 16), [(toks[:, :3], pos, "none"),
                    (toks[:, 3:4], np.full((8, 1), 3), "all")]
 
 
@@ -243,14 +245,34 @@ def test_moe_forward_matches_jax(moe_models, monkeypatch, name):
 
 
 def test_moe_route_rule():
-    # the JAX package's gate arithmetic, and the three routes
-    for a, e in ((64, 128), (16, 8), (512, 128), (16, 64)):
-        assert tllama.moe_grouped_decode_wins(a, e) == \
-            _moe_grouped_decode_wins(a, e)
-    assert moe_route(1, 2, 8) == ("single", 1)
-    assert moe_route(8, 8, 128) == ("grouped", 16)
-    assert moe_route(8, 2, 8) == ("dense", 0)
-    assert moe_route(64, 2, 8) == ("grouped", 128)
+    # a single token; grouped at the tensor-core tile from MOE_GROUP_MIN
+    # rows; every other batch grouped at block_m 16, those included that
+    # the JAX package sends through its dense route (8 rows top-2 of 8
+    # experts: 16 assignments, as many slabs as all 8)
+    assert not _moe_grouped_decode_wins(8 * 2, 8)
+    assert _moe_grouped_decode_wins(8 * 8, 128)
+    assert moe_route(1) == ("single", 1)
+    assert moe_route(8) == ("grouped", 16)
+    assert moe_route(tllama.MOE_GROUP_MIN - 1) == ("grouped", 16)
+    assert moe_route(tllama.MOE_GROUP_MIN) == ("grouped", 128)
+
+
+@pytest.mark.parametrize("rows", [2, 8, 70])
+def test_moe_routes_tool_dense_matches_grouped(rows):
+    """tools/moe_routes.py's dense baseline (every expert on every row,
+    unrouted pairs weighted 0) computes the model's MoE FFN: the same
+    dequantized weights and f32 sums, at 16 rows or fewer in the same
+    order, above them rounded to bf16 on both routes alike."""
+    from powerserve_tpu_torch.tools.moe_routes import dense_all_experts
+
+    cfg, model = make_device_params("tiny-moe", "q8_0", seed=0, device="cpu")
+    k = cfg.llm.n_experts_used
+    g = torch.Generator().manual_seed(rows)
+    h = torch.randn(rows, cfg.llm.dim, generator=g).to(torch.bfloat16)
+    layer = model.layers[0]
+    want = layer.moe_ffn(h, k)
+    got = dense_all_experts(layer, h, k)
+    assert _rel(got.numpy(), want.numpy()) < 1e-6
 
 
 def test_router_top_k_matches_jax(moe_models):
