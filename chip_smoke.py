@@ -15,10 +15,17 @@ Phases, each printing one JSON line:
              bucket and a ragged T, paged flash-decode with pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
-             qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512
+             qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512; the
+             fused linear's modes at llama-8b's draft shapes (x -> wo,
+             norm(x + attn_out) -> gate|up, glu + 2 residuals -> down at
+             K = 14336, norm + bias -> a qwen2.5-3b QKV, concat2, x +
+             argmax -> a factored head's V) and the state mode of paged
+             flash-decode (S = 8, Tq = 5, a slot that sees nothing)
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
-             cpu plain path;
+             cpu plain path (tiny and tiny-k also with
+             --self-draft-layers 1 and with --draft, whose tokens must be
+             the plain run's);
              tokens must agree (a divergence only where the cpu top-2
              logit gap is < 0.5) and every kernel's launch count must
              rise; the logits of the prompt and of each generated token
@@ -29,7 +36,9 @@ Phases, each printing one JSON line:
              plain chat completion; cuda agrees with cpu, paged with
              dense, every request with a lone generate (near-tie rule),
              SSE deltas with the plain reply; the path's kernels launch;
-             no request ends in "error" and the scheduler logs no error
+             no request ends in "error" and the scheduler logs no error;
+             on tiny and tiny-k also "model+self:1", every request's
+             tokens the plain model's
   params     llama-8b Q4_K random weights built on the card
   full_width llama-8b (32 layers): prefill_step over 512 tokens on the
              kernels, and against the same prefill with flash-prefill
@@ -46,6 +55,14 @@ Phases, each printing one JSON line:
              finish "length", two agree with a lone generate, the paged
              and prefill kernels launch; generated tok/s, TTFT, peak pages
              and memory
+  spec_full_width  chain speculation on llama-8b: ChainSpecEngine with a
+             4-layer self-draft (the fused layer chain), with a llama-1b
+             draft and with a rank-512 factored draft head, k = 4, 512 +
+             64 greedy tokens, each against generate's tokens;
+             "model+self:4" with serve_full_width's traffic (the paged
+             verify through the state mode); one paged verify through the
+             deferred route against the inline one (logits, committed
+             K/V). Acceptance is reported, not held (random weights)
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route),
@@ -71,7 +88,8 @@ Phases, each printing one JSON line:
 Then the kernels line (launch counts from each kernel's own path: the
 llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
-grouped qmatmul, the W8 generate for the W8 qmatmul), the card's
+grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
+the fused-linear modes and the state mode), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -158,8 +176,9 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         gather_pages)
     from powerserve_tpu_torch.ops.flash_prefill import (
         flash_prefill_cuda, flash_prefill_quant_reference, prefill_visibility)
-    from powerserve_tpu_torch.ops.fused import (fused_head_cuda,
+    from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                                 fused_linear_reference,
+                                                glu_rounding_slack,
                                                 norm_rounding_slack)
     from powerserve_tpu_torch.ops.moe import group_dispatch
     from powerserve_tpu_torch.ops.qmatmul import (
@@ -242,22 +261,23 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     head_rows = []
     for m in (1, 4):
         h = randn(m, 4096, dtype=torch.bfloat16) * 3
-        ref = fused_linear_reference(head, h, nw)
+        ref = fused_linear_reference(head, norm=(h, nw))
         # tolerance: f32 sums in another order, plus the logits that an
         # element of the bf16-rounded normalized rows next to a rounding
         # midpoint moves if the f32 norm's last bits differ
-        logits = fused_head_cuda(head, h, nw)
+        logits = fused_linear_cuda(head, "norm", [h], nw)
         err = check(f"fused head logits M={m}", logits, ref, 1e-4,
                     norm_rounding_slack(head, h, nw))
-        tok = fused_head_cuda(head, h, nw, argmax=True)
+        tok = fused_linear_cuda(head, "norm", [h], nw, argmax=True)
         if not torch.equal(tok, logits.argmax(dim=-1).to(torch.int32)):
             raise AssertionError(f"fused head argmax {tok.tolist()} is not "
                                  f"the first maximum of its logits")
         wbytes = nbytes(h, nw) + head.nbytes()
         for argmax in (False, True):
-            ms = timer(lambda: fused_head_cuda(head, h, nw, argmax=argmax))
-            plain = timer(lambda: fused_linear_reference(head, h, nw, argmax),
-                          reps=20)
+            ms = timer(lambda: fused_linear_cuda(head, "norm", [h], nw,
+                                                 argmax=argmax))
+            plain = timer(lambda: fused_linear_reference(
+                head, norm=(h, nw), argmax=argmax), reps=20)
             out_b = m * 4 if argmax else m * 128256 * 4
             b, by = bound_ms(wbytes + out_b, 2.0 * m * 128256 * 4096)
             head_rows.append(dict(m=m, argmax=argmax, max_abs_err=err, ms=ms,
@@ -461,11 +481,119 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             bound_ms=b, bound_by=by, ops_peak="1979 TOP/s int8"))
         del x, ref
     del lin8
+
+    # -- fused linear, the rest of the TPU kernel's modes, at the widths
+    #    of llama-8b's fused decode-layer chain and factored draft head
+    #    (Q4_K or Q8_0 with bf16 scales): x -> wo, norm(x + attn_out) ->
+    #    gate|up, glu + both residuals -> down (K = 14336), norm + bias ->
+    #    a qwen2.5-3b QKV, concat2 (2 x 4096 -> 4096, the EAGLE fc input),
+    #    x + argmax -> the factored head's V (512 -> 128256). Tolerance:
+    #    1e-4 of the largest output plus the norm/glu rounding slacks.
+    #    Bound: operands, weights, bias, residuals and output once;
+    #    2 * M * N * K operations
+    fl_rows = []
+    fl_cases = [  # name, prologue, M, K, N, quant, n_ops, bias, resids, argmax
+        ("x wo", "x", 1, 4096, 4096, "q4_k", 1, False, 0, False),
+        ("x wo", "x", 8, 4096, 4096, "q4_k", 1, False, 0, False),
+        ("norm(x+attn) gate|up", "norm", 8, 4096, 28672, "q4_k", 2, False, 0,
+         False),
+        ("glu+2 resids down", "glu", 8, 14336, 4096, "q4_k", 1, False, 2,
+         False),
+        ("norm+bias qwen2.5-3b qkv", "norm", 1, 2048, 2560, "q4_k", 1, True,
+         0, False),
+        ("concat2 eagle fc", "concat2", 8, 8192, 4096, "q4_k", 2, False, 0,
+         False),
+        ("x+argmax factored head V", "x", 5, 512, 128256, "q8_0", 1, False, 0,
+         True),
+    ]
+    for name, pro, m, k, n, quant, n_ops, has_bias, n_res, argmax in fl_cases:
+        lin = _rand_qlinear(g, k, n, quant, dev)
+        widths = {"glu": [2 * k], "concat2": [k // 2, k // 2]}.get(
+            pro, [k] * n_ops)
+        dts = [torch.bfloat16, torch.float32]  # the residual stream, attn_out
+        ops = [(randn(m, w) * 2).to(dts[i % 2]) for i, w in enumerate(widths)]
+        nw = torch.rand(k, generator=g, device=dev) + 0.5
+        nw = nw if pro == "norm" else None
+        bias = randn(n) if has_bias else None
+        resids = [randn(m, n).to(dts[i % 2]) for i in range(n_res)]
+        kw = dict(bias=bias, resids=resids)
+        kw.update({"x": dict(x=ops[0]), "norm": dict(norm=(*ops, nw)),
+                   "glu": dict(glu=ops[0]),
+                   "concat2": dict(parts=tuple(ops))}[pro])
+        ref = fused_linear_reference(lin, **kw)
+        got = fused_linear_cuda(lin, pro, ops, nw, bias, resids)
+        slack = 0.0
+        if pro == "norm":
+            slack = norm_rounding_slack(lin, *ops, nw)
+        elif pro == "glu":
+            slack = glu_rounding_slack(lin, ops[0])
+        err = check(f"fused_linear {name} M={m}", got, ref, 1e-4, slack)
+        if argmax:
+            tok = fused_linear_cuda(lin, pro, ops, nw, bias, resids, True)
+            if not torch.equal(tok, got.argmax(dim=-1).to(torch.int32)):
+                raise AssertionError(f"fused_linear {name}: argmax {tok} is "
+                                     f"not the first maximum of its output")
+        b, by = bound_ms(nbytes(*ops, *resids) + lin.nbytes()
+                         + (nbytes(bias) if has_bias else 0)
+                         + (m * 4 if argmax else m * n * 4), 2.0 * m * n * k)
+        fl_rows.append(dict(
+            case=name, prologue=pro, m=m, k=k, n=n, quant=quant,
+            argmax=argmax, max_abs_err=err,
+            ms=timer(lambda: fused_linear_cuda(lin, pro, ops, nw, bias,
+                                               resids, argmax)),
+            plain_ms=timer(lambda: fused_linear_reference(
+                lin, argmax=argmax, **kw), reps=5),
+            bound_ms=b, bound_by=by))
+        del lin, ops, ref, got
+
+    # -- paged flash-decode, state mode (the paged verify of speculation):
+    #    S = 8 slots, Tq = 5 rows each, pages of 64, a scrambled table; the
+    #    last slot sees no committed position (its m must stay <= -1e30/2,
+    #    so the deferred merge weighs it 0). Tolerance: m to f32
+    #    rounding, l 1e-4, o as flips_check
+    S, Tq, page = 8, 5, 64
+    MP = T // page
+    filled = [560 + 13 * s_ for s_ in range(S - 1)] + [0]
+    n_alloc = [-(-f // page) for f in filled]
+    P = sum(n_alloc) + 8
+    perm = torch.randperm(P, generator=g, device=dev).to(torch.int32)
+    pt = torch.full((S, MP), P, dtype=torch.int32, device=dev)
+    used = 0
+    for s_, n_ in enumerate(n_alloc):
+        pt[s_, :n_] = perm[used:used + n_]
+        used += n_
+    q = randn(S, Tq, H, D)
+    kp, ksp, vp, vsp = cache(P, Hkv, page, D)
+    vis = (torch.arange(T, device=dev)[None, None, :]
+           < torch.tensor(filled, device=dev)[:, None, None]
+           ).expand(S, Tq, T).contiguous()
+    args = (q, kp, ksp, vp, vsp, pt, vis, scale)
+    o, m_, l_ = flash_decode_paged_cuda(*args, state=True)
+    ro, rm, rl = flash_decode_paged_reference(*args, state=True)
+    seen = torch.tensor([f > 0 for f in filled], device=dev)
+    if not (m_[~seen] <= -0.5e30).all():
+        raise AssertionError("state mode: an empty slot's m is above -1e30/2")
+    check("flash_decode_paged state m", m_[seen], rm[seen], 1e-6)
+    check("flash_decode_paged state l", l_[seen], rl[seen], 1e-4)
+    err = flips_check("flash_decode_paged state o", o[seen], ro[seen], vsp)
+    b, by = attn_bound(q, vis, Hkv, nbytes(vis, pt) + nbytes(m_, l_))
+    state_row = dict(
+        S=S, Tq=Tq, T=T, page=page, filled=filled, max_abs_err=err,
+        ms=timer(lambda: flash_decode_paged_cuda(*args, state=True)),
+        plain_ms=timer(lambda: flash_decode_paged_reference(*args,
+                                                            state=True),
+                       reps=20),
+        bound_ms=b, bound_by=by,
+        sdpa_bf16_dequantized_ms=sdpa_ms(
+            q, *(gather_pages(t, pt) for t in (kp, ksp, vp, vsp)),
+            vis | ~seen[:, None, None]))
+    del q, kp, vp, o, ro
     torch.cuda.synchronize()
     emit({"phase": "kernels", "qmatmul": qmm_rows, "fused_head": head_rows,
           "flash_decode": fd_rows, "flash_prefill": fp_rows,
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
-          "qmatmul_w8": w8_rows})
+          "qmatmul_w8": w8_rows, "fused_linear": fl_rows,
+          "flash_decode_paged_state": state_row})
 
     def entry(name, route_src, replaces, row):
         return dict(name=name, route="cuda", source=route_src,
@@ -476,12 +604,26 @@ def phase_kernels(dev: torch.device) -> list[dict]:
 
     qmm_head = next(r for r in qmm_rows if r["quant"] == "q4_k"
                     and r["m"] == 1 and r["n"] == 28672)
+    fused_src = "powerserve_tpu_torch/csrc/fused_linear.cu"
+    fused_tpu = "powerserve_tpu/ops/fused.py:298"
+
+    def fl(case, m):
+        return next(r for r in fl_rows if r["case"] == case and r["m"] == m)
+
     return [
         entry("qmatmul", "powerserve_tpu_torch/csrc/qmatmul.cu",
               "powerserve_tpu/ops/qmatmul.py:565", qmm_head),
-        entry("fused_head", "powerserve_tpu_torch/csrc/fused_head.cu",
-              "powerserve_tpu/ops/fused.py:298",
+        entry("fused_head", fused_src, fused_tpu,
               next(r for r in head_rows if r["m"] == 1 and not r["argmax"])),
+        entry("fused_x", fused_src, fused_tpu, fl("x wo", 1)),
+        entry("fused_norm", fused_src, fused_tpu,
+              fl("norm(x+attn) gate|up", 8)),
+        entry("fused_glu", fused_src, fused_tpu, fl("glu+2 resids down", 8)),
+        entry("fused_x_argmax", fused_src, fused_tpu,
+              fl("x+argmax factored head V", 5)),
+        entry("flash_decode_paged_state",
+              "powerserve_tpu_torch/csrc/flash_decode.cu",
+              "powerserve_tpu/ops/flash_decode.py:183", state_row),
         entry("flash_decode", "powerserve_tpu_torch/csrc/flash_decode.cu",
               "powerserve_tpu/ops/flash_decode.py:115", fd_rows[0]),
         entry("flash_prefill", "powerserve_tpu_torch/csrc/flash_prefill.cu",
@@ -507,6 +649,12 @@ def logit_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got - ref| as a share of ref's range."""
     got, ref = got.float().cpu(), ref.float().cpu()
     return ((got - ref).abs().max() / (ref.max() - ref.min())).item()
+
+
+# the kernels a draft of at most 4 layers runs: the fused layer chain and
+# the fused head (argmax)
+SPEC_NEED = ("fused_head", "fused_x", "fused_norm", "fused_glu", "qmatmul",
+             "flash_decode")
 
 
 def phase_cli() -> dict:
@@ -565,6 +713,36 @@ def phase_cli() -> dict:
                                   logit_gap_max=max(gaps),
                                   logit_gap_steps=len(gaps),
                                   launches=counts)
+            if preset == "tiny-moe":
+                continue
+            # chain speculation: a 1-layer self-draft and a separate draft
+            # (the same preset, another seed), each on cuda and on cpu;
+            # greedy tokens must be the plain run's on the same device
+            draft = make_synthetic_gguf(f"{tmp}/{preset}-draft", preset,
+                                        quant, seed=7, seq_len=256)
+            spec = {}
+            for label, extra in (
+                    ("self-draft-layers 1", ["--self-draft-layers", "1"]),
+                    ("draft", ["--draft", str(draft / "model")])):
+                for dev_name, plain, eng in (("cuda", gpu, eng_gpu),
+                                             ("cpu", cpu, eng_cpu)):
+                    cuda_lib.reset_launch_counts()
+                    r = run.run_prompt(run.parse_args(
+                        argv + extra + ["--spec-k", "3", "--device",
+                                        dev_name]))
+                    spec_counts = cuda_lib.launch_counts()
+                    if dev_name == "cuda":
+                        missing = [k for k in SPEC_NEED
+                                   if not spec_counts[k]]
+                        if missing:
+                            raise AssertionError(f"{preset} spec {label}: "
+                                                 f"did not launch {missing}")
+                    spec[f"{label} {dev_name}"] = dict(
+                        tokens=r.ids, summary=r.spec.summary(),
+                        vs_run_near_tie=agree(
+                            f"{preset} spec {label} {dev_name}", r.ids,
+                            plain.ids, eng, plain.prompt_ids))
+            result[preset]["spec"] = spec
     return result
 
 
@@ -596,7 +774,6 @@ class Counted:
 def plain_routes() -> dict:
     """The forward's kernel calls (models/llama.py) sent to their plain
     twins, for mock.patch.multiple."""
-    from powerserve_tpu_torch.ops.elementwise import rms_norm
     from powerserve_tpu_torch.ops.flash_decode import (
         flash_decode_paged_reference, flash_decode_quant_reference)
     from powerserve_tpu_torch.ops.flash_prefill import (
@@ -609,15 +786,9 @@ def plain_routes() -> dict:
         y = qmatmul_reference(x.reshape(-1, x.shape[-1]), lin)
         return y.reshape(*x.shape[:-1], lin.out_features)
 
-    def plain_fused(lin, *, norm, argmax=False, eps=1e-5):
-        x, w = norm
-        if lin.w8:  # the W8 head's composition, on the W8 twin
-            y = qmatmul_reference(rms_norm(x, w, eps).to(torch.bfloat16), lin)
-            return y.argmax(dim=-1).to(torch.int32) if argmax else y
-        return fused_linear_reference(lin, x, w, argmax, eps)
-
+    # (a W8 head's twin is its composition on the W8 twin)
     return dict(qmatmul=plain_qmm, qmatmul_grouped=qmatmul_grouped_reference,
-                fused_linear=plain_fused,
+                fused_linear=fused_linear_reference,
                 flash_decode_quant=flash_decode_quant_reference,
                 flash_decode_paged=flash_decode_paged_reference,
                 flash_prefill_quant=flash_prefill_quant_reference)
@@ -1159,9 +1330,10 @@ SERVE_PROMPTS = ["ab", "cde", "xy z", "hello"]
 SERVE_CHAT = [{"role": "user", "content": "hi"}]
 
 
-def serve_run(ws, hp, device: str) -> dict:
+def serve_run(ws, hp, device: str, model: str = "model") -> dict:
     """Serve the workspace on `device` over HTTP: four concurrent greedy
-    completions, a streamed and a plain chat completion, all at once."""
+    completions, a streamed and a plain chat completion, all at once, to
+    the model name `model`."""
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.serving.server import ServerContext
 
@@ -1170,10 +1342,10 @@ def serve_run(ws, hp, device: str) -> dict:
     port = server.server_address[1]
     try:
         calls = [lambda p=p: http_call(port, "POST", "/v1/completions", {
-            "model": "model", "prompt": p, "max_tokens": 12,
+            "model": model, "prompt": p, "max_tokens": 12,
             "temperature": 0}) for p in SERVE_PROMPTS]
         calls += [lambda st=st: http_call(port, "POST", "/v1/chat/completions",
-                                          {"model": "model",
+                                          {"model": model,
                                            "messages": SERVE_CHAT,
                                            "max_tokens": 16,
                                            "temperature": 0, "stream": st})
@@ -1251,6 +1423,34 @@ def phase_serve(devices=("cuda", "cpu")) -> dict:
                     if cache == "paged" and not \
                             run["metrics"]["paged_preemptions_total"] > 0:
                         raise AssertionError(f"{label}: no preemption")
+                    if preset != "tiny-moe":
+                        # "model+self:1": chain speculation from a 1-layer
+                        # self-draft, each request's tokens the plain run's
+                        spec = serve_run(ws, hp, device, "model+self:1")
+                        want = run["tokens"]
+                        spec_need = SPEC_NEED + (
+                            ("flash_decode_paged_state",) if cache == "paged"
+                            else ())
+                        if device == "cuda" and not all(
+                                spec["launches"][k] for k in spec_need):
+                            raise AssertionError(
+                                f"{label} spec: did not launch {spec_need}: "
+                                f"{spec['launches']}")
+                        if cache == "paged" and not \
+                                spec["metrics"]["paged_preemptions_total"] > 0:
+                            raise AssertionError(f"{label} spec: no "
+                                                 f"preemption")
+                        out[f"spec_{cache}_{device}"] = dict(
+                            texts=spec["texts"], launches=spec["launches"],
+                            accept_rate=spec["metrics"].get(
+                                "spec_accept_rate"),
+                            vs_plain_near_ties=[
+                                g for g in (
+                                    agree(f"{label} spec vs plain", ids,
+                                          want[prompt], engines[device][0],
+                                          list(prompt))
+                                    for prompt, ids in spec["tokens"].items())
+                                if g is not None])
                     # each request against a lone generate on its device
                     engine, tok = engines[device]
                     gaps = []
@@ -1287,12 +1487,14 @@ SERVE_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode_paged")
 
 
 def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
-                           need: tuple = SERVE_NEED) -> tuple[dict, dict]:
+                           need: tuple = SERVE_NEED,
+                           model_name: str = "model") -> tuple[dict, dict]:
     """A full-width model (random weights) behind the HTTP server: 8 slots
     over a paged pool of 128 pages of 64 tokens (half of 8 x 2048, yet
     enough for all eight at once), 8 concurrent greedy requests with
-    prompts of 128-1024 tokens and 64 new tokens each; every kernel in
-    `need` must launch."""
+    prompts of 128-1024 tokens and 64 new tokens each, to the model name
+    `model_name` ("model", or a speculative "model+self:N"); every kernel
+    in `need` must launch."""
     import random
 
     from powerserve_tpu_torch.core.config import HyperParams
@@ -1320,13 +1522,13 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
     torch.cuda.reset_peak_memory_stats(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ctx = ServerContext(tmp, "model", hp, dev)
-        mctx = ctx.register("model", model, cfg, tok)
+        ctx.register("model", model, cfg, tok)
         server = serving(ctx)
         port = server.server_address[1]
         try:
-            pool = mctx.scheduler.pool
+            pool = ctx.get(model_name).scheduler.pool
             calls = [lambda t=t: http_call(port, "POST", "/v1/completions", {
-                "model": "model", "prompt": t, "max_tokens": n_new,
+                "model": model_name, "prompt": t, "max_tokens": n_new,
                 "temperature": 0}) for t in texts]
             peak_used = [0]
             done = threading.Event()
@@ -1364,6 +1566,8 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                 raise AssertionError(f"{phase} did not launch {missing}: "
                                      f"{launches}")
             metrics = metrics_of(port)
+            spec = {key: metrics[key] for key in (
+                "spec_accept_rate", "spec_tokens_per_step") if key in metrics}
             peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         finally:
             server.shutdown()
@@ -1392,8 +1596,237 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
              "pages_used_peak": peak_used[0],
              "preemptions": metrics["paged_preemptions_total"],
              "vs_generate_near_ties": [g for g in gaps if g is not None],
+             "model": model_name, **spec,
              "launches": launches, "peak_mem_gb": peak_gb,
              "card": card_line()}, launches)
+
+
+class Clock:
+    """A model whose every call is synchronized and timed (wall seconds
+    summed in .seconds), for a breakdown of a speculative tick."""
+
+    def __init__(self, model):
+        self.model, self.llm, self.seconds, self.calls = model, model.llm, 0.0, 0
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.model(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+def spec_tick_breakdown(dev, model, llm, g) -> dict:
+    """Where one scheduler spec tick of llama-8b+self:4 goes: 8 greedy
+    slots with 512 committed positions each on a paged pool (pages of 64),
+    hp.spec_horizon = 2 steps of k = 4, each forward synchronized and
+    timed: draft forwards, verifies, the rest (sampling, acceptance,
+    rollback), and the tick's one host fetch."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
+    from powerserve_tpu_torch.speculative.chain import (
+        chain_spec_sample_scan, self_draft_model)
+
+    S, n, H, k, page = 8, 512, 2, 4, 64
+    t_kv = PagedKVCache.create(llm.n_layers, S, 2048, llm.n_kv_heads,
+                               llm.head_size, dev, n_pages=128,
+                               page_size=page)
+    pool = PagePool(128, S, t_kv.max_pages, page)
+    for s_ in range(S):
+        pool.ensure(s_, n + H * (k + 1) + k + 1)
+    pool.flush(t_kv)
+    draft = self_draft_model(model, 4)
+    d_kv = KVCache.create(4, S, 2048, llm.n_kv_heads, llm.head_size, dev)
+    toks = torch.randint(3, llm.vocab_size, (S, n), generator=g).to(dev)
+    pos = torch.arange(n, device=dev).expand(S, n)
+    model(t_kv, toks, pos, logits_mode="none")
+    draft(d_kv, toks, pos, logits_mode="none")
+    root = toks[:, -1].clone()
+    zeros = torch.zeros(S, device=dev)
+    args = (root, H, k, torch.ones(S, dtype=torch.bool, device=dev),
+            [None] * S, zeros, torch.full((S,), 40, device=dev),
+            torch.ones(S, device=dev))
+    tc, dc = Clock(model), Clock(draft)
+    chain_spec_sample_scan(tc, dc, t_kv, d_kv, *args)  # warm
+    tc.seconds = dc.seconds = 0.0
+    tc.calls = dc.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emitted, counts, nxt = chain_spec_sample_scan(tc, dc, t_kv, d_kv, *args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cat([emitted.flatten(), counts.flatten(), nxt]).cpu()
+    fetch = time.perf_counter() - t1
+    total = t1 - t0 + fetch
+    return dict(slots=S, committed=n, steps=H, k=k, tick_ms=total * 1e3,
+                draft_ms=dc.seconds * 1e3, verify_ms=tc.seconds * 1e3,
+                other_ms=(t1 - t0 - dc.seconds - tc.seconds) * 1e3,
+                fetch_ms=fetch * 1e3, draft_calls=dc.calls,
+                verify_calls=tc.calls)
+
+
+def phase_spec_full_width(dev: torch.device, cfg, model,
+                          serve_traffic) -> tuple[dict, dict]:
+    """Chain speculation on llama-8b Q4_K (random weights, which accept few
+    drafts: acceptance is reported, not held):
+      (a) ChainSpecEngine with a 4-layer self-draft (the fused layer
+          chain), k = 4, a 512-token prompt and 64 greedy tokens, against
+          InferenceEngine.generate's tokens (near-tie rule);
+      (b) the same with a separate llama-1b Q4_K draft;
+      (c) the 4-layer self-draft with its lm_head factored to rank 512;
+      (d) "llama-8b+self:4" behind the HTTP server with serve_full_width's
+          traffic on its paged pool (8 slots), whose verifies take the
+          deferred route through the state mode;
+      (e) one paged verify forward (S = 8 slots of 5 rows) through the
+          deferred route against the inline one: logits within LOGIT_REL;
+          after the commit the pool holds what per-layer writes of the
+          same K/V would, and layer 0 (computed before any attention)
+          holds the inline route's bits.
+    Returns the phase's line and each path's launch counts."""
+    from unittest import mock
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
+    from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
+                                                        with_draft_head)
+    from powerserve_tpu_torch.speculative.draft_head import make_draft_head
+    from powerserve_tpu_torch.speculative.engine import SpecStats
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+    llm = cfg.llm
+    n_prompt, n_new, max_seq, k = 512, 64, 2048, 4
+    g = torch.Generator(device="cpu")
+    g.manual_seed(2)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=g)
+    prompt = prompt.tolist()
+    hp = HyperParams(max_slots=1, max_seq_len=max_seq, batch_size=n_prompt)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    counted = Counted()
+    want, plain_s = counted("plain generate", ("qmatmul", "fused_head"),
+                            lambda: list(engine.generate(prompt, n_new)))
+    out: dict = {"phase": "spec_full_width", "k": k,
+                 "prompt_tokens": n_prompt, "new_tokens": n_new,
+                 "plain_decode_tok_s": n_new / plain_s}
+
+    def spec_run(label, need, **kw):
+        draft_head = kw.pop("draft_head", None)
+        eng = ChainSpecEngine(model, cfg, k=k, block_steps=8,
+                              max_seq=max_seq, prefill_chunk=n_prompt,
+                              device=dev, **kw)
+        if draft_head is not None:
+            eng.draft = with_draft_head(eng.draft, draft_head)
+        stats = SpecStats()
+        got, secs = counted(label, need, lambda: list(
+            eng.generate(prompt, n_new, stats=stats)))
+        if len(got) != n_new:
+            raise AssertionError(f"{label}: {len(got)} tokens")
+        out[label] = dict(
+            accept_rate=stats.accept_rate,
+            tokens_per_step=stats.tokens_per_step, steps=stats.steps,
+            decode_tok_s=n_new / (stats.decode_ms / 1e3),
+            wall_s=secs, vs_generate_near_tie=agree(
+                f"spec_full_width {label}", got, want, engine, prompt))
+        del eng
+
+    # (a) the fused chain of a shallow self-draft, (b) a separate draft
+    spec_run("self_draft_4", SPEC_NEED, self_draft_layers=4)
+    _, d_model = make_device_params("llama-1b", "q4_k", seed=1,
+                                    device=dev)
+    spec_run("draft_llama_1b", ("qmatmul", "fused_head", "flash_decode"),
+             draft=d_model)
+    del d_model
+    torch.cuda.empty_cache()
+    # (c) the factored draft head: norm -> U, then V with the argmax
+    t0 = time.perf_counter()
+    head_lr = make_draft_head(model.lm_head, rank=512)
+    torch.cuda.synchronize()
+    out["draft_head_build_s"] = time.perf_counter() - t0
+    spec_run("self_draft_4_head_rank_512", SPEC_NEED + ("fused_x_argmax",),
+             self_draft_layers=4, draft_head=head_lr)
+    del head_lr
+    torch.cuda.empty_cache()
+    # (d) behind the server: the state mode on the paged verify
+    # the draft cache is dense; the target's verify reads the pool only
+    # through the state mode
+    serve, _ = serve_traffic(dev, cfg, model, "spec_full_width serve",
+                             SPEC_NEED + ("flash_prefill",
+                                          "flash_decode_paged_state"),
+                             "model+self:4")
+    counted.launches["serve"] = serve.pop("launches")
+    out["serve"] = serve
+
+    out["tick_breakdown"] = spec_tick_breakdown(dev, model, llm, g)
+
+    # (e) one paged verify, deferred against inline
+    S, Tq, page = 8, k + 1, 64
+    kv = PagedKVCache.create(llm.n_layers, S, max_seq, llm.n_kv_heads,
+                             llm.head_size, dev, n_pages=128,
+                             page_size=page)
+    pool = PagePool(128, S, kv.max_pages, page)
+    lens = [128 * (s_ + 1) - 7 * s_ for s_ in range(S)]
+    for s_, n_ in enumerate(lens):
+        if not pool.ensure(s_, n_ + Tq):
+            raise AssertionError("verify pool too small")
+    pool.flush(kv)
+    L = max(lens)
+    toks = torch.randint(3, llm.vocab_size, (S, L), generator=g).to(dev)
+    pos = torch.arange(L, device=dev).expand(S, L).clone()
+    pos[pos >= torch.tensor(lens, device=dev)[:, None]] = -1
+    for c0 in range(0, L, 512):
+        model(kv, toks[:, c0:c0 + 512], pos[:, c0:c0 + 512],
+              logits_mode="none")
+
+    def clone(c):
+        return PagedKVCache(*(t.clone() for t in (
+            c.k, c.v, c.k_scale, c.v_scale, c.page_table, c.mask, c.pos)),
+            page)
+
+    a, b_ = clone(kv), clone(kv)
+    del kv
+    vt = torch.randint(3, llm.vocab_size, (S, Tq), generator=g).to(dev)
+    vpos = a.pos.long()[:, None] + torch.arange(Tq, device=dev)[None]
+    inline = model(a, vt, vpos, logits_mode="all")
+    blocks = []
+    commit = PagedKVCache.commit
+
+    def keep(self, bl, index):
+        blocks.extend(bl)
+        return commit(self, bl, index)
+
+    with mock.patch.object(PagedKVCache, "commit", keep):
+        deferred, _ = counted("deferred verify",
+                              ("flash_decode_paged_state",),
+                              lambda: model(b_, vt, vpos, logits_mode="all",
+                                            kv_update="deferred"))
+    gap = near_tie_agree("spec_full_width deferred verify", deferred, inline)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if not torch.equal(getattr(a, name)[0], getattr(b_, name)[0]):
+            raise AssertionError(f"deferred commit: layer 0 {name} differs "
+                                 f"from the inline route's")
+    s_idx, t_idx, pages, offs = a.write_index(vpos)
+    codes_differ = 0
+    for layer, (kq, ks, vq, vs) in enumerate(blocks):
+        for name, val in (("k", kq), ("k_scale", ks), ("v", vq),
+                          ("v_scale", vs)):
+            got = getattr(b_, name)[layer][pages, :, offs]
+            if not torch.equal(got, val[s_idx, t_idx]):
+                raise AssertionError(f"deferred commit: layer {layer} "
+                                     f"{name} is not the block it kept")
+            if name in ("k", "v"):
+                codes_differ += int((got != getattr(a, name)[layer][
+                    pages, :, offs]).sum())
+    out["deferred_verify"] = dict(
+        slots=S, rows=Tq, committed=lens, logit_gap=gap,
+        int8_codes_differing_from_inline=codes_differ,
+        layers=len(blocks))
+    del a, b_, inline, deferred, blocks
+    torch.cuda.empty_cache()
+    out.update(launches=counted.launches, card=card_line())
+    return out, counted.launches
 
 
 def main() -> int:
@@ -1430,6 +1863,9 @@ def main() -> int:
     serve, serve_counts = phase_serve_full_width(dev, cfg, model,
                                                  "serve_full_width")
     emit(serve)
+    spec, spec_counts = phase_spec_full_width(dev, cfg, model,
+                                              phase_serve_full_width)
+    emit(spec)
     del cfg, model
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
@@ -1457,7 +1893,13 @@ def main() -> int:
     del cfg, model
     # launches from the run of each kernel's own path
     own = {"flash_prefill": serve_counts, "flash_decode_paged": serve_counts,
-           "qmatmul_grouped": moe_counts, "qmatmul_w8": w8_counts}
+           "qmatmul_grouped": moe_counts, "qmatmul_w8": w8_counts,
+           # the fused layer chain: the 4-layer self-draft's generate; the
+           # factored head's V: its generate; the state mode: the server
+           **{name: spec_counts["self_draft_4"]
+              for name in ("fused_x", "fused_norm", "fused_glu")},
+           "fused_x_argmax": spec_counts["self_draft_4_head_rank_512"],
+           "flash_decode_paged_state": spec_counts["serve"]}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     print(card, flush=True)

@@ -82,14 +82,14 @@ __device__ __forceinline__ float dequant_byte(uint32_t word, int j, int shift,
 }
 
 // acc[m][j] += sum over the 32 rows k of block kb of
-//   x[m, k] * w[k, n0 + j]  (m < M, x bf16 with row stride x_stride;
-//   x may point to global or shared memory).
+//   xk[m * x_stride + (k - 32 kb)] * w[k, n0 + j]  (m < M; xk bf16, the
+//   block's 32 values of row 0, in global or shared memory).
 template <int MT>
-__device__ __forceinline__ void gemv_block(const QWeight& w, int kb, int n0,
-                                           bool vec,
-                                           const __nv_bfloat16* x,
-                                           long x_stride, int M,
-                                           float (&acc)[MT][4]) {
+__device__ __forceinline__ void gemv_block_at(const QWeight& w, int kb, int n0,
+                                              bool vec,
+                                              const __nv_bfloat16* xk,
+                                              long x_stride, int M,
+                                              float (&acc)[MT][4]) {
   float s[4], b[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -101,7 +101,6 @@ __device__ __forceinline__ void gemv_block(const QWeight& w, int kb, int n0,
   }
   int shift;
   long row0 = block_row(w, kb, &shift);
-  const __nv_bfloat16* xk = x + kb * 32;
   // all 32 row loads are issued before any is used, so each thread keeps
   // 128 bytes of weights in flight (the decode GEMV is latency-bound on
   // these loads otherwise)
@@ -123,4 +122,15 @@ __device__ __forceinline__ void gemv_block(const QWeight& w, int kb, int n0,
       }
     }
   }
+}
+
+// The same over rows x[m, k] of a bf16 [M, *] matrix with row stride
+// x_stride.
+template <int MT>
+__device__ __forceinline__ void gemv_block(const QWeight& w, int kb, int n0,
+                                           bool vec,
+                                           const __nv_bfloat16* x,
+                                           long x_stride, int M,
+                                           float (&acc)[MT][4]) {
+  gemv_block_at<MT>(w, kb, n0, vec, x + kb * 32, x_stride, M, acc);
 }

@@ -38,8 +38,7 @@
 // of dividing by zero.
 //
 // Paged mode replaces powerserve_tpu/ops/flash_decode.py::
-// flash_decode_paged (normalized output; its state mode is not ported).
-// The same kernel body: only the address of a staged row changes, from
+// flash_decode_paged, both outputs. The same kernel body: only the address of a staged row changes, from
 // the slot's contiguous slab to pool page page_table[s, t / page], row
 // t % page, token by token, so a 64-token chunk may span several pages
 // (page = 8) or part of one (page = 128). Visibility stays in logical
@@ -47,6 +46,14 @@
 // entries are read, and an unallocated entry (= P) is clipped into the
 // pool, as the TPU kernel clips it, for the hidden positions that may
 // still be staged.
+//
+// State mode (flash_decode_paged(..., state=True), the committed part of
+// flash_decode_paged_deferred): the combine pass merges the splits as
+// above but skips the division by l and writes the partition itself —
+// o [S, R, D] unnormalized, m and l [S, R] with R = (h, g, tq), tq
+// minor, the TPU kernel's row order — for the caller to merge with the
+// in-flight block's partition. A row that sees no committed position
+// keeps m = -1e30 (<= -1e30 / 2), so that merge weighs it 0.
 #include "common.cuh"
 
 namespace {
@@ -270,10 +277,12 @@ __global__ __launch_bounds__(kThreads) void flash_decode_kernel(
   }
 }
 
-// Merge the T splits of one (slot, kv head) in order and normalize.
+// Merge the T splits of one (slot, kv head) in order and normalize; or,
+// with m_out, write the unnormalized state in the TPU row order.
 __global__ __launch_bounds__(kThreads) void flash_decode_combine_kernel(
     const float* m_part, const float* l_part, const float* acc_part,
-    float* out, int Tq, int H, int Hkv, int D, int n_split) {
+    float* out, float* m_out, float* l_out, int Tq, int H, int Hkv, int D,
+    int n_split) {
   const int h = blockIdx.x, s = blockIdx.y;
   const int G = H / Hkv, R = G * Tq;
   const long base = ((long)s * Hkv + h) * n_split;
@@ -286,6 +295,15 @@ __global__ __launch_bounds__(kThreads) void flash_decode_combine_kernel(
       const float wgt = expf(m_part[(base + i) * R + r] - m);
       l += l_part[(base + i) * R + r] * wgt;
       a += acc_part[((base + i) * R + r) * D + d] * wgt;
+    }
+    if (m_out) {
+      const long row = ((long)s * Hkv + h) * R + r;  // (s, h, g, tq)
+      out[row * D + d] = a;
+      if (d == 0) {
+        m_out[row] = m;
+        l_out[row] = l;
+      }
+      continue;
     }
     const int g = r / Tq, tq = r - g * Tq;
     out[(((long)s * Tq + tq) * H + h * G + g) * D + d] = a / (l > 0.f ? l : 1.f);
@@ -307,8 +325,8 @@ namespace {
 int launch(const void* q, const void* kq, const void* ks, const void* vq,
            const void* vs, const void* vis, const int* page_table, int page,
            int n_pages, void* m_part, void* l_part, void* acc_part, void* out,
-           int S, int Tq, int H, int Hkv, int T, int D, float scale,
-           void* stream_ptr) {
+           void* m_out, void* l_out, int S, int Tq, int H, int Hkv, int T,
+           int D, float scale, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int R = (H / Hkv) * Tq;
   const size_t smem = smem_layout(R, Tq, T, D, nullptr, nullptr);
@@ -326,7 +344,9 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq,
       reinterpret_cast<const float*>(vs), reinterpret_cast<const uint8_t*>(vis),
       page_table, page, n_pages, mp, lp, ap, Tq, H, Hkv, T, D, scale);
   flash_decode_combine_kernel<<<dim3(Hkv, S), kThreads, 0, stream>>>(
-      mp, lp, ap, reinterpret_cast<float*>(out), Tq, H, Hkv, D, n_split);
+      mp, lp, ap, reinterpret_cast<float*>(out),
+      reinterpret_cast<float*>(m_out), reinterpret_cast<float*>(l_out), Tq,
+      H, Hkv, D, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -341,23 +361,27 @@ PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
                               void* out, int S, int Tq, int H, int Hkv, int T,
                               int D, float scale, void* stream_ptr) {
   return launch(q, kq, ks, vq, vs, vis, nullptr, 1, 1, m_part, l_part,
-                acc_part, out, S, Tq, H, Hkv, T, D, scale, stream_ptr);
+                acc_part, out, nullptr, nullptr, S, Tq, H, Hkv, T, D, scale,
+                stream_ptr);
 }
 
 // The paged pool: kq/vq int8 [P, Hkv, page, D], ks/vs f32 [P, Hkv, page],
 // page_table int32 [S, max_pages] (P = unallocated), vis uint8
 // [S, Tq, max_pages * page] over logical positions; scratch as above with
-// T = max_pages * page.
+// T = max_pages * page. m_out null: out f32 [S, Tq, H * D] normalized;
+// else the state mode: out f32 [S, R, D] unnormalized and m_out, l_out
+// f32 [S, R], R = H * Tq in (h, g, tq) order.
 PS_EXPORT int ps_flash_decode_paged(const void* q, const void* kq,
                                     const void* ks, const void* vq,
                                     const void* vs, const void* page_table,
                                     const void* vis, void* m_part,
                                     void* l_part, void* acc_part, void* out,
+                                    void* m_out, void* l_out,
                                     int S, int Tq, int H, int Hkv,
                                     int max_pages, int page, int n_pages,
                                     int D, float scale, void* stream_ptr) {
   return launch(q, kq, ks, vq, vs, vis,
                 reinterpret_cast<const int*>(page_table), page, n_pages,
-                m_part, l_part, acc_part, out, S, Tq, H, Hkv,
+                m_part, l_part, acc_part, out, m_out, l_out, S, Tq, H, Hkv,
                 max_pages * page, D, scale, stream_ptr);
 }

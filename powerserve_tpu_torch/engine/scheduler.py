@@ -8,8 +8,19 @@ random generator. The cache is the dense int8 KVCache or, with
 hp.paged_pages > 0, the paged pool, where admission defers while the
 pool is dry and decode preempts the youngest request by recompute.
 
-The plain path of the JAX package's scheduler: speculation, EAGLE,
-multimodal prefill, meshes and double-buffered ticks are not ported.
+With a draft model (a separate model, or a view of the target's first
+layers: speculative/chain.py self_draft_model) every decode tick runs
+`hp.spec_horizon` steps of batched chain speculation instead
+(chain_spec_sample_scan: each slot drafts hp.spec_k tokens with its own
+sampler settings and generator, one target forward verifies all slots,
+speculative sampling accepts per slot; temperature 0 is greedy), over a
+dense int8 draft cache beside the dense or paged target cache. Prefill
+fills both caches, prefix-cache entries carry both prefixes, and a
+preempted request rebuilds both. Speculative ticks apply no penalties
+and record no logprobs (the server refuses such requests).
+
+Speculation trees, EAGLE, multimodal prefill, meshes and double-buffered
+ticks are not ported: like the plain tick, the spec tick syncs once.
 Only the scheduler thread touches the device; submit() is thread-safe.
 """
 
@@ -33,6 +44,7 @@ from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
 from ..sampling.sampler import PenaltyState, sample_logits_batched
+from ..speculative.chain import chain_spec_sample_scan
 
 log = get_logger("scheduler")
 
@@ -123,7 +135,10 @@ class BatchScheduler:
 
     def __init__(self, model: LlamaModel, cfg: ModelConfig,
                  hp: HyperParams | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 draft: LlamaModel | None = None):
+        """draft: batched chain speculation with this draft model (its
+        vocab must be the target's)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -149,6 +164,20 @@ class BatchScheduler:
             self.kv = KVCache.create(llm.n_layers, self.S, self.max_seq,
                                      llm.n_kv_heads, llm.head_size,
                                      self.device)
+        self.draft = self.d_kv = None
+        if draft is not None:
+            if self.hp.spec_tree:
+                raise NotImplementedError("speculation trees (spec_tree) are "
+                                          "not ported yet")
+            if draft.llm.vocab_size != llm.vocab_size:
+                raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
+                                 f"target vocab {llm.vocab_size}")
+            self.draft = draft.to(self.device)
+            d = draft.llm
+            self.d_kv = KVCache.create(d.n_layers, self.S, self.max_seq,
+                                       d.n_kv_heads, d.head_size, self.device)
+        self.spec_k = max(int(self.hp.spec_k), 1)
+        self.spec_horizon = max(int(self.hp.spec_horizon), 1)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one generator per slot, re-seeded at each admission
@@ -164,6 +193,9 @@ class BatchScheduler:
         self.n_tokens_generated = 0
         self.n_prompt_tokens = 0
         self.n_preemptions = 0
+        self.n_spec_steps = 0
+        self.n_spec_drafted = 0
+        self.n_spec_accepted = 0
         self.started_at = time.time()
         # sliding windows for latency percentiles (seconds)
         self._ttft: deque = deque(maxlen=512)
@@ -239,9 +271,10 @@ class BatchScheduler:
         self.n_preemptions += 1
         log.debug(f"req {req.id}: preempted (paged pool dry)")
 
-    def _ensure_decode_pages(self, decoding: list[int]) -> list[int]:
-        """Paged mode: grow each decoding slot's pages to cover this
-        tick's `horizon` writes. When the pool runs dry the YOUNGEST
+    def _ensure_decode_pages(self, decoding: list[int],
+                             extra: int) -> list[int]:
+        """Paged mode: grow each decoding slot's pages to cover the `extra`
+        positions this tick may write. When the pool runs dry the YOUNGEST
         page-holding request is preempted first (least work lost); a slot
         that is itself the youngest preempts itself. A lone request the
         pool cannot serve finishes with 'length'."""
@@ -251,7 +284,7 @@ class BatchScheduler:
             s = self.slots[i]
             if s.req is None:  # preempted as a victim earlier this tick
                 continue
-            while not self.pool.ensure(i, pos[i] + self.horizon):
+            while not self.pool.ensure(i, pos[i] + extra):
                 victims = [j for j in range(self.S)
                            if j != i and self.slots[j].req is not None
                            and self.pool.owned[j]]
@@ -307,11 +340,17 @@ class BatchScheduler:
             slot.cur_token = req.prompt_ids[-1]
             slot.generated = []
             self.kv.reset_slot(i)
+            if self.d_kv is not None:
+                self.d_kv.reset_slot(i)
             if self.prefix_cache is not None:
                 hit = self.prefix_cache.match(req.prompt_ids[:-1])
                 if hit is not None:
+                    # a speculating scheduler's entries carry the draft
+                    # cache's prefix too
                     n, saved = hit
                     self.kv.restore_slot_prefix(i, saved)
+                    if self.d_kv is not None:
+                        self.d_kv.restore_slot_prefix(i, saved["draft"])
                     slot.prefill_off = n
                     log.debug(f"req {req.id}: prefix cache hit ({n} tok)")
             self.penalty.reset_slot(i)
@@ -356,14 +395,19 @@ class BatchScheduler:
         if not active.any():
             return False
         dev = self.device
-        self.model(self.kv, torch.from_numpy(tokens).to(dev),
-                   torch.from_numpy(positions).to(dev),
-                   active=torch.from_numpy(active).to(dev),
-                   logits_mode="none")
+        args = (torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(positions).to(dev))
+        act = torch.from_numpy(active).to(dev)
+        self.model(self.kv, *args, active=act, logits_mode="none")
+        if self.draft is not None:
+            self.draft(self.d_kv, *args, active=act, logits_mode="none")
         for i, prefix in stores:
             if len(prefix) >= self.prefix_cache.min_len:
-                self.prefix_cache.put(
-                    prefix, self.kv.save_slot_prefix(i, len(prefix)))
+                saved = self.kv.save_slot_prefix(i, len(prefix))
+                if self.d_kv is not None:
+                    saved["draft"] = self.d_kv.save_slot_prefix(i,
+                                                                len(prefix))
+                self.prefix_cache.put(prefix, saved)
         return True
 
     def _cancel_tick(self) -> None:
@@ -381,33 +425,14 @@ class BatchScheduler:
                     if s.req is not None and not s.prefilling]
         if not decoding:
             return False
+        if self.draft is not None:
+            return self._spec_decode_tick(decoding)
         if self.pool is not None:
-            decoding = self._ensure_decode_pages(decoding)
+            decoding = self._ensure_decode_pages(decoding, self.horizon)
             if not decoding:
                 return True  # preemptions / finishes were work
-        dev = self.device
-        S = self.S
-        tokens = torch.zeros(S, dtype=torch.int64)
-        active = torch.zeros(S, dtype=torch.bool)
-        temp = torch.zeros(S)
-        top_k = torch.zeros(S, dtype=torch.int64)
-        top_p = torch.ones(S)
-        pen = torch.ones(S)
-        pfreq = torch.zeros(S)
-        ppres = torch.zeros(S)
-        gens: list[torch.Generator | None] = [None] * S
-        for i in decoding:
-            r = self.slots[i].req
-            tokens[i] = self.slots[i].cur_token
-            active[i] = True
-            temp[i], top_k[i], top_p[i] = r.temperature, r.top_k, r.top_p
-            pen[i], pfreq[i] = r.penalty_repeat, r.penalty_freq
-            ppres[i] = r.penalty_present
-            if r.temperature > 0:
-                gens[i] = self.generators[i]
-        tok, active, temp, top_k, top_p, pen, pfreq, ppres = (
-            t.to(dev) for t in (tokens, active, temp, top_k, top_p, pen,
-                                pfreq, ppres))
+        (tok, active, temp, top_k, top_p, pen, pfreq, ppres), gens = \
+            self._slot_settings(decoding)
         vocab = self.cfg.llm.vocab_size
         out_tok, out_lp, out_ti, out_tlp = [], [], [], []
         for _ in range(self.horizon):
@@ -439,36 +464,108 @@ class BatchScheduler:
         pos_host = self.kv.pos.cpu().tolist()
         for i in decoding:
             s = self.slots[i]
-            done = False
             for h in range(self.horizon):
                 t = int(toks[i][h])
                 s.cur_token = t
-                s.generated.append(t)
-                s.req.n_generated += 1
-                self.n_tokens_generated += 1
                 if s.req.logprobs > 0:
                     n = min(s.req.logprobs, N_TOP)
                     s.req.token_logprobs.append(float(lps[i][h]))
                     s.req.top_logprobs.append(
                         list(zip(top_i[i][h][:n], top_lp[i][h][:n])))
-                self._emit(s.req, t)
-                if s.req.cancelled:
-                    s.req.finish_reason = s.req.finish_reason or "stop"
-                    done = True
-                elif t in s.req.stop_ids:
-                    s.req.finish_reason = "stop"
-                    done = True
-                elif s.req.n_generated >= s.req.max_tokens:
-                    s.req.finish_reason = "length"
-                    done = True
-                elif pos_host[i] + h + 1 >= self.max_seq - 1:
-                    s.req.finish_reason = "length"
-                    done = True
-                if done:
+                if self._deliver(i, t, pos_host[i] + h + 1
+                                 >= self.max_seq - 1):
                     break
-            if done:
-                self._emit(s.req, None)
-                self._free_slot(i)
+        return True
+
+    def _slot_settings(self, decoding: list[int]) -> tuple[tuple, list]:
+        """The decoding slots' inputs on the device — (tokens, active,
+        temperature, top_k, top_p, repeat / frequency / presence
+        penalties), [S] each — and each slot's generator (None for a
+        greedy slot, which draws nothing)."""
+        S = self.S
+        tokens = torch.zeros(S, dtype=torch.int64)
+        active = torch.zeros(S, dtype=torch.bool)
+        temp, top_k, top_p = (torch.zeros(S),
+                              torch.zeros(S, dtype=torch.int64),
+                              torch.ones(S))
+        pen, pfreq, ppres = torch.ones(S), torch.zeros(S), torch.zeros(S)
+        gens: list[torch.Generator | None] = [None] * S
+        for i in decoding:
+            r = self.slots[i].req
+            tokens[i] = self.slots[i].cur_token
+            active[i] = True
+            temp[i], top_k[i], top_p[i] = r.temperature, r.top_k, r.top_p
+            pen[i], pfreq[i] = r.penalty_repeat, r.penalty_freq
+            ppres[i] = r.penalty_present
+            if r.temperature > 0:
+                gens[i] = self.generators[i]
+        return tuple(t.to(self.device) for t in (
+            tokens, active, temp, top_k, top_p, pen, pfreq, ppres)), gens
+
+    def _deliver(self, i: int, t: int, out_of_room: bool) -> bool:
+        """Emit token t of slot i's request. When it finishes the request
+        (cancelled, a stop token, max_tokens, or no room left), end it,
+        free the slot and return True."""
+        s = self.slots[i]
+        req = s.req
+        s.generated.append(t)
+        req.n_generated += 1
+        self.n_tokens_generated += 1
+        self._emit(req, t)
+        if req.cancelled:
+            req.finish_reason = req.finish_reason or "stop"
+        elif t in req.stop_ids:
+            req.finish_reason = "stop"
+        elif req.n_generated >= req.max_tokens or out_of_room:
+            req.finish_reason = "length"
+        else:
+            return False
+        self._emit(req, None)
+        self._free_slot(i)
+        return True
+
+    @torch.no_grad()
+    def _spec_decode_tick(self, decoding: list[int]) -> bool:
+        """spec_horizon steps of batched chain speculation for every
+        decoding slot, one host fetch at the end."""
+        k, H = self.spec_k, self.spec_horizon
+        if self.pool is not None:
+            # each step writes k + 1 entries, of which the accepted ones
+            # stay: up to H * (k + 1) committed plus one chain in flight
+            decoding = self._ensure_decode_pages(decoding,
+                                                 H * (k + 1) + k + 1)
+            if not decoding:
+                return True
+        S = self.S
+        (tok, active, temp, top_k, top_p, *_), gens = \
+            self._slot_settings(decoding)
+        emitted, counts, next_tok = chain_spec_sample_scan(
+            self.model, self.draft, self.kv, self.d_kv, tok, H, k, active,
+            gens, temp, top_k, top_p)
+        # one host fetch per tick
+        flat = torch.cat([emitted.flatten(), counts.flatten(), next_tok,
+                          self.kv.pos.long()]).cpu()
+        n_e = emitted.numel()
+        emitted = flat[:n_e].reshape(H, S, k + 1).tolist()
+        counts_h = flat[n_e:n_e + H * S].reshape(H, S)
+        next_tok = flat[n_e + H * S:n_e + H * S + S].tolist()
+        # the committed length before the tick: every step advanced each
+        # slot by its count
+        pos_pre = (flat[n_e + H * S + S:] - counts_h.sum(dim=0)).tolist()
+        counts = counts_h.tolist()
+        room = self.max_seq - H * (k + 1) - (k + 1)
+        self.n_spec_steps += H * len(decoding)
+        self.n_spec_drafted += H * len(decoding) * k
+        self.n_spec_accepted += (sum(counts[h][i] for h in range(H)
+                                     for i in decoding)
+                                 - H * len(decoding))
+        for i in decoding:
+            self.slots[i].cur_token = int(next_tok[i])
+            ids = [emitted[h][i][j] for h in range(H)
+                   for j in range(counts[h][i])]
+            for n_out, t in enumerate(ids, start=1):
+                if self._deliver(i, int(t), pos_pre[i] + n_out >= room):
+                    break
         return True
 
     def step(self) -> bool:
@@ -514,6 +611,15 @@ class BatchScheduler:
             "prefix_cache_misses": (self.prefix_cache.misses
                                     if self.prefix_cache else 0),
         }
+        if self.n_spec_steps:
+            out["spec_steps_total"] = self.n_spec_steps
+            out["spec_drafted_total"] = self.n_spec_drafted
+            out["spec_accepted_total"] = self.n_spec_accepted
+            out["spec_accept_rate"] = (self.n_spec_accepted
+                                       / max(self.n_spec_drafted, 1))
+            out["spec_tokens_per_step"] = (
+                (self.n_spec_accepted + self.n_spec_steps)
+                / self.n_spec_steps)
         if self.pool is not None:
             out["paged_pages_total"] = self.pool.n_pages
             out["paged_pages_free"] = self.pool.n_free

@@ -112,6 +112,20 @@ class PagedKVCache(KVCache):
             pool[layer][pages, :, offs] = qv[s_idx, t_idx]
             scales[layer][pages, :, offs] = sv[s_idx, t_idx]
 
+    def commit(self, blocks: list[tuple], index: tuple) -> None:
+        """Store every layer's quantized new K/V at `index` (from
+        write_index), one indexed write per pool tensor: blocks[l] =
+        (kq [S, Tq, Hkv, D] int8, ks [S, Tq, Hkv] f32, vq, vs) of layer
+        l, as the deferred forward quantized them. The pool then holds
+        what a write of each layer before its attention would have put
+        there."""
+        s_idx, t_idx, pages, offs = index
+        for j, pool in enumerate((self.k, self.k_scale, self.v,
+                                  self.v_scale)):
+            vals = torch.stack([b[j] for b in blocks])  # [L, S, Tq, Hkv(, D)]
+            # the two index tensors around a slice put their axis first
+            pool[:, pages, :, offs] = vals[:, s_idx, t_idx].movedim(1, 0)
+
     def gather_slab(self, slab: torch.Tensor) -> torch.Tensor:
         """One layer's pool slab [P, Hkv, page(, D)] -> the per-slot view
         [S, Hkv, T_logical(, D)] in the dense cache's layout

@@ -9,17 +9,32 @@ lm_head (the JAX LlamaParams). Numerics follow the JAX package: bf16
 residual stream, f32 norms, quantized matmuls with bf16 inputs and f32
 outputs, int8 KV cache with per-(token, head) scales.
 
-Each layer writes its new K/V into the cache in place before attention
-(the JAX main path defers the write past the layer scan to dodge an XLA
-aliasing cost; the cache contents are the same). Decode-sized batches
-(Tq <= 16) attend through the flash-decode kernel over the visibility
-that build_visibility gives; larger batches are prefill chunks (each
-slot's real lanes contiguous from positions[:, 0], padding at the end)
-and attend through the flash-prefill kernel, which computes that
-visibility itself. The cache is the dense KVCache or the paged pool
+By default (kv_update="inline") each layer writes its new K/V into the
+cache in place before attention (the JAX main path defers the write past
+the layer scan to dodge an XLA aliasing cost; the cache contents are the
+same). Decode-sized batches (Tq <= 16) attend through the flash-decode
+kernel over the visibility that build_visibility gives; larger batches
+are prefill chunks (each slot's real lanes contiguous from positions[:,
+0], padding at the end) and attend through the flash-prefill kernel,
+which computes that visibility itself. The cache is the dense KVCache or the paged pool
 (kv/paged.py): paged decode reads the pool through the page table in
 the paged flash-decode kernel; paged prefill attends over the gathered
 slot view, as the JAX package does.
+
+Speculation adds three options of the JAX forward. fuse_layers=True runs
+each decode-sized layer as the fused chain of ops/fused.py (norm + bias ->
+QKV, x -> wo, norm(x + attn_out) -> gate|up, glu + both residuals ->
+down: four fused launches, the layer output rounded to bf16 once), as
+the JAX package does for drafts of at most 4 layers. logits_mode
+"argmax_all" gives the greedy token of every row (a chain verify), and a
+LlamaModel with `lm_head_lr` = (U, V) runs its head as norm -> U, then
+V with the argmax (the factored draft head). kv_update="deferred" on the
+paged pool (decode-sized batches, the paged verify of speculation)
+writes nothing before attention: each layer quantizes its new K/V and
+attends to them as an in-flight block beside the committed pages
+(ops/flash_decode.py: flash_decode_paged_deferred, the state mode of the
+paged kernel), and one commit after the layer loop stores every layer's
+K/V through the page table.
 
 An MoE layer routes each token to its top n_experts_used experts (f32
 router, softmax, top-k, weights renormalized) and runs the expert FFNs
@@ -47,9 +62,11 @@ from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache
 from ..ops.attention import build_visibility
 from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
-from ..ops.flash_decode import flash_decode_paged, flash_decode_quant
+from ..ops.flash_decode import (flash_decode_paged,
+                                flash_decode_paged_deferred,
+                                flash_decode_quant)
 from ..ops.flash_prefill import flash_prefill_quant
-from ..ops.fused import fused_linear
+from ..ops.fused import FUSED_MAX_M, fused_linear
 from ..ops.moe import combine, group_dispatch
 from ..ops.qmatmul import (GEMV_MAX_M, GROUPED_MMA_M, QLinear, qmatmul,
                            qmatmul_grouped)
@@ -85,6 +102,33 @@ def attention(kv: KVCache, layer: int, q: torch.Tensor,
     if decode:
         return flash_decode_quant(q, *slabs, vis, scale)
     return flash_prefill_quant(q, *slabs, kv.mask, start, scale)
+
+
+class DeferredKV:
+    """The deferred route of one forward over the paged pool: each layer's
+    quantized new K/V attend as an in-flight block and are kept for the
+    one commit after the layer loop."""
+
+    def __init__(self, kv: PagedKVCache, positions: torch.Tensor):
+        S, Tq = positions.shape
+        valid = (positions >= 0) & (positions < kv.max_seq)
+        causal = torch.ones(Tq, Tq, dtype=torch.bool,
+                            device=positions.device).tril()
+        self.intra = causal[None] & valid[:, None, :]  # [S, Tq, Tq]
+        self.vis = kv.mask[:, None, :].expand(S, Tq, kv.max_seq)
+        self.blocks: list[tuple] = []
+
+    def attend(self, kv: PagedKVCache, layer: int, q: torch.Tensor,
+               k: torch.Tensor, v: torch.Tensor,
+               scale: float) -> torch.Tensor:
+        kq, ks = kv.quantize_kv(k)  # [S, Tq, Hkv, D], [S, Tq, Hkv]
+        vq, vs = kv.quantize_kv(v)
+        self.blocks.append((kq, ks, vq, vs))
+        heads_first = lambda t: t.transpose(1, 2)  # noqa: E731
+        return flash_decode_paged_deferred(
+            q, kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer],
+            kv.page_table, self.vis, heads_first(kq), heads_first(ks),
+            heads_first(vq), heads_first(vs), self.intra, scale)
 
 
 class QEmbedding(nn.Module):
@@ -157,14 +201,23 @@ class LlamaLayer(nn.Module):
     def forward(self, x: torch.Tensor, llm: LLMConfig, kv: KVCache,
                 layer: int, cos: torch.Tensor, sin: torch.Tensor,
                 vis: torch.Tensor | None, start: torch.Tensor,
-                index: tuple) -> torch.Tensor:
+                index: tuple, fuse: bool = False,
+                deferred: DeferredKV | None = None) -> torch.Tensor:
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
         eps = llm.norm_eps
-        h = rms_norm(x, self.attn_norm, eps).to(torch.bfloat16)
-        h = h.reshape(S * Tq, -1)
+        fused = (fuse and self.wqkv is not None and self.wgu is not None
+                 and self.q_norm is None and self.router is None
+                 and S * Tq <= FUSED_MAX_M)
+        xf = x.reshape(S * Tq, -1)
+        if fused:
+            qkv = fused_linear(self.wqkv, norm=(xf, self.attn_norm),
+                               bias=self.bqkv, eps=eps)
+        else:
+            h = rms_norm(xf, self.attn_norm, eps).to(torch.bfloat16)
+            if self.wqkv is not None:
+                qkv = self._lin(h, self.wqkv, self.bqkv)
         if self.wqkv is not None:
-            qkv = self._lin(h, self.wqkv, self.bqkv)
             q = qkv[:, : H * D]
             k = qkv[:, H * D: (H + Hkv) * D]
             v = qkv[:, (H + Hkv) * D:]
@@ -181,8 +234,20 @@ class LlamaLayer(nn.Module):
         q = apply_rope(q, cos, sin, llm.rope.rope_type)
         k = apply_rope(k, cos, sin, llm.rope.rope_type)
 
-        kv.write(layer, k, v, index)
-        attn = attention(kv, layer, q, vis, start, 1.0 / math.sqrt(D))
+        scale = 1.0 / math.sqrt(D)
+        if deferred is not None:
+            attn = deferred.attend(kv, layer, q, k, v, scale)
+        else:
+            kv.write(layer, k, v, index)
+            attn = attention(kv, layer, q, vis, start, scale)
+        if fused:
+            # attn_out stays f32 into the next norm and the residual sum,
+            # as in the JAX fused chain
+            attn_out = fused_linear(self.wo, x=attn.reshape(S * Tq, -1))
+            gu = fused_linear(self.wgu, norm=(xf, attn_out, self.ffn_norm),
+                              eps=eps)
+            xn = fused_linear(self.w_down, glu=gu, resids=(xf, attn_out))
+            return xn.reshape(S, Tq, -1).to(x.dtype)
         attn_out = qmatmul(attn.reshape(S * Tq, -1).to(torch.bfloat16),
                            self.wo)
         x = x + attn_out.reshape(S, Tq, -1).to(x.dtype)
@@ -241,26 +306,38 @@ class LlamaLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    """The embedding, the layers, the final norm and the lm_head; with
+    lm_head_lr = (U, V), a factored head (speculative/draft_head.py) in
+    place of the lm_head's."""
+
     def __init__(self, llm: LLMConfig, embed: QEmbedding,
                  layers: list[LlamaLayer], out_norm: torch.Tensor,
-                 lm_head: QLinear):
+                 lm_head: QLinear,
+                 lm_head_lr: tuple[QLinear, QLinear] | None = None):
         super().__init__()
         self.llm = llm
         self.embed = embed
         self.layers = nn.ModuleList(layers)
         self.register_buffer("out_norm", out_norm)
         self.lm_head = lm_head
+        self.lm_head_lr = None if lm_head_lr is None else nn.ModuleList(
+            lm_head_lr)
 
     def head(self, h: torch.Tensor, argmax: bool = False) -> torch.Tensor:
-        """Final norm + lm_head (+ greedy argmax) on rows [M, dim]."""
-        return fused_linear(self.lm_head, norm=(h, self.out_norm),
-                            argmax=argmax, eps=self.llm.norm_eps)
+        """Final norm + lm_head (+ greedy argmax) on rows [M, dim]; a
+        factored head runs norm -> U, then V (+ argmax)."""
+        norm = dict(norm=(h, self.out_norm), eps=self.llm.norm_eps)
+        if self.lm_head_lr is not None:
+            u, v = self.lm_head_lr
+            return fused_linear(v, x=fused_linear(u, **norm), argmax=argmax)
+        return fused_linear(self.lm_head, argmax=argmax, **norm)
 
     @torch.no_grad()
     def forward(self, kv: KVCache, tokens: torch.Tensor,
                 positions: torch.Tensor, *,
                 active: torch.Tensor | None = None,
-                logits_mode: str = "last") -> torch.Tensor:
+                logits_mode: str = "last", fuse_layers: bool = False,
+                kv_update: str = "inline") -> torch.Tensor:
         """One forward pass over a batch of slots; updates kv in place.
 
         kv: the dense KVCache or the paged PagedKVCache.
@@ -271,24 +348,42 @@ class LlamaModel(nn.Module):
         active: [S] bool rows whose pos advances (default all).
         logits_mode: "last" -> f32 [S, vocab] for the final position;
           "all" -> [S, Tq, vocab]; "argmax" -> greedy tokens int32 [S];
-          "none" -> [S, 0].
+          "argmax_all" -> greedy tokens int32 [S, Tq]; "none" -> [S, 0].
+        fuse_layers: the fused decode-layer chain for batches of at most
+          16 rows (layers with fused QKV and gate|up, no QK-norm, dense).
+        kv_update: "inline" (write each layer's K/V, then attend) or
+          "deferred" (the paged pool at Tq <= 16 only: attend to the new
+          K/V in flight, commit all layers after the loop).
         """
         llm = self.llm
         S, Tq = tokens.shape
+        deferred = None
+        if kv_update == "deferred":
+            if not isinstance(kv, PagedKVCache) or Tq > DECODE_MAX_TQ:
+                raise ValueError("kv_update='deferred' takes the paged pool "
+                                 f"and at most {DECODE_MAX_TQ} query rows")
+            deferred = DeferredKV(kv, positions)
+        elif kv_update != "inline":
+            raise ValueError(f"kv_update {kv_update!r}")
         x = self.embed.lookup(tokens).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
-        vis = (build_visibility(kv.mask, positions) if Tq <= DECODE_MAX_TQ
-               else None)
+        vis = (build_visibility(kv.mask, positions)
+               if Tq <= DECODE_MAX_TQ and deferred is None else None)
         start = positions[:, 0]
         index = kv.write_index(positions)
         for i, layer in enumerate(self.layers):
-            x = layer(x, llm, kv, i, cos, sin, vis, start, index)
+            x = layer(x, llm, kv, i, cos, sin, vis, start, index,
+                      fuse=fuse_layers, deferred=deferred)
+        if deferred is not None:
+            kv.commit(deferred.blocks, index)
         kv.advance(positions, active=active)
 
         if logits_mode == "none":
             return torch.zeros(S, 0, dtype=torch.float32, device=x.device)
         if logits_mode == "argmax":
             return self.head(x[:, -1, :], argmax=True)
+        if logits_mode == "argmax_all":
+            return self.head(x.reshape(S * Tq, -1), argmax=True).reshape(S, Tq)
         if logits_mode == "last":
             return self.head(x[:, -1, :])
         if logits_mode == "all":

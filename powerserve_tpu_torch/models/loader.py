@@ -208,6 +208,21 @@ def _float_from_gguf(reader: GGUFReader, name: str,
     return _tensor(reader.tensor_float(name).astype(np.float32), device)
 
 
+def gguf_architecture(path: str | os.PathLike) -> str | None:
+    """general.architecture of weights.gguf (or a model dir holding it),
+    None where there is no such file."""
+    p = Path(path)
+    if p.is_dir():
+        p = p / "weights.gguf"
+    if not p.exists():
+        return None
+    reader = GGUFReader(p)
+    try:
+        return reader.metadata.get("general.architecture")
+    finally:
+        reader.close()
+
+
 def load_gguf_model(path: str | os.PathLike, pack: bool = True,
                     fuse: bool = True,
                     device: str | torch.device | None = None,

@@ -35,7 +35,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
             "flash_prefill": 0, "flash_decode_paged": 0,
-            "qmatmul_grouped": 0, "qmatmul_w8": 0}
+            "qmatmul_grouped": 0, "qmatmul_w8": 0, "fused_norm": 0,
+            "fused_x": 0, "fused_x_argmax": 0, "fused_glu": 0,
+            "fused_concat2": 0, "flash_decode_paged_state": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -125,9 +127,10 @@ def lib() -> ctypes.CDLL:
         L.ps_qmatmul_grouped.restype = I
         L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 4 + [P]
         L.ps_qmatmul_w8.restype = I
-        L.ps_fused_head.argtypes = [P, I, P, F, P, P, P, I, I, I, I, I, I, I,
-                                    P, P, P, P, P]
-        L.ps_fused_head.restype = I
+        L.ps_fused_linear.argtypes = [I, I, P, P, P, I, I, P, F, P, P, P,
+                                      I, I, I, I, I, I, I, P, I, P, P, I,
+                                      P, P, P, P, P]
+        L.ps_fused_linear.restype = I
         L.ps_flash_decode.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I,
                                       I, I, I, F, P]
         L.ps_flash_decode.restype = I
@@ -136,7 +139,8 @@ def lib() -> ctypes.CDLL:
         L.ps_flash_decode_splits.argtypes = [I]
         L.ps_flash_decode_splits.restype = I
         L.ps_flash_decode_paged.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
-                                            I, I, I, I, I, I, I, I, F, P]
+                                            P, P, I, I, I, I, I, I, I, I, F,
+                                            P]
         L.ps_flash_decode_paged.restype = I
         L.ps_flash_prefill.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
                                        I, F, P]

@@ -28,7 +28,12 @@ Pallas kernel averages over T rounded up to its chunk instead.
 page page_table[s, t // page], row t % page; the twin
 `flash_decode_paged_reference` gathers the slot views and runs the dense
 twin. Unallocated entries (= P) are clipped into the pool in both; only
-hidden positions map there.
+hidden positions map there. With state=True it returns the merged but
+unnormalized softmax partition (o [S, R, D], m [S, R], l [S, R], rows
+R = (h, g, tq) with tq minor, the TPU kernel's order), which
+`flash_decode_paged_deferred` merges with the partition of a block of
+new K/V that is not in the pool yet (plain PyTorch, as the JAX package
+computes it in XLA outside its kernel).
 """
 
 from __future__ import annotations
@@ -42,15 +47,12 @@ KERNEL_CHUNK = 64
 KERNEL_SPLIT = 256
 
 
-def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
-                                 ks: torch.Tensor, vq: torch.Tensor,
-                                 vs: torch.Tensor, visibility: torch.Tensor,
-                                 scale: float, chunk: int = KERNEL_CHUNK,
-                                 split: int | None = KERNEL_SPLIT
-                                 ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel. q [S, Tq, H, D]; kq/vq int8
-    [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; visibility bool [S, Tq, T].
-    Returns f32 [S, Tq, H * D]."""
+def _decode_state(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                  vq: torch.Tensor, vs: torch.Tensor,
+                  visibility: torch.Tensor, scale: float, chunk: int,
+                  split: int | None) -> tuple:
+    """The twin's merged, unnormalized partition: (acc f32 [S, Hkv, G, Tq,
+    D], m, l f32 [S, Hkv, G, Tq])."""
     S, Tq, H, D = q.shape
     Hkv, T = kq.shape[1], kq.shape[2]
     G = H // Hkv
@@ -86,6 +88,21 @@ def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
         w = torch.exp(mi - m)
         l = l + li * w
         acc = acc + ai * w[..., None]
+    return acc, m, l
+
+
+def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
+                                 ks: torch.Tensor, vq: torch.Tensor,
+                                 vs: torch.Tensor, visibility: torch.Tensor,
+                                 scale: float, chunk: int = KERNEL_CHUNK,
+                                 split: int | None = KERNEL_SPLIT
+                                 ) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel. q [S, Tq, H, D]; kq/vq int8
+    [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; visibility bool [S, Tq, T].
+    Returns f32 [S, Tq, H * D]."""
+    S, Tq, H, D = q.shape
+    acc, _, l = _decode_state(q, kq, ks, vq, vs, visibility, scale, chunk,
+                              split)
     out = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(S, Tq, H * D)
 
@@ -107,15 +124,20 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                  page_table: torch.Tensor,
                                  visibility: torch.Tensor, scale: float,
                                  chunk: int = KERNEL_CHUNK,
-                                 split: int | None = KERNEL_SPLIT
-                                 ) -> torch.Tensor:
+                                 split: int | None = KERNEL_SPLIT,
+                                 state: bool = False):
     """Plain PyTorch twin of the paged kernel: the gathered slot views
     through the dense twin. Pools [P, Hkv, page(, D)], page_table int32
-    [S, MP], visibility bool [S, Tq, MP * page]."""
-    return flash_decode_quant_reference(
-        q, *(gather_pages(t, page_table)
-             for t in (k_pool, ks_pool, v_pool, vs_pool)),
-        visibility, scale, chunk, split)
+    [S, MP], visibility bool [S, Tq, MP * page]. state=True: (o [S, R, D],
+    m [S, R], l [S, R]) unnormalized, R = (h, g, tq)."""
+    views = tuple(gather_pages(t, page_table)
+                  for t in (k_pool, ks_pool, v_pool, vs_pool))
+    if not state:
+        return flash_decode_quant_reference(q, *views, visibility, scale,
+                                            chunk, split)
+    acc, m, l = _decode_state(q, *views, visibility, scale, chunk, split)
+    S, D = q.shape[0], q.shape[-1]
+    return acc.reshape(S, -1, D), m.reshape(S, -1), l.reshape(S, -1)
 
 
 def _splits_scratch(L, S: int, Hkv: int, R: int, T: int, D: int,
@@ -190,9 +212,10 @@ def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
 def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             ks_pool: torch.Tensor, v_pool: torch.Tensor,
                             vs_pool: torch.Tensor, page_table: torch.Tensor,
-                            visibility: torch.Tensor,
-                            scale: float) -> torch.Tensor:
-    """Launch csrc/flash_decode.cu in paged mode (one CUDA device)."""
+                            visibility: torch.Tensor, scale: float,
+                            state: bool = False):
+    """Launch csrc/flash_decode.cu in paged mode (one CUDA device); its
+    state mode with state=True."""
     dev = q.device
     S, Tq, H, D = q.shape
     if k_pool.dim() != 4:
@@ -218,29 +241,81 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     R = (H // Hkv) * Tq
     _check_smem(L, dev, R, Tq, T, D, "flash_decode_paged")
     m_part, l_part, acc_part = _splits_scratch(L, S, Hkv, R, T, D, dev)
-    out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+    if state:
+        out = torch.empty(S, H * Tq, D, dtype=torch.float32, device=dev)
+        m_out = torch.empty(S, H * Tq, dtype=torch.float32, device=dev)
+        l_out = torch.empty_like(m_out)
+    else:
+        out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+        m_out = l_out = None
     rc = L.ps_flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), ks_pool.data_ptr(),
         v_pool.data_ptr(), vs_pool.data_ptr(), pt.data_ptr(), vis.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), S, Tq, H, Hkv, MP, page, P, D, float(scale),
-        cuda_lib.stream(dev))
-    cuda_lib.LAUNCHES["flash_decode_paged"] += 1
-    cuda_lib.check(rc, "flash_decode_paged")
-    return out
+        out.data_ptr(), cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq, H,
+        Hkv, MP, page, P, D, float(scale), cuda_lib.stream(dev))
+    name = "flash_decode_paged_state" if state else "flash_decode_paged"
+    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.check(rc, name)
+    return (out, m_out, l_out) if state else out
 
 
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        ks_pool: torch.Tensor, v_pool: torch.Tensor,
                        vs_pool: torch.Tensor, page_table: torch.Tensor,
-                       visibility: torch.Tensor, scale: float) -> torch.Tensor:
+                       visibility: torch.Tensor, scale: float,
+                       state: bool = False):
     """q: [S, Tq, H, D]; k_pool/v_pool: [P, Hkv, page, D] int8;
     ks_pool/vs_pool: [P, Hkv, page]; page_table: [S, MP] int32 (P =
     unallocated); visibility: [S, Tq, MP * page] bool.
-    Returns [S, Tq, H*D] f32."""
+    Returns [S, Tq, H*D] f32; with state=True the unnormalized partition
+    (o [S, R, D], m [S, R], l [S, R]), R = (h, g, tq) with tq minor."""
     if q.device.type == "cpu":
         return flash_decode_paged_reference(q, k_pool, ks_pool, v_pool,
                                             vs_pool, page_table, visibility,
-                                            scale)
+                                            scale, state=state)
     return flash_decode_paged_cuda(q, k_pool, ks_pool, v_pool, vs_pool,
-                                   page_table, visibility, scale)
+                                   page_table, visibility, scale, state)
+
+
+def flash_decode_paged_deferred(q: torch.Tensor, k_pool: torch.Tensor,
+                                ks_pool: torch.Tensor, v_pool: torch.Tensor,
+                                vs_pool: torch.Tensor,
+                                page_table: torch.Tensor,
+                                vis_committed: torch.Tensor,
+                                knew_q: torch.Tensor, knew_s: torch.Tensor,
+                                vnew_q: torch.Tensor, vnew_s: torch.Tensor,
+                                intra_vis: torch.Tensor,
+                                scale: float) -> torch.Tensor:
+    """Paged flash-decode with an in-flight block of new K/V that is not
+    in the pool yet: the committed pages through the state mode, the new
+    block (knew_q/vnew_q int8 [S, Hkv, Tq, D], scales [S, Hkv, Tq],
+    intra_vis bool [S, Tq, Tq]) as a second softmax partition, merged as
+    the JAX package merges them. A partition that a row does not see at
+    all (m <= -1e30 / 2) weighs 0. Returns f32 [S, Tq, H * D]."""
+    S, Tq, H, D = q.shape
+    Hkv = k_pool.shape[1]
+    G = H // Hkv
+    o1, m1, l1 = flash_decode_paged(q, k_pool, ks_pool, v_pool, vs_pool,
+                                    page_table, vis_committed, scale,
+                                    state=True)
+    qg = q.reshape(S, Tq, Hkv, G, D).to(torch.bfloat16).float()
+    sn = torch.einsum("sqhgd,shkd->shgqk", qg, knew_q.float())
+    sn = sn * (knew_s[:, :, None, None, :] * scale)
+    sn = torch.where(intra_vis[:, None, None], sn,
+                     torch.tensor(NEG_INF, device=q.device))
+    m2 = sn.amax(dim=-1)  # [S, Hkv, G, Tq]
+    p2 = torch.exp(sn - m2[..., None])
+    p2 = torch.where(sn > NEG_INF / 2, p2, 0.0)
+    l2 = p2.sum(dim=-1)
+    pf = (p2 * vnew_s[:, :, None, None, :]).to(torch.bfloat16).float()
+    o2 = torch.einsum("shgqk,shkd->shgqd", pf, vnew_q.float())
+    m2, l2, o2 = m2.reshape(S, -1), l2.reshape(S, -1), o2.reshape(S, -1, D)
+    m = torch.maximum(m1, m2)
+    a1 = torch.where(m1 > NEG_INF / 2, torch.exp(m1 - m), 0.0)
+    a2 = torch.where(m2 > NEG_INF / 2, torch.exp(m2 - m), 0.0)
+    l = l1 * a1 + l2 * a2
+    o = o1 * a1[..., None] + o2 * a2[..., None]
+    out = o / torch.where(l > 0, l, 1.0)[..., None]
+    return out.reshape(S, Hkv, G, Tq, D).permute(0, 3, 1, 2, 4).reshape(
+        S, Tq, H * D)

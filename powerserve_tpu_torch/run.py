@@ -4,6 +4,13 @@ Loads a workspace (workspace.json) or a model dir, streams the tokens to
 stdout and logs prefill/decode tok/s. Runs on the GPU (--device cuda,
 the default) through the port's kernels, or with --device cpu on the
 plain PyTorch path.
+
+--draft <model dir> or --self-draft-layers N decode by chain speculation
+(speculative/chain.py, greedy acceptance: the tokens are the plain run's)
+with --spec-k draft tokens per step; --draft-head-rank R factors the
+draft's lm_head (speculative/draft_head.py). The JAX package's other
+engines (--spec-engine tree, device-tree, eagle) and EAGLE heads are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +25,10 @@ import torch
 from .core.config import HyperParams, WorkspaceConfig
 from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
-from .models.loader import load_gguf_model
+from .models.loader import gguf_architecture, load_gguf_model
+from .speculative.chain import ChainSpecEngine, with_draft_head
+from .speculative.draft_head import make_draft_head
+from .speculative.engine import SpecStats
 from .tokenizer import Tokenizer
 
 log = get_logger("run")
@@ -29,6 +39,7 @@ class RunResult:
     prompt_ids: list[int]
     ids: list[int]
     stats: GenerationStats
+    spec: SpecStats | None = None
 
 
 def build_engine(model_dir: str, hp: HyperParams,
@@ -60,16 +71,35 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="print only the final text, not each token")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
+    ap.add_argument("--draft", default=None,
+                    help="draft workspace or model dir: chain speculative "
+                         "decoding")
+    ap.add_argument("--self-draft-layers", type=int, default=0,
+                    help="self-draft over the target's first N layers (no "
+                         "draft model needed)")
+    ap.add_argument("--draft-head-rank", type=int, default=0,
+                    help="factor the draft's lm_head to this rank (the "
+                         "emitted tokens do not change; acceptance may)")
+    ap.add_argument("--spec-engine", default="chain",
+                    help="chain (ported); tree, device-tree and eagle are "
+                         "not ported yet")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="chain draft length per speculative step")
     return ap.parse_args(argv)
 
 
-def run_prompt(args: argparse.Namespace) -> RunResult:
-    root = Path(args.work_folder)
+def resolve_workspace(path: str) -> tuple[Path, HyperParams]:
+    """(model dir, hyper-params) of a workspace (workspace.json) or of a
+    plain model dir."""
+    root = Path(path)
     if (root / "workspace.json").exists():
         ws = WorkspaceConfig.load(root)
-        model_dir, hp = ws.main_model_dir, ws.hyper_params
-    else:
-        model_dir, hp = root, HyperParams()
+        return ws.main_model_dir, ws.hyper_params
+    return root, HyperParams()
+
+
+def run_prompt(args: argparse.Namespace) -> RunResult:
+    model_dir, hp = resolve_workspace(args.work_folder)
     if args.temperature is not None:
         hp.sampler.temperature = args.temperature
     if args.top_k is not None:
@@ -81,7 +111,12 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
         prompt = Path(args.prompt_file).read_text()
 
     log.info(f"loading model from {model_dir} on {args.device}")
-    engine, tok = build_engine(str(model_dir), hp, args.device)
+    spec = None
+    if args.draft or args.self_draft_layers:
+        engine, tok = build_spec_engine(args, str(model_dir), hp)
+        spec = SpecStats()
+    else:
+        engine, tok = build_engine(str(model_dir), hp, args.device)
     if args.use_chat_template:
         prompt = tok.apply_chat_template([{"role": "user", "content": prompt}])
     ids = tok.tokenize(prompt)
@@ -92,16 +127,47 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     if not args.no_progress:
         print(prompt, end="", flush=True)
     for t in engine.generate(ids, args.n_predicts, stop_fn=tok.should_stop,
-                             stats=stats):
+                             stats=stats if spec is None else spec):
         out_ids.append(t)
         if not args.no_progress:
             print(tok.to_string([t]), end="", flush=True)
     if args.no_progress:
         print(prompt + tok.to_string(out_ids), end="")
     print()
-    log.info(f"prefill speed: {stats.prefill_speed:.2f} tokens/s")
-    log.info(f"decode speed: {stats.decode_speed:.2f} tokens/s")
-    return RunResult(ids, out_ids, stats)
+    if spec is not None:
+        log.info(spec.summary())
+        log.info(f"decode speed: "
+                 f"{len(out_ids) / max(spec.decode_ms, 1e-9) * 1e3:.2f} "
+                 f"tokens/s")
+    else:
+        log.info(f"prefill speed: {stats.prefill_speed:.2f} tokens/s")
+        log.info(f"decode speed: {stats.decode_speed:.2f} tokens/s")
+    return RunResult(ids, out_ids, stats, spec)
+
+
+def build_spec_engine(args: argparse.Namespace, model_dir: str,
+                      hp: HyperParams):
+    """The chain speculation engine of --draft / --self-draft-layers."""
+    if args.spec_engine != "chain":
+        raise SystemExit(f"--spec-engine {args.spec_engine}: not ported yet "
+                         f"(the port runs chain speculation)")
+    draft_dir = resolve_workspace(args.draft)[0] if args.draft else None
+    if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
+        raise SystemExit("EAGLE draft heads are not ported yet")
+    cfg, model = load_gguf_model(model_dir, device=args.device)
+    tok = Tokenizer.from_model_dir(model_dir)
+    draft = None
+    if not args.self_draft_layers:
+        _, draft = load_gguf_model(draft_dir, device=args.device)
+    eng = ChainSpecEngine(model, cfg, draft,
+                          self_draft_layers=args.self_draft_layers,
+                          k=args.spec_k, max_seq=hp.max_seq_len,
+                          prefill_chunk=max(int(hp.batch_size), 1),
+                          device=args.device)
+    if args.draft_head_rank:
+        eng.draft = with_draft_head(eng.draft, make_draft_head(
+            eng.draft.lm_head, rank=args.draft_head_rank))
+    return eng, tok
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -10,6 +10,9 @@ greedy path draws nothing).
 chain: every slot carries its own temperature, top-k, top-p and
 penalties as [S] tensors, and draws from its own generator, so a
 request with a seed reproduces its samples whatever else runs.
+`categorical_from_dist` and `uniform_draws` are the draws of speculative
+sampling (a draft's sample, the acceptance uniforms, the residual
+resample), from the same per-slot generators.
 """
 
 from __future__ import annotations
@@ -224,8 +227,28 @@ def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
     probs = sample_dist_batched(logits, temperature, top_k, top_p, state,
                                 penalty_repeat, penalty_freq,
                                 penalty_present, max_top_k, vocab_size)
-    tokens = torch.argmax(probs, dim=-1)
+    return categorical_from_dist(probs, generators)
+
+
+def categorical_from_dist(dist: torch.Tensor,
+                          generators: list[torch.Generator | None]
+                          ) -> torch.Tensor:
+    """One draw per row of the normalized distributions dist [S, V] ->
+    token ids [S] (int64). Row i draws from generators[i]; a row whose
+    generator is None (a greedy slot: its distribution is one-hot) takes
+    its argmax without a draw."""
+    tokens = torch.argmax(dist, dim=-1)
     for i, gen in enumerate(generators):
         if gen is not None:
-            tokens[i] = torch.multinomial(probs[i], 1, generator=gen)[0]
+            tokens[i] = torch.multinomial(dist[i], 1, generator=gen)[0]
     return tokens
+
+
+def uniform_draws(generators: list[torch.Generator | None], n: int,
+                  device: torch.device) -> torch.Tensor:
+    """[S, n] uniform draws in [0, 1), row i from generators[i]; zeros for
+    a row without a generator."""
+    rows = [torch.zeros(n, device=device) if gen is None
+            else torch.rand(n, generator=gen, device=device)
+            for gen in generators]
+    return torch.stack(rows)

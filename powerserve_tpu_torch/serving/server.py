@@ -12,11 +12,21 @@ tokenizes, submits to the model's BatchScheduler and waits on a queue;
 only the scheduler thread touches the device. Streams are chunked
 `text/event-stream` responses.
 
-Not ported yet, and answered with a 400: speculative model names
-("main+draft", EAGLE heads), VLM models and images, sessions.
+A model name "main+draft" serves `main` with chain speculation from
+the model dir `draft`, "main+self:N" from a self-draft over main's first
+N layers (speculative/chain.py): a scheduler of its own, on the weights
+of main's plain context (loaded once, shared). --spec-k sets the draft
+length, --spec-horizon the speculative steps per scheduler tick and
+--draft-head-rank factors the draft's lm_head. Logprobs and penalties
+are not applied by speculative ticks, so such requests on a speculative
+name get a 400, as does a draft whose vocab differs from main's.
+
+Not ported yet, and answered with a 400: EAGLE draft heads, speculation
+trees (--spec-tree), VLM models and images, sessions.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
-        --page-size P] [--max-slots S] [--device cuda|cpu]
+        --page-size P] [--max-slots S] [--spec-k K] [--spec-horizon H]
+        [--draft-head-rank R] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from ..core.device import resolve_device
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
 from ..models.llama import LlamaModel
-from ..models.loader import load_gguf_model
+from ..models.loader import gguf_architecture, load_gguf_model
+from ..speculative.chain import self_draft_model, with_draft_head
+from ..speculative.draft_head import make_draft_head
 from ..tokenizer import Tokenizer
 
 log = get_logger("server")
@@ -178,22 +190,60 @@ class ServerContext:
     def get(self, name: str) -> ModelContext:
         name = name or self.default_model or "default"
         with self._lock:
-            if name in self.models:
-                return self.models[name]
-            if "+" in name:
-                raise HTTPError(400, f"model '{name}': speculative decoding "
-                                     f"(draft and EAGLE models) is not "
-                                     f"ported yet")
-            d = self.resolve_dir(name)
-            if self._is_vlm_dir(d):
-                raise HTTPError(400, f"model '{name}': vision-language "
-                                     f"models are not ported yet")
-            cfg, model = load_gguf_model(d, device=self.device)
-            sched = BatchScheduler(model, cfg, self.hp, self.device)
-            sched.start()
-            ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d))
-            self.models[name] = ctx
-            return ctx
+            return self._get(name)
+
+    def _get(self, name: str) -> ModelContext:
+        if name in self.models:
+            return self.models[name]
+        if "+" in name:
+            return self._speculative(name)
+        d = self.resolve_dir(name)
+        if self._is_vlm_dir(d):
+            raise HTTPError(400, f"model '{name}': vision-language "
+                                 f"models are not ported yet")
+        cfg, model = load_gguf_model(d, device=self.device)
+        sched = BatchScheduler(model, cfg, self.hp, self.device)
+        sched.start()
+        ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d))
+        self.models[name] = ctx
+        return ctx
+
+    def _speculative(self, name: str) -> ModelContext:
+        """"main+draft" / "main+self:N": a speculating scheduler over the
+        weights of main's plain context."""
+        main_name, draft_name = name.split("+", 1)
+        if self.hp.spec_tree:
+            raise HTTPError(400, f"model '{name}': speculation trees "
+                                 f"(--spec-tree) are not ported yet")
+        draft_dir = None
+        if not draft_name.startswith("self:"):
+            draft_dir = self.resolve_dir(draft_name)
+            if gguf_architecture(draft_dir) == "eagle":
+                raise HTTPError(400, f"model '{name}': EAGLE draft heads "
+                                     f"are not ported yet")
+        base = self._get(main_name)
+        model, cfg = base.scheduler.model, base.scheduler.cfg
+        if draft_dir is None:
+            try:
+                draft = self_draft_model(model, int(draft_name[5:]))
+            except ValueError as e:
+                raise HTTPError(400, f"model '{name}': {e}") from e
+        else:
+            d_cfg, draft = load_gguf_model(draft_dir, device=self.device)
+            # acceptance compares token ids: another vocab would accept
+            # nonsense
+            if d_cfg.llm.vocab_size != cfg.llm.vocab_size:
+                raise HTTPError(400, f"draft vocab ({d_cfg.llm.vocab_size}) "
+                                     f"!= target vocab "
+                                     f"({cfg.llm.vocab_size})")
+        if self.hp.draft_head_rank:
+            draft = with_draft_head(draft, make_draft_head(
+                draft.lm_head, rank=int(self.hp.draft_head_rank)))
+        sched = BatchScheduler(model, cfg, self.hp, self.device, draft=draft)
+        sched.start()
+        ctx = ModelContext(name, sched, base.tokenizer)
+        self.models[name] = ctx
+        return ctx
 
     def close(self) -> None:
         with self._lock:
@@ -245,6 +295,27 @@ def _sampling_from_body(body: dict, chat: bool = False) -> dict:
         seed=None if seed is None else int(seed),
         logprobs=_logprobs_from_body(body, chat),
     )
+
+
+def _check_spec_compat(ctx: ModelContext, sampling: dict) -> None:
+    """Speculative ticks verify whole draft chains against the target's
+    penalty-free distribution and record no logprobs: refuse requests
+    that ask for them rather than answer them otherwise."""
+    if ctx.scheduler.draft is None:
+        return
+    bad = []
+    if sampling.get("logprobs", 0):
+        bad.append("logprobs")
+    if sampling.get("penalty_repeat", 1.0) != 1.0:
+        bad.append("repeat_penalty")
+    if sampling.get("penalty_freq", 0.0) != 0.0:
+        bad.append("frequency_penalty")
+    if sampling.get("penalty_present", 0.0) != 0.0:
+        bad.append("presence_penalty")
+    if bad:
+        raise HTTPError(400, f"{', '.join(bad)} unsupported with speculative "
+                             f"models ('main+draft'); retry without them or "
+                             f"use the plain model name")
 
 
 def _text_messages(messages: list[dict]) -> list[dict]:
@@ -388,7 +459,9 @@ class _Handler(BaseHTTPRequestHandler):
             prompt = "".join(prompt)
         prompt_ids = ctx.tokenize(
             prompt, parse_special=bool(body.get("parse_special", True)))
-        self._respond(ctx, prompt_ids, _sampling_from_body(body), chat=False,
+        sampling = _sampling_from_body(body)
+        _check_spec_compat(ctx, sampling)
+        self._respond(ctx, prompt_ids, sampling, chat=False,
                       stream=bool(body.get("stream")),
                       model_name=model_name or ctx.name,
                       stop_strings=_stops_from_body(body))
@@ -401,8 +474,9 @@ class _Handler(BaseHTTPRequestHandler):
         ctx = self.server_ctx.get(model_name)
         messages = _text_messages(body.get("messages", []))
         prompt = ctx.tokenizer.apply_chat_template(messages)
-        self._respond(ctx, ctx.tokenize(prompt),
-                      _sampling_from_body(body, chat=True), chat=True,
+        sampling = _sampling_from_body(body, chat=True)
+        _check_spec_compat(ctx, sampling)
+        self._respond(ctx, ctx.tokenize(prompt), sampling, chat=True,
                       stream=bool(body.get("stream")),
                       model_name=model_name or ctx.name,
                       stop_strings=_stops_from_body(body))
@@ -569,6 +643,18 @@ def main(argv: list[str] | None = None) -> int:
                          "preemption when it runs dry")
     ap.add_argument("--page-size", type=int, default=64,
                     help="tokens per KV page (with --paged-pages)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="chain draft length for \"main+draft\" models "
+                         "(0 = hparams default)")
+    ap.add_argument("--spec-horizon", type=int, default=0,
+                    help="speculative steps per scheduler tick (0 = hparams "
+                         "default)")
+    ap.add_argument("--draft-head-rank", type=int, default=0,
+                    help="factor the draft's lm_head to this rank at load "
+                         "(0 = exact head)")
+    ap.add_argument("--spec-tree", default="",
+                    help="speculation tree widths: not ported yet (such "
+                         "requests get a 400)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
     args = ap.parse_args(argv)
@@ -584,6 +670,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.paged_pages:
         hp.paged_pages = args.paged_pages
         hp.page_size = args.page_size
+    if args.spec_k:
+        hp.spec_k = args.spec_k
+    if args.spec_horizon:
+        hp.spec_horizon = args.spec_horizon
+    if args.draft_head_rank:
+        hp.draft_head_rank = args.draft_head_rank
+    hp.spec_tree = args.spec_tree or hp.spec_tree
     ctx = ServerContext(root_dir, default, hp, args.device)
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")

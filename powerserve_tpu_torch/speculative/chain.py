@@ -1,0 +1,288 @@
+"""Chain speculative decoding on the device.
+
+Per speculative step, with draft length k:
+  1. draft: k + 1 sequential draft forwards (Tq = 1) feeding [root, d0 ..
+     d_{k-1}]; the last exists only to write d_{k-1}'s K/V, so the draft
+     cache stays complete when all k drafts are accepted.
+  2. verify: one target forward with Tq = k + 1 over the fed chain
+     (causal), which gives the target's choice after every prefix.
+  3. accept: greedy (chain_spec_scan), the longest prefix with d_i equal
+     to the target's argmax; or speculative sampling
+     (chain_spec_sample_scan): d_i is accepted with probability
+     min(1, p_i(d_i) / q_i(d_i)), and the first rejection resamples from
+     the residual (p - q)^+, so the emitted stream is distributed as the
+     target's own samples. A slot at temperature <= 0 has one-hot p and q
+     and reduces to the greedy scheme exactly.
+  4. commit: both caches roll back the rejected entries; the next root
+     is the target's token at the first rejection (or the bonus token).
+
+Chain drafting keeps every K/V position sequential, so accepted entries
+are already where they belong and the losers roll back with one masked
+rollback. The JAX package runs the steps inside one lax.scan; here they
+are a Python loop, with acceptance, counts and rollback kept on the
+device and read to the host once per block.
+
+Self-drafting (LayerSkip): the draft is the target's own first n layers
+with the shared final norm and lm_head (`self_draft_model`), costing n/L
+of a target step and no extra weights. Drafts of at most FUSE_MAX_LAYERS
+layers run the fused decode-layer chain (ops/fused.py), as the JAX
+package's "auto" rule does. A verify over the paged pool takes the
+deferred K/V route (models/llama.py), the route of the state mode of
+paged flash-decode.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from ..core.config import LLMConfig, ModelConfig
+from ..core.device import resolve_device
+from ..core.logging import Timer
+from ..kv.cache import KVCache
+from ..kv.paged import PagedKVCache
+from ..models.llama import LlamaModel
+from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
+                                uniform_draws)
+from .engine import SpecStats
+
+__all__ = ["chain_spec_scan", "chain_spec_sample_scan", "ChainSpecEngine",
+           "self_draft_config", "self_draft_model", "with_draft_head",
+           "draft_fuse"]
+
+# drafts this shallow are launch-bound: they run the fused layer chain
+FUSE_MAX_LAYERS = 4
+
+
+def draft_fuse(d_llm: LLMConfig) -> bool:
+    return d_llm.n_layers <= FUSE_MAX_LAYERS
+
+
+def self_draft_config(llm: LLMConfig, n_layers: int) -> LLMConfig:
+    """The config of a self-draft of the first `n_layers` layers."""
+    if not 0 < n_layers <= llm.n_layers:
+        raise ValueError(f"draft layers {n_layers} vs {llm.n_layers}")
+    return dataclasses.replace(llm, n_layers=n_layers)
+
+
+def self_draft_model(model: LlamaModel, n_layers: int) -> LlamaModel:
+    """A view of the target's first n_layers layers, its embedding, final
+    norm and head (no weight is copied)."""
+    return LlamaModel(self_draft_config(model.llm, n_layers), model.embed,
+                      list(model.layers[:n_layers]), model.out_norm,
+                      model.lm_head, model.lm_head_lr)
+
+
+def with_draft_head(model: LlamaModel, lm_head_lr: tuple) -> LlamaModel:
+    """A view of `model` whose head is the factored (U, V)."""
+    return LlamaModel(model.llm, model.embed, list(model.layers),
+                      model.out_norm, model.lm_head, lm_head_lr)
+
+
+def _verify_update(kv: KVCache) -> str:
+    return "deferred" if isinstance(kv, PagedKVCache) else "inline"
+
+
+@torch.no_grad()
+def chain_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
+                    d_kv: KVCache, root: torch.Tensor, n_steps: int,
+                    k: int) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """n_steps greedy chain steps for every slot of the caches.
+
+    root: int64 [S], each slot's last committed token (it feeds the first
+    draft). Returns (tokens [n_steps, S, k + 1], counts [n_steps, S],
+    root [S]) on the device: step i emitted tokens[i, s, :counts[i, s]].
+    """
+    lanes = torch.arange(k + 1, device=root.device)
+    fuse = draft_fuse(draft.llm)
+    update = _verify_update(t_kv)
+    tokens, counts = [], []
+    for _ in range(n_steps):
+        c = t_kv.pos.long()
+        fed, tok = [root], root
+        for j in range(k + 1):
+            nxt = draft(d_kv, tok[:, None], d_kv.pos.long()[:, None],
+                        logits_mode="argmax", fuse_layers=fuse).long()
+            if j < k:
+                fed.append(nxt)
+                tok = nxt
+        fed = torch.stack(fed, dim=1)  # [S, k+1] = [root, d0 .. d_{k-1}]
+        sampled = target(t_kv, fed, c[:, None] + lanes[None, :],
+                         logits_mode="argmax_all", kv_update=update).long()
+        match = (sampled[:, :k] == fed[:, 1:]).long()
+        n_acc = match.cumprod(dim=1).sum(dim=1)  # [S] in [0, k]
+        root = sampled.gather(1, n_acc[:, None])[:, 0]
+        drop = k - n_acc
+        d_kv.rollback(drop)
+        t_kv.rollback(drop)
+        tokens.append(sampled)
+        counts.append(n_acc + 1)
+    return torch.stack(tokens), torch.stack(counts), root
+
+
+@torch.no_grad()
+def chain_spec_sample_scan(target: LlamaModel, draft: LlamaModel,
+                           t_kv: KVCache, d_kv: KVCache, root: torch.Tensor,
+                           n_steps: int, k: int, active: torch.Tensor,
+                           generators: list[torch.Generator | None],
+                           temp: torch.Tensor, top_k: torch.Tensor,
+                           top_p: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """n_steps steps of speculative sampling over a batch of slots.
+
+    root int64 [S]; active bool [S]; temp/top_k/top_p [S] the slots'
+    sampler settings; generators[i] the generator slot i draws from (None
+    for a slot at temperature <= 0, which draws nothing). Returns
+    (emitted [n_steps, S, k + 1], counts [n_steps, S], root [S]): each
+    row holds the accepted drafts, then the resampled or bonus token, -1
+    beyond its count (and everywhere for inactive slots)."""
+    S = root.shape[0]
+    dev = root.device
+    V = target.llm.vocab_size
+    lanes = torch.arange(k + 1, device=dev)
+    fuse = draft_fuse(draft.llm)
+    update = _verify_update(t_kv)
+    rep = lambda a: a.repeat_interleave(k + 1)  # noqa: E731
+    emitted, counts = [], []
+    for _ in range(n_steps):
+        c = t_kv.pos.long()
+        # 1. k sampled drafts (k + 1 forwards: the last writes d_{k-1})
+        fed, qs, tok = [root], [], root
+        for j in range(k + 1):
+            pos = torch.where(active, d_kv.pos.long(), -1)[:, None]
+            logits = draft(d_kv, tok[:, None], pos, active=active,
+                           logits_mode="last", fuse_layers=fuse)
+            if j < k:
+                q = sample_dist_batched(logits[:, :V], temp, top_k, top_p,
+                                        vocab_size=V)
+                tok = categorical_from_dist(q, generators)
+                fed.append(tok)
+                qs.append(q)
+        fed = torch.stack(fed, dim=1)  # [S, k+1]
+        q_d = torch.stack(qs, dim=1)  # [S, k, V]; q_j drew d_j
+        # 2. one batched verify
+        positions = torch.where(active[:, None], c[:, None] + lanes[None, :],
+                                -1)
+        logits = target(t_kv, fed, positions, active=active,
+                        logits_mode="all", kv_update=update)
+        p = sample_dist_batched(
+            logits.reshape(S * (k + 1), -1)[:, :V], rep(temp), rep(top_k),
+            rep(top_p), vocab_size=V).reshape(S, k + 1, V)
+        # 3. rejection-sample acceptance
+        d = fed[:, 1:]
+        p_at_d = p[:, :k].gather(2, d[..., None])[..., 0]
+        q_at_d = q_d.gather(2, d[..., None])[..., 0]
+        u = uniform_draws(generators, k, dev)
+        accept = (u * q_at_d < p_at_d).long()
+        n_acc = accept.cumprod(dim=1).sum(dim=1)  # [S]
+        # 4. resample: the residual (p - q)^+ at the rejected position,
+        # p itself at the bonus position (n_acc == k)
+        sel = n_acc[:, None, None].expand(S, 1, V)
+        p_sel = p.gather(1, sel)[:, 0]
+        q_pad = torch.cat([q_d, torch.zeros(S, 1, V, device=dev)], dim=1)
+        q_sel = q_pad.gather(1, sel)[:, 0]
+        residual = torch.clamp(p_sel - q_sel, min=0.0)
+        rsum = residual.sum(dim=-1, keepdim=True)
+        residual = torch.where(rsum > 1e-12,
+                               residual / torch.clamp(rsum, min=1e-30), p_sel)
+        new_root = torch.where(active,
+                               categorical_from_dist(residual, generators),
+                               root)
+        emit = torch.where(
+            lanes[None, :] < n_acc[:, None],
+            torch.cat([d, torch.zeros_like(d[:, :1])], dim=1),
+            torch.where(lanes[None, :] == n_acc[:, None], new_root[:, None],
+                        -1))
+        emitted.append(torch.where(active[:, None], emit, -1))
+        counts.append(torch.where(active, n_acc + 1, 0))
+        # 5. both caches keep the accepted prefix and the root's entry
+        drop = torch.where(active, k - n_acc, 0)
+        d_kv.rollback(drop)
+        t_kv.rollback(drop)
+        root = new_root
+    return torch.stack(emitted), torch.stack(counts), root
+
+
+class ChainSpecEngine:
+    """One stream: prefill both models, then emit tokens in blocks of
+    greedy speculative steps (one host read per block)."""
+
+    def __init__(self, target: LlamaModel, target_cfg: ModelConfig,
+                 draft: LlamaModel | None = None, self_draft_layers: int = 0,
+                 k: int = 4, block_steps: int = 8, max_seq: int = 0,
+                 prefill_chunk: int = 128,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.target = target.to(self.device)
+        if self_draft_layers:
+            self.draft = self_draft_model(self.target, self_draft_layers)
+        elif draft is None:
+            raise ValueError("give a draft model or self_draft_layers")
+        else:
+            self.draft = draft.to(self.device)
+        self.t_llm, self.d_llm = target_cfg.llm, self.draft.llm
+        if self.d_llm.vocab_size != self.t_llm.vocab_size:
+            raise ValueError(f"draft vocab {self.d_llm.vocab_size} != "
+                             f"target vocab {self.t_llm.vocab_size}")
+        self.k = k
+        self.block_steps = block_steps
+        self.max_seq = max_seq or self.t_llm.seq_len
+        self.prefill_chunk = prefill_chunk
+        self.reset()
+
+    def reset(self) -> None:
+        t, d = self.t_llm, self.d_llm
+        self.t_kv = KVCache.create(t.n_layers, 1, self.max_seq,
+                                   t.n_kv_heads, t.head_size, self.device)
+        self.d_kv = KVCache.create(d.n_layers, 1, self.max_seq,
+                                   d.n_kv_heads, d.head_size, self.device)
+
+    @torch.no_grad()
+    def prefill(self, prompt_tokens: list[int]) -> None:
+        """Both caches take prompt[:-1]; the last token is the root."""
+        toks = np.asarray(prompt_tokens[:-1], np.int64)
+        for off in range(0, len(toks), self.prefill_chunk):
+            part = torch.from_numpy(toks[off:off + self.prefill_chunk])
+            pos = off + torch.arange(len(part))
+            args = (part[None].to(self.device), pos[None].to(self.device))
+            self.target(self.t_kv, *args, logits_mode="none")
+            self.draft(self.d_kv, *args, logits_mode="none")
+        self._root = torch.tensor([prompt_tokens[-1]], device=self.device)
+
+    def generate(self, prompt_tokens: list[int], n_predict: int,
+                 stop_fn: Callable[[int], bool] | None = None,
+                 stats: SpecStats | None = None) -> Iterator[int]:
+        """Up to n_predict greedy tokens, `block_steps` speculative steps
+        per host read."""
+        stats = stats if stats is not None else SpecStats()
+        self.reset()
+        self.prefill(prompt_tokens)
+        timer = Timer()
+        out = 0
+        while out < n_predict:
+            # a block writes up to block_steps * (k + 1) entries past the
+            # committed prefix
+            room = self.max_seq - int(self.t_kv.pos[0])
+            if room < self.block_steps * (self.k + 1) + 1:
+                return
+            tokens, counts, self._root = chain_spec_scan(
+                self.target, self.draft, self.t_kv, self.d_kv, self._root,
+                self.block_steps, self.k)
+            tokens, counts = tokens[:, 0].tolist(), counts[:, 0].tolist()
+            for i in range(self.block_steps):
+                stats.steps += 1
+                stats.drafted += self.k
+                stats.accepted += counts[i] - 1
+                for t in tokens[i][:counts[i]]:
+                    stats.emitted += 1
+                    out += 1
+                    stats.decode_ms = timer.elapsed_time_ms()
+                    yield t
+                    if (stop_fn is not None and stop_fn(t)) \
+                            or out >= n_predict:
+                        return

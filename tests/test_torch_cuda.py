@@ -10,7 +10,8 @@ same bf16-rounded inputs and sum in another order, so they agree to
 f32 rounding (relative to the largest output). The fused head also
 rounds its normalized rows to bf16 after an f32 norm summed in another
 order: an element next to a bf16 rounding midpoint may round the other
-way, which ops.fused.norm_rounding_slack bounds per logit.
+way, which ops.fused.norm_rounding_slack bounds per logit; the glu
+prologue's silu, with exp on the card, likewise (glu_rounding_slack).
 """
 
 import numpy as np
@@ -24,8 +25,9 @@ from powerserve_tpu_torch.ops.flash_decode import (
     flash_decode_quant_reference)
 from powerserve_tpu_torch.ops.flash_prefill import (
     flash_prefill_cuda, flash_prefill_quant_reference)
-from powerserve_tpu_torch.ops.fused import (fused_head_cuda,
+from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                             fused_linear_reference,
+                                            glu_rounding_slack, launch_name,
                                             norm_rounding_slack)
 from powerserve_tpu_torch.ops.qmatmul import (
     QLinear, qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
@@ -93,10 +95,10 @@ def test_fused_head_kernel(dev, fmt, k, n, pack, m, x_dtype):
     g.manual_seed(k + n + m)
     x = (torch.randn(m, k, generator=g, device=dev) * 3).to(x_dtype)
     nw = torch.rand(k, generator=g, device=dev) + 0.5
-    ref = fused_linear_reference(lin, x, nw)
-    logits = fused_head_cuda(lin, x, nw)
+    ref = fused_linear_reference(lin, norm=(x, nw))
+    logits = fused_linear_cuda(lin, "norm", [x], nw)
     _close(logits, ref, slack=norm_rounding_slack(lin, x, nw).cpu())
-    tok = fused_head_cuda(lin, x, nw, argmax=True)
+    tok = fused_linear_cuda(lin, "norm", [x], nw, argmax=True)
     assert tok.dtype == torch.int32
     # the argmax epilogue picks the first maximum of the kernel's logits
     assert torch.equal(tok.cpu(), logits.argmax(dim=-1).to(torch.int32).cpu())
@@ -112,8 +114,79 @@ def test_fused_head_argmax_ties_first_occurrence(dev):
     lin = QLinear.from_float(w, GGMLType.Q8_0, device="cpu").to(dev)
     x = torch.ones(2, 64, device=dev)
     nw = torch.ones(64, device=dev)
-    tok = fused_head_cuda(lin, x, nw, argmax=True).cpu()
+    tok = fused_linear_cuda(lin, "norm", [x], nw, argmax=True).cpu()
     assert tok.tolist() == [10, 10]
+    tok = fused_linear_cuda(lin, "x", [x], argmax=True).cpu()
+    assert tok.tolist() == [10, 10]
+
+
+FUSED_MODES = {
+    "x": ("x", 1, False, 0), "norm(x+attn)": ("norm", 2, False, 0),
+    "norm3+bias": ("norm", 3, True, 0), "glu+2resids": ("glu", 1, False, 2),
+    "concat2+bias+resid": ("concat2", 2, True, 1),
+}
+
+
+def _fused_operands(g, dev, mode, m, k, n, dtype):
+    pro, n_ops, bias, n_res = FUSED_MODES[mode]
+    widths = {"glu": [2 * k], "concat2": [k // 4, k - k // 4]}.get(
+        pro, [k] * n_ops)
+    ops = [(torch.randn(m, w, generator=g, device=dev) * 2).to(dtype)
+           for w in widths]
+    nw = torch.rand(k, generator=g, device=dev) + 0.5 if pro == "norm" else None
+    b = torch.randn(n, generator=g, device=dev) if bias else None
+    res = [(torch.randn(m, n, generator=g, device=dev) * 4).to(dtype)
+           for _ in range(n_res)]
+    return pro, ops, nw, b, res
+
+
+@pytest.mark.parametrize("fmt,k,n,pack", [
+    (GGMLType.Q4_K, 512, 1000, True), (GGMLType.Q8_0, 256, 384, False),
+    (GGMLType.Q4_0, 512, 130, True), (GGMLType.Q4_K, 256, 384, False)])
+@pytest.mark.parametrize("m", [1, 5, 16])
+@pytest.mark.parametrize("mode", list(FUSED_MODES))
+def test_fused_linear_kernel(dev, fmt, k, n, pack, m, mode):
+    lin = _lin(fmt, k, n, pack, seed=n + k, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + m)
+    dtype = torch.bfloat16 if m == 5 else torch.float32
+    pro, ops, nw, b, res = _fused_operands(g, dev, mode, m, k, n, dtype)
+    kw = dict(bias=b, resids=res)
+    if pro == "norm":
+        kw["norm"] = (*ops, nw)
+    else:
+        kw[{"x": "x", "glu": "glu", "concat2": "parts"}[pro]] = (
+            ops[0] if pro != "concat2" else tuple(ops))
+    ref = fused_linear_reference(lin, **kw)
+    name = launch_name(pro, len(ops), b, res, False)
+    before = cuda_lib.launch_counts()[name]
+    got = fused_linear_cuda(lin, pro, ops, nw, b, res)
+    assert cuda_lib.launch_counts()[name] == before + 1
+    slack = 0.0
+    if pro == "norm":
+        slack = norm_rounding_slack(lin, *ops, nw).cpu()
+    elif pro == "glu":
+        slack = glu_rounding_slack(lin, ops[0]).cpu()
+    _close(got, ref, slack=slack)
+    tok = fused_linear_cuda(lin, pro, ops, nw, b, res, argmax=True)
+    assert torch.equal(tok.cpu(), got.argmax(dim=-1).to(torch.int32).cpu())
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_fused_glu_kernel_at_llama8b_ffn_depth(dev, m):
+    """The down projection of llama-8b reads a 2 x 14336 gate|up block: the
+    kernel forms its activation per 32-row slice, so K of this depth (past
+    a whole-row bf16 stage in shared memory at M = 8 and 16) runs."""
+    k, n = 14336, 256
+    lin = _lin(GGMLType.Q4_K, k, n, True, seed=m, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    gu = torch.randn(m, 2 * k, generator=g, device=dev) * 2
+    r0 = torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16)
+    r1 = torch.randn(m, n, generator=g, device=dev)
+    got = fused_linear_cuda(lin, "glu", [gu], resids=[r0, r1])
+    ref = fused_linear_reference(lin, glu=gu, resids=(r0, r1))
+    _close(got, ref, slack=glu_rounding_slack(lin, gu).cpu())
 
 
 @pytest.mark.parametrize("S,Tq,H,Hkv,D,T", [
@@ -275,6 +348,58 @@ def test_flash_decode_paged_kernel(dev, page, S, Tq, H, Hkv, D, MP_tokens):
     _close_flips(got, flash_decode_paged_reference(*args), vsp)
 
 
+@pytest.mark.parametrize("S,Tq,page", [(8, 5, 64), (3, 1, 8), (2, 16, 16)])
+def test_flash_decode_paged_state_kernel(dev, S, Tq, page):
+    """The state mode against the twin's state: o, m and l in the (h, g,
+    tq) row order; the last slot sees no committed position, so its m
+    stays at -1e30 and a deferred merge weighs it 0."""
+    from powerserve_tpu_torch.ops.flash_decode import (
+        flash_decode_paged_deferred)
+    from powerserve_tpu_torch.ops.attention import NEG_INF
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(S * page + Tq)
+    H, Hkv, D, T = 32, 8, 128, 1024
+    MP = T // page
+    filled = [300 + 41 * s for s in range(S - 1)] + [0]
+    n_alloc = [-(-f // page) for f in filled]
+    P = sum(n_alloc) + 3
+    pt = _page_table(g, dev, S, MP, P, n_alloc)
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kp, vp = (torch.randint(-127, 128, (P, Hkv, page, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ksp, vsp = (torch.rand(P, Hkv, page, generator=g, device=dev) * 0.05
+                for _ in range(2))
+    vis = (torch.arange(T, device=dev)[None, None, :]
+           < torch.tensor(filled, device=dev)[:, None, None]).expand(
+               S, Tq, T).clone()
+    args = (q, kp, ksp, vp, vsp, pt, vis, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_decode_paged_state"]
+    o, m, l = flash_decode_paged_cuda(*args, state=True)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_decode_paged_state"] == before + 1
+    ro, rm, rl = flash_decode_paged_reference(*args, state=True)
+    assert o.shape == (S, H * Tq, D) and m.shape == l.shape == (S, H * Tq)
+    seen = torch.tensor([f > 0 for f in filled], device=dev)
+    assert (m[~seen] <= NEG_INF / 2).all()
+    _close(m[seen], rm[seen], rel=1e-6)
+    _close(l[seen], rl[seen], rel=1e-4)
+    _close_flips(o[seen], ro[seen], vsp)
+    # merged with an in-flight block: the plain merge on the kernel's state
+    # against the same merge on the twin's
+    knq, vnq = (torch.randint(-127, 128, (S, Hkv, Tq, D), generator=g,
+                              device=dev, dtype=torch.int8) for _ in range(2))
+    kns, vns = (torch.rand(S, Hkv, Tq, generator=g, device=dev) * 0.05
+                for _ in range(2))
+    intra = torch.ones(Tq, Tq, dtype=torch.bool, device=dev).tril()
+    intra = intra.expand(S, Tq, Tq).contiguous()
+    dargs = (*args[:7], knq, kns, vnq, vns, intra, args[7])
+    got = flash_decode_paged_deferred(*dargs)
+    ref = flash_decode_paged_deferred(*(t.cpu() if torch.is_tensor(t) else t
+                                        for t in dargs))
+    _close_flips(got, ref, vsp)
+
+
 def test_forward_cuda_matches_cpu(dev, tmp_path):
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.models.loader import load_gguf_model
@@ -433,3 +558,37 @@ def test_w8_forward_cuda_matches_cpu(dev, tmp_path):
     # its row's largest value): logits agree to ~1e-2 of the range
     _close(a1, a0, rel=3e-2)
     _close(b1, b0, rel=3e-2)
+
+
+def test_chain_spec_engine_cuda_matches_plain(dev, tmp_path):
+    """One greedy ChainSpecEngine run on the card (a 1-layer self-draft:
+    the fused layer chain and the fused head at M = 1, a verify of k + 1
+    rows) against the plain engine's tokens on the card (near-tie rule),
+    with every new fused mode launched."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.speculative.chain import ChainSpecEngine
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    ws = make_synthetic_gguf(tmp_path, "tiny-k", GGMLType.Q4_K, seed=0,
+                             seq_len=128)
+    cfg, model = load_gguf_model(ws / "model", device=dev)
+    hp = HyperParams(max_slots=1, batch_size=8, max_seq_len=128)
+    hp.sampler.temperature = 0.0
+    plain = InferenceEngine(model, cfg, hp, device=dev)
+    prompt = [3, 17, 5, 9, 44, 12]
+    want = list(plain.generate(prompt, 20))
+    before = cuda_lib.launch_counts()
+    spec = ChainSpecEngine(model, cfg, self_draft_layers=1, k=3,
+                           block_steps=4, max_seq=128, device=dev)
+    got = list(spec.generate(prompt, 20))
+    after = cuda_lib.launch_counts()
+    for name in ("fused_head", "fused_x", "fused_norm", "fused_glu",
+                 "qmatmul", "flash_decode"):
+        assert after[name] > before[name], name
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is not None:
+        plain.reset()
+        top2 = plain.prefill(prompt + want[:i]).topk(2).values
+        assert float(top2[0] - top2[1]) < 0.5, (i, got, want)

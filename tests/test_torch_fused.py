@@ -65,11 +65,11 @@ def test_norm_rounding_slack_bounds_last_bit_norms(seed):
     lin = QLinear.from_float(w, GGMLType.Q4_K, device="cpu")
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32) * 3)
     nw = torch.from_numpy(rng.random(k).astype(np.float32) + 0.5)
-    ref = fused_linear_reference(lin, x, nw)
+    ref = fused_linear_reference(lin, norm=(x, nw))
     tol = REL * ref.abs().max() + norm_rounding_slack(lin, x, nw)
     moved = 0.0
     for eps in (0.0, 4e-5):  # rstd off by ~5-30 f32 ulps at var ~9
-        err = (fused_linear_reference(lin, x, nw, eps=eps) - ref).abs()
+        err = (fused_linear_reference(lin, norm=(x, nw), eps=eps) - ref).abs()
         assert (err <= tol).all()
         moved = max(moved, err.max().item())
     assert moved > REL * ref.abs().max()  # some element did round the other way

@@ -139,3 +139,50 @@ def test_entry_points_default_to_cuda(tmp_path):
     # asked for explicitly, the CPU works
     assert run.main(["-d", str(ws), "-n", "2", "--temperature", "0",
                      "--device", "cpu", "--no-progress"]) == 0
+
+
+def test_speculation_runs_the_twins_and_defaults_to_cuda(tmp_path):
+    """Every fused-linear mode and the state mode run their twins on CPU
+    tensors (no launch counted); the chain engine and `run --self-draft-
+    layers` refuse to fall back to the CPU on their own."""
+    import numpy as np
+
+    from powerserve_tpu_torch import run
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.ops.flash_decode import (
+        flash_decode_paged, flash_decode_paged_deferred)
+    from powerserve_tpu_torch.ops.fused import fused_linear
+    from powerserve_tpu_torch.ops.qmatmul import QLinear
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.speculative.chain import ChainSpecEngine
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    before = cuda_lib.launch_counts()
+    lin = QLinear.from_float(np.ones((64, 32), np.float32), GGMLType.Q8_0,
+                             device="cpu")
+    x = torch.ones(2, 64)
+    fused_linear(lin, x=x, argmax=True)
+    fused_linear(lin, norm=(x, x, x, torch.ones(64)), bias=torch.ones(32),
+                 resids=(torch.ones(2, 32), torch.ones(2, 32)))
+    fused_linear(lin, glu=torch.ones(2, 128))
+    fused_linear(lin, parts=(x[:, :16], x[:, 16:]))
+    kq = torch.zeros(1, 1, 8, 16, dtype=torch.int8)
+    ks = torch.zeros(1, 1, 8)
+    pt = torch.zeros(1, 1, dtype=torch.int32)
+    vis = torch.ones(1, 2, 8, dtype=torch.bool)
+    q = torch.ones(1, 2, 2, 16)
+    flash_decode_paged(q, kq, ks, kq, ks, pt, vis, 0.25, state=True)
+    new, news = torch.zeros(1, 1, 2, 16, dtype=torch.int8), torch.ones(1, 1, 2)
+    flash_decode_paged_deferred(q, kq, ks, kq, ks, pt, vis, new, news, new,
+                                news, torch.ones(1, 2, 2, dtype=torch.bool),
+                                0.25)
+    assert cuda_lib.launch_counts() == before
+    if torch.cuda.is_available():
+        return
+    ws = make_synthetic_gguf(tmp_path, "tiny", GGMLType.Q8_0, seq_len=32)
+    cfg, model = load_gguf_model(ws / "model", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ChainSpecEngine(model, cfg, self_draft_layers=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(["-d", str(ws), "-n", "1", "--self-draft-layers", "1"])

@@ -235,8 +235,13 @@ def test_unknown_and_unported_models(servers):
     status, raw = _port(servers, "POST", "/v1/completions",
                         {"model": "nope", "prompt": "x"})
     assert status == 404 and b"unknown model" in raw
+    # a speculative name whose draft dir is missing
     status, raw = _port(servers, "POST", "/v1/completions",
                         {"model": "model+draft", "prompt": "x"})
+    assert status == 404 and b"unknown model 'draft'" in raw
+    status, raw = _port(servers, "POST", "/v1/chat/completions", {
+        "model": "model", "messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": "x"}}]}]})
     assert status == 400 and b"not ported yet" in raw
     status, _ = _port(servers, "GET", "/nowhere")
     assert status == 404
