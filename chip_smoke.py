@@ -1807,7 +1807,9 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
         if not torch.equal(getattr(a, name)[0], getattr(b_, name)[0]):
             raise AssertionError(f"deferred commit: layer 0 {name} differs "
                                  f"from the inline route's")
-    s_idx, t_idx, pages, offs = a.write_index(vpos)
+    pages, offs = a.locate(vpos)
+    s_idx, t_idx = (pages < a.n_pages).nonzero(as_tuple=True)
+    pages, offs = pages[s_idx, t_idx], offs[s_idx, t_idx]
     codes_differ = 0
     for layer, (kq, ks, vq, vs) in enumerate(blocks):
         for name, val in (("k", kq), ("k_scale", ks), ("v", vq),

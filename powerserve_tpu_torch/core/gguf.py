@@ -255,12 +255,12 @@ class GGUFReader:
     Tensor payloads are exposed as zero-copy numpy uint8 views into the
     loaded buffer; `dequantize()` in quant.py turns them into float
     arrays. method: "mmap" (default) | "bio" | "dio" | "async" — see
-    _load_file; default overridable via POWERSERVE_FILE_LOAD.
+    _load_file.
     """
 
     def __init__(self, path: str | os.PathLike, method: str | None = None):
         self.path = os.fspath(path)
-        method = method or os.environ.get("POWERSERVE_FILE_LOAD", "mmap")
+        method = method or "mmap"
         if method not in ("mmap", "bio", "dio", "async"):
             raise ValueError(f"unknown file load method: {method}")
         self.method = method

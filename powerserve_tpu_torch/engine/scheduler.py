@@ -454,14 +454,21 @@ class BatchScheduler:
             tv, ti = torch.topk(lf, N_TOP, dim=-1)
             out_ti.append(ti)
             out_tlp.append(tv - lse[:, None])
-        # one host fetch per tick
-        toks = torch.stack(out_tok, 1).cpu().tolist()
-        lps = torch.stack(out_lp, 1).cpu().tolist()
-        top_i = torch.stack(out_ti, 1).cpu().tolist()
-        top_lp = torch.stack(out_tlp, 1).cpu().tolist()
-        # positions after the tick, as the JAX scheduler's capacity check
-        # reads them
-        pos_host = self.kv.pos.cpu().tolist()
+        # one host fetch per tick: tokens, logprobs, top ids and
+        # logprobs, and the positions after the tick (as the JAX
+        # scheduler's capacity check reads them), in one f64 vector (exact
+        # for each of them)
+        parts = (torch.stack(out_tok, 1), torch.stack(out_lp, 1),
+                 torch.stack(out_ti, 1), torch.stack(out_tlp, 1), self.kv.pos)
+        flat = torch.cat([t.double().flatten() for t in parts]).cpu().numpy()
+        toks, lps, top_i, top_lp, pos_host = np.split(
+            flat, np.cumsum([t.numel() for t in parts[:-1]]))
+        toks = toks.astype(np.int64).reshape(self.S, -1).tolist()
+        lps = lps.reshape(self.S, -1).tolist()
+        top_i = top_i.astype(np.int64).reshape(self.S, self.horizon,
+                                               -1).tolist()
+        top_lp = top_lp.reshape(self.S, self.horizon, -1).tolist()
+        pos_host = pos_host.astype(np.int64).tolist()
         for i in decoding:
             s = self.slots[i]
             for h in range(self.horizon):

@@ -9,7 +9,14 @@ contiguous [T, D] for the attention kernel; per-(token, head) f32 scales
 The JAX package updates the cache functionally; here writes go into the
 same tensors, and the contents match the JAX cache entry for entry.
 Positions outside [0, max_seq) — inactive slots are fed -1 — are dropped,
-as JAX's scatter mode="drop" drops them.
+as JAX's scatter mode="drop" drops them, with a fixed-shape write that
+reads nothing back to the host: each of k, v and the scales lives in a
+flat storage one (head_dim) row longer than the public view, and every
+dropped lane writes that spare row. No real lane can collide with a
+dropped one (a clamped index could: indexed writes with duplicate
+indices keep an arbitrary one), and no kernel, stride or snapshot sees
+the spare: k, v and the scales are contiguous views of the rows before
+it.
 
 kv/paged.py's PagedKVCache keeps the same method names and signatures
 (write_index/write, the mask and pos ops, the prefix snapshots), so the
@@ -23,12 +30,32 @@ import torch
 from ..core.device import resolve_device
 
 
+def spare_rows(t: torch.Tensor, row: int) -> torch.Tensor:
+    """A copy of t in a flat storage of rows of `row` elements with one
+    spare row at the end: [n + 1, row], or [n + 1] for row == 1. t's copy
+    is the view of the first n rows."""
+    n = t.numel() // row
+    flat = torch.zeros((n + 1, row) if row > 1 else (n + 1,), dtype=t.dtype,
+                       device=t.device)
+    flat[:n].view(t.shape).copy_(t)
+    return flat
+
+
 class KVCache:
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
                  k_scale: torch.Tensor, v_scale: torch.Tensor,
                  mask: torch.Tensor, pos: torch.Tensor):
-        self.k, self.v = k, v
-        self.k_scale, self.v_scale = k_scale, v_scale
+        """k/v [L, S(or P), Hkv, T, D] and the scales [L, S, Hkv, T] are
+        copied into storages with a spare row (write's target for dropped
+        lanes); self.k etc. are views of the rows before it."""
+        D = k.shape[-1]
+        # (flat storage, public view) of k, k_scale, v, v_scale: the order
+        # of write's blocks
+        self.storage = [spare_rows(t, r) for t, r in ((k, D), (k_scale, 1),
+                                                   (v, D), (v_scale, 1))]
+        self.k, self.k_scale, self.v, self.v_scale = (
+            f[:-1].view(t.shape) for f, t in zip(
+                self.storage, (k, k_scale, v, v_scale)))
         self.mask, self.pos = mask, pos
 
     @classmethod
@@ -70,23 +97,39 @@ class KVCache:
         q = torch.clamp(torch.round(xf * inv[..., None]), -127, 127)
         return q.to(torch.int8), scale
 
-    def write_index(self, positions: torch.Tensor) -> tuple:
-        """(slot, batch column, cache position) of every in-range entry
-        of positions [S, Tq]; shared by all layers of one forward."""
+    def _storage_rows(self, ok: torch.Tensor, slab: torch.Tensor,
+                      t: torch.Tensor) -> torch.Tensor:
+        """Storage rows [L, S, Tq, Hkv] of the lanes at slab index slab
+        [S, Tq] (a slot, or a pool page) and position t [S, Tq] in it,
+        for every layer and head; lanes where ok is False go to the spare
+        row."""
+        L, n_slab, H, T = self.k_scale.shape
+        dev = slab.device
+        h = torch.arange(H, device=dev)
+        rows = (slab[..., None] * H + h) * T + t[..., None]  # [S, Tq, H]
+        layer = torch.arange(L, device=dev)[:, None, None, None]
+        rows = layer * (n_slab * H * T) + rows[None]
+        return torch.where(ok[None, ..., None], rows, L * n_slab * H * T)
+
+    def write_index(self, positions: torch.Tensor) -> torch.Tensor:
+        """Storage rows [L, S, Tq, Hkv] that the entries of positions
+        [S, Tq] write for every layer and head, out-of-range ones the
+        spare row; shared by all layers of one forward. Its shape depends
+        on positions.shape only, and nothing is read to the host."""
+        S, Tq = positions.shape
         ok = (positions >= 0) & (positions < self.max_seq)
-        s_idx, t_idx = ok.nonzero(as_tuple=True)
-        return s_idx, t_idx, positions[s_idx, t_idx].long()
+        slot = torch.arange(S, device=positions.device)[:, None].expand(S, Tq)
+        return self._storage_rows(ok, slot, torch.where(ok, positions, 0).long())
 
     def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
-              index: tuple) -> None:
+              index: torch.Tensor) -> None:
         """Quantize k_new/v_new [S, Tq, Hkv, D] and store them for one
-        layer at `index` (from write_index)."""
-        s_idx, t_idx, p = index
-        for cache, scales, new in ((self.k, self.k_scale, k_new),
-                                   (self.v, self.v_scale, v_new)):
-            qv, sv = self.quantize_kv(new)
-            cache[layer][s_idx, :, p] = qv[s_idx, t_idx]
-            scales[layer][s_idx, :, p] = sv[s_idx, t_idx]
+        layer at `index` (from write_index): every lane, dropped ones on
+        the spare row."""
+        rows = index[layer]
+        (kq, ks), (vq, vs) = self.quantize_kv(k_new), self.quantize_kv(v_new)
+        for flat, vals in zip(self.storage, (kq, ks, vq, vs)):
+            flat[rows] = vals
 
     def advance(self, positions: torch.Tensor,
                 active: torch.Tensor | None = None) -> None:

@@ -15,7 +15,10 @@ and however long one of them may grow (vLLM-style paging).
 
 Writes translate logical positions to (page, row) and drop positions
 outside [0, T_logical) or on an unallocated page, as JAX's scatter
-mode="drop" drops them (an index of P or -1 never reaches the pool).
+mode="drop" drops them: locate() names page P for such a lane, and the
+write sends it to the spare row past the end of the pool's storage (the
+dense cache's, kv/cache.py), which no page table entry names. Every lane
+is written with a fixed shape, so nothing is read to the host.
 The mask and pos ops are the dense cache's: they never touch K/V. The
 page table is pushed from the host allocator `PagePool`, which the
 scheduler drives between device steps.
@@ -93,38 +96,24 @@ class PagedKVCache(KVCache):
         offs = torch.where(ok, positions % self.page_size, 0)
         return pages, offs
 
-    def write_index(self, positions: torch.Tensor) -> tuple:
-        """(slot, batch column, pool page, row) of every entry of
-        positions [S, Tq] that lands on an allocated page."""
+    def write_index(self, positions: torch.Tensor) -> torch.Tensor:
+        """Storage rows [L, S, Tq, Hkv] that the entries of positions
+        [S, Tq] write for every layer and head: the pool row of an
+        allocated page, else the spare row. Its shape depends on
+        positions.shape only, and nothing is read to the host."""
         pages, offs = self.locate(positions)
-        s_idx, t_idx = (pages < self.n_pages).nonzero(as_tuple=True)
-        return (s_idx, t_idx, pages[s_idx, t_idx].long(),
-                offs[s_idx, t_idx].long())
+        return self._storage_rows(pages < self.n_pages, pages.long(),
+                                  offs.long())
 
-    def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
-              index: tuple) -> None:
-        """Quantize k_new/v_new [S, Tq, Hkv, D] and store them for one
-        layer at `index` (from write_index)."""
-        s_idx, t_idx, pages, offs = index
-        for pool, scales, new in ((self.k, self.k_scale, k_new),
-                                  (self.v, self.v_scale, v_new)):
-            qv, sv = self.quantize_kv(new)
-            pool[layer][pages, :, offs] = qv[s_idx, t_idx]
-            scales[layer][pages, :, offs] = sv[s_idx, t_idx]
-
-    def commit(self, blocks: list[tuple], index: tuple) -> None:
+    def commit(self, blocks: list[tuple], index: torch.Tensor) -> None:
         """Store every layer's quantized new K/V at `index` (from
         write_index), one indexed write per pool tensor: blocks[l] =
         (kq [S, Tq, Hkv, D] int8, ks [S, Tq, Hkv] f32, vq, vs) of layer
         l, as the deferred forward quantized them. The pool then holds
         what a write of each layer before its attention would have put
         there."""
-        s_idx, t_idx, pages, offs = index
-        for j, pool in enumerate((self.k, self.k_scale, self.v,
-                                  self.v_scale)):
-            vals = torch.stack([b[j] for b in blocks])  # [L, S, Tq, Hkv(, D)]
-            # the two index tensors around a slice put their axis first
-            pool[:, pages, :, offs] = vals[:, s_idx, t_idx].movedim(1, 0)
+        for j, flat in enumerate(self.storage):
+            flat[index] = torch.stack([b[j] for b in blocks])
 
     def gather_slab(self, slab: torch.Tensor) -> torch.Tensor:
         """One layer's pool slab [P, Hkv, page(, D)] -> the per-slot view
@@ -155,12 +144,9 @@ class PagedKVCache(KVCache):
         positions = torch.full((self.n_slots, n), -1, dtype=torch.int64,
                                device=self.device)
         positions[slot] = torch.arange(n, device=self.device)
-        _, t_idx, pages, offs = self.write_index(positions)
-        for name in ("k", "v", "k_scale", "v_scale"):
-            # the two index tensors around a slice put their axis first:
-            # the target is [n, L, H(, D)]
-            vals = saved[name].movedim(2, 0)  # [n, L, H(, D)]
-            getattr(self, name)[:, pages, :, offs] = vals[t_idx]
+        rows = self.write_index(positions)[:, slot]  # [L, n, H]
+        for flat, name in zip(self.storage, ("k", "k_scale", "v", "v_scale")):
+            flat[rows] = saved[name].movedim(2, 1)  # [L, n, H(, D)]
         self.mask[slot] = torch.arange(self.max_seq, device=self.device) < n
         self.pos[slot] = n
 

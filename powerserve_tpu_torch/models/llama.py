@@ -201,7 +201,7 @@ class LlamaLayer(nn.Module):
     def forward(self, x: torch.Tensor, llm: LLMConfig, kv: KVCache,
                 layer: int, cos: torch.Tensor, sin: torch.Tensor,
                 vis: torch.Tensor | None, start: torch.Tensor,
-                index: tuple, fuse: bool = False,
+                index: torch.Tensor, fuse: bool = False,
                 deferred: DeferredKV | None = None) -> torch.Tensor:
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size

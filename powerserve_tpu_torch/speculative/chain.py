@@ -264,16 +264,22 @@ class ChainSpecEngine:
         self.prefill(prompt_tokens)
         timer = Timer()
         out = 0
+        committed = len(prompt_tokens) - 1  # the target cache's pos
         while out < n_predict:
             # a block writes up to block_steps * (k + 1) entries past the
             # committed prefix
-            room = self.max_seq - int(self.t_kv.pos[0])
-            if room < self.block_steps * (self.k + 1) + 1:
+            if self.max_seq - committed < self.block_steps * (self.k + 1) + 1:
                 return
             tokens, counts, self._root = chain_spec_scan(
                 self.target, self.draft, self.t_kv, self.d_kv, self._root,
                 self.block_steps, self.k)
-            tokens, counts = tokens[:, 0].tolist(), counts[:, 0].tolist()
+            # the block's one host read
+            got = torch.cat([tokens[:, 0].flatten(), counts[:, 0]]).tolist()
+            n_tok = self.block_steps * (self.k + 1)
+            tokens = [got[i:i + self.k + 1] for i in range(0, n_tok,
+                                                           self.k + 1)]
+            counts = got[n_tok:]
+            committed += sum(counts)
             for i in range(self.block_steps):
                 stats.steps += 1
                 stats.drafted += self.k

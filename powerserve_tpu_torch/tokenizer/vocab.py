@@ -122,7 +122,9 @@ class GGUFVocab:
     add_eos: bool = False
     add_space_prefix: bool = True
     remove_extra_ws: bool = False  # tokenizer.ggml.remove_extra_whitespaces
-    charsmap: Any = None  # parsed precompiled_charsmap (charsmap.Charsmap)
+    # parsed precompiled_charsmap (charsmap.Charsmap); from_metadata gives
+    # an empty one to a t5 vocab that removes extra whitespace without one
+    charsmap: Any = None
     chat_template: str = ""
     token_to_id: dict[str, int] = field(default_factory=dict)
     _merge_ranks: dict[tuple[str, str], int] = field(default_factory=dict)
@@ -163,6 +165,14 @@ class GGUFVocab:
 
             blob = csm.tobytes() if hasattr(csm, "tobytes") else bytes(csm)
             v.charsmap = Charsmap.from_blob(blob)
+        elif v.model == "t5" and v.remove_extra_ws:
+            # UGM whitespace normalization without replacements: an empty
+            # charsmap, built here once (encode runs on many threads)
+            import numpy as np
+
+            from .charsmap import Charsmap
+
+            v.charsmap = Charsmap(np.zeros(0, np.uint32), b"")
         v.token_to_id = {t: i for i, t in enumerate(tokens)}
         if merges:
             for rank, m in enumerate(merges):
@@ -257,34 +267,11 @@ class GGUFVocab:
             push(i)
         return [s for s in sym if s is not None]
 
-    def _native(self):
-        """C++ merge-loop fast path (csrc; reference vendors llama.cpp's
-        C++ tokenizer). None when the lib is missing or disabled via
-        POWERSERVE_NATIVE_TOKENIZER=0; Python fallback is semantically
-        identical (parity-tested in tests/test_native.py)."""
-        if not hasattr(self, "_native_vocab"):
-            self._native_vocab = None
-            import os
-
-            if os.environ.get("POWERSERVE_NATIVE_TOKENIZER", "1") != "0":
-                try:
-                    from ..core.native import NativeVocab
-
-                    self._native_vocab = NativeVocab(
-                        self.tokens, self.scores, self._byte_tokens,
-                        self.unk_id, self.merges)
-                except Exception:  # noqa: BLE001
-                    self._native_vocab = None
-        return self._native_vocab
-
     def _spm_encode_fragment(self, text: str) -> list[int]:
         """Greedy score-based pair merging (SPM BPE semantics)."""
         if not text:
             return []
         text = text.replace(" ", _SPM_SPACE)
-        nat = self._native()
-        if nat is not None:
-            return nat.spm_encode(text)
 
         def pair_key(a: str, b: str):
             tid = self.token_to_id.get(a + b)
@@ -309,9 +296,6 @@ class GGUFVocab:
 
     def _bpe_encode_word(self, word: str) -> list[int]:
         """Merge-rank BPE on a byte-mapped word."""
-        nat = self._native()
-        if nat is not None:
-            return nat.bpe_encode(word)
 
         def pair_key(a: str, b: str):
             return self._merge_ranks.get((a, b))  # lowest rank first
@@ -466,19 +450,12 @@ class GGUFVocab:
             elif self.model == "bert":
                 ids.extend(self._wpm_encode_fragment(frag))
             elif self.model == "t5":
-                if self.charsmap is not None or self.remove_extra_ws:
+                if self.charsmap is not None:
                     # full UGM normalization (reference llm_tokenizer_ugm
                     # ::normalize): precompiled_charsmap replacements +
                     # space escape/prefix/merge — the Viterbi then runs
                     # on the normalized text directly
-                    cm = self.charsmap
-                    if cm is None:
-                        from .charsmap import Charsmap
-                        import numpy as _np
-
-                        cm = self.charsmap = Charsmap(
-                            _np.zeros(0, _np.uint32), b"")
-                    norm = cm.normalize(
+                    norm = self.charsmap.normalize(
                         frag,
                         prepend_space=(self.add_space_prefix
                                        and first_normal),

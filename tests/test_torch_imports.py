@@ -41,6 +41,44 @@ def test_no_jax_or_reference_imports():
     assert not bad, bad
 
 
+def test_no_environment_reads():
+    """The port takes no knob from the environment: every setting is an
+    argument or a flag."""
+    bad = []
+    for f in _port_sources() + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(f.read_text())):
+            name = None
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "environ", "getenv", "environb", "getenvb"):
+                name = node.attr
+            elif isinstance(node, ast.ImportFrom) and node.module == "os":
+                name = next((a.name for a in node.names if a.name in (
+                    "environ", "getenv", "environb", "getenvb")), None)
+            if name:
+                bad.append(f"{f.relative_to(ROOT)}:{node.lineno}: {name}")
+    assert not bad, bad
+
+
+def test_relative_imports_resolve():
+    """Every module a port source imports from within the package exists:
+    no import that can only fail (and be swallowed)."""
+    bad = []
+    for f in _port_sources():
+        for node in ast.walk(ast.parse(f.read_text())):
+            if not isinstance(node, ast.ImportFrom) or not node.level:
+                continue
+            base = f.parent
+            for _ in range(node.level - 1):
+                base = base.parent
+            parts = (node.module or "").split(".") if node.module else []
+            target = base.joinpath(*parts)
+            if not (target.with_suffix(".py").exists()
+                    or (target / "__init__.py").exists()):
+                bad.append(f"{f.relative_to(ROOT)}:{node.lineno}: "
+                           f"{'.' * node.level}{node.module}")
+    assert not bad, bad
+
+
 def test_imports_with_jax_blocked():
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
                for p in _port_sources() if p.name != "__init__.py"]

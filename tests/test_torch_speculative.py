@@ -329,8 +329,9 @@ def test_deferred_paged_verify_matches_inline(ws):
     for name in ("k", "v", "k_scale", "v_scale"):
         assert torch.equal(getattr(a, name)[0], getattr(b, name)[0]), name
     c = clone(kv)
-    index = c.write_index(vpos)
-    s_idx, t_idx, pages, offs = index
+    pages, offs = c.locate(vpos)
+    s_idx, t_idx = (pages < c.n_pages).nonzero(as_tuple=True)
+    pages, offs = pages[s_idx, t_idx], offs[s_idx, t_idx]
     for layer, (kq, ks, vq, vs) in enumerate(blocks):
         for pool_t, val in ((c.k, kq), (c.k_scale, ks), (c.v, vq),
                             (c.v_scale, vs)):
