@@ -5,8 +5,12 @@ Phases, each printing one JSON line:
   build      compile csrc/*.cu with nvcc (one process per source), with
              the card's name and power limit
   kernels    each kernel and its plain PyTorch twin on the card at the
-             llama-8b main-path shapes: max error against its tolerance,
-             CUDA-event times (warm, L2 flushed, median of 25), the bound
+             llama-8b main-path shapes (qmatmul: Q4_K at the four
+             projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
+             4096 -> 4096 and M <= 16, with the GB/s reached; every GEMV
+             case twice, bit for bit): max error against its tolerance,
+             CUDA-event times (warm, L2 flushed by a read, median of 25),
+             the bound
              at 3.35 TB/s or 989 TFLOP/s bf16 (W8: 1,979 TOP/s int8;
              attention: over the positions this run's inputs make
              visible; the grouped qmatmul: its routed rows, padding left
@@ -43,7 +47,8 @@ Phases, each printing one JSON line:
   full_width llama-8b (32 layers): prefill_step over 512 tokens on the
              kernels, and against the same prefill with flash-prefill
              sent to its twin; one decode step on the kernels against
-             the same step through the plain twins on the card;
+             the same step through the plain twins on the card, the step
+             on the kernels under torch.cuda.set_sync_debug_mode("error");
              decode_scan for 64 tokens (argmax head);
              InferenceEngine.generate for the same 64 tokens (logits
              head). The two token streams must agree. The launch counts
@@ -62,7 +67,9 @@ Phases, each printing one JSON line:
              "model+self:4" with serve_full_width's traffic (the paged
              verify through the state mode); one paged verify through the
              deferred route against the inline one (logits, committed
-             K/V). Acceptance is reported, not held (random weights)
+             K/V), and an 8-slot paged decode forward and that deferred
+             verify under set_sync_debug_mode("error"). Acceptance is
+             reported, not held (random weights)
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route),
@@ -85,7 +92,9 @@ Phases, each printing one JSON line:
              (core/quant.py's requantize_w8 on the card), held end to
              end as full_width is: the prefill and the decode step
              against the twins within LOGIT_REL
-Then the kernels line (launch counts from each kernel's own path: the
+Then a summary line (decode tok/s of full_width, generated tok/s of
+serve_full_width, spec_full_width's tok/s), the kernels line (launch
+counts from each kernel's own path: the
 llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
 grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
@@ -143,17 +152,19 @@ def bound_ms(nbytes: float, flops: float,
 
 class Timer:
     """CUDA-event time of one call, warm, with the L2 cache flushed and
-    the GPU kept busy while the host enqueues the call."""
+    the GPU kept busy while the host enqueues the call. The flush reads
+    256 MB, so the L2 holds clean lines: a flush by writing would leave
+    ~50 MB of dirty lines whose write-back falls into the timed call."""
 
     def __init__(self, dev: torch.device):
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        self.flush = torch.ones(64 << 20, dtype=torch.float32, device=dev)
 
     def __call__(self, fn, reps: int = 25) -> float:
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.flush.sum()
             torch.cuda._sleep(50_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -228,26 +239,35 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         return kq, ks, vq, vs
 
     # -- qmatmul: Q4_K (bf16 scales + mins, packed) at the four 8B
-    #    projection shapes, decode and prefill M; Q4_0 and Q8_0 at one
-    #    shape each. Tolerance: f32 sums in another order.
+    #    projection shapes, at the decode GEMV's M (1: run, 5: a chain
+    #    verify of k = 4, 8: a serving tick, 16) and prefill's 512; Q4_0 and
+    #    Q8_0 at 4096 -> 4096 and the GEMV's M. Tolerance: f32 sums in
+    #    another order; the GEMV also gives the same bits twice.
     qmm_rows = []
-    cases = [("q4_k", m, k, n) for m in (1, 512)
+    gemv_m = (1, 5, 8, 16)
+    cases = [("q4_k", k, n, gemv_m + (512,))
              for k, n in ((4096, 6144), (4096, 4096), (4096, 28672),
                           (14336, 4096))]
-    cases += [("q4_0", 1, 4096, 4096), ("q8_0", 1, 4096, 4096)]
-    for quant, m, k, n in cases:
+    cases += [("q4_0", 4096, 4096, gemv_m), ("q8_0", 4096, 4096, gemv_m)]
+    for quant, k, n, ms_ in cases:
         lin = _rand_qlinear(g, k, n, quant, dev)
-        x = randn(m, k, dtype=torch.bfloat16)
-        ref = qmatmul_reference(x, lin)
-        err = check(f"qmatmul {quant} {m}x{k}x{n}", qmatmul_cuda(x, lin),
-                    ref, 1e-4)
-        ms = timer(lambda: qmatmul_cuda(x, lin))
-        plain = timer(lambda: qmatmul_reference(x, lin), reps=20)
-        b, by = bound_ms(nbytes(x) + lin.nbytes() + m * n * 4,
-                         2.0 * m * n * k)
-        qmm_rows.append(dict(quant=quant, m=m, k=k, n=n, max_abs_err=err,
-                             ms=ms, plain_ms=plain, bound_ms=b, bound_by=by))
-        del lin, x, ref
+        for m in ms_:
+            x = randn(m, k, dtype=torch.bfloat16)
+            ref = qmatmul_reference(x, lin)
+            got = qmatmul_cuda(x, lin)
+            err = check(f"qmatmul {quant} {m}x{k}x{n}", got, ref, 1e-4)
+            if m <= 16 and not torch.equal(got, qmatmul_cuda(x, lin)):
+                raise AssertionError(f"qmatmul {quant} {m}x{k}x{n}: two runs "
+                                     f"gave different bits")
+            ms = timer(lambda: qmatmul_cuda(x, lin))
+            plain = timer(lambda: qmatmul_reference(x, lin), reps=20)
+            moved = nbytes(x) + lin.nbytes() + m * n * 4
+            b, by = bound_ms(moved, 2.0 * m * n * k)
+            qmm_rows.append(dict(quant=quant, m=m, k=k, n=n, max_abs_err=err,
+                                 ms=ms, plain_ms=plain, bound_ms=b,
+                                 bound_by=by, gb_s=moved / ms / 1e6))
+            del x, ref, got
+        del lin
     # a loader-style weight: f32 scales, unpacked int8
     lin = _rand_qlinear(g, 4096, 4096, "q8_0", dev)
     lin.scales = lin.scales.float()
@@ -990,8 +1010,11 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
         prefill_into_fresh_cache)
     if cuda_lib.launch_counts()["flash_prefill"]:
         raise AssertionError("the twin prefill launched the kernel")
+    # the decode step reads nothing back to the host: fixed-shape KV writes
+    sync_free = without_sync(f"{phase} decode step", lambda: step({}))
     pairs = {"prefill_logit_gap": (logits, logits_twin),
-             "decode_step_logit_gap": (step({}), step(plain_routes()))}
+             "decode_step_logit_gap": (sync_free, step(plain_routes()))}
+    checks["decode_step_sync_free"] = True
     for key, (got, ref) in pairs.items():
         checks[key] = (near_tie_agree(f"{phase} {key}", got, ref)
                        if hold_end_to_end else logit_gap(got, ref))
@@ -1027,20 +1050,27 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
              "card": card_line()}, counted.launches["generate"])
 
 
+def without_sync(label: str, fn):
+    """fn() under torch.cuda.set_sync_debug_mode("error"): any host read
+    of device memory or other synchronization raises, and fails the
+    phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{label} synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def moe_ffn_without_sync(label: str, layer, h: torch.Tensor,
                          k: int) -> tuple:
     """One MoE FFN under torch.cuda.set_sync_debug_mode("error"): a host
     read of the routed ids raises. Returns its (route, block_m)."""
     from powerserve_tpu_torch.models.llama import moe_route
 
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = layer.moe_ffn(h, k)
-    except RuntimeError as e:
-        raise AssertionError(f"{label}: the MoE FFN synchronized: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    out = without_sync(f"{label}: the MoE FFN", lambda: layer.moe_ffn(h, k))
     if out.shape != (h.shape[0], h.shape[1]) or not torch.isfinite(out).all():
         raise AssertionError(f"{label}: MoE FFN out {tuple(out.shape)}")
     return moe_route(h.shape[0])
@@ -1333,9 +1363,22 @@ SERVE_CHAT = [{"role": "user", "content": "hi"}]
 def serve_run(ws, hp, device: str, model: str = "model") -> dict:
     """Serve the workspace on `device` over HTTP: four concurrent greedy
     completions, a streamed and a plain chat completion, all at once, to
-    the model name `model`."""
+    the model name `model`. The scheduler admits nothing until all six
+    are queued (or 10 s passed), so they contend for the slots and the
+    pool the same way on every run: otherwise the first requests may run
+    alone, and a small pool preempts or not by thread timing."""
+    from unittest import mock
+
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.serving.server import ServerContext
+
+    admit = BatchScheduler._admit
+    deadline = time.monotonic() + 10.0
+
+    def admit_all_at_once(sched):
+        if sched.pending.qsize() >= 6 or time.monotonic() > deadline:
+            admit(sched)
 
     ctx = ServerContext(ws, "model", hp, device)
     server = serving(ctx)
@@ -1350,8 +1393,10 @@ def serve_run(ws, hp, device: str, model: str = "model") -> dict:
                                            "max_tokens": 16,
                                            "temperature": 0, "stream": st})
                   for st in (True, False)]
-        with ServeRecorder() as rec:
+        with ServeRecorder() as rec, mock.patch.object(
+                BatchScheduler, "_admit", admit_all_at_once):
             cuda_lib.reset_launch_counts()
+            deadline = time.monotonic() + 10.0
             replies = concurrently(calls)
             if device == "cuda":
                 torch.cuda.synchronize()
@@ -1785,9 +1830,16 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
             c.k, c.v, c.k_scale, c.v_scale, c.page_table, c.mask, c.pos)),
             page)
 
-    a, b_ = clone(kv), clone(kv)
+    a, b_, c_ = clone(kv), clone(kv), clone(kv)
     del kv
     vt = torch.randint(3, llm.vocab_size, (S, Tq), generator=g).to(dev)
+    # one 8-slot paged decode forward reads nothing back to the host
+    nxt = without_sync("spec_full_width 8-slot paged decode forward",
+                       lambda: model(c_, vt[:, :1], c_.pos.long()[:, None],
+                                     logits_mode="argmax"))
+    if nxt.shape != (S,) or not ((nxt >= 0) & (nxt < llm.vocab_size)).all():
+        raise AssertionError(f"paged decode forward tokens {nxt.tolist()}")
+    del c_
     vpos = a.pos.long()[:, None] + torch.arange(Tq, device=dev)[None]
     inline = model(a, vt, vpos, logits_mode="all")
     blocks = []
@@ -1800,8 +1852,11 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
     with mock.patch.object(PagedKVCache, "commit", keep):
         deferred, _ = counted("deferred verify",
                               ("flash_decode_paged_state",),
-                              lambda: model(b_, vt, vpos, logits_mode="all",
-                                            kv_update="deferred"))
+                              lambda: without_sync(
+                                  "spec_full_width deferred paged verify",
+                                  lambda: model(b_, vt, vpos,
+                                                logits_mode="all",
+                                                kv_update="deferred")))
     gap = near_tie_agree("spec_full_width deferred verify", deferred, inline)
     for name in ("k", "v", "k_scale", "v_scale"):
         if not torch.equal(getattr(a, name)[0], getattr(b_, name)[0]):
@@ -1823,6 +1878,7 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
                     pages, :, offs]).sum())
     out["deferred_verify"] = dict(
         slots=S, rows=Tq, committed=lens, logit_gap=gap,
+        paged_decode_and_verify_sync_free=True,
         int8_codes_differing_from_inline=codes_differ,
         layers=len(blocks))
     del a, b_, inline, deferred, blocks
@@ -1904,6 +1960,15 @@ def main() -> int:
            "flash_decode_paged_state": spec_counts["serve"]}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
+    emit({"phase": "summary", "card": card,
+          "full_width_decode_tok_s": full["decode_tok_s"],
+          "full_width_generate_decode_tok_s": full["generate_decode_tok_s"],
+          "serve_full_width_generated_tok_s": serve["generated_tok_s"],
+          "spec_full_width_plain_decode_tok_s": spec["plain_decode_tok_s"],
+          "spec_full_width_self_draft_4_tok_s":
+              spec["self_draft_4"]["decode_tok_s"],
+          "spec_full_width_serve_generated_tok_s":
+              spec["serve"]["generated_tok_s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -121,9 +121,9 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         L = ctypes.CDLL(str(build()))
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L.ps_qmatmul.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+        L.ps_qmatmul.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, P]
         L.ps_qmatmul.restype = I
-        L.ps_qmatmul_grouped.argtypes = [P] * 7 + [I] * 10 + [P]
+        L.ps_qmatmul_grouped.argtypes = [P] * 6 + [I] * 9 + [P]
         L.ps_qmatmul_grouped.restype = I
         L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 4 + [P]
         L.ps_qmatmul_w8.restype = I

@@ -302,8 +302,7 @@ def flash_decode_paged_deferred(q: torch.Tensor, k_pool: torch.Tensor,
     qg = q.reshape(S, Tq, Hkv, G, D).to(torch.bfloat16).float()
     sn = torch.einsum("sqhgd,shkd->shgqk", qg, knew_q.float())
     sn = sn * (knew_s[:, :, None, None, :] * scale)
-    sn = torch.where(intra_vis[:, None, None], sn,
-                     torch.tensor(NEG_INF, device=q.device))
+    sn = torch.where(intra_vis[:, None, None], sn, NEG_INF)
     m2 = sn.amax(dim=-1)  # [S, Hkv, G, Tq]
     p2 = torch.exp(sn - m2[..., None])
     p2 = torch.where(sn > NEG_INF / 2, p2, 0.0)

@@ -48,7 +48,7 @@ from ..core.quant import (MXU_GROUP, QK, QuantizedTensor, choose_pack_group,
                           pack_nib4, requantize_w8)
 from . import cuda_lib
 
-# decode-sized rows take the split-K GEMV; larger M the tiled kernel
+# decode-sized rows take the GEMV; larger M the tiled kernel
 GEMV_MAX_M = 16
 # the grouped kernel's tensor-core M tile (block_m above GEMV_MAX_M)
 GROUPED_MMA_M = 128
@@ -261,15 +261,13 @@ def weight_args(lin: QLinear, device: torch.device,
             offset, int(lin.scales.dtype == torch.bfloat16))
 
 
-def gemv_splits(m: int, k: int, n: int, device: torch.device,
-                tiles: int = 1, depth: int = QK) -> int:
-    """K splits for the decode GEMV: about four blocks per SM, each split
-    at least eight `depth`-deep blocks (one per warp of a block)."""
+def w8_splits(m: int, k: int, n: int, device: torch.device) -> int:
+    """K splits for the W8 GEMV: about four blocks per SM, each split at
+    least eight 128-deep blocks (one per warp of a block)."""
     if m > GEMV_MAX_M:
         return 1
-    col_tiles = -(-n // 128) * tiles
-    want = -(-4 * cuda_lib.sm_count(device) // col_tiles)
-    return max(1, min(want, (k // depth) // 8))
+    want = -(-4 * cuda_lib.sm_count(device) // -(-n // 128))
+    return max(1, min(want, (k // MXU_GROUP) // 8))
 
 
 def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
@@ -286,14 +284,10 @@ def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    splits = gemv_splits(m, k, n, dev)
-    part = (torch.empty(splits, m, n, dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    L = cuda_lib.lib()
-    rc = L.ps_qmatmul(xb.data_ptr(), q.data_ptr(), s.data_ptr(),
-                      cuda_lib.ptr(b), out.data_ptr(), cuda_lib.ptr(part),
-                      m, k, n, packed, group, offset, sbf16, splits,
-                      cuda_lib.stream(dev))
+    rc = cuda_lib.lib().ps_qmatmul(
+        xb.data_ptr(), q.data_ptr(), s.data_ptr(), cuda_lib.ptr(b),
+        out.data_ptr(), m, k, n, packed, group, offset, sbf16,
+        cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["qmatmul"] += 1
     cuda_lib.check(rc, "qmatmul")
     return out
@@ -331,7 +325,7 @@ def qmatmul_w8_launch(x8: torch.Tensor, sx: torch.Tensor,
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    splits = gemv_splits(m, k, n, dev, depth=MXU_GROUP)
+    splits = w8_splits(m, k, n, dev)
     part = (torch.empty(splits, m, n, dtype=torch.float32, device=dev)
             if splits > 1 else None)
     rc = cuda_lib.lib().ps_qmatmul_w8(
@@ -369,14 +363,10 @@ def qmatmul_grouped_cuda(x: torch.Tensor, lin: QLinear,
     out = torch.empty(p, n, dtype=torch.float32, device=dev)
     if p == 0:
         return out
-    splits = gemv_splits(block_m, k, n, dev, tiles=tiles)
-    part = (torch.empty(splits, p, n, dtype=torch.float32, device=dev)
-            if splits > 1 else None)
     rc = cuda_lib.lib().ps_qmatmul_grouped(
         xb.data_ptr(), q.data_ptr(), s.data_ptr(), cuda_lib.ptr(b),
-        ids.data_ptr(), out.data_ptr(), cuda_lib.ptr(part), p, k, n, packed,
-        group, offset, sbf16, lin.n_slabs, block_m, splits,
-        cuda_lib.stream(dev))
+        ids.data_ptr(), out.data_ptr(), p, k, n, packed, group, offset,
+        sbf16, lin.n_slabs, block_m, cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["qmatmul_grouped"] += 1
     cuda_lib.check(rc, "qmatmul_grouped")
     return out

@@ -68,11 +68,14 @@ QMM_CASES = [
     (GGMLType.Q8_0, 512, 384, False), (GGMLType.Q4_0, 96, 130, False),
     (GGMLType.Q4_K, 256, 202, False), (GGMLType.Q8_0, 64, 1, False),
     (GGMLType.Q4_K, 1024, 640, True), (GGMLType.Q4_0, 896, 136, True),
+    # N a multiple of 16 (the GEMV's 16-byte copies) but not of its
+    # 128-column tile
+    (GGMLType.Q4_K, 2048, 1104, True), (GGMLType.Q8_0, 512, 528, False),
 ]
 
 
 @pytest.mark.parametrize("fmt,k,n,pack", QMM_CASES)
-@pytest.mark.parametrize("m", [1, 3, 16, 17, 70])
+@pytest.mark.parametrize("m", [1, 3, 5, 8, 16, 17, 70])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_qmatmul_kernel(dev, fmt, k, n, pack, m, bf16):
     lin = _lin(fmt, k, n, pack, seed=k + n, bf16=bf16).to(dev)
@@ -82,6 +85,84 @@ def test_qmatmul_kernel(dev, fmt, k, n, pack, m, bf16):
     before = cuda_lib.launch_counts()["qmatmul"]
     _close(qmatmul_cuda(x, lin), qmatmul_reference(x, lin))
     assert cuda_lib.launch_counts()["qmatmul"] == before + 1
+
+
+@pytest.mark.parametrize("fmt,k,n,pack", [
+    (GGMLType.Q4_K, 4096, 4096, True), (GGMLType.Q8_0, 4096, 1024, False),
+    (GGMLType.Q4_0, 14336, 512, True)])
+@pytest.mark.parametrize("m", [1, 5, 8, 16])
+def test_qmatmul_gemv_same_bits_every_run(dev, fmt, k, n, pack, m):
+    """The GEMV's K splits add up in a fixed order inside one launch: two
+    runs on the same inputs give the same bits, and one launch per
+    product."""
+    lin = _lin(fmt, k, n, pack, seed=m, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    x = torch.randn(m, k, generator=g, device=dev)
+    before = cuda_lib.launch_counts()["qmatmul"]
+    a, b = qmatmul_cuda(x, lin), qmatmul_cuda(x, lin)
+    assert cuda_lib.launch_counts()["qmatmul"] == before + 2
+    assert torch.equal(a, b)
+    _close(a, qmatmul_reference(x, lin))
+
+
+def _sync_free(fn):
+    """fn() with every host-device synchronization an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_forward_reads_nothing_back(dev, tmp_path, paged):
+    """A decode forward (dense, one slot; or the paged pool, 8 slots, one
+    inactive, then a deferred verify of 3 rows) issues no host sync, and
+    stores what the same forwards on the cpu store."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    ws = make_synthetic_gguf(tmp_path, "tiny-k", GGMLType.Q4_K, seed=0,
+                             seq_len=64)
+    S = 8 if paged else 1
+    outs = []
+    for device in ("cpu", dev):
+        cfg, model = load_gguf_model(ws / "model", device=device)
+        llm = cfg.llm
+        shape = (llm.n_layers, S, 64, llm.n_kv_heads, llm.head_size, device)
+        if paged:
+            kv = PagedKVCache.create(*shape, n_pages=40, page_size=8)
+            pool = PagePool(40, S, kv.max_pages, 8)
+            for s_ in range(S - 1):
+                assert pool.ensure(s_, 20)
+            pool.flush(kv)
+        else:
+            kv = KVCache.create(*shape)
+        toks = (torch.arange(S * 12, device=device).reshape(S, 12) % 200 + 5)
+        pos = torch.arange(12, device=device).expand(S, 12).clone()
+        model(kv, toks, pos, logits_mode="none")
+        active = torch.ones(S, dtype=torch.bool, device=device)
+        active[-1] = not paged
+        dpos = torch.where(active, kv.pos.long(), -1)[:, None]
+        step = lambda: model(kv, toks[:, :1], dpos, active=active,  # noqa
+                             logits_mode="argmax")
+        tok = _sync_free(step) if device != "cpu" else step()
+        if paged:  # and a deferred verify of 3 rows, as speculation runs it
+            vpos = torch.where(active[:, None], kv.pos.long()[:, None]
+                               + torch.arange(3, device=device), -1)
+            verify = lambda: model(kv, toks[:, :3], vpos, active=active,  # noqa
+                                   logits_mode="argmax_all",
+                                   kv_update="deferred")
+            _sync_free(verify) if device != "cpu" else verify()
+        outs.append([t.cpu() for t in (tok, kv.k, kv.v, kv.pos, kv.mask)])
+    (t0, k0, v0, p0, m0), (t1, k1, v1, p1, m1) = outs
+    assert torch.equal(p0, p1) and torch.equal(m0, m1)
+    assert (k0.int() - k1.int()).abs().max() <= 1
+    assert (v0.int() - v1.int()).abs().max() <= 1
 
 
 @pytest.mark.parametrize("fmt,k,n,pack", [
