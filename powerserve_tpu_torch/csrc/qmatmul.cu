@@ -410,7 +410,7 @@ struct UnitLoader {
 // + 8 rb.
 template <int MT, bool PACKED, bool SBF16>
 __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
-                                          int M, int lane,
+                                          const uint8_t* zero, int M, int lane,
                                           float (&acc)[2][2][4]) {
   constexpr int RB = MT > 8 ? 2 : 1;
   const int g = lane >> 2, t4 = lane & 3;
@@ -423,7 +423,7 @@ __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
                             0x3F803F80u};
 #pragma unroll
   for (int h = 0; h < (PACKED ? 2 : 1); ++h) {
-    // rows M .. MT - 1 of x hold zeros (set once by the kernel)
+    // lanes of rows M .. MT - 1 read a row of zeros
     const uint8_t* xs = st + kTileBytes + kScaleBytes + h * MT * kXPitch;
     uint32_t xb[RB][2][2];  // B fragments: [row block][k16 step]
 #pragma unroll
@@ -433,7 +433,8 @@ __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           xb[rb][s][r] = *reinterpret_cast<const uint32_t*>(
-              xs + (g + 8 * rb) * kXPitch + (16 * s + 8 * r + 2 * t4) * 2);
+              (g + 8 * rb < M ? xs + (g + 8 * rb) * kXPitch : zero) +
+              (16 * s + 8 * r + 2 * t4) * 2);
     float c[2][RB][4], xsum[RB][4] = {};
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -513,7 +514,7 @@ __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
 
 // M rows per tile (grid z), out [tiles * M, N]; gridDim.y K splits, one
 // cluster per column tile and tile when gridDim.y > 1. Dynamic shared
-// memory: a ring of kStages stages per warp.
+// memory: a ring of kStages stages and 64 bytes of zeros per warp.
 template <int MT, bool PACKED, bool SBF16>
 __global__ __launch_bounds__(32 * kWarps, MT > 8 ? 2 : 4) void
 qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
@@ -531,7 +532,8 @@ qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
   const int u0 = (int)((long)blockIdx.y * units / splits);
   const int u1 = (int)((long)(blockIdx.y + 1) * units / splits);
   constexpr int sb = stage_bytes(PACKED ? 2 : 1, MT);
-  uint8_t* ring = smem + warp * kStages * sb;
+  uint8_t* ring = smem + warp * (kStages * sb + 64);
+  uint8_t* zero = ring + kStages * sb;  // x rows past M read these zeros
 
   float acc[2][2][4];
 #pragma unroll
@@ -541,12 +543,7 @@ qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[cg][rb][i] = 0.f;
 
-  // x rows M .. MT - 1 of every stage stay zero: no copy writes them
-  for (int st = 0; st < kStages; ++st)
-    for (int r = M; r < (PACKED ? 2 : 1) * MT; ++r)
-      if (r % MT >= M && lane < 16)
-        reinterpret_cast<uint32_t*>(ring + st * sb + kTileBytes + kScaleBytes +
-                                    r * kXPitch)[lane] = 0u;
+  if (lane < 16) reinterpret_cast<uint32_t*>(zero)[lane] = 0u;
   UnitLoader<MT, PACKED, SBF16> ld(w, x, M, u0, wc, lane);  // the next unit
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -570,7 +567,7 @@ qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
         ld.next();
       }
       cp_async_commit();
-      gemv_unit<MT, PACKED, SBF16>(w, ring + s * sb, M, lane, acc);
+      gemv_unit<MT, PACKED, SBF16>(w, ring + s * sb, zero, M, lane, acc);
       __syncwarp();
     }
   }
@@ -632,7 +629,8 @@ cudaError_t launch_gemv_t(const QWeight& w, const Slabs& sl,
                           const __nv_bfloat16* x, int M, int tiles, float* out,
                           int vec, cudaStream_t stream) {
   const auto kernel = qmm_gemv_kernel<MT, PACKED, SBF16>;
-  constexpr int smem = kWarps * kStages * stage_bytes(PACKED ? 2 : 1, MT);
+  constexpr int smem =
+      kWarps * (kStages * stage_bytes(PACKED ? 2 : 1, MT) + 64);
   static const cudaError_t attr_rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr_rc != cudaSuccess) return attr_rc;
