@@ -9,7 +9,7 @@ Phases, each printing one JSON line:
              projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
              4096 -> 4096 and M <= 16, with the GB/s reached; every GEMV
              case twice, bit for bit): max error against its tolerance,
-             CUDA-event times (warm, L2 flushed by a read, median of 25),
+             CUDA-event times (warm, L2 flushed by a write, median of 25),
              the bound
              at 3.35 TB/s or 989 TFLOP/s bf16 (W8: 1,979 TOP/s int8;
              attention: over the positions this run's inputs make
@@ -104,6 +104,11 @@ nvidia-smi line and, last, {"ok": true, "device": ...}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 
 Usage: python3 chip_smoke.py
+       python3 chip_smoke.py --kernels [--read-flush]
+The second form runs the build and kernels phases only (the L2 flushed
+by reading 256 MB with --read-flush) and prints the card's line last.
+Copied into an unpacked archive of another commit and run there, it
+times that commit's kernels at the same cases.
 """
 
 from __future__ import annotations
@@ -152,19 +157,24 @@ def bound_ms(nbytes: float, flops: float,
 
 class Timer:
     """CUDA-event time of one call, warm, with the L2 cache flushed and
-    the GPU kept busy while the host enqueues the call. The flush reads
-    256 MB, so the L2 holds clean lines: a flush by writing would leave
-    ~50 MB of dirty lines whose write-back falls into the timed call."""
+    the GPU kept busy while the host enqueues the call. The flush writes
+    256 MB; with read_flush it reads them instead, so the L2 holds clean
+    lines and no write-back of the flush's dirty ones falls into the
+    timed call."""
 
-    def __init__(self, dev: torch.device):
-        self.flush = torch.ones(64 << 20, dtype=torch.float32, device=dev)
+    def __init__(self, dev: torch.device, read_flush: bool = False):
+        self.flush = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+        self.read_flush = read_flush
 
     def __call__(self, fn, reps: int = 25) -> float:
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(reps):
-            self.flush.sum()
+            if self.read_flush:
+                self.flush.view(torch.float32).sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(50_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -180,7 +190,7 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_kernels(dev: torch.device) -> list[dict]:
+def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     from powerserve_tpu_torch.ops.flash_decode import (
         flash_decode_cuda, flash_decode_paged_cuda,
         flash_decode_paged_reference, flash_decode_quant_reference,
@@ -198,7 +208,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         qmatmul_w8_reference, quantize_activations)
     from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
 
-    timer = Timer(dev)
+    timer = Timer(dev, read_flush)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
@@ -609,7 +619,8 @@ def phase_kernels(dev: torch.device) -> list[dict]:
             vis | ~seen[:, None, None]))
     del q, kp, vp, o, ro
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "qmatmul": qmm_rows, "fused_head": head_rows,
+    emit({"phase": "kernels", "flush": "read" if read_flush else "write",
+          "qmatmul": qmm_rows, "fused_head": head_rows,
           "flash_decode": fd_rows, "flash_prefill": fp_rows,
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
           "qmatmul_w8": w8_rows, "fused_linear": fl_rows,
@@ -981,8 +992,7 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
     # one decode step on the kernels, and the same step with the forward's
     # kernel calls sent to their plain twins, on copies of the cache
     def step(routes: dict) -> torch.Tensor:
-        c = KVCache(*(t.clone() for t in (kv.k, kv.v, kv.k_scale,
-                                           kv.v_scale, kv.mask, kv.pos)))
+        c = kv.clone()
         return step_on(routes, lambda: model(
             c, first[:, None], kv.pos.long()[:, None], logits_mode="last")[0])
 
@@ -1107,8 +1117,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
         """One decode step on the kernels (counted) and through the plain
         twins, on copies of the cache."""
         def run(r):
-            c = KVCache(*(t.clone() for t in (kv.k, kv.v, kv.k_scale,
-                                               kv.v_scale, kv.mask, kv.pos)))
+            c = kv.clone()
             return step_on(r, lambda: model(c, nxt, kv.pos.long()[:, None],
                                             logits_mode="last"))
         got, _ = counted(path, need, lambda: run({}))
@@ -1825,12 +1834,7 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
         model(kv, toks[:, c0:c0 + 512], pos[:, c0:c0 + 512],
               logits_mode="none")
 
-    def clone(c):
-        return PagedKVCache(*(t.clone() for t in (
-            c.k, c.v, c.k_scale, c.v_scale, c.page_table, c.mask, c.pos)),
-            page)
-
-    a, b_, c_ = clone(kv), clone(kv), clone(kv)
+    a, b_, c_ = kv.clone(), kv.clone(), kv.clone()
     del kv
     vt = torch.randint(3, llm.vocab_size, (S, Tq), generator=g).to(dev)
     # one 8-slot paged decode forward reads nothing back to the host
@@ -1906,6 +1910,10 @@ def main() -> int:
           "dir": cuda_lib.BUILD_INFO.get("dir"), "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas})
+    if "--kernels" in sys.argv[1:]:
+        phase_kernels(dev, read_flush="--read-flush" in sys.argv[1:])
+        print(card, flush=True)
+        return 0
     kernels = phase_kernels(dev)
     emit(phase_cli())
     emit(phase_serve())

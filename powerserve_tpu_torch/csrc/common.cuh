@@ -123,14 +123,3 @@ __device__ __forceinline__ void gemv_block_at(const QWeight& w, int kb, int n0,
     }
   }
 }
-
-// The same over rows x[m, k] of a bf16 [M, *] matrix with row stride
-// x_stride.
-template <int MT>
-__device__ __forceinline__ void gemv_block(const QWeight& w, int kb, int n0,
-                                           bool vec,
-                                           const __nv_bfloat16* x,
-                                           long x_stride, int M,
-                                           float (&acc)[MT][4]) {
-  gemv_block_at<MT>(w, kb, n0, vec, x + kb * 32, x_stride, M, acc);
-}

@@ -25,37 +25,36 @@ model's forward and the scheduler take either cache.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.device import resolve_device
 
 
-def spare_rows(t: torch.Tensor, row: int) -> torch.Tensor:
-    """A copy of t in a flat storage of rows of `row` elements with one
-    spare row at the end: [n + 1, row], or [n + 1] for row == 1. t's copy
-    is the view of the first n rows."""
-    n = t.numel() // row
-    flat = torch.zeros((n + 1, row) if row > 1 else (n + 1,), dtype=t.dtype,
-                       device=t.device)
-    flat[:n].view(t.shape).copy_(t)
-    return flat
+def new_storage(shape: tuple, dev: torch.device) -> list[torch.Tensor]:
+    """Zeroed flat storages of k, k_scale, v and v_scale for a cache of
+    shape [L, S(or P), Hkv, T, D]: rows of D int8 (k, v) or one f32 (the
+    scales), one spare row past the L·S·Hkv·T rows of the cache."""
+    n, D = math.prod(shape[:-1]), shape[-1]
+    kv = (n + 1, D)
+    return [torch.zeros(kv, dtype=torch.int8, device=dev),
+            torch.zeros(n + 1, dtype=torch.float32, device=dev),
+            torch.zeros(kv, dtype=torch.int8, device=dev),
+            torch.zeros(n + 1, dtype=torch.float32, device=dev)]
 
 
 class KVCache:
-    def __init__(self, k: torch.Tensor, v: torch.Tensor,
-                 k_scale: torch.Tensor, v_scale: torch.Tensor,
+    def __init__(self, storage: list[torch.Tensor], shape: tuple,
                  mask: torch.Tensor, pos: torch.Tensor):
-        """k/v [L, S(or P), Hkv, T, D] and the scales [L, S, Hkv, T] are
-        copied into storages with a spare row (write's target for dropped
-        lanes); self.k etc. are views of the rows before it."""
-        D = k.shape[-1]
-        # (flat storage, public view) of k, k_scale, v, v_scale: the order
-        # of write's blocks
-        self.storage = [spare_rows(t, r) for t, r in ((k, D), (k_scale, 1),
-                                                   (v, D), (v_scale, 1))]
+        """storage: the flat k, k_scale, v, v_scale storages of a cache of
+        shape [L, S(or P), Hkv, T, D] (new_storage); self.k etc. are
+        views of the rows before the spare one, so building a cache
+        copies nothing."""
+        self.storage = storage
         self.k, self.k_scale, self.v, self.v_scale = (
-            f[:-1].view(t.shape) for f, t in zip(
-                self.storage, (k, k_scale, v, v_scale)))
+            f[:-1].view(s) for f, s in zip(
+                storage, (shape, shape[:-1], shape, shape[:-1])))
         self.mask, self.pos = mask, pos
 
     @classmethod
@@ -64,12 +63,14 @@ class KVCache:
                device: str | torch.device | None = None) -> "KVCache":
         dev = resolve_device(device)
         shape = (n_layers, n_slots, n_kv_heads, max_seq, head_dim)
-        return cls(torch.zeros(shape, dtype=torch.int8, device=dev),
-                   torch.zeros(shape, dtype=torch.int8, device=dev),
-                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+        return cls(new_storage(shape, dev), shape,
                    torch.zeros(n_slots, max_seq, dtype=torch.bool, device=dev),
                    torch.zeros(n_slots, dtype=torch.int32, device=dev))
+
+    def clone(self) -> "KVCache":
+        """An independent copy: storages, mask and pos."""
+        return KVCache([f.clone() for f in self.storage], tuple(self.k.shape),
+                       self.mask.clone(), self.pos.clone())
 
     @property
     def n_layers(self) -> int:

@@ -31,15 +31,15 @@ import torch
 
 from ..core.device import resolve_device
 from ..ops.flash_decode import gather_pages
-from .cache import KVCache
+from .cache import KVCache, new_storage
 
 
 class PagedKVCache(KVCache):
-    def __init__(self, k: torch.Tensor, v: torch.Tensor,
-                 k_scale: torch.Tensor, v_scale: torch.Tensor,
+    def __init__(self, storage: list[torch.Tensor], shape: tuple,
                  page_table: torch.Tensor, mask: torch.Tensor,
                  pos: torch.Tensor, page_size: int):
-        super().__init__(k, v, k_scale, v_scale, mask, pos)
+        """storage and shape [L, P, Hkv, page, D] as the dense cache's."""
+        super().__init__(storage, shape, mask, pos)
         self.page_table = page_table
         self.page_size = page_size
 
@@ -54,16 +54,20 @@ class PagedKVCache(KVCache):
         dev = resolve_device(device)
         max_pages = -(-max_seq // page_size)
         shape = (n_layers, n_pages, n_kv_heads, page_size, head_dim)
-        return cls(torch.zeros(shape, dtype=torch.int8, device=dev),
-                   torch.zeros(shape, dtype=torch.int8, device=dev),
-                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
-                   torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+        return cls(new_storage(shape, dev), shape,
                    torch.full((n_slots, max_pages), n_pages,
                               dtype=torch.int32, device=dev),
                    torch.zeros(n_slots, max_pages * page_size,
                                dtype=torch.bool, device=dev),
                    torch.zeros(n_slots, dtype=torch.int32, device=dev),
                    page_size)
+
+    def clone(self) -> "PagedKVCache":
+        """An independent copy: storages, page table, mask and pos."""
+        return PagedKVCache([f.clone() for f in self.storage],
+                            tuple(self.k.shape), self.page_table.clone(),
+                            self.mask.clone(), self.pos.clone(),
+                            self.page_size)
 
     @property
     def n_pages(self) -> int:

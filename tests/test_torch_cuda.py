@@ -165,6 +165,32 @@ def test_decode_forward_reads_nothing_back(dev, tmp_path, paged):
     assert (v0.int() - v1.int()).abs().max() <= 1
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_cache_create_peak_memory_is_the_cache(dev, paged):
+    """Building a cache on the card holds one copy of it at its peak (the
+    flat storages with their spare rows, mask, pos, page table), not a
+    second one while views are made."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.kv.paged import PagedKVCache
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if paged:  # llama-8b's layout, 16 layers, 64 pages of 64
+        kv = PagedKVCache.create(16, 8, 2048, 8, 128, dev, n_pages=64,
+                                 page_size=64)
+        own = [kv.page_table]
+    else:
+        kv = KVCache.create(16, 2, 2048, 8, 128, dev)
+        own = []
+    own += [*kv.storage, kv.mask, kv.pos]
+    size = sum(t.numel() * t.element_size() for t in own)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the caching allocator may hand out up to 1 MiB more with a block;
+    # a second copy of the storages would add 67 MB
+    assert size <= peak <= size + (1 << 20) * len(own)
+
+
 @pytest.mark.parametrize("fmt,k,n,pack", [
     (GGMLType.Q4_K, 512, 1000, True), (GGMLType.Q8_0, 64, 256, False),
     (GGMLType.Q4_0, 256, 130, True), (GGMLType.Q4_K, 256, 384, False)])

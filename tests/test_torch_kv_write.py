@@ -170,3 +170,44 @@ def test_write_index_shape_depends_on_positions_shape_only(paged):
             dropped = dropped | (kv.locate(pos)[0] == P)
         assert torch.equal(index == spare,
                            dropped[None, :, :, None].expand_as(index))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_create_allocates_the_cache_once(paged, monkeypatch):
+    """create() allocates the flat storages (spare row included), the mask,
+    pos and page table once, and the public views lie on those storages:
+    no second copy of the cache, however briefly. clone() copies each once
+    into storages of its own."""
+    made = []
+    for name in ("zeros", "full", "empty", "ones"):
+        real = getattr(torch, name)
+
+        def factory(*a, _real=real, **kw):
+            made.append(_real(*a, **kw))
+            return made[-1]
+        monkeypatch.setattr(torch, name, factory)
+    if paged:
+        kv = PagedKVCache.create(L, S, T, HKV, D, "cpu", n_pages=P,
+                                 page_size=PAGE)
+        own = [kv.page_table]
+    else:
+        kv = KVCache.create(L, S, T, HKV, D, device="cpu")
+        own = []
+    monkeypatch.undo()
+    own += [*kv.storage, kv.mask, kv.pos]
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    assert nbytes(made) == nbytes(own)
+    rows = L * (P if paged else S) * HKV * (PAGE if paged else T)
+    assert [f.shape[0] for f in kv.storage] == [rows + 1] * 4
+    for f, t in zip(kv.storage, (kv.k, kv.k_scale, kv.v, kv.v_scale)):
+        assert t.untyped_storage().data_ptr() == f.untyped_storage().data_ptr()
+    c = kv.clone()
+    assert type(c) is type(kv)
+    for name in NAMES + (("page_table",) if paged else ()):
+        a, b = getattr(kv, name), getattr(c, name)
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    assert all(a.data_ptr() != b.data_ptr()
+               for a, b in zip(kv.storage, c.storage))

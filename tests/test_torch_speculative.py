@@ -193,10 +193,7 @@ def test_sample_scan_at_temperature_zero_is_greedy(ws):
     d1 = KVCache.create(1, S, SEQ, llm.n_kv_heads, llm.head_size, "cpu")
     draft(d1, torch.tensor([PROMPT] * S),
           torch.arange(len(PROMPT)).expand(S, -1), logits_mode="none")
-    t2 = KVCache(*(t.clone() for t in (t1.k, t1.v, t1.k_scale, t1.v_scale,
-                                       t1.mask, t1.pos)))
-    d2 = KVCache(*(t.clone() for t in (d1.k, d1.v, d1.k_scale, d1.v_scale,
-                                       d1.mask, d1.pos)))
+    t2, d2 = t1.clone(), d1.clone()
     toks, counts, r1 = chain_spec_scan(model, draft, t1, d1, root, n, k)
     ones = torch.ones(S)
     emitted, counts2, r2 = chain_spec_sample_scan(
@@ -300,10 +297,7 @@ def test_deferred_paged_verify_matches_inline(ws):
     pos[1, 14:] = -1
     model(kv, torch.arange(48).reshape(2, 24) % 200 + 3, pos,
           logits_mode="none")
-    clone = lambda c: PagedKVCache(  # noqa: E731
-        *(t.clone() for t in (c.k, c.v, c.k_scale, c.v_scale, c.page_table,
-                              c.mask, c.pos)), page)
-    a, b = clone(kv), clone(kv)
+    a, b = kv.clone(), kv.clone()
     toks = torch.tensor([[5, 6, 7, 8, 9], [10, 11, 12, 13, 14]])
     vpos = kv.pos.long()[:, None] + torch.arange(5)[None]
     inline = model(a, toks, vpos, logits_mode="all")
@@ -328,7 +322,7 @@ def test_deferred_paged_verify_matches_inline(ws):
     assert torch.equal(a.pos, b.pos) and torch.equal(a.mask, b.mask)
     for name in ("k", "v", "k_scale", "v_scale"):
         assert torch.equal(getattr(a, name)[0], getattr(b, name)[0]), name
-    c = clone(kv)
+    c = kv.clone()
     pages, offs = c.locate(vpos)
     s_idx, t_idx = (pages < c.n_pages).nonzero(as_tuple=True)
     pages, offs = pages[s_idx, t_idx], offs[s_idx, t_idx]
