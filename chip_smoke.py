@@ -4,8 +4,10 @@
 Phases, each printing one JSON line:
   build      compile csrc/*.cu with nvcc (one process per source), with
              the card's name and power limit
-  kernels    each kernel and its plain PyTorch twin on the card at the
-             llama-8b main-path shapes (qmatmul: Q4_K at the four
+  kernels    an empty hand-written kernel's launch (the floor of every
+             row, same timer); each kernel and its plain PyTorch twin on
+             the card at the llama-8b main-path shapes (qmatmul: Q4_K at
+             the four
              projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
              4096 -> 4096 and M <= 16, with the GB/s reached; every GEMV
              case twice, bit for bit): max error against its tolerance,
@@ -23,8 +25,10 @@ Phases, each printing one JSON line:
              fused linear's modes at llama-8b's draft shapes (x -> wo,
              norm(x + attn_out) -> gate|up, glu + 2 residuals -> down at
              K = 14336, norm + bias -> a qwen2.5-3b QKV, concat2, x +
-             argmax -> a factored head's V) and the state mode of paged
-             flash-decode (S = 8, Tq = 5, a slot that sees nothing)
+             argmax -> a factored head's V), each beside the plain GEMV on
+             its weight and rows (the fused head too: 4096 -> 128256), and
+             the state mode of paged flash-decode (S = 8, Tq = 5, a slot
+             that sees nothing)
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
              cpu plain path (tiny and tiny-k also with
@@ -191,8 +195,9 @@ def nbytes(*ts) -> int:
 
 
 def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
+    from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.ops.flash_decode import (
-        flash_decode_cuda, flash_decode_paged_cuda,
+        decode_visibility, flash_decode_cuda, flash_decode_paged_cuda,
         flash_decode_paged_reference, flash_decode_quant_reference,
         gather_pages)
     from powerserve_tpu_torch.ops.flash_prefill import (
@@ -200,7 +205,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                                 fused_linear_reference,
                                                 glu_rounding_slack,
-                                                norm_rounding_slack)
+                                                norm_rounding_slack,
+                                                prologue_reference)
     from powerserve_tpu_torch.ops.moe import group_dispatch
     from powerserve_tpu_torch.ops.qmatmul import (
         qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
@@ -211,6 +217,10 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     timer = Timer(dev, read_flush)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
+    # the floor of every row: one empty hand-written kernel, same timer
+    lib = cuda_lib.lib()
+    empty_ms = timer(lambda: cuda_lib.check(
+        lib.ps_empty_launch(cuda_lib.stream(dev)), "empty launch"))
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -303,19 +313,25 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             raise AssertionError(f"fused head argmax {tok.tolist()} is not "
                                  f"the first maximum of its logits")
         wbytes = nbytes(h, nw) + head.nbytes()
+        # the plain GEMV on the same weight and rows (the normalized x)
+        xh = prologue_reference("norm", [h], nw)
         for argmax in (False, True):
             ms = timer(lambda: fused_linear_cuda(head, "norm", [h], nw,
                                                  argmax=argmax))
+            gemv = timer(lambda: qmatmul_cuda(xh, head))
             plain = timer(lambda: fused_linear_reference(
                 head, norm=(h, nw), argmax=argmax), reps=20)
             out_b = m * 4 if argmax else m * 128256 * 4
             b, by = bound_ms(wbytes + out_b, 2.0 * m * 128256 * 4096)
             head_rows.append(dict(m=m, argmax=argmax, max_abs_err=err, ms=ms,
-                                  plain_ms=plain, bound_ms=b, bound_by=by))
+                                  gemv_ms=gemv, plain_ms=plain, bound_ms=b,
+                                  bound_by=by))
     del head
 
-    # -- flash decode: llama-8b heads, S = 1, T = 1024 all visible; and a
-    #    ragged T with partial, fully masked and Tq = 2 rows (correctness)
+    # -- flash decode: llama-8b heads, S = 1, T = 1024 all visible (1023
+    #    committed, the new row at 1023); and a ragged T with a partial
+    #    prefix, Tq = 2 rows and a slot whose rows see nothing
+    #    (correctness)
     fd_rows = []
     scale = 1.0 / 128 ** 0.5
     for S, Tq, T, ragged in ((1, 1, 1024, False), (2, 2, 1000, True)):
@@ -327,11 +343,16 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                            dtype=torch.int8)
         ks = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.02
         vs = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.02
-        vis = torch.ones(S, Tq, T, dtype=torch.bool, device=dev)
+        mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+        pos = torch.tensor([[T - Tq + j for j in range(Tq)]] * S,
+                           dtype=torch.int32, device=dev)
+        mask[:, :T - Tq] = True
         if ragged:
-            vis[0, 0, 700:] = False
-            vis[1, 1] = False  # a row that sees nothing
-        args = (q, kq, ks, vq, vs, vis, scale)
+            mask[0, 700:] = False
+            mask[1] = False  # slot 1's rows see nothing
+            pos[1] = torch.tensor([-1, T + 5])
+        vis = decode_visibility(mask, pos, Tq)
+        args = (q, kq, ks, vq, vs, mask, pos, scale)
         ref = flash_decode_quant_reference(*args)
         err = check(f"flash_decode S={S} Tq={Tq} T={T}",
                     flash_decode_cuda(*args), ref, 1e-4)
@@ -344,8 +365,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                   for c, sc in ((kq, ks), (vq, vs)))
         sdpa = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kd, vd, attn_mask=vis[:, None]))
-        b, by = bound_ms(nbytes(q, kq, vq, ks, vs, vis) + S * Tq * H * D * 4,
-                         4.0 * S * Tq * H * T * D)
+        b, by = bound_ms(nbytes(q, kq, vq, ks, vs, mask, pos)
+                         + S * Tq * H * D * 4, 4.0 * S * Tq * H * T * D)
         fd_rows.append(dict(S=S, Tq=Tq, T=T, max_abs_err=err, ms=ms,
                             plain_ms=plain, bound_ms=b, bound_by=by,
                             sdpa_bf16_dequantized_ms=sdpa))
@@ -426,17 +447,19 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             used += n
         q = randn(S, Tq, H, D)
         kp, ksp, vp, vsp = cache(P, Hkv, page, D)
-        vis = (torch.arange(T, device=dev)[None, None, :]
-               < torch.tensor(filled, device=dev)[:, None, None]
-               ).expand(S, Tq, T).contiguous()
-        args = (q, kp, ksp, vp, vsp, pt, vis, scale)
+        # the committed positions, and the new row at filled[s]
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.tensor(filled, device=dev)[:, None])
+        pos = torch.tensor(filled, dtype=torch.int32, device=dev)[:, None]
+        vis = decode_visibility(mask, pos, Tq)
+        args = (q, kp, ksp, vp, vsp, pt, mask, pos, scale)
         ref = flash_decode_paged_reference(*args)
         err = flips_check(f"flash_decode_paged page={page}",
                           flash_decode_paged_cuda(*args), ref, vsp)
         row = dict(page=page, S=S, Tq=Tq, T=T, filled=filled,
                    max_abs_err=err)
         if page == 64:
-            b, by = attn_bound(q, vis, Hkv, nbytes(vis, pt))
+            b, by = attn_bound(q, vis, Hkv, nbytes(mask, pos, pt))
             row.update(
                 ms=timer(lambda: flash_decode_paged_cuda(*args)),
                 plain_ms=timer(lambda: flash_decode_paged_reference(*args),
@@ -566,11 +589,13 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         b, by = bound_ms(nbytes(*ops, *resids) + lin.nbytes()
                          + (nbytes(bias) if has_bias else 0)
                          + (m * 4 if argmax else m * n * 4), 2.0 * m * n * k)
+        x = prologue_reference(pro, ops, nw)  # the plain GEMV's input
         fl_rows.append(dict(
             case=name, prologue=pro, m=m, k=k, n=n, quant=quant,
             argmax=argmax, max_abs_err=err,
             ms=timer(lambda: fused_linear_cuda(lin, pro, ops, nw, bias,
                                                resids, argmax)),
+            gemv_ms=timer(lambda: qmatmul_cuda(x, lin)),
             plain_ms=timer(lambda: fused_linear_reference(
                 lin, argmax=argmax, **kw), reps=5),
             bound_ms=b, bound_by=by))
@@ -594,10 +619,10 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         used += n_
     q = randn(S, Tq, H, D)
     kp, ksp, vp, vsp = cache(P, Hkv, page, D)
-    vis = (torch.arange(T, device=dev)[None, None, :]
-           < torch.tensor(filled, device=dev)[:, None, None]
-           ).expand(S, Tq, T).contiguous()
-    args = (q, kp, ksp, vp, vsp, pt, vis, scale)
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor(filled, device=dev)[:, None])
+    vis = decode_visibility(mask, None, Tq)
+    args = (q, kp, ksp, vp, vsp, pt, mask, None, scale)
     o, m_, l_ = flash_decode_paged_cuda(*args, state=True)
     ro, rm, rl = flash_decode_paged_reference(*args, state=True)
     seen = torch.tensor([f > 0 for f in filled], device=dev)
@@ -606,7 +631,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     check("flash_decode_paged state m", m_[seen], rm[seen], 1e-6)
     check("flash_decode_paged state l", l_[seen], rl[seen], 1e-4)
     err = flips_check("flash_decode_paged state o", o[seen], ro[seen], vsp)
-    b, by = attn_bound(q, vis, Hkv, nbytes(vis, pt) + nbytes(m_, l_))
+    b, by = attn_bound(q, vis, Hkv, nbytes(mask, pt) + nbytes(m_, l_))
     state_row = dict(
         S=S, Tq=Tq, T=T, page=page, filled=filled, max_abs_err=err,
         ms=timer(lambda: flash_decode_paged_cuda(*args, state=True)),
@@ -620,7 +645,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     del q, kp, vp, o, ro
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
-          "qmatmul": qmm_rows, "fused_head": head_rows,
+          "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
+          "fused_head": head_rows,
           "flash_decode": fd_rows, "flash_prefill": fp_rows,
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
           "qmatmul_w8": w8_rows, "fused_linear": fl_rows,

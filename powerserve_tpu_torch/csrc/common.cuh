@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
 // descriptor, the dequant of one 32-row scale block for four adjacent
-// output columns, and small numeric helpers.
+// output columns, the tensor-core and copy primitives (mma.sync
+// m16n8k16 bf16 -> f32, ldmatrix, cp.async) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
 //   q       packed: uint8 [K/2, N], nibbles in pack groups of G rows —
@@ -35,6 +36,95 @@ struct QWeight {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Bytes b and b + 2 of v as signed int8 values in two bf16 halves (exact).
+__device__ __forceinline__ uint32_t i8_pair(uint32_t v, int b) {
+  const float lo = (float)(int8_t)(v >> (8 * b));
+  const float hi = (float)(int8_t)(v >> (8 * b + 16));
+  return pack_bf16(lo, hi);
+}
+
+// Bytes 0 and 2 of v as signed int8 values in two bf16 halves, exactly,
+// without a conversion instruction: a byte h * 128 + m (m its low seven
+// bits) is m - 128 h; (0x4300 | m) is 128 + m and (0x4300 | h << 7) is
+// 128 (h = 0) or 256 (h = 1), so one bf16x2 subtraction gives the value.
+__device__ __forceinline__ uint32_t i8_even_bf16x2(uint32_t v) {
+  uint32_t a = (v & 0x007F007Fu) | 0x43004300u;
+  uint32_t b = (v & 0x00800080u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
+                             *reinterpret_cast<__nv_bfloat162*>(&b));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b (no accumulator input)
+__device__ __forceinline__ void mma_16816_zero(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// valid ? 16 bytes : zeros; the L2 fetches the 128-byte line around a
+// miss
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// valid ? 4 bytes : zeros
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// lanes 0-7 address the rows of the first matrix, 8-15 the second's
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
 }
 
 __device__ __forceinline__ float ld_scale(const void* p, long idx, int bf16) {

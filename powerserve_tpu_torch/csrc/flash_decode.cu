@@ -1,387 +1,749 @@
 // Decode attention over the int8 KV cache with per-token scales.
 //
-//   s[r, t] = (bf16(q[r]) . kq[t]) * (ks[t] * scale), or -1e30 where the
-//             visibility is false
-//   online softmax over t in chunks; p * vs[t] rounded to bf16 before
-//   the value product; out[r] = acc[r] / (l > 0 ? l : 1)
+//   s[r, t] = (bf16(q[r]) . kq[t]) * (ks[t] * scale), or -1e30 where
+//             row r does not see position t
+//   online softmax over t; p * vs[t] rounded to bf16 before the value
+//   product; out[r] = acc[r] / (l > 0 ? l : 1)
 //
 // q [S, Tq, H, D] f32; kq/vq int8 [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T];
-// visibility uint8 [S, Tq, T]; out f32 [S, Tq, H * D]. Query row
-// r = g * Tq + tq of kv head h is query head h * G + g (G = H / Hkv).
+// mask uint8 [S, T] (the cache's committed positions); positions int32
+// [S, Tq] (where the new rows were written) or null; out f32
+// [S, Tq, H * D]. Query row r = g * Tq + tq of kv head h is query head
+// h * G + g (G = H / Hkv). Row tq sees t when mask[s, t] is set or some
+// j <= tq has positions[s, j] == t (build_visibility with its causal
+// intra mask; -1 and positions >= T match nothing).
 //
 // Replaces the TPU kernel powerserve_tpu/ops/flash_decode.py::
-// flash_decode_quant (body _kernel). The TPU kernel folds all kv heads
-// into one grid instance with a block-diagonal head mask and walks the
-// T chunks as its sequential grid axis, keeping (m, l, acc) in VMEM
-// scratch.
+// flash_decode_quant (body _kernel), which folds all kv heads into one
+// grid instance with a block-diagonal head mask, walks the T chunks as
+// its sequential grid axis with (m, l, acc) in VMEM scratch, and takes
+// the visibility as an [S, Tq, T] operand built outside.
 //
 // What bounds it on an H100: cache bytes (2 * D int8 plus 8 bytes of
 // scales per visible token and kv head), ~0.6 us for S = 1, Hkv = 8,
-// T = 1024, D = 128 at 3.35 TB/s. The design is one block per (slot, kv
-// head, 256-token split of T) — flash-decoding: at S = 1 one block per
-// kv head would leave most SMs idle. Inside a block the TPU's sequential
-// chunk axis becomes a loop, the K and V chunks (64 tokens) are staged
-// in shared memory by cp.async two chunks deep (the next chunk's copy
-// overlaps this chunk's math), with a padded row pitch so the per-token
-// dot products of one warp hit distinct banks, and the online-softmax
-// state of the G * Tq query rows lives in shared memory. Scales fold into the scores and the
-// probabilities, so the cache is never dequantized in device memory.
-// A block first scans its visibility rows and, when every query row sees
-// at least one position, skips the chunks no row sees: such a chunk adds
-// exactly nothing (p = 0, or a state that the first visible score wipes
-// with alpha = 0), so the result is bit-for-bit the same and a short
-// sequence in a long cache costs its length, not the cache's.
-// Each split writes its unnormalized (m, l, acc); a second small kernel
-// merges the splits in order (weights exp(m_i - max m)) and normalizes.
-// Masked scores use the same finite -1e30 as the JAX reference, so a
-// row with no visible position averages V over the T positions instead
-// of dividing by zero.
+// T = 1024, D = 128 at 3.35 TB/s: a few MB, so latency and the launch
+// itself set the time. The design:
+//  - One launch. Grid (splits, Hkv, S); the T splits of one (slot, kv
+//    head) form a thread block cluster (up to 16 ranks, non-portable
+//    above 8) and merge their softmax states through distributed shared
+//    memory in rank order: the same bits on every run, and S = 1,
+//    T = 1024 runs 128 blocks.
+//  - The visibility is formed in the kernel: a block reads its slot's
+//    mask row once with 16-byte loads and the slot's Tq positions, and
+//    keeps one byte per token of its range: the first query row that
+//    sees it. Steps no row sees are skipped (a skipped step adds exactly
+//    nothing: p = 0, or a state the first visible score wipes with
+//    alpha = 0); in the normalized output, a slot with a row that sees
+//    nothing walks every step, so that row averages V over T as the
+//    JAX XLA reference does (the masked scores are a finite -1e30).
+//  - The block's range is cut into token groups of 16-token steps; a
+//    warp owns one 16-row tile of the G * Tq query rows and one token
+//    group, with its own online softmax. Scores and the value product
+//    run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out):
+//    q . K^T with q rows as A and the int8 K rows, exact in bf16, as B
+//    (the head dim permuted alike in both operands, so one 32-bit load
+//    of four K bytes feeds both B registers; a byte pair becomes bf16x2
+//    by two bit operations and one bf16x2 subtraction, not by the
+//    quarter-rate conversion instructions); P . V with P taken from the
+//    score fragments in registers (rounded to bf16 after the scale vs)
+//    and V through ldmatrix.trans on 16-bit column pairs: even columns
+//    feed one n tile and odd columns another (the GEMV's trick in
+//    csrc/qmatmul.cu). Head sizes pad to a multiple of 16 in shared
+//    memory.
+//  - K/V rows and their scales stream into shared memory by cp.async
+//    (16 bytes where rows allow), the block's steps up to three deep.
+// The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
+// the twin's; only the order of the f32 sums differs. The plain twin
+// (ops/flash_decode.py) walks the same 16-token steps over the same
+// per-warp token ranges, so the running maxima at each rounding match.
 //
 // Paged mode replaces powerserve_tpu/ops/flash_decode.py::
-// flash_decode_paged, both outputs. The same kernel body: only the address of a staged row changes, from
-// the slot's contiguous slab to pool page page_table[s, t / page], row
-// t % page, token by token, so a 64-token chunk may span several pages
-// (page = 8) or part of one (page = 128). Visibility stays in logical
-// coordinates; chunks no row sees are skipped before their page-table
-// entries are read, and an unallocated entry (= P) is clipped into the
-// pool, as the TPU kernel clips it, for the hidden positions that may
-// still be staged.
+// flash_decode_paged, both outputs. Only the address of a staged row
+// changes: logical position t of slot s is pool page page_table[s,
+// t / page], row t % page, token by token, so a step may span pages
+// (page = 8) or part of one (page = 128). An unallocated entry (= P) is
+// clipped into the pool, as the TPU kernel clips it, for hidden positions
+// that may still be staged.
 //
 // State mode (flash_decode_paged(..., state=True), the committed part of
-// flash_decode_paged_deferred): the combine pass merges the splits as
-// above but skips the division by l and writes the partition itself —
-// o [S, R, D] unnormalized, m and l [S, R] with R = (h, g, tq), tq
-// minor, the TPU kernel's row order — for the caller to merge with the
-// in-flight block's partition. A row that sees no committed position
-// keeps m = -1e30 (<= -1e30 / 2), so that merge weighs it 0.
+// flash_decode_paged_deferred): the merge skips the division by l and
+// writes the partition itself — o [S, R, D] unnormalized, m and l [S, R]
+// with R = (h, g, tq), tq minor, the TPU kernel's row order — for the
+// caller to merge with the in-flight block's partition. Its visibility
+// is the mask alone (no positions); steps no row sees are always
+// skipped, so a row that sees no committed position keeps m = -1e30
+// (<= -1e30 / 2) and that merge weighs it 0; an empty slot reads no K/V.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kChunk = 64;
-constexpr int kSplitChunks = 4;  // chunks per T split (256 tokens)
-constexpr int kThreads = 128;
+constexpr int kSub = 16;        // tokens per warp step (one mma k / two n tiles)
+constexpr int kMaxSplits = 16;  // cluster ranks per (slot, kv head)
+constexpr int kTargetBlocks = 128;  // fewer splits when S * Hkv is large
+constexpr int kMaxStages = 3;
+constexpr int kMaxWarps = 8;    // G * Tq <= 128 query rows per kv head
+constexpr uint8_t kHidden = 255;  // no row sees the position
+constexpr uint8_t kPast = 254;    // past the slot's walked span: no score
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
+// The launch geometry, from the shapes alone (host and device). A slot
+// walks [0, end) of T, end = 1 + its last visible position (T where a
+// row sees nothing in the normalized output): ws(end) tokens per warp
+// state, tg states per block, n_split blocks in the cluster; ws, bs and
+// n_steps here are the largest, at end = T.
+struct Geo {
+  int R, n_mt, tg, warps;  // rows, 16-row tiles, token groups, warps
+  int ws, bs, n_split;     // tokens per warp range, per block; splits
+  int n_steps, stages;     // 16-token steps per token group; ring depth
+  int Dp, pitch, qpitch;   // padded head dim; staged K/V row bytes; q row bf16s
+  int sub_bytes;           // one staged step of one token group
+};
+
+__host__ __device__ inline int warp_span(int end, int tg, int n_split) {
+  const int steps = (end + kSub - 1) / kSub;
+  const int per = n_split * tg;
+  return end > 0 ? kSub * ((steps + per - 1) / per) : kSub;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__host__ __device__ inline Geo geometry(int G, int Tq, int T, int D,
+                                        int slots_heads) {
+  Geo g;
+  g.R = G * Tq;
+  g.n_mt = (g.R + 15) / 16;
+  // eight warps a block where the row tiles allow: tg a power of two
+  g.tg = g.n_mt == 1 ? 8 : g.n_mt == 2 ? 4 : g.n_mt <= 4 ? 2 : 1;
+  g.warps = g.n_mt * g.tg;
+  const int want = (kTargetBlocks + slots_heads - 1) / slots_heads;
+  const int most = want < kMaxSplits ? want : kMaxSplits;
+  g.ws = warp_span(T, g.tg, most);
+  g.bs = g.tg * g.ws;
+  g.n_split = (T + g.bs - 1) / g.bs;
+  g.n_steps = g.ws / kSub;
+  const int db = (D + 15) / 16;
+  g.Dp = 16 * (db <= 1 ? 1 : db <= 2 ? 2 : db <= 4 ? 4 : 8);
+  g.pitch = g.Dp + 16;
+  g.qpitch = g.Dp + 16;
+  g.sub_bytes = 2 * kSub * g.pitch + 2 * kSub * 4;
+  // two to three steps in flight, within ~64 KB of ring
+  const int fit = (64 << 10) / (g.tg * g.sub_bytes);
+  g.stages = g.n_steps < 2 || fit < 2 ? 2
+             : g.n_steps < kMaxStages && g.n_steps < fit ? g.n_steps
+             : fit < kMaxStages ? fit : kMaxStages;
+  return g;
 }
 
 struct Smem {
-  float *qs, *acc, *sc, *m_run, *l_run, *alpha, *kss, *vss;
-  int *flags, *list, *tq_any, *count;
-  int8_t* kv;  // [2 stages][K, V][kChunk][pitch]
+  __nv_bfloat16* qs;  // [n_mt * 16][qpitch]
+  uint8_t* ring;      // [stages][tg][K rows | V rows | ks | vs]
+  float* st_acc;      // [tg][Rp][Dp] (over the ring once it is drained)
+  float *st_m, *st_l;  // [tg][Rp]
+  float *blk_m, *blk_l;  // [Rp]: the block's merged state
+  float* w;           // [tg][Rp]: the token groups' merge weights
+  int *pos, *flags, *list, *misc;  // misc: n_list, per-warp last mask bit
+  int* pages;         // [T / page]: the slot's page table, clipped
+  uint8_t* mask;      // [T]: the slot's mask row
+  uint8_t* vf;        // [bs]: first row that sees the token
 };
 
-__host__ __device__ size_t smem_layout(int R, int Tq, int T, int D,
-                                       char* base, Smem* s) {
-  const int nch = (T + kChunk - 1) / kChunk;
+__host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int T,
+                                              int n_pt, uint8_t* base,
+                                              Smem* s) {
+  const int Rp = 16 * g.n_mt;
   size_t off = 0;
   auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
+    uint8_t* p = base ? base + off : nullptr;
     off += (bytes + 15) / 16 * 16;
     return p;
   };
-  float* qs = (float*)take(sizeof(float) * R * D);
-  float* acc = (float*)take(sizeof(float) * R * D);
-  float* sc = (float*)take(sizeof(float) * R * kChunk);
-  float* ml = (float*)take(sizeof(float) * 3 * R);
-  float* scl = (float*)take(sizeof(float) * 4 * kChunk);
-  int* flags = (int*)take(sizeof(int) * nch);
-  int* list = (int*)take(sizeof(int) * nch);
-  int* tq_any = (int*)take(sizeof(int) * (Tq + 1));
-  int8_t* kv = (int8_t*)take((size_t)4 * kChunk * (D + 4));
-  if (s) {
-    *s = Smem{qs, acc, sc, ml, ml + R, ml + 2 * R, scl, scl + 2 * kChunk,
-              flags, list, tq_any, tq_any + Tq, kv};
-  }
+  Smem m;
+  m.qs = (__nv_bfloat16*)take((size_t)2 * Rp * g.qpitch);
+  const size_t ring = (size_t)g.stages * g.tg * g.sub_bytes;
+  const size_t states = (size_t)4 * g.tg * Rp * g.Dp;
+  m.ring = take(ring > states ? ring : states);
+  m.st_acc = (float*)m.ring;
+  m.st_m = (float*)take((size_t)4 * g.tg * Rp);
+  m.st_l = (float*)take((size_t)4 * g.tg * Rp);
+  m.blk_m = (float*)take((size_t)4 * Rp);
+  m.blk_l = (float*)take((size_t)4 * Rp);
+  m.w = (float*)take((size_t)4 * g.tg * Rp);
+  m.pos = (int*)take((size_t)4 * (Tq > 0 ? Tq : 1));
+  m.flags = (int*)take((size_t)4 * g.n_steps);
+  m.list = (int*)take((size_t)4 * g.n_steps);
+  m.misc = (int*)take(4 * (1 + kMaxWarps));
+  m.pages = (int*)take((size_t)4 * n_pt);
+  m.mask = take(T);
+  m.vf = take(g.bs);
+  if (s) *s = m;
   return off;
 }
 
-__global__ __launch_bounds__(kThreads) void flash_decode_kernel(
-    const float* q, const int8_t* kq, const float* ks, const int8_t* vq,
-    const float* vs, const uint8_t* vis, const int* page_table, int page,
-    int n_pages, float* m_part, float* l_part, float* acc_part, int Tq, int H,
-    int Hkv, int T, int D, float scale) {
-  const int h = blockIdx.x, s = blockIdx.y, split = blockIdx.z;
-  const int G = H / Hkv, R = G * Tq;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nwarps = kThreads / 32;
-  const int pitch = D + 4;  // bytes per staged cache row
-  const int nch = (T + kChunk - 1) / kChunk;
-  const int c_lo = split * kSplitChunks;
-  const int c_hi = min(nch, c_lo + kSplitChunks);
+struct Args {
+  const float* q;
+  const int8_t* kq;
+  const float* ks;
+  const int8_t* vq;
+  const float* vs;
+  const uint8_t* mask;
+  const int* pos;         // null: the mask alone
+  const int* page_table;  // null: the dense cache
+  int page, n_pages;
+  float* out;
+  float *m_out, *l_out;   // non-null: the state mode
+  int S, Tq, H, Hkv, T, D;
+  float scale;
+  int kv_vec, s_vec, mask_vec;
+};
 
-  extern __shared__ __align__(16) char smem_raw[];
+// cp.async.wait_group with a run-time depth of 0 to 2
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// One warp's 16-token step for its 16-row tile: scores, online softmax,
+// P . V into acc. kt: the step's staged K rows, then V rows, then ks, vs.
+template <int DB>
+__device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
+                                          const Smem& sm, const uint8_t* kt,
+                                          int tl0, const uint32_t (&qa)[DB][4],
+                                          const int (&tq)[2], int lane,
+                                          float (&m_run)[2], float (&l_run)[2],
+                                          float (&acc)[DB][2][4]) {
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pitch = geo.pitch;
+  const uint8_t* vt = kt + kSub * pitch;
+  const float* kss = reinterpret_cast<const float*>(kt + 2 * kSub * pitch);
+  const float* vss = kss + kSub;
+
+  // scores [16 rows][16 tokens] as two n tiles of 8 tokens; head dim d of
+  // k16 step ks at mma k 2 t4 + j (j < 2) is 16 ks + 4 t4 + 2 j, at
+  // 2 t4 + 8 + j it is 16 ks + 4 t4 + 1 + 2 j
+  float sc[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DB; ++ks) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(
+          kt + (8 * j + g) * pitch + 16 * ks + 4 * t4);
+      const uint32_t bf[2] = {i8_even_bf16x2(w), i8_even_bf16x2(w >> 8)};
+      mma_16816(sc[j], qa[ks], bf);
+    }
+  }
+
+  // mask, scale and the running max of rows g (h = 0) and g + 8 (h = 1)
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
+      const uint8_t v = sm.vf[tl0 + t];
+      float x;
+      if (v == kPast)
+        x = -INFINITY;
+      else if (tq[h] >= v)
+        x = sc[j][c] * (kss[t] * a.scale);
+      else
+        x = PS_NEG_INF;
+      sc[j][c] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h]);
+    alpha[h] = expf(m_run[h] - m_new);
+    m_run[h] = m_new;
+    l_run[h] *= alpha[h];
+  }
+  // a rescale by 1 changes nothing: skipped when no row's max moved
+  const bool rescale = __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f);
+  float pf[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
+      const float p = expf(sc[j][c] - m_run[h]);
+      l_run[h] += p;
+      pf[j][c] = p * vss[t];
+    }
+  // the score fragments as the A operand: rows g, g + 8; tokens 2 t4 (+1),
+  // 8 + 2 t4 (+1)
+  const uint32_t pa[4] = {pack_bf16(pf[0][0], pf[0][1]),
+                          pack_bf16(pf[0][2], pf[0][3]),
+                          pack_bf16(pf[1][0], pf[1][1]),
+                          pack_bf16(pf[1][2], pf[1][3])};
+#pragma unroll
+  for (int db = 0; db < DB; ++db) {
+    uint32_t r[2];  // tokens 0-7, 8-15 of columns 16 db .. 16 db + 15
+    ldsm_x2_trans(r, vt + (lane & 15) * pitch + 16 * db);
+    const uint32_t be[2] = {i8_even_bf16x2(r[0]), i8_even_bf16x2(r[1])};
+    const uint32_t bo[2] = {i8_even_bf16x2(r[0] >> 8),
+                            i8_even_bf16x2(r[1] >> 8)};
+    if (rescale)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* c = acc[db][e];
+        c[0] *= alpha[0];
+        c[1] *= alpha[0];
+        c[2] *= alpha[1];
+        c[3] *= alpha[1];
+      }
+    mma_16816(acc[db][0], pa, be);
+    mma_16816(acc[db][1], pa, bo);
+  }
+}
+
+template <int DB>
+__global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
+    Args a) {
+  namespace cg = cooperative_groups;
+  const int split = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const Geo geo = geometry(G, a.Tq, a.T, a.D, a.S * a.Hkv);
+  const int Rp = 16 * geo.n_mt, Dp = geo.Dp;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthr = blockDim.x;
+  const bool state = a.m_out != nullptr;
+  const int n_pt = a.page_table ? a.T / a.page : 0;
+  extern __shared__ __align__(16) uint8_t smem[];
   Smem sm;
-  smem_layout(R, Tq, T, D, smem_raw, &sm);
+  smem_layout(geo, a.Tq, a.T, n_pt, smem, &sm);
 
-  for (int e = tid; e < R * D; e += kThreads) {
-    int r = e / D, d = e - r * D;
-    int g = r / Tq, tq = r - g * Tq;
-    long qi = (((long)s * Tq + tq) * H + h * G + g) * D + d;
-    sm.qs[e] = bf16_round(q[qi]);
-    sm.acc[e] = 0.f;
+  // every load of the set-up at once, by cp.async: q rows (f32, staged
+  // in the ring's space), the slot's mask row, page table and positions
+  float* qf = reinterpret_cast<float*>(sm.ring);
+  const int d4 = a.D / 4;
+  for (int e = tid; e < geo.R * d4; e += nthr) {
+    const int r = e / d4, d = 4 * (e - r * d4);
+    const int g = r / a.Tq, tq = r - g * a.Tq;
+    cp_async16(qf + r * a.D + d,
+               a.q + (((long)s * a.Tq + tq) * a.H + h * G + g) * a.D + d,
+               true);
   }
-  for (int r = tid; r < R; r += kThreads) {
-    sm.m_run[r] = PS_NEG_INF;
-    sm.l_run[r] = 0.f;
+  const uint8_t* mrow = a.mask + (long)s * a.T;
+  if (a.mask_vec) {
+    for (int i = 16 * tid; i < a.T; i += 16 * nthr)
+      cp_async16(sm.mask + i, mrow + i, true);
+  } else {
+    for (int i = tid; i < a.T; i += nthr) sm.mask[i] = mrow[i];
   }
-  for (int c = tid; c < nch; c += kThreads) sm.flags[c] = 0;
-  for (int i = tid; i < Tq; i += kThreads) sm.tq_any[i] = 0;
+  for (int i = tid; i < n_pt; i += nthr)
+    cp_async4(sm.pages + i, a.page_table + (long)s * n_pt + i, true);
+  for (int j = tid; j < a.Tq; j += nthr) {
+    if (a.pos)
+      cp_async4(sm.pos + j, a.pos + (long)s * a.Tq + j, true);
+    else
+      sm.pos[j] = -1;
+  }
+  for (int i = tid; i < geo.n_steps; i += nthr) sm.flags[i] = 0;
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-
-  // which chunks does any query row see, and does every row see something
-  const uint8_t* vis_s = vis + (long)s * Tq * T;
-  for (int e = tid; e < Tq * T; e += kThreads) {
-    if (vis_s[e]) {
-      int tq = e / T;
-      sm.flags[(e - tq * T) / kChunk] = 1;
-      sm.tq_any[tq] = 1;
+  // q rows as bf16, zeros past R and D; 1 + the last committed position
+  for (int e = tid; e < Rp * (Dp / 4); e += nthr) {
+    const int r = e / (Dp / 4), d = 4 * (e - r * (Dp / 4));
+    uint2 v = make_uint2(0u, 0u);
+    if (r < geo.R && d < a.D) {
+      const float4 f = *reinterpret_cast<const float4*>(qf + r * a.D + d);
+      v = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
     }
+    *reinterpret_cast<uint2*>(sm.qs + r * geo.qpitch + d) = v;
+  }
+  int last = 0;
+  for (int i = 4 * tid; i < a.T; i += 4 * nthr) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (i + j < a.T && sm.mask[i + j]) w |= 1u << (8 * j);
+    if (w) last = i + (31 - __clz(w)) / 8 + 1;
+  }
+  last = __reduce_max_sync(0xffffffffu, last);
+  if (lane == 0) sm.misc[1 + warp] = last;
+  __syncthreads();
+  // the span this slot walks, the same in every block of the cluster:
+  // every row sees something when row 0 does (rows see more as tq grows)
+  int end = 0;
+  for (int w = 0; w < geo.warps; ++w) end = max(end, sm.misc[1 + w]);
+  const bool row0 = end > 0 || (sm.pos[0] >= 0 && sm.pos[0] < a.T);
+  for (int j = 0; j < a.Tq; ++j)
+    if (sm.pos[j] >= 0 && sm.pos[j] < a.T) end = max(end, sm.pos[j] + 1);
+  const bool walk_all = !state && !row0;
+  if (walk_all) end = a.T;
+  const int ws = warp_span(end, geo.tg, geo.n_split);
+  const int bs = geo.tg * ws, n_steps = ws / kSub;
+  const int b0 = split * bs;  // first token of the block's range
+  for (int t = tid; t < bs; t += nthr) {
+    const int tt = b0 + t;
+    uint8_t v = kPast;
+    if (tt < end) {
+      v = sm.mask[tt] ? 0 : kHidden;
+      for (int j = 0; j < a.Tq && v == kHidden; ++j)
+        if (sm.pos[j] == tt) v = (uint8_t)j;
+    }
+    sm.vf[t] = v;
+    if (walk_all ? v != kPast : v < a.Tq) sm.flags[(t % ws) / kSub] = 1;
   }
   __syncthreads();
-  if (tid == 0) {
-    bool all_see = true;
-    for (int i = 0; i < Tq; ++i) all_see = all_see && sm.tq_any[i];
+  if (warp == 0) {
     int n = 0;
-    for (int c = c_lo; c < c_hi; ++c)
-      if (!all_see || sm.flags[c]) sm.list[n++] = c;
-    *sm.count = n;
+    for (int i0 = 0; i0 < n_steps; i0 += 32) {
+      const int i = i0 + lane;
+      const bool need = i < n_steps && sm.flags[i];
+      const unsigned bal = __ballot_sync(0xffffffffu, need);
+      if (need) sm.list[n + __popc(bal & ((1u << lane) - 1u))] = i;
+      n += __popc(bal);
+    }
+    if (lane == 0) sm.misc[0] = n;
   }
   __syncthreads();
-  const int n_list = *sm.count;
+  const int n_list = sm.misc[0];
 
-  // cache row (token row of kv head h) of logical position t: the slot's
-  // contiguous slab, or through the page table (an entry P = unallocated
-  // is clipped into the pool; only hidden positions can map there)
-  const long slab = ((long)s * Hkv + h) * T;
-  const int* pt_s = page_table ? page_table + (long)s * (T / page) : nullptr;
+  // cache row (token row of kv head h) of logical position t < T: the
+  // slot's contiguous slab, or through the page table
+  const long slab = ((long)s * a.Hkv + h) * a.T;
   auto row_of = [&](int t) -> long {
-    if (!pt_s) return slab + t;
-    const int pg = min(max(pt_s[t / page], 0), n_pages - 1);
-    return ((long)pg * Hkv + h) * page + t % page;
+    if (!a.page_table) return slab + t;
+    const int pg = min(max(sm.pages[t / a.page], 0), a.n_pages - 1);
+    return ((long)pg * a.Hkv + h) * a.page + t % a.page;
+  };
+  // stage step `step` of every token group into ring slot `slot`: each
+  // thread copies one column chunk of some of the 2 * tg * 16 K/V rows;
+  // positions past the walked span read zeros
+  const int cb = a.kv_vec ? 16 : 4;
+  const int cpr = a.D / cb;  // chunks per row
+  const int rows_pp = nthr / cpr, my_c = tid % cpr;
+  const int tg_shift = 31 - __clz(geo.tg);  // tg is a power of two
+  const int sg = a.s_vec ? 4 : 1;   // tokens per scale copy
+  auto issue = [&](int step, int slot) {
+    uint8_t* st = sm.ring + (size_t)slot * geo.tg * geo.sub_bytes;
+    if (tid < rows_pp * cpr)
+      for (int row = tid / cpr; row < 2 * geo.tg * kSub; row += rows_pp) {
+        const int t = row & (kSub - 1), ag = row >> 4;
+        const int grp = ag & (geo.tg - 1), arr = ag >> tg_shift;
+        const int tt = b0 + grp * ws + step * kSub + t;
+        const bool ok = tt < end;
+        uint8_t* dst = st + grp * geo.sub_bytes + (arr * kSub + t) * geo.pitch +
+                       my_c * cb;
+        const int8_t* src =
+            (arr ? a.vq : a.kq) + (ok ? row_of(tt) * a.D + my_c * cb : 0);
+        if (cb == 16)
+          cp_async16(dst, src, ok);
+        else
+          cp_async4(dst, src, ok);
+      }
+    const int per_s = kSub / sg;
+    for (int e = tid; e < 2 * geo.tg * per_s; e += nthr) {
+      const int ag = e / per_s, t = (e - ag * per_s) * sg;
+      const int grp = ag & (geo.tg - 1), arr = ag >> tg_shift;
+      const int tt = b0 + grp * ws + step * kSub + t;
+      float* dst = reinterpret_cast<float*>(st + grp * geo.sub_bytes +
+                                            2 * kSub * geo.pitch) +
+                   arr * kSub + t;
+      const bool ok = tt < end;
+      const float* src = (arr ? a.vs : a.ks) + (ok ? row_of(tt) : 0);
+      if (sg == 4)
+        cp_async16(dst, src, ok);
+      else
+        cp_async4(dst, src, ok);
+    }
   };
 
-  auto issue = [&](int c, int stage) {
-    const int t0 = c * kChunk, nt = min(kChunk, T - t0);
-    int8_t* kb = sm.kv + (size_t)stage * 2 * kChunk * pitch;
-    int8_t* vb = kb + kChunk * pitch;
-    const int words = nt * D / 4;
-    for (int e = tid; e < words; e += kThreads) {
-      int t = (e * 4) / D, d = e * 4 - t * D;
-      const long row = row_of(t0 + t) * D + d;
-      cp_async4(kb + t * pitch + d, kq + row);
-      cp_async4(vb + t * pitch + d, vq + row);
+  const int mt = warp % geo.n_mt, grp = warp / geo.n_mt;
+  const int tq[2] = {(mt * 16 + (lane >> 2)) % a.Tq,
+                     (mt * 16 + (lane >> 2) + 8) % a.Tq};
+  // this warp's q rows as mma A fragments: head dim 16 ks + 4 t4 + (0, 2)
+  // at k 2 t4 (+1) and + (1, 3) at k 2 t4 + 8 (+1), rows g and g + 8 (the
+  // order of a K word's bytes (0, 2) and (1, 3) in the B fragments)
+  uint32_t qa[DB][4];
+  {
+    const __nv_bfloat16* q0 =
+        sm.qs + (mt * 16 + (lane >> 2)) * geo.qpitch + 4 * (lane & 3);
+#pragma unroll
+    for (int ks = 0; ks < DB; ++ks) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(q0 + 16 * ks);
+      const uint2 hi =
+          *reinterpret_cast<const uint2*>(q0 + 8 * geo.qpitch + 16 * ks);
+      qa[ks][0] = __byte_perm(lo.x, lo.y, 0x5410);  // d, d + 2
+      qa[ks][1] = __byte_perm(hi.x, hi.y, 0x5410);
+      qa[ks][2] = __byte_perm(lo.x, lo.y, 0x7632);  // d + 1, d + 3
+      qa[ks][3] = __byte_perm(hi.x, hi.y, 0x7632);
     }
-    for (int t = tid; t < nt; t += kThreads) {
-      const long row = row_of(t0 + t);
-      cp_async4(sm.kss + stage * kChunk + t, ks + row);
-      cp_async4(sm.vss + stage * kChunk + t, vs + row);
-    }
+  }
+  float m_run[2] = {PS_NEG_INF, PS_NEG_INF}, l_run[2] = {0.f, 0.f};
+  float acc[DB][2][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[db][e][c] = 0.f;
+
+  // the ring: the steps ahead are issued once every warp is past the
+  // step whose slot they take
+  for (int p = 0; p < geo.stages - 1; ++p) {
+    if (p < n_list) issue(sm.list[p], p);
     cp_async_commit();
-  };
-
-  if (n_list > 0) issue(sm.list[0], 0);
+  }
   for (int i = 0; i < n_list; ++i) {
-    const int stage = i & 1;
-    if (i + 1 < n_list) {
-      issue(sm.list[i + 1], stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait_n(geo.stages - 2);  // step i's copies have landed
     __syncthreads();
-    const int t0 = sm.list[i] * kChunk, nt = min(kChunk, T - t0);
-    const int8_t* kb = sm.kv + (size_t)stage * 2 * kChunk * pitch;
-    const int8_t* vb = kb + kChunk * pitch;
-    const float* kss = sm.kss + stage * kChunk;
-    const float* vss = sm.vss + stage * kChunk;
+    const int ahead = i + geo.stages - 1;
+    if (ahead < n_list) issue(sm.list[ahead], ahead % geo.stages);
+    cp_async_commit();
+    const int tl0 = grp * ws + sm.list[i] * kSub;  // block-relative
+    if (b0 + tl0 < end)
+      warp_step<DB>(a, geo, sm,
+                    sm.ring + ((size_t)(i % geo.stages) * geo.tg + grp) *
+                                  geo.sub_bytes,
+                    tl0, qa, tq, lane, m_run, l_run, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: its space holds the states now
 
-    // scores: one warp per query row, lanes over tokens
-    for (int r = warp; r < R; r += nwarps) {
-      const int tq = r % Tq;
-      const uint8_t* visr = vis_s + (long)tq * T + t0;
-      const float* qr = sm.qs + r * D;
-      for (int t = lane; t < nt; t += 32) {
-        const int8_t* kr = kb + t * pitch;
-        float dot = 0.f;
-        for (int d = 0; d < D; d += 4) {
-          int w4 = *reinterpret_cast<const int*>(kr + d);
-          dot = fmaf(qr[d], (float)(int8_t)(w4), dot);
-          dot = fmaf(qr[d + 1], (float)(int8_t)(w4 >> 8), dot);
-          dot = fmaf(qr[d + 2], (float)(int8_t)(w4 >> 16), dot);
-          dot = fmaf(qr[d + 3], (float)(int8_t)(w4 >> 24), dot);
-        }
-        sm.sc[r * kChunk + t] = visr[t] ? dot * (kss[t] * scale) : PS_NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per row
-    for (int r = warp; r < R; r += nwarps) {
-      float* sr = sm.sc + r * kChunk;
-      float mc = -INFINITY;
-      for (int t = lane; t < nt; t += 32) mc = fmaxf(mc, sr[t]);
+  // this warp's state: rows mt * 16 + g (+ 8); acc[db][e][c] is column
+  // 16 db + 4 t4 + 2 (c & 1) + e
+  {
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-      for (int o = 16; o; o >>= 1)
-        mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, o));
-      const float m_prev = sm.m_run[r];
-      const float m_new = fmaxf(m_prev, mc);
-      float ls = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-        float p = expf(sr[t] - m_new);
-        ls += p;
-        sr[t] = bf16_round(p * vss[t]);
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_run[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int r = mt * 16 + g + 8 * hh;
+      if (t4 == 0) {
+        sm.st_m[grp * Rp + r] = m_run[hh];
+        sm.st_l[grp * Rp + r] = l;
       }
+      float* dst = sm.st_acc + ((size_t)grp * Rp + r) * Dp + 4 * t4;
 #pragma unroll
-      for (int o = 16; o; o >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        sm.alpha[r] = a;
-        sm.l_run[r] = sm.l_run[r] * a + ls;
-        sm.m_run[r] = m_new;
-      }
+      for (int db = 0; db < DB; ++db)
+        *reinterpret_cast<float4*>(dst + 16 * db) =
+            make_float4(acc[db][0][2 * hh], acc[db][1][2 * hh],
+                        acc[db][0][2 * hh + 1], acc[db][1][2 * hh + 1]);
     }
-    __syncthreads();
-
-    // acc = acc * alpha + p . v, one thread per head-dim column
-    for (int d = tid; d < D; d += kThreads) {
-      for (int r = 0; r < R; ++r) {
-        const float* pr = sm.sc + r * kChunk;
-        float a = sm.acc[r * D + d] * sm.alpha[r];
-        for (int t = 0; t < nt; ++t)
-          a = fmaf(pr[t], (float)vb[t * pitch + d], a);
-        sm.acc[r * D + d] = a;
-      }
+  }
+  __syncthreads();
+  // merge the token groups in order into group 0's slots: the weights
+  // per row, then the rows' columns
+  for (int r = tid; r < geo.R; r += nthr) {
+    float m = sm.st_m[r];
+    for (int q = 1; q < geo.tg; ++q) m = fmaxf(m, sm.st_m[q * Rp + r]);
+    float l = 0.f;
+    for (int q = 0; q < geo.tg; ++q) {
+      const float wgt = expf(sm.st_m[q * Rp + r] - m);
+      sm.w[q * Rp + r] = wgt;
+      l += sm.st_l[q * Rp + r] * wgt;
     }
+    sm.blk_m[r] = m;
+    sm.blk_l[r] = l;
+  }
+  if (geo.tg > 1) {
     __syncthreads();
+    for (int e = tid; e < geo.R * d4; e += nthr) {
+      const int r = e / d4, i = r * Dp + 4 * (e - r * d4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < geo.tg; ++q) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(sm.st_acc + (size_t)q * Rp * Dp + i);
+        const float wgt = sm.w[q * Rp + r];
+        v.x += x.x * wgt, v.y += x.y * wgt, v.z += x.z * wgt, v.w += x.w * wgt;
+      }
+      *reinterpret_cast<float4*>(sm.st_acc + i) = v;
+    }
   }
 
-  // this split's unnormalized state
-  const long part = ((long)s * Hkv + h) * gridDim.z + split;
-  for (int e = tid; e < R * D; e += kThreads) acc_part[part * R * D + e] = sm.acc[e];
-  for (int r = tid; r < R; r += kThreads) {
-    m_part[part * R + r] = sm.m_run[r];
-    l_part[part * R + r] = sm.l_run[r];
-  }
-}
-
-// Merge the T splits of one (slot, kv head) in order and normalize; or,
-// with m_out, write the unnormalized state in the TPU row order.
-__global__ __launch_bounds__(kThreads) void flash_decode_combine_kernel(
-    const float* m_part, const float* l_part, const float* acc_part,
-    float* out, float* m_out, float* l_out, int Tq, int H, int Hkv, int D,
-    int n_split) {
-  const int h = blockIdx.x, s = blockIdx.y;
-  const int G = H / Hkv, R = G * Tq;
-  const long base = ((long)s * Hkv + h) * n_split;
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, d = e - r * D;
-    float m = PS_NEG_INF;
-    for (int i = 0; i < n_split; ++i) m = fmaxf(m, m_part[(base + i) * R + r]);
-    float l = 0.f, a = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const float wgt = expf(m_part[(base + i) * R + r] - m);
-      l += l_part[(base + i) * R + r] * wgt;
-      a += acc_part[((base + i) * R + r) * D + d] * wgt;
-    }
-    if (m_out) {
-      const long row = ((long)s * Hkv + h) * R + r;  // (s, h, g, tq)
-      out[row * D + d] = a;
+  // merge the splits of the cluster in rank order, each rank a share of
+  // the outputs: all ranks' (m, l, acc) of an output read at once
+  const int n = geo.n_split;
+  if (n > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+  auto peer = [&](float* p, int q) -> const float* {
+    return n > 1 ? cg::this_cluster().map_shared_rank(p, q) : p;
+  };
+  const int total = geo.R * d4, share = (total + n - 1) / n;
+  const int e1 = min(total, (split + 1) * share);
+  for (int e = split * share + tid; e < e1; e += nthr) {
+    const int r = e / d4, d = 4 * (e - r * d4);
+    float mv[kMaxSplits], lv[kMaxSplits];
+    float4 av[kMaxSplits];
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < n) {
+        mv[q] = peer(sm.blk_m, q)[r];
+        lv[q] = peer(sm.blk_l, q)[r];
+        av[q] = *reinterpret_cast<const float4*>(peer(sm.st_acc, q) + r * Dp + d);
+      }
+    float M = mv[0];
+#pragma unroll
+    for (int q = 1; q < kMaxSplits; ++q)
+      if (q < n) M = fmaxf(M, mv[q]);
+    float L = 0.f;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < n) {
+        const float wgt = expf(mv[q] - M);
+        L += lv[q] * wgt;
+        v.x += av[q].x * wgt, v.y += av[q].y * wgt;
+        v.z += av[q].z * wgt, v.w += av[q].w * wgt;
+      }
+    const int g = r / a.Tq, tq = r - g * a.Tq;
+    if (state) {
+      const long row = ((long)s * a.H + h * G) * a.Tq + r;  // (s, h, g, tq)
+      *reinterpret_cast<float4*>(a.out + row * a.D + d) = v;
       if (d == 0) {
-        m_out[row] = m;
-        l_out[row] = l;
+        a.m_out[row] = M;
+        a.l_out[row] = L;
       }
-      continue;
+    } else {
+      const float inv = L > 0.f ? L : 1.f;
+      *reinterpret_cast<float4*>(
+          a.out + (((long)s * a.Tq + tq) * a.H + h * G + g) * a.D + d) =
+          make_float4(v.x / inv, v.y / inv, v.z / inv, v.w / inv);
     }
-    const int g = r / Tq, tq = r - g * Tq;
-    out[(((long)s * Tq + tq) * H + h * G + g) * D + d] = a / (l > 0.f ? l : 1.f);
   }
+  // keep this block's state until every rank has read it
+  if (n > 1) cg::this_cluster().sync();
 }
 
-}  // namespace
-
-PS_EXPORT size_t ps_flash_decode_smem(int R, int Tq, int T, int D) {
-  return smem_layout(R, Tq, T, D, nullptr, nullptr);
+template <int DB>
+cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
+                     cudaStream_t stream) {
+  const auto kernel = flash_decode_kernel<DB>;
+  static const cudaError_t attr_rc = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+    // all of the SM's shared memory, so that a whole grid of clusters is
+    // resident at once
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  }();
+  if (attr_rc != cudaSuccess) return attr_rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.n_split, a.Hkv, S);
+  cfg.blockDim = dim3(32 * geo.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = geo.n_split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-PS_EXPORT int ps_flash_decode_splits(int T) {
-  return ((T + kChunk - 1) / kChunk + kSplitChunks - 1) / kSplitChunks;
-}
-
-namespace {
-
-int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* vis, const int* page_table, int page,
-           int n_pages, void* m_part, void* l_part, void* acc_part, void* out,
-           void* m_out, void* l_out, int S, int Tq, int H, int Hkv, int T,
-           int D, float scale, void* stream_ptr) {
+int launch(Args a, int S, void* stream_ptr) {
+  const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int G = a.H / a.Hkv;
+  if (S <= 0 || a.Tq <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.D % 4 ||
+      a.D > 128 || G * a.Tq > 16 * kMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  a.S = S;
+  const Geo geo = geometry(G, a.Tq, a.T, a.D, S * a.Hkv);
+  const int n_pt = a.page_table ? a.T / a.page : 0;
+  const size_t smem = smem_layout(geo, a.Tq, a.T, n_pt, nullptr, nullptr);
+  a.kv_vec = a.D % 16 == 0 && al16(a.kq) && al16(a.vq);
+  const int rows4 = a.page_table ? a.page % 4 == 0 : a.T % 4 == 0;
+  a.s_vec = rows4 && al16(a.ks) && al16(a.vs);
+  a.mask_vec = a.T % 16 == 0 && al16(a.mask);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int R = (H / Hkv) * Tq;
-  const size_t smem = smem_layout(R, Tq, T, D, nullptr, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_split = ps_flash_decode_splits(T);
-  float* mp = reinterpret_cast<float*>(m_part);
-  float* lp = reinterpret_cast<float*>(l_part);
-  float* ap = reinterpret_cast<float*>(acc_part);
-  flash_decode_kernel<<<dim3(Hkv, S, n_split), kThreads, smem, stream>>>(
-      reinterpret_cast<const float*>(q), reinterpret_cast<const int8_t*>(kq),
-      reinterpret_cast<const float*>(ks), reinterpret_cast<const int8_t*>(vq),
-      reinterpret_cast<const float*>(vs), reinterpret_cast<const uint8_t*>(vis),
-      page_table, page, n_pages, mp, lp, ap, Tq, H, Hkv, T, D, scale);
-  flash_decode_combine_kernel<<<dim3(Hkv, S), kThreads, 0, stream>>>(
-      mp, lp, ap, reinterpret_cast<float*>(out),
-      reinterpret_cast<float*>(m_out), reinterpret_cast<float*>(l_out), Tq,
-      H, Hkv, D, n_split);
-  return (int)cudaGetLastError();
+  cudaError_t e;
+  switch (geo.Dp / 16) {
+    case 1: e = launch_t<1>(a, geo, S, smem, stream); break;
+    case 2: e = launch_t<2>(a, geo, S, smem, stream); break;
+    case 4: e = launch_t<4>(a, geo, S, smem, stream); break;
+    default: e = launch_t<8>(a, geo, S, smem, stream); break;
+  }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }
 
 }  // namespace
 
-// m_part/l_part f32 [S, Hkv, splits, G*Tq], acc_part f32
-// [S, Hkv, splits, G*Tq, D] (splits from ps_flash_decode_splits).
-// Returns a CUDA error code (0 on success).
+// Shared memory one launch takes (bytes), for the wrapper's check.
+PS_EXPORT size_t ps_flash_decode_smem(int S, int Hkv, int G, int Tq, int T,
+                                      int D, int page) {
+  return smem_layout(geometry(G, Tq, T, D, S * Hkv), Tq, T,
+                     page ? T / page : 0, nullptr, nullptr);
+}
+
+// positions int32 [S, Tq] or null. Returns a CUDA error code (0 on
+// success).
 PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
-                              const void* vq, const void* vs, const void* vis,
-                              void* m_part, void* l_part, void* acc_part,
+                              const void* vq, const void* vs,
+                              const void* mask, const void* positions,
                               void* out, int S, int Tq, int H, int Hkv, int T,
                               int D, float scale, void* stream_ptr) {
-  return launch(q, kq, ks, vq, vs, vis, nullptr, 1, 1, m_part, l_part,
-                acc_part, out, nullptr, nullptr, S, Tq, H, Hkv, T, D, scale,
-                stream_ptr);
+  Args a{};
+  a.q = reinterpret_cast<const float*>(q);
+  a.kq = reinterpret_cast<const int8_t*>(kq);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vq = reinterpret_cast<const int8_t*>(vq);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.mask = reinterpret_cast<const uint8_t*>(mask);
+  a.pos = reinterpret_cast<const int*>(positions);
+  a.page = 1;
+  a.n_pages = 1;
+  a.out = reinterpret_cast<float*>(out);
+  a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = T, a.D = D, a.scale = scale;
+  return launch(a, S, stream_ptr);
 }
 
 // The paged pool: kq/vq int8 [P, Hkv, page, D], ks/vs f32 [P, Hkv, page],
-// page_table int32 [S, max_pages] (P = unallocated), vis uint8
-// [S, Tq, max_pages * page] over logical positions; scratch as above with
-// T = max_pages * page. m_out null: out f32 [S, Tq, H * D] normalized;
-// else the state mode: out f32 [S, R, D] unnormalized and m_out, l_out
-// f32 [S, R], R = H * Tq in (h, g, tq) order.
+// page_table int32 [S, max_pages] (P = unallocated), mask uint8
+// [S, max_pages * page] over logical positions, positions int32 [S, Tq]
+// or null. m_out null: out f32 [S, Tq, H * D] normalized; else the state
+// mode: out f32 [S, R, D] unnormalized and m_out, l_out f32 [S, R],
+// R = H * Tq in (h, g, tq) order.
 PS_EXPORT int ps_flash_decode_paged(const void* q, const void* kq,
                                     const void* ks, const void* vq,
                                     const void* vs, const void* page_table,
-                                    const void* vis, void* m_part,
-                                    void* l_part, void* acc_part, void* out,
-                                    void* m_out, void* l_out,
+                                    const void* mask, const void* positions,
+                                    void* out, void* m_out, void* l_out,
                                     int S, int Tq, int H, int Hkv,
                                     int max_pages, int page, int n_pages,
                                     int D, float scale, void* stream_ptr) {
-  return launch(q, kq, ks, vq, vs, vis,
-                reinterpret_cast<const int*>(page_table), page, n_pages,
-                m_part, l_part, acc_part, out, m_out, l_out, S, Tq, H, Hkv,
-                max_pages * page, D, scale, stream_ptr);
+  Args a{};
+  a.q = reinterpret_cast<const float*>(q);
+  a.kq = reinterpret_cast<const int8_t*>(kq);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vq = reinterpret_cast<const int8_t*>(vq);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.mask = reinterpret_cast<const uint8_t*>(mask);
+  a.pos = reinterpret_cast<const int*>(positions);
+  a.page_table = reinterpret_cast<const int*>(page_table);
+  a.page = page;
+  a.n_pages = n_pages;
+  a.out = reinterpret_cast<float*>(out);
+  a.m_out = reinterpret_cast<float*>(m_out);
+  a.l_out = reinterpret_cast<float*>(l_out);
+  a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = max_pages * page, a.D = D;
+  a.scale = scale;
+  return launch(a, S, stream_ptr);
 }

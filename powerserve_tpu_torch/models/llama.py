@@ -13,10 +13,11 @@ By default (kv_update="inline") each layer writes its new K/V into the
 cache in place before attention (the JAX main path defers the write past
 the layer scan to dodge an XLA aliasing cost; the cache contents are the
 same). Decode-sized batches (Tq <= 16) attend through the flash-decode
-kernel over the visibility that build_visibility gives; larger batches
-are prefill chunks (each slot's real lanes contiguous from positions[:,
-0], padding at the end) and attend through the flash-prefill kernel,
-which computes that visibility itself. The cache is the dense KVCache or the paged pool
+kernel, which forms build_visibility's [S, Tq, T] visibility from the
+cache mask and the positions itself; larger batches are prefill chunks
+(each slot's real lanes contiguous from positions[:, 0], padding at the
+end) and attend through the flash-prefill kernel, which computes that
+visibility itself too. The cache is the dense KVCache or the paged pool
 (kv/paged.py): paged decode reads the pool through the page table in
 the paged flash-decode kernel; paged prefill attends over the gathered
 slot view, as the JAX package does.
@@ -60,7 +61,6 @@ from ..core.config import LLMConfig
 from ..core.quant import QK
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache
-from ..ops.attention import build_visibility
 from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
 from ..ops.flash_decode import (flash_decode_paged,
                                 flash_decode_paged_deferred,
@@ -87,21 +87,20 @@ def moe_route(rows: int) -> tuple[str, int]:
 
 
 def attention(kv: KVCache, layer: int, q: torch.Tensor,
-              vis: torch.Tensor | None, start: torch.Tensor,
-              scale: float) -> torch.Tensor:
+              positions: torch.Tensor, scale: float) -> torch.Tensor:
     """One layer's attention over the cache (the new K/V already
-    written): q [S, Tq, H, D]; vis [S, Tq, T] for decode-sized batches
-    (None for prefill); start [S] = positions[:, 0]; kv.mask as before
-    this batch. Returns f32 [S, Tq, H * D]."""
+    written): q [S, Tq, H, D]; positions int32 [S, Tq]; kv.mask as
+    before this batch. Returns f32 [S, Tq, H * D]."""
     slabs = (kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer])
     decode = q.shape[1] <= DECODE_MAX_TQ
     if isinstance(kv, PagedKVCache):
         if decode:
-            return flash_decode_paged(q, *slabs, kv.page_table, vis, scale)
+            return flash_decode_paged(q, *slabs, kv.page_table, kv.mask,
+                                      positions, scale)
         slabs = tuple(kv.gather_slab(t) for t in slabs)
     if decode:
-        return flash_decode_quant(q, *slabs, vis, scale)
-    return flash_prefill_quant(q, *slabs, kv.mask, start, scale)
+        return flash_decode_quant(q, *slabs, kv.mask, positions, scale)
+    return flash_prefill_quant(q, *slabs, kv.mask, positions[:, 0], scale)
 
 
 class DeferredKV:
@@ -115,7 +114,6 @@ class DeferredKV:
         causal = torch.ones(Tq, Tq, dtype=torch.bool,
                             device=positions.device).tril()
         self.intra = causal[None] & valid[:, None, :]  # [S, Tq, Tq]
-        self.vis = kv.mask[:, None, :].expand(S, Tq, kv.max_seq)
         self.blocks: list[tuple] = []
 
     def attend(self, kv: PagedKVCache, layer: int, q: torch.Tensor,
@@ -127,7 +125,7 @@ class DeferredKV:
         heads_first = lambda t: t.transpose(1, 2)  # noqa: E731
         return flash_decode_paged_deferred(
             q, kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer],
-            kv.page_table, self.vis, heads_first(kq), heads_first(ks),
+            kv.page_table, kv.mask, heads_first(kq), heads_first(ks),
             heads_first(vq), heads_first(vs), self.intra, scale)
 
 
@@ -200,8 +198,8 @@ class LlamaLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, llm: LLMConfig, kv: KVCache,
                 layer: int, cos: torch.Tensor, sin: torch.Tensor,
-                vis: torch.Tensor | None, start: torch.Tensor,
-                index: torch.Tensor, fuse: bool = False,
+                positions: torch.Tensor, index: torch.Tensor,
+                fuse: bool = False,
                 deferred: DeferredKV | None = None) -> torch.Tensor:
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
@@ -239,7 +237,7 @@ class LlamaLayer(nn.Module):
             attn = deferred.attend(kv, layer, q, k, v, scale)
         else:
             kv.write(layer, k, v, index)
-            attn = attention(kv, layer, q, vis, start, scale)
+            attn = attention(kv, layer, q, positions, scale)
         if fused:
             # attn_out stays f32 into the next norm and the residual sum,
             # as in the JAX fused chain
@@ -367,12 +365,10 @@ class LlamaModel(nn.Module):
             raise ValueError(f"kv_update {kv_update!r}")
         x = self.embed.lookup(tokens).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
-        vis = (build_visibility(kv.mask, positions)
-               if Tq <= DECODE_MAX_TQ and deferred is None else None)
-        start = positions[:, 0]
+        pos32 = positions.to(torch.int32)
         index = kv.write_index(positions)
         for i, layer in enumerate(self.layers):
-            x = layer(x, llm, kv, i, cos, sin, vis, start, index,
+            x = layer(x, llm, kv, i, cos, sin, pos32, index,
                       fuse=fuse_layers, deferred=deferred)
         if deferred is not None:
             kv.commit(deferred.blocks, index)

@@ -131,22 +131,19 @@ def lib() -> ctypes.CDLL:
                                       I, I, I, I, I, I, I, P, I, P, P, I,
                                       P, P, P, P, P]
         L.ps_fused_linear.restype = I
-        L.ps_flash_decode.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                      I, I, I, F, P]
+        L.ps_flash_decode.argtypes = [P] * 8 + [I] * 6 + [F, P]
         L.ps_flash_decode.restype = I
-        L.ps_flash_decode_smem.argtypes = [I, I, I, I]
+        L.ps_flash_decode_smem.argtypes = [I] * 7
         L.ps_flash_decode_smem.restype = ctypes.c_size_t
-        L.ps_flash_decode_splits.argtypes = [I]
-        L.ps_flash_decode_splits.restype = I
-        L.ps_flash_decode_paged.argtypes = [P, P, P, P, P, P, P, P, P, P, P,
-                                            P, P, I, I, I, I, I, I, I, I, F,
-                                            P]
+        L.ps_flash_decode_paged.argtypes = [P] * 11 + [I] * 8 + [F, P]
         L.ps_flash_decode_paged.restype = I
         L.ps_flash_prefill.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I,
                                        I, F, P]
         L.ps_flash_prefill.restype = I
         L.ps_flash_prefill_smem.argtypes = [I, I]
         L.ps_flash_prefill_smem.restype = ctypes.c_size_t
+        L.ps_empty_launch.argtypes = [P]
+        L.ps_empty_launch.restype = I
         _lib = L
     return _lib
 

@@ -12,12 +12,20 @@ online softmax over T chunks:
   merge the splits in order with weights exp(m_i - max_i m_i);
   out = acc / (l > 0 ? l : 1)
 
+The visibility comes from the cache's mask [S, T] and the new rows'
+positions [S, Tq]: row tq sees t when mask[s, t] is set or some j <= tq
+has positions[s, j] == t (ops/attention.py::build_visibility with its
+causal intra mask; -1 and positions >= T match nothing). Without
+positions (the state mode's committed part) the mask alone.
+
 `flash_decode_quant` launches csrc/flash_decode.cu for CUDA tensors and
-runs the plain twin `flash_decode_quant_reference` (same chunks and
-splits) for CPU tensors. The kernel stages KERNEL_CHUNK tokens at a time
-and gives each KERNEL_SPLIT tokens of T a block of their own; the plain
-twin takes any chunk and split (split=None: one split), so the CPU tests
-can also match the JAX kernel's 512-token chunks exactly.
+runs the plain twin `flash_decode_quant_reference` for CPU tensors; the
+twin builds the visibility and runs `flash_decode_visibility_reference`
+over it. The kernel walks each slot's positions up to the last one a row
+sees, in KERNEL_CHUNK-token steps, each warp a range of them with its own
+online softmax (`kernel_walk`); the twin walks the same by default and
+takes any other chunk and split (all of T, one split: split=T), so the
+CPU tests can also match the JAX kernel's 512-token chunks exactly.
 
 A row that sees no position at all averages V over the T positions (the
 masked scores are a finite -1e30, as in the JAX reference); the JAX
@@ -41,18 +49,60 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .attention import NEG_INF
+from .attention import NEG_INF, build_visibility
 
-KERNEL_CHUNK = 64
-KERNEL_SPLIT = 256
+# the kernel's step (tokens) and bounds (csrc/flash_decode.cu)
+KERNEL_CHUNK = 16
+_MAX_SPLITS = 16
+_TARGET_BLOCKS = 128
+MAX_ROWS = 128  # G * Tq query rows per kv head
+MAX_HEAD = 128
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def kernel_walk(visibility: torch.Tensor, Hkv: int, G: int,
+                state: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """How csrc/flash_decode.cu walks each slot, int64 [S] each: (end,
+    split). It walks positions [0, end), 1 + the last one any row sees
+    (all of T in the normalized output where a row sees nothing), in
+    online-softmax states of `split` tokens, each a warp's."""
+    S, Tq, T = visibility.shape
+    dev = visibility.device
+    end = torch.where(visibility.any(dim=1),
+                      torch.arange(1, T + 1, device=dev), 0).amax(dim=-1)
+    if not state:
+        end = torch.where(visibility.any(dim=-1).all(dim=-1), end, T)
+    n_mt = _ceil(G * Tq, 16)
+    groups = 8 if n_mt == 1 else 4 if n_mt == 2 else 2 if n_mt <= 4 else 1
+    most = min(_MAX_SPLITS, _ceil(_TARGET_BLOCKS, S * Hkv))
+    widest = KERNEL_CHUNK * _ceil(_ceil(T, KERNEL_CHUNK), most * groups)
+    per = _ceil(T, groups * widest) * groups  # splits x token groups
+    steps = (end + KERNEL_CHUNK - 1) // KERNEL_CHUNK
+    split = KERNEL_CHUNK * ((steps + per - 1) // per)
+    return end, torch.where(end > 0, split, KERNEL_CHUNK)
+
+
+def decode_visibility(mask: torch.Tensor, positions: torch.Tensor | None,
+                      Tq: int) -> torch.Tensor:
+    """The kernel's visibility [S, Tq, T] bool: build_visibility(mask,
+    positions), or the mask alone for every row without positions."""
+    if positions is None:
+        S, T = mask.shape
+        return mask.bool()[:, None, :].expand(S, Tq, T)
+    return build_visibility(mask.bool(), positions.long())
 
 
 def _decode_state(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                   vq: torch.Tensor, vs: torch.Tensor,
                   visibility: torch.Tensor, scale: float, chunk: int,
-                  split: int | None) -> tuple:
+                  split, end: torch.Tensor | None = None) -> tuple:
     """The twin's merged, unnormalized partition: (acc f32 [S, Hkv, G, Tq,
-    D], m, l f32 [S, Hkv, G, Tq])."""
+    D], m, l f32 [S, Hkv, G, Tq]). Walks positions [0, end) (end [S],
+    default all of T) in chunks, with one online softmax per `split`
+    tokens (an int, None: one, or [S] per slot), merged in order."""
     S, Tq, H, D = q.shape
     Hkv, T = kq.shape[1], kq.shape[2]
     G = H // Hkv
@@ -60,51 +110,88 @@ def _decode_state(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     qg = (q.reshape(S, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4)
           .to(torch.bfloat16).float())  # [S, Hkv, G, Tq, D]
     neg = torch.tensor(NEG_INF, device=dev)
-    parts = []
-    for s0 in range(0, T, split or T):
-        m = torch.full((S, Hkv, G, Tq), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((S, Hkv, G, Tq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((S, Hkv, G, Tq, D), dtype=torch.float32, device=dev)
-        for t0 in range(s0, min(T, s0 + (split or T)), chunk):
-            t1 = min(T, t0 + chunk)
-            s = torch.einsum("shgqd,shcd->shgqc", qg, kq[:, :, t0:t1].float())
-            s = s * (ks[:, :, None, None, t0:t1] * scale)
-            s = torch.where(visibility[:, None, None, :, t0:t1], s, neg)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
-            pf = (p * vs[:, :, None, None, t0:t1]).to(torch.bfloat16).float()
-            acc = acc * alpha[..., None] + torch.einsum(
-                "shgqc,shcd->shgqd", pf, vq[:, :, t0:t1].float())
-            m = m_new
-        parts.append((m, l, acc))
-    m = parts[0][0]
-    for mi, _, _ in parts[1:]:
-        m = torch.maximum(m, mi)
-    l, acc = torch.zeros_like(m), torch.zeros_like(parts[0][2])
-    for mi, li, ai in parts:
-        w = torch.exp(mi - m)
-        l = l + li * w
-        acc = acc + ai * w[..., None]
-    return acc, m, l
+    split = torch.as_tensor(T if split is None else split,
+                            device=dev).expand(S)
+    end = (torch.full((S,), T, device=dev) if end is None
+           else end.to(dev))
+    per_slot = lambda t: t[:, None, None, None]  # noqa: E731
+    shape = (S, Hkv, G, Tq)
+    m = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(shape, dtype=torch.float32, device=dev)
+    acc = torch.zeros(shape + (D,), dtype=torch.float32, device=dev)
+    mm, lm, am = torch.full_like(m, float("-inf")), l, acc  # merged
+
+    def fold(sel):  # merge the running states of slots `sel`, reset them
+        nonlocal m, l, acc, mm, lm, am
+        top = torch.maximum(mm, m)
+        wa, wb = torch.exp(mm - top), torch.exp(m - top)
+        k = per_slot(sel)
+        lm = torch.where(k, lm * wa + l * wb, lm)
+        am = torch.where(k[..., None], am * wa[..., None]
+                         + acc * wb[..., None], am)
+        mm = torch.where(k, top, mm)
+        m = torch.where(k, neg, m)
+        l = torch.where(k, 0.0, l)
+        acc = torch.where(k[..., None], 0.0, acc)
+
+    for t0 in range(0, T, chunk):
+        t1 = min(T, t0 + chunk)
+        live = t0 < end
+        if not bool(live.any()):
+            break
+        fold(live & (torch.remainder(torch.full_like(split, t0), split) == 0)
+             & (t0 > 0))
+        s = torch.einsum("shgqd,shcd->shgqc", qg, kq[:, :, t0:t1].float())
+        s = s * (ks[:, :, None, None, t0:t1] * scale)
+        s = torch.where(visibility[:, None, None, :, t0:t1], s, neg)
+        walked = torch.arange(t0, t1, device=dev)[None, :] < end[:, None]
+        s = torch.where(walked[:, None, None, None, :], s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        pf = (p * vs[:, :, None, None, t0:t1]).to(torch.bfloat16).float()
+        k = per_slot(live)
+        l = torch.where(k, l * alpha + p.sum(dim=-1), l)
+        acc = torch.where(k[..., None], acc * alpha[..., None] + torch.einsum(
+            "shgqc,shcd->shgqd", pf, vq[:, :, t0:t1].float()), acc)
+        m = torch.where(k, m_new, m)
+    fold(torch.ones(S, dtype=torch.bool, device=dev))
+    return am, mm, lm
+
+
+def flash_decode_visibility_reference(q: torch.Tensor, kq: torch.Tensor,
+                                      ks: torch.Tensor, vq: torch.Tensor,
+                                      vs: torch.Tensor,
+                                      visibility: torch.Tensor, scale: float,
+                                      chunk: int = KERNEL_CHUNK, split=None,
+                                      end: torch.Tensor | None = None
+                                      ) -> torch.Tensor:
+    """Plain PyTorch twin over a visibility. q [S, Tq, H, D]; kq/vq int8
+    [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; visibility bool [S, Tq, T];
+    split and end as _decode_state's. Returns f32 [S, Tq, H * D]."""
+    S, Tq, H, D = q.shape
+    acc, _, l = _decode_state(q, kq, ks, vq, vs, visibility, scale, chunk,
+                              split, end)
+    out = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(S, Tq, H * D)
 
 
 def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                                  ks: torch.Tensor, vq: torch.Tensor,
-                                 vs: torch.Tensor, visibility: torch.Tensor,
+                                 vs: torch.Tensor, mask: torch.Tensor,
+                                 positions: torch.Tensor | None,
                                  scale: float, chunk: int = KERNEL_CHUNK,
-                                 split: int | None = KERNEL_SPLIT
-                                 ) -> torch.Tensor:
-    """Plain PyTorch twin of the kernel. q [S, Tq, H, D]; kq/vq int8
-    [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; visibility bool [S, Tq, T].
-    Returns f32 [S, Tq, H * D]."""
-    S, Tq, H, D = q.shape
-    acc, _, l = _decode_state(q, kq, ks, vq, vs, visibility, scale, chunk,
-                              split)
-    out = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(S, Tq, H * D)
+                                 split: int | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of the kernel: mask [S, T] bool, positions
+    [S, Tq] (or None); split None: the kernel's walk (kernel_walk), else
+    all of T in states of `split` tokens. Returns f32 [S, Tq, H * D]."""
+    Hkv = kq.shape[1]
+    vis = decode_visibility(mask, positions, q.shape[1])
+    end = None
+    if split is None:
+        end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv)
+    return flash_decode_visibility_reference(q, kq, ks, vq, vs, vis, scale,
+                                             chunk, split, end)
 
 
 def gather_pages(slab: torch.Tensor, page_table: torch.Tensor
@@ -122,97 +209,110 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                  ks_pool: torch.Tensor, v_pool: torch.Tensor,
                                  vs_pool: torch.Tensor,
                                  page_table: torch.Tensor,
-                                 visibility: torch.Tensor, scale: float,
-                                 chunk: int = KERNEL_CHUNK,
-                                 split: int | None = KERNEL_SPLIT,
+                                 mask: torch.Tensor,
+                                 positions: torch.Tensor | None,
+                                 scale: float, chunk: int = KERNEL_CHUNK,
+                                 split: int | None = None,
                                  state: bool = False):
     """Plain PyTorch twin of the paged kernel: the gathered slot views
     through the dense twin. Pools [P, Hkv, page(, D)], page_table int32
-    [S, MP], visibility bool [S, Tq, MP * page]. state=True: (o [S, R, D],
-    m [S, R], l [S, R]) unnormalized, R = (h, g, tq)."""
+    [S, MP], mask bool [S, MP * page], positions [S, Tq] or None;
+    split as flash_decode_quant_reference's. state=True: (o [S, R, D], m [S, R],
+    l [S, R]) unnormalized, R = (h, g, tq)."""
     views = tuple(gather_pages(t, page_table)
                   for t in (k_pool, ks_pool, v_pool, vs_pool))
+    Hkv = views[0].shape[1]
+    vis = decode_visibility(mask, positions, q.shape[1])
+    end = None
+    if split is None:
+        end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv, state)
     if not state:
-        return flash_decode_quant_reference(q, *views, visibility, scale,
-                                            chunk, split)
-    acc, m, l = _decode_state(q, *views, visibility, scale, chunk, split)
+        return flash_decode_visibility_reference(q, *views, vis, scale,
+                                                 chunk, split, end)
+    acc, m, l = _decode_state(q, *views, vis, scale, chunk, split, end)
     S, D = q.shape[0], q.shape[-1]
     return acc.reshape(S, -1, D), m.reshape(S, -1), l.reshape(S, -1)
 
 
-def _splits_scratch(L, S: int, Hkv: int, R: int, T: int, D: int,
-                    dev: torch.device):
-    n_split = L.ps_flash_decode_splits(T)
-    m_part = torch.empty(S, Hkv, n_split, R, dtype=torch.float32, device=dev)
-    acc_part = torch.empty(S, Hkv, n_split, R, D, dtype=torch.float32,
-                           device=dev)
-    return m_part, torch.empty_like(m_part), acc_part
-
-
-def _check_smem(L, dev: torch.device, R: int, Tq: int, T: int, D: int,
-                name: str) -> None:
-    smem = L.ps_flash_decode_smem(R, Tq, T, D)
+def _check_shapes(S: int, H: int, Hkv: int, Tq: int, D: int, T: int,
+                  page: int, dev: torch.device, name: str) -> None:
+    if H % Hkv or D % 4 or D > MAX_HEAD or H // Hkv * Tq > MAX_ROWS:
+        raise ValueError(f"{name}: H={H}, Hkv={Hkv}, Tq={Tq}, D={D}: the "
+                         f"kernel takes H % Hkv == 0, D % 4 == 0, "
+                         f"D <= {MAX_HEAD} and G * Tq <= {MAX_ROWS}")
+    smem = cuda_lib.lib().ps_flash_decode_smem(S, Hkv, H // Hkv, Tq, T, D,
+                                               page)
     limit = cuda_lib.max_dynamic_smem(dev)
     if smem > limit:
-        raise ValueError(f"{name}: G*Tq={R}, T={T}, D={D} needs {smem} bytes "
-                         f"of shared memory, the card has {limit}")
+        raise ValueError(f"{name}: G*Tq={H // Hkv * Tq}, T={T}, D={D} needs "
+                         f"{smem} bytes of shared memory, the card has "
+                         f"{limit}")
+
+
+def _mask_positions(mask: torch.Tensor, positions: torch.Tensor | None,
+                    dev: torch.device, S: int, Tq: int, T: int) -> tuple:
+    """The kernel's mask (uint8 [S, T]) and positions (int32 [S, Tq] or
+    None): views of the caller's where they already are."""
+    mask = mask.contiguous().view(torch.uint8)
+    cuda_lib.require(mask, "mask", dev, (torch.uint8,), (S, T))
+    if positions is not None:
+        positions = positions.to(torch.int32).contiguous()
+        cuda_lib.require(positions, "positions", dev, (torch.int32,),
+                         (S, Tq))
+    return mask, positions
 
 
 def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
-                      vq: torch.Tensor, vs: torch.Tensor,
-                      visibility: torch.Tensor, scale: float) -> torch.Tensor:
+                      vq: torch.Tensor, vs: torch.Tensor, mask: torch.Tensor,
+                      positions: torch.Tensor | None,
+                      scale: float) -> torch.Tensor:
     """Launch csrc/flash_decode.cu (all operands on one CUDA device)."""
     dev = q.device
     S, Tq, H, D = q.shape
     if kq.dim() != 4:
         raise ValueError(f"kq must be [S, Hkv, T, D], got {tuple(kq.shape)}")
     Hkv, T = kq.shape[1], kq.shape[2]
-    if H % Hkv or D % 4:
-        raise ValueError(f"H={H}, Hkv={Hkv}, D={D}: need H % Hkv == 0 and "
-                         f"D % 4 == 0")
+    _check_shapes(S, H, Hkv, Tq, D, T, 0, dev, "flash_decode")
     q = q.float().contiguous()
-    vis = visibility.contiguous().view(torch.uint8)
     cuda_lib.require(q, "q", dev, (torch.float32,), (S, Tq, H, D))
     for name, t in (("kq", kq), ("vq", vq)):
         cuda_lib.require(t, name, dev, (torch.int8,), (S, Hkv, T, D))
     for name, t in (("ks", ks), ("vs", vs)):
         cuda_lib.require(t, name, dev, (torch.float32,), (S, Hkv, T))
-    cuda_lib.require(vis, "visibility", dev, (torch.uint8,), (S, Tq, T))
-    L = cuda_lib.lib()
-    R = (H // Hkv) * Tq
-    _check_smem(L, dev, R, Tq, T, D, "flash_decode")
-    m_part, l_part, acc_part = _splits_scratch(L, S, Hkv, R, T, D, dev)
+    mask, positions = _mask_positions(mask, positions, dev, S, Tq, T)
     out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
-    rc = L.ps_flash_decode(q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
-                           vq.data_ptr(), vs.data_ptr(), vis.data_ptr(),
-                           m_part.data_ptr(), l_part.data_ptr(),
-                           acc_part.data_ptr(), out.data_ptr(), S, Tq, H, Hkv,
-                           T, D, float(scale), cuda_lib.stream(dev))
+    rc = cuda_lib.lib().ps_flash_decode(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), mask.data_ptr(), cuda_lib.ptr(positions),
+        out.data_ptr(), S, Tq, H, Hkv, T, D, float(scale),
+        cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["flash_decode"] += 1
     cuda_lib.check(rc, "flash_decode")
     return out
 
 
 def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
-                       vq: torch.Tensor, vs: torch.Tensor,
-                       visibility: torch.Tensor, scale: float,
+                       vq: torch.Tensor, vs: torch.Tensor, mask: torch.Tensor,
+                       positions: torch.Tensor | None, scale: float,
                        chunk: int = KERNEL_CHUNK,
-                       split: int | None = KERNEL_SPLIT) -> torch.Tensor:
+                       split: int | None = None) -> torch.Tensor:
     """q: [S, Tq, H, D]; kq/vq: [S, Hkv, T, D] int8; ks/vs: [S, Hkv, T];
-    visibility: [S, Tq, T] bool. Returns [S, Tq, H*D] f32."""
+    mask: [S, T] bool; positions: [S, Tq] int (or None: the mask alone).
+    Returns [S, Tq, H*D] f32."""
     if q.device.type == "cpu":
-        return flash_decode_quant_reference(q, kq, ks, vq, vs, visibility,
-                                            scale, chunk, split)
-    if (chunk, split) != (KERNEL_CHUNK, KERNEL_SPLIT):
-        raise ValueError(f"the kernel stages {KERNEL_CHUNK}-token chunks in "
-                         f"{KERNEL_SPLIT}-token splits, got {chunk}, {split}")
-    return flash_decode_cuda(q, kq, ks, vq, vs, visibility, scale)
+        return flash_decode_quant_reference(q, kq, ks, vq, vs, mask,
+                                            positions, scale, chunk, split)
+    if chunk != KERNEL_CHUNK or split is not None:
+        raise ValueError(f"the kernel walks {KERNEL_CHUNK}-token steps in "
+                         f"its own splits, got {chunk}, {split}")
+    return flash_decode_cuda(q, kq, ks, vq, vs, mask, positions, scale)
 
 
 def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             ks_pool: torch.Tensor, v_pool: torch.Tensor,
                             vs_pool: torch.Tensor, page_table: torch.Tensor,
-                            visibility: torch.Tensor, scale: float,
+                            mask: torch.Tensor,
+                            positions: torch.Tensor | None, scale: float,
                             state: bool = False):
     """Launch csrc/flash_decode.cu in paged mode (one CUDA device); its
     state mode with state=True."""
@@ -224,11 +324,8 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     P, Hkv, page = k_pool.shape[:3]
     MP = page_table.shape[1]
     T = MP * page
-    if H % Hkv or D % 4:
-        raise ValueError(f"H={H}, Hkv={Hkv}, D={D}: need H % Hkv == 0 and "
-                         f"D % 4 == 0")
+    _check_shapes(S, H, Hkv, Tq, D, T, page, dev, "flash_decode_paged")
     q = q.float().contiguous()
-    vis = visibility.contiguous().view(torch.uint8)
     pt = page_table.to(torch.int32).contiguous()
     cuda_lib.require(q, "q", dev, (torch.float32,), (S, Tq, H, D))
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -236,11 +333,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     for name, t in (("ks_pool", ks_pool), ("vs_pool", vs_pool)):
         cuda_lib.require(t, name, dev, (torch.float32,), (P, Hkv, page))
     cuda_lib.require(pt, "page_table", dev, (torch.int32,), (S, MP))
-    cuda_lib.require(vis, "visibility", dev, (torch.uint8,), (S, Tq, T))
-    L = cuda_lib.lib()
-    R = (H // Hkv) * Tq
-    _check_smem(L, dev, R, Tq, T, D, "flash_decode_paged")
-    m_part, l_part, acc_part = _splits_scratch(L, S, Hkv, R, T, D, dev)
+    mask, positions = _mask_positions(mask, positions, dev, S, Tq, T)
     if state:
         out = torch.empty(S, H * Tq, D, dtype=torch.float32, device=dev)
         m_out = torch.empty(S, H * Tq, dtype=torch.float32, device=dev)
@@ -248,12 +341,12 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     else:
         out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
         m_out = l_out = None
-    rc = L.ps_flash_decode_paged(
+    rc = cuda_lib.lib().ps_flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), ks_pool.data_ptr(),
-        v_pool.data_ptr(), vs_pool.data_ptr(), pt.data_ptr(), vis.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        out.data_ptr(), cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq, H,
-        Hkv, MP, page, P, D, float(scale), cuda_lib.stream(dev))
+        v_pool.data_ptr(), vs_pool.data_ptr(), pt.data_ptr(),
+        mask.data_ptr(), cuda_lib.ptr(positions), out.data_ptr(),
+        cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq, H, Hkv, MP, page, P,
+        D, float(scale), cuda_lib.stream(dev))
     name = "flash_decode_paged_state" if state else "flash_decode_paged"
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.check(rc, name)
@@ -263,32 +356,34 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        ks_pool: torch.Tensor, v_pool: torch.Tensor,
                        vs_pool: torch.Tensor, page_table: torch.Tensor,
-                       visibility: torch.Tensor, scale: float,
-                       state: bool = False):
+                       mask: torch.Tensor, positions: torch.Tensor | None,
+                       scale: float, state: bool = False):
     """q: [S, Tq, H, D]; k_pool/v_pool: [P, Hkv, page, D] int8;
     ks_pool/vs_pool: [P, Hkv, page]; page_table: [S, MP] int32 (P =
-    unallocated); visibility: [S, Tq, MP * page] bool.
+    unallocated); mask: [S, MP * page] bool; positions: [S, Tq] int or
+    None (the mask alone).
     Returns [S, Tq, H*D] f32; with state=True the unnormalized partition
     (o [S, R, D], m [S, R], l [S, R]), R = (h, g, tq) with tq minor."""
     if q.device.type == "cpu":
         return flash_decode_paged_reference(q, k_pool, ks_pool, v_pool,
-                                            vs_pool, page_table, visibility,
-                                            scale, state=state)
+                                            vs_pool, page_table, mask,
+                                            positions, scale, state=state)
     return flash_decode_paged_cuda(q, k_pool, ks_pool, v_pool, vs_pool,
-                                   page_table, visibility, scale, state)
+                                   page_table, mask, positions, scale, state)
 
 
 def flash_decode_paged_deferred(q: torch.Tensor, k_pool: torch.Tensor,
                                 ks_pool: torch.Tensor, v_pool: torch.Tensor,
                                 vs_pool: torch.Tensor,
                                 page_table: torch.Tensor,
-                                vis_committed: torch.Tensor,
+                                mask: torch.Tensor,
                                 knew_q: torch.Tensor, knew_s: torch.Tensor,
                                 vnew_q: torch.Tensor, vnew_s: torch.Tensor,
                                 intra_vis: torch.Tensor,
                                 scale: float) -> torch.Tensor:
     """Paged flash-decode with an in-flight block of new K/V that is not
-    in the pool yet: the committed pages through the state mode, the new
+    in the pool yet: the committed pages (mask [S, MP * page]) through the
+    state mode, the new
     block (knew_q/vnew_q int8 [S, Hkv, Tq, D], scales [S, Hkv, Tq],
     intra_vis bool [S, Tq, Tq]) as a second softmax partition, merged as
     the JAX package merges them. A partition that a row does not see at
@@ -297,7 +392,7 @@ def flash_decode_paged_deferred(q: torch.Tensor, k_pool: torch.Tensor,
     Hkv = k_pool.shape[1]
     G = H // Hkv
     o1, m1, l1 = flash_decode_paged(q, k_pool, ks_pool, v_pool, vs_pool,
-                                    page_table, vis_committed, scale,
+                                    page_table, mask, None, scale,
                                     state=True)
     qg = q.reshape(S, Tq, Hkv, G, D).to(torch.bfloat16).float()
     sn = torch.einsum("sqhgd,shkd->shgqk", qg, knew_q.float())

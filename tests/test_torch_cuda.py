@@ -296,48 +296,6 @@ def test_fused_glu_kernel_at_llama8b_ffn_depth(dev, m):
     _close(got, ref, slack=glu_rounding_slack(lin, gu).cpu())
 
 
-@pytest.mark.parametrize("S,Tq,H,Hkv,D,T", [
-    (1, 1, 4, 2, 16, 37), (2, 3, 8, 2, 64, 130), (1, 1, 32, 8, 128, 1024),
-    (3, 1, 14, 2, 64, 64), (1, 16, 8, 8, 128, 200)])
-def test_flash_decode_kernel(dev, S, Tq, H, Hkv, D, T):
-    g = torch.Generator(device=dev)
-    g.manual_seed(T)
-    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
-    kq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    vq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    ks = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
-    vs = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
-    vis = torch.rand(S, Tq, T, generator=g, device=dev) < 0.7
-    vis[0, 0] = False  # a row that sees nothing stays finite
-    args = (q, kq, ks, vq, vs, vis, 1.0 / D ** 0.5)
-    got = flash_decode_cuda(*args)
-    assert torch.isfinite(got).all()
-    _close(got, flash_decode_quant_reference(*args))
-
-
-@pytest.mark.parametrize("seen", [1, 100, 700])
-def test_flash_decode_skips_unseen_chunks(dev, seen):
-    """Rows that all see a prefix of a long cache: the kernel skips the
-    chunks past it and still matches the twin, which walks all of T."""
-    g = torch.Generator(device=dev)
-    g.manual_seed(seen)
-    S, Tq, H, Hkv, D, T = 2, 1, 32, 8, 128, 2048
-    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
-    kq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    vq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    ks = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
-    vs = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
-    vis = torch.zeros(S, Tq, T, dtype=torch.bool, device=dev)
-    vis[:, :, :seen] = True
-    vis[1, :, 1500] = True  # a lone visible token far out
-    args = (q, kq, ks, vq, vs, vis, 1.0 / D ** 0.5)
-    _close(flash_decode_cuda(*args), flash_decode_quant_reference(*args))
-
-
 def _cache(g, dev, S, Hkv, T, D):
     kq, vq = (torch.randint(-127, 128, (S, Hkv, T, D), generator=g,
                             device=dev, dtype=torch.int8) for _ in range(2))
@@ -422,6 +380,104 @@ def _page_table(g, dev, S, MP, P, n_alloc):
     return pt
 
 
+def _mask_positions(g, dev, S, Tq, T, p=0.7):
+    """A random cache mask [S, T] and positions [S, Tq] with -1, past T
+    and repeats; slot 0 sees nothing at all."""
+    mask = torch.rand(S, T, generator=g, device=dev) < p
+    pos = torch.randint(0, T, (S, Tq), generator=g, device=dev,
+                        dtype=torch.int32)
+    if Tq > 1:
+        pos[-1, 0] = -1
+        pos[-1, -1] = pos[-1, Tq // 2]
+    mask[0] = False
+    pos[0] = -1
+    pos[0, 0] = T
+    return mask, pos
+
+
+@pytest.mark.parametrize("S,Tq,H,Hkv,D,T", [
+    (1, 1, 4, 2, 16, 37), (2, 3, 8, 2, 64, 130), (1, 1, 32, 8, 128, 1024),
+    (3, 1, 14, 2, 64, 64), (1, 16, 8, 8, 128, 200),
+    # every split and token-group count, the head sizes of the presets
+    # (16, 64, 128; 40 and 96 pad to the mma's 16), up to 8 row tiles
+    (2, 5, 32, 8, 128, 1000), (2, 1, 32, 8, 128, 2048),
+    (2, 4, 16, 2, 64, 4096), (2, 16, 16, 2, 128, 2048),
+    (2, 7, 14, 2, 64, 300), (2, 2, 4, 2, 16, 4096), (2, 1, 8, 2, 96, 130),
+    (2, 2, 4, 1, 40, 77)])
+def test_flash_decode_kernel(dev, S, Tq, H, Hkv, D, T):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T)
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+    vs = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+    mask, pos = _mask_positions(g, dev, S, Tq, T)
+    args = (q, kq, ks, vq, vs, mask, pos, 1.0 / D ** 0.5)
+    got = flash_decode_cuda(*args)
+    assert torch.isfinite(got).all()  # slot 0's rows see nothing
+    _close(got, flash_decode_quant_reference(*args))
+
+
+@pytest.mark.parametrize("seen", [1, 100, 700])
+def test_flash_decode_skips_unseen_chunks(dev, seen):
+    """Rows that all see a prefix of a long cache: the kernel skips the
+    chunks past it and still matches the twin, which walks all of T."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seen)
+    S, Tq, H, Hkv, D, T = 2, 1, 32, 8, 128, 2048
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (S, Hkv, T, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+    vs = torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+    mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+    mask[:, :seen] = True
+    mask[1, 1500] = True  # a lone visible token far out
+    pos = torch.full((S, Tq), -1, dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, mask, pos, 1.0 / D ** 0.5)
+    _close(flash_decode_cuda(*args), flash_decode_quant_reference(*args))
+
+
+def test_flash_decode_one_launch_same_bits(dev):
+    """Each mode is one kernel launch (the split merge runs inside it)
+    and gives the same bits on every run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    S, Tq, H, Hkv, D, T, page = 4, 5, 32, 8, 128, 2048, 64
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    mask, pos = _mask_positions(g, dev, S, Tq, T)
+    MP = T // page
+    pt = _page_table(g, dev, S, MP, S * MP, [MP] * S)
+    kp, ksp, vp, vsp = _cache(g, dev, S * MP, Hkv, page, D)
+    calls = {
+        "flash_decode": lambda: flash_decode_cuda(
+            q, kq, ks, vq, vs, mask, pos, 0.1),
+        "flash_decode_paged": lambda: flash_decode_paged_cuda(
+            q, kp, ksp, vp, vsp, pt, mask, pos, 0.1),
+        "flash_decode_paged_state": lambda: flash_decode_paged_cuda(
+            q, kp, ksp, vp, vsp, pt, mask, None, 0.1, state=True)[0]}
+    for name, fn in calls.items():
+        first = fn()
+        torch.cuda.synchronize()
+        before = cuda_lib.launch_counts()[name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = fn()
+            torch.cuda.synchronize()
+        assert cuda_lib.launch_counts()[name] == before + 1
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "flash_decode" in kernels[0], kernels
+        assert torch.equal(first, again), name
+
+
 @pytest.mark.parametrize("page", [8, 16, 64, 128])
 @pytest.mark.parametrize("S,Tq,H,Hkv,D,MP_tokens", [
     (8, 1, 32, 8, 128, 2048), (3, 2, 8, 2, 64, 512), (2, 1, 4, 2, 16, 256)])
@@ -439,23 +495,28 @@ def test_flash_decode_paged_kernel(dev, page, S, Tq, H, Hkv, D, MP_tokens):
     ksp, vsp = (torch.rand(P, Hkv, page, generator=g, device=dev) * 0.05
                 for _ in range(2))
     T = MP * page
-    vis = (torch.arange(T, device=dev)[None, None, :]
-           < torch.tensor(filled, device=dev)[:, None, None]).expand(
-               S, Tq, T).clone()
-    args = (q, kp, ksp, vp, vsp, pt, vis, 1.0 / D ** 0.5)
+    # the committed positions, and the new rows at filled[s] + j (past the
+    # allocated pages: clipped, as the pool clips them)
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor(filled, device=dev)[:, None])
+    pos = (torch.tensor(filled, device=dev)[:, None]
+           + torch.arange(Tq, device=dev)[None, :]).to(torch.int32)
+    args = (q, kp, ksp, vp, vsp, pt, mask, pos, 1.0 / D ** 0.5)
     before = cuda_lib.launch_counts()["flash_decode_paged"]
     got = flash_decode_paged_cuda(*args)
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts()["flash_decode_paged"] == before + 1
     _close_flips(got, flash_decode_paged_reference(*args), vsp)
-    # a row that sees nothing reads clipped unallocated pages, finite
-    vis[0, 0] = False
+    # rows that see nothing read clipped unallocated pages, finite
+    mask[0] = False
+    pos[0] = -1
     got = flash_decode_paged_cuda(*args)
     assert torch.isfinite(got).all()
     _close_flips(got, flash_decode_paged_reference(*args), vsp)
 
 
-@pytest.mark.parametrize("S,Tq,page", [(8, 5, 64), (3, 1, 8), (2, 16, 16)])
+@pytest.mark.parametrize("S,Tq,page", [(8, 5, 64), (3, 1, 8), (2, 16, 16),
+                                       (4, 5, 128)])
 def test_flash_decode_paged_state_kernel(dev, S, Tq, page):
     """The state mode against the twin's state: o, m and l in the (h, g,
     tq) row order; the last slot sees no committed position, so its m
@@ -477,10 +538,9 @@ def test_flash_decode_paged_state_kernel(dev, S, Tq, page):
                             device=dev, dtype=torch.int8) for _ in range(2))
     ksp, vsp = (torch.rand(P, Hkv, page, generator=g, device=dev) * 0.05
                 for _ in range(2))
-    vis = (torch.arange(T, device=dev)[None, None, :]
-           < torch.tensor(filled, device=dev)[:, None, None]).expand(
-               S, Tq, T).clone()
-    args = (q, kp, ksp, vp, vsp, pt, vis, 1.0 / D ** 0.5)
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor(filled, device=dev)[:, None])
+    args = (q, kp, ksp, vp, vsp, pt, mask, None, 1.0 / D ** 0.5)
     before = cuda_lib.launch_counts()["flash_decode_paged_state"]
     o, m, l = flash_decode_paged_cuda(*args, state=True)
     torch.cuda.synchronize()
@@ -500,7 +560,7 @@ def test_flash_decode_paged_state_kernel(dev, S, Tq, page):
                 for _ in range(2))
     intra = torch.ones(Tq, Tq, dtype=torch.bool, device=dev).tril()
     intra = intra.expand(S, Tq, Tq).contiguous()
-    dargs = (*args[:7], knq, kns, vnq, vns, intra, args[7])
+    dargs = (*args[:7], knq, kns, vnq, vns, intra, args[8])
     got = flash_decode_paged_deferred(*dargs)
     ref = flash_decode_paged_deferred(*(t.cpu() if torch.is_tensor(t) else t
                                         for t in dargs))

@@ -67,25 +67,27 @@ def test_state_mode_matches_jax_kernel(S, Tq, filled):
     table, mask = _scrambled(rng, S, MP, P, filled, page)
     q = rng.standard_normal((S, Tq, H, D)).astype(np.float32)
     vis = np.broadcast_to(mask[:, None, :], (S, Tq, MP * page)).copy()
-    args = (q, kp, ksp, vp, vsp, table, vis)
+    jargs = (q, kp, ksp, vp, vsp, table, vis)
+    args = (q, kp, ksp, vp, vsp, table, mask)
     jo, jm, jl = (np.asarray(a) for a in jflash_decode_paged(
-        *(jnp.asarray(a) for a in args), SCALE, page_size=page,
+        *(jnp.asarray(a) for a in jargs), SCALE, page_size=page,
         interpret=True, state=True))
     # the JAX kernel's own page-sized chunks in one sequence: the same
     # online-softmax roundings but for the f32 dot order; then the port's
-    # 64-token chunks in 256-token splits (p * vs rounded to bf16 at other
-    # running maxima, ~2^-9 relative per probability)
-    for chunk, split, rel in ((page, None, 1e-5), (64, 256, 3e-3)):
+    # 16-token steps in the kernel's splits (p * vs rounded to bf16 at
+    # other running maxima, ~2^-9 relative per probability)
+    for chunk, split, rel in ((page, MP * page, 1e-5), (16, None, 3e-3)):
         o, m, l = flash_decode_paged_reference(
-            *(_t(a) for a in args), SCALE, chunk=chunk, split=split,
+            *(_t(a) for a in args), None, SCALE, chunk=chunk, split=split,
             state=True)
         assert o.shape == (S, H * Tq, D) and m.shape == l.shape == (S, H * Tq)
         np.testing.assert_allclose(m.numpy(), jm, rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(l.numpy(), jl, rtol=rel, atol=0)
         assert np.abs(o.numpy() - jo).max() <= rel * np.abs(jo).max()
     # the wrapper on CPU tensors is the twin with the kernel's chunks
-    got = flash_decode_paged(*(_t(a) for a in args), SCALE, state=True)
-    ref = flash_decode_paged_reference(*(_t(a) for a in args), SCALE,
+    got = flash_decode_paged(*(_t(a) for a in args), None, SCALE,
+                             state=True)
+    ref = flash_decode_paged_reference(*(_t(a) for a in args), None, SCALE,
                                        state=True)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
@@ -100,10 +102,9 @@ def test_state_rows_are_tq_minor():
     kp, ksp, vp, vsp = _pool(rng, P, page)
     table, mask = _scrambled(rng, S, MP, P, [50, 33], page)
     q = rng.standard_normal((S, Tq, H, D)).astype(np.float32)
-    vis = np.broadcast_to(mask[:, None, :], (S, Tq, MP * page)).copy()
-    args = [_t(a) for a in (q, kp, ksp, vp, vsp, table, vis)]
-    o, m, l = flash_decode_paged(*args, SCALE, state=True)
-    out = flash_decode_paged(*args, SCALE)
+    args = [_t(a) for a in (q, kp, ksp, vp, vsp, table, mask)]
+    o, m, l = flash_decode_paged(*args, None, SCALE, state=True)
+    out = flash_decode_paged(*args, None, SCALE)
     norm = (o / l[..., None]).reshape(S, HKV, H // HKV, Tq, D)
     norm = norm.permute(0, 3, 1, 2, 4).reshape(S, Tq, H * D)
     assert torch.allclose(norm, out, rtol=1e-5, atol=1e-6)
@@ -122,11 +123,14 @@ def test_deferred_matches_jax(Tq):
     intra = intra.copy()
     intra[1, :, Tq - 1] = False  # an out-of-range lane nobody sees
     vis_c = np.broadcast_to(mask[:, None, :], (S, Tq, MP * page)).copy()
-    args = (q, kp, ksp, vp, vsp, table, vis_c, knq, kns, vnq, vns, intra)
+    inflight = (knq, kns, vnq, vns, intra)
+    args = (q, kp, ksp, vp, vsp, table, vis_c) + inflight
     want = np.asarray(jdeferred(*(jnp.asarray(a) for a in args), SCALE,
                                 page_size=page, interpret=True))
-    got = flash_decode_paged_deferred(*(_t(a) for a in args), SCALE).numpy()
-    # the committed partition through the kernel's 64-token chunks (see
+    got = flash_decode_paged_deferred(
+        *(_t(a) for a in (q, kp, ksp, vp, vsp, table, mask) + inflight),
+        SCALE).numpy()
+    # the committed partition through the kernel's 16-token steps (see
     # above); the in-flight one is the same arithmetic
     assert np.abs(got - want).max() <= 3e-3 * np.abs(want).max()
     jp = JPagedKVCache(k=jnp.asarray(kp)[None], v=jnp.asarray(vp)[None],
@@ -160,13 +164,16 @@ def test_deferred_empty_cache():
     intra = np.tril(np.ones((Tq, Tq), bool))[None].copy()
     vis_c = np.broadcast_to(mask[:, None, :], (S, Tq, MP * page)).copy()
     _, m, _ = flash_decode_paged(*(_t(a) for a in (q, kp, ksp, kp, ksp,
-                                                   table, vis_c)),
-                                 SCALE, state=True)
+                                                   table, mask)),
+                                 None, SCALE, state=True)
     assert (m <= NEG_INF / 2).all()
-    args = (q, kp, ksp, kp, ksp, table, vis_c, knq, kns, vnq, vns, intra)
+    inflight = (knq, kns, vnq, vns, intra)
+    args = (q, kp, ksp, kp, ksp, table, vis_c) + inflight
     want = np.asarray(jdeferred(*(jnp.asarray(a) for a in args), SCALE,
                                 page_size=page, interpret=True))
-    got = flash_decode_paged_deferred(*(_t(a) for a in args), SCALE).numpy()
+    got = flash_decode_paged_deferred(
+        *(_t(a) for a in (q, kp, ksp, kp, ksp, table, mask) + inflight),
+        SCALE).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     ref = np.asarray(jdeferred_xla(
         jnp.asarray(q), jnp.zeros((S, HKV, MP * page, D), jnp.int8),

@@ -127,13 +127,15 @@ def test_cpu_tensors_run_the_plain_twins():
     kq = torch.zeros(1, 1, 8, 16, dtype=torch.int8)
     ks = torch.zeros(1, 1, 8)
     flash_decode_quant(torch.ones(1, 1, 2, 16), kq, ks, kq, ks,
-                       torch.ones(1, 1, 8, dtype=torch.bool), 0.25)
+                       torch.ones(1, 8, dtype=torch.bool),
+                       torch.zeros(1, 1, dtype=torch.int32), 0.25)
     flash_prefill_quant(torch.ones(1, 20, 2, 16), kq, ks, kq, ks,
                         torch.zeros(1, 8, dtype=torch.bool),
                         torch.zeros(1, dtype=torch.int32), 0.25)
     flash_decode_paged(torch.ones(1, 1, 2, 16), kq, ks, kq, ks,
                        torch.zeros(1, 1, dtype=torch.int32),
-                       torch.ones(1, 1, 8, dtype=torch.bool), 0.25)
+                       torch.ones(1, 8, dtype=torch.bool),
+                       torch.zeros(1, 1, dtype=torch.int32), 0.25)
     assert cuda_lib.launch_counts() == before
 
 
@@ -208,11 +210,11 @@ def test_speculation_runs_the_twins_and_defaults_to_cuda(tmp_path):
     kq = torch.zeros(1, 1, 8, 16, dtype=torch.int8)
     ks = torch.zeros(1, 1, 8)
     pt = torch.zeros(1, 1, dtype=torch.int32)
-    vis = torch.ones(1, 2, 8, dtype=torch.bool)
+    mask = torch.ones(1, 8, dtype=torch.bool)
     q = torch.ones(1, 2, 2, 16)
-    flash_decode_paged(q, kq, ks, kq, ks, pt, vis, 0.25, state=True)
+    flash_decode_paged(q, kq, ks, kq, ks, pt, mask, None, 0.25, state=True)
     new, news = torch.zeros(1, 1, 2, 16, dtype=torch.int8), torch.ones(1, 1, 2)
-    flash_decode_paged_deferred(q, kq, ks, kq, ks, pt, vis, new, news, new,
+    flash_decode_paged_deferred(q, kq, ks, kq, ks, pt, mask, new, news, new,
                                 news, torch.ones(1, 2, 2, dtype=torch.bool),
                                 0.25)
     assert cuda_lib.launch_counts() == before

@@ -15,6 +15,8 @@ from powerserve_tpu.kv.paged import PagedKVCache as JPagedKVCache
 from powerserve_tpu.kv.paged import PagePool as JPagePool
 from powerserve_tpu.models.llama import forward as jforward
 from powerserve_tpu.models.loader import load_gguf_model as jload
+from powerserve_tpu.ops.attention import (
+    build_visibility as jbuild_visibility)
 from powerserve_tpu.ops.flash_decode import (
     flash_decode_paged as jflash_decode_paged)
 from powerserve_tpu_torch.core.gguf import GGMLType
@@ -167,25 +169,28 @@ def test_twin_matches_jax_paged_kernel(page):
     perm = rng.permutation(Pp)
     table[0] = perm[:MP]
     table[1, :3] = perm[MP:MP + 3]
-    vis = np.zeros((Sq, Tq, MP * page), bool)
-    vis[0, :, :70] = True
-    vis[1, :, :3 * page - 5] = True
-    args = (q, kp, ksp, vp, vsp, table, vis)
+    mask = np.zeros((Sq, MP * page), bool)
+    mask[0, :69] = True
+    mask[1, :3 * page - 6] = True
+    pos = np.array([[69], [3 * page - 6]], np.int32)  # the new rows
+    vis = np.asarray(jbuild_visibility(jnp.asarray(mask), jnp.asarray(pos),
+                                       None))
     scale = 1.0 / np.sqrt(Dh)
-    want = np.asarray(jflash_decode_paged(*(jnp.asarray(a) for a in args),
-                                          scale, page_size=page,
-                                          interpret=True))
-    targs = [torch.from_numpy(np.array(a)) for a in args]
+    want = np.asarray(jflash_decode_paged(
+        *(jnp.asarray(a) for a in (q, kp, ksp, vp, vsp, table, vis)),
+        scale, page_size=page, interpret=True))
+    targs = [torch.from_numpy(np.array(a))
+             for a in (q, kp, ksp, vp, vsp, table, mask, pos)]
     from powerserve_tpu_torch.ops.flash_decode import (
         flash_decode_paged_reference)
     got = flash_decode_paged_reference(*targs, scale, chunk=page,
-                                       split=None).numpy()
+                                       split=MP * page).numpy()
     rel = np.abs(got - want).max() / np.abs(want).max()
     # one chunk per page, as the JAX kernel walks them: only the order of
     # the f32 dot sums differs
     assert rel < 1e-5
-    # the kernel's own 64-token chunks in 256-token splits round p * vs to
-    # bf16 at other running maxima (2^-9 relative per probability)
+    # the kernel's own 16-token steps in its splits round p * vs to bf16
+    # at other running maxima (2^-9 relative per probability)
     port = flash_decode_paged(*targs, scale).numpy()
     assert np.abs(port - want).max() / np.abs(want).max() < 3e-3
 
