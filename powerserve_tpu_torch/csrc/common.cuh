@@ -1,6 +1,6 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
-// descriptor, the dequant of one 32-row scale block for four adjacent
-// output columns, the tensor-core and copy primitives (mma.sync
+// descriptor and the dequant of its bytes (the prefill GEMM's), the
+// tensor-core and copy primitives (mma.sync
 // m16n8k16 bf16 -> f32, ldmatrix, cp.async) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
@@ -169,47 +169,4 @@ __device__ __forceinline__ float dequant_byte(uint32_t word, int j, int shift,
   else
     val = (int)(int8_t)((word >> (8 * j)) & 255u);
   return (float)val * s - b;
-}
-
-// acc[m][j] += sum over the 32 rows k of block kb of
-//   xk[m * x_stride + (k - 32 kb)] * w[k, n0 + j]  (m < M; xk bf16, the
-//   block's 32 values of row 0, in global or shared memory).
-template <int MT>
-__device__ __forceinline__ void gemv_block_at(const QWeight& w, int kb, int n0,
-                                              bool vec,
-                                              const __nv_bfloat16* xk,
-                                              long x_stride, int M,
-                                              float (&acc)[MT][4]) {
-  float s[4], b[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int n = n0 + j;
-    bool ok = n < w.N;
-    long idx = (long)kb * w.N + n;
-    s[j] = ok ? ld_scale(w.scales, idx, w.scale_bf16) : 0.f;
-    b[j] = (ok && w.bias) ? ld_scale(w.bias, idx, w.scale_bf16) : 0.f;
-  }
-  int shift;
-  long row0 = block_row(w, kb, &shift);
-  // all 32 row loads are issued before any is used, so each thread keeps
-  // 128 bytes of weights in flight (the decode GEMV is latency-bound on
-  // these loads otherwise)
-  uint32_t words[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) words[i] = ld_row4(w.q, row0 + i, n0, w.N, vec);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const uint32_t word = words[i];
-    float wv[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wv[j] = dequant_byte(word, j, shift, w, s[j], b[j]);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float xv = __bfloat162float(xk[m * x_stride + i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
-      }
-    }
-  }
 }

@@ -21,73 +21,64 @@
 // What bounds it on an H100: weight bytes (the 8B head, K = 4096,
 // N = 128256 Q4_K with bf16 scales and mins, ~0.33 GB, ~98 us at
 // 3.35 TB/s; the glu down-projection, K = 14336, N = 4096, ~33 MB). The
-// design: a block per 128 output columns (N / 128 blocks keep the SMs
-// busy without a K split), eight warps splitting K into 32-row scale
-// blocks, each lane four adjacent columns — the qmatmul GEMV body. The
-// TPU kernel builds the whole prologue row in VMEM (glu per pack group);
-// staging a whole [M, K] bf16 row in shared memory does not fit the glu
-// down-projection (16 x 14336 x 2 bytes is past the 227 KB a block may
-// have), so each warp forms the prologue of the 32 k it is about to
-// multiply, for all M rows, into its own 32-wide shared slice: lane i
-// computes k = 32 kb + i, the warp syncs, then runs the GEMV on the
-// slice. The norm's per-row mean square is the one whole-row quantity;
-// every block computes it first (a sum over K of the operand sum). The
-// TPU kernel carries the running argmax across its sequential grid in
-// scratch; GPU blocks run in no order, so each block writes its (max,
-// first index) pair per row and a second tiny pass reduces the pairs,
-// preferring the smaller index on equal values.
-#include <climits>
-
-#include "common.cuh"
+// product is the decode GEMV of csrc/gemv.cuh, the one csrc/qmatmul.cu
+// runs: every packed weight byte read once by 16-byte cp.async, the
+// tensor cores on the exact integer values, the scale and minimum folded
+// once per 32-row block, K split over a cluster whose ranks add in a
+// fixed order. The design:
+//  - The prologue is formed once, by a first small pass that writes the
+//    bf16 rows x [M, K] (at most 16 x 14336 x 2 bytes = 458 KB, read
+//    back from the L2) and, in norm mode, the rms of each row once: the
+//    GEMV's loader reads x rows from global memory, so its main loop runs
+//    unchanged. The TPU kernel builds the whole prologue row in VMEM;
+//    forming it in each block instead (one launch) would recompute a
+//    K range of it in every one of the N / 128 column tiles (1002 at the
+//    head, each norm tile also rereading the row for its rms), and the
+//    GEMV's ring would have to read x from another place than global
+//    memory: a second main loop. chip_smoke.py times the pair beside the
+//    plain GEMV on the same weight and rows; the difference is the pass
+//    and its launch (PERF.md). An x prologue whose operand is already
+//    bf16 skips the pass.
+//  - The epilogue runs where the cluster adds its K splits: the rank
+//    that writes a column adds the bias and the residuals in the order
+//    above.
+//  - Argmax: that rank reduces its row's 128 columns to (max, first
+//    index) per column tile; a second tiny pass reduces the tiles,
+//    preferring the smaller index on equal values (the TPU kernel carries
+//    a running argmax across its sequential grid instead).
+#include "gemv.cuh"
 
 namespace {
 
-constexpr int kCols = 128;
-constexpr int kWarps = 8;
-
 enum Prologue { kX = 0, kNorm = 1, kGlu = 2, kConcat2 = 3 };
 
-struct Operand {
-  const void* p;
-  int bf16;
-};
-
-struct FusedArgs {
+struct ProArgs {
   Operand pro[3];
   int n_pro;
   int mode;
   int k1;  // concat2: width of the first part
   const float* nw;
   float eps;
-  const float* bias;  // f32 [N] or null
-  Operand res[2];
-  int n_res;
-  int M;
-  float* logits;  // f32 [M, N], or null for argmax
-  float* best_val;
-  int* best_idx;
+  int K;
 };
 
 __device__ __forceinline__ float ld(const Operand& o, long i) {
   return ld_scale(o.p, i, o.bf16);
 }
 
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ float norm_sum(const FusedArgs& a, long i) {
+__device__ __forceinline__ float norm_sum(const ProArgs& a, long i) {
   float s = ld(a.pro[0], i);
   for (int j = 1; j < a.n_pro; ++j) s += ld(a.pro[j], i);
   return s;
 }
 
 // the prologue value of row m, column k, before the bf16 rounding
-__device__ __forceinline__ float prologue(const FusedArgs& a, int K, int m,
-                                          int k, const float* rstd) {
+__device__ __forceinline__ float prologue(const ProArgs& a, int m, int k,
+                                          float rstd) {
+  const int K = a.K;
   switch (a.mode) {
     case kNorm:
-      return norm_sum(a, (long)m * K + k) * rstd[m] * a.nw[k];
+      return norm_sum(a, (long)m * K + k) * rstd * a.nw[k];
     case kGlu: {
       const float g = ld(a.pro[0], (long)m * 2 * K + k);
       const float u = ld(a.pro[0], (long)m * 2 * K + K + k);
@@ -101,113 +92,60 @@ __device__ __forceinline__ float prologue(const FusedArgs& a, int K, int m,
   }
 }
 
-template <int MT>
-__global__ __launch_bounds__(256) void fused_linear_kernel(QWeight w,
-                                                           FusedArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 slice[kWarps][MT * 32];
-  __shared__ float red[kWarps][kCols];
-  __shared__ float rstd[MT];
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 32 + lane;
-  const int K = w.K, N = w.N, M = a.M;
+// x [M, K] bf16, one element a thread: grid (K / 256, M); the norm takes
+// one block of 1024 threads per row, which keeps its first 8192 operand
+// sums in registers between the row's sum of squares and the writes
+constexpr int kProThreads = 256;
+constexpr int kNormThreads = 1024;
+constexpr int kKeep = 8;
 
-  // norm: per-row rms of the operand sum over K
-  if (a.mode == kNorm) {
-    for (int m = 0; m < M; ++m) {
-      float ss = 0.f;
-      for (int k = tid; k < K; k += 256) {
-        const float s = norm_sum(a, (long)m * K + k);
-        ss = fmaf(s, s, ss);
-      }
-#pragma unroll
-      for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-      if (lane == 0) red[0][ty] = ss;
-      __syncthreads();
-      if (tid == 0) {
-        float tot = 0.f;
-#pragma unroll
-        for (int t = 0; t < kWarps; ++t) tot += red[0][t];
-        rstd[m] = rsqrtf(tot / (float)K + a.eps);  // as torch.rsqrt on CUDA
-      }
-      __syncthreads();
-    }
+__global__ __launch_bounds__(kNormThreads) void prologue_kernel(
+    ProArgs a, __nv_bfloat16* x) {
+  __shared__ float red[kNormThreads / 32];
+  __shared__ float rstd_s;
+  // the GEMV may launch now: it waits for this grid before reading x
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int m = blockIdx.y, tid = threadIdx.x;
+  const int K = a.K;
+  const long row = (long)m * K;
+  if (a.mode != kNorm) {
+    const int k = blockIdx.x * blockDim.x + tid;
+    if (k < K) x[row + k] = __float2bfloat16(prologue(a, m, k, 0.f));
+    return;
   }
-
-  const int n0 = (blockIdx.x * 32 + lane) * 4;
-  const bool vec = (N % 4) == 0;
-  float acc[MT][4];
+  float keep[kKeep], ss = 0.f;
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-  __nv_bfloat16* xs = slice[ty];
-  for (int kb = ty; kb < K / 32; kb += kWarps) {
-    const int k = kb * 32 + lane;
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-      if (m < M) xs[m * 32 + lane] = __float2bfloat16(prologue(a, K, m, k, rstd));
-    __syncwarp();
-    if (n0 < N) gemv_block_at<MT>(w, kb, n0, vec, xs, 32, M, acc);
-    __syncwarp();
+  for (int j = 0; j < kKeep; ++j) {
+    const int k = tid + j * kNormThreads;
+    keep[j] = k < K ? norm_sum(a, row + k) : 0.f;
   }
-
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[ty][lane * 4 + j] = acc[m][j];
-      __syncthreads();
-      if (ty == 0) {
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[j] = 0.f;
-#pragma unroll
-          for (int t = 0; t < kWarps; ++t) v[j] += red[t][lane * 4 + j];
-          const int n = n0 + j;
-          if (n < N) {
-            if (a.bias) v[j] += a.bias[n];
-            if (a.n_res) {
-              float rs = ld(a.res[0], (long)m * N + n);
-              if (a.n_res > 1) rs += ld(a.res[1], (long)m * N + n);
-              v[j] = rs + v[j];
-            }
-          }
-        }
-        if (a.logits) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n0 + j < N) a.logits[(long)m * N + n0 + j] = v[j];
-        } else {
-          float bv = -INFINITY;
-          int bi = INT_MAX;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n0 + j < N && better(v[j], n0 + j, bv, bi)) {
-              bv = v[j];
-              bi = n0 + j;
-            }
-#pragma unroll
-          for (int o = 16; o; o >>= 1) {
-            float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-            int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-            if (better(ov, oi, bv, bi)) {
-              bv = ov;
-              bi = oi;
-            }
-          }
-          if (lane == 0) {
-            a.best_val[(long)blockIdx.x * M + m] = bv;
-            a.best_idx[(long)blockIdx.x * M + m] = bi;
-          }
-        }
-      }
-      __syncthreads();
-    }
+  for (int j = 0; j < kKeep; ++j) ss = fmaf(keep[j], keep[j], ss);
+  for (int k = tid + kKeep * kNormThreads; k < K; k += kNormThreads) {
+    const float v = norm_sum(a, row + k);
+    ss = fmaf(v, v, ss);
   }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if ((tid & 31) == 0) red[tid >> 5] = ss;
+  __syncthreads();
+  if (tid == 0) {
+    float tot = 0.f;
+    for (int t = 0; t < kNormThreads / 32; ++t) tot += red[t];
+    rstd_s = rsqrtf(tot / (float)K + a.eps);  // as torch.rsqrt on CUDA
+  }
+  __syncthreads();
+  const float rstd = rstd_s;
+#pragma unroll
+  for (int j = 0; j < kKeep; ++j) {
+    const int k = tid + j * kNormThreads;
+    if (k < K) x[row + k] = __float2bfloat16(keep[j] * rstd * a.nw[k]);
+  }
+  for (int k = tid + kKeep * kNormThreads; k < K; k += kNormThreads)
+    x[row + k] = __float2bfloat16(prologue(a, m, k, rstd));
 }
 
-// one block per row: reduce the per-block (max, index) pairs
+// one block per row: reduce the per-tile (max, index) pairs
 __global__ __launch_bounds__(256) void argmax_reduce_kernel(
     const float* best_val, const int* best_idx, int nblk, int M, int* out) {
   __shared__ float sv[8];
@@ -248,26 +186,20 @@ __global__ __launch_bounds__(256) void argmax_reduce_kernel(
   }
 }
 
-template <int MT>
-void launch(const QWeight& w, const FusedArgs& a, cudaStream_t stream) {
-  dim3 grid((w.N + kCols - 1) / kCols);
-  dim3 block(32, kWarps);
-  fused_linear_kernel<MT><<<grid, block, 0, stream>>>(w, a);
-}
-
 }  // namespace
 
 // mode: 0 x, 1 norm, 2 glu, 3 concat2; p0..p2 the prologue operands
 // (n_pro of them; bit i of pro_bf16 set when operand i is bf16, else
 // f32), [M, K] each except glu ([M, 2K]) and concat2 ([M, k1], [M, K -
-// k1]); norm_w f32 [K] (norm only). bias f32 [N] or null; r0, r1 the
-// n_res residuals [M, N] (bit i of res_bf16: bf16). logits f32 [M, N]
-// when out_idx is null; else best_val/best_idx [ceil(N/128), M] scratch
-// and out_idx int32 [M]. Returns a CUDA error code (0 on success).
+// k1]); norm_w f32 [K] (norm only); x bf16 [M, K] scratch for the
+// prologue. bias f32 [N] or null; r0, r1 the n_res residuals [M, N]
+// (bit i of res_bf16: bf16). logits f32 [M, N] when out_idx is null;
+// else best_val/best_idx [ceil(N/128), M] scratch and out_idx int32 [M].
+// Returns a CUDA error code (0 on success).
 PS_EXPORT int ps_fused_linear(int mode, int n_pro, const void* p0,
                               const void* p1, const void* p2, int pro_bf16,
                               int k1, const void* norm_w, float eps,
-                              const void* q, const void* scales,
+                              void* x, const void* q, const void* scales,
                               const void* wmin, int M, int K, int N,
                               int packed, int group, int offset,
                               int scale_bf16, const void* bias, int n_res,
@@ -275,9 +207,10 @@ PS_EXPORT int ps_fused_linear(int mode, int n_pro, const void* p0,
                               void* logits, void* best_val, void* best_idx,
                               void* out_idx, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  if (M <= 0 || M > 16) return (int)cudaErrorInvalidValue;
   QWeight w{reinterpret_cast<const uint8_t*>(q), scales, wmin, K, N,
             packed, group, offset, scale_bf16};
-  FusedArgs a{};
+  ProArgs a{};
   const void* ps[3] = {p0, p1, p2};
   for (int i = 0; i < 3; ++i) a.pro[i] = Operand{ps[i], (pro_bf16 >> i) & 1};
   a.n_pro = n_pro;
@@ -285,28 +218,36 @@ PS_EXPORT int ps_fused_linear(int mode, int n_pro, const void* p0,
   a.k1 = k1;
   a.nw = reinterpret_cast<const float*>(norm_w);
   a.eps = eps;
-  a.bias = reinterpret_cast<const float*>(bias);
-  a.res[0] = Operand{r0, res_bf16 & 1};
-  a.res[1] = Operand{r1, (res_bf16 >> 1) & 1};
-  a.n_res = n_res;
-  a.M = M;
-  a.logits = out_idx ? nullptr : reinterpret_cast<float*>(logits);
-  a.best_val = reinterpret_cast<float*>(best_val);
-  a.best_idx = reinterpret_cast<int*>(best_idx);
-  if (M <= 1)
-    launch<1>(w, a, stream);
-  else if (M <= 2)
-    launch<2>(w, a, stream);
-  else if (M <= 4)
-    launch<4>(w, a, stream);
-  else if (M <= 8)
-    launch<8>(w, a, stream);
-  else
-    launch<16>(w, a, stream);
+  a.K = K;
+  const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+  const bool direct =
+      mode == kX && (pro_bf16 & 1) && ((uintptr_t)p0 & 15) == 0;
+  if (direct) {
+    xb = reinterpret_cast<const __nv_bfloat16*>(p0);  // already the rows
+  } else {
+    const bool norm = mode == kNorm;
+    const dim3 grid(norm ? 1 : (K + kProThreads - 1) / kProThreads, M);
+    prologue_kernel<<<grid, norm ? kNormThreads : kProThreads, 0, stream>>>(
+        a, reinterpret_cast<__nv_bfloat16*>(x));
+  }
+  GemvEpilogue ep{};
+  ep.bias = reinterpret_cast<const float*>(bias);
+  ep.res[0] = Operand{r0, res_bf16 & 1};
+  ep.res[1] = Operand{r1, (res_bf16 >> 1) & 1};
+  ep.n_res = n_res;
   if (out_idx) {
-    const int nblk = (N + kCols - 1) / kCols;
+    ep.best_val = reinterpret_cast<float*>(best_val);
+    ep.best_idx = reinterpret_cast<int*>(best_idx);
+  }
+  const Slabs sl{nullptr, 1, 0, 0};
+  const cudaError_t e = launch_gemv(w, sl, xb, M, 1,
+                                    reinterpret_cast<float*>(logits), ep,
+                                    stream, !direct);
+  if (e != cudaSuccess) return (int)e;
+  if (out_idx) {
+    const int nblk = (N + kBlockCols - 1) / kBlockCols;
     argmax_reduce_kernel<<<M, 256, 0, stream>>>(
-        a.best_val, a.best_idx, nblk, M, reinterpret_cast<int*>(out_idx));
+        ep.best_val, ep.best_idx, nblk, M, reinterpret_cast<int*>(out_idx));
   }
   return (int)cudaGetLastError();
 }

@@ -128,8 +128,8 @@ def lib() -> ctypes.CDLL:
         L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 4 + [P]
         L.ps_qmatmul_w8.restype = I
         L.ps_fused_linear.argtypes = [I, I, P, P, P, I, I, P, F, P, P, P,
-                                      I, I, I, I, I, I, I, P, I, P, P, I,
-                                      P, P, P, P, P]
+                                      P, I, I, I, I, I, I, I, P, I, P, P,
+                                      I, P, P, P, P, P]
         L.ps_fused_linear.restype = I
         L.ps_flash_decode.argtypes = [P] * 8 + [I] * 6 + [F, P]
         L.ps_flash_decode.restype = I

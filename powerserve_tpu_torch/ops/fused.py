@@ -1,5 +1,6 @@
-"""Fused linear: prologue + quantized matmul + epilogue in one kernel
-(csrc/fused_linear.cu), the JAX package's fused_linear.
+"""Fused linear: prologue + quantized matmul + epilogue (csrc/
+fused_linear.cu: a prologue pass, then the decode GEMV of csrc/gemv.cuh
+with the epilogue in its merge), the JAX package's fused_linear.
 
 Exactly one prologue forms the bf16 matmul input x [M, K]:
   x:       an activation [M, K], rounded to bf16
@@ -214,13 +215,15 @@ def fused_linear_cuda(lin: QLinear, pro: str, ops: list,
         best_val = best_idx = None
     if m == 0:
         return out
+    x = torch.empty(m, k, dtype=torch.bfloat16, device=dev)  # the prologue
     p = [cuda_lib.ptr(o) for o in ops] + [None] * (3 - len(ops))
     r = [cuda_lib.ptr(t) for t in resids] + [None] * (2 - len(resids))
     bits = lambda ts: sum(1 << i for i, t in enumerate(ts)  # noqa: E731
                           if t.dtype == torch.bfloat16)
     rc = cuda_lib.lib().ps_fused_linear(
         _PROLOGUES[pro], len(ops), *p, bits(ops), k1, cuda_lib.ptr(nw),
-        float(eps), q.data_ptr(), s.data_ptr(), cuda_lib.ptr(b), m, k, n,
+        float(eps), x.data_ptr(), q.data_ptr(), s.data_ptr(),
+        cuda_lib.ptr(b), m, k, n,
         packed, group, offset, sbf16, cuda_lib.ptr(bias), len(resids), *r,
         bits(resids), cuda_lib.ptr(logits), cuda_lib.ptr(best_val),
         cuda_lib.ptr(best_idx), out.data_ptr() if argmax else None,

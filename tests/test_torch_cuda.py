@@ -216,7 +216,8 @@ def test_fused_head_argmax_ties_first_occurrence(dev):
     rng = np.random.default_rng(3)
     w = rng.standard_normal((64, n)).astype(np.float32)
     big = np.abs(w).max() + 1.0
-    for col in (10, 300, 900):  # equal maxima in different blocks
+    # equal maxima in one 128-column tile and in different tiles
+    for col in (10, 20, 300, 900):
         w[:, col] = big
     lin = QLinear.from_float(w, GGMLType.Q8_0, device="cpu").to(dev)
     x = torch.ones(2, 64, device=dev)
@@ -250,7 +251,7 @@ def _fused_operands(g, dev, mode, m, k, n, dtype):
 @pytest.mark.parametrize("fmt,k,n,pack", [
     (GGMLType.Q4_K, 512, 1000, True), (GGMLType.Q8_0, 256, 384, False),
     (GGMLType.Q4_0, 512, 130, True), (GGMLType.Q4_K, 256, 384, False)])
-@pytest.mark.parametrize("m", [1, 5, 16])
+@pytest.mark.parametrize("m", [1, 5, 8, 16])
 @pytest.mark.parametrize("mode", list(FUSED_MODES))
 def test_fused_linear_kernel(dev, fmt, k, n, pack, m, mode):
     lin = _lin(fmt, k, n, pack, seed=n + k, bf16=True).to(dev)
@@ -279,11 +280,10 @@ def test_fused_linear_kernel(dev, fmt, k, n, pack, m, mode):
     assert torch.equal(tok.cpu(), got.argmax(dim=-1).to(torch.int32).cpu())
 
 
-@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("m", [1, 5, 8, 16])
 def test_fused_glu_kernel_at_llama8b_ffn_depth(dev, m):
-    """The down projection of llama-8b reads a 2 x 14336 gate|up block: the
-    kernel forms its activation per 32-row slice, so K of this depth (past
-    a whole-row bf16 stage in shared memory at M = 8 and 16) runs."""
+    """The down projection of llama-8b reads a 2 x 14336 gate|up block (a
+    bf16 prologue of up to 16 x 14336 for the GEMV's K splits)."""
     k, n = 14336, 256
     lin = _lin(GGMLType.Q4_K, k, n, True, seed=m, bf16=True).to(dev)
     g = torch.Generator(device=dev)
@@ -294,6 +294,24 @@ def test_fused_glu_kernel_at_llama8b_ffn_depth(dev, m):
     got = fused_linear_cuda(lin, "glu", [gu], resids=[r0, r1])
     ref = fused_linear_reference(lin, glu=gu, resids=(r0, r1))
     _close(got, ref, slack=glu_rounding_slack(lin, gu).cpu())
+
+
+@pytest.mark.parametrize("mode", list(FUSED_MODES))
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_fused_linear_same_bits_every_run(dev, mode, m):
+    """The fused GEMV's K splits add up in a fixed order inside their
+    cluster: two runs give the same bits, logits and argmax alike."""
+    k, n = 4096, 4096
+    lin = _lin(GGMLType.Q4_K, k, n, True, seed=7, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    pro, ops, nw, b, res = _fused_operands(g, dev, mode, m, k, n,
+                                           torch.float32)
+    first = fused_linear_cuda(lin, pro, ops, nw, b, res)
+    assert torch.equal(first, fused_linear_cuda(lin, pro, ops, nw, b, res))
+    tok = fused_linear_cuda(lin, pro, ops, nw, b, res, argmax=True)
+    assert torch.equal(tok, fused_linear_cuda(lin, pro, ops, nw, b, res,
+                                              argmax=True))
 
 
 def _cache(g, dev, S, Hkv, T, D):
