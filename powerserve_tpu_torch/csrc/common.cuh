@@ -43,13 +43,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Bytes b and b + 2 of v as signed int8 values in two bf16 halves (exact).
-__device__ __forceinline__ uint32_t i8_pair(uint32_t v, int b) {
-  const float lo = (float)(int8_t)(v >> (8 * b));
-  const float hi = (float)(int8_t)(v >> (8 * b + 16));
-  return pack_bf16(lo, hi);
-}
-
 // Bytes 0 and 2 of v as signed int8 values in two bf16 halves, exactly,
 // without a conversion instruction: a byte h * 128 + m (m its low seven
 // bits) is m - 128 h; (0x4300 | m) is 128 + m and (0x4300 | h << 7) is

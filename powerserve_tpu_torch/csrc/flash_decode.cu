@@ -23,19 +23,24 @@
 // scales per visible token and kv head), ~0.6 us for S = 1, Hkv = 8,
 // T = 1024, D = 128 at 3.35 TB/s: a few MB, so latency and the launch
 // itself set the time. The design:
-//  - One launch. Grid (splits, Hkv, S); the T splits of one (slot, kv
+//  - One launch. Grid (splits, Hkv, S); the splits of one (slot, kv
 //    head) form a thread block cluster (up to 16 ranks, non-portable
 //    above 8) and merge their softmax states through distributed shared
-//    memory in rank order: the same bits on every run, and S = 1,
-//    T = 1024 runs 128 blocks.
+//    memory in rank order: the same bits on every run. The splits aim at
+//    ~128 blocks of eight warps (S = 1, T = 1024: 64 blocks; S = 8: two
+//    splits a slot): a grid of 256 four-block clusters did not fit in one
+//    wave on the card (its last blocks started ~20 us late).
 //  - The visibility is formed in the kernel: a block reads its slot's
-//    mask row once with 16-byte loads and the slot's Tq positions, and
+//    mask row once (16-byte cp.async) and the slot's Tq positions, and
 //    keeps one byte per token of its range: the first query row that
-//    sees it. Steps no row sees are skipped (a skipped step adds exactly
-//    nothing: p = 0, or a state the first visible score wipes with
-//    alpha = 0); in the normalized output, a slot with a row that sees
-//    nothing walks every step, so that row averages V over T as the
-//    JAX XLA reference does (the masked scores are a finite -1e30).
+//    sees it. A slot walks only [0, end), end = 1 + the last position a
+//    row sees, so a short sequence in a long cache costs its length,
+//    split over all the cluster's blocks. Steps no row sees are skipped
+//    (a skipped step adds exactly nothing: p = 0, or a state the first
+//    visible score wipes with alpha = 0); in the normalized output, a
+//    slot with a row that sees nothing walks all of T, so that row
+//    averages V over T as the JAX XLA reference does (the masked scores
+//    are a finite -1e30).
 //  - The block's range is cut into token groups of 16-token steps; a
 //    warp owns one 16-row tile of the G * Tq query rows and one token
 //    group, with its own online softmax. Scores and the value product
@@ -48,10 +53,10 @@
 //    score fragments in registers (rounded to bf16 after the scale vs)
 //    and V through ldmatrix.trans on 16-bit column pairs: even columns
 //    feed one n tile and odd columns another (the GEMV's trick in
-//    csrc/qmatmul.cu). Head sizes pad to a multiple of 16 in shared
+//    csrc/gemv.cuh). Head sizes pad to a multiple of 16 in shared
 //    memory.
 //  - K/V rows and their scales stream into shared memory by cp.async
-//    (16 bytes where rows allow), the block's steps up to three deep.
+//    (16 bytes where rows allow), two or three steps in flight.
 // The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
 // the twin's; only the order of the f32 sums differs. The plain twin
 // (ops/flash_decode.py) walks the same 16-token steps over the same

@@ -297,10 +297,10 @@ __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
           a[2] = nib_pair(hi >> (4 * h), sub);
           a[3] = nib_pair(hi >> (4 * h + 8), sub);
         } else {
-          a[0] = i8_pair(lo, 0);
-          a[1] = i8_pair(lo, 1);
-          a[2] = i8_pair(hi, 0);
-          a[3] = i8_pair(hi, 1);
+          a[0] = i8_even_bf16x2(lo);
+          a[1] = i8_even_bf16x2(lo >> 8);
+          a[2] = i8_even_bf16x2(hi);
+          a[3] = i8_even_bf16x2(hi >> 8);
         }
 #pragma unroll
         for (int rb = 0; rb < RB; ++rb) {
