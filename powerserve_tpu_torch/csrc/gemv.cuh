@@ -358,7 +358,7 @@ __device__ __forceinline__ void gemv_unit(const QWeight& w, const uint8_t* st,
 template <int MT, bool PACKED, bool SBF16>
 __global__ __launch_bounds__(32 * kWarps, MT > 8 ? 2 : 4) void
 qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
-                float* out, int vec, GemvEpilogue ep) {
+                float* out, int vec, GemvEpilogue ep, int dependent) {
   __shared__ float arg_v[kWarps];
   __shared__ int arg_i[kWarps];
   extern __shared__ __align__(128) uint8_t smem[];
@@ -387,24 +387,34 @@ qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
 
   if (lane < 16) reinterpret_cast<uint32_t*>(zero)[lane] = 0u;
   UnitLoader<MT, PACKED, SBF16> ld(w, x, M, u0, wc, lane);  // the next unit
-  // the first stages' weights, then their rows of x: launched as a
-  // dependent of the prologue pass (fused_linear.cu), the grid streams
-  // weights while that pass runs and reads x once it is done (otherwise
-  // the wait returns at once); stage 0's group holds all those weights
+  if (dependent) {
+    // launched as a dependent of the prologue pass (fused_linear.cu): the
+    // first stages' weights stream while that pass runs, their rows of x
+    // once it is done; stage 0's group holds all those weights
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s)
-    if (u0 + s < u1) {
-      ld.load_w(w, vec, ring + s * sb);
-      ld.next_w();
-    }
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    for (int s = 0; s < kStages - 1; ++s)
+      if (u0 + s < u1) {
+        ld.load_w(w, vec, ring + s * sb);
+        ld.next_w();
+      }
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (u0 + s < u1) {
-      ld.load_x(ring + s * sb);
-      ld.next_x();
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (u0 + s < u1) {
+        ld.load_x(ring + s * sb);
+        ld.next_x();
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (u0 + s < u1) {
+        ld.load(w, vec, ring + s * sb);
+        ld.next();
+      }
+      cp_async_commit();
+    }
   }
   // the ring unrolled, so every stage's offset is a constant
   for (int base = u0; base < u1; base += kStages) {
@@ -544,7 +554,8 @@ cudaError_t launch_gemv_t(const QWeight& w, const Slabs& sl,
   }
   cfg.attrs = attr;
   cfg.numAttrs = n_attr;
-  return cudaLaunchKernelEx(&cfg, kernel, w, sl, x, M, out, vec, ep);
+  return cudaLaunchKernelEx(&cfg, kernel, w, sl, x, M, out, vec, ep,
+                            (int)dependent);
 }
 
 // x bf16 [tiles * M, K], rows 16-byte aligned; out f32 [tiles * M, N]
