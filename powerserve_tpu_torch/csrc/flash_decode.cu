@@ -29,7 +29,7 @@
 //    memory in rank order: the same bits on every run. The splits aim at
 //    ~128 blocks of eight warps (S = 1, T = 1024: 64 blocks; S = 8: two
 //    splits a slot): a grid of 256 four-block clusters did not fit in one
-//    wave on the card (its last blocks started ~20 us late).
+//    wave on the card.
 //  - The visibility is formed in the kernel: a block reads its slot's
 //    mask row once (16-byte cp.async) and the slot's Tq positions, and
 //    keeps one byte per token of its range: the first query row that

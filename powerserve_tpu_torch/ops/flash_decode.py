@@ -217,8 +217,8 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
     """Plain PyTorch twin of the paged kernel: the gathered slot views
     through the dense twin. Pools [P, Hkv, page(, D)], page_table int32
     [S, MP], mask bool [S, MP * page], positions [S, Tq] or None;
-    split as flash_decode_quant_reference's. state=True: (o [S, R, D], m [S, R],
-    l [S, R]) unnormalized, R = (h, g, tq)."""
+    split as flash_decode_quant_reference's. state=True: (o [S, R, D],
+    m [S, R], l [S, R]) unnormalized, R = (h, g, tq)."""
     views = tuple(gather_pages(t, page_table)
                   for t in (k_pool, ks_pool, v_pool, vs_pool))
     Hkv = views[0].shape[1]
@@ -244,9 +244,9 @@ def _check_shapes(S: int, H: int, Hkv: int, Tq: int, D: int, T: int,
                                                page)
     limit = cuda_lib.max_dynamic_smem(dev)
     if smem > limit:
-        raise ValueError(f"{name}: G*Tq={H // Hkv * Tq}, T={T}, D={D} needs "
-                         f"{smem} bytes of shared memory, the card has "
-                         f"{limit}")
+        raise ValueError(f"{name}: G*Tq={H // Hkv * Tq}, T={T}, D={D} "
+                         f"needs {smem} bytes of shared memory, the card "
+                         f"has {limit}")
 
 
 def _mask_positions(mask: torch.Tensor, positions: torch.Tensor | None,
