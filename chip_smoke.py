@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
              the card at the llama-8b main-path shapes (qmatmul: Q4_K at
              the four
              projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
-             4096 -> 4096 and M <= 16, with the GB/s reached; every GEMV
-             case twice, bit for bit): max error against its tolerance,
+             4096 -> 4096 and M <= 16, with the GB/s reached; every case
+             twice, bit for bit; last, M = 1024 at 4096 -> 28672): max
+             error against its tolerance,
              CUDA-event times (warm, L2 flushed by a write, median of 25),
              the bound
              at 3.35 TB/s or 989 TFLOP/s bf16 (W8: 1,979 TOP/s int8;
@@ -18,7 +19,8 @@ Phases, each printing one JSON line:
              visible; the grouped qmatmul: its routed rows, padding left
              out, and the bytes of the slabs its tile ids name);
              flash-prefill at run's shape, the scheduler's
-             bucket and a ragged T, paged flash-decode with pages of 64
+             bucket and a ragged T (last, the bucket without its long
+             slot, twice bit for bit), paged flash-decode with pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
              qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512; the
@@ -276,7 +278,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             ref = qmatmul_reference(x, lin)
             got = qmatmul_cuda(x, lin)
             err = check(f"qmatmul {quant} {m}x{k}x{n}", got, ref, 1e-4)
-            if m <= 16 and not torch.equal(got, qmatmul_cuda(x, lin)):
+            if not torch.equal(got, qmatmul_cuda(x, lin)):
                 raise AssertionError(f"qmatmul {quant} {m}x{k}x{n}: two runs "
                                      f"gave different bits")
             ms = timer(lambda: qmatmul_cuda(x, lin))
@@ -494,8 +496,11 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             tok, _, ids = group_dispatch(topi, topw, E, 0, bm)
             x = randn(n_tok, K, dtype=torch.bfloat16)[tok.clamp(min=0).long()]
         ref = qmatmul_grouped_reference(x, stack, ids, bm)
-        err = check(f"qmatmul_grouped {case}",
-                    qmatmul_grouped_cuda(x, stack, ids, bm), ref, 1e-4)
+        got = qmatmul_grouped_cuda(x, stack, ids, bm)
+        err = check(f"qmatmul_grouped {case}", got, ref, 1e-4)
+        if not torch.equal(got, qmatmul_grouped_cuda(x, stack, ids, bm)):
+            raise AssertionError(f"qmatmul_grouped {case}: two runs gave "
+                                 f"different bits")
         distinct = int(ids.unique().numel())
         routed = n_tok * k
         b, by = bound_ms(routed * K * x.element_size() + nbytes(ids)
@@ -643,6 +648,58 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             q, *(gather_pages(t, pt) for t in (kp, ksp, vp, vsp)),
             vis | ~seen[:, None, None]))
     del q, kp, vp, o, ro
+
+    # -- rows added after the ones above, so those keep their seeds: the
+    #    bucket without its long slot (190 committed in place of 1900: what
+    #    the walk costs without the one long unit), and the prefill GEMM
+    #    at the scheduler's 8 x 128-token chunk (M = 1024, 4096 -> 28672)
+    g.manual_seed(1)
+    for name, S, Tq, Tc, Dc, starts, committed in (
+            ("bucket_short", 8, 128, T, 128,
+             [0, 128, -1, 512, 40, 1000, -1, 190],
+             [0, 128, 300, 512, 40, 1000, 0, 190]),):
+        q = randn(S, Tq, H, Dc)
+        kq, ks, vq, vs = cache(S, Hkv, Tc, Dc)
+        mask = (torch.arange(Tc, device=dev)[None, :]
+                < torch.tensor(committed, device=dev)[:, None])
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        args = (q, kq, ks, vq, vs, mask, start, 1.0 / Dc ** 0.5)
+        ref = flash_prefill_quant_reference(*args)
+        got = flash_prefill_cuda(*args)
+        err = flips_check(f"flash_prefill {name}", got, ref, vs)
+        if not torch.equal(got, flash_prefill_cuda(*args)):
+            raise AssertionError(f"flash_prefill {name}: two runs gave "
+                                 f"different bits")
+        vis = prefill_visibility(mask, start, Tq)[..., :Tc]
+        b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
+        fp_rows.append(dict(
+            case=name, S=S, Tq=Tq, T=Tc, D=Dc, starts=starts,
+            committed=committed, max_abs_err=err,
+            ms=timer(lambda: flash_prefill_cuda(*args)),
+            plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
+                           reps=5),
+            bound_ms=b, bound_by=by, visible_positions=int(vis.sum()),
+            sdpa_bf16_dequantized_ms=sdpa_ms(q, kq, ks, vq, vs, vis)))
+        del q, kq, vq, ref, got
+    lin = _rand_qlinear(g, 4096, 28672, "q4_k", dev)
+    for m in (1024,):
+        x = randn(m, 4096, dtype=torch.bfloat16)
+        ref = qmatmul_reference(x, lin)
+        got = qmatmul_cuda(x, lin)
+        err = check(f"qmatmul q4_k {m}x4096x28672", got, ref, 1e-4)
+        if not torch.equal(got, qmatmul_cuda(x, lin)):
+            raise AssertionError(f"qmatmul q4_k {m}x4096x28672: two runs "
+                                 f"gave different bits")
+        moved = nbytes(x) + lin.nbytes() + m * 28672 * 4
+        b, by = bound_ms(moved, 2.0 * m * 28672 * 4096)
+        ms = timer(lambda: qmatmul_cuda(x, lin))
+        qmm_rows.append(dict(quant="q4_k", m=m, k=4096, n=28672,
+                             max_abs_err=err, ms=ms,
+                             plain_ms=timer(lambda: qmatmul_reference(x, lin),
+                                            reps=5),
+                             bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6))
+        del x, ref, got
+    del lin
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,

@@ -1,7 +1,7 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
 // descriptor and the dequant of its bytes (the prefill GEMM's), the
-// tensor-core and copy primitives (mma.sync
-// m16n8k16 bf16 -> f32, ldmatrix, cp.async) and small numeric helpers.
+// tensor-core and copy primitives (mma.sync m16n8k16 bf16 -> f32,
+// ldmatrix, cp.async) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
 //   q       packed: uint8 [K/2, N], nibbles in pack groups of G rows —
@@ -109,6 +109,21 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 2^x by the special function unit (ex2.approx: 2 ulp, subnormals flushed)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // lanes 0-7 address the rows of the first matrix, 8-15 the second's

@@ -15,393 +15,652 @@
 // Replaces the TPU kernel powerserve_tpu/ops/flash_prefill.py::
 // flash_prefill_quant (body _kernel). The TPU kernel keeps a block of
 // G * 128 query rows against 512-token chunks with (m, l, acc) in VMEM
-// (512 x 128 f32 of accumulator alone is 256 KB, more than a Hopper block
-// may hold in shared memory) and walks the chunks as its sequential grid
-// axis.
+// and walks the chunks as its sequential grid axis.
 //
 // What bounds it on an H100: at the scheduler's bucket (S = 8, Tq = 128,
-// T = 2048, all visible) ~68 MB of q, K/V and output (0.020 ms at 3.35
-// TB/s) against 34 GFLOP (0.035 ms at 989 TFLOP/s): the tensor cores, once
-// the chunks no row sees are skipped. The design: one block per (kv head,
-// slot, block of BQ query positions); its G * BQ rows (~64: BQ = 16 at
-// G = 4) are m16 tiles, one per warp, and both products run on mma.sync
-// m16n8k16 bf16 with f32 accumulators in registers (the FlashAttention-2
-// register layout: the score fragment of one chunk is the A operand of
-// the value product). The int8 K/V chunks (64 tokens) are staged in
-// shared memory by cp.async two chunks deep and widened to bf16 exactly
-// as fragments are built, with a padded row pitch so a fragment's eight
-// rows fall in distinct banks. Scales fold into the scores and the
-// probabilities, so the cache is never dequantized in device memory.
-// Before any K/V, a block reads the slot's mask bytes and, when every
-// real row of the block sees at least one position, walks only the chunks
-// holding a committed position or a position of the batch's causal range:
-// a chunk no row sees adds exactly nothing (p = 0, or a state that the
-// first visible score wipes with alpha = 0), so a 512-token prompt in a
-// 2048-token cache costs its 512 positions. Masked scores use the finite
-// -1e30 of the JAX reference, so a row that sees nothing averages V over
-// the T positions; positions past T add nothing to any row.
-// No wgmma/TMA yet: a later step.
+// T = 2048) q and out in f32 and the visible K/V rows, ~38 MB (0.013 ms
+// at 3.35 TB/s), against ~9 GFLOP on the visible positions (0.009 ms at
+// 989 TFLOP/s). What sets the time is the tensor-core work of the walks,
+// the longest walk first: one block of eight warps fills an SM (~220
+// registers a thread), a chunk of 64 tokens costs two products of 64
+// mma.sync a warp, and the slot with 1900 committed positions walks 30
+// chunks. The design:
+//  - A unit is (slot, kv head, query block of bq positions); its G * bq
+//    rows (<= 128, eight warps at G = 4) are m16 tiles, one per warp.
+//    The query blocks that walk furthest launch first. A unit walks
+//    chunks [0, nch_end): up to 1 + its last visible position, or all of
+//    T when one of its rows sees nothing (that row then averages V over
+//    T, as the JAX XLA reference does with its finite -1e30); it skips
+//    the chunks no row of it sees, which adds exactly nothing (p = 0, or
+//    a state the first visible score wipes with alpha = 0).
+//  - A small grid cuts each walk into n_split equal ranges, one per block
+//    of a thread-block cluster; the ranks merge their (m, l, acc) through
+//    distributed shared memory in rank order: the same bits on every run,
+//    one launch. The wrapper picks n_split from the shapes alone, only as
+//    far as the grid stays within one wave (at the bucket and at `run`'s
+//    512-token prefill that is 1: a second wave cost more than the split
+//    saved).
+//  - The visibility is formed in shared memory once per block: the
+//    committed positions of the slot as bits (each thread 32 mask bytes),
+//    then per chunk and row a 64-bit word, the committed bits or the
+//    causal interval [start, start + i] in the chunk; a chunk every row
+//    sees whole takes no per-score test.
+//  - K/V chunks and their scales stream into a four-stage ring by 16-byte
+//    cp.async (int8, row pitch D + 16). Each chunk is widened to bf16 once
+//    per block (8 bytes a thread by bit operations and one bf16x2
+//    subtraction, exact) into one of two buffers (row pitch D + 8: the
+//    eight rows of an ldmatrix fall in distinct banks), the next chunk's
+//    while this one is computed, one barrier a chunk. Both products run on
+//    mma.sync m16n8k16 (bf16 in, f32 out) with B fragments by ldmatrix
+//    (K rows as they are, V rows transposed); the score fragments of a
+//    chunk are the A operand of the value product in registers.
+//  - log2 e is folded into the scale and the softmax runs on ex2.approx.
+// The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
+// the twin's (ops/flash_prefill.py walks the same ranges and merges in
+// rank order); only the order of the f32 sums and exp2 against exp
+// differ. Not yet: wgmma (mma.sync runs at about half its rate) and two
+// blocks an SM.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kChunk = 64;
-constexpr int kPad = 16;  // bytes added to each staged K/V row
+constexpr int kStages = 4;  // int8 chunks in flight, ahead of the bf16 pair
+constexpr int kMaxSplits = 8;   // cluster ranks (portable cluster size)
+constexpr int kMaxWarps = 8;    // G * bq <= 128 rows per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kHidden = 1 << 30;  // a walked chunk no row sees (list flag)
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two adjacent int8 -> bf16x2 (exact)
-__device__ __forceinline__ uint32_t i8x2_bf16(const int8_t* p) {
-  return pack_bf16((float)p[0], (float)p[1]);
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// one staged chunk: K rows, V rows (int8, pitch D + 16), ks, vs (f32)
+__host__ __device__ inline int stage_bytes(int D) {
+  return 2 * kChunk * (D + 16) + 2 * kChunk * 4;
 }
 
 struct Smem {
-  int *flags, *list, *misc;  // misc: [0] any committed bit, [1] list length
-  int8_t* kv;                // [2 stages][K, V][kChunk][D + kPad]
-  float* sc;                 // [2 stages][ks, vs][kChunk]
+  uint32_t* bits;      // [2 * nch]: the slot's committed positions
+  int* list;           // [nch]: the chunks this rank walks
+  int* misc;           // [0] list length, [1] 1 + the last committed position
+  uint8_t* ring;       // [kStages][stage_bytes]
+  __nv_bfloat16* kv;   // [2][K, V][kChunk][D + 8]: two chunks in bf16
+  float* st_acc;       // [rows][D], over ring and kv once drained
+  float *st_m, *st_l;  // [rows]
+  float* st_w;         // [rows][kMaxSplits + 1]: merge weights, 1 / L
 };
 
-__host__ __device__ size_t smem_layout(int T, int D, char* base, Smem* s) {
+__host__ __device__ inline size_t smem_layout(int T, int D, int rows,
+                                              uint8_t* base, Smem* s) {
   const int nch = (T + kChunk - 1) / kChunk;
   size_t off = 0;
   auto take = [&](size_t bytes) {
-    char* p = base ? base + off : nullptr;
+    uint8_t* p = base ? base + off : nullptr;
     off += (bytes + 15) / 16 * 16;
     return p;
   };
-  int* flags = (int*)take(sizeof(int) * nch);
-  int* list = (int*)take(sizeof(int) * nch);
-  int* misc = (int*)take(sizeof(int) * 4);
-  int8_t* kv = (int8_t*)take((size_t)4 * kChunk * (D + kPad));
-  float* sc = (float*)take(sizeof(float) * 4 * kChunk);
-  if (s) *s = Smem{flags, list, misc, kv, sc};
+  Smem m;
+  m.bits = (uint32_t*)take((size_t)8 * nch);
+  m.list = (int*)take((size_t)4 * nch);
+  m.misc = (int*)take(16);
+  const size_t ring = (size_t)kStages * stage_bytes(D);
+  const size_t kv = (size_t)2 * 2 * kChunk * (D + 8) * 2;
+  const size_t states = (size_t)4 * rows * D;
+  m.ring = take(ring + kv > states ? ring + kv : states);
+  m.kv = reinterpret_cast<__nv_bfloat16*>(m.ring + ring);
+  m.st_acc = (float*)m.ring;
+  m.st_m = (float*)take((size_t)4 * rows);
+  m.st_l = (float*)take((size_t)4 * rows);
+  m.st_w = (float*)take((size_t)4 * rows * (kMaxSplits + 1));
+  if (s) *s = m;
   return off;
 }
 
-template <int D>
-__global__ __launch_bounds__(256) void flash_prefill_kernel(
-    const float* q, const int8_t* kq, const float* ks, const int8_t* vq,
-    const float* vs, const uint8_t* cmask, const int* start, float* out,
-    int Tq, int H, int Hkv, int T, int BQ, float scale) {
-  constexpr int P = D + kPad;  // staged row pitch in bytes
-  constexpr int KS = D / 16;   // k steps of the score product
-  constexpr int NT = D / 8;    // n tiles of the value product
-  const int h = blockIdx.x, s = blockIdx.y, qb = blockIdx.z;
-  const int G = H / Hkv;
-  const int nthreads = blockDim.x;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int nch = (T + kChunk - 1) / kChunk;
+struct Args {
+  const float* q;
+  const int8_t* kq;
+  const float* ks;
+  const int8_t* vq;
+  const float* vs;
+  const uint8_t* mask;
+  const int* start;
+  float* out;
+  int S, Tq, H, Hkv, T;
+  int bq, n_split;
+  float scale2;  // scale * log2 e
+  int s_vec;     // scale rows may be copied 16 bytes at a time
+  int m_vec;     // mask rows may be read 16 bytes at a time
+};
 
-  extern __shared__ __align__(16) char smem_raw[];
-  Smem sm;
-  smem_layout(T, D, smem_raw, &sm);
+// bits a..b (0 <= a, b <= 63) of a 64-bit word, none when a > b
+__device__ __forceinline__ uint64_t bit_range(long a, long b) {
+  a = a > 0 ? a : 0;
+  b = b < 63 ? b : 63;
+  if (a > b) return 0ull;
+  return (~0ull >> (63 - b)) & (~0ull << a);
+}
 
-  // this warp's m16 tile: query head h * G + g, batch rows qbase + 0..15
-  const int tiles_per_g = BQ / 16;
-  const int g = warp / tiles_per_g;
-  const int head = h * G + g;
-  const int qbase = qb * BQ + (warp % tiles_per_g) * 16;
-  const int r0 = lane / 4, cq = (lane % 4) * 2;
-  const int qi0 = qbase + r0, qi1 = qbase + r0 + 8;  // the thread's rows
-  const long st = start[s];
-  const int q_first = qb * BQ;
-  const int q_last = min(Tq, q_first + BQ) - 1;
-
-  // the query fragments, rounded to bf16, for all D / 16 k steps
-  uint32_t qa[KS][4];
-  {
-    const float* q0 = q + (((long)s * Tq + qi0) * H + head) * D;
-    const float* q1 = q + (((long)s * Tq + qi1) * H + head) * D;
-    const bool ok0 = qi0 < Tq, ok1 = qi1 < Tq;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int c = kk * 16 + cq;
-      qa[kk][0] = ok0 ? pack_bf16(q0[c], q0[c + 1]) : 0u;
-      qa[kk][1] = ok1 ? pack_bf16(q1[c], q1[c + 1]) : 0u;
-      qa[kk][2] = ok0 ? pack_bf16(q0[c + 8], q0[c + 9]) : 0u;
-      qa[kk][3] = ok1 ? pack_bf16(q1[c + 8], q1[c + 9]) : 0u;
-    }
-  }
-
-  // which chunks does any row see: committed bits first, then the causal
-  // range [start, start + q_last] of the block's rows
-  for (int c = tid; c < nch; c += nthreads) sm.flags[c] = 0;
-  if (tid == 0) sm.misc[0] = 0;
-  __syncthreads();
-  const uint8_t* mrow = cmask + (long)s * T;
-  for (int t = tid; t < T; t += nthreads) {
-    if (mrow[t]) {
-      sm.flags[t / kChunk] = 1;
-      sm.misc[0] = 1;
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // row i sees something iff a committed bit or a t in [0, T) with
-    // 0 <= t - start <= i; the block's first row is the hardest
-    const bool all_see = sm.misc[0] || (st < T && st + q_first >= 0);
-    const long lo = st > 0 ? st : 0;
-    const long hi = min(st + q_last, (long)T - 1);
-    int n = 0;
-    for (int c = 0; c < nch; ++c) {
-      const long t0 = (long)c * kChunk, t1 = min(t0 + kChunk, (long)T) - 1;
-      const bool causal = lo <= hi && t0 <= hi && t1 >= lo;
-      if (!all_see || sm.flags[c] || causal) sm.list[n++] = c;
-    }
-    sm.misc[1] = n;
-  }
-  __syncthreads();
-  const int n_list = sm.misc[1];
-
-  const long slab = ((long)s * Hkv + h) * T;
-  const int8_t* kbase = kq + slab * D;
-  const int8_t* vbase = vq + slab * D;
-  const float* ksb = ks + slab;
-  const float* vsb = vs + slab;
-
-  auto issue = [&](int c, int stage) {
-    const int t0 = c * kChunk, nt = min(kChunk, T - t0);
-    int8_t* kb = sm.kv + (size_t)stage * 2 * kChunk * P;
-    int8_t* vb = kb + kChunk * P;
-    constexpr int per_row = D / 16;
-    for (int e = tid; e < nt * per_row; e += nthreads) {
-      const int t = e / per_row, part = (e - t * per_row) * 16;
-      cp_async16(kb + t * P + part, kbase + (long)(t0 + t) * D + part);
-      cp_async16(vb + t * P + part, vbase + (long)(t0 + t) * D + part);
-    }
-    float* kss = sm.sc + stage * 2 * kChunk;
-    for (int t = tid; t < nt; t += nthreads) {
-      cp_async4(kss + t, ksb + t0 + t);
-      cp_async4(kss + kChunk + t, vsb + t0 + t);
-    }
-    cp_async_commit();
-  };
-
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = PS_NEG_INF, m1 = PS_NEG_INF, l0 = 0.f, l1 = 0.f;
-
-  if (n_list > 0) issue(sm.list[0], 0);
-  for (int i = 0; i < n_list; ++i) {
-    const int stage = i & 1;
-    if (i + 1 < n_list) {
-      issue(sm.list[i + 1], stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int t0 = sm.list[i] * kChunk, nt = min(kChunk, T - t0);
-    const int8_t* kb = sm.kv + (size_t)stage * 2 * kChunk * P;
-    const int8_t* vb = kb + kChunk * P;
-    const float* kss = sm.sc + stage * 2 * kChunk;
-    const float* vss = kss + kChunk;
-
-    // scores: 16 rows x 64 tokens as 8 n tiles
-    float sacc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int8_t* kr = kb + (j * 8 + r0) * P + kk * 16 + cq;
-        mma_16816(sacc[j], qa[kk], i8x2_bf16(kr), i8x2_bf16(kr + 8));
-      }
-    }
-
-    // scale, visibility, running max
-    float mx0 = PS_NEG_INF, mx1 = PS_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + cq + e;
-        const int t = t0 + col;
-        bool v0 = false, v1 = false;
-        float kscl = 0.f;
-        if (col < nt) {
-          const long off = (long)t - st;
-          const bool com = mrow[t] != 0;
-          v0 = com || (off >= 0 && off <= qi0);
-          v1 = com || (off >= 0 && off <= qi1);
-          kscl = kss[col] * scale;
-        }
-        sacc[j][e] = v0 ? sacc[j][e] * kscl : PS_NEG_INF;
-        sacc[j][2 + e] = v1 ? sacc[j][2 + e] * kscl : PS_NEG_INF;
-        mx0 = fmaxf(mx0, sacc[j][e]);
-        mx1 = fmaxf(mx1, sacc[j][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    // probabilities: p sums into l; bf16(p * vs) is the value product's A
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + cq + e;
-        const bool in = col < nt;
-        const float p0 = in ? expf(sacc[j][e] - mn0) : 0.f;
-        const float p1 = in ? expf(sacc[j][2 + e] - mn1) : 0.f;
-        ls0 += p0;
-        ls1 += p1;
-        const float vsc = in ? vss[col] : 0.f;
-        sacc[j][e] = in ? p0 * vsc : 0.f;
-        sacc[j][2 + e] = in ? p1 * vsc : 0.f;
-      }
-    }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
-    }
-
-    // acc += bf16(p * vs) . vq: 4 k steps of 16 tokens, D / 8 n tiles
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]);
-      pa[1] = pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]);
-      pa[2] = pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3]);
-      const int8_t* v0 = vb + (kk * 16 + cq) * P + r0;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int8_t* vp = v0 + n * 8;
-        const uint32_t b0 = pack_bf16((float)vp[0], (float)vp[P]);
-        const uint32_t b1 = pack_bf16((float)vp[8 * P], (float)vp[9 * P]);
-        mma_16816(oacc[n], pa, b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // l is summed per thread over its columns; the quad holds the whole row
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-  }
-  const long HD = (long)H * D;
-  float* o0 = out + ((long)s * Tq + qi0) * HD + (long)head * D;
-  float* o1 = out + ((long)s * Tq + qi1) * HD + (long)head * D;
-  const float d0 = l0 > 0.f ? l0 : 1.f, d1 = l1 > 0.f ? l1 : 1.f;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + cq;
-    if (qi0 < Tq)
-      *reinterpret_cast<float2*>(o0 + d) =
-          make_float2(oacc[n][0] / d0, oacc[n][1] / d0);
-    if (qi1 < Tq)
-      *reinterpret_cast<float2*>(o1 + d) =
-          make_float2(oacc[n][2] / d1, oacc[n][3] / d1);
-  }
+// one bit per byte of x: bit j set when byte j is nonzero
+__device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x80808080u) * 0x00204081u) >> 28;
 }
 
 template <int D>
-int launch(const void* q, const void* kq, const void* ks, const void* vq,
-           const void* vs, const void* cmask, const void* start, void* out,
-           int S, int Tq, int H, int Hkv, int T, float scale,
-           cudaStream_t stream) {
-  const int G = H / Hkv;
-  const int BQ = 16 * (G >= 4 ? 1 : 4 / G);
-  const int threads = 32 * G * BQ / 16;
-  const size_t smem = smem_layout(T, D, nullptr, nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hkv, S, (Tq + BQ - 1) / BQ);
-  flash_prefill_kernel<D><<<grid, threads, smem, stream>>>(
-      reinterpret_cast<const float*>(q), reinterpret_cast<const int8_t*>(kq),
-      reinterpret_cast<const float*>(ks), reinterpret_cast<const int8_t*>(vq),
-      reinterpret_cast<const float*>(vs),
-      reinterpret_cast<const uint8_t*>(cmask),
-      reinterpret_cast<const int*>(start), reinterpret_cast<float*>(out), Tq,
-      H, Hkv, T, BQ, scale);
-  return (int)cudaGetLastError();
+__global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
+    Args a) {
+  namespace cg = cooperative_groups;
+  constexpr int KS = D / 16;  // k steps of the score product
+  constexpr int NT = D / 8;   // n tiles of the value product
+  constexpr int P8 = D + 16;  // staged int8 row pitch (bytes)
+  constexpr int P16 = D + 8;  // bf16 row pitch (elements)
+  constexpr int SB = 2 * kChunk * P8 + 2 * kChunk * 4;
+  // blockIdx.y = ((n_qb - 1 - qb) * S + s) * Hkv + h: the query blocks
+  // that walk furthest first, every slot's among them
+  const int rank = blockIdx.x;
+  const int n_qb = (a.Tq + a.bq - 1) / a.bq;
+  const int h = blockIdx.y % a.Hkv;
+  const int s = (blockIdx.y / a.Hkv) % a.S;
+  const int qb = n_qb - 1 - blockIdx.y / (a.Hkv * a.S);
+  const int G = a.H / a.Hkv, R = G * a.bq, T = a.T;
+  const int nch = (T + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthr = blockDim.x;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  extern __shared__ __align__(16) uint8_t smem[];
+  Smem sm;
+  smem_layout(T, D, R, smem, &sm);
+
+  // this warp's m16 tile: query head h * G + gh, batch rows qi0, qi1 of
+  // this thread; its q rows (read now, rounded to bf16 A fragments once
+  // the walk is known)
+  const int wq = a.bq / 16;
+  const int gh = warp / wq;
+  const int head = h * G + gh;
+  const int q_first = qb * a.bq;
+  const int qi0 = q_first + (warp - gh * wq) * 16 + g8, qi1 = qi0 + 8;
+  float2 qraw[KS][4];
+  {
+    const float* q0 = a.q + (((long)s * a.Tq + qi0) * a.H + head) * D + 2 * t4;
+    const float* q1 = a.q + (((long)s * a.Tq + qi1) * a.H + head) * D + 2 * t4;
+    const bool ok0 = qi0 < a.Tq, ok1 = qi1 < a.Tq;
+    const float2 z = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      qraw[ks][0] = ok0 ? *reinterpret_cast<const float2*>(q0 + 16 * ks) : z;
+      qraw[ks][1] = ok1 ? *reinterpret_cast<const float2*>(q1 + 16 * ks) : z;
+      qraw[ks][2] = ok0 ? *reinterpret_cast<const float2*>(q0 + 16 * ks + 8) : z;
+      qraw[ks][3] = ok1 ? *reinterpret_cast<const float2*>(q1 + 16 * ks + 8) : z;
+    }
+  }
+
+  // the slot's committed positions as bits (32 a thread), and 1 + the
+  // last of them
+  if (tid == 0) sm.misc[1] = 0;
+  __syncthreads();
+  const uint8_t* mrow = a.mask + (long)s * T;
+  int last = 0;
+  for (int w = tid; w < 2 * nch; w += nthr) {
+    const int t = 32 * w;
+    uint32_t bits = 0;
+    if (a.m_vec && t + 32 <= T) {
+      const uint4 x0 = *reinterpret_cast<const uint4*>(mrow + t);
+      const uint4 x1 = *reinterpret_cast<const uint4*>(mrow + t + 16);
+      const uint32_t x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bits |= nonzero4(x[i]) << (4 * i);
+    } else {
+      for (int i = 0; i < 32 && t + i < T; ++i)
+        if (mrow[t + i]) bits |= 1u << i;
+    }
+    sm.bits[w] = bits;
+    if (bits) last = t + 32 - __clz(bits);
+  }
+  if (last) atomicMax(&sm.misc[1], last);
+  __syncthreads();
+
+  // the unit's walk: [0, nch_end) cut into n_split ranges; this rank
+  // walks its range's chunks that some row sees (all of them when a row
+  // sees nothing). Row i sees the committed bits and [start, start + i]
+  // (t >= 0, t < T); the unit's first row sees least.
+  const long st = a.start[s];
+  const int q_last = min(a.Tq, q_first + a.bq) - 1;
+  const int lastc = sm.misc[1];
+  const long lo = st > 0 ? st : 0;
+  const long hi = min(st + q_last, (long)T - 1);
+  const bool causal = lo <= hi;
+  const bool all_see = lastc > 0 || (st < T && st + q_first >= 0);
+  const long end = max((long)lastc, causal ? hi + 1 : 0L);
+  const int nch_end = all_see ? (int)((end + kChunk - 1) / kChunk) : nch;
+  const int span = (nch_end + a.n_split - 1) / a.n_split;
+  const int c0 = rank * span, c1 = min(nch_end, c0 + span);
+  if (warp == 0) {
+    int n = 0;
+    for (int i0 = c0; i0 < c1; i0 += 32) {
+      const int c = i0 + lane;
+      bool need = false, seen = false;
+      if (c < c1) {
+        const long t0 = (long)c * kChunk, t1 = t0 + kChunk - 1;
+        seen = (sm.bits[2 * c] | sm.bits[2 * c + 1]) != 0u ||
+               (causal && t0 <= hi && t1 >= lo);
+        need = seen || !all_see;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, need);
+      if (need)
+        sm.list[n + __popc(bal & ((1u << lane) - 1u))] = c | (seen ? 0 : kHidden);
+      n += __popc(bal);
+    }
+    if (lane == 0) sm.misc[0] = n;
+  }
+  __syncthreads();
+  const int n_list = sm.misc[0];
+
+  const long slab = ((long)s * a.Hkv + h) * T;
+  const int8_t* kbase = a.kq + slab * D;
+  const int8_t* vbase = a.vq + slab * D;
+  const float* ksb = a.ks + slab;
+  const float* vsb = a.vs + slab;
+  // stage chunk c into ring slot `slot`; positions past T read zeros
+  auto issue = [&](int c, int slot) {
+    uint8_t* stg = sm.ring + (size_t)slot * SB;
+    const int t0 = c * kChunk;
+    constexpr int cpr = D / 16;  // 16-byte pieces per row
+    for (int e = tid; e < 2 * kChunk * cpr; e += nthr) {
+      const int row = e / cpr, part = e - row * cpr;
+      const int arr = row / kChunk, t = row - arr * kChunk;
+      const bool ok = t0 + t < T;
+      const int8_t* src =
+          (arr ? vbase : kbase) + (ok ? (long)(t0 + t) * D + part * 16 : 0);
+      cp_async16(stg + row * P8 + part * 16, src, ok);
+    }
+    float* sc = reinterpret_cast<float*>(stg + 2 * kChunk * P8);
+    if (a.s_vec) {
+      for (int e = tid; e < 2 * kChunk / 4; e += nthr) {
+        const int arr = e / (kChunk / 4), t = (e - arr * (kChunk / 4)) * 4;
+        const bool ok = t0 + t < T;
+        cp_async16(sc + arr * kChunk + t, (arr ? vsb : ksb) + (ok ? t0 + t : 0),
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < 2 * kChunk; e += nthr) {
+        const int arr = e / kChunk, t = e - arr * kChunk;
+        const bool ok = t0 + t < T;
+        cp_async4(sc + arr * kChunk + t, (arr ? vsb : ksb) + (ok ? t0 + t : 0),
+                  ok);
+      }
+    }
+  };
+
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) qa[ks][u] = pack_bf16(qraw[ks][u].x, qraw[ks][u].y);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {PS_NEG_INF, PS_NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  // ldmatrix lane addresses: K rows (t) for two n tiles x two k halves,
+  // V rows (t) of a 16-token k step for two n tiles of 8 dims
+  constexpr int KV = 2 * kChunk * P16;  // one bf16 chunk (elements)
+  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P16 + ((lane >> 3) & 1) * 8;
+  const int v_off = kChunk * P16 + ((lane & 7) + ((lane >> 3) & 1) * 8) * P16 +
+                    ((lane >> 4) << 3);
+  // K and V of a staged chunk to bf16, once for the block: 8 int8 a
+  // thread become 8 bf16 (exact) by bit operations
+  auto widen = [&](int i) {
+    const uint8_t* stg = sm.ring + (size_t)(i % kStages) * SB;
+    __nv_bfloat16* dst = sm.kv + (i & 1) * KV;
+    constexpr int ppr = D / 8;  // 8-byte pieces per row
+    const int e0 = sm.list[i] & kHidden ? kChunk * ppr : 0;  // V rows alone
+    for (int e = e0 + tid; e < 2 * kChunk * ppr; e += nthr) {
+      const int row = e / ppr, part = e - row * ppr;
+      const uint2 w = *reinterpret_cast<const uint2*>(stg + row * P8 + part * 8);
+      const uint32_t e0 = i8_even_bf16x2(w.x), o0 = i8_even_bf16x2(w.x >> 8);
+      const uint32_t e1 = i8_even_bf16x2(w.y), o1 = i8_even_bf16x2(w.y >> 8);
+      *reinterpret_cast<uint4*>(dst + row * P16 + part * 8) = make_uint4(
+          __byte_perm(e0, o0, 0x5410), __byte_perm(e0, o0, 0x7632),
+          __byte_perm(e1, o1, 0x5410), __byte_perm(e1, o1, 0x7632));
+    }
+  };
+
+  // the pipeline: int8 chunks i + 1 .. i + kStages - 1 in flight while
+  // chunk i + 1 is widened and chunk i computed, one barrier a chunk
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < n_list) issue(sm.list[p] & (kHidden - 1), p);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();  // chunk 0 has landed
+  __syncthreads();
+  if (n_list > 0) widen(0);
+  for (int i = 0; i < n_list; ++i) {
+    cp_async_wait<kStages - 3>();  // chunk i + 1 has landed
+    __syncthreads();  // chunk i is widened; chunk i - 1's slot and kv free
+    const int ahead = i + kStages - 1;
+    if (ahead < n_list) issue(sm.list[ahead] & (kHidden - 1), ahead % kStages);
+    cp_async_commit();
+    if (i + 1 < n_list) widen(i + 1);
+    const uint8_t* stg = sm.ring + (size_t)(i % kStages) * SB;
+    const __nv_bfloat16* k16 = sm.kv + (i & 1) * KV + k_off;
+    const __nv_bfloat16* v16 = sm.kv + (i & 1) * KV + v_off;
+    const int c = sm.list[i] & (kHidden - 1);
+    const float* kss = reinterpret_cast<const float*>(stg + 2 * kChunk * P8);
+    const float* vss = kss + kChunk;
+    const int t0 = c * kChunk;
+    const int nt = min(kChunk, T - t0);
+
+    float sc[8][4];
+    if (sm.list[i] & kHidden) {
+      // no row sees the chunk (walked for a row that sees nothing): every
+      // score is -1e30 (past T: -inf), so alpha = 1 and p = 1 where a row
+      // has seen nothing yet (m = -1e30), else 0 — the general path's
+      // numbers; a warp whose rows have all seen something adds nothing
+      if (!__any_sync(0xffffffffu,
+                      m_run[0] == PS_NEG_INF || m_run[1] == PS_NEG_INF))
+        continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 vsc = *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t4 + (e & 1);
+          const float p = col < nt && m_run[e >> 1] == PS_NEG_INF ? 1.f : 0.f;
+          l_run[e >> 1] += p;
+          sc[j][e] = p * ((e & 1) ? vsc.y : vsc.x);
+        }
+      }
+    } else {
+      // scores: 16 rows x 64 tokens as 8 n tiles of 8 tokens
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t r[4];
+          ldsm_x4(r, k16 + 16 * jp * P16 + 16 * ks);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          mma_16816(sc[2 * jp], qa[ks], b0);
+          mma_16816(sc[2 * jp + 1], qa[ks], b1);
+        }
+      }
+
+      // visibility (bits of the chunk per row), scale in log2 units, and
+      // the running max of rows g8 (hr = 0) and g8 + 8 (hr = 1); positions
+      // past T take no part
+      const uint64_t valid = nt >= kChunk ? ~0ull : (1ull << nt) - 1ull;
+      const uint64_t cb = (uint64_t)sm.bits[2 * c] |
+                          ((uint64_t)sm.bits[2 * c + 1] << 32);
+      const long o0 = st - t0;  // column of position start
+      const uint64_t vis0 = (cb | bit_range(o0, o0 + qi0)) & valid;
+      const uint64_t vis1 = (cb | bit_range(o0, o0 + qi1)) & valid;
+      float2 ksc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        ksc[j] = *reinterpret_cast<const float2*>(kss + 8 * j + 2 * t4);
+        ksc[j].x *= a.scale2;
+        ksc[j].y *= a.scale2;
+      }
+      if (__all_sync(0xffffffffu, (vis0 & vis1) == ~0ull)) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sc[j][0] *= ksc[j].x;
+          sc[j][1] *= ksc[j].y;
+          sc[j][2] *= ksc[j].x;
+          sc[j][3] *= ksc[j].y;
+        }
+      } else {
+        const uint64_t v0 = vis0 >> (2 * t4), v1 = vis1 >> (2 * t4);
+        const uint64_t ok = valid >> (2 * t4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int bit = 8 * j + (e & 1);
+            const uint64_t v = (e >> 1) ? v1 : v0;
+            const float hidden = (ok >> bit) & 1ull ? PS_NEG_INF : -INFINITY;
+            sc[j][e] = (v >> bit) & 1ull
+                           ? sc[j][e] * ((e & 1) ? ksc[j].y : ksc[j].x)
+                           : hidden;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        const float m_new = fmaxf(m_run[hr], mx[hr]);
+        alpha[hr] = ex2_approx(m_run[hr] - m_new);
+        m_run[hr] = m_new;
+        l_run[hr] *= alpha[hr];
+      }
+      // a rescale by 1 changes nothing: skipped when no row's max moved
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          acc[n][0] *= alpha[0];
+          acc[n][1] *= alpha[0];
+          acc[n][2] *= alpha[1];
+          acc[n][3] *= alpha[1];
+        }
+      }
+      // probabilities: p sums into l; bf16(p * vs) is the value product's A
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 vsc = *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2_approx(sc[j][e] - m_run[e >> 1]);
+          l_run[e >> 1] += p;
+          sc[j][e] = p * ((e & 1) ? vsc.y : vsc.x);
+        }
+      }
+
+    }
+
+    // acc += bf16(p * vs) . V: 4 k steps of 16 tokens, V by ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, v16 + 16 * kk * P16 + 16 * np);
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+        mma_16816(acc[2 * np], pa, b0);
+        mma_16816(acc[2 * np + 1], pa, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // l is summed per thread over its columns; the quad holds the whole row.
+  // acc[n][c] is dim 8 n + 2 t4 + (c & 1) of row g8 + 8 (c >> 1)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
+  }
+  const int qi[2] = {qi0, qi1};
+  const long HD = (long)a.H * D;
+  const int n = a.n_split;
+  if (n == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (qi[hr] >= a.Tq) continue;
+      const float inv = 1.f / (l_run[hr] > 0.f ? l_run[hr] : 1.f);
+      float* o = a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
+#pragma unroll
+      for (int nn = 0; nn < NT; ++nn)
+        *reinterpret_cast<float2*>(o + 8 * nn) =
+            make_float2(acc[nn][2 * hr] * inv, acc[nn][2 * hr + 1] * inv);
+    }
+    return;
+  }
+
+  // the ranks' states through distributed shared memory, merged in rank
+  // order, each rank a share of the outputs
+  __syncthreads();  // the ring is drained: its space holds the state now
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = warp * 16 + g8 + 8 * hr;
+    if (t4 == 0) {
+      sm.st_m[r] = m_run[hr];
+      sm.st_l[r] = l_run[hr];
+    }
+    float* dst = sm.st_acc + (size_t)r * D + 2 * t4;
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+      *reinterpret_cast<float2*>(dst + 8 * nn) =
+          make_float2(acc[nn][2 * hr], acc[nn][2 * hr + 1]);
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // this rank's share: rows [r0, r1); first each row's weights
+  // exp2(m_k - M) and 1 / L, then its dims, rank by rank (a rank's reads
+  // of all its elements in flight at once: at most 8 a thread)
+  const int rshare = (R + n - 1) / n;
+  const int r0 = rank * rshare, r1 = min(R, r0 + rshare);
+  constexpr int W = kMaxSplits + 1;
+  for (int r = r0 + tid; r < r1; r += nthr) {
+    float mv[kMaxSplits];
+    float M = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k)
+      if (k < n) {
+        mv[k] = cluster.map_shared_rank(sm.st_m, k)[r];
+        M = fmaxf(M, mv[k]);
+      }
+    float L = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k)
+      if (k < n) {
+        const float wgt = ex2_approx(mv[k] - M);
+        L += cluster.map_shared_rank(sm.st_l, k)[r] * wgt;
+        sm.st_w[(r - r0) * W + k] = wgt;
+      }
+    sm.st_w[(r - r0) * W + kMaxSplits] = 1.f / (L > 0.f ? L : 1.f);
+  }
+  __syncthreads();
+  constexpr int d4 = D / 4;
+  const int ne = (r1 - r0) * d4;
+  float4 v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k = 0; k < n; ++k) {
+    const float* src = cluster.map_shared_rank(sm.st_acc, k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = tid + j * nthr;
+      if (e < ne) {
+        const int r = e / d4, d = 4 * (e - r * d4);
+        const float4 x =
+            *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + d);
+        const float wgt = sm.st_w[r * W + k];
+        v[j].x += x.x * wgt, v[j].y += x.y * wgt;
+        v[j].z += x.z * wgt, v[j].w += x.w * wgt;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int e = tid + j * nthr;
+    if (e >= ne) continue;
+    const int r = e / d4, d = 4 * (e - r * d4);
+    const int gq = (r0 + r) / a.bq, row = q_first + r0 + r - gq * a.bq;
+    if (row >= a.Tq) continue;
+    const float inv = sm.st_w[r * W + kMaxSplits];
+    *reinterpret_cast<float4*>(a.out + ((long)s * a.Tq + row) * HD +
+                               (long)(h * G + gq) * D + d) =
+        make_float4(v[j].x * inv, v[j].y * inv, v[j].z * inv, v[j].w * inv);
+  }
+  // keep this block's state until every rank has read it
+  cluster.sync();
+}
+
+template <int D>
+cudaError_t launch_t(const Args& a, int S, size_t smem, cudaStream_t stream) {
+  const auto kernel = flash_prefill_kernel<D>;
+  static const cudaError_t attr_rc = [&] {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  }();
+  if (attr_rc != cudaSuccess) return attr_rc;
+  const int n_qb = (a.Tq + a.bq - 1) / a.bq;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.n_split, a.Hkv * S * n_qb, 1);
+  cfg.blockDim = dim3(32 * (a.H / a.Hkv) * a.bq / 16);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.n_split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 }  // namespace
 
-PS_EXPORT size_t ps_flash_prefill_smem(int T, int D) {
-  return smem_layout(T, D, nullptr, nullptr);
+// Shared memory one launch takes (bytes), for the wrapper's check; rows =
+// G * bq.
+PS_EXPORT size_t ps_flash_prefill_smem(int T, int D, int rows) {
+  return smem_layout(T, D, rows, nullptr, nullptr);
 }
 
-// D must be 16, 32, 64 or 128 and G = H / Hkv at most 8 (checked by the
-// wrapper). Returns a CUDA error code (0 on success), or -1 for a D the
-// kernel is not built for.
+// D must be 16, 32, 64 or 128; G = H / Hkv; bq a multiple of 16 with
+// G * bq <= 128; n_split in 1..8 (the wrapper's geometry). Returns a CUDA
+// error code (0 on success).
 PS_EXPORT int ps_flash_prefill(const void* q, const void* kq, const void* ks,
                                const void* vq, const void* vs,
                                const void* cmask, const void* start, void* out,
                                int S, int Tq, int H, int Hkv, int T, int D,
-                               float scale, void* stream_ptr) {
+                               float scale, int bq, int n_split,
+                               void* stream_ptr) {
+  if (S <= 0 || Tq <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || bq <= 0 ||
+      bq % 16 || (H / Hkv) * bq > 16 * kMaxWarps || n_split < 1 ||
+      n_split > kMaxSplits || (long)Hkv * S * ((Tq + bq - 1) / bq) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  Args a{};
+  a.q = reinterpret_cast<const float*>(q);
+  a.kq = reinterpret_cast<const int8_t*>(kq);
+  a.ks = reinterpret_cast<const float*>(ks);
+  a.vq = reinterpret_cast<const int8_t*>(vq);
+  a.vs = reinterpret_cast<const float*>(vs);
+  a.mask = reinterpret_cast<const uint8_t*>(cmask);
+  a.start = reinterpret_cast<const int*>(start);
+  a.out = reinterpret_cast<float*>(out);
+  a.S = S, a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = T;
+  a.bq = bq, a.n_split = n_split;
+  a.scale2 = scale * kLog2e;
+  a.s_vec = T % 4 == 0 && al16(ks) && al16(vs);
+  a.m_vec = T % 16 == 0 && al16(cmask);
+  const size_t smem = smem_layout(T, D, (H / Hkv) * bq, nullptr, nullptr);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  cudaError_t e;
   switch (D) {
-    case 16:
-      return launch<16>(q, kq, ks, vq, vs, cmask, start, out, S, Tq, H, Hkv, T,
-                        scale, stream);
-    case 32:
-      return launch<32>(q, kq, ks, vq, vs, cmask, start, out, S, Tq, H, Hkv, T,
-                        scale, stream);
-    case 64:
-      return launch<64>(q, kq, ks, vq, vs, cmask, start, out, S, Tq, H, Hkv, T,
-                        scale, stream);
-    case 128:
-      return launch<128>(q, kq, ks, vq, vs, cmask, start, out, S, Tq, H, Hkv,
-                         T, scale, stream);
-    default:
-      return -1;
+    case 16: e = launch_t<16>(a, S, smem, stream); break;
+    case 32: e = launch_t<32>(a, S, smem, stream); break;
+    case 64: e = launch_t<64>(a, S, smem, stream); break;
+    case 128: e = launch_t<128>(a, S, smem, stream); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }

@@ -367,6 +367,41 @@ def test_flash_prefill_kernel(dev, S, Tq, H, Hkv, D, T, starts, committed):
     _close_flips(got, flash_prefill_quant_reference(*args), vs)
 
 
+def _bucket(dev, long_slot=True):
+    """The scheduler's bucket: S = 8, Tq = 128, T = 2048, llama-8b heads;
+    with long_slot the last slot has 1900 committed positions (the walk
+    the splits cut), else 190."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    S, Tq, H, Hkv, D, T = 8, 128, 32, 8, 128, 2048
+    long = 1900 if long_slot else 190
+    starts = [0, 128, -1, 512, 40, 1000, -1, long]
+    committed = [0, 128, 300, 512, 40, 1000, 0, long]
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    mask = torch.arange(T, device=dev)[None, :] < torch.tensor(
+        committed, device=dev)[:, None]
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    return (q, kq, ks, vq, vs, mask, start, 1.0 / D ** 0.5)
+
+
+@pytest.mark.parametrize("long_slot", [True, False])
+def test_flash_prefill_bucket_with_a_long_slot(dev, long_slot):
+    args = _bucket(dev, long_slot)
+    got = flash_prefill_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close_flips(got, flash_prefill_quant_reference(*args), args[4])
+
+
+def test_flash_prefill_same_bits_every_run(dev):
+    """The ranks of a cluster merge in a fixed order: one launch, the same
+    bits on every run."""
+    args = _bucket(dev)
+    a, b = flash_prefill_cuda(*args), flash_prefill_cuda(*args)
+    assert torch.equal(a, b)
+
+
 def test_flash_prefill_row_that_sees_nothing(dev):
     """start = -1 and no committed bit: row 0 sees nothing and averages V
     over all T positions (no chunk is skipped for that block)."""
