@@ -22,12 +22,19 @@
 //    scale and minimum out of the inner loop once per 32-row block, and
 //    adds its K splits inside one cluster in a fixed order: one launch,
 //    the same bits on every run.
-//  - prefill (M = 512): operations, 2 * M * N * K at 989 TFLOP/s bf16.
-//    A 128 x 128 output tile per block, 32-row K steps (one scale block):
-//    the x tile is copied to shared memory, the weight tile dequantized
-//    in f32 and stored as bf16 [n][k], and eight warps run mma.sync
-//    m16n8k16 bf16 -> f32 on it. No cp.async pipeline, ldmatrix or
-//    wgmma yet: those, and TMA, are the next steps.
+//  - prefill (M = 512): operations, 2 * M * N * K at 989 TFLOP/s bf16
+//    (4096 -> 28672: 0.122 ms). A 128 x 128 output tile per block, two
+//    blocks an SM; K advances a unit of two 32-deep scale blocks at a
+//    time. A three-stage cp.async ring holds each unit's x tile, the
+//    weight's stored bytes (packed nibbles travel at a quarter of bf16's
+//    bytes: the low and high nibbles of 32 byte rows are two scale blocks
+//    G / 2 apart in K, so a unit reads its bytes once), its scales and
+//    minimums, two units ahead of the tensor cores. The block dequantizes
+//    a unit once, each weight in f32 as dequant_byte does (value * scale,
+//    then - minimum, each rounded) and then to bf16, into a [n][k] tile;
+//    eight warps of 64 x 32 run four k16 steps of mma.sync m16n8k16 on it
+//    with A and B fragments by ldmatrix. Not yet: wgmma with the
+//    dequantized weight as the register operand, and TMA.
 // Ragged M, N are masked in both; K is a multiple of 32 by format.
 //
 // Grouped mode (ps_qmatmul_grouped) replaces the same TPU kernel called
@@ -37,34 +44,237 @@
 // device memory (the TPU's scalar prefetch) and offsets its weight
 // pointers; ids are clipped into the stack, so padding tiles read in
 // bounds. tile_m <= 16 runs the GEMV (one grid z per tile), tile_m = 128
-// the tensor-core tile with bf16 weights (one block row per tile): numerics follow the tile, not the total row count. The
-// bound counts the bytes of the distinct slabs the ids name.
+// the prefill GEMM with bf16 weights (one block row per tile): numerics
+// follow the tile, not the total row count. The bound counts the bytes
+// of the distinct slabs the ids name.
 #include "gemv.cuh"
 
 namespace {
 
+// The prefill GEMM's tile: 128 x 128 outputs, 8 warps as 2 (M) x 4 (N)
+// of 64 x 32. Its K step (a unit) is two 32-deep scale blocks: 32 packed
+// byte rows (their low and high nibbles: two blocks G / 2 apart in K) or
+// 64 unpacked rows.
 constexpr int TBM = 128;
 constexpr int TBN = 128;
-constexpr int TBK = 32;
-constexpr int TPITCH = TBK + 8;  // bf16 per staged row (80 bytes): the
-                                 // fragment loads of a warp hit 32 banks
+constexpr int UK = 64;           // k values of a unit
+constexpr int XP = UK + 8;       // x row pitch (bf16)
+constexpr int DP = TBN + 8;      // dequantized weight row pitch (bf16)
+constexpr int WP = TBN + 16;     // staged weight row pitch (bytes)
+constexpr int kGemmStages = 3;
 
-// 128 x 128 output tile per block, 8 warps as 2 (M) x 4 (N), each warp
-// 64 x 32 = 4 x 4 mma tiles. Per 32-row K step (one scale block): the
-// x tile is copied to shared memory as is, the weight tile is
-// dequantized in f32 and stored as bf16 [n][k], then two k16 mma steps.
-__global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w, Slabs sl,
-                                                      const __nv_bfloat16* x,
-                                                      int M, float* out) {
-  w = pick_slab(w, sl, blockIdx.y);  // grouped: one 128-row tile per slab
-  __shared__ __align__(16) __nv_bfloat16 As[TBM][TPITCH];
-  __shared__ __align__(16) __nv_bfloat16 Bs[TBN][TPITCH];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, t4 = lane % 4;
-  const int m_base = blockIdx.y * TBM, n_base = blockIdx.x * TBN;
+// One stage: x [TBM][XP] bf16, the unit's stored weight rows [32 or
+// 64][WP], scales and minimums [2 arrays][2 blocks][TBN] (room for f32);
+// after the ring, two dequantized units [2][UK][DP] bf16.
+template <bool PACKED>
+struct GemmSmem {
+  static constexpr int XS = TBM * XP * 2;
+  static constexpr int WS = (PACKED ? 32 : 64) * WP;
+  static constexpr int SS = 2 * 2 * TBN * 4;
+  static constexpr int STAGE = XS + WS + SS;
+  static constexpr int WD = UK * DP * 2;
+  static constexpr int BYTES = kGemmStages * STAGE + 2 * WD;
+};
+
+struct GemmArgs {
+  QWeight w;
+  Slabs sl;
+  const __nv_bfloat16* x;
+  float* out;
+  int M;          // rows of x (all tiles)
+  int wvec;       // weight rows copy 16 bytes at a time (N % 16 == 0)
+  int svec;       // scale rows copy 16 bytes at a time
+};
+
+// Scale blocks (lo, hi) of unit u and its first stored row: packed, the
+// low and high nibbles of stored rows [32 u, 32 u + 32); unpacked, rows
+// [64 u, 64 u + 64) (hi = -1 past K).
+template <bool PACKED>
+__device__ __forceinline__ void unit_blocks(const QWeight& w, int u, int* lo,
+                                            int* hi, int* row0) {
+  if (PACKED) {
+    const int half = w.group / 2;
+    const int r0 = 32 * u, g = r0 / half, i0 = r0 - g * half;
+    *lo = (g * w.group + i0) / 32;
+    *hi = (g * w.group + half + i0) / 32;
+    *row0 = r0;
+  } else {
+    *lo = 2 * u;
+    *hi = 2 * u + 1 < w.K / 32 ? 2 * u + 1 : -1;
+    *row0 = 64 * u;
+  }
+}
+
+// Byte j of v (< 256) as the float v_j - off, exactly: 2^23 + v_j built
+// by a byte permute into the bits of 2^23, then one subtraction (no
+// quarter-rate int-to-float conversion).
+__device__ __forceinline__ float byte_value(uint32_t v, int j, float off) {
+  const uint32_t b = __byte_perm(v, 0x4B000000u, 0x7440 | j);
+  return __fsub_rn(__uint_as_float(b), 8388608.f + off);
+}
+
+// Each block: one 128-row tile of x (blockIdx.x; in grouped mode one
+// tile of one slab) against 128 columns of the weight (blockIdx.y), the
+// K units streamed through a three-stage cp.async ring: x rows as they
+// are, the weight's stored bytes, scales and minimums. While the warps
+// multiply unit u, they dequantize unit u + 1 into the other of two bf16
+// tiles [k][n], each weight in f32 exactly as dequant_byte does (value *
+// scale, then - minimum, each rounded), then to bf16: one barrier a
+// unit. The products are four k16 steps of mma.sync m16n8k16 with A
+// fragments by ldmatrix from x and B fragments by ldmatrix.trans.
+template <bool PACKED, bool SBF16>
+__global__ __launch_bounds__(256, 2) void qmm_mma_kernel(GemmArgs a) {
+  using L = GemmSmem<PACKED>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const QWeight w = pick_slab(a.w, a.sl, blockIdx.x);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m_base = blockIdx.x * TBM, n_base = blockIdx.y * TBN;
   const int K = w.K, N = w.N;
-  const bool vec = (N % 4) == 0;
+  const int n_units = PACKED ? K / 64 : (K + 63) / 64;
+  constexpr int es = SBF16 ? 2 : 4;  // bytes of a scale
+  constexpr int rows = PACKED ? 32 : 64;  // stored weight rows of a unit
+  __nv_bfloat16* wd = reinterpret_cast<__nv_bfloat16*>(
+      smem + kGemmStages * L::STAGE);
+
+  // stage unit u into ring slot `slot`; rows past M, columns past N and
+  // blocks past K read zeros
+  auto issue = [&](int u, int slot) {
+    uint8_t* st = smem + slot * L::STAGE;
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st);
+    uint8_t* ws = st + L::XS;
+    uint8_t* ss = ws + L::WS;
+    int kb[2], row0;
+    unit_blocks<PACKED>(w, u, &kb[0], &kb[1], &row0);
+    // x: 128 rows x 2 blocks x 32 k, 16 bytes a copy
+#pragma unroll
+    for (int i = 0; i < TBM * 8 / 256; ++i) {
+      const int e = tid + 256 * i;
+      const int r = e >> 3, h = (e >> 2) & 1, c = (e & 3) * 8;
+      const int m = m_base + r;
+      const bool ok = m < a.M && kb[h] >= 0;
+      const __nv_bfloat16* src =
+          a.x + (ok ? (long)m * K + kb[h] * 32 + c : 0);
+      cp_async16(xs + r * XP + h * 32 + c, src, ok);
+    }
+    // weight bytes: the unit's stored rows, 128 columns
+    const int rows_k = PACKED ? rows : (kb[1] >= 0 ? 64 : 32);
+    if (a.wvec) {
+#pragma unroll
+      for (int i = 0; i < rows * 8 / 256; ++i) {
+        const int e = tid + 256 * i;
+        const int r = e >> 3, c = (e & 7) * 16;
+        const bool ok = r < rows_k && n_base + c < N;
+        const uint8_t* src = w.q + (ok ? (long)(row0 + r) * N + n_base + c : 0);
+        cp_async16(ws + r * WP + c, src, ok);
+      }
+    } else {
+      for (int e = tid; e < rows * TBN; e += 256) {
+        const int r = e / TBN, c = e - r * TBN;
+        const bool ok = r < rows_k && n_base + c < N;
+        ws[r * WP + c] = ok ? __ldg(w.q + (long)(row0 + r) * N + n_base + c) : 0;
+      }
+    }
+    // scales, then minimums: [2 blocks][128] of each
+    for (int arr = 0; arr < (w.bias ? 2 : 1); ++arr) {
+      const uint8_t* base =
+          reinterpret_cast<const uint8_t*>(arr ? w.bias : w.scales);
+      uint8_t* dst = ss + arr * 2 * TBN * 4;
+      if (a.svec) {
+        constexpr int per = TBN * es / 16;  // 16-byte copies per block row
+        if (tid < 2 * per) {
+          const int h = tid / per, c = (tid - h * per) * 16;
+          const bool ok = kb[h] >= 0 && n_base + c / es < N;
+          const uint8_t* src =
+              base + (ok ? ((long)kb[h] * N + n_base) * es + c : 0);
+          cp_async16(dst + h * TBN * es + c, src, ok);
+        }
+      } else {
+        for (int e = tid; e < 2 * TBN; e += 256) {
+          const int h = e / TBN, c = e - h * TBN;
+          const bool ok = kb[h] >= 0 && n_base + c < N;
+          const long idx = (long)kb[h] * N + n_base + c;
+          if (SBF16)
+            reinterpret_cast<uint16_t*>(dst)[h * TBN + c] =
+                ok ? reinterpret_cast<const uint16_t*>(base)[idx] : 0;
+          else
+            reinterpret_cast<float*>(dst)[h * TBN + c] =
+                ok ? reinterpret_cast<const float*>(base)[idx] : 0.f;
+        }
+      }
+    }
+  };
+
+  // dequantize the unit in slot `slot` into wd tile `buf` [k][n]: an item
+  // is one stored row and 8 columns (packed: its low nibbles are k = row,
+  // its high nibbles k = 32 + row; unpacked: k = row)
+  auto dequant = [&](int slot, int buf) {
+    const uint8_t* st = smem + slot * L::STAGE;
+    const uint8_t* ws = st + L::XS;
+    const uint8_t* ss = ws + L::WS;
+    __nv_bfloat16* dst = wd + buf * (UK * DP);
+    const float off = (float)w.offset;
+#pragma unroll
+    for (int i = 0; i < rows * 16 / 256; ++i) {
+      const int e = tid + 256 * i;
+      const int r = e >> 4, n8 = (e & 15) * 8;
+      const uint2 q = *reinterpret_cast<const uint2*>(ws + r * WP + n8);
+#pragma unroll
+      for (int half = 0; half < (PACKED ? 2 : 1); ++half) {
+        const int h = PACKED ? half : r >> 5;  // scale block
+        const int k = PACKED ? 32 * half + r : r;
+        float sc[8], mn[8];
+#pragma unroll
+        for (int arr = 0; arr < 2; ++arr) {
+          float* v = arr ? mn : sc;
+          if (arr && !w.bias) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = 0.f;
+            continue;
+          }
+          const uint8_t* src = ss + arr * 2 * TBN * 4 + (h * TBN + n8) * es;
+          if (SBF16) {
+            const uint4 t = *reinterpret_cast<const uint4*>(src);
+            const uint32_t tw[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              v[2 * j] = __uint_as_float(tw[j] << 16);
+              v[2 * j + 1] = __uint_as_float(tw[j] & 0xFFFF0000u);
+            }
+          } else {
+            const float4 t0 = *reinterpret_cast<const float4*>(src);
+            const float4 t1 = *reinterpret_cast<const float4*>(src + 16);
+            v[0] = t0.x, v[1] = t0.y, v[2] = t0.z, v[3] = t0.w;
+            v[4] = t1.x, v[5] = t1.y, v[6] = t1.z, v[7] = t1.w;
+          }
+        }
+        uint32_t words[2];
+        if (PACKED) {
+          words[0] = (q.x >> (4 * half)) & 0x0F0F0F0Fu;
+          words[1] = (q.y >> (4 * half)) & 0x0F0F0F0Fu;
+        } else {  // int8 + 128, then 128 more in the offset
+          words[0] = q.x ^ 0x80808080u;
+          words[1] = q.y ^ 0x80808080u;
+        }
+        const float o = PACKED ? off : 128.f;
+        uint32_t packed[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t wv = words[j >> 1];
+          const int b0 = 2 * (j & 1);
+          const float f0 = __fsub_rn(
+              __fmul_rn(byte_value(wv, b0, o), sc[2 * j]), mn[2 * j]);
+          const float f1 = __fsub_rn(
+              __fmul_rn(byte_value(wv, b0 + 1, o), sc[2 * j + 1]),
+              mn[2 * j + 1]);
+          packed[j] = pack_bf16(f0, f1);
+        }
+        *reinterpret_cast<uint4*>(dst + k * DP + n8) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      }
+    }
+  };
+
   float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -72,74 +282,53 @@ __global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w, Slabs sl,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  // ldmatrix lane addresses: A rows of a m16 tile (two k halves); B (by
+  // .trans) k rows of two n8 tiles (two k halves)
+  const int a_off = (wm * 64 + (lane & 15)) * XP + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DP + wn * 32 +
+                    (lane >> 4) * 8;
 
-  // this thread's share of the weight tile: 4 columns x 4 k rows
-  const int n4 = (tid % 32) * 4, kr = (tid / 32) * 4;
-  const int nw = n_base + n4;
-
-  for (int kb = 0; kb < K / TBK; ++kb) {
-    const int k0 = kb * TBK;
-    for (int e = tid; e < TBM * TBK / 8; e += 256) {
-      const int r = e / (TBK / 8), c = (e % (TBK / 8)) * 8;
-      const int m = m_base + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M)
-        v = __ldg(reinterpret_cast<const uint4*>(x + (long)m * K + k0 + c));
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
-    }
-    {
-      int shift;
-      const long row0 = block_row(w, kb, &shift);
-      float s[4], b[4];
+  // the ring: unit u + 2 is issued while unit u is multiplied and unit
+  // u + 1 dequantized
+  for (int p = 0; p < kGemmStages - 1; ++p) {
+    if (p < n_units) issue(p, p);
+    cp_async_commit();
+  }
+  cp_async_wait<kGemmStages - 2>();  // unit 0 has landed
+  __syncthreads();
+  if (n_units > 0) dequant(0, 0);
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<0>();  // unit u + 1 has landed
+    __syncthreads();     // unit u is dequantized; unit u - 1 is done
+    const int ahead = u + kGemmStages - 1;
+    if (ahead < n_units) issue(ahead, ahead % kGemmStages);
+    cp_async_commit();
+    if (u + 1 < n_units) dequant((u + 1) % kGemmStages, (u + 1) & 1);
+    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
+        smem + (u % kGemmStages) * L::STAGE);
+    const __nv_bfloat16* wt = wd + (u & 1) * (UK * DP);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = nw + j;
-        const bool ok = n < N;
-        const long idx = (long)kb * N + n;
-        s[j] = ok ? ld_scale(w.scales, idx, w.scale_bf16) : 0.f;
-        b[j] = (ok && w.bias) ? ld_scale(w.bias, idx, w.scale_bf16) : 0.f;
-      }
-      uint32_t words[4];
+    for (int ks = 0; ks < UK / 16; ++ks) {
+      uint32_t af[4][4], bfr[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        words[i] = nw < N ? ld_row4(w.q, row0 + kr + i, nw, N, vec) : 0u;
+      for (int mt = 0; mt < 4; ++mt)
+        ldsm_x4(af[mt], xs + a_off + mt * 16 * XP + ks * 16);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float v[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[i] = dequant_byte(words[i], j, shift, w, s[j], b[j]);
-        *reinterpret_cast<uint2*>(&Bs[n4 + j][kr]) =
-            make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        const int c = ks + t4 * 2;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][c]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][c + 8]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + g;
-        const int c = ks + t4 * 2;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][c]);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[n][c + 8]);
+      for (int np = 0; np < 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, wt + b_off + ks * 16 * DP + np * 16);
+        bfr[2 * np][0] = r[0], bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2], bfr[2 * np + 1][1] = r[3];
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bf[nt]);
+        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
     }
-    __syncthreads();
   }
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pair = (N & 1) == 0;  // float2 stores stay 8-byte aligned
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -149,13 +338,31 @@ __global__ __launch_bounds__(256) void qmm_mma_kernel(QWeight w, Slabs sl,
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = r0 + half * 8;
-        if (r >= M) continue;
+        if (r >= a.M) continue;
+        float* o = a.out + (long)r * N + c0;
+        if (pair && c0 + 1 < N) {
+          *reinterpret_cast<float2*>(o) =
+              make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+        } else {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (c0 + j < N) out[(long)r * N + c0 + j] = acc[mt][nt][half * 2 + j];
+          for (int j = 0; j < 2; ++j)
+            if (c0 + j < N) o[j] = acc[mt][nt][half * 2 + j];
+        }
       }
     }
   }
+}
+
+template <bool PACKED, bool SBF16>
+cudaError_t launch_gemm_t(const GemmArgs& a, int m_tiles, cudaStream_t stream) {
+  const auto kernel = qmm_mma_kernel<PACKED, SBF16>;
+  constexpr int smem = GemmSmem<PACKED>::BYTES;
+  static const cudaError_t attr_rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr_rc != cudaSuccess) return attr_rc;
+  dim3 grid(m_tiles, (a.w.N + TBN - 1) / TBN);
+  kernel<<<grid, 256, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // M rows per tile, `tiles` tiles (1 for a plain weight).
@@ -167,9 +374,20 @@ int run_qmatmul(const QWeight& w, const Slabs& sl, const __nv_bfloat16* xb,
     const cudaError_t last = cudaGetLastError();
     return (int)(e != cudaSuccess ? e : last);
   }
-  dim3 grid((w.N + TBN - 1) / TBN, (M * tiles + TBM - 1) / TBM);
-  qmm_mma_kernel<<<grid, 256, 0, stream>>>(w, sl, xb, M * tiles, o);
-  return (int)cudaGetLastError();
+  const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  GemmArgs a{w, sl, xb, o, M * tiles, 0, 0};
+  const long es = w.scale_bf16 ? 2 : 4;
+  a.wvec = w.N % 16 == 0 && al16(w.q);
+  a.svec = (w.N * es) % 16 == 0 && al16(w.scales) && (!w.bias || al16(w.bias));
+  const int m_tiles = (M * tiles + TBM - 1) / TBM;
+  cudaError_t e;
+  if (w.packed)
+    e = w.scale_bf16 ? launch_gemm_t<true, true>(a, m_tiles, stream)
+                     : launch_gemm_t<true, false>(a, m_tiles, stream);
+  else
+    e = w.scale_bf16 ? launch_gemm_t<false, true>(a, m_tiles, stream)
+                     : launch_gemm_t<false, false>(a, m_tiles, stream);
+  return (int)e;
 }
 
 }  // namespace

@@ -106,6 +106,31 @@ def test_qmatmul_gemv_same_bits_every_run(dev, fmt, k, n, pack, m):
     _close(a, qmatmul_reference(x, lin))
 
 
+@pytest.mark.parametrize("m,k,n", [(1024, 4096, 6144), (512, 14336, 4096)])
+def test_qmatmul_gemm_llama8b_shapes(dev, m, k, n):
+    """The prefill GEMM at the scheduler's 8 x 128-row chunk on the QKV
+    shape, and at the down projection's K = 14336."""
+    lin = _lin(GGMLType.Q4_K, k, n, True, seed=m, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(k)
+    x = torch.randn(m, k, generator=g, device=dev)
+    _close(qmatmul_cuda(x, lin), qmatmul_reference(x, lin))
+
+
+@pytest.mark.parametrize("fmt,pack", [(GGMLType.Q4_K, True),
+                                      (GGMLType.Q8_0, False)])
+def test_qmatmul_gemm_same_bits_every_run(dev, fmt, pack):
+    """No split of K across blocks: two runs at M = 512 give the same
+    bits."""
+    lin = _lin(fmt, 4096, 1024, pack, seed=3, bf16=True).to(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x = torch.randn(512, 4096, generator=g, device=dev)
+    a, b = qmatmul_cuda(x, lin), qmatmul_cuda(x, lin)
+    assert torch.equal(a, b)
+    _close(a, qmatmul_reference(x, lin))
+
+
 def _sync_free(fn):
     """fn() with every host-device synchronization an error."""
     torch.cuda.synchronize()
