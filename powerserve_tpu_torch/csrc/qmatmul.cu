@@ -47,33 +47,46 @@
 // the prefill GEMM with bf16 weights (one block row per tile): numerics
 // follow the tile, not the total row count. The bound counts the bytes
 // of the distinct slabs the ids name.
+#include <cuda.h>
+
 #include "gemv.cuh"
 
 namespace {
 
-// The prefill GEMM's tile: 128 x 128 outputs, 8 warps as 2 (M) x 4 (N)
-// of 64 x 32. Its K step (a unit) is two 32-deep scale blocks: 32 packed
-// byte rows (their low and high nibbles: two blocks G / 2 apart in K) or
-// 64 unpacked rows.
+// The prefill GEMM's tile: 128 x 128 outputs, two warpgroups of 64 x
+// 128. Its K step (a unit) is two 32-deep scale blocks: 32 packed byte
+// rows (their low and high nibbles: two blocks G / 2 apart in K) or 64
+// unpacked rows.
 constexpr int TBM = 128;
 constexpr int TBN = 128;
+constexpr int kThreads = 256;
 constexpr int UK = 64;           // k values of a unit
-constexpr int XP = UK + 8;       // x row pitch (bf16)
-constexpr int DP = TBN + 8;      // dequantized weight row pitch (bf16)
 constexpr int WP = TBN + 16;     // staged weight row pitch (bytes)
-constexpr int kGemmStages = 3;
+constexpr int kXStages = 2;  // x tiles: unit u multiplied, u + 1 in flight
+constexpr int kWStages = 4;  // weight units: u + 1 dequantized, 3 in flight
+// x as wgmma's A operand: each 32-deep block of 128 rows lands by TMA
+// as [128][64 bytes] with the 64-byte swizzle (8-row groups 512 bytes
+// apart); the dequantized weight as B, MN-major core matrices (8 rows x
+// 16 bytes, no swizzle), [k / 8][n / 8][k % 8][n % 8]
+constexpr int X_BOX = TBM * 32 * 2;  // one block of x: 8 KB
+constexpr int X_SBO = 512;
+constexpr int W_LBO = 128 * (TBN / 8), W_SBO = 128;
 
-// One stage: x [TBM][XP] bf16, the unit's stored weight rows [32 or
-// 64][WP], scales and minimums [2 arrays][2 blocks][TBN] (room for f32);
-// after the ring, two dequantized units [2][UK][DP] bf16.
+// Two rings: x stages (two TMA boxes, 1024-byte aligned), and weight
+// stages (the unit's stored rows [32 or 64][WP], its scales and minimums
+// [2 arrays][2 blocks][TBN], room for f32); then two dequantized units
+// [UK x TBN] bf16, then the x stages' barriers.
 template <bool PACKED>
 struct GemmSmem {
-  static constexpr int XS = TBM * XP * 2;
+  static constexpr int XS = 2 * X_BOX;
   static constexpr int WS = (PACKED ? 32 : 64) * WP;
   static constexpr int SS = 2 * 2 * TBN * 4;
-  static constexpr int STAGE = XS + WS + SS;
-  static constexpr int WD = UK * DP * 2;
-  static constexpr int BYTES = kGemmStages * STAGE + 2 * WD;
+  static constexpr int WSTAGE = WS + SS;
+  static constexpr int WD = UK * TBN * 2;
+  static constexpr int W0 = kXStages * XS;                // weight ring
+  static constexpr int D0 = W0 + kWStages * WSTAGE;       // dequantized
+  static constexpr int B0 = D0 + 2 * WD;                  // barriers
+  static constexpr int BYTES = B0 + 8 * kXStages + 1024;  // + alignment
 };
 
 struct GemmArgs {
@@ -105,6 +118,62 @@ __device__ __forceinline__ void unit_blocks(const QWeight& w, int u, int* lo,
   }
 }
 
+// A wgmma operand in shared memory. swizzle 0: 8 x 16-byte core matrices
+// (128 contiguous bytes), lbo the byte stride between core matrices
+// along K, sbo along M or N (K-major and MN-major alike); swizzle 2: rows
+// of 64 bytes under the 64-byte swizzle, sbo the stride of 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo,
+                                              int swizzle) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// d[64 x 128] += a[64 x 16] (K-major) * b[16 x 128] (MN-major), bf16 in,
+// f32 accumulators in the mma.sync C layout per 8-column tile
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Byte j of v (< 256) as the float v_j - off, exactly: 2^23 + v_j built
 // by a byte permute into the bits of 2^23, then one subtraction (no
 // quarter-rate int-to-float conversion).
@@ -115,61 +184,82 @@ __device__ __forceinline__ float byte_value(uint32_t v, int j, float off) {
 
 // Each block: one 128-row tile of x (blockIdx.x; in grouped mode one
 // tile of one slab) against 128 columns of the weight (blockIdx.y), the
-// K units streamed through a three-stage cp.async ring: x rows as they
-// are, the weight's stored bytes, scales and minimums. While the warps
-// multiply unit u, they dequantize unit u + 1 into the other of two bf16
-// tiles [k][n], each weight in f32 exactly as dequant_byte does (value *
-// scale, then - minimum, each rounded), then to bf16: one barrier a
-// unit. The products are four k16 steps of mma.sync m16n8k16 with A
-// fragments by ldmatrix from x and B fragments by ldmatrix.trans.
+// K units streamed through a three-stage cp.async ring: x rows, the
+// weight's stored bytes, scales and minimums. Each warpgroup issues a
+// unit's four wgmma m64n128k16 (x and the dequantized weight both from
+// shared memory), then, while they run, the block dequantizes the next
+// unit into the other of two bf16 tiles, each weight in f32 exactly as
+// dequant_byte does (value * scale, then - minimum, each rounded), then
+// to bf16: one barrier a unit.
 template <bool PACKED, bool SBF16>
-__global__ __launch_bounds__(256, 2) void qmm_mma_kernel(GemmArgs a) {
+__global__ __launch_bounds__(kThreads, 2) void qmm_mma_kernel(
+    const __grid_constant__ CUtensorMap tmx, GemmArgs a) {
   using L = GemmSmem<PACKED>;
-  extern __shared__ __align__(16) uint8_t smem[];
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - ((uintptr_t)smem_raw & 1023)) & 1023);
   const QWeight w = pick_slab(a.w, a.sl, blockIdx.x);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
   const int m_base = blockIdx.x * TBM, n_base = blockIdx.y * TBN;
   const int K = w.K, N = w.N;
   const int n_units = PACKED ? K / 64 : (K + 63) / 64;
   constexpr int es = SBF16 ? 2 : 4;  // bytes of a scale
   constexpr int rows = PACKED ? 32 : 64;  // stored weight rows of a unit
-  __nv_bfloat16* wd = reinterpret_cast<__nv_bfloat16*>(
-      smem + kGemmStages * L::STAGE);
+  __nv_bfloat16* wd = reinterpret_cast<__nv_bfloat16*>(smem + L::D0);
 
-  // stage unit u into ring slot `slot`; rows past M, columns past N and
-  // blocks past K read zeros
-  auto issue = [&](int u, int slot) {
-    uint8_t* st = smem + slot * L::STAGE;
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st);
-    uint8_t* ws = st + L::XS;
+  // x of unit u into x slot u % kXStages by TMA (one thread): its two
+  // 32-deep blocks of the block's 128 rows; rows past the tensor and a
+  // block past K read zeros. The slot's barrier completes on the bytes.
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(smem + L::B0);
+  auto issue_x = [&](int u) {
+    const int slot = u % kXStages;
+    const uint32_t bar = bar0 + 8 * slot;
+    const uint32_t dst =
+        (uint32_t)__cvta_generic_to_shared(smem + slot * L::XS);
+    int kb[2], row0;
+    unit_blocks<PACKED>(w, u, &kb[0], &kb[1], &row0);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(L::XS) : "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = kb[h] >= 0 ? kb[h] * 32 : K;
+      asm volatile(
+          "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+          "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+          ::"r"(dst + h * X_BOX), "l"((uint64_t)&tmx), "r"(k), "r"(m_base),
+            "r"(bar) : "memory");
+    }
+  };
+  auto wait_x = [&](int u) {
+    const uint32_t bar = bar0 + 8 * (u % kXStages);
+    const uint32_t parity = (u / kXStages) & 1;
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  };
+  // stage unit u's weight bytes, scales and minimums into weight slot
+  // u % kWStages; columns past N and blocks past K read zeros
+  auto issue_w = [&](int u) {
+    uint8_t* ws = smem + L::W0 + (u % kWStages) * L::WSTAGE;
     uint8_t* ss = ws + L::WS;
     int kb[2], row0;
     unit_blocks<PACKED>(w, u, &kb[0], &kb[1], &row0);
-    // x: 128 rows x 2 blocks x 32 k, 16 bytes a copy
-#pragma unroll
-    for (int i = 0; i < TBM * 8 / 256; ++i) {
-      const int e = tid + 256 * i;
-      const int r = e >> 3, h = (e >> 2) & 1, c = (e & 3) * 8;
-      const int m = m_base + r;
-      const bool ok = m < a.M && kb[h] >= 0;
-      const __nv_bfloat16* src =
-          a.x + (ok ? (long)m * K + kb[h] * 32 + c : 0);
-      cp_async16(xs + r * XP + h * 32 + c, src, ok);
-    }
     // weight bytes: the unit's stored rows, 128 columns
     const int rows_k = PACKED ? rows : (kb[1] >= 0 ? 64 : 32);
     if (a.wvec) {
 #pragma unroll
-      for (int i = 0; i < rows * 8 / 256; ++i) {
-        const int e = tid + 256 * i;
-        const int r = e >> 3, c = (e & 7) * 16;
+      for (int i = 0; i < rows * (TBN / 16) / kThreads; ++i) {
+        const int e = tid + kThreads * i;
+        const int r = e / (TBN / 16), c = (e % (TBN / 16)) * 16;
         const bool ok = r < rows_k && n_base + c < N;
         const uint8_t* src = w.q + (ok ? (long)(row0 + r) * N + n_base + c : 0);
         cp_async16(ws + r * WP + c, src, ok);
       }
     } else {
-      for (int e = tid; e < rows * TBN; e += 256) {
+      for (int e = tid; e < rows * TBN; e += kThreads) {
         const int r = e / TBN, c = e - r * TBN;
         const bool ok = r < rows_k && n_base + c < N;
         ws[r * WP + c] = ok ? __ldg(w.q + (long)(row0 + r) * N + n_base + c) : 0;
@@ -190,7 +280,7 @@ __global__ __launch_bounds__(256, 2) void qmm_mma_kernel(GemmArgs a) {
           cp_async16(dst + h * TBN * es + c, src, ok);
         }
       } else {
-        for (int e = tid; e < 2 * TBN; e += 256) {
+        for (int e = tid; e < 2 * TBN; e += kThreads) {
           const int h = e / TBN, c = e - h * TBN;
           const bool ok = kb[h] >= 0 && n_base + c < N;
           const long idx = (long)kb[h] * N + n_base + c;
@@ -205,164 +295,198 @@ __global__ __launch_bounds__(256, 2) void qmm_mma_kernel(GemmArgs a) {
     }
   };
 
-  // dequantize the unit in slot `slot` into wd tile `buf` [k][n]: an item
-  // is one stored row and 8 columns (packed: its low nibbles are k = row,
-  // its high nibbles k = 32 + row; unpacked: k = row)
-  auto dequant = [&](int slot, int buf) {
-    const uint8_t* st = smem + slot * L::STAGE;
-    const uint8_t* ws = st + L::XS;
+  // dequantize unit u into wd tile u % 2. A thread takes 8 columns and
+  // stored rows r0 + 16 j (r0 = tid % 16): packed, rows r0 and r0 + 16,
+  // their low nibbles k = row (block 0) and high nibbles k = 32 + row
+  // (block 1); unpacked, rows r0 + 32 h + 16 j of block h. It unpacks a
+  // block's 8 scales and minimums once for its rows; a warp's lanes store
+  // 16 consecutive k of one column group (whole core-matrix rows).
+  static_assert(TBN / 8 * 16 == kThreads, "one column group a half-warp");
+  auto dequant = [&](int u) {
+    const uint8_t* ws = smem + L::W0 + (u % kWStages) * L::WSTAGE;
     const uint8_t* ss = ws + L::WS;
-    __nv_bfloat16* dst = wd + buf * (UK * DP);
-    const float off = (float)w.offset;
+    __nv_bfloat16* dst = wd + (u & 1) * (UK * TBN);
+    const int r0 = tid & 15, n8 = (tid >> 4) * 8;
+    const float o = PACKED ? (float)w.offset : 128.f;
+    uint2 qp[2];
+    if (PACKED)
 #pragma unroll
-    for (int i = 0; i < rows * 16 / 256; ++i) {
-      const int e = tid + 256 * i;
-      const int r = e >> 4, n8 = (e & 15) * 8;
-      const uint2 q = *reinterpret_cast<const uint2*>(ws + r * WP + n8);
+      for (int j = 0; j < 2; ++j)
+        qp[j] = *reinterpret_cast<const uint2*>(ws + (r0 + 16 * j) * WP + n8);
 #pragma unroll
-      for (int half = 0; half < (PACKED ? 2 : 1); ++half) {
-        const int h = PACKED ? half : r >> 5;  // scale block
-        const int k = PACKED ? 32 * half + r : r;
-        float sc[8], mn[8];
+    for (int h = 0; h < 2; ++h) {
+      float sc[8], mn[8];
 #pragma unroll
-        for (int arr = 0; arr < 2; ++arr) {
-          float* v = arr ? mn : sc;
-          if (arr && !w.bias) {
+      for (int arr = 0; arr < 2; ++arr) {
+        float* v = arr ? mn : sc;
+        if (arr && !w.bias) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j) v[j] = 0.f;
-            continue;
-          }
-          const uint8_t* src = ss + arr * 2 * TBN * 4 + (h * TBN + n8) * es;
-          if (SBF16) {
-            const uint4 t = *reinterpret_cast<const uint4*>(src);
-            const uint32_t tw[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              v[2 * j] = __uint_as_float(tw[j] << 16);
-              v[2 * j + 1] = __uint_as_float(tw[j] & 0xFFFF0000u);
-            }
-          } else {
-            const float4 t0 = *reinterpret_cast<const float4*>(src);
-            const float4 t1 = *reinterpret_cast<const float4*>(src + 16);
-            v[0] = t0.x, v[1] = t0.y, v[2] = t0.z, v[3] = t0.w;
-            v[4] = t1.x, v[5] = t1.y, v[6] = t1.z, v[7] = t1.w;
-          }
+          for (int j = 0; j < 8; ++j) v[j] = 0.f;
+          continue;
         }
+        const uint8_t* src = ss + arr * 2 * TBN * 4 + (h * TBN + n8) * es;
+        if (SBF16) {
+          const uint4 t = *reinterpret_cast<const uint4*>(src);
+          const uint32_t tw[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[2 * j] = __uint_as_float(tw[j] << 16);
+            v[2 * j + 1] = __uint_as_float(tw[j] & 0xFFFF0000u);
+          }
+        } else {
+          const float4 t0 = *reinterpret_cast<const float4*>(src);
+          const float4 t1 = *reinterpret_cast<const float4*>(src + 16);
+          v[0] = t0.x, v[1] = t0.y, v[2] = t0.z, v[3] = t0.w;
+          v[4] = t1.x, v[5] = t1.y, v[6] = t1.z, v[7] = t1.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = PACKED ? r0 + 16 * j : r0 + 32 * h + 16 * j;
+        const int k = PACKED ? 32 * h + row : row;
         uint32_t words[2];
         if (PACKED) {
-          words[0] = (q.x >> (4 * half)) & 0x0F0F0F0Fu;
-          words[1] = (q.y >> (4 * half)) & 0x0F0F0F0Fu;
+          words[0] = (qp[j].x >> (4 * h)) & 0x0F0F0F0Fu;
+          words[1] = (qp[j].y >> (4 * h)) & 0x0F0F0F0Fu;
         } else {  // int8 + 128, then 128 more in the offset
+          const uint2 q = *reinterpret_cast<const uint2*>(ws + row * WP + n8);
           words[0] = q.x ^ 0x80808080u;
           words[1] = q.y ^ 0x80808080u;
         }
-        const float o = PACKED ? off : 128.f;
         uint32_t packed[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t wv = words[j >> 1];
-          const int b0 = 2 * (j & 1);
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t wv = words[c >> 1];
+          const int b0 = 2 * (c & 1);
           const float f0 = __fsub_rn(
-              __fmul_rn(byte_value(wv, b0, o), sc[2 * j]), mn[2 * j]);
+              __fmul_rn(byte_value(wv, b0, o), sc[2 * c]), mn[2 * c]);
           const float f1 = __fsub_rn(
-              __fmul_rn(byte_value(wv, b0 + 1, o), sc[2 * j + 1]),
-              mn[2 * j + 1]);
-          packed[j] = pack_bf16(f0, f1);
+              __fmul_rn(byte_value(wv, b0 + 1, o), sc[2 * c + 1]),
+              mn[2 * c + 1]);
+          packed[c] = pack_bf16(f0, f1);
         }
-        *reinterpret_cast<uint4*>(dst + k * DP + n8) =
+        *reinterpret_cast<uint4*>(
+            dst + ((k >> 3) * (TBN / 8) + (n8 >> 3)) * 64 + (k & 7) * 8) =
             make_uint4(packed[0], packed[1], packed[2], packed[3]);
       }
     }
   };
 
-  float acc[4][4][4];
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  // ldmatrix lane addresses: A rows of a m16 tile (two k halves); B (by
-  // .trans) k rows of two n8 tiles (two k halves)
-  const int a_off = (wm * 64 + (lane & 15)) * XP + (lane >> 4) * 8;
-  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * DP + wn * 32 +
-                    (lane >> 4) * 8;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int wg = warp >> 2;  // warpgroup: rows 64 wg .. 64 wg + 63
 
-  // the ring: unit u + 2 is issued while unit u is multiplied and unit
-  // u + 1 dequantized
-  for (int p = 0; p < kGemmStages - 1; ++p) {
-    if (p < n_units) issue(p, p);
-    cp_async_commit();
+  // the rings: while unit u is multiplied and unit u + 1 dequantized, x
+  // of unit u + 1 (TMA) and the weights of units u + 2 .. u + 4
+  // (cp.async, one commit group a unit) are in flight
+  static_assert(kXStages == 2, "one x tile in flight");
+  constexpr int kWAhead = kWStages - 1;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kXStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8 * i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  cp_async_wait<kGemmStages - 2>();  // unit 0 has landed
   __syncthreads();
-  if (n_units > 0) dequant(0, 0);
-  for (int u = 0; u < n_units; ++u) {
-    cp_async_wait<0>();  // unit u + 1 has landed
-    __syncthreads();     // unit u is dequantized; unit u - 1 is done
-    const int ahead = u + kGemmStages - 1;
-    if (ahead < n_units) issue(ahead, ahead % kGemmStages);
+  if (tid == 0 && n_units > 0) issue_x(0);
+  for (int p = 0; p <= kWAhead; ++p) {
+    if (p < n_units) issue_w(p);
     cp_async_commit();
-    if (u + 1 < n_units) dequant((u + 1) % kGemmStages, (u + 1) & 1);
-    const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(
-        smem + (u % kGemmStages) * L::STAGE);
-    const __nv_bfloat16* wt = wd + (u & 1) * (UK * DP);
-#pragma unroll
-    for (int ks = 0; ks < UK / 16; ++ks) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4(af[mt], xs + a_off + mt * 16 * XP + ks * 16);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, wt + b_off + ks * 16 * DP + np * 16);
-        bfr[2 * np][0] = r[0], bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2], bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
   }
+  cp_async_wait<kWAhead>();  // W0 has landed
+  __syncthreads();
+  if (n_units > 0) dequant(0);
+  for (int u = 0; u < n_units; ++u) {
+    wait_x(u);                     // x(u) has landed
+    cp_async_wait<kWAhead - 1>();  // W(u + 1) has landed
+    fence_proxy_async();  // the dequantized tile, to wgmma
+    __syncthreads();      // unit u is dequantized; unit u - 1 is done
+    if (tid == 0 && u + 1 < n_units) issue_x(u + 1);
+    if (u + 1 + kWAhead < n_units) issue_w(u + 1 + kWAhead);
+    cp_async_commit();
+    const uint8_t* xs = smem + (u % kXStages) * L::XS + wg * 64 * 64;
+    const uint8_t* wt =
+        reinterpret_cast<const uint8_t*>(wd + (u & 1) * (UK * TBN));
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < UK / 16; ++ks)
+      wgmma_m64n128k16(
+          acc, smem_desc(xs + (ks >> 1) * X_BOX + (ks & 1) * 32, 16, X_SBO, 2),
+          smem_desc(wt + ks * 2 * W_LBO, W_LBO, W_SBO, 0));
+    wgmma_commit();
+    if (u + 1 < n_units) dequant(u + 1);
+    wgmma_wait0();
+  }
+  cp_async_wait<0>();
 
+  // accumulator i of a thread: row 16 (warp % 4) + g (+ 8 for i % 4 >= 2)
+  // of its warpgroup, column 8 (i / 4) + 2 t4 (+ 1 for odd i)
   const int g = lane >> 2, t4 = lane & 3;
   const bool pair = (N & 1) == 0;  // float2 stores stay 8-byte aligned
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int nt = 0; nt < TBN / 8; ++nt) {
+    const int c0 = n_base + nt * 8 + t4 * 2;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r0 = m_base + wm * 64 + mt * 16 + g;
-      const int c0 = n_base + wn * 32 + nt * 8 + t4 * 2;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + half * 8;
-        if (r >= a.M) continue;
-        float* o = a.out + (long)r * N + c0;
-        if (pair && c0 + 1 < N) {
-          *reinterpret_cast<float2*>(o) =
-              make_float2(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            if (c0 + j < N) o[j] = acc[mt][nt][half * 2 + j];
-        }
+    for (int half = 0; half < 2; ++half) {
+      const int r = m_base + wg * 64 + (warp & 3) * 16 + g + half * 8;
+      if (r >= a.M) continue;
+      float* o = a.out + (long)r * N + c0;
+      const float v0 = acc[4 * nt + 2 * half], v1 = acc[4 * nt + 2 * half + 1];
+      if (pair && c0 + 1 < N) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        if (c0 < N) o[0] = v0;
+        if (c0 + 1 < N) o[1] = v1;
       }
     }
   }
 }
 
 template <bool PACKED, bool SBF16>
-cudaError_t launch_gemm_t(const GemmArgs& a, int m_tiles, cudaStream_t stream) {
+cudaError_t launch_gemm_t(const CUtensorMap& tmx, const GemmArgs& a,
+                          int m_tiles, cudaStream_t stream) {
   const auto kernel = qmm_mma_kernel<PACKED, SBF16>;
   constexpr int smem = GemmSmem<PACKED>::BYTES;
-  static const cudaError_t attr_rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t attr_rc = [kernel] {
+    // all of the SM's shared memory: two blocks of ~94 KB an SM
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }();
   if (attr_rc != cudaSuccess) return attr_rc;
   dim3 grid(m_tiles, (a.w.N + TBN - 1) / TBN);
-  kernel<<<grid, 256, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(tmx, a);
   return cudaGetLastError();
+}
+
+void launch_gemm_occupancy(int* n) {
+  const auto kernel = qmm_mma_kernel<true, true>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       GemmSmem<true>::BYTES);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, kThreads,
+                                                GemmSmem<true>::BYTES);
+}
+
+// The driver's tensor-map encoder, reached through the runtime (the
+// library links no driver API).
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
 }
 
 // M rows per tile, `tiles` tiles (1 for a plain weight).
@@ -380,13 +504,27 @@ int run_qmatmul(const QWeight& w, const Slabs& sl, const __nv_bfloat16* xb,
   a.wvec = w.N % 16 == 0 && al16(w.q);
   a.svec = (w.N * es) % 16 == 0 && al16(w.scales) && (!w.bias || al16(w.bias));
   const int m_tiles = (M * tiles + TBM - 1) / TBM;
+  // x [M * tiles, K] bf16 as 32 x 128 boxes under the 64-byte swizzle
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  CUtensorMap tmx;
+  cuuint64_t dims[2] = {(cuuint64_t)w.K, (cuuint64_t)M * tiles};
+  cuuint64_t strides[1] = {(cuuint64_t)w.K * 2};
+  cuuint32_t box[2] = {32, TBM};
+  cuuint32_t elem[2] = {1, 1};
+  if (encode(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<__nv_bfloat16*>(xb), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if (w.packed)
-    e = w.scale_bf16 ? launch_gemm_t<true, true>(a, m_tiles, stream)
-                     : launch_gemm_t<true, false>(a, m_tiles, stream);
+    e = w.scale_bf16 ? launch_gemm_t<true, true>(tmx, a, m_tiles, stream)
+                     : launch_gemm_t<true, false>(tmx, a, m_tiles, stream);
   else
-    e = w.scale_bf16 ? launch_gemm_t<false, true>(a, m_tiles, stream)
-                     : launch_gemm_t<false, false>(a, m_tiles, stream);
+    e = w.scale_bf16 ? launch_gemm_t<false, true>(tmx, a, m_tiles, stream)
+                     : launch_gemm_t<false, false>(tmx, a, m_tiles, stream);
   return (int)e;
 }
 
@@ -435,4 +573,12 @@ __global__ void empty_kernel() {}
 PS_EXPORT int ps_empty_launch(void* stream_ptr) {
   empty_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream_ptr)>>>();
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of the prefill GEMM per SM (packed, bf16 scales), for
+// measurements.
+PS_EXPORT int ps_qmatmul_gemm_occupancy() {
+  int n = 0;
+  launch_gemm_occupancy(&n);
+  return n;
 }
