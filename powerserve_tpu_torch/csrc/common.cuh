@@ -1,7 +1,6 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
-// descriptor and the dequant of its bytes (the prefill GEMM's), the
-// tensor-core and copy primitives (mma.sync m16n8k16 bf16 -> f32,
-// ldmatrix, cp.async) and small numeric helpers.
+// descriptor, the tensor-core and copy primitives (mma.sync m16n8k16
+// bf16 -> f32, ldmatrix, cp.async) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
 //   q       packed: uint8 [K/2, N], nibbles in pack groups of G rows —
@@ -140,21 +139,6 @@ __device__ __forceinline__ float ld_scale(const void* p, long idx, int bf16) {
   return reinterpret_cast<const float*>(p)[idx];
 }
 
-// First stored row of scale block kb and the nibble shift that selects
-// it (0 low, 4 high); an unpacked weight stores row k at row k.
-__device__ __forceinline__ long block_row(const QWeight& w, int kb, int* shift) {
-  int k0 = kb * 32;
-  if (!w.packed) {
-    *shift = 0;
-    return k0;
-  }
-  int half = w.group / 2;
-  int g = k0 / w.group;
-  int r = k0 - g * w.group;
-  *shift = r < half ? 0 : 4;
-  return (long)g * half + (r < half ? r : r - half);
-}
-
 // Four bytes of stored row `row` at columns n0..n0+3; columns past N
 // read as zero. vec: N % 4 == 0, so the word load is aligned.
 __device__ __forceinline__ uint32_t ld_row4(const uint8_t* q, long row, int n0,
@@ -166,15 +150,4 @@ __device__ __forceinline__ uint32_t ld_row4(const uint8_t* q, long row, int n0,
   for (int j = 0; j < 4; ++j)
     if (n0 + j < N) v |= (uint32_t)__ldg(p + j) << (8 * j);
   return v;
-}
-
-__device__ __forceinline__ float dequant_byte(uint32_t word, int j, int shift,
-                                              const QWeight& w, float s,
-                                              float b) {
-  int val;
-  if (w.packed)
-    val = (int)((word >> (8 * j + shift)) & 15u) - w.offset;
-  else
-    val = (int)(int8_t)((word >> (8 * j)) & 255u);
-  return (float)val * s - b;
 }

@@ -185,10 +185,12 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     const float2 z = make_float2(0.f, 0.f);
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      qraw[ks][0] = ok0 ? *reinterpret_cast<const float2*>(q0 + 16 * ks) : z;
-      qraw[ks][1] = ok1 ? *reinterpret_cast<const float2*>(q1 + 16 * ks) : z;
-      qraw[ks][2] = ok0 ? *reinterpret_cast<const float2*>(q0 + 16 * ks + 8) : z;
-      qraw[ks][3] = ok1 ? *reinterpret_cast<const float2*>(q1 + 16 * ks + 8) : z;
+      const float2* p0 = reinterpret_cast<const float2*>(q0 + 16 * ks);
+      const float2* p1 = reinterpret_cast<const float2*>(q1 + 16 * ks);
+      qraw[ks][0] = ok0 ? p0[0] : z;
+      qraw[ks][1] = ok1 ? p1[0] : z;
+      qraw[ks][2] = ok0 ? p0[4] : z;  // dims + 8
+      qraw[ks][3] = ok1 ? p1[4] : z;
     }
   }
 
@@ -245,7 +247,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
       }
       const unsigned bal = __ballot_sync(0xffffffffu, need);
       if (need)
-        sm.list[n + __popc(bal & ((1u << lane) - 1u))] = c | (seen ? 0 : kHidden);
+        sm.list[n + __popc(bal & ((1u << lane) - 1u))] =
+            c | (seen ? 0 : kHidden);
       n += __popc(bal);
     }
     if (lane == 0) sm.misc[0] = n;
@@ -293,17 +296,20 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-    for (int u = 0; u < 4; ++u) qa[ks][u] = pack_bf16(qraw[ks][u].x, qraw[ks][u].y);
+    for (int u = 0; u < 4; ++u)
+      qa[ks][u] = pack_bf16(qraw[ks][u].x, qraw[ks][u].y);
 
   float acc[NT][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {PS_NEG_INF, PS_NEG_INF}, l_run[2] = {0.f, 0.f};
 
   // ldmatrix lane addresses: K rows (t) for two n tiles x two k halves,
   // V rows (t) of a 16-token k step for two n tiles of 8 dims
   constexpr int KV = 2 * kChunk * P16;  // one bf16 chunk (elements)
-  const int k_off = ((lane & 7) + ((lane >> 4) << 3)) * P16 + ((lane >> 3) & 1) * 8;
+  const int k_off =
+      ((lane & 7) + ((lane >> 4) << 3)) * P16 + ((lane >> 3) & 1) * 8;
   const int v_off = kChunk * P16 + ((lane & 7) + ((lane >> 3) & 1) * 8) * P16 +
                     ((lane >> 4) << 3);
   // K and V of a staged chunk to bf16, once for the block: 8 int8 a
@@ -315,7 +321,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     const int e0 = sm.list[i] & kHidden ? kChunk * ppr : 0;  // V rows alone
     for (int e = e0 + tid; e < 2 * kChunk * ppr; e += nthr) {
       const int row = e / ppr, part = e - row * ppr;
-      const uint2 w = *reinterpret_cast<const uint2*>(stg + row * P8 + part * 8);
+      const uint2 w =
+          *reinterpret_cast<const uint2*>(stg + row * P8 + part * 8);
       const uint32_t e0 = i8_even_bf16x2(w.x), o0 = i8_even_bf16x2(w.x >> 8);
       const uint32_t e1 = i8_even_bf16x2(w.y), o1 = i8_even_bf16x2(w.y >> 8);
       *reinterpret_cast<uint4*>(dst + row * P16 + part * 8) = make_uint4(
@@ -360,7 +367,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
         continue;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 vsc = *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
+        const float2 vsc =
+            *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = 8 * j + 2 * t4 + (e & 1);
@@ -372,7 +380,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     } else {
       // scores: 16 rows x 64 tokens as 8 n tiles of 8 tokens
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      for (int j = 0; j < 8; ++j)
+        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -453,7 +462,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
       // probabilities: p sums into l; bf16(p * vs) is the value product's A
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float2 vsc = *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
+        const float2 vsc =
+            *reinterpret_cast<const float2*>(vss + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = ex2_approx(sc[j][e] - m_run[e >> 1]);
@@ -498,7 +508,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     for (int hr = 0; hr < 2; ++hr) {
       if (qi[hr] >= a.Tq) continue;
       const float inv = 1.f / (l_run[hr] > 0.f ? l_run[hr] : 1.f);
-      float* o = a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
+      float* o =
+          a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
 #pragma unroll
       for (int nn = 0; nn < NT; ++nn)
         *reinterpret_cast<float2*>(o + 8 * nn) =

@@ -23,18 +23,25 @@
 //    adds its K splits inside one cluster in a fixed order: one launch,
 //    the same bits on every run.
 //  - prefill (M = 512): operations, 2 * M * N * K at 989 TFLOP/s bf16
-//    (4096 -> 28672: 0.122 ms). A 128 x 128 output tile per block, two
-//    blocks an SM; K advances a unit of two 32-deep scale blocks at a
-//    time. A three-stage cp.async ring holds each unit's x tile, the
-//    weight's stored bytes (packed nibbles travel at a quarter of bf16's
-//    bytes: the low and high nibbles of 32 byte rows are two scale blocks
-//    G / 2 apart in K, so a unit reads its bytes once), its scales and
-//    minimums, two units ahead of the tensor cores. The block dequantizes
-//    a unit once, each weight in f32 as dequant_byte does (value * scale,
-//    then - minimum, each rounded) and then to bf16, into a [n][k] tile;
-//    eight warps of 64 x 32 run four k16 steps of mma.sync m16n8k16 on it
-//    with A and B fragments by ldmatrix. Not yet: wgmma with the
-//    dequantized weight as the register operand, and TMA.
+//    (4096 -> 28672: 0.122 ms); in practice the bytes the SMs pull from
+//    the L2, since every 128-column tile reads all of x again. A 128 x
+//    128 output tile per block, two blocks an SM. K advances a unit of
+//    two 32-deep scale blocks at a time: 32 packed byte rows (their low
+//    and high nibbles are two blocks G / 2 apart in K, so a unit reads
+//    its bytes once; nibbles travel at a quarter of bf16's bytes) or 64
+//    int8 rows. x arrives by TMA (two 32 x 128 boxes a unit under the
+//    64-byte swizzle, an mbarrier per stage; per-thread cp.async of x
+//    could not keep the tensor cores fed); the weight bytes, scales and
+//    minimums by cp.async, four units ahead. The block dequantizes the
+//    next unit, each weight in f32 as qmatmul_reference does (value *
+//    scale, then - minimum, each rounded; 2^23 + value built by a byte
+//    permute rather than a quarter-rate int-to-float conversion) and to
+//    bf16, into the other of two MN-major tiles, while the tensor cores
+//    run the current unit: two warpgroups, each four wgmma m64n128k16
+//    with both operands in shared memory. One barrier a unit.
+//    Tried on the card and slower (PERF.md): mma.sync fed by ldmatrix, a
+//    128 x 256 tile at one block an SM, producer and consumer
+//    warpgroups, and x multicast across a two-block cluster.
 // Ragged M, N are masked in both; K is a multiple of 32 by format.
 //
 // Grouped mode (ps_qmatmul_grouped) replaces the same TPU kernel called
@@ -183,14 +190,14 @@ __device__ __forceinline__ float byte_value(uint32_t v, int j, float off) {
 }
 
 // Each block: one 128-row tile of x (blockIdx.x; in grouped mode one
-// tile of one slab) against 128 columns of the weight (blockIdx.y), the
-// K units streamed through a three-stage cp.async ring: x rows, the
-// weight's stored bytes, scales and minimums. Each warpgroup issues a
-// unit's four wgmma m64n128k16 (x and the dequantized weight both from
-// shared memory), then, while they run, the block dequantizes the next
-// unit into the other of two bf16 tiles, each weight in f32 exactly as
-// dequant_byte does (value * scale, then - minimum, each rounded), then
-// to bf16: one barrier a unit.
+// tile of one slab) against 128 columns of the weight (blockIdx.y). x
+// streams by TMA (two stages), the weight's stored bytes, scales and
+// minimums by cp.async (four stages). Each warpgroup issues a unit's
+// four wgmma m64n128k16 (x and the dequantized weight both from shared
+// memory), then, while they run, the block dequantizes the next unit
+// into the other of two bf16 tiles, each weight in f32 exactly as
+// qmatmul_reference does (value * scale, then - minimum, each rounded),
+// then to bf16: one barrier a unit.
 template <bool PACKED, bool SBF16>
 __global__ __launch_bounds__(kThreads, 2) void qmm_mma_kernel(
     const __grid_constant__ CUtensorMap tmx, GemmArgs a) {
@@ -262,7 +269,8 @@ __global__ __launch_bounds__(kThreads, 2) void qmm_mma_kernel(
       for (int e = tid; e < rows * TBN; e += kThreads) {
         const int r = e / TBN, c = e - r * TBN;
         const bool ok = r < rows_k && n_base + c < N;
-        ws[r * WP + c] = ok ? __ldg(w.q + (long)(row0 + r) * N + n_base + c) : 0;
+        ws[r * WP + c] =
+            ok ? __ldg(w.q + (long)(row0 + r) * N + n_base + c) : 0;
       }
     }
     // scales, then minimums: [2 blocks][128] of each
@@ -385,7 +393,8 @@ __global__ __launch_bounds__(kThreads, 2) void qmm_mma_kernel(
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < kXStages; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8 * i));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(bar0 + 8 * i));
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -461,16 +470,6 @@ cudaError_t launch_gemm_t(const CUtensorMap& tmx, const GemmArgs& a,
   dim3 grid(m_tiles, (a.w.N + TBN - 1) / TBN);
   kernel<<<grid, kThreads, smem, stream>>>(tmx, a);
   return cudaGetLastError();
-}
-
-void launch_gemm_occupancy(int* n) {
-  const auto kernel = qmm_mma_kernel<true, true>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       GemmSmem<true>::BYTES);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, kThreads,
-                                                GemmSmem<true>::BYTES);
 }
 
 // The driver's tensor-map encoder, reached through the runtime (the
@@ -575,10 +574,3 @@ PS_EXPORT int ps_empty_launch(void* stream_ptr) {
   return (int)cudaGetLastError();
 }
 
-// Resident blocks of the prefill GEMM per SM (packed, bf16 scales), for
-// measurements.
-PS_EXPORT int ps_qmatmul_gemm_occupancy() {
-  int n = 0;
-  launch_gemm_occupancy(&n);
-  return n;
-}
