@@ -472,8 +472,8 @@ cudaError_t launch_gemm_t(const CUtensorMap& tmx, const GemmArgs& a,
   return cudaGetLastError();
 }
 
-// The driver's tensor-map encoder, reached through the runtime (the
-// library links no driver API).
+// cuTensorMapEncodeTiled, looked up at run time (the library links the
+// CUDA runtime alone).
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 EncodeTiled encode_tiled() {
   static const EncodeTiled fn = [] {

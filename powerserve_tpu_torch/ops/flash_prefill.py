@@ -50,7 +50,7 @@ KERNEL_MAX_GROUP = 8  # query heads per kv head
 KERNEL_MAX_SPLITS = 8  # cluster ranks per (slot, kv head, query block)
 # blocks a launch aims at: one block of eight warps fills an SM, so splits
 # are taken only while the grid stays within one wave of an H100's 132 SMs
-# (a second wave cost more than the split saved: PERF.md, PR 8)
+# (a second wave cost more than the split saved, PERF.md)
 KERNEL_TARGET_BLOCKS = 132
 
 
