@@ -189,6 +189,16 @@ __device__ __forceinline__ float byte_value(uint32_t v, int j, float off) {
   return __fsub_rn(__uint_as_float(b), 8388608.f + off);
 }
 
+// v * s - b in f32 with the twin's two roundings. A value (|v| < 256,
+// 8 bits) times a bf16 scale (8 significant bits) is exact in f32, so
+// one fused multiply-add rounds the same as the rounded product then
+// the rounded difference; f32 scales need both steps.
+template <bool SBF16>
+__device__ __forceinline__ float scale_value(float v, float s, float b) {
+  if (SBF16) return __fmaf_rn(v, s, -b);
+  return __fsub_rn(__fmul_rn(v, s), b);
+}
+
 // Each block: one 128-row tile of x (blockIdx.x; in grouped mode one
 // tile of one slab) against 128 columns of the weight (blockIdx.y). x
 // streams by TMA (two stages), the weight's stored bytes, scales and
@@ -366,11 +376,10 @@ __global__ __launch_bounds__(kThreads, 2) void qmm_mma_kernel(
         for (int c = 0; c < 4; ++c) {
           const uint32_t wv = words[c >> 1];
           const int b0 = 2 * (c & 1);
-          const float f0 = __fsub_rn(
-              __fmul_rn(byte_value(wv, b0, o), sc[2 * c]), mn[2 * c]);
-          const float f1 = __fsub_rn(
-              __fmul_rn(byte_value(wv, b0 + 1, o), sc[2 * c + 1]),
-              mn[2 * c + 1]);
+          const float f0 = scale_value<SBF16>(byte_value(wv, b0, o),
+                                              sc[2 * c], mn[2 * c]);
+          const float f1 = scale_value<SBF16>(byte_value(wv, b0 + 1, o),
+                                              sc[2 * c + 1], mn[2 * c + 1]);
           packed[c] = pack_bf16(f0, f1);
         }
         *reinterpret_cast<uint4*>(
