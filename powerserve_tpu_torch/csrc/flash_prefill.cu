@@ -32,7 +32,9 @@
 //    T when one of its rows sees nothing (that row then averages V over
 //    T, as the JAX XLA reference does with its finite -1e30); it skips
 //    the chunks no row of it sees, which adds exactly nothing (p = 0, or
-//    a state the first visible score wipes with alpha = 0).
+//    a state the first visible score wipes with alpha = 0). In a walk of
+//    all of T, such a chunk runs the value product alone (p = 1 for a row
+//    that has seen nothing yet, else 0), on the warps holding such a row.
 //  - A small grid cuts each walk into n_split equal ranges, one per block
 //    of a thread-block cluster; the ranks merge their (m, l, acc) through
 //    distributed shared memory in rank order: the same bits on every run,
@@ -58,8 +60,8 @@
 // The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
 // the twin's (ops/flash_prefill.py walks the same ranges and merges in
 // rank order); only the order of the f32 sums and exp2 against exp
-// differ. Not yet: wgmma (mma.sync runs at about half its rate) and two
-// blocks an SM.
+// differ. Not yet: wgmma for both products, and a split that only long
+// walks take.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
