@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
 // descriptor, the tensor-core and copy primitives (mma.sync m16n8k16
-// bf16 -> f32, ldmatrix, cp.async) and small numeric helpers.
+// bf16 -> f32, ldmatrix, cp.async, wgmma operand descriptors and
+// fences) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
 //   q       packed: uint8 [K/2, N], nibbles in pack groups of G rows —
@@ -110,14 +111,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       : "r"(a));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // 2^x by the special function unit (ex2.approx: 2 ulp, subnormals flushed)
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;
@@ -150,4 +143,29 @@ __device__ __forceinline__ uint32_t ld_row4(const uint8_t* q, long row, int n0,
   for (int j = 0; j < 4; ++j)
     if (n0 + j < N) v |= (uint32_t)__ldg(p + j) << (8 * j);
   return v;
+}
+
+// A wgmma operand in shared memory. swizzle 0: 8 x 16-byte core matrices
+// (128 contiguous bytes), lbo the byte stride between core matrices
+// along K, sbo along M or N (K-major and MN-major alike); swizzle 2: rows
+// of 64 bytes under the 64-byte swizzle, sbo the stride of 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo,
+                                              int swizzle = 0) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

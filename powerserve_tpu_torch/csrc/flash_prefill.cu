@@ -22,11 +22,12 @@
 // at 3.35 TB/s), against ~9 GFLOP on the visible positions (0.009 ms at
 // 989 TFLOP/s). What sets the time is the tensor-core work of the walks,
 // the longest walk first: one block of eight warps fills an SM (~220
-// registers a thread), a chunk of 64 tokens costs two products of 64
-// mma.sync a warp, and the slot with 1900 committed positions walks 30
-// chunks. The design:
+// registers a thread), a chunk of 64 tokens costs two products a row,
+// and the slot with 1900 committed positions walks 30 chunks. The
+// design:
 //  - A unit is (slot, kv head, query block of bq positions); its G * bq
-//    rows (<= 128, eight warps at G = 4) are m16 tiles, one per warp.
+//    rows (<= 128, eight warps at G = 4) are m16 tiles, one per warp, in
+//    whole warpgroups (rows padded to a multiple of 64).
 //    The query blocks that walk furthest launch first. A unit walks
 //    chunks [0, nch_end): up to 1 + its last visible position, or all of
 //    T when one of its rows sees nothing (that row then averages V over
@@ -50,18 +51,17 @@
 //  - K/V chunks and their scales stream into a four-stage ring by 16-byte
 //    cp.async (int8, row pitch D + 16). Each chunk is widened to bf16 once
 //    per block (8 bytes a thread by bit operations and one bf16x2
-//    subtraction, exact) into one of two buffers (row pitch D + 8: the
-//    eight rows of an ldmatrix fall in distinct banks), the next chunk's
-//    while this one is computed, one barrier a chunk. Both products run on
-//    mma.sync m16n8k16 (bf16 in, f32 out) with B fragments by ldmatrix
-//    (K rows as they are, V rows transposed); the score fragments of a
-//    chunk are the A operand of the value product in registers.
+//    subtraction, exact) into one of two buffers of wgmma core matrices,
+//    the next chunk's while this one is computed, one barrier a chunk.
+//    Both products run on wgmma (bf16 in, f32 out) with A in registers:
+//    m64n64k16 for the scores (q fragments, K as the K-major B), m64nDk16
+//    for the value product (the score fragments, V as the MN-major B).
 //  - log2 e is folded into the scale and the softmax runs on ex2.approx.
 // The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
 // the twin's (ops/flash_prefill.py walks the same ranges and merges in
 // rank order); only the order of the f32 sums and exp2 against exp
-// differ. Not yet: wgmma for both products, and a split that only long
-// walks take.
+// differ. Not yet: a split that only long walks take, and the next
+// chunk's scores overlapped with this chunk's softmax.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -85,7 +85,8 @@ struct Smem {
   int* list;           // [nch]: the chunks this rank walks
   int* misc;           // [0] list length, [1] 1 + the last committed position
   uint8_t* ring;       // [kStages][stage_bytes]
-  __nv_bfloat16* kv;   // [2][K, V][kChunk][D + 8]: two chunks in bf16
+  __nv_bfloat16* kv;   // [2][K, V][kChunk x D]: two chunks in bf16, core
+                       // matrices [t / 8][d / 8][t % 8][d % 8]
   float* st_acc;       // [rows][D], over ring and kv once drained
   float *st_m, *st_l;  // [rows]
   float* st_w;         // [rows][kMaxSplits + 1]: merge weights, 1 / L
@@ -105,7 +106,7 @@ __host__ __device__ inline size_t smem_layout(int T, int D, int rows,
   m.list = (int*)take((size_t)4 * nch);
   m.misc = (int*)take(16);
   const size_t ring = (size_t)kStages * stage_bytes(D);
-  const size_t kv = (size_t)2 * 2 * kChunk * (D + 8) * 2;
+  const size_t kv = (size_t)2 * 2 * kChunk * D * 2;
   const size_t states = (size_t)4 * rows * D;
   m.ring = take(ring + kv > states ? ring + kv : states);
   m.kv = reinterpret_cast<__nv_bfloat16*>(m.ring + ring);
@@ -133,6 +134,164 @@ struct Args {
   int m_vec;     // mask rows may be read 16 bytes at a time
 };
 
+// wgmma m64nNk16, bf16 in, f32 accumulators (the mma.sync C layout per
+// 8-column tile), A from registers (the mma.sync A fragments of the
+// warp's 16 rows), B from shared memory: 8 x 16-byte core matrices, no
+// swizzle; tb 1 takes B MN-major (rows of k, N contiguous), 0 K-major.
+// scale_d 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ra(float (&d)[N / 8][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d, int tb);
+template <>
+__device__ __forceinline__ void wgmma_ra<16>(float (&d)[2][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d,
+                                             int tb) {
+  if (tb)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+        "{%8,%9,%10,%11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7}, "
+        "{%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_ra<32>(float (&d)[4][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d,
+                                             int tb) {
+  if (tb)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+        "{%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+        "{%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_ra<64>(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d,
+                                             int tb) {
+  if (tb)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+        "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_ra<128>(float (&d)[16][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d,
+                                             int tb) {
+  if (tb)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+        "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+        "{%64,%65,%66,%67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // bits a..b (0 <= a, b <= 63) of a 64-bit word, none when a > b
 __device__ __forceinline__ uint64_t bit_range(long a, long b) {
   a = a > 0 ? a : 0;
@@ -153,7 +312,6 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   constexpr int KS = D / 16;  // k steps of the score product
   constexpr int NT = D / 8;   // n tiles of the value product
   constexpr int P8 = D + 16;  // staged int8 row pitch (bytes)
-  constexpr int P16 = D + 8;  // bf16 row pitch (elements)
   constexpr int SB = 2 * kChunk * P8 + 2 * kChunk * 4;
   // blockIdx.y = ((n_qb - 1 - qb) * S + s) * Hkv + h: the query blocks
   // that walk furthest first, every slot's among them
@@ -176,9 +334,11 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   // the walk is known)
   const int wq = a.bq / 16;
   const int gh = warp / wq;
-  const int head = h * G + gh;
+  const bool pad = warp * 16 >= R;  // a warp that fills the last warpgroup
+  const int head = pad ? 0 : h * G + gh;
   const int q_first = qb * a.bq;
-  const int qi0 = q_first + (warp - gh * wq) * 16 + g8, qi1 = qi0 + 8;
+  const int qi0 = pad ? a.Tq : q_first + (warp - gh * wq) * 16 + g8;
+  const int qi1 = qi0 + 8;
   float2 qraw[KS][4];
   {
     const float* q0 = a.q + (((long)s * a.Tq + qi0) * a.H + head) * D + 2 * t4;
@@ -307,30 +467,32 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {PS_NEG_INF, PS_NEG_INF}, l_run[2] = {0.f, 0.f};
 
-  // ldmatrix lane addresses: K rows (t) for two n tiles x two k halves,
-  // V rows (t) of a 16-token k step for two n tiles of 8 dims
-  constexpr int KV = 2 * kChunk * P16;  // one bf16 chunk (elements)
-  const int k_off =
-      ((lane & 7) + ((lane >> 4) << 3)) * P16 + ((lane >> 3) & 1) * 8;
-  const int v_off = kChunk * P16 + ((lane & 7) + ((lane >> 3) & 1) * 8) * P16 +
-                    ((lane >> 4) << 3);
+  // the bf16 chunk: K then V, core matrices [t / 8][d / 8][t % 8][d % 8],
+  // so K is wgmma's K-major B of the scores (n = t, k = d) and V its
+  // MN-major B of the value product (k = t, n = d)
+  constexpr int KV = 2 * kChunk * D;  // one bf16 chunk (elements)
+  constexpr int CM = 128 * (D / 8);   // bytes between 8-token groups
   // K and V of a staged chunk to bf16, once for the block: 8 int8 a
-  // thread become 8 bf16 (exact) by bit operations
+  // thread become 8 bf16 (exact) by bit operations; 8 lanes fill the 8
+  // rows of one core matrix
   auto widen = [&](int i) {
     const uint8_t* stg = sm.ring + (size_t)(i % kStages) * SB;
     __nv_bfloat16* dst = sm.kv + (i & 1) * KV;
     constexpr int ppr = D / 8;  // 8-byte pieces per row
     const int e0 = sm.list[i] & kHidden ? kChunk * ppr : 0;  // V rows alone
     for (int e = e0 + tid; e < 2 * kChunk * ppr; e += nthr) {
-      const int row = e / ppr, part = e - row * ppr;
+      const int grp = e >> 3;  // (row group of 8, piece)
+      const int row = ((grp / ppr) << 3) + (e & 7), part = grp % ppr;
       const uint2 w =
           *reinterpret_cast<const uint2*>(stg + row * P8 + part * 8);
       const uint32_t e0 = i8_even_bf16x2(w.x), o0 = i8_even_bf16x2(w.x >> 8);
       const uint32_t e1 = i8_even_bf16x2(w.y), o1 = i8_even_bf16x2(w.y >> 8);
-      *reinterpret_cast<uint4*>(dst + row * P16 + part * 8) = make_uint4(
-          __byte_perm(e0, o0, 0x5410), __byte_perm(e0, o0, 0x7632),
-          __byte_perm(e1, o1, 0x5410), __byte_perm(e1, o1, 0x7632));
+      *reinterpret_cast<uint4*>(dst + ((row >> 3) * ppr + part) * 64 +
+                                (row & 7) * 8) =
+          make_uint4(__byte_perm(e0, o0, 0x5410), __byte_perm(e0, o0, 0x7632),
+                     __byte_perm(e1, o1, 0x5410), __byte_perm(e1, o1, 0x7632));
     }
+    fence_proxy_async();  // the chunk, to wgmma
   };
 
   // the pipeline: int8 chunks i + 1 .. i + kStages - 1 in flight while
@@ -350,8 +512,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     cp_async_commit();
     if (i + 1 < n_list) widen(i + 1);
     const uint8_t* stg = sm.ring + (size_t)(i % kStages) * SB;
-    const __nv_bfloat16* k16 = sm.kv + (i & 1) * KV + k_off;
-    const __nv_bfloat16* v16 = sm.kv + (i & 1) * KV + v_off;
+    const uint8_t* kb = reinterpret_cast<const uint8_t*>(sm.kv + (i & 1) * KV);
+    const uint8_t* vb = kb + kChunk * D * 2;
     const int c = sm.list[i] & (kHidden - 1);
     const float* kss = reinterpret_cast<const float*>(stg + 2 * kChunk * P8);
     const float* vss = kss + kChunk;
@@ -363,10 +525,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
       // no row sees the chunk (walked for a row that sees nothing): every
       // score is -1e30 (past T: -inf), so alpha = 1 and p = 1 where a row
       // has seen nothing yet (m = -1e30), else 0 — the general path's
-      // numbers; a warp whose rows have all seen something adds nothing
-      if (!__any_sync(0xffffffffu,
-                      m_run[0] == PS_NEG_INF || m_run[1] == PS_NEG_INF))
-        continue;
+      // numbers
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 vsc =
@@ -380,21 +539,15 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
         }
       }
     } else {
-      // scores: 16 rows x 64 tokens as 8 n tiles of 8 tokens
+      // scores: the warpgroup's 64 rows x 64 tokens, sc[j] the 8-token
+      // tile j of this thread's rows
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {
-          uint32_t r[4];
-          ldsm_x4(r, k16 + 16 * jp * P16 + 16 * ks);
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_16816(sc[2 * jp], qa[ks], b0);
-          mma_16816(sc[2 * jp + 1], qa[ks], b1);
-        }
-      }
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_ra<64>(sc, qa[ks], smem_desc(kb + ks * 256, 128, CM), ks > 0,
+                     0);
+      wgmma_commit();
+      wgmma_wait0();
 
       // visibility (bits of the chunk per row), scale in log2 units, and
       // the running max of rows g8 (hr = 0) and g8 + 8 (hr = 1); positions
@@ -476,22 +629,19 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
 
     }
 
-    // acc += bf16(p * vs) . V: 4 k steps of 16 tokens, V by ldmatrix.trans
+    // acc += bf16(p * vs) . V: 4 k steps of 16 tokens, the score tiles
+    // as A in registers
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
                               pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
                               pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
                               pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, v16 + 16 * kk * P16 + 16 * np);
-        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_16816(acc[2 * np], pa, b0);
-        mma_16816(acc[2 * np + 1], pa, b1);
-      }
+      wgmma_ra<D>(acc, pa, smem_desc(vb + kk * 2 * CM, CM, 128), 1, 1);
     }
+    wgmma_commit();
+    wgmma_wait0();
   }
   cp_async_wait<0>();
 
@@ -524,7 +674,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   // order, each rank a share of the outputs
   __syncthreads();  // the ring is drained: its space holds the state now
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
+  for (int hr = 0; hr < 2 && !pad; ++hr) {
     const int r = warp * 16 + g8 + 8 * hr;
     if (t4 == 0) {
       sm.st_m[r] = m_run[hr];
@@ -615,7 +765,8 @@ cudaError_t launch_t(const Args& a, int S, size_t smem, cudaStream_t stream) {
   const int n_qb = (a.Tq + a.bq - 1) / a.bq;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_split, a.Hkv * S * n_qb, 1);
-  cfg.blockDim = dim3(32 * (a.H / a.Hkv) * a.bq / 16);
+  // whole warpgroups: rows padded to a multiple of 64
+  cfg.blockDim = dim3(128 * (((a.H / a.Hkv) * a.bq + 63) / 64));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

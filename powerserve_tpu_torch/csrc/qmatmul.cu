@@ -125,17 +125,6 @@ __device__ __forceinline__ void unit_blocks(const QWeight& w, int u, int* lo,
   }
 }
 
-// A wgmma operand in shared memory. swizzle 0: 8 x 16-byte core matrices
-// (128 contiguous bytes), lbo the byte stride between core matrices
-// along K, sbo along M or N (K-major and MN-major alike); swizzle 2: rows
-// of 64 bytes under the 64-byte swizzle, sbo the stride of 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo, int sbo,
-                                              int swizzle) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)swizzle << 62);
-}
-
 // d[64 x 128] += a[64 x 16] (K-major) * b[16 x 128] (MN-major), bf16 in,
 // f32 accumulators in the mma.sync C layout per 8-column tile
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
@@ -165,20 +154,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// this thread's shared-memory writes, visible to the tensor cores' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Byte j of v (< 256) as the float v_j - off, exactly: 2^23 + v_j built
