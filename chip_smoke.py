@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
              the four
              projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
              4096 -> 4096 and M <= 16, with the GB/s reached; every case
-             twice, bit for bit; last, M = 1024 at 4096 -> 28672): max
+             twice, bit for bit; last, M = 1024 at 4096 -> 28672 and a
+             speculative verify's M = 40 at the four projections): max
              error against its tolerance,
              CUDA-event times (warm, L2 flushed by a write, median of 25),
              the bound
@@ -20,7 +21,9 @@ Phases, each printing one JSON line:
              out, and the bytes of the slabs its tile ids name);
              flash-prefill at run's shape, the scheduler's
              bucket and a ragged T (last, the bucket without its long
-             slot, twice bit for bit), paged flash-decode with pages of 64
+             slot and `generate`'s last 128-row chunk of a 2048-token
+             prompt, which takes the cluster split, each twice bit for
+             bit), paged flash-decode with pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
              qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512; the
@@ -203,7 +206,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         flash_decode_paged_reference, flash_decode_quant_reference,
         gather_pages)
     from powerserve_tpu_torch.ops.flash_prefill import (
-        flash_prefill_cuda, flash_prefill_quant_reference, prefill_visibility)
+        flash_prefill_cuda, flash_prefill_quant_reference, kernel_geometry,
+        prefill_visibility)
     from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                                 fused_linear_reference,
                                                 glu_rounding_slack,
@@ -700,6 +704,59 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                              bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6))
         del x, ref, got
     del lin
+
+    # -- rows added after those, with a seed of their own: flash-prefill at
+    #    `generate`'s chunked prefill (one slot, the last 128-row chunk of
+    #    a 2048-token prompt: the shape that takes the cluster split, so
+    #    two runs hold the rank-order merge to the same bits), and the
+    #    prefill GEMM at a speculative verify's M = 40 (8 slots, k = 4)
+    g.manual_seed(2)
+    for name, S, Tq, Tc, Dc, starts, committed in (
+            ("chunk", 1, 128, T, 128, [1920], [1920]),):
+        q = randn(S, Tq, H, Dc)
+        kq, ks, vq, vs = cache(S, Hkv, Tc, Dc)
+        mask = (torch.arange(Tc, device=dev)[None, :]
+                < torch.tensor(committed, device=dev)[:, None])
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        args = (q, kq, ks, vq, vs, mask, start, 1.0 / Dc ** 0.5)
+        n_split = kernel_geometry(S, Tq, H // Hkv, Hkv, Tc)[1]
+        if n_split < 2:
+            raise AssertionError(f"flash_prefill {name}: no split taken")
+        ref = flash_prefill_quant_reference(*args)
+        got = flash_prefill_cuda(*args)
+        err = flips_check(f"flash_prefill {name}", got, ref, vs)
+        if not torch.equal(got, flash_prefill_cuda(*args)):
+            raise AssertionError(f"flash_prefill {name}: two runs gave "
+                                 f"different bits")
+        vis = prefill_visibility(mask, start, Tq)[..., :Tc]
+        b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
+        fp_rows.append(dict(
+            case=name, S=S, Tq=Tq, T=Tc, D=Dc, starts=starts,
+            committed=committed, n_split=n_split, max_abs_err=err,
+            ms=timer(lambda: flash_prefill_cuda(*args)),
+            plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
+                           reps=5),
+            bound_ms=b, bound_by=by, visible_positions=int(vis.sum()),
+            sdpa_bf16_dequantized_ms=sdpa_ms(q, kq, ks, vq, vs, vis)))
+        del q, kq, vq, ref, got
+    for k, n in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
+        lin = _rand_qlinear(g, k, n, "q4_k", dev)
+        x = randn(40, k, dtype=torch.bfloat16)
+        ref = qmatmul_reference(x, lin)
+        got = qmatmul_cuda(x, lin)
+        err = check(f"qmatmul q4_k 40x{k}x{n}", got, ref, 1e-4)
+        if not torch.equal(got, qmatmul_cuda(x, lin)):
+            raise AssertionError(f"qmatmul q4_k 40x{k}x{n}: two runs gave "
+                                 f"different bits")
+        moved = nbytes(x) + lin.nbytes() + 40 * n * 4
+        b, by = bound_ms(moved, 2.0 * 40 * n * k)
+        ms = timer(lambda: qmatmul_cuda(x, lin))
+        qmm_rows.append(dict(quant="q4_k", m=40, k=k, n=n, max_abs_err=err,
+                             ms=ms,
+                             plain_ms=timer(lambda: qmatmul_reference(x, lin),
+                                            reps=5),
+                             bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6))
+        del x, ref, got, lin
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
