@@ -22,8 +22,8 @@ Phases, each printing one JSON line:
              flash-prefill at run's shape, the scheduler's
              bucket and a ragged T (last, the bucket without its long
              slot and `generate`'s last 128-row chunk of a 2048-token
-             prompt, which takes the cluster split, each twice bit for
-             bit), paged flash-decode with pages of 64
+             prompt, each twice bit for bit), paged flash-decode with
+             pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
              qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512; the
@@ -206,8 +206,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         flash_decode_paged_reference, flash_decode_quant_reference,
         gather_pages)
     from powerserve_tpu_torch.ops.flash_prefill import (
-        flash_prefill_cuda, flash_prefill_quant_reference, kernel_geometry,
-        prefill_visibility)
+        flash_prefill_cuda, flash_prefill_quant_reference, prefill_visibility)
     from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                                 fused_linear_reference,
                                                 glu_rounding_slack,
@@ -707,8 +706,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
 
     # -- rows added after those, with a seed of their own: flash-prefill at
     #    `generate`'s chunked prefill (one slot, the last 128-row chunk of
-    #    a 2048-token prompt: the shape that takes the cluster split, so
-    #    two runs hold the rank-order merge to the same bits), and the
+    #    a 2048-token prompt: 32 blocks, each walking 31 chunks), and the
     #    prefill GEMM at a speculative verify's M = 40 (8 slots, k = 4)
     g.manual_seed(2)
     for name, S, Tq, Tc, Dc, starts, committed in (
@@ -719,9 +717,6 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                 < torch.tensor(committed, device=dev)[:, None])
         start = torch.tensor(starts, dtype=torch.int32, device=dev)
         args = (q, kq, ks, vq, vs, mask, start, 1.0 / Dc ** 0.5)
-        n_split = kernel_geometry(S, Tq, H // Hkv, Hkv, Tc)[1]
-        if n_split < 2:
-            raise AssertionError(f"flash_prefill {name}: no split taken")
         ref = flash_prefill_quant_reference(*args)
         got = flash_prefill_cuda(*args)
         err = flips_check(f"flash_prefill {name}", got, ref, vs)
@@ -732,7 +727,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
         fp_rows.append(dict(
             case=name, S=S, Tq=Tq, T=Tc, D=Dc, starts=starts,
-            committed=committed, n_split=n_split, max_abs_err=err,
+            committed=committed, max_abs_err=err,
             ms=timer(lambda: flash_prefill_cuda(*args)),
             plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
                            reps=5),

@@ -36,13 +36,12 @@
 //    a state the first visible score wipes with alpha = 0). In a walk of
 //    all of T, such a chunk runs the value product alone (p = 1 for a row
 //    that has seen nothing yet, else 0), on the warps holding such a row.
-//  - A small grid cuts each walk into n_split equal ranges, one per block
-//    of a thread-block cluster; the ranks merge their (m, l, acc) through
-//    distributed shared memory in rank order: the same bits on every run,
-//    one launch. The wrapper picks n_split from the shapes alone, only as
-//    far as the grid stays within one wave (at the bucket and at `run`'s
-//    512-token prefill that is 1: a second wave cost more than the split
-//    saved).
+//  - One block walks its unit whole and writes its rows: one launch, no
+//    atomics, the same bits on every run. A split of long walks over the
+//    ranks of a cluster, merged in rank order through distributed shared
+//    memory, was measured and removed (PERF.md): the shapes alone cannot
+//    tell a long walk from a short one, and where one slot's walks are
+//    short the split and its merge cost up to twice the unsplit time.
 //  - The visibility is formed in shared memory once per block: the
 //    committed positions of the slot as bits (each thread 32 mask bytes),
 //    then per chunk and row a 64-bit word, the committed bits or the
@@ -58,19 +57,15 @@
 //    for the value product (the score fragments, V as the MN-major B).
 //  - log2 e is folded into the scale and the softmax runs on ex2.approx.
 // The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
-// the twin's (ops/flash_prefill.py walks the same ranges and merges in
-// rank order); only the order of the f32 sums and exp2 against exp
-// differ. Not yet: a split that only long walks take, and the next
-// chunk's scores overlapped with this chunk's softmax.
-#include <cooperative_groups.h>
-
+// the twin's (ops/flash_prefill.py walks the same chunks); only the order
+// of the f32 sums and exp2 against exp differ. Not yet: the next chunk's
+// scores overlapped with this chunk's softmax.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kChunk = 64;
 constexpr int kStages = 4;  // int8 chunks in flight, ahead of the bf16 pair
-constexpr int kMaxSplits = 8;   // cluster ranks (portable cluster size)
 constexpr int kMaxWarps = 8;    // G * bq <= 128 rows per block
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kHidden = 1 << 30;  // a walked chunk no row sees (list flag)
@@ -82,18 +77,15 @@ __host__ __device__ inline int stage_bytes(int D) {
 
 struct Smem {
   uint32_t* bits;      // [2 * nch]: the slot's committed positions
-  int* list;           // [nch]: the chunks this rank walks
+  int* list;           // [nch]: the chunks the block walks
   int* misc;           // [0] list length, [1] 1 + the last committed position
   uint8_t* ring;       // [kStages][stage_bytes]
   __nv_bfloat16* kv;   // [2][K, V][kChunk x D]: two chunks in bf16, core
                        // matrices [t / 8][d / 8][t % 8][d % 8]
-  float* st_acc;       // [rows][D], over ring and kv once drained
-  float *st_m, *st_l;  // [rows]
-  float* st_w;         // [rows][kMaxSplits + 1]: merge weights, 1 / L
 };
 
-__host__ __device__ inline size_t smem_layout(int T, int D, int rows,
-                                              uint8_t* base, Smem* s) {
+__host__ __device__ inline size_t smem_layout(int T, int D, uint8_t* base,
+                                              Smem* s) {
   const int nch = (T + kChunk - 1) / kChunk;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -106,14 +98,8 @@ __host__ __device__ inline size_t smem_layout(int T, int D, int rows,
   m.list = (int*)take((size_t)4 * nch);
   m.misc = (int*)take(16);
   const size_t ring = (size_t)kStages * stage_bytes(D);
-  const size_t kv = (size_t)2 * 2 * kChunk * D * 2;
-  const size_t states = (size_t)4 * rows * D;
-  m.ring = take(ring + kv > states ? ring + kv : states);
+  m.ring = take(ring + (size_t)2 * 2 * kChunk * D * 2);
   m.kv = reinterpret_cast<__nv_bfloat16*>(m.ring + ring);
-  m.st_acc = (float*)m.ring;
-  m.st_m = (float*)take((size_t)4 * rows);
-  m.st_l = (float*)take((size_t)4 * rows);
-  m.st_w = (float*)take((size_t)4 * rows * (kMaxSplits + 1));
   if (s) *s = m;
   return off;
 }
@@ -128,7 +114,7 @@ struct Args {
   const int* start;
   float* out;
   int S, Tq, H, Hkv, T;
-  int bq, n_split;
+  int bq;
   float scale2;  // scale * log2 e
   int s_vec;     // scale rows may be copied 16 bytes at a time
   int m_vec;     // mask rows may be read 16 bytes at a time
@@ -308,18 +294,16 @@ __device__ __forceinline__ uint32_t nonzero4(uint32_t x) {
 template <int D>
 __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
     Args a) {
-  namespace cg = cooperative_groups;
   constexpr int KS = D / 16;  // k steps of the score product
   constexpr int NT = D / 8;   // n tiles of the value product
   constexpr int P8 = D + 16;  // staged int8 row pitch (bytes)
   constexpr int SB = 2 * kChunk * P8 + 2 * kChunk * 4;
-  // blockIdx.y = ((n_qb - 1 - qb) * S + s) * Hkv + h: the query blocks
+  // blockIdx.x = ((n_qb - 1 - qb) * S + s) * Hkv + h: the query blocks
   // that walk furthest first, every slot's among them
-  const int rank = blockIdx.x;
   const int n_qb = (a.Tq + a.bq - 1) / a.bq;
-  const int h = blockIdx.y % a.Hkv;
-  const int s = (blockIdx.y / a.Hkv) % a.S;
-  const int qb = n_qb - 1 - blockIdx.y / (a.Hkv * a.S);
+  const int h = blockIdx.x % a.Hkv;
+  const int s = (blockIdx.x / a.Hkv) % a.S;
+  const int qb = n_qb - 1 - blockIdx.x / (a.Hkv * a.S);
   const int G = a.H / a.Hkv, R = G * a.bq, T = a.T;
   const int nch = (T + kChunk - 1) / kChunk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -327,7 +311,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   const int g8 = lane >> 2, t4 = lane & 3;
   extern __shared__ __align__(16) uint8_t smem[];
   Smem sm;
-  smem_layout(T, D, R, smem, &sm);
+  smem_layout(T, D, smem, &sm);
 
   // this warp's m16 tile: query head h * G + gh, batch rows qi0, qi1 of
   // this thread; its q rows (read now, rounded to bf16 A fragments once
@@ -381,10 +365,9 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   if (last) atomicMax(&sm.misc[1], last);
   __syncthreads();
 
-  // the unit's walk: [0, nch_end) cut into n_split ranges; this rank
-  // walks its range's chunks that some row sees (all of them when a row
-  // sees nothing). Row i sees the committed bits and [start, start + i]
-  // (t >= 0, t < T); the unit's first row sees least.
+  // the unit's walk: the chunks of [0, nch_end) that some row sees (all
+  // of them when a row sees nothing). Row i sees the committed bits and
+  // [start, start + i] (t >= 0, t < T); the unit's first row sees least.
   const long st = a.start[s];
   const int q_last = min(a.Tq, q_first + a.bq) - 1;
   const int lastc = sm.misc[1];
@@ -394,14 +377,12 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   const bool all_see = lastc > 0 || (st < T && st + q_first >= 0);
   const long end = max((long)lastc, causal ? hi + 1 : 0L);
   const int nch_end = all_see ? (int)((end + kChunk - 1) / kChunk) : nch;
-  const int span = (nch_end + a.n_split - 1) / a.n_split;
-  const int c0 = rank * span, c1 = min(nch_end, c0 + span);
   if (warp == 0) {
     int n = 0;
-    for (int i0 = c0; i0 < c1; i0 += 32) {
+    for (int i0 = 0; i0 < nch_end; i0 += 32) {
       const int c = i0 + lane;
       bool need = false, seen = false;
-      if (c < c1) {
+      if (c < nch_end) {
         const long t0 = (long)c * kChunk, t1 = t0 + kChunk - 1;
         seen = (sm.bits[2 * c] | sm.bits[2 * c + 1]) != 0u ||
                (causal && t0 <= hi && t1 >= lo);
@@ -654,100 +635,16 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   }
   const int qi[2] = {qi0, qi1};
   const long HD = (long)a.H * D;
-  const int n = a.n_split;
-  if (n == 1) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      if (qi[hr] >= a.Tq) continue;
-      const float inv = 1.f / (l_run[hr] > 0.f ? l_run[hr] : 1.f);
-      float* o =
-          a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
-#pragma unroll
-      for (int nn = 0; nn < NT; ++nn)
-        *reinterpret_cast<float2*>(o + 8 * nn) =
-            make_float2(acc[nn][2 * hr] * inv, acc[nn][2 * hr + 1] * inv);
-    }
-    return;
-  }
-
-  // the ranks' states through distributed shared memory, merged in rank
-  // order, each rank a share of the outputs
-  __syncthreads();  // the ring is drained: its space holds the state now
-#pragma unroll
-  for (int hr = 0; hr < 2 && !pad; ++hr) {
-    const int r = warp * 16 + g8 + 8 * hr;
-    if (t4 == 0) {
-      sm.st_m[r] = m_run[hr];
-      sm.st_l[r] = l_run[hr];
-    }
-    float* dst = sm.st_acc + (size_t)r * D + 2 * t4;
+  for (int hr = 0; hr < 2; ++hr) {
+    if (qi[hr] >= a.Tq) continue;
+    const float inv = 1.f / (l_run[hr] > 0.f ? l_run[hr] : 1.f);
+    float* o = a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
 #pragma unroll
     for (int nn = 0; nn < NT; ++nn)
-      *reinterpret_cast<float2*>(dst + 8 * nn) =
-          make_float2(acc[nn][2 * hr], acc[nn][2 * hr + 1]);
+      *reinterpret_cast<float2*>(o + 8 * nn) =
+          make_float2(acc[nn][2 * hr] * inv, acc[nn][2 * hr + 1] * inv);
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  // this rank's share: rows [r0, r1); first each row's weights
-  // exp2(m_k - M) and 1 / L, then its dims, rank by rank (a rank's reads
-  // of all its elements in flight at once: at most 8 a thread)
-  const int rshare = (R + n - 1) / n;
-  const int r0 = rank * rshare, r1 = min(R, r0 + rshare);
-  constexpr int W = kMaxSplits + 1;
-  for (int r = r0 + tid; r < r1; r += nthr) {
-    float mv[kMaxSplits];
-    float M = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < kMaxSplits; ++k)
-      if (k < n) {
-        mv[k] = cluster.map_shared_rank(sm.st_m, k)[r];
-        M = fmaxf(M, mv[k]);
-      }
-    float L = 0.f;
-#pragma unroll
-    for (int k = 0; k < kMaxSplits; ++k)
-      if (k < n) {
-        const float wgt = ex2_approx(mv[k] - M);
-        L += cluster.map_shared_rank(sm.st_l, k)[r] * wgt;
-        sm.st_w[(r - r0) * W + k] = wgt;
-      }
-    sm.st_w[(r - r0) * W + kMaxSplits] = 1.f / (L > 0.f ? L : 1.f);
-  }
-  __syncthreads();
-  constexpr int d4 = D / 4;
-  const int ne = (r1 - r0) * d4;
-  float4 v[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < n; ++k) {
-    const float* src = cluster.map_shared_rank(sm.st_acc, k);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = tid + j * nthr;
-      if (e < ne) {
-        const int r = e / d4, d = 4 * (e - r * d4);
-        const float4 x =
-            *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * D + d);
-        const float wgt = sm.st_w[r * W + k];
-        v[j].x += x.x * wgt, v[j].y += x.y * wgt;
-        v[j].z += x.z * wgt, v[j].w += x.w * wgt;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int e = tid + j * nthr;
-    if (e >= ne) continue;
-    const int r = e / d4, d = 4 * (e - r * d4);
-    const int gq = (r0 + r) / a.bq, row = q_first + r0 + r - gq * a.bq;
-    if (row >= a.Tq) continue;
-    const float inv = sm.st_w[r * W + kMaxSplits];
-    *reinterpret_cast<float4*>(a.out + ((long)s * a.Tq + row) * HD +
-                               (long)(h * G + gq) * D + d) =
-        make_float4(v[j].x * inv, v[j].y * inv, v[j].z * inv, v[j].w * inv);
-  }
-  // keep this block's state until every rank has read it
-  cluster.sync();
 }
 
 template <int D>
@@ -763,42 +660,29 @@ cudaError_t launch_t(const Args& a, int S, size_t smem, cudaStream_t stream) {
   }();
   if (attr_rc != cudaSuccess) return attr_rc;
   const int n_qb = (a.Tq + a.bq - 1) / a.bq;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_split, a.Hkv * S * n_qb, 1);
   // whole warpgroups: rows padded to a multiple of 64
-  cfg.blockDim = dim3(128 * (((a.H / a.Hkv) * a.bq + 63) / 64));
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.n_split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = a.n_split > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  const int threads = 128 * (((a.H / a.Hkv) * a.bq + 63) / 64);
+  flash_prefill_kernel<D><<<a.Hkv * S * n_qb, threads, smem, stream>>>(a);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Shared memory one launch takes (bytes), for the wrapper's check; rows =
-// G * bq.
-PS_EXPORT size_t ps_flash_prefill_smem(int T, int D, int rows) {
-  return smem_layout(T, D, rows, nullptr, nullptr);
+// Shared memory one launch takes (bytes), for the wrapper's check.
+PS_EXPORT size_t ps_flash_prefill_smem(int T, int D) {
+  return smem_layout(T, D, nullptr, nullptr);
 }
 
 // D must be 16, 32, 64 or 128; G = H / Hkv; bq a multiple of 16 with
-// G * bq <= 128; n_split in 1..8 (the wrapper's geometry). Returns a CUDA
-// error code (0 on success).
+// G * bq <= 128 (the wrapper's query block). Returns a CUDA error code (0
+// on success).
 PS_EXPORT int ps_flash_prefill(const void* q, const void* kq, const void* ks,
                                const void* vq, const void* vs,
                                const void* cmask, const void* start, void* out,
                                int S, int Tq, int H, int Hkv, int T, int D,
-                               float scale, int bq, int n_split,
-                               void* stream_ptr) {
+                               float scale, int bq, void* stream_ptr) {
   if (S <= 0 || Tq <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || bq <= 0 ||
-      bq % 16 || (H / Hkv) * bq > 16 * kMaxWarps || n_split < 1 ||
-      n_split > kMaxSplits || (long)Hkv * S * ((Tq + bq - 1) / bq) > 65535)
+      bq % 16 || (H / Hkv) * bq > 16 * kMaxWarps)
     return (int)cudaErrorInvalidValue;
   const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   Args a{};
@@ -811,11 +695,11 @@ PS_EXPORT int ps_flash_prefill(const void* q, const void* kq, const void* ks,
   a.start = reinterpret_cast<const int*>(start);
   a.out = reinterpret_cast<float*>(out);
   a.S = S, a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = T;
-  a.bq = bq, a.n_split = n_split;
+  a.bq = bq;
   a.scale2 = scale * kLog2e;
   a.s_vec = T % 4 == 0 && al16(ks) && al16(vs);
   a.m_vec = T % 16 == 0 && al16(cmask);
-  const size_t smem = smem_layout(T, D, (H / Hkv) * bq, nullptr, nullptr);
+  const size_t smem = smem_layout(T, D, nullptr, nullptr);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   cudaError_t e;
   switch (D) {

@@ -137,9 +137,9 @@ def lib() -> ctypes.CDLL:
         L.ps_flash_decode_smem.restype = ctypes.c_size_t
         L.ps_flash_decode_paged.argtypes = [P] * 11 + [I] * 8 + [F, P]
         L.ps_flash_decode_paged.restype = I
-        L.ps_flash_prefill.argtypes = [P] * 8 + [I] * 6 + [F, I, I, P]
+        L.ps_flash_prefill.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
         L.ps_flash_prefill.restype = I
-        L.ps_flash_prefill_smem.argtypes = [I, I, I]
+        L.ps_flash_prefill_smem.argtypes = [I, I]
         L.ps_flash_prefill_smem.restype = ctypes.c_size_t
         L.ps_empty_launch.argtypes = [P]
         L.ps_empty_launch.restype = I

@@ -23,13 +23,13 @@ online softmax over T chunks:
 
 `flash_prefill_quant` launches csrc/flash_prefill.cu for CUDA tensors
 and runs the plain twin `flash_prefill_quant_reference` for CPU tensors.
-The kernel cuts the batch into query blocks of bq rows; each (slot, kv
-head, query block) walks its KERNEL_CHUNK-token chunks [0, end) (1 + the
-last position one of its rows sees; all of T where a row sees nothing),
-cut into n_split ranges with one online softmax each, merged in rank
-order (`kernel_geometry`, `kernel_walk`). The twin walks the same ranges
-by default, and takes any other chunk, query block and split, so the CPU
-tests can also match the JAX kernel's chunking exactly.
+The kernel cuts the batch into query blocks of bq rows
+(`kernel_query_block`); each (slot, kv head, query block) walks its
+KERNEL_CHUNK-token chunks [0, end) (1 + the last position one of its rows
+sees; all of T where a row sees nothing: `kernel_walk`) with one online
+softmax. The twin walks the same chunks by default, and takes any other
+chunk and query block, so the CPU tests can also match the JAX kernel's
+chunking exactly.
 
 A row that sees no position at all averages V over the T positions (the
 masked scores are a finite -1e30, as in the JAX reference); the JAX
@@ -47,27 +47,16 @@ from .attention import NEG_INF
 KERNEL_CHUNK = 64
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_MAX_GROUP = 8  # query heads per kv head
-KERNEL_MAX_SPLITS = 8  # cluster ranks per (slot, kv head, query block)
-# blocks a launch aims at: one block of eight warps fills an SM, so splits
-# are taken only while the grid stays within one wave of an H100's 132 SMs
-# (a second wave cost more than the split saved, PERF.md)
-KERNEL_TARGET_BLOCKS = 132
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def kernel_geometry(S: int, Tq: int, G: int, Hkv: int, T: int
-                    ) -> tuple[int, int]:
-    """The kernel's (bq, n_split), from the shapes alone: query blocks of
-    bq positions (G * bq <= 128 rows, eight warps where G divides 8),
-    each walk cut into n_split ranges (cluster ranks)."""
-    bq = min(16 * max(1, 8 // G), 16 * _ceil(Tq, 16))
-    units = S * Hkv * _ceil(Tq, bq)
-    n_split = max(1, min(KERNEL_MAX_SPLITS, _ceil(T, KERNEL_CHUNK),
-                         KERNEL_TARGET_BLOCKS // units))
-    return bq, n_split
+def kernel_query_block(Tq: int, G: int) -> int:
+    """The kernel's query block bq: G * bq <= 128 rows, eight warps where
+    G divides 8."""
+    return min(16 * max(1, 8 // G), 16 * _ceil(Tq, 16))
 
 
 def prefill_visibility(cache_mask: torch.Tensor, start: torch.Tensor,
@@ -82,12 +71,10 @@ def prefill_visibility(cache_mask: torch.Tensor, start: torch.Tensor,
 
 
 def kernel_walk(cache_mask: torch.Tensor, start: torch.Tensor, Tq: int,
-                bq: int, n_split: int, chunk: int = KERNEL_CHUNK
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """How each (slot, query block) walks, int64 [S, Tq / bq] each:
-    (n_end, span). It walks chunks [0, n_end) — up to 1 + the last
-    position one of its rows sees, all of T where a row sees nothing —
-    with one online softmax per `span` chunks (the n_split ranges)."""
+                bq: int, chunk: int = KERNEL_CHUNK) -> torch.Tensor:
+    """How far each (slot, query block) walks, int64 [S, Tq / bq]: chunks
+    [0, n_end), up to 1 + the last position one of its rows sees, all of
+    T where a row sees nothing."""
     T = cache_mask.shape[1]
     dev = cache_mask.device
     last = torch.where(cache_mask.bool(), torch.arange(1, T + 1, device=dev),
@@ -98,8 +85,7 @@ def kernel_walk(cache_mask: torch.Tensor, start: torch.Tensor, Tq: int,
     lo, hi = st.clamp(min=0), (st + q_last).clamp(max=T - 1)
     end = torch.maximum(last, torch.where(lo <= hi, hi + 1, 0))
     all_see = (last > 0) | ((st < T) & (st + first >= 0))
-    n_end = torch.where(all_see, (end + chunk - 1) // chunk, _ceil(T, chunk))
-    return n_end, (n_end + n_split - 1) // n_split
+    return torch.where(all_see, (end + chunk - 1) // chunk, _ceil(T, chunk))
 
 
 def flash_prefill_quant_reference(q: torch.Tensor, kq: torch.Tensor,
@@ -107,64 +93,51 @@ def flash_prefill_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                                   vs: torch.Tensor, cache_mask: torch.Tensor,
                                   start: torch.Tensor, scale: float,
                                   qb: int | None = None,
-                                  chunk: int = KERNEL_CHUNK,
-                                  splits: int | None = None) -> torch.Tensor:
+                                  chunk: int = KERNEL_CHUNK) -> torch.Tensor:
     """Plain PyTorch twin of the kernel. q [S, Tq, H, D]; kq/vq int8
     [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; cache_mask bool [S, T];
-    start int [S]. qb None: the kernel's query blocks and splits
-    (kernel_geometry); else query blocks of qb rows, each walk in
-    `splits` ranges (default one). The ranges' states merge in order
-    with weights exp(m_i - max_i m_i). Returns f32 [S, Tq, H * D]."""
+    start int [S]. Query blocks of qb rows (None: the kernel's), each
+    walking its chunks [0, n_end) (kernel_walk). Returns f32
+    [S, Tq, H * D]."""
     S, Tq, H, D = q.shape
     Hkv, T = kq.shape[1], kq.shape[2]
     G = H // Hkv
     dev = q.device
     if qb is None:
-        qb, n_split = kernel_geometry(S, Tq, G, Hkv, T)
-    else:
-        n_split = 1
-    n_split = n_split if splits is None else splits
-    n_end, span = kernel_walk(cache_mask, start, Tq, qb, n_split, chunk)
+        qb = kernel_query_block(Tq, G)
+    n_end = kernel_walk(cache_mask, start, Tq, qb, chunk)
     qg = (q.reshape(S, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4)
           .to(torch.bfloat16).float())  # [S, Hkv, G, Tq, D]
     neg = torch.tensor(NEG_INF, device=dev)
     st = start.long()[:, None, None]
-    slots = torch.arange(S, device=dev)
     out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
     for b, q0 in enumerate(range(0, Tq, qb)):
         q1 = min(Tq, q0 + qb)
         rows = torch.arange(q0, q1, device=dev)[None, :, None]
         qq = qg[:, :, :, q0:q1]
-        # one state per range: [n_split, S, Hkv, G, rows]
-        shape = (n_split, S, Hkv, G, q1 - q0)
+        shape = (S, Hkv, G, q1 - q0)
         m = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros(shape, dtype=torch.float32, device=dev)
         acc = torch.zeros(shape + (D,), dtype=torch.float32, device=dev)
-        ends, spans = n_end[:, b], span[:, b]
+        ends = n_end[:, b]
         for c in range(int(ends.max())):
             t0, t1 = c * chunk, min(T, (c + 1) * chunk)
             live = (c < ends)[:, None, None, None]
-            r = (c // spans).clamp(max=n_split - 1)
-            m_r, l_r, a_r = m[r, slots], l[r, slots], acc[r, slots]
             off = torch.arange(t0, t1, device=dev)[None, None, :] - st
             vis = cache_mask[:, None, t0:t1] | ((off >= 0) & (off <= rows))
             s = torch.einsum("shgqd,shcd->shgqc", qq, kq[:, :, t0:t1].float())
             s = s * (ks[:, :, None, None, t0:t1] * scale)
             s = torch.where(vis[:, None, None], s, neg)
-            m_new = torch.maximum(m_r, s.amax(dim=-1))
-            alpha = torch.exp(m_r - m_new)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             pf = (p * vs[:, :, None, None, t0:t1]).to(torch.bfloat16).float()
-            l[r, slots] = torch.where(live, l_r * alpha + p.sum(dim=-1), l_r)
-            acc[r, slots] = torch.where(
-                live[..., None], a_r * alpha[..., None] + torch.einsum(
-                    "shgqc,shcd->shgqd", pf, vq[:, :, t0:t1].float()), a_r)
-            m[r, slots] = torch.where(live, m_new, m_r)
-        top = m.amax(dim=0)
-        w = torch.exp(m - top)
-        lm = (l * w).sum(dim=0)
-        am = (acc * w[..., None]).sum(dim=0)
-        o = am / torch.where(lm > 0, lm, torch.ones_like(lm))[..., None]
+            l = torch.where(live, l * alpha + p.sum(dim=-1), l)
+            acc = torch.where(
+                live[..., None], acc * alpha[..., None] + torch.einsum(
+                    "shgqc,shcd->shgqd", pf, vq[:, :, t0:t1].float()), acc)
+            m = torch.where(live, m_new, m)
+        o = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(S, q1 - q0, H * D)
     return out
 
@@ -195,9 +168,8 @@ def flash_prefill_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         cuda_lib.require(t, name, dev, (torch.float32,), (S, Hkv, T))
     cuda_lib.require(mask, "cache_mask", dev, (torch.uint8,), (S, T))
     cuda_lib.require(start, "start", dev, (torch.int32,), (S,))
-    bq, n_split = kernel_geometry(S, Tq, H // Hkv, Hkv, T)
     L = cuda_lib.lib()
-    smem = L.ps_flash_prefill_smem(T, D, H // Hkv * bq)
+    smem = L.ps_flash_prefill_smem(T, D)
     limit = cuda_lib.max_dynamic_smem(dev)
     if smem > limit:
         raise ValueError(f"flash_prefill: T={T}, D={D} needs {smem} bytes of "
@@ -206,7 +178,7 @@ def flash_prefill_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     rc = L.ps_flash_prefill(q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                             vq.data_ptr(), vs.data_ptr(), mask.data_ptr(),
                             start.data_ptr(), out.data_ptr(), S, Tq, H, Hkv, T,
-                            D, float(scale), bq, n_split,
+                            D, float(scale), kernel_query_block(Tq, H // Hkv),
                             cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["flash_prefill"] += 1
     cuda_lib.check(rc, "flash_prefill")

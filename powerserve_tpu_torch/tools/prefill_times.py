@@ -1,25 +1,15 @@
-"""Time the two prefill kernels on the GPU at shapes the kernels phase of
-chip_smoke.py does not compare.
-
-  gemm   the prefill GEMM (qmatmul at M > 16) on llama-8b's four Q4_K
-         projections (QKV 4096 -> 6144, wo 4096 -> 4096, gate|up 4096 ->
-         28672, down 14336 -> 4096) at each --m: 40 is a speculative
-         verify of 8 slots at k = 4. It calls only the public wrappers, so
-         a copy run inside an unpacked parent tree times the same rows.
-  split  flash-prefill at `generate`'s chunked prefill: one slot, a
-         128-row chunk (or --tq) of a prompt whose earlier chunks are
-         committed, T = 2048, llama-8b's 32 / 8 heads of 128, once for
-         each cluster split in --splits and for kernel_geometry's choice;
-         each split is also checked against the twin walking the same
-         ranges.
+"""Time the prefill GEMM (qmatmul at M > 16) on the GPU at row counts
+the kernels phase of chip_smoke.py does not hold in every tree, on
+llama-8b's four Q4_K projections (QKV 4096 -> 6144, wo 4096 -> 4096,
+gate|up 4096 -> 28672, down 14336 -> 4096): 40 is a speculative verify
+of 8 slots at k = 4. It calls only the public wrappers, so a copy run
+inside an unpacked parent tree times the same rows in the same call.
 
 One JSON line per row (CUDA events, median of 25, the L2 flushed by
 writing 256 MB before each call, the GPU kept busy while the host
 enqueues), then the card's name and power limit.
 
-    python -m powerserve_tpu_torch.tools.prefill_times gemm --m 40 512
-    python -m powerserve_tpu_torch.tools.prefill_times split \
-        --starts 0 384 1920 --tq 32 128 --splits 1 2 4 8
+    python -m powerserve_tpu_torch.tools.prefill_times --m 40 512
 """
 
 from __future__ import annotations
@@ -31,7 +21,6 @@ import subprocess
 
 import torch
 
-from ..ops import cuda_lib
 from ..ops.qmatmul import qmatmul_cuda, qmatmul_reference
 from .bench_params import _rand_qlinear
 
@@ -79,69 +68,13 @@ def gemm_rows(dev: torch.device, ms: list[int]) -> None:
                 ms=time_of(lambda: qmatmul_cuda(x, lin)))), flush=True)
 
 
-def split_rows(dev: torch.device, starts: list[int], tqs: list[int],
-               splits: list[int]) -> None:
-    from ..ops.flash_prefill import (flash_prefill_quant_reference,
-                                     kernel_geometry)
-
-    time_of = timer(dev)
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    H, Hkv, D, T = 32, 8, 128, 2048
-    L = cuda_lib.lib()
-    kq, vq = (torch.randint(-127, 128, (1, Hkv, T, D), generator=g,
-                            device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand(1, Hkv, T, generator=g, device=dev) * 0.02
-              for _ in range(2))
-    for tq in tqs:
-        q = torch.randn(1, tq, H, D, generator=g, device=dev)
-        out = torch.empty(1, tq, H * D, device=dev)
-        for st in starts:
-            if st + tq > T:
-                continue
-            mask = torch.arange(T, device=dev)[None] < st
-            start = torch.tensor([st], dtype=torch.int32, device=dev)
-            bq, chosen = kernel_geometry(1, tq, H // Hkv, Hkv, T)
-            m8 = mask.view(torch.uint8)
-
-            def launch(n):
-                cuda_lib.check(L.ps_flash_prefill(
-                    q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-                    vs.data_ptr(), m8.data_ptr(), start.data_ptr(),
-                    out.data_ptr(), 1, tq, H, Hkv, T, D, D ** -0.5, bq, n,
-                    cuda_lib.stream(dev)), "flash_prefill")
-                return out
-
-            row = dict(kernel="flash_prefill", S=1, Tq=tq, T=T, start=st,
-                       committed=st, bq=bq, chosen_split=chosen, ms={},
-                       max_abs_err={})
-            for n in sorted(set(splits) | {chosen}):
-                got = launch(n).clone()
-                ref = flash_prefill_quant_reference(
-                    q, kq, ks, vq, vs, mask, start, D ** -0.5, qb=bq,
-                    splits=n)
-                row["max_abs_err"][n] = (got - ref).abs().max().item()
-                row["ms"][n] = time_of(lambda: launch(n))
-            print(json.dumps(row), flush=True)
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="prefill_times")
-    sub = ap.add_subparsers(dest="what", required=True)
-    gp = sub.add_parser("gemm")
-    gp.add_argument("--m", type=int, nargs="+", default=[40, 512])
-    sp = sub.add_parser("split")
-    sp.add_argument("--starts", type=int, nargs="+", default=[0, 384, 1920])
-    sp.add_argument("--tq", type=int, nargs="+", default=[128])
-    sp.add_argument("--splits", type=int, nargs="+", default=[1])
+    ap.add_argument("--m", type=int, nargs="+", default=[40, 512])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("prefill_times measures a GPU; none is present")
-    dev = torch.device("cuda", 0)
-    if args.what == "gemm":
-        gemm_rows(dev, args.m)
-    else:
-        split_rows(dev, args.starts, args.tq, args.splits)
+    gemm_rows(torch.device("cuda", 0), args.m)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -394,8 +394,8 @@ def test_flash_prefill_kernel(dev, S, Tq, H, Hkv, D, T, starts, committed):
 
 def _bucket(dev, long_slot=True):
     """The scheduler's bucket: S = 8, Tq = 128, T = 2048, llama-8b heads;
-    with long_slot the last slot has 1900 committed positions (the walk
-    the splits cut), else 190."""
+    with long_slot the last slot has 1900 committed positions (the
+    longest walk, which sets the kernel's time), else 190."""
     g = torch.Generator(device=dev)
     g.manual_seed(8)
     S, Tq, H, Hkv, D, T = 8, 128, 32, 8, 128, 2048
@@ -420,8 +420,8 @@ def test_flash_prefill_bucket_with_a_long_slot(dev, long_slot):
 
 
 def test_flash_prefill_same_bits_every_run(dev):
-    """The ranks of a cluster merge in a fixed order: one launch, the same
-    bits on every run."""
+    """Each row is written by the one block that walks its unit, with no
+    atomics: the same bits on every run."""
     args = _bucket(dev)
     a, b = flash_prefill_cuda(*args), flash_prefill_cuda(*args)
     assert torch.equal(a, b)

@@ -129,10 +129,10 @@ def test_rows_that_see_nothing_average_v():
     assert np.isfinite(got).all()
 
 
-# the kernel's own walk (kernel_geometry, kernel_walk): a long committed
-# prefix beside short slots (the case that decides the splits), start = -1
-# with nothing committed (its first row sees nothing: that unit walks all
-# of T), a ragged T
+# the kernel's own walk (kernel_query_block, kernel_walk): a long
+# committed prefix beside short slots (units that stop early beside one
+# that walks far), start = -1 with nothing committed (its first row sees
+# nothing: that unit walks all of T), a ragged T
 WALK_CASES = {
     "long_prefix": dict(S=4, Tq=32, H=8, Hkv=2, T=512,
                         starts=[440, 0, 12, 100], committed=[440, 0, 12, 100]),
@@ -145,23 +145,22 @@ WALK_CASES = {
 
 @pytest.mark.parametrize("name", list(WALK_CASES))
 def test_kernel_walk_matches_jax_kernel(name):
-    """The twin in the kernel's split-and-merge order against the JAX
-    Pallas kernel (interpret mode): bf16(p * vs) rounds at other running
-    maxima (2^-9 relative per probability), so 3e-3 of the largest
-    output, on the rows that see something (a row that sees nothing
-    averages V over T, JAX over T padded to its chunk)."""
-    from powerserve_tpu_torch.ops.flash_prefill import (kernel_geometry,
+    """The twin in the kernel's walk order against the JAX Pallas kernel
+    (interpret mode): bf16(p * vs) rounds at other running maxima (2^-9
+    relative per probability), so 3e-3 of the largest output, on the rows
+    that see something (a row that sees nothing averages V over T, JAX
+    over T padded to its chunk)."""
+    from powerserve_tpu_torch.ops.flash_prefill import (kernel_query_block,
                                                         kernel_walk)
     c = WALK_CASES[name]
     args = _inputs(c["S"], c["Tq"], c["H"], c["Hkv"], c["T"], c["starts"],
                    c["committed"], seed=11 + len(name))
     scale = 1.0 / np.sqrt(D)
     targs = _torch(args)
-    bq, n_split = kernel_geometry(c["S"], c["Tq"], c["H"] // c["Hkv"],
-                                  c["Hkv"], c["T"])
-    n_end, span = kernel_walk(targs[5], targs[6], c["Tq"], bq, n_split)
-    # the walk really is cut: some unit spans several ranges
-    assert n_split > 1 and bool((span < n_end).any())
+    bq = kernel_query_block(c["Tq"], c["H"] // c["Hkv"])
+    n_end = kernel_walk(targs[5], targs[6], c["Tq"], bq)
+    # the walk really stops early: some unit ends before the last chunk
+    assert bool((n_end < -(-c["T"] // 64)).any())
     want = np.asarray(jflash_prefill_quant(
         *(jnp.asarray(a) for a in args), scale, qb=32, chunk=128,
         interpret=True))
@@ -169,39 +168,37 @@ def test_kernel_walk_matches_jax_kernel(name):
     sees = _sees(args[5], args[6], c["Tq"], c["T"])
     assert sees.any()
     assert _rel(got[sees], want[sees]) < 3e-3
-    # one range per unit: the same function, other roundings
-    one = flash_prefill_quant_reference(*targs, scale, qb=bq,
-                                        splits=1).numpy()
-    assert _rel(got[sees], one[sees]) < 3e-3
 
 
 def test_kernel_walk_spans():
     """n_end: 1 + the last visible position in chunks (all of T where the
-    unit's first row sees nothing); span: n_end over the ranks."""
+    unit's first row sees nothing)."""
     from powerserve_tpu_torch.ops.flash_prefill import kernel_walk
     T, Tq, bq = 300, 40, 16
     mask = torch.zeros(3, T, dtype=torch.bool)
     mask[0, :200] = True
     mask[2, 7] = True  # a scattered committed bit
     start = torch.tensor([200, -1, 250])
-    n_end, span = kernel_walk(mask, start, Tq, bq, n_split=4, chunk=64)
+    n_end = kernel_walk(mask, start, Tq, bq, chunk=64)
     # slot 0: rows 0-15 reach 215, 16-31 231, 32-39 239: chunk 4 (256..)
     # never; slot 1: its first block's row 0 sees nothing -> all 5 chunks,
     # the later blocks reach 30 and 38; slot 2: 265, 281, 289 (<= T - 1)
     assert n_end.tolist() == [[4, 4, 4], [5, 1, 1], [5, 5, 5]]
-    assert span.tolist() == [[1, 1, 1], [2, 1, 1], [2, 2, 2]]
 
 
 def test_rows_that_see_nothing_average_v_over_splits():
-    """A unit whose first row sees nothing walks all of T in several
-    ranges; the merge still averages V over the T positions for that row."""
-    from powerserve_tpu_torch.ops.flash_prefill import kernel_geometry
+    """A unit whose first row sees nothing walks all of a ragged T (six
+    64-token chunks, the last one short); its state still averages V over
+    the T positions for that row."""
+    from powerserve_tpu_torch.ops.flash_prefill import (kernel_query_block,
+                                                        kernel_walk)
     S, Tq, H, Hkv, T = 1, 6, 4, 2, 333
     q, kq, ks, vq, vs, mask, start = _inputs(S, Tq, H, Hkv, T, [-1], [0], 5)
     mask[:] = False
-    assert kernel_geometry(S, Tq, H // Hkv, Hkv, T)[1] > 1
-    got = flash_prefill_quant_reference(
-        *_torch((q, kq, ks, vq, vs, mask, start)), 0.25).numpy()
+    targs = _torch((q, kq, ks, vq, vs, mask, start))
+    bq = kernel_query_block(Tq, H // Hkv)
+    assert kernel_walk(targs[5], targs[6], Tq, bq).tolist() == [[6]]
+    got = flash_prefill_quant_reference(*targs, 0.25).numpy()
     mean_v = (torch.from_numpy(vs).to(torch.bfloat16).float()[..., None]
               * torch.from_numpy(vq).float()).mean(dim=2).numpy()
     row0 = got[0, 0].reshape(Hkv, H // Hkv, D)
