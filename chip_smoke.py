@@ -652,106 +652,67 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             vis | ~seen[:, None, None]))
     del q, kp, vp, o, ro
 
+    def prefill_row(name, S, Tq, starts, committed):
+        """A timed flash-prefill case at llama-8b's heads, T = 2048, twice
+        bit for bit."""
+        q = randn(S, Tq, H, D)
+        kq, ks, vq, vs = cache(S, Hkv, T, D)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.tensor(committed, device=dev)[:, None])
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        args = (q, kq, ks, vq, vs, mask, start, 1.0 / D ** 0.5)
+        got = flash_prefill_cuda(*args)
+        err = flips_check(f"flash_prefill {name}", got,
+                          flash_prefill_quant_reference(*args), vs)
+        if not torch.equal(got, flash_prefill_cuda(*args)):
+            raise AssertionError(f"flash_prefill {name}: two runs gave "
+                                 f"different bits")
+        vis = prefill_visibility(mask, start, Tq)[..., :T]
+        b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
+        return dict(
+            case=name, S=S, Tq=Tq, T=T, D=D, starts=starts,
+            committed=committed, max_abs_err=err,
+            ms=timer(lambda: flash_prefill_cuda(*args)),
+            plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
+                           reps=5),
+            bound_ms=b, bound_by=by, visible_positions=int(vis.sum()),
+            sdpa_bf16_dequantized_ms=sdpa_ms(q, kq, ks, vq, vs, vis))
+
+    def gemm_row(lin, m, k, n):
+        """A timed Q4_K prefill GEMM case, twice bit for bit."""
+        x = randn(m, k, dtype=torch.bfloat16)
+        got = qmatmul_cuda(x, lin)
+        err = check(f"qmatmul q4_k {m}x{k}x{n}", got,
+                    qmatmul_reference(x, lin), 1e-4)
+        if not torch.equal(got, qmatmul_cuda(x, lin)):
+            raise AssertionError(f"qmatmul q4_k {m}x{k}x{n}: two runs gave "
+                                 f"different bits")
+        moved = nbytes(x) + lin.nbytes() + m * n * 4
+        b, by = bound_ms(moved, 2.0 * m * n * k)
+        ms = timer(lambda: qmatmul_cuda(x, lin))
+        return dict(quant="q4_k", m=m, k=k, n=n, max_abs_err=err, ms=ms,
+                    plain_ms=timer(lambda: qmatmul_reference(x, lin), reps=5),
+                    bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6)
+
     # -- rows added after the ones above, so those keep their seeds: the
     #    bucket without its long slot (190 committed in place of 1900: what
     #    the walk costs without the one long unit), and the prefill GEMM
     #    at the scheduler's 8 x 128-token chunk (M = 1024, 4096 -> 28672)
     g.manual_seed(1)
-    for name, S, Tq, Tc, Dc, starts, committed in (
-            ("bucket_short", 8, 128, T, 128,
-             [0, 128, -1, 512, 40, 1000, -1, 190],
-             [0, 128, 300, 512, 40, 1000, 0, 190]),):
-        q = randn(S, Tq, H, Dc)
-        kq, ks, vq, vs = cache(S, Hkv, Tc, Dc)
-        mask = (torch.arange(Tc, device=dev)[None, :]
-                < torch.tensor(committed, device=dev)[:, None])
-        start = torch.tensor(starts, dtype=torch.int32, device=dev)
-        args = (q, kq, ks, vq, vs, mask, start, 1.0 / Dc ** 0.5)
-        ref = flash_prefill_quant_reference(*args)
-        got = flash_prefill_cuda(*args)
-        err = flips_check(f"flash_prefill {name}", got, ref, vs)
-        if not torch.equal(got, flash_prefill_cuda(*args)):
-            raise AssertionError(f"flash_prefill {name}: two runs gave "
-                                 f"different bits")
-        vis = prefill_visibility(mask, start, Tq)[..., :Tc]
-        b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
-        fp_rows.append(dict(
-            case=name, S=S, Tq=Tq, T=Tc, D=Dc, starts=starts,
-            committed=committed, max_abs_err=err,
-            ms=timer(lambda: flash_prefill_cuda(*args)),
-            plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
-                           reps=5),
-            bound_ms=b, bound_by=by, visible_positions=int(vis.sum()),
-            sdpa_bf16_dequantized_ms=sdpa_ms(q, kq, ks, vq, vs, vis)))
-        del q, kq, vq, ref, got
-    lin = _rand_qlinear(g, 4096, 28672, "q4_k", dev)
-    for m in (1024,):
-        x = randn(m, 4096, dtype=torch.bfloat16)
-        ref = qmatmul_reference(x, lin)
-        got = qmatmul_cuda(x, lin)
-        err = check(f"qmatmul q4_k {m}x4096x28672", got, ref, 1e-4)
-        if not torch.equal(got, qmatmul_cuda(x, lin)):
-            raise AssertionError(f"qmatmul q4_k {m}x4096x28672: two runs "
-                                 f"gave different bits")
-        moved = nbytes(x) + lin.nbytes() + m * 28672 * 4
-        b, by = bound_ms(moved, 2.0 * m * 28672 * 4096)
-        ms = timer(lambda: qmatmul_cuda(x, lin))
-        qmm_rows.append(dict(quant="q4_k", m=m, k=4096, n=28672,
-                             max_abs_err=err, ms=ms,
-                             plain_ms=timer(lambda: qmatmul_reference(x, lin),
-                                            reps=5),
-                             bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6))
-        del x, ref, got
-    del lin
-
-    # -- rows added after those, with a seed of their own: flash-prefill at
-    #    `generate`'s chunked prefill (one slot, the last 128-row chunk of
-    #    a 2048-token prompt: 32 blocks, each walking 31 chunks), and the
-    #    prefill GEMM at a speculative verify's M = 40 (8 slots, k = 4)
+    fp_rows.append(prefill_row("bucket_short", 8, 128,
+                               [0, 128, -1, 512, 40, 1000, -1, 190],
+                               [0, 128, 300, 512, 40, 1000, 0, 190]))
+    qmm_rows.append(gemm_row(_rand_qlinear(g, 4096, 28672, "q4_k", dev),
+                             1024, 4096, 28672))
+    # -- then, with a seed of their own: flash-prefill at `generate`'s
+    #    chunked prefill (one slot, the last 128-row chunk of a 2048-token
+    #    prompt: 32 blocks, each walking 31 chunks), and the prefill GEMM
+    #    at a speculative verify's M = 40 (8 slots, k = 4)
     g.manual_seed(2)
-    for name, S, Tq, Tc, Dc, starts, committed in (
-            ("chunk", 1, 128, T, 128, [1920], [1920]),):
-        q = randn(S, Tq, H, Dc)
-        kq, ks, vq, vs = cache(S, Hkv, Tc, Dc)
-        mask = (torch.arange(Tc, device=dev)[None, :]
-                < torch.tensor(committed, device=dev)[:, None])
-        start = torch.tensor(starts, dtype=torch.int32, device=dev)
-        args = (q, kq, ks, vq, vs, mask, start, 1.0 / Dc ** 0.5)
-        ref = flash_prefill_quant_reference(*args)
-        got = flash_prefill_cuda(*args)
-        err = flips_check(f"flash_prefill {name}", got, ref, vs)
-        if not torch.equal(got, flash_prefill_cuda(*args)):
-            raise AssertionError(f"flash_prefill {name}: two runs gave "
-                                 f"different bits")
-        vis = prefill_visibility(mask, start, Tq)[..., :Tc]
-        b, by = attn_bound(q, vis, Hkv, nbytes(mask, start))
-        fp_rows.append(dict(
-            case=name, S=S, Tq=Tq, T=Tc, D=Dc, starts=starts,
-            committed=committed, max_abs_err=err,
-            ms=timer(lambda: flash_prefill_cuda(*args)),
-            plain_ms=timer(lambda: flash_prefill_quant_reference(*args),
-                           reps=5),
-            bound_ms=b, bound_by=by, visible_positions=int(vis.sum()),
-            sdpa_bf16_dequantized_ms=sdpa_ms(q, kq, ks, vq, vs, vis)))
-        del q, kq, vq, ref, got
+    fp_rows.append(prefill_row("chunk", 1, 128, [1920], [1920]))
     for k, n in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
-        lin = _rand_qlinear(g, k, n, "q4_k", dev)
-        x = randn(40, k, dtype=torch.bfloat16)
-        ref = qmatmul_reference(x, lin)
-        got = qmatmul_cuda(x, lin)
-        err = check(f"qmatmul q4_k 40x{k}x{n}", got, ref, 1e-4)
-        if not torch.equal(got, qmatmul_cuda(x, lin)):
-            raise AssertionError(f"qmatmul q4_k 40x{k}x{n}: two runs gave "
-                                 f"different bits")
-        moved = nbytes(x) + lin.nbytes() + 40 * n * 4
-        b, by = bound_ms(moved, 2.0 * 40 * n * k)
-        ms = timer(lambda: qmatmul_cuda(x, lin))
-        qmm_rows.append(dict(quant="q4_k", m=40, k=k, n=n, max_abs_err=err,
-                             ms=ms,
-                             plain_ms=timer(lambda: qmatmul_reference(x, lin),
-                                            reps=5),
-                             bound_ms=b, bound_by=by, gb_s=moved / ms / 1e6))
-        del x, ref, got, lin
+        qmm_rows.append(gemm_row(_rand_qlinear(g, k, n, "q4_k", dev), 40, k,
+                                 n))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
