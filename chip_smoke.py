@@ -11,8 +11,8 @@ Phases, each printing one JSON line:
              projections, M = 1, 5, 8, 16 and 512, Q4_0 and Q8_0 at
              4096 -> 4096 and M <= 16, with the GB/s reached; every case
              twice, bit for bit; last, M = 1024 at 4096 -> 28672 and a
-             speculative verify's M = 40 at the four projections): max
-             error against its tolerance,
+             speculative verify's M = 40 at the four projections; after
+             them the W8 rows below): max error against its tolerance,
              CUDA-event times (warm, L2 flushed by a write, median of 25),
              the bound
              at 3.35 TB/s or 989 TFLOP/s bf16 (W8: 1,979 TOP/s int8;
@@ -26,7 +26,12 @@ Phases, each printing one JSON line:
              pages of 64
              and 8; the grouped qmatmul at mixtral-lite's prefill, at
              qwen3moe-lite's decode and on the single-token route; the W8
-             qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512; the
+             qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512 (and,
+             after every other row, at the four layer shapes for M = 1
+             and 512, the head's 4096 -> 128256 at M = 1 and 4096 ->
+             28672 at M = 40 and 1024), each twice bit for bit, its
+             quantize pass bit-equal to quantize_activations and timed
+             alone, torch._int_mm on the same int8 operands beside it; the
              fused linear's modes at llama-8b's draft shapes (x -> wo,
              norm(x + attn_out) -> gate|up, glu + 2 residuals -> down at
              K = 14336, norm + bias -> a qwen2.5-3b QKV, concat2, x +
@@ -96,7 +101,9 @@ Phases, each printing one JSON line:
              fused head never launches; every W8 product of the 512-token
              prefill and of the decode step against the W8 twin on its
              own input; the a8 codes that differ between the step on the
-             kernels and on the twins, layer by layer
+             kernels and on the twins, layer by layer (each product's
+             input quantized by quantize_activations); the prefill and
+             the decode step under set_sync_debug_mode("error")
   w8_requantized  the same, on llama-8b Q4_K weights requantized to W8
              (core/quant.py's requantize_w8 on the card), held end to
              end as full_width is: the prefill and the decode step
@@ -212,12 +219,17 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                                                 glu_rounding_slack,
                                                 norm_rounding_slack,
                                                 prologue_reference)
+    from powerserve_tpu_torch.ops import qmatmul as qm
     from powerserve_tpu_torch.ops.moe import group_dispatch
     from powerserve_tpu_torch.ops.qmatmul import (
         qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
-        qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_launch,
-        qmatmul_w8_reference, quantize_activations)
+        qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_reference,
+        quantize_activations)
     from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
+
+    # the W8 quantize pass alone (absent from trees before it, whose W8
+    # rows this script still times when copied into them)
+    quant_pass = getattr(qm, "quantize_activations_cuda", None)
 
     timer = Timer(dev, read_flush)
     g = torch.Generator(device=dev)
@@ -519,28 +531,51 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             bound_ms=b, bound_by=by))
         del stack, x, ref
 
+    def w8_row(lin, m, k, n):
+        """A timed W8 product (the wrapper: quantize pass and product):
+        against its twin at 1e-4 of the largest output (exact int32 block
+        dots, f32 sums over blocks in another order), twice bit for bit;
+        its pass bit-equal to quantize_activations and timed alone;
+        torch._int_mm on the same int8 operands for information (no
+        per-128 scales: not the same function). Bound: operations at the
+        int8 tensor-core peak, or the bytes."""
+        x = randn(m, k, dtype=torch.bfloat16)
+        got = qmatmul_w8_cuda(x, lin)
+        err = check(f"qmatmul_w8 {m}x{k}x{n}", got,
+                    qmatmul_w8_reference(x, lin), 1e-4)
+        if not torch.equal(got, qmatmul_w8_cuda(x, lin)):
+            raise AssertionError(f"qmatmul_w8 {m}x{k}x{n}: two runs gave "
+                                 f"different bits")
+        x8, sx = quantize_activations(x)
+        row = dict(m=m, k=k, n=n, max_abs_err=err)
+        if quant_pass is not None:
+            p8, psx = quant_pass(x)
+            if not (torch.equal(p8, x8) and torch.equal(psx, sx)):
+                raise AssertionError(
+                    f"qmatmul_w8 {m}x{k}x{n}: the quantize pass differs from "
+                    f"quantize_activations in {int((p8 != x8).sum())} codes "
+                    f"and {int((psx != sx).sum())} scales")
+            row.update(pass_bit_equal=True,
+                       pass_ms=timer(lambda: quant_pass(x)))
+        try:
+            int_mm_ms = timer(lambda: torch._int_mm(x8, lin.q))
+        except RuntimeError as e:  # shapes cuBLASLt's int8 GEMM refuses
+            int_mm_ms = f"refused: {str(e).splitlines()[0][:120]}"
+        b, by = bound_ms(nbytes(x) + lin.nbytes() + m * n * 4,
+                         2.0 * m * n * k, peak=INT8_OP_PER_S)
+        row.update(ms=timer(lambda: qmatmul_w8_cuda(x, lin)),
+                   plain_ms=timer(lambda: qmatmul_w8_reference(x, lin),
+                                  reps=5),
+                   bound_ms=b, bound_by=by, int_mm_ms=int_mm_ms,
+                   ops_peak="1979 TOP/s int8")
+        return row
+
     # -- W8 qmatmul: llama-8b's 4096 -> 28672 in the W8 format, M = 1 and
-    #    512; the wrapper's per-row activation quantization (plain PyTorch
-    #    ops) included, and the kernel alone on quantized rows beside it.
-    #    Tolerance: exact int32 block dots, f32 sums over blocks in another
-    #    order. Bound: operations at the int8 tensor-core peak
+    #    512 (more shapes at the end)
     w8_rows = []
     lin8 = _rand_qlinear(g, 4096, 28672, "w8", dev)
     for m in (1, 512):
-        x = randn(m, 4096, dtype=torch.bfloat16)
-        ref = qmatmul_w8_reference(x, lin8)
-        err = check(f"qmatmul_w8 {m}x4096x28672", qmatmul_w8_cuda(x, lin8),
-                    ref, 1e-4)
-        b, by = bound_ms(nbytes(x) + lin8.nbytes() + m * 28672 * 4,
-                         2.0 * m * 28672 * 4096, peak=INT8_OP_PER_S)
-        x8, sx = quantize_activations(x)
-        w8_rows.append(dict(
-            m=m, k=4096, n=28672, max_abs_err=err,
-            ms=timer(lambda: qmatmul_w8_cuda(x, lin8)),
-            kernel_only_ms=timer(lambda: qmatmul_w8_launch(x8, sx, lin8)),
-            plain_ms=timer(lambda: qmatmul_w8_reference(x, lin8), reps=5),
-            bound_ms=b, bound_by=by, ops_peak="1979 TOP/s int8"))
-        del x, ref
+        w8_rows.append(w8_row(lin8, m, 4096, 28672))
     del lin8
 
     # -- fused linear, the rest of the TPU kernel's modes, at the widths
@@ -713,6 +748,17 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     for k, n in ((4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)):
         qmm_rows.append(gemm_row(_rand_qlinear(g, k, n, "q4_k", dev), 40, k,
                                  n))
+    # -- then, with a seed of their own: W8 at llama-8b's four layer shapes
+    #    (M = 1 and 512), the head (M = 1), and 4096 -> 28672 at a verify's
+    #    M = 40 and the scheduler's M = 1024
+    g.manual_seed(3)
+    for k, n, ms in ((4096, 6144, (1, 512)), (4096, 4096, (1, 512)),
+                     (4096, 28672, (1, 512)), (14336, 4096, (1, 512)),
+                     (4096, 128256, (1,)), (4096, 28672, (40, 1024))):
+        lin8 = _rand_qlinear(g, k, n, "w8", dev)
+        for m in ms:
+            w8_rows.append(w8_row(lin8, m, k, n))
+        del lin8
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
@@ -984,23 +1030,28 @@ def w8_calls_check(fn) -> tuple[float, int]:
 def a8_flips(run, n_layers: int) -> dict:
     """The int8 activation codes of every W8 product of run({}) (the
     kernels) against those of run(plain_routes()) (the twins), call by
-    call: how many differ in each layer (its four products) and in the
-    lm_head, and by how much at most."""
+    call: each product's input is recorded where it enters (the kernel
+    route's qmatmul_w8_cuda, the twin's qmatmul_w8_reference) and
+    quantized by quantize_activations, the quantize pass's bit-equal
+    twin. How many codes differ in each layer (its four products) and in
+    the lm_head, and by how much at most."""
     from unittest import mock
 
     import powerserve_tpu_torch.ops.qmatmul as qm
 
-    real = qm.quantize_activations
-
     def codes(routes: dict) -> list[torch.Tensor]:
         out = []
 
-        def record(x):
-            x8, sx = real(x)
-            out.append(x8)
-            return x8, sx
+        def entry(real):
+            def record(x, lin):
+                out.append(qm.quantize_activations(x.to(torch.bfloat16))[0])
+                return real(x, lin)
+            return record
 
-        with mock.patch.object(qm, "quantize_activations", record):
+        with mock.patch.object(qm, "qmatmul_w8_cuda",
+                               entry(qm.qmatmul_w8_cuda)), \
+                mock.patch.object(qm, "qmatmul_w8_reference",
+                                  entry(qm.qmatmul_w8_reference)):
             run(routes)
         return out
 
@@ -1107,6 +1158,16 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
         checks["w8_step_calls_max_err"], checks["w8_step_calls"] = \
             w8_calls_check(lambda: step({}))
         checks["a8_codes"] = a8_flips(step, llm.n_layers)
+        # a W8 prefill reads nothing back to the host (the decode step is
+        # held so below)
+        c = KVCache.create(llm.n_layers, 1, max_seq, llm.n_kv_heads,
+                           llm.head_size, dev)
+        toks = prompt[None].to(dev)
+        pos = torch.arange(n_prompt, device=dev)[None]
+        without_sync(f"{phase} prefill",
+                     lambda: prefill_step(model, toks, pos, c))
+        checks["prefill_sync_free"] = True
+        del c
     # the same 512-token prefill with flash_prefill_quant sent to its twin
     # on the card, into a fresh cache; one decode step on the kernels
     # against the plain twins

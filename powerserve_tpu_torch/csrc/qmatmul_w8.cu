@@ -1,24 +1,33 @@
 // W8 matmul y[M, N] = sx[M] * sum_b s[b, N] * (x8[M, b] . q[b, N]) over
-// 128-deep blocks b: int8 activations x8 [M, K] with one f32 scale per
-// row (quantized outside the kernel, ops/qmatmul.py:quantize_activations),
+// 128-deep blocks b, on bf16 (or f32) rows x [M, K]: one C call runs two
+// kernels. First a quantize pass turns each row into int8 codes x8 with
+// one f32 scale sx (bit-equal to ops/qmatmul.py:quantize_activations, the
+// JAX package's _quantize_activations) in scratch the wrapper allocates;
+// then the product, launched as the pass's programmatic dependent, takes
 // symmetric int8 weights q [K, N] with f32 scales s [K/128, N]. Each
-// 128-deep int8 dot is summed exactly in int32 (at most 128 * 128 * 127 <
+// 128-deep int8 dot is summed exactly in int32 (at most 128 * 128 * 128 <
 // 2^24, so an f32 twin is exact too), then takes one f32 multiply-add by
-// its block's scale; f32 out.
+// its block's scale; the row scale comes last; f32 out.
 //
 // Replaces the TPU kernel powerserve_tpu/ops/qmatmul.py::_qmatmul_pallas_mxu8
 // (a8=True, body _make_mxu8_kernel), whose int8 MXU dots produce one int32
 // partial sum per 128-deep block, scaled into an f32 VMEM accumulator.
 //
 // What bounds it on an H100:
+//  - the pass: x's bytes, read twice (the second time from the L1), the
+//    codes written once; a few microseconds at M <= 1024. Its product
+//    launches as soon as every pass block has started, and streams its
+//    first weights while the pass runs.
 //  - decode (M <= 16): weight bytes, 1 byte per weight plus 4 per 128
-//    (4096 x 28672 is ~118 MB, ~35 us at 3.35 TB/s). The design is the
-//    split-K GEMV of csrc/qmatmul.cu: each thread owns four adjacent
-//    columns (one 32-bit load per row, a warp reads 128 contiguous bytes),
-//    a warp takes whole 128-deep blocks, and 32 row loads are in flight
-//    per thread. Four rows of four columns are transposed in registers
-//    (__byte_perm) into four k-quads, each the operand of one __dp4a
-//    against four activations.
+//    (4096 x 28672 is ~118 MB, ~35 us at 3.35 TB/s). A split-K GEMV:
+//    each thread owns four adjacent columns (one 32-bit load per row, a
+//    warp reads 128 contiguous bytes), a warp takes whole 128-deep
+//    blocks, and 32 row loads are in flight per thread. Four rows of four
+//    columns are transposed in registers (__byte_perm) into four k-quads,
+//    each the operand of one __dp4a against four activations. The K
+//    splits of a column tile form one cluster (at most 8) and add their
+//    partials in rank order through distributed shared memory: the same
+//    bits on every run, no partial buffer, no reduce launch.
 //  - prefill (M > 16): operations, 2 * M * N * K at 1,979 TOP/s int8. A
 //    128 x 128 output tile per block; per 128-deep block the x tile is
 //    copied into shared memory as is, the weight tile transposed to
@@ -26,6 +35,8 @@
 //    block's int32 fragments are scaled into f32 accumulators. No
 //    cp.async pipeline, ldmatrix or wgmma yet.
 // Ragged M, N are masked; K is a multiple of 128 by format.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -33,6 +44,90 @@ namespace {
 constexpr int kW8Block = 128;  // scale group = depth of one exact int8 dot
 constexpr int kGemvCols = 128;
 constexpr int kGemvWarps = 8;
+constexpr int kMaxSplits = 8;  // the portable cluster size
+constexpr int kPassThreads = 256;
+
+// Eight values of x from element e (e % 8 == 0) as f32: bf16 x exactly,
+// f32 x rounded to bf16 first (the twin's x.to(bfloat16)). vec: x is
+// 16-byte aligned (so is every row: K % 128 == 0).
+template <bool F32>
+__device__ __forceinline__ void load8(const void* x, long e, int vec,
+                                      float (&v)[8]) {
+  if (F32) {
+    const float* p = reinterpret_cast<const float*>(x) + e;
+    if (vec) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __ldg(p + j);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = bf16_round(v[j]);
+  } else {
+    const uint16_t* p = reinterpret_cast<const uint16_t*>(x) + e;
+    uint32_t w[4];
+    if (vec) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = (uint32_t)__ldg(p + 2 * j) |
+               ((uint32_t)__ldg(p + 2 * j + 1) << 16);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  }
+}
+
+// The quantize pass, one block a row: the row's f32 absmax, then
+// sx = absmax / 127, inv = sx > 0 ? 1 / sx : 0 and codes clamp(rint(x *
+// inv), -127, 127), with the twin's roundings (ops/qmatmul.py:
+// quantize_activations): IEEE division and reciprocal, one f32 multiply,
+// halves to even. The row is read twice (the second time from the L1).
+template <bool F32>
+__global__ __launch_bounds__(kPassThreads) void w8_quantize_kernel(
+    const void* x, int K, int vec, int8_t* x8, float* sx) {
+  // the product may launch now: it waits for this grid before reading
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __shared__ float wmax[kPassThreads / 32];
+  const long row = (long)blockIdx.x * K;
+  float amax = 0.f;
+  for (int c = threadIdx.x * 8; c < K; c += kPassThreads * 8) {
+    float v[8];
+    load8<F32>(x, row + c, vec, v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = amax;
+  __syncthreads();
+  amax = wmax[0];
+#pragma unroll
+  for (int w = 1; w < kPassThreads / 32; ++w) amax = fmaxf(amax, wmax[w]);
+  const float s = __fdiv_rn(amax, 127.f);
+  const float inv = s > 0.f ? __frcp_rn(s) : 0.f;
+  if (threadIdx.x == 0) sx[blockIdx.x] = s;
+  for (int c = threadIdx.x * 8; c < K; c += kPassThreads * 8) {
+    float v[8];
+    load8<F32>(x, row + c, vec, v);
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int q = min(max(__float2int_rn(__fmul_rn(v[j], inv)), -127), 127);
+      w[j >> 2] |= (uint32_t)(q & 0xFF) << (8 * (j & 3));
+    }
+    *reinterpret_cast<uint2*>(x8 + row + c) = make_uint2(w[0], w[1]);
+  }
+}
 
 // rows r0..r3 of four columns (byte j of word i = row i, column j) ->
 // column j as a k-quad (byte i = row i)
@@ -65,6 +160,14 @@ __global__ __launch_bounds__(256) void w8_gemv_kernel(
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+  // launched as the quantize pass's dependent: the first 32 weight rows of
+  // this warp's first block head for the L2 (lane i: row i, the warp's 128
+  // bytes) while the pass runs; its codes are read after the wait
+  if (kb_begin + ty < kb_end)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+        q + ((long)(kb_begin + ty) * kW8Block + lane) * N +
+        blockIdx.x * kGemvCols));
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   if (n0 < N) {
     for (int kb = kb_begin + ty; kb < kb_end; kb += kGemvWarps) {
       int isum[MT][4];
@@ -108,9 +211,12 @@ __global__ __launch_bounds__(256) void w8_gemv_kernel(
     }
   }
 
+  // the warps' sums, added in warp order, make this block's partial [M,
+  // 128]; then the K splits of the column tile (one cluster, rank = split)
+  // add theirs in rank order through distributed shared memory, and the
+  // row scale comes last
   __shared__ float red[kGemvWarps][kGemvCols];
-  const bool split = gridDim.y > 1;  // partial sums: the row scale waits
-  float* o = out + (long)blockIdx.y * M * N;
+  __shared__ float part[MT][kGemvCols];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
     if (m < M) {
@@ -118,28 +224,32 @@ __global__ __launch_bounds__(256) void w8_gemv_kernel(
       for (int j = 0; j < 4; ++j) red[ty][lane * 4 + j] = acc[m][j];
       __syncthreads();
       if (ty == 0) {
-        const float rs = split ? 1.f : sx[m];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float v = 0.f;
 #pragma unroll
           for (int t = 0; t < kGemvWarps; ++t) v += red[t][lane * 4 + j];
-          if (n0 + j < N) o[(long)m * N + n0 + j] = v * rs;
+          part[m][lane * 4 + j] = v;
         }
       }
       __syncthreads();
     }
   }
-}
-
-__global__ void w8_splitk_reduce_kernel(const float* part, int splits,
-                                        const float* sx, int N, long mn,
-                                        float* out) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float v = 0.f;
-  for (int t = 0; t < splits; ++t) v += part[(long)t * mn + i];
-  out[i] = v * sx[i / N];
+  const int splits = gridDim.y;
+  namespace cg = cooperative_groups;
+  if (splits > 1) cg::this_cluster().sync();
+  const int tid = ty * 32 + lane;
+  for (int i = blockIdx.y * 256 + tid; i < M * kGemvCols; i += splits * 256) {
+    const int m = i / kGemvCols;
+    const int n = blockIdx.x * kGemvCols + i % kGemvCols;
+    float v = 0.f;
+    for (int r = 0; r < splits; ++r)
+      v += (splits > 1 ? cg::this_cluster().map_shared_rank(&part[0][0], r)
+                       : &part[0][0])[i];
+    if (n < N) out[(long)m * N + n] = v * sx[m];
+  }
+  // keep this block's partial until every block of the cluster read it
+  if (splits > 1) cg::this_cluster().sync();
 }
 
 constexpr int TBM = 128;
@@ -170,6 +280,7 @@ __global__ __launch_bounds__(256) void w8_mma_kernel(
   const int g = lane / 4, t4 = lane % 4;
   const int m_base = blockIdx.y * TBM, n_base = blockIdx.x * TBN;
   const bool vec = (N % 4) == 0;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the pass's codes
   float acc[4][4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -270,53 +381,121 @@ __global__ __launch_bounds__(256) void w8_mma_kernel(
   }
 }
 
+int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int d = 0;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+  }
+  return n;
+}
+
+// K splits of the GEMV: about four blocks per SM, each split at least
+// eight 128-deep blocks (one per warp), at most a portable cluster
+int w8_splits(int K, int N) {
+  const int blocks = (N + kGemvCols - 1) / kGemvCols;
+  const int want = (4 * sm_count() + blocks - 1) / blocks;
+  return max(1, min(min(want, K / kW8Block / 8), kMaxSplits));
+}
+
+// A launch as the programmatic dependent of the kernel before it on the
+// stream (the quantize pass), in a cluster of (1, cluster_y, 1) blocks
+// when cluster_y > 1.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                             int smem, int cluster_y, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  int n_attr = 1;
+  if (cluster_y > 1) {
+    attr[1].id = cudaLaunchAttributeClusterDimension;
+    attr[1].val.clusterDim.x = 1;
+    attr[1].val.clusterDim.y = cluster_y;
+    attr[1].val.clusterDim.z = 1;
+    ++n_attr;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = n_attr;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 template <int MT>
-void launch_w8_gemv(const int8_t* x8, const float* sx, const uint8_t* q,
-                    const float* s, int M, int K, int N, float* dst,
-                    int splits, cudaStream_t stream) {
+cudaError_t launch_w8_gemv(const int8_t* x8, const float* sx,
+                           const uint8_t* q, const float* s, int M, int K,
+                           int N, float* out, cudaStream_t stream) {
+  const int splits = w8_splits(K, N);
   const int KB = K / kW8Block;
-  const int kb_per_split = (KB + splits - 1) / splits;
-  dim3 grid((N + kGemvCols - 1) / kGemvCols, splits);
-  dim3 block(32, kGemvWarps);
-  w8_gemv_kernel<MT><<<grid, block, 0, stream>>>(x8, sx, q, s, M, K, N, dst,
-                                                 kb_per_split);
+  return launch_dependent(w8_gemv_kernel<MT>,
+                          dim3((N + kGemvCols - 1) / kGemvCols, splits),
+                          dim3(32, kGemvWarps), 0, splits, stream, x8, sx, q,
+                          s, M, K, N, out, (KB + splits - 1) / splits);
+}
+
+cudaError_t launch_quantize(const void* x, int x_f32, int8_t* x8, float* sx,
+                            int M, int K, cudaStream_t stream) {
+  const int vec = ((uintptr_t)x & 15) == 0;
+  if (x_f32)
+    w8_quantize_kernel<true><<<M, kPassThreads, 0, stream>>>(x, K, vec, x8,
+                                                             sx);
+  else
+    w8_quantize_kernel<false><<<M, kPassThreads, 0, stream>>>(x, K, vec, x8,
+                                                              sx);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x8 int8 [M, K] (16-byte aligned), sx f32 [M], q int8 [K, N], s f32
-// [K/128, N]; out f32 [M, N]; partial f32 [splits, M, N] when M <= 16 and
-// splits > 1 (else unused). Returns cudaGetLastError().
-PS_EXPORT int ps_qmatmul_w8(const void* x8, const void* sx, const void* q,
-                            const void* s, void* out, void* partial, int M,
-                            int K, int N, int splits, void* stream_ptr) {
-  if (K % kW8Block) return (int)cudaErrorInvalidValue;
+// The quantize pass alone: x bf16 (x_f32 = 0) or f32 [M, K] -> x8 int8
+// [M, K], sx f32 [M]. Returns the launch's cudaError_t.
+PS_EXPORT int ps_w8_quantize(const void* x, int x_f32, void* x8, void* sx,
+                             int M, int K, void* stream_ptr) {
+  if (K % kW8Block || M <= 0) return (int)cudaErrorInvalidValue;
+  return (int)launch_quantize(x, x_f32, reinterpret_cast<int8_t*>(x8),
+                              reinterpret_cast<float*>(sx), M, K,
+                              reinterpret_cast<cudaStream_t>(stream_ptr));
+}
+
+// One W8 product: the quantize pass of x bf16 (x_f32 = 0) or f32 [M, K]
+// into the scratch x8 int8 [M, K] (16-byte aligned) and sx f32 [M], then
+// the product as its programmatic dependent (the GEMV at M <= 16, the
+// GEMM above): q int8 [K, N], s f32 [K/128, N] -> out f32 [M, N]. Returns
+// the first launch error.
+PS_EXPORT int ps_qmatmul_w8(const void* x, int x_f32, void* x8, void* sx,
+                            const void* q, const void* s, void* out, int M,
+                            int K, int N, void* stream_ptr) {
+  if (K % kW8Block || M <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  const int8_t* xa = reinterpret_cast<const int8_t*>(x8);
-  const float* xs = reinterpret_cast<const float*>(sx);
+  int8_t* xa = reinterpret_cast<int8_t*>(x8);
+  float* xs = reinterpret_cast<float*>(sx);
   const uint8_t* qw = reinterpret_cast<const uint8_t*>(q);
   const float* sw = reinterpret_cast<const float*>(s);
   float* o = reinterpret_cast<float*>(out);
-  if (M <= 16) {
-    float* dst = splits > 1 ? reinterpret_cast<float*>(partial) : o;
-    if (M <= 1)
-      launch_w8_gemv<1>(xa, xs, qw, sw, M, K, N, dst, splits, stream);
-    else if (M <= 2)
-      launch_w8_gemv<2>(xa, xs, qw, sw, M, K, N, dst, splits, stream);
-    else if (M <= 4)
-      launch_w8_gemv<4>(xa, xs, qw, sw, M, K, N, dst, splits, stream);
-    else if (M <= 8)
-      launch_w8_gemv<8>(xa, xs, qw, sw, M, K, N, dst, splits, stream);
-    else
-      launch_w8_gemv<16>(xa, xs, qw, sw, M, K, N, dst, splits, stream);
-    if (splits > 1) {
-      long mn = (long)M * N;
-      w8_splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-          dst, splits, xs, N, mn, o);
-    }
-  } else {
-    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
-    w8_mma_kernel<<<grid, 256, 0, stream>>>(xa, xs, qw, sw, M, K, N, o);
-  }
-  return (int)cudaGetLastError();
+  cudaError_t e = launch_quantize(x, x_f32, xa, xs, M, K, stream);
+  if (e != cudaSuccess) return (int)e;
+  const int8_t* xc = xa;
+  const float* sc = xs;
+  if (M <= 1)
+    e = launch_w8_gemv<1>(xc, sc, qw, sw, M, K, N, o, stream);
+  else if (M <= 2)
+    e = launch_w8_gemv<2>(xc, sc, qw, sw, M, K, N, o, stream);
+  else if (M <= 4)
+    e = launch_w8_gemv<4>(xc, sc, qw, sw, M, K, N, o, stream);
+  else if (M <= 8)
+    e = launch_w8_gemv<8>(xc, sc, qw, sw, M, K, N, o, stream);
+  else if (M <= 16)
+    e = launch_w8_gemv<16>(xc, sc, qw, sw, M, K, N, o, stream);
+  else
+    e = launch_dependent(w8_mma_kernel,
+                         dim3((N + TBN - 1) / TBN, (M + TBM - 1) / TBM),
+                         dim3(256), 0, 1, stream, xc, sc, qw, sw, M, K, N, o);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
 }

@@ -19,9 +19,10 @@ tools/bench_params.py; the kernel reads both.
 Two more forms, the JAX package's too:
   - W8 (scale_group 128): symmetric int8 q [K, N] with f32 scales
     [K//128, N] and no minimum (core/quant.py:requantize_w8). `qmatmul`
-    quantizes the activations per row to int8 (quantize_activations) and
-    runs csrc/qmatmul_w8.cu: exact int32 dots over each 128-deep block,
-    each scaled by its block's scale, summed in f32, times the row scale.
+    runs csrc/qmatmul_w8.cu: a pass quantizes the activations per row to
+    int8 (bit-equal to quantize_activations, its twin), then exact int32
+    dots over each 128-deep block, each scaled by its block's scale,
+    summed in f32, times the row scale.
   - expert stacks (MoE): q [E, K//2, N] or [E, K, N], scales and bias
     [E, K//32, N]. `qmatmul_grouped` multiplies rows [i*block_m,
     (i+1)*block_m) of x by slab tile_ids[i] (the grouped mode of
@@ -189,7 +190,10 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor,
     """Per-row symmetric int8: x [M, K] -> (x8 int8 [M, K], f32 scale
     [M, 1]); the JAX package's _quantize_activations."""
     xf = x.float()
-    sx = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    # divided by a tensor: PyTorch's CUDA division by a Python number
+    # multiplies by its rounded reciprocal, which is not JAX's division
+    sx = amax / torch.full_like(amax, 127.0)
     inv = torch.where(sx > 0, 1.0 / torch.where(sx == 0, 1.0, sx), 0.0)
     x8 = torch.clamp(torch.round(xf * inv), -127, 127).to(torch.int8)
     return x8, sx
@@ -261,15 +265,6 @@ def weight_args(lin: QLinear, device: torch.device,
             offset, int(lin.scales.dtype == torch.bfloat16))
 
 
-def w8_splits(m: int, k: int, n: int, device: torch.device) -> int:
-    """K splits for the W8 GEMV: about four blocks per SM, each split at
-    least eight 128-deep blocks (one per warp of a block)."""
-    if m > GEMV_MAX_M:
-        return 1
-    want = -(-4 * cuda_lib.sm_count(device) // -(-n // 128))
-    return max(1, min(want, (k // MXU_GROUP) // 8))
-
-
 def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     """Launch csrc/qmatmul.cu: x [M, K] on a CUDA device -> f32 [M, N]."""
     dev = x.device
@@ -293,44 +288,63 @@ def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     return out
 
 
+def _w8_operands(x: torch.Tensor, lin: QLinear) -> tuple:
+    """Check x [M, K] on a CUDA device against the W8 weight `lin` (None:
+    K alone) and return (x as bf16 or f32 contiguous rows, x_f32)."""
+    dev = x.device
+    m, k = x.shape
+    if k % MXU_GROUP:
+        raise ValueError(f"W8 kernel: x {tuple(x.shape)}, K not a multiple "
+                         f"of {MXU_GROUP}")
+    if lin is not None:
+        if not lin.w8 or k != lin.in_features:
+            raise ValueError(f"W8 kernel: x {tuple(x.shape)} against a "
+                             f"scale_group {lin.scale_group} weight of K="
+                             f"{lin.in_features}")
+        n = lin.out_features
+        cuda_lib.require(lin.q, "q", dev, (torch.int8,), (k, n))
+        cuda_lib.require(lin.scales, "scales", dev, (torch.float32,),
+                         (k // MXU_GROUP, n))
+        if lin.q.data_ptr() % 4:
+            raise ValueError("q must be 4-byte aligned")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.to(torch.bfloat16)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x, int(x.dtype == torch.float32)
+
+
+def quantize_activations_cuda(x: torch.Tensor) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """The W8 kernel's quantize pass alone (checks and timing; the
+    product runs it itself): x [M, K] on a CUDA device -> (x8 int8 [M, K],
+    f32 scale [M, 1]), bit-equal to quantize_activations(x.to(bfloat16))."""
+    x, x_f32 = _w8_operands(x, None)
+    m, k = x.shape
+    x8 = torch.empty(m, k, dtype=torch.int8, device=x.device)
+    sx = torch.empty(m, 1, dtype=torch.float32, device=x.device)
+    if m:
+        cuda_lib.check(cuda_lib.lib().ps_w8_quantize(
+            x.data_ptr(), x_f32, x8.data_ptr(), sx.data_ptr(), m, k,
+            cuda_lib.stream(x.device)), "w8 quantize pass")
+    return x8, sx
+
+
 def qmatmul_w8_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
-    """Quantize x [M, K] per row, then launch csrc/qmatmul_w8.cu -> f32
-    [M, N]."""
-    x8, sx = quantize_activations(x.to(torch.bfloat16))
-    return qmatmul_w8_launch(x8, sx, lin)
-
-
-def qmatmul_w8_launch(x8: torch.Tensor, sx: torch.Tensor,
-                      lin: QLinear) -> torch.Tensor:
-    """The W8 kernel on int8 rows x8 [M, K] with their f32 scales sx
-    [M, 1] -> f32 [M, N]."""
-    dev = x8.device
-    m, k = x8.shape
+    """Launch csrc/qmatmul_w8.cu: x [M, K] on a CUDA device -> f32 [M, N].
+    One C call: the quantize pass into scratch, then the product."""
+    x, x_f32 = _w8_operands(x, lin)
+    dev = x.device
+    m, k = x.shape
     n = lin.out_features
-    if not lin.w8 or k != lin.in_features or k % MXU_GROUP:
-        raise ValueError(f"W8 kernel: x {tuple(x8.shape)} against a "
-                         f"scale_group {lin.scale_group} weight of K="
-                         f"{lin.in_features}")
-    cuda_lib.require(lin.q, "q", dev, (torch.int8,), (k, n))
-    cuda_lib.require(lin.scales, "scales", dev, (torch.float32,),
-                     (k // MXU_GROUP, n))
-    cuda_lib.require(sx, "row scales", dev, (torch.float32,), (m, 1))
-    if lin.q.data_ptr() % 4:
-        raise ValueError("q must be 4-byte aligned")
-    x8 = x8.contiguous()
-    if x8.dtype != torch.int8:
-        raise ValueError(f"x8 has dtype {x8.dtype}, expected int8")
-    if x8.data_ptr() % 16:  # the tensor-core path loads 16-byte vectors
-        x8 = x8.clone()
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    splits = w8_splits(m, k, n, dev)
-    part = (torch.empty(splits, m, n, dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    # int8 codes [M, K], then the f32 row scales (M * K % 128 == 0)
+    scratch = torch.empty(m * k + 4 * m, dtype=torch.uint8, device=dev)
     rc = cuda_lib.lib().ps_qmatmul_w8(
-        x8.data_ptr(), sx.data_ptr(), lin.q.data_ptr(), lin.scales.data_ptr(),
-        out.data_ptr(), cuda_lib.ptr(part), m, k, n, splits,
+        x.data_ptr(), x_f32, scratch.data_ptr(), scratch.data_ptr() + m * k,
+        lin.q.data_ptr(), lin.scales.data_ptr(), out.data_ptr(), m, k, n,
         cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["qmatmul_w8"] += 1
     cuda_lib.check(rc, "qmatmul_w8")

@@ -31,7 +31,8 @@ from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                             norm_rounding_slack)
 from powerserve_tpu_torch.ops.qmatmul import (
     QLinear, qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
-    qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_reference)
+    qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_reference,
+    quantize_activations, quantize_activations_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -729,6 +730,93 @@ def test_qmatmul_w8_kernel(dev, k, n, m):
     assert cuda_lib.launch_counts()["qmatmul_w8"] == before + 1
     _close(got, qmatmul_w8_reference(x, lin))
     assert not got[0].any()
+
+
+def _w8_lin(g, dev, k, n):
+    q = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = torch.rand(k // 128, n, generator=g, device=dev) * 0.02 + 0.001
+    return QLinear(q, s, None, packed=False, unsigned=False, in_features=k,
+                   out_features=n, scale_group=128)
+
+
+@pytest.mark.parametrize("n", [1, 130, 200])
+@pytest.mark.parametrize("k", [128, 4096, 14336])
+@pytest.mark.parametrize("m", [17, 40, 64, 128, 512, 1024])
+def test_qmatmul_w8_gemm_shapes(dev, m, k, n):
+    """The W8 prefill GEMM at ragged M and N, K from one 128-deep block
+    up: against the twin, and the same bits on two runs."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(m * 7 + k + n)
+    lin = _w8_lin(g, dev, k, n)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    got = qmatmul_w8_cuda(x, lin)
+    _close(got, qmatmul_w8_reference(x, lin))
+    assert torch.equal(got, qmatmul_w8_cuda(x, lin))
+
+
+def _a8_rows(g, dev, m, k):
+    """Rows that reach the quantize pass's edges: exact halves that round
+    to even (absmax 127, so 1 / scale is 1), a zero row, one nonzero value,
+    large and tiny magnitudes, then random rows."""
+    x = torch.randn(m, k, generator=g, device=dev) * 3
+    x[0] = 0.0
+    x[1, :4] = torch.tensor([0.5, -0.5, 2.5, -3.5])
+    x[1, 4:] = 0.0
+    x[1, 5] = 127.0
+    x[2] = 0.0
+    x[2, k // 3] = -7.25
+    x[3] *= 1e30
+    x[4] *= 1e-30
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(5, 128), (16, 4096), (33, 14336)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_w8_quantize_pass_bit_equal(dev, m, k, dtype, offset):
+    """The kernel's quantize pass gives quantize_activations' codes and
+    scales bit for bit, from bf16 or f32 rows, 16-byte aligned or not."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(m + k)
+    x = _a8_rows(g, dev, m, k).to(dtype)
+    if offset:
+        x = torch.cat([x.flatten()[:offset], x.flatten()])[offset:]
+        x = x.view(m, k)
+        assert x.data_ptr() % 16
+    x8, sx = quantize_activations_cuda(x)
+    want8, want_sx = quantize_activations(x.to(torch.bfloat16))
+    assert torch.equal(x8, want8)
+    assert torch.equal(sx, want_sx)
+    assert x8[1, :4].tolist() == [0, 0, 2, -4] and x8[1, 5] == 127
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (5, 14336, 4096),
+                                   (16, 1024, 640), (40, 4096, 640),
+                                   (512, 128, 200)])
+def test_qmatmul_w8_two_kernels_a_product(dev, m, k, n):
+    """A W8 product is two kernels, the quantize pass and the product (K
+    splits add up inside a cluster: no reduce kernel), one count, and the
+    same bits on every run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(m + k + n)
+    lin = _w8_lin(g, dev, k, n)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    first = qmatmul_w8_cuda(x, lin)
+    torch.cuda.synchronize()
+    before = cuda_lib.launch_counts()["qmatmul_w8"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = qmatmul_w8_cuda(x, lin)
+        torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["qmatmul_w8"] == before + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert "w8_quantize" in kernels[0] and "w8_" in kernels[1], kernels
+    assert not any("reduce" in name for name in kernels), kernels
+    assert torch.equal(first, again)
 
 
 def test_moe_forward_cuda_matches_cpu(dev, tmp_path):

@@ -99,6 +99,46 @@ def test_quantize_activations_matches_jax():
     np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
 
 
+def _a8_edge(case: str) -> np.ndarray:
+    """Rows [3, 256] at bf16 values that reach the int8 quantization's
+    edges (what the card's quantize pass must reproduce bit for bit)."""
+    rng = np.random.default_rng(7)
+    x = np.zeros((3, 256), np.float32)
+    if case == "halves_to_even":  # absmax 127: scale 1, 1 / scale 1
+        x[:, :8] = [127.0, 0.5, -0.5, 2.5, -3.5, 1.5, -1.5, 126.5]
+    elif case == "clamp":  # the row's extremes land on +-127
+        x[:] = np.clip(rng.standard_normal((3, 256)) * 5, -8.0, 8.0)
+        x[:, 0], x[:, 1] = 9.0, -9.0
+    elif case == "one_nonzero":
+        x[:, 17] = [-7.25, 1e-3, 300.0]
+    elif case == "large":  # near the top of the bf16 range
+        x[:] = rng.standard_normal((3, 256)) * np.float32([1e30, 3e37, 1e38])[
+            :, None]
+    return _bf16(x)
+
+
+@pytest.mark.parametrize("case", ["halves_to_even", "clamp", "zero_row",
+                                  "one_nonzero", "large"])
+def test_quantize_activations_edges_match_jax(case):
+    x = _a8_edge(case)
+    x8, sx = quantize_activations(torch.from_numpy(x))
+    jx8, jsx = _quantize_activations(jnp.asarray(x))
+    np.testing.assert_array_equal(x8.numpy(), np.asarray(jx8))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+    codes = x8.numpy()
+    if case == "halves_to_even":
+        assert codes[0, :8].tolist() == [127, 0, 0, 2, -4, 2, -2, 126]
+    elif case == "clamp":
+        assert (codes[:, 0] == 127).all() and (codes[:, 1] == -127).all()
+    elif case == "zero_row":
+        assert not codes.any() and not sx.numpy().any()
+    elif case == "one_nonzero":
+        assert codes[:, 17].tolist() == [-127, 127, 127]
+        assert np.count_nonzero(codes) == 3
+    else:
+        assert np.isfinite(sx.numpy()).all() and np.abs(codes).max() == 127
+
+
 @pytest.mark.parametrize("m", [1, 48])
 def test_w8_twin_matches_pallas_interpret(m):
     k, n = 1024, 256
