@@ -1,7 +1,7 @@
 // Shared pieces of the port's Hopper kernels: the quantized weight
 // descriptor, the tensor-core and copy primitives (mma.sync m16n8k16
 // bf16 -> f32, ldmatrix, cp.async, wgmma operand descriptors and
-// fences) and small numeric helpers.
+// fences, the TMA tensor-map encoder) and small numeric helpers.
 //
 // Weight layout (powerserve_tpu_torch/core/quant.py, ops/qmatmul.py):
 //   q       packed: uint8 [K/2, N], nibbles in pack groups of G rows —
@@ -14,6 +14,7 @@
 // where offset is 8 for signed packed nibbles (stored +8) and 0 otherwise.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,4 +169,31 @@ __device__ __forceinline__ void wgmma_wait0() {
 // this thread's shared-memory writes, visible to the tensor cores' reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled (a TMA tensor map), looked up at run time: the
+// library links the CUDA runtime alone.
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+static inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The SMs of the current device (looked up once).
+static inline int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int d = 0;
+    cudaGetDevice(&d);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+  }
+  return n;
 }

@@ -502,16 +502,6 @@ qmm_gemv_kernel(QWeight w, Slabs sl, const __nv_bfloat16* x, int M,
   if (splits > 1) cooperative_groups::this_cluster().sync();
 }
 
-int sm_count() {
-  static int n = 0;
-  if (!n) {
-    int d = 0;
-    cudaGetDevice(&d);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
-  }
-  return n;
-}
-
 // K splits: about three blocks per SM, at most a cluster's worth, at
 // least one unit each.
 int gemv_splits(const QWeight& w, int tiles) {

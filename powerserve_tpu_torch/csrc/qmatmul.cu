@@ -54,8 +54,6 @@
 // the prefill GEMM with bf16 weights (one block row per tile): numerics
 // follow the tile, not the total row count. The bound counts the bytes
 // of the distinct slabs the ids name.
-#include <cuda.h>
-
 #include "gemv.cuh"
 
 namespace {
@@ -454,22 +452,6 @@ cudaError_t launch_gemm_t(const CUtensorMap& tmx, const GemmArgs& a,
   dim3 grid(m_tiles, (a.w.N + TBN - 1) / TBN);
   kernel<<<grid, kThreads, smem, stream>>>(tmx, a);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, looked up at run time (the library links the
-// CUDA runtime alone).
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return (EncodeTiled) nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // M rows per tile, `tiles` tiles (1 for a plain weight).

@@ -1,5 +1,5 @@
 // W8 matmul y[M, N] = sx[M] * sum_b s[b, N] * (x8[M, b] . q[b, N]) over
-// 128-deep blocks b, on bf16 (or f32) rows x [M, K]: one C call runs two
+// 128-deep blocks b, on bf16 rows x [M, K]: one C call runs two
 // kernels. First a quantize pass turns each row into int8 codes x8 with
 // one f32 scale sx (bit-equal to ops/qmatmul.py:quantize_activations, the
 // JAX package's _quantize_activations) in scratch the wrapper allocates;
@@ -28,12 +28,26 @@
 //    splits of a column tile form one cluster (at most 8) and add their
 //    partials in rank order through distributed shared memory: the same
 //    bits on every run, no partial buffer, no reduce launch.
-//  - prefill (M > 16): operations, 2 * M * N * K at 1,979 TOP/s int8. A
-//    128 x 128 output tile per block; per 128-deep block the x tile is
-//    copied into shared memory as is, the weight tile transposed to
-//    [n][k], and eight warps run mma.sync m16n8k32 s8.s8.s32 on it; each
-//    block's int32 fragments are scaled into f32 accumulators. No
-//    cp.async pipeline, ldmatrix or wgmma yet.
+//  - prefill (M > 16): operations, 2 * M * N * K at 1,979 TOP/s int8
+//    (4096 x 28672 at M = 512: 0.061 ms). int8 wgmma (m64n128k32
+//    s8.s8.s32) at a 128 x 128 output tile, two warpgroups, one block an
+//    SM (64 s32 and 64 f32 accumulators a thread). int8 wgmma takes both
+//    operands K-major, and the weights are stored [K, N]: x8 comes by TMA
+//    (128-byte swizzle, three stages), the weight bytes and scales by
+//    cp.async four units ahead, and each 128-deep unit is transposed once
+//    per block by byte permutes into K-major core matrices, the next one
+//    while the tensor cores run this one; one barrier a unit. The s32
+//    sums of a unit are then scaled into the f32 accumulators. Its time
+//    goes, in order, to the wgmma loop itself (each unit waited for
+//    before its scaling), the loads, the transpose and the scaling. Tried
+//    on the card and slower: a producer warpgroup with two consumer
+//    warpgroups on mbarriers, two s32 sets so one unit is scaled while
+//    the next runs (ptxas serializes the wgmma), x multicast across a
+//    two-block cluster, a 128 x 192 tile (255 registers), the weights
+//    loaded straight into registers, deeper rings, and int to float by
+//    2^23 arithmetic in place of the conversion. The weight layout stays
+//    [K, N]: the twin, dequant, requantize_w8 and the parameter tools
+//    read it; stored [N, K] the transpose would go.
 // Ragged M, N are masked; K is a multiple of 128 by format.
 #include <cooperative_groups.h>
 
@@ -47,53 +61,25 @@ constexpr int kGemvWarps = 8;
 constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr int kPassThreads = 256;
 
-// Eight values of x from element e (e % 8 == 0) as f32: bf16 x exactly,
-// f32 x rounded to bf16 first (the twin's x.to(bfloat16)). vec: x is
-// 16-byte aligned (so is every row: K % 128 == 0).
-template <bool F32>
-__device__ __forceinline__ void load8(const void* x, long e, int vec,
+// Eight bf16 values of x from element e (e % 8 == 0) as f32
+__device__ __forceinline__ void load8(const __nv_bfloat16* x, long e,
                                       float (&v)[8]) {
-  if (F32) {
-    const float* p = reinterpret_cast<const float*>(x) + e;
-    if (vec) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-      const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-      v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-    } else {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(x + e));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = __ldg(p + j);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = bf16_round(v[j]);
-  } else {
-    const uint16_t* p = reinterpret_cast<const uint16_t*>(x) + e;
-    uint32_t w[4];
-    if (vec) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = (uint32_t)__ldg(p + 2 * j) |
-               ((uint32_t)__ldg(p + 2 * j + 1) << 16);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[2 * j] = __uint_as_float(w[j] << 16);
-      v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
-    }
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
   }
 }
 
-// The quantize pass, one block a row: the row's f32 absmax, then
+// The quantize pass, one block a row of bf16 x: the row's f32 absmax, then
 // sx = absmax / 127, inv = sx > 0 ? 1 / sx : 0 and codes clamp(rint(x *
 // inv), -127, 127), with the twin's roundings (ops/qmatmul.py:
 // quantize_activations): IEEE division and reciprocal, one f32 multiply,
 // halves to even. The row is read twice (the second time from the L1).
-template <bool F32>
 __global__ __launch_bounds__(kPassThreads) void w8_quantize_kernel(
-    const void* x, int K, int vec, int8_t* x8, float* sx) {
+    const __nv_bfloat16* x, int K, int8_t* x8, float* sx) {
   // the product may launch now: it waits for this grid before reading
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ float wmax[kPassThreads / 32];
@@ -101,7 +87,7 @@ __global__ __launch_bounds__(kPassThreads) void w8_quantize_kernel(
   float amax = 0.f;
   for (int c = threadIdx.x * 8; c < K; c += kPassThreads * 8) {
     float v[8];
-    load8<F32>(x, row + c, vec, v);
+    load8(x, row + c, v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
   }
@@ -118,7 +104,7 @@ __global__ __launch_bounds__(kPassThreads) void w8_quantize_kernel(
   if (threadIdx.x == 0) sx[blockIdx.x] = s;
   for (int c = threadIdx.x * 8; c < K; c += kPassThreads * 8) {
     float v[8];
-    load8<F32>(x, row + c, vec, v);
+    load8(x, row + c, v);
     uint32_t w[2] = {0u, 0u};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -252,143 +238,268 @@ __global__ __launch_bounds__(256) void w8_gemv_kernel(
   if (splits > 1) cg::this_cluster().sync();
 }
 
-constexpr int TBM = 128;
-constexpr int TBN = 128;
-constexpr int TPITCH = kW8Block + 16;  // bytes per staged row (36 words):
-                                       // fragment loads hit 32 banks
+// ---- prefill GEMM (M > 16): int8 wgmma (the design note at the top) ----
+//
+// Per block a 128 x 128 output tile, two warpgroups of 64 rows. A unit is
+// one 128-deep scale block: four wgmma m64n128k32 a warpgroup, their s32
+// sums started afresh (scale-d 0), then scaled by s[unit, n] into f32
+// accumulators; sx[m] in the epilogue. The transposed weight tile is
+// [k / 16][n / 8][n % 8][k % 16]: core matrices of 8 columns x 16 k.
+constexpr int GBM = 128;
+constexpr int GBN = 128;
+constexpr int kGemmThreads = 256;
+constexpr int kXStages = 3;  // x: unit u multiplied, u + 1 and u + 2 in flight
+constexpr int kWStages = 4;  // weights: u + 1 transposed, 3 in flight
+constexpr int X_TILE = GBM * kW8Block;     // [128 rows][128 k] int8
+constexpr int X_SBO = 8 * kW8Block;        // 8-row groups of the swizzle
+constexpr int W_TILE = kW8Block * GBN;     // [128 k][128 n] int8
+constexpr int W_LBO = 128 * (GBN / 8);     // next 16 k (a row of core
+constexpr int W_SBO = 128;                 // matrices); next 8 columns
+constexpr int W_STAGE = W_TILE + GBN * 4;  // stored bytes, then scales
 
-// d += a (16x32 s8, row) * b (32x8 s8, col), s32 accumulate
-__device__ __forceinline__ void mma_16832(int (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
+// the rings: x stages (1024-byte aligned), weight stages, the two
+// transposed tiles, the two units' scales, the x stages' barriers
+struct W8Smem {
+  static constexpr int X0 = 0;
+  static constexpr int W0 = X0 + kXStages * X_TILE;
+  static constexpr int T0 = W0 + kWStages * W_STAGE;
+  static constexpr int S0 = T0 + 2 * W_TILE;
+  static constexpr int B0 = S0 + 2 * GBN * 4;
+  static constexpr int BYTES = B0 + 8 * kXStages + 1024;  // + alignment
+};
+
+// d[64 x 128] (+)= a[64 x 32] * b[32 x 128], s8 in, s32 out, both
+// operands K-major in shared memory; scale_d 0 ignores d's old values
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// 8 warps as 2 (M) x 4 (N), each warp 64 x 32 = 4 x 4 mma tiles.
-__global__ __launch_bounds__(256) void w8_mma_kernel(
-    const int8_t* __restrict__ x8, const float* __restrict__ sx,
-    const uint8_t* __restrict__ q, const float* __restrict__ s, int M, int K,
-    int N, float* out) {
-  __shared__ __align__(16) int8_t As[TBM][TPITCH];
-  __shared__ __align__(16) int8_t Bs[TBN][TPITCH];
-  __shared__ float Ss[TBN];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, t4 = lane % 4;
-  const int m_base = blockIdx.y * TBM, n_base = blockIdx.x * TBN;
-  const bool vec = (N % 4) == 0;
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the pass's codes
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+struct W8GemmArgs {
+  const float* sx;
+  const uint8_t* q;
+  const float* s;
+  float* out;
+  int M, K, N;
+  int wvec;  // weight rows copy 16 bytes at a time (N % 16 == 0)
+  int svec;  // scale rows copy 16 bytes at a time (N % 4 == 0)
+};
 
-  // this thread's share of the weight tile: 4 columns x 4 k rows, 4 times
-  const int n4 = (tid % 32) * 4, kq = (tid / 32) * 4;
-  const int nw = n_base + n4;
+__global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tmx, W8GemmArgs a) {
+  using L = W8Smem;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - ((uintptr_t)smem_raw & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m_base = blockIdx.x * GBM, n_base = blockIdx.y * GBN;
+  const int N = a.N, n_units = a.K / kW8Block;
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(smem + L::B0);
 
-  for (int kb = 0; kb < K / kW8Block; ++kb) {
-    const long k0 = (long)kb * kW8Block;
-    for (int e = tid; e < TBM * kW8Block / 16; e += 256) {
-      const int r = e / (kW8Block / 16), c = (e % (kW8Block / 16)) * 16;
-      const int m = m_base + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M) v = __ldg(reinterpret_cast<const uint4*>(x8 + (long)m * K + k0 + c));
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
+  // x of unit u into x slot u % kXStages by TMA (one thread); rows past M
+  // read zeros; the slot's barrier completes on the bytes
+  auto issue_x = [&](int u) {
+    const uint32_t bar = bar0 + 8 * (u % kXStages);
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(
+        smem + L::X0 + (u % kXStages) * X_TILE);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(X_TILE) : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        ::"r"(dst), "l"((uint64_t)&tmx), "r"(u * kW8Block), "r"(m_base),
+          "r"(bar) : "memory");
+  };
+  auto wait_x = [&](int u) {
+    const uint32_t bar = bar0 + 8 * (u % kXStages);
+    const uint32_t parity = (u / kXStages) & 1;
+    uint32_t done = 0;
+    while (!done)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  };
+  // unit u's stored weight rows [128 u, 128 u + 128) x 128 columns and
+  // their scales into weight slot u % kWStages; columns past N read zeros
+  auto issue_w = [&](int u) {
+    uint8_t* ws = smem + L::W0 + (u % kWStages) * W_STAGE;
+    const long row0 = (long)u * kW8Block;
+    if (a.wvec) {
+#pragma unroll
+      for (int i = 0; i < W_TILE / 16 / kGemmThreads; ++i) {
+        const int e = tid + kGemmThreads * i;
+        const int r = e >> 3, c = (e & 7) * 16;
+        const bool ok = n_base + c < N;
+        cp_async16(ws + r * GBN + c,
+                   a.q + (ok ? (row0 + r) * N + n_base + c : 0), ok);
+      }
+    } else {
+      for (int e = tid; e < W_TILE; e += kGemmThreads) {
+        const int r = e >> 7, c = e & 127;
+        ws[e] = n_base + c < N ? __ldg(a.q + (row0 + r) * N + n_base + c) : 0;
+      }
     }
+    float* ss = reinterpret_cast<float*>(ws + W_TILE);
+    const float* src = a.s + (long)u * N + n_base;
+    if (a.svec) {
+      if (tid < GBN / 4) {
+        const bool ok = n_base + 4 * tid < N;
+        cp_async16(ss + 4 * tid, ok ? src + 4 * tid : a.s, ok);
+      }
+    } else if (tid < GBN) {
+      ss[tid] = n_base + tid < N ? __ldg(src + tid) : 0.f;
+    }
+  };
+  // transpose unit u's stored bytes into K-major tile u % 2, and copy its
+  // scales beside it. Warp w takes k rows 16 w .. 16 w + 15 (one core
+  // matrix deep), a lane four columns: 16 row words (a warp reads whole
+  // 128-byte rows), four 4 x 4 byte transposes, then one 16-byte core
+  // matrix row per column. A lane pair's bytes are rotated by (lane / 2)
+  // % 4 first, so the eight lanes of a store phase hit eight distinct
+  // 16-byte bank groups.
+  auto transpose = [&](int u) {
+    const uint8_t* ws = smem + L::W0 + (u % kWStages) * W_STAGE;
+    uint8_t* dst = smem + L::T0 + (u & 1) * W_TILE + warp * W_LBO;
+    const int rot = (lane >> 1) & 3;
+    const uint32_t sel = (0x32103210u >> (4 * rot)) & 0xFFFFu;
+    uint32_t col[4][4];  // [k quad][column slot]
 #pragma unroll
-    for (int it = 0; it < kW8Block / 32; ++it) {
-      const int k = it * 32 + kq;
-      uint32_t rows[4], col[4];
+    for (int gq = 0; gq < 4; ++gq) {
+      uint32_t w[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        rows[i] = nw < N ? ld_row4(q, k0 + k + i, nw, N, vec) : 0u;
-      transpose4(rows, col);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t*>(&Bs[n4 + j][k]) = col[j];
+        w[i] = __byte_perm(*reinterpret_cast<const uint32_t*>(
+                               ws + (warp * 16 + gq * 4 + i) * GBN + 4 * lane),
+                           0, sel);
+      transpose4(w, col[gq]);
     }
-    if (tid < TBN)
-      Ss[tid] = n_base + tid < N ? __ldg(s + (long)kb * N + n_base + tid) : 0.f;
-    __syncthreads();
-    int isum[4][4][4];
+    // slot j holds column 4 lane + (j + rot) % 4
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) isum[i][j][c] = 0;
-#pragma unroll
-    for (int ks = 0; ks < kW8Block; ks += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        const int c = ks + t4 * 4;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][c]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][c + 16]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][c + 16]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + g;
-        const int c = ks + t4 * 4;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][c]);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[n][c + 16]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16832(isum[mt][nt], af[mt], bf[nt]);
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * lane + ((j + rot) & 3);
+      *reinterpret_cast<uint4*>(dst + (n >> 3) * W_SBO + (n & 7) * 16) =
+          make_uint4(col[0][j], col[1][j], col[2][j], col[3][j]);
     }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c0 = wn * 32 + nt * 8 + t4 * 2;
-      const float s0 = Ss[c0], s1 = Ss[c0 + 1];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        acc[mt][nt][0] = fmaf((float)isum[mt][nt][0], s0, acc[mt][nt][0]);
-        acc[mt][nt][1] = fmaf((float)isum[mt][nt][1], s1, acc[mt][nt][1]);
-        acc[mt][nt][2] = fmaf((float)isum[mt][nt][2], s0, acc[mt][nt][2]);
-        acc[mt][nt][3] = fmaf((float)isum[mt][nt][3], s1, acc[mt][nt][3]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r0 = m_base + wm * 64 + mt * 16 + g;
-      const int c0 = n_base + wn * 32 + nt * 8 + t4 * 2;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + half * 8;
-        if (r >= M) continue;
-        const float rs = sx[r];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (c0 + j < N) out[(long)r * N + c0 + j] = acc[mt][nt][half * 2 + j] * rs;
-      }
-    }
-  }
-}
+    if (tid < GBN / 4)
+      reinterpret_cast<float4*>(smem + L::S0 + (u & 1) * GBN * 4)[tid] =
+          reinterpret_cast<const float4*>(ws + W_TILE)[tid];
+  };
 
-int sm_count() {
-  static int n = 0;
-  if (!n) {
-    int d = 0;
-    cudaGetDevice(&d);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, d);
+  int isum[64];
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) isum[i] = 0, acc[i] = 0.f;
+  const int wg = warp >> 2;  // warpgroup: rows 64 wg .. 64 wg + 63
+
+  constexpr int kWAhead = kWStages - 1;
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kXStages; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(bar0 + 8 * i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  return n;
+  __syncthreads();
+  // the rings: while unit u is multiplied and unit u + 1 transposed, x of
+  // units u + 1 and u + 2 (TMA) and the weights of units u + 2 .. u + 4
+  // (cp.async, one commit group a unit) are in flight. The first weights
+  // stream while the quantize pass finishes; x after it.
+  for (int p = 0; p <= kWAhead; ++p) {
+    if (p < n_units) issue_w(p);
+    cp_async_commit();
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (tid == 0)
+    for (int p = 0; p < kXStages - 1 && p < n_units; ++p) issue_x(p);
+  cp_async_wait<kWAhead>();  // W0 has landed
+  __syncthreads();
+  transpose(0);
+  for (int u = 0; u < n_units; ++u) {
+    wait_x(u);                     // x(u) has landed
+    cp_async_wait<kWAhead - 1>();  // W(u + 1) has landed
+    fence_proxy_async();  // the transposed tile, to wgmma
+    __syncthreads();      // unit u is transposed; unit u - 1 is done
+    if (tid == 0 && u + kXStages - 1 < n_units) issue_x(u + kXStages - 1);
+    if (u + 1 + kWAhead < n_units) issue_w(u + 1 + kWAhead);
+    cp_async_commit();
+    const uint8_t* xs =
+        smem + L::X0 + (u % kXStages) * X_TILE + wg * 64 * kW8Block;
+    const uint8_t* wt = smem + L::T0 + (u & 1) * W_TILE;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kW8Block / 32; ++ks)
+      wgmma_m64n128k32_s8(isum, smem_desc(xs + 32 * ks, 16, X_SBO, 1),
+                          smem_desc(wt + ks * 2 * W_LBO, W_LBO, W_SBO, 0),
+                          ks);
+    wgmma_commit();
+    if (u + 1 < n_units) transpose(u + 1);
+    wgmma_wait0();
+    // the sums exist from here on: no read of them moves above the wait
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(isum[i])::"memory");
+    // accumulator i: column 8 (i / 4) + 2 t4 + (i & 1) of the tile
+    const float* sc =
+        reinterpret_cast<const float*>(smem + L::S0 + (u & 1) * GBN * 4);
+    const int t4 = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < GBN / 8; ++nt) {
+      const float2 s2 = *reinterpret_cast<const float2*>(sc + nt * 8 + 2 * t4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[4 * nt + i] = fmaf((float)isum[4 * nt + i],
+                               (i & 1) ? s2.y : s2.x, acc[4 * nt + i]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator i of a thread: row 16 (warp % 4) + g (+ 8 for i % 4 >= 2)
+  // of its warpgroup, column 8 (i / 4) + 2 t4 (+ 1 for odd i)
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pair = (N & 1) == 0;  // float2 stores stay 8-byte aligned
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = m_base + wg * 64 + (warp & 3) * 16 + g + half * 8;
+    if (r >= a.M) continue;
+    const float rs = a.sx[r];
+    float* o = a.out + (long)r * N;
+#pragma unroll
+    for (int nt = 0; nt < GBN / 8; ++nt) {
+      const int c0 = n_base + nt * 8 + t4 * 2;
+      const float v0 = acc[4 * nt + 2 * half] * rs;
+      const float v1 = acc[4 * nt + 2 * half + 1] * rs;
+      if (pair && c0 + 1 < N) {
+        *reinterpret_cast<float2*>(o + c0) = make_float2(v0, v1);
+      } else {
+        if (c0 < N) o[c0] = v0;
+        if (c0 + 1 < N) o[c0 + 1] = v1;
+      }
+    }
+  }
 }
 
 // K splits of the GEMV: about four blocks per SM, each split at least
@@ -439,36 +550,61 @@ cudaError_t launch_w8_gemv(const int8_t* x8, const float* sx,
                           s, M, K, N, out, (KB + splits - 1) / splits);
 }
 
-cudaError_t launch_quantize(const void* x, int x_f32, int8_t* x8, float* sx,
-                            int M, int K, cudaStream_t stream) {
-  const int vec = ((uintptr_t)x & 15) == 0;
-  if (x_f32)
-    w8_quantize_kernel<true><<<M, kPassThreads, 0, stream>>>(x, K, vec, x8,
-                                                             sx);
-  else
-    w8_quantize_kernel<false><<<M, kPassThreads, 0, stream>>>(x, K, vec, x8,
-                                                              sx);
+cudaError_t launch_w8_gemm(const int8_t* x8, const float* sx,
+                           const uint8_t* q, const float* s, int M, int K,
+                           int N, float* out, cudaStream_t stream) {
+  static const cudaError_t attr_rc = cudaFuncSetAttribute(
+      w8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W8Smem::BYTES);
+  if (attr_rc != cudaSuccess) return attr_rc;
+  // x8 [M, K] as 128 x 128 boxes under the 128-byte swizzle
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  CUtensorMap tmx;
+  cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  cuuint64_t strides[1] = {(cuuint64_t)K};
+  cuuint32_t box[2] = {kW8Block, GBM};
+  cuuint32_t elem[2] = {1, 1};
+  if (encode(&tmx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+             const_cast<int8_t*>(x8), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const W8GemmArgs a{sx, q, s, out, M, K, N, N % 16 == 0 && al16(q),
+                     N % 4 == 0 && al16(s)};
+  return launch_dependent(w8_wgmma_kernel,
+                          dim3((M + GBM - 1) / GBM, (N + GBN - 1) / GBN),
+                          dim3(kGemmThreads), W8Smem::BYTES, 1, stream, tmx,
+                          a);
+}
+
+cudaError_t launch_quantize(const void* x, int8_t* x8, float* sx, int M,
+                            int K, cudaStream_t stream) {
+  w8_quantize_kernel<<<M, kPassThreads, 0, stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), K, x8, sx);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The quantize pass alone: x bf16 (x_f32 = 0) or f32 [M, K] -> x8 int8
+// The quantize pass alone: x bf16 [M, K] (16-byte aligned) -> x8 int8
 // [M, K], sx f32 [M]. Returns the launch's cudaError_t.
-PS_EXPORT int ps_w8_quantize(const void* x, int x_f32, void* x8, void* sx,
-                             int M, int K, void* stream_ptr) {
+PS_EXPORT int ps_w8_quantize(const void* x, void* x8, void* sx, int M, int K,
+                             void* stream_ptr) {
   if (K % kW8Block || M <= 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_quantize(x, x_f32, reinterpret_cast<int8_t*>(x8),
+  return (int)launch_quantize(x, reinterpret_cast<int8_t*>(x8),
                               reinterpret_cast<float*>(sx), M, K,
                               reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
-// One W8 product: the quantize pass of x bf16 (x_f32 = 0) or f32 [M, K]
+// One W8 product: the quantize pass of x bf16 [M, K] (16-byte aligned)
 // into the scratch x8 int8 [M, K] (16-byte aligned) and sx f32 [M], then
 // the product as its programmatic dependent (the GEMV at M <= 16, the
 // GEMM above): q int8 [K, N], s f32 [K/128, N] -> out f32 [M, N]. Returns
 // the first launch error.
-PS_EXPORT int ps_qmatmul_w8(const void* x, int x_f32, void* x8, void* sx,
+PS_EXPORT int ps_qmatmul_w8(const void* x, void* x8, void* sx,
                             const void* q, const void* s, void* out, int M,
                             int K, int N, void* stream_ptr) {
   if (K % kW8Block || M <= 0) return (int)cudaErrorInvalidValue;
@@ -478,7 +614,7 @@ PS_EXPORT int ps_qmatmul_w8(const void* x, int x_f32, void* x8, void* sx,
   const uint8_t* qw = reinterpret_cast<const uint8_t*>(q);
   const float* sw = reinterpret_cast<const float*>(s);
   float* o = reinterpret_cast<float*>(out);
-  cudaError_t e = launch_quantize(x, x_f32, xa, xs, M, K, stream);
+  cudaError_t e = launch_quantize(x, xa, xs, M, K, stream);
   if (e != cudaSuccess) return (int)e;
   const int8_t* xc = xa;
   const float* sc = xs;
@@ -493,9 +629,7 @@ PS_EXPORT int ps_qmatmul_w8(const void* x, int x_f32, void* x8, void* sx,
   else if (M <= 16)
     e = launch_w8_gemv<16>(xc, sc, qw, sw, M, K, N, o, stream);
   else
-    e = launch_dependent(w8_mma_kernel,
-                         dim3((N + TBN - 1) / TBN, (M + TBM - 1) / TBM),
-                         dim3(256), 0, 1, stream, xc, sc, qw, sw, M, K, N, o);
+    e = launch_w8_gemm(xc, sc, qw, sw, M, K, N, o, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

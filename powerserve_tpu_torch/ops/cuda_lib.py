@@ -125,9 +125,9 @@ def lib() -> ctypes.CDLL:
         L.ps_qmatmul.restype = I
         L.ps_qmatmul_grouped.argtypes = [P] * 6 + [I] * 9 + [P]
         L.ps_qmatmul_grouped.restype = I
-        L.ps_qmatmul_w8.argtypes = [P, I] + [P] * 5 + [I] * 3 + [P]
+        L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 3 + [P]
         L.ps_qmatmul_w8.restype = I
-        L.ps_w8_quantize.argtypes = [P, I, P, P, I, I, P]
+        L.ps_w8_quantize.argtypes = [P] * 3 + [I] * 2 + [P]
         L.ps_w8_quantize.restype = I
         L.ps_fused_linear.argtypes = [I, I, P, P, P, I, I, P, F, P, P, P,
                                       P, I, I, I, I, I, I, I, P, I, P, P,

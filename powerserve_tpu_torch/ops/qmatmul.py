@@ -288,9 +288,10 @@ def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     return out
 
 
-def _w8_operands(x: torch.Tensor, lin: QLinear) -> tuple:
+def _w8_rows(x: torch.Tensor, lin: QLinear | None) -> torch.Tensor:
     """Check x [M, K] on a CUDA device against the W8 weight `lin` (None:
-    K alone) and return (x as bf16 or f32 contiguous rows, x_f32)."""
+    K alone) and return it as the kernel's contiguous, 16-byte aligned
+    bf16 rows (the model's rows already are: no copy)."""
     dev = x.device
     m, k = x.shape
     if k % MXU_GROUP:
@@ -307,11 +308,11 @@ def _w8_operands(x: torch.Tensor, lin: QLinear) -> tuple:
                          (k // MXU_GROUP, n))
         if lin.q.data_ptr() % 4:
             raise ValueError("q must be 4-byte aligned")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype != torch.bfloat16:
         x = x.to(torch.bfloat16)
-    if not x.is_contiguous():
-        x = x.contiguous()
-    return x, int(x.dtype == torch.float32)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x
 
 
 def quantize_activations_cuda(x: torch.Tensor) -> tuple[torch.Tensor,
@@ -319,13 +320,13 @@ def quantize_activations_cuda(x: torch.Tensor) -> tuple[torch.Tensor,
     """The W8 kernel's quantize pass alone (checks and timing; the
     product runs it itself): x [M, K] on a CUDA device -> (x8 int8 [M, K],
     f32 scale [M, 1]), bit-equal to quantize_activations(x.to(bfloat16))."""
-    x, x_f32 = _w8_operands(x, None)
+    x = _w8_rows(x, None)
     m, k = x.shape
     x8 = torch.empty(m, k, dtype=torch.int8, device=x.device)
     sx = torch.empty(m, 1, dtype=torch.float32, device=x.device)
     if m:
         cuda_lib.check(cuda_lib.lib().ps_w8_quantize(
-            x.data_ptr(), x_f32, x8.data_ptr(), sx.data_ptr(), m, k,
+            x.data_ptr(), x8.data_ptr(), sx.data_ptr(), m, k,
             cuda_lib.stream(x.device)), "w8 quantize pass")
     return x8, sx
 
@@ -333,7 +334,7 @@ def quantize_activations_cuda(x: torch.Tensor) -> tuple[torch.Tensor,
 def qmatmul_w8_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     """Launch csrc/qmatmul_w8.cu: x [M, K] on a CUDA device -> f32 [M, N].
     One C call: the quantize pass into scratch, then the product."""
-    x, x_f32 = _w8_operands(x, lin)
+    x = _w8_rows(x, lin)
     dev = x.device
     m, k = x.shape
     n = lin.out_features
@@ -343,7 +344,7 @@ def qmatmul_w8_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     # int8 codes [M, K], then the f32 row scales (M * K % 128 == 0)
     scratch = torch.empty(m * k + 4 * m, dtype=torch.uint8, device=dev)
     rc = cuda_lib.lib().ps_qmatmul_w8(
-        x.data_ptr(), x_f32, scratch.data_ptr(), scratch.data_ptr() + m * k,
+        x.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + m * k,
         lin.q.data_ptr(), lin.scales.data_ptr(), out.data_ptr(), m, k, n,
         cuda_lib.stream(dev))
     cuda_lib.LAUNCHES["qmatmul_w8"] += 1
