@@ -63,21 +63,35 @@ Phases, each printing one JSON line:
              sent to its twin; one decode step on the kernels against
              the same step through the plain twins on the card, the step
              on the kernels under torch.cuda.set_sync_debug_mode("error");
-             decode_scan for 64 tokens (argmax head);
-             InferenceEngine.generate for the same 64 tokens (logits
-             head). The two token streams must agree. The launch counts
-             are zeroed just before each of the three paths and read just
-             after it, and each path must have launched its kernels.
+             decode_scan for 64 tokens (argmax head), each step a
+             replayed CUDA graph (engine/graphs.py), and its eager twin
+             decode_scan_eager on a copy of the cache, twice each (the
+             second replayed call under set_sync_debug_mode("error")):
+             the same tokens, the cache bit for bit, the same launch
+             counts; InferenceEngine.generate for the same 64 tokens
+             (logits head), replayed and with every step eager (the
+             twin): the same tokens and launch counts. The two token
+             streams must agree. The launch counts are zeroed just
+             before each path and read just after it, and each path
+             must have launched its kernels. Both tok/s of each path,
+             the graphs captured, their capture time and pool memory.
   serve_full_width  llama-8b behind the HTTP server: 8 slots over a paged
              pool of half of 8 x 2048 positions, 8 concurrent greedy
              requests (prompts of 128-1024 tokens, 64 new tokens): all
              finish "length", two agree with a lone generate, the paged
              and prefill kernels launch; generated tok/s, TTFT, peak pages
-             and memory
+             and memory. The decode ticks replay their step graphs; the
+             same traffic again with every step eager (the twin), each
+             request's tokens the replayed run's (near-tie rule), and
+             its tok/s and TTFT
   spec_full_width  chain speculation on llama-8b: ChainSpecEngine with a
              4-layer self-draft (the fused layer chain), with a llama-1b
              draft and with a rank-512 factored draft head, k = 4, 512 +
-             64 greedy tokens, each against generate's tokens;
+             64 greedy tokens, each against generate's tokens, each
+             chain step a replayed graph and each run against its eager
+             twin (the same tokens and launch counts; one more replayed
+             block of the self-draft under
+             set_sync_debug_mode("error"));
              "model+self:4" with serve_full_width's traffic (the paged
              verify through the state mode); one paged verify through the
              deferred route against the inline one (logits, committed
@@ -86,7 +100,8 @@ Phases, each printing one JSON line:
              reported, not held (random weights)
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
-             greedy tokens (the grouped prefill, the single-token route),
+             greedy tokens (the grouped prefill, the single-token route;
+             replayed, and against its eager twin),
              one S = 8 decode step (grouped, block_m 16) on the kernels
              against the plain twins on the card; qwen3moe-lite (128
              experts, top-8, 4 layers): one S = 8 decode step (grouped,
@@ -95,7 +110,7 @@ Phases, each printing one JSON line:
              every route of the MoE FFN once under
              torch.cuda.set_sync_debug_mode("error")
   serve_moe_full_width  mixtral-lite behind the HTTP server, with the
-             traffic of serve_full_width
+             traffic of serve_full_width (and its eager twin)
   w8_full_width  llama-8b in the W8 format: the full_width paths; every
              projection and the lm_head go through the W8 kernel and the
              fused head never launches; every W8 product of the 512-token
@@ -108,8 +123,9 @@ Phases, each printing one JSON line:
              (core/quant.py's requantize_w8 on the card), held end to
              end as full_width is: the prefill and the decode step
              against the twins within LOGIT_REL
-Then a summary line (decode tok/s of full_width, generated tok/s of
-serve_full_width, spec_full_width's tok/s), the kernels line (launch
+Then a summary line (decode tok/s of full_width, w8_full_width and
+mixtral-lite, generated tok/s of the serve phases, spec_full_width's
+tok/s, each replayed and its eager twin's), the kernels line (launch
 counts from each kernel's own path: the
 llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
@@ -944,6 +960,41 @@ class Counted:
         return out, seconds
 
 
+def eager_steps():
+    """Every step graph (powerserve_tpu_torch/engine/graphs.py) runs its
+    body eagerly: the replayed paths' twin, a Python loop of eager
+    forwards."""
+    from unittest import mock
+
+    from powerserve_tpu_torch.engine.graphs import StepGraph
+
+    return mock.patch.object(StepGraph, "__call__", StepGraph.eager)
+
+
+def graph_stats(captures0: dict, *owners) -> dict:
+    """The graphs captured since `captures0` (a copy of graphs.CAPTURES),
+    the seconds their captures took, and the bytes the memory pools of
+    `owners` (StepGraphs) hold on the card."""
+    from powerserve_tpu_torch.engine.graphs import CAPTURES, pool_bytes
+
+    return {"graphs": CAPTURES["graphs"] - captures0["graphs"],
+            "capture_s": CAPTURES["seconds"] - captures0["seconds"],
+            "pool_mb": sum(pool_bytes(o) for o in owners) / 1e6}
+
+
+def same_cache_bits(label: str, a, b) -> None:
+    for name in ("k", "v", "k_scale", "v_scale", "mask", "pos"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{label}: the replayed path's cache {name} "
+                                 f"differs from the eager twin's")
+
+
+def same_launches(label: str, launches: dict, path: str, twin: str) -> None:
+    if launches[path] != launches[twin]:
+        raise AssertionError(f"{label}: {path} launched {launches[path]}, "
+                             f"its eager twin {launches[twin]}")
+
+
 def plain_routes() -> dict:
     """The forward's kernel calls (models/llama.py) sent to their plain
     twins, for mock.patch.multiple."""
@@ -1103,13 +1154,17 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
-    from powerserve_tpu_torch.engine.loops import decode_scan, prefill_step
+    from powerserve_tpu_torch.engine.graphs import CAPTURES, graphs_of
+    from powerserve_tpu_torch.engine.loops import (decode_scan,
+                                                   decode_scan_eager,
+                                                   prefill_step)
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.ops.flash_prefill import (
         flash_prefill_quant_reference)
 
     torch.cuda.reset_peak_memory_stats(dev)
+    captures0 = dict(CAPTURES)
     llm = cfg.llm
     n_prompt, n_decode, max_seq = 512, 64, 2048
     g = torch.Generator(device="cpu")
@@ -1187,32 +1242,95 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
                        if hold_end_to_end else logit_gap(got, ref))
     del logits_twin, pairs
 
-    toks, decode_s = counted("decode_scan", all3,
-                             lambda: decode_scan(model, first, kv, n_decode),
-                             absent)
-    scan_ids = toks[0].tolist()
+    # decode_scan replays one step graph per token (its first call: one
+    # step eager, then the capture); its eager twin runs on a copy of the
+    # cache. Twice each: the second replayed call, all replays, is held
+    # under set_sync_debug_mode("error") (the capture, which
+    # synchronizes, happened in the first)
+    twin_kv = kv.clone()
+    scan, twin, secs = [], [], {}
+    for i, (label, fn, c, out) in enumerate((
+            ("decode_scan", decode_scan, kv, scan),
+            ("decode_scan_eager", decode_scan_eager, twin_kv, twin),
+            ("decode_scan replayed", decode_scan, kv, scan),
+            ("decode_scan_eager again", decode_scan_eager, twin_kv,
+             twin))):
+        tok = first if not out else out[-1][:, -1]
+        call = lambda: fn(model, tok, c, n_decode)  # noqa: E731
+        if i == 2:
+            call = lambda: without_sync(  # noqa: E731
+                f"{phase} replayed decode_scan", lambda: fn(model, tok, c,
+                                                            n_decode))
+        toks, secs[label] = counted(label, all3, call, absent)
+        out.append(toks)
+    scan_ids, twin_ids = (torch.cat(t, dim=1)[0].tolist()
+                          for t in (scan, twin))
+    if scan_ids != twin_ids:
+        raise AssertionError(f"{phase}: replayed decode_scan {scan_ids} != "
+                             f"its eager twin's {twin_ids}")
+    same_cache_bits(f"{phase} decode_scan", kv, twin_kv)
+    same_launches(phase, counted.launches, "decode_scan",
+                  "decode_scan_eager")
     if not all(0 <= t < llm.vocab_size for t in scan_ids):
         raise AssertionError(f"decode_scan tokens out of range: {scan_ids}")
-    del kv
+    scan_graphs = graph_stats(captures0, graphs_of(kv))
+    scan_ids = scan_ids[:n_decode]
+    del kv, twin_kv
 
     hp = HyperParams(max_slots=1, max_seq_len=max_seq, batch_size=n_prompt)
     hp.sampler.temperature = 0.0
-    engine = InferenceEngine(model, cfg, hp, device=dev)
-    stats = GenerationStats()
-    gen_ids, _ = counted("generate", all3 + ("flash_prefill",),
-                         lambda: list(engine.generate(
-                             prompt.tolist() + [int(first)], n_decode,
-                             stats=stats)), absent)
+    # generate, replayed and with every step eager (the twin); each twice
+    # on one engine, the second call steady (its steps all replays)
+    gen = {}
+    captures0 = dict(CAPTURES)
+    for label in ("generate", "generate_eager"):
+        engine = InferenceEngine(model, cfg, hp, device=dev)
+        gen[label] = []
+        with (eager_steps() if label == "generate_eager"
+              else contextlib.nullcontext()):
+            for again in (False, True):
+                engine.reset()
+                stats = GenerationStats()
+                ids, _ = counted(label + " again" * again,
+                                 all3 + ("flash_prefill",),
+                                 lambda: list(engine.generate(
+                                     prompt.tolist() + [int(first)],
+                                     n_decode, stats=stats)), absent)
+                gen[label].append((ids, stats))
+        if label == "generate":
+            engine_graphs = graph_stats(captures0, engine.graphs)
+        del engine
+    gen_ids, stats = gen["generate"][0]
+    if {tuple(ids) for runs in gen.values() for ids, _ in runs} != \
+            {tuple(gen_ids)}:
+        raise AssertionError(f"{phase}: replayed generate {gen_ids} != its "
+                             f"eager twin's or its second call's: {gen}")
+    same_launches(phase, counted.launches, "generate", "generate_eager")
     if scan_ids != gen_ids:
         raise AssertionError(f"decode_scan (argmax head) {scan_ids} != "
                              f"generate (logits head) {gen_ids}")
     return ({"phase": phase, "layers": llm.n_layers, "vocab": llm.vocab_size,
              "prefill_tokens": n_prompt,
              "prefill_tok_s": n_prompt / prefill_s, **checks,
-             "decode_tokens": n_decode, "decode_tok_s": n_decode / decode_s,
+             "decode_tokens": n_decode,
+             "decode_tok_s": n_decode / secs["decode_scan"],
+             "decode_replayed_tok_s": n_decode / secs["decode_scan replayed"],
+             "decode_eager_tok_s": n_decode / secs["decode_scan_eager"],
+             "decode_eager_again_tok_s":
+                 n_decode / secs["decode_scan_eager again"],
+             "decode_scan_graphs": scan_graphs,
+             "replayed_decode_scan_sync_free": True,
              "generate_prefill_tok_s": stats.prefill_speed,
              "generate_decode_tok_s": stats.decode_speed,
-             "tokens_equal": True, "launches": counted.launches,
+             "generate_again_decode_tok_s":
+                 gen["generate"][1][1].decode_speed,
+             "generate_eager_decode_tok_s":
+                 gen["generate_eager"][0][1].decode_speed,
+             "generate_eager_again_decode_tok_s":
+                 gen["generate_eager"][1][1].decode_speed,
+             "generate_graphs": engine_graphs,
+             "tokens_equal": True, "replay_equals_eager": True,
+             "launches": counted.launches,
              "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
              "card": card_line()}, counted.launches["generate"])
 
@@ -1250,6 +1368,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
+    from powerserve_tpu_torch.engine.graphs import CAPTURES
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.models.llama import moe_route
     from powerserve_tpu_torch.tools.bench_params import make_device_params
@@ -1304,23 +1423,49 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=g)
     hp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=n_prompt)
     hp.sampler.temperature = 0.0
-    engine = InferenceEngine(model, cfg, hp, device=dev)
-    stats = GenerationStats()
     # the grouped prefill (512 rows, block_m 128), then one token at a
-    # time (the single-token route)
-    ids, gen_s = counted("mixtral-lite generate",
-                         ("qmatmul", "qmatmul_grouped", "fused_head",
-                          "flash_prefill", "flash_decode"),
-                         lambda: list(engine.generate(prompt.tolist(), n_new,
-                                                      stats=stats)))
-    if len(ids) != n_new or not all(0 <= t < llm.vocab_size for t in ids):
-        raise AssertionError(f"mixtral-lite generate gave {ids}")
+    # time (the single-token route), replayed; then its eager twin
+    gen = {}
+    captures0 = dict(CAPTURES)
+    for path in ("mixtral-lite generate", "mixtral-lite generate_eager"):
+        engine = InferenceEngine(model, cfg, hp, device=dev)
+        gen[path] = []
+        with (eager_steps() if path.endswith("eager")
+              else contextlib.nullcontext()):
+            for again in (False, True):  # the second call steady
+                engine.reset()
+                stats = GenerationStats()
+                ids, gen_s = counted(
+                    path + " again" * again,
+                    ("qmatmul", "qmatmul_grouped", "fused_head",
+                     "flash_prefill", "flash_decode"),
+                    lambda: list(engine.generate(prompt.tolist(), n_new,
+                                                 stats=stats)))
+                if len(ids) != n_new or not all(0 <= t < llm.vocab_size
+                                                for t in ids):
+                    raise AssertionError(f"{path} gave {ids}")
+                gen[path].append((ids, stats, gen_s,
+                                  graph_stats(captures0, engine.graphs)))
+        del engine
+    ids, stats, gen_s, engine_graphs = gen["mixtral-lite generate"][0]
+    if {tuple(r[0]) for runs in gen.values() for r in runs} != {tuple(ids)}:
+        raise AssertionError(f"mixtral-lite: replayed generate {ids} != its "
+                             f"eager twin's or its second call's")
+    same_launches("mixtral-lite", counted.launches, "mixtral-lite generate",
+                  "mixtral-lite generate_eager")
     mx.update(routes_generate=[moe_route(n_prompt), moe_route(1)],
               generate_prefill_tok_s=stats.prefill_speed,
-              generate_decode_tok_s=stats.decode_speed, generate_s=gen_s,
+              generate_decode_tok_s=stats.decode_speed,
+              generate_again_decode_tok_s=gen[
+                  "mixtral-lite generate"][1][1].decode_speed,
+              generate_eager_decode_tok_s=gen[
+                  "mixtral-lite generate_eager"][0][1].decode_speed,
+              generate_eager_again_decode_tok_s=gen[
+                  "mixtral-lite generate_eager"][1][1].decode_speed,
+              generate_s=gen_s, generate_graphs=engine_graphs,
+              replay_equals_eager=True,
               tokens=ids[:16], peak_mem_gb=torch.cuda.max_memory_allocated(
                   dev) / 1e9)
-    del engine
     # S = 8 decode: 16 assignments over 8 experts, grouped at block_m 16
     kv, nxt = decode_batch(model, llm, 8, 64)
     mx["decode_step_route"] = moe_route(8)
@@ -1705,11 +1850,15 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
     enough for all eight at once), 8 concurrent greedy requests with
     prompts of 128-1024 tokens and 64 new tokens each, to the model name
     `model_name` ("model", or a speculative "model+self:N"); every kernel
-    in `need` must launch."""
+    in `need` must launch. A plain model serves the traffic twice: with
+    its decode ticks replayed, then with every step eager (the twin),
+    whose requests must get the same tokens (near-tie rule). A
+    speculative name's ticks run no graph, so it serves once."""
     import random
 
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.graphs import CAPTURES
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.serving.server import ServerContext
     from powerserve_tpu_torch.tokenizer import Tokenizer
@@ -1730,65 +1879,83 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                      for _ in range(n - 4)) for n in lengths]
     hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
                      paged_pages=128, page_size=64)
-    torch.cuda.reset_peak_memory_stats(dev)
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = ServerContext(tmp, "model", hp, dev)
-        ctx.register("model", model, cfg, tok)
-        server = serving(ctx)
-        port = server.server_address[1]
-        try:
-            pool = ctx.get(model_name).scheduler.pool
-            calls = [lambda t=t: http_call(port, "POST", "/v1/completions", {
-                "model": model_name, "prompt": t, "max_tokens": n_new,
-                "temperature": 0}) for t in texts]
-            peak_used = [0]
-            done = threading.Event()
 
-            def watch():
-                while not done.is_set():
-                    peak_used[0] = max(peak_used[0],
-                                       pool.n_pages - pool.n_free)
-                    time.sleep(0.02)
+    def serve_once(label: str) -> dict:
+        torch.cuda.reset_peak_memory_stats(dev)
+        captures0 = dict(CAPTURES)
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = ServerContext(tmp, "model", hp, dev)
+            ctx.register("model", model, cfg, tok)
+            server = serving(ctx)
+            port = server.server_address[1]
+            try:
+                sched = ctx.get(model_name).scheduler
+                pool = sched.pool
+                calls = [lambda t=t: http_call(
+                    port, "POST", "/v1/completions", {
+                        "model": model_name, "prompt": t,
+                        "max_tokens": n_new, "temperature": 0})
+                    for t in texts]
+                peak_used = [0]
+                done = threading.Event()
 
-            watcher = threading.Thread(target=watch, daemon=True)
-            with ServeRecorder() as rec:
-                cuda_lib.reset_launch_counts()
-                watcher.start()
-                t0 = time.perf_counter()
-                replies = concurrently(calls)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                done.set()
-                launches = cuda_lib.launch_counts()
-            watcher.join(timeout=5)
-            rec.check(phase)
-            finish = []
-            for status, data in replies:
-                if status != 200:
-                    raise AssertionError(f"{phase}: {status} {data[:200]}")
-                finish.append(json.loads(data)["choices"][0]["finish_reason"])
-            tokens = rec.tokens()
-            n_tokens = [len(ids) for ids in tokens.values()]
-            if finish != ["length"] * 8 or n_tokens != [n_new] * 8:
-                raise AssertionError(f"{phase}: finish {finish}, "
-                                     f"tokens {n_tokens}")
-            missing = [k for k in need if not launches[k]]
-            if missing:
-                raise AssertionError(f"{phase} did not launch {missing}: "
-                                     f"{launches}")
-            metrics = metrics_of(port)
-            spec = {key: metrics[key] for key in (
-                "spec_accept_rate", "spec_tokens_per_step") if key in metrics}
-            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        finally:
-            server.shutdown()
-            server.server_close()
-            ctx.close()
-    # the shortest and the longest request against a lone generate
+                def watch():
+                    while not done.is_set():
+                        peak_used[0] = max(peak_used[0],
+                                           pool.n_pages - pool.n_free)
+                        time.sleep(0.02)
+
+                watcher = threading.Thread(target=watch, daemon=True)
+                with ServeRecorder() as rec:
+                    cuda_lib.reset_launch_counts()
+                    watcher.start()
+                    t0 = time.perf_counter()
+                    replies = concurrently(calls)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    done.set()
+                    launches = cuda_lib.launch_counts()
+                watcher.join(timeout=5)
+                rec.check(label)
+                finish = []
+                for status, data in replies:
+                    if status != 200:
+                        raise AssertionError(f"{label}: {status} "
+                                             f"{data[:200]}")
+                    finish.append(
+                        json.loads(data)["choices"][0]["finish_reason"])
+                tokens = rec.tokens()
+                n_tokens = [len(ids) for ids in tokens.values()]
+                if finish != ["length"] * 8 or n_tokens != [n_new] * 8:
+                    raise AssertionError(f"{label}: finish {finish}, "
+                                         f"tokens {n_tokens}")
+                missing = [k for k in need if not launches[k]]
+                if missing:
+                    raise AssertionError(f"{label} did not launch "
+                                         f"{missing}: {launches}")
+                metrics = metrics_of(port)
+                graphs = graph_stats(captures0, sched.graphs)
+                del sched
+            finally:
+                server.shutdown()
+                server.server_close()
+                ctx.close()
+        return dict(tokens=tokens, wall=wall, launches=launches,
+                    metrics=metrics, peak_used=peak_used[0], graphs=graphs,
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+    run = serve_once(phase)
+    twin = None
+    if "+" not in model_name:
+        with eager_steps():
+            twin = serve_once(f"{phase} eager twin")
+    # the shortest and the longest request against a lone generate, and
+    # every request of the twin against the replayed run
     ehp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=128)
     ehp.sampler.temperature = 0.0
     engine = InferenceEngine(model, cfg, ehp, eos_id=2, device=dev)
-    gaps = []
+    gaps, twin_gaps = [], []
+    tokens = run["tokens"]
     by_len = sorted(tokens.items(), key=lambda kv_: len(kv_[0]))
     for prompt, ids in (by_len[0], by_len[-1]):
         engine.reset()
@@ -1796,20 +1963,39 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                                     stop_fn=tok.should_stop))
         gaps.append(agree(f"{phase} vs generate", ids, want, engine,
                           list(prompt)))
+    if twin is not None:
+        for prompt, ids in tokens.items():
+            twin_gaps.append(agree(f"{phase} vs its eager twin", ids,
+                                   twin["tokens"][prompt], engine,
+                                   list(prompt)))
     del engine
-    return ({"phase": phase, "slots": 8, "pool_pages": 128, "page": 64,
-             "prompt_tokens": sorted(len(p) for p in tokens),
-             "new_tokens": n_new, "wall_s": wall,
-             "generated_tok_s": 8 * n_new / wall,
-             "ttft_p50_s": metrics["ttft_seconds_p50"],
-             "ttft_p90_s": metrics["ttft_seconds_p90"],
-             "latency_p50_s": metrics["request_latency_seconds_p50"],
-             "pages_used_peak": peak_used[0],
-             "preemptions": metrics["paged_preemptions_total"],
-             "vs_generate_near_ties": [g for g in gaps if g is not None],
-             "model": model_name, **spec,
-             "launches": launches, "peak_mem_gb": peak_gb,
-             "card": card_line()}, launches)
+    metrics = run["metrics"]
+    spec = {key: metrics[key] for key in (
+        "spec_accept_rate", "spec_tokens_per_step") if key in metrics}
+    out = {"phase": phase, "slots": 8, "pool_pages": 128, "page": 64,
+           "prompt_tokens": sorted(len(p) for p in tokens),
+           "new_tokens": n_new, "wall_s": run["wall"],
+           "generated_tok_s": 8 * n_new / run["wall"],
+           "ttft_p50_s": metrics["ttft_seconds_p50"],
+           "ttft_p90_s": metrics["ttft_seconds_p90"],
+           "latency_p50_s": metrics["request_latency_seconds_p50"],
+           "pages_used_peak": run["peak_used"],
+           "preemptions": metrics["paged_preemptions_total"],
+           "vs_generate_near_ties": [g for g in gaps if g is not None],
+           "model": model_name, **spec, "graphs": run["graphs"],
+           "launches": run["launches"], "peak_mem_gb": run["peak_gb"],
+           "card": card_line()}
+    if twin is not None:
+        tm = twin["metrics"]
+        out["eager_twin"] = {
+            "wall_s": twin["wall"],
+            "generated_tok_s": 8 * n_new / twin["wall"],
+            "ttft_p50_s": tm["ttft_seconds_p50"],
+            "ttft_p90_s": tm["ttft_seconds_p90"],
+            "latency_p50_s": tm["request_latency_seconds_p50"],
+            "vs_replayed_near_ties": [g for g in twin_gaps
+                                      if g is not None]}
+    return out, run["launches"]
 
 
 class Clock:
@@ -1900,8 +2086,10 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
 
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.graphs import CAPTURES, graphs_of
     from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
     from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
+                                                        chain_spec_scan,
                                                         with_draft_head)
     from powerserve_tpu_torch.speculative.draft_head import make_draft_head
     from powerserve_tpu_torch.speculative.engine import SpecStats
@@ -1923,28 +2111,59 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
                  "prompt_tokens": n_prompt, "new_tokens": n_new,
                  "plain_decode_tok_s": n_new / plain_s}
 
-    def spec_run(label, need, **kw):
+    def spec_run(label, need, sync_check=False, **kw):
+        """ChainSpecEngine.generate with its chain steps replayed, then
+        its eager twin (a new engine, every step eager): the same tokens
+        and launch counts. With sync_check, one more replayed block
+        under set_sync_debug_mode("error")."""
         draft_head = kw.pop("draft_head", None)
-        eng = ChainSpecEngine(model, cfg, k=k, block_steps=8,
-                              max_seq=max_seq, prefill_chunk=n_prompt,
-                              device=dev, **kw)
-        if draft_head is not None:
-            eng.draft = with_draft_head(eng.draft, draft_head)
-        stats = SpecStats()
-        got, secs = counted(label, need, lambda: list(
-            eng.generate(prompt, n_new, stats=stats)))
-        if len(got) != n_new:
-            raise AssertionError(f"{label}: {len(got)} tokens")
+        runs = {}
+        for path in (label, f"{label} eager"):
+            eng = ChainSpecEngine(model, cfg, k=k, block_steps=8,
+                                  max_seq=max_seq, prefill_chunk=n_prompt,
+                                  device=dev, **kw)
+            if draft_head is not None:
+                eng.draft = with_draft_head(eng.draft, draft_head)
+            captures0 = dict(CAPTURES)
+            runs[path] = []
+            with (eager_steps() if path.endswith("eager")
+                  else contextlib.nullcontext()):
+                for again in (False, True):  # the second call steady
+                    stats = SpecStats()
+                    got, secs = counted(path + " again" * again, need,
+                                        lambda: list(eng.generate(
+                                            prompt, n_new, stats=stats)))
+                    if len(got) != n_new:
+                        raise AssertionError(f"{path}: {len(got)} tokens")
+                    runs[path].append((got, stats, secs))
+            graphs = graph_stats(captures0, graphs_of(eng.t_kv))
+            if sync_check and path == label:
+                without_sync(f"spec_full_width {label} replayed chain step",
+                             lambda: chain_spec_scan(
+                                 eng.target, eng.draft, eng.t_kv, eng.d_kv,
+                                 eng._root, 8, k))
+            del eng
+        got, stats, secs = runs[label][0]
+        if {tuple(r[0]) for rs in runs.values() for r in rs} != {tuple(got)}:
+            raise AssertionError(f"{label}: replayed chain steps {got} != "
+                                 f"the eager twin's or the second call's")
+        same_launches(label, counted.launches, label, f"{label} eager")
+        tok_s = lambda r: n_new / (r[1].decode_ms / 1e3)  # noqa: E731
         out[label] = dict(
             accept_rate=stats.accept_rate,
             tokens_per_step=stats.tokens_per_step, steps=stats.steps,
-            decode_tok_s=n_new / (stats.decode_ms / 1e3),
-            wall_s=secs, vs_generate_near_tie=agree(
+            decode_tok_s=tok_s(runs[label][0]),
+            decode_again_tok_s=tok_s(runs[label][1]),
+            eager_decode_tok_s=tok_s(runs[f"{label} eager"][0]),
+            eager_decode_again_tok_s=tok_s(runs[f"{label} eager"][1]),
+            wall_s=secs, graphs=graphs, replay_equals_eager=True,
+            replayed_chain_step_sync_free=sync_check,
+            vs_generate_near_tie=agree(
                 f"spec_full_width {label}", got, want, engine, prompt))
-        del eng
 
     # (a) the fused chain of a shallow self-draft, (b) a separate draft
-    spec_run("self_draft_4", SPEC_NEED, self_draft_layers=4)
+    spec_run("self_draft_4", SPEC_NEED, sync_check=True,
+             self_draft_layers=4)
     _, d_model = make_device_params("llama-1b", "q4_k", seed=1,
                                     device=dev)
     spec_run("draft_llama_1b", ("qmatmul", "fused_head", "flash_decode"),
@@ -2125,13 +2344,36 @@ def main() -> int:
            "flash_decode_paged_state": spec_counts["serve"]}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
+    # each decode number replayed, and its eager twin's from this run
     emit({"phase": "summary", "card": card,
           "full_width_decode_tok_s": full["decode_tok_s"],
+          "full_width_decode_replayed_tok_s": full["decode_replayed_tok_s"],
+          "full_width_decode_eager_tok_s": full["decode_eager_tok_s"],
           "full_width_generate_decode_tok_s": full["generate_decode_tok_s"],
+          "full_width_generate_again_decode_tok_s":
+              full["generate_again_decode_tok_s"],
+          "full_width_generate_eager_decode_tok_s":
+              full["generate_eager_decode_tok_s"],
+          "w8_full_width_decode_tok_s": w8["decode_tok_s"],
+          "w8_full_width_decode_eager_tok_s": w8["decode_eager_tok_s"],
+          "mixtral_lite_generate_decode_tok_s":
+              moe["mixtral-lite"]["generate_decode_tok_s"],
+          "mixtral_lite_generate_eager_decode_tok_s":
+              moe["mixtral-lite"]["generate_eager_decode_tok_s"],
           "serve_full_width_generated_tok_s": serve["generated_tok_s"],
+          "serve_full_width_eager_generated_tok_s":
+              serve["eager_twin"]["generated_tok_s"],
+          "serve_moe_full_width_generated_tok_s":
+              serve_moe["generated_tok_s"],
+          "serve_moe_full_width_eager_generated_tok_s":
+              serve_moe["eager_twin"]["generated_tok_s"],
           "spec_full_width_plain_decode_tok_s": spec["plain_decode_tok_s"],
           "spec_full_width_self_draft_4_tok_s":
               spec["self_draft_4"]["decode_tok_s"],
+          "spec_full_width_self_draft_4_again_tok_s":
+              spec["self_draft_4"]["decode_again_tok_s"],
+          "spec_full_width_self_draft_4_eager_tok_s":
+              spec["self_draft_4"]["eager_decode_tok_s"],
           "spec_full_width_serve_generated_tok_s":
               spec["serve"]["generated_tok_s"]})
     print(card, flush=True)

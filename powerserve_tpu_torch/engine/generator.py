@@ -4,12 +4,19 @@ Prefill feeds the prompt in hyper-param-sized chunks; decode runs
 `decode_horizon` steps per block with the logits head and the sampler
 chain, then rolls back the steps after a stop — the JAX engine's
 protocol, so the emitted tokens, the KV cache and the penalty window end
-in the same state. Steps are a Python loop; the cache is updated in
-place.
+in the same state. The cache is updated in place.
+
+A decode step replays a CUDA graph (engine/graphs.py) over the engine's
+static buffers (the token, `active`, the block's outputs and a step
+counter). A greedy step is one graph: forward, sampler chain, argmax and
+the penalty push. A sampled step replays the forward and the
+distribution; the draw from the engine's generator and the push run
+eagerly after it. Prefill, and the rollback after a stop, stay eager.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Iterator
 
@@ -20,7 +27,8 @@ from ..core.device import resolve_device
 from ..core.logging import Timer, get_logger
 from ..kv.cache import KVCache
 from ..models.llama import LlamaModel
-from ..sampling.sampler import PenaltyState, sample_logits
+from ..sampling.sampler import PenaltyState, sample_dist
+from .graphs import StepGraphs
 
 log = get_logger("engine")
 
@@ -71,10 +79,19 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.hp.sampler.seed)
         self.horizon = max(int(self.hp.decode_horizon), 1)
+        # the decode steps' static buffers and graphs
+        dev, S = self.device, self.n_slots
+        self.bufs = dict(tok=torch.zeros(S, dtype=torch.int64, device=dev),
+                         active=torch.zeros(S, dtype=torch.bool, device=dev),
+                         out=torch.zeros(S, self.horizon, dtype=torch.int64,
+                                         device=dev),
+                         step=torch.zeros(1, dtype=torch.int64, device=dev))
+        self.graphs = StepGraphs(dev)
 
     def _active(self, slot: int) -> torch.Tensor:
-        active = torch.zeros(self.n_slots, dtype=torch.bool,
-                             device=self.device)
+        """The static `active` buffer, set to slot alone."""
+        active = self.bufs["active"]
+        active.zero_()
         active[slot] = True
         return active
 
@@ -114,27 +131,35 @@ class InferenceEngine:
         self.penalty.seed_slot(slot, list(prompt_tokens))
         return None if logits is None else logits[slot]
 
+    def _step_graph(self):
+        """The decode step for the sampler settings as they are now: the
+        whole greedy step, or a sampled step's forward and distribution
+        (f32 [S, V] out)."""
+        # (the body draws nothing: the seed is not part of it)
+        scfg = dataclasses.replace(self.hp.sampler, seed=0)
+        key = ("decode", dataclasses.astuple(scfg))
+        return self.graphs.step(key, lambda: (_decode_step(
+            self.model, self.kv, self.penalty, self.bufs, scfg,
+            self.cfg.llm.vocab_size, self.eos_id, self.nl_id), self.bufs))
+
     @torch.no_grad()
     def _decode_block(self, cur: int, slot: int) -> list[int]:
         """`horizon` greedy-or-sampled steps from token `cur`."""
-        llm = self.cfg.llm
-        scfg = self.hp.sampler
+        b = self.bufs
         active = self._active(slot)
-        tok = torch.full((self.n_slots,), cur, dtype=torch.int64,
-                         device=self.device)
-        out = []
-        for _ in range(self.horizon):
-            pos = torch.where(active, self.kv.pos.to(torch.int64), -1)
-            logits = self.model(self.kv, tok[:, None], pos[:, None],
-                                active=active, logits_mode="last")
-            tok = sample_logits(
-                logits, scfg, self.penalty, vocab_size=llm.vocab_size,
-                eos_id=self.eos_id if self.eos_id >= 0 else None,
-                nl_id=self.nl_id if self.nl_id >= 0 else None,
-                generator=self.generator)
-            self.penalty.push(tok, active)
-            out.append(tok)
-        return torch.stack(out, dim=1)[slot].tolist()
+        b["tok"].fill_(cur)
+        b["step"].zero_()
+        g = self._step_graph()
+        greedy = self.hp.sampler.temperature <= 0.0
+        for h in range(self.horizon):
+            dist = g()
+            if not greedy:
+                tok = torch.multinomial(dist, 1, generator=self.generator)
+                tok = tok[:, 0]
+                self.penalty.push(tok, active)
+                b["tok"].copy_(tok)
+                b["out"][:, h] = tok
+        return b["out"][slot].tolist()
 
     def generate(self, prompt_tokens: list[int], n_predict: int,
                  stop_fn: Callable[[int], bool] | None = None,
@@ -171,3 +196,33 @@ class InferenceEngine:
                 self.penalty.seed_slot(slot, list(prompt_tokens) + emitted)
                 return
             cur = block[-1]
+
+
+def _decode_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
+                 bufs: dict, scfg, vocab: int, eos_id: int,
+                 nl_id: int) -> Callable[[], torch.Tensor | None]:
+    """The body of one decode step over the engine's buffers. Greedy
+    (scfg.temperature <= 0): the argmax, pushed to the penalty window,
+    feeds the next step and goes to column `step` of out. Sampled: the
+    distribution [S, V] the caller draws from."""
+    tok, active, out, step = (bufs[k] for k in ("tok", "active", "out",
+                                                "step"))
+    greedy = scfg.temperature <= 0.0
+
+    def body():
+        pos = torch.where(active, kv.pos.to(torch.int64), -1)
+        logits = model(kv, tok[:, None], pos[:, None], active=active,
+                       logits_mode="last")
+        dist = sample_dist(logits, scfg, penalty, vocab_size=vocab,
+                           eos_id=eos_id if eos_id >= 0 else None,
+                           nl_id=nl_id if nl_id >= 0 else None)
+        if not greedy:
+            return dist
+        nxt = torch.argmax(dist, dim=-1)
+        penalty.push(nxt, active)
+        tok.copy_(nxt)
+        out.index_copy_(1, step, nxt[:, None])
+        step.add_(1)
+        return None
+
+    return body

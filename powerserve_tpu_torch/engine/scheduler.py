@@ -19,6 +19,16 @@ fills both caches, prefix-cache entries carry both prefixes, and a
 preempted request rebuilds both. Speculative ticks apply no penalties
 and record no logprobs (the server refuses such requests).
 
+A plain decode tick replays one CUDA graph per step (engine/graphs.py)
+over the scheduler's static [S] buffers (tokens, `active`, each slot's
+sampler settings and penalties) and writes each step's tokens and
+logprobs into static [S, horizon] outputs through a step counter. In an
+all-greedy tick the graph holds the whole step: forward, sampler chain,
+argmax, penalty push and logprobs; where any slot samples, it holds the
+forward, the distributions and the logprobs' parts, and each slot's draw
+from its own generator and the push run eagerly after each replay. The
+prefill tick and the spec tick stay eager.
+
 Speculation trees, EAGLE, multimodal prefill, meshes and double-buffered
 ticks are not ported: like the plain tick, the spec tick syncs once.
 Only the scheduler thread touches the device; submit() is thread-safe.
@@ -43,8 +53,10 @@ from ..core.logging import get_logger
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
-from ..sampling.sampler import PenaltyState, sample_logits_batched
+from ..sampling.sampler import (PenaltyState, categorical_from_dist,
+                                sample_dist_batched)
 from ..speculative.chain import chain_spec_sample_scan
+from .graphs import StepGraphs
 
 log = get_logger("scheduler")
 
@@ -183,6 +195,19 @@ class BatchScheduler:
         # one generator per slot, re-seeded at each admission
         self.generators = [torch.Generator(device=self.device)
                            for _ in range(self.S)]
+        # the decode steps' static buffers: the slots' settings (filled
+        # by _slot_settings) and the tick's outputs, and their graphs
+        S, H, dev = self.S, self.horizon, self.device
+        z = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+            shape, dtype=dtype, device=dev)
+        self.bufs = dict(
+            tok=z(S, dtype=torch.int64), active=z(S, dtype=torch.bool),
+            temp=z(S), top_k=z(S, dtype=torch.int64), top_p=z(S), pen=z(S),
+            pfreq=z(S), ppres=z(S), step=z(1, dtype=torch.int64),
+            out_tok=z(S, H, dtype=torch.int64), out_lp=z(S, H),
+            out_ti=z(S, H, N_TOP, dtype=torch.int64),
+            out_tlp=z(S, H, N_TOP))
+        self.graphs = StepGraphs(dev)
         self.slots = [_Slot() for _ in range(self.S)]
         self.prefix_cache = None
         if self.hp.prefix_cache > 0:
@@ -431,35 +456,28 @@ class BatchScheduler:
             decoding = self._ensure_decode_pages(decoding, self.horizon)
             if not decoding:
                 return True  # preemptions / finishes were work
-        (tok, active, temp, top_k, top_p, pen, pfreq, ppres), gens = \
-            self._slot_settings(decoding)
+        gens = self._slot_settings(decoding)
+        b = self.bufs
+        greedy = all(g is None for g in gens)
         vocab = self.cfg.llm.vocab_size
-        out_tok, out_lp, out_ti, out_tlp = [], [], [], []
-        for _ in range(self.horizon):
-            positions = torch.where(active, self.kv.pos.long(), -1)[:, None]
-            logits = self.model(self.kv, tok[:, None], positions,
-                                active=active, logits_mode="last")
-            tok = sample_logits_batched(
-                logits, temp, top_k, top_p, gens, state=self.penalty,
-                penalty_repeat=pen, penalty_freq=pfreq,
-                penalty_present=ppres, vocab_size=vocab)
-            self.penalty.push(tok, active)
-            # logprobs of the RAW model logits (before penalties and
-            # temperature): the OpenAI fields report the model's
-            # distribution, not the sampling distribution
-            lf = logits.float()[:, :vocab]
-            lse = torch.logsumexp(lf, dim=-1)
-            out_tok.append(tok)
-            out_lp.append(lf.gather(1, tok[:, None])[:, 0] - lse)
-            tv, ti = torch.topk(lf, N_TOP, dim=-1)
-            out_ti.append(ti)
-            out_tlp.append(tv - lse[:, None])
+        g = self.graphs.step(("tick", greedy), lambda: (_tick_step(
+            self.model, self.kv, self.penalty, b, vocab, greedy), b))
+        b["step"].zero_()
+        for h in range(self.horizon):
+            out = g()
+            if not greedy:
+                probs, lf, lse = out
+                tok = categorical_from_dist(probs, gens)
+                self.penalty.push(tok, b["active"])
+                b["tok"].copy_(tok)
+                b["out_tok"][:, h] = tok
+                b["out_lp"][:, h] = lf.gather(1, tok[:, None])[:, 0] - lse
         # one host fetch per tick: tokens, logprobs, top ids and
         # logprobs, and the positions after the tick (as the JAX
         # scheduler's capacity check reads them), in one f64 vector (exact
         # for each of them)
-        parts = (torch.stack(out_tok, 1), torch.stack(out_lp, 1),
-                 torch.stack(out_ti, 1), torch.stack(out_tlp, 1), self.kv.pos)
+        parts = (b["out_tok"], b["out_lp"], b["out_ti"], b["out_tlp"],
+                 self.kv.pos)
         flat = torch.cat([t.double().flatten() for t in parts]).cpu().numpy()
         toks, lps, top_i, top_lp, pos_host = np.split(
             flat, np.cumsum([t.numel() for t in parts[:-1]]))
@@ -484,10 +502,10 @@ class BatchScheduler:
                     break
         return True
 
-    def _slot_settings(self, decoding: list[int]) -> tuple[tuple, list]:
-        """The decoding slots' inputs on the device — (tokens, active,
-        temperature, top_k, top_p, repeat / frequency / presence
-        penalties), [S] each — and each slot's generator (None for a
+    def _slot_settings(self, decoding: list[int]) -> list:
+        """Fill the static [S] buffers with the decoding slots' inputs —
+        tokens, active, temperature, top_k, top_p, repeat / frequency /
+        presence penalties — and return each slot's generator (None for a
         greedy slot, which draws nothing)."""
         S = self.S
         tokens = torch.zeros(S, dtype=torch.int64)
@@ -506,8 +524,12 @@ class BatchScheduler:
             ppres[i] = r.penalty_present
             if r.temperature > 0:
                 gens[i] = self.generators[i]
-        return tuple(t.to(self.device) for t in (
-            tokens, active, temp, top_k, top_p, pen, pfreq, ppres)), gens
+        for name, t in zip(("tok", "active", "temp", "top_k", "top_p", "pen",
+                            "pfreq", "ppres"),
+                           (tokens, active, temp, top_k, top_p, pen, pfreq,
+                            ppres)):
+            self.bufs[name].copy_(t)
+        return gens
 
     def _deliver(self, i: int, t: int, out_of_room: bool) -> bool:
         """Emit token t of slot i's request. When it finishes the request
@@ -544,11 +566,11 @@ class BatchScheduler:
             if not decoding:
                 return True
         S = self.S
-        (tok, active, temp, top_k, top_p, *_), gens = \
-            self._slot_settings(decoding)
+        gens = self._slot_settings(decoding)
+        b = self.bufs
         emitted, counts, next_tok = chain_spec_sample_scan(
-            self.model, self.draft, self.kv, self.d_kv, tok, H, k, active,
-            gens, temp, top_k, top_p)
+            self.model, self.draft, self.kv, self.d_kv, b["tok"], H, k,
+            b["active"], gens, b["temp"], b["top_k"], b["top_p"])
         # one host fetch per tick
         flat = torch.cat([emitted.flatten(), counts.flatten(), next_tok,
                           self.kv.pos.long()]).cpu()
@@ -655,3 +677,50 @@ class BatchScheduler:
             if not busy:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
+
+
+def _tick_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
+               bufs: dict, vocab: int, greedy: bool):
+    """The body of one decode step of a tick over the scheduler's
+    buffers: the forward, every slot's sampling distribution after its
+    penalties, and the raw logits' logsumexp and top N_TOP, written to
+    column `step` of the outputs. Greedy (no slot draws): also the
+    argmax, its logprob and the penalty push, and the argmax feeds the
+    next step. Otherwise it returns (distributions, raw logits f32 [S,
+    vocab], logsumexp [S]) for the eager draws."""
+    b = bufs
+    step = b["step"]
+
+    def record(name, t):
+        b[name].index_copy_(1, step, t[:, None])
+
+    def body():
+        active = b["active"]
+        positions = torch.where(active, kv.pos.long(), -1)[:, None]
+        logits = model(kv, b["tok"][:, None], positions, active=active,
+                       logits_mode="last")
+        probs = sample_dist_batched(
+            logits, b["temp"], b["top_k"], b["top_p"], state=penalty,
+            penalty_repeat=b["pen"], penalty_freq=b["pfreq"],
+            penalty_present=b["ppres"], vocab_size=vocab)
+        # logprobs of the RAW model logits (before penalties and
+        # temperature): the OpenAI fields report the model's
+        # distribution, not the sampling distribution
+        lf = logits.float()[:, :vocab]
+        lse = torch.logsumexp(lf, dim=-1)
+        tv, ti = torch.topk(lf, N_TOP, dim=-1)
+        record("out_ti", ti)
+        record("out_tlp", tv - lse[:, None])
+        out = None
+        if greedy:
+            tok = torch.argmax(probs, dim=-1)
+            penalty.push(tok, active)
+            b["tok"].copy_(tok)
+            record("out_tok", tok)
+            record("out_lp", lf.gather(1, tok[:, None])[:, 0] - lse)
+        else:
+            out = (probs, lf, lse)
+        step.add_(1)
+        return out
+
+    return body

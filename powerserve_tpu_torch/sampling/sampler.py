@@ -127,12 +127,13 @@ def apply_top_p(probs: torch.Tensor, p: float,
     return torch.where(probs >= thr, probs, 0.0)
 
 
-def sample_logits(logits: torch.Tensor, cfg: SamplerConfig,
-                  state: PenaltyState | None = None,
-                  vocab_size: int | None = None, eos_id: int | None = None,
-                  nl_id: int | None = None,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """Full chain -> sampled token ids [S] (int64)."""
+def sample_dist(logits: torch.Tensor, cfg: SamplerConfig,
+                state: PenaltyState | None = None,
+                vocab_size: int | None = None, eos_id: int | None = None,
+                nl_id: int | None = None) -> torch.Tensor:
+    """The chain up to the draw: the post-penalty logits (f32 [S, V]) at
+    temperature <= 0, whose argmax is the token; else the normalized
+    distribution after top-k, temperature and top-p."""
     lf = logits.float()
     if vocab_size is not None and vocab_size < lf.shape[-1]:
         lf = lf.clone()
@@ -140,13 +141,24 @@ def sample_logits(logits: torch.Tensor, cfg: SamplerConfig,
     if state is not None:
         lf = apply_repeat_penalty(lf, state, cfg, eos_id=eos_id, nl_id=nl_id)
     if cfg.temperature <= 0.0:
-        return torch.argmax(lf, dim=-1)
+        return lf
     lf = apply_top_k(lf, cfg.top_k)
     lf = lf / cfg.temperature
     probs = torch.softmax(lf, dim=-1)
     probs = apply_top_p(probs, cfg.top_p, cfg.min_keep)
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return probs / probs.sum(dim=-1, keepdim=True)
+
+
+def sample_logits(logits: torch.Tensor, cfg: SamplerConfig,
+                  state: PenaltyState | None = None,
+                  vocab_size: int | None = None, eos_id: int | None = None,
+                  nl_id: int | None = None,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Full chain -> sampled token ids [S] (int64)."""
+    dist = sample_dist(logits, cfg, state, vocab_size, eos_id, nl_id)
+    if cfg.temperature <= 0.0:
+        return torch.argmax(dist, dim=-1)
+    return torch.multinomial(dist, 1, generator=generator)[:, 0]
 
 
 def sample_dist_batched(logits: torch.Tensor, temperature: torch.Tensor,

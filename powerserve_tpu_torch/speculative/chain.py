@@ -18,9 +18,13 @@ Per speculative step, with draft length k:
 
 Chain drafting keeps every K/V position sequential, so accepted entries
 are already where they belong and the losers roll back with one masked
-rollback. The JAX package runs the steps inside one lax.scan; here they
-are a Python loop, with acceptance, counts and rollback kept on the
-device and read to the host once per block.
+rollback. The JAX package runs the steps inside one lax.scan. Here a
+greedy step (its k + 1 draft forwards, the verify, the accept count and
+both rollbacks) is one CUDA graph, replayed once per step
+(engine/graphs.py); speculative sampling draws from per-slot generators
+between the draft forwards and stays a Python loop of eager steps. Both
+keep acceptance, counts and rollback on the device and read the host
+once per block.
 
 Self-drafting (LayerSkip): the draft is the target's own first n layers
 with the shared final norm and lm_head (`self_draft_model`), costing n/L
@@ -34,6 +38,7 @@ paged flash-decode.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable, Iterator
 
 import numpy as np
@@ -42,6 +47,7 @@ import torch
 from ..core.config import LLMConfig, ModelConfig
 from ..core.device import resolve_device
 from ..core.logging import Timer
+from ..engine.graphs import graphs_of, steps_capacity
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache
 from ..models.llama import LlamaModel
@@ -86,42 +92,73 @@ def _verify_update(kv: KVCache) -> str:
     return "deferred" if isinstance(kv, PagedKVCache) else "inline"
 
 
+def _chain_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
+                d_kv: KVCache, S: int, k: int, cap: int) -> tuple:
+    """The body of one greedy chain step and its buffers: root [S] feeds
+    the drafts and takes the next root; the step's tokens [S, k + 1] and
+    counts [S] go to row `step` of tokens [cap, S, k + 1] and counts
+    [cap, S]."""
+    dev = t_kv.device
+    root = torch.zeros(S, dtype=torch.int64, device=dev)
+    tokens = torch.zeros(cap, S, k + 1, dtype=torch.int64, device=dev)
+    counts = torch.zeros(cap, S, dtype=torch.int64, device=dev)
+    step = torch.zeros(1, dtype=torch.int64, device=dev)
+    lanes = torch.arange(k + 1, device=dev)
+    fuse = draft_fuse(draft.llm)
+    update = _verify_update(t_kv)
+    refs = [weakref.ref(o) for o in (target, draft, t_kv, d_kv)]
+
+    def body():
+        tgt, drf, tkv, dkv = (r() for r in refs)
+        c = tkv.pos.long()
+        fed, tok = [root], root
+        for j in range(k + 1):
+            nxt = drf(dkv, tok[:, None], dkv.pos.long()[:, None],
+                      logits_mode="argmax", fuse_layers=fuse).long()
+            if j < k:
+                fed.append(nxt)
+                tok = nxt
+        fed = torch.stack(fed, dim=1)  # [S, k+1] = [root, d0 .. d_{k-1}]
+        sampled = tgt(tkv, fed, c[:, None] + lanes[None, :],
+                      logits_mode="argmax_all", kv_update=update).long()
+        match = (sampled[:, :k] == fed[:, 1:]).long()
+        n_acc = match.cumprod(dim=1).sum(dim=1)  # [S] in [0, k]
+        drop = k - n_acc
+        dkv.rollback(drop)
+        tkv.rollback(drop)
+        root.copy_(sampled.gather(1, n_acc[:, None])[:, 0])
+        tokens.index_copy_(0, step, sampled[None])
+        counts.index_copy_(0, step, (n_acc + 1)[None])
+        step.add_(1)
+
+    return body, dict(root=root, tokens=tokens, counts=counts, step=step)
+
+
 @torch.no_grad()
 def chain_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
                     d_kv: KVCache, root: torch.Tensor, n_steps: int,
                     k: int) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """n_steps greedy chain steps for every slot of the caches.
+    """n_steps greedy chain steps for every slot of the caches, each
+    step a replay of one CUDA graph (kept with t_kv).
 
     root: int64 [S], each slot's last committed token (it feeds the first
     draft). Returns (tokens [n_steps, S, k + 1], counts [n_steps, S],
     root [S]) on the device: step i emitted tokens[i, s, :counts[i, s]].
     """
-    lanes = torch.arange(k + 1, device=root.device)
-    fuse = draft_fuse(draft.llm)
-    update = _verify_update(t_kv)
-    tokens, counts = [], []
+    S = root.shape[0]
+    cap = steps_capacity(n_steps)
+    g = graphs_of(t_kv).step(
+        ("chain", S, k, cap),
+        lambda: _chain_step(target, draft, t_kv, d_kv, S, k, cap),
+        deps=(target, draft, d_kv))
+    b = g.bufs
+    b["root"].copy_(root)
+    b["step"].zero_()
     for _ in range(n_steps):
-        c = t_kv.pos.long()
-        fed, tok = [root], root
-        for j in range(k + 1):
-            nxt = draft(d_kv, tok[:, None], d_kv.pos.long()[:, None],
-                        logits_mode="argmax", fuse_layers=fuse).long()
-            if j < k:
-                fed.append(nxt)
-                tok = nxt
-        fed = torch.stack(fed, dim=1)  # [S, k+1] = [root, d0 .. d_{k-1}]
-        sampled = target(t_kv, fed, c[:, None] + lanes[None, :],
-                         logits_mode="argmax_all", kv_update=update).long()
-        match = (sampled[:, :k] == fed[:, 1:]).long()
-        n_acc = match.cumprod(dim=1).sum(dim=1)  # [S] in [0, k]
-        root = sampled.gather(1, n_acc[:, None])[:, 0]
-        drop = k - n_acc
-        d_kv.rollback(drop)
-        t_kv.rollback(drop)
-        tokens.append(sampled)
-        counts.append(n_acc + 1)
-    return torch.stack(tokens), torch.stack(counts), root
+        g()
+    return (b["tokens"][:n_steps].clone(), b["counts"][:n_steps].clone(),
+            b["root"].clone())
 
 
 @torch.no_grad()
@@ -233,14 +270,16 @@ class ChainSpecEngine:
         self.block_steps = block_steps
         self.max_seq = max_seq or self.t_llm.seq_len
         self.prefill_chunk = prefill_chunk
-        self.reset()
-
-    def reset(self) -> None:
         t, d = self.t_llm, self.d_llm
         self.t_kv = KVCache.create(t.n_layers, 1, self.max_seq,
                                    t.n_kv_heads, t.head_size, self.device)
         self.d_kv = KVCache.create(d.n_layers, 1, self.max_seq,
                                    d.n_kv_heads, d.head_size, self.device)
+
+    def reset(self) -> None:
+        """Empty both caches in place (their step graphs stay valid)."""
+        self.t_kv.reset_slot(0)
+        self.d_kv.reset_slot(0)
 
     @torch.no_grad()
     def prefill(self, prompt_tokens: list[int]) -> None:

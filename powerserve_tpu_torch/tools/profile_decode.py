@@ -2,10 +2,11 @@
 
 Builds random llama-8b Q4_K parameters (tools/bench_params.py) with a
 2048-token cache, prefills a prompt, then traces greedy decode steps
-(engine/loops.py::decode_scan) with torch.profiler and prints one JSON
-line: the wall time per step, the GPU kernel time per step (summed over
-the trace's device events), the device busy share, and the kernels with
-the most device time.
+(engine/loops.py::decode_scan, each step a replayed CUDA graph, warmed
+and captured first) with torch.profiler and prints one JSON line: the
+wall time per step, the GPU kernel time per step (summed over the
+trace's device events), the device busy share, and the kernels with the
+most device time.
 
     python -m powerserve_tpu_torch.tools.profile_decode [--prompt 512]
         [--steps 8]
@@ -45,7 +46,9 @@ def main(argv: list[str] | None = None) -> int:
     logits = prefill_step(model, prompt.to(dev),
                           torch.arange(args.prompt, device=dev)[None], kv)
     tok = logits.argmax(dim=-1)
-    tok = decode_scan(model, tok, kv, 2)[:, -1]  # warm
+    # warm: the first step eager, the second captured, at the step
+    # capacity the timed calls use
+    tok = decode_scan(model, tok, kv, args.steps)[:, -1]
     torch.cuda.synchronize()
     # wall time without the profiler, then the device time under it
     t0 = time.perf_counter()

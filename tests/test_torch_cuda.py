@@ -925,3 +925,254 @@ def test_chain_spec_engine_cuda_matches_plain(dev, tmp_path):
         plain.reset()
         top2 = plain.prefill(prompt + want[:i]).topk(2).values
         assert float(top2[0] - top2[1]) < 0.5, (i, got, want)
+
+
+# -- the decode steps replayed as CUDA graphs (engine/graphs.py) --------------
+
+
+def _graph_model(tmp_path, preset, dev):
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    quant = GGMLType.Q4_K if preset == "tiny-k" else GGMLType.Q8_0
+    ws = make_synthetic_gguf(tmp_path, preset, quant, seed=0, seq_len=128)
+    return load_gguf_model(ws / "model", device=dev)
+
+
+def _eager_steps():
+    """Every StepGraph runs its body eagerly: the replayed paths' twin."""
+    from unittest import mock
+
+    from powerserve_tpu_torch.engine.graphs import StepGraph
+
+    return mock.patch.object(StepGraph, "__call__", StepGraph.eager)
+
+
+def _same_cache_bits(a, b):
+    for name in ("k", "v", "k_scale", "v_scale", "mask", "pos"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def _replays_without_sync(graphs):
+    """One more replay of every captured step of `graphs`, with every
+    host-device synchronization an error."""
+    captured = [g for g in graphs.graphs.values() if g.graph is not None]
+    assert captured
+    for g in captured:
+        g.bufs["step"].zero_()  # the outputs' first column again
+        _sync_free(g)
+
+
+def _counted(fn):
+    cuda_lib.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, cuda_lib.launch_counts()
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+def test_decode_scan_replay_matches_eager(dev, tmp_path, preset):
+    """Replayed decode_scan against decode_scan_eager on copies of one
+    cache (3 slots at different positions): the same tokens, the cache
+    bit for bit, the same launch counts; then a replay without a host
+    sync."""
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.engine.loops import (decode_scan,
+                                                   decode_scan_eager)
+    from powerserve_tpu_torch.kv.cache import KVCache
+
+    cfg, model = _graph_model(tmp_path, preset, dev)
+    llm = cfg.llm
+    a = KVCache.create(llm.n_layers, 3, 128, llm.n_kv_heads, llm.head_size,
+                       dev)
+    toks = torch.arange(3 * 12, device=dev).reshape(3, 12) * 7 % 200 + 3
+    pos = torch.arange(12, device=dev).expand(3, 12).clone()
+    pos[1, 5:] = -1
+    model(a, toks, pos, logits_mode="none")
+    b = a.clone()
+    for n in (9, 7):  # the second call replays from its first step
+        got, counts = _counted(lambda: decode_scan(model, toks[:, -1], a, n))
+        want, eager = _counted(
+            lambda: decode_scan_eager(model, toks[:, -1], b, n))
+        assert torch.equal(got, want)
+        _same_cache_bits(a, b)
+        assert counts == eager
+    _replays_without_sync(graphs_of(a))
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_engine_blocks_replay_match_eager(dev, tmp_path, preset,
+                                         temperature):
+    """InferenceEngine.generate with replayed blocks (greedy: whole
+    steps; sampled: forward and distribution, the draw eager) against
+    the same engine settings with every step eager: the same tokens, a
+    stop mid-block rolled back alike, the cache and the penalty window
+    bit for bit, the same launch counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+
+    cfg, model = _graph_model(tmp_path, preset, dev)
+
+    def engine():
+        hp = HyperParams(max_slots=2, batch_size=8, max_seq_len=128,
+                         decode_horizon=4)
+        hp.sampler.temperature = temperature
+        hp.sampler.seed = 3
+        hp.sampler.penalty_repeat = 1.2
+        return InferenceEngine(model, cfg, hp, eos_id=2, device=dev)
+
+    prompt = [3, 17, 5, 9, 44, 12]
+
+    def runs(eng, stop_at=None):
+        out = []
+        for stop in (None, None, stop_at):
+            eng.reset(1)
+            out.append(list(eng.generate(
+                prompt, 14, slot=1,
+                stop_fn=None if stop is None else lambda t: t == stop)))
+        return out
+
+    got, want = engine(), engine()
+    ids, counts = _counted(lambda: runs(got))
+    ids_stop = runs(got, stop_at=ids[0][5])
+    with _eager_steps():
+        twin, eager = _counted(lambda: runs(want))
+        twin_stop = runs(want, stop_at=ids[0][5])
+    assert ids == twin and ids_stop == twin_stop
+    assert counts == eager
+    if temperature == 0.0:
+        assert ids_stop[2] == ids[0][:len(ids_stop[2])]
+        assert len(ids_stop[2]) <= 6
+    _same_cache_bits(got.kv, want.kv)
+    assert torch.equal(got.penalty.recent, want.penalty.recent)
+    _replays_without_sync(got.graphs)
+
+
+def _sched_requests(temperature):
+    return [dict(prompt_ids=[1, 4, 9, 11], temperature=0.0, logprobs=3),
+            dict(prompt_ids=list(range(3, 20)), temperature=0.0,
+                 penalty_repeat=1.4, penalty_freq=0.3),
+            dict(prompt_ids=[5, 5, 5, 6], temperature=temperature, top_k=12,
+                 seed=11, logprobs=2),
+            dict(prompt_ids=[7, 8], temperature=0.0)]
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_scheduler_ticks_replay_match_eager(dev, tmp_path, preset, paged,
+                                           temperature):
+    """Three decode ticks of the scheduler (horizon 3; dense cache or
+    paged pool) replayed against the same ticks with every step eager:
+    tokens, logprobs and top logprobs, the cache and the penalty window
+    bit for bit, the same launch counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+
+    cfg, model = _graph_model(tmp_path, preset, dev)
+
+    def sched():
+        hp = HyperParams(max_slots=4, batch_size=8, max_seq_len=128,
+                         decode_horizon=3, paged_pages=24 if paged else 0,
+                         page_size=8)
+        s = BatchScheduler(model, cfg, hp, device=dev)
+        for r in _sched_requests(temperature):
+            s.submit(Request(max_tokens=40, **r))
+        s._admit()
+        while s._prefill_tick():
+            pass
+        return s
+
+    got, want = sched(), sched()
+    outs = ("out_tok", "out_lp", "out_ti", "out_tlp")
+    for _ in range(3):
+        _, counts = _counted(got._decode_tick)
+        with _eager_steps():
+            _, eager = _counted(want._decode_tick)
+        for name in outs:
+            assert torch.equal(got.bufs[name], want.bufs[name]), name
+        assert counts == eager
+        _same_cache_bits(got.kv, want.kv)
+        assert torch.equal(got.penalty.recent, want.penalty.recent)
+    logprobs = [len(sl.req.token_logprobs) for sl in got.slots
+                if sl.req is not None and sl.req.logprobs]
+    assert logprobs and all(n == 9 for n in logprobs)
+    _replays_without_sync(got.graphs)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+@pytest.mark.parametrize("draft", ["self:1", "separate"])
+def test_chain_steps_replay_match_eager(dev, tmp_path, preset, draft):
+    """Replayed chain_spec_scan (k = 3, two slots) against the same steps
+    eager: tokens, counts and root, both caches bit for bit, the same
+    launch counts; then a replay without a host sync."""
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.speculative.chain import (chain_spec_scan,
+                                                        self_draft_model)
+
+    cfg, model = _graph_model(tmp_path / "t", preset, dev)
+    d_model = (self_draft_model(model, 1) if draft == "self:1"
+               else _graph_model(tmp_path / "d", preset, dev)[1])
+    S, k = 2, 3
+
+    def prefilled(m):
+        llm = m.llm
+        kv = KVCache.create(llm.n_layers, S, 128, llm.n_kv_heads,
+                            llm.head_size, dev)
+        toks = torch.arange(S * 9, device=dev).reshape(S, 9) * 5 % 200 + 3
+        pos = torch.arange(9, device=dev).expand(S, 9).clone()
+        pos[0, 6:] = -1
+        m(kv, toks, pos, logits_mode="none")
+        return kv
+
+    t1, d1 = prefilled(model), prefilled(d_model)
+    t2, d2 = t1.clone(), d1.clone()
+    root = torch.tensor([7, 9], device=dev)
+    r1 = r2 = root
+    for n in (5, 4):
+        (tok1, c1, r1), counts = _counted(
+            lambda: chain_spec_scan(model, d_model, t1, d1, r1, n, k))
+        with _eager_steps():
+            (tok2, c2, r2), eager = _counted(
+                lambda: chain_spec_scan(model, d_model, t2, d2, r2, n, k))
+        assert torch.equal(tok1, tok2) and torch.equal(c1, c2)
+        assert torch.equal(r1, r2)
+        assert counts == eager
+        _same_cache_bits(t1, t2)
+        _same_cache_bits(d1, d2)
+    _replays_without_sync(graphs_of(t1))
+
+
+def test_deleting_an_engine_frees_its_graph_pool(dev, tmp_path):
+    """An engine's captured graphs hold a memory pool; deleting the
+    engine gives it back (memory_reserved after empty_cache returns to
+    what it was before the engine)."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.graphs import pool_bytes
+
+    cfg, model = _graph_model(tmp_path, "tiny-k", dev)
+    hp = HyperParams(max_slots=1, batch_size=8, max_seq_len=128)
+    hp.sampler.temperature = 0.0
+
+    def run():
+        eng = InferenceEngine(model, cfg, hp, device=dev)
+        assert len(list(eng.generate([3, 17, 5, 9], 12))) == 12
+        return eng
+
+    first = run()  # every lazy allocation of the path, once
+    del first
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    eng = run()
+    assert any(g.graph is not None for g in eng.graphs.graphs.values())
+    held = pool_bytes(eng.graphs)
+    assert held > 0
+    assert torch.cuda.memory_reserved(dev) >= base + held
+    del eng
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) == base
