@@ -93,11 +93,14 @@ Phases, each printing one JSON line:
              block of the self-draft under
              set_sync_debug_mode("error"));
              "model+self:4" with serve_full_width's traffic (the paged
-             verify through the state mode); one paged verify through the
-             deferred route against the inline one (logits, committed
-             K/V), and an 8-slot paged decode forward and that deferred
-             verify under set_sync_debug_mode("error"). Acceptance is
-             reported, not held (random weights)
+             verify through the state mode; its greedy ticks replay
+             their chain steps, and against the eager twin); a spec
+             tick's parts, eager, and the tick replayed; one paged
+             verify through the deferred route against the inline one
+             (logits, committed K/V), and an 8-slot paged decode forward
+             and that deferred verify under
+             set_sync_debug_mode("error"). Acceptance is reported, not
+             held (random weights)
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -1850,10 +1853,10 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
     enough for all eight at once), 8 concurrent greedy requests with
     prompts of 128-1024 tokens and 64 new tokens each, to the model name
     `model_name` ("model", or a speculative "model+self:N"); every kernel
-    in `need` must launch. A plain model serves the traffic twice: with
-    its decode ticks replayed, then with every step eager (the twin),
-    whose requests must get the same tokens (near-tie rule). A
-    speculative name's ticks run no graph, so it serves once."""
+    in `need` must launch. The traffic is served twice: with the decode
+    ticks replayed (a speculative name's greedy ticks replay their
+    chain steps), then with every step eager (the twin), whose requests
+    must get the same tokens (near-tie rule)."""
     import random
 
     from powerserve_tpu_torch.core.config import HyperParams
@@ -1945,10 +1948,8 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                     peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
     run = serve_once(phase)
-    twin = None
-    if "+" not in model_name:
-        with eager_steps():
-            twin = serve_once(f"{phase} eager twin")
+    with eager_steps():
+        twin = serve_once(f"{phase} eager twin")
     # the shortest and the longest request against a lone generate, and
     # every request of the twin against the replayed run
     ehp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=128)
@@ -1963,11 +1964,10 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                                     stop_fn=tok.should_stop))
         gaps.append(agree(f"{phase} vs generate", ids, want, engine,
                           list(prompt)))
-    if twin is not None:
-        for prompt, ids in tokens.items():
-            twin_gaps.append(agree(f"{phase} vs its eager twin", ids,
-                                   twin["tokens"][prompt], engine,
-                                   list(prompt)))
+    for prompt, ids in tokens.items():
+        twin_gaps.append(agree(f"{phase} vs its eager twin", ids,
+                               twin["tokens"][prompt], engine,
+                               list(prompt)))
     del engine
     metrics = run["metrics"]
     spec = {key: metrics[key] for key in (
@@ -1985,16 +1985,13 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
            "model": model_name, **spec, "graphs": run["graphs"],
            "launches": run["launches"], "peak_mem_gb": run["peak_gb"],
            "card": card_line()}
-    if twin is not None:
-        tm = twin["metrics"]
-        out["eager_twin"] = {
-            "wall_s": twin["wall"],
-            "generated_tok_s": 8 * n_new / twin["wall"],
-            "ttft_p50_s": tm["ttft_seconds_p50"],
-            "ttft_p90_s": tm["ttft_seconds_p90"],
-            "latency_p50_s": tm["request_latency_seconds_p50"],
-            "vs_replayed_near_ties": [g for g in twin_gaps
-                                      if g is not None]}
+    tm = twin["metrics"]
+    out["eager_twin"] = {
+        "wall_s": twin["wall"], "generated_tok_s": 8 * n_new / twin["wall"],
+        "ttft_p50_s": tm["ttft_seconds_p50"],
+        "ttft_p90_s": tm["ttft_seconds_p90"],
+        "latency_p50_s": tm["request_latency_seconds_p50"],
+        "vs_replayed_near_ties": [g for g in twin_gaps if g is not None]}
     return out, run["launches"]
 
 
@@ -2020,11 +2017,14 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
     slots with 512 committed positions each on a paged pool (pages of 64),
     hp.spec_horizon = 2 steps of k = 4, each forward synchronized and
     timed: draft forwards, verifies, the rest (sampling, acceptance,
-    rollback), and the tick's one host fetch."""
+    rollback), and the tick's one host fetch. Then the same tick with
+    its steps replayed as the scheduler replays them
+    (greedy_sample_step's graph, warmed and captured first)."""
+    from powerserve_tpu_torch.engine.graphs import StepGraphs
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
     from powerserve_tpu_torch.speculative.chain import (
-        chain_spec_sample_scan, self_draft_model)
+        chain_spec_sample_scan, greedy_sample_step, self_draft_model)
 
     S, n, H, k, page = 8, 512, 2, 4, 64
     t_kv = PagedKVCache.create(llm.n_layers, S, 2048, llm.n_kv_heads,
@@ -2032,7 +2032,8 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
                                page_size=page)
     pool = PagePool(128, S, t_kv.max_pages, page)
     for s_ in range(S):
-        pool.ensure(s_, n + H * (k + 1) + k + 1)
+        # room for the eager ticks and the replayed ones
+        pool.ensure(s_, n + 6 * H * (k + 1) + k + 1)
     pool.flush(t_kv)
     draft = self_draft_model(model, 4)
     d_kv = KVCache.create(4, S, 2048, llm.n_kv_heads, llm.head_size, dev)
@@ -2057,11 +2058,34 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
     torch.cat([emitted.flatten(), counts.flatten(), nxt]).cpu()
     fetch = time.perf_counter() - t1
     total = t1 - t0 + fetch
+    # the replayed tick: the scheduler's buffers and step graph
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int64,  # noqa: E731
+                                   device=dev)
+    bufs = dict(root=nxt.clone(), active=args[3], temp=args[5],
+                top_k=args[6], top_p=args[7], step=z(1),
+                spec_emitted=z(H, S, k + 1), spec_counts=z(H, S))
+    graphs = StepGraphs(dev)
+    g = graphs.step(("spec",), lambda: (greedy_sample_step(
+        model, draft, t_kv, d_kv, bufs, k), bufs))
+
+    def tick():
+        bufs["step"].zero_()
+        for _ in range(H):
+            g()
+        return torch.cat([bufs["spec_emitted"].flatten(),
+                          bufs["spec_counts"].flatten(), bufs["root"]]).cpu()
+
+    tick()  # one step eager, the other captured
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tick()
+    replayed = time.perf_counter() - t2
     return dict(slots=S, committed=n, steps=H, k=k, tick_ms=total * 1e3,
                 draft_ms=dc.seconds * 1e3, verify_ms=tc.seconds * 1e3,
                 other_ms=(t1 - t0 - dc.seconds - tc.seconds) * 1e3,
                 fetch_ms=fetch * 1e3, draft_calls=dc.calls,
-                verify_calls=tc.calls)
+                verify_calls=tc.calls, replayed_tick_ms=replayed * 1e3,
+                capture_s=g.capture_s)
 
 
 def phase_spec_full_width(dev: torch.device, cfg, model,
@@ -2375,7 +2399,12 @@ def main() -> int:
           "spec_full_width_self_draft_4_eager_tok_s":
               spec["self_draft_4"]["eager_decode_tok_s"],
           "spec_full_width_serve_generated_tok_s":
-              spec["serve"]["generated_tok_s"]})
+              spec["serve"]["generated_tok_s"],
+          "spec_full_width_serve_eager_generated_tok_s":
+              spec["serve"]["eager_twin"]["generated_tok_s"],
+          "spec_tick_ms": spec["tick_breakdown"]["tick_ms"],
+          "spec_replayed_tick_ms":
+              spec["tick_breakdown"]["replayed_tick_ms"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -26,8 +26,11 @@ logprobs into static [S, horizon] outputs through a step counter. In an
 all-greedy tick the graph holds the whole step: forward, sampler chain,
 argmax, penalty push and logprobs; where any slot samples, it holds the
 forward, the distributions and the logprobs' parts, and each slot's draw
-from its own generator and the push run eagerly after each replay. The
-prefill tick and the spec tick stay eager.
+from its own generator and the push run eagerly after each replay. A
+spec tick whose slots all decode greedily draws nothing, and replays
+one graph per speculative step; where any slot samples, its draws come
+between the draft forwards and the tick runs eagerly. The prefill tick
+stays eager.
 
 Speculation trees, EAGLE, multimodal prefill, meshes and double-buffered
 ticks are not ported: like the plain tick, the spec tick syncs once.
@@ -55,7 +58,7 @@ from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
 from ..sampling.sampler import (PenaltyState, categorical_from_dist,
                                 sample_dist_batched)
-from ..speculative.chain import chain_spec_sample_scan
+from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
 from .graphs import StepGraphs
 
 log = get_logger("scheduler")
@@ -207,6 +210,12 @@ class BatchScheduler:
             out_tok=z(S, H, dtype=torch.int64), out_lp=z(S, H),
             out_ti=z(S, H, N_TOP, dtype=torch.int64),
             out_tlp=z(S, H, N_TOP))
+        if draft is not None:
+            # the spec tick's: the root is the token buffer
+            Hs, k = self.spec_horizon, self.spec_k
+            self.bufs.update(root=self.bufs["tok"],
+                             spec_emitted=z(Hs, S, k + 1, dtype=torch.int64),
+                             spec_counts=z(Hs, S, dtype=torch.int64))
         self.graphs = StepGraphs(dev)
         self.slots = [_Slot() for _ in range(self.S)]
         self.prefix_cache = None
@@ -568,9 +577,19 @@ class BatchScheduler:
         S = self.S
         gens = self._slot_settings(decoding)
         b = self.bufs
-        emitted, counts, next_tok = chain_spec_sample_scan(
-            self.model, self.draft, self.kv, self.d_kv, b["tok"], H, k,
-            b["active"], gens, b["temp"], b["top_k"], b["top_p"])
+        if all(g is None for g in gens):
+            # nothing is drawn: each step replays one graph
+            g = self.graphs.step(("spec",), lambda: (greedy_sample_step(
+                self.model, self.draft, self.kv, self.d_kv, b, k), b))
+            b["step"].zero_()
+            for _ in range(H):
+                g()
+            emitted, counts, next_tok = (b["spec_emitted"],
+                                         b["spec_counts"], b["root"])
+        else:
+            emitted, counts, next_tok = chain_spec_sample_scan(
+                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, k,
+                b["active"], gens, b["temp"], b["top_k"], b["top_p"])
         # one host fetch per tick
         flat = torch.cat([emitted.flatten(), counts.flatten(), next_tok,
                           self.kv.pos.long()]).cpu()

@@ -56,8 +56,8 @@ from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
 from .engine import SpecStats
 
 __all__ = ["chain_spec_scan", "chain_spec_sample_scan", "ChainSpecEngine",
-           "self_draft_config", "self_draft_model", "with_draft_head",
-           "draft_fuse"]
+           "greedy_sample_step", "self_draft_config", "self_draft_model",
+           "with_draft_head", "draft_fuse"]
 
 # drafts this shallow are launch-bound: they run the fused layer chain
 FUSE_MAX_LAYERS = 4
@@ -178,71 +178,106 @@ def chain_spec_sample_scan(target: LlamaModel, draft: LlamaModel,
     (emitted [n_steps, S, k + 1], counts [n_steps, S], root [S]): each
     row holds the accepted drafts, then the resampled or bonus token, -1
     beyond its count (and everywhere for inactive slots)."""
+    emitted, counts = [], []
+    for _ in range(n_steps):
+        emit, count, root = _sample_step(target, draft, t_kv, d_kv, root, k,
+                                         active, generators, temp, top_k,
+                                         top_p)
+        emitted.append(emit)
+        counts.append(count)
+    return torch.stack(emitted), torch.stack(counts), root
+
+
+def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
+                 d_kv: KVCache, root: torch.Tensor, k: int,
+                 active: torch.Tensor,
+                 generators: list[torch.Generator | None],
+                 temp: torch.Tensor, top_k: torch.Tensor,
+                 top_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """One step of chain_spec_sample_scan: (emitted [S, k + 1], counts
+    [S], next root [S])."""
     S = root.shape[0]
     dev = root.device
     V = target.llm.vocab_size
     lanes = torch.arange(k + 1, device=dev)
     fuse = draft_fuse(draft.llm)
-    update = _verify_update(t_kv)
     rep = lambda a: a.repeat_interleave(k + 1)  # noqa: E731
-    emitted, counts = [], []
-    for _ in range(n_steps):
-        c = t_kv.pos.long()
-        # 1. k sampled drafts (k + 1 forwards: the last writes d_{k-1})
-        fed, qs, tok = [root], [], root
-        for j in range(k + 1):
-            pos = torch.where(active, d_kv.pos.long(), -1)[:, None]
-            logits = draft(d_kv, tok[:, None], pos, active=active,
-                           logits_mode="last", fuse_layers=fuse)
-            if j < k:
-                q = sample_dist_batched(logits[:, :V], temp, top_k, top_p,
-                                        vocab_size=V)
-                tok = categorical_from_dist(q, generators)
-                fed.append(tok)
-                qs.append(q)
-        fed = torch.stack(fed, dim=1)  # [S, k+1]
-        q_d = torch.stack(qs, dim=1)  # [S, k, V]; q_j drew d_j
-        # 2. one batched verify
-        positions = torch.where(active[:, None], c[:, None] + lanes[None, :],
-                                -1)
-        logits = target(t_kv, fed, positions, active=active,
-                        logits_mode="all", kv_update=update)
-        p = sample_dist_batched(
-            logits.reshape(S * (k + 1), -1)[:, :V], rep(temp), rep(top_k),
-            rep(top_p), vocab_size=V).reshape(S, k + 1, V)
-        # 3. rejection-sample acceptance
-        d = fed[:, 1:]
-        p_at_d = p[:, :k].gather(2, d[..., None])[..., 0]
-        q_at_d = q_d.gather(2, d[..., None])[..., 0]
-        u = uniform_draws(generators, k, dev)
-        accept = (u * q_at_d < p_at_d).long()
-        n_acc = accept.cumprod(dim=1).sum(dim=1)  # [S]
-        # 4. resample: the residual (p - q)^+ at the rejected position,
-        # p itself at the bonus position (n_acc == k)
-        sel = n_acc[:, None, None].expand(S, 1, V)
-        p_sel = p.gather(1, sel)[:, 0]
-        q_pad = torch.cat([q_d, torch.zeros(S, 1, V, device=dev)], dim=1)
-        q_sel = q_pad.gather(1, sel)[:, 0]
-        residual = torch.clamp(p_sel - q_sel, min=0.0)
-        rsum = residual.sum(dim=-1, keepdim=True)
-        residual = torch.where(rsum > 1e-12,
-                               residual / torch.clamp(rsum, min=1e-30), p_sel)
-        new_root = torch.where(active,
-                               categorical_from_dist(residual, generators),
-                               root)
-        emit = torch.where(
-            lanes[None, :] < n_acc[:, None],
-            torch.cat([d, torch.zeros_like(d[:, :1])], dim=1),
-            torch.where(lanes[None, :] == n_acc[:, None], new_root[:, None],
-                        -1))
-        emitted.append(torch.where(active[:, None], emit, -1))
-        counts.append(torch.where(active, n_acc + 1, 0))
-        # 5. both caches keep the accepted prefix and the root's entry
-        drop = torch.where(active, k - n_acc, 0)
-        d_kv.rollback(drop)
-        t_kv.rollback(drop)
-        root = new_root
-    return torch.stack(emitted), torch.stack(counts), root
+    c = t_kv.pos.long()
+    # 1. k sampled drafts (k + 1 forwards: the last writes d_{k-1})
+    fed, qs, tok = [root], [], root
+    for j in range(k + 1):
+        pos = torch.where(active, d_kv.pos.long(), -1)[:, None]
+        logits = draft(d_kv, tok[:, None], pos, active=active,
+                       logits_mode="last", fuse_layers=fuse)
+        if j < k:
+            q = sample_dist_batched(logits[:, :V], temp, top_k, top_p,
+                                    vocab_size=V)
+            tok = categorical_from_dist(q, generators)
+            fed.append(tok)
+            qs.append(q)
+    fed = torch.stack(fed, dim=1)  # [S, k+1]
+    q_d = torch.stack(qs, dim=1)  # [S, k, V]; q_j drew d_j
+    # 2. one batched verify
+    positions = torch.where(active[:, None], c[:, None] + lanes[None, :], -1)
+    logits = target(t_kv, fed, positions, active=active, logits_mode="all",
+                    kv_update=_verify_update(t_kv))
+    p = sample_dist_batched(
+        logits.reshape(S * (k + 1), -1)[:, :V], rep(temp), rep(top_k),
+        rep(top_p), vocab_size=V).reshape(S, k + 1, V)
+    # 3. rejection-sample acceptance
+    d = fed[:, 1:]
+    p_at_d = p[:, :k].gather(2, d[..., None])[..., 0]
+    q_at_d = q_d.gather(2, d[..., None])[..., 0]
+    u = uniform_draws(generators, k, dev)
+    accept = (u * q_at_d < p_at_d).long()
+    n_acc = accept.cumprod(dim=1).sum(dim=1)  # [S]
+    # 4. resample: the residual (p - q)^+ at the rejected position, p
+    # itself at the bonus position (n_acc == k)
+    sel = n_acc[:, None, None].expand(S, 1, V)
+    p_sel = p.gather(1, sel)[:, 0]
+    q_pad = torch.cat([q_d, torch.zeros(S, 1, V, device=dev)], dim=1)
+    q_sel = q_pad.gather(1, sel)[:, 0]
+    residual = torch.clamp(p_sel - q_sel, min=0.0)
+    rsum = residual.sum(dim=-1, keepdim=True)
+    residual = torch.where(rsum > 1e-12,
+                           residual / torch.clamp(rsum, min=1e-30), p_sel)
+    new_root = torch.where(active, categorical_from_dist(residual, generators),
+                           root)
+    emit = torch.where(
+        lanes[None, :] < n_acc[:, None],
+        torch.cat([d, torch.zeros_like(d[:, :1])], dim=1),
+        torch.where(lanes[None, :] == n_acc[:, None], new_root[:, None], -1))
+    # 5. both caches keep the accepted prefix and the root's entry
+    drop = torch.where(active, k - n_acc, 0)
+    d_kv.rollback(drop)
+    t_kv.rollback(drop)
+    return (torch.where(active[:, None], emit, -1),
+            torch.where(active, n_acc + 1, 0), new_root)
+
+
+def greedy_sample_step(target: LlamaModel, draft: LlamaModel,
+                       t_kv: KVCache, d_kv: KVCache, bufs: dict, k: int):
+    """The body of one chain_spec_sample_scan step over slots that all
+    decode greedily (every generator None: nothing is drawn, so the step
+    replays as one CUDA graph). Reads bufs root, active, temp, top_k and
+    top_p ([S]); writes the step's emitted [S, k + 1] and counts [S] to
+    row `step` of bufs spec_emitted [H, S, k + 1] and spec_counts [H, S],
+    and the next root to bufs root."""
+    b = bufs
+    step = b["step"]
+    gens = [None] * b["root"].shape[0]
+
+    def body():
+        emit, count, root = _sample_step(
+            target, draft, t_kv, d_kv, b["root"], k, b["active"], gens,
+            b["temp"], b["top_k"], b["top_p"])
+        b["spec_emitted"].index_copy_(0, step, emit[None])
+        b["spec_counts"].index_copy_(0, step, count[None])
+        b["root"].copy_(root)
+        step.add_(1)
+
+    return body
 
 
 class ChainSpecEngine:

@@ -1102,6 +1102,47 @@ def test_scheduler_ticks_replay_match_eager(dev, tmp_path, preset, paged,
 
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_ticks_replay_match_eager(dev, tmp_path, preset, paged):
+    """Three greedy spec ticks of the scheduler (a 1-layer self-draft,
+    k = 3, two steps a tick; dense cache or paged pool, whose verify
+    takes the deferred route) replayed against the same ticks eager: the
+    same emitted tokens and counts, both caches bit for bit, the same
+    launch counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+    from powerserve_tpu_torch.speculative.chain import self_draft_model
+
+    cfg, model = _graph_model(tmp_path, preset, dev)
+
+    def sched():
+        hp = HyperParams(max_slots=4, batch_size=8, max_seq_len=128,
+                         spec_k=3, spec_horizon=2,
+                         paged_pages=40 if paged else 0, page_size=8)
+        s = BatchScheduler(model, cfg, hp, device=dev,
+                           draft=self_draft_model(model, 1))
+        for r in _sched_requests(0.0):
+            s.submit(Request(max_tokens=60, **r))
+        s._admit()
+        while s._prefill_tick():
+            pass
+        return s
+
+    got, want = sched(), sched()
+    for _ in range(3):
+        _, counts = _counted(got._decode_tick)
+        with _eager_steps():
+            _, eager = _counted(want._decode_tick)
+        for name in ("spec_emitted", "spec_counts", "root"):
+            assert torch.equal(got.bufs[name], want.bufs[name]), name
+        assert counts == eager
+        _same_cache_bits(got.kv, want.kv)
+        _same_cache_bits(got.d_kv, want.d_kv)
+    assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
+    _replays_without_sync(got.graphs)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
 @pytest.mark.parametrize("draft", ["self:1", "separate"])
 def test_chain_steps_replay_match_eager(dev, tmp_path, preset, draft):
     """Replayed chain_spec_scan (k = 3, two slots) against the same steps

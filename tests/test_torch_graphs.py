@@ -50,6 +50,7 @@ from powerserve_tpu_torch.ops import cuda_lib
 from powerserve_tpu_torch.sampling.sampler import (sample_logits,
                                                    sample_logits_batched)
 from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
+                                                    chain_spec_sample_scan,
                                                     chain_spec_scan,
                                                     draft_fuse,
                                                     self_draft_model)
@@ -365,6 +366,59 @@ def test_scheduler_tick_matches_eager_tick(ws, paged, mix):
         busy = [i for i, sl in enumerate(got.slots) if sl.req is not None]
         assert [got.slots[i].cur_token for i in busy] == \
             [int(ref[0][i, -1]) for i in busy]
+
+
+def _eager_spec_tick(s):
+    """The greedy spec tick's twin: chain_spec_sample_scan's eager steps
+    over the same slot inputs. Returns (emitted, counts, next root)."""
+    decoding = [i for i, sl in enumerate(s.slots)
+                if sl.req is not None and not sl.prefilling]
+    H, k = s.spec_horizon, s.spec_k
+    if s.pool is not None:
+        decoding = s._ensure_decode_pages(decoding, H * (k + 1) + k + 1)
+    gens = s._slot_settings(decoding)
+    b = s.bufs
+    return chain_spec_sample_scan(s.model, s.draft, s.kv, s.d_kv,
+                                  b["tok"].clone(), H, k, b["active"], gens,
+                                  b["temp"], b["top_k"], b["top_p"])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_tick_matches_eager_tick(ws, paged):
+    """Greedy spec ticks of a 1-layer self-draft (k = 3, two steps a tick)
+    through the runner against chain_spec_sample_scan's eager steps: the
+    same emitted tokens, counts and roots, both caches bit for bit."""
+    _, (cfg, model) = ws
+    reqs = [r for r in REQUESTS if not r["temperature"]]
+
+    def sched():
+        hp = HyperParams(max_slots=4, batch_size=8, max_seq_len=SEQ,
+                         spec_k=3, spec_horizon=2,
+                         paged_pages=40 if paged else 0, page_size=8)
+        s = BatchScheduler(model, cfg, hp, device="cpu",
+                           draft=self_draft_model(model, 1))
+        for r in reqs:
+            s.submit(Request(max_tokens=60, **r))
+        s._admit()
+        while s._prefill_tick():
+            pass
+        return s
+
+    got, want = sched(), sched()
+    for _ in range(2):
+        emitted, counts, root = _eager_spec_tick(want)
+        got._decode_tick()
+        b = got.bufs
+        assert torch.equal(b["spec_emitted"], emitted)
+        assert torch.equal(b["spec_counts"], counts)
+        assert torch.equal(b["root"], root)
+        for i, sl in enumerate(want.slots):
+            if sl.req is not None:
+                sl.cur_token = got.slots[i].cur_token
+        _same_cache(got.kv, want.kv)
+        _same_cache(got.d_kv, want.d_kv)
+    assert got.n_spec_steps == 2 * 2 * len(reqs)
+    assert len(got.graphs.graphs) == 1
 
 
 def test_scheduler_serves_through_the_runner(ws):
