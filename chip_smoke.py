@@ -974,14 +974,16 @@ def eager_steps():
     return mock.patch.object(StepGraph, "__call__", StepGraph.eager)
 
 
-def graph_stats(captures0: dict, *owners) -> dict:
-    """The graphs captured since `captures0` (a copy of graphs.CAPTURES),
-    the seconds their captures took, and the bytes the memory pools of
-    `owners` (StepGraphs) hold on the card."""
-    from powerserve_tpu_torch.engine.graphs import CAPTURES, pool_bytes
+def graph_stats(*owners) -> dict:
+    """The step graphs the owners (StepGraphs) captured, the seconds
+    their captures took, and the bytes their memory pools hold on the
+    card."""
+    from powerserve_tpu_torch.engine.graphs import pool_bytes
 
-    return {"graphs": CAPTURES["graphs"] - captures0["graphs"],
-            "capture_s": CAPTURES["seconds"] - captures0["seconds"],
+    captured = [g for o in owners for g in o.graphs.values()
+                if g.graph is not None]
+    return {"graphs": len(captured),
+            "capture_s": sum(g.capture_s for g in captured),
             "pool_mb": sum(pool_bytes(o) for o in owners) / 1e6}
 
 
@@ -1157,7 +1159,7 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
-    from powerserve_tpu_torch.engine.graphs import CAPTURES, graphs_of
+    from powerserve_tpu_torch.engine.graphs import graphs_of
     from powerserve_tpu_torch.engine.loops import (decode_scan,
                                                    decode_scan_eager,
                                                    prefill_step)
@@ -1167,7 +1169,6 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
         flash_prefill_quant_reference)
 
     torch.cuda.reset_peak_memory_stats(dev)
-    captures0 = dict(CAPTURES)
     llm = cfg.llm
     n_prompt, n_decode, max_seq = 512, 64, 2048
     g = torch.Generator(device="cpu")
@@ -1276,7 +1277,7 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
                   "decode_scan_eager")
     if not all(0 <= t < llm.vocab_size for t in scan_ids):
         raise AssertionError(f"decode_scan tokens out of range: {scan_ids}")
-    scan_graphs = graph_stats(captures0, graphs_of(kv))
+    scan_graphs = graph_stats(graphs_of(kv))
     scan_ids = scan_ids[:n_decode]
     del kv, twin_kv
 
@@ -1285,7 +1286,6 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
     # generate, replayed and with every step eager (the twin); each twice
     # on one engine, the second call steady (its steps all replays)
     gen = {}
-    captures0 = dict(CAPTURES)
     for label in ("generate", "generate_eager"):
         engine = InferenceEngine(model, cfg, hp, device=dev)
         gen[label] = []
@@ -1301,7 +1301,7 @@ def phase_full_width(dev: torch.device, cfg, model, phase: str,
                                      n_decode, stats=stats)), absent)
                 gen[label].append((ids, stats))
         if label == "generate":
-            engine_graphs = graph_stats(captures0, engine.graphs)
+            engine_graphs = graph_stats(engine.graphs)
         del engine
     gen_ids, stats = gen["generate"][0]
     if {tuple(ids) for runs in gen.values() for ids, _ in runs} != \
@@ -1371,7 +1371,6 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
-    from powerserve_tpu_torch.engine.graphs import CAPTURES
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.models.llama import moe_route
     from powerserve_tpu_torch.tools.bench_params import make_device_params
@@ -1429,7 +1428,6 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     # the grouped prefill (512 rows, block_m 128), then one token at a
     # time (the single-token route), replayed; then its eager twin
     gen = {}
-    captures0 = dict(CAPTURES)
     for path in ("mixtral-lite generate", "mixtral-lite generate_eager"):
         engine = InferenceEngine(model, cfg, hp, device=dev)
         gen[path] = []
@@ -1448,7 +1446,7 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
                                                 for t in ids):
                     raise AssertionError(f"{path} gave {ids}")
                 gen[path].append((ids, stats, gen_s,
-                                  graph_stats(captures0, engine.graphs)))
+                                  graph_stats(engine.graphs)))
         del engine
     ids, stats, gen_s, engine_graphs = gen["mixtral-lite generate"][0]
     if {tuple(r[0]) for runs in gen.values() for r in runs} != {tuple(ids)}:
@@ -1861,7 +1859,6 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
 
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import InferenceEngine
-    from powerserve_tpu_torch.engine.graphs import CAPTURES
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.serving.server import ServerContext
     from powerserve_tpu_torch.tokenizer import Tokenizer
@@ -1885,7 +1882,6 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
 
     def serve_once(label: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
-        captures0 = dict(CAPTURES)
         with tempfile.TemporaryDirectory() as tmp:
             ctx = ServerContext(tmp, "model", hp, dev)
             ctx.register("model", model, cfg, tok)
@@ -1937,7 +1933,7 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                     raise AssertionError(f"{label} did not launch "
                                          f"{missing}: {launches}")
                 metrics = metrics_of(port)
-                graphs = graph_stats(captures0, sched.graphs)
+                graphs = graph_stats(sched.graphs)
                 del sched
             finally:
                 server.shutdown()
@@ -2110,7 +2106,7 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
 
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import InferenceEngine
-    from powerserve_tpu_torch.engine.graphs import CAPTURES, graphs_of
+    from powerserve_tpu_torch.engine.graphs import graphs_of
     from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
     from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
                                                         chain_spec_scan,
@@ -2148,7 +2144,6 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
                                   device=dev, **kw)
             if draft_head is not None:
                 eng.draft = with_draft_head(eng.draft, draft_head)
-            captures0 = dict(CAPTURES)
             runs[path] = []
             with (eager_steps() if path.endswith("eager")
                   else contextlib.nullcontext()):
@@ -2160,7 +2155,8 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
                     if len(got) != n_new:
                         raise AssertionError(f"{path}: {len(got)} tokens")
                     runs[path].append((got, stats, secs))
-            graphs = graph_stats(captures0, graphs_of(eng.t_kv))
+            if path == label:
+                graphs = graph_stats(graphs_of(eng.t_kv))
             if sync_check and path == label:
                 without_sync(f"spec_full_width {label} replayed chain step",
                              lambda: chain_spec_scan(

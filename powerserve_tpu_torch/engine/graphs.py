@@ -4,8 +4,8 @@ The JAX package compiles each decode loop into one device program (a
 jax.jit over a lax.scan: engine/loops.py's decode_scan, the engine's
 decode block, the scheduler's tick, the chain step). The port captures
 one step of each such loop into a torch.cuda.CUDAGraph and replays it
-once per step, so a step costs one launch of host time, not the ~80
-eager ops and launches per layer of a Python forward.
+once per step, so a step costs one graph launch of host time, not the
+~80 eager ops and launches per layer of a Python forward.
 
 A StepGraph holds a body: a function of no arguments that reads static
 device buffers (the step's tokens, `active`, the sampler's settings, a
@@ -28,7 +28,9 @@ The kernel wrappers count their launches in Python (ops/cuda_lib.py
 LAUNCHES), and that Python runs while a graph is captured, not when it
 is replayed. The counts a capture adds are taken back out (nothing ran)
 and every replay adds them, so a replayed path reports the counts of the
-eager path over the same steps.
+eager path over the same steps. (A launch another thread counts during a
+capture is taken for the capture's: the counters are diagnostics, shared
+by all threads.)
 
 A graph bakes in the addresses of the cache, the weights and the
 buffers, so it belongs to one owner, a StepGraphs: an engine's or a
@@ -51,10 +53,6 @@ from typing import Callable
 import torch
 
 from ..ops import cuda_lib
-
-# captured graphs and the seconds their captures took, process-wide (the
-# diagnostics chip_smoke.py prints, like cuda_lib.LAUNCHES)
-CAPTURES = {"graphs": 0, "seconds": 0.0}
 
 _capture_lock = threading.Lock()
 
@@ -105,8 +103,6 @@ class StepGraph:
                     capture_error_mode="thread_local"):
                 out = self.body()
             self.capture_s = time.perf_counter() - t0
-            CAPTURES["graphs"] += 1
-            CAPTURES["seconds"] += self.capture_s
             # the capture launched nothing: its counts come back with
             # every replay
             for name, n in cuda_lib.launch_counts().items():

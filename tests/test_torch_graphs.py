@@ -38,7 +38,6 @@ from powerserve_tpu.speculative.chain import (
     chain_spec_scan as jchain_spec_scan)
 from powerserve_tpu_torch.core.config import HyperParams
 from powerserve_tpu_torch.core.gguf import GGMLType
-from powerserve_tpu_torch.engine import graphs
 from powerserve_tpu_torch.engine.generator import InferenceEngine
 from powerserve_tpu_torch.engine.graphs import StepGraph, graphs_of
 from powerserve_tpu_torch.engine.loops import decode_scan, decode_scan_eager
@@ -531,7 +530,6 @@ def test_launch_counts_come_with_replays(monkeypatch):
     _fake_capture(monkeypatch, state)
     monkeypatch.setattr(cuda_lib, "LAUNCHES", dict(cuda_lib.LAUNCHES))
     cuda_lib.reset_launch_counts()
-    captures = dict(graphs.CAPTURES)
 
     def body():
         state["runs"] += 1
@@ -548,7 +546,7 @@ def test_launch_counts_come_with_replays(monkeypatch):
     assert state["runs"] == 2  # eager, then the capture
     assert g.graph.replays == 3
     assert g.counts == {"qmatmul": 3, "flash_decode": 1}
-    assert graphs.CAPTURES["graphs"] == captures["graphs"] + 1
+    assert g.capture_s > 0
 
 
 def test_graphs_go_with_their_owner(ws):
