@@ -104,7 +104,9 @@ Phases, each printing one JSON line:
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
-             replayed, and against its eager twin),
+             replayed, and against its eager twin), decode_scan for the
+             same 64 tokens against decode_scan_eager (tokens, cache and
+             launch counts),
              one S = 8 decode step (grouped, block_m 16) on the kernels
              against the plain twins on the card; qwen3moe-lite (128
              experts, top-8, 4 layers): one S = 8 decode step (grouped,
@@ -1371,6 +1373,10 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.engine.loops import (decode_scan,
+                                                   decode_scan_eager,
+                                                   prefill_step)
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.models.llama import moe_route
     from powerserve_tpu_torch.tools.bench_params import make_device_params
@@ -1467,6 +1473,30 @@ def phase_moe_full_width(dev: torch.device) -> tuple[dict, dict, tuple]:
               replay_equals_eager=True,
               tokens=ids[:16], peak_mem_gb=torch.cuda.max_memory_allocated(
                   dev) / 1e9)
+    # decode_scan (argmax head, the single-token route) replayed, and
+    # decode_scan_eager on a copy of the same prefilled cache
+    kv = KVCache.create(llm.n_layers, 1, 2048, llm.n_kv_heads,
+                        llm.head_size, dev)
+    first = prefill_step(model, prompt[None].to(dev),
+                         torch.arange(n_prompt, device=dev)[None],
+                         kv).argmax(dim=-1)
+    twin_kv = kv.clone()
+    need = ("qmatmul", "qmatmul_grouped", "fused_head", "flash_decode")
+    scan, scan_s = counted("mixtral-lite decode_scan", need,
+                           lambda: decode_scan(model, first, kv, n_new))
+    twin, twin_s = counted("mixtral-lite decode_scan_eager", need,
+                           lambda: decode_scan_eager(model, first, twin_kv,
+                                                     n_new))
+    if not torch.equal(scan, twin):
+        raise AssertionError(f"mixtral-lite: replayed decode_scan "
+                             f"{scan.tolist()} != its eager twin's "
+                             f"{twin.tolist()}")
+    same_cache_bits("mixtral-lite decode_scan", kv, twin_kv)
+    same_launches("mixtral-lite", counted.launches,
+                  "mixtral-lite decode_scan", "mixtral-lite decode_scan_eager")
+    mx.update(decode_tok_s=n_new / scan_s, decode_eager_tok_s=n_new / twin_s,
+              decode_scan_graphs=graph_stats(graphs_of(kv)))
+    del kv, twin_kv
     # S = 8 decode: 16 assignments over 8 experts, grouped at block_m 16
     kv, nxt = decode_batch(model, llm, 8, 64)
     mx["decode_step_route"] = moe_route(8)
@@ -2380,6 +2410,9 @@ def main() -> int:
               moe["mixtral-lite"]["generate_decode_tok_s"],
           "mixtral_lite_generate_eager_decode_tok_s":
               moe["mixtral-lite"]["generate_eager_decode_tok_s"],
+          "mixtral_lite_decode_tok_s": moe["mixtral-lite"]["decode_tok_s"],
+          "mixtral_lite_decode_eager_tok_s":
+              moe["mixtral-lite"]["decode_eager_tok_s"],
           "serve_full_width_generated_tok_s": serve["generated_tok_s"],
           "serve_full_width_eager_generated_tok_s":
               serve["eager_twin"]["generated_tok_s"],
