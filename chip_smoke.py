@@ -780,6 +780,111 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         for m in ms:
             w8_rows.append(w8_row(lin8, m, k, n))
         del lin8
+    # -- then, with a seed of their own: flash-decode's tree mode (absent
+    #    from trees before it), a [2, 1, 1] token tree (N = 7 nodes at
+    #    c + i): DeviceTreeEngine's verify (S = 1, the ancestor rows over
+    #    the nodes, T = 2048) and one of its draft levels (Tq = 2 rows
+    #    over all 7 nodes, the committed mask), and the scheduler's paged
+    #    verify (S = 8 over 560-650 committed positions, pages of 64);
+    #    each against its twin (flips_check), twice bit for bit, SDPA with
+    #    the same boolean visibility for information; the causal rows
+    #    (lower-triangular bits) give today's bits, dense and paged
+    tree_rows = []
+    fd_mod = sys.modules["powerserve_tpu_torch.ops.flash_decode"]
+    if hasattr(fd_mod, "pack_intra"):
+        from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+        g.manual_seed(4)
+        parents = [-1, 0, 0, 1, 2, 3, 4]  # TreeTemplate [2, 1, 1]
+        N = len(parents)
+        anc = torch.zeros(N, N, dtype=torch.bool, device=dev)
+        for i_ in range(N):
+            j_ = i_
+            while j_ >= 0:  # ancestors-or-self
+                anc[i_, j_] = True
+                j_ = parents[j_]
+        for case, S, rows, paged in (("verify", 1, list(range(N)), False),
+                                     ("draft level 1", 1, [1, 2], False),
+                                     ("paged verify", 8, list(range(N)),
+                                      True)):
+            intra = anc[rows]
+            bits = pack_intra(intra)
+            Tq = len(rows)
+            starts = ([1000] if S == 1
+                      else [560 + 13 * s_ for s_ in range(S)])
+            mask = (torch.arange(T, device=dev)[None, :]
+                    < torch.tensor(starts, device=dev)[:, None])
+            keys = (torch.tensor(starts, device=dev)[:, None]
+                    + torch.arange(N, device=dev)[None, :]).to(torch.int32)
+            q = randn(S, Tq, H, D)
+            extra = nbytes(mask, keys, bits)
+            if paged:
+                MP = T // page
+                n_alloc = [-(-(c_ + N) // page) for c_ in starts]
+                P = sum(n_alloc) + 8
+                perm = torch.randperm(P, generator=g, device=dev).to(
+                    torch.int32)
+                pt = torch.full((S, MP), P, dtype=torch.int32, device=dev)
+                used = 0
+                for s_, n_ in enumerate(n_alloc):
+                    pt[s_, :n_] = perm[used:used + n_]
+                    used += n_
+                kv4 = cache(P, Hkv, page, D)
+                args = (q, *kv4, pt, mask, keys, scale)
+                fn = lambda: flash_decode_paged_cuda(*args, bits=bits)  # noqa
+                ref_fn = lambda: flash_decode_paged_reference(  # noqa: E731
+                    *args, bits=bits)
+                dense4 = tuple(gather_pages(t, pt) for t in kv4)
+                extra += nbytes(pt)
+            else:
+                dense4 = cache(S, Hkv, T, D)
+                args = (q, *dense4, mask, keys, scale)
+                fn = lambda: flash_decode_cuda(*args, bits=bits)  # noqa
+                ref_fn = lambda: flash_decode_quant_reference(  # noqa: E731
+                    *args, bits=bits)
+            got = fn()
+            err = flips_check(f"flash_decode tree {case}", got, ref_fn(),
+                              dense4[3])
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"flash_decode tree {case}: two runs "
+                                     f"gave different bits")
+            vis = decode_visibility(mask, keys, Tq, bits)
+            b, by = attn_bound(q, vis, Hkv, extra)
+            tree_rows.append(dict(
+                case=case, S=S, Tq=Tq, keys=N, T=T, paged=paged,
+                page=page if paged else None, committed=starts,
+                max_abs_err=err, ms=timer(fn),
+                plain_ms=timer(ref_fn, reps=10), bound_ms=b, bound_by=by,
+                sdpa_bf16_dequantized_ms=sdpa_ms(q, *dense4, vis)))
+        # the causal rows: today's bits, and their time beside today's
+        S, Tq = 2, 5
+        q = randn(S, Tq, H, D)
+        kq, ks, vq, vs = cache(S, Hkv, T, D)
+        mask = (torch.arange(T, device=dev)[None, :]
+                < torch.tensor([900, 1500], device=dev)[:, None])
+        pos = (torch.tensor([900, 1500], device=dev)[:, None]
+               + torch.arange(Tq, device=dev)[None, :]).to(torch.int32)
+        causal = pack_intra(torch.ones(Tq, Tq, dtype=torch.bool,
+                                       device=dev).tril())
+        args = (q, kq, ks, vq, vs, mask, pos, scale)
+        if not torch.equal(flash_decode_cuda(*args, bits=causal),
+                           flash_decode_cuda(*args)):
+            raise AssertionError("flash_decode: the causal bit rows differ "
+                                 "from the causal rule")
+        pt = torch.arange(S * T // 64, dtype=torch.int32,
+                          device=dev).reshape(S, -1)
+        pools = tuple(t.reshape((S, Hkv, T // 64, 64) + t.shape[3:])
+                      .movedim(2, 1).reshape((-1, Hkv, 64) + t.shape[3:])
+                      .contiguous() for t in (kq, ks, vq, vs))
+        pargs = (q, *pools, pt, mask, pos, scale)
+        if not torch.equal(flash_decode_paged_cuda(*pargs, bits=causal),
+                           flash_decode_paged_cuda(*pargs)):
+            raise AssertionError("flash_decode_paged: the causal bit rows "
+                                 "differ from the causal rule")
+        tree_rows.append(dict(
+            case="causal rows", S=S, Tq=Tq, T=T, same_bits=True,
+            ms=timer(lambda: flash_decode_cuda(*args)),
+            bits_ms=timer(lambda: flash_decode_cuda(*args, bits=causal))))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
@@ -787,7 +892,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
           "flash_decode": fd_rows, "flash_prefill": fp_rows,
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
           "qmatmul_w8": w8_rows, "fused_linear": fl_rows,
-          "flash_decode_paged_state": state_row})
+          "flash_decode_paged_state": state_row,
+          "flash_decode_tree": tree_rows})
 
     def entry(name, route_src, replaces, row):
         return dict(name=name, route="cuda", source=route_src,
@@ -829,7 +935,13 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
               "powerserve_tpu/ops/qmatmul.py:792", grp_rows[0]),
         entry("qmatmul_w8", "powerserve_tpu_torch/csrc/qmatmul_w8.cu",
               "powerserve_tpu/ops/qmatmul.py:236", w8_rows[0]),
-    ]
+    ] + ([
+        entry("flash_decode_tree", "powerserve_tpu_torch/csrc/flash_decode.cu",
+              "powerserve_tpu/ops/flash_decode.py:115", tree_rows[0]),
+        entry("flash_decode_paged_tree",
+              "powerserve_tpu_torch/csrc/flash_decode.cu",
+              "powerserve_tpu/ops/flash_decode.py:183", tree_rows[2]),
+    ] if tree_rows else [])
 
 
 def first_divergence(a: list[int], b: list[int]) -> int:
@@ -849,6 +961,8 @@ def logit_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
 # the fused head (argmax)
 SPEC_NEED = ("fused_head", "fused_x", "fused_norm", "fused_glu", "qmatmul",
              "flash_decode")
+# a tree's: the draft levels and the verify attend through the tree mode
+TREE_NEED = SPEC_NEED[:-1] + ("flash_decode_tree",)
 
 
 def phase_cli() -> dict:
@@ -1873,18 +1987,27 @@ def phase_serve(devices=("cuda", "cpu")) -> dict:
 SERVE_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode_paged")
 
 
+SERVED: dict[str, dict] = {}  # phase -> {prompt ids: generated ids}
+
+
 def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                            need: tuple = SERVE_NEED,
-                           model_name: str = "model") -> tuple[dict, dict]:
+                           model_name: str = "model", spec_tree: str = "",
+                           reference: str | None = None,
+                           sampled: bool = False) -> tuple[dict, dict]:
     """A full-width model (random weights) behind the HTTP server: 8 slots
     over a paged pool of 128 pages of 64 tokens (half of 8 x 2048, yet
     enough for all eight at once), 8 concurrent greedy requests with
     prompts of 128-1024 tokens and 64 new tokens each, to the model name
-    `model_name` ("model", or a speculative "model+self:N"); every kernel
-    in `need` must launch. The traffic is served twice: with the decode
-    ticks replayed (a speculative name's greedy ticks replay their
-    chain steps), then with every step eager (the twin), whose requests
-    must get the same tokens (near-tie rule)."""
+    `model_name` ("model", or a speculative "model+self:N", with
+    spec_tree its token tree's widths); every kernel in `need` must
+    launch. The traffic is served twice: with the decode ticks replayed
+    (a speculative name's greedy ticks replay their speculative steps),
+    then with every step eager (the twin), whose requests must get the
+    same tokens (near-tie rule). With `reference` (an earlier phase of
+    this run) every request must get that phase's tokens too; with
+    `sampled`, one more request at temperature 0.8 with a seed must end
+    without "error"."""
     import random
 
     from powerserve_tpu_torch.core.config import HyperParams
@@ -1908,7 +2031,7 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
     texts = ["".join(rng.choice("abcdefghijklmnopqrsuvwxyz")
                      for _ in range(n - 4)) for n in lengths]
     hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
-                     paged_pages=128, page_size=64)
+                     paged_pages=128, page_size=64, spec_tree=spec_tree)
 
     def serve_once(label: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1965,13 +2088,30 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                 metrics = metrics_of(port)
                 graphs = graph_stats(sched.graphs)
                 del sched
+                draw = None
+                if sampled:
+                    with ServeRecorder() as rec2:
+                        status, data = http_call(
+                            port, "POST", "/v1/completions", {
+                                "model": model_name, "prompt": texts[0],
+                                "max_tokens": 16, "temperature": 0.8,
+                                "seed": 5})
+                    rec2.check(f"{label} sampled")
+                    reply = json.loads(data)["choices"][0]
+                    if status != 200 or reply["finish_reason"] == "error":
+                        raise AssertionError(f"{label} sampled: {status} "
+                                             f"{data[:200]}")
+                    draw = dict(finish_reason=reply["finish_reason"],
+                                tokens=len(next(iter(
+                                    rec2.tokens().values()))))
             finally:
                 server.shutdown()
                 server.server_close()
                 ctx.close()
         return dict(tokens=tokens, wall=wall, launches=launches,
                     metrics=metrics, peak_used=peak_used[0], graphs=graphs,
-                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                    sampled=draw)
 
     run = serve_once(phase)
     with eager_steps():
@@ -1994,6 +2134,12 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
         twin_gaps.append(agree(f"{phase} vs its eager twin", ids,
                                twin["tokens"][prompt], engine,
                                list(prompt)))
+    ref_gaps = []
+    for prompt, ids in (tokens.items() if reference else ()):
+        ref_gaps.append(agree(f"{phase} vs {reference}", ids,
+                              SERVED[reference][prompt], engine,
+                              list(prompt)))
+    SERVED[phase] = tokens
     del engine
     metrics = run["metrics"]
     spec = {key: metrics[key] for key in (
@@ -2011,6 +2157,13 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
            "model": model_name, **spec, "graphs": run["graphs"],
            "launches": run["launches"], "peak_mem_gb": run["peak_gb"],
            "card": card_line()}
+    if spec_tree:
+        out["spec_tree"] = spec_tree
+    if reference:
+        out[f"vs_{reference}_near_ties"] = [g for g in ref_gaps
+                                            if g is not None]
+    if sampled:
+        out["sampled_request"] = run["sampled"]
     tm = twin["metrics"]
     out["eager_twin"] = {
         "wall_s": twin["wall"], "generated_tok_s": 8 * n_new / twin["wall"],
@@ -2317,6 +2470,120 @@ def phase_spec_full_width(dev: torch.device, cfg, model,
     return out, counted.launches
 
 
+def phase_tree_full_width(dev: torch.device, cfg, model) -> tuple[dict, dict]:
+    """Token-tree speculation on llama-8b Q4_K (random weights: acceptance
+    is reported, not held), a 512-token prompt:
+      (a) DeviceTreeEngine with the [2, 1, 1] tree and a 4-layer
+          self-draft (the fused layer chain; the draft levels and the
+          verify through flash-decode's tree mode), 64 greedy tokens,
+          each tree step a replayed graph, against its eager twin (a new
+          engine, every step eager): the same tokens, both caches bit for
+          bit, the same launch counts; a second (steady) call of each;
+          the tokens against InferenceEngine.generate's (near-tie rule);
+          one more replayed block under set_sync_debug_mode("error");
+      (b) the host SpeculativeEngine with a llama-1b Q4_K draft, 16
+          greedy tokens, against generate's (min_prob 0: at the default
+          0.2 a random model's flat draft grows no tree).
+    Returns the phase's line and each path's launch counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.speculative.device_tree import (
+        DeviceTreeEngine, TreeTemplate, tree_spec_scan)
+    from powerserve_tpu_torch.speculative.engine import (SpecStats,
+                                                         SpeculativeEngine)
+    from powerserve_tpu_torch.speculative.tree import SpeculativeConfig
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+    llm = cfg.llm
+    n_prompt, n_new, max_seq = 512, 64, 2048
+    g = torch.Generator(device="cpu")
+    g.manual_seed(2)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,),
+                           generator=g).tolist()
+    hp = HyperParams(max_slots=1, max_seq_len=max_seq, batch_size=n_prompt)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    counted = Counted()
+    want, plain_s = counted("plain generate", ("qmatmul", "fused_head"),
+                            lambda: list(engine.generate(prompt, n_new)))
+    tpl = TreeTemplate.from_widths([2, 1, 1])
+    out: dict = {"phase": "tree_full_width", "tree": "2,1,1",
+                 "nodes": tpl.n_nodes, "prompt_tokens": n_prompt,
+                 "new_tokens": n_new, "plain_decode_tok_s": n_new / plain_s}
+    need = TREE_NEED
+    runs, engines = {}, {}
+    label = "device_tree_self_draft_4"
+    for path in (label, f"{label} eager"):
+        eng = engines[path] = DeviceTreeEngine(
+            model, cfg, self_draft_layers=4, template=tpl, block_steps=8,
+            max_seq=max_seq, prefill_chunk=n_prompt, device=dev)
+        runs[path] = []
+        with (eager_steps() if path.endswith("eager")
+              else contextlib.nullcontext()):
+            for again in (False, True):  # the second call steady
+                stats = SpecStats()
+                got, secs = counted(path + " again" * again, need,
+                                    lambda: list(eng.generate(
+                                        prompt, n_new, stats=stats)))
+                if len(got) != n_new:
+                    raise AssertionError(f"{path}: {len(got)} tokens")
+                runs[path].append((got, stats, secs))
+    rep, twin = engines[label], engines[f"{label} eager"]
+    got, stats, secs = runs[label][0]
+    if {tuple(r[0]) for rs in runs.values() for r in rs} != {tuple(got)}:
+        raise AssertionError(f"{label}: replayed tree steps {got} != the "
+                             f"eager twin's or the second call's")
+    same_launches(label, counted.launches, label, f"{label} eager")
+    same_cache_bits(f"{label} target", rep.t_kv, twin.t_kv)
+    same_cache_bits(f"{label} draft", rep.d_kv, twin.d_kv)
+    graphs = graph_stats(graphs_of(rep.t_kv))
+    without_sync(f"tree_full_width {label} replayed tree step",
+                 lambda: tree_spec_scan(rep.target, rep.draft, rep.t_kv,
+                                        rep.d_kv, rep._root, 8, tpl))
+    tok_s = lambda r: n_new / (r[1].decode_ms / 1e3)  # noqa: E731
+    out[label] = dict(
+        accept_rate=stats.accept_rate, tokens_per_step=stats.tokens_per_step,
+        steps=stats.steps, decode_tok_s=tok_s(runs[label][0]),
+        decode_again_tok_s=tok_s(runs[label][1]),
+        eager_decode_tok_s=tok_s(runs[f"{label} eager"][0]),
+        eager_decode_again_tok_s=tok_s(runs[f"{label} eager"][1]),
+        wall_s=secs, graphs=graphs, replay_equals_eager=True,
+        cache_bits_equal=True, replayed_tree_step_sync_free=True,
+        vs_generate_near_tie=agree(f"tree_full_width {label}", got, want,
+                                   engine, prompt))
+    del rep, twin, engines
+    torch.cuda.empty_cache()
+
+    # (b) the host-grown tree with a separate draft
+    d_cfg, d_model = make_device_params("llama-1b", "q4_k", seed=1,
+                                        device=dev)
+    n_host = 16
+    spec_cfg = SpeculativeConfig(min_prob=0.0)
+    host = SpeculativeEngine(model, cfg, d_model, d_cfg, spec_cfg,
+                             max_seq=max_seq, prefill_chunk=n_prompt,
+                             device=dev)
+    stats = SpecStats()
+    got, secs = counted("host_tree_llama_1b", ("qmatmul", "fused_head",
+                                               "flash_decode_tree"),
+                        lambda: list(host.generate(prompt, n_host,
+                                                   stats=stats)))
+    out["host_tree_llama_1b"] = dict(
+        draft_batch_size=spec_cfg.draft_batch_size, min_prob=0.0,
+        tokens=len(got), steps=stats.steps, drafted=stats.drafted,
+        accept_rate=stats.accept_rate,
+        tokens_per_step=stats.tokens_per_step,
+        decode_tok_s=len(got) / (stats.decode_ms / 1e3), wall_s=secs,
+        vs_generate_near_tie=agree("tree_full_width host tree", got,
+                                   want[:len(got)], engine, prompt))
+    if len(got) != n_host:
+        raise AssertionError(f"host tree: {len(got)} tokens")
+    del host, d_model, engine
+    torch.cuda.empty_cache()
+    out.update(launches=counted.launches, card=card_line())
+    return out, counted.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2358,6 +2625,14 @@ def main() -> int:
     spec, spec_counts = phase_spec_full_width(dev, cfg, model,
                                               phase_serve_full_width)
     emit(spec)
+    tree, tree_counts = phase_tree_full_width(dev, cfg, model)
+    emit(tree)
+    tree_serve, tree_serve_counts = phase_serve_full_width(
+        dev, cfg, model, "tree_serve_full_width",
+        TREE_NEED + ("flash_prefill", "flash_decode_paged_tree"),
+        "model+self:4",
+        spec_tree="2,1,1", reference="serve_full_width", sampled=True)
+    emit(tree_serve)
     del cfg, model
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
@@ -2391,7 +2666,10 @@ def main() -> int:
            **{name: spec_counts["self_draft_4"]
               for name in ("fused_x", "fused_norm", "fused_glu")},
            "fused_x_argmax": spec_counts["self_draft_4_head_rank_512"],
-           "flash_decode_paged_state": spec_counts["serve"]}
+           "flash_decode_paged_state": spec_counts["serve"],
+           # the device tree's generate; the scheduler's paged tree tick
+           "flash_decode_tree": tree_counts["device_tree_self_draft_4"],
+           "flash_decode_paged_tree": tree_serve_counts}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     # each decode number replayed, and its eager twin's from this run
@@ -2433,7 +2711,20 @@ def main() -> int:
               spec["serve"]["eager_twin"]["generated_tok_s"],
           "spec_tick_ms": spec["tick_breakdown"]["tick_ms"],
           "spec_replayed_tick_ms":
-              spec["tick_breakdown"]["replayed_tick_ms"]})
+              spec["tick_breakdown"]["replayed_tick_ms"],
+          "tree_self_draft_4_tok_s":
+              tree["device_tree_self_draft_4"]["decode_tok_s"],
+          "tree_self_draft_4_again_tok_s":
+              tree["device_tree_self_draft_4"]["decode_again_tok_s"],
+          "tree_self_draft_4_eager_tok_s":
+              tree["device_tree_self_draft_4"]["eager_decode_tok_s"],
+          "tree_self_draft_4_tokens_per_step":
+              tree["device_tree_self_draft_4"]["tokens_per_step"],
+          "tree_serve_generated_tok_s": tree_serve["generated_tok_s"],
+          "tree_serve_eager_generated_tok_s":
+              tree_serve["eager_twin"]["generated_tok_s"],
+          "tree_serve_ttft_p50_s": tree_serve["ttft_p50_s"],
+          "tree_serve_ttft_p90_s": tree_serve["ttft_p90_s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

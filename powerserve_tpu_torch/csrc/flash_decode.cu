@@ -7,11 +7,16 @@
 //
 // q [S, Tq, H, D] f32; kq/vq int8 [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T];
 // mask uint8 [S, T] (the cache's committed positions); positions int32
-// [S, Tq] (where the new rows were written) or null; out f32
-// [S, Tq, H * D]. Query row r = g * Tq + tq of kv head h is query head
-// h * G + g (G = H / Hkv). Row tq sees t when mask[s, t] is set or some
-// j <= tq has positions[s, j] == t (build_visibility with its causal
-// intra mask; -1 and positions >= T match nothing).
+// [S, J] (where key nodes were written) or null; bits uint32 [Tq] or
+// null; out f32 [S, Tq, H * D]. Query row r = g * Tq + tq of kv head h is
+// query head h * G + g (G = H / Hkv). Row tq sees t when mask[s, t] is
+// set or some key j with bit j of bits[tq] has positions[s, j] == t
+// (build_visibility with an intra mask [Tq, J]; -1 and positions >= T
+// match nothing). Without bits the rule is causal, J = Tq and bits[tq]
+// the keys j <= tq: the new rows' own positions, as a decode step or a
+// chain verify writes them. With bits (the tree mode, J <= 32) a token
+// tree's verify passes J = Tq nodes and each node's ancestors-or-self,
+// and a draft level J nodes and its own rows' ancestors-or-self.
 //
 // Replaces the TPU kernel powerserve_tpu/ops/flash_decode.py::
 // flash_decode_quant (body _kernel), which folds all kv heads into one
@@ -31,11 +36,16 @@
 //    splits a slot): a grid of 256 four-block clusters did not fit in one
 //    wave on the card.
 //  - The visibility is formed in the kernel: a block reads its slot's
-//    mask row once (16-byte cp.async) and the slot's Tq positions, and
-//    keeps one byte per token of its range: the first query row that
-//    sees it. A slot walks only [0, end), end = 1 + the last position a
-//    row sees, so a short sequence in a long cache costs its length,
-//    split over all the cluster's blocks. Steps no row sees are skipped
+//    mask row once (16-byte cp.async) and the slot's J key positions, and
+//    keeps one byte per token of its range: kMask for a committed one,
+//    else the first key j written there. A lane holds the keys its two
+//    rows see as 32 bits each (in the tree mode: the bit rows with every
+//    key folded onto the first key of its position, so a position that
+//    two keys share is seen through either), and a score is kept where
+//    its byte is kMask or names a key of the row (causal: j <= tq). A
+//    slot walks only [0, end), end = 1 + the last position a row sees,
+//    so a short sequence in a long cache costs its length, split over
+//    all the cluster's blocks. Steps no row sees are skipped
 //    (a skipped step adds exactly nothing: p = 0, or a state the first
 //    visible score wipes with alpha = 0); in the normalized output, a
 //    slot with a row that sees nothing walks all of T, so that row
@@ -91,6 +101,8 @@ constexpr int kMaxStages = 3;
 constexpr int kMaxWarps = 8;    // G * Tq <= 128 query rows per kv head
 constexpr uint8_t kHidden = 255;  // no row sees the position
 constexpr uint8_t kPast = 254;    // past the slot's walked span: no score
+constexpr uint8_t kMask = 253;    // committed: every row sees it
+constexpr int kMaxKeys = 32;      // keys of the tree mode (bits a row)
 
 // The launch geometry, from the shapes alone (host and device). A slot
 // walks [0, end) of T, end = 1 + its last visible position (T where a
@@ -146,13 +158,15 @@ struct Smem {
   float *blk_m, *blk_l;  // [Rp]: the block's merged state
   float* w;           // [tg][Rp]: the token groups' merge weights
   int *pos, *flags, *list, *misc;  // misc: n_list, per-warp last mask bit
+  int* first;         // [J]: the first key at the same position (tree mode)
+  uint32_t* kbits;    // [Tq]: the keys a row sees, folded (tree mode)
   int* pages;         // [T / page]: the slot's page table, clipped
   uint8_t* mask;      // [T]: the slot's mask row
   uint8_t* vf;        // [bs]: first row that sees the token
 };
 
-__host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int T,
-                                              int n_pt, uint8_t* base,
+__host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int J,
+                                              int T, int n_pt, uint8_t* base,
                                               Smem* s) {
   const int Rp = 16 * g.n_mt;
   size_t off = 0;
@@ -172,10 +186,12 @@ __host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int T,
   m.blk_m = (float*)take((size_t)4 * Rp);
   m.blk_l = (float*)take((size_t)4 * Rp);
   m.w = (float*)take((size_t)4 * g.tg * Rp);
-  m.pos = (int*)take((size_t)4 * (Tq > 0 ? Tq : 1));
+  m.pos = (int*)take((size_t)4 * (J > 0 ? J : 1));
   m.flags = (int*)take((size_t)4 * g.n_steps);
   m.list = (int*)take((size_t)4 * g.n_steps);
   m.misc = (int*)take(4 * (1 + kMaxWarps));
+  m.first = (int*)take((size_t)4 * (J > 0 ? J : 1));
+  m.kbits = (uint32_t*)take((size_t)4 * Tq);
   m.pages = (int*)take((size_t)4 * n_pt);
   m.mask = take(T);
   m.vf = take(g.bs);
@@ -190,12 +206,13 @@ struct Args {
   const int8_t* vq;
   const float* vs;
   const uint8_t* mask;
-  const int* pos;         // null: the mask alone
+  const int* pos;         // [S, J] key positions; null: the mask alone
+  const uint32_t* bits;   // [Tq] keys each row sees; null: causal (J = Tq)
   const int* page_table;  // null: the dense cache
   int page, n_pages;
   float* out;
   float *m_out, *l_out;   // non-null: the state mode
-  int S, Tq, H, Hkv, T, D;
+  int S, Tq, J, H, Hkv, T, D;
   float scale;
   int kv_vec, s_vec, mask_vec;
 };
@@ -216,7 +233,8 @@ template <int DB>
 __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
                                           const Smem& sm, const uint8_t* kt,
                                           int tl0, const uint32_t (&qa)[DB][4],
-                                          const int (&tq)[2], int lane,
+                                          const int (&tq)[2],
+                                          const uint32_t (&kb)[2], int lane,
                                           float (&m_run)[2], float (&l_run)[2],
                                           float (&acc)[DB][2][4]) {
   const int g = lane >> 2, t4 = lane & 3;
@@ -255,7 +273,8 @@ __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
       float x;
       if (v == kPast)
         x = -INFINITY;
-      else if (tq[h] >= v)
+      else if (v == kMask ||
+               (v < kMask && (a.bits ? (kb[h] >> v) & 1u : tq[h] >= v)))
         x = sc[j][c] * (kss[t] * a.scale);
       else
         x = PS_NEG_INF;
@@ -325,7 +344,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   const int n_pt = a.page_table ? a.T / a.page : 0;
   extern __shared__ __align__(16) uint8_t smem[];
   Smem sm;
-  smem_layout(geo, a.Tq, a.T, n_pt, smem, &sm);
+  smem_layout(geo, a.Tq, a.J, a.T, n_pt, smem, &sm);
 
   // every load of the set-up at once, by cp.async: q rows (f32, staged
   // in the ring's space), the slot's mask row, page table and positions
@@ -347,9 +366,9 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   }
   for (int i = tid; i < n_pt; i += nthr)
     cp_async4(sm.pages + i, a.page_table + (long)s * n_pt + i, true);
-  for (int j = tid; j < a.Tq; j += nthr) {
+  for (int j = tid; j < a.J; j += nthr) {
     if (a.pos)
-      cp_async4(sm.pos + j, a.pos + (long)s * a.Tq + j, true);
+      cp_async4(sm.pos + j, a.pos + (long)s * a.J + j, true);
     else
       sm.pos[j] = -1;
   }
@@ -377,15 +396,49 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   }
   last = __reduce_max_sync(0xffffffffu, last);
   if (lane == 0) sm.misc[1 + warp] = last;
+  const auto valid = [&](int j) { return sm.pos[j] >= 0 && sm.pos[j] < a.T; };
+  if (a.bits) {
+    // each key folded onto the first key at its position
+    for (int j = tid; j < a.J; j += nthr) {
+      int f = j;
+      for (int i = 0; i < j; ++i)
+        if (sm.pos[i] == sm.pos[j]) {
+          f = i;
+          break;
+        }
+      sm.first[j] = f;
+    }
+    __syncthreads();
+    for (int r = tid; r < a.Tq; r += nthr) {
+      const uint32_t b = a.bits[r];
+      uint32_t k = 0;
+      for (int j = 0; j < a.J; ++j)
+        if ((b >> j) & 1u && valid(j)) k |= 1u << sm.first[j];
+      sm.kbits[r] = k;
+    }
+  }
   __syncthreads();
-  // the span this slot walks, the same in every block of the cluster:
-  // every row sees something when row 0 does (rows see more as tq grows)
+  // the span this slot walks, the same in every block of the cluster
   int end = 0;
   for (int w = 0; w < geo.warps; ++w) end = max(end, sm.misc[1 + w]);
-  const bool row0 = end > 0 || (sm.pos[0] >= 0 && sm.pos[0] < a.T);
-  for (int j = 0; j < a.Tq; ++j)
-    if (sm.pos[j] >= 0 && sm.pos[j] < a.T) end = max(end, sm.pos[j] + 1);
-  const bool walk_all = !state && !row0;
+  bool all_rows = end > 0;  // every row sees something
+  uint32_t seen = 0;        // tree mode: the keys some row sees
+  if (a.bits) {
+    bool each = true;
+    for (int r = 0; r < a.Tq; ++r) {
+      seen |= sm.kbits[r];
+      each = each && sm.kbits[r] != 0u;
+    }
+    all_rows = all_rows || each;
+    for (int j = 0; j < a.J; ++j)
+      if (valid(j) && (seen >> sm.first[j]) & 1u) end = max(end, sm.pos[j] + 1);
+  } else {
+    // causal: rows see more as tq grows, and the last row every key
+    all_rows = all_rows || valid(0);
+    for (int j = 0; j < a.J; ++j)
+      if (valid(j)) end = max(end, sm.pos[j] + 1);
+  }
+  const bool walk_all = !state && !all_rows;
   if (walk_all) end = a.T;
   const int ws = warp_span(end, geo.tg, geo.n_split);
   const int bs = geo.tg * ws, n_steps = ws / kSub;
@@ -394,12 +447,14 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     const int tt = b0 + t;
     uint8_t v = kPast;
     if (tt < end) {
-      v = sm.mask[tt] ? 0 : kHidden;
-      for (int j = 0; j < a.Tq && v == kHidden; ++j)
+      v = sm.mask[tt] ? kMask : kHidden;
+      for (int j = 0; j < a.J && v == kHidden; ++j)
         if (sm.pos[j] == tt) v = (uint8_t)j;
     }
     sm.vf[t] = v;
-    if (walk_all ? v != kPast : v < a.Tq) sm.flags[(t % ws) / kSub] = 1;
+    const bool seen_v =
+        v == kMask || (v < kMask && (a.bits ? (seen >> v) & 1u : true));
+    if (walk_all ? v != kPast : seen_v) sm.flags[(t % ws) / kSub] = 1;
   }
   __syncthreads();
   if (warp == 0) {
@@ -469,6 +524,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   const int mt = warp % geo.n_mt, grp = warp / geo.n_mt;
   const int tq[2] = {(mt * 16 + (lane >> 2)) % a.Tq,
                      (mt * 16 + (lane >> 2) + 8) % a.Tq};
+  const uint32_t kb[2] = {a.bits ? sm.kbits[tq[0]] : 0u,
+                          a.bits ? sm.kbits[tq[1]] : 0u};
   // this warp's q rows as mma A fragments: head dim 16 ks + 4 t4 + (0, 2)
   // at k 2 t4 (+1) and + (1, 3) at k 2 t4 + 8 (+1), rows g and g + 8 (the
   // order of a K word's bytes (0, 2) and (1, 3) in the B fragments)
@@ -513,7 +570,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
       warp_step<DB>(a, geo, sm,
                     sm.ring + ((size_t)(i % geo.stages) * geo.tg + grp) *
                                   geo.sub_bytes,
-                    tl0, qa, tq, lane, m_run, l_run, acc);
+                    tl0, qa, tq, kb, lane, m_run, l_run, acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its space holds the states now
@@ -666,13 +723,16 @@ cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
 int launch(Args a, int S, void* stream_ptr) {
   const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   const int G = a.H / a.Hkv;
+  if (!a.pos) a.bits = nullptr;  // the mask alone: J = Tq keys at -1
+  if (!a.bits) a.J = a.Tq;
   if (S <= 0 || a.Tq <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.D % 4 ||
-      a.D > 128 || G * a.Tq > 16 * kMaxWarps)
+      a.D > 128 || G * a.Tq > 16 * kMaxWarps ||
+      (a.bits && (a.J <= 0 || a.J > kMaxKeys)))
     return (int)cudaErrorInvalidValue;
   a.S = S;
   const Geo geo = geometry(G, a.Tq, a.T, a.D, S * a.Hkv);
   const int n_pt = a.page_table ? a.T / a.page : 0;
-  const size_t smem = smem_layout(geo, a.Tq, a.T, n_pt, nullptr, nullptr);
+  const size_t smem = smem_layout(geo, a.Tq, a.J, a.T, n_pt, nullptr, nullptr);
   a.kv_vec = a.D % 16 == 0 && al16(a.kq) && al16(a.vq);
   const int rows4 = a.page_table ? a.page % 4 == 0 : a.T % 4 == 0;
   a.s_vec = rows4 && al16(a.ks) && al16(a.vs);
@@ -692,19 +752,21 @@ int launch(Args a, int S, void* stream_ptr) {
 }  // namespace
 
 // Shared memory one launch takes (bytes), for the wrapper's check.
-PS_EXPORT size_t ps_flash_decode_smem(int S, int Hkv, int G, int Tq, int T,
-                                      int D, int page) {
-  return smem_layout(geometry(G, Tq, T, D, S * Hkv), Tq, T,
+PS_EXPORT size_t ps_flash_decode_smem(int S, int Hkv, int G, int Tq, int J,
+                                      int T, int D, int page) {
+  return smem_layout(geometry(G, Tq, T, D, S * Hkv), Tq, J, T,
                      page ? T / page : 0, nullptr, nullptr);
 }
 
-// positions int32 [S, Tq] or null. Returns a CUDA error code (0 on
+// positions int32 [S, J] or null; bits uint32 [Tq] or null (causal:
+// positions [S, Tq], J ignored). Returns a CUDA error code (0 on
 // success).
 PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
                               const void* vq, const void* vs,
                               const void* mask, const void* positions,
-                              void* out, int S, int Tq, int H, int Hkv, int T,
-                              int D, float scale, void* stream_ptr) {
+                              const void* bits, void* out, int S, int Tq,
+                              int J, int H, int Hkv, int T, int D,
+                              float scale, void* stream_ptr) {
   Args a{};
   a.q = reinterpret_cast<const float*>(q);
   a.kq = reinterpret_cast<const int8_t*>(kq);
@@ -713,27 +775,30 @@ PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
   a.vs = reinterpret_cast<const float*>(vs);
   a.mask = reinterpret_cast<const uint8_t*>(mask);
   a.pos = reinterpret_cast<const int*>(positions);
+  a.bits = reinterpret_cast<const uint32_t*>(bits);
   a.page = 1;
   a.n_pages = 1;
   a.out = reinterpret_cast<float*>(out);
-  a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = T, a.D = D, a.scale = scale;
+  a.Tq = Tq, a.J = J, a.H = H, a.Hkv = Hkv, a.T = T, a.D = D;
+  a.scale = scale;
   return launch(a, S, stream_ptr);
 }
 
 // The paged pool: kq/vq int8 [P, Hkv, page, D], ks/vs f32 [P, Hkv, page],
 // page_table int32 [S, max_pages] (P = unallocated), mask uint8
-// [S, max_pages * page] over logical positions, positions int32 [S, Tq]
-// or null. m_out null: out f32 [S, Tq, H * D] normalized; else the state
-// mode: out f32 [S, R, D] unnormalized and m_out, l_out f32 [S, R],
-// R = H * Tq in (h, g, tq) order.
+// [S, max_pages * page] over logical positions, positions int32 [S, J]
+// and bits as ps_flash_decode's. m_out null: out f32 [S, Tq, H * D]
+// normalized; else the state mode: out f32 [S, R, D] unnormalized and
+// m_out, l_out f32 [S, R], R = H * Tq in (h, g, tq) order.
 PS_EXPORT int ps_flash_decode_paged(const void* q, const void* kq,
                                     const void* ks, const void* vq,
                                     const void* vs, const void* page_table,
                                     const void* mask, const void* positions,
-                                    void* out, void* m_out, void* l_out,
-                                    int S, int Tq, int H, int Hkv,
-                                    int max_pages, int page, int n_pages,
-                                    int D, float scale, void* stream_ptr) {
+                                    const void* bits, void* out, void* m_out,
+                                    void* l_out, int S, int Tq, int J, int H,
+                                    int Hkv, int max_pages, int page,
+                                    int n_pages, int D, float scale,
+                                    void* stream_ptr) {
   Args a{};
   a.q = reinterpret_cast<const float*>(q);
   a.kq = reinterpret_cast<const int8_t*>(kq);
@@ -742,13 +807,14 @@ PS_EXPORT int ps_flash_decode_paged(const void* q, const void* kq,
   a.vs = reinterpret_cast<const float*>(vs);
   a.mask = reinterpret_cast<const uint8_t*>(mask);
   a.pos = reinterpret_cast<const int*>(positions);
+  a.bits = reinterpret_cast<const uint32_t*>(bits);
   a.page_table = reinterpret_cast<const int*>(page_table);
   a.page = page;
   a.n_pages = n_pages;
   a.out = reinterpret_cast<float*>(out);
   a.m_out = reinterpret_cast<float*>(m_out);
   a.l_out = reinterpret_cast<float*>(l_out);
-  a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = max_pages * page, a.D = D;
-  a.scale = scale;
+  a.Tq = Tq, a.J = J, a.H = H, a.Hkv = Hkv, a.T = max_pages * page;
+  a.D = D, a.scale = scale;
   return launch(a, S, stream_ptr);
 }

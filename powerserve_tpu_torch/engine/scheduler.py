@@ -10,14 +10,19 @@ pool is dry and decode preempts the youngest request by recompute.
 
 With a draft model (a separate model, or a view of the target's first
 layers: speculative/chain.py self_draft_model) every decode tick runs
-`hp.spec_horizon` steps of batched chain speculation instead
-(chain_spec_sample_scan: each slot drafts hp.spec_k tokens with its own
-sampler settings and generator, one target forward verifies all slots,
-speculative sampling accepts per slot; temperature 0 is greedy), over a
-dense int8 draft cache beside the dense or paged target cache. Prefill
-fills both caches, prefix-cache entries carry both prefixes, and a
-preempted request rebuilds both. Speculative ticks apply no penalties
-and record no logprobs (the server refuses such requests).
+`hp.spec_horizon` steps of batched speculation instead, over a dense
+int8 draft cache beside the dense or paged target cache. The topology is
+hp.spec_tree's widths (speculative/device_tree.py TreeTemplate), or a
+chain of hp.spec_k. A chain runs chain_spec_sample_scan: each slot
+drafts with its own sampler settings and generator, one target forward
+verifies all slots, speculative sampling accepts per slot (temperature 0
+is greedy). A tree runs tree_sample_step: one draft forward per level,
+one verify of every slot's tree with the ancestor mask, and exact-match
+acceptance against the target's samples, or with hp.spec_wor
+draws without replacement and recursive rejection. Prefill fills both
+caches, prefix-cache entries carry both prefixes, and a preempted
+request rebuilds both. Speculative ticks apply no penalties and record
+no logprobs (the server refuses such requests).
 
 A plain decode tick replays one CUDA graph per step (engine/graphs.py)
 over the scheduler's static [S] buffers (tokens, `active`, each slot's
@@ -32,8 +37,8 @@ one graph per speculative step; where any slot samples, its draws come
 between the draft forwards and the tick runs eagerly. The prefill tick
 stays eager.
 
-Speculation trees, EAGLE, multimodal prefill, meshes and double-buffered
-ticks are not ported: like the plain tick, the spec tick syncs once.
+EAGLE, multimodal prefill, meshes and double-buffered ticks are not
+ported: like the plain tick, the spec tick syncs once.
 Only the scheduler thread touches the device; submit() is thread-safe.
 """
 
@@ -59,6 +64,8 @@ from ..models.llama import LlamaModel
 from ..sampling.sampler import (PenaltyState, categorical_from_dist,
                                 sample_dist_batched)
 from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
+from ..speculative.device_tree import (TreeTemplate, greedy_tree_sample_step,
+                                       tree_spec_scan)
 from .graphs import StepGraphs
 
 log = get_logger("scheduler")
@@ -152,8 +159,8 @@ class BatchScheduler:
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  draft: LlamaModel | None = None):
-        """draft: batched chain speculation with this draft model (its
-        vocab must be the target's)."""
+        """draft: batched speculation with this draft model (its vocab
+        must be the target's)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -180,10 +187,14 @@ class BatchScheduler:
                                      llm.n_kv_heads, llm.head_size,
                                      self.device)
         self.draft = self.d_kv = None
+        self.spec_k = max(int(self.hp.spec_k), 1)
+        self.spec_horizon = max(int(self.hp.spec_horizon), 1)
+        self.spec_template = None
         if draft is not None:
-            if self.hp.spec_tree:
-                raise NotImplementedError("speculation trees (spec_tree) are "
-                                          "not ported yet")
+            # the speculation topology: hp.spec_tree's widths, or a chain
+            widths = ([int(w) for w in self.hp.spec_tree.split(",")]
+                      if self.hp.spec_tree else [1] * self.spec_k)
+            self.spec_template = TreeTemplate.from_widths(widths)
             if draft.llm.vocab_size != llm.vocab_size:
                 raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
                                  f"target vocab {llm.vocab_size}")
@@ -191,8 +202,6 @@ class BatchScheduler:
             d = draft.llm
             self.d_kv = KVCache.create(d.n_layers, self.S, self.max_seq,
                                        d.n_kv_heads, d.head_size, self.device)
-        self.spec_k = max(int(self.hp.spec_k), 1)
-        self.spec_horizon = max(int(self.hp.spec_horizon), 1)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one generator per slot, re-seeded at each admission
@@ -211,11 +220,13 @@ class BatchScheduler:
             out_ti=z(S, H, N_TOP, dtype=torch.int64),
             out_tlp=z(S, H, N_TOP))
         if draft is not None:
-            # the spec tick's: the root is the token buffer
-            Hs, k = self.spec_horizon, self.spec_k
+            # the spec tick's: the root is the token buffer; a tree's
+            # draft levels attend with the mask as it was at its start
+            Hs, W = self.spec_horizon, self.spec_template.max_depth + 1
             self.bufs.update(root=self.bufs["tok"],
-                             spec_emitted=z(Hs, S, k + 1, dtype=torch.int64),
-                             spec_counts=z(Hs, S, dtype=torch.int64))
+                             spec_emitted=z(Hs, S, W, dtype=torch.int64),
+                             spec_counts=z(Hs, S, dtype=torch.int64),
+                             mask0=torch.zeros_like(self.d_kv.mask))
         self.graphs = StepGraphs(dev)
         self.slots = [_Slot() for _ in range(self.S)]
         self.prefix_cache = None
@@ -564,46 +575,59 @@ class BatchScheduler:
 
     @torch.no_grad()
     def _spec_decode_tick(self, decoding: list[int]) -> bool:
-        """spec_horizon steps of batched chain speculation for every
-        decoding slot, one host fetch at the end."""
-        k, H = self.spec_k, self.spec_horizon
+        """spec_horizon steps of batched chain or tree speculation for
+        every decoding slot, one host fetch at the end."""
+        tpl, H = self.spec_template, self.spec_horizon
+        D, N = tpl.max_depth, tpl.n_nodes
         if self.pool is not None:
-            # each step writes k + 1 entries, of which the accepted ones
-            # stay: up to H * (k + 1) committed plus one chain in flight
-            decoding = self._ensure_decode_pages(decoding,
-                                                 H * (k + 1) + k + 1)
+            # each step writes N entries, of which the accepted ones
+            # stay: up to H * (D + 1) committed plus one tree in flight
+            decoding = self._ensure_decode_pages(decoding, H * (D + 1) + N)
             if not decoding:
                 return True
         S = self.S
         gens = self._slot_settings(decoding)
         b = self.bufs
+        wor = bool(self.hp.spec_wor)
         if all(g is None for g in gens):
             # nothing is drawn: each step replays one graph
-            g = self.graphs.step(("spec",), lambda: (greedy_sample_step(
-                self.model, self.draft, self.kv, self.d_kv, b, k), b))
+            if tpl.is_chain:
+                key, build = ("spec",), lambda: greedy_sample_step(
+                    self.model, self.draft, self.kv, self.d_kv, b, D)
+            else:
+                key, build = ("tree", wor), lambda: (
+                    greedy_tree_sample_step(self.model, self.draft, self.kv,
+                                            self.d_kv, b, tpl,
+                                            "wor" if wor else "exact"))
+            g = self.graphs.step(key, lambda: (build(), b))
             b["step"].zero_()
             for _ in range(H):
                 g()
             emitted, counts, next_tok = (b["spec_emitted"],
                                          b["spec_counts"], b["root"])
-        else:
+        elif tpl.is_chain:
             emitted, counts, next_tok = chain_spec_sample_scan(
-                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, k,
+                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, D,
                 b["active"], gens, b["temp"], b["top_k"], b["top_p"])
+        else:
+            emitted, counts, next_tok = tree_spec_scan(
+                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, tpl,
+                b["active"], gens, b["temp"], b["top_k"], b["top_p"],
+                sample="wor" if wor else True)
         # one host fetch per tick
         flat = torch.cat([emitted.flatten(), counts.flatten(), next_tok,
                           self.kv.pos.long()]).cpu()
         n_e = emitted.numel()
-        emitted = flat[:n_e].reshape(H, S, k + 1).tolist()
+        emitted = flat[:n_e].reshape(H, S, D + 1).tolist()
         counts_h = flat[n_e:n_e + H * S].reshape(H, S)
         next_tok = flat[n_e + H * S:n_e + H * S + S].tolist()
         # the committed length before the tick: every step advanced each
         # slot by its count
         pos_pre = (flat[n_e + H * S + S:] - counts_h.sum(dim=0)).tolist()
         counts = counts_h.tolist()
-        room = self.max_seq - H * (k + 1) - (k + 1)
+        room = self.max_seq - H * (D + 1) - N
         self.n_spec_steps += H * len(decoding)
-        self.n_spec_drafted += H * len(decoding) * k
+        self.n_spec_drafted += H * len(decoding) * D
         self.n_spec_accepted += (sum(counts[h][i] for h in range(H)
                                      for i in decoding)
                                  - H * len(decoding))

@@ -174,6 +174,64 @@ class KVCache:
         self.mask &= keep | ~active[:, None]
         self.pos.copy_(new_pos.to(torch.int32))
 
+    # -- token-tree speculation: in place, fixed shapes, no host read ------
+
+    def set_mask(self, slot, index, value) -> None:
+        """Mask or unmask single positions of one slot."""
+        self.mask[slot, index] = value
+
+    def _gather_rows(self, src_positions: torch.Tensor, dst: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Storage rows [L, S, n, Hkv] to read (src_positions [S, n], each
+        in range) and to write (dst [S, n]; lanes whose source or
+        destination is out of range go to the spare row)."""
+        S, n = src_positions.shape
+        T = self.max_seq
+        ok = ((src_positions >= 0) & (src_positions < T) & (dst >= 0)
+              & (dst < T))
+        slot = torch.arange(S, device=dst.device)[:, None].expand(S, n)
+        src = self._storage_rows(torch.ones_like(ok), slot,
+                                 src_positions.long().clamp(0, T - 1))
+        return src, self._storage_rows(ok, slot,
+                                       torch.where(ok, dst, 0).long())
+
+    def gather_tokens(self, slot_indices, src_positions: torch.Tensor,
+                      dst_start: torch.Tensor) -> None:
+        """Batched compaction: move each slot's cached entries
+        src_positions[s, i] (-1: none) to dst_start[s] + i, every layer,
+        all read before any is written (a token tree's accepted path). A
+        lane whose source or destination is out of range is dropped.
+        slot_indices is not read: every slot takes its row."""
+        S, n = src_positions.shape
+        dst = (dst_start.long()[:, None]
+               + torch.arange(n, device=src_positions.device)[None, :])
+        src, dst = self._gather_rows(src_positions, dst)
+        for flat in self.storage:
+            flat[dst] = flat[src]
+
+    def commit_tokens(self, slot_indices, src_positions: torch.Tensor,
+                      n_accept: torch.Tensor) -> None:
+        """A token tree's acceptance: each slot's accepted entries
+        src_positions [S, n] (in acceptance order, -1 past n_accept [S])
+        move to pos .. pos + n_accept - 1, the mask is set there and pos
+        grows by n_accept."""
+        start = self.pos.long()
+        self.gather_tokens(slot_indices, src_positions, start)
+        end = start + n_accept.long()
+        col = torch.arange(self.max_seq, device=self.device)[None, :]
+        self.mask |= (col >= start[:, None]) & (col < end[:, None])
+        self.pos += n_accept.to(torch.int32)
+
+    def copy_token(self, slot, dst, src) -> None:
+        """Copy one cached entry src -> dst within a slot, every layer."""
+        S = self.n_slots
+        dev = self.device
+        rows = torch.arange(S, device=dev)
+        src = torch.where(rows == torch.as_tensor(slot, device=dev),
+                          torch.as_tensor(src, device=dev).long(), -1)
+        self.gather_tokens(rows, src[:, None],
+                           torch.as_tensor(dst, device=dev).long().expand(S))
+
     def reset_slot(self, slot: int) -> None:
         """Clear one slot."""
         self.mask[slot] = False

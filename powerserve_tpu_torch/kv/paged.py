@@ -119,6 +119,21 @@ class PagedKVCache(KVCache):
         for j, flat in enumerate(self.storage):
             flat[index] = torch.stack([b[j] for b in blocks])
 
+    def _gather_rows(self, src_positions: torch.Tensor, dst: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The dense cache's, in pool coordinates: a source on no page
+        reads the pool's last page (as the JAX pool clips it); a lane
+        whose source is out of range, or whose destination is out of
+        range or unallocated, is dropped."""
+        src_ok = (src_positions >= 0) & (src_positions < self.max_seq)
+        sp, so = self.locate(src_positions)
+        dp, do = self.locate(torch.where(src_ok, dst, -1))
+        src = self._storage_rows(torch.ones_like(src_ok),
+                                 sp.clamp(max=self.n_pages - 1).long(),
+                                 so.long())
+        return src, self._storage_rows(dp < self.n_pages, dp.long(),
+                                       do.long())
+
     def gather_slab(self, slab: torch.Tensor) -> torch.Tensor:
         """One layer's pool slab [P, Hkv, page(, D)] -> the per-slot view
         [S, Hkv, T_logical(, D)] in the dense cache's layout

@@ -64,7 +64,7 @@ from ..kv.paged import PagedKVCache
 from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
 from ..ops.flash_decode import (flash_decode_paged,
                                 flash_decode_paged_deferred,
-                                flash_decode_quant)
+                                flash_decode_quant, pack_intra)
 from ..ops.flash_prefill import flash_prefill_quant
 from ..ops.fused import FUSED_MAX_M, fused_linear
 from ..ops.moe import combine, group_dispatch
@@ -87,20 +87,26 @@ def moe_route(rows: int) -> tuple[str, int]:
 
 
 def attention(kv: KVCache, layer: int, q: torch.Tensor,
-              positions: torch.Tensor, scale: float) -> torch.Tensor:
+              positions: torch.Tensor, scale: float,
+              bits: torch.Tensor | None = None,
+              mask: torch.Tensor | None = None) -> torch.Tensor:
     """One layer's attention over the cache (the new K/V already
-    written): q [S, Tq, H, D]; positions int32 [S, Tq]; kv.mask as
-    before this batch. Returns f32 [S, Tq, H * D]."""
+    written): q [S, Tq, H, D]; positions int32 [S, Tq] (causal), or with
+    bits (int32 [Tq], a token tree's rows: ops/flash_decode.py) the key
+    positions [S, J]; mask [S, T] the committed visibility (default
+    kv.mask, as before this batch). Returns f32 [S, Tq, H * D]."""
     slabs = (kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer])
+    mask = kv.mask if mask is None else mask
     decode = q.shape[1] <= DECODE_MAX_TQ
     if isinstance(kv, PagedKVCache):
         if decode:
-            return flash_decode_paged(q, *slabs, kv.page_table, kv.mask,
-                                      positions, scale)
+            return flash_decode_paged(q, *slabs, kv.page_table, mask,
+                                      positions, scale, bits=bits)
         slabs = tuple(kv.gather_slab(t) for t in slabs)
     if decode:
-        return flash_decode_quant(q, *slabs, kv.mask, positions, scale)
-    return flash_prefill_quant(q, *slabs, kv.mask, positions[:, 0], scale)
+        return flash_decode_quant(q, *slabs, mask, positions, scale,
+                                  bits=bits)
+    return flash_prefill_quant(q, *slabs, mask, positions[:, 0], scale)
 
 
 class DeferredKV:
@@ -108,12 +114,17 @@ class DeferredKV:
     quantized new K/V attend as an in-flight block and are kept for the
     one commit after the layer loop."""
 
-    def __init__(self, kv: PagedKVCache, positions: torch.Tensor):
+    def __init__(self, kv: PagedKVCache, positions: torch.Tensor,
+                 intra: torch.Tensor | None = None):
+        """positions [S, Tq] where the new rows go; intra [Tq, Tq] bool,
+        which new rows each row sees (default causal; a token tree's
+        ancestor rows)."""
         S, Tq = positions.shape
         valid = (positions >= 0) & (positions < kv.max_seq)
-        causal = torch.ones(Tq, Tq, dtype=torch.bool,
-                            device=positions.device).tril()
-        self.intra = causal[None] & valid[:, None, :]  # [S, Tq, Tq]
+        if intra is None:
+            intra = torch.ones(Tq, Tq, dtype=torch.bool,
+                               device=positions.device).tril()
+        self.intra = intra.bool()[None] & valid[:, None, :]  # [S, Tq, Tq]
         self.blocks: list[tuple] = []
 
     def attend(self, kv: PagedKVCache, layer: int, q: torch.Tensor,
@@ -200,7 +211,9 @@ class LlamaLayer(nn.Module):
                 layer: int, cos: torch.Tensor, sin: torch.Tensor,
                 positions: torch.Tensor, index: torch.Tensor,
                 fuse: bool = False,
-                deferred: DeferredKV | None = None) -> torch.Tensor:
+                deferred: DeferredKV | None = None,
+                bits: torch.Tensor | None = None,
+                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
         eps = llm.norm_eps
@@ -237,7 +250,7 @@ class LlamaLayer(nn.Module):
             attn = deferred.attend(kv, layer, q, k, v, scale)
         else:
             kv.write(layer, k, v, index)
-            attn = attention(kv, layer, q, positions, scale)
+            attn = attention(kv, layer, q, positions, scale, bits, attn_mask)
         if fused:
             # attn_out stays f32 into the next norm and the residual sum,
             # as in the JAX fused chain
@@ -335,7 +348,11 @@ class LlamaModel(nn.Module):
                 positions: torch.Tensor, *,
                 active: torch.Tensor | None = None,
                 logits_mode: str = "last", fuse_layers: bool = False,
-                kv_update: str = "inline") -> torch.Tensor:
+                kv_update: str = "inline",
+                cache_positions: torch.Tensor | None = None,
+                intra_mask: torch.Tensor | None = None,
+                key_positions: torch.Tensor | None = None,
+                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         """One forward pass over a batch of slots; updates kv in place.
 
         kv: the dense KVCache or the paged PagedKVCache.
@@ -344,6 +361,19 @@ class LlamaModel(nn.Module):
         each slot's real positions must run contiguously from
         positions[:, 0], padding (-1) at the end — a prefill chunk.
         active: [S] bool rows whose pos advances (default all).
+        Token-tree speculation (Tq <= DECODE_MAX_TQ; the JAX forward's
+        cache_positions, intra_mask and vis_override):
+          cache_positions [S, Tq]: where the K/V rows are written and
+            marked, apart from the RoPE positions (node i of a tree at
+            c + i, its rope position c + depth(i));
+          intra_mask [Tq, J] bool: which keys each row sees besides the
+            committed mask (a verify's ancestor rows; default causal);
+          key_positions [S, J]: where those keys lie (default
+            cache_positions: a verify); a draft level passes all of the
+            tree's nodes and its own rows' ancestors-or-self;
+          attn_mask [S, T] bool: the committed visibility to attend with
+            (default kv.mask; a draft level passes the mask as it was at
+            the tree's start, since each level marks its own nodes).
         logits_mode: "last" -> f32 [S, vocab] for the final position;
           "all" -> [S, Tq, vocab]; "argmax" -> greedy tokens int32 [S];
           "argmax_all" -> greedy tokens int32 [S, Tq]; "none" -> [S, 0].
@@ -355,24 +385,35 @@ class LlamaModel(nn.Module):
         """
         llm = self.llm
         S, Tq = tokens.shape
+        cpos = positions if cache_positions is None else cache_positions
+        tree = (intra_mask is not None or key_positions is not None
+                or attn_mask is not None)
+        if tree and (Tq > DECODE_MAX_TQ or intra_mask is None):
+            raise ValueError("a token tree's options take an intra_mask "
+                             f"and at most {DECODE_MAX_TQ} query rows")
         deferred = None
         if kv_update == "deferred":
-            if not isinstance(kv, PagedKVCache) or Tq > DECODE_MAX_TQ:
-                raise ValueError("kv_update='deferred' takes the paged pool "
-                                 f"and at most {DECODE_MAX_TQ} query rows")
-            deferred = DeferredKV(kv, positions)
+            if (not isinstance(kv, PagedKVCache) or Tq > DECODE_MAX_TQ
+                    or key_positions is not None or attn_mask is not None):
+                raise ValueError("kv_update='deferred' takes the paged pool, "
+                                 f"at most {DECODE_MAX_TQ} query rows and "
+                                 "no key_positions or attn_mask")
+            deferred = DeferredKV(kv, cpos, intra_mask)
         elif kv_update != "inline":
             raise ValueError(f"kv_update {kv_update!r}")
         x = self.embed.lookup(tokens).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
-        pos32 = positions.to(torch.int32)
-        index = kv.write_index(positions)
+        keys = cpos if key_positions is None else key_positions
+        keys32 = keys.to(torch.int32)
+        bits = None if intra_mask is None else pack_intra(intra_mask)
+        index = kv.write_index(cpos)
         for i, layer in enumerate(self.layers):
-            x = layer(x, llm, kv, i, cos, sin, pos32, index,
-                      fuse=fuse_layers, deferred=deferred)
+            x = layer(x, llm, kv, i, cos, sin, keys32, index,
+                      fuse=fuse_layers, deferred=deferred, bits=bits,
+                      attn_mask=attn_mask)
         if deferred is not None:
             kv.commit(deferred.blocks, index)
-        kv.advance(positions, active=active)
+        kv.advance(cpos, active=active)
 
         if logits_mode == "none":
             return torch.zeros(S, 0, dtype=torch.float32, device=x.device)

@@ -17,14 +17,14 @@ NEG_INF = -1e30
 def build_visibility(cache_mask: torch.Tensor, positions: torch.Tensor,
                      intra_mask: torch.Tensor | None = None) -> torch.Tensor:
     """cache_mask [S, T] bool (tokens already appended); positions
-    [S, Tq] (where the new batch's tokens are written); intra_mask
-    [Tq, Tq] bool or None (causal: query q sees new token j <= q).
-    Returns visibility [S, Tq, T] bool."""
+    [S, J] (where the key tokens are written: the new batch's own, or a
+    token tree's nodes); intra_mask [Tq, J] bool (query q sees key j: a
+    tree's ancestor rows) or None (causal over the batch, J = Tq: query
+    q sees new token j <= q). Returns visibility [S, Tq, T] bool."""
     S, T = cache_mask.shape
-    Tq = positions.shape[1]
     dev = cache_mask.device
     if intra_mask is None:
-        qi = torch.arange(Tq, device=dev)
+        qi = torch.arange(positions.shape[1], device=dev)
         intra_mask = qi[None, :] <= qi[:, None]
     t = torch.arange(T, device=dev)
     eq = (t[None, None, :] == positions[:, :, None]).float()  # [S, j, T]

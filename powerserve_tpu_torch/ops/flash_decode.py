@@ -16,7 +16,14 @@ The visibility comes from the cache's mask [S, T] and the new rows'
 positions [S, Tq]: row tq sees t when mask[s, t] is set or some j <= tq
 has positions[s, j] == t (ops/attention.py::build_visibility with its
 causal intra mask; -1 and positions >= T match nothing). Without
-positions (the state mode's committed part) the mask alone.
+positions (the state mode's committed part) the mask alone. The tree
+mode takes key positions [S, J] (J <= MAX_KEYS) and one bit row per
+query, `bits` int32 [Tq] (pack_intra of an intra mask [Tq, J]): row tq
+sees t when mask[s, t] is set or some key j with bit j of bits[tq] has
+positions[s, j] == t. A token tree's verify passes its nodes' positions
+and ancestor rows, a draft level all nodes' positions and its own rows'
+ancestors, with the mask as it was before the tree. The causal rule is
+the tree mode with lower-triangular rows and J = Tq (the same bits).
 
 `flash_decode_quant` launches csrc/flash_decode.cu for CUDA tensors and
 runs the plain twin `flash_decode_quant_reference` for CPU tensors; the
@@ -57,6 +64,7 @@ _MAX_SPLITS = 16
 _TARGET_BLOCKS = 128
 MAX_ROWS = 128  # G * Tq query rows per kv head
 MAX_HEAD = 128
+MAX_KEYS = 32  # key positions of the tree mode (bits in a row)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -85,14 +93,35 @@ def kernel_walk(visibility: torch.Tensor, Hkv: int, G: int,
     return end, torch.where(end > 0, split, KERNEL_CHUNK)
 
 
+def pack_intra(intra: torch.Tensor) -> torch.Tensor:
+    """An intra mask [Tq, J] bool (J <= MAX_KEYS) as the kernel's bit rows
+    int32 [Tq]: bit j of row tq is intra[tq, j]."""
+    J = intra.shape[1]
+    if J > MAX_KEYS:
+        raise ValueError(f"{J} keys: the tree mode takes at most {MAX_KEYS}")
+    w = 2 ** torch.arange(J, dtype=torch.int64, device=intra.device)
+    v = (intra.long() * w).sum(dim=1)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def unpack_bits(bits: torch.Tensor, J: int) -> torch.Tensor:
+    """The kernel's bit rows int32 [Tq] as an intra mask [Tq, J] bool."""
+    j = torch.arange(J, device=bits.device)
+    return (bits.long()[:, None] >> j[None, :]) & 1 == 1
+
+
 def decode_visibility(mask: torch.Tensor, positions: torch.Tensor | None,
-                      Tq: int) -> torch.Tensor:
+                      Tq: int, bits: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """The kernel's visibility [S, Tq, T] bool: build_visibility(mask,
-    positions), or the mask alone for every row without positions."""
+    positions) (causal, or the tree mode's rows `bits` over the keys
+    positions [S, J]), or the mask alone for every row without
+    positions."""
     if positions is None:
         S, T = mask.shape
         return mask.bool()[:, None, :].expand(S, Tq, T)
-    return build_visibility(mask.bool(), positions.long())
+    intra = None if bits is None else unpack_bits(bits, positions.shape[1])
+    return build_visibility(mask.bool(), positions.long(), intra)
 
 
 def _decode_state(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -181,12 +210,15 @@ def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                                  vs: torch.Tensor, mask: torch.Tensor,
                                  positions: torch.Tensor | None,
                                  scale: float, chunk: int = KERNEL_CHUNK,
-                                 split: int | None = None) -> torch.Tensor:
+                                 split: int | None = None,
+                                 bits: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: mask [S, T] bool, positions
-    [S, Tq] (or None); split None: the kernel's walk (kernel_walk), else
-    all of T in states of `split` tokens. Returns f32 [S, Tq, H * D]."""
+    [S, Tq] (or None; with bits int32 [Tq], the tree mode, key positions
+    [S, J]); split None: the kernel's walk (kernel_walk), else all of T
+    in states of `split` tokens. Returns f32 [S, Tq, H * D]."""
     Hkv = kq.shape[1]
-    vis = decode_visibility(mask, positions, q.shape[1])
+    vis = decode_visibility(mask, positions, q.shape[1], bits)
     end = None
     if split is None:
         end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv)
@@ -213,16 +245,18 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                  positions: torch.Tensor | None,
                                  scale: float, chunk: int = KERNEL_CHUNK,
                                  split: int | None = None,
-                                 state: bool = False):
+                                 state: bool = False,
+                                 bits: torch.Tensor | None = None):
     """Plain PyTorch twin of the paged kernel: the gathered slot views
     through the dense twin. Pools [P, Hkv, page(, D)], page_table int32
-    [S, MP], mask bool [S, MP * page], positions [S, Tq] or None;
-    split as flash_decode_quant_reference's. state=True: (o [S, R, D],
-    m [S, R], l [S, R]) unnormalized, R = (h, g, tq)."""
+    [S, MP], mask bool [S, MP * page], positions [S, Tq] or None (with
+    bits, [S, J]); split and bits as flash_decode_quant_reference's.
+    state=True: (o [S, R, D], m [S, R], l [S, R]) unnormalized, R = (h, g,
+    tq)."""
     views = tuple(gather_pages(t, page_table)
                   for t in (k_pool, ks_pool, v_pool, vs_pool))
     Hkv = views[0].shape[1]
-    vis = decode_visibility(mask, positions, q.shape[1])
+    vis = decode_visibility(mask, positions, q.shape[1], bits)
     end = None
     if split is None:
         end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv, state)
@@ -234,14 +268,14 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
     return acc.reshape(S, -1, D), m.reshape(S, -1), l.reshape(S, -1)
 
 
-def _check_shapes(S: int, H: int, Hkv: int, Tq: int, D: int, T: int,
-                  page: int, dev: torch.device, name: str) -> None:
+def _check_shapes(S: int, H: int, Hkv: int, Tq: int, J: int, D: int,
+                  T: int, page: int, dev: torch.device, name: str) -> None:
     if H % Hkv or D % 4 or D > MAX_HEAD or H // Hkv * Tq > MAX_ROWS:
         raise ValueError(f"{name}: H={H}, Hkv={Hkv}, Tq={Tq}, D={D}: the "
                          f"kernel takes H % Hkv == 0, D % 4 == 0, "
                          f"D <= {MAX_HEAD} and G * Tq <= {MAX_ROWS}")
-    smem = cuda_lib.lib().ps_flash_decode_smem(S, Hkv, H // Hkv, Tq, T, D,
-                                               page)
+    smem = cuda_lib.lib().ps_flash_decode_smem(S, Hkv, H // Hkv, Tq, J, T,
+                                               D, page)
     limit = cuda_lib.max_dynamic_smem(dev)
     if smem > limit:
         raise ValueError(f"{name}: G*Tq={H // Hkv * Tq}, T={T}, D={D} "
@@ -250,44 +284,58 @@ def _check_shapes(S: int, H: int, Hkv: int, Tq: int, D: int, T: int,
 
 
 def _mask_positions(mask: torch.Tensor, positions: torch.Tensor | None,
-                    dev: torch.device, S: int, Tq: int, T: int) -> tuple:
-    """The kernel's mask (uint8 [S, T]) and positions (int32 [S, Tq] or
-    None): views of the caller's where they already are."""
+                    bits: torch.Tensor | None, dev: torch.device, S: int,
+                    Tq: int, T: int) -> tuple:
+    """The kernel's mask (uint8 [S, T]), positions (int32 [S, Tq], with
+    bits [S, J], or None) and bits (int32 [Tq] or None), and J: views of
+    the caller's tensors where they already are."""
     mask = mask.contiguous().view(torch.uint8)
     cuda_lib.require(mask, "mask", dev, (torch.uint8,), (S, T))
-    if positions is not None:
-        positions = positions.to(torch.int32).contiguous()
-        cuda_lib.require(positions, "positions", dev, (torch.int32,),
-                         (S, Tq))
-    return mask, positions
+    if positions is None:
+        if bits is not None:
+            raise ValueError("bits name keys: give their positions")
+        return mask, None, None, Tq
+    positions = positions.to(torch.int32).contiguous()
+    J = positions.shape[1] if bits is not None else Tq
+    cuda_lib.require(positions, "positions", dev, (torch.int32,), (S, J))
+    if bits is not None:
+        if not 0 < J <= MAX_KEYS:
+            raise ValueError(f"{J} keys: the tree mode takes 1 to "
+                             f"{MAX_KEYS}")
+        bits = bits.to(torch.int32).contiguous()
+        cuda_lib.require(bits, "bits", dev, (torch.int32,), (Tq,))
+    return mask, positions, bits, J
 
 
 def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                       vq: torch.Tensor, vs: torch.Tensor, mask: torch.Tensor,
-                      positions: torch.Tensor | None,
-                      scale: float) -> torch.Tensor:
-    """Launch csrc/flash_decode.cu (all operands on one CUDA device)."""
+                      positions: torch.Tensor | None, scale: float,
+                      bits: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch csrc/flash_decode.cu (all operands on one CUDA device); its
+    tree mode with bits."""
     dev = q.device
     S, Tq, H, D = q.shape
     if kq.dim() != 4:
         raise ValueError(f"kq must be [S, Hkv, T, D], got {tuple(kq.shape)}")
     Hkv, T = kq.shape[1], kq.shape[2]
-    _check_shapes(S, H, Hkv, Tq, D, T, 0, dev, "flash_decode")
     q = q.float().contiguous()
     cuda_lib.require(q, "q", dev, (torch.float32,), (S, Tq, H, D))
     for name, t in (("kq", kq), ("vq", vq)):
         cuda_lib.require(t, name, dev, (torch.int8,), (S, Hkv, T, D))
     for name, t in (("ks", ks), ("vs", vs)):
         cuda_lib.require(t, name, dev, (torch.float32,), (S, Hkv, T))
-    mask, positions = _mask_positions(mask, positions, dev, S, Tq, T)
+    mask, positions, bits, J = _mask_positions(mask, positions, bits, dev,
+                                               S, Tq, T)
+    _check_shapes(S, H, Hkv, Tq, J, D, T, 0, dev, "flash_decode")
     out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
     rc = cuda_lib.lib().ps_flash_decode(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), mask.data_ptr(), cuda_lib.ptr(positions),
-        out.data_ptr(), S, Tq, H, Hkv, T, D, float(scale),
-        cuda_lib.stream(dev))
-    cuda_lib.LAUNCHES["flash_decode"] += 1
-    cuda_lib.check(rc, "flash_decode")
+        cuda_lib.ptr(bits), out.data_ptr(), S, Tq, J, H, Hkv, T, D,
+        float(scale), cuda_lib.stream(dev))
+    name = "flash_decode" if bits is None else "flash_decode_tree"
+    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.check(rc, name)
     return out
 
 
@@ -295,17 +343,20 @@ def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                        vq: torch.Tensor, vs: torch.Tensor, mask: torch.Tensor,
                        positions: torch.Tensor | None, scale: float,
                        chunk: int = KERNEL_CHUNK,
-                       split: int | None = None) -> torch.Tensor:
+                       split: int | None = None,
+                       bits: torch.Tensor | None = None) -> torch.Tensor:
     """q: [S, Tq, H, D]; kq/vq: [S, Hkv, T, D] int8; ks/vs: [S, Hkv, T];
-    mask: [S, T] bool; positions: [S, Tq] int (or None: the mask alone).
-    Returns [S, Tq, H*D] f32."""
+    mask: [S, T] bool; positions: [S, Tq] int (or None: the mask alone);
+    bits: int32 [Tq] (pack_intra), the tree mode over key positions
+    [S, J]. Returns [S, Tq, H*D] f32."""
     if q.device.type == "cpu":
         return flash_decode_quant_reference(q, kq, ks, vq, vs, mask,
-                                            positions, scale, chunk, split)
+                                            positions, scale, chunk, split,
+                                            bits)
     if chunk != KERNEL_CHUNK or split is not None:
         raise ValueError(f"the kernel walks {KERNEL_CHUNK}-token steps in "
                          f"its own splits, got {chunk}, {split}")
-    return flash_decode_cuda(q, kq, ks, vq, vs, mask, positions, scale)
+    return flash_decode_cuda(q, kq, ks, vq, vs, mask, positions, scale, bits)
 
 
 def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -313,9 +364,10 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             vs_pool: torch.Tensor, page_table: torch.Tensor,
                             mask: torch.Tensor,
                             positions: torch.Tensor | None, scale: float,
-                            state: bool = False):
+                            state: bool = False,
+                            bits: torch.Tensor | None = None):
     """Launch csrc/flash_decode.cu in paged mode (one CUDA device); its
-    state mode with state=True."""
+    state mode with state=True, its tree mode with bits."""
     dev = q.device
     S, Tq, H, D = q.shape
     if k_pool.dim() != 4:
@@ -324,7 +376,6 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     P, Hkv, page = k_pool.shape[:3]
     MP = page_table.shape[1]
     T = MP * page
-    _check_shapes(S, H, Hkv, Tq, D, T, page, dev, "flash_decode_paged")
     q = q.float().contiguous()
     pt = page_table.to(torch.int32).contiguous()
     cuda_lib.require(q, "q", dev, (torch.float32,), (S, Tq, H, D))
@@ -333,7 +384,9 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     for name, t in (("ks_pool", ks_pool), ("vs_pool", vs_pool)):
         cuda_lib.require(t, name, dev, (torch.float32,), (P, Hkv, page))
     cuda_lib.require(pt, "page_table", dev, (torch.int32,), (S, MP))
-    mask, positions = _mask_positions(mask, positions, dev, S, Tq, T)
+    mask, positions, bits, J = _mask_positions(mask, positions, bits, dev,
+                                               S, Tq, T)
+    _check_shapes(S, H, Hkv, Tq, J, D, T, page, dev, "flash_decode_paged")
     if state:
         out = torch.empty(S, H * Tq, D, dtype=torch.float32, device=dev)
         m_out = torch.empty(S, H * Tq, dtype=torch.float32, device=dev)
@@ -344,10 +397,11 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     rc = cuda_lib.lib().ps_flash_decode_paged(
         q.data_ptr(), k_pool.data_ptr(), ks_pool.data_ptr(),
         v_pool.data_ptr(), vs_pool.data_ptr(), pt.data_ptr(),
-        mask.data_ptr(), cuda_lib.ptr(positions), out.data_ptr(),
-        cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq, H, Hkv, MP, page, P,
-        D, float(scale), cuda_lib.stream(dev))
-    name = "flash_decode_paged_state" if state else "flash_decode_paged"
+        mask.data_ptr(), cuda_lib.ptr(positions), cuda_lib.ptr(bits),
+        out.data_ptr(), cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq, J,
+        H, Hkv, MP, page, P, D, float(scale), cuda_lib.stream(dev))
+    name = ("flash_decode_paged_state" if state else "flash_decode_paged"
+            if bits is None else "flash_decode_paged_tree")
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.check(rc, name)
     return (out, m_out, l_out) if state else out
@@ -357,19 +411,22 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                        ks_pool: torch.Tensor, v_pool: torch.Tensor,
                        vs_pool: torch.Tensor, page_table: torch.Tensor,
                        mask: torch.Tensor, positions: torch.Tensor | None,
-                       scale: float, state: bool = False):
+                       scale: float, state: bool = False,
+                       bits: torch.Tensor | None = None):
     """q: [S, Tq, H, D]; k_pool/v_pool: [P, Hkv, page, D] int8;
     ks_pool/vs_pool: [P, Hkv, page]; page_table: [S, MP] int32 (P =
     unallocated); mask: [S, MP * page] bool; positions: [S, Tq] int or
-    None (the mask alone).
+    None (the mask alone); bits as flash_decode_quant's.
     Returns [S, Tq, H*D] f32; with state=True the unnormalized partition
     (o [S, R, D], m [S, R], l [S, R]), R = (h, g, tq) with tq minor."""
     if q.device.type == "cpu":
         return flash_decode_paged_reference(q, k_pool, ks_pool, v_pool,
                                             vs_pool, page_table, mask,
-                                            positions, scale, state=state)
+                                            positions, scale, state=state,
+                                            bits=bits)
     return flash_decode_paged_cuda(q, k_pool, ks_pool, v_pool, vs_pool,
-                                   page_table, mask, positions, scale, state)
+                                   page_table, mask, positions, scale, state,
+                                   bits)
 
 
 def flash_decode_paged_deferred(q: torch.Tensor, k_pool: torch.Tensor,

@@ -5,11 +5,13 @@ stdout and logs prefill/decode tok/s. Runs on the GPU (--device cuda,
 the default) through the port's kernels, or with --device cpu on the
 plain PyTorch path.
 
---draft <model dir> or --self-draft-layers N decode by chain speculation
-(speculative/chain.py, greedy acceptance: the tokens are the plain run's)
-with --spec-k draft tokens per step; --draft-head-rank R factors the
-draft's lm_head (speculative/draft_head.py). The JAX package's other
-engines (--spec-engine tree, device-tree, eagle) and EAGLE heads are not
+--draft <model dir> or --self-draft-layers N decode by speculation with
+greedy acceptance (the tokens are the plain run's): --spec-engine chain
+(speculative/chain.py, --spec-k draft tokens per step), device-tree
+(speculative/device_tree.py, a static tree of --spec-tree widths per
+depth) or tree (speculative/engine.py, the host-grown token tree; needs
+--draft). --draft-head-rank R factors the draft's lm_head
+(speculative/draft_head.py). The eagle engine and EAGLE heads are not
 ported yet.
 """
 
@@ -27,8 +29,10 @@ from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
 from .models.loader import gguf_architecture, load_gguf_model
 from .speculative.chain import ChainSpecEngine, with_draft_head
+from .speculative.device_tree import DeviceTreeEngine, TreeTemplate
 from .speculative.draft_head import make_draft_head
-from .speculative.engine import SpecStats
+from .speculative.engine import SpecStats, SpeculativeEngine
+from .speculative.tree import SpeculativeConfig
 from .tokenizer import Tokenizer
 
 log = get_logger("run")
@@ -81,10 +85,16 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="factor the draft's lm_head to this rank (the "
                          "emitted tokens do not change; acceptance may)")
     ap.add_argument("--spec-engine", default="chain",
-                    help="chain (ported); tree, device-tree and eagle are "
+                    choices=["chain", "tree", "device-tree", "eagle"],
+                    help="chain: the on-device chain; device-tree: the "
+                         "on-device token tree of --spec-tree; tree: the "
+                         "host-grown token tree (needs --draft); eagle is "
                          "not ported yet")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="chain draft length per speculative step")
+    ap.add_argument("--spec-tree", default="2,1,1",
+                    help="device-tree widths per depth (a node at depth d "
+                         "gets widths[d] draft children)")
     return ap.parse_args(argv)
 
 
@@ -112,7 +122,7 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
 
     log.info(f"loading model from {model_dir} on {args.device}")
     spec = None
-    if args.draft or args.self_draft_layers:
+    if args.draft or args.self_draft_layers or args.spec_engine != "chain":
         engine, tok = build_spec_engine(args, str(model_dir), hp)
         spec = SpecStats()
     else:
@@ -147,23 +157,39 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
 
 def build_spec_engine(args: argparse.Namespace, model_dir: str,
                       hp: HyperParams):
-    """The chain speculation engine of --draft / --self-draft-layers."""
-    if args.spec_engine != "chain":
-        raise SystemExit(f"--spec-engine {args.spec_engine}: not ported yet "
-                         f"(the port runs chain speculation)")
+    """The speculation engine of --spec-engine over --draft /
+    --self-draft-layers."""
+    if args.spec_engine == "eagle":
+        raise SystemExit("--spec-engine eagle: not ported yet")
     draft_dir = resolve_workspace(args.draft)[0] if args.draft else None
     if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
         raise SystemExit("EAGLE draft heads are not ported yet")
+    if args.spec_engine == "tree" and draft_dir is None:
+        raise SystemExit("--spec-engine tree needs --draft")
+    if draft_dir is None and not args.self_draft_layers:
+        raise SystemExit(f"--spec-engine {args.spec_engine} needs --draft "
+                         f"or --self-draft-layers")
     cfg, model = load_gguf_model(model_dir, device=args.device)
     tok = Tokenizer.from_model_dir(model_dir)
-    draft = None
-    if not args.self_draft_layers:
-        _, draft = load_gguf_model(draft_dir, device=args.device)
-    eng = ChainSpecEngine(model, cfg, draft,
-                          self_draft_layers=args.self_draft_layers,
-                          k=args.spec_k, max_seq=hp.max_seq_len,
-                          prefill_chunk=max(int(hp.batch_size), 1),
-                          device=args.device)
+    draft = d_cfg = None
+    if args.spec_engine == "tree" or not args.self_draft_layers:
+        d_cfg, draft = load_gguf_model(draft_dir, device=args.device)
+    common = dict(max_seq=hp.max_seq_len,
+                  prefill_chunk=max(int(hp.batch_size), 1),
+                  device=args.device)
+    if args.spec_engine == "tree":
+        eng = SpeculativeEngine(model, cfg, draft, d_cfg,
+                                SpeculativeConfig(), **common)
+    elif args.spec_engine == "device-tree":
+        tpl = TreeTemplate.from_widths(
+            [int(w) for w in args.spec_tree.split(",")])
+        eng = DeviceTreeEngine(model, cfg, draft,
+                               self_draft_layers=args.self_draft_layers,
+                               template=tpl, **common)
+    else:
+        eng = ChainSpecEngine(model, cfg, draft,
+                              self_draft_layers=args.self_draft_layers,
+                              k=args.spec_k, **common)
     if args.draft_head_rank:
         eng.draft = with_draft_head(eng.draft, make_draft_head(
             eng.draft.lm_head, rank=args.draft_head_rank))

@@ -242,6 +242,14 @@ def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
     return categorical_from_dist(probs, generators)
 
 
+def draft_probs(logits: torch.Tensor, top_k: int, temperature: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The host tree engine's draft sampler: TopK -> Temperature ->
+    Softmax over rows [S, V]. Returns (probs f32 [S, k], ids [S, k])."""
+    vals, ids = torch.topk(logits.float(), top_k, dim=-1)
+    return torch.softmax(vals / max(temperature, 1e-6), dim=-1), ids
+
+
 def categorical_from_dist(dist: torch.Tensor,
                           generators: list[torch.Generator | None]
                           ) -> torch.Tensor:

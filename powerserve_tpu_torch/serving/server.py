@@ -12,21 +12,25 @@ tokenizes, submits to the model's BatchScheduler and waits on a queue;
 only the scheduler thread touches the device. Streams are chunked
 `text/event-stream` responses.
 
-A model name "main+draft" serves `main` with chain speculation from
-the model dir `draft`, "main+self:N" from a self-draft over main's first
-N layers (speculative/chain.py): a scheduler of its own, on the weights
-of main's plain context (loaded once, shared). --spec-k sets the draft
-length, --spec-horizon the speculative steps per scheduler tick and
---draft-head-rank factors the draft's lm_head. Logprobs and penalties
-are not applied by speculative ticks, so such requests on a speculative
-name get a 400, as does a draft whose vocab differs from main's.
+A model name "main+draft" serves `main` with speculation from the model
+dir `draft`, "main+self:N" from a self-draft over main's first N layers
+(speculative/chain.py): a scheduler of its own, on the weights of main's
+plain context (loaded once, shared). --spec-k sets the chain's draft
+length, --spec-tree W,... a token tree in its place (widths per depth,
+speculative/device_tree.py; --spec-wor verifies children drawn without
+replacement by recursive rejection), --spec-horizon the speculative
+steps per scheduler tick and --draft-head-rank factors the draft's
+lm_head. Logprobs and penalties are not applied by speculative ticks, so
+such requests on a speculative name get a 400, as does a draft whose
+vocab differs from main's.
 
-Not ported yet, and answered with a 400: EAGLE draft heads, speculation
-trees (--spec-tree), VLM models and images, sessions.
+Not ported yet, and answered with a 400: EAGLE draft heads, VLM models
+and images, sessions.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
-        --page-size P] [--max-slots S] [--spec-k K] [--spec-horizon H]
-        [--draft-head-rank R] [--device cuda|cpu]
+        --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
+        [--spec-wor]] [--spec-horizon H] [--draft-head-rank R]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -212,9 +216,6 @@ class ServerContext:
         """"main+draft" / "main+self:N": a speculating scheduler over the
         weights of main's plain context."""
         main_name, draft_name = name.split("+", 1)
-        if self.hp.spec_tree:
-            raise HTTPError(400, f"model '{name}': speculation trees "
-                                 f"(--spec-tree) are not ported yet")
         draft_dir = None
         if not draft_name.startswith("self:"):
             draft_dir = self.resolve_dir(draft_name)
@@ -239,7 +240,11 @@ class ServerContext:
         if self.hp.draft_head_rank:
             draft = with_draft_head(draft, make_draft_head(
                 draft.lm_head, rank=int(self.hp.draft_head_rank)))
-        sched = BatchScheduler(model, cfg, self.hp, self.device, draft=draft)
+        try:
+            sched = BatchScheduler(model, cfg, self.hp, self.device,
+                                   draft=draft)
+        except ValueError as e:  # a tree the verify cannot take
+            raise HTTPError(400, f"model '{name}': {e}") from e
         sched.start()
         ctx = ModelContext(name, sched, base.tokenizer)
         self.models[name] = ctx
@@ -653,8 +658,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="factor the draft's lm_head to this rank at load "
                          "(0 = exact head)")
     ap.add_argument("--spec-tree", default="",
-                    help="speculation tree widths: not ported yet (such "
-                         "requests get a 400)")
+                    help="speculation-tree widths per depth for "
+                         "\"main+draft\" models, e.g. 2,1,1 (default: a "
+                         "chain of --spec-k)")
+    ap.add_argument("--spec-wor", action="store_true",
+                    help="tree speculation verifies children sampled "
+                         "without replacement (recursive rejection) "
+                         "instead of exact-match on greedy top-k")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
     args = ap.parse_args(argv)
@@ -677,6 +687,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.draft_head_rank:
         hp.draft_head_rank = args.draft_head_rank
     hp.spec_tree = args.spec_tree or hp.spec_tree
+    hp.spec_wor = args.spec_wor or hp.spec_wor
     ctx = ServerContext(root_dir, default, hp, args.device)
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")

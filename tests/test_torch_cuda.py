@@ -1217,3 +1217,247 @@ def test_deleting_an_engine_frees_its_graph_pool(dev, tmp_path):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(dev) == base
+
+
+# -- token-tree speculation: the tree mode of flash-decode and the replayed
+# tree steps ----------------------------------------------------------------
+
+
+def _tree_case(g, dev, S, N_keys, starts, T, inactive=()):
+    """A committed prefix [0, starts[s]) per slot and key positions
+    starts[s] + j (j < N_keys); an inactive slot's keys are -1."""
+    mask = (torch.arange(T, device=dev)[None, :]
+            < torch.tensor(starts, device=dev)[:, None])
+    keys = (torch.tensor(starts, device=dev)[:, None]
+            + torch.arange(N_keys, device=dev)[None, :]).to(torch.int32)
+    for s in inactive:
+        keys[s] = -1
+    return mask, keys
+
+
+def _tree_rows(widths, level=None):
+    """A template's intra rows: the verify's ancestor rows [N, N], or a
+    draft level's [len(level), N]."""
+    from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
+
+    tpl = TreeTemplate.from_widths(widths)
+    anc = torch.from_numpy(tpl.anc)
+    return anc if level is None else anc[torch.from_numpy(
+        tpl.levels[level]).long()]
+
+
+@pytest.mark.parametrize("S,H,Hkv,D,T", [(1, 32, 8, 128, 2048),
+                                         (3, 8, 2, 64, 300),
+                                         (8, 32, 8, 128, 1024)])
+@pytest.mark.parametrize("rows", ["verify", "level1", "level2", "random"])
+@pytest.mark.parametrize("widths", [[2, 1, 1], [2, 2, 1]])
+def test_flash_decode_tree_kernel(dev, S, H, Hkv, D, T, rows, widths):
+    """The tree mode against its twin (the paged mode's tolerance: a
+    p * vs next to a bf16 midpoint may round the other way): a verify's
+    ancestor rows, a draft level's rows over all nodes, and random bit
+    rows over 32 keys with repeated, -1 and past-T positions; an
+    inactive slot; one launch of the tree counter; the same bits
+    twice."""
+    from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(S * T + len(rows))
+    N = _tree_rows(widths).shape[0]
+    starts = [min(T - 40, 500 + 61 * s) for s in range(S)]
+    if rows == "random":
+        J, Tq = 32, 16
+        intra = torch.rand(Tq, J, generator=g, device=dev) < 0.3
+        mask, keys = _tree_case(g, dev, S, J, starts, T)
+        keys[:, 5] = keys[:, 3]
+        keys[:, 9] = -1
+        keys[:, 11] = T + 2
+    else:
+        intra = (_tree_rows(widths) if rows == "verify"
+                 else _tree_rows(widths, int(rows[-1])))
+        Tq = intra.shape[0]
+        mask, keys = _tree_case(g, dev, S, N, starts, T,
+                                inactive=(S - 1,) if S > 1 else ())
+    bits = pack_intra(intra.to(dev))
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    args = (q, kq, ks, vq, vs, mask, keys, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_decode_tree"]
+    got = flash_decode_cuda(*args, bits=bits)
+    again = flash_decode_cuda(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_decode_tree"] == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    _close_flips(got, flash_decode_quant_reference(*args, bits=bits), vs)
+
+
+@pytest.mark.parametrize("Tq,H,Hkv,D", [(1, 32, 8, 128), (5, 32, 8, 128),
+                                        (16, 8, 2, 64), (7, 4, 1, 40)])
+def test_flash_decode_causal_rows_keep_their_bits(dev, Tq, H, Hkv, D):
+    """The causal rule is the tree mode with lower-triangular rows: both
+    give the bits of today's call, dense and paged."""
+    from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(Tq * D)
+    S, T, page = 3, 1024, 64
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _cache(g, dev, S, Hkv, T, D)
+    mask, pos = _mask_positions(g, dev, S, Tq, T)
+    causal = pack_intra(torch.ones(Tq, Tq, dtype=torch.bool,
+                                   device=dev).tril())
+    args = (q, kq, ks, vq, vs, mask, pos, 0.1)
+    assert torch.equal(flash_decode_cuda(*args, bits=causal),
+                       flash_decode_cuda(*args))
+    MP = T // page
+    pt = _page_table(g, dev, S, MP, S * MP, [MP] * S)
+    kp, ksp, vp, vsp = _cache(g, dev, S * MP, Hkv, page, D)
+    pargs = (q, kp, ksp, vp, vsp, pt, mask, pos, 0.1)
+    assert torch.equal(flash_decode_paged_cuda(*pargs, bits=causal),
+                       flash_decode_paged_cuda(*pargs))
+
+
+@pytest.mark.parametrize("page", [8, 64])
+@pytest.mark.parametrize("rows", ["verify", "level1"])
+def test_flash_decode_paged_tree_kernel(dev, page, rows):
+    """The paged tree mode against its twin: 8 slots, a [2, 1, 1] tree
+    over 560-650 positions, scrambled pages, an inactive slot."""
+    from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(page)
+    S, H, Hkv, D, MP_tokens = 8, 32, 8, 128, 2048
+    intra = (_tree_rows([2, 1, 1]) if rows == "verify"
+             else _tree_rows([2, 1, 1], 1)).to(dev)
+    Tq, N = intra.shape
+    MP = MP_tokens // page
+    starts = [560 + 13 * s for s in range(S)]
+    n_alloc = [-(-(c + N) // page) for c in starts]
+    P = sum(n_alloc) + 3
+    pt = _page_table(g, dev, S, MP, P, n_alloc)
+    kp, ksp, vp, vsp = _cache(g, dev, P, Hkv, page, D)
+    mask, keys = _tree_case(g, dev, S, N, starts, MP * page, inactive=(3,))
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    bits = pack_intra(intra)
+    args = (q, kp, ksp, vp, vsp, pt, mask, keys, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_decode_paged_tree"]
+    got = flash_decode_paged_cuda(*args, bits=bits)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_decode_paged_tree"] == before + 1
+    assert torch.equal(got, flash_decode_paged_cuda(*args, bits=bits))
+    _close_flips(got, flash_decode_paged_reference(*args, bits=bits), vsp)
+
+
+@pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
+@pytest.mark.parametrize("draft", ["self:1", "separate"])
+def test_tree_steps_replay_match_eager(dev, tmp_path, preset, draft):
+    """Replayed greedy tree_spec_scan ([2, 1, 1], two slots, one of them
+    inactive in the second call) against the same steps eager: tokens,
+    counts and root, both caches bit for bit, the same launch counts
+    (the tree mode's among them); then a replay without a host sync."""
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.speculative.chain import self_draft_model
+    from powerserve_tpu_torch.speculative.device_tree import (TreeTemplate,
+                                                              tree_spec_scan)
+
+    cfg, model = _graph_model(tmp_path / "t", preset, dev)
+    d_model = (self_draft_model(model, 1) if draft == "self:1"
+               else _graph_model(tmp_path / "d", preset, dev)[1])
+    tpl = TreeTemplate.from_widths([2, 1, 1])
+    S = 2
+
+    def prefilled(m):
+        llm = m.llm
+        kv = KVCache.create(llm.n_layers, S, 128, llm.n_kv_heads,
+                            llm.head_size, dev)
+        toks = torch.arange(S * 9, device=dev).reshape(S, 9) * 5 % 200 + 3
+        pos = torch.arange(9, device=dev).expand(S, 9).clone()
+        pos[0, 6:] = -1
+        m(kv, toks, pos, logits_mode="none")
+        return kv
+
+    t1, d1 = prefilled(model), prefilled(d_model)
+    t2, d2 = t1.clone(), d1.clone()
+    r1 = r2 = torch.tensor([7, 9], device=dev)
+    for n, act in ((5, [True, True]), (4, [False, True])):
+        active = torch.tensor(act, device=dev)
+        (tok1, c1, r1), counts = _counted(lambda: tree_spec_scan(
+            model, d_model, t1, d1, r1, n, tpl, active))
+        with _eager_steps():
+            (tok2, c2, r2), eager = _counted(lambda: tree_spec_scan(
+                model, d_model, t2, d2, r2, n, tpl, active))
+        assert torch.equal(tok1, tok2) and torch.equal(c1, c2)
+        assert torch.equal(r1, r2)
+        assert counts == eager and counts["flash_decode_tree"] > 0
+        _same_cache_bits(t1, t2)
+        _same_cache_bits(d1, d2)
+    _replays_without_sync(graphs_of(t1))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("wor", [False, True])
+def test_tree_ticks_replay_match_eager(dev, tmp_path, paged, wor):
+    """Three greedy tree ticks of the scheduler (spec_tree "2,1", a
+    1-layer self-draft, two steps a tick; the dense cache or the paged
+    pool, whose verify takes the deferred route with the ancestor rows)
+    replayed against the same ticks eager: the same emitted tokens and
+    counts, both caches bit for bit, the same launch counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+    from powerserve_tpu_torch.speculative.chain import self_draft_model
+
+    cfg, model = _graph_model(tmp_path, "tiny-k", dev)
+
+    def sched():
+        hp = HyperParams(max_slots=4, batch_size=8, max_seq_len=128,
+                         spec_tree="2,1", spec_wor=wor, spec_horizon=2,
+                         paged_pages=40 if paged else 0, page_size=8)
+        s = BatchScheduler(model, cfg, hp, device=dev,
+                           draft=self_draft_model(model, 1))
+        for r in _sched_requests(0.0):
+            s.submit(Request(max_tokens=60, **r))
+        s._admit()
+        while s._prefill_tick():
+            pass
+        return s
+
+    got, want = sched(), sched()
+    for _ in range(3):
+        _, counts = _counted(got._decode_tick)
+        with _eager_steps():
+            _, eager = _counted(want._decode_tick)
+        for name in ("spec_emitted", "spec_counts", "root"):
+            assert torch.equal(got.bufs[name], want.bufs[name]), name
+        assert counts == eager
+        _same_cache_bits(got.kv, want.kv)
+        _same_cache_bits(got.d_kv, want.d_kv)
+    assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
+    _replays_without_sync(got.graphs)
+
+
+def test_device_tree_engine_cuda_matches_plain(dev, tmp_path):
+    """Greedy DeviceTreeEngine runs on the card ([2, 1, 1]; a 1-layer
+    self-draft and a separate draft) against the plain engine's tokens
+    on the card (near-tie rule), through the tree mode of flash-decode."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.speculative.device_tree import DeviceTreeEngine
+
+    cfg, model = _graph_model(tmp_path / "t", "tiny-k", dev)
+    _, d_model = _graph_model(tmp_path / "d", "tiny-k", dev)
+    hp = HyperParams(max_slots=1, batch_size=8, max_seq_len=128)
+    hp.sampler.temperature = 0.0
+    plain = InferenceEngine(model, cfg, hp, device=dev)
+    prompt = [3, 17, 5, 9, 44, 12]
+    want = list(plain.generate(prompt, 20))
+    for kw in (dict(self_draft_layers=1), dict(draft=d_model)):
+        before = cuda_lib.launch_counts()["flash_decode_tree"]
+        got = list(DeviceTreeEngine(model, cfg, block_steps=4, max_seq=128,
+                                    device=dev, **kw).generate(prompt, 20))
+        assert cuda_lib.launch_counts()["flash_decode_tree"] > before
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if i is not None:
+            plain.reset()
+            top2 = plain.prefill(prompt + want[:i]).topk(2).values
+            assert float(top2[0] - top2[1]) < 0.5, (i, got, want)

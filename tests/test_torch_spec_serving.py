@@ -245,11 +245,40 @@ def test_spec_model_rejects_logprobs_penalties_and_unported(server, root):
     assert status == 400 and b"vocab" in raw
     status, raw = _post(port, {**body, "model": "model+eagle"})
     assert status == 400 and b"not ported yet" in raw
+    # speculation trees are served (their replies: test_tree_spec_models_
+    # serve_the_plain_replies), and keep refusing logprobs; a tree the
+    # verify cannot take is a 400 naming the limit
     tree_port, _ = server(spec_tree="2,1")
-    status, raw = _post(tree_port, body)
-    assert status == 400 and b"not ported yet" in raw
+    assert _post(tree_port, body)[0] == 200
+    assert _post(tree_port, {**body, "logprobs": 2})[0] == 400
+    big_port, _ = server(spec_tree="3,2,2")
+    status, raw = _post(big_port, body)
+    assert status == 400 and b"16" in raw
     # the plain name keeps logprobs
     assert _post(port, {**body, "model": "model", "logprobs": 2})[0] == 200
+
+
+@pytest.mark.parametrize("pool,wor", [({}, False),
+                                      (dict(paged_pages=12, page_size=8),
+                                       False), ({}, True)])
+def test_tree_spec_models_serve_the_plain_replies(server, tiny, pool, wor):
+    """`serve --spec-tree 2,1 [--spec-wor]`: "model+self:1" and
+    "model+draft" answer four concurrent greedy requests with the plain
+    model's replies (near ties aside), on the dense cache and on a pool
+    small enough to preempt."""
+    port, ctx = server(spec_tree="2,1", spec_wor=wor, **pool)
+    base = _texts(port, "model", PROMPTS)
+    tok = Tokenizer.from_model_dir(ctx.root / "model")
+    for name in ("model+self:1", "model+draft"):
+        got = _texts(port, name, PROMPTS)
+        for p, g, b in zip(PROMPTS, got, base):
+            assert g["finish_reason"] == b["finish_reason"]
+            if g["text"] != b["text"]:
+                _agree(tok.tokenize(g["text"], add_bos=False),
+                       tok.tokenize(b["text"], add_bos=False),
+                       tok.tokenize(p), tiny[2])
+        sched = ctx.models[name].scheduler
+        assert sched.spec_template.n_nodes == 5 and sched.n_spec_steps > 0
 
 
 @pytest.mark.parametrize("draft", ["self", "separate", "workspace"])
@@ -268,4 +297,4 @@ def test_cli_speculation_equals_run(root, tiny, draft):
         run.run_prompt(run.parse_args(base + ["--draft", str(root / "eagle")]))
     with pytest.raises(SystemExit):
         run.run_prompt(run.parse_args(base + extra + ["--spec-engine",
-                                                      "tree"]))
+                                                      "eagle"]))
