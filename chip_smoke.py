@@ -38,12 +38,19 @@ Phases, each printing one JSON line:
              argmax -> a factored head's V), each beside the plain GEMV on
              its weight and rows (the fused head too: 4096 -> 128256), and
              the state mode of paged flash-decode (S = 8, Tq = 5, a slot
-             that sees nothing)
+             that sees nothing); last, flash-decode's tree mode at a
+             [2, 1, 1] token tree's shapes (a verify and a draft level at
+             S = 1 over 2048 positions, the paged verify at S = 8 over
+             560-650, each twice bit for bit, SDPA with the same
+             visibility for information) and the causal rule's bits
+             through the tree mode, dense and paged
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
              cpu plain path (tiny and tiny-k also with
-             --self-draft-layers 1 and with --draft, whose tokens must be
-             the plain run's);
+             --self-draft-layers 1 and with --draft, by a chain and by
+             --spec-engine device-tree --spec-tree 2,1,1, and with
+             --spec-engine tree --draft, whose tokens must be the plain
+             run's);
              tokens must agree (a divergence only where the cpu top-2
              logit gap is < 0.5) and every kernel's launch count must
              rise; the logits of the prompt and of each generated token
@@ -101,6 +108,20 @@ Phases, each printing one JSON line:
              and that deferred verify under
              set_sync_debug_mode("error"). Acceptance is reported, not
              held (random weights)
+  tree_full_width  token trees on llama-8b: DeviceTreeEngine with the
+             [2, 1, 1] tree and a 4-layer self-draft, 512 + 64 greedy
+             tokens, each tree step a replayed graph, against its eager
+             twin (tokens, both caches bit for bit, launch counts; a
+             second steady call of each; one more replayed block under
+             set_sync_debug_mode("error")) and against generate's
+             tokens; the host SpeculativeEngine with a llama-1b draft, 16
+             tokens, against generate's
+  tree_serve_full_width  "model+self:4" with --spec-tree 2,1,1 on
+             serve_full_width's paged pool and traffic (its greedy tree
+             ticks replayed, and the eager twin): every reply
+             serve_full_width's (near-tie rule), the paged tree mode
+             launched by the verify, one more request at temperature 0.8
+             with a seed that must not end in "error"
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -135,7 +156,9 @@ counts from each kernel's own path: the
 llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
 grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
-the fused-linear modes and the state mode), the card's
+the fused-linear modes and the state mode, tree_full_width's device tree
+for the tree mode and tree_serve_full_width for the paged tree mode),
+the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -1023,15 +1046,25 @@ def phase_cli() -> dict:
                                   launches=counts)
             if preset == "tiny-moe":
                 continue
-            # chain speculation: a 1-layer self-draft and a separate draft
-            # (the same preset, another seed), each on cuda and on cpu;
-            # greedy tokens must be the plain run's on the same device
+            # speculation: chains with a 1-layer self-draft and with a
+            # separate draft (the same preset, another seed), the device
+            # tree [2, 1, 1] with each, and the host-grown tree with the
+            # separate draft, each on cuda and on cpu; greedy tokens must
+            # be the plain run's on the same device
             draft = make_synthetic_gguf(f"{tmp}/{preset}-draft", preset,
                                         quant, seed=7, seq_len=256)
+            d_arg = ["--draft", str(draft / "model")]
+            dtree = ["--spec-engine", "device-tree", "--spec-tree", "2,1,1"]
             spec = {}
-            for label, extra in (
-                    ("self-draft-layers 1", ["--self-draft-layers", "1"]),
-                    ("draft", ["--draft", str(draft / "model")])):
+            for label, extra, need_ in (
+                    ("self-draft-layers 1", ["--self-draft-layers", "1"],
+                     SPEC_NEED),
+                    ("draft", d_arg, SPEC_NEED),
+                    ("device-tree self-draft-layers 1",
+                     dtree + ["--self-draft-layers", "1"], TREE_NEED),
+                    ("device-tree draft", dtree + d_arg, TREE_NEED),
+                    ("tree draft", ["--spec-engine", "tree"] + d_arg,
+                     ("qmatmul", "fused_head", "flash_decode_tree"))):
                 for dev_name, plain, eng in (("cuda", gpu, eng_gpu),
                                              ("cpu", cpu, eng_cpu)):
                     cuda_lib.reset_launch_counts()
@@ -1040,7 +1073,7 @@ def phase_cli() -> dict:
                                         dev_name]))
                     spec_counts = cuda_lib.launch_counts()
                     if dev_name == "cuda":
-                        missing = [k for k in SPEC_NEED
+                        missing = [k for k in need_
                                    if not spec_counts[k]]
                         if missing:
                             raise AssertionError(f"{preset} spec {label}: "

@@ -37,12 +37,15 @@
 //    wave on the card.
 //  - The visibility is formed in the kernel: a block reads its slot's
 //    mask row once (16-byte cp.async) and the slot's J key positions, and
-//    keeps one byte per token of its range: kMask for a committed one,
-//    else the first key j written there. A lane holds the keys its two
-//    rows see as 32 bits each (in the tree mode: the bit rows with every
-//    key folded onto the first key of its position, so a position that
-//    two keys share is seen through either), and a score is kept where
-//    its byte is kMask or names a key of the row (causal: j <= tq). A
+//    keeps one byte per token of its range: the first key j written
+//    there, or a committed one's mark (causal: 0, the first row that
+//    sees it; tree mode: kMask). In the tree mode a lane holds the keys
+//    its two rows see as 32 bits each (the bit rows with every key folded
+//    onto the first key of its position, so a position that two keys
+//    share is seen through either), and a score is kept where its byte is
+//    kMask or names a key of the row; causal, where the byte is <= tq
+//    (the two rules are two instantiations of the kernel, so the causal
+//    one runs none of the tree mode's set-up). A
 //    slot walks only [0, end), end = 1 + the last position a row sees,
 //    so a short sequence in a long cache costs its length, split over
 //    all the cluster's blocks. Steps no row sees are skipped
@@ -159,7 +162,7 @@ struct Smem {
   float* w;           // [tg][Rp]: the token groups' merge weights
   int *pos, *flags, *list, *misc;  // misc: n_list, per-warp last mask bit
   int* first;         // [J]: the first key at the same position (tree mode)
-  uint32_t* kbits;    // [Tq]: the keys a row sees, folded (tree mode)
+  uint32_t *bits, *kbits;  // [Tq]: the keys a row sees, as given and folded
   int* pages;         // [T / page]: the slot's page table, clipped
   uint8_t* mask;      // [T]: the slot's mask row
   uint8_t* vf;        // [bs]: first row that sees the token
@@ -191,6 +194,7 @@ __host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int J,
   m.list = (int*)take((size_t)4 * g.n_steps);
   m.misc = (int*)take(4 * (1 + kMaxWarps));
   m.first = (int*)take((size_t)4 * (J > 0 ? J : 1));
+  m.bits = (uint32_t*)take((size_t)4 * Tq);
   m.kbits = (uint32_t*)take((size_t)4 * Tq);
   m.pages = (int*)take((size_t)4 * n_pt);
   m.mask = take(T);
@@ -229,7 +233,10 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 
 // One warp's 16-token step for its 16-row tile: scores, online softmax,
 // P . V into acc. kt: the step's staged K rows, then V rows, then ks, vs.
-template <int DB>
+// kTree: a token's byte names a key that a row sees when its bit in the
+// row's kb is set (kMask: every row); else the causal rule, the byte the
+// first row that sees it.
+template <int DB, bool kTree>
 __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
                                           const Smem& sm, const uint8_t* kt,
                                           int tl0, const uint32_t (&qa)[DB][4],
@@ -273,8 +280,8 @@ __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
       float x;
       if (v == kPast)
         x = -INFINITY;
-      else if (v == kMask ||
-               (v < kMask && (a.bits ? (kb[h] >> v) & 1u : tq[h] >= v)))
+      else if (kTree ? v == kMask || (v < kMaxKeys && (kb[h] >> v) & 1u)
+                     : tq[h] >= v)
         x = sc[j][c] * (kss[t] * a.scale);
       else
         x = PS_NEG_INF;
@@ -330,7 +337,9 @@ __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
   }
 }
 
-template <int DB>
+// kTree: the tree mode (bit rows given); else the causal rule, or the
+// mask alone without positions
+template <int DB, bool kTree>
 __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     Args a) {
   namespace cg = cooperative_groups;
@@ -347,7 +356,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   smem_layout(geo, a.Tq, a.J, a.T, n_pt, smem, &sm);
 
   // every load of the set-up at once, by cp.async: q rows (f32, staged
-  // in the ring's space), the slot's mask row, page table and positions
+  // in the ring's space), the slot's mask row, page table, positions and
+  // bit rows
   float* qf = reinterpret_cast<float*>(sm.ring);
   const int d4 = a.D / 4;
   for (int e = tid; e < geo.R * d4; e += nthr) {
@@ -372,6 +382,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     else
       sm.pos[j] = -1;
   }
+  if (kTree)
+    for (int r = tid; r < a.Tq; r += nthr) cp_async4(sm.bits + r, a.bits + r, true);
   for (int i = tid; i < geo.n_steps; i += nthr) sm.flags[i] = 0;
   cp_async_commit();
   cp_async_wait<0>();
@@ -397,7 +409,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   last = __reduce_max_sync(0xffffffffu, last);
   if (lane == 0) sm.misc[1 + warp] = last;
   const auto valid = [&](int j) { return sm.pos[j] >= 0 && sm.pos[j] < a.T; };
-  if (a.bits) {
+  if (kTree) {
     // each key folded onto the first key at its position
     for (int j = tid; j < a.J; j += nthr) {
       int f = j;
@@ -410,7 +422,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     }
     __syncthreads();
     for (int r = tid; r < a.Tq; r += nthr) {
-      const uint32_t b = a.bits[r];
+      const uint32_t b = sm.bits[r];
       uint32_t k = 0;
       for (int j = 0; j < a.J; ++j)
         if ((b >> j) & 1u && valid(j)) k |= 1u << sm.first[j];
@@ -423,7 +435,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   for (int w = 0; w < geo.warps; ++w) end = max(end, sm.misc[1 + w]);
   bool all_rows = end > 0;  // every row sees something
   uint32_t seen = 0;        // tree mode: the keys some row sees
-  if (a.bits) {
+  if (kTree) {
     bool each = true;
     for (int r = 0; r < a.Tq; ++r) {
       seen |= sm.kbits[r];
@@ -447,13 +459,13 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     const int tt = b0 + t;
     uint8_t v = kPast;
     if (tt < end) {
-      v = sm.mask[tt] ? kMask : kHidden;
+      v = sm.mask[tt] ? (kTree ? kMask : 0) : kHidden;
       for (int j = 0; j < a.J && v == kHidden; ++j)
         if (sm.pos[j] == tt) v = (uint8_t)j;
     }
     sm.vf[t] = v;
-    const bool seen_v =
-        v == kMask || (v < kMask && (a.bits ? (seen >> v) & 1u : true));
+    const bool seen_v = kTree ? v == kMask || (v < kMaxKeys && (seen >> v) & 1u)
+                              : v < a.Tq;
     if (walk_all ? v != kPast : seen_v) sm.flags[(t % ws) / kSub] = 1;
   }
   __syncthreads();
@@ -524,8 +536,8 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   const int mt = warp % geo.n_mt, grp = warp / geo.n_mt;
   const int tq[2] = {(mt * 16 + (lane >> 2)) % a.Tq,
                      (mt * 16 + (lane >> 2) + 8) % a.Tq};
-  const uint32_t kb[2] = {a.bits ? sm.kbits[tq[0]] : 0u,
-                          a.bits ? sm.kbits[tq[1]] : 0u};
+  const uint32_t kb[2] = {kTree ? sm.kbits[tq[0]] : 0u,
+                          kTree ? sm.kbits[tq[1]] : 0u};
   // this warp's q rows as mma A fragments: head dim 16 ks + 4 t4 + (0, 2)
   // at k 2 t4 (+1) and + (1, 3) at k 2 t4 + 8 (+1), rows g and g + 8 (the
   // order of a K word's bytes (0, 2) and (1, 3) in the B fragments)
@@ -566,11 +578,11 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     if (ahead < n_list) issue(sm.list[ahead], ahead % geo.stages);
     cp_async_commit();
     const int tl0 = grp * ws + sm.list[i] * kSub;  // block-relative
+    const uint8_t* kt =
+        sm.ring + ((size_t)(i % geo.stages) * geo.tg + grp) * geo.sub_bytes;
     if (b0 + tl0 < end)
-      warp_step<DB>(a, geo, sm,
-                    sm.ring + ((size_t)(i % geo.stages) * geo.tg + grp) *
-                                  geo.sub_bytes,
-                    tl0, qa, tq, kb, lane, m_run, l_run, acc);
+      warp_step<DB, kTree>(a, geo, sm, kt, tl0, qa, tq, kb, lane, m_run, l_run,
+                           acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its space holds the states now
@@ -683,10 +695,10 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   if (n > 1) cg::this_cluster().sync();
 }
 
-template <int DB>
+template <int DB, bool kTree>
 cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
                      cudaStream_t stream) {
-  const auto kernel = flash_decode_kernel<DB>;
+  const auto kernel = flash_decode_kernel<DB, kTree>;
   static const cudaError_t attr_rc = [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -739,11 +751,24 @@ int launch(Args a, int S, void* stream_ptr) {
   a.mask_vec = a.T % 16 == 0 && al16(a.mask);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   cudaError_t e;
+  const bool tree = a.bits != nullptr;
   switch (geo.Dp / 16) {
-    case 1: e = launch_t<1>(a, geo, S, smem, stream); break;
-    case 2: e = launch_t<2>(a, geo, S, smem, stream); break;
-    case 4: e = launch_t<4>(a, geo, S, smem, stream); break;
-    default: e = launch_t<8>(a, geo, S, smem, stream); break;
+    case 1:
+      e = tree ? launch_t<1, true>(a, geo, S, smem, stream)
+               : launch_t<1, false>(a, geo, S, smem, stream);
+      break;
+    case 2:
+      e = tree ? launch_t<2, true>(a, geo, S, smem, stream)
+               : launch_t<2, false>(a, geo, S, smem, stream);
+      break;
+    case 4:
+      e = tree ? launch_t<4, true>(a, geo, S, smem, stream)
+               : launch_t<4, false>(a, geo, S, smem, stream);
+      break;
+    default:
+      e = tree ? launch_t<8, true>(a, geo, S, smem, stream)
+               : launch_t<8, false>(a, geo, S, smem, stream);
+      break;
   }
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);

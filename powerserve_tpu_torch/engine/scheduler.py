@@ -597,8 +597,7 @@ class BatchScheduler:
             else:
                 key, build = ("tree", wor), lambda: (
                     greedy_tree_sample_step(self.model, self.draft, self.kv,
-                                            self.d_kv, b, tpl,
-                                            "wor" if wor else "exact"))
+                                            self.d_kv, b, tpl, wor))
             g = self.graphs.step(key, lambda: (build(), b))
             b["step"].zero_()
             for _ in range(H):

@@ -282,7 +282,10 @@ def greedy_sample_step(target: LlamaModel, draft: LlamaModel,
 
 class ChainSpecEngine:
     """One stream: prefill both models, then emit tokens in blocks of
-    greedy speculative steps (one host read per block)."""
+    greedy speculative steps (one host read per block). A step drafts
+    n_nodes - 1 tokens and emits up to `width`; speculative/device_tree.py
+    DeviceTreeEngine runs token trees through the same caches and
+    loop."""
 
     def __init__(self, target: LlamaModel, target_cfg: ModelConfig,
                  draft: LlamaModel | None = None, self_draft_layers: int = 0,
@@ -302,6 +305,9 @@ class ChainSpecEngine:
             raise ValueError(f"draft vocab {self.d_llm.vocab_size} != "
                              f"target vocab {self.t_llm.vocab_size}")
         self.k = k
+        self.n_nodes = self.width = k + 1
+        # entries a block may write past the ones it commits
+        self.overhang = 1
         self.block_steps = block_steps
         self.max_seq = max_seq or self.t_llm.seq_len
         self.prefill_chunk = prefill_chunk
@@ -328,6 +334,12 @@ class ChainSpecEngine:
             self.draft(self.d_kv, *args, logits_mode="none")
         self._root = torch.tensor([prompt_tokens[-1]], device=self.device)
 
+    def scan(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One block of steps from the root: (tokens [block_steps, 1,
+        width], counts [block_steps, 1], next root)."""
+        return chain_spec_scan(self.target, self.draft, self.t_kv, self.d_kv,
+                               self._root, self.block_steps, self.k)
+
     def generate(self, prompt_tokens: list[int], n_predict: int,
                  stop_fn: Callable[[int], bool] | None = None,
                  stats: SpecStats | None = None) -> Iterator[int]:
@@ -338,25 +350,24 @@ class ChainSpecEngine:
         self.prefill(prompt_tokens)
         timer = Timer()
         out = 0
+        W = self.width
         committed = len(prompt_tokens) - 1  # the target cache's pos
         while out < n_predict:
-            # a block writes up to block_steps * (k + 1) entries past the
-            # committed prefix
-            if self.max_seq - committed < self.block_steps * (self.k + 1) + 1:
+            # a block commits up to block_steps * width entries past the
+            # committed prefix, and writes up to `overhang` past them
+            if (self.max_seq - committed
+                    < self.block_steps * W + self.overhang):
                 return
-            tokens, counts, self._root = chain_spec_scan(
-                self.target, self.draft, self.t_kv, self.d_kv, self._root,
-                self.block_steps, self.k)
+            tokens, counts, self._root = self.scan()
             # the block's one host read
             got = torch.cat([tokens[:, 0].flatten(), counts[:, 0]]).tolist()
-            n_tok = self.block_steps * (self.k + 1)
-            tokens = [got[i:i + self.k + 1] for i in range(0, n_tok,
-                                                           self.k + 1)]
+            n_tok = self.block_steps * W
+            tokens = [got[i:i + W] for i in range(0, n_tok, W)]
             counts = got[n_tok:]
             committed += sum(counts)
             for i in range(self.block_steps):
                 stats.steps += 1
-                stats.drafted += self.k
+                stats.drafted += self.n_nodes - 1
                 stats.accepted += counts[i] - 1
                 for t in tokens[i][:counts[i]]:
                     stats.emitted += 1

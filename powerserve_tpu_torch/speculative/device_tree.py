@@ -44,21 +44,18 @@ argmax no longer ends the step.
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Iterator
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..core.config import ModelConfig
-from ..core.device import resolve_device
-from ..core.logging import Timer
 from ..engine.graphs import graphs_of, steps_capacity
 from ..kv.cache import KVCache
 from ..models.llama import DECODE_MAX_TQ, LlamaModel
 from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
                                 uniform_draws)
-from .chain import draft_fuse, self_draft_model
-from .engine import SpecStats
+from .chain import ChainSpecEngine, draft_fuse
 
 __all__ = ["TreeTemplate", "tree_spec_scan", "tree_sample_step",
            "DeviceTreeEngine", "MAX_NODES"]
@@ -141,6 +138,7 @@ class TreeTemplate:
         # top-k width needed at each level's draft
         self.level_topk = [max((r for _, _, r in a), default=-1) + 1
                            for a in self.assignments]
+        self._tables: dict = {}  # device -> _Consts
 
     @classmethod
     def from_widths(cls, widths) -> "TreeTemplate":
@@ -186,14 +184,12 @@ class _Consts:
                        for a in tpl.assignments]
 
 
-_consts: dict = {}
-
-
 def _consts_of(tpl: TreeTemplate, dev: torch.device) -> _Consts:
-    key = (tpl.key(), str(dev))
-    c = _consts.get(key)
+    """The template's tables on `dev`, built once per template and
+    device (before a graph captures a step that reads them)."""
+    c = tpl._tables.get(str(dev))
     if c is None:
-        c = _consts[key] = _Consts(tpl, dev)
+        c = tpl._tables[str(dev)] = _Consts(tpl, dev)
     return c
 
 
@@ -371,8 +367,7 @@ def _wor_accept_walk(tokens: torch.Tensor, q_dists: torch.Tensor,
             p_new = torch.where(ps > 1e-12,
                                 p_new / torch.clamp(ps, min=1e-30), p_res)
             p_res = torch.where(rej, p_new, p_res)
-            q_z = q_t.clone()
-            q_z[srows, x_t] = 0.0
+            q_z = q_t.scatter(1, x_t[:, None], 0.0)
             qs = q_z.sum(dim=-1, keepdim=True)
             q_z = torch.where(qs > 1e-12, q_z / torch.clamp(qs, min=1e-30),
                               q_z)
@@ -395,21 +390,20 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
                      active: torch.Tensor,
                      generators: list[torch.Generator | None],
                      temp: torch.Tensor, top_k: torch.Tensor,
-                     top_p: torch.Tensor, sample="exact",
+                     top_p: torch.Tensor, wor: bool = False,
                      mask0: torch.Tensor | None = None) -> tuple:
     """One tree step over a batch of slots with their sampler settings
     ([S] each; generators[i] None for a slot at temperature <= 0, which
-    draws nothing). sample "exact": greedy top-k children, a child is
-    accepted when its token equals the target's sample after its parent;
-    "wor": children drawn without replacement from the draft's
-    distribution, recursive-rejection acceptance. mask0: a buffer for
+    draws nothing). By default greedy top-k children, a child accepted
+    when its token equals the target's sample after its parent; with
+    wor, children drawn without replacement from the draft's
+    distribution and recursive-rejection acceptance. mask0: a buffer for
     the committed mask (default a new one). Returns (emitted [S, D + 1]
     (-1 past each count, everywhere for inactive slots), counts [S], next
     root [S])."""
     S, dev = root.shape[0], root.device
     k = _consts_of(tpl, dev)
     N, V = tpl.n_nodes, target.llm.vocab_size
-    wor = sample == "wor"
     c = d_kv.pos.long()
     mask0 = d_kv.mask.clone() if mask0 is None else mask0.copy_(d_kv.mask)
     tokens = torch.zeros(S, N, dtype=torch.int64, device=dev)
@@ -472,7 +466,7 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
 
 def greedy_tree_sample_step(target: LlamaModel, draft: LlamaModel,
                             t_kv: KVCache, d_kv: KVCache, bufs: dict,
-                            tpl: TreeTemplate, sample="exact"):
+                            tpl: TreeTemplate, wor: bool = False):
     """The body of one tree_sample_step over slots that all decode
     greedily (every generator None: nothing is drawn, so the step replays
     as one CUDA graph). Reads bufs root, active, temp, top_k and top_p
@@ -486,7 +480,7 @@ def greedy_tree_sample_step(target: LlamaModel, draft: LlamaModel,
     def body():
         emit, count, root = tree_sample_step(
             target, draft, t_kv, d_kv, tpl, b["root"], b["active"], gens,
-            b["temp"], b["top_k"], b["top_p"], sample, b["mask0"])
+            b["temp"], b["top_k"], b["top_p"], wor, b["mask0"])
         b["spec_emitted"].index_copy_(0, step, emit[None])
         b["spec_counts"].index_copy_(0, step, count[None])
         b["root"].copy_(root)
@@ -524,8 +518,7 @@ def tree_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
         for _ in range(n_steps):
             emit, count, root = tree_sample_step(
                 target, draft, t_kv, d_kv, template, root, active,
-                generators, temp, top_k, top_p,
-                "wor" if sample == "wor" else "exact")
+                generators, temp, top_k, top_p, sample == "wor")
             emitted.append(emit)
             counts.append(count)
         return torch.stack(emitted), torch.stack(counts), root
@@ -544,92 +537,24 @@ def tree_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
             b["root"].clone())
 
 
-class DeviceTreeEngine:
+class DeviceTreeEngine(ChainSpecEngine):
     """One stream: prefill both models, then emit tokens in blocks of
-    greedy tree steps (one host read per block), the tree analogue of
-    ChainSpecEngine."""
+    greedy tree steps (one host read per block), through ChainSpecEngine's
+    caches, prefill and block loop."""
 
     def __init__(self, target: LlamaModel, target_cfg: ModelConfig,
                  draft: LlamaModel | None = None, self_draft_layers: int = 0,
                  template: TreeTemplate | None = None, block_steps: int = 8,
                  max_seq: int = 0, prefill_chunk: int = 128,
                  device: str | torch.device | None = None):
-        self.device = resolve_device(device)
-        self.target = target.to(self.device)
-        if self_draft_layers:
-            self.draft = self_draft_model(self.target, self_draft_layers)
-        elif draft is None:
-            raise ValueError("give a draft model or self_draft_layers")
-        else:
-            self.draft = draft.to(self.device)
-        self.t_llm, self.d_llm = target_cfg.llm, self.draft.llm
-        if self.d_llm.vocab_size != self.t_llm.vocab_size:
-            raise ValueError(f"draft vocab {self.d_llm.vocab_size} != "
-                             f"target vocab {self.t_llm.vocab_size}")
-        self.template = template or TreeTemplate.from_widths([2, 1, 1])
-        self.block_steps = block_steps
-        self.max_seq = max_seq or self.t_llm.seq_len
-        self.prefill_chunk = prefill_chunk
-        t, d = self.t_llm, self.d_llm
-        self.t_kv = KVCache.create(t.n_layers, 1, self.max_seq,
-                                   t.n_kv_heads, t.head_size, self.device)
-        self.d_kv = KVCache.create(d.n_layers, 1, self.max_seq,
-                                   d.n_kv_heads, d.head_size, self.device)
+        tpl = template or TreeTemplate.from_widths([2, 1, 1])
+        super().__init__(target, target_cfg, draft, self_draft_layers,
+                         k=tpl.max_depth, block_steps=block_steps,
+                         max_seq=max_seq, prefill_chunk=prefill_chunk,
+                         device=device)
+        self.template = tpl
+        self.n_nodes = self.overhang = tpl.n_nodes  # one tree's nodes
 
-    def reset(self) -> None:
-        """Empty both caches in place (their step graphs stay valid)."""
-        self.t_kv.reset_slot(0)
-        self.d_kv.reset_slot(0)
-
-    @torch.no_grad()
-    def prefill(self, prompt_tokens: list[int]) -> None:
-        """Both caches take prompt[:-1]; the last token is the root."""
-        toks = np.asarray(prompt_tokens[:-1], np.int64)
-        for off in range(0, len(toks), self.prefill_chunk):
-            part = torch.from_numpy(toks[off:off + self.prefill_chunk])
-            pos = off + torch.arange(len(part))
-            args = (part[None].to(self.device), pos[None].to(self.device))
-            self.target(self.t_kv, *args, logits_mode="none")
-            self.draft(self.d_kv, *args, logits_mode="none")
-        self._root = torch.tensor([prompt_tokens[-1]], device=self.device)
-
-    def generate(self, prompt_tokens: list[int], n_predict: int,
-                 stop_fn: Callable[[int], bool] | None = None,
-                 stats: SpecStats | None = None) -> Iterator[int]:
-        """Up to n_predict greedy tokens, `block_steps` tree steps per
-        host read."""
-        stats = stats if stats is not None else SpecStats()
-        tpl = self.template
-        W = tpl.max_depth + 1
-        self.reset()
-        self.prefill(prompt_tokens)
-        timer = Timer()
-        out = 0
-        committed = len(prompt_tokens) - 1  # the target cache's pos
-        while out < n_predict:
-            # a block commits up to block_steps * (D + 1) entries and
-            # writes one tree past them
-            if (self.max_seq - committed
-                    < self.block_steps * W + tpl.n_nodes):
-                return
-            tokens, counts, self._root = tree_spec_scan(
-                self.target, self.draft, self.t_kv, self.d_kv, self._root,
-                self.block_steps, tpl)
-            # the block's one host read
-            got = torch.cat([tokens[:, 0].flatten(), counts[:, 0]]).tolist()
-            n_tok = self.block_steps * W
-            tokens = [got[i:i + W] for i in range(0, n_tok, W)]
-            counts = got[n_tok:]
-            committed += sum(counts)
-            for i in range(self.block_steps):
-                stats.steps += 1
-                stats.drafted += tpl.n_nodes - 1
-                stats.accepted += counts[i] - 1
-                for t in tokens[i][:counts[i]]:
-                    stats.emitted += 1
-                    out += 1
-                    stats.decode_ms = timer.elapsed_time_ms()
-                    yield t
-                    if (stop_fn is not None and stop_fn(t)) \
-                            or out >= n_predict:
-                        return
+    def scan(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return tree_spec_scan(self.target, self.draft, self.t_kv, self.d_kv,
+                              self._root, self.block_steps, self.template)
