@@ -34,7 +34,8 @@ Phases, each printing one JSON line:
              alone, torch._int_mm on the same int8 operands beside it; the
              fused linear's modes at llama-8b's draft shapes (x -> wo,
              norm(x + attn_out) -> gate|up, glu + 2 residuals -> down at
-             K = 14336, norm + bias -> a qwen2.5-3b QKV, concat2, x +
+             K = 14336, norm + bias -> a qwen2.5-3b QKV, concat2 (and
+             with a bias in Q8_0 at the EAGLE head's fc, M = 1 and 5), x +
              argmax -> a factored head's V), each beside the plain GEMV on
              its weight and rows (the fused head too: 4096 -> 128256), and
              the state mode of paged flash-decode (S = 8, Tq = 5, a slot
@@ -47,7 +48,8 @@ Phases, each printing one JSON line:
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
              cpu plain path (tiny and tiny-k also with
-             --self-draft-layers 1 and with --draft, by a chain and by
+             --self-draft-layers 1, with --draft and with --draft <a
+             random EAGLE head's dir>, by a chain and by
              --spec-engine device-tree --spec-tree 2,1,1, and with
              --spec-engine tree --draft, whose tokens must be the plain
              run's);
@@ -122,6 +124,21 @@ Phases, each printing one JSON line:
              serve_full_width's (near-tie rule), the paged tree mode
              launched by the verify, one more request at temperature 0.8
              with a seed that must not end in "error"
+  eagle_full_width  EAGLE speculation on llama-8b: a random EAGLE-1 head
+             at EAGLE-LLaMA3-Instruct-8B's widths (Q8_0, one layer, fc
+             8192 -> 4096 + bias, no attn_norm on layer 0, the target's
+             embedding and lm_head) written as a GGUF and loaded as `run`
+             loads it; EagleChainEngine k = 4 and the [2, 1, 1] tree, 512
+             + 64 greedy tokens, each step a replayed graph, against the
+             eager twin (tokens, both caches, launch counts) and
+             generate's tokens; one more replayed chain block under
+             set_sync_debug_mode("error"); the exact-replica head (fc =
+             [I; 0], the target's layer 0) over a 1-layer target: every
+             draft accepted, the tokens that target's generate's
+  eagle_serve_full_width  "model+<head dir>" on serve_full_width's pool
+             and traffic (its greedy EAGLE ticks replayed, and the eager
+             twin): every reply serve_full_width's (near-tie rule), plus
+             one request at temperature 0.8 with a seed
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -157,8 +174,8 @@ llama-8b generate for the first slice's kernels, serve_full_width for
 flash-prefill and paged flash-decode, mixtral-lite's generate for the
 grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
 the fused-linear modes and the state mode, tree_full_width's device tree
-for the tree mode and tree_serve_full_width for the paged tree mode),
-the card's
+for the tree mode, tree_serve_full_width for the paged tree mode and
+eagle_full_width's chain for concat2), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -177,6 +194,7 @@ import contextlib
 import http.client
 import json
 import logging
+import shutil
 import statistics
 import subprocess
 import sys
@@ -626,8 +644,10 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     #    of llama-8b's fused decode-layer chain and factored draft head
     #    (Q4_K or Q8_0 with bf16 scales): x -> wo, norm(x + attn_out) ->
     #    gate|up, glu + both residuals -> down (K = 14336), norm + bias ->
-    #    a qwen2.5-3b QKV, concat2 (2 x 4096 -> 4096, the EAGLE fc input),
-    #    x + argmax -> the factored head's V (512 -> 128256). Tolerance:
+    #    a qwen2.5-3b QKV, concat2 (2 x 4096 -> 4096, the EAGLE fc input;
+    #    with its bias in Q8_0, the EAGLE-LLaMA3-8B head's, at a draft's
+    #    M = 1 and a re-prefill's M = 5), x + argmax -> the factored
+    #    head's V (512 -> 128256). Tolerance:
     #    1e-4 of the largest output plus the norm/glu rounding slacks.
     #    Bound: operands, weights, bias, residuals and output once;
     #    2 * M * N * K operations
@@ -643,6 +663,12 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
          0, False),
         ("concat2 eagle fc", "concat2", 8, 8192, 4096, "q4_k", 2, False, 0,
          False),
+        # the EAGLE fc as its head has it (Q8_0 + bias): a draft, a
+        # re-prefill
+        ("concat2+bias eagle fc q8_0", "concat2", 1, 8192, 4096, "q8_0", 2,
+         True, 0, False),
+        ("concat2+bias eagle fc q8_0", "concat2", 5, 8192, 4096, "q8_0", 2,
+         True, 0, False),
         ("x+argmax factored head V", "x", 5, 512, 128256, "q8_0", 1, False, 0,
          True),
     ]
@@ -944,6 +970,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         entry("fused_glu", fused_src, fused_tpu, fl("glu+2 resids down", 8)),
         entry("fused_x_argmax", fused_src, fused_tpu,
               fl("x+argmax factored head V", 5)),
+        entry("fused_concat2", fused_src, fused_tpu,
+              fl("concat2+bias eagle fc q8_0", 1)),
         entry("flash_decode_paged_state",
               "powerserve_tpu_torch/csrc/flash_decode.cu",
               "powerserve_tpu/ops/flash_decode.py:183", state_row),
@@ -993,7 +1021,8 @@ def phase_cli() -> dict:
     from powerserve_tpu_torch.core.gguf import GGMLType
     from powerserve_tpu_torch.core.config import WorkspaceConfig
     from powerserve_tpu_torch.ops import cuda_lib
-    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+    from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
+                                                      make_synthetic_gguf)
 
     result = {"phase": "cli", "logit_tolerance": LOGIT_REL}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1055,6 +1084,11 @@ def phase_cli() -> dict:
                                         quant, seed=7, seq_len=256)
             d_arg = ["--draft", str(draft / "model")]
             dtree = ["--spec-engine", "device-tree", "--spec-tree", "2,1,1"]
+            # a random EAGLE head at the preset's widths: its dir selects
+            # the EAGLE engine (a chain, or the device tree)
+            e_arg = ["--draft", str(make_eagle_gguf(
+                f"{tmp}/{preset}-eagle", preset, seed=9))]
+            e_need = ("fused_concat2",) + SPEC_NEED
             spec = {}
             for label, extra, need_ in (
                     ("self-draft-layers 1", ["--self-draft-layers", "1"],
@@ -1064,7 +1098,10 @@ def phase_cli() -> dict:
                      dtree + ["--self-draft-layers", "1"], TREE_NEED),
                     ("device-tree draft", dtree + d_arg, TREE_NEED),
                     ("tree draft", ["--spec-engine", "tree"] + d_arg,
-                     ("qmatmul", "fused_head", "flash_decode_tree"))):
+                     ("qmatmul", "fused_head", "flash_decode_tree")),
+                    ("eagle", e_arg, e_need + ("fused_x_argmax",)),
+                    ("device-tree eagle", dtree + e_arg,
+                     e_need[:-1] + ("flash_decode_tree",))):
                 for dev_name, plain, eng in (("cuda", gpu, eng_gpu),
                                              ("cpu", cpu, eng_cpu)):
                     cuda_lib.reset_launch_counts()
@@ -2617,6 +2654,189 @@ def phase_tree_full_width(dev: torch.device, cfg, model) -> tuple[dict, dict]:
     return out, counted.launches
 
 
+EAGLE_NEED = ("fused_concat2", "fused_x", "fused_norm", "fused_glu",
+              "fused_x_argmax", "fused_head", "qmatmul", "flash_decode",
+              "flash_prefill")
+EAGLE_TREE_NEED = ("fused_concat2", "fused_x", "fused_norm", "fused_glu",
+                   "fused_head", "qmatmul", "flash_decode_tree")
+
+
+def phase_eagle_full_width(dev: torch.device, cfg, model,
+                           head_dir: str) -> tuple[dict, dict]:
+    """EAGLE speculation on llama-8b Q4_K (random weights: acceptance is
+    reported, not held, except for the exact replica):
+      (a) the head: a random EAGLE-1 head at the widths of the public
+          EAGLE-LLaMA3-Instruct-8B head (one layer of 4096, FFN 14336,
+          32/8 heads, rope base 500000; fc 8192 -> 4096 with a bias; no
+          attn_norm on layer 0; Q8_0; the target's embedding and
+          lm_head), written to head_dir by tools/synthetic.py's
+          make_eagle_gguf from seed 4 and read by load_eagle_gguf, as
+          `run --draft <head_dir>` and the server's "model+<head_dir>"
+          read it;
+      (b) EagleChainEngine, k = 4, a 512-token prompt and 64 greedy
+          tokens, each step a replayed graph, a first and a steady call,
+          against its eager twin (a new engine, every step eager: the
+          same tokens, both caches bit for bit, the same launch counts)
+          and against InferenceEngine.generate's tokens (near-tie
+          rule); one more replayed block under set_sync_debug_mode
+          ("error");
+      (c) the same with the [2, 1, 1] tree (`run --spec-engine
+          device-tree --spec-tree 2,1,1 --draft <head_dir>`'s engine);
+      (d) full acceptance: the exact-replica head (fc = [I; 0] in Q8_0,
+          the target's layer 0, final norm and lm_head) over a 1-layer
+          target of llama-8b's widths (the model's first layer), k = 4:
+          every draft accepted (k + 1 tokens a step, but for the last
+          step cut at 64 tokens), the tokens those of that target's
+          generate (near-tie rule).
+    Returns the phase's line and each path's launch counts."""
+    import numpy as np
+
+    from powerserve_tpu_torch.core.config import HyperParams, ModelConfig
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.engine.generator import (GenerationStats,
+                                                       InferenceEngine)
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.models.loader import load_eagle_gguf
+    from powerserve_tpu_torch.ops.qmatmul import QLinear
+    from powerserve_tpu_torch.speculative.chain import self_draft_model
+    from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
+    from powerserve_tpu_torch.speculative.eagle import (EagleChainEngine,
+                                                        EagleHead,
+                                                        eagle_spec_scan)
+    from powerserve_tpu_torch.speculative.engine import SpecStats
+    from powerserve_tpu_torch.tools.synthetic import make_eagle_gguf
+
+    llm = cfg.llm
+    n_prompt, n_new, max_seq, k = 512, 64, 2048, 4
+    t0 = time.perf_counter()
+    make_eagle_gguf(head_dir, "llama-8b", GGMLType.Q8_0, seed=4)
+    t1 = time.perf_counter()
+    e_llm, head = load_eagle_gguf(head_dir, model, llm, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if head.embed is not model.embed or head.lm_head is not model.lm_head:
+        raise AssertionError("the head holds copies of the target's tables")
+    own = [head.fc, head.layers[0]] + ([head.fc_bias]
+                                       if head.fc_bias is not None else [])
+    head_gb = sum(t.numel() * t.element_size() for o in own
+                  for t in ([o] if isinstance(o, torch.Tensor)
+                            else list(o.buffers()))) / 1e9
+    g = torch.Generator(device="cpu")
+    g.manual_seed(2)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,),
+                           generator=g).tolist()
+    hp = HyperParams(max_slots=1, max_seq_len=max_seq, batch_size=n_prompt)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    counted = Counted()
+    want, _ = counted("plain generate", ("qmatmul", "fused_head"),
+                      lambda: list(engine.generate(prompt, n_new)))
+    plain = GenerationStats()  # a second, steady call
+    engine.reset()
+    list(engine.generate(prompt, n_new, stats=plain))
+    out: dict = {"phase": "eagle_full_width", "k": k,
+                 "prompt_tokens": n_prompt, "new_tokens": n_new,
+                 "plain_decode_tok_s": plain.decode_speed,
+                 "head": dict(layers=e_llm.n_layers, dim=e_llm.dim,
+                              ffn=e_llm.hidden_dim, heads=e_llm.n_heads,
+                              kv_heads=e_llm.n_kv_heads, quant="q8_0",
+                              input_norm=head.input_norm,
+                              fc_bias=head.fc_bias is not None,
+                              own_gb=head_gb, write_s=t1 - t0,
+                              load_s=t2 - t1)}
+
+    def eagle_run(label, need, template=None, target=model, tcfg=cfg,
+                  hd=head, reference=(want, engine)):
+        """EagleChainEngine.generate replayed (a first and a steady call),
+        then its eager twin: the same tokens, both caches bit for bit and
+        the same launch counts."""
+        runs, engines = {}, {}
+        for path in (label, f"{label} eager"):
+            eng = engines[path] = EagleChainEngine(
+                target, tcfg, hd, k=k, block_steps=8, max_seq=max_seq,
+                prefill_chunk=n_prompt, template=template, device=dev)
+            runs[path] = []
+            eager = path.endswith("eager")
+            with eager_steps() if eager else contextlib.nullcontext():
+                for again in ((False,) if eager else (False, True)):
+                    stats = SpecStats()
+                    got, secs = counted(path + " again" * again, need,
+                                        lambda: list(eng.generate(
+                                            prompt, n_new, stats=stats)))
+                    if len(got) != n_new:
+                        raise AssertionError(f"{path}: {len(got)} tokens")
+                    runs[path].append((got, stats, secs))
+        rep, twin = engines[label], engines[f"{label} eager"]
+        got, stats, secs = runs[label][0]
+        if {tuple(r[0]) for rs in runs.values() for r in rs} != {tuple(got)}:
+            raise AssertionError(f"{label}: replayed steps {got} != the "
+                                 f"eager twin's or the second call's")
+        same_launches(label, counted.launches, label, f"{label} eager")
+        same_cache_bits(f"{label} target", rep.t_kv, twin.t_kv)
+        same_cache_bits(f"{label} head", rep.d_kv, twin.d_kv)
+        tok_s = lambda r: n_new / (r[1].decode_ms / 1e3)  # noqa: E731
+        steady = runs[label][1][1]
+        res = dict(accept_rate=stats.accept_rate,
+                   tokens_per_step=stats.tokens_per_step, steps=stats.steps,
+                   steady_step_ms=steady.decode_ms / steady.steps,
+                   decode_tok_s=tok_s(runs[label][0]),
+                   decode_again_tok_s=tok_s(runs[label][1]),
+                   eager_decode_tok_s=tok_s(runs[f"{label} eager"][0]),
+                   wall_s=secs, graphs=graph_stats(graphs_of(rep.t_kv)),
+                   replay_equals_eager=True, cache_bits_equal=True,
+                   vs_generate_near_tie=agree(f"eagle_full_width {label}",
+                                              got, reference[0],
+                                              reference[1], prompt))
+        return res, rep
+
+    # (b) the chain, (c) the tree
+    out["chain"], rep = eagle_run("chain", EAGLE_NEED)
+    without_sync("eagle_full_width replayed EAGLE chain step",
+                 lambda: eagle_spec_scan(rep.target, rep.draft, rep.t_kv,
+                                         rep.d_kv, rep._root,
+                                         rep._root_feat, 8, k))
+    out["chain"]["replayed_step_sync_free"] = True
+    del rep
+    out["tree"], _ = eagle_run("tree", EAGLE_TREE_NEED,
+                               TreeTemplate.from_widths([2, 1, 1]))
+    out["tree"]["tree"] = "2,1,1"
+    del head
+    torch.cuda.empty_cache()
+
+    # (d) the exact replica over a 1-layer target
+    target = self_draft_model(model, 1)
+    tcfg = ModelConfig(arch=cfg.arch, llm=target.llm)
+    dim = llm.dim
+    eye = np.concatenate([np.eye(dim, dtype=np.float32),
+                          np.zeros((dim, dim), np.float32)])
+    replica = EagleHead(target.llm,
+                        QLinear.from_float(eye, GGMLType.Q8_0, device=dev),
+                        None, [target.layers[0]], target.embed,
+                        target.lm_head, target.out_norm, input_norm=True)
+    del eye
+    one = InferenceEngine(target, tcfg, hp, device=dev)
+    want1, _ = counted("replica plain generate", ("qmatmul",),
+                       lambda: list(one.generate(prompt, n_new)))
+    plain1 = GenerationStats()
+    one.reset()
+    list(one.generate(prompt, n_new, stats=plain1))
+    # the replica's head has the target's final norm: the norm head
+    out["replica"], _ = eagle_run("replica", tuple(
+        n for n in EAGLE_NEED if n != "fused_x_argmax"), target=target,
+                                  tcfg=tcfg, hd=replica,
+                                  reference=(want1, one))
+    out["replica"].update(target_layers=1,
+                          plain_decode_tok_s=plain1.decode_speed)
+    if out["replica"]["accept_rate"] != 1.0:
+        raise AssertionError(f"the exact-replica head accepted "
+                             f"{out['replica']['accept_rate']} of its "
+                             f"drafts: {out['replica']}")
+    del replica, target, one, engine
+    torch.cuda.empty_cache()
+    out.update(launches=counted.launches, card=card_line())
+    return out, counted.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2666,6 +2886,20 @@ def main() -> int:
         "model+self:4",
         spec_tree="2,1,1", reference="serve_full_width", sampled=True)
     emit(tree_serve)
+    head_dir = tempfile.mkdtemp(prefix="eagle_head_")
+    try:
+        eagle, eagle_counts = phase_eagle_full_width(dev, cfg, model,
+                                                     head_dir)
+        emit(eagle)
+        eagle_serve, _ = phase_serve_full_width(
+            dev, cfg, model, "eagle_serve_full_width",
+            ("fused_concat2", "fused_x", "fused_norm", "fused_glu",
+             "qmatmul", "flash_decode", "flash_prefill",
+             "flash_decode_paged_state"),
+            "model+" + head_dir, reference="serve_full_width", sampled=True)
+        emit(eagle_serve)
+    finally:
+        shutil.rmtree(head_dir, ignore_errors=True)
     del cfg, model
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
@@ -2702,7 +2936,10 @@ def main() -> int:
            "flash_decode_paged_state": spec_counts["serve"],
            # the device tree's generate; the scheduler's paged tree tick
            "flash_decode_tree": tree_counts["device_tree_self_draft_4"],
-           "flash_decode_paged_tree": tree_serve_counts}
+           "flash_decode_paged_tree": tree_serve_counts,
+           # the EAGLE chain's generate: the fc input of every draft and
+           # re-prefill
+           "fused_concat2": eagle_counts["chain"]}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     # each decode number replayed, and its eager twin's from this run
@@ -2757,7 +2994,21 @@ def main() -> int:
           "tree_serve_eager_generated_tok_s":
               tree_serve["eager_twin"]["generated_tok_s"],
           "tree_serve_ttft_p50_s": tree_serve["ttft_p50_s"],
-          "tree_serve_ttft_p90_s": tree_serve["ttft_p90_s"]})
+          "tree_serve_ttft_p90_s": tree_serve["ttft_p90_s"],
+          "eagle_chain_tok_s": eagle["chain"]["decode_tok_s"],
+          "eagle_chain_again_tok_s": eagle["chain"]["decode_again_tok_s"],
+          "eagle_chain_eager_tok_s": eagle["chain"]["eager_decode_tok_s"],
+          "eagle_chain_tokens_per_step": eagle["chain"]["tokens_per_step"],
+          "eagle_tree_again_tok_s": eagle["tree"]["decode_again_tok_s"],
+          "eagle_replica_again_tok_s":
+              eagle["replica"]["decode_again_tok_s"],
+          "eagle_replica_tokens_per_step":
+              eagle["replica"]["tokens_per_step"],
+          "eagle_serve_generated_tok_s": eagle_serve["generated_tok_s"],
+          "eagle_serve_eager_generated_tok_s":
+              eagle_serve["eager_twin"]["generated_tok_s"],
+          "eagle_serve_ttft_p50_s": eagle_serve["ttft_p50_s"],
+          "eagle_serve_ttft_p90_s": eagle_serve["ttft_p90_s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

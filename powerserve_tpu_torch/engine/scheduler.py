@@ -37,8 +37,20 @@ one graph per speculative step; where any slot samples, its draws come
 between the draft forwards and the tick runs eagerly. The prefill tick
 stays eager.
 
-EAGLE, multimodal prefill, meshes and double-buffered ticks are not
-ported: like the plain tick, the spec tick syncs once.
+With an EAGLE head (speculative/eagle.py) the draft is the head: its
+dense int8 cache sits beside the target's, and each slot carries the
+target feature f32 [dim] paired with its next token. A prefill chunk
+runs the target with its final hidden states, then the head over the
+same tokens, lane i paired with the feature of lane i - 1 (lane 0 with
+the carried one); the carry becomes the feature at each slot's last
+real lane. Prefix-cache entries keep the feature too (an entry without
+one is no hit), and a preempted slot rebuilds it with both caches. Its
+ticks run eagle_sample_step (a chain of spec_k) or
+eagle_tree_sample_step (hp.spec_tree), replayed when every slot is
+greedy, as the draft model's.
+
+Multimodal prefill, meshes and double-buffered ticks are not ported:
+like the plain tick, the spec tick syncs once.
 Only the scheduler thread touches the device; submit() is thread-safe.
 """
 
@@ -66,6 +78,9 @@ from ..sampling.sampler import (PenaltyState, categorical_from_dist,
 from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
 from ..speculative.device_tree import (TreeTemplate, greedy_tree_sample_step,
                                        tree_spec_scan)
+from ..speculative.eagle import (EagleHead, eagle_forward, eagle_spec_scan,
+                                 eagle_tree_spec_scan,
+                                 greedy_eagle_sample_step)
 from .graphs import StepGraphs
 
 log = get_logger("scheduler")
@@ -158,9 +173,11 @@ class BatchScheduler:
     def __init__(self, model: LlamaModel, cfg: ModelConfig,
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
-                 draft: LlamaModel | None = None):
+                 draft: LlamaModel | None = None,
+                 eagle_head: EagleHead | None = None):
         """draft: batched speculation with this draft model (its vocab
-        must be the target's)."""
+        must be the target's); eagle_head: with this EAGLE head (its
+        geometry is eagle_head.llm) in place of a draft model."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -190,6 +207,10 @@ class BatchScheduler:
         self.spec_k = max(int(self.hp.spec_k), 1)
         self.spec_horizon = max(int(self.hp.spec_horizon), 1)
         self.spec_template = None
+        if draft is not None and eagle_head is not None:
+            raise ValueError("give a draft model or an EAGLE head, not both")
+        self.is_eagle = eagle_head is not None
+        draft = eagle_head if self.is_eagle else draft
         if draft is not None:
             # the speculation topology: hp.spec_tree's widths, or a chain
             widths = ([int(w) for w in self.hp.spec_tree.split(",")]
@@ -227,6 +248,9 @@ class BatchScheduler:
                              spec_emitted=z(Hs, S, W, dtype=torch.int64),
                              spec_counts=z(Hs, S, dtype=torch.int64),
                              mask0=torch.zeros_like(self.d_kv.mask))
+            if self.is_eagle:
+                # each slot's carried target feature (its root's pair)
+                self.bufs["feat"] = z(S, llm.dim)
         self.graphs = StepGraphs(dev)
         self.slots = [_Slot() for _ in range(self.S)]
         self.prefix_cache = None
@@ -387,15 +411,20 @@ class BatchScheduler:
             self.kv.reset_slot(i)
             if self.d_kv is not None:
                 self.d_kv.reset_slot(i)
+            if self.is_eagle:
+                self.bufs["feat"][i] = 0.0
             if self.prefix_cache is not None:
                 hit = self.prefix_cache.match(req.prompt_ids[:-1])
-                if hit is not None:
-                    # a speculating scheduler's entries carry the draft
-                    # cache's prefix too
+                # a speculating scheduler's entries carry the draft
+                # cache's prefix too, an EAGLE one's the carried feature
+                if hit is not None and (not self.is_eagle
+                                        or "feat" in hit[1]):
                     n, saved = hit
                     self.kv.restore_slot_prefix(i, saved)
                     if self.d_kv is not None:
                         self.d_kv.restore_slot_prefix(i, saved["draft"])
+                    if self.is_eagle:
+                        self.bufs["feat"][i] = saved["feat"]
                     slot.prefill_off = n
                     log.debug(f"req {req.id}: prefix cache hit ({n} tok)")
             self.penalty.reset_slot(i)
@@ -419,6 +448,7 @@ class BatchScheduler:
         tokens = np.zeros((self.S, C), np.int64)
         positions = np.full((self.S, C), -1, np.int64)
         active = np.zeros(self.S, bool)
+        n_real = np.zeros(self.S, np.int64)
         stores: list[tuple[int, list[int]]] = []
         for i, slot in enumerate(self.slots):
             if slot.req is None or not slot.prefilling:
@@ -432,6 +462,7 @@ class BatchScheduler:
             tokens[i, :len(part)] = part
             positions[i, :len(part)] = off + np.arange(len(part))
             active[i] = True
+            n_real[i] = len(part)
             slot.prefill_off += len(part)
             if slot.prefill_off >= len(prompt):
                 slot.prefilling = False
@@ -443,17 +474,42 @@ class BatchScheduler:
         args = (torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(positions).to(dev))
         act = torch.from_numpy(active).to(dev)
-        self.model(self.kv, *args, active=act, logits_mode="none")
-        if self.draft is not None:
-            self.draft(self.d_kv, *args, active=act, logits_mode="none")
+        if self.is_eagle:
+            self._eagle_prefill_chunk(*args, act, n_real)
+        else:
+            self.model(self.kv, *args, active=act, logits_mode="none")
+            if self.draft is not None:
+                self.draft(self.d_kv, *args, active=act, logits_mode="none")
         for i, prefix in stores:
             if len(prefix) >= self.prefix_cache.min_len:
                 saved = self.kv.save_slot_prefix(i, len(prefix))
                 if self.d_kv is not None:
                     saved["draft"] = self.d_kv.save_slot_prefix(i,
                                                                 len(prefix))
+                if self.is_eagle:
+                    saved["feat"] = self.bufs["feat"][i].clone()
                 self.prefix_cache.put(prefix, saved)
         return True
+
+    def _eagle_prefill_chunk(self, tokens: torch.Tensor,
+                             positions: torch.Tensor, active: torch.Tensor,
+                             n_real: np.ndarray) -> None:
+        """A target chunk keeping its final hidden states, then the head's
+        chunk: lane 0 pairs with each slot's carried feature, lane i with
+        the chunk's feature at lane i - 1. The carry becomes the feature
+        at each slot's last real lane (n_real[s] - 1): the padded lanes'
+        features never leak into it."""
+        feat = self.bufs["feat"]
+        _, feats = self.model(self.kv, tokens, positions, active=active,
+                              logits_mode="none", return_final_hidden=True)
+        feats = feats.float()
+        eagle_forward(self.draft, self.d_kv, tokens,
+                      torch.cat([feat[:, None], feats[:, :-1]], dim=1),
+                      positions, active=active, logits_mode="none")
+        n = torch.from_numpy(n_real).to(self.device)
+        last = feats.gather(1, (n - 1).clamp(min=0)[:, None, None].expand(
+            -1, 1, feats.shape[-1]))[:, 0]
+        feat.copy_(torch.where((active & (n > 0))[:, None], last, feat))
 
     def _cancel_tick(self) -> None:
         """Free slots whose consumer aborted (e.g. a stop-string match)."""
@@ -589,7 +645,9 @@ class BatchScheduler:
         gens = self._slot_settings(decoding)
         b = self.bufs
         wor = bool(self.hp.spec_wor)
-        if all(g is None for g in gens):
+        if self.is_eagle:
+            emitted, counts, next_tok = self._eagle_steps(gens, wor)
+        elif all(g is None for g in gens):
             # nothing is drawn: each step replays one graph
             if tpl.is_chain:
                 key, build = ("spec",), lambda: greedy_sample_step(
@@ -638,6 +696,35 @@ class BatchScheduler:
                 if self._deliver(i, int(t), pos_pre[i] + n_out >= room):
                     break
         return True
+
+    def _eagle_steps(self, gens: list, wor: bool) -> tuple:
+        """spec_horizon EAGLE steps over the static buffers (a chain of
+        spec_k, or the template's tree): (emitted [H, S, D + 1], counts
+        [H, S], next tokens [S]); the carried features move in bufs
+        feat."""
+        tpl, H, b = self.spec_template, self.spec_horizon, self.bufs
+        tree = None if tpl.is_chain else tpl
+        if all(g is None for g in gens):
+            # nothing is drawn: each step replays one graph
+            g = self.graphs.step(("eagle", wor), lambda: (
+                greedy_eagle_sample_step(self.model, self.draft, self.kv,
+                                         self.d_kv, b, tpl.max_depth, tree,
+                                         wor), b))
+            b["step"].zero_()
+            for _ in range(H):
+                g()
+            return b["spec_emitted"], b["spec_counts"], b["root"]
+        args = (self.model, self.draft, self.kv, self.d_kv, b["tok"],
+                b["feat"], H)
+        sets = (b["active"], gens, b["temp"], b["top_k"], b["top_p"])
+        if tree is None:
+            emitted, counts, next_tok, feat = eagle_spec_scan(
+                *args, tpl.max_depth, *sets, sample=True)
+        else:
+            emitted, counts, next_tok, feat = eagle_tree_spec_scan(
+                *args, tpl, *sets, sample="wor" if wor else True)
+        b["feat"].copy_(feat)
+        return emitted, counts, next_tok
 
     def step(self) -> bool:
         """One scheduler iteration; True if work was done. Prefill has

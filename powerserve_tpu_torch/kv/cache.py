@@ -133,9 +133,12 @@ class KVCache:
             flat[rows] = vals
 
     def advance(self, positions: torch.Tensor,
-                active: torch.Tensor | None = None) -> None:
+                active: torch.Tensor | None = None,
+                visible: torch.Tensor | None = None) -> None:
         """Mark written positions visible and bump pos by the number of
-        in-range positions of each active slot."""
+        in-range positions of each active slot. visible [S, Tq] bool:
+        False keeps a written position masked (cleared), as a token
+        tree's siblings must stay; pos counts it all the same."""
         S = positions.shape[0]
         T = self.max_seq
         dev = self.device
@@ -145,7 +148,11 @@ class KVCache:
         # untouched lanes go to a spare column that is cut off again
         ext = torch.zeros(S, T + 1, dtype=torch.bool, device=dev)
         ext[:, :T] = self.mask
-        ext.scatter_(1, torch.where(write, positions.long(), T), True)
+        shown = write if visible is None else write & visible.bool()
+        ext.scatter_(1, torch.where(shown, positions.long(), T), True)
+        if visible is not None:  # the hidden lanes cleared after the set
+            ext.scatter_(1, torch.where(write & ~shown, positions.long(), T),
+                         False)
         self.mask.copy_(ext[:, :T])
         self.pos += write.sum(dim=1).to(torch.int32)
 

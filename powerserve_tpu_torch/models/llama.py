@@ -35,7 +35,10 @@ writes nothing before attention: each layer quantizes its new K/V and
 attends to them as an in-flight block beside the committed pages
 (ops/flash_decode.py: flash_decode_paged_deferred, the state mode of the
 paged kernel), and one commit after the layer loop stores every layer's
-K/V through the page table.
+K/V through the page table. return_final_hidden=True also returns the
+last layer's pre-norm hidden states, the features an EAGLE head drafts
+from (speculative/eagle.py, which runs LlamaLayer on an f32 residual
+stream, its first layer without the attention norm).
 
 An MoE layer routes each token to its top n_experts_used experts (f32
 router, softmax, top-k, weights renormalized) and runs the expert FFNs
@@ -213,7 +216,12 @@ class LlamaLayer(nn.Module):
                 fuse: bool = False,
                 deferred: DeferredKV | None = None,
                 bits: torch.Tensor | None = None,
-                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+                attn_mask: torch.Tensor | None = None,
+                norm_input: bool = True) -> torch.Tensor:
+        """x [S, Tq, dim] (the residual stream: bf16 in a model, f32 in
+        an EAGLE head) -> the layer's output in x's dtype. norm_input
+        False feeds x to the QKV projection without the attention norm
+        (an EAGLE-1 head's first layer)."""
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
         eps = llm.norm_eps
@@ -222,10 +230,12 @@ class LlamaLayer(nn.Module):
                  and S * Tq <= FUSED_MAX_M)
         xf = x.reshape(S * Tq, -1)
         if fused:
-            qkv = fused_linear(self.wqkv, norm=(xf, self.attn_norm),
-                               bias=self.bqkv, eps=eps)
+            pro = (dict(norm=(xf, self.attn_norm)) if norm_input
+                   else dict(x=xf))
+            qkv = fused_linear(self.wqkv, bias=self.bqkv, eps=eps, **pro)
         else:
-            h = rms_norm(xf, self.attn_norm, eps).to(torch.bfloat16)
+            h = (rms_norm(xf, self.attn_norm, eps) if norm_input
+                 else xf).to(torch.bfloat16)
             if self.wqkv is not None:
                 qkv = self._lin(h, self.wqkv, self.bqkv)
         if self.wqkv is not None:
@@ -352,7 +362,8 @@ class LlamaModel(nn.Module):
                 cache_positions: torch.Tensor | None = None,
                 intra_mask: torch.Tensor | None = None,
                 key_positions: torch.Tensor | None = None,
-                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+                attn_mask: torch.Tensor | None = None,
+                return_final_hidden: bool = False):
         """One forward pass over a batch of slots; updates kv in place.
 
         kv: the dense KVCache or the paged PagedKVCache.
@@ -382,6 +393,9 @@ class LlamaModel(nn.Module):
         kv_update: "inline" (write each layer's K/V, then attend) or
           "deferred" (the paged pool at Tq <= 16 only: attend to the new
           K/V in flight, commit all layers after the loop).
+        return_final_hidden: return (logits, hidden) with hidden the last
+          layer's pre-norm output [S, Tq, dim] bf16, the feature an EAGLE
+          head autoregresses over (speculative/eagle.py).
         """
         llm = self.llm
         S, Tq = tokens.shape
@@ -415,6 +429,13 @@ class LlamaModel(nn.Module):
             kv.commit(deferred.blocks, index)
         kv.advance(cpos, active=active)
 
+        logits = self.logits(x, logits_mode)
+        return (logits, x) if return_final_hidden else logits
+
+    def logits(self, x: torch.Tensor, logits_mode: str) -> torch.Tensor:
+        """The head over the final hidden x [S, Tq, dim] in a forward's
+        logits_mode."""
+        S, Tq, _ = x.shape
         if logits_mode == "none":
             return torch.zeros(S, 0, dtype=torch.float32, device=x.device)
         if logits_mode == "argmax":

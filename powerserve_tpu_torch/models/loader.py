@@ -2,7 +2,9 @@
 carry-over of parameters that were loaded elsewhere as numpy arrays.
 
 Tensor names follow the GGUF/llama.cpp convention (token_embd.weight,
-blk.{i}.attn_q.weight, ...). Every GGUF type other than Q4_0, Q4_K and
+blk.{i}.attn_q.weight, ...); an EAGLE draft head's GGUF
+(general.architecture "eagle") loads against its target model
+(load_eagle_gguf). Every GGUF type other than Q4_0, Q4_K and
 Q8_0 is requantized to Q8_0 at load (core/quant.py:repack_gguf_tensor).
 MoE layers (Mixtral-as-llama, Qwen3-MoE) carry ffn_gate_inp (the router)
 and 3-D ffn_{gate,up,down}_exps tensors, loaded as expert stacks.
@@ -276,6 +278,83 @@ def load_gguf_model(path: str | os.PathLike, pack: bool = True,
     model = LlamaModel(cfg.llm, embed, [LlamaLayer(**w) for w in layers],
                        out_norm, lm_head)
     return cfg, model
+
+
+def load_eagle_gguf(path: str | os.PathLike, target: LlamaModel,
+                    target_llm: LLMConfig, pack: bool = True,
+                    fuse: bool = True,
+                    device: str | torch.device | None = None):
+    """Load an EAGLE head GGUF (general.architecture "eagle", the eagle.*
+    metadata) against its target model onto `device` (default cuda).
+
+    The head shares the target's embedding and lm_head objects (no second
+    copy on the device) unless the file carries its own token_embd /
+    output tensors; blk.0 without attn_norm means EAGLE-1's identity
+    input norm (input_norm=False). Returns (head LLMConfig, EagleHead)."""
+    import dataclasses
+
+    from ..speculative.eagle import EagleHead
+
+    dev = resolve_device(device)
+    p = Path(path)
+    if p.is_dir():
+        p = p / "weights.gguf"
+    reader = GGUFReader(p)
+    md = reader.metadata
+    if md.get("general.architecture") != "eagle":
+        raise ValueError(f"{p}: not an eagle head "
+                         f"(arch={md.get('general.architecture')})")
+    L = int(md.get("eagle.block_count", 1))
+    dim = int(md.get("eagle.embedding_length", target_llm.dim))
+    n_heads = int(md.get("eagle.attention.head_count", target_llm.n_heads))
+    n_kv = int(md.get("eagle.attention.head_count_kv",
+                      target_llm.n_kv_heads))
+    head_dim = int(md.get("eagle.rope.dimension_count",
+                          dim // max(n_heads, 1)))
+    rope = dataclasses.replace(
+        target_llm.rope,
+        freq_base=float(md.get("eagle.rope.freq_base",
+                               target_llm.rope.freq_base)),
+        rope_type=int(md.get("powerserve.rope_type",
+                             target_llm.rope.rope_type)),
+        n_dims=head_dim)
+    e_llm = dataclasses.replace(
+        target_llm, n_layers=L, dim=dim, n_heads=n_heads, n_kv_heads=n_kv,
+        head_size=head_dim, kv_dim=n_kv * head_dim, rope=rope,
+        hidden_dim=int(md.get("eagle.feed_forward_length",
+                              target_llm.hidden_dim)),
+        norm_eps=float(md.get("eagle.attention.layer_norm_rms_epsilon",
+                              target_llm.norm_eps)))
+    input_norm = "blk.0.attn_norm.weight" in reader.tensors
+    layers = []
+    for i in range(L):
+        pre = f"blk.{i}."
+        w = {name: _qlinear_from_gguf(reader, pre + gguf, pack, dev)
+             for name, gguf in (("wq", "attn_q.weight"),
+                                ("wk", "attn_k.weight"),
+                                ("wv", "attn_v.weight"),
+                                ("wo", "attn_output.weight"),
+                                ("w_gate", "ffn_gate.weight"),
+                                ("w_up", "ffn_up.weight"),
+                                ("w_down", "ffn_down.weight"))}
+        for name, gguf in (("attn_norm", "attn_norm.weight"),
+                           ("ffn_norm", "ffn_norm.weight"),
+                           ("bq", "attn_q.bias"), ("bk", "attn_k.bias"),
+                           ("bv", "attn_v.bias")):
+            w[name] = _float_from_gguf(reader, pre + gguf, dev)
+        if w["attn_norm"] is None:  # read by no layer (layer 0 only)
+            w["attn_norm"] = torch.ones(dim, dtype=torch.float32, device=dev)
+        layers.append(LlamaLayer(**(fuse_layer(w) if fuse else w)))
+    fc = _qlinear_from_gguf(reader, "fc.weight", pack, dev)
+    fc_bias = _float_from_gguf(reader, "fc.bias", dev)
+    embed = (_embedding_from_gguf(reader, "token_embd.weight", dev)
+             if "token_embd.weight" in reader.tensors else target.embed)
+    lm_head = (_qlinear_from_gguf(reader, "output.weight", pack, dev)
+               if "output.weight" in reader.tensors else target.lm_head)
+    out_norm = _float_from_gguf(reader, "output_norm.weight", dev)
+    reader.close()
+    return e_llm, EagleHead(e_llm, fc, fc_bias, layers, embed, lm_head,
+                            out_norm, input_norm)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,11 @@ greedy acceptance (the tokens are the plain run's): --spec-engine chain
 (speculative/chain.py, --spec-k draft tokens per step), device-tree
 (speculative/device_tree.py, a static tree of --spec-tree widths per
 depth) or tree (speculative/engine.py, the host-grown token tree; needs
---draft). --draft-head-rank R factors the draft's lm_head
-(speculative/draft_head.py). The eagle engine and EAGLE heads are not
-ported yet.
+--draft). A --draft dir holding an EAGLE head (general.architecture
+"eagle") selects the EAGLE engine (speculative/eagle.py): a chain of
+--spec-k, or with --spec-engine device-tree the tree of --spec-tree;
+--spec-engine eagle insists on such a head. --draft-head-rank R factors
+the draft's lm_head, or the head's (speculative/draft_head.py).
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ import torch
 from .core.config import HyperParams, WorkspaceConfig
 from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
-from .models.loader import gguf_architecture, load_gguf_model
+from .models.loader import gguf_architecture, load_eagle_gguf, load_gguf_model
 from .speculative.chain import ChainSpecEngine, with_draft_head
 from .speculative.device_tree import DeviceTreeEngine, TreeTemplate
 from .speculative.draft_head import make_draft_head
+from .speculative.eagle import EagleChainEngine, with_lm_head_lr
 from .speculative.engine import SpecStats, SpeculativeEngine
 from .speculative.tree import SpeculativeConfig
 from .tokenizer import Tokenizer
@@ -88,8 +91,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     choices=["chain", "tree", "device-tree", "eagle"],
                     help="chain: the on-device chain; device-tree: the "
                          "on-device token tree of --spec-tree; tree: the "
-                         "host-grown token tree (needs --draft); eagle is "
-                         "not ported yet")
+                         "host-grown token tree (needs --draft); eagle: "
+                         "an EAGLE head's chain (needs --draft <eagle "
+                         "head dir>, which selects it by itself)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="chain draft length per speculative step")
     ap.add_argument("--spec-tree", default="2,1,1",
@@ -159,11 +163,16 @@ def build_spec_engine(args: argparse.Namespace, model_dir: str,
                       hp: HyperParams):
     """The speculation engine of --spec-engine over --draft /
     --self-draft-layers."""
-    if args.spec_engine == "eagle":
-        raise SystemExit("--spec-engine eagle: not ported yet")
     draft_dir = resolve_workspace(args.draft)[0] if args.draft else None
-    if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
-        raise SystemExit("EAGLE draft heads are not ported yet")
+    arch = gguf_architecture(draft_dir) if draft_dir is not None else None
+    if args.spec_engine == "eagle" and arch != "eagle":
+        raise SystemExit(f"--spec-engine eagle needs --draft <eagle head "
+                         f"dir> (got {args.draft!r}, arch={arch})")
+    if arch == "eagle":
+        if args.spec_engine == "tree":
+            raise SystemExit("--spec-engine tree takes a draft model, not "
+                             "an EAGLE head")
+        return build_eagle_engine(args, model_dir, draft_dir, hp)
     if args.spec_engine == "tree" and draft_dir is None:
         raise SystemExit("--spec-engine tree needs --draft")
     if draft_dir is None and not args.self_draft_layers:
@@ -193,6 +202,27 @@ def build_spec_engine(args: argparse.Namespace, model_dir: str,
     if args.draft_head_rank:
         eng.draft = with_draft_head(eng.draft, make_draft_head(
             eng.draft.lm_head, rank=args.draft_head_rank))
+    return eng, tok
+
+
+def build_eagle_engine(args: argparse.Namespace, model_dir: str,
+                       head_dir: Path, hp: HyperParams):
+    """EagleChainEngine over the head in head_dir: a chain of --spec-k,
+    or with --spec-engine device-tree the tree of --spec-tree."""
+    cfg, model = load_gguf_model(model_dir, device=args.device)
+    tok = Tokenizer.from_model_dir(model_dir)
+    _, head = load_eagle_gguf(head_dir, model, cfg.llm, device=args.device)
+    if args.draft_head_rank:
+        head = with_lm_head_lr(head, make_draft_head(
+            head.lm_head, rank=args.draft_head_rank))
+    tpl = None
+    if args.spec_engine == "device-tree":
+        tpl = TreeTemplate.from_widths(
+            [int(w) for w in args.spec_tree.split(",")])
+    eng = EagleChainEngine(model, cfg, head, k=args.spec_k, template=tpl,
+                           max_seq=hp.max_seq_len,
+                           prefill_chunk=max(int(hp.batch_size), 1),
+                           device=args.device)
     return eng, tok
 
 

@@ -13,19 +13,21 @@ only the scheduler thread touches the device. Streams are chunked
 `text/event-stream` responses.
 
 A model name "main+draft" serves `main` with speculation from the model
-dir `draft`, "main+self:N" from a self-draft over main's first N layers
-(speculative/chain.py): a scheduler of its own, on the weights of main's
-plain context (loaded once, shared). --spec-k sets the chain's draft
-length, --spec-tree W,... a token tree in its place (widths per depth,
+dir `draft` (an EAGLE head's dir, general.architecture "eagle", drafts
+with the head: speculative/eagle.py), "main+self:N" from a self-draft
+over main's first N layers (speculative/chain.py): a scheduler of its
+own, on the weights of main's plain context (loaded once, shared).
+--spec-k sets the chain's draft length, --spec-tree W,... a token tree
+in its place (widths per depth,
 speculative/device_tree.py; --spec-wor verifies children drawn without
 replacement by recursive rejection), --spec-horizon the speculative
 steps per scheduler tick and --draft-head-rank factors the draft's
-lm_head. Logprobs and penalties are not applied by speculative ticks, so
-such requests on a speculative name get a 400, as does a draft whose
-vocab differs from main's.
+lm_head (an EAGLE head's too). Logprobs and penalties are not applied by
+speculative ticks, so such requests on a speculative name get a 400, as
+does a draft whose vocab differs from main's.
 
-Not ported yet, and answered with a 400: EAGLE draft heads, VLM models
-and images, sessions.
+Not ported yet, and answered with a 400: VLM models and images,
+sessions.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
@@ -52,9 +54,11 @@ from ..core.device import resolve_device
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
 from ..models.llama import LlamaModel
-from ..models.loader import gguf_architecture, load_gguf_model
+from ..models.loader import (gguf_architecture, load_eagle_gguf,
+                             load_gguf_model)
 from ..speculative.chain import self_draft_model, with_draft_head
 from ..speculative.draft_head import make_draft_head
+from ..speculative.eagle import with_lm_head_lr
 from ..tokenizer import Tokenizer
 
 log = get_logger("server")
@@ -219,11 +223,17 @@ class ServerContext:
         draft_dir = None
         if not draft_name.startswith("self:"):
             draft_dir = self.resolve_dir(draft_name)
-            if gguf_architecture(draft_dir) == "eagle":
-                raise HTTPError(400, f"model '{name}': EAGLE draft heads "
-                                     f"are not ported yet")
         base = self._get(main_name)
         model, cfg = base.scheduler.model, base.scheduler.cfg
+        rank = int(self.hp.draft_head_rank)
+        if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
+            # the head shares main's embedding and lm_head
+            _, head = load_eagle_gguf(draft_dir, model, cfg.llm,
+                                      device=self.device)
+            if rank:
+                head = with_lm_head_lr(head, make_draft_head(head.lm_head,
+                                                             rank=rank))
+            return self._start(name, base, eagle_head=head)
         if draft_dir is None:
             try:
                 draft = self_draft_model(model, int(draft_name[5:]))
@@ -237,12 +247,17 @@ class ServerContext:
                 raise HTTPError(400, f"draft vocab ({d_cfg.llm.vocab_size}) "
                                      f"!= target vocab "
                                      f"({cfg.llm.vocab_size})")
-        if self.hp.draft_head_rank:
-            draft = with_draft_head(draft, make_draft_head(
-                draft.lm_head, rank=int(self.hp.draft_head_rank)))
+        if rank:
+            draft = with_draft_head(draft, make_draft_head(draft.lm_head,
+                                                           rank=rank))
+        return self._start(name, base, draft=draft)
+
+    def _start(self, name: str, base: ModelContext, **draft) -> ModelContext:
+        """A speculating scheduler over base's weights with `draft` (a
+        draft model or an EAGLE head), started and registered."""
         try:
-            sched = BatchScheduler(model, cfg, self.hp, self.device,
-                                   draft=draft)
+            sched = BatchScheduler(base.scheduler.model, base.scheduler.cfg,
+                                   self.hp, self.device, **draft)
         except ValueError as e:  # a tree the verify cannot take
             raise HTTPError(400, f"model '{name}': {e}") from e
         sched.start()

@@ -1,7 +1,8 @@
 """Synthetic GGUF workspace generator — random-weight models at any
 architecture size, for tests and benchmarks without model downloads.
 (Counterpart of the reference's gguf_export pipeline P3, but generating
-instead of converting.)"""
+instead of converting.) make_eagle_gguf writes a random EAGLE draft head
+at a preset's widths (`--eagle-head`)."""
 
 from __future__ import annotations
 
@@ -180,6 +181,58 @@ def make_synthetic_gguf(
     return out_dir
 
 
+def make_eagle_gguf(out_dir: str | Path, preset: str = "tiny",
+                    quant: int = GGMLType.Q8_0, seed: int = 0,
+                    scale: float = 0.05, fc_bias: bool = True,
+                    input_norm: bool = False) -> Path:
+    """Write a random EAGLE head (weights.gguf in out_dir) at a preset's
+    widths, in the layout of an official EAGLE-1 head converted to GGUF:
+    fc [2 * dim -> dim] (+ bias), one decoder layer, no attn_norm on
+    layer 0 unless input_norm, no final norm, and the target's embedding
+    and lm_head (no token_embd / output tensors)."""
+    p = PRESETS[preset]
+    dim, ffn, H, Hkv = p["dim"], p["ffn"], p["heads"], p["kv_heads"]
+    hd = dim // H
+    rng = np.random.default_rng(seed)
+    w = GGUFWriter()
+    md = w.metadata
+    md["general.architecture"] = "eagle"
+    md["eagle.embedding_length"] = dim
+    md["eagle.feed_forward_length"] = ffn
+    md["eagle.block_count"] = 1
+    md["eagle.attention.head_count"] = H
+    md["eagle.attention.head_count_kv"] = Hkv
+    md["eagle.rope.dimension_count"] = hd
+    md["eagle.rope.freq_base"] = (500000.0 if "llama" in preset
+                                  else 10000.0)
+    md["eagle.attention.layer_norm_rms_epsilon"] = 1e-5
+
+    def add(name, shape_out_in):
+        arr = rng.standard_normal(shape_out_in, dtype=np.float32) * scale
+        w.add_tensor(name, tuple(reversed(shape_out_in)), quant,
+                     quantize(arr, quant))
+
+    add("fc.weight", (dim, 2 * dim))
+    if fc_bias:
+        w.add_float_tensor(
+            "fc.bias", rng.standard_normal(dim, dtype=np.float32) * 0.01)
+    if input_norm:
+        w.add_float_tensor("blk.0.attn_norm.weight",
+                           np.ones(dim, np.float32))
+    add("blk.0.attn_q.weight", (H * hd, dim))
+    add("blk.0.attn_k.weight", (Hkv * hd, dim))
+    add("blk.0.attn_v.weight", (Hkv * hd, dim))
+    add("blk.0.attn_output.weight", (dim, H * hd))
+    add("blk.0.ffn_gate.weight", (ffn, dim))
+    add("blk.0.ffn_up.weight", (ffn, dim))
+    add("blk.0.ffn_down.weight", (dim, ffn))
+    w.add_float_tensor("blk.0.ffn_norm.weight", np.ones(dim, np.float32))
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    w.write(out_dir / "weights.gguf")
+    return out_dir
+
+
 def main() -> None:
     import argparse
 
@@ -192,6 +245,9 @@ def main() -> None:
                              "f16"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seq-len", type=int, default=2048)
+    ap.add_argument("--eagle-head", action="store_true",
+                    help="write a random EAGLE draft head (weights.gguf) "
+                         "at the preset's widths instead of a workspace")
     args = ap.parse_args()
     fmt = {"q4_0": GGMLType.Q4_0, "q4_1": GGMLType.Q4_1,
            "q5_0": GGMLType.Q5_0, "q8_0": GGMLType.Q8_0,
@@ -199,6 +255,10 @@ def main() -> None:
            "q4_k": GGMLType.Q4_K, "q5_k": GGMLType.Q5_K,
            "q6_k": GGMLType.Q6_K, "iq4_nl": GGMLType.IQ4_NL,
            "iq4_xs": GGMLType.IQ4_XS, "f16": GGMLType.F16}[args.quant]
+    if args.eagle_head:
+        out = make_eagle_gguf(args.out_dir, args.preset, fmt, args.seed)
+        print(f"eagle head written to {out}")
+        return
     out = make_synthetic_gguf(args.out_dir, args.preset, fmt, args.seed,
                               args.seq_len)
     print(f"workspace written to {out}")

@@ -255,7 +255,8 @@ def test_fused_head_argmax_ties_first_occurrence(dev):
 
 
 FUSED_MODES = {
-    "x": ("x", 1, False, 0), "norm(x+attn)": ("norm", 2, False, 0),
+    "x": ("x", 1, False, 0), "x+bias": ("x", 1, True, 0),
+    "norm(x+attn)": ("norm", 2, False, 0),
     "norm3+bias": ("norm", 3, True, 0), "glu+2resids": ("glu", 1, False, 2),
     "concat2+bias+resid": ("concat2", 2, True, 1),
 }
@@ -1455,6 +1456,193 @@ def test_device_tree_engine_cuda_matches_plain(dev, tmp_path):
         got = list(DeviceTreeEngine(model, cfg, block_steps=4, max_seq=128,
                                     device=dev, **kw).generate(prompt, 20))
         assert cuda_lib.launch_counts()["flash_decode_tree"] > before
+        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if i is not None:
+            plain.reset()
+            top2 = plain.prefill(prompt + want[:i]).topk(2).values
+            assert float(top2[0] - top2[1]) < 0.5, (i, got, want)
+
+
+# -- EAGLE speculation: the head's fused route and the replayed steps ---------
+
+
+def _eagle_pair(tmp_path, dev, preset="tiny-k"):
+    """(cfg, target, head) on `dev`: a synthetic target and a random
+    EAGLE-1 head at its widths (no attn_norm on layer 0, an fc bias)."""
+    from powerserve_tpu_torch.models.loader import load_eagle_gguf
+    from powerserve_tpu_torch.tools.synthetic import make_eagle_gguf
+
+    cfg, model = _graph_model(tmp_path / "t", preset, dev)
+    h = make_eagle_gguf(tmp_path / "eagle", preset, seed=9)
+    _, head = load_eagle_gguf(h, model, cfg.llm, device=dev)
+    return cfg, model, head
+
+
+@pytest.mark.parametrize("mode", ["all", "argmax"])
+def test_eagle_forward_fused_matches_twin(dev, tmp_path, mode):
+    """eagle_forward's fused route on the card (the fc through concat2 +
+    bias, layer 0's QKV through x + bias, the fused layer chain, the
+    head through x (+ argmax)) against the same forward on the cpu: a
+    9-token prefill, then 3 rows of 2 slots; logits (or tokens, near-tie
+    rule) and features within 2% of their range (the bf16 roundings of
+    the layer's inputs may fall apart between the two: REL for one
+    kernel, compounded by a layer); the concat2 and x + bias launches
+    counted; no host sync."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.speculative.eagle import eagle_forward
+
+    outs = {}
+    for device in ("cpu", dev):
+        cfg, model, head = _eagle_pair(tmp_path / str(device).replace(
+            ":", ""), device)
+        e = head.llm
+        kv = KVCache.create(1, 2, 128, e.n_kv_heads, e.head_size, device)
+        g = torch.Generator().manual_seed(3)
+        res = []
+        for t, p0, m in ((9, 0, "none"), (3, 9, mode)):
+            toks = torch.randint(3, 500, (2, t), generator=g).to(device)
+            feats = torch.randn(2, t, e.dim, generator=g).to(device)
+            pos = (p0 + torch.arange(t)).expand(2, t).to(device)
+            if device == "cpu" or m == "none":
+                out = eagle_forward(head, kv, toks, feats, pos, logits_mode=m)
+            else:
+                before = cuda_lib.launch_counts()
+                out = _sync_free(lambda: eagle_forward(
+                    head, kv, toks, feats, pos, logits_mode=m))
+                after = cuda_lib.launch_counts()
+                assert after["fused_concat2"] == before["fused_concat2"] + 1
+                assert after["fused_x"] > before["fused_x"]
+            res.append(tuple(o.cpu() for o in out))
+        outs[str(device)] = res
+    (_, fc), (lc, fc2) = outs["cpu"]
+    (_, fg), (lg, fg2) = outs[str(dev)]
+    _close(fg, fc, rel=2e-2)
+    _close(fg2, fc2, rel=2e-2)
+    if mode == "all":
+        _close(lg, lc, rel=2e-2)
+    else:
+        assert lg.dtype == torch.int32 and lg.shape == (2,)
+
+
+@pytest.mark.parametrize("tree", [None, [2, 1]])
+def test_eagle_steps_replay_match_eager(dev, tmp_path, tree):
+    """Replayed greedy eagle_spec_scan (k = 3) or eagle_tree_spec_scan
+    ([2, 1]), two slots, one of them inactive in the second call, against
+    the same steps eager: tokens, counts, roots and features, both
+    caches bit for bit, the same launch counts (concat2 among them);
+    then a replay without a host sync."""
+    from powerserve_tpu_torch.engine.graphs import graphs_of
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
+    from powerserve_tpu_torch.speculative.eagle import (eagle_forward,
+                                                        eagle_spec_scan,
+                                                        eagle_tree_spec_scan)
+
+    cfg, model, head = _eagle_pair(tmp_path, dev)
+    S = 2
+
+    def prefilled():
+        llm, e = model.llm, head.llm
+        t_kv = KVCache.create(llm.n_layers, S, 128, llm.n_kv_heads,
+                              llm.head_size, dev)
+        e_kv = KVCache.create(1, S, 128, e.n_kv_heads, e.head_size, dev)
+        toks = torch.arange(S * 9, device=dev).reshape(S, 9) * 5 % 200 + 3
+        pos = torch.arange(9, device=dev).expand(S, 9).clone()
+        pos[0, 6:] = -1
+        _, f = model(t_kv, toks, pos, logits_mode="none",
+                     return_final_hidden=True)
+        f = f.float()
+        eagle_forward(head, e_kv, toks, torch.cat(
+            [torch.zeros_like(f[:, :1]), f[:, :-1]], dim=1), pos,
+            logits_mode="none")
+        return t_kv, e_kv, f[torch.arange(S), torch.tensor([5, 8])]
+
+    def scan(t_kv, e_kv, root, feat, n, active):
+        if tree is None:
+            return eagle_spec_scan(model, head, t_kv, e_kv, root, feat, n, 3,
+                                   active)
+        return eagle_tree_spec_scan(model, head, t_kv, e_kv, root, feat, n,
+                                    TreeTemplate.from_widths(tree), active)
+
+    t1, e1, f1 = prefilled()
+    t2, e2, f2 = t1.clone(), e1.clone(), f1.clone()
+    r1 = r2 = torch.tensor([7, 9], device=dev)
+    for n, act in ((5, [True, True]), (4, [False, True])):
+        active = torch.tensor(act, device=dev)
+        (tok1, c1, r1, f1), counts = _counted(
+            lambda: scan(t1, e1, r1, f1, n, active))
+        with _eager_steps():
+            (tok2, c2, r2, f2), eager = _counted(
+                lambda: scan(t2, e2, r2, f2, n, active))
+        for a, b in ((tok1, tok2), (c1, c2), (r1, r2), (f1, f2)):
+            assert torch.equal(a, b)
+        assert counts == eager and counts["fused_concat2"] > 0
+        _same_cache_bits(t1, t2)
+        _same_cache_bits(e1, e2)
+    _replays_without_sync(graphs_of(t1))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("spec_tree", ["", "2,1"])
+def test_eagle_ticks_replay_match_eager(dev, tmp_path, paged, spec_tree):
+    """Three greedy EAGLE ticks of the scheduler (a chain of 3 or the
+    [2, 1] tree, two steps a tick; the dense cache or the paged pool)
+    replayed against the same ticks eager: emitted tokens, counts, roots
+    and carried features, both caches bit for bit, the same launch
+    counts."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+
+    cfg, model, head = _eagle_pair(tmp_path, dev)
+
+    def sched():
+        hp = HyperParams(max_slots=4, batch_size=8, max_seq_len=128,
+                         spec_k=3, spec_tree=spec_tree, spec_horizon=2,
+                         paged_pages=40 if paged else 0, page_size=8)
+        s = BatchScheduler(model, cfg, hp, device=dev, eagle_head=head)
+        for r in _sched_requests(0.0):
+            s.submit(Request(max_tokens=60, **r))
+        s._admit()
+        while s._prefill_tick():
+            pass
+        return s
+
+    got, want = sched(), sched()
+    for _ in range(3):
+        _, counts = _counted(got._decode_tick)
+        with _eager_steps():
+            _, eager = _counted(want._decode_tick)
+        for name in ("spec_emitted", "spec_counts", "root", "feat"):
+            assert torch.equal(got.bufs[name], want.bufs[name]), name
+        assert counts == eager and counts["fused_concat2"] > 0
+        _same_cache_bits(got.kv, want.kv)
+        _same_cache_bits(got.d_kv, want.d_kv)
+    assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
+    _replays_without_sync(got.graphs)
+
+
+def test_eagle_engine_cuda_matches_plain(dev, tmp_path):
+    """Greedy EagleChainEngine runs on the card (a chain of 3 and the
+    [2, 1, 1] tree) against the plain engine's tokens on the card
+    (near-tie rule), with concat2 launched."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
+    from powerserve_tpu_torch.speculative.eagle import EagleChainEngine
+
+    cfg, model, head = _eagle_pair(tmp_path, dev)
+    hp = HyperParams(max_slots=1, batch_size=8, max_seq_len=128)
+    hp.sampler.temperature = 0.0
+    plain = InferenceEngine(model, cfg, hp, device=dev)
+    prompt = [3, 17, 5, 9, 44, 12]
+    want = list(plain.generate(prompt, 20))
+    for tpl in (None, TreeTemplate.from_widths([2, 1, 1])):
+        before = cuda_lib.launch_counts()["fused_concat2"]
+        got = list(EagleChainEngine(model, cfg, head, k=3, block_steps=4,
+                                    max_seq=128, template=tpl,
+                                    device=dev).generate(prompt, 20))
+        assert cuda_lib.launch_counts()["fused_concat2"] > before
         i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
                  None)
         if i is not None:

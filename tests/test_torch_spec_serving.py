@@ -19,14 +19,15 @@ import pytest
 
 from powerserve_tpu_torch import run
 from powerserve_tpu_torch.core.config import HyperParams
-from powerserve_tpu_torch.core.gguf import GGMLType, GGUFWriter
+from powerserve_tpu_torch.core.gguf import GGMLType
 from powerserve_tpu_torch.engine.generator import InferenceEngine
 from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
 from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.serving.server import ServerContext, make_server
 from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.tokenizer import Tokenizer
-from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
+                                                  make_synthetic_gguf)
 
 NEAR_TIE = 0.5
 
@@ -34,7 +35,7 @@ NEAR_TIE = 0.5
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     """A model root: "model" (tiny Q8_0), "draft" (another seed), "wide"
-    (tiny-k, another vocab) and "eagle" (a GGUF of the eagle arch)."""
+    (tiny-k, another vocab) and "eagle" (a random EAGLE head)."""
     r = tmp_path_factory.mktemp("spec")
     make_synthetic_gguf(r, "tiny", GGMLType.Q8_0, seed=0, seq_len=128)
     for name, preset, quant, seed in (("draft", "tiny", GGMLType.Q8_0, 7),
@@ -42,10 +43,7 @@ def root(tmp_path_factory):
         w = make_synthetic_gguf(tmp_path_factory.mktemp(name), preset, quant,
                                 seed=seed, seq_len=128)
         shutil.copytree(w / "model", r / name)
-    (r / "eagle").mkdir()
-    w = GGUFWriter()
-    w.metadata["general.architecture"] = "eagle"
-    w.write(r / "eagle" / "weights.gguf")
+    make_eagle_gguf(r / "eagle", "tiny", seed=9)
     return r
 
 
@@ -243,8 +241,11 @@ def test_spec_model_rejects_logprobs_penalties_and_unported(server, root):
     assert _post(port, {**body, "frequency_penalty": 0.0})[0] == 200
     status, raw = _post(port, {**body, "model": "model+wide"})
     assert status == 400 and b"vocab" in raw
-    status, raw = _post(port, {**body, "model": "model+eagle"})
-    assert status == 400 and b"not ported yet" in raw
+    # an EAGLE head is served, and refuses logprobs as the others do
+    assert _post(port, {**body, "model": "model+eagle"})[0] == 200
+    status, raw = _post(port, {**body, "model": "model+eagle",
+                               "logprobs": 2})
+    assert status == 400 and b"logprobs" in raw
     # speculation trees are served (their replies: test_tree_spec_models_
     # serve_the_plain_replies), and keep refusing logprobs; a tree the
     # verify cannot take is a 400 naming the limit
@@ -293,8 +294,10 @@ def test_cli_speculation_equals_run(root, tiny, draft):
     spec = run.run_prompt(run.parse_args(base + extra + ["--spec-k", "3"]))
     _agree(spec.ids, plain.ids, plain.prompt_ids, tiny[2])
     assert spec.spec.emitted == len(spec.ids) == 12
-    with pytest.raises(SystemExit):
-        run.run_prompt(run.parse_args(base + ["--draft", str(root / "eagle")]))
+    # an EAGLE head's dir selects the EAGLE chain: the plain tokens too
+    eagle = run.run_prompt(run.parse_args(base + ["--draft",
+                                                  str(root / "eagle")]))
+    _agree(eagle.ids, plain.ids, plain.prompt_ids, tiny[2])
     with pytest.raises(SystemExit):
         run.run_prompt(run.parse_args(base + extra + ["--spec-engine",
                                                       "eagle"]))
