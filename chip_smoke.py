@@ -139,6 +139,28 @@ Phases, each printing one JSON line:
              and traffic (its greedy EAGLE ticks replayed, and the eager
              twin): every reply serve_full_width's (near-tie rule), plus
              one request at temperature 0.8 with a seed
+  vlm_full_width  InternVL2.5-4B's widths, random weights
+             (InternViT-300M-448px: 24 layers of 1024, 16 heads, MLP 4096,
+             q/k/v biases, layer scale; the projector 4096 -> 2048 -> 2048;
+             Qwen2.5-3B Q4_K): an 896 x 448 PNG written and decoded by the
+             port (2 tiles + the thumbnail = 768 image tokens) and 32 text
+             tokens through VLMEngine, 64 greedy tokens, twice (the second
+             steady); the multimodal prefill (tower, overlay, forward)
+             under set_sync_debug_mode("error"), its logits and one decode
+             step against the plain twins on the card (near-tie rule); the
+             tower on the card against the CPU (one tile, its first 4
+             layers, within VISION_REL); the vision ms per tile, the
+             multimodal prefill tok/s, the steady decode tok/s and the
+             launches of qmatmul, the fused head, flash-prefill and
+             flash-decode
+  serve_vlm_full_width  that model behind the HTTP server: 8 slots, a
+             paged pool of 128 pages of 64, 4 chat requests with such a PNG
+             and 4 text completions at once (temperature 0, 64 tokens),
+             served twice on fresh servers (the second's tokens the
+             first's): every image request's tokens VLMEngine's (near-tie
+             rule); image request 0 alone, and on "model+self:4", its
+             batched tokens; each serving's generated tok/s, TTFT p50/p90,
+             each image's encode ms and the image worker processes' start
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -182,8 +204,10 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --kernels [--read-flush]
+       python3 chip_smoke.py --vlm
 The second form runs the build and kernels phases only (the L2 flushed
-by reading 256 MB with --read-flush) and prints the card's line last.
+by reading 256 MB with --read-flush) and prints the card's line last;
+the third the build and the two VLM phases.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -214,6 +238,10 @@ NEAR_TIE = 0.5  # the reference's greedy near-tie gap
 # every matmul input may then fall the other way (2^-8 of one element
 # each) and carry through the layers
 LOGIT_REL = 1e-2
+# the vision tower on the card against the CPU, as a share of the range:
+# their bf16 products sum in other orders, so a bf16 rounding may fall
+# the other way (2^-8 of one element) and carry through the layers
+VISION_REL = 2e-2
 
 
 def emit(obj: dict) -> None:
@@ -2060,6 +2088,22 @@ SERVE_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode_paged")
 SERVED: dict[str, dict] = {}  # phase -> {prompt ids: generated ids}
 
 
+def synthetic_tokenizer(vocab_size: int):
+    """The tokenizer of tools/synthetic.py's workspaces (specials, bytes,
+    filler tokens) at `vocab_size`."""
+    from powerserve_tpu_torch.tokenizer import Tokenizer
+    from powerserve_tpu_torch.tokenizer.vocab import GGUFVocab
+    from powerserve_tpu_torch.tools.synthetic import _simple_vocab
+
+    toks, scores, types = _simple_vocab(vocab_size)
+    return Tokenizer(vocab=GGUFVocab.from_metadata({
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": toks,
+        "tokenizer.ggml.scores": scores, "tokenizer.ggml.token_type": types,
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0}),
+        bos_id=1, eos_id=2, stop_ids={2}, add_bos=True)
+
+
 def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
                            need: tuple = SERVE_NEED,
                            model_name: str = "model", spec_tree: str = "",
@@ -2084,17 +2128,8 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
     from powerserve_tpu_torch.engine.generator import InferenceEngine
     from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.serving.server import ServerContext
-    from powerserve_tpu_torch.tokenizer import Tokenizer
-    from powerserve_tpu_torch.tokenizer.vocab import GGUFVocab
-    from powerserve_tpu_torch.tools.synthetic import _simple_vocab
 
-    toks, scores, types = _simple_vocab(cfg.llm.vocab_size)
-    tok = Tokenizer(vocab=GGUFVocab.from_metadata({
-        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": toks,
-        "tokenizer.ggml.scores": scores, "tokenizer.ggml.token_type": types,
-        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
-        "tokenizer.ggml.unknown_token_id": 0}),
-        bos_id=1, eos_id=2, stop_ids={2}, add_bos=True)
+    tok = synthetic_tokenizer(cfg.llm.vocab_size)
     n_new, lengths = 64, [128, 256, 384, 512, 640, 768, 896, 1024]
     rng = random.Random(0)
     # one byte token per letter, after the BOS and the 3-byte space prefix
@@ -2837,6 +2872,384 @@ def phase_eagle_full_width(dev: torch.device, cfg, model,
     return out, counted.launches
 
 
+VLM_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode")
+VLM_PRESET = "internvl2.5-4b"
+
+
+def vlm_png(seed: int, width: int, height: int) -> tuple:
+    """A PNG this script writes itself (no PIL): gradients plus noise,
+    its rows filtered by all five PNG filters in turn. (bytes, pixels)."""
+    import numpy as np
+
+    from powerserve_tpu_torch.core.image import encode_png
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:height, 0:width]
+    img = np.stack([x * 255 // width, y * 255 // height,
+                    (x + y) * 255 // (width + height)], axis=-1)
+    img = (img + rng.integers(0, 48, img.shape)).clip(0, 255).astype(
+        np.uint8)
+    return encode_png(img, (0, 1, 2, 3, 4)), img
+
+
+def mm_agree(label: str, got: list[int], want: list[int], vlm, ids: list[int],
+             px) -> float | None:
+    """got equals want, or first differs where the multimodal prefill of
+    ids + want[:i] (the images' rows at the image-context ids, on the
+    kernels) has a top-2 logit gap < NEAR_TIE; returns that gap."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+
+    i = first_divergence(got, want)
+    if i < 0:
+        return None
+    llm = vlm.cfg.llm
+    kv = KVCache.create(llm.n_layers, 1, 2048, llm.n_kv_heads,
+                        llm.head_size, vlm.device)
+    logits = vlm.prefill_multimodal(kv, list(ids) + want[:i], px)
+    top2 = logits[0].float().topk(2).values
+    gap = float(top2[0] - top2[1])
+    if not gap < NEAR_TIE:
+        raise AssertionError(f"{label}: {got} vs {want} differ at {i} with "
+                             f"a top-2 gap of {gap}")
+    return gap
+
+
+def phase_vlm_full_width(dev: torch.device) -> tuple[dict, dict]:
+    """InternVL2.5-4B's widths (InternViT-300M-448px: 24 layers of 1024,
+    16 heads, MLP 4096; the projector 4096 -> 2048 -> 2048; Qwen2.5-3B
+    Q4_K, 36 layers), random weights: an 896 x 448 PNG written and
+    decoded here (2 tiles + the thumbnail = 768 image tokens) and a
+    32-token text prompt through VLMEngine, 64 greedy tokens, twice (the
+    second steady). The multimodal prefill's logits and one decode step on
+    the kernels against the plain twins on the card (near-tie rule), the
+    prefill under set_sync_debug_mode("error"); the tower on the card
+    against the CPU on one tile through its first 4 layers."""
+    import numpy as np
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.core.image import decode_image
+    from powerserve_tpu_torch.engine.generator import GenerationStats
+    from powerserve_tpu_torch.engine.vlm import VLMEngine
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.vit import (LAYER_FIELDS, TOP_FIELDS,
+                                                 encode_images,
+                                                 make_vision_params)
+    from powerserve_tpu_torch.tools.bench_params import make_device_internvl
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    vlm = make_device_internvl(VLM_PRESET, "q4_k", seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    llm, vp = vlm.cfg.llm, vlm.vision
+    tile = vlm.image_size
+    png, pixels = vlm_png(0, 2 * tile, tile)
+    t0 = time.perf_counter()
+    img = decode_image(png)
+    decode_s = time.perf_counter() - t0
+    if not np.array_equal(img, pixels):
+        raise AssertionError("the PNG decoder did not give back the pixels")
+    eng = VLMEngine(vlm, HyperParams(max_seq_len=2048), device=dev)
+    t0 = time.perf_counter()
+    px = eng.pixel_values([img])
+    preprocess_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(2)
+    text = torch.randint(3, vlm.image_token_id, (31,), generator=g).tolist()
+    prompt = [1] + text[:8] + [vlm.image_token_id] + text[8:]
+    ids = vlm.expand_image_tokens(prompt, px.shape[0])
+    n_img = ids.count(vlm.image_token_id)
+    if px.shape != (3, 3, tile, tile) or n_img != 3 * vlm.tokens_per_tile:
+        raise AssertionError(f"tiles {px.shape}, image tokens {n_img}")
+    out: dict = {"phase": "vlm_full_width", "preset": VLM_PRESET,
+                 "vision_layers": len(vp.layers), "vision_dim": vp.dim,
+                 "text_layers": llm.n_layers, "text_dim": llm.dim,
+                 "vocab": llm.vocab_size, "build_s": build_s,
+                 "png_bytes": len(png), "host_png_decode_ms": decode_s * 1e3,
+                 "host_preprocess_ms": preprocess_s * 1e3,
+                 "tiles": px.shape[0],
+                 "image_tokens": n_img, "prompt_tokens": len(ids)}
+    px_dev = torch.from_numpy(px).to(dev)
+    ids_dev = torch.tensor(ids, device=dev)
+
+    # the tower + projector: CUDA-event ms over the 3 tiles, warm
+    times = []
+    encode_images(vp, px_dev)
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        encode_images(vp, px_dev)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["vision_ms_per_tile"] = statistics.median(times) / px.shape[0]
+
+    # the tower on the card against the CPU: one tile, its first 4 layers
+    def cut(device):
+        return make_vision_params(
+            {n: getattr(vp, n).to(device) for n in TOP_FIELDS},
+            [{f: (None if getattr(lw, f) is None
+                  else getattr(lw, f).float().to(device))
+              for f in LAYER_FIELDS} for lw in vp.layers[:4]],
+            vp.patch_size, vp.n_heads, vp.eps, vp.downsample, device)
+
+    t0 = time.perf_counter()
+    ref = encode_images(cut("cpu"), px_dev[:1].cpu())
+    cpu_s = time.perf_counter() - t0
+    got = encode_images(cut(dev), px_dev[:1])
+    err = logit_gap(got, ref)
+    if not torch.isfinite(got).all() or not err <= VISION_REL:
+        raise AssertionError(f"vision tower on the card vs the CPU: {err} "
+                             f"of the range (tolerance {VISION_REL})")
+    out["vision_vs_cpu"] = {"tiles": 1, "layers": min(4, len(vp.layers)),
+                            "rel_err": err,
+                            "tolerance": VISION_REL, "cpu_s": cpu_s}
+
+    # the multimodal prefill (tower, overlay, forward) under sync-error
+    # mode, against the plain twins; then one decode step each way
+    def fresh():
+        return KVCache.create(llm.n_layers, 1, 2048, llm.n_kv_heads,
+                              llm.head_size, dev)
+
+    counted = Counted()
+    kv = fresh()
+    logits, _ = counted(
+        "mm_prefill", ("qmatmul", "fused_head", "flash_prefill"),
+        lambda: without_sync("vlm_full_width mm prefill",
+                             lambda: vlm.prefill_multimodal(kv, ids_dev,
+                                                            px_dev)))
+    kv2 = fresh()
+    _, prefill_s = counted("mm_prefill again", ("qmatmul", "flash_prefill"),
+                           lambda: vlm.prefill_multimodal(kv2, ids_dev,
+                                                          px_dev))
+    del kv2
+    twin_kv = fresh()
+    logits_twin = step_on(plain_routes(), lambda: vlm.prefill_multimodal(
+        twin_kv, ids_dev, px_dev))
+    first = logits.argmax(dim=-1)
+
+    def step(routes, c):
+        return step_on(routes, lambda: vlm.llm(
+            c, first[:, None], c.pos.long()[:, None], logits_mode="last"))
+
+    out["prefill_logit_gap"] = near_tie_agree("vlm prefill", logits,
+                                              logits_twin)
+    # one decode step from the same cache on the kernels and the twins
+    out["decode_step_logit_gap"] = near_tie_agree(
+        "vlm decode step", step({}, kv.clone()),
+        step(plain_routes(), kv.clone()))
+    out["prefill_sync_free"] = True
+    out["mm_prefill_tok_s"] = len(ids) / prefill_s
+    del kv, twin_kv, logits, logits_twin
+
+    # VLMEngine: the PNG's pixels, 64 greedy tokens, twice
+    runs = []
+    for again in (False, True):
+        stats = GenerationStats()
+        toks, _ = counted("vlm_generate" + " again" * again, VLM_NEED,
+                          lambda: list(eng.generate(prompt, [img], 64,
+                                                    stats=stats)))
+        runs.append((toks, stats))
+    if runs[0][0] != runs[1][0] or len(runs[0][0]) != 64:
+        raise AssertionError(f"VLMEngine: {runs[0][0]} != {runs[1][0]}")
+    if not all(0 <= t < llm.vocab_size for t in runs[0][0]):
+        raise AssertionError(f"VLMEngine tokens out of range: {runs[0][0]}")
+    for again, (_, st) in enumerate(runs):
+        key = "_again" * again
+        out[f"generate_prefill_tok_s{key}"] = st.prefill_speed
+        out[f"generate_decode_tok_s{key}"] = st.decode_speed
+    out["kernel_launches"] = {k: counted.launches["vlm_generate"][k]
+                              for k in VLM_NEED}
+    out.update(launches=counted.launches, graphs=graph_stats(eng.engine.graphs),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               card=card_line())
+    return out, dict(vlm=vlm, engine=eng, n_img=n_img)
+
+
+def phase_serve_vlm_full_width(dev: torch.device, ref: dict) -> dict:
+    """vlm_full_width's model behind the HTTP server: serve_full_width's 8
+    slots and pool (128 pages of 64), 4 chat requests each with an 896 x
+    448 PNG (768 image tokens) and 4 text completions of 256-640 tokens
+    at once, 64 greedy tokens each, served twice (a fresh server each
+    time; the first pays the process's first serving of this model): every
+    request ends "length", the paged and prefill kernels launch, the
+    second serving's tokens are the first's, every image request's tokens
+    are VLMEngine's (near-tie rule); then image request 0 alone must get
+    its batched tokens, and the same request to "model+self:4" the plain
+    ones. Generated tok/s and TTFT p50/p90 of each serving (the
+    scheduler's, from the submit, which follows the request's image
+    encode on the scheduler thread: its ms are reported apart)."""
+    import base64
+    import random
+    from unittest import mock
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.models import internvl as ivl
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.serving.server import ServerContext
+
+    vlm, eng, n_img = ref["vlm"], ref["engine"], ref["n_img"]
+    tile = vlm.image_size
+    n_new = 64
+    tok = synthetic_tokenizer(vlm.cfg.llm.vocab_size)
+    images = [vlm_png(seed, 2 * tile, tile) for seed in range(4)]
+    questions = ["describe the picture", "what colors do you see",
+                 "is there any text here", "count the stripes please"]
+    # each question's prompt ids; the image's rows lead them (no
+    # placeholder in the text)
+    asked = {tuple(tok.tokenize(tok.apply_chat_template(
+        [{"role": "user", "content": q}]))): k
+        for k, q in enumerate(questions)}
+    rng = random.Random(1)
+    texts = ["".join(rng.choice("abcdefghijklmnopqrsuvwxyz")
+                     for _ in range(n - 4)) for n in (256, 384, 512, 640)]
+    hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
+                     paged_pages=128, page_size=64)
+    depth = min(4, vlm.cfg.llm.n_layers - 1)
+    spec_name = f"model+self:{depth}"
+
+    def chat(port, k, model="model"):
+        url = ("data:image/png;base64,"
+               + base64.b64encode(images[k][0]).decode())
+        return http_call(port, "POST", "/v1/chat/completions", {
+            "model": model, "max_tokens": n_new, "temperature": 0,
+            "messages": [{"role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": url}},
+                {"type": "text", "text": questions[k]}]}]})
+
+    encode_ms: list[float] = []
+    orig = ivl.InternVLModel.embed_multimodal
+
+    def timed_embed(self, ids, px):
+        t0 = time.perf_counter()
+        y = orig(self, ids, px)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return y
+
+    def serve_once(label: str, alone: dict | None) -> dict:
+        """The traffic on a fresh server; with `alone` (a dict to fill),
+        then image request 0 alone and on the speculative name."""
+        encode_ms.clear()
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = ServerContext(tmp, "model", hp, dev)
+            t0 = time.perf_counter()
+            ctx.register("model", vlm.llm, vlm.cfg, tok, vlm=vlm)
+            # the image worker processes start with the model (a server
+            # loads its models before its traffic): wait for them here
+            ctx._image_pool.submit(int).result()
+            workers_s = time.perf_counter() - t0
+            server = serving(ctx)
+            port = server.server_address[1]
+            try:
+                calls = [lambda k=k: chat(port, k) for k in range(4)]
+                calls += [lambda t=t: http_call(
+                    port, "POST", "/v1/completions", {
+                        "model": "model", "prompt": t, "max_tokens": n_new,
+                        "temperature": 0}) for t in texts]
+                with ServeRecorder() as rec:
+                    cuda_lib.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    replies = concurrently(calls)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    launches = cuda_lib.launch_counts()
+                rec.check(label)
+                for status, data in replies:
+                    if status != 200 or json.loads(data)["choices"][0][
+                            "finish_reason"] != "length":
+                        raise AssertionError(f"{label}: {status} "
+                                             f"{data[:200]}")
+                missing = [k for k in SERVE_NEED if not launches[k]]
+                if missing:
+                    raise AssertionError(f"{label} did not launch "
+                                         f"{missing}: {launches}")
+                metrics = metrics_of(port)
+                tokens = rec.tokens()
+                lengths = sorted(len(v) for v in tokens.values())
+                if lengths != [n_new] * 8:
+                    raise AssertionError(f"{label}: token counts {lengths}")
+                run = dict(tokens=tokens, wall=wall, metrics=metrics,
+                           launches=launches, encode_ms=list(encode_ms),
+                           workers_s=workers_s)
+                if alone is None:
+                    return run
+                p0 = next(p for p in tokens
+                          if p.count(vlm.image_token_id) == n_img
+                          and asked[p[n_img:]] == 0)
+                px0 = eng.pixel_values([images[0][1]])
+                for key, model_name in (("alone", "model"),
+                                        (f"self_draft_{depth}", spec_name)):
+                    with ServeRecorder() as rec2:
+                        status, data = chat(port, 0, model_name)
+                    rec2.check(f"{label} {key}")
+                    if status != 200:
+                        raise AssertionError(f"{key}: {status} {data[:200]}")
+                    got = rec2.tokens()[p0]
+                    alone[key] = {"exact": got == tokens[p0],
+                                  "near_tie": mm_agree(
+                                      f"{key} vs batched", got, tokens[p0],
+                                      vlm, list(p0), px0)}
+                alone[f"self_draft_{depth}"]["spec_tokens_per_step"] = \
+                    ctx.get(spec_name).scheduler.metrics().get(
+                        "spec_tokens_per_step")
+                return run
+            finally:
+                server.shutdown()
+                server.server_close()
+                ctx.close()
+
+    res: dict = {}
+    with mock.patch.object(ivl.InternVLModel, "embed_multimodal",
+                           timed_embed):
+        first = serve_once("serve_vlm_full_width first", None)
+        run = serve_once("serve_vlm_full_width", res)
+    tokens = run["tokens"]
+    image_prompts = [p for p in tokens if p.count(vlm.image_token_id) == n_img]
+    if len(image_prompts) != 4:
+        raise AssertionError(f"{len(image_prompts)} image prompts")
+    gaps, again = [], []
+    for p in tokens:
+        # the first serving against the second (near-tie rule)
+        if p in image_prompts:
+            k = asked[tuple(p[n_img:])]
+            px = eng.pixel_values([images[k][1]])
+            again.append(mm_agree(f"first vs second serving (image {k})",
+                                  first["tokens"][p], tokens[p], vlm,
+                                  list(p), px))
+            # against VLMEngine on its prompt and image
+            want = list(eng.generate(list(p[n_img:]), [images[k][1]],
+                                     n_new))
+            gaps.append(mm_agree(f"serve vs VLMEngine (image {k})",
+                                 tokens[p], want, vlm, list(p), px))
+        elif first["tokens"][p] != tokens[p]:
+            raise AssertionError(f"a text request's tokens differ between "
+                                 f"two servings: {tokens[p]} vs "
+                                 f"{first['tokens'][p]}")
+
+    def rates(r):
+        m = r["metrics"]
+        return {"wall_s": r["wall"], "generated_tok_s": 8 * n_new / r["wall"],
+                "ttft_p50_s": m["ttft_seconds_p50"],
+                "ttft_p90_s": m["ttft_seconds_p90"],
+                "latency_p50_s": m["request_latency_seconds_p50"],
+                "image_encode_ms": r["encode_ms"][:4],
+                "image_workers_start_s": r["workers_s"]}
+
+    metrics = run["metrics"]
+    return {"phase": "serve_vlm_full_width", "preset": VLM_PRESET,
+            "slots": 8, "pool_pages": 128, "page": 64,
+            "image_requests": 4, "text_requests": 4, "new_tokens": n_new,
+            **rates(run), "first_serving": rates(first),
+            "preemptions": metrics["paged_preemptions_total"],
+            "vs_vlm_engine_near_ties": [g for g in gaps if g is not None],
+            "vs_first_serving_near_ties": [g for g in again
+                                           if g is not None],
+            "image_request_0": res,
+            "kernel_launches": {k: run["launches"][k] for k in SERVE_NEED},
+            "launches": run["launches"], "card": card_line()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2858,6 +3271,13 @@ def main() -> int:
           "ptxas": ptxas})
     if "--kernels" in sys.argv[1:]:
         phase_kernels(dev, read_flush="--read-flush" in sys.argv[1:])
+        print(card, flush=True)
+        return 0
+    if "--vlm" in sys.argv[1:]:
+        torch.zeros(1, device=dev)  # the allocator, before its peak reset
+        vlm, vlm_ref = phase_vlm_full_width(dev)
+        emit(vlm)
+        emit(phase_serve_vlm_full_width(dev, vlm_ref))
         print(card, flush=True)
         return 0
     kernels = phase_kernels(dev)
@@ -2901,6 +3321,12 @@ def main() -> int:
     finally:
         shutil.rmtree(head_dir, ignore_errors=True)
     del cfg, model
+    torch.cuda.empty_cache()
+    vlm, vlm_ref = phase_vlm_full_width(dev)
+    emit(vlm)
+    serve_vlm = phase_serve_vlm_full_width(dev, vlm_ref)
+    emit(serve_vlm)
+    del vlm_ref
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
     emit(moe)
@@ -3008,7 +3434,13 @@ def main() -> int:
           "eagle_serve_eager_generated_tok_s":
               eagle_serve["eager_twin"]["generated_tok_s"],
           "eagle_serve_ttft_p50_s": eagle_serve["ttft_p50_s"],
-          "eagle_serve_ttft_p90_s": eagle_serve["ttft_p90_s"]})
+          "eagle_serve_ttft_p90_s": eagle_serve["ttft_p90_s"],
+          "vlm_vision_ms_per_tile": vlm["vision_ms_per_tile"],
+          "vlm_mm_prefill_tok_s": vlm["mm_prefill_tok_s"],
+          "vlm_decode_tok_s": vlm["generate_decode_tok_s_again"],
+          "serve_vlm_generated_tok_s": serve_vlm["generated_tok_s"],
+          "serve_vlm_ttft_p50_s": serve_vlm["ttft_p50_s"],
+          "serve_vlm_ttft_p90_s": serve_vlm["ttft_p90_s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

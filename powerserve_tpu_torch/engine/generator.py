@@ -169,7 +169,18 @@ class InferenceEngine:
         the last prompt token."""
         stats = stats if stats is not None else GenerationStats()
         self.prefill(prompt_tokens[:-1], slot=slot, stats=stats)
-        cur = int(prompt_tokens[-1])
+        yield from self.decode(int(prompt_tokens[-1]), n_predict, stop_fn,
+                               slot, stats, list(prompt_tokens))
+
+    def decode(self, cur: int, n_predict: int,
+               stop_fn: Callable[[int], bool] | None = None, slot: int = 0,
+               stats: GenerationStats | None = None,
+               history: list[int] = ()) -> Iterator[int]:
+        """Up to n_predict tokens decoded in blocks from token `cur` at the
+        slot's position; after a stop the unconsumed steps' KV entries
+        are rolled back and the penalty window re-seeded from history +
+        the emitted tokens."""
+        stats = stats if stats is not None else GenerationStats()
         timer = Timer()
         emitted: list[int] = []
         out = 0
@@ -189,11 +200,9 @@ class InferenceEngine:
                     stopped_at = h + 1
                     break
             if 0 <= stopped_at < len(block):
-                # drop the KV entries of the unconsumed steps and re-seed
-                # the penalty window from the actual sequence
                 self.kv.rollback(len(block) - stopped_at,
                                  active=self._active(slot))
-                self.penalty.seed_slot(slot, list(prompt_tokens) + emitted)
+                self.penalty.seed_slot(slot, list(history) + emitted)
                 return
             cur = block[-1]
 

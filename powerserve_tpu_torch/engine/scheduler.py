@@ -49,9 +49,22 @@ ticks run eagle_sample_step (a chain of spec_k) or
 eagle_tree_sample_step (hp.spec_tree), replayed when every slot is
 greedy, as the draft model's.
 
-Multimodal prefill, meshes and double-buffered ticks are not ported:
-like the plain tick, the spec tick syncs once.
-Only the scheduler thread touches the device; submit() is thread-safe.
+With mm_dim (a vision-language model's scheduler) a request may carry
+its prompt's input rows (Request.embeds: the text embeddings with image
+features at the image-context positions, models/internvl.py). A prefill
+chunk then takes each such slot's rows in place of the embedding lookup
+(the choice per slot from host-side flags), through the target, a draft
+model (its own lookup for the other slots) or an EAGLE target; embed
+requests skip the prefix cache (image-context ids are all alike), a
+preempted one extends its rows with its generated tokens' embeddings,
+and a trimmed prompt trims its rows too.
+
+Meshes and double-buffered ticks are not ported: like the plain tick,
+the spec tick syncs once.
+Only the scheduler thread touches the device; submit() is thread-safe,
+and call(fn) runs fn on the scheduler thread between two steps (device
+work for a request, such as encoding its images, never lands inside a
+step's graph capture).
 """
 
 from __future__ import annotations
@@ -61,6 +74,7 @@ import queue
 import threading
 import time
 from collections import deque
+from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -105,6 +119,13 @@ class Request:
     seed: int | None = None
     # top-logprob alternatives to record per token (0 = off)
     logprobs: int = 0
+    # the prompt's input rows [len(prompt_ids), dim] on the scheduler's
+    # device (a VLM prompt: image features at the image-context
+    # positions); needs a scheduler built with mm_dim. The prompt must
+    # END with a text token (the decode feeds it through the embedding
+    # table). Such requests skip the prefix cache: the image-context ids
+    # are all alike, so token-id keys would match across images.
+    embeds: torch.Tensor | None = None
     # receives token ids, then None when finished
     sink: Callable[[int | None], None] = lambda t: None
     id: int = 0
@@ -174,10 +195,12 @@ class BatchScheduler:
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  draft: LlamaModel | None = None,
-                 eagle_head: EagleHead | None = None):
+                 eagle_head: EagleHead | None = None, mm_dim: int = 0):
         """draft: batched speculation with this draft model (its vocab
         must be the target's); eagle_head: with this EAGLE head (its
-        geometry is eagle_head.llm) in place of a draft model."""
+        geometry is eagle_head.llm) in place of a draft model; mm_dim:
+        requests may carry input rows of this width (the model's dim;
+        a draft model's must be the same)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -219,10 +242,17 @@ class BatchScheduler:
             if draft.llm.vocab_size != llm.vocab_size:
                 raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
                                  f"target vocab {llm.vocab_size}")
+            if mm_dim and not self.is_eagle and draft.llm.dim != llm.dim:
+                raise ValueError(f"a multimodal draft takes the target's "
+                                 f"input rows: draft dim {draft.llm.dim} "
+                                 f"!= target dim {llm.dim}")
             self.draft = draft.to(self.device)
             d = draft.llm
             self.d_kv = KVCache.create(d.n_layers, self.S, self.max_seq,
                                        d.n_kv_heads, d.head_size, self.device)
+        if mm_dim and mm_dim != llm.dim:
+            raise ValueError(f"mm_dim {mm_dim} != model dim {llm.dim}")
+        self.mm_dim = int(mm_dim)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one generator per slot, re-seeded at each admission
@@ -273,6 +303,7 @@ class BatchScheduler:
         # admitted before anything in `pending`
         self._waitq: deque[Request] = deque()
         self.pending: queue.Queue[Request] = queue.Queue()
+        self._jobs: queue.Queue[tuple[Callable, Future]] = queue.Queue()
         self._ids = itertools.count()
         self._tick = 0
         self._stop = threading.Event()
@@ -282,11 +313,40 @@ class BatchScheduler:
     # -- front door -----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
+        if req.embeds is not None and (
+                not self.mm_dim
+                or tuple(req.embeds.shape) != (len(req.prompt_ids),
+                                               self.mm_dim)):
+            # a scheduler without mm_dim would prefill from the shared
+            # image-context id instead
+            raise ValueError(f"Request.embeds [{len(req.prompt_ids)}, "
+                             f"{self.mm_dim}] needs a scheduler built with "
+                             f"mm_dim; got {tuple(req.embeds.shape)}")
         req.id = next(self._ids)
         req.submitted_at = time.time()
         self.pending.put(req)
         self._wake.set()
         return req
+
+    def call(self, fn: Callable) -> Future:
+        """Run fn() on the scheduler thread before its next step; the
+        future holds its result or its exception."""
+        fut: Future = Future()
+        self._jobs.put((fn, fut))
+        self._wake.set()
+        return fut
+
+    def _run_jobs(self) -> None:
+        while True:
+            try:
+                fn, fut = self._jobs.get_nowait()
+            except queue.Empty:
+                return
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(fn())
+                except Exception as e:  # noqa: BLE001 — the caller reads it
+                    fut.set_exception(e)
 
     def start(self) -> None:
         if self._thread is None:
@@ -301,6 +361,10 @@ class BatchScheduler:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        while not self._jobs.empty():  # jobs that will not run now
+            _, fut = self._jobs.get_nowait()
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(RuntimeError("the scheduler stopped"))
 
     @property
     def n_active(self) -> int:
@@ -334,6 +398,11 @@ class BatchScheduler:
         emitted tokens are never emitted again."""
         s = self.slots[i]
         req = s.req
+        if req.embeds is not None and s.generated:
+            # keep the rows aligned with the recompute prompt
+            ext = self.model.embed.lookup(torch.tensor(
+                s.generated, device=self.device)).to(req.embeds.dtype)
+            req.embeds = torch.cat([req.embeds, ext])
         req.prompt_ids = list(req.prompt_ids) + s.generated
         self._waitq.appendleft(req)
         self._free_slot(i)
@@ -395,6 +464,8 @@ class BatchScheduler:
             if len(req.prompt_ids) >= self.max_seq:
                 keep = max(1, self.max_seq - req.max_tokens - 1)
                 req.prompt_ids = req.prompt_ids[-keep:]
+                if req.embeds is not None:  # keep the rows aligned
+                    req.embeds = req.embeds[-keep:]
             if self.pool is not None:
                 if not self.pool.ensure(i, len(req.prompt_ids) + 1):
                     # pool dry: return any partial grant, hold the request
@@ -413,7 +484,7 @@ class BatchScheduler:
                 self.d_kv.reset_slot(i)
             if self.is_eagle:
                 self.bufs["feat"][i] = 0.0
-            if self.prefix_cache is not None:
+            if self.prefix_cache is not None and req.embeds is None:
                 hit = self.prefix_cache.match(req.prompt_ids[:-1])
                 # a speculating scheduler's entries carry the draft
                 # cache's prefix too, an EAGLE one's the carried feature
@@ -449,6 +520,8 @@ class BatchScheduler:
         positions = np.full((self.S, C), -1, np.int64)
         active = np.zeros(self.S, bool)
         n_real = np.zeros(self.S, np.int64)
+        # slots whose chunk takes the request's rows: (slot, rows)
+        overlay: list[tuple[int, torch.Tensor]] = []
         stores: list[tuple[int, list[int]]] = []
         for i, slot in enumerate(self.slots):
             if slot.req is None or not slot.prefilling:
@@ -463,10 +536,12 @@ class BatchScheduler:
             positions[i, :len(part)] = off + np.arange(len(part))
             active[i] = True
             n_real[i] = len(part)
+            if slot.req.embeds is not None:
+                overlay.append((i, slot.req.embeds[off:off + len(part)]))
             slot.prefill_off += len(part)
             if slot.prefill_off >= len(prompt):
                 slot.prefilling = False
-                if self.prefix_cache is not None:
+                if self.prefix_cache is not None and slot.req.embeds is None:
                     stores.append((i, prompt))
         if not active.any():
             return False
@@ -474,12 +549,18 @@ class BatchScheduler:
         args = (torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(positions).to(dev))
         act = torch.from_numpy(active).to(dev)
+        rows = self._overlay(self.model, args[0], overlay)
         if self.is_eagle:
-            self._eagle_prefill_chunk(*args, act, n_real)
+            self._eagle_prefill_chunk(*args, act, n_real, rows)
         else:
-            self.model(self.kv, *args, active=act, logits_mode="none")
+            self.model(self.kv, *args, active=act, logits_mode="none",
+                       embeds=rows)
             if self.draft is not None:
-                self.draft(self.d_kv, *args, active=act, logits_mode="none")
+                # the same rows; the other slots through its own table
+                d_rows = (rows if self.draft.embed is self.model.embed
+                          else self._overlay(self.draft, args[0], overlay))
+                self.draft(self.d_kv, *args, active=act, logits_mode="none",
+                           embeds=d_rows)
         for i, prefix in stores:
             if len(prefix) >= self.prefix_cache.min_len:
                 saved = self.kv.save_slot_prefix(i, len(prefix))
@@ -491,17 +572,34 @@ class BatchScheduler:
                 self.prefix_cache.put(prefix, saved)
         return True
 
+    @staticmethod
+    def _overlay(model: LlamaModel, tokens: torch.Tensor,
+                 overlay: list[tuple[int, torch.Tensor]]
+                 ) -> torch.Tensor | None:
+        """A chunk's input rows [S, C, dim] bf16: model's embedding lookup,
+        with each overlay slot's real lanes taking its request's rows
+        (None without such a slot: the forward looks up itself)."""
+        if not overlay:
+            return None
+        x = model.embed.lookup(tokens).to(torch.bfloat16)
+        for i, r in overlay:
+            x[i, :r.shape[0]] = r
+        return x
+
     def _eagle_prefill_chunk(self, tokens: torch.Tensor,
                              positions: torch.Tensor, active: torch.Tensor,
-                             n_real: np.ndarray) -> None:
+                             n_real: np.ndarray,
+                             rows: torch.Tensor | None = None) -> None:
         """A target chunk keeping its final hidden states, then the head's
         chunk: lane 0 pairs with each slot's carried feature, lane i with
         the chunk's feature at lane i - 1. The carry becomes the feature
         at each slot's last real lane (n_real[s] - 1): the padded lanes'
-        features never leak into it."""
+        features never leak into it. rows: the target's input rows (an
+        embed request's); the head reads the token ids."""
         feat = self.bufs["feat"]
         _, feats = self.model(self.kv, tokens, positions, active=active,
-                              logits_mode="none", return_final_hidden=True)
+                              logits_mode="none", return_final_hidden=True,
+                              embeds=rows)
         feats = feats.float()
         eagle_forward(self.draft, self.d_kv, tokens,
                       torch.cat([feat[:, None], feats[:, :-1]], dim=1),
@@ -731,6 +829,7 @@ class BatchScheduler:
         priority (new requests start fast), but decoding slots get a tick
         at least every `decode_every` iterations, so a stream of long
         prompts cannot starve running generations."""
+        self._run_jobs()
         self._cancel_tick()
         self._admit()
         self._tick += 1

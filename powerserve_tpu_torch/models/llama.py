@@ -363,7 +363,8 @@ class LlamaModel(nn.Module):
                 intra_mask: torch.Tensor | None = None,
                 key_positions: torch.Tensor | None = None,
                 attn_mask: torch.Tensor | None = None,
-                return_final_hidden: bool = False):
+                return_final_hidden: bool = False,
+                embeds: torch.Tensor | None = None):
         """One forward pass over a batch of slots; updates kv in place.
 
         kv: the dense KVCache or the paged PagedKVCache.
@@ -396,6 +397,10 @@ class LlamaModel(nn.Module):
         return_final_hidden: return (logits, hidden) with hidden the last
           layer's pre-norm output [S, Tq, dim] bf16, the feature an EAGLE
           head autoregresses over (speculative/eagle.py).
+        embeds: [S, Tq, dim] input rows in place of the embedding lookup
+          (rounded to bf16): a multimodal prefill's text embeddings with
+          image features at the image-context positions
+          (models/internvl.py).
         """
         llm = self.llm
         S, Tq = tokens.shape
@@ -415,7 +420,8 @@ class LlamaModel(nn.Module):
             deferred = DeferredKV(kv, cpos, intra_mask)
         elif kv_update != "inline":
             raise ValueError(f"kv_update {kv_update!r}")
-        x = self.embed.lookup(tokens).to(torch.bfloat16)
+        x = (self.embed.lookup(tokens) if embeds is None
+             else embeds).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
         keys = cpos if key_positions is None else key_positions
         keys32 = keys.to(torch.int32)

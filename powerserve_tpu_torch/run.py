@@ -15,6 +15,11 @@ depth) or tree (speculative/engine.py, the host-grown token tree; needs
 --spec-k, or with --spec-engine device-tree the tree of --spec-tree;
 --spec-engine eagle insists on such a head. --draft-head-rank R factors
 the draft's lm_head, or the head's (speculative/draft_head.py).
+
+--image <file> (repeatable) runs a vision-language workspace (a model dir
+with vision.gguf) through engine/vlm.py: every image's tiles go at the
+prompt's image placeholder, or ahead of the prompt; greedy. Images are
+PNG (core/image.py).
 """
 
 from __future__ import annotations
@@ -27,8 +32,11 @@ from pathlib import Path
 import torch
 
 from .core.config import HyperParams, WorkspaceConfig
+from .core.image import load_image
 from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
+from .engine.vlm import VLMEngine
+from .models.internvl import internvl_from_workspace
 from .models.loader import gguf_architecture, load_eagle_gguf, load_gguf_model
 from .speculative.chain import ChainSpecEngine, with_draft_head
 from .speculative.device_tree import DeviceTreeEngine, TreeTemplate
@@ -99,6 +107,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--spec-tree", default="2,1,1",
                     help="device-tree widths per depth (a node at depth d "
                          "gets widths[d] draft children)")
+    ap.add_argument("--image", action="append", default=None,
+                    help="PNG image for a vision-language workspace "
+                         "(repeatable): the multimodal engine, greedy")
     return ap.parse_args(argv)
 
 
@@ -125,8 +136,14 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
         prompt = Path(args.prompt_file).read_text()
 
     log.info(f"loading model from {model_dir} on {args.device}")
+    images = None
     spec = None
-    if args.draft or args.self_draft_layers or args.spec_engine != "chain":
+    if args.image:
+        images = [load_image(p) for p in args.image]
+        engine = VLMEngine(internvl_from_workspace(model_dir, args.device),
+                           hp, args.device)
+        tok = Tokenizer.from_model_dir(model_dir)
+    elif args.draft or args.self_draft_layers or args.spec_engine != "chain":
         engine, tok = build_spec_engine(args, str(model_dir), hp)
         spec = SpecStats()
     else:
@@ -140,8 +157,12 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     out_ids: list[int] = []
     if not args.no_progress:
         print(prompt, end="", flush=True)
-    for t in engine.generate(ids, args.n_predicts, stop_fn=tok.should_stop,
-                             stats=stats if spec is None else spec):
+    gen = (engine.generate(ids, images, args.n_predicts,
+                           stop_fn=tok.should_stop, stats=stats)
+           if images else
+           engine.generate(ids, args.n_predicts, stop_fn=tok.should_stop,
+                           stats=stats if spec is None else spec))
+    for t in gen:
         out_ids.append(t)
         if not args.no_progress:
             print(tok.to_string([t]), end="", flush=True)

@@ -9,11 +9,16 @@ scheduler behind a small synchronous surface, no HTTP — for Python hosts
     for piece in srv.completion("Tell me a story", stream=True):
         print(piece, end="", flush=True)
     reply = srv.chat([{"role": "user", "content": "hi"}])
+    reply = srv.chat([{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": "data:image/png;base64,..."}},
+        {"type": "text", "text": "what is this?"}]}], model="internvl")
     srv.close()
 
-Same semantics as the HTTP server: chat templates, UTF-8-safe streaming,
-stop strings and ids, per-request sampling. Thread-safe: requests ride
-the scheduler's own queue.
+Same semantics as the HTTP server: chat templates, images on a
+vision-language model (data: URIs of PNGs; an HTTPError of status 400
+for what the server answers with a 400), UTF-8-safe streaming, stop
+strings and ids, per-request sampling. Thread-safe: requests ride the
+scheduler's own queue.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from ..core.config import HyperParams
 from .server import (IncrementalDecoder, ModelContext, ServerContext,
-                     StopMatcher, _sampling_from_body, _text_messages,
+                     StopMatcher, _sampling_from_body, _split_multimodal,
                      generate)
 
 SAMPLING_KEYS = {"max_tokens", "temperature", "top_k", "top_p",
@@ -43,12 +48,13 @@ class LocalServer:
         self.default_model = model
 
     def _stream(self, mctx: ModelContext, prompt_ids: list[int],
-                sampling: dict, stop_strings: list[str]) -> Iterator[str]:
+                sampling: dict, stop_strings: list[str],
+                embeds: torch.Tensor | None = None) -> Iterator[str]:
         tok = mctx.tokenizer
         stop_ids = set(tok.stop_ids)
         dec = IncrementalDecoder(tok)
         matcher = StopMatcher(stop_strings)
-        for t, req in generate(mctx, prompt_ids, sampling, stop_ids):
+        for t, req in generate(mctx, prompt_ids, sampling, stop_ids, embeds):
             piece = matcher.push(dec.push(t) if t not in stop_ids else "")
             if matcher.stopped:
                 req.cancelled = True
@@ -84,11 +90,14 @@ class LocalServer:
     def chat(self, messages: list[dict], model: str | None = None,
              stream: bool = False, stop: list[str] | None = None,
              **sampling):
-        """Chat completion through the model's chat template."""
+        """Chat completion through the model's chat template; OpenAI
+        content arrays with data: image URIs run the VLM path."""
         mctx = self.ctx.get(model or self.default_model)
-        prompt = mctx.tokenizer.apply_chat_template(_text_messages(messages))
-        it = self._stream(mctx, mctx.tokenize(prompt),
-                          self._sampling(sampling), stop or [])
+        text_messages, images = _split_multimodal(messages)
+        prompt = mctx.tokenizer.apply_chat_template(text_messages)
+        ids, embeds = self.ctx.vlm_prompt(mctx, mctx.tokenize(prompt), images)
+        it = self._stream(mctx, ids, self._sampling(sampling), stop or [],
+                          embeds)
         return it if stream else "".join(it)
 
     def metrics(self, model: str | None = None) -> dict:

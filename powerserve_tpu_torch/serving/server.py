@@ -26,8 +26,20 @@ lm_head (an EAGLE head's too). Logprobs and penalties are not applied by
 speculative ticks, so such requests on a speculative name get a 400, as
 does a draft whose vocab differs from main's.
 
-Not ported yet, and answered with a 400: VLM models and images,
-sessions.
+A vision-language model dir (vision.gguf beside weights.gguf:
+models/internvl.py) serves chat requests whose content arrays hold
+`image_url` parts with data: URIs (PNG: core/image.py; another format,
+a URL that is not data:, or a prompt that ends in an image-context token
+gets a 400). The images are decoded and preprocessed in worker
+processes (core/image.py: numpy work in a handler thread would hold the
+interpreter lock the scheduler thread needs between its kernel
+launches), then encoded on the scheduler thread (BatchScheduler.call)
+into the request's input rows, which ride the shared scheduler with the
+text requests (Request.embeds). "vlm+self:N" and "vlm+<draft dir>" speculate with the
+same rows in both models; an EAGLE head on a VLM gets a 400. A model
+without a vision tower ignores image parts, as the JAX server does.
+
+Not ported yet, and answered with a 400: sessions.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
@@ -38,21 +50,28 @@ sessions.
 from __future__ import annotations
 
 import argparse
+import base64
+import binascii
 import json
+import multiprocessing
 import queue
 import threading
 import time
 import uuid
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..core.config import HyperParams, ModelConfig, WorkspaceConfig
 from ..core.device import resolve_device
+from ..core.image import pixel_values
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
+from ..models.internvl import InternVLModel, internvl_from_workspace
 from ..models.llama import LlamaModel
 from ..models.loader import (gguf_architecture, load_eagle_gguf,
                              load_gguf_model)
@@ -62,6 +81,9 @@ from ..speculative.eagle import with_lm_head_lr
 from ..tokenizer import Tokenizer
 
 log = get_logger("server")
+
+# processes decoding and preprocessing request images
+IMAGE_WORKERS = 4
 
 
 class HTTPError(Exception):
@@ -140,6 +162,8 @@ class ModelContext:
     name: str
     scheduler: BatchScheduler
     tokenizer: Tokenizer
+    # the vision tower and projector of a vision-language model
+    vlm: InternVLModel | None = None
     # tokenizers build lazy tables at first use: handler threads encode
     # one at a time
     lock: threading.Lock = field(default_factory=threading.Lock)
@@ -163,6 +187,7 @@ class ServerContext:
         self.device = resolve_device(device)
         self.models: dict[str, ModelContext] = {}
         self._lock = threading.Lock()
+        self._image_pool: ProcessPoolExecutor | None = None
 
     def resolve_dir(self, name: str) -> Path:
         p = self.root / name
@@ -186,12 +211,17 @@ class ServerContext:
         return any("InternVL" in a for a in archs)
 
     def register(self, name: str, model: LlamaModel, cfg: ModelConfig,
-                 tokenizer: Tokenizer) -> ModelContext:
-        """Serve an already built model under `name`."""
-        sched = BatchScheduler(model, cfg, self.hp, self.device)
+                 tokenizer: Tokenizer,
+                 vlm: InternVLModel | None = None) -> ModelContext:
+        """Serve an already built model under `name` (with vlm, the
+        vision-language model whose language half `model` is)."""
+        sched = BatchScheduler(model, cfg, self.hp, self.device,
+                               mm_dim=cfg.llm.dim if vlm else 0)
         sched.start()
-        ctx = ModelContext(name, sched, tokenizer)
+        ctx = ModelContext(name, sched, tokenizer, vlm=vlm)
         with self._lock:
+            if vlm is not None:
+                self._start_image_workers()
             self.models[name] = ctx
         return ctx
 
@@ -206,13 +236,20 @@ class ServerContext:
         if "+" in name:
             return self._speculative(name)
         d = self.resolve_dir(name)
+        vlm = None
         if self._is_vlm_dir(d):
-            raise HTTPError(400, f"model '{name}': vision-language "
-                                 f"models are not ported yet")
-        cfg, model = load_gguf_model(d, device=self.device)
-        sched = BatchScheduler(model, cfg, self.hp, self.device)
+            try:
+                vlm = internvl_from_workspace(d, self.device)
+            except ValueError as e:  # an HF checkpoint, not converted
+                raise HTTPError(400, f"model '{name}': {e}") from e
+            cfg, model = vlm.cfg, vlm.llm
+            self._start_image_workers()
+        else:
+            cfg, model = load_gguf_model(d, device=self.device)
+        sched = BatchScheduler(model, cfg, self.hp, self.device,
+                               mm_dim=cfg.llm.dim if vlm else 0)
         sched.start()
-        ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d))
+        ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d), vlm=vlm)
         self.models[name] = ctx
         return ctx
 
@@ -227,6 +264,10 @@ class ServerContext:
         model, cfg = base.scheduler.model, base.scheduler.cfg
         rank = int(self.hp.draft_head_rank)
         if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
+            if base.vlm is not None:
+                raise HTTPError(400, f"model '{name}': VLM speculation takes "
+                                     f"the batched chain or tree scheduler "
+                                     f"only (no EAGLE head)")
             # the head shares main's embedding and lm_head
             _, head = load_eagle_gguf(draft_dir, model, cfg.llm,
                                       device=self.device)
@@ -254,22 +295,70 @@ class ServerContext:
 
     def _start(self, name: str, base: ModelContext, **draft) -> ModelContext:
         """A speculating scheduler over base's weights with `draft` (a
-        draft model or an EAGLE head), started and registered."""
+        draft model or an EAGLE head), started and registered; a VLM's
+        takes its input rows in both models."""
         try:
             sched = BatchScheduler(base.scheduler.model, base.scheduler.cfg,
-                                   self.hp, self.device, **draft)
-        except ValueError as e:  # a tree the verify cannot take
+                                   self.hp, self.device,
+                                   mm_dim=base.scheduler.mm_dim, **draft)
+        except ValueError as e:  # a tree the verify cannot take, a draft
+            # of another width on a VLM
             raise HTTPError(400, f"model '{name}': {e}") from e
         sched.start()
-        ctx = ModelContext(name, sched, base.tokenizer)
+        ctx = ModelContext(name, sched, base.tokenizer, vlm=base.vlm)
         self.models[name] = ctx
         return ctx
+
+    def _start_image_workers(self) -> None:
+        """The image worker processes, started with the first VLM context
+        (under self._lock), so no request waits for their start."""
+        if self._image_pool is None:
+            self._image_pool = ProcessPoolExecutor(
+                IMAGE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+            self._image_pool.submit(int)  # spawns the workers now
+
+    def vlm_prompt(self, ctx: ModelContext, prompt_ids: list[int],
+                   images: list[bytes]
+                   ) -> tuple[list[int], torch.Tensor | None]:
+        """A request's prompt ids and input rows: the images' tiles go at
+        the prompt's image placeholder (else ahead of the prompt), decoded
+        and preprocessed in the worker processes, encoded on the scheduler
+        thread. No images (or a text model): the prompt as it is and no
+        rows."""
+        model = ctx.vlm
+        if model is None or not images:
+            return prompt_ids, None
+        futs = [self._image_pool.submit(pixel_values, data, model.image_size)
+                for data in images]
+        try:
+            px = np.concatenate([f.result() for f in futs])
+        except ValueError as e:
+            raise HTTPError(400, f"image: {e}") from e
+        ids = model.expand_image_tokens(list(prompt_ids), px.shape[0])
+        # the decode feeds the last prompt token through the embedding
+        # table: an image-context id there would condition the first token
+        # on the placeholder's row
+        if ids and ids[-1] == model.image_token_id:
+            raise HTTPError(400, "multimodal prompt must end with text after "
+                                 "the image (add a question or use a chat "
+                                 "template)")
+
+        def encode() -> torch.Tensor:
+            dev = model.device
+            return model.embed_multimodal(
+                torch.tensor([ids], device=dev),
+                torch.from_numpy(px).to(dev))[0].to(torch.bfloat16)
+
+        return ids, ctx.scheduler.call(encode).result()
 
     def close(self) -> None:
         with self._lock:
             for m in self.models.values():
                 m.scheduler.stop()
             self.models.clear()
+            if self._image_pool is not None:
+                self._image_pool.shutdown(cancel_futures=True)
+                self._image_pool = None
 
 
 def _now_id(prefix: str) -> str:
@@ -338,9 +427,21 @@ def _check_spec_compat(ctx: ModelContext, sampling: dict) -> None:
                              f"use the plain model name")
 
 
-def _text_messages(messages: list[dict]) -> list[dict]:
-    """OpenAI messages with text content (content arrays of text parts
-    are joined); images are not ported yet."""
+def _data_image(url) -> bytes:
+    """A data: URI's bytes; anything else is a 400."""
+    if not isinstance(url, str) or not url.startswith("data:"):
+        raise HTTPError(400, "only data: image URIs supported")
+    _, _, b64 = url.partition(",")
+    try:
+        return base64.b64decode(b64)
+    except binascii.Error as e:
+        raise HTTPError(400, f"image: {e}") from e
+
+
+def _split_multimodal(messages: list[dict]) -> tuple[list[dict], list]:
+    """OpenAI messages -> (text-only messages, their images' bytes in
+    order): text parts joined, image_url parts' data: URIs decoded."""
+    images = []
     out = []
     for m in messages:
         content = m.get("content", "")
@@ -350,10 +451,12 @@ def _text_messages(messages: list[dict]) -> list[dict]:
                 if p.get("type") == "text":
                     parts.append(p.get("text", ""))
                 elif p.get("type") == "image_url":
-                    raise HTTPError(400, "images are not ported yet")
+                    u = p.get("image_url")
+                    u = u.get("url") if isinstance(u, dict) else u
+                    images.append(_data_image(u))
             content = "".join(parts)
         out.append({"role": m.get("role", "user"), "content": content})
-    return out
+    return out, images
 
 
 def _logprobs_payload(tok: Tokenizer, ids: list[int], req: Request,
@@ -384,12 +487,13 @@ def _logprobs_payload(tok: Tokenizer, ids: list[int], req: Request,
 
 
 def generate(ctx: ModelContext, prompt_ids: list[int], sampling: dict,
-             stop_ids: set[int]):
-    """Submit to the scheduler; yield (token id, request) as they come.
-    A consumer that stops early cancels the request."""
+             stop_ids: set[int], embeds: torch.Tensor | None = None):
+    """Submit to the scheduler (with the prompt's input rows, if any);
+    yield (token id, request) as they come. A consumer that stops early
+    cancels the request."""
     q: queue.Queue = queue.Queue()
     req = Request(prompt_ids=list(prompt_ids), stop_ids=stop_ids,
-                  sink=q.put, **sampling)
+                  sink=q.put, embeds=embeds, **sampling)
     ctx.scheduler.submit(req)
     try:
         while True:
@@ -492,14 +596,16 @@ class _Handler(BaseHTTPRequestHandler):
         if body.get("session"):
             raise HTTPError(400, "sessions are not ported yet")
         ctx = self.server_ctx.get(model_name)
-        messages = _text_messages(body.get("messages", []))
+        messages, images = _split_multimodal(body.get("messages", []))
         prompt = ctx.tokenizer.apply_chat_template(messages)
         sampling = _sampling_from_body(body, chat=True)
         _check_spec_compat(ctx, sampling)
-        self._respond(ctx, ctx.tokenize(prompt), sampling, chat=True,
+        prompt_ids, embeds = self.server_ctx.vlm_prompt(
+            ctx, ctx.tokenize(prompt), images)
+        self._respond(ctx, prompt_ids, sampling, chat=True,
                       stream=bool(body.get("stream")),
                       model_name=model_name or ctx.name,
-                      stop_strings=_stops_from_body(body))
+                      stop_strings=_stops_from_body(body), embeds=embeds)
 
     def _models(self) -> None:
         ctx = self.server_ctx
@@ -530,7 +636,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _respond(self, ctx: ModelContext, prompt_ids: list[int],
                  sampling: dict, chat: bool, stream: bool, model_name: str,
-                 stop_strings: list[str]) -> None:
+                 stop_strings: list[str],
+                 embeds: torch.Tensor | None = None) -> None:
         tok = ctx.tokenizer
         stop_ids = set(tok.stop_ids)
         rid = _now_id("chatcmpl" if chat else "cmpl")
@@ -575,7 +682,8 @@ class _Handler(BaseHTTPRequestHandler):
                              "choices": [{"index": 0,
                                           "delta": {"role": "assistant"},
                                           "finish_reason": None}]})
-            for t, req in generate(ctx, prompt_ids, sampling, stop_ids):
+            for t, req in generate(ctx, prompt_ids, sampling, stop_ids,
+                                   embeds):
                 last_req = req
                 gen_ids.append(t)
                 piece = matcher.push(dec.push(t) if t not in stop_ids else "")
@@ -607,7 +715,7 @@ class _Handler(BaseHTTPRequestHandler):
             return
 
         ids: list[int] = []
-        for t, req in generate(ctx, prompt_ids, sampling, stop_ids):
+        for t, req in generate(ctx, prompt_ids, sampling, stop_ids, embeds):
             last_req = req
             gen_ids.append(t)
             if t not in stop_ids:

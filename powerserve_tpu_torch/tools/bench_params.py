@@ -10,6 +10,10 @@ size). MoE presets get a router uniform in [-0.05, 0.05] and expert
 stacks (gate and up dim -> ffn, down ffn -> dim, one slab per expert).
 quant "w8" gives the W8 format: int8 weights with f32 scales in
 [0.001, 0.021) per 128 rows, no minimum.
+
+make_device_vision_params gives a random InternVL vision tower and
+projector at a vision preset's widths, make_device_internvl a whole
+vision-language model (tools/synthetic.py VLM_PRESETS).
 """
 
 from __future__ import annotations
@@ -19,10 +23,13 @@ import torch
 from ..core.config import LLMConfig, ModelConfig, RopeConfig
 from ..core.device import resolve_device
 from ..core.quant import MXU_GROUP, QK, choose_pack_group
+from ..models.internvl import InternVLModel
 from ..models.llama import LlamaLayer, LlamaModel, QEmbedding
+from ..models.vit import VisionParams, make_vision_params
 from ..ops.elementwise import ROPE_TYPE_NORM
 from ..ops.qmatmul import QLinear
-from .synthetic import PRESETS
+from .synthetic import (PRESETS, VISION_PRESETS, VLM_PRESETS,
+                        tokens_per_tile)
 
 
 def _rand_qlinear(g: torch.Generator, k: int, n: int, quant: str,
@@ -106,3 +113,59 @@ def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
                     n_experts=E, n_experts_used=int(p.get("experts_used", 2)))
     model = LlamaModel(llm, embed, layers, ones, lm_head)
     return ModelConfig(arch=p["arch"], llm=llm), model
+
+
+def make_device_vision_params(preset: str = "internvit-300m",
+                              text_dim: int = 2048, seed: int = 0,
+                              device: str | torch.device | None = None
+                              ) -> VisionParams:
+    """A random vision tower and projector on `device` (default cuda):
+    weights normal with std 0.02 ([in, out]; the layers' stored bf16),
+    biases 0.01, norms near 1, layer scales near 0.1."""
+    dev = resolve_device(device)
+    v = VISION_PRESETS[preset]
+    D, Fw, p = v["dim"], v["ffn"], v["patch"]
+    D4 = int(D / v["downsample"] ** 2)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def rand(*shape, scale=0.02, mean=0.0):
+        return torch.randn(shape, generator=g, device=dev) * scale + mean
+
+    layers = [dict(qkv_w=rand(D, 3 * D), qkv_b=rand(3 * D, scale=0.01),
+                   proj_w=rand(D, D), proj_b=rand(D, scale=0.01),
+                   fc1_w=rand(D, Fw), fc1_b=rand(Fw, scale=0.01),
+                   fc2_w=rand(Fw, D), fc2_b=rand(D, scale=0.01),
+                   ln1_w=rand(D, scale=0.1, mean=1.0),
+                   ln1_b=rand(D, scale=0.1),
+                   ln2_w=rand(D, scale=0.1, mean=1.0),
+                   ln2_b=rand(D, scale=0.1),
+                   lambda1=rand(D, scale=0.01, mean=0.1),
+                   lambda2=rand(D, scale=0.01, mean=0.1))
+              for _ in range(v["layers"])]
+    top = dict(patch_w=rand(3 * p * p, D), patch_b=rand(D),
+               cls_token=rand(1, 1, D),
+               pos_embed=rand(1, (v["image"] // p) ** 2 + 1, D),
+               proj_ln_w=rand(D4, scale=0.1, mean=1.0),
+               proj_ln_b=rand(D4, scale=0.1),
+               proj_fc1_w=rand(D4, text_dim),
+               proj_fc1_b=rand(text_dim, scale=0.01),
+               proj_fc2_w=rand(text_dim, text_dim),
+               proj_fc2_b=rand(text_dim, scale=0.01))
+    return make_vision_params(top, layers, p, v["heads"], v["eps"],
+                              v["downsample"], dev)
+
+
+def make_device_internvl(preset: str = "internvl2.5-4b", quant: str = "q4_k",
+                         seed: int = 0,
+                         device: str | torch.device | None = None
+                         ) -> InternVLModel:
+    """A random vision-language model on `device` (default cuda): the
+    text preset's make_device_params and the vision preset's tower."""
+    text, vision, image_id = VLM_PRESETS[preset]
+    cfg, llm = make_device_params(text, quant, seed, device)
+    vp = make_device_vision_params(vision, cfg.llm.dim, seed + 1, device)
+    return InternVLModel(vision=vp, llm=llm, cfg=cfg,
+                         image_token_id=image_id,
+                         tokens_per_tile=tokens_per_tile(vision),
+                         image_size=VISION_PRESETS[vision]["image"])

@@ -2,7 +2,9 @@
 architecture size, for tests and benchmarks without model downloads.
 (Counterpart of the reference's gguf_export pipeline P3, but generating
 instead of converting.) make_eagle_gguf writes a random EAGLE draft head
-at a preset's widths (`--eagle-head`)."""
+at a preset's widths (`--eagle-head`); make_vision_gguf a random InternVL
+vision tower and projector (vision.gguf) beside a text model, and
+make_vlm_workspace both (`--vlm PRESET`)."""
 
 from __future__ import annotations
 
@@ -54,6 +56,21 @@ PRESETS = {
 }
 
 
+# InternVL vision towers (patch 14, pixel shuffle 0.5, q/k/v biases, layer
+# scale): InternViT-300M-448px's widths, and the JAX tests' tiny tower
+VISION_PRESETS = {
+    "internvit-300m": dict(dim=1024, ffn=4096, layers=24, heads=16,
+                           patch=14, image=448, eps=1e-6, downsample=0.5),
+    "tiny-vit": dict(dim=64, ffn=128, layers=2, heads=4, patch=14, image=56,
+                     eps=1e-6, downsample=0.5),
+}
+# vision-language models: (text preset, vision preset, image-context id)
+VLM_PRESETS = {
+    "internvl2.5-4b": ("qwen2.5-3b", "internvit-300m", 151667),
+    "tiny-vlm": ("tiny", "tiny-vit", 250),
+}
+
+
 def _simple_vocab(n: int) -> tuple[list[str], list[float], list[int]]:
     """byte-fallback SPM-ish vocab: specials + 256 bytes + filler."""
     tokens = ["<unk>", "<s>", "</s>"]
@@ -75,9 +92,13 @@ def make_synthetic_gguf(
     quant: int = GGMLType.Q4_K,
     seed: int = 0,
     seq_len: int = 2048,
+    chat_template: str = "",
+    special: dict[int, str] | None = None,
     **overrides,
 ) -> Path:
-    """Write a workspace dir: weights.gguf + model.json + workspace.json."""
+    """Write a workspace dir: weights.gguf + model.json + workspace.json.
+    chat_template: the tokenizer's template (default none: chatml);
+    special: token ids to make control tokens of the given text."""
     p = dict(PRESETS[preset])
     p.update(overrides)
     dim, ffn, L = p["dim"], p["ffn"], p["layers"]
@@ -107,6 +128,10 @@ def make_synthetic_gguf(
         md[f"{arch}.expert_count"] = E
         md[f"{arch}.expert_used_count"] = int(p.get("experts_used", 2))
     toks, scores, types = _simple_vocab(V)
+    for i, text in (special or {}).items():
+        toks[i], types[i] = text, 3
+    if chat_template:
+        md["tokenizer.chat_template"] = chat_template
     md["tokenizer.ggml.model"] = "llama"
     md["tokenizer.ggml.tokens"] = toks
     md["tokenizer.ggml.scores"] = scores
@@ -233,6 +258,99 @@ def make_eagle_gguf(out_dir: str | Path, preset: str = "tiny",
     return out_dir
 
 
+def tokens_per_tile(preset: str) -> int:
+    """Image-context ids per tile of a vision preset."""
+    v = VISION_PRESETS[preset]
+    return int((v["image"] // v["patch"]) ** 2 * v["downsample"] ** 2)
+
+
+def random_vision_state(preset: str, text_dim: int,
+                        seed: int = 0) -> dict[str, np.ndarray]:
+    """A random HF-layout state dict (model.vision_tower.* and
+    model.multi_modal_projector.*, f32, [out, in] weights) at a vision
+    preset's widths, its projector into text_dim."""
+    v = VISION_PRESETS[preset]
+    D, Fw, p = v["dim"], v["ffn"], v["patch"]
+    n_pos = (v["image"] // p) ** 2 + 1
+    D4 = int(D / v["downsample"] ** 2)
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, scale=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    pre = "model.vision_tower."
+    sd = {pre + "embeddings.patch_embeddings.projection.weight":
+          rand(D, 3, p, p),
+          pre + "embeddings.patch_embeddings.projection.bias": rand(D),
+          pre + "embeddings.cls_token": rand(1, 1, D),
+          pre + "embeddings.position_embeddings": rand(1, n_pos, D)}
+    for i in range(v["layers"]):
+        lp = pre + f"encoder.layer.{i}."
+        for n in "qkv":
+            sd[lp + f"attention.{n}_proj.weight"] = rand(D, D)
+            sd[lp + f"attention.{n}_proj.bias"] = rand(D, scale=0.01)
+        sd[lp + "attention.projection_layer.weight"] = rand(D, D)
+        sd[lp + "attention.projection_layer.bias"] = rand(D, scale=0.01)
+        sd[lp + "mlp.fc1.weight"] = rand(Fw, D)
+        sd[lp + "mlp.fc1.bias"] = rand(Fw, scale=0.01)
+        sd[lp + "mlp.fc2.weight"] = rand(D, Fw)
+        sd[lp + "mlp.fc2.bias"] = rand(D, scale=0.01)
+        for n in ("layernorm_before", "layernorm_after"):
+            sd[lp + f"{n}.weight"] = 1.0 + rand(D, scale=0.1)
+            sd[lp + f"{n}.bias"] = rand(D, scale=0.1)
+        sd[lp + "lambda_1"] = 0.1 + rand(D, scale=0.01)
+        sd[lp + "lambda_2"] = 0.1 + rand(D, scale=0.01)
+    pp = "model.multi_modal_projector."
+    sd.update({pp + "layer_norm.weight": 1.0 + rand(D4, scale=0.1),
+               pp + "layer_norm.bias": rand(D4, scale=0.1),
+               pp + "linear_1.weight": rand(text_dim, D4),
+               pp + "linear_1.bias": rand(text_dim, scale=0.01),
+               pp + "linear_2.weight": rand(text_dim, text_dim),
+               pp + "linear_2.bias": rand(text_dim, scale=0.01)})
+    return sd
+
+
+def make_vision_gguf(model_dir: str | Path, preset: str = "tiny-vit",
+                     text_dim: int = 64, image_token_id: int = 250,
+                     seed: int = 0) -> Path:
+    """Write model_dir/vision.gguf: a random vision tower and projector at
+    a vision preset's widths, with the tensor names and vlm.* metadata
+    of the JAX package's tools/convert_hf.py convert_internvl (f32)."""
+    v = VISION_PRESETS[preset]
+    w = GGUFWriter()
+    md = w.metadata
+    md["general.architecture"] = "internvl-vision"
+    md["vlm.block_count"] = int(v["layers"])
+    md["vlm.attention.head_count"] = int(v["heads"])
+    md["vlm.patch_size"] = int(v["patch"])
+    md["vlm.image_size"] = int(v["image"])
+    md["vlm.layer_norm_epsilon"] = float(v["eps"])
+    md["vlm.downsample_ratio"] = float(v["downsample"])
+    md["vlm.image_token_id"] = int(image_token_id)
+    md["vlm.image_seq_length"] = tokens_per_tile(preset)
+    for name, arr in random_vision_state(preset, text_dim, seed).items():
+        w.add_float_tensor(name, arr)
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    w.write(model_dir / "vision.gguf")
+    return model_dir / "vision.gguf"
+
+
+def make_vlm_workspace(out_dir: str | Path, preset: str = "tiny-vlm",
+                       quant: int = GGMLType.Q8_0, seed: int = 0,
+                       seq_len: int = 2048, chat_template: str = "") -> Path:
+    """A workspace whose model dir holds a random text model
+    (weights.gguf, the image-context id a control token "<IMG_CONTEXT>")
+    and vision.gguf."""
+    text, vision, image_id = VLM_PRESETS[preset]
+    make_synthetic_gguf(out_dir, text, quant, seed, seq_len,
+                        chat_template=chat_template,
+                        special={image_id: "<IMG_CONTEXT>"})
+    make_vision_gguf(Path(out_dir) / "model", vision, PRESETS[text]["dim"],
+                     image_id, seed + 1)
+    return Path(out_dir)
+
+
 def main() -> None:
     import argparse
 
@@ -248,6 +366,9 @@ def main() -> None:
     ap.add_argument("--eagle-head", action="store_true",
                     help="write a random EAGLE draft head (weights.gguf) "
                          "at the preset's widths instead of a workspace")
+    ap.add_argument("--vlm", default="", choices=[""] + sorted(VLM_PRESETS),
+                    help="write a vision-language workspace (text model "
+                         "and vision.gguf) of this preset instead")
     args = ap.parse_args()
     fmt = {"q4_0": GGMLType.Q4_0, "q4_1": GGMLType.Q4_1,
            "q5_0": GGMLType.Q5_0, "q8_0": GGMLType.Q8_0,
@@ -255,6 +376,11 @@ def main() -> None:
            "q4_k": GGMLType.Q4_K, "q5_k": GGMLType.Q5_K,
            "q6_k": GGMLType.Q6_K, "iq4_nl": GGMLType.IQ4_NL,
            "iq4_xs": GGMLType.IQ4_XS, "f16": GGMLType.F16}[args.quant]
+    if args.vlm:
+        out = make_vlm_workspace(args.out_dir, args.vlm, fmt, args.seed,
+                                 args.seq_len)
+        print(f"vision-language workspace written to {out}")
+        return
     if args.eagle_head:
         out = make_eagle_gguf(args.out_dir, args.preset, fmt, args.seed)
         print(f"eagle head written to {out}")

@@ -1649,3 +1649,89 @@ def test_eagle_engine_cuda_matches_plain(dev, tmp_path):
             plain.reset()
             top2 = plain.prefill(prompt + want[:i]).topk(2).values
             assert float(top2[0] - top2[1]) < 0.5, (i, got, want)
+
+
+# -- the vision-language path -------------------------------------------------
+
+# the tower's bf16 products on the card and on the CPU sum in other orders,
+# so a bf16 rounding may fall the other way (2^-8 of one element) and
+# carry through the layers; the f32 parts agree to f32 rounding
+VISION_REL = 2e-2
+
+
+@pytest.mark.parametrize("preset,layers,tiles", [("tiny-vit", 2, 3),
+                                                 ("internvit-300m", 2, 1)])
+def test_vision_encode_cuda_matches_cpu(dev, preset, layers, tiles):
+    """The tower and projector on the card against the same weights on
+    the CPU (InternViT-300M's widths cut to 2 layers, one 448 tile)."""
+    from powerserve_tpu_torch.models.vit import (encode_images,
+                                                 vision_params_from_hf)
+    from powerserve_tpu_torch.tools.synthetic import (VISION_PRESETS,
+                                                      random_vision_state)
+
+    v = VISION_PRESETS[preset]
+    sd = random_vision_state(preset, 256, seed=1)
+    sd = {k: a for k, a in sd.items()
+          if ".encoder.layer." not in k
+          or int(k.split(".encoder.layer.")[1].split(".")[0]) < layers}
+    px = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (tiles, 3, v["image"], v["image"])).astype(np.float32))
+    outs = []
+    for device in ("cpu", dev):
+        vp = vision_params_from_hf(sd, layers, v["heads"], v["patch"],
+                                   v["eps"], v["downsample"], device=device)
+        outs.append(encode_images(vp, px.to(device)))
+    assert outs[1].shape == (tiles, (v["image"] // v["patch"]) ** 2 // 4, 256)
+    assert torch.isfinite(outs[1]).all()
+    _close(outs[1], outs[0], rel=VISION_REL)
+
+
+def test_vlm_prefill_reads_nothing_back(dev, tmp_path):
+    """A multimodal prefill (the tower, the overlay, the forward) on the
+    card issues no host sync and gives the CPU's logits; VLMEngine's
+    greedy tokens on the card are the CPU's (near-tie rule)."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.vlm import VLMEngine
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.internvl import internvl_from_workspace
+    from powerserve_tpu_torch.tools.synthetic import make_vlm_workspace
+
+    ws = make_vlm_workspace(tmp_path, "tiny-vlm", GGMLType.Q8_0, seq_len=128)
+    rng = np.random.default_rng(3)
+    px = rng.standard_normal((3, 3, 56, 56)).astype(np.float32)
+    img = rng.integers(0, 256, (50, 120, 3), dtype=np.uint8)
+    logits, tokens = [], []
+    for device in ("cpu", dev):
+        m = internvl_from_workspace(ws / "model", device=device)
+        ids = torch.tensor(m.expand_image_tokens([1, 5, 250, 9, 11], 3),
+                           device=device)
+        llm = m.cfg.llm
+        kv = KVCache.create(llm.n_layers, 1, 128, llm.n_kv_heads,
+                            llm.head_size, device)
+        x = torch.from_numpy(px).to(device)
+        if device == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits.append(m.prefill_multimodal(kv, ids, x).cpu()
+                          if device == "cpu" else
+                          m.prefill_multimodal(kv, ids, x))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eng = VLMEngine(m, HyperParams(max_seq_len=128), device=device)
+        tokens.append(list(eng.generate([1, 5, 250, 9], [img], 8)))
+    got, ref = logits[1].cpu(), logits[0]
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-2 * (ref.max() - ref.min())
+    assert len(tokens[1]) == 8
+    i = next((j for j, (a, b) in enumerate(zip(*tokens)) if a != b), None)
+    if i is not None:  # the CPU's teacher-forced top-2 gap at the parting
+        m = internvl_from_workspace(ws / "model", device="cpu")
+        eng = VLMEngine(m, HyperParams(max_seq_len=128), device="cpu")
+        full = m.expand_image_tokens([1, 5, 250, 9],
+                                     eng.pixel_values([img]).shape[0])
+        kv = KVCache.create(m.cfg.llm.n_layers, 1, 128, m.cfg.llm.n_kv_heads,
+                            m.cfg.llm.head_size, "cpu")
+        top2 = m.prefill_multimodal(kv, full + tokens[0][:i],
+                                    eng.pixel_values([img]))[0].topk(2)
+        assert float(top2.values[0] - top2.values[1]) < 0.5

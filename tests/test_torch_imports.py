@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither jax nor any module of
-powerserve_tpu (nor aiohttp, which the machine with the GPU lacks), its
+powerserve_tpu (nor aiohttp, PIL, transformers or httpx, which the
+machine with the GPU lacks), its
 kernel wrappers run the plain twins on CPU tensors, and its entry points
 refuse to fall back to the CPU on their own."""
 
@@ -13,6 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "powerserve_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "powerserve_tpu", "aiohttp", "PIL",
+           "transformers", "httpx")
 
 
 def _port_sources() -> list[pathlib.Path]:
@@ -36,7 +39,7 @@ def test_no_jax_or_reference_imports():
     for f in files:
         for mod in _imported_modules(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "powerserve_tpu", "aiohttp"):
+            if top in BLOCKED:
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
 
@@ -83,7 +86,7 @@ def test_imports_with_jax_blocked():
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
                for p in _port_sources() if p.name != "__init__.py"]
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'powerserve_tpu', 'aiohttp'):\n"
+            f"for m in {BLOCKED!r}:\n"
             "    sys.modules[m] = None\n"
             "import importlib\n"
             f"for m in {modules!r}:\n"
@@ -226,3 +229,36 @@ def test_speculation_runs_the_twins_and_defaults_to_cuda(tmp_path):
         ChainSpecEngine(model, cfg, self_draft_layers=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.main(["-d", str(ws), "-n", "1", "--self-draft-layers", "1"])
+
+
+def test_vlm_entry_points_default_to_cuda(tmp_path):
+    """The VLM loader, engine and device params run on cuda by default
+    and raise without a GPU; `run --image` too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the defaults run there")
+    import numpy as np
+
+    from powerserve_tpu_torch import run
+    from powerserve_tpu_torch.core.image import encode_png
+    from powerserve_tpu_torch.engine.vlm import VLMEngine
+    from powerserve_tpu_torch.models.internvl import internvl_from_workspace
+    from powerserve_tpu_torch.tools.bench_params import (
+        make_device_internvl, make_device_vision_params)
+    from powerserve_tpu_torch.tools.synthetic import make_vlm_workspace
+
+    ws = make_vlm_workspace(tmp_path, "tiny-vlm", seq_len=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        internvl_from_workspace(ws / "model")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_device_vision_params("tiny-vit", 64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_device_internvl("tiny-vlm", "q8_0")
+    model = internvl_from_workspace(ws / "model", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VLMEngine(model)
+    png = tmp_path / "a.png"
+    png.write_bytes(encode_png(np.zeros((8, 8, 3), np.uint8)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(["-d", str(ws), "-n", "1", "--image", str(png)])
+    assert run.main(["-d", str(ws), "-n", "2", "--image", str(png),
+                     "--device", "cpu", "--no-progress"]) == 0

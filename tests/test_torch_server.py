@@ -242,7 +242,7 @@ def test_unknown_and_unported_models(servers):
     status, raw = _port(servers, "POST", "/v1/chat/completions", {
         "model": "model", "messages": [{"role": "user", "content": [
             {"type": "image_url", "image_url": {"url": "x"}}]}]})
-    assert status == 400 and b"not ported yet" in raw
+    assert status == 400 and b"only data: image URIs" in raw
     status, _ = _port(servers, "GET", "/nowhere")
     assert status == 404
 
