@@ -9,12 +9,18 @@ PNG, other files) raises a ValueError naming what is taken (FORMATS).
 
 encode_png writes such a PNG (each row with a chosen filter).
 
+A PNG of more than MAX_PIXELS pixels (Pillow's MAX_IMAGE_PIXELS) is
+refused before its data is inflated, and the data is inflated to the
+IHDR's rows and no further; a malformed PNG (truncated, a corrupt zlib
+stream, a bad IHDR or PLTE, no pixels) is a ValueError too.
+
 find_best_tile_grid and preprocess_image are InternVL's dynamic tiling
 and normalization (the JAX package's models/internvl.py, re-exported by
 the port's); pixel_values(data) runs decode and preprocessing for one
-image. This module imports numpy only: the server runs it in worker
-processes, so that images are decoded off the interpreter lock the
-scheduler thread needs.
+image. This module imports numpy and the standard library only: the
+server runs it in worker processes (worker_loop, serving/image_workers.py),
+so that images are decoded off the interpreter lock the scheduler thread
+needs.
 
 resize_bicubic(img, (width, height)) reproduces Pillow's
 `Image.resize(size, Image.BICUBIC)` for 8-bit images bit for bit: the
@@ -26,7 +32,10 @@ vertical pass, each rounded and clipped to uint8.
 
 from __future__ import annotations
 
+import os
+import pickle
 import struct
+import sys
 import zlib
 from pathlib import Path
 
@@ -35,6 +44,11 @@ import numpy as np
 FORMATS = ("PNG only: non-interlaced, 8-bit gray, gray + alpha, RGB or "
            "RGBA, or a 1/2/4/8-bit palette")
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# Pillow's Image.MAX_IMAGE_PIXELS: a larger PNG is refused before its data
+# is inflated (Pillow warns above it and refuses above twice it)
+MAX_PIXELS = 89_478_485
+# the Average/Paeth wavefront's working buffers per band of rows
+_BAND_BYTES = 64 << 20
 # color type -> (name, channels, bit depths taken)
 _COLOR_TYPES = {0: ("gray", 1, (8,)), 2: ("RGB", 3, (8,)),
                 3: ("palette", 1, (1, 2, 4, 8)), 4: ("gray + alpha", 2, (8,)),
@@ -61,8 +75,6 @@ def _sniff(data: bytes) -> str:
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     """Undo the per-row PNG filters: raw rows of 1 + stride bytes ->
     uint8 [height, stride]."""
-    if len(raw) < height * (stride + 1):
-        raise ValueError("truncated PNG image data")
     rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(
         height, stride + 1)
     ftypes, data = rows[:, 0], rows[:, 1:]
@@ -89,19 +101,41 @@ def _unfilter_wavefront(ftypes: np.ndarray, data: np.ndarray,
                         bpp: int) -> np.ndarray:
     """Every filter at once: pixel (y, x) depends on (y, x - 1), (y - 1,
     x) and (y - 1, x - 1) only, so the pixels of one anti-diagonal x + y
-    = d are independent. Stored skewed (column d + 2 of row y + 1 holds
-    pixel (y, d - y); rows and columns before the image are zeros), each
-    diagonal is a column slice."""
+    = d are independent. The rows go in bands whose skewed buffers stay
+    under _BAND_BYTES, each band's row above carried in."""
     height, stride = data.shape
     units = -(-stride // bpp)
-    filt = np.zeros((height, units * bpp), np.int16)
-    filt[:, :stride] = data
-    filt = filt.reshape(height, units, bpp)
+    # two int16 buffers of band x (units + band) x bpp
+    band = 1
+    while band < height and (2 * band) * (units + 2 * band) * bpp * 4 \
+            <= _BAND_BYTES:
+        band *= 2
+    out = np.empty((height, units * bpp), np.uint8)
+    prior = np.zeros((units, bpp), np.int16)
+    for y0 in range(0, height, band):
+        y1 = min(y0 + band, height)
+        out[y0:y1] = _wavefront_band(ftypes[y0:y1], data[y0:y1], prior,
+                                     bpp)
+        prior = out[y1 - 1].reshape(units, bpp).astype(np.int16)
+    return out[:, :stride]
+
+
+def _wavefront_band(ftypes: np.ndarray, data: np.ndarray, prior: np.ndarray,
+                    bpp: int) -> np.ndarray:
+    """Rows `data` unfiltered under the row `prior` (int16 [units, bpp]).
+    Stored skewed: column d + 2 of row y + 1 holds pixel (y, d - y), row 0
+    the prior row (pixel (-1, x) in column x + 1), and the columns before
+    the image are zeros, so each diagonal is a column slice."""
+    height, stride = data.shape
+    units = prior.shape[0]
     n_diag = units + height - 1
     skew_f = np.zeros((height, n_diag, bpp), np.int16)
     for y in range(height):
-        skew_f[y, y:y + units] = filt[y]
+        row = np.zeros(units * bpp, np.int16)
+        row[:stride] = data[y]
+        skew_f[y, y:y + units] = row.reshape(units, bpp)
     rec = np.zeros((height + 1, n_diag + 2, bpp), np.int16)
+    rec[0, 1:1 + units] = prior
     sub, up, avg, paeth_rows = (ftypes[:, None] == t
                                 for t in (1, 2, 3, 4))
     for d in range(n_diag):
@@ -118,7 +152,22 @@ def _unfilter_wavefront(ftypes: np.ndarray, data: np.ndarray,
     out = np.empty((height, units * bpp), np.uint8)
     for y in range(height):
         out[y] = rec[y + 1, y + 2:y + 2 + units].reshape(-1)
-    return out[:, :stride]
+    return out
+
+
+def _inflate(idat: bytes, size: int) -> bytes:
+    """The image data's `size` bytes (the IHDR's filtered rows): zlib
+    output beyond them is refused unread, as is a corrupt stream."""
+    d = zlib.decompressobj()
+    try:
+        raw = d.decompress(idat, size)
+        if len(raw) == size and d.decompress(d.unconsumed_tail, 1):
+            raise ValueError("PNG image data longer than its IHDR's rows")
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data ({e})") from e
+    if len(raw) < size:
+        raise ValueError("truncated PNG image data")
+    return raw
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -136,8 +185,12 @@ def decode_png(data: bytes) -> np.ndarray:
             raise ValueError(f"PNG chunk {ctype!r}: bad CRC")
         off += 12 + length
         if ctype == b"IHDR":
+            if length != 13:
+                raise ValueError(f"PNG IHDR of {length} bytes, not 13")
             ihdr = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
+            if length % 3:
+                raise ValueError(f"PNG PLTE of {length} bytes")
             plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
@@ -146,6 +199,11 @@ def decode_png(data: bytes) -> np.ndarray:
     if ihdr is None:
         raise ValueError("PNG without IHDR")
     width, height, depth, color, _, _, interlace = ihdr
+    if not width or not height:
+        raise ValueError(f"PNG of {width} x {height} pixels")
+    if width * height > MAX_PIXELS:
+        raise ValueError(f"PNG of {width} x {height} pixels: more than "
+                         f"{MAX_PIXELS}")
     if color not in _COLOR_TYPES:
         raise _refuse(f"PNG color type {color}")
     name, channels, depths = _COLOR_TYPES[color]
@@ -154,8 +212,8 @@ def decode_png(data: bytes) -> np.ndarray:
     if interlace:
         raise _refuse("interlaced PNG")
     stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride,
-                     max(1, channels * depth // 8))
+    rows = _unfilter(_inflate(b"".join(idat), height * (stride + 1)),
+                     height, stride, max(1, channels * depth // 8))
     if color == 3:
         if plte is None:
             raise ValueError("palette PNG without PLTE")
@@ -242,7 +300,7 @@ def as_rgb(img: np.ndarray) -> np.ndarray:
         raise ValueError(f"images are uint8 arrays, got {img.dtype}")
     if img.ndim == 2:
         img = img[:, :, None]
-    if img.ndim != 3 or img.shape[2] not in (1, 2, 3, 4):
+    if img.ndim != 3 or img.shape[2] not in (1, 2, 3, 4) or not img.size:
         raise ValueError(f"image array of shape {img.shape}")
     if img.shape[2] <= 2:
         return np.repeat(img[:, :, :1], 3, axis=2)
@@ -254,6 +312,8 @@ def as_rgb(img: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 _PRECISION_BITS = 32 - 8 - 2
+# int64 entries of one block of a resize pass's sums (32 MB)
+_RESAMPLE_BLOCK = 4 << 20
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -295,14 +355,20 @@ def _coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, ...]:
 def _resample(src: np.ndarray, xmin: np.ndarray, k: np.ndarray) -> np.ndarray:
     """One pass along axis 0 of uint8 [in, M] -> uint8 [out, M]: each
     output row the fixed-point sum of its taps, rounded (the 2^21 offset)
-    and clipped."""
-    src = src.astype(np.int64)
-    acc = np.full((len(xmin), src.shape[1]), 1 << (_PRECISION_BITS - 1),
-                  np.int64)
-    for j in range(k.shape[1]):
-        if k[:, j].any():
-            acc += src[np.minimum(xmin + j, len(src) - 1)] * k[:, j, None]
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    and clipped; in blocks of columns whose int64 sums stay near
+    _RESAMPLE_BLOCK entries."""
+    out = np.empty((len(xmin), src.shape[1]), np.uint8)
+    step = max(1, _RESAMPLE_BLOCK // max(len(src), len(xmin)))
+    taps = [j for j in range(k.shape[1]) if k[:, j].any()]
+    rows = [np.minimum(xmin + j, len(src) - 1) for j in taps]
+    for m0 in range(0, src.shape[1], step):
+        blk = src[:, m0:m0 + step].astype(np.int64)
+        acc = np.full((len(xmin), blk.shape[1]), 1 << (_PRECISION_BITS - 1),
+                      np.int64)
+        for j, r in zip(taps, rows):
+            acc += blk[r] * k[:, j, None]
+        out[:, m0:m0 + step] = np.clip(acc >> _PRECISION_BITS, 0, 255)
+    return out
 
 
 def resize_bicubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -381,3 +447,52 @@ def pixel_values(data: bytes, tile: int = 448, max_num: int = 12) -> np.ndarray:
     """Image bytes -> preprocess_image's f32 [n_tiles, 3, tile, tile] (the
     server's image workers run this)."""
     return preprocess_image(decode_image(data), tile=tile, max_num=max_num)
+
+
+# ---------------------------------------------------------------------------
+# The server's worker processes
+# ---------------------------------------------------------------------------
+
+def send_frame(f, obj) -> None:
+    """One frame on a binary pipe: an 8-byte big-endian length, then the
+    pickle of `obj`."""
+    body = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    f.write(struct.pack(">Q", len(body)) + body)
+    f.flush()
+
+
+def recv_frame(f):
+    """The object of the next frame; EOFError if the pipe closes first."""
+    def exactly(n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            got = f.read(n - len(buf))
+            if not got:
+                raise EOFError("pipe closed")
+            buf += got
+        return bytes(buf)
+
+    return pickle.loads(exactly(struct.unpack(">Q", exactly(8))[0]))
+
+
+def worker_loop() -> None:
+    """An image worker's main: "ready", then for each (data, tile,
+    max_num) frame on stdin, ("ok", pixel_values(...)), ("refused",
+    the ValueError's text) or ("failed", any other error's) on stdout,
+    until stdin closes. Stray prints go to stderr."""
+    out = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    inp = sys.stdin.buffer
+    send_frame(out, "ready")
+    while True:
+        try:
+            data, tile, max_num = recv_frame(inp)
+        except EOFError:
+            return
+        try:
+            reply = ("ok", pixel_values(data, tile, max_num))
+        except ValueError as e:
+            reply = ("refused", str(e))
+        except Exception as e:  # noqa: BLE001 — answered, the worker lives
+            reply = ("failed", f"{type(e).__name__}: {e}")
+        send_frame(out, reply)

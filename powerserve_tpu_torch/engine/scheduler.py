@@ -49,15 +49,15 @@ ticks run eagle_sample_step (a chain of spec_k) or
 eagle_tree_sample_step (hp.spec_tree), replayed when every slot is
 greedy, as the draft model's.
 
-With mm_dim (a vision-language model's scheduler) a request may carry
-its prompt's input rows (Request.embeds: the text embeddings with image
-features at the image-context positions, models/internvl.py). A prefill
-chunk then takes each such slot's rows in place of the embedding lookup
-(the choice per slot from host-side flags), through the target, a draft
-model (its own lookup for the other slots) or an EAGLE target; embed
-requests skip the prefix cache (image-context ids are all alike), a
-preempted one extends its rows with its generated tokens' embeddings,
-and a trimmed prompt trims its rows too.
+A request may carry its prompt's input rows (Request.embeds: the text
+embeddings with image features at the image-context positions,
+models/internvl.py), a row per prompt token at the model's dim. A
+prefill chunk then takes each such slot's rows in place of the embedding
+lookup (the choice per slot from host-side flags), through the target, a
+draft model of the same dim (its own lookup for the other slots) or an
+EAGLE target; embed requests skip the prefix cache (image-context ids
+are all alike), a preempted one extends its rows with its generated
+tokens' embeddings, and a trimmed prompt trims its rows too.
 
 Meshes and double-buffered ticks are not ported: like the plain tick,
 the spec tick syncs once.
@@ -121,7 +121,7 @@ class Request:
     logprobs: int = 0
     # the prompt's input rows [len(prompt_ids), dim] on the scheduler's
     # device (a VLM prompt: image features at the image-context
-    # positions); needs a scheduler built with mm_dim. The prompt must
+    # positions; the width is the model's dim). The prompt must
     # END with a text token (the decode feeds it through the embedding
     # table). Such requests skip the prefix cache: the image-context ids
     # are all alike, so token-id keys would match across images.
@@ -195,12 +195,11 @@ class BatchScheduler:
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  draft: LlamaModel | None = None,
-                 eagle_head: EagleHead | None = None, mm_dim: int = 0):
+                 eagle_head: EagleHead | None = None):
         """draft: batched speculation with this draft model (its vocab
         must be the target's); eagle_head: with this EAGLE head (its
-        geometry is eagle_head.llm) in place of a draft model; mm_dim:
-        requests may carry input rows of this width (the model's dim;
-        a draft model's must be the same)."""
+        geometry is eagle_head.llm) in place of a draft model (a draft
+        model takes the requests' input rows only at the target's dim)."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -242,17 +241,10 @@ class BatchScheduler:
             if draft.llm.vocab_size != llm.vocab_size:
                 raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
                                  f"target vocab {llm.vocab_size}")
-            if mm_dim and not self.is_eagle and draft.llm.dim != llm.dim:
-                raise ValueError(f"a multimodal draft takes the target's "
-                                 f"input rows: draft dim {draft.llm.dim} "
-                                 f"!= target dim {llm.dim}")
             self.draft = draft.to(self.device)
             d = draft.llm
             self.d_kv = KVCache.create(d.n_layers, self.S, self.max_seq,
                                        d.n_kv_heads, d.head_size, self.device)
-        if mm_dim and mm_dim != llm.dim:
-            raise ValueError(f"mm_dim {mm_dim} != model dim {llm.dim}")
-        self.mm_dim = int(mm_dim)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one generator per slot, re-seeded at each admission
@@ -313,15 +305,17 @@ class BatchScheduler:
     # -- front door -----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
-        if req.embeds is not None and (
-                not self.mm_dim
-                or tuple(req.embeds.shape) != (len(req.prompt_ids),
-                                               self.mm_dim)):
-            # a scheduler without mm_dim would prefill from the shared
-            # image-context id instead
-            raise ValueError(f"Request.embeds [{len(req.prompt_ids)}, "
-                             f"{self.mm_dim}] needs a scheduler built with "
-                             f"mm_dim; got {tuple(req.embeds.shape)}")
+        if req.embeds is not None:
+            dim = self.cfg.llm.dim
+            if tuple(req.embeds.shape) != (len(req.prompt_ids), dim):
+                raise ValueError(f"Request.embeds of shape "
+                                 f"{tuple(req.embeds.shape)}; the prompt "
+                                 f"takes [{len(req.prompt_ids)}, {dim}]")
+            if (self.draft is not None and not self.is_eagle
+                    and self.draft.llm.dim != dim):
+                raise ValueError(f"a draft model takes the target's input "
+                                 f"rows: draft dim {self.draft.llm.dim} != "
+                                 f"target dim {dim}")
         req.id = next(self._ids)
         req.submitted_at = time.time()
         self.pending.put(req)

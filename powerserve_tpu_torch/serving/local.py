@@ -18,7 +18,9 @@ Same semantics as the HTTP server: chat templates, images on a
 vision-language model (data: URIs of PNGs; an HTTPError of status 400
 for what the server answers with a 400), UTF-8-safe streaming, stop
 strings and ids, per-request sampling. Thread-safe: requests ride the
-scheduler's own queue.
+scheduler's own queue. Images are decoded in worker subprocesses
+(serving/image_workers.py) that import nothing of the host's
+`__main__`, so a script needs no `if __name__ == "__main__":` guard.
 """
 
 from __future__ import annotations

@@ -30,10 +30,12 @@ A vision-language model dir (vision.gguf beside weights.gguf:
 models/internvl.py) serves chat requests whose content arrays hold
 `image_url` parts with data: URIs (PNG: core/image.py; another format,
 a URL that is not data:, or a prompt that ends in an image-context token
-gets a 400). The images are decoded and preprocessed in worker
-processes (core/image.py: numpy work in a handler thread would hold the
-interpreter lock the scheduler thread needs between its kernel
-launches), then encoded on the scheduler thread (BatchScheduler.call)
+gets a 400, as does a malformed PNG or one of more than
+core/image.py's MAX_PIXELS). The images are decoded and preprocessed in
+worker processes (serving/image_workers.py: numpy work in a handler
+thread would hold the interpreter lock the scheduler thread needs
+between its kernel launches; the workers import nothing of the host's
+`__main__`), then encoded on the scheduler thread (BatchScheduler.call)
 into the request's input rows, which ride the shared scheduler with the
 text requests (Request.embeds). "vlm+self:N" and "vlm+<draft dir>" speculate with the
 same rows in both models; an EAGLE head on a VLM gets a 400. A model
@@ -53,12 +55,10 @@ import argparse
 import base64
 import binascii
 import json
-import multiprocessing
 import queue
 import threading
 import time
 import uuid
-from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
@@ -68,7 +68,6 @@ import torch
 
 from ..core.config import HyperParams, ModelConfig, WorkspaceConfig
 from ..core.device import resolve_device
-from ..core.image import pixel_values
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
 from ..models.internvl import InternVLModel, internvl_from_workspace
@@ -79,6 +78,7 @@ from ..speculative.chain import self_draft_model, with_draft_head
 from ..speculative.draft_head import make_draft_head
 from ..speculative.eagle import with_lm_head_lr
 from ..tokenizer import Tokenizer
+from .image_workers import ImageWorkers
 
 log = get_logger("server")
 
@@ -187,7 +187,7 @@ class ServerContext:
         self.device = resolve_device(device)
         self.models: dict[str, ModelContext] = {}
         self._lock = threading.Lock()
-        self._image_pool: ProcessPoolExecutor | None = None
+        self.image_workers: ImageWorkers | None = None
 
     def resolve_dir(self, name: str) -> Path:
         p = self.root / name
@@ -215,8 +215,7 @@ class ServerContext:
                  vlm: InternVLModel | None = None) -> ModelContext:
         """Serve an already built model under `name` (with vlm, the
         vision-language model whose language half `model` is)."""
-        sched = BatchScheduler(model, cfg, self.hp, self.device,
-                               mm_dim=cfg.llm.dim if vlm else 0)
+        sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
         ctx = ModelContext(name, sched, tokenizer, vlm=vlm)
         with self._lock:
@@ -246,8 +245,7 @@ class ServerContext:
             self._start_image_workers()
         else:
             cfg, model = load_gguf_model(d, device=self.device)
-        sched = BatchScheduler(model, cfg, self.hp, self.device,
-                               mm_dim=cfg.llm.dim if vlm else 0)
+        sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
         ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d), vlm=vlm)
         self.models[name] = ctx
@@ -288,6 +286,12 @@ class ServerContext:
                 raise HTTPError(400, f"draft vocab ({d_cfg.llm.vocab_size}) "
                                      f"!= target vocab "
                                      f"({cfg.llm.vocab_size})")
+            # a VLM's draft takes the target's input rows
+            if base.vlm is not None and d_cfg.llm.dim != cfg.llm.dim:
+                raise HTTPError(400, f"model '{name}': a VLM's draft takes "
+                                     f"its input rows: draft dim "
+                                     f"{d_cfg.llm.dim} != target dim "
+                                     f"{cfg.llm.dim}")
         if rank:
             draft = with_draft_head(draft, make_draft_head(draft.lm_head,
                                                            rank=rank))
@@ -299,10 +303,8 @@ class ServerContext:
         takes its input rows in both models."""
         try:
             sched = BatchScheduler(base.scheduler.model, base.scheduler.cfg,
-                                   self.hp, self.device,
-                                   mm_dim=base.scheduler.mm_dim, **draft)
-        except ValueError as e:  # a tree the verify cannot take, a draft
-            # of another width on a VLM
+                                   self.hp, self.device, **draft)
+        except ValueError as e:  # a tree the verify cannot take
             raise HTTPError(400, f"model '{name}': {e}") from e
         sched.start()
         ctx = ModelContext(name, sched, base.tokenizer, vlm=base.vlm)
@@ -310,12 +312,10 @@ class ServerContext:
         return ctx
 
     def _start_image_workers(self) -> None:
-        """The image worker processes, started with the first VLM context
-        (under self._lock), so no request waits for their start."""
-        if self._image_pool is None:
-            self._image_pool = ProcessPoolExecutor(
-                IMAGE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
-            self._image_pool.submit(int)  # spawns the workers now
+        """The image worker processes, started and ready with the first
+        VLM context (under self._lock), so no request waits for them."""
+        if self.image_workers is None:
+            self.image_workers = ImageWorkers(IMAGE_WORKERS)
 
     def vlm_prompt(self, ctx: ModelContext, prompt_ids: list[int],
                    images: list[bytes]
@@ -324,14 +324,14 @@ class ServerContext:
         the prompt's image placeholder (else ahead of the prompt), decoded
         and preprocessed in the worker processes, encoded on the scheduler
         thread. No images (or a text model): the prompt as it is and no
-        rows."""
+        rows. An image the workers refuse is a 400; a worker that dies
+        over one fails its request (a 500) and is replaced."""
         model = ctx.vlm
         if model is None or not images:
             return prompt_ids, None
-        futs = [self._image_pool.submit(pixel_values, data, model.image_size)
-                for data in images]
         try:
-            px = np.concatenate([f.result() for f in futs])
+            px = np.concatenate([self.image_workers.run(data, model.image_size)
+                                 for data in images])
         except ValueError as e:
             raise HTTPError(400, f"image: {e}") from e
         ids = model.expand_image_tokens(list(prompt_ids), px.shape[0])
@@ -356,9 +356,9 @@ class ServerContext:
             for m in self.models.values():
                 m.scheduler.stop()
             self.models.clear()
-            if self._image_pool is not None:
-                self._image_pool.shutdown(cancel_futures=True)
-                self._image_pool = None
+            if self.image_workers is not None:
+                self.image_workers.close()
+                self.image_workers = None
 
 
 def _now_id(prefix: str) -> str:
@@ -433,7 +433,7 @@ def _data_image(url) -> bytes:
         raise HTTPError(400, "only data: image URIs supported")
     _, _, b64 = url.partition(",")
     try:
-        return base64.b64decode(b64)
+        return base64.b64decode(b64, validate=True)
     except binascii.Error as e:
         raise HTTPError(400, f"image: {e}") from e
 

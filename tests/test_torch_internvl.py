@@ -3,7 +3,9 @@
 does not use (core/image.py decodes PNG and resizes by itself):
 
 - the PNG decoder bit-equal to Pillow's decode + convert("RGB"), for
-  every color type taken and every row filter; other formats refused;
+  every color type taken and every row filter, also with its wavefront
+  cut into bands of rows and its resize into blocks of columns; other
+  formats refused;
 - preprocess_image (Pillow's bicubic resize, the tiles and the
   thumbnail, the normalization) bit-equal to JAX's PIL path;
 - find_best_tile_grid and expand_image_tokens equal;
@@ -33,6 +35,7 @@ from powerserve_tpu.models import internvl as jivl
 from powerserve_tpu_torch import run
 from powerserve_tpu_torch.core.config import HyperParams
 from powerserve_tpu_torch.core.gguf import GGMLType
+from powerserve_tpu_torch.core import image as core_image
 from powerserve_tpu_torch.core.image import (decode_image, encode_png,
                                              resize_bicubic)
 from powerserve_tpu_torch.engine.vlm import VLMEngine
@@ -107,6 +110,24 @@ def test_pillow_written_pngs_and_mixed_filters():
     np.testing.assert_array_equal(decode_image(data), _pil_rgb(data))
 
 
+@pytest.mark.parametrize("band_bytes", [1, 4096], ids=["row-by-row",
+                                                     "bands"])
+def test_bands_and_blocks_bit_equal_to_pillow(monkeypatch, band_bytes):
+    """The wavefront in bands of rows (one row, or several with a short
+    last band) and the resize in blocks of 50 columns: Pillow's bits."""
+    monkeypatch.setattr(core_image, "_BAND_BYTES", band_bytes)
+    monkeypatch.setattr(core_image, "_RESAMPLE_BLOCK", 50)
+    rng = np.random.default_rng(band_bytes)
+    for channels, filters in ((3, (3, 4, 0, 1, 2)), (4, (4,)), (1, (3,))):
+        img = rng.integers(0, 256, (37, 23, channels), dtype=np.uint8)
+        data = encode_png(img, filters)
+        got = decode_image(data)
+        np.testing.assert_array_equal(got, _pil_rgb(data))
+        for dst in ((50, 17), (9, 80)):
+            want = np.asarray(Image.fromarray(got).resize(dst, Image.BICUBIC))
+            np.testing.assert_array_equal(resize_bicubic(got, dst), want)
+
+
 def test_other_formats_are_refused_by_name():
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
@@ -127,6 +148,8 @@ def test_other_formats_are_refused_by_name():
         decode_image(buf.getvalue())
     with pytest.raises(ValueError, match="not a PNG file"):
         decode_image(b"hello")
+    with pytest.raises(ValueError, match="image array of shape"):
+        ivl.preprocess_image(np.zeros((0, 5, 3), np.uint8))
 
 
 @pytest.mark.parametrize("src,dst", [((300, 600), (896, 448)),
