@@ -161,6 +161,30 @@ Phases, each printing one JSON line:
              rule); image request 0 alone, and on "model+self:4", its
              batched tokens; each serving's generated tok/s, TTFT p50/p90,
              each image's encode ms and the image worker processes' start
+  tp_kernels  the kernels at llama-8b's tp = 2 local shapes, each against
+             its twin with times and bounds: the GEMV (M = 1, 8) and the
+             prefill GEMM (M = 512) at QKV 4096 -> 3072, wo 2048 -> 4096,
+             gate|up 4096 -> 14336 and down 7168 -> 4096 (pack group
+             1792), the fused head 4096 -> 64128 with and without its
+             argmax, flash-decode (S = 1 and 8) and flash-prefill at 16/4
+             heads; SDPA beside the attention rows
+  tp_full_width  llama-8b Q4_K over two ranks (parallel/tp.py, tp = 2,
+             random weights from seed 0 on every rank): NCCL with a card a
+             rank where there are two cards, else gloo with both ranks on
+             the one card (said in the line); a 512-token prefill and one
+             decode step against the single-device forward on the card
+             (TP_LOGIT_REL), greedy to 32 tokens against generate's
+             (near-tie rule), each rank's launches zeroed before each
+             path and read after it, each path's wall time (two ranks on
+             one card: a check of function, not of speed). No sync-error
+             mode: gloo stages through the host
+  serve_tp   the HTTP server over two ranks on tiny Q8_0 and tiny-k Q4_K
+             (one context a layout, serving both): the dense cache with
+             "model" and "model+self:1", a paged pool that preempts (10
+             pages of 8), and tp = 2 x dp = 2 on a pool of 20 pages (four
+             ranks on the card); every request's greedy tokens the
+             single-device server's (near-tie rule), every rank's
+             launches of the path's kernels
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -205,9 +229,11 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --kernels [--read-flush]
        python3 chip_smoke.py --vlm
-The second form runs the build and kernels phases only (the L2 flushed
-by reading 256 MB with --read-flush) and prints the card's line last;
-the third the build and the two VLM phases.
+       python3 chip_smoke.py --tp
+The second form runs the build, kernels and tp_kernels phases only (the
+L2 flushed by reading 256 MB with --read-flush) and prints the card's
+line last; the third the build and the two VLM phases; the fourth the
+build and the three tensor-parallel phases.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -242,6 +268,12 @@ LOGIT_REL = 1e-2
 # their bf16 products sum in other orders, so a bf16 rounding may fall
 # the other way (2^-8 of one element) and carry through the layers
 VISION_REL = 2e-2
+# logits over two ranks against one device, as a share of the range: the
+# rows of wo and down are summed in two f32 partial sums, then added, in
+# another order than one product's, so a bf16 rounding of the residual
+# stream may fall the other way and carry through the layers (LOGIT_REL's
+# reason)
+TP_LOGIT_REL = 1e-2
 
 
 def emit(obj: dict) -> None:
@@ -1914,13 +1946,20 @@ SERVE_PROMPTS = ["ab", "cde", "xy z", "hello"]
 SERVE_CHAT = [{"role": "user", "content": "hi"}]
 
 
-def serve_run(ws, hp, device: str, model: str = "model") -> dict:
+def serve_run(ws, hp, device: str, model: str = "model",
+              ctx=None, same_chats: bool = True) -> dict:
     """Serve the workspace on `device` over HTTP: four concurrent greedy
     completions, a streamed and a plain chat completion, all at once, to
     the model name `model`. The scheduler admits nothing until all six
     are queued (or 10 s passed), so they contend for the slots and the
     pool the same way on every run: otherwise the first requests may run
-    alone, and a small pool preempts or not by thread timing."""
+    alone, and a small pool preempts or not by thread timing. ctx: serve
+    this ServerContext (left open) in place of a new one on ws; over a
+    rank group, each rank's launches come back as rank_launches.
+    same_chats False: the streamed and the plain chat (the same prompt)
+    may part at a near tie, as they may when dp blocks of ranks compute
+    them in other batches; the caller holds each request's tokens
+    (all_tokens) against a reference."""
     from unittest import mock
 
     from powerserve_tpu_torch.engine.scheduler import BatchScheduler
@@ -1934,7 +1973,9 @@ def serve_run(ws, hp, device: str, model: str = "model") -> dict:
         if sched.pending.qsize() >= 6 or time.monotonic() > deadline:
             admit(sched)
 
-    ctx = ServerContext(ws, "model", hp, device)
+    own = ctx is None
+    if own:
+        ctx = ServerContext(ws, "model", hp, device)
     server = serving(ctx)
     port = server.server_address[1]
     try:
@@ -1950,11 +1991,15 @@ def serve_run(ws, hp, device: str, model: str = "model") -> dict:
         with ServeRecorder() as rec, mock.patch.object(
                 BatchScheduler, "_admit", admit_all_at_once):
             cuda_lib.reset_launch_counts()
+            if ctx.ranks is not None:
+                ctx.ranks.launch_counts(reset=True)
             deadline = time.monotonic() + 10.0
             replies = concurrently(calls)
             if device == "cuda":
                 torch.cuda.synchronize()
             launches = cuda_lib.launch_counts()
+            rank_launches = (None if ctx.ranks is None
+                             else ctx.ranks.launch_counts())
         rec.check(f"serve {device}")
         for status, data in replies:
             if status != 200:
@@ -1962,16 +2007,20 @@ def serve_run(ws, hp, device: str, model: str = "model") -> dict:
         texts = [json.loads(d)["choices"][0]["text"] for _, d in replies[:4]]
         streamed, finish = sse_text(replies[4][1], chat=True)
         plain = json.loads(replies[5][1])["choices"][0]
-        if streamed != plain["message"]["content"] or \
-                finish != plain["finish_reason"]:
+        if same_chats and (streamed != plain["message"]["content"]
+                           or finish != plain["finish_reason"]):
             raise AssertionError(f"serve {device}: SSE deltas {streamed!r} "
                                  f"({finish}) != {plain!r}")
         return dict(tokens=rec.tokens(), texts=texts, chat_text=streamed,
-                    launches=launches, metrics=metrics_of(port))
+                    all_tokens=[(tuple(p), ids) for p, ids, _ in
+                                rec.requests],
+                    launches=launches, rank_launches=rank_launches,
+                    metrics=metrics_of(port))
     finally:
         server.shutdown()
         server.server_close()
-        ctx.close()
+        if own:
+            ctx.close()
 
 
 def phase_serve(devices=("cuda", "cpu")) -> dict:
@@ -2012,6 +2061,8 @@ def phase_serve(devices=("cuda", "cpu")) -> dict:
                     hp = WorkspaceConfig.load(ws).hyper_params
                     hp.max_slots, hp.paged_pages, hp.page_size = 4, pages, 8
                     run = runs[cache, device] = serve_run(ws, hp, device)
+                    if (cache, device) == ("dense", "cuda"):
+                        SERVED[f"serve_{preset}"] = run["tokens"]
                     label = f"{preset} {cache} {device}"
                     if device == "cuda":
                         missing = [k for k in need[cache]
@@ -3254,6 +3305,376 @@ def phase_serve_vlm_full_width(dev: torch.device, ref: dict) -> dict:
             "launches": run["launches"], "card": card_line()}
 
 
+# the model and shapes of the tensor-parallel phases: llama-8b at tp = 2,
+# each rank 16/4 heads, FFN 7168, vocab 64128
+TP = 2
+TP_NEED = ("qmatmul", "fused_head", "flash_prefill", "flash_decode")
+
+
+def tp_backend() -> tuple[str, str]:
+    """(backend, how the ranks run): NCCL with a card a rank where there
+    are two cards, else gloo with both ranks on the one card."""
+    if torch.cuda.device_count() >= TP:
+        return "nccl", "two ranks on two cards over nccl"
+    return "gloo", ("two ranks on one card over gloo: a check of function, "
+                    "not of speed")
+
+
+def phase_tp_kernels(dev: torch.device, read_flush: bool = False) -> dict:
+    """Each kernel at llama-8b's tp = 2 local shapes against its twin on
+    the card, with CUDA-event times and bounds (as the kernels phase):
+    the GEMV (M = 1, 8) and the prefill GEMM (M = 512) at QKV 4096 ->
+    3072, wo 2048 -> 4096, gate|up 4096 -> 14336 and down 7168 -> 4096
+    (pack group 1792, new to the kernels); the fused head 4096 -> 64128
+    with and without its argmax; flash-decode (S = 1 and 8, T = 1024) and
+    flash-prefill (S = 1, 512 rows from 0 of 2048) at 16/4 heads. Every
+    GEMM and attention case twice, bit for bit."""
+    from powerserve_tpu_torch.ops.flash_decode import (
+        decode_visibility, flash_decode_cuda, flash_decode_quant_reference)
+    from powerserve_tpu_torch.ops.flash_prefill import (
+        flash_prefill_cuda, flash_prefill_quant_reference, prefill_visibility)
+    from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
+                                                fused_linear_reference,
+                                                norm_rounding_slack,
+                                                prologue_reference)
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_cuda,
+                                                  qmatmul_reference)
+    from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
+
+    timer = Timer(dev, read_flush)
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def held(name, got, ref, rel_tol, slack=0.0, flips_of=None):
+        """got within rel_tol of ref's largest value (+ slack); attention
+        (flips_of = the value scales) lets 1 in 100 outputs exceed it by
+        at most the bf16 flips of p * vs (the kernels phase's rule)."""
+        err = (got.float() - ref.float()).abs()
+        tol = rel_tol * max(1.0, ref.float().abs().max().item()) + slack
+        flip = (0.0 if flips_of is None
+                else 2.0 ** -8 * 127 * flips_of.float().abs().max().item())
+        over = (err > tol).float().mean().item()
+        if over > (1e-2 if flips_of is not None else 0.0) or \
+                not (err <= tol + flip).all():
+            raise AssertionError(f"{name}: max abs err {err.max().item()}, "
+                                 f"{over} of outputs over {tol}")
+        return err.max().item()
+
+    def twice(name, fn):
+        out = fn()
+        if not torch.equal(out, fn()):
+            raise AssertionError(f"{name}: two runs gave different bits")
+        return out
+
+    rows = []
+    for proj, k, n in (("qkv", 4096, 3072), ("wo", 2048, 4096),
+                       ("gate|up", 4096, 14336), ("down", 7168, 4096)):
+        lin = _rand_qlinear(g, k, n, "q4_k", dev)
+        for m in (1, 8, 512):
+            x = randn(m, k, dtype=torch.bfloat16)
+            name = f"tp qmatmul {proj} {m}x{k}x{n}"
+            err = held(name, twice(name, lambda: qmatmul_cuda(x, lin)),
+                       qmatmul_reference(x, lin), 1e-4)
+            b, by = bound_ms(nbytes(x) + lin.nbytes() + m * n * 4,
+                             2.0 * m * n * k)
+            rows.append(dict(
+                kernel="qmatmul", shape=proj, m=m, k=k, n=n,
+                pack_group=lin.pack_group, max_abs_err=err,
+                ms=timer(lambda: qmatmul_cuda(x, lin)),
+                plain_ms=timer(lambda: qmatmul_reference(x, lin), reps=10),
+                bound_ms=b, bound_by=by, library_ms=None))
+        del lin
+    head = _rand_qlinear(g, 4096, 64128, "q4_k", dev)
+    nw = torch.rand(4096, generator=g, device=dev) + 0.5
+    h = randn(1, 4096, dtype=torch.bfloat16) * 3
+    err = held("tp fused head", fused_linear_cuda(head, "norm", [h], nw),
+               fused_linear_reference(head, norm=(h, nw)), 1e-4,
+               norm_rounding_slack(head, h, nw))
+    tok = fused_linear_cuda(head, "norm", [h], nw, argmax=True)
+    if not torch.equal(tok, fused_linear_reference(
+            head, norm=(h, nw)).argmax(-1).to(torch.int32)):
+        raise AssertionError("tp fused head: the argmax is not the twin's")
+    xh = prologue_reference("norm", [h], nw)
+    for argmax in (False, True):
+        b, by = bound_ms(nbytes(h, nw) + head.nbytes()
+                         + (4 if argmax else 64128 * 4), 2.0 * 64128 * 4096)
+        rows.append(dict(
+            kernel="fused_head", shape="head", m=1, k=4096, n=64128,
+            argmax=argmax, max_abs_err=err,
+            ms=timer(lambda: fused_linear_cuda(head, "norm", [h], nw,
+                                               argmax=argmax)),
+            gemv_ms=timer(lambda: qmatmul_cuda(xh, head)),
+            plain_ms=timer(lambda: fused_linear_reference(
+                head, norm=(h, nw), argmax=argmax), reps=10),
+            bound_ms=b, bound_by=by, library_ms=None))
+    del head
+
+    H, Hkv, D = 32 // TP, 8 // TP, 128
+    scale = 1.0 / D ** 0.5
+
+    def cache(S, T):
+        kq, vq = (torch.randint(-127, 128, (S, Hkv, T, D), generator=g,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(S, Hkv, T, generator=g, device=dev) * 0.02
+                  for _ in range(2))
+        return kq, ks, vq, vs
+
+    def attn(kernel, shape, q, kv4, vis, fn, ref_fn, extra):
+        name = f"tp {kernel} {shape}"
+        err = held(name, twice(name, fn), ref_fn(), 1e-4, flips_of=kv4[3])
+        S, Tq = q.shape[:2]
+        b, by = bound_ms(2 * nbytes(q) + int(vis.any(dim=1).sum()) * Hkv
+                         * (2 * D + 8) + extra, 4.0 * D * H * float(vis.sum()))
+        qh = q.permute(0, 2, 1, 3).to(torch.bfloat16)
+        kd, vd = ((c.float() * sc[..., None]).to(torch.bfloat16)
+                  .repeat_interleave(H // Hkv, dim=1)
+                  for c, sc in ((kv4[0], kv4[1]), (kv4[2], kv4[3])))
+        return dict(
+            kernel=kernel, shape=shape, heads=f"{H}/{Hkv}", max_abs_err=err,
+            ms=timer(fn), plain_ms=timer(ref_fn, reps=5), bound_ms=b,
+            bound_by=by,
+            library_ms=timer(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qh, kd, vd, attn_mask=vis[:, None])))
+
+    for S in (1, 8):
+        T = 1024
+        q = randn(S, 1, H, D)
+        kv4 = cache(S, T)
+        mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+        mask[:, :T - 1] = True
+        pos = torch.full((S, 1), T - 1, dtype=torch.int32, device=dev)
+        args = (q, *kv4, mask, pos, scale)
+        rows.append(attn("flash_decode", f"S={S} Tq=1 T={T}", q, kv4,
+                         decode_visibility(mask, pos, 1),
+                         lambda: flash_decode_cuda(*args),
+                         lambda: flash_decode_quant_reference(*args),
+                         nbytes(mask, pos)))
+    q = randn(1, 512, H, D)
+    kv4 = cache(1, 2048)
+    mask = torch.zeros(1, 2048, dtype=torch.bool, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (q, *kv4, mask, start, scale)
+    rows.append(attn("flash_prefill", "S=1 Tq=512 T=2048 start 0", q, kv4,
+                     prefill_visibility(mask, start, 512)[..., :2048],
+                     lambda: flash_prefill_cuda(*args),
+                     lambda: flash_prefill_quant_reference(*args),
+                     nbytes(mask, start)))
+    torch.cuda.synchronize()
+    return {"phase": "tp_kernels", "tp": TP,
+            "flush": "read" if read_flush else "write", "rows": rows}
+
+
+def tp_agree(label: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Logits over two ranks against the single-device forward on the
+    same card: within TP_LOGIT_REL of the range, the same greedy token
+    unless the single device's top-2 gap is < NEAR_TIE."""
+    gap = logit_gap(got, ref)
+    if not torch.isfinite(got).all() or not gap <= TP_LOGIT_REL:
+        raise AssertionError(f"{label}: two ranks differ from one device by "
+                             f"{gap} of the range")
+    top2 = ref.reshape(-1, ref.shape[-1]).topk(2, dim=-1)
+    flip = got.reshape(-1, got.shape[-1]).argmax(-1) != top2.indices[:, 0]
+    if (flip & ((top2.values[:, 0] - top2.values[:, 1]) >= NEAR_TIE)).any():
+        raise AssertionError(f"{label}: the greedy token is not one "
+                             f"device's")
+    return gap
+
+
+def rank_counts(counts: list[dict], need: tuple, label: str) -> list[dict]:
+    """Each rank's launches of the kernels in need; every rank must have
+    launched each."""
+    out = [{k: c[k] for k in need} for c in counts]
+    for r, c in enumerate(out):
+        missing = [k for k, n in c.items() if not n]
+        if missing:
+            raise AssertionError(f"{label}: rank {r} launched no {missing}")
+    return out
+
+
+def phase_tp_full_width(dev: torch.device, cfg, model) -> dict:
+    """llama-8b Q4_K over two ranks (tp = 2, random weights from seed 0 on
+    every rank): a 512-token prefill and one decode step held against the
+    single-device forward `model` on the same card (TP_LOGIT_REL), then
+    greedy decoding to 32 tokens against generate's (near-tie rule). The
+    launch counts of every rank are zeroed before each path and read
+    after it; the wall times are of a check of function when the ranks
+    share a card."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.parallel.tp import (start_rank_group,
+                                                  tp_decode_scan, tp_forward,
+                                                  tp_prefill)
+
+    llm = cfg.llm
+    backend, how = tp_backend()
+    n_prompt, n_tokens, max_seq = 512, 32, 2048
+    g = torch.Generator(device="cpu")
+    g.manual_seed(1)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=g)
+    out: dict = {"phase": "tp_full_width", "tp": TP, "backend": backend,
+                 "ranks": how}
+    t0 = time.perf_counter()
+    group = start_rank_group(TP, backend, dev)
+    try:
+        out["start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, tm = group.preset("llama-8b", "q4_k", 0, TP)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        lw = tm.shard.model.layers[0]
+        local = dict(qkv=tuple(lw.wqkv.q.shape), wo=lw.wo.in_features,
+                     gate_up=lw.wgu.out_features, down=lw.w_down.in_features,
+                     down_pack_group=lw.w_down.pack_group,
+                     head=tm.shard.model.lm_head.out_features,
+                     heads=(tm.shard.model.llm.n_heads,
+                            tm.shard.model.llm.n_kv_heads))
+        if (local["down"], local["down_pack_group"], local["head"],
+                local["heads"]) != (7168, 1792, 64128, (16, 4)):
+            raise AssertionError(f"tp shards: {local}")
+        out["local_shapes"] = local
+        kv1 = KVCache.create(llm.n_layers, 1, max_seq, llm.n_kv_heads,
+                             llm.head_size, dev)
+        kv2 = tm.create_cache(llm.n_layers, 1, max_seq, llm.n_kv_heads,
+                              llm.head_size)
+        toks = prompt[None].to(dev)
+        pos = torch.arange(n_prompt, device=dev)[None]
+        want = model(kv1, toks, pos, logits_mode="last")
+        counts = {}
+
+        def timed(name, need, fn):
+            group.launch_counts(reset=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out[f"{name}_wall_s"] = time.perf_counter() - t
+            counts[name] = rank_counts(group.launch_counts(), need,
+                                       f"tp {name}")
+            return res
+
+        got = timed("prefill", TP_NEED[:3], lambda: tp_prefill(
+            tm, toks, pos, kv2))
+        out["prefill_logit_gap"] = tp_agree("tp prefill", got, want)
+        first = want.argmax(-1)
+        dpos = torch.full((1, 1), n_prompt, device=dev)
+        want_d = model(kv1, first[:, None], dpos, logits_mode="last")
+        got_d = timed("decode_step", ("qmatmul", "fused_head",
+                                      "flash_decode"),
+                      lambda: tp_forward(tm, kv2, first[:, None], dpos,
+                                         logits_mode="last"))
+        out["decode_step_logit_gap"] = tp_agree("tp decode step", got_d,
+                                                want_d)
+        # greedy to 32 tokens over the ranks: the prefill's argmax, the
+        # step's, then 30 decode steps (argmax heads reduced over ranks)
+        scan = timed("decode_scan", ("qmatmul", "fused_head",
+                                     "flash_decode"),
+                     lambda: tp_decode_scan(tm, got_d.argmax(-1), kv2,
+                                            n_tokens - 2))
+        tp_tokens = ([int(got.argmax(-1)), int(got_d.argmax(-1))]
+                     + scan[0].tolist())
+        out["decode_tok_s"] = (n_tokens - 2) / out["decode_scan_wall_s"]
+        hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=max_seq)
+        hp.sampler.temperature = 0.0
+        engine = InferenceEngine(model, cfg, hp, device=dev)
+        plist = prompt.tolist()
+        # generate prefills prompt[:-1] and decodes from the last token:
+        # its first token is the prefill's argmax over the whole prompt
+        ref = list(engine.generate(plist, n_tokens))
+        out["near_tie_gap"] = agree("tp greedy vs generate", tp_tokens, ref,
+                                    engine, plist)
+        out["tokens_equal"] = tp_tokens == ref
+        out["launches"] = counts
+        out["rank_launches_decode_scan"] = counts["decode_scan"]
+    finally:
+        group.close()
+    return out
+
+
+def phase_serve_tp(dev: torch.device) -> dict:
+    """The HTTP server over two ranks (tp = 2) on tiny Q8_0 and tiny-k
+    Q4_K: the dense cache (plain and "model+self:1"), a paged pool that
+    preempts (10 pages of 8), and tp = 2 x dp = 2 on a pool of 20 pages
+    (10 a dp block, four ranks on the card), with serve_run's traffic;
+    every request's greedy tokens the single-device server's (near-tie
+    rule), no request in error, and each rank's launches."""
+    from powerserve_tpu_torch.core.config import HyperParams, WorkspaceConfig
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.serving.server import ServerContext
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    backend, how = tp_backend()
+    result: dict = {"phase": "serve_tp", "backend": backend, "ranks": how}
+    need = {"dense": ("qmatmul", "fused_head", "flash_prefill",
+                      "flash_decode"),
+            "paged": ("qmatmul", "fused_head", "flash_prefill",
+                      "flash_decode_paged")}
+    with tempfile.TemporaryDirectory() as tmp:
+        presets = {}
+        for preset, quant in (("tiny", GGMLType.Q8_0),
+                              ("tiny-k", GGMLType.Q4_K)):
+            ws = make_synthetic_gguf(f"{tmp}/{preset}", preset, quant, seed=0,
+                                     seq_len=256)
+            cfg, model = load_gguf_model(ws / "model", device=dev)
+            hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=256)
+            hp.sampler.temperature = 0.0
+            presets[preset] = (ws, InferenceEngine(model, cfg, hp,
+                                                   device=dev))
+        # the single-device servers' replies (the serve phase's, where it
+        # ran: the same workspaces and traffic)
+        want = {}
+        for preset, (ws, _) in presets.items():
+            hp = WorkspaceConfig.load(ws).hyper_params
+            hp.max_slots = 4
+            want[preset] = (SERVED.get(f"serve_{preset}")
+                            or serve_run(ws, hp, "cuda")["tokens"])
+        # one context (one rank group) a layout, serving both workspaces'
+        # model dirs by their paths under tmp
+        for label, tp, dp, pages, names in (
+                ("tp2_dense", 2, 1, 0, ("model", "model+self:1")),
+                ("tp2_paged", 2, 1, 10, ("model",)),
+                ("tp2_dp2_paged", 2, 2, 20, ("model",))):
+            t0 = time.perf_counter()
+            hp = WorkspaceConfig.load(presets["tiny"][0]).hyper_params
+            hp.max_slots, hp.paged_pages, hp.page_size = 4, pages, 8
+            ctx = ServerContext(tmp, "tiny/model", hp, "cuda", tp=tp, dp=dp,
+                                dist_backend=backend)
+            try:
+                for preset, (ws, engine) in presets.items():
+                    for name in names:
+                        run = serve_run(ws, hp, "cuda",
+                                        f"{preset}/{name}", ctx=ctx,
+                                        same_chats=dp == 1)
+                        key = f"{label}_{preset}_{name}"
+                        gaps = [agree(f"serve_tp {key}", ids,
+                                      want[preset][p], engine, list(p))
+                                for p, ids in run["all_tokens"]]
+                        rk = (SPEC_NEED if "+" in name
+                              else need["paged" if pages else "dense"])
+                        result[key] = dict(
+                            texts=run["texts"],
+                            near_ties=[x for x in gaps if x is not None],
+                            preemptions=run["metrics"].get(
+                                "paged_preemptions_total"),
+                            rank_launches=rank_counts(
+                                run["rank_launches"], rk, f"serve_tp {key}"))
+                        if pages == 10 and not run["metrics"][
+                                "paged_preemptions_total"] > 0:
+                            raise AssertionError(f"serve_tp {key}: no "
+                                                 f"preemption")
+            finally:
+                ctx.close()
+            result[f"{label}_s"] = time.perf_counter() - t0
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3275,6 +3696,18 @@ def main() -> int:
           "ptxas": ptxas})
     if "--kernels" in sys.argv[1:]:
         phase_kernels(dev, read_flush="--read-flush" in sys.argv[1:])
+        emit(phase_tp_kernels(dev, read_flush="--read-flush" in sys.argv[1:]))
+        print(card, flush=True)
+        return 0
+    if "--tp" in sys.argv[1:]:
+        emit(phase_tp_kernels(dev))
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        emit(phase_tp_full_width(dev, cfg, model))
+        del cfg, model
+        torch.cuda.empty_cache()
+        emit(phase_serve_tp(dev))
         print(card, flush=True)
         return 0
     if "--vlm" in sys.argv[1:]:
@@ -3324,6 +3757,10 @@ def main() -> int:
         emit(eagle_serve)
     finally:
         shutil.rmtree(head_dir, ignore_errors=True)
+    emit(phase_tp_kernels(dev))
+    tp_full = phase_tp_full_width(dev, cfg, model)
+    emit(tp_full)
+    emit(phase_serve_tp(dev))
     del cfg, model
     torch.cuda.empty_cache()
     vlm, vlm_ref = phase_vlm_full_width(dev)
@@ -3444,7 +3881,9 @@ def main() -> int:
           "vlm_decode_tok_s": vlm["generate_decode_tok_s_again"],
           "serve_vlm_generated_tok_s": serve_vlm["generated_tok_s"],
           "serve_vlm_ttft_p50_s": serve_vlm["ttft_p50_s"],
-          "serve_vlm_ttft_p90_s": serve_vlm["ttft_p90_s"]})
+          "serve_vlm_ttft_p90_s": serve_vlm["ttft_p90_s"],
+          "tp_full_width_ranks": tp_full["ranks"],
+          "tp_full_width_decode_tok_s": tp_full["decode_tok_s"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,8 +19,10 @@ and writes static outputs. On `cuda`:
   - the second call captures the body, then replays it;
   - every later call replays it.
 On the CPU, where the wrappers run their plain twins, the body runs
-eagerly and no graph is built. StepGraph.eager runs the body eagerly on
-any device: the replayed paths' twin. Nothing catches an error of a
+eagerly and no graph is built, as it does on any device for the steps
+of a StepGraphs(eager=True) (a rank group's scheduler: its steps hold
+collectives). StepGraph.eager runs the body eagerly on any device: the
+replayed paths' twin. Nothing catches an error of a
 capture or a replay: which steps replay is decided by the caller (greedy
 or sampled), never by a failure.
 
@@ -64,8 +66,10 @@ class StepGraph:
     a call returns the body's outputs, valid until the next call."""
 
     def __init__(self, body: Callable[[], object], bufs: dict,
-                 device: torch.device, pool, stream, deps: tuple):
+                 device: torch.device, pool, stream, deps: tuple,
+                 eager: bool = False):
         self.body = body
+        self.eager_only = eager
         self.bufs = bufs
         self.device = device
         self.pool, self.stream = pool, stream
@@ -77,7 +81,7 @@ class StepGraph:
         self.capture_s = 0.0
 
     def __call__(self):
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager_only:
             return self.body()
         if self.graph is None:
             if not self.warm:
@@ -117,8 +121,11 @@ class StepGraphs:
     and the capture stream they share. Bodies hold no reference to the
     owner, so the graphs go with it."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, eager: bool = False):
+        """eager: every step runs its body eagerly (a step that holds a
+        collective of a rank group cannot be captured)."""
         self.device = torch.device(device)
+        self.eager = eager
         self.graphs: dict[tuple, StepGraph] = {}
         self.pool = self.stream = None
         if self.device.type == "cuda":
@@ -139,7 +146,7 @@ class StepGraphs:
             body, bufs = build()
             g = self.graphs[full] = StepGraph(
                 body, bufs, self.device, self.pool, self.stream,
-                tuple(weakref.ref(d) for d in deps))
+                tuple(weakref.ref(d) for d in deps), self.eager)
         return g
 
 

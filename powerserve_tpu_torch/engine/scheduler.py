@@ -59,8 +59,16 @@ EAGLE target; embed requests skip the prefix cache (image-context ids
 are all alike), a preempted one extends its rows with its generated
 tokens' embeddings, and a trimmed prompt trims its rows too.
 
-Meshes and double-buffered ticks are not ported: like the plain tick,
-the spec tick syncs once.
+Over a rank group (parallel/tp.py), the model, the draft and the caches
+are rank 0's TPModel and TPCaches: every forward and cache operation is
+broadcast to the follower ranks, which apply it to their shards, so the
+ticks run as they are. Those ticks run eagerly (their steps hold
+collectives, which no graph captures); with dp > 1 the paged pool's
+page grants keep each dp block's slots in that block's pages
+(PagePool(n_groups=dp)), and a starved slot preempts only a victim of
+its own block. EAGLE heads and requests with input rows are refused
+there (ROADMAP §1 item 8). Double-buffered ticks are not ported: like
+the plain tick, the spec tick syncs once.
 Only the scheduler thread touches the device; submit() is thread-safe,
 and call(fn) runs fn on the scheduler thread between two steps (device
 work for a request, such as encoding its images, never lands inside a
@@ -87,6 +95,7 @@ from ..core.logging import get_logger
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
+from ..parallel.tp import TPModel
 from ..sampling.sampler import (PenaltyState, categorical_from_dist,
                                 sample_dist_batched)
 from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
@@ -212,19 +221,25 @@ class BatchScheduler:
         self.chunk = max(int(self.hp.batch_size), 8)
         self.horizon = max(int(self.hp.decode_horizon), 1)
         self.pool: PagePool | None = None
+        # over a rank group: the caches are shards on every rank, and the
+        # ticks stay eager (their steps hold collectives)
+        self.tp = isinstance(model, TPModel)
+        if self.tp and eagle_head is not None:
+            raise ValueError("EAGLE under tensor parallelism is not ported "
+                             "(ROADMAP §1 item 8)")
+        if self.tp and not isinstance(draft, (TPModel, type(None))):
+            raise ValueError("a draft for a rank group's model must be "
+                             "sharded over the same ranks")
         if self.hp.paged_pages > 0:
             page = max(int(self.hp.page_size), 8)
-            self.kv = PagedKVCache.create(
-                llm.n_layers, self.S, self.max_seq, llm.n_kv_heads,
-                llm.head_size, self.device, n_pages=int(self.hp.paged_pages),
-                page_size=page)
+            self.kv = self._new_cache(llm, n_pages=int(self.hp.paged_pages),
+                                      page_size=page)
             self.max_seq = self.kv.max_seq  # rounded up to whole pages
             self.pool = PagePool(int(self.hp.paged_pages), self.S,
-                                 self.kv.max_pages, page)
+                                 self.kv.max_pages, page,
+                                 n_groups=model.mesh.dp if self.tp else 1)
         else:
-            self.kv = KVCache.create(llm.n_layers, self.S, self.max_seq,
-                                     llm.n_kv_heads, llm.head_size,
-                                     self.device)
+            self.kv = self._new_cache(llm)
         self.draft = self.d_kv = None
         self.spec_k = max(int(self.hp.spec_k), 1)
         self.spec_horizon = max(int(self.hp.spec_horizon), 1)
@@ -242,9 +257,7 @@ class BatchScheduler:
                 raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
                                  f"target vocab {llm.vocab_size}")
             self.draft = draft.to(self.device)
-            d = draft.llm
-            self.d_kv = KVCache.create(d.n_layers, self.S, self.max_seq,
-                                       d.n_kv_heads, d.head_size, self.device)
+            self.d_kv = self._new_cache(draft.llm)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one generator per slot, re-seeded at each admission
@@ -273,7 +286,7 @@ class BatchScheduler:
             if self.is_eagle:
                 # each slot's carried target feature (its root's pair)
                 self.bufs["feat"] = z(S, llm.dim)
-        self.graphs = StepGraphs(dev)
+        self.graphs = StepGraphs(dev, eager=self.tp)
         self.slots = [_Slot() for _ in range(self.S)]
         self.prefix_cache = None
         if self.hp.prefix_cache > 0:
@@ -302,9 +315,24 @@ class BatchScheduler:
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
 
+    def _new_cache(self, llm, **paged) -> KVCache:
+        """A dense (or, with n_pages, paged) cache of llm's geometry for
+        every slot: over the model's rank group when it has one."""
+        args = (llm.n_layers, self.S, self.max_seq, llm.n_kv_heads,
+                llm.head_size)
+        if self.tp:
+            return self.model.create_cache(*args, **paged)
+        if paged:
+            return PagedKVCache.create(*args, self.device, **paged)
+        return KVCache.create(*args, self.device)
+
     # -- front door -----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
+        if req.embeds is not None and self.tp:
+            raise ValueError("requests with input rows (images) under "
+                             "tensor parallelism are not ported (ROADMAP "
+                             "§1 item 8)")
         if req.embeds is not None:
             dim = self.cfg.llm.dim
             if tuple(req.embeds.shape) != (len(req.prompt_ids), dim):
@@ -417,9 +445,13 @@ class BatchScheduler:
             if s.req is None:  # preempted as a victim earlier this tick
                 continue
             while not self.pool.ensure(i, pos[i] + extra):
+                # dp groups: only a victim of its own group frees pages
+                # it may take
+                grp = self.pool.group_of(i)
                 victims = [j for j in range(self.S)
                            if j != i and self.slots[j].req is not None
-                           and self.pool.owned[j]]
+                           and self.pool.owned[j]
+                           and self.pool.group_of(j) == grp]
                 if victims:
                     v = max(victims, key=lambda j: self.slots[j].req.id)
                     if self.slots[v].req.id > s.req.id:
@@ -551,7 +583,8 @@ class BatchScheduler:
                        embeds=rows)
             if self.draft is not None:
                 # the same rows; the other slots through its own table
-                d_rows = (rows if self.draft.embed is self.model.embed
+                d_rows = (rows if rows is None
+                          or self.draft.embed is self.model.embed
                           else self._overlay(self.draft, args[0], overlay))
                 self.draft(self.d_kv, *args, active=act, logits_mode="none",
                            embeds=d_rows)

@@ -175,38 +175,59 @@ class PagedKVCache(KVCache):
 
 
 class PagePool:
-    """Host-side page allocator: a free list and per-slot ownership.
+    """Host-side page allocator: free lists and per-slot ownership.
 
     The scheduler calls ensure()/release() between device steps and
     pushes `table` (the numpy mirror) with flush() when it changed. No
-    device state lives here."""
+    device state lives here.
+
+    n_groups > 1 partitions the pool for data-parallel serving: the slots
+    of dp block g (a contiguous range) take pages only from partition
+    [g * P / n_groups, (g + 1) * P / n_groups), the pages that block's
+    ranks hold (parallel/tp.py). Page ids in the table stay global."""
 
     def __init__(self, n_pages: int, n_slots: int, max_pages: int,
-                 page_size: int):
+                 page_size: int, n_groups: int = 1):
+        if n_pages % n_groups or n_slots % n_groups:
+            raise ValueError(f"pages ({n_pages}) and slots ({n_slots}) must "
+                             f"divide into {n_groups} dp groups")
         self.n_pages = n_pages
         self.page_size = page_size
         self.max_pages = max_pages
-        self._free: list[int] = list(range(n_pages))
+        self.n_groups = n_groups
+        self.group_pages = n_pages // n_groups
+        self._slots_per_group = n_slots // n_groups
+        self._free: list[list[int]] = [
+            list(range(g * self.group_pages, (g + 1) * self.group_pages))
+            for g in range(n_groups)]
         self.owned: list[list[int]] = [[] for _ in range(n_slots)]
         self.table = np.full((n_slots, max_pages), n_pages, np.int32)
         self.dirty = False
 
+    def group_of(self, slot: int) -> int:
+        return slot // self._slots_per_group
+
     @property
     def n_free(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def n_free_for(self, slot: int) -> int:
+        """Free pages `slot` may take (its group's partition)."""
+        return len(self._free[self.group_of(slot)])
 
     def ensure(self, slot: int, n_tokens: int) -> bool:
         """Grow `slot`'s mapping to cover n_tokens logical positions.
-        False (allocating nothing further) when the pool or the slot's
-        logical range runs out: the caller preempts or defers."""
+        False (allocating nothing further) when the slot's partition or
+        its logical range runs out: the caller preempts or defers."""
         need = -(-n_tokens // self.page_size)
         if need > self.max_pages:
             return False
+        free = self._free[self.group_of(slot)]
         cur = len(self.owned[slot])
         while cur < need:
-            if not self._free:
+            if not free:
                 return False
-            pg = self._free.pop()
+            pg = free.pop()
             self.table[slot, cur] = pg
             self.owned[slot].append(pg)
             cur += 1
@@ -214,9 +235,9 @@ class PagePool:
         return True
 
     def release(self, slot: int) -> None:
-        """Return all of a slot's pages to the pool."""
+        """Return all of a slot's pages to its group's partition."""
         if self.owned[slot]:
-            self._free.extend(self.owned[slot])
+            self._free[self.group_of(slot)].extend(self.owned[slot])
             self.owned[slot] = []
             self.table[slot, :] = self.n_pages
             self.dirty = True

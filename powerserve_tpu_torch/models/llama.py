@@ -40,6 +40,17 @@ last layer's pre-norm hidden states, the features an EAGLE head drafts
 from (speculative/eagle.py, which runs LlamaLayer on an f32 residual
 stream, its first layer without the attention norm).
 
+Tensor parallelism (parallel/tp.py): a LlamaModel whose `tp` is a
+TPComm (parallel/mesh.py) holds one rank's shards, with the local head
+counts in its llm, and its forward runs the megatron collectives of the
+JAX forward's tp_axis: a vocab-sharded embedding is a masked lookup,
+then an all_reduce; wo and down are row-parallel, so their f32 products
+are all_reduced before the residual adds (on the fused route too: down's
+epilogue then takes no residuals, which each rank would add once); a
+vocab-sharded lm_head's logits are gathered over the ranks, and its
+greedy argmax is the argmax over the whole vocab (the first index on
+ties) from each rank's (max, index). Without `tp` nothing changes.
+
 An MoE layer routes each token to its top n_experts_used experts (f32
 router, softmax, top-k, weights renormalized) and runs the expert FFNs
 on a route chosen from the shapes alone (moe_route): a single token
@@ -217,11 +228,13 @@ class LlamaLayer(nn.Module):
                 deferred: DeferredKV | None = None,
                 bits: torch.Tensor | None = None,
                 attn_mask: torch.Tensor | None = None,
-                norm_input: bool = True) -> torch.Tensor:
+                norm_input: bool = True, tp=None) -> torch.Tensor:
         """x [S, Tq, dim] (the residual stream: bf16 in a model, f32 in
         an EAGLE head) -> the layer's output in x's dtype. norm_input
         False feeds x to the QKV projection without the attention norm
-        (an EAGLE-1 head's first layer)."""
+        (an EAGLE-1 head's first layer). tp: the TPComm of a sharded
+        layer (wo and down all_reduced)."""
+        reduce = (lambda t: t) if tp is None else tp.all_reduce
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
         eps = llm.norm_eps
@@ -264,13 +277,18 @@ class LlamaLayer(nn.Module):
         if fused:
             # attn_out stays f32 into the next norm and the residual sum,
             # as in the JAX fused chain
-            attn_out = fused_linear(self.wo, x=attn.reshape(S * Tq, -1))
+            attn_out = reduce(fused_linear(self.wo,
+                                           x=attn.reshape(S * Tq, -1)))
             gu = fused_linear(self.wgu, norm=(xf, attn_out, self.ffn_norm),
                               eps=eps)
-            xn = fused_linear(self.w_down, glu=gu, resids=(xf, attn_out))
+            if tp is None:
+                xn = fused_linear(self.w_down, glu=gu, resids=(xf, attn_out))
+            else:  # the epilogue's order: (r0 + r1) + y
+                xn = ((xf.float() + attn_out)
+                      + reduce(fused_linear(self.w_down, glu=gu)))
             return xn.reshape(S, Tq, -1).to(x.dtype)
-        attn_out = qmatmul(attn.reshape(S * Tq, -1).to(torch.bfloat16),
-                           self.wo)
+        attn_out = reduce(qmatmul(attn.reshape(S * Tq, -1).to(torch.bfloat16),
+                                  self.wo))
         x = x + attn_out.reshape(S, Tq, -1).to(x.dtype)
 
         h2 = rms_norm(x, self.ffn_norm, eps).to(torch.bfloat16)
@@ -285,7 +303,7 @@ class LlamaLayer(nn.Module):
         else:
             gate, up = qmatmul(h2, self.w_gate), qmatmul(h2, self.w_up)
         act = silu_hadamard(gate, up).to(torch.bfloat16)
-        down = qmatmul(act, self.w_down)
+        down = reduce(qmatmul(act, self.w_down))
         return x + down.reshape(S, Tq, -1).to(x.dtype)
 
     def route(self, h: torch.Tensor, k: int
@@ -343,15 +361,43 @@ class LlamaModel(nn.Module):
         self.lm_head = lm_head
         self.lm_head_lr = None if lm_head_lr is None else nn.ModuleList(
             lm_head_lr)
+        # a rank's shards: its TPComm (parallel/tp.py shard_params_tp)
+        self.tp = None
 
     def head(self, h: torch.Tensor, argmax: bool = False) -> torch.Tensor:
         """Final norm + lm_head (+ greedy argmax) on rows [M, dim]; a
-        factored head runs norm -> U, then V (+ argmax)."""
+        factored head runs norm -> U, then V (+ argmax). A vocab-sharded
+        head gathers its logits, or reduces its argmax, over the ranks."""
         norm = dict(norm=(h, self.out_norm), eps=self.llm.norm_eps)
         if self.lm_head_lr is not None:
             u, v = self.lm_head_lr
             return fused_linear(v, x=fused_linear(u, **norm), argmax=argmax)
-        return fused_linear(self.lm_head, argmax=argmax, **norm)
+        if self.tp is None or self.lm_head.out_features == self.llm.vocab_size:
+            return fused_linear(self.lm_head, argmax=argmax, **norm)
+        y = fused_linear(self.lm_head, **norm)  # this rank's columns
+        n, tp = y.shape[-1], self.tp
+        if argmax:
+            # the first index of the largest logit over the vocab
+            i = y.argmax(dim=-1)
+            v = y.gather(-1, i[:, None])[:, 0]
+            top = tp.all_reduce(v.clone(), "max")
+            cand = torch.where(v == top, i + tp.rank * n, n * tp.size)
+            return tp.all_reduce(cand, "min").to(torch.int32)
+        full = y.new_zeros(y.shape[0], n * tp.size)
+        full[:, tp.rank * n:(tp.rank + 1) * n] = y
+        return tp.all_reduce(full)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The input rows f32 [S, Tq, dim] of tokens: the table's, or a
+        vocab-sharded table's rows summed over the ranks (each id on one
+        rank)."""
+        n = self.embed.q.shape[0]
+        if self.tp is None or n == self.llm.vocab_size:
+            return self.embed.lookup(tokens)
+        local = tokens.long() - self.tp.rank * n
+        ok = (local >= 0) & (local < n)
+        x = self.embed.lookup(torch.where(ok, local, 0))
+        return self.tp.all_reduce(torch.where(ok[..., None], x, 0.0))
 
     @torch.no_grad()
     def forward(self, kv: KVCache, tokens: torch.Tensor,
@@ -420,7 +466,7 @@ class LlamaModel(nn.Module):
             deferred = DeferredKV(kv, cpos, intra_mask)
         elif kv_update != "inline":
             raise ValueError(f"kv_update {kv_update!r}")
-        x = (self.embed.lookup(tokens) if embeds is None
+        x = (self.embed_tokens(tokens) if embeds is None
              else embeds).to(torch.bfloat16)
         cos, sin = rope_cos_sin(positions, llm.rope, llm.head_size)
         keys = cpos if key_positions is None else key_positions
@@ -430,7 +476,7 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, llm, kv, i, cos, sin, keys32, index,
                       fuse=fuse_layers, deferred=deferred, bits=bits,
-                      attn_mask=attn_mask)
+                      attn_mask=attn_mask, tp=self.tp)
         if deferred is not None:
             kv.commit(deferred.blocks, index)
         kv.advance(cpos, active=active)

@@ -1,0 +1,938 @@
+"""Tensor- and data-parallel serving over torch.distributed.
+
+The JAX package runs the whole forward inside one shard_map over a
+(dp, tp) mesh: each device runs the kernels on its local weight shards,
+and the megatron collectives are explicit in the forward (tp_axis). The
+port keeps that layout and those collectives (models/llama.py with a
+TPComm), with one process a rank:
+
+  - Rank 0 owns the host side: the scheduler (engine/scheduler.py), the
+    server, requests, page grants, preemption, the prefix cache's keys
+    and every sampled draw. Ranks 1..N-1 are followers.
+  - Every operation on a model or a cache is broadcast by rank 0 and
+    applied, in the same order, by every rank to its own shards: a
+    forward, a cache's reset / rollback / tree KV ops / page grants /
+    prefix snapshots, and the loads that build the shards. TPModel and
+    TPCache on rank 0 are the model's and the caches' interfaces over
+    those operations, so the scheduler and the speculative steps run
+    as they are on one device.
+  - dp splits the slots into blocks of tp ranks: every rank receives the
+    whole batch, runs its block's rows, and the blocks' outputs are put
+    together over the mesh (parallel/mesh.py). The paged pool's pages
+    split the same way (PagePool(n_groups=dp); the global page ids of
+    the table become each block's local ids, the JAX _remap_paged_dp).
+
+An operation is a pickled header (the name, its arguments with each
+tensor replaced by its place in a byte buffer, and the snapshots to
+drop) and the tensors' bytes, broadcast as one uint8 buffer after its
+size. Ticks that hold collectives run eagerly: gloo cannot be captured
+in a CUDA graph.
+
+The host re-layout is the JAX package's (tp.py:51-163): the fused QKV's
+columns permuted so each rank's slice is [q_r | k_r | v_r], gate|up's
+so it is [gate_r | up_r], and the row-parallel weights (wo, down)
+repacked so the nibble pack group divides the local K. shard_params_tp
+then takes param_specs' slices: QKV and gate|up column-parallel with
+their biases, wo and down row-parallel, the embedding and the lm_head
+over the vocab when it divides (else replicated), the norms and a
+factored draft head replicated.
+
+    python -m powerserve_tpu_torch serve -d <root> --tp 2 [--dp 2]
+        [--dist-backend nccl|gloo]
+
+Not ported (ROADMAP §1 item 8): pipeline and sequence parallelism, EAGLE
+and VLM requests under TP, MoE layers under TP, several hosts.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import pickle
+import threading
+import weakref
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..core.config import LLMConfig, ModelConfig
+from ..core.logging import get_logger
+from ..core.quant import QK, choose_pack_group
+from ..kv.cache import KVCache
+from ..kv.paged import PagedKVCache
+from ..models.llama import LlamaLayer, LlamaModel, QEmbedding
+from ..ops import cuda_lib
+from ..ops.qmatmul import QLinear
+from .distributed import (Followers, check_backend, init_distributed,
+                          rank_device, watch_parent)
+from .mesh import Mesh, TPComm
+
+log = get_logger("tp")
+
+# ---------------------------------------------------------------------------
+# host-side re-layout (the JAX package's tp.py:51-163)
+# ---------------------------------------------------------------------------
+
+
+def _unpack_nib(q: torch.Tensor, group: int) -> torch.Tensor:
+    """uint8 [.., K/2, N] packed in groups of `group` rows -> the raw
+    nibbles uint8 [.., K, N]."""
+    half = group // 2
+    *lead, kh, n = q.shape
+    pg = q.reshape(*lead, kh // half, half, n)
+    return torch.cat([pg & 0xF, pg >> 4], dim=-2).reshape(*lead, kh * 2, n)
+
+
+def _pack_nib(u: torch.Tensor, group: int) -> torch.Tensor:
+    """The inverse: raw nibbles uint8 [.., K, N] -> packed [.., K/2, N]."""
+    half = group // 2
+    *lead, k, n = u.shape
+    ug = u.reshape(*lead, k // group, group, n)
+    return (ug[..., :half, :] | (ug[..., half:, :] << 4)).reshape(
+        *lead, k // 2, n)
+
+
+def _qlinear_like(lin: QLinear, q, scales, bias, **meta) -> QLinear:
+    kw = dict(packed=lin.packed, unsigned=lin.unsigned,
+              in_features=lin.in_features, out_features=lin.out_features,
+              pack_group=lin.pack_group, scale_group=lin.scale_group)
+    kw.update(meta)
+    return QLinear(q, scales, bias, **kw)
+
+
+def _permute_cols(lin: QLinear, perm: np.ndarray) -> QLinear:
+    idx = torch.as_tensor(perm, device=lin.q.device)
+    def take(t):
+        return None if t is None else t.index_select(-1, idx)
+
+    return _qlinear_like(lin, take(lin.q), take(lin.scales), take(lin.bias))
+
+
+def _qkv_perm(H: int, Hkv: int, D: int, tp: int) -> np.ndarray:
+    """Column order so rank s holds [q_s | k_s | v_s] contiguously."""
+    q_off, k_off, v_off = 0, H * D, (H + Hkv) * D
+    hq, hkv = H // tp * D, Hkv // tp * D
+    parts = []
+    for s in range(tp):
+        parts.append(np.arange(q_off + s * hq, q_off + (s + 1) * hq))
+        parts.append(np.arange(k_off + s * hkv, k_off + (s + 1) * hkv))
+        parts.append(np.arange(v_off + s * hkv, v_off + (s + 1) * hkv))
+    return np.concatenate(parts)
+
+
+def _gu_perm(F: int, tp: int) -> np.ndarray:
+    """Column order so rank s holds [gate_s | up_s] contiguously."""
+    f = F // tp
+    parts = []
+    for s in range(tp):
+        parts.append(np.arange(s * f, (s + 1) * f))
+        parts.append(np.arange(F + s * f, F + (s + 1) * f))
+    return np.concatenate(parts)
+
+
+def _repack_rows(lin: QLinear | None, tp: int) -> QLinear | None:
+    """A row-parallel QLinear made splittable into tp K-shards: the scale
+    blocks and the nibble pack group must divide the local K."""
+    if lin is None:
+        return None
+    k = lin.in_features
+    if k % tp or (k // tp) % lin.scale_group:
+        raise ValueError(f"K={k} not row-shardable over tp={tp}")
+    if not lin.packed or (k // tp) % lin.pack_group == 0:
+        return lin
+    group = choose_pack_group(k // tp)
+    return _qlinear_like(lin, _pack_nib(_unpack_nib(lin.q, lin.pack_group),
+                                        group),
+                         lin.scales, lin.bias, pack_group=group)
+
+
+_LAYER_FIELDS = ("wo", "w_down", "wqkv", "bqkv", "wq", "wk", "wv", "bq", "bk",
+                 "bv", "wgu", "w_gate", "w_up", "q_norm", "k_norm", "router",
+                 "w_gate_exps", "w_up_exps", "w_down_exps")
+
+
+def _layer_like(lw: LlamaLayer, **changes) -> LlamaLayer:
+    kw = {f: getattr(lw, f) for f in _LAYER_FIELDS}
+    kw.update(changes)
+    return LlamaLayer(lw.attn_norm, lw.ffn_norm, **kw)
+
+
+def _model_like(model: LlamaModel, **changes) -> LlamaModel:
+    kw = dict(llm=model.llm, embed=model.embed, layers=list(model.layers),
+              out_norm=model.out_norm, lm_head=model.lm_head,
+              lm_head_lr=(None if model.lm_head_lr is None
+                          else tuple(model.lm_head_lr)))
+    kw.update(changes)
+    return LlamaModel(**kw)
+
+
+def prepare_params_for_tp(model: LlamaModel, tp: int) -> LlamaModel:
+    """The host re-layout before sharding: the fused QKV's and gate|up's
+    columns permuted per rank, wo and down repacked to a pack group that
+    divides the local K. The model itself is not changed; tp == 1 returns
+    it."""
+    if tp == 1:
+        return model
+    llm = model.llm
+    H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
+    if H % tp or Hkv % tp:
+        raise ValueError(f"heads {H}/{Hkv} not divisible by tp={tp}")
+    layers = []
+    for lw in model.layers:
+        ch = dict(wo=_repack_rows(lw.wo, tp),
+                  w_down=_repack_rows(lw.w_down, tp))
+        if lw.wqkv is not None:
+            perm = _qkv_perm(H, Hkv, D, tp)
+            ch["wqkv"] = _permute_cols(lw.wqkv, perm)
+            if lw.bqkv is not None:
+                ch["bqkv"] = lw.bqkv.index_select(
+                    -1, torch.as_tensor(perm, device=lw.bqkv.device))
+        if lw.wgu is not None:
+            ch["wgu"] = _permute_cols(lw.wgu,
+                                      _gu_perm(lw.wgu.out_features // 2, tp))
+        layers.append(_layer_like(lw, **ch))
+    return _model_like(model, layers=layers)
+
+
+def local_llm_config(llm: LLMConfig, tp: int) -> LLMConfig:
+    """One rank's head counts (vocab and dim stay global: the residual
+    is replicated, and a vocab-sharded table is told by its rows)."""
+    if tp == 1:
+        return llm
+    if llm.n_heads % tp or llm.n_kv_heads % tp:
+        raise ValueError(f"heads not divisible by tp={tp}")
+    import dataclasses
+
+    return dataclasses.replace(
+        llm, n_heads=llm.n_heads // tp, n_kv_heads=llm.n_kv_heads // tp,
+        kv_dim=llm.n_kv_heads // tp * llm.head_size)
+
+
+def _span(n: int, rank: int, tp: int) -> slice:
+    if n % tp:
+        raise ValueError(f"{n} does not split over tp={tp}")
+    return slice(rank * (n // tp), (rank + 1) * (n // tp))
+
+
+def _cols(lin: QLinear | None, rank: int, tp: int) -> QLinear | None:
+    """Column-parallel: this rank's output columns."""
+    if lin is None:
+        return None
+    sl = _span(lin.out_features, rank, tp)
+
+    def cut(t):
+        return None if t is None else t[..., sl].contiguous()
+
+    return _qlinear_like(lin, cut(lin.q), cut(lin.scales), cut(lin.bias),
+                         out_features=sl.stop - sl.start)
+
+
+def _rows(lin: QLinear | None, rank: int, tp: int) -> QLinear | None:
+    """Row-parallel: this rank's K rows (of q, the scales and the
+    minimums), the pack group already dividing the local K."""
+    if lin is None:
+        return None
+    k = lin.in_features // tp
+
+    def cut(t, unit):
+        if t is None:
+            return None
+        sl = _span(t.shape[-2], rank, tp)
+        assert sl.stop - sl.start == k // unit
+        return t[..., sl, :].contiguous()
+
+    return _qlinear_like(lin, cut(lin.q, 2 if lin.packed else 1),
+                         cut(lin.scales, lin.scale_group), cut(lin.bias, QK),
+                         in_features=k)
+
+
+def _vec(t: torch.Tensor | None, rank: int, tp: int):
+    return None if t is None else t[..., _span(t.shape[-1], rank,
+                                               tp)].contiguous()
+
+
+def shard_params_tp(model: LlamaModel, rank: int, tp: int) -> LlamaModel:
+    """Rank `rank`'s shards of `model` (after prepare_params_for_tp), with
+    the local head counts: the JAX package's param_specs, taken on the
+    host. The returned model has no TPComm yet (LlamaModel.tp)."""
+    if any(lw.router is not None for lw in model.layers):
+        raise ValueError("MoE layers under tensor parallelism are not "
+                         "ported (ROADMAP §1 item 8)")
+    if tp == 1:
+        return model
+    model = prepare_params_for_tp(model, tp)
+    layers = [_layer_like(
+        lw, wqkv=_cols(lw.wqkv, rank, tp), bqkv=_vec(lw.bqkv, rank, tp),
+        wq=_cols(lw.wq, rank, tp), wk=_cols(lw.wk, rank, tp),
+        wv=_cols(lw.wv, rank, tp), bq=_vec(lw.bq, rank, tp),
+        bk=_vec(lw.bk, rank, tp), bv=_vec(lw.bv, rank, tp),
+        wgu=_cols(lw.wgu, rank, tp), w_gate=_cols(lw.w_gate, rank, tp),
+        w_up=_cols(lw.w_up, rank, tp), wo=_rows(lw.wo, rank, tp),
+        w_down=_rows(lw.w_down, rank, tp)) for lw in model.layers]
+    emb = model.embed
+    if emb.q.shape[0] % tp == 0:
+        sl = _span(emb.q.shape[0], rank, tp)
+        emb = QEmbedding(*(None if t is None else t[sl].contiguous()
+                           for t in (emb.q, emb.scales, emb.bias)))
+    head = model.lm_head
+    if head.out_features % tp == 0:
+        head = _cols(head, rank, tp)
+    return _model_like(model, llm=local_llm_config(model.llm, tp),
+                       embed=emb, layers=layers, lm_head=head)
+
+
+def _gather_cols(lin: QLinear, comm: TPComm) -> QLinear:
+    """A column-parallel QLinear whole again, on every rank of comm."""
+    def whole(t):
+        if t is None:
+            return None
+        n = t.shape[-1]
+        full = t.new_zeros(*t.shape[:-1], n * comm.size)
+        full[..., comm.rank * n:(comm.rank + 1) * n] = t
+        return comm.all_reduce(full)
+
+    return _qlinear_like(lin, whole(lin.q), whole(lin.scales),
+                         whole(lin.bias),
+                         out_features=lin.out_features * comm.size)
+
+
+# ---------------------------------------------------------------------------
+# the shards on each rank, and the operations on them
+# ---------------------------------------------------------------------------
+
+# forward arguments with a slot axis first (a dp block takes its rows)
+_SLOT_ARGS = ("active", "cache_positions", "key_positions", "attn_mask",
+              "embeds")
+
+
+class ShardModel:
+    """One rank's shards of a model on a mesh; `cfg` is the global
+    config, `model.llm` the local one."""
+
+    def __init__(self, mesh: Mesh, model: LlamaModel, cfg: ModelConfig):
+        self.mesh, self.model, self.cfg = mesh, model, cfg
+        model.tp = mesh.comm
+
+    def forward(self, kv: "ShardCache", tokens: torch.Tensor,
+                positions: torch.Tensor, **kw) -> torch.Tensor:
+        """The whole batch's forward: this block's rows through the local
+        shards, the blocks' outputs put together."""
+        S = tokens.shape[0]
+        if self.mesh.dp > 1:
+            lo, hi = self.mesh.block(S)
+            tokens, positions = tokens[lo:hi], positions[lo:hi]
+            kw = {k: (v[lo:hi] if k in _SLOT_ARGS and v is not None else v)
+                  for k, v in kw.items()}
+        return self.mesh.assemble(self.model(kv.kv, tokens, positions, **kw),
+                                  S)
+
+
+class ShardCache:
+    """One rank's cache: its kv heads of its dp block's slots (paged: of
+    its block's pages). The methods take the whole batch's arguments."""
+
+    def __init__(self, mesh: Mesh, kv: KVCache, n_slots: int,
+                 n_pages: int = 0):
+        self.mesh, self.kv = mesh, kv
+        self.lo, self.hi = mesh.block(n_slots)
+        self.n_slots = n_slots
+        if n_pages:
+            self.p_lo, self.p_hi = mesh.block(n_pages)
+
+    def _rows(self, x):
+        if self.mesh.dp == 1 or not torch.is_tensor(x) or x.dim() == 0:
+            return x
+        return x[self.lo:self.hi]
+
+    def _mine(self, slot: int) -> bool:
+        return self.lo <= int(slot) < self.hi
+
+    def pos(self) -> torch.Tensor:
+        return self.mesh.assemble(self.kv.pos, self.n_slots)
+
+    def mask(self) -> torch.Tensor:
+        return self.mesh.assemble(self.kv.mask, self.n_slots)
+
+    def reset_slot(self, slot: int) -> None:
+        if self._mine(slot):
+            self.kv.reset_slot(int(slot) - self.lo)
+
+    def rollback(self, n, active=None) -> None:
+        self.kv.rollback(self._rows(n), self._rows(active))
+
+    def commit_tokens(self, slot_indices, src_positions, n_accept) -> None:
+        self.kv.commit_tokens(None, self._rows(src_positions),
+                              self._rows(n_accept))
+
+    def save_slot_prefix(self, slot: int, n: int) -> dict:
+        """This rank's heads of the slot's first n tokens; under dp the
+        owning block's snapshot is copied to every block, so a later
+        request restores it into a slot of any block."""
+        owner = int(slot) // (self.hi - self.lo)
+        if self.mesh.dp_rank == owner:
+            snap = self.kv.save_slot_prefix(int(slot) - self.lo, n)
+        else:
+            L, _, H, _, D = self.kv.k.shape
+            dev = self.kv.device
+            snap = {"n": n,
+                    "k": torch.zeros(L, H, n, D, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(L, H, n, D, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(L, H, n, device=dev),
+                    "v_scale": torch.zeros(L, H, n, device=dev)}
+        if self.mesh.dp > 1:
+            for name in ("k", "v", "k_scale", "v_scale"):
+                self.mesh.peers.broadcast(snap[name], owner)
+        return snap
+
+    def restore_slot_prefix(self, slot: int, saved: dict) -> None:
+        if self._mine(slot):
+            self.kv.restore_slot_prefix(int(slot) - self.lo, saved["handle"])
+
+    def gathered(self) -> dict:
+        """The whole cache on every rank of the mesh: k, v, k_scale,
+        v_scale with every head (put together over tp) and every slot or
+        page (over dp), and pos and mask (checks and tests)."""
+        out = {"pos": self.pos(), "mask": self.mask()}
+        m = self.mesh
+        for name in ("k", "v", "k_scale", "v_scale"):
+            t = getattr(self.kv, name)  # [L, slots or pages, H, T(, D)]
+            wide = t.to(torch.int32) if t.dtype == torch.int8 else t
+            h = wide.shape[2]
+            full = wide.new_zeros(wide.shape[:2] + (h * m.tp,)
+                                  + wide.shape[3:])
+            full[:, :, m.tp_rank * h:(m.tp_rank + 1) * h] = wide
+            full = m.comm.all_reduce(full).movedim(1, 0).contiguous()
+            full = m.assemble(full, full.shape[0] * m.dp)
+            out[name] = full.movedim(0, 1).to(t.dtype)
+        return out
+
+    def assign_pages(self, table: np.ndarray) -> None:
+        """The global page table's rows of this block, with the global
+        page ids of the block's partition made local (any other id, and
+        the unallocated sentinel, the local sentinel)."""
+        t = np.asarray(table, np.int64)[self.lo:self.hi]
+        n = self.p_hi - self.p_lo
+        mine = (t >= self.p_lo) & (t < self.p_hi)
+        self.kv.assign_pages(np.where(mine, t - self.p_lo, n))
+
+
+def _model_from_gguf(group, path):
+    from ..models.loader import load_gguf_model
+
+    return load_gguf_model(path, device=group.device)
+
+
+def _model_from_preset(group, preset, quant, seed):
+    from ..tools.bench_params import make_device_params
+
+    return make_device_params(preset, quant, seed=seed, device=group.device)
+
+
+_LOADERS = {"gguf": _model_from_gguf, "preset": _model_from_preset}
+
+
+class RankGroup:
+    """The ranks of one process group, from the view of one rank. Rank 0
+    runs operations (run); the others apply them (follow). Objects are
+    kept by id on every rank that holds a part of them."""
+
+    def __init__(self, rank: int, world: int, backend: str,
+                 device: torch.device, followers: Followers | None = None):
+        self.rank, self.world, self.backend = rank, world, backend
+        self.device = device
+        self.followers = followers
+        # the device an operation's bytes travel on
+        self.wire = device if backend == "nccl" else torch.device("cpu")
+        self.objs: dict[int, object] = {}
+        self.meshes: dict[tuple, Mesh] = {}
+        self._ids = itertools.count(1)
+        self._drops: collections.deque = collections.deque()
+        self._lock = threading.Lock()
+        self.closed = False
+        # rank 0's thread count before the group took its share of cores
+        self.threads_before = 0
+
+    # -- the wire ----------------------------------------------------------
+
+    def _encode(self, obj, tensors: list):
+        if torch.is_tensor(obj):
+            tensors.append(obj)
+            return _T(len(tensors) - 1, obj.device.type == "cpu")
+        if isinstance(obj, _Remote):
+            return _Ref(obj.oid)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._encode(o, tensors) for o in obj)
+        if isinstance(obj, dict):
+            return {k: self._encode(v, tensors) for k, v in obj.items()}
+        return obj
+
+    def _decode(self, obj, tensors: list):
+        if isinstance(obj, _T):
+            t = tensors[obj.i]
+            return t.cpu() if obj.cpu else t.to(self.device)
+        if isinstance(obj, _Ref):
+            return self.objs.get(obj.oid)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._decode(o, tensors) for o in obj)
+        if isinstance(obj, dict):
+            return {k: self._decode(v, tensors) for k, v in obj.items()}
+        return obj
+
+    @staticmethod
+    def _aligned(n: int) -> int:
+        return -(-n // 8) * 8
+
+    def _send(self, msg, tensors: list) -> None:
+        metas, parts, off = [], [], 0
+        for t in tensors:
+            b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            metas.append((t.dtype, tuple(t.shape), off, b.numel()))
+            parts.append(b)
+            off = self._aligned(off + b.numel())
+        head = pickle.dumps((msg, metas))
+        start = self._aligned(len(head))
+        buf = torch.zeros(start + off, dtype=torch.uint8, device=self.wire)
+        buf[:len(head)] = torch.frombuffer(bytearray(head), dtype=torch.uint8)
+        for (_, _, o, n), b in zip(metas, parts):
+            buf[start + o:start + o + n] = b.to(self.wire)
+        size = torch.tensor([len(head), buf.numel()], dtype=torch.int64,
+                            device=self.wire)
+        dist.broadcast(size, 0)
+        dist.broadcast(buf, 0)
+
+    def _recv(self):
+        size = torch.zeros(2, dtype=torch.int64, device=self.wire)
+        dist.broadcast(size, 0)
+        n_head, n = (int(x) for x in size.tolist())
+        buf = torch.empty(n, dtype=torch.uint8, device=self.wire)
+        dist.broadcast(buf, 0)
+        msg, metas = pickle.loads(buf[:n_head].cpu().numpy().tobytes())
+        start = self._aligned(n_head)
+        tensors = [buf[start + o:start + o + nb].view(dtype).reshape(shape)
+                   .clone() for dtype, shape, o, nb in metas]
+        return self._decode(msg, tensors)
+
+    # -- operations ----------------------------------------------------------
+
+    def run(self, op: str, *args, **kw):
+        """Rank 0: broadcast an operation and apply it here too; returns
+        rank 0's result."""
+        with self._lock:
+            if self.closed:
+                raise RuntimeError("the rank group is closed")
+            drops = []
+            while self._drops:
+                drops.append(self._drops.popleft())
+            tensors: list = []
+            self._send(self._encode((op, args, kw, drops), tensors), tensors)
+            return self._apply(op, self._resolve(args), self._resolve(kw),
+                               drops)
+
+    def _resolve(self, obj):
+        """Rank 0's own arguments with each remote object made local."""
+        if isinstance(obj, _Remote):
+            return self.objs.get(obj.oid)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(self._resolve(o) for o in obj)
+        if isinstance(obj, dict):
+            return {k: self._resolve(v) for k, v in obj.items()}
+        return obj
+
+    def follow(self) -> None:
+        """Ranks 1..N-1: apply rank 0's operations until it stops."""
+        while True:
+            try:
+                op, args, kw, drops = self._recv()
+            except RuntimeError as e:  # rank 0's process is gone
+                log.error(f"rank {self.rank}: rank 0 left the group ({e})")
+                raise SystemExit(1) from None
+            if op == "stop":
+                return
+            try:
+                self._apply(op, args, kw, drops)
+            except Exception:  # noqa: BLE001 — rank 0 raised it too
+                log.exception(f"rank {self.rank}: operation {op} failed")
+
+    def _apply(self, op: str, args, kw, drops):
+        for oid in drops:
+            self.objs.pop(oid, None)
+        return getattr(self, "_op_" + op)(*args, **kw)
+
+    def mesh(self, tp: int, dp: int) -> Mesh:
+        key = (tp, dp)
+        if key not in self.meshes:
+            self.meshes[key] = Mesh(tp, dp, self.rank, self.world,
+                                    self.backend)
+        return self.meshes[key]
+
+    def _op_model(self, oid, source, tp, dp, *args):
+        mesh = self.mesh(tp, dp)
+        if not mesh.member:
+            return None
+        cfg, full = _LOADERS[source](self, *args)
+        local = shard_params_tp(full, mesh.tp_rank, tp)
+        del full
+        self.objs[oid] = ShardModel(mesh, local, cfg)
+        return self.objs[oid]
+
+    def _op_self_draft(self, oid, base: ShardModel, n_layers: int):
+        if base is None:
+            return None
+        from ..speculative.chain import self_draft_config, self_draft_model
+
+        import dataclasses
+
+        draft = self_draft_model(base.model, n_layers)
+        cfg = dataclasses.replace(base.cfg, llm=self_draft_config(
+            base.cfg.llm, n_layers))
+        self.objs[oid] = ShardModel(base.mesh, draft, cfg)
+        return self.objs[oid]
+
+    def _op_draft_head(self, oid, base: ShardModel, rank: int):
+        """base with a factored head (replicated), factored from the
+        whole lm_head on every rank."""
+        if base is None:
+            return None
+        from ..speculative.chain import with_draft_head
+        from ..speculative.draft_head import make_draft_head
+
+        head = base.model.lm_head
+        if head.out_features != base.cfg.llm.vocab_size:
+            head = _gather_cols(head, base.mesh.comm)
+        model = with_draft_head(base.model, make_draft_head(head, rank=rank))
+        self.objs[oid] = ShardModel(base.mesh, model, base.cfg)
+        return self.objs[oid]
+
+    def _op_cache(self, oid, tp, dp, n_layers, n_slots, max_seq, n_kv_heads,
+                  head_dim, n_pages=0, page_size=64):
+        mesh = self.mesh(tp, dp)
+        if not mesh.member:
+            return None
+        lo, hi = mesh.block(n_slots)
+        args = (n_layers, hi - lo, max_seq, n_kv_heads // tp, head_dim,
+                self.device)
+        if n_pages:
+            kv = PagedKVCache.create(*args, n_pages=n_pages // dp,
+                                     page_size=page_size)
+        else:
+            kv = KVCache.create(*args)
+        self.objs[oid] = ShardCache(mesh, kv, n_slots, n_pages)
+        return self.objs[oid]
+
+    def _op_call(self, oid, method: str, args, kw, keep=None):
+        obj = self.objs.get(oid)
+        if obj is None:  # a rank outside the object's mesh
+            return None
+        out = getattr(obj, method)(*args, **kw)
+        if keep is not None:
+            self.objs[keep] = out
+        return out
+
+    def _op_counts(self, reset: bool):
+        """Every rank's kernel launch counts, [world, names], on every rank
+        (then zeroed with reset)."""
+        names = sorted(cuda_lib.LAUNCHES)
+        t = torch.zeros(self.world, len(names), dtype=torch.int64,
+                        device=self.wire)
+        t[self.rank] = torch.tensor([cuda_lib.LAUNCHES[k] for k in names])
+        dist.all_reduce(t)
+        if reset:
+            cuda_lib.reset_launch_counts()
+        return [dict(zip(names, row)) for row in t.tolist()]
+
+    # -- rank 0's front ----------------------------------------------------
+
+    def _new_id(self) -> int:
+        return next(self._ids)
+
+    def _drop(self, oid: int) -> None:
+        self._drops.append(oid)
+
+    def load(self, path, tp: int, dp: int = 1
+             ) -> tuple[ModelConfig, "TPModel"]:
+        """A GGUF model dir, sharded over a (tp, dp) mesh: (the global
+        config, rank 0's TPModel)."""
+        return self._model("gguf", tp, dp, str(path))
+
+    def preset(self, preset: str, quant: str, seed: int, tp: int,
+               dp: int = 1) -> tuple[ModelConfig, "TPModel"]:
+        """Random weights (tools/bench_params.py, the same seed on every
+        rank), sharded over a (tp, dp) mesh."""
+        return self._model("preset", tp, dp, preset, quant, seed)
+
+    def _model(self, source, tp, dp, *args):
+        oid = self._new_id()
+        shard = self.run("model", oid, source, tp, dp, *args)
+        return shard.cfg, TPModel(self, oid, shard)
+
+    def self_draft(self, model: "TPModel", n_layers: int) -> "TPModel":
+        oid = self._new_id()
+        return TPModel(self, oid, self.run("self_draft", oid, model,
+                                           n_layers))
+
+    def with_draft_head(self, model: "TPModel", rank: int) -> "TPModel":
+        oid = self._new_id()
+        return TPModel(self, oid, self.run("draft_head", oid, model, rank))
+
+    def launch_counts(self, reset: bool = False) -> list[dict]:
+        """Each rank's kernel launch counts (ops/cuda_lib.py)."""
+        return self.run("counts", reset)
+
+    def close(self) -> None:
+        """Stop the followers and leave the process group (rank 0)."""
+        if self.closed:
+            return
+        if self.followers is not None:
+            self.followers.closing = True
+        self.run("stop")
+        self.closed = True
+        if self.followers is not None:
+            self.followers.close()
+        dist.destroy_process_group()
+        if self.threads_before:
+            torch.set_num_threads(self.threads_before)
+
+    def _op_stop(self):
+        return None
+
+
+class _T(NamedTuple):
+    """An operation's tensor: its index in the buffer, and whether it
+    lives on the cpu (else on the receiving rank's device)."""
+
+    i: int
+    cpu: bool
+
+
+class _Ref(NamedTuple):
+    """An operation's reference to an object every rank keeps by id."""
+
+    oid: int
+
+
+class _Remote:
+    """Rank 0's handle on an object every rank of its mesh keeps."""
+
+    def __init__(self, group: RankGroup, oid: int):
+        self.group, self.oid = group, oid
+
+    def _call(self, method: str, *args, keep=None, **kw):
+        return self.group.run("call", self.oid, method, args, kw, keep=keep)
+
+
+class _Snapshot(_Remote):
+    """A prefix-cache snapshot every rank keeps (each its own heads); the
+    ranks drop theirs when this handle goes."""
+
+    def __init__(self, group: RankGroup, oid: int):
+        super().__init__(group, oid)
+        weakref.finalize(self, group._drop, oid)
+
+
+class TPModel(_Remote):
+    """Rank 0's model over a rank group: LlamaModel's call, broadcast and
+    run by every rank on its shards; `llm` is the global config."""
+
+    def __init__(self, group: RankGroup, oid: int, shard: ShardModel):
+        super().__init__(group, oid)
+        self.shard = shard
+        self.mesh = shard.mesh
+        self.llm = shard.cfg.llm
+
+    def to(self, device) -> "TPModel":
+        return self
+
+    def __call__(self, kv: "TPCache", tokens: torch.Tensor,
+                 positions: torch.Tensor, **kw):
+        if kw.get("return_final_hidden"):
+            raise ValueError("EAGLE under tensor parallelism is not ported "
+                             "(ROADMAP §1 item 8)")
+        return self._call("forward", kv, tokens, positions, **kw)
+
+    def create_cache(self, n_layers: int, n_slots: int, max_seq: int,
+                     n_kv_heads: int, head_dim: int, *, n_pages: int = 0,
+                     page_size: int = 64) -> "TPCache":
+        """KVCache.create / PagedKVCache.create (n_pages > 0) over this
+        model's mesh: each rank its kv heads of its block's slots."""
+        m = self.mesh
+        for what, n, by in (("kv heads", n_kv_heads, m.tp),
+                            ("slots", n_slots, m.dp),
+                            ("pages", n_pages, m.dp)):
+            if n % by:
+                raise ValueError(f"{n} {what} do not split over {by} ranks")
+        oid = self.group._new_id()
+        shard = self.group.run("cache", oid, self.mesh.tp, self.mesh.dp,
+                               n_layers, n_slots, max_seq, n_kv_heads,
+                               head_dim, n_pages=n_pages,
+                               page_size=page_size)
+        cls = TPPagedCache if n_pages else TPCache
+        return cls(self.group, oid, shard, n_slots, n_pages)
+
+
+class TPCache(_Remote, KVCache):
+    """Rank 0's cache over a rank group: the cache's interface, each
+    operation broadcast and applied by every rank to its shard. pos and
+    mask are the whole batch's (under dp put together from the
+    blocks)."""
+
+    def __init__(self, group: RankGroup, oid: int, shard: ShardCache,
+                 n_slots: int, n_pages: int = 0):
+        _Remote.__init__(self, group, oid)
+        self.shard = shard
+        self._n_slots = n_slots
+        self._n_pages = n_pages
+
+    @property
+    def pos(self) -> torch.Tensor:
+        if self.shard.mesh.dp == 1:
+            return self.shard.kv.pos
+        return self._call("pos")
+
+    @property
+    def mask(self) -> torch.Tensor:
+        if self.shard.mesh.dp == 1:
+            return self.shard.kv.mask
+        return self._call("mask")
+
+    @property
+    def n_layers(self) -> int:
+        return self.shard.kv.n_layers
+
+    @property
+    def n_slots(self) -> int:
+        return self._n_slots
+
+    @property
+    def max_seq(self) -> int:
+        return self.shard.kv.max_seq
+
+    @property
+    def device(self) -> torch.device:
+        return self.shard.kv.device
+
+    def reset_slot(self, slot: int) -> None:
+        self._call("reset_slot", slot)
+
+    def rollback(self, n, active=None) -> None:
+        self._call("rollback", n, active)
+
+    def commit_tokens(self, slot_indices, src_positions, n_accept) -> None:
+        self._call("commit_tokens", None, src_positions, n_accept)
+
+    def save_slot_prefix(self, slot: int, n: int) -> dict:
+        """A handle on every rank's snapshot of its heads, in place of the
+        tensors; restore_slot_prefix takes it back."""
+        handle = _Snapshot(self.group, self.group._new_id())
+        self._call("save_slot_prefix", slot, n, keep=handle.oid)
+        return {"n": n, "handle": handle}
+
+    def restore_slot_prefix(self, slot: int, saved: dict) -> None:
+        self._call("restore_slot_prefix", slot, saved)
+
+    def gathered(self) -> dict:
+        """ShardCache.gathered: the whole cache from every rank's part."""
+        return self._call("gathered")
+
+
+class TPPagedCache(TPCache, PagedKVCache):
+    """TPCache over the paged pool."""
+
+    @property
+    def n_pages(self) -> int:
+        return self._n_pages
+
+    @property
+    def max_pages(self) -> int:
+        return self.shard.kv.max_pages
+
+    @property
+    def page_size(self) -> int:
+        return self.shard.kv.page_size
+
+    @property
+    def max_seq(self) -> int:
+        return self.shard.kv.max_seq
+
+    def assign_pages(self, table: np.ndarray) -> None:
+        self._call("assign_pages", np.asarray(table, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# starting a rank group, the follower loop, and the sharded entry points
+# ---------------------------------------------------------------------------
+
+
+def start_rank_group(world: int, backend: str,
+                     device: str | torch.device = "cuda",
+                     threads: int | None = None) -> RankGroup:
+    """Rank 0 of `world` ranks: start ranks 1..world-1 and join them.
+    On cuda the kernel library is built first (the followers load it).
+    On the cpu the ranks share the cores: each rank, this one too, takes
+    `threads` (default this process's threads over the ranks)."""
+    dev = torch.device(device)
+    check_backend(backend, world, dev)
+    dev = rank_device(0, dev.type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        cuda_lib.build()
+    before = torch.get_num_threads()
+    if dev.type == "cpu":
+        threads = threads or max(before // world, 1)
+        torch.set_num_threads(threads)
+    followers = Followers(world, backend, dev.type, threads or before)
+    try:
+        init_distributed(0, world, followers.addr, backend)
+    except BaseException:
+        followers.closing = True
+        followers.kill()
+        torch.set_num_threads(before)
+        raise
+    group = RankGroup(0, world, backend, dev, followers)
+    group.threads_before = before
+    return group
+
+
+def follower_main(rank: int, world: int, addr: str, backend: str,
+                  device_type: str, threads: int, parent_pid: int) -> None:
+    """A follower's process: join the group, apply rank 0's operations
+    until it stops."""
+    torch.set_num_threads(threads)
+    watch_parent(parent_pid)
+    dev = rank_device(rank, device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_distributed(rank, world, addr, backend)
+    try:
+        with torch.no_grad():
+            RankGroup(rank, world, backend, dev).follow()
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_forward(model: TPModel, kv: TPCache, tokens: torch.Tensor,
+               positions: torch.Tensor, **kw):
+    """The sharded forward (the JAX tp_forward): LlamaModel.forward's
+    arguments and outputs, run by every rank on its shards."""
+    return model(kv, tokens, positions, **kw)
+
+
+def tp_prefill(model: TPModel, tokens: torch.Tensor,
+               positions: torch.Tensor, kv: TPCache) -> torch.Tensor:
+    """One sharded prefill chunk: the last position's logits [S, vocab]."""
+    return model(kv, tokens, positions, logits_mode="last")
+
+
+@torch.no_grad()
+def tp_decode_scan(model: TPModel, tokens: torch.Tensor, kv: TPCache,
+                   n_steps: int) -> torch.Tensor:
+    """Greedy-decode n_steps tokens for every slot over the rank group
+    (engine/loops.py decode_scan; eager: its steps hold collectives).
+    Returns [S, n_steps] int32."""
+    out, tok = [], tokens
+    for _ in range(n_steps):
+        pos = kv.pos.to(torch.int64)[:, None]
+        tok = model(kv, tok[:, None], pos, logits_mode="argmax")
+        out.append(tok)
+    return torch.stack(out, dim=1)

@@ -44,9 +44,12 @@ class LocalServer:
 
     def __init__(self, model_root, model: str = "",
                  hp: HyperParams | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 tp: int = 1, dp: int = 1, dist_backend: str | None = None):
+        """tp, dp, dist_backend: serve over tp * dp ranks (ServerContext)."""
         self.ctx = ServerContext(model_root, model, hp or HyperParams(),
-                                 device)
+                                 device, tp=tp, dp=dp,
+                                 dist_backend=dist_backend)
         self.default_model = model
 
     def _stream(self, mctx: ModelContext, prompt_ids: list[int],

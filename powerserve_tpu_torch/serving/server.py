@@ -41,12 +41,22 @@ text requests (Request.embeds). "vlm+self:N" and "vlm+<draft dir>" speculate wit
 same rows in both models; an EAGLE head on a VLM gets a 400. A model
 without a vision tower ignores image parts, as the JAX server does.
 
-Not ported yet, and answered with a 400: sessions.
+--tp N --dp M serves every model over N * M ranks (parallel/tp.py):
+this process is rank 0 and runs the HTTP server and the schedulers; it
+starts the N * M - 1 follower ranks itself, each applying rank 0's
+forwards and cache operations to its shards (kv heads over tp, slots
+and pages over dp). --dist-backend names the collectives' backend:
+nccl (the default on cuda, one card a rank) or gloo (the default on the
+cpu; on cuda it lets ranks share a card). A follower that dies ends the
+server with an error. Under --tp, VLM dirs and EAGLE heads get a 400.
+
+Not ported yet, and answered with a 400: sessions. --pp, --sp, --gspmd
+and --distributed exit with an error naming ROADMAP §1 item 8.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
         [--spec-wor]] [--spec-horizon H] [--draft-head-rank R]
-        [--device cuda|cpu]
+        [--tp N [--dp M] [--dist-backend nccl|gloo]] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import base64
 import binascii
 import json
 import queue
+import signal
 import threading
 import time
 import uuid
@@ -74,6 +85,8 @@ from ..models.internvl import InternVLModel, internvl_from_workspace
 from ..models.llama import LlamaModel
 from ..models.loader import (gguf_architecture, load_eagle_gguf,
                              load_gguf_model)
+from ..parallel.distributed import default_backend
+from ..parallel.tp import start_rank_group
 from ..speculative.chain import self_draft_model, with_draft_head
 from ..speculative.draft_head import make_draft_head
 from ..speculative.eagle import with_lm_head_lr
@@ -176,11 +189,14 @@ class ModelContext:
 class ServerContext:
     """Model registry: names resolve to model dirs under `model_root`,
     loaded at first use onto `device` (default cuda), each with its own
-    scheduler thread."""
+    scheduler thread. With tp * dp > 1 every model is sharded over that
+    many ranks (parallel/tp.py), which the constructor starts over
+    `dist_backend` (default: nccl on cuda, gloo on the cpu)."""
 
     def __init__(self, model_root: str | Path, default_model: str = "",
                  hp: HyperParams | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 tp: int = 1, dp: int = 1, dist_backend: str | None = None):
         self.root = Path(model_root)
         self.default_model = default_model
         self.hp = hp or HyperParams()
@@ -188,6 +204,21 @@ class ServerContext:
         self.models: dict[str, ModelContext] = {}
         self._lock = threading.Lock()
         self.image_workers: ImageWorkers | None = None
+        self.tp, self.dp = int(tp), int(dp)
+        self.ranks = None
+        if self.tp * self.dp > 1:
+            backend = dist_backend or default_backend(self.device)
+            log.info(f"{self.tp * self.dp} ranks (tp={self.tp}, "
+                     f"dp={self.dp}) over {backend} on {self.device.type}")
+            self.ranks = start_rank_group(self.tp * self.dp, backend,
+                                          self.device)
+            self.device = self.ranks.device
+
+    def _load(self, d: Path) -> tuple[ModelConfig, LlamaModel]:
+        """A model dir on this context's device, or over its ranks."""
+        if self.ranks is not None:
+            return self.ranks.load(d, self.tp, self.dp)
+        return load_gguf_model(d, device=self.device)
 
     def resolve_dir(self, name: str) -> Path:
         p = self.root / name
@@ -215,6 +246,9 @@ class ServerContext:
                  vlm: InternVLModel | None = None) -> ModelContext:
         """Serve an already built model under `name` (with vlm, the
         vision-language model whose language half `model` is)."""
+        if self.ranks is not None:
+            raise ValueError("a context over a rank group serves the models "
+                             "it loads itself")
         sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
         ctx = ModelContext(name, sched, tokenizer, vlm=vlm)
@@ -236,6 +270,10 @@ class ServerContext:
             return self._speculative(name)
         d = self.resolve_dir(name)
         vlm = None
+        if self._is_vlm_dir(d) and self.ranks is not None:
+            raise HTTPError(400, f"model '{name}': vision-language models "
+                                 f"under --tp are not ported (ROADMAP §1 "
+                                 f"item 8)")
         if self._is_vlm_dir(d):
             try:
                 vlm = internvl_from_workspace(d, self.device)
@@ -244,7 +282,7 @@ class ServerContext:
             cfg, model = vlm.cfg, vlm.llm
             self._start_image_workers()
         else:
-            cfg, model = load_gguf_model(d, device=self.device)
+            cfg, model = self._load(d)
         sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
         ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d), vlm=vlm)
@@ -266,6 +304,9 @@ class ServerContext:
                 raise HTTPError(400, f"model '{name}': VLM speculation takes "
                                      f"the batched chain or tree scheduler "
                                      f"only (no EAGLE head)")
+            if self.ranks is not None:
+                raise HTTPError(400, f"model '{name}': EAGLE under --tp is "
+                                     f"not ported (ROADMAP §1 item 8)")
             # the head shares main's embedding and lm_head
             _, head = load_eagle_gguf(draft_dir, model, cfg.llm,
                                       device=self.device)
@@ -275,11 +316,13 @@ class ServerContext:
             return self._start(name, base, eagle_head=head)
         if draft_dir is None:
             try:
-                draft = self_draft_model(model, int(draft_name[5:]))
+                n = int(draft_name[5:])
+                draft = (self_draft_model(model, n) if self.ranks is None
+                         else self.ranks.self_draft(model, n))
             except ValueError as e:
                 raise HTTPError(400, f"model '{name}': {e}") from e
         else:
-            d_cfg, draft = load_gguf_model(draft_dir, device=self.device)
+            d_cfg, draft = self._load(draft_dir)
             # acceptance compares token ids: another vocab would accept
             # nonsense
             if d_cfg.llm.vocab_size != cfg.llm.vocab_size:
@@ -292,7 +335,9 @@ class ServerContext:
                                      f"its input rows: draft dim "
                                      f"{d_cfg.llm.dim} != target dim "
                                      f"{cfg.llm.dim}")
-        if rank:
+        if rank and self.ranks is not None:
+            draft = self.ranks.with_draft_head(draft, rank)
+        elif rank:
             draft = with_draft_head(draft, make_draft_head(draft.lm_head,
                                                            rank=rank))
         return self._start(name, base, draft=draft)
@@ -359,6 +404,9 @@ class ServerContext:
             if self.image_workers is not None:
                 self.image_workers.close()
                 self.image_workers = None
+            if self.ranks is not None:
+                self.ranks.close()
+                self.ranks = None
 
 
 def _now_id(prefix: str) -> str:
@@ -788,9 +836,30 @@ def main(argv: list[str] | None = None) -> int:
                     help="tree speculation verifies children sampled "
                          "without replacement (recursive rejection) "
                          "instead of exact-match on greedy top-k")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks: each model's heads, FFN "
+                         "columns and vocab split over tp ranks "
+                         "(parallel/tp.py)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel blocks of tp ranks: the slots (and "
+                         "the paged pool's pages) split over dp")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the ranks' collectives: nccl (default on cuda, one "
+                         "card a rank) or gloo (default on cpu; on cuda "
+                         "ranks may share a card)")
+    for flag in ("--pp", "--sp"):
+        ap.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
+    for flag in ("--gspmd", "--distributed"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
     args = ap.parse_args(argv)
+    for flag, val in (("--pp", args.pp > 1), ("--sp", args.sp > 1),
+                      ("--gspmd", args.gspmd),
+                      ("--distributed", args.distributed)):
+        if val:
+            ap.error(f"{flag} is not ported: ROADMAP §1 item 8 "
+                     f"(parallelism) queues it")
 
     root = Path(args.model_root)
     if (root / "workspace.json").exists():
@@ -811,9 +880,13 @@ def main(argv: list[str] | None = None) -> int:
         hp.draft_head_rank = args.draft_head_rank
     hp.spec_tree = args.spec_tree or hp.spec_tree
     hp.spec_wor = args.spec_wor or hp.spec_wor
-    ctx = ServerContext(root_dir, default, hp, args.device)
+    ctx = ServerContext(root_dir, default, hp, args.device, tp=args.tp,
+                        dp=args.dp, dist_backend=args.dist_backend)
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")
+    # SIGTERM ends the server as ^C does: the schedulers stop, and a rank
+    # group's followers are told to stop before this process exits
+    signal.signal(signal.SIGTERM, signal.default_int_handler)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -1735,3 +1735,133 @@ def test_vlm_prefill_reads_nothing_back(dev, tmp_path):
         top2 = m.prefill_multimodal(kv, full + tokens[0][:i],
                                     eng.pixel_values([img]))[0].topk(2)
         assert float(top2.values[0] - top2.values[1]) < 0.5
+
+
+# -- tensor parallelism: the kernels at llama-8b's tp = 2 local shapes ------
+# (each rank: 16/4 heads, FFN 7168, vocab 64128), and a rank group of two
+# over gloo on the one card
+
+
+@pytest.mark.parametrize("k,n", [(4096, 3072), (2048, 4096), (4096, 14336),
+                                 (7168, 4096)])
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_qmatmul_tp2_local_shapes(dev, k, n, m):
+    """The GEMV and the prefill GEMM on each rank's projections; down's
+    local K = 7168 packs in groups of 1792, which only tp = 2 gives."""
+    from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + m)
+    lin = _rand_qlinear(g, k, n, "q4_k", dev)
+    assert lin.pack_group == (1792 if k == 7168 else 2048)
+    x = torch.randn(m, k, generator=g, device=dev)
+    a = qmatmul_cuda(x, lin)
+    assert torch.equal(a, qmatmul_cuda(x, lin))
+    _close(a, qmatmul_reference(x, lin))
+
+
+@pytest.mark.parametrize("m", [1, 4])
+def test_fused_head_tp2_local_vocab(dev, m):
+    """The head over half of llama-8b's vocab (64128 columns), its logits
+    and its argmax (the first maximum of the logits)."""
+    from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(m)
+    head = _rand_qlinear(g, 4096, 64128, "q4_k", dev)
+    nw = torch.rand(4096, generator=g, device=dev) + 0.5
+    h = (torch.randn(m, 4096, generator=g, device=dev) * 3).to(torch.bfloat16)
+    logits = fused_linear_cuda(head, "norm", [h], nw)
+    _close(logits, fused_linear_reference(head, norm=(h, nw)),
+           slack=norm_rounding_slack(head, h, nw).cpu())
+    tok = fused_linear_cuda(head, "norm", [h], nw, argmax=True)
+    assert torch.equal(tok, logits.argmax(-1).to(torch.int32))
+
+
+@pytest.mark.parametrize("S,Tq,T", [(1, 1, 1024), (8, 1, 700), (1, 512, 2048)])
+def test_flash_attention_tp2_heads(dev, S, Tq, T):
+    """Flash-decode (Tq = 1) and flash-prefill (512 rows from 0) at one
+    rank's 16/4 heads."""
+    H, Hkv, D = 16, 4, 128
+    g = torch.Generator(device=dev)
+    g.manual_seed(S + Tq)
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, vq = (torch.randint(-127, 128, (S, Hkv, T, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(S, Hkv, T, generator=g, device=dev) * 0.02
+              for _ in range(2))
+    scale = D ** -0.5
+    if Tq == 1:
+        mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+        mask[:, :T - 1] = True
+        pos = torch.full((S, 1), T - 1, dtype=torch.int32, device=dev)
+        args = (q, kq, ks, vq, vs, mask, pos, scale)
+        got = flash_decode_cuda(*args)
+        ref = flash_decode_quant_reference(*args)
+    else:
+        mask = torch.zeros(S, T, dtype=torch.bool, device=dev)
+        start = torch.zeros(S, dtype=torch.int32, device=dev)
+        args = (q, kq, ks, vq, vs, mask, start, scale)
+        got = flash_prefill_cuda(*args)
+        ref = flash_prefill_quant_reference(*args)
+    # the flash-decode tests' rule: 1e-4 of the range, and rare bf16
+    # flips of p * vs (at most 2^-8 * 127 * max vs)
+    err = (got.float() - ref.float()).abs()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    assert (err > tol).float().mean() <= 1e-2
+    assert (err <= tol + 2.0 ** -8 * 127 * vs.max().item()).all()
+
+
+def test_tp_forward_over_two_ranks_on_the_card(dev, tmp_path):
+    """tiny-k Q4_K over two ranks (gloo, both on this card): a prefill and
+    a decode step within 1e-2 of the range of the single device's
+    logits (partial sums added in another order, bf16 roundings then
+    carried), greedy tokens the single device's (near-tie rule), and
+    every rank launched the kernels."""
+    from powerserve_tpu_torch.engine.loops import decode_scan_eager
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.loader import load_gguf_model
+    from powerserve_tpu_torch.parallel.tp import (start_rank_group,
+                                                  tp_decode_scan, tp_prefill)
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    ws = make_synthetic_gguf(tmp_path, "tiny-k", GGMLType.Q4_K, seed=0,
+                             seq_len=128) / "model"
+    cfg, model = load_gguf_model(ws, device=dev)
+    llm = cfg.llm
+    group = start_rank_group(2, "gloo", dev)
+    try:
+        _, tm = group.load(ws, 2)
+        kv1 = KVCache.create(llm.n_layers, 2, 128, llm.n_kv_heads,
+                             llm.head_size, dev)
+        kv2 = tm.create_cache(llm.n_layers, 2, 128, llm.n_kv_heads,
+                              llm.head_size)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(0)
+        toks = torch.randint(0, llm.vocab_size, (2, 40), generator=g).to(dev)
+        pos = torch.arange(40, device=dev)[None].expand(2, -1)
+        group.launch_counts(reset=True)
+        got = tp_prefill(tm, toks, pos, kv2)
+        want = model(kv1, toks, pos, logits_mode="last")
+        assert (got - want).abs().max() <= 1e-2 * (want.max() - want.min())
+        first = want.argmax(-1)
+        a = tp_decode_scan(tm, first, kv2, 8)
+        b = decode_scan_eager(model, first, kv1, 8)
+        counts = group.launch_counts()
+        for c in counts:
+            for k in ("qmatmul", "fused_head", "flash_prefill",
+                      "flash_decode"):
+                assert c[k] > 0, (k, counts)
+        for s in range(2):  # a parting only at the single's near tie
+            i = next((j for j in range(8) if a[s, j] != b[s, j]), None)
+            if i is None:
+                continue
+            seq = toks[s].tolist() + [int(first[s])] + b[s, :i].tolist()
+            kv = KVCache.create(llm.n_layers, 1, 128, llm.n_kv_heads,
+                                llm.head_size, dev)
+            top2 = model(kv, torch.tensor([seq], device=dev),
+                         torch.arange(len(seq), device=dev)[None],
+                         logits_mode="last")[0].topk(2).values
+            assert float(top2[0] - top2[1]) < 0.5
+    finally:
+        group.close()
