@@ -56,7 +56,10 @@ Phases, each printing one JSON line:
              tokens must agree (a divergence only where the cpu top-2
              logit gap is < 0.5) and every kernel's launch count must
              rise; the logits of the prompt and of each generated token
-             fed back one at a time must agree between cuda and cpu
+             fed back one at a time must agree between cuda and cpu; on
+             tiny, `run --save-kv` then `run --load-kv` with another
+             prompt, whose tokens must be generate's over the saved
+             stream and that prompt fed whole (near-tie rule)
   serve      the HTTP server on the same three workspaces, on cuda and cpu,
              with the dense cache and with a paged pool that preempts:
              four concurrent greedy completions and a streamed and a
@@ -93,6 +96,28 @@ Phases, each printing one JSON line:
              same traffic again with every step eager (the twin), each
              request's tokens the replayed run's (near-tie rule), and
              its tok/s and TTFT
+  session_full_width  an HTTP session on llama-8b behind the server: 8
+             slots, max_seq 2048, a paged pool of 256 pages of 64; a
+             1,536-token preamble pinned as a session, then 8 concurrent
+             greedy requests with it and 64-256 tokens of their own (32
+             new each): on the pinned snapshot, with the prefix cache
+             cleared (a whole re-prefill) and from the session's file
+             after DELETE and load_path; every reply the hit's (near-tie
+             rule), fewer flash-prefill launches on a hit, TTFT p50/p90
+             of each run, the file's bytes, its save and load seconds;
+             serve_full_width's traffic alone and beside session loads
+             run back to back, the server's (the file inflated in a child
+             process) and load_session in the handler thread, in turns
+             (generated tok/s and TTFT of each); the session on
+             "model+self:4" (its draft prefix pinned too), every reply
+             the plain name's
+  evict      ServerContext(max_models=2) over three model dirs at
+             llama-1b's widths (2 layers, Q8_0, one GGUF written and
+             linked into each): a, b, c, a served in turn, one request
+             each; every eviction must give back what its context took
+             (weights, pool, buffers, snapshots) within 5% of the
+             allocated bytes and leave no segment of its graphs' pool;
+             allocated and reserved bytes before and after each
   spec_full_width  chain speculation on llama-8b: ChainSpecEngine with a
              4-layer self-draft (the fused layer chain), with a llama-1b
              draft and with a rank-512 factored draft head, k = 4, 512 +
@@ -1133,6 +1158,9 @@ def phase_cli() -> dict:
                                   logit_gap_max=max(gaps),
                                   logit_gap_steps=len(gaps),
                                   launches=counts)
+            if preset == "tiny":
+                result[preset]["kv_file"] = cli_kv_file(run, ws, argv, tmp,
+                                                        eng_gpu)
             if preset == "tiny-moe":
                 continue
             # speculation: chains with a 1-layer self-draft and with a
@@ -1182,6 +1210,44 @@ def phase_cli() -> dict:
                             plain.ids, eng, plain.prompt_ids))
             result[preset]["spec"] = spec
     return result
+
+
+def cli_kv_file(run, ws, argv: list[str], tmp: str, engine) -> dict:
+    """`run --save-kv` on cuda, then `run --load-kv` of that file with
+    another prompt: the second run's tokens are generate's over the saved
+    stream (the first prompt and its tokens fed back) and the second
+    prompt fed whole (near-tie rule), and both runs launch the kernels."""
+    from powerserve_tpu_torch.ops import cuda_lib
+
+    path = f"{tmp}/prefix.npz"
+    cuda_lib.reset_launch_counts()
+    first = run.run_prompt(run.parse_args(
+        argv + ["--device", "cuda", "--save-kv", path]))
+    second = run.run_prompt(run.parse_args(
+        ["-d", str(ws), "-p", "jumps over", "-n", "16", "--temperature", "0",
+         "--no-progress", "--device", "cuda", "--load-kv", path]))
+    counts = cuda_lib.launch_counts()
+    missing = [k for k in ("qmatmul", "fused_head", "flash_decode",
+                           "flash_prefill") if not counts[k]]
+    if missing:
+        raise AssertionError(f"run --save-kv/--load-kv did not launch "
+                             f"{missing}")
+    import numpy as np
+
+    n = int(np.load(path)["n"])
+    stream = first.prompt_ids + first.ids[:-1]
+    if n != len(stream):
+        raise AssertionError(f"--save-kv wrote {n} tokens, not "
+                             f"{len(stream)}")
+    from powerserve_tpu_torch.tokenizer import Tokenizer
+
+    stop = Tokenizer.from_model_dir(ws / "model").should_stop
+    engine.reset()
+    whole = stream + second.prompt_ids
+    want = list(engine.generate(whole, 16, stop_fn=stop))
+    return dict(prefix_tokens=n, tokens=second.ids, tokens_whole=want,
+                near_tie=agree("run --load-kv vs the stream fed whole",
+                               second.ids, want, engine, whole))
 
 
 class Counted:
@@ -2328,6 +2394,314 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
         "latency_p50_s": tm["request_latency_seconds_p50"],
         "vs_replayed_near_ties": [g for g in twin_gaps if g is not None]}
     return out, run["launches"]
+
+
+def phase_session_full_width(dev: torch.device, cfg, model) -> dict:
+    """An HTTP session on a full-width model (random weights) behind the
+    server: 8 slots, max_seq 2048, a paged pool of 256 pages of 64 (no
+    preemption at these lengths). A 1,536-token preamble becomes session
+    "agent"; then 8 concurrent greedy requests, each the session and
+    64-256 tokens of its own (from seed 1), 32 new tokens each: with the
+    pinned snapshot (a hit), with the prefix cache cleared (a whole
+    re-prefill), and from the session's file after DELETE and load_path.
+    Every reply is the hit run's (near-tie rule), the hit run launches
+    fewer prefill kernels; TTFT of each run, the file's bytes, its save
+    and load seconds. serve_full_width's traffic is served with and
+    without session loads running back to back beside it. The same
+    session on "model+self:4" (its draft cache's prefix pinned too)
+    gives the plain name's replies."""
+    import os
+    import random
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.serving.server import ServerContext
+
+    tok = synthetic_tokenizer(cfg.llm.vocab_size)
+    rng = random.Random(1)
+    letters = "abcdefghijklmnopqrsuvwxyz"
+
+    def text(n):  # n tokens: the BOS, the space prefix's 3 bytes, letters
+        return "".join(rng.choice(letters) for _ in range(n - 4))
+
+    preamble = text(1536)
+    texts = [text(rng.randrange(64, 257)) for _ in range(8)]
+    rng2 = random.Random(0)  # serve_full_width's traffic
+    serve_texts = ["".join(rng2.choice(letters) for _ in range(n - 4))
+                   for n in (128, 256, 384, 512, 640, 768, 896, 1024)]
+    n_new = 32
+    hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
+                     paged_pages=256, page_size=64)
+    out = {"phase": "session_full_width", "slots": 8, "pool_pages": 256,
+           "page": 64, "session_tokens": 1536, "new_tokens": n_new}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = ServerContext(tmp, "model", hp, dev)
+        ctx.register("model", model, cfg, tok)
+        server = serving(ctx)
+        port = server.server_address[1]
+
+        def post(path, body):
+            status, data = http_call(port, "POST", path, body)
+            if status != 200:
+                raise AssertionError(f"{path}: {status} {data[:200]}")
+            return json.loads(data)
+
+        def timed_post(path, body):
+            t0 = time.perf_counter()
+            post(path, body)
+            return time.perf_counter() - t0
+
+        def traffic(label, prompts, name="model", session="agent",
+                    max_tokens=n_new):
+            sched = ctx.get(name).scheduler
+            sched._ttft.clear()
+            hits = sched.prefix_cache.hits
+            body = {"model": name, "max_tokens": max_tokens,
+                    "temperature": 0}
+            if session:
+                body["session"] = session
+            calls = [lambda t=t: http_call(port, "POST", "/v1/completions",
+                                           {**body, "prompt": t})
+                     for t in prompts]
+            with ServeRecorder() as rec:
+                cuda_lib.reset_launch_counts()
+                t0 = time.perf_counter()
+                replies = concurrently(calls)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = cuda_lib.launch_counts()
+            rec.check(label)
+            for status, data in replies:
+                if (status != 200 or json.loads(data)["choices"][0][
+                        "finish_reason"] != "length"):
+                    raise AssertionError(f"{label}: {status} {data[:200]}")
+            m = sched.metrics()
+            return dict(tokens=rec.tokens(), wall_s=wall,
+                        generated_tok_s=len(prompts) * max_tokens / wall,
+                        ttft_p50_s=m["ttft_seconds_p50"],
+                        ttft_p90_s=m["ttft_seconds_p90"],
+                        prefix_hits=sched.prefix_cache.hits - hits,
+                        launches={k: launches[k] for k in (
+                            "flash_prefill", "qmatmul", "flash_decode_paged",
+                            "flash_decode_paged_state")})
+
+        try:
+            sched = ctx.get("model").scheduler
+            path = f"{tmp}/agent.npz"
+            out["create_s"] = timed_post("/v1/sessions", {
+                "model": "model", "prompt": preamble, "id": "agent"})
+            ids = ctx.sessions["agent"]["ids"]
+            if len(ids) != 1536:
+                raise AssertionError(f"the preamble is {len(ids)} tokens")
+            entry = sched.prefix_cache.entries[tuple(ids)]
+            out["snapshot_mb"] = sum(t.numel() * t.element_size()
+                                     for t in entry.values()
+                                     if torch.is_tensor(t)) / 1e6
+            # the same session again with save_path: its prefix is a whole
+            # hit, so the call is one decode tick and the save
+            out["save_s"] = timed_post("/v1/sessions", {
+                "model": "model", "prompt": preamble, "id": "agent",
+                "save_path": path})
+            out["file_bytes"] = os.path.getsize(path)
+            runs = {"hit": traffic("session hit", texts)}
+            sched.clear_prefixes()
+            runs["cleared"] = traffic("session cleared", texts)
+            sched.clear_prefixes()  # the cleared run's own entries too
+            http_call(port, "DELETE", "/v1/sessions/agent")
+            out["load_s"] = timed_post("/v1/sessions", {
+                "model": "model", "id": "agent", "load_path": path})
+            runs["restored"] = traffic("session restored", texts)
+            if runs["hit"]["prefix_hits"] != 8 or runs["restored"][
+                    "prefix_hits"] != 8 or runs["cleared"]["prefix_hits"]:
+                raise AssertionError(f"prefix hits: "
+                                     f"{[r['prefix_hits'] for r in runs.values()]}")
+            if not (runs["hit"]["launches"]["flash_prefill"]
+                    < runs["cleared"]["launches"]["flash_prefill"]):
+                raise AssertionError("a hit launched as many prefill kernels "
+                                     "as the whole re-prefill")
+            # serve_full_width's traffic alone and beside session loads
+            # run back to back: the server's (the file inflated by a child
+            # process) and, for comparison, load_session in the handler
+            # thread; in turns, alone first and last
+            from unittest import mock
+
+            from powerserve_tpu_torch.kv.persist import load_session
+
+            def beside(label, in_thread=False):
+                sched.clear_prefixes()
+                stop, loads = threading.Event(), []
+
+                def load_loop():
+                    while not stop.is_set():
+                        loads.append(timed_post("/v1/sessions", {
+                            "model": "model", "id": "bg",
+                            "load_path": path}))
+
+                loader = threading.Thread(target=load_loop, daemon=True)
+                patch = mock.patch(
+                    "powerserve_tpu_torch.serving.server.load_session_apart",
+                    load_session) if in_thread else contextlib.nullcontext()
+                with patch:
+                    if label != "alone":
+                        loader.start()
+                    try:
+                        r = traffic(f"serve traffic {label}", serve_texts,
+                                    session=None, max_tokens=64)
+                    finally:
+                        stop.set()
+                        if label != "alone":
+                            loader.join(timeout=120)
+                r["loads"] = loads
+                return r
+
+            order = [("alone", False), ("beside_loads", False),
+                     ("beside_loads_in_thread", True), ("beside_loads", False),
+                     ("beside_loads_in_thread", True), ("alone", False)]
+            contention: dict[str, list] = {}
+            for label, in_thread in order:
+                r = beside(label, in_thread)
+                contention.setdefault(label, []).append(r)
+            alone = contention["alone"][0]
+            runs["serve_beside_loads"] = contention["beside_loads"][0]
+            out["serve_traffic"] = {
+                label: {"generated_tok_s": [r["generated_tok_s"] for r in rs],
+                        "ttft_p50_s": [r["ttft_p50_s"] for r in rs],
+                        "loads_during": [len(r["loads"]) for r in rs],
+                        "load_s_median": [statistics.median(r["loads"])
+                                          if r["loads"] else None
+                                          for r in rs]}
+                for label, rs in contention.items()}
+            # the same session on a self-draft name: both caches pinned
+            post("/v1/sessions", {"model": "model+self:4",
+                                  "prompt": preamble, "id": "agent4"})
+            spec = ctx.get("model+self:4").scheduler
+            if "draft" not in spec.prefix_cache.entries[tuple(ids)]:
+                raise AssertionError("model+self:4: no draft prefix pinned")
+            runs["self_draft_4"] = traffic("session model+self:4", texts,
+                                           name="model+self:4",
+                                           session="agent4")
+        finally:
+            server.shutdown()
+            server.server_close()
+            ctx.close()
+    ehp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=128)
+    ehp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, ehp, eos_id=2, device=dev)
+    gaps = []
+    for label, ref in (("cleared", runs["hit"]), ("restored", runs["hit"]),
+                       ("self_draft_4", runs["hit"]),
+                       ("serve_beside_loads", alone)):
+        for prompt, ids_ in ref["tokens"].items():
+            gaps.append(agree(f"session {label}", runs[label]["tokens"][
+                prompt], ids_, engine, list(prompt)))
+    del engine
+    for label, r in runs.items():
+        if label != "serve_beside_loads":
+            out[label] = {k: v for k, v in r.items() if k != "tokens"}
+    out["near_ties"] = [g for g in gaps if g is not None]
+    out["card"] = card_line()
+    return out
+
+
+def phase_evict(dev: torch.device) -> dict:
+    """Multi-model eviction at llama-1b's widths (dim 2048, ffn 8192, 32
+    heads, 8 kv heads, vocab 128256; 2 layers, random Q8_0 weights: one
+    GGUF linked into three model dirs, each loaded on its own):
+    ServerContext(max_models=2) serves a, b, c, a, one request each (its
+    decode steps captured as graphs, its prompt stored in the prefix
+    cache). Each eviction must give back what its context took when it
+    loaded and served (weights, paged pool, buffers, snapshots), within
+    5% of the allocated bytes, and leave no segment of its graphs' memory
+    pool; memory_allocated and memory_reserved before and after each."""
+    import os
+    from unittest import mock
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.engine.graphs import pool_bytes
+    from powerserve_tpu_torch.engine.scheduler import Request
+    from powerserve_tpu_torch.serving.server import ServerContext
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    out = {"phase": "evict", "preset": "llama-1b", "layers": 2,
+           "quant": "q8_0", "max_models": 2}
+    hp = HyperParams(max_slots=4, max_seq_len=1024, batch_size=128,
+                     paged_pages=64, page_size=64)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        make_synthetic_gguf(f"{tmp}/ws", "llama-1b", GGMLType.Q8_0, seed=0,
+                            seq_len=1024, layers=2)
+        out["write_s"] = time.perf_counter() - t0
+        for name in ("a", "b", "c"):
+            os.makedirs(f"{tmp}/models/{name}")
+            os.symlink(f"{tmp}/ws/model/weights.gguf",
+                       f"{tmp}/models/{name}/weights.gguf")
+        ctx = ServerContext(f"{tmp}/models", "a", hp, dev, max_models=2)
+        held, evictions = {}, []
+        release = ServerContext._release
+
+        def recorded(self, mctx):
+            torch.cuda.synchronize()
+            before = (torch.cuda.memory_allocated(dev),
+                      torch.cuda.memory_reserved(dev))
+            pool = tuple(mctx.scheduler.graphs.pool)
+            pool_b = pool_bytes(mctx.scheduler.graphs)
+            release(self, mctx)
+            torch.cuda.synchronize()
+            left = [seg for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg["segment_pool_id"]) == pool]
+            evictions.append(dict(
+                name=mctx.name, allocated_before=before[0],
+                reserved_before=before[1],
+                allocated_after=torch.cuda.memory_allocated(dev),
+                reserved_after=torch.cuda.memory_reserved(dev),
+                graph_pool_bytes=pool_b, graph_pool_segments_left=len(left)))
+
+        t0 = time.perf_counter()
+        try:
+            with mock.patch.object(ServerContext, "_release", recorded):
+                for name in ("a", "b", "c", "a"):
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    base = torch.cuda.memory_allocated(dev)
+                    n_ev = len(evictions)
+                    sched = ctx.get(name).scheduler
+                    done = threading.Event()
+                    sched.submit(Request(
+                        prompt_ids=list(range(3, 67)), max_tokens=16,
+                        temperature=0.0,
+                        sink=lambda t, d=done: t is None and d.set()))
+                    if not done.wait(timeout=300):
+                        raise AssertionError(f"{name}: the request hung")
+                    torch.cuda.synchronize()
+                    if not any(g.graph is not None
+                               for g in sched.graphs.graphs.values()):
+                        raise AssertionError(f"{name}: no step graph")
+                    # what this context took, less what an eviction in its
+                    # get() gave back meanwhile
+                    freed = sum(e["allocated_before"] - e["allocated_after"]
+                                for e in evictions[n_ev:])
+                    held[name] = torch.cuda.memory_allocated(dev) - base + freed
+                    del sched
+        finally:
+            ctx.close()
+        out["seconds"] = time.perf_counter() - t0
+    if [e["name"] for e in evictions] != ["a", "b"]:
+        raise AssertionError(f"evicted {[e['name'] for e in evictions]}, "
+                             f"not a then b")
+    for e in evictions:
+        e["held_bytes"] = held[e["name"]]
+        e["freed_bytes"] = e["allocated_before"] - e["allocated_after"]
+        e["freed_share"] = e["freed_bytes"] / e["held_bytes"]
+        if abs(e["freed_share"] - 1) > 0.05 or e["graph_pool_segments_left"]:
+            raise AssertionError(f"eviction of {e['name']} gave back "
+                                 f"{e['freed_bytes']} of {e['held_bytes']} "
+                                 f"bytes, {e['graph_pool_segments_left']} "
+                                 f"graph pool segments left")
+    out["evictions"] = evictions
+    out["card"] = card_line()
+    return out
 
 
 class Clock:
@@ -3732,6 +4106,10 @@ def main() -> int:
     serve, serve_counts = phase_serve_full_width(dev, cfg, model,
                                                  "serve_full_width")
     emit(serve)
+    session = phase_session_full_width(dev, cfg, model)
+    emit(session)
+    evict = phase_evict(dev)
+    emit(evict)
     spec, spec_counts = phase_spec_full_width(dev, cfg, model,
                                               phase_serve_full_width)
     emit(spec)
@@ -3882,6 +4260,17 @@ def main() -> int:
           "serve_vlm_generated_tok_s": serve_vlm["generated_tok_s"],
           "serve_vlm_ttft_p50_s": serve_vlm["ttft_p50_s"],
           "serve_vlm_ttft_p90_s": serve_vlm["ttft_p90_s"],
+          "session_hit_ttft_p50_s": session["hit"]["ttft_p50_s"],
+          "session_cleared_ttft_p50_s": session["cleared"]["ttft_p50_s"],
+          "session_restored_ttft_p50_s": session["restored"]["ttft_p50_s"],
+          "session_load_s": session["load_s"],
+          "session_save_s": session["save_s"],
+          "serve_beside_session_loads_generated_tok_s":
+              session["serve_traffic"]["beside_loads"]["generated_tok_s"],
+          "serve_alone_generated_tok_s":
+              session["serve_traffic"]["alone"]["generated_tok_s"],
+          "evicted_freed_share": [e["freed_share"]
+                                  for e in evict["evictions"]],
           "tp_full_width_ranks": tp_full["ranks"],
           "tp_full_width_decode_tok_s": tp_full["decode_tok_s"]})
     print(card, flush=True)

@@ -73,6 +73,18 @@ Only the scheduler thread touches the device; submit() is thread-safe,
 and call(fn) runs fn on the scheduler thread between two steps (device
 work for a request, such as encoding its images, never lands inside a
 step's graph capture).
+
+HTTP sessions pin prefix-cache entries (the server's /v1/sessions):
+pin_prefix marks a prefix whose snapshot the prefill that completes it
+pins (a pinned entry skips the min-length rule and is never evicted for
+capacity), insert_prefix stores an entry from a session file's host
+arrays, export_prefix gives one back as host arrays and drop_prefix
+removes one; the three run on the scheduler thread (call), where the
+copies to and from the device happen. Over a rank group an entry's
+snapshots are handles on every rank's heads: export gathers them in the
+global head order, insert gives each rank its heads in every dp block.
+release() stops the scheduler and drops what it holds on the device (a
+server's eviction).
 """
 
 from __future__ import annotations
@@ -163,13 +175,18 @@ class _Slot:
 class PrefixCache:
     """LRU of prompt-prefix KV snapshots. Requests that share a prefix
     (system prompts, few-shot headers) skip its prefill: the KV of
-    positions 0..n-1 depends only on tokens 0..n-1, so reuse is exact."""
+    positions 0..n-1 depends only on tokens 0..n-1, so reuse is exact.
+
+    Pinned entries (HTTP sessions) skip the min-length rule and are never
+    evicted for capacity; nothing caps their number. Only the scheduler
+    thread changes the entries (BatchScheduler's pin, insert and drop)."""
 
     def __init__(self, capacity: int, min_len: int):
         self.capacity = capacity
         self.min_len = min_len
         self.entries: dict[tuple, dict] = {}
-        self._order: list[tuple] = []  # eviction order
+        self._order: list[tuple] = []  # eviction order; not the pinned
+        self.pinned: set[tuple] = set()
         self.hits = 0
         self.misses = 0
 
@@ -187,14 +204,40 @@ class PrefixCache:
             self.hits += 1
         return best
 
-    def put(self, prefix_ids: list[int], saved: dict) -> None:
+    def put(self, prefix_ids: list[int], saved: dict,
+            pin: bool = False) -> None:
+        """Store a snapshot (pin: pinned; an entry already there is
+        pinned and kept as it is)."""
         key = tuple(prefix_ids)
-        if key in self.entries or len(key) < self.min_len:
+        if key in self.entries:
+            if pin:
+                self.pinned.add(key)
+                if key in self._order:
+                    self._order.remove(key)
+            return
+        if not pin and len(key) < self.min_len:
             return
         if len(self._order) >= self.capacity and self._order:
             self.entries.pop(self._order.pop(0), None)
         self.entries[key] = saved
-        self._order.append(key)
+        if pin:
+            self.pinned.add(key)
+        else:
+            self._order.append(key)
+
+    def drop(self, prefix_ids: list[int]) -> bool:
+        """Remove an entry, pinned or not; True if there was one."""
+        key = tuple(prefix_ids)
+        self.pinned.discard(key)
+        if key in self._order:
+            self._order.remove(key)
+        return self.entries.pop(key, None) is not None
+
+    def clear(self) -> None:
+        """Remove every entry, the pinned ones too (the counters stay)."""
+        self.entries.clear()
+        self._order.clear()
+        self.pinned.clear()
 
 
 class BatchScheduler:
@@ -292,6 +335,8 @@ class BatchScheduler:
         if self.hp.prefix_cache > 0:
             self.prefix_cache = PrefixCache(
                 self.hp.prefix_cache, max(int(self.hp.prefix_cache_min), 1))
+        # prefixes whose snapshot the prefill pins when it completes
+        self._pin_reqs: set[tuple] = set()
         # /metrics counters
         self.n_requests = 0
         self.n_tokens_generated = 0
@@ -329,6 +374,9 @@ class BatchScheduler:
     # -- front door -----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
+        if self.kv is None:
+            raise RuntimeError("the scheduler was released (its model "
+                               "context was evicted)")
         if req.embeds is not None and self.tp:
             raise ValueError("requests with input rows (images) under "
                              "tensor parallelism are not ported (ROADMAP "
@@ -357,6 +405,77 @@ class BatchScheduler:
         self._jobs.put((fn, fut))
         self._wake.set()
         return fut
+
+    def _on_thread(self, fn: Callable):
+        """fn() on the scheduler thread while it runs (call), else here."""
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            return self.call(fn).result()
+        return fn()
+
+    # -- pinned prefixes (HTTP sessions) ---------------------------------------
+
+    def pin_prefix(self, prefix_ids: list[int]) -> None:
+        """Pin the snapshot of this prefix in the prefix cache when a
+        prefill of it completes (a session's priming request)."""
+        if self.prefix_cache is not None:
+            self._pin_reqs.add(tuple(prefix_ids))
+
+    def insert_prefix(self, prefix_ids: list[int], groups: dict,
+                      pin: bool = True) -> None:
+        """Store an entry built from host arrays (a session file, kv/
+        persist.py's groups: "kv", "d" with a draft, "feat" with an EAGLE
+        head), copied to the device on the scheduler thread. Groups that
+        do not fit this scheduler's caches raise a ValueError."""
+        if self.prefix_cache is None:
+            return
+        if ("d" in groups) != (self.d_kv is not None) or (
+                "feat" in groups) != self.is_eagle:
+            raise ValueError("session draft-cache mismatch with model")
+
+        def insert():
+            saved = self.kv.snapshot_from_host(groups["kv"])
+            if self.d_kv is not None:
+                saved["draft"] = self.d_kv.snapshot_from_host(groups["d"])
+            if self.is_eagle:
+                feat = torch.as_tensor(groups["feat"]["v"])
+                if tuple(feat.shape) != (self.cfg.llm.dim,):
+                    raise ValueError(f"feature of shape {tuple(feat.shape)}"
+                                     f"; the model's is [{self.cfg.llm.dim}]")
+                saved["feat"] = feat.to(self.device, torch.float32)
+            self.prefix_cache.put(list(prefix_ids), saved, pin=pin)
+
+        self._on_thread(insert)
+
+    def export_prefix(self, prefix_ids: list[int]) -> dict | None:
+        """The entry of exactly this prefix as host arrays in groups (the
+        session file's; a rank group's snapshots with every head), or
+        None."""
+        def export():
+            saved = (self.prefix_cache.entries.get(tuple(prefix_ids))
+                     if self.prefix_cache is not None else None)
+            if saved is None:
+                return None
+            groups = {"kv": self.kv.snapshot_to_host(saved)}
+            if "draft" in saved:
+                groups["d"] = self.d_kv.snapshot_to_host(saved["draft"])
+            if "feat" in saved:
+                groups["feat"] = {"v": saved["feat"].cpu().numpy()}
+            return groups
+
+        return self._on_thread(export)
+
+    def drop_prefix(self, prefix_ids: list[int]) -> bool:
+        """Remove this prefix's entry (its device copies go with it)."""
+        if self.prefix_cache is None:
+            return False
+        self._pin_reqs.discard(tuple(prefix_ids))
+        return self._on_thread(lambda: self.prefix_cache.drop(prefix_ids))
+
+    def clear_prefixes(self) -> None:
+        """Remove every prefix-cache entry, pinned ones too."""
+        if self.prefix_cache is not None:
+            self._on_thread(self.prefix_cache.clear)
 
     def _run_jobs(self) -> None:
         while True:
@@ -387,6 +506,20 @@ class BatchScheduler:
             _, fut = self._jobs.get_nowait()
             if fut.set_running_or_notify_cancel():
                 fut.set_exception(RuntimeError("the scheduler stopped"))
+
+    def release(self) -> None:
+        """Stop, then drop what the scheduler holds on the device: its
+        caches and page table, its step graphs and their memory pool, its
+        prefix-cache snapshots and buffers, and its references to the
+        models (weights another scheduler shares stay with it). The
+        scheduler serves nothing after this."""
+        self.stop()
+        self.kv = self.d_kv = self.pool = None
+        self.graphs = StepGraphs(torch.device("cpu"))
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        self.bufs, self.penalty, self.generators = {}, None, []
+        self.model = self.draft = None
 
     @property
     def n_active(self) -> int:
@@ -524,6 +657,12 @@ class BatchScheduler:
                         self.bufs["feat"][i] = saved["feat"]
                     slot.prefill_off = n
                     log.debug(f"req {req.id}: prefix cache hit ({n} tok)")
+                    key = tuple(req.prompt_ids[:n])
+                    if n == len(req.prompt_ids) - 1 and key in self._pin_reqs:
+                        # the whole prefix is an entry: no prefill will
+                        # store it, so pin the entry as it is
+                        self.prefix_cache.put(list(key), saved, pin=True)
+                        self._pin_reqs.discard(key)
             self.penalty.reset_slot(i)
             if (req.penalty_repeat != 1.0 or req.penalty_freq
                     or req.penalty_present):
@@ -589,14 +728,16 @@ class BatchScheduler:
                 self.draft(self.d_kv, *args, active=act, logits_mode="none",
                            embeds=d_rows)
         for i, prefix in stores:
-            if len(prefix) >= self.prefix_cache.min_len:
+            pin = tuple(prefix) in self._pin_reqs
+            if pin or len(prefix) >= self.prefix_cache.min_len:
                 saved = self.kv.save_slot_prefix(i, len(prefix))
                 if self.d_kv is not None:
                     saved["draft"] = self.d_kv.save_slot_prefix(i,
                                                                 len(prefix))
                 if self.is_eagle:
                     saved["feat"] = self.bufs["feat"][i].clone()
-                self.prefix_cache.put(prefix, saved)
+                self.prefix_cache.put(prefix, saved, pin=pin)
+                self._pin_reqs.discard(tuple(prefix))
         return True
 
     @staticmethod

@@ -85,6 +85,14 @@ class KVCache:
         return self.k.shape[3]
 
     @property
+    def n_kv_heads(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k.shape[4]
+
+    @property
     def device(self) -> torch.device:
         return self.k.device
 
@@ -262,3 +270,35 @@ class KVCache:
             getattr(self, name)[:, slot, :, :n] = saved[name]
         self.mask[slot] = torch.arange(self.max_seq, device=self.device) < n
         self.pos[slot] = n
+
+    # -- snapshots on the host (kv/persist.py: prefix and session files) -----
+
+    def check_snapshot(self, host: dict) -> None:
+        """Raise a ValueError if a host snapshot ({"n", "k", "v",
+        "k_scale", "v_scale"}, k [L, H, n, D]) does not fit this cache."""
+        n, shape = int(host["n"]), tuple(host["k"].shape)
+        want = (self.n_layers, self.n_kv_heads, n, self.head_dim)
+        if shape != want:
+            raise ValueError(f"KV shape mismatch: {shape} vs {want} "
+                             f"[layers, kv heads, n, head dim]")
+        if n > self.max_seq:
+            raise ValueError(f"prefix ({n}) exceeds cache ({self.max_seq})")
+
+    def snapshot_from_host(self, host: dict) -> dict:
+        """A host snapshot as a save_slot_prefix snapshot on this cache's
+        device, checked first (check_snapshot)."""
+        self.check_snapshot(host)
+        out = {"n": int(host["n"])}
+        for name, dt in (("k", torch.int8), ("v", torch.int8),
+                         ("k_scale", torch.float32),
+                         ("v_scale", torch.float32)):
+            out[name] = torch.as_tensor(host[name]).to(self.device, dt,
+                                                        copy=True)
+        return out
+
+    def snapshot_to_host(self, saved: dict) -> dict:
+        """A save_slot_prefix snapshot as host arrays {"n", "k", "v",
+        "k_scale", "v_scale"}."""
+        return {"n": int(saved["n"]),
+                **{name: saved[name].cpu().numpy()
+                   for name in ("k", "v", "k_scale", "v_scale")}}

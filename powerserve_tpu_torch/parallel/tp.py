@@ -23,10 +23,15 @@ TPComm), with one process a rank:
     the table become each block's local ids, the JAX _remap_paged_dp).
 
 An operation is a pickled header (the name, its arguments with each
-tensor replaced by its place in a byte buffer, and the snapshots to
-drop) and the tensors' bytes, broadcast as one uint8 buffer after its
-size. Ticks that hold collectives run eagerly: gloo cannot be captured
-in a CUDA graph.
+tensor replaced by its place in a byte buffer, and the objects to drop)
+and the tensors' bytes, broadcast as one uint8 buffer after its size.
+Ticks that hold collectives run eagerly: gloo cannot be captured in a
+CUDA graph. Rank 0's handles (TPModel, TPCache, a prefix-cache
+snapshot's) drop the ranks' objects when they go, with rank 0's next
+operation; RankGroup.release() then gives their device memory back (a
+server's eviction). A session file's snapshot holds every head: it is
+put together over tp to be saved, and each rank keeps its heads of a
+loaded one.
 
 The host re-layout is the JAX package's (tp.py:51-163): the fused QKV's
 columns permuted so each rank's slice is [q_r | k_r | v_r], gate|up's
@@ -47,6 +52,7 @@ and VLM requests under TP, MoE layers under TP, several hosts.
 from __future__ import annotations
 
 import collections
+import gc
 import itertools
 import pickle
 import threading
@@ -329,6 +335,20 @@ class ShardModel:
                                   S)
 
 
+def _all_heads(t: torch.Tensor, m: Mesh, axis: int) -> torch.Tensor:
+    """t with this rank's heads on `axis` put together with the other tp
+    ranks' in the global head order: an all_reduce of zero-filled copies
+    (int8 widened to int32, so a value plus zeros is exact; the caller
+    narrows it back)."""
+    wide = t.to(torch.int32) if t.dtype == torch.int8 else t
+    h = wide.shape[axis]
+    shape = list(wide.shape)
+    shape[axis] = h * m.tp
+    full = wide.new_zeros(shape)
+    full.narrow(axis, m.tp_rank * h, h).copy_(wide)
+    return m.comm.all_reduce(full)
+
+
 class ShardCache:
     """One rank's cache: its kv heads of its dp block's slots (paged: of
     its block's pages). The methods take the whole batch's arguments."""
@@ -390,6 +410,27 @@ class ShardCache:
         if self._mine(slot):
             self.kv.restore_slot_prefix(int(slot) - self.lo, saved["handle"])
 
+    def import_prefix(self, host: dict) -> dict:
+        """This rank's heads of a whole snapshot (every head, on the
+        cpu), on its device: every dp block keeps them, as
+        save_slot_prefix leaves a snapshot in every block."""
+        h = self.kv.n_kv_heads
+        cut = slice(self.mesh.tp_rank * h, (self.mesh.tp_rank + 1) * h)
+        out = {"n": int(host["n"])}
+        for name in ("k", "v", "k_scale", "v_scale"):
+            out[name] = host[name][:, cut].to(self.kv.device).contiguous()
+        return out
+
+    def export_prefix(self, saved: dict) -> dict:
+        """A snapshot's every head, put together over tp in the global
+        head order, on every rank of the mesh (each dp block holds the
+        whole snapshot)."""
+        snap = saved["handle"]
+        return {"n": snap["n"],
+                **{name: _all_heads(snap[name], self.mesh, 1).to(
+                    snap[name].dtype)  # [L, h, n(, D)] -> every head
+                   for name in ("k", "v", "k_scale", "v_scale")}}
+
     def gathered(self) -> dict:
         """The whole cache on every rank of the mesh: k, v, k_scale,
         v_scale with every head (put together over tp) and every slot or
@@ -398,12 +439,7 @@ class ShardCache:
         m = self.mesh
         for name in ("k", "v", "k_scale", "v_scale"):
             t = getattr(self.kv, name)  # [L, slots or pages, H, T(, D)]
-            wide = t.to(torch.int32) if t.dtype == torch.int8 else t
-            h = wide.shape[2]
-            full = wide.new_zeros(wide.shape[:2] + (h * m.tp,)
-                                  + wide.shape[3:])
-            full[:, :, m.tp_rank * h:(m.tp_rank + 1) * h] = wide
-            full = m.comm.all_reduce(full).movedim(1, 0).contiguous()
+            full = _all_heads(t, m, 2).movedim(1, 0).contiguous()
             full = m.assemble(full, full.shape[0] * m.dp)
             out[name] = full.movedim(0, 1).to(t.dtype)
         return out
@@ -630,6 +666,13 @@ class RankGroup:
             self.objs[keep] = out
         return out
 
+    def _op_release(self):
+        """Free what the dropped objects held (their drops came with this
+        operation): their device memory back to CUDA."""
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _op_counts(self, reset: bool):
         """Every rank's kernel launch counts, [world, names], on every rank
         (then zeroed with reset)."""
@@ -676,6 +719,13 @@ class RankGroup:
         oid = self._new_id()
         return TPModel(self, oid, self.run("draft_head", oid, model, rank))
 
+    def release(self) -> None:
+        """Drop on every rank the objects whose handles rank 0 no longer
+        holds (models, caches, snapshots), then give their device memory
+        back (an evicted model's shards and caches)."""
+        gc.collect()  # runs the finalizers of unreachable handles
+        self.run("release")
+
     def launch_counts(self, reset: bool = False) -> list[dict]:
         """Each rank's kernel launch counts (ops/cuda_lib.py)."""
         return self.run("counts", reset)
@@ -713,22 +763,16 @@ class _Ref(NamedTuple):
 
 
 class _Remote:
-    """Rank 0's handle on an object every rank of its mesh keeps."""
+    """Rank 0's handle on an object every rank of its mesh keeps; the
+    ranks drop theirs when this handle goes (with rank 0's next
+    operation)."""
 
     def __init__(self, group: RankGroup, oid: int):
         self.group, self.oid = group, oid
+        weakref.finalize(self, group._drop, oid)
 
     def _call(self, method: str, *args, keep=None, **kw):
         return self.group.run("call", self.oid, method, args, kw, keep=keep)
-
-
-class _Snapshot(_Remote):
-    """A prefix-cache snapshot every rank keeps (each its own heads); the
-    ranks drop theirs when this handle goes."""
-
-    def __init__(self, group: RankGroup, oid: int):
-        super().__init__(group, oid)
-        weakref.finalize(self, group._drop, oid)
 
 
 class TPModel(_Remote):
@@ -812,6 +856,14 @@ class TPCache(_Remote, KVCache):
     def device(self) -> torch.device:
         return self.shard.kv.device
 
+    @property
+    def n_kv_heads(self) -> int:
+        return self.shard.kv.n_kv_heads * self.shard.mesh.tp
+
+    @property
+    def head_dim(self) -> int:
+        return self.shard.kv.head_dim
+
     def reset_slot(self, slot: int) -> None:
         self._call("reset_slot", slot)
 
@@ -824,7 +876,7 @@ class TPCache(_Remote, KVCache):
     def save_slot_prefix(self, slot: int, n: int) -> dict:
         """A handle on every rank's snapshot of its heads, in place of the
         tensors; restore_slot_prefix takes it back."""
-        handle = _Snapshot(self.group, self.group._new_id())
+        handle = _Remote(self.group, self.group._new_id())
         self._call("save_slot_prefix", slot, n, keep=handle.oid)
         return {"n": n, "handle": handle}
 
@@ -834,6 +886,25 @@ class TPCache(_Remote, KVCache):
     def gathered(self) -> dict:
         """ShardCache.gathered: the whole cache from every rank's part."""
         return self._call("gathered")
+
+    def snapshot_from_host(self, host: dict) -> dict:
+        """A handle on every rank's heads of a whole host snapshot (the
+        arrays go to every rank, each keeps its heads)."""
+        self.check_snapshot(host)
+        handle = _Remote(self.group, self.group._new_id())
+        whole = {"n": int(host["n"]),
+                 **{k: torch.as_tensor(host[k]) for k in (
+                     "k", "v", "k_scale", "v_scale")}}
+        self._call("import_prefix", whole, keep=handle.oid)
+        return {"n": whole["n"], "handle": handle}
+
+    def snapshot_to_host(self, saved: dict) -> dict:
+        """A handle's snapshot with every head in the global order, as
+        host arrays: what one device's save_slot_prefix holds."""
+        whole = self._call("export_prefix", saved)
+        return {"n": int(whole["n"]),
+                **{k: whole[k].cpu().numpy() for k in (
+                    "k", "v", "k_scale", "v_scale")}}
 
 
 class TPPagedCache(TPCache, PagedKVCache):

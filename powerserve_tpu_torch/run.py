@@ -20,6 +20,13 @@ the draft's lm_head, or the head's (speculative/draft_head.py).
 with vision.gguf) through engine/vlm.py: every image's tiles go at the
 prompt's image placeholder, or ahead of the prompt; greedy. Images are
 PNG (core/image.py).
+
+--load-kv <file.npz> fills slot 0 with a saved KV prefix before the
+prompt (kv/persist.py: the JAX package's format, written in place), and
+`generate` appends the prompt after it; --save-kv <file.npz> writes the
+slot's tokens after generation (the prompt and the generated tokens
+fed back). Both take the plain engine (no --draft, --self-draft-layers
+or --image).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from .core.image import load_image
 from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
 from .engine.vlm import VLMEngine
+from .kv.persist import load_prefix, save_prefix
 from .models.internvl import internvl_from_workspace
 from .models.loader import gguf_architecture, load_eagle_gguf, load_gguf_model
 from .speculative.chain import ChainSpecEngine, with_draft_head
@@ -110,6 +118,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--image", action="append", default=None,
                     help="PNG image for a vision-language workspace "
                          "(repeatable): the multimodal engine, greedy")
+    ap.add_argument("--load-kv", default=None,
+                    help="a saved KV prefix (.npz) to preload into slot 0")
+    ap.add_argument("--save-kv", default=None,
+                    help="save slot 0's KV prefix (.npz) after generation")
     return ap.parse_args(argv)
 
 
@@ -138,6 +150,12 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     log.info(f"loading model from {model_dir} on {args.device}")
     images = None
     spec = None
+    if (args.load_kv or args.save_kv) and (
+            args.image or args.draft or args.self_draft_layers
+            or args.spec_engine != "chain"):
+        raise SystemExit("--load-kv/--save-kv take the plain engine (no "
+                         "--image, --draft, --self-draft-layers or "
+                         "--spec-engine)")
     if args.image:
         images = [load_image(p) for p in args.image]
         engine = VLMEngine(internvl_from_workspace(model_dir, args.device),
@@ -152,6 +170,9 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
         prompt = tok.apply_chat_template([{"role": "user", "content": prompt}])
     ids = tok.tokenize(prompt)
     log.info(f"prompt tokens: {len(ids)}")
+    if args.load_kv:
+        n = load_prefix(engine.kv, args.load_kv)
+        log.info(f"loaded a {n}-token KV prefix from {args.load_kv}")
 
     stats = GenerationStats()
     out_ids: list[int] = []
@@ -169,6 +190,9 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     if args.no_progress:
         print(prompt + tok.to_string(out_ids), end="")
     print()
+    if args.save_kv:
+        n = save_prefix(engine.kv, args.save_kv)
+        log.info(f"saved a {n}-token KV prefix to {args.save_kv}")
     if spec is not None:
         log.info(spec.summary())
         log.info(f"decode speed: "

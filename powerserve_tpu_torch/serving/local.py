@@ -45,11 +45,14 @@ class LocalServer:
     def __init__(self, model_root, model: str = "",
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
-                 tp: int = 1, dp: int = 1, dist_backend: str | None = None):
-        """tp, dp, dist_backend: serve over tp * dp ranks (ServerContext)."""
+                 tp: int = 1, dp: int = 1, dist_backend: str | None = None,
+                 max_models: int = 0):
+        """tp, dp, dist_backend: serve over tp * dp ranks; max_models:
+        keep at most that many model contexts loaded (ServerContext)."""
         self.ctx = ServerContext(model_root, model, hp or HyperParams(),
                                  device, tp=tp, dp=dp,
-                                 dist_backend=dist_backend)
+                                 dist_backend=dist_backend,
+                                 max_models=max_models)
         self.default_model = model
 
     def _stream(self, mctx: ModelContext, prompt_ids: list[int],

@@ -3,6 +3,7 @@
   POST /completion, /completions, /v1/completions
   POST /chat/completions, /v1/chat/completions
   GET  /v1/models, /health, /metrics
+  POST /v1/sessions; GET /v1/sessions; DELETE /v1/sessions/{id}
 
 SSE streaming emits `data: {...}` chunks then `data: [DONE]`, with
 UTF-8-safe text chunking; response bodies carry the JAX server's keys.
@@ -50,13 +51,46 @@ nccl (the default on cuda, one card a rank) or gloo (the default on the
 cpu; on cuda it lets ranks share a card). A follower that dies ends the
 server with an error. Under --tp, VLM dirs and EAGLE heads get a 400.
 
-Not ported yet, and answered with a 400: sessions. --pp, --sp, --gspmd
-and --distributed exit with an error naming ROADMAP §1 item 8.
+Sessions are named, pinned prompt prefixes (an agent's long system
+prompt, resumed by many requests without its prefill). POST /v1/sessions
+with {"model", "prompt" (or chat "messages", taken as text), "id"
+(optional), "save_path" (optional)} prefills the prompt once and pins
+its KV snapshot in the model's prefix cache (engine/scheduler.py); with
+"load_path" in place of a prompt it restores a saved session file
+(kv/persist.py, the JAX server's layout: a file either package writes
+loads in the other; a child process inflates it, off the interpreter
+lock the scheduler thread needs). A request with {"session": id} then
+has the session's tokens put before its own prompt, for completions and
+chat. GET /v1/sessions lists them; DELETE /v1/sessions/{id} unpins and
+drops the snapshot. An unknown session is a 404; an empty prompt, one
+of max_seq - 2 tokens or more, a disabled prefix cache, or a file whose
+groups do not fit the model a 400. Under --tp a saved file holds every
+head, as one device's does.
+
+--max-models N keeps at most N model contexts loaded: loading another
+stops the least recently used idle one and gives its device memory back
+(its scheduler, caches, step graphs and snapshots, and the weights no
+live context shares: "main+self:N" keeps main's). A busy context and
+the newest are never evicted (nor, in the JAX server, one whose
+scheduler another context shares: here every context has its own);
+sessions stay registered, and a later request re-prefills their tokens.
+
+--pp, --sp, --gspmd and --distributed exit with an error naming ROADMAP
+§1 item 8.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
         [--spec-wor]] [--spec-horizon H] [--draft-head-rank R]
-        [--tp N [--dp M] [--dist-backend nccl|gloo]] [--device cuda|cpu]
+        [--max-models N] [--tp N [--dp M] [--dist-backend nccl|gloo]]
+        [--device cuda|cpu]
+
+    curl -d '{"model": "model", "prompt": "You are ...", "id": "s1",
+              "save_path": "s1.npz"}' localhost:8080/v1/sessions
+    curl -d '{"model": "model", "session": "s1", "prompt": " Hi",
+              "max_tokens": 16}' localhost:8080/v1/completions
+    curl -X DELETE localhost:8080/v1/sessions/s1
+    curl -d '{"model": "model", "id": "s1", "load_path": "s1.npz"}'
+        localhost:8080/v1/sessions
 """
 
 from __future__ import annotations
@@ -64,6 +98,7 @@ from __future__ import annotations
 import argparse
 import base64
 import binascii
+import gc
 import json
 import queue
 import signal
@@ -81,6 +116,7 @@ from ..core.config import HyperParams, ModelConfig, WorkspaceConfig
 from ..core.device import resolve_device
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
+from ..kv.persist import load_session_apart, save_session
 from ..models.internvl import InternVLModel, internvl_from_workspace
 from ..models.llama import LlamaModel
 from ..models.loader import (gguf_architecture, load_eagle_gguf,
@@ -191,17 +227,23 @@ class ServerContext:
     loaded at first use onto `device` (default cuda), each with its own
     scheduler thread. With tp * dp > 1 every model is sharded over that
     many ranks (parallel/tp.py), which the constructor starts over
-    `dist_backend` (default: nccl on cuda, gloo on the cpu)."""
+    `dist_backend` (default: nccl on cuda, gloo on the cpu). max_models
+    > 0 keeps at most that many contexts loaded (the least recently used
+    idle one is evicted); `sessions` are the HTTP sessions by id."""
 
     def __init__(self, model_root: str | Path, default_model: str = "",
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
-                 tp: int = 1, dp: int = 1, dist_backend: str | None = None):
+                 tp: int = 1, dp: int = 1, dist_backend: str | None = None,
+                 max_models: int = 0):
         self.root = Path(model_root)
         self.default_model = default_model
         self.hp = hp or HyperParams()
         self.device = resolve_device(device)
         self.models: dict[str, ModelContext] = {}
+        self.max_models = int(max_models)
+        self._lru: list[str] = []  # least recently used first
+        self.sessions: dict[str, dict] = {}
         self._lock = threading.Lock()
         self.image_workers: ImageWorkers | None = None
         self.tp, self.dp = int(tp), int(dp)
@@ -255,16 +297,63 @@ class ServerContext:
         with self._lock:
             if vlm is not None:
                 self._start_image_workers()
-            self.models[name] = ctx
-        return ctx
+            return self._add(name, ctx)
 
     def get(self, name: str) -> ModelContext:
         name = name or self.default_model or "default"
         with self._lock:
             return self._get(name)
 
+    def _add(self, name: str, ctx: ModelContext) -> ModelContext:
+        """Register a new context as the most recently used, then evict
+        to the budget."""
+        self.models[name] = ctx
+        self._touch(name)
+        self._evict_to_budget()
+        return ctx
+
+    def _touch(self, name: str) -> None:
+        if name in self._lru:
+            self._lru.remove(name)
+        self._lru.append(name)
+
+    def _evict_to_budget(self) -> None:
+        """Evict least recently used idle contexts past max_models: never
+        a busy one or the newest."""
+        if self.max_models <= 0:
+            return
+        for name in list(self._lru):
+            if len(self.models) <= self.max_models:
+                return
+            ctx = self.models.get(name)
+            if ctx is None:
+                self._lru.remove(name)
+                continue
+            sched = ctx.scheduler
+            busy = (sched.n_active > 0 or not sched.pending.empty()
+                    or bool(sched._waitq))
+            if busy or name == self._lru[-1]:
+                continue
+            del self.models[name]
+            self._lru.remove(name)
+            self._release(ctx)
+            log.info(f"evicted idle model context '{name}' (budget "
+                     f"{self.max_models})")
+
+    def _release(self, ctx: ModelContext) -> None:
+        """Give an evicted context's device memory back: its scheduler's
+        (scheduler.release), then over a rank group every rank's dropped
+        shards and caches, then the allocator's cached blocks to CUDA."""
+        ctx.scheduler.release()
+        gc.collect()  # the graphs' and the snapshots' reference cycles
+        if self.ranks is not None:
+            self.ranks.release()
+        elif self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def _get(self, name: str) -> ModelContext:
         if name in self.models:
+            self._touch(name)
             return self.models[name]
         if "+" in name:
             return self._speculative(name)
@@ -285,9 +374,9 @@ class ServerContext:
             cfg, model = self._load(d)
         sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
-        ctx = ModelContext(name, sched, Tokenizer.from_model_dir(d), vlm=vlm)
-        self.models[name] = ctx
-        return ctx
+        return self._add(name, ModelContext(name, sched,
+                                            Tokenizer.from_model_dir(d),
+                                            vlm=vlm))
 
     def _speculative(self, name: str) -> ModelContext:
         """"main+draft" / "main+self:N": a speculating scheduler over the
@@ -352,9 +441,8 @@ class ServerContext:
         except ValueError as e:  # a tree the verify cannot take
             raise HTTPError(400, f"model '{name}': {e}") from e
         sched.start()
-        ctx = ModelContext(name, sched, base.tokenizer, vlm=base.vlm)
-        self.models[name] = ctx
-        return ctx
+        return self._add(name, ModelContext(name, sched, base.tokenizer,
+                                            vlm=base.vlm))
 
     def _start_image_workers(self) -> None:
         """The image worker processes, started and ready with the first
@@ -396,11 +484,24 @@ class ServerContext:
 
         return ids, ctx.scheduler.call(encode).result()
 
+    def session_ids(self, body: dict) -> list[int]:
+        """The token ids of the session a request names ("session"), to go
+        before its own prompt; none without one; an unknown one is a
+        404."""
+        sid = body.get("session")
+        if not sid:
+            return []
+        sess = self.sessions.get(sid)
+        if sess is None:
+            raise HTTPError(404, f"unknown session '{sid}'")
+        return list(sess["ids"])
+
     def close(self) -> None:
         with self._lock:
             for m in self.models.values():
                 m.scheduler.stop()
             self.models.clear()
+            self._lru.clear()
             if self.image_workers is not None:
                 self.image_workers.close()
                 self.image_workers = None
@@ -609,28 +710,36 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's name
         self._dispatch({"/v1/models": self._models, "/health": self._health,
-                        "/metrics": self._metrics})
+                        "/metrics": self._metrics,
+                        "/v1/sessions": self._session_list})
 
     def do_POST(self) -> None:  # noqa: N802 — http.server's name
         routes = {r: self._completion for r in
                   ("/completion", "/completions", "/v1/completions")}
         routes.update({r: self._chat for r in
                        ("/chat/completions", "/v1/chat/completions")})
+        routes["/v1/sessions"] = self._session_create
         self._dispatch(routes)
+
+    def do_DELETE(self) -> None:  # noqa: N802 — http.server's name
+        path = self.path.split("?", 1)[0]
+        prefix = "/v1/sessions/"
+        sid = path[len(prefix):] if path.startswith(prefix) else ""
+        self._dispatch({path: lambda: self._session_delete(sid)}
+                       if sid else {})
 
     # -- routes --------------------------------------------------------------
 
     def _completion(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        if body.get("session"):
-            raise HTTPError(400, "sessions are not ported yet")
         ctx = self.server_ctx.get(model_name)
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
             prompt = "".join(prompt)
         prompt_ids = ctx.tokenize(
             prompt, parse_special=bool(body.get("parse_special", True)))
+        prompt_ids = self.server_ctx.session_ids(body) + prompt_ids
         sampling = _sampling_from_body(body)
         _check_spec_compat(ctx, sampling)
         self._respond(ctx, prompt_ids, sampling, chat=False,
@@ -641,15 +750,14 @@ class _Handler(BaseHTTPRequestHandler):
     def _chat(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        if body.get("session"):
-            raise HTTPError(400, "sessions are not ported yet")
         ctx = self.server_ctx.get(model_name)
         messages, images = _split_multimodal(body.get("messages", []))
         prompt = ctx.tokenizer.apply_chat_template(messages)
+        prompt_ids = self.server_ctx.session_ids(body) + ctx.tokenize(prompt)
         sampling = _sampling_from_body(body, chat=True)
         _check_spec_compat(ctx, sampling)
-        prompt_ids, embeds = self.server_ctx.vlm_prompt(
-            ctx, ctx.tokenize(prompt), images)
+        prompt_ids, embeds = self.server_ctx.vlm_prompt(ctx, prompt_ids,
+                                                        images)
         self._respond(ctx, prompt_ids, sampling, chat=True,
                       stream=bool(body.get("stream")),
                       model_name=model_name or ctx.name,
@@ -681,6 +789,71 @@ class _Handler(BaseHTTPRequestHandler):
                  for name, m in list(self.server_ctx.models.items())
                  for k, v in m.scheduler.metrics().items()]
         self._text("\n".join(lines) + "\n")
+
+    def _session_create(self) -> None:
+        """POST /v1/sessions: prefill a prompt (or restore a file) and pin
+        its snapshot; save it to save_path when given."""
+        body = self._body()
+        sctx = self.server_ctx
+        model_name = body.get("model", sctx.default_model)
+        ctx = sctx.get(model_name)
+        sched = ctx.scheduler
+        if sched.prefix_cache is None:
+            raise HTTPError(400, "prefix cache disabled (hp.prefix_cache = 0)")
+        sid = body.get("id") or _now_id("sess")
+        if body.get("load_path"):
+            ids, groups = load_session_apart(body["load_path"])
+            try:
+                sched.insert_prefix(ids, groups, pin=True)
+            except ValueError as e:
+                raise HTTPError(400, f"session file: {e}") from e
+        else:
+            if body.get("messages"):
+                messages, _ = _split_multimodal(body["messages"])
+                prompt = ctx.tokenizer.apply_chat_template(
+                    messages, add_assistant_prompt=False)
+            else:
+                prompt = body.get("prompt", "")
+            if not prompt:
+                raise HTTPError(400, "empty session prompt")
+            ids = ctx.tokenize(prompt)
+            if len(ids) >= sched.max_seq - 2:
+                raise HTTPError(400, "session prompt exceeds n_ctx")
+            sched.pin_prefix(ids)
+            # the priming request: ids, then a token to feed the decode,
+            # so the prefill of ids completes and is pinned; its one
+            # greedy token is dropped
+            sampling = dict(temperature=0.0, top_k=1, top_p=1.0,
+                            penalty_repeat=1.0, max_tokens=1, seed=0,
+                            logprobs=0)
+            for _ in generate(ctx, ids + [ids[-1]], sampling, set()):
+                pass
+            if tuple(ids) not in sched.prefix_cache.entries:
+                raise HTTPError(500, "session prefill did not produce a "
+                                     "prefix")
+        if body.get("save_path"):
+            save_session(body["save_path"], ids, sched.export_prefix(ids))
+        name = model_name or ctx.name
+        sctx.sessions[sid] = {"id": sid, "model": name, "ids": ids,
+                              "created": int(time.time())}
+        self._json({"id": sid, "object": "session", "model": name,
+                    "tokens": len(ids)})
+
+    def _session_list(self) -> None:
+        self._json({"object": "list", "data": [
+            {"id": s["id"], "object": "session", "model": s["model"],
+             "tokens": len(s["ids"]), "created": s["created"]}
+            for s in list(self.server_ctx.sessions.values())]})
+
+    def _session_delete(self, sid: str) -> None:
+        sctx = self.server_ctx
+        sess = sctx.sessions.pop(sid, None)
+        if sess is None:
+            raise HTTPError(404, f"unknown session '{sid}'")
+        ctx = sctx.models.get(sess["model"])
+        if ctx is not None:
+            ctx.scheduler.drop_prefix(sess["ids"])
+        self._json({"id": sid, "deleted": True})
 
     def _respond(self, ctx: ModelContext, prompt_ids: list[int],
                  sampling: dict, chat: bool, stream: bool, model_name: str,
@@ -836,6 +1009,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="tree speculation verifies children sampled "
                          "without replacement (recursive rejection) "
                          "instead of exact-match on greedy top-k")
+    ap.add_argument("--max-models", type=int, default=0,
+                    help="evict least-recently-used idle model contexts "
+                         "past this count (0 = keep all)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: each model's heads, FFN "
                          "columns and vocab split over tp ranks "
@@ -881,7 +1057,8 @@ def main(argv: list[str] | None = None) -> int:
     hp.spec_tree = args.spec_tree or hp.spec_tree
     hp.spec_wor = args.spec_wor or hp.spec_wor
     ctx = ServerContext(root_dir, default, hp, args.device, tp=args.tp,
-                        dp=args.dp, dist_backend=args.dist_backend)
+                        dp=args.dp, dist_backend=args.dist_backend,
+                        max_models=args.max_models)
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")
     # SIGTERM ends the server as ^C does: the schedulers stop, and a rank

@@ -1865,3 +1865,113 @@ def test_tp_forward_over_two_ranks_on_the_card(dev, tmp_path):
             assert float(top2[0] - top2[1]) < 0.5
     finally:
         group.close()
+
+
+# -- KV-prefix persistence and multi-model eviction --------------------------
+
+
+def test_loaded_prefix_is_bit_exact_and_the_replayed_block_reads_it(
+        dev, tmp_path):
+    """save_prefix from the card, then load_prefix into the same engine's
+    cache after its decode block was captured: the slot holds the saved
+    codes and scales bit for bit, the cache keeps its storage, and the
+    replayed block after the load gives the eager twin's tokens and
+    cache bits (a load that made a new cache would leave the captured
+    graph reading the old one)."""
+    import numpy as np
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.kv.persist import load_prefix, save_prefix
+
+    cfg, model = _graph_model(tmp_path, "tiny-k", dev)
+    hp = HyperParams(max_slots=1, batch_size=8, max_seq_len=128)
+    hp.sampler.temperature = 0.0
+    path = tmp_path / "p.npz"
+
+    def run(eng):
+        first = list(eng.generate([1, 40, 41, 42, 43, 44, 45], 9))
+        if not path.exists():
+            save_prefix(eng.kv, path)
+        ptrs = [t.data_ptr() for t in eng.kv.storage]
+        eng.reset()
+        n = load_prefix(eng.kv, path)
+        assert [t.data_ptr() for t in eng.kv.storage] == ptrs
+        z = np.load(path)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            got = getattr(eng.kv, name)[:, 0, :, :n].cpu().numpy()
+            assert np.array_equal(got, z[name]), name
+        return first, list(eng.generate([1, 60, 61, 62], 12))
+
+    got = InferenceEngine(model, cfg, hp, device=dev)
+    ids, counts = _counted(lambda: run(got))
+    assert any(g.graph is not None for g in got.graphs.graphs.values())
+    want = InferenceEngine(model, cfg, hp, device=dev)
+    with _eager_steps():
+        twin, eager = _counted(lambda: run(want))
+    assert ids == twin and counts == eager
+    _same_cache_bits(got.kv, want.kv)
+
+
+def test_evicting_a_model_context_gives_its_memory_back(dev, tmp_path):
+    """ServerContext(max_models=1) over two model dirs, each served in
+    turn: an eviction stops the idle context and drops its weights, its
+    paged pool, its step graphs' pool and its pinned snapshot, so the
+    allocated bytes with one context resident come back to the same
+    value at every swap (the reserved ones within 5%), and no segment of
+    the evicted graphs' pool is left."""
+    import shutil
+    import time
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import Request
+    from powerserve_tpu_torch.serving.server import ServerContext
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    root = tmp_path / "root"
+    make_synthetic_gguf(root / "a", "tiny-k", GGMLType.Q4_K, seed=0,
+                        seq_len=128)
+    for f in (root / "a" / "model").iterdir():
+        f.rename(root / "a" / f.name)
+    shutil.copytree(root / "a", root / "b")
+    hp = HyperParams(max_slots=2, batch_size=8, max_seq_len=128,
+                     paged_pages=32, page_size=8)
+    ctx = ServerContext(root, "a", hp, dev, max_models=1)
+
+    def serve(name):
+        sched = ctx.get(name).scheduler
+        sched.pin_prefix(list(range(3, 23)))
+        done = []
+        sched.submit(Request(prompt_ids=list(range(3, 24)), max_tokens=12,
+                             temperature=0.0,
+                             sink=lambda t: t is None and done.append(1)))
+        for _ in range(2000):
+            if done:
+                break
+            time.sleep(0.01)
+        assert done and len(sched.prefix_cache.pinned) == 1
+        return sched
+
+    try:
+        seen = []
+        for name in ("a", "b", "a", "b", "a"):
+            sched = serve(name)
+            pool = tuple(sched.graphs.pool)
+            assert any(g.graph is not None
+                       for g in sched.graphs.graphs.values())
+            del sched
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            seen.append((torch.cuda.memory_allocated(dev),
+                         torch.cuda.memory_reserved(dev), pool))
+        assert list(ctx.models) == ["a"]
+        # from the second swap on, one context of the same size resident:
+        # the same allocated bytes, the reserved ones within 5%
+        assert len({s[0] for s in seen[1:]}) == 1, seen
+        reserved = [s[1] for s in seen[1:]]
+        assert max(reserved) <= 1.05 * min(reserved), seen
+        for *_, pool in seen[:-1]:  # every evicted context's graph pool
+            assert not any(tuple(seg["segment_pool_id"]) == pool
+                           for seg in torch.cuda.memory_snapshot())
+    finally:
+        ctx.close()
