@@ -237,6 +237,29 @@ Phases, each printing one JSON line:
              (core/quant.py's requantize_w8 on the card), held end to
              end as full_width is: the prefill and the decode step
              against the twins within LOGIT_REL
+  weight_format  (after cli) `run --weight-format w8` on tiny-k Q4_K on
+             cuda and on the cpu: tokens agree (near-tie rule), the W8
+             kernel launched, the fused head and the GGUF qmatmul not
+  trace      (after full_width) llama-8b generate untraced and under
+             core/trace.py's Trace: the same tokens, one prefill span a
+             chunk and one decode_step span a block, the port's kernels
+             among the trace's kernel events, decode tok/s traced and
+             not; then the paged plain tick's device-to-host copies under
+             torch.profiler (8 slots, pages of 64), which must be 1
+  w8_moe_full_width  (after serve_moe_full_width) mixtral-lite in W8:
+             the grouped mode of csrc/qmatmul_w8.cu on layer 0's slabs
+             at the gate and down shapes of a 512-token prefill (block_m
+             128), 32 decoding slots (block_m 16) and one token (block_m
+             1), each against its twin within 1e-4, twice bit for bit,
+             timed beside the Q4_K grouped mode at the same routing;
+             generate (512 + 64, replayed, a first and a steady call);
+             an S = 8 decode step with every W8 product held against its
+             twin; each MoE route under set_sync_debug_mode("error")
+  native     (last) core/native.py: a llama-8b-width Q4_K GGUF (4 layers,
+             a 32,000-token tied vocabulary) loaded onto the card with
+             the C++ repack and with the numpy twin, bit for bit, seconds
+             of each; a ~2,048-token prompt tokenized by the C++ merge
+             loop and by the Python loop, the same ids, ms of each
 Then a summary line (decode tok/s of full_width, w8_full_width and
 mixtral-lite, generated tok/s of the serve phases, spec_full_width's
 tok/s, each replayed and its eager twin's), the kernels line (launch
@@ -246,7 +269,8 @@ flash-prefill and paged flash-decode, mixtral-lite's generate for the
 grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
 the fused-linear modes and the state mode, tree_full_width's device tree
 for the tree mode, tree_serve_full_width for the paged tree mode and
-eagle_full_width's chain for concat2), the card's
+eagle_full_width's chain for concat2, w8_moe_full_width's steady
+generate for the grouped W8 mode), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -255,10 +279,13 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --kernels [--read-flush]
        python3 chip_smoke.py --vlm
        python3 chip_smoke.py --tp
+       python3 chip_smoke.py --ticks
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build and the two VLM phases; the fourth the
-build and the three tensor-parallel phases.
+build and the three tensor-parallel phases; the fifth the build and the
+paged plain tick's device-to-host copies on llama-8b (the scheduler's
+public surface only, so a copy of this script counts a parent tree's).
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -269,6 +296,7 @@ import contextlib
 import http.client
 import json
 import logging
+import os
 import shutil
 import statistics
 import subprocess
@@ -4049,6 +4077,501 @@ def phase_serve_tp(dev: torch.device) -> dict:
     return result
 
 
+# -- PR 16's phases: W8 from `run`, W8 expert slabs, tracing, the native
+#    host runtime ----------------------------------------------------------
+
+
+def phase_weight_format() -> dict:
+    """`run --weight-format w8` on tiny-k Q4_K (every projection has K =
+    256: all of them W8) on cuda and on the cpu plain path: greedy tokens
+    agree (near-tie rule, the cpu engine's logits); the cuda run launched
+    the W8 kernel and never the fused head."""
+    from powerserve_tpu_torch import run
+    from powerserve_tpu_torch.core.config import WorkspaceConfig
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = make_synthetic_gguf(f"{tmp}/tiny-k", "tiny-k", GGMLType.Q4_K,
+                                 seed=0, seq_len=256)
+        argv = ["-d", str(ws), "-p", "The quick brown fox", "-n", "16",
+                "--temperature", "0", "--no-progress", "--weight-format",
+                "w8"]
+        cuda_lib.reset_launch_counts()
+        gpu = run.run_prompt(run.parse_args(argv + ["--device", "cuda"]))
+        counts = cuda_lib.launch_counts()
+        missing = [k for k in ("qmatmul_w8", "flash_prefill", "flash_decode")
+                   if not counts[k]]
+        if missing or counts["fused_head"] or counts["qmatmul"]:
+            raise AssertionError(f"run --weight-format w8 on cuda: missing "
+                                 f"{missing} or a GGUF-format launch: "
+                                 f"{counts}")
+        cpu = run.run_prompt(run.parse_args(argv + ["--device", "cpu"]))
+        eng_cpu, _ = run.build_engine(
+            str(ws / "model"), WorkspaceConfig.load(ws).hyper_params, "cpu",
+            mxu=True)
+        gap = agree("run --weight-format w8", gpu.ids, cpu.ids, eng_cpu,
+                    gpu.prompt_ids)
+    return {"phase": "weight_format", "preset": "tiny-k", "format": "w8",
+            "tokens_cuda": gpu.ids, "tokens_cpu": cpu.ids,
+            "first_divergence": first_divergence(gpu.ids, cpu.ids),
+            "top2_gap": gap, "launches": counts}
+
+
+def w8_grouped_calls_check(fn) -> tuple[float, int]:
+    """Run fn with every grouped product of the forward computed by the
+    kernel and, on the same rows and tile ids, by its twin; each W8 one
+    within 1e-4 of its largest output. Returns (max error share, W8
+    calls)."""
+    from unittest import mock
+
+    import powerserve_tpu_torch.models.llama as llama
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_grouped,
+                                                  qmatmul_grouped_reference)
+
+    errs = []
+
+    def both(x, lin, ids, bm):
+        y = qmatmul_grouped(x, lin, ids, bm)
+        if lin.w8:
+            ref = qmatmul_grouped_reference(x, lin, ids, bm)
+            errs.append((y - ref).abs().max().item()
+                        / max(1.0, ref.abs().max().item()))
+        return y
+
+    with mock.patch.object(llama, "qmatmul_grouped", both):
+        fn()
+    if not errs or max(errs) > 1e-4:
+        raise AssertionError(f"W8 grouped products against their twin: "
+                             f"{len(errs)} calls, max error share "
+                             f"{max(errs or [0])}")
+    return max(errs), len(errs)
+
+
+def phase_w8_moe_full_width(dev: torch.device) -> tuple[dict, dict, list]:
+    """mixtral-lite in the W8 format (make_device_params(quant="w8"):
+    every projection W8, the expert slabs int8 [8, K, N] with per-128
+    scales): the grouped mode of csrc/qmatmul_w8.cu on layer 0's slabs,
+    routed by its router, at the gate (4096 -> 3584) and down (3584 ->
+    4096) shapes of a 512-token prefill (block_m 128, P = 2048, 1,024
+    routed rows), 32 decoding slots (block_m 16, 64 routed rows) and one
+    token (its top-2 slabs as one-row tiles), each against its twin within
+    1e-4 of the largest output, twice bit for bit, timed beside the Q4_K
+    grouped mode at the same shapes and routing; generate (512 + 64
+    greedy tokens, replayed, a first and a steady call); an S = 8 decode
+    step whose every grouped and dense W8 product is held against its twin
+    (random full-range int8 weights are not held end to end: PERF.md);
+    each MoE route under set_sync_debug_mode("error"). Returns (result,
+    the steady generate's launches, the kernel rows)."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import (GenerationStats,
+                                                       InferenceEngine)
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.llama import moe_route
+    from powerserve_tpu_torch.ops.moe import group_dispatch
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_grouped_cuda,
+                                                  qmatmul_grouped_reference,
+                                                  qmatmul_w8_grouped_cuda)
+    from powerserve_tpu_torch.tools.bench_params import (_rand_qlinear,
+                                                         make_device_params)
+
+    counted = Counted()
+    t0 = time.perf_counter()
+    cfg, model = make_device_params("mixtral-lite", "w8", seed=0, device=dev)
+    torch.cuda.synchronize()
+    llm = cfg.llm
+    E, k, dim, ffn = llm.n_experts, llm.n_experts_used, llm.dim, llm.hidden_dim
+    layer = model.layers[0]
+    if not (layer.w_gate_exps.w8 and layer.wqkv.w8 and model.lm_head.w8):
+        raise AssertionError("mixtral-lite w8: a weight is not W8")
+    result: dict = {"phase": "w8_moe_full_width", "card": card_line(),
+                    "preset": "mixtral-lite", "quant": "w8",
+                    "build_s": time.perf_counter() - t0,
+                    "layers": llm.n_layers, "experts": E, "top_k": k,
+                    "expert_int8_gb": sum(
+                        getattr(lw, n).q.numel() for lw in model.layers
+                        for n in ("w_gate_exps", "w_up_exps", "w_down_exps"))
+                    / 1e9}
+
+    # -- the grouped mode against its twin, beside Q4_K's
+    timer = Timer(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    q4 = {"gate": _rand_qlinear(g, dim, ffn, "q4_k", dev, E),
+          "down": _rand_qlinear(g, ffn, dim, "q4_k", dev, E)}
+    w8 = {"gate": layer.w_gate_exps, "down": layer.w_down_exps}
+    rows = []
+    for case, n_tok, bm in (("prefill 512 tokens", 512, 128),
+                            ("decode 32 slots", 32, 16),
+                            ("single token", 1, 1)):
+        h = torch.randn(n_tok, dim, generator=g, device=dev).to(
+            torch.bfloat16)
+        topi, topw = layer.route(h, k)
+        if bm == 1:
+            ids = topi[0].to(torch.int32)
+            rows_of = lambda t: t.expand(k, -1).contiguous()  # noqa: E731
+        else:
+            tok, _, ids = group_dispatch(topi, topw, E, 0, bm)
+            rows_of = lambda t: t[tok.clamp(min=0).long()]  # noqa: E731
+        distinct = int(ids.unique().numel())
+        routed = n_tok * k
+        for proj, K, N in (("gate", dim, ffn), ("down", ffn, dim)):
+            x = rows_of(h if proj == "gate" else torch.randn(
+                n_tok, K, generator=g, device=dev).to(torch.bfloat16))
+            for quant, stack, fn, peak in (
+                    ("w8", w8[proj], qmatmul_w8_grouped_cuda, INT8_OP_PER_S),
+                    ("q4_k", q4[proj], qmatmul_grouped_cuda,
+                     BF16_FLOP_PER_S)):
+                label = f"{quant} grouped {case} {proj}"
+                ref = qmatmul_grouped_reference(x, stack, ids, bm)
+                got = fn(x, stack, ids, bm)
+                err = (got - ref).abs().max().item()
+                if err > 1e-4 * max(1.0, ref.abs().max().item()):
+                    raise AssertionError(f"{label}: max abs err {err}")
+                if not torch.equal(got, fn(x, stack, ids, bm)):
+                    raise AssertionError(f"{label}: two runs gave different "
+                                         f"bits")
+                b, by = bound_ms(routed * K * x.element_size() + nbytes(ids)
+                                 + distinct * stack.nbytes() // E
+                                 + routed * N * 4, 2.0 * routed * N * K,
+                                 peak=peak)
+                rows.append(dict(
+                    case=case, proj=proj, quant=quant, k=K, n=N,
+                    block_m=bm, P=x.shape[0], routed_rows=routed,
+                    distinct_slabs=distinct, max_abs_err=err,
+                    ms=timer(lambda: fn(x, stack, ids, bm)),
+                    plain_ms=timer(lambda: qmatmul_grouped_reference(
+                        x, stack, ids, bm), reps=3),
+                    bound_ms=b, bound_by=by, library_ms=None))
+    del q4, timer
+    result["grouped_rows"] = rows
+
+    # -- generate: the grouped prefill (block_m 128), then the single-token
+    #    route, replayed; a first call and a steady one
+    gcpu = torch.Generator(device="cpu")
+    gcpu.manual_seed(2)
+    n_prompt, n_new = 512, 64
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=gcpu)
+    hp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=n_prompt)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    need = ("qmatmul_w8", "qmatmul_w8_grouped", "flash_prefill",
+            "flash_decode")
+    runs = []
+    for path in ("generate", "generate again"):
+        engine.reset()
+        stats = GenerationStats()
+        ids, gen_s = counted(path, need, lambda: list(engine.generate(
+            prompt.tolist(), n_new, stats=stats)),
+            absent=("fused_head", "qmatmul", "qmatmul_grouped"))
+        if len(ids) != n_new or not all(0 <= t < llm.vocab_size
+                                        for t in ids):
+            raise AssertionError(f"mixtral-lite w8 {path} gave {ids}")
+        runs.append((ids, stats))
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError("mixtral-lite w8: the steady generate's tokens "
+                             "differ from the first's")
+    graphs = graph_stats(engine.graphs)
+    del engine
+    result.update(routes_generate=[moe_route(n_prompt), moe_route(1)],
+                  prefill_tok_s=runs[1][1].prefill_speed,
+                  first_prefill_tok_s=runs[0][1].prefill_speed,
+                  generate_decode_tok_s=runs[0][1].decode_speed,
+                  generate_again_decode_tok_s=runs[1][1].decode_speed,
+                  generate_graphs=graphs, tokens=runs[0][0][:16])
+
+    # -- an S = 8 decode step (block_m 16): every W8 product, grouped and
+    #    dense, against its twin on its own input
+    kv = KVCache.create(llm.n_layers, 8, 256, llm.n_kv_heads, llm.head_size,
+                        dev)
+    toks = torch.randint(3, llm.vocab_size, (8, 65), generator=gcpu).to(dev)
+    pos = torch.arange(64, device=dev).expand(8, 64).contiguous()
+    model(kv, toks[:, :64], pos, logits_mode="none")
+    step = lambda: model(kv.clone(), toks[:, 64:],  # noqa: E731
+                         kv.pos.long()[:, None], logits_mode="last")
+    dense = {}
+    g_err, g_calls = w8_grouped_calls_check(
+        lambda: dense.update(calls=w8_calls_check(step)))
+    d_err, d_calls = dense["calls"]
+    result["decode_step"] = dict(route=moe_route(8), grouped_calls=g_calls,
+                                 grouped_err_share=g_err,
+                                 dense_calls=d_calls, dense_err_share=d_err)
+    del kv
+    # -- every route without a host sync
+    routes = []
+    for n in (1, 8, 512):
+        h = torch.randn(n, dim, generator=gcpu).to(dev, torch.bfloat16)
+        routes.append(moe_ffn_without_sync(f"mixtral-lite w8 {n} rows",
+                                           layer, h, k))
+    if set(map(tuple, routes)) != {("single", 1), ("grouped", 16),
+                                   ("grouped", 128)}:
+        raise AssertionError(f"mixtral-lite w8: routes driven {routes}")
+    result.update(sync_free_routes=routes, launches=counted.launches)
+    del model, layer
+    torch.cuda.empty_cache()
+    return result, counted.launches["generate again"], rows
+
+
+def paged_tick_copies(dev: torch.device, cfg, model, ticks: int = 8) -> dict:
+    """Device-to-host copies per plain decode tick of the scheduler over a
+    paged pool (8 slots, pages of 64): 8 requests admitted and prefilled,
+    the tick's step graph captured, then `ticks` decode ticks under
+    torch.profiler, counting its "Memcpy DtoH" device events. Uses only
+    the scheduler's public surface, so a parent tree runs it too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+
+    hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
+                     paged_pages=128, page_size=64, prefix_cache=0)
+    sched = BatchScheduler(model, cfg, hp, dev)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    done = []
+    for _ in range(8):
+        sched.submit(Request(
+            prompt_ids=torch.randint(3, cfg.llm.vocab_size, (100,),
+                                     generator=g).tolist(),
+            max_tokens=256, temperature=0.0,
+            sink=lambda t: t is None and done.append(1)))
+    warm = 0
+    while any(s.req is None or s.prefilling for s in sched.slots) or warm < 3:
+        if not any(s.req is None or s.prefilling for s in sched.slots):
+            warm += 1  # decode ticks: the first eager, then the capture
+        sched.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            sched.step()
+        torch.cuda.synchronize()
+    if done or any(s.req is None or s.prefilling for s in sched.slots):
+        raise AssertionError("paged tick copies: a slot left decoding")
+    copies = [e for e in prof.events()
+              if e.name.startswith("Memcpy DtoH")]
+    sched.release()
+    return {"ticks": ticks, "slots": 8, "decode_horizon": sched.horizon,
+            "dtoh_copies": len(copies),
+            "dtoh_copies_per_tick": len(copies) / ticks,
+            "copy_names": sorted({e.name for e in copies})}
+
+
+OWN_KERNELS = ("qmm_gemv_kernel", "qmm_mma_kernel", "flash_decode_kernel",
+               "flash_prefill_kernel", "prologue_kernel",
+               "argmax_reduce_kernel", "w8_")
+
+
+def phase_trace(dev: torch.device, cfg, model) -> dict:
+    """core/trace.py on llama-8b Q4_K: generate (a 256-token prompt in
+    128-token chunks, 16 greedy tokens in blocks of 4, replayed) untraced
+    and under Trace: the same tokens; the trace's prefill and decode_step
+    spans one a chunk and one a block; the port's kernels among its
+    kernel events; decode tok/s with and without the trace; then the
+    paged plain tick's device-to-host copies (paged_tick_copies), which
+    must be one."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.core.trace import Trace
+    from powerserve_tpu_torch.engine.generator import (GenerationStats,
+                                                       InferenceEngine)
+
+    llm = cfg.llm
+    g = torch.Generator(device="cpu")
+    g.manual_seed(6)
+    prompt = torch.randint(3, llm.vocab_size, (257,), generator=g).tolist()
+    hp = HyperParams(max_slots=1, max_seq_len=2048, batch_size=128)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    list(engine.generate(prompt, 16))  # the step graph captured
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("untraced", "traced", "untraced again"):
+            engine.reset()
+            stats = GenerationStats()
+            if label == "traced":
+                Trace.start_tracing(tmp)
+            ids = list(engine.generate(prompt, 16, stats=stats))
+            path = Trace.stop_tracing() if label == "traced" else None
+            out[label] = (ids, stats.decode_speed, path)
+        path = out["traced"][2]
+        trace_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    if len({tuple(v[0]) for v in out.values()}) != 1:
+        raise AssertionError(f"trace: the traced generate's tokens differ: "
+                             f"{[v[0] for v in out.values()]}")
+    spans = [e["name"] for e in events
+             if e.get("cat") == "user_annotation" and e.get("ph") == "X"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    own = {name: sum(name in k for k in kernels) for name in OWN_KERNELS}
+    n_pre, n_dec = spans.count(Trace.SPAN_PREFILL), spans.count(
+        Trace.SPAN_DECODE)
+    if (n_pre, n_dec) != (2, 16 // engine.horizon) or not (
+            own["qmm_gemv_kernel"] and own["flash_prefill_kernel"]
+            and own["flash_decode_kernel"]):
+        raise AssertionError(f"trace: spans prefill {n_pre}, decode_step "
+                             f"{n_dec}; the port's kernels {own}")
+    ticks = paged_tick_copies(dev, cfg, model)
+    if ticks["dtoh_copies_per_tick"] != 1:
+        raise AssertionError(f"paged plain tick: {ticks}")
+    return {"phase": "trace", "card": card_line(), "spans_prefill": n_pre,
+            "spans_decode_step": n_dec, "kernel_events": len(kernels),
+            "own_kernel_events": own, "trace_mb": trace_mb,
+            "decode_tok_s_untraced": out["untraced"][1],
+            "decode_tok_s_traced": out["traced"][1],
+            "decode_tok_s_untraced_again": out["untraced again"][1],
+            "paged_tick": ticks}
+
+
+def random_q4k(rng, n_out: int, k_in: int):
+    """A Q4_K payload [n_out, k_in] of random bytes with finite block
+    scales (fp16 d and dmin in [0, 0.01))."""
+    import numpy as np
+
+    nb = k_in // 256
+    blocks = rng.integers(0, 256, (n_out, nb, 144), dtype=np.uint8)
+    d = (rng.random((n_out, nb, 2), dtype=np.float32) * 0.01).astype(
+        np.float16)
+    blocks[..., :4] = d.view(np.uint8).reshape(n_out, nb, 4)
+    return blocks.reshape(-1)
+
+
+def phase_native(dev: torch.device) -> dict:
+    """The native host runtime (core/native.py): load_gguf_model of a
+    llama-8b-width Q4_K GGUF the script writes (random blocks; cut to 4
+    layers and a 32,000-token tied vocabulary) onto the card with the
+    C++ repack and with the numpy twin (core/quant.py): every weight bit
+    for bit, the seconds of each (the file in the page cache: warm);
+    then the tokenization of a ~2,048-token prompt on a 32k vocabulary of
+    random words and their pieces, by the C++ merge loop and by the
+    Python loop: the same ids, the ms of each."""
+    import random
+    from unittest import mock
+
+    import numpy as np
+
+    from powerserve_tpu_torch.core import native
+    from powerserve_tpu_torch.core.gguf import GGMLType, GGUFWriter
+    from powerserve_tpu_torch.models import loader
+    from powerserve_tpu_torch.tokenizer import Tokenizer
+    from powerserve_tpu_torch.tokenizer.vocab import GGUFVocab
+    from powerserve_tpu_torch.tools.synthetic import _simple_vocab
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    dim, ffn, L, H, Hkv, V = 4096, 14336, 4, 32, 8, 32000
+    hd = dim // H
+    rng = np.random.default_rng(0)
+    w = GGUFWriter()
+    md = w.metadata
+    for key, val in (("embedding_length", dim), ("feed_forward_length", ffn),
+                     ("block_count", L), ("attention.head_count", H),
+                     ("attention.head_count_kv", Hkv),
+                     ("context_length", 2048), ("rope.dimension_count", hd),
+                     ("rope.freq_base", 500000.0),
+                     ("attention.layer_norm_rms_epsilon", 1e-5),
+                     ("vocab_size", V)):
+        md[f"llama.{key}"] = val
+    md["general.architecture"] = "llama"
+    toks, scores, types = _simple_vocab(V)
+    md.update({"tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": toks,
+               "tokenizer.ggml.scores": scores,
+               "tokenizer.ggml.token_type": types})
+
+    def q4k(name, n_out, k_in):
+        w.add_tensor(name, (k_in, n_out), GGMLType.Q4_K,
+                     random_q4k(rng, n_out, k_in))
+
+    q4k("token_embd.weight", V, dim)
+    w.add_float_tensor("output_norm.weight", np.ones(dim, np.float32))
+    for i in range(L):
+        pre = f"blk.{i}."
+        for name in ("attn_norm", "ffn_norm"):
+            w.add_float_tensor(pre + name + ".weight",
+                               np.ones(dim, np.float32))
+        for name, n_out, k_in in (("attn_q", H * hd, dim),
+                                  ("attn_k", Hkv * hd, dim),
+                                  ("attn_v", Hkv * hd, dim),
+                                  ("attn_output", dim, H * hd),
+                                  ("ffn_gate", ffn, dim),
+                                  ("ffn_up", ffn, dim),
+                                  ("ffn_down", dim, ffn)):
+            q4k(f"{pre}{name}.weight", n_out, k_in)
+    result = {"phase": "native", "card": card_line(), "build_s": build_s,
+              "gguf": {"dim": dim, "ffn": ffn, "heads": H, "kv_heads": Hkv,
+                       "layers": L, "vocab": V, "quant": "q4_k",
+                       "reduced": ["layers 32 -> 4",
+                                   "vocab 128256 -> 32000, tied"]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/weights.gguf"
+        w.write(path)
+        del w
+        result["gguf"]["bytes"] = os.path.getsize(path)
+        loads = {}
+        for label in ("native", "numpy"):
+            with (mock.patch.object(loader, "native_repack",
+                                    lambda *a: None)
+                  if label == "numpy" else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = loader.load_gguf_model(path, device=dev)
+                torch.cuda.synchronize()
+                loads[label] = (time.perf_counter() - t0, m.state_dict())
+        a, b = loads["native"][1], loads["numpy"][1]
+        if a.keys() != b.keys() or not all(torch.equal(a[n], b[n])
+                                           for n in a):
+            raise AssertionError("native: the C++ repack's weights differ "
+                                 "from the numpy twin's")
+        result.update(load_s_native=loads["native"][0],
+                      load_s_numpy=loads["numpy"][0], tensors=len(a),
+                      bit_equal=True)
+        del loads, a, b
+    torch.cuda.empty_cache()
+
+    # -- tokenization: random words, each with every prefix (after the
+    #    SPM space) and every piece of up to 4 letters in the vocabulary
+    rnd = random.Random(0)
+    words = ["".join(rnd.choice("abcdefghijklmnopqrstuvwxyz")
+                     for _ in range(rnd.randint(3, 9))) for _ in range(3000)]
+    pieces = {"▁" + wd[:i] for wd in words for i in range(1, len(wd) + 1)}
+    pieces |= {wd[i:j] for wd in words for i in range(len(wd))
+               for j in range(i + 1, min(i + 4, len(wd)) + 1)}
+    vocab, _, vtypes = _simple_vocab(259)
+    vocab += sorted(pieces)[:32000 - 259]
+    vtypes += [1] * (len(vocab) - len(vtypes))
+    vscores = [0.0] * 259 + [-i * 1e-4 for i in range(len(vocab) - 259)]
+    tok = Tokenizer(vocab=GGUFVocab.from_metadata({
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": vocab,
+        "tokenizer.ggml.scores": vscores, "tokenizer.ggml.token_type": vtypes,
+        "tokenizer.ggml.bos_token_id": 1, "tokenizer.ggml.eos_token_id": 2,
+        "tokenizer.ggml.unknown_token_id": 0}), bos_id=1, eos_id=2,
+        stop_ids={2}, add_bos=True)
+    text = " ".join(rnd.choice(words) for _ in range(2047))
+    ids = tok.tokenize(text)  # the C++ vocab made here
+    times = {}
+    for label in ("native", "python"):
+        v = tok.vocab
+        with (mock.patch.multiple(
+                v, _spm_encode_fragment=v._spm_encode_fragment_py,
+                _bpe_encode_word=v._bpe_encode_word_py)
+              if label == "python" else contextlib.nullcontext()):
+            runs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = tok.tokenize(text)
+                runs.append((time.perf_counter() - t0) * 1e3)
+        if got != ids:
+            raise AssertionError("native: the C++ merge loop's ids differ "
+                                 "from the Python loop's")
+        times[label] = statistics.median(runs)
+    result.update(tokenize_tokens=len(ids), tokenize_vocab=len(vocab),
+                  tokenize_ms_native=times["native"],
+                  tokenize_ms_python=times["python"])
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4084,6 +4607,14 @@ def main() -> int:
         emit(phase_serve_tp(dev))
         print(card, flush=True)
         return 0
+    if "--ticks" in sys.argv[1:]:
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        emit({"phase": "ticks", "card": card,
+              **paged_tick_copies(dev, cfg, model)})
+        print(card, flush=True)
+        return 0
     if "--vlm" in sys.argv[1:]:
         torch.zeros(1, device=dev)  # the allocator, before its peak reset
         vlm, vlm_ref = phase_vlm_full_width(dev)
@@ -4093,6 +4624,7 @@ def main() -> int:
         return 0
     kernels = phase_kernels(dev)
     emit(phase_cli())
+    emit(phase_weight_format())
     emit(phase_serve())
     from powerserve_tpu_torch.tools.bench_params import make_device_params
 
@@ -4103,6 +4635,8 @@ def main() -> int:
           "build_s": time.perf_counter() - t0})
     full, counts = phase_full_width(dev, cfg, model, "full_width")
     emit(full)
+    trace = phase_trace(dev, cfg, model)
+    emit(trace)
     serve, serve_counts = phase_serve_full_width(dev, cfg, model,
                                                  "serve_full_width")
     emit(serve)
@@ -4155,6 +4689,8 @@ def main() -> int:
     emit(serve_moe)
     del cfg, model
     torch.cuda.empty_cache()
+    w8_moe, w8_moe_counts, w8_grouped_rows = phase_w8_moe_full_width(dev)
+    emit(w8_moe)
     # on random full-range int8 weights the kernels and the twins agree
     # product by product but not end to end: their int8 activation codes
     # agree through the early layers, then jump apart in the last ones
@@ -4170,9 +4706,22 @@ def main() -> int:
     w8_requantize(model)
     emit(phase_full_width(dev, cfg, model, "w8_requantized")[0])
     del cfg, model
+    torch.cuda.empty_cache()
+    nat = phase_native(dev)
+    emit(nat)
     # launches from the run of each kernel's own path
+    # the W8 grouped mode's row: mixtral-lite W8's prefill gate
+    w8g = next(r for r in w8_grouped_rows if r["quant"] == "w8"
+               and r["block_m"] == 128 and r["proj"] == "gate")
+    kernels.append(dict(
+        name="qmatmul_w8_grouped", route="cuda",
+        source="powerserve_tpu_torch/csrc/qmatmul_w8.cu",
+        replaces="powerserve_tpu/ops/qmatmul.py:236", launches=0,
+        **{key: w8g[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")}))
     own = {"flash_prefill": serve_counts, "flash_decode_paged": serve_counts,
            "qmatmul_grouped": moe_counts, "qmatmul_w8": w8_counts,
+           "qmatmul_w8_grouped": w8_moe_counts,
            # the fused layer chain: the 4-layer self-draft's generate; the
            # factored head's V: its generate; the state mode: the server
            **{name: spec_counts["self_draft_4"]
@@ -4272,7 +4821,20 @@ def main() -> int:
           "evicted_freed_share": [e["freed_share"]
                                   for e in evict["evictions"]],
           "tp_full_width_ranks": tp_full["ranks"],
-          "tp_full_width_decode_tok_s": tp_full["decode_tok_s"]})
+          "tp_full_width_decode_tok_s": tp_full["decode_tok_s"],
+          "w8_mixtral_lite_generate_decode_tok_s":
+              w8_moe["generate_decode_tok_s"],
+          "w8_mixtral_lite_generate_again_decode_tok_s":
+              w8_moe["generate_again_decode_tok_s"],
+          "w8_mixtral_lite_prefill_tok_s": w8_moe["prefill_tok_s"],
+          "trace_decode_tok_s_traced": trace["decode_tok_s_traced"],
+          "trace_decode_tok_s_untraced": trace["decode_tok_s_untraced"],
+          "paged_tick_dtoh_copies": trace["paged_tick"][
+              "dtoh_copies_per_tick"],
+          "native_load_s": nat["load_s_native"],
+          "numpy_load_s": nat["load_s_numpy"],
+          "native_tokenize_ms": nat["tokenize_ms_native"],
+          "python_tokenize_ms": nat["tokenize_ms_python"]})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -49,6 +49,19 @@
 //    [K, N]: the twin, dequant, requantize_w8 and the parameter tools
 //    read it; stored [N, K] the transpose would go.
 // Ragged M, N are masked; K is a multiple of 128 by format.
+//
+// Grouped mode (ps_qmatmul_w8_grouped): the weights are a stack of E
+// slabs, q int8 [E, K, N] and s f32 [E, K/128, N] (the MoE expert FFN in
+// W8), and rows [i * block_m, (i + 1) * block_m) of x multiply slab
+// tile_ids[i] (device int32, clipped into the stack). The quantize pass
+// runs over all rows as above; each block of the product reads its
+// tile's slab index and moves its weight and scale bases there, and
+// nothing else changes: block_m 1..16 runs the GEMV with one grid layer
+// per tile, block_m 128 the GEMM with one 128-row tile per slab (the x8
+// tensor map as it is). The JAX package has no grouped W8 kernel: its
+// W8 expert slabs go through XLA (ops/qmatmul.py::_qmatmul_xla_grouped,
+// a scan that dequantizes one slab per tile). Bound: the routed slabs'
+// bytes at decode-sized tiles, their int8 operations at block_m 128.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -129,11 +142,23 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
   c[3] = __byte_perm(t1, t3, 0x7632);
 }
 
+// One layer of the grid (blockIdx.z) per tile of M rows; with tile_ids,
+// tile z reads slab tile_ids[z] of the stack (the grouped mode).
 template <int MT>
 __global__ __launch_bounds__(256) void w8_gemv_kernel(
     const int8_t* __restrict__ x8, const float* __restrict__ sx,
     const uint8_t* __restrict__ q, const float* __restrict__ s, int M, int K,
-    int N, float* out, int kb_per_split) {
+    int N, float* out, int kb_per_split, const int* tile_ids, int n_slabs) {
+  // written before the quantize pass started: readable before the wait
+  const int tile = blockIdx.z;
+  if (tile_ids) {
+    const long e = min(max(tile_ids[tile], 0), n_slabs - 1);
+    q += e * K * N;
+    s += e * (K / kW8Block) * N;
+  }
+  x8 += (long)tile * M * K;
+  sx += (long)tile * M;
+  out += (long)tile * M * N;
   const int lane = threadIdx.x;
   const int ty = threadIdx.y;
   const int n0 = (blockIdx.x * 32 + lane) * 4;
@@ -307,6 +332,8 @@ struct W8GemmArgs {
   int M, K, N;
   int wvec;  // weight rows copy 16 bytes at a time (N % 16 == 0)
   int svec;  // scale rows copy 16 bytes at a time (N % 4 == 0)
+  const int* tile_ids;  // grouped mode: M tile i reads slab tile_ids[i]
+  int n_slabs;
 };
 
 __global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
@@ -317,6 +344,14 @@ __global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m_base = blockIdx.x * GBM, n_base = blockIdx.y * GBN;
   const int N = a.N, n_units = a.K / kW8Block;
+  // this tile's slab (grouped mode): only the weight and scale bases move
+  const uint8_t* wq = a.q;
+  const float* ws_scale = a.s;
+  if (a.tile_ids) {
+    const long e = min(max(a.tile_ids[blockIdx.x], 0), a.n_slabs - 1);
+    wq += e * a.K * N;
+    ws_scale += e * n_units * N;
+  }
   const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(smem + L::B0);
 
   // x of unit u into x slot u % kXStages by TMA (one thread); rows past M
@@ -356,20 +391,20 @@ __global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
         const int r = e >> 3, c = (e & 7) * 16;
         const bool ok = n_base + c < N;
         cp_async16(ws + r * GBN + c,
-                   a.q + (ok ? (row0 + r) * N + n_base + c : 0), ok);
+                   wq + (ok ? (row0 + r) * N + n_base + c : 0), ok);
       }
     } else {
       for (int e = tid; e < W_TILE; e += kGemmThreads) {
         const int r = e >> 7, c = e & 127;
-        ws[e] = n_base + c < N ? __ldg(a.q + (row0 + r) * N + n_base + c) : 0;
+        ws[e] = n_base + c < N ? __ldg(wq + (row0 + r) * N + n_base + c) : 0;
       }
     }
     float* ss = reinterpret_cast<float*>(ws + W_TILE);
-    const float* src = a.s + (long)u * N + n_base;
+    const float* src = ws_scale + (long)u * N + n_base;
     if (a.svec) {
       if (tid < GBN / 4) {
         const bool ok = n_base + 4 * tid < N;
-        cp_async16(ss + 4 * tid, ok ? src + 4 * tid : a.s, ok);
+        cp_async16(ss + 4 * tid, ok ? src + 4 * tid : ws_scale, ok);
       }
     } else if (tid < GBN) {
       ss[tid] = n_base + tid < N ? __ldg(src + tid) : 0.f;
@@ -504,8 +539,8 @@ __global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
 
 // K splits of the GEMV: about four blocks per SM, each split at least
 // eight 128-deep blocks (one per warp), at most a portable cluster
-int w8_splits(int K, int N) {
-  const int blocks = (N + kGemvCols - 1) / kGemvCols;
+int w8_splits(int K, int N, int tiles) {
+  const int blocks = (N + kGemvCols - 1) / kGemvCols * tiles;
   const int want = (4 * sm_count() + blocks - 1) / blocks;
   return max(1, min(min(want, K / kW8Block / 8), kMaxSplits));
 }
@@ -538,21 +573,47 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// M rows a tile, `tiles` tiles (tile_ids null: one tile, one weight)
 template <int MT>
 cudaError_t launch_w8_gemv(const int8_t* x8, const float* sx,
                            const uint8_t* q, const float* s, int M, int K,
-                           int N, float* out, cudaStream_t stream) {
-  const int splits = w8_splits(K, N);
+                           int N, float* out, int tiles, const int* tile_ids,
+                           int n_slabs, cudaStream_t stream) {
+  const int splits = w8_splits(K, N, tiles);
   const int KB = K / kW8Block;
   return launch_dependent(w8_gemv_kernel<MT>,
-                          dim3((N + kGemvCols - 1) / kGemvCols, splits),
+                          dim3((N + kGemvCols - 1) / kGemvCols, splits, tiles),
                           dim3(32, kGemvWarps), 0, splits, stream, x8, sx, q,
-                          s, M, K, N, out, (KB + splits - 1) / splits);
+                          s, M, K, N, out, (KB + splits - 1) / splits,
+                          tile_ids, n_slabs);
+}
+
+// The GEMV of M <= 16 rows a tile, at the smallest row count it holds
+cudaError_t launch_w8_gemv_rows(const int8_t* x8, const float* sx,
+                                const uint8_t* q, const float* s, int M,
+                                int K, int N, float* out, int tiles,
+                                const int* tile_ids, int n_slabs,
+                                cudaStream_t stream) {
+  if (M <= 1)
+    return launch_w8_gemv<1>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
+                             n_slabs, stream);
+  if (M <= 2)
+    return launch_w8_gemv<2>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
+                             n_slabs, stream);
+  if (M <= 4)
+    return launch_w8_gemv<4>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
+                             n_slabs, stream);
+  if (M <= 8)
+    return launch_w8_gemv<8>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
+                             n_slabs, stream);
+  return launch_w8_gemv<16>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
+                            n_slabs, stream);
 }
 
 cudaError_t launch_w8_gemm(const int8_t* x8, const float* sx,
                            const uint8_t* q, const float* s, int M, int K,
-                           int N, float* out, cudaStream_t stream) {
+                           int N, float* out, const int* tile_ids,
+                           int n_slabs, cudaStream_t stream) {
   static const cudaError_t attr_rc = cudaFuncSetAttribute(
       w8_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       W8Smem::BYTES);
@@ -573,7 +634,7 @@ cudaError_t launch_w8_gemm(const int8_t* x8, const float* sx,
     return cudaErrorInvalidValue;
   const auto al16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   const W8GemmArgs a{sx, q, s, out, M, K, N, N % 16 == 0 && al16(q),
-                     N % 4 == 0 && al16(s)};
+                     N % 4 == 0 && al16(s), tile_ids, n_slabs};
   return launch_dependent(w8_wgmma_kernel,
                           dim3((M + GBM - 1) / GBM, (N + GBN - 1) / GBN),
                           dim3(kGemmThreads), W8Smem::BYTES, 1, stream, tmx,
@@ -618,18 +679,44 @@ PS_EXPORT int ps_qmatmul_w8(const void* x, void* x8, void* sx,
   if (e != cudaSuccess) return (int)e;
   const int8_t* xc = xa;
   const float* sc = xs;
-  if (M <= 1)
-    e = launch_w8_gemv<1>(xc, sc, qw, sw, M, K, N, o, stream);
-  else if (M <= 2)
-    e = launch_w8_gemv<2>(xc, sc, qw, sw, M, K, N, o, stream);
-  else if (M <= 4)
-    e = launch_w8_gemv<4>(xc, sc, qw, sw, M, K, N, o, stream);
-  else if (M <= 8)
-    e = launch_w8_gemv<8>(xc, sc, qw, sw, M, K, N, o, stream);
-  else if (M <= 16)
-    e = launch_w8_gemv<16>(xc, sc, qw, sw, M, K, N, o, stream);
+  if (M <= 16)
+    e = launch_w8_gemv_rows(xc, sc, qw, sw, M, K, N, o, 1, nullptr, 1, stream);
   else
-    e = launch_w8_gemm(xc, sc, qw, sw, M, K, N, o, stream);
+    e = launch_w8_gemm(xc, sc, qw, sw, M, K, N, o, nullptr, 1, stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// The grouped mode: the quantize pass of x bf16 [P, K] (16-byte aligned)
+// into the scratch x8 int8 [P, K] (16-byte aligned) and sx f32 [P], then
+// the product: rows [i * block_m, (i + 1) * block_m) times slab
+// tile_ids[i] (int32 [P / block_m], clipped to [0, n_slabs)) of q int8
+// [n_slabs, K, N] with s f32 [n_slabs, K/128, N] -> out f32 [P, N];
+// block_m 1..16 on the GEMV, 128 on the GEMM. Returns the first launch
+// error.
+PS_EXPORT int ps_qmatmul_w8_grouped(const void* x, void* x8, void* sx,
+                                    const void* q, const void* s,
+                                    const void* tile_ids, void* out, int P,
+                                    int K, int N, int n_slabs, int block_m,
+                                    void* stream_ptr) {
+  if (K % kW8Block || P <= 0 || n_slabs <= 0 || block_m <= 0 ||
+      P % block_m || (block_m > 16 && block_m != GBM) ||
+      (block_m <= 16 && P / block_m > 65535))  // tiles on grid z
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  int8_t* xa = reinterpret_cast<int8_t*>(x8);
+  float* xs = reinterpret_cast<float*>(sx);
+  const uint8_t* qw = reinterpret_cast<const uint8_t*>(q);
+  const float* sw = reinterpret_cast<const float*>(s);
+  const int* ids = reinterpret_cast<const int*>(tile_ids);
+  float* o = reinterpret_cast<float*>(out);
+  cudaError_t e = launch_quantize(x, xa, xs, P, K, stream);
+  if (e != cudaSuccess) return (int)e;
+  if (block_m <= 16)
+    e = launch_w8_gemv_rows(xa, xs, qw, sw, block_m, K, N, o, P / block_m,
+                            ids, n_slabs, stream);
+  else
+    e = launch_w8_gemm(xa, xs, qw, sw, P, K, N, o, ids, n_slabs, stream);
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }

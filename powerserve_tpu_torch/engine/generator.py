@@ -25,6 +25,7 @@ import torch
 from ..core.config import HyperParams, ModelConfig
 from ..core.device import resolve_device
 from ..core.logging import Timer, get_logger
+from ..core.trace import Trace
 from ..kv.cache import KVCache
 from ..models.llama import LlamaModel
 from ..sampling.sampler import PenaltyState, sample_dist
@@ -121,9 +122,10 @@ class InferenceEngine:
             pos = torch.full((self.n_slots, use), -1, dtype=torch.int64)
             toks[slot] = torch.tensor(part, dtype=torch.int64)
             pos[slot] = start + off + torch.arange(use)
-            logits = self.model(self.kv, toks.to(self.device),
-                                pos.to(self.device), active=active,
-                                logits_mode="last")
+            with Trace.span(Trace.SPAN_PREFILL):
+                logits = self.model(self.kv, toks.to(self.device),
+                                    pos.to(self.device), active=active,
+                                    logits_mode="last")
         self._sync()
         if stats is not None:
             stats.prefill_tokens += n
@@ -151,14 +153,18 @@ class InferenceEngine:
         b["step"].zero_()
         g = self._step_graph()
         greedy = self.hp.sampler.temperature <= 0.0
-        for h in range(self.horizon):
-            dist = g()
-            if not greedy:
-                tok = torch.multinomial(dist, 1, generator=self.generator)
-                tok = tok[:, 0]
-                self.penalty.push(tok, active)
-                b["tok"].copy_(tok)
-                b["out"][:, h] = tok
+        # around the replays: a range inside the step's body would be
+        # recorded only when the graph is captured
+        with Trace.span(Trace.SPAN_DECODE):
+            for h in range(self.horizon):
+                dist = g()
+                if not greedy:
+                    tok = torch.multinomial(dist, 1,
+                                            generator=self.generator)
+                    tok = tok[:, 0]
+                    self.penalty.push(tok, active)
+                    b["tok"].copy_(tok)
+                    b["out"][:, h] = tok
         return b["out"][slot].tolist()
 
     def generate(self, prompt_tokens: list[int], n_predict: int,

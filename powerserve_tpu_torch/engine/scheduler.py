@@ -68,7 +68,10 @@ page grants keep each dp block's slots in that block's pages
 (PagePool(n_groups=dp)), and a starved slot preempts only a victim of
 its own block. EAGLE heads and requests with input rows are refused
 there (ROADMAP §1 item 8). Double-buffered ticks are not ported: like
-the plain tick, the spec tick syncs once.
+the plain tick, the spec tick syncs once. Each tick's one host fetch
+also refreshes a host mirror of every slot's cache position (pos_host),
+which admission and prefill keep up to date between ticks, so the paged
+pool grants pages without reading the card.
 Only the scheduler thread touches the device; submit() is thread-safe,
 and call(fn) runs fn on the scheduler thread between two steps (device
 work for a request, such as encoding its images, never lands inside a
@@ -354,6 +357,11 @@ class BatchScheduler:
         self._waitq: deque[Request] = deque()
         self.pending: queue.Queue[Request] = queue.Queue()
         self._jobs: queue.Queue[tuple[Callable, Future]] = queue.Queue()
+        # call() and stop(): a job is queued before stop sets the flag
+        # (and fails in its drain) or is refused
+        self._jobs_lock = threading.Lock()
+        # the host's mirror of kv.pos: each slot's cache position
+        self.pos_host = [0] * self.S
         self._ids = itertools.count()
         self._tick = 0
         self._stop = threading.Event()
@@ -373,10 +381,12 @@ class BatchScheduler:
 
     # -- front door -----------------------------------------------------------
 
+    _RELEASED = ("the scheduler was released (its model context was "
+                 "evicted)")
+
     def submit(self, req: Request) -> Request:
         if self.kv is None:
-            raise RuntimeError("the scheduler was released (its model "
-                               "context was evicted)")
+            raise RuntimeError(self._RELEASED)
         if req.embeds is not None and self.tp:
             raise ValueError("requests with input rows (images) under "
                              "tensor parallelism are not ported (ROADMAP "
@@ -400,9 +410,13 @@ class BatchScheduler:
 
     def call(self, fn: Callable) -> Future:
         """Run fn() on the scheduler thread before its next step; the
-        future holds its result or its exception."""
+        future holds its result or its exception. A stopped or released
+        scheduler refuses at once: nothing would run the job."""
         fut: Future = Future()
-        self._jobs.put((fn, fut))
+        with self._jobs_lock:
+            if self.kv is None or self._stop.is_set():
+                raise RuntimeError(self._RELEASED)
+            self._jobs.put((fn, fut))
         self._wake.set()
         return fut
 
@@ -497,7 +511,8 @@ class BatchScheduler:
             self._thread.start()
 
     def stop(self) -> None:
-        self._stop.set()
+        with self._jobs_lock:
+            self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
@@ -570,8 +585,9 @@ class BatchScheduler:
         positions this tick may write. When the pool runs dry the YOUNGEST
         page-holding request is preempted first (least work lost); a slot
         that is itself the youngest preempts itself. A lone request the
-        pool cannot serve finishes with 'length'."""
-        pos = self.kv.pos.tolist()
+        pool cannot serve finishes with 'length'. The positions come from
+        the host mirror: no read of the card."""
+        pos = self.pos_host
         keep = []
         for i in decoding:
             s = self.slots[i]
@@ -639,6 +655,7 @@ class BatchScheduler:
             slot.cur_token = req.prompt_ids[-1]
             slot.generated = []
             self.kv.reset_slot(i)
+            self.pos_host[i] = 0
             if self.d_kv is not None:
                 self.d_kv.reset_slot(i)
             if self.is_eagle:
@@ -651,6 +668,7 @@ class BatchScheduler:
                                         or "feat" in hit[1]):
                     n, saved = hit
                     self.kv.restore_slot_prefix(i, saved)
+                    self.pos_host[i] = n
                     if self.d_kv is not None:
                         self.d_kv.restore_slot_prefix(i, saved["draft"])
                     if self.is_eagle:
@@ -704,6 +722,7 @@ class BatchScheduler:
             if slot.req.embeds is not None:
                 overlay.append((i, slot.req.embeds[off:off + len(part)]))
             slot.prefill_off += len(part)
+            self.pos_host[i] = slot.prefill_off  # the chunk's writes
             if slot.prefill_off >= len(prompt):
                 slot.prefilling = False
                 if self.prefix_cache is not None and slot.req.embeds is None:
@@ -828,7 +847,7 @@ class BatchScheduler:
         top_i = top_i.astype(np.int64).reshape(self.S, self.horizon,
                                                -1).tolist()
         top_lp = top_lp.reshape(self.S, self.horizon, -1).tolist()
-        pos_host = pos_host.astype(np.int64).tolist()
+        self.pos_host = pos_host = pos_host.astype(np.int64).tolist()
         for i in decoding:
             s = self.slots[i]
             for h in range(self.horizon):
@@ -946,7 +965,9 @@ class BatchScheduler:
         next_tok = flat[n_e + H * S:n_e + H * S + S].tolist()
         # the committed length before the tick: every step advanced each
         # slot by its count
-        pos_pre = (flat[n_e + H * S + S:] - counts_h.sum(dim=0)).tolist()
+        pos_now = flat[n_e + H * S + S:]
+        self.pos_host = pos_now.tolist()
+        pos_pre = (pos_now - counts_h.sum(dim=0)).tolist()
         counts = counts_h.tolist()
         room = self.max_seq - H * (D + 1) - N
         self.n_spec_steps += H * len(decoding)

@@ -96,14 +96,14 @@ class InternVLModel:
         return self
 
 
-def internvl_from_workspace(model_dir, device: str | torch.device | None = None
-                            ) -> InternVLModel:
+def internvl_from_workspace(model_dir, device: str | torch.device | None = None,
+                            mxu: bool = False) -> InternVLModel:
     """A VLM from a GGUF model dir, onto `device` (default cuda): the text
     weights from weights.gguf, the vision tower and projector from
     vision.gguf (HF tensor names, vlm.* metadata), as the JAX package's
     tools/convert_hf.py convert_internvl writes them. An HF checkpoint
     dir is converted first with that tool: the port does not read
-    checkpoints."""
+    checkpoints. mxu: the text model in the W8 format (load_gguf_model)."""
     from ..core.gguf import GGUFReader
     from .loader import load_gguf_model
 
@@ -120,7 +120,7 @@ def internvl_from_workspace(model_dir, device: str | torch.device | None = None
         raise ValueError(f"{model_dir}: {what}; convert it to a GGUF "
                          f"workspace first (the JAX package's "
                          f"tools/convert_hf.py convert_internvl)")
-    cfg, llm = load_gguf_model(model_dir, device=dev)
+    cfg, llm = load_gguf_model(model_dir, device=dev, mxu=mxu)
     with GGUFReader(vision_path) as r:
         md = r.metadata
         sd = {name: r.tensor_float(name) for name in r.tensors}

@@ -6,6 +6,11 @@ blk.{i}.attn_q.weight, ...); an EAGLE draft head's GGUF
 (general.architecture "eagle") loads against its target model
 (load_eagle_gguf). Every GGUF type other than Q4_0, Q4_K and
 Q8_0 is requantized to Q8_0 at load (core/quant.py:repack_gguf_tensor).
+Q4_0, Q4_K, Q8_0 and Q6_K projections are repacked by the native
+runtime (core/native.py: multithreaded C++, bit-equal to
+repack_gguf_tensor and pack_nib4), as the JAX package's loader does;
+the other types, 4-bit weights the port keeps unpacked (K % 128 != 0)
+and W8 requantization take core/quant.py.
 MoE layers (Mixtral-as-llama, Qwen3-MoE) carry ffn_gate_inp (the router)
 and 3-D ffn_{gate,up,down}_exps tensors, loaded as expert stacks.
 
@@ -26,8 +31,9 @@ import torch
 
 from ..core.config import LLMConfig, ModelConfig, RopeConfig
 from ..core.device import resolve_device
-from ..core.gguf import GGUFReader
+from ..core.gguf import GGMLType, GGUFReader
 from ..core.logging import get_logger
+from ..core.native import native_repack
 from ..core.quant import repack_gguf_tensor
 from ..ops.elementwise import ROPE_TYPE_NEOX, ROPE_TYPE_NORM
 from ..ops.qmatmul import QLinear
@@ -38,6 +44,10 @@ log = get_logger("loader")
 # llama-family architectures sharing the same forward
 LLAMA_FAMILY = {"llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe",
                 "internlm2", "internlm3", "smallthinker", "internvl"}
+
+# load_gguf_model's formats as run/serve name them: the file's own, or
+# W8 (mxu=True)
+WEIGHT_FORMATS = ("gguf", "w8")
 
 _QLINEAR_META = ("packed", "unsigned", "in_features", "out_features",
                  "pack_group", "scale_group")
@@ -168,12 +178,33 @@ def _lm_head_from_embedding(emb: QEmbedding) -> QLinear:
                    in_features=q.shape[0], out_features=q.shape[1])
 
 
+def qlinear_from_payload(raw: np.ndarray, ggml_type: int,
+                         shape: tuple[int, int], pack: bool,
+                         device: str | torch.device,
+                         mxu: bool = False) -> QLinear:
+    """A GGUF weight payload [N_out, K_in] as a QLinear on `device`: the
+    native repack where it gives the layout the port keeps, else
+    core/quant.py's (the module docstring)."""
+    n_out, k_in = shape
+    is4bit = ggml_type in (GGMLType.Q4_0, GGMLType.Q4_K)
+    if not mxu and (not is4bit or (pack and k_in % 128 == 0)):
+        nat = native_repack(raw, ggml_type, n_out, k_in)
+        if nat is not None:
+            q, scales, bias, group, unsigned = nat
+            return QLinear(_tensor(q, device), _tensor(scales, device),
+                           None if bias is None else _tensor(bias, device),
+                           packed=group > 0, unsigned=unsigned,
+                           in_features=k_in, out_features=n_out,
+                           pack_group=group)
+    qt = repack_gguf_tensor(raw, ggml_type, shape)
+    return QLinear.from_quantized(qt, pack=pack, device=device, mxu=mxu)
+
+
 def _qlinear_from_gguf(reader: GGUFReader, name: str, pack: bool,
                        device: torch.device, mxu: bool = False) -> QLinear:
     info = reader.tensors[name]
-    qt = repack_gguf_tensor(reader.tensor_raw(name), info.ggml_type,
-                            info.shape)
-    return QLinear.from_quantized(qt, pack=pack, device=device, mxu=mxu)
+    return qlinear_from_payload(reader.tensor_raw(name), info.ggml_type,
+                                info.shape, pack, device, mxu)
 
 
 def _qlinear_experts(reader: GGUFReader, name: str, pack: bool,
@@ -185,10 +216,10 @@ def _qlinear_experts(reader: GGUFReader, name: str, pack: bool,
     n_exp = info.shape[0]
     raw = reader.tensor_raw(name)
     per = raw.size // n_exp
-    parts = [QLinear.from_quantized(
-        repack_gguf_tensor(raw[e * per:(e + 1) * per], info.ggml_type,
-                           tuple(info.shape[1:])), pack=pack, device="cpu")
-        for e in range(n_exp)]
+    parts = [qlinear_from_payload(raw[e * per:(e + 1) * per],
+                                  info.ggml_type, tuple(info.shape[1:]),
+                                  pack, "cpu")
+             for e in range(n_exp)]
     return QLinear.stack(parts).to(device)
 
 

@@ -38,7 +38,8 @@ LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
             "qmatmul_grouped": 0, "qmatmul_w8": 0, "fused_norm": 0,
             "fused_x": 0, "fused_x_argmax": 0, "fused_glu": 0,
             "fused_concat2": 0, "flash_decode_paged_state": 0,
-            "flash_decode_tree": 0, "flash_decode_paged_tree": 0}
+            "flash_decode_tree": 0, "flash_decode_paged_tree": 0,
+            "qmatmul_w8_grouped": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -128,6 +129,8 @@ def lib() -> ctypes.CDLL:
         L.ps_qmatmul_grouped.restype = I
         L.ps_qmatmul_w8.argtypes = [P] * 6 + [I] * 3 + [P]
         L.ps_qmatmul_w8.restype = I
+        L.ps_qmatmul_w8_grouped.argtypes = [P] * 7 + [I] * 5 + [P]
+        L.ps_qmatmul_w8_grouped.restype = I
         L.ps_w8_quantize.argtypes = [P] * 3 + [I] * 2 + [P]
         L.ps_w8_quantize.restype = I
         L.ps_fused_linear.argtypes = [I, I, P, P, P, I, I, P, F, P, P, P,

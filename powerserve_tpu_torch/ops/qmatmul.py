@@ -24,9 +24,11 @@ Two more forms, the JAX package's too:
     dots over each 128-deep block, each scaled by its block's scale,
     summed in f32, times the row scale.
   - expert stacks (MoE): q [E, K//2, N] or [E, K, N], scales and bias
-    [E, K//32, N]. `qmatmul_grouped` multiplies rows [i*block_m,
-    (i+1)*block_m) of x by slab tile_ids[i] (the grouped mode of
-    csrc/qmatmul.cu); `QLinear.slab(e)` is slab e as a 2-D view.
+    [E, K//32, N]; in W8 q int8 [E, K, N] and scales [E, K//128, N].
+    `qmatmul_grouped` multiplies rows [i*block_m, (i+1)*block_m) of x by
+    slab tile_ids[i] (the grouped mode of csrc/qmatmul.cu, or of
+    csrc/qmatmul_w8.cu for W8 slabs); `QLinear.slab(e)` is slab e as a
+    2-D view.
 
 Numerics of the kernel and its plain twin: x rounded to bf16, weights
 dequantized in f32, f32 accumulation, f32 out. Above GEMV_MAX_M rows
@@ -225,11 +227,19 @@ def qmatmul_reference(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
 def qmatmul_grouped_reference(x: torch.Tensor, lin: QLinear,
                               tile_ids: torch.Tensor,
                               block_m: int) -> torch.Tensor:
-    """Plain twin of the grouped kernel: x [P, K] -> f32 [P, N], rows of
+    """Plain twin of the grouped kernels: x [P, K] -> f32 [P, N], rows of
     tile i times slab tile_ids[i] (clipped into the stack). The weights
-    round to bf16 when block_m > GEMV_MAX_M, the kernel's tile split."""
+    round to bf16 when block_m > GEMV_MAX_M, the kernel's tile split; W8
+    slabs take qmatmul_w8_reference per tile (its rows quantize one by
+    one, so a tile's product is the dense one's)."""
     p, k = x.shape
     ids = tile_ids.long().clamp(0, lin.n_slabs - 1)
+    if lin.w8:
+        xt = x.reshape(p // block_m, block_m, k)
+        out = [qmatmul_w8_reference(xt[i], lin.slab(e))
+               for i, e in enumerate(ids.tolist())]
+        return (torch.cat(out) if out else
+                torch.zeros(0, lin.out_features, device=x.device))
     w = dequant(lin)
     if block_m > GEMV_MAX_M:
         w = w.to(torch.bfloat16).float()
@@ -288,10 +298,12 @@ def qmatmul_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     return out
 
 
-def _w8_rows(x: torch.Tensor, lin: QLinear | None) -> torch.Tensor:
+def _w8_rows(x: torch.Tensor, lin: QLinear | None,
+             stacked: bool = False) -> torch.Tensor:
     """Check x [M, K] on a CUDA device against the W8 weight `lin` (None:
-    K alone) and return it as the kernel's contiguous, 16-byte aligned
-    bf16 rows (the model's rows already are: no copy)."""
+    K alone; an expert stack if `stacked`) and return it as the kernel's
+    contiguous, 16-byte aligned bf16 rows (the model's rows already are:
+    no copy)."""
     dev = x.device
     m, k = x.shape
     if k % MXU_GROUP:
@@ -303,9 +315,10 @@ def _w8_rows(x: torch.Tensor, lin: QLinear | None) -> torch.Tensor:
                              f"scale_group {lin.scale_group} weight of K="
                              f"{lin.in_features}")
         n = lin.out_features
-        cuda_lib.require(lin.q, "q", dev, (torch.int8,), (k, n))
+        lead = (None,) if stacked else ()
+        cuda_lib.require(lin.q, "q", dev, (torch.int8,), (*lead, k, n))
         cuda_lib.require(lin.scales, "scales", dev, (torch.float32,),
-                         (k // MXU_GROUP, n))
+                         (*lead, k // MXU_GROUP, n))
         if lin.q.data_ptr() % 4:
             raise ValueError("q must be 4-byte aligned")
     if x.dtype != torch.bfloat16:
@@ -352,6 +365,45 @@ def qmatmul_w8_cuda(x: torch.Tensor, lin: QLinear) -> torch.Tensor:
     return out
 
 
+def _tile_ids(tile_ids: torch.Tensor, p: int, block_m: int,
+              device: torch.device) -> torch.Tensor:
+    """Check block_m against what the grouped kernels take and return
+    tile_ids as the kernels' contiguous int32 [P // block_m]."""
+    if not (1 <= block_m <= GEMV_MAX_M or block_m == GROUPED_MMA_M) \
+            or p % block_m:
+        raise ValueError(f"grouped qmatmul: block_m {block_m} (1..."
+                         f"{GEMV_MAX_M} or {GROUPED_MMA_M}) must tile "
+                         f"P={p}")
+    ids = tile_ids.to(torch.int32).contiguous()
+    cuda_lib.require(ids, "tile_ids", device, (torch.int32,),
+                     (p // block_m,))
+    return ids
+
+
+def qmatmul_w8_grouped_cuda(x: torch.Tensor, lin: QLinear,
+                            tile_ids: torch.Tensor,
+                            block_m: int) -> torch.Tensor:
+    """Launch the grouped mode of csrc/qmatmul_w8.cu: x [P, K] on a CUDA
+    device, a W8 expert stack, tile_ids [P // block_m] -> f32 [P, N]. One
+    C call: the quantize pass over all P rows, then the product."""
+    x = _w8_rows(x, lin, stacked=True)
+    dev = x.device
+    p, k = x.shape
+    n = lin.out_features
+    ids = _tile_ids(tile_ids, p, block_m, dev)
+    out = torch.empty(p, n, dtype=torch.float32, device=dev)
+    if p == 0:
+        return out
+    scratch = torch.empty(p * k + 4 * p, dtype=torch.uint8, device=dev)
+    rc = cuda_lib.lib().ps_qmatmul_w8_grouped(
+        x.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + p * k,
+        lin.q.data_ptr(), lin.scales.data_ptr(), ids.data_ptr(),
+        out.data_ptr(), p, k, n, lin.n_slabs, block_m, cuda_lib.stream(dev))
+    cuda_lib.LAUNCHES["qmatmul_w8_grouped"] += 1
+    cuda_lib.check(rc, "qmatmul_w8_grouped")
+    return out
+
+
 def qmatmul_grouped_cuda(x: torch.Tensor, lin: QLinear,
                          tile_ids: torch.Tensor,
                          block_m: int) -> torch.Tensor:
@@ -364,14 +416,7 @@ def qmatmul_grouped_cuda(x: torch.Tensor, lin: QLinear,
     n = lin.out_features
     if k != lin.in_features:
         raise ValueError(f"x has K={k}, weight K={lin.in_features}")
-    if not (1 <= block_m <= GEMV_MAX_M or block_m == GROUPED_MMA_M) \
-            or p % block_m:
-        raise ValueError(f"grouped qmatmul: block_m {block_m} (1..."
-                         f"{GEMV_MAX_M} or {GROUPED_MMA_M}) must tile "
-                         f"P={p}")
-    tiles = p // block_m
-    ids = tile_ids.to(torch.int32).contiguous()
-    cuda_lib.require(ids, "tile_ids", dev, (torch.int32,), (tiles,))
+    ids = _tile_ids(tile_ids, p, block_m, dev)
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:
         xb = xb.clone()
@@ -406,12 +451,12 @@ def qmatmul_grouped(x: torch.Tensor, lin: QLinear, tile_ids: torch.Tensor,
                     block_m: int) -> torch.Tensor:
     """Rows [i*block_m, (i+1)*block_m) of x [P, K] times slab tile_ids[i]
     of the expert stack `lin` -> f32 [P, N] (the MoE dispatch,
-    ops/moe.py). CUDA tensors run the kernel; CPU tensors the plain
-    twin."""
-    if lin.w8:
-        raise NotImplementedError("W8 expert slabs are not ported")
+    ops/moe.py). CUDA tensors run the kernel (the W8 kernel's grouped
+    mode for W8 slabs); CPU tensors the plain twin."""
     if x.shape[0] % block_m:
         raise ValueError(f"P={x.shape[0]} is not a multiple of {block_m}")
     if x.device.type == "cpu":
         return qmatmul_grouped_reference(x, lin, tile_ids, block_m)
+    if lin.w8:
+        return qmatmul_w8_grouped_cuda(x, lin, tile_ids, block_m)
     return qmatmul_grouped_cuda(x, lin, tile_ids, block_m)

@@ -454,10 +454,10 @@ class ShardCache:
         self.kv.assign_pages(np.where(mine, t - self.p_lo, n))
 
 
-def _model_from_gguf(group, path):
+def _model_from_gguf(group, path, mxu=False):
     from ..models.loader import load_gguf_model
 
-    return load_gguf_model(path, device=group.device)
+    return load_gguf_model(path, device=group.device, mxu=mxu)
 
 
 def _model_from_preset(group, preset, quant, seed):
@@ -693,11 +693,11 @@ class RankGroup:
     def _drop(self, oid: int) -> None:
         self._drops.append(oid)
 
-    def load(self, path, tp: int, dp: int = 1
+    def load(self, path, tp: int, dp: int = 1, mxu: bool = False
              ) -> tuple[ModelConfig, "TPModel"]:
-        """A GGUF model dir, sharded over a (tp, dp) mesh: (the global
-        config, rank 0's TPModel)."""
-        return self._model("gguf", tp, dp, str(path))
+        """A GGUF model dir (mxu: in the W8 format), sharded over a (tp,
+        dp) mesh: (the global config, rank 0's TPModel)."""
+        return self._model("gguf", tp, dp, str(path), mxu)
 
     def preset(self, preset: str, quant: str, seed: int, tp: int,
                dp: int = 1) -> tuple[ModelConfig, "TPModel"]:

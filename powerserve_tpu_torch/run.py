@@ -27,6 +27,12 @@ prompt (kv/persist.py: the JAX package's format, written in place), and
 slot's tokens after generation (the prompt and the generated tokens
 fed back). Both take the plain engine (no --draft, --self-draft-layers
 or --image).
+
+--weight-format w8 requantizes the GGUF's projections to the W8 format
+at load (int8 weights with per-128 scales, csrc/qmatmul_w8.cu): the
+target, a --draft model and a VLM's text model alike, as the JAX
+package's POWERSERVE_WEIGHT_FORMAT=w8 does (the port reads no
+environment). Default gguf: the GGUF's own formats.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from .engine.generator import GenerationStats, InferenceEngine
 from .engine.vlm import VLMEngine
 from .kv.persist import load_prefix, save_prefix
 from .models.internvl import internvl_from_workspace
-from .models.loader import gguf_architecture, load_eagle_gguf, load_gguf_model
+from .models.loader import (WEIGHT_FORMATS, gguf_architecture,
+                            load_eagle_gguf, load_gguf_model)
 from .speculative.chain import ChainSpecEngine, with_draft_head
 from .speculative.device_tree import DeviceTreeEngine, TreeTemplate
 from .speculative.draft_head import make_draft_head
@@ -66,9 +73,9 @@ class RunResult:
 
 
 def build_engine(model_dir: str, hp: HyperParams,
-                 device: str | torch.device | None = None
+                 device: str | torch.device | None = None, mxu: bool = False
                  ) -> tuple[InferenceEngine, Tokenizer]:
-    cfg, model = load_gguf_model(model_dir, device=device)
+    cfg, model = load_gguf_model(model_dir, device=device, mxu=mxu)
     tok = Tokenizer.from_model_dir(model_dir)
     try:
         nl_id = tok.tokenize("\n", add_bos=False)[-1]
@@ -94,6 +101,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="print only the final text, not each token")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
+    ap.add_argument("--weight-format", default="gguf", choices=WEIGHT_FORMATS,
+                    help="gguf: the file's formats; w8: requantize the "
+                         "projections to int8 with per-128 scales at load")
     ap.add_argument("--draft", default=None,
                     help="draft workspace or model dir: chain speculative "
                          "decoding")
@@ -147,7 +157,9 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     if args.prompt_file:
         prompt = Path(args.prompt_file).read_text()
 
-    log.info(f"loading model from {model_dir} on {args.device}")
+    log.info(f"loading model from {model_dir} on {args.device} "
+             f"({args.weight_format})")
+    mxu = args.weight_format == "w8"
     images = None
     spec = None
     if (args.load_kv or args.save_kv) and (
@@ -158,14 +170,14 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
                          "--spec-engine)")
     if args.image:
         images = [load_image(p) for p in args.image]
-        engine = VLMEngine(internvl_from_workspace(model_dir, args.device),
-                           hp, args.device)
+        engine = VLMEngine(internvl_from_workspace(model_dir, args.device,
+                                                   mxu=mxu), hp, args.device)
         tok = Tokenizer.from_model_dir(model_dir)
     elif args.draft or args.self_draft_layers or args.spec_engine != "chain":
         engine, tok = build_spec_engine(args, str(model_dir), hp)
         spec = SpecStats()
     else:
-        engine, tok = build_engine(str(model_dir), hp, args.device)
+        engine, tok = build_engine(str(model_dir), hp, args.device, mxu)
     if args.use_chat_template:
         prompt = tok.apply_chat_template([{"role": "user", "content": prompt}])
     ids = tok.tokenize(prompt)
@@ -223,11 +235,13 @@ def build_spec_engine(args: argparse.Namespace, model_dir: str,
     if draft_dir is None and not args.self_draft_layers:
         raise SystemExit(f"--spec-engine {args.spec_engine} needs --draft "
                          f"or --self-draft-layers")
-    cfg, model = load_gguf_model(model_dir, device=args.device)
+    mxu = args.weight_format == "w8"
+    cfg, model = load_gguf_model(model_dir, device=args.device, mxu=mxu)
     tok = Tokenizer.from_model_dir(model_dir)
     draft = d_cfg = None
     if args.spec_engine == "tree" or not args.self_draft_layers:
-        d_cfg, draft = load_gguf_model(draft_dir, device=args.device)
+        d_cfg, draft = load_gguf_model(draft_dir, device=args.device,
+                                       mxu=mxu)
     common = dict(max_seq=hp.max_seq_len,
                   prefill_chunk=max(int(hp.batch_size), 1),
                   device=args.device)
@@ -254,7 +268,8 @@ def build_eagle_engine(args: argparse.Namespace, model_dir: str,
                        head_dir: Path, hp: HyperParams):
     """EagleChainEngine over the head in head_dir: a chain of --spec-k,
     or with --spec-engine device-tree the tree of --spec-tree."""
-    cfg, model = load_gguf_model(model_dir, device=args.device)
+    cfg, model = load_gguf_model(model_dir, device=args.device,
+                                 mxu=args.weight_format == "w8")
     tok = Tokenizer.from_model_dir(model_dir)
     _, head = load_eagle_gguf(head_dir, model, cfg.llm, device=args.device)
     if args.draft_head_rank:

@@ -46,13 +46,15 @@ class LocalServer:
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  tp: int = 1, dp: int = 1, dist_backend: str | None = None,
-                 max_models: int = 0):
+                 max_models: int = 0, weight_format: str = "gguf"):
         """tp, dp, dist_backend: serve over tp * dp ranks; max_models:
-        keep at most that many model contexts loaded (ServerContext)."""
+        keep at most that many model contexts loaded; weight_format: gguf
+        or w8 (ServerContext)."""
         self.ctx = ServerContext(model_root, model, hp or HyperParams(),
                                  device, tp=tp, dp=dp,
                                  dist_backend=dist_backend,
-                                 max_models=max_models)
+                                 max_models=max_models,
+                                 weight_format=weight_format)
         self.default_model = model
 
     def _stream(self, mctx: ModelContext, prompt_ids: list[int],
@@ -86,13 +88,22 @@ class LocalServer:
             raise TypeError(f"unknown sampling params: {sorted(unknown)}")
         return _sampling_from_body(kw)
 
+    def _serve(self, model: str | None, prompt, sampling: dict,
+               stop: list[str]) -> Iterator[str]:
+        """The reply's pieces with the model's context in flight (no
+        eviction takes it) from the prompt's preparation to the end of the
+        stream: prompt(mctx) -> (ids, input rows or None)."""
+        with self.ctx.use(model or self.default_model) as mctx:
+            ids, embeds = prompt(mctx)
+            yield from self._stream(mctx, ids, sampling, stop, embeds)
+
     def completion(self, prompt: str, model: str | None = None,
                    stream: bool = False, stop: list[str] | None = None,
                    **sampling):
-        """Plain completion. stream=False -> str; True -> piece iterator."""
-        mctx = self.ctx.get(model or self.default_model)
-        it = self._stream(mctx, mctx.tokenize(prompt),
-                          self._sampling(sampling), stop or [])
+        """Plain completion. stream=False -> str; True -> piece iterator
+        (the prompt is prepared at its first piece)."""
+        it = self._serve(model, lambda mctx: (mctx.tokenize(prompt), None),
+                         self._sampling(sampling), stop or [])
         return it if stream else "".join(it)
 
     def chat(self, messages: list[dict], model: str | None = None,
@@ -100,12 +111,13 @@ class LocalServer:
              **sampling):
         """Chat completion through the model's chat template; OpenAI
         content arrays with data: image URIs run the VLM path."""
-        mctx = self.ctx.get(model or self.default_model)
         text_messages, images = _split_multimodal(messages)
-        prompt = mctx.tokenizer.apply_chat_template(text_messages)
-        ids, embeds = self.ctx.vlm_prompt(mctx, mctx.tokenize(prompt), images)
-        it = self._stream(mctx, ids, self._sampling(sampling), stop or [],
-                          embeds)
+
+        def prompt(mctx):
+            text = mctx.tokenizer.apply_chat_template(text_messages)
+            return self.ctx.vlm_prompt(mctx, mctx.tokenize(text), images)
+
+        it = self._serve(model, prompt, self._sampling(sampling), stop or [])
         return it if stream else "".join(it)
 
     def metrics(self, model: str | None = None) -> dict:

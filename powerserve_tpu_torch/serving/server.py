@@ -98,6 +98,7 @@ from __future__ import annotations
 import argparse
 import base64
 import binascii
+import contextlib
 import gc
 import json
 import queue
@@ -119,8 +120,8 @@ from ..engine.scheduler import BatchScheduler, Request
 from ..kv.persist import load_session_apart, save_session
 from ..models.internvl import InternVLModel, internvl_from_workspace
 from ..models.llama import LlamaModel
-from ..models.loader import (gguf_architecture, load_eagle_gguf,
-                             load_gguf_model)
+from ..models.loader import (WEIGHT_FORMATS, gguf_architecture,
+                             load_eagle_gguf, load_gguf_model)
 from ..parallel.distributed import default_backend
 from ..parallel.tp import start_rank_group
 from ..speculative.chain import self_draft_model, with_draft_head
@@ -216,6 +217,9 @@ class ModelContext:
     # tokenizers build lazy tables at first use: handler threads encode
     # one at a time
     lock: threading.Lock = field(default_factory=threading.Lock)
+    # requests between ServerContext.use and the end of their response
+    # (changed under ServerContext._lock): a context with any is busy
+    in_flight: int = 0
 
     def tokenize(self, text: str, **kw) -> list[int]:
         with self.lock:
@@ -229,13 +233,18 @@ class ServerContext:
     many ranks (parallel/tp.py), which the constructor starts over
     `dist_backend` (default: nccl on cuda, gloo on the cpu). max_models
     > 0 keeps at most that many contexts loaded (the least recently used
-    idle one is evicted); `sessions` are the HTTP sessions by id."""
+    idle one is evicted); `sessions` are the HTTP sessions by id.
+    weight_format "w8" loads every model dir in the W8 format (run.py's
+    --weight-format), "gguf" (default) in the file's formats."""
 
     def __init__(self, model_root: str | Path, default_model: str = "",
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  tp: int = 1, dp: int = 1, dist_backend: str | None = None,
-                 max_models: int = 0):
+                 max_models: int = 0, weight_format: str = "gguf"):
+        if weight_format not in WEIGHT_FORMATS:
+            raise ValueError(f"weight format {weight_format!r}: gguf or w8")
+        self.mxu = weight_format == "w8"
         self.root = Path(model_root)
         self.default_model = default_model
         self.hp = hp or HyperParams()
@@ -259,8 +268,8 @@ class ServerContext:
     def _load(self, d: Path) -> tuple[ModelConfig, LlamaModel]:
         """A model dir on this context's device, or over its ranks."""
         if self.ranks is not None:
-            return self.ranks.load(d, self.tp, self.dp)
-        return load_gguf_model(d, device=self.device)
+            return self.ranks.load(d, self.tp, self.dp, self.mxu)
+        return load_gguf_model(d, device=self.device, mxu=self.mxu)
 
     def resolve_dir(self, name: str) -> Path:
         p = self.root / name
@@ -304,6 +313,21 @@ class ServerContext:
         with self._lock:
             return self._get(name)
 
+    @contextlib.contextmanager
+    def use(self, name: str):
+        """The context of `name` (as get) for one request: in flight,
+        so no eviction takes it, until the with-block ends however it
+        ends."""
+        name = name or self.default_model or "default"
+        with self._lock:
+            ctx = self._get(name)
+            ctx.in_flight += 1
+        try:
+            yield ctx
+        finally:
+            with self._lock:
+                ctx.in_flight -= 1
+
     def _add(self, name: str, ctx: ModelContext) -> ModelContext:
         """Register a new context as the most recently used, then evict
         to the budget."""
@@ -319,7 +343,8 @@ class ServerContext:
 
     def _evict_to_budget(self) -> None:
         """Evict least recently used idle contexts past max_models: never
-        a busy one or the newest."""
+        a busy one (a request in flight, in its handler or in the
+        scheduler) or the newest."""
         if self.max_models <= 0:
             return
         for name in list(self._lru):
@@ -330,8 +355,8 @@ class ServerContext:
                 self._lru.remove(name)
                 continue
             sched = ctx.scheduler
-            busy = (sched.n_active > 0 or not sched.pending.empty()
-                    or bool(sched._waitq))
+            busy = (ctx.in_flight > 0 or sched.n_active > 0
+                    or not sched.pending.empty() or bool(sched._waitq))
             if busy or name == self._lru[-1]:
                 continue
             del self.models[name]
@@ -365,7 +390,7 @@ class ServerContext:
                                  f"item 8)")
         if self._is_vlm_dir(d):
             try:
-                vlm = internvl_from_workspace(d, self.device)
+                vlm = internvl_from_workspace(d, self.device, self.mxu)
             except ValueError as e:  # an HF checkpoint, not converted
                 raise HTTPError(400, f"model '{name}': {e}") from e
             cfg, model = vlm.cfg, vlm.llm
@@ -733,7 +758,11 @@ class _Handler(BaseHTTPRequestHandler):
     def _completion(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        ctx = self.server_ctx.get(model_name)
+        with self.server_ctx.use(model_name) as ctx:
+            self._complete(ctx, body, model_name)
+
+    def _complete(self, ctx: ModelContext, body: dict,
+                  model_name: str) -> None:
         prompt = body.get("prompt", "")
         if isinstance(prompt, list):
             prompt = "".join(prompt)
@@ -750,7 +779,11 @@ class _Handler(BaseHTTPRequestHandler):
     def _chat(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        ctx = self.server_ctx.get(model_name)
+        with self.server_ctx.use(model_name) as ctx:
+            self._chat_reply(ctx, body, model_name)
+
+    def _chat_reply(self, ctx: ModelContext, body: dict,
+                    model_name: str) -> None:
         messages, images = _split_multimodal(body.get("messages", []))
         prompt = ctx.tokenizer.apply_chat_template(messages)
         prompt_ids = self.server_ctx.session_ids(body) + ctx.tokenize(prompt)
@@ -794,9 +827,13 @@ class _Handler(BaseHTTPRequestHandler):
         """POST /v1/sessions: prefill a prompt (or restore a file) and pin
         its snapshot; save it to save_path when given."""
         body = self._body()
+        model_name = body.get("model", self.server_ctx.default_model)
+        with self.server_ctx.use(model_name) as ctx:
+            self._session_prime(ctx, body, model_name)
+
+    def _session_prime(self, ctx: ModelContext, body: dict,
+                       model_name: str) -> None:
         sctx = self.server_ctx
-        model_name = body.get("model", sctx.default_model)
-        ctx = sctx.get(model_name)
         sched = ctx.scheduler
         if sched.prefix_cache is None:
             raise HTTPError(400, "prefix cache disabled (hp.prefix_cache = 0)")
@@ -1029,6 +1066,9 @@ def main(argv: list[str] | None = None) -> int:
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels) or cpu (plain PyTorch path)")
+    ap.add_argument("--weight-format", default="gguf", choices=WEIGHT_FORMATS,
+                    help="gguf: the files' formats; w8: requantize the "
+                         "projections to int8 with per-128 scales at load")
     args = ap.parse_args(argv)
     for flag, val in (("--pp", args.pp > 1), ("--sp", args.sp > 1),
                       ("--gspmd", args.gspmd),
@@ -1058,7 +1098,8 @@ def main(argv: list[str] | None = None) -> int:
     hp.spec_wor = args.spec_wor or hp.spec_wor
     ctx = ServerContext(root_dir, default, hp, args.device, tp=args.tp,
                         dp=args.dp, dist_backend=args.dist_backend,
-                        max_models=args.max_models)
+                        max_models=args.max_models,
+                        weight_format=args.weight_format)
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")
     # SIGTERM ends the server as ^C does: the schedulers stop, and a rank

@@ -33,6 +33,7 @@ import torch
 from ..core.config import ModelConfig
 from ..core.device import resolve_device
 from ..core.logging import Timer
+from ..core.trace import Trace
 from ..kv.cache import KVCache
 from ..models.llama import DECODE_MAX_TQ, LlamaModel
 from ..sampling.sampler import draft_probs
@@ -137,13 +138,14 @@ class SpeculativeEngine:
         F = len(frontier_idx)
         c = self.commit_len
         depths = [tree.nodes[i].depth for i in frontier_idx]
-        logits = self.draft(
-            self.d_kv, self._rows(frontier_tokens, 0),
-            self._rows(c + np.asarray(depths)),
-            cache_positions=self._rows(c + np.asarray(frontier_idx)),
-            intra_mask=self._intra(tree, frontier_idx),
-            key_positions=self._rows(c + np.arange(tree.size)),
-            attn_mask=self._mask0, logits_mode="all")
+        with Trace.span(Trace.SPAN_DRAFT_FORWARD):
+            logits = self.draft(
+                self.d_kv, self._rows(frontier_tokens, 0),
+                self._rows(c + np.asarray(depths)),
+                cache_positions=self._rows(c + np.asarray(frontier_idx)),
+                intra_mask=self._intra(tree, frontier_idx),
+                key_positions=self._rows(c + np.arange(tree.size)),
+                attn_mask=self._mask0, logits_mode="all")
         probs, ids = draft_probs(logits[0, :F, :self.dcfg.llm.vocab_size],
                                  self.cfg.draft_top_k,
                                  self.cfg.draft_temperature)
@@ -161,12 +163,13 @@ class SpeculativeEngine:
 
         tree = grow_tree(self._root, self.cfg, draft_step)
         n = tree.size
-        sampled = self.target(
-            self.t_kv, self._rows(tree.tokens(), 0),
-            self._rows(c + tree.depths()),
-            cache_positions=self._rows(c + np.arange(n)),
-            intra_mask=self._intra(tree, list(range(n))),
-            logits_mode="argmax_all")
+        with Trace.span(Trace.SPAN_VERIFY):
+            sampled = self.target(
+                self.t_kv, self._rows(tree.tokens(), 0),
+                self._rows(c + tree.depths()),
+                cache_positions=self._rows(c + np.arange(n)),
+                intra_mask=self._intra(tree, list(range(n))),
+                logits_mode="argmax_all")
         sampled = sampled[0, :n].cpu().numpy()
         accepted, emitted = tree.accepted_chain(sampled)
         # both caches back to the committed prefix, then the root's and

@@ -15,12 +15,18 @@ Supported vocab models (tokenizer.ggml.model):
     byte fallback (<0xNN> tokens) and the U+2581 space convention.
   - "gpt2": byte-level BPE driven by a merge list, with the GPT-2
     byte<->unicode mapping and a llama3-style pre-tokenization regex.
+
+The SPM and BPE merge loops run in C++ (core/native.py NativeVocab, made
+at a vocab's first encode), as in the JAX package; the Python loops
+(_spm_encode_fragment_py, _bpe_encode_word_py) are their twins, which
+the tests hold the C++ loop to.
 """
 
 from __future__ import annotations
 
 import heapq
 import re
+import threading
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -38,6 +44,9 @@ TT_UNUSED = 5
 TT_BYTE = 6
 
 _SPM_SPACE = "▁"  # ▁
+
+# a vocab's C++ merge loop is made once, whichever thread encodes first
+_NATIVE_LOCK = threading.Lock()
 
 
 def _gpt2_byte_to_unicode() -> dict[int, str]:
@@ -130,6 +139,7 @@ class GGUFVocab:
     _merge_ranks: dict[tuple[str, str], int] = field(default_factory=dict)
     _byte_tokens: dict[int, int] = field(default_factory=dict)
     _special: list[tuple[str, int]] = field(default_factory=list)
+    _native_vocab: Any = field(default=None, repr=False, compare=False)
 
     @classmethod
     def from_metadata(cls, md: dict[str, Any]) -> "GGUFVocab":
@@ -267,8 +277,32 @@ class GGUFVocab:
             push(i)
         return [s for s in sym if s is not None]
 
+    def __getstate__(self):
+        # copies and pickles make their own C++ vocab: the handle is not
+        # theirs to free
+        return {**self.__dict__, "_native_vocab": None}
+
+    def _native(self):
+        """The C++ merge loop over this vocabulary (core/native.py)."""
+        if self._native_vocab is None:
+            from ..core.native import NativeVocab
+
+            with _NATIVE_LOCK:
+                if self._native_vocab is None:
+                    self._native_vocab = NativeVocab(
+                        self.tokens, self.scores, self._byte_tokens,
+                        self.unk_id, self.merges)
+        return self._native_vocab
+
     def _spm_encode_fragment(self, text: str) -> list[int]:
-        """Greedy score-based pair merging (SPM BPE semantics)."""
+        """Greedy score-based pair merging (SPM BPE semantics), by the C++
+        merge loop."""
+        if not text:
+            return []
+        return self._native().spm_encode(text.replace(" ", _SPM_SPACE))
+
+    def _spm_encode_fragment_py(self, text: str) -> list[int]:
+        """The Python twin of _spm_encode_fragment."""
         if not text:
             return []
         text = text.replace(" ", _SPM_SPACE)
@@ -295,7 +329,11 @@ class GGUFVocab:
         return ids
 
     def _bpe_encode_word(self, word: str) -> list[int]:
-        """Merge-rank BPE on a byte-mapped word."""
+        """Merge-rank BPE on a byte-mapped word, by the C++ merge loop."""
+        return self._native().bpe_encode(word)
+
+    def _bpe_encode_word_py(self, word: str) -> list[int]:
+        """The Python twin of _bpe_encode_word."""
 
         def pair_key(a: str, b: str):
             return self._merge_ranks.get((a, b))  # lowest rank first

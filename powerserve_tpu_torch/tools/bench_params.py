@@ -9,7 +9,8 @@ scales, vocabulary padded to a multiple of 256 (vocab_size is the padded
 size). MoE presets get a router uniform in [-0.05, 0.05] and expert
 stacks (gate and up dim -> ffn, down ffn -> dim, one slab per expert).
 quant "w8" gives the W8 format: int8 weights with f32 scales in
-[0.001, 0.021) per 128 rows, no minimum.
+[0.001, 0.021) per 128 rows, no minimum (expert stacks too: int8 [E, K,
+N], scales [E, K/128, N]).
 
 make_device_vision_params gives a random InternVL vision tower and
 projector at a vision preset's widths, make_device_internvl a whole
@@ -47,6 +48,8 @@ def _rand_qlinear(g: torch.Generator, k: int, n: int, quant: str,
                              device=dev, dtype=torch.int8)
 
     if quant == "w8":
+        if k % MXU_GROUP:
+            raise ValueError(f"W8: K={k} is not a multiple of {MXU_GROUP}")
         return QLinear(int8(k), uniform((k // MXU_GROUP, n), 0.001, 0.02,
                                         torch.float32), None, packed=False,
                        unsigned=False, in_features=k, out_features=n,
@@ -74,9 +77,6 @@ def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
     dev = resolve_device(device)
     p = PRESETS[preset]
     E = int(p.get("experts", 0))
-    if E and quant == "w8":
-        raise ValueError("W8 expert slabs are not ported: MoE presets take "
-                         "q4_0, q4_k or q8_0")
     dim, ffn, L = p["dim"], p["ffn"], p["layers"]
     H, Hkv, V = p["heads"], p["kv_heads"], p["vocab"]
     hd = dim // H

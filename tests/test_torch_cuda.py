@@ -31,8 +31,8 @@ from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
                                             norm_rounding_slack)
 from powerserve_tpu_torch.ops.qmatmul import (
     QLinear, qmatmul_cuda, qmatmul_grouped_cuda, qmatmul_grouped_reference,
-    qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_reference,
-    quantize_activations, quantize_activations_cuda)
+    qmatmul_reference, qmatmul_w8_cuda, qmatmul_w8_grouped_cuda,
+    qmatmul_w8_reference, quantize_activations, quantize_activations_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -140,6 +140,61 @@ def _sync_free(fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# counts a paged scheduler's device-to-host copies over 4 decode ticks,
+# in a process of its own: a profiler session over replayed CUDA graphs
+# leaves later sessions of the process without device events
+TICK_COPIES = r"""
+import sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from powerserve_tpu_torch.core.config import HyperParams
+from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+from powerserve_tpu_torch.models.loader import load_gguf_model
+from powerserve_tpu_torch.speculative.chain import self_draft_model
+
+cfg, model = load_gguf_model(sys.argv[1], device="cuda")
+hp = HyperParams(max_slots=4, batch_size=16, max_seq_len=256,
+                 paged_pages=64, page_size=8, prefix_cache=0, spec_k=2)
+sched = BatchScheduler(model, cfg, hp, "cuda", draft=self_draft_model(
+    model, 1) if sys.argv[2] == "chain" else None)
+for i in range(4):
+    sched.submit(Request(prompt_ids=list(range(3 + i, 20 + i)),
+                         max_tokens=200, temperature=0.0))
+warm = 0  # admission, prefill, the eager tick, the capture, a replay
+while warm < 3:
+    warm += all(s.req is not None and not s.prefilling for s in sched.slots)
+    sched.step()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(4):
+        sched.step()
+    torch.cuda.synchronize()
+copies = [e.name for e in prof.events() if e.name.startswith("Memcpy DtoH")]
+print(len(copies), sched.pos_host == sched.kv.pos.tolist())
+"""
+
+
+@pytest.mark.parametrize("spec", ["plain", "chain"])
+def test_paged_tick_reads_the_card_once(dev, tmp_path, spec):
+    """A paged decode tick, plain or speculative (a 1-layer self-draft),
+    copies from the card to the host once: its fetch. The page grants
+    read the scheduler's host mirror of the positions."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+
+    ws = make_synthetic_gguf(tmp_path, "tiny", GGMLType.Q8_0, seed=0,
+                             seq_len=256)
+    out = subprocess.run(
+        [sys.executable, "-c", TICK_COPIES, str(ws / "model"), spec],
+        capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parents[1])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-2:] == ["4", "True"], out.stdout
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -818,6 +873,99 @@ def test_qmatmul_w8_two_kernels_a_product(dev, m, k, n):
     assert "w8_quantize" in kernels[0] and "w8_" in kernels[1], kernels
     assert not any("reduce" in name for name in kernels), kernels
     assert torch.equal(first, again)
+
+
+def _w8_stack(g, dev, e, k, n):
+    return QLinear.stack([_w8_lin(g, dev, k, n) for _ in range(e)])
+
+
+@pytest.mark.parametrize("k,n", [(512, 384), (256, 200), (4096, 130),
+                                 (128, 1)])
+@pytest.mark.parametrize("block_m,tiles", [
+    (16, [3, 0, 3, 1, 2]), (128, [1, 3, 0]), (1, [2, 0, 1, 1]),
+    (8, [0, 3]), (5, [1, 2])])
+def test_qmatmul_w8_grouped_kernel(dev, k, n, block_m, tiles):
+    """The grouped mode of the W8 kernel: each tile against the twin on
+    its slab, padding tiles that repeat the last expert and an id past the
+    stack (clipped to the last slab), ragged N; one count, the same bits
+    on two runs."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + block_m)
+    lin = _w8_stack(g, dev, 4, k, n)
+    ids = torch.tensor(tiles + [3, 9][:1 + (block_m <= 8)], dtype=torch.int32,
+                       device=dev)
+    x = torch.randn(ids.numel() * block_m, k, generator=g,
+                    device=dev).to(torch.bfloat16)
+    x[0] = 0.0  # a zero row: scale 0, output 0
+    before = cuda_lib.launch_counts()["qmatmul_w8_grouped"]
+    got = qmatmul_w8_grouped_cuda(x, lin, ids, block_m)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["qmatmul_w8_grouped"] == before + 1
+    _close(got, qmatmul_grouped_reference(x, lin, ids, block_m))
+    for i, e in enumerate(ids.clamp(max=3).tolist()):
+        rows = slice(i * block_m, (i + 1) * block_m)
+        _close(got[rows], qmatmul_w8_reference(x[rows], lin.slab(e)))
+    assert not got[0].any()
+    assert torch.equal(got, qmatmul_w8_grouped_cuda(x, lin, ids, block_m))
+
+
+@pytest.mark.parametrize("block_m,p", [(1, 2), (16, 64), (128, 256)])
+def test_qmatmul_w8_grouped_two_kernels_a_product(dev, block_m, p):
+    """A grouped W8 product is the quantize pass over all rows and one
+    product kernel (GEMV or GEMM)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(block_m)
+    lin = _w8_stack(g, dev, 8, 1024, 512)
+    x = torch.randn(p, 1024, generator=g, device=dev).to(torch.bfloat16)
+    ids = torch.randint(0, 8, (p // block_m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    qmatmul_w8_grouped_cuda(x, lin, ids, block_m)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        qmatmul_w8_grouped_cuda(x, lin, ids, block_m)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert "w8_quantize" in kernels[0] and "w8_" in kernels[1], kernels
+
+
+def test_w8_moe_forward_cuda_matches_cpu(dev):
+    """A W8 MoE model (make_device_params, W8 expert slabs) through the
+    single-token, GEMV-tile and MMA-tile routes on the card and on the
+    cpu, with the grouped W8 kernel launched on every route."""
+    import copy
+
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.models.llama import moe_route
+    from powerserve_tpu_torch.tools import synthetic
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+    synthetic.PRESETS.setdefault("w8-moe-test", dict(
+        dim=256, ffn=256, layers=2, heads=4, kv_heads=2, vocab=512,
+        arch="llama", bias=False, experts=4, experts_used=2))
+    cfg, cpu_model = make_device_params("w8-moe-test", "w8", 0, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    llm = cfg.llm
+    for S, T in ((1, 70), (8, 3), (1, 1)):
+        outs = []
+        for device, model in (("cpu", cpu_model), (dev, gpu_model)):
+            kv = KVCache.create(llm.n_layers, S, 128, llm.n_kv_heads,
+                                llm.head_size, device)
+            toks = (torch.arange(S * T, device=device).reshape(S, T)
+                    * 7 % 500 + 3)
+            pos = torch.arange(T, device=device).expand(S, T).clone()
+            before = cuda_lib.launch_counts()["qmatmul_w8_grouped"]
+            outs.append(model(kv, toks, pos, logits_mode="all").cpu())
+            if device != "cpu":
+                launched = (cuda_lib.launch_counts()["qmatmul_w8_grouped"]
+                            - before)
+                assert launched == 3 * llm.n_layers, (moe_route(S * T),
+                                                      launched)
+        # an int8 rounding of an activation may flip on either side
+        _close(outs[1], outs[0], rel=3e-2)
 
 
 def test_moe_forward_cuda_matches_cpu(dev, tmp_path):

@@ -53,6 +53,7 @@ from powerserve_tpu_torch.speculative.eagle import (EagleChainEngine,
 from powerserve_tpu_torch.speculative.engine import SpecStats
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
                                                   make_synthetic_gguf)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 128
 NEAR_TIE = 0.5

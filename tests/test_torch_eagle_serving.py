@@ -28,6 +28,7 @@ from powerserve_tpu_torch.speculative.eagle import EagleHead
 from powerserve_tpu_torch.tokenizer import Tokenizer
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
                                                   make_synthetic_gguf)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEAR_TIE = 0.5
 PROMPTS = [[3, 17, 5, 9], [1, 2, 3, 4, 5, 6, 7],

@@ -20,6 +20,7 @@ from powerserve_tpu_torch.ops.flash_decode import (
     flash_decode_paged_reference, flash_decode_quant,
     flash_decode_quant_reference, flash_decode_visibility_reference,
     gather_pages, kernel_walk)
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, HKV, D = 8, 2, 32
 

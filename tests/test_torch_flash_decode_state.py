@@ -19,6 +19,7 @@ from powerserve_tpu_torch.ops.attention import NEG_INF
 from powerserve_tpu_torch.ops.flash_decode import (
     flash_decode_paged, flash_decode_paged_deferred,
     flash_decode_paged_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 H, HKV, D, SCALE = 4, 2, 128, 0.088
 

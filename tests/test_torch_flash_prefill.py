@@ -14,6 +14,7 @@ from powerserve_tpu_torch.ops.attention import (build_visibility,
                                                 gqa_attention_quant)
 from powerserve_tpu_torch.ops.flash_prefill import (
     flash_prefill_quant, flash_prefill_quant_reference, prefill_visibility)
+from torch_threads import one_torch_thread  # noqa: F401
 
 D = 32
 

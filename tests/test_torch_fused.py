@@ -14,6 +14,7 @@ from powerserve_tpu_torch.ops.fused import (fused_linear,
                                             fused_linear_reference,
                                             norm_rounding_slack)
 from powerserve_tpu_torch.ops.qmatmul import QLinear
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 sums in another order, relative to the largest logit; on top of it
 # norm_rounding_slack: both round the normalized rows to bf16, and a

@@ -16,6 +16,7 @@ from powerserve_tpu_torch.ops.fused import (fused_linear,
                                             glu_rounding_slack,
                                             launch_name, norm_rounding_slack)
 from powerserve_tpu_torch.ops.qmatmul import QLinear
+from torch_threads import one_torch_thread  # noqa: F401
 
 # f32 sums in another order (the JAX kernel folds a packed format's
 # zero point through block sums of its bf16 input; the port dequantizes

@@ -54,6 +54,7 @@ from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
                                                     draft_fuse,
                                                     self_draft_model)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 128
 NEAR_TIE = 0.5
@@ -315,6 +316,9 @@ def _eager_tick(s):
         for o, t in zip(outs, (tok, lf.gather(1, tok[:, None])[:, 0] - lse,
                                ti, tv - lse[:, None])):
             o.append(t)
+    # the tick's one fetch refreshes the scheduler's host mirror of the
+    # positions, which the next tick's page grants read
+    s.pos_host = s.kv.pos.tolist()
     return [torch.stack(o, dim=1) for o in outs]
 
 

@@ -11,6 +11,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "powerserve_tpu_torch"

@@ -42,6 +42,7 @@ from powerserve_tpu_torch.engine.vlm import VLMEngine
 from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.models import internvl as ivl
 from powerserve_tpu_torch.tools.synthetic import make_vlm_workspace
+from torch_threads import one_torch_thread  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
 

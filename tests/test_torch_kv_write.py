@@ -12,6 +12,7 @@ from powerserve_tpu.kv.cache import KVCache as JKVCache
 from powerserve_tpu.kv.paged import PagedKVCache as JPagedKVCache
 from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.kv.paged import PagedKVCache
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, S, T, HKV, D, PAGE, P = 2, 3, 16, 2, 8, 4, 7
 NAMES = ("k", "v", "k_scale", "v_scale", "mask", "pos")

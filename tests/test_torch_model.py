@@ -35,6 +35,7 @@ from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.models.loader import (load_gguf_model,
                                                 params_from_numpy)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 64
 # bf16-vs-f32 dequant and attention roundings over 2 layers: measured

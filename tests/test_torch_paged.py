@@ -25,6 +25,7 @@ from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
 from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.ops.flash_decode import flash_decode_paged
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, S, T, HKV, D, PAGE, P = 2, 3, 40, 2, 8, 8, 12
 

@@ -13,6 +13,7 @@ from powerserve_tpu.ops.qmatmul import qmatmul as jqmatmul
 from powerserve_tpu_torch.core.gguf import GGMLType
 from powerserve_tpu_torch.core.quant import quantize, repack_gguf_tensor
 from powerserve_tpu_torch.ops.qmatmul import QLinear, dequant, qmatmul
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 256
 

@@ -11,6 +11,7 @@ from powerserve_tpu.core.config import SamplerConfig as JSamplerConfig
 from powerserve_tpu.sampling import sampler as js
 from powerserve_tpu_torch.core.config import SamplerConfig
 from powerserve_tpu_torch.sampling import sampler as ts
+from torch_threads import one_torch_thread  # noqa: F401
 
 S, V, P = 3, 50, 8
 

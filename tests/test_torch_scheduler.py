@@ -33,6 +33,7 @@ from powerserve_tpu_torch.sampling.sampler import (PenaltyState,
                                                    sample_dist_batched,
                                                    sample_logits_batched)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 128
 NEAR_TIE = 0.5

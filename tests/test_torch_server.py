@@ -27,6 +27,7 @@ from powerserve_tpu_torch.serving.local import LocalServer  # noqa: E402
 from powerserve_tpu_torch.serving.server import (ServerContext,  # noqa: E402
                                                  StopMatcher, make_server)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # logprobs of the raw logits: the two routes' logits differ by ~2% of
 # their range on these 2-layer models (tests/test_torch_model.py)

@@ -44,6 +44,7 @@ from powerserve_tpu_torch.run import build_engine, parse_args, run_prompt  # noq
 from powerserve_tpu_torch.serving.server import ServerContext, make_server  # noqa: E402
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,  # noqa: E402
                                                   make_synthetic_gguf)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 L, H, T, D = 2, 2, 24, 16
 SESS = "You are a terse assistant with strong opinions."

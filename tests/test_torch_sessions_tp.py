@@ -20,6 +20,7 @@ from powerserve_tpu_torch.core.gguf import GGMLType
 from powerserve_tpu_torch.kv.persist import load_session
 from powerserve_tpu_torch.serving.server import ServerContext, make_server
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SESS = "You are a terse assistant with strong opinions."
 

@@ -28,6 +28,7 @@ from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.tokenizer import Tokenizer
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
                                                   make_synthetic_gguf)
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEAR_TIE = 0.5
 

@@ -39,6 +39,7 @@ from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
 from powerserve_tpu_torch.speculative.draft_head import make_draft_head
 from powerserve_tpu_torch.speculative.engine import SpecStats
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 128
 NEAR_TIE = 0.5

@@ -42,6 +42,7 @@ from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.parallel import tp
 from powerserve_tpu_torch.parallel.distributed import check_backend
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 64
 SELF_REL = 1e-5

@@ -44,6 +44,7 @@ from powerserve_tpu_torch.parallel.tp import start_rank_group
 from powerserve_tpu_torch.serving.server import ServerContext, make_server
 from powerserve_tpu_torch.serving.server import main as serve_main
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 NEAR_TIE = 0.5

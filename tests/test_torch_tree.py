@@ -57,6 +57,7 @@ from powerserve_tpu_torch.speculative.engine import (SpecStats,
 from powerserve_tpu_torch.speculative.tree import (SpeculativeConfig,
                                                    TokenTree)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 128
 NEAR_TIE = 0.5

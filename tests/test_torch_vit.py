@@ -22,6 +22,7 @@ import torch
 from powerserve_tpu.models import vit as jvit
 from powerserve_tpu_torch.models import vit
 from powerserve_tpu_torch.tools.synthetic import random_vision_state
+from torch_threads import one_torch_thread  # noqa: F401
 
 # measured 5e-7 of the range through the two layers and the projector
 # (f32 sums in another order); 1e-4 leaves room for other CPUs' BLAS

@@ -58,6 +58,7 @@ from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
                                                   make_synthetic_gguf,
                                                   make_vlm_workspace)
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 NEAR_TIE = 0.5

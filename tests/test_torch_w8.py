@@ -48,6 +48,7 @@ from powerserve_tpu_torch.ops.qmatmul import (QLinear, qmatmul,
                                               quantize_activations)
 from powerserve_tpu_torch.tools.bench_params import make_device_params
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from torch_threads import one_torch_thread  # noqa: F401
 
 SEQ = 64
 NEAR_TIE = 0.5

@@ -1,0 +1,221 @@
+"""W8 expert slabs on the CPU against the JAX package: the grouped
+product's plain twin against JAX's qmatmul_grouped (which sends W8 stacks
+to XLA, _qmatmul_xla_grouped), and a W8 MoE model from JAX's
+make_device_params carried across (params_from_numpy) and run through
+the three MoE routes, against JAX's forward.
+
+Tolerances. The twin (the kernel's arithmetic) quantizes each row to
+int8 (a8) and sums exact int32 block dots; JAX's CPU route keeps bf16
+activations and dequantizes the weights to bf16. The a8 rounding, 1/127
+of a row's largest value per element, is the gap: ~2-3% of the output
+range, as tests/test_torch_w8.py allows the dense W8 product. Through a
+model whose random int8 weights span the full range, the two packages'
+roundings grow through the layers as in test_torch_moe.py's carried
+device params (median row within 3%, every row within 15%).
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from powerserve_tpu.kv.cache import KVCache as JKVCache
+from powerserve_tpu.models.llama import forward as jforward
+from powerserve_tpu.ops import moe as jmoe
+from powerserve_tpu.ops.elementwise import silu_hadamard as jsilu
+from powerserve_tpu.ops.qmatmul import QLinear as JQLinear
+from powerserve_tpu.ops.qmatmul import qmatmul_grouped as jqmatmul_grouped
+from powerserve_tpu.tools import synthetic as jsynthetic
+from powerserve_tpu.tools.bench_params import (
+    make_device_params as jmake_device_params)
+import powerserve_tpu_torch.models.llama as tllama
+from powerserve_tpu_torch.kv.cache import KVCache
+from powerserve_tpu_torch.models.llama import moe_route
+from powerserve_tpu_torch.models.loader import params_from_numpy
+from powerserve_tpu_torch.ops.qmatmul import QLinear, qmatmul_grouped
+from powerserve_tpu_torch.tools import synthetic
+from powerserve_tpu_torch.tools.bench_params import make_device_params
+from torch_threads import one_torch_thread  # noqa: F401
+
+W8_REL = 3e-2
+W8_LOGIT_REL = 4e-2
+# a small MoE preset whose widths are multiples of 128 (W8 needs K % 128)
+PRESET = dict(dim=256, ffn=256, layers=2, heads=4, kv_heads=2, vocab=512,
+              arch="llama", bias=False, experts=4, experts_used=2)
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("block_m,tiles", [(1, [2, 0, 3, 3]),
+                                           (8, [1, 3, 0, 0]),
+                                           (128, [2, 1])])
+def test_w8_grouped_twin_matches_jax(block_m, tiles):
+    """Rows of tile i times W8 slab tile_ids[i], against JAX's grouped
+    product."""
+    rng = np.random.default_rng(block_m)
+    e, k, n = 4, 512, 192
+    q = rng.integers(-127, 128, (e, k, n), dtype=np.int8)
+    s = (rng.random((e, k // 128, n), dtype=np.float32) * 0.02 + 0.001)
+    x = jnp.asarray(rng.standard_normal((len(tiles) * block_m, k)),
+                    jnp.bfloat16)
+    ids = np.asarray(tiles, np.int32)
+    lin = QLinear(torch.from_numpy(q), torch.from_numpy(s), None,
+                  packed=False, unsigned=False, in_features=k,
+                  out_features=n, scale_group=128)
+    jlin = JQLinear(q=jnp.asarray(q), scales=jnp.asarray(s), bias=None,
+                    packed=False, unsigned=False, in_features=k,
+                    out_features=n, scale_group=128)
+    got = qmatmul_grouped(torch.from_numpy(np.asarray(x, np.float32)), lin,
+                          torch.from_numpy(ids), block_m).numpy()
+    want = np.asarray(jqmatmul_grouped(x, jlin, jnp.asarray(ids),
+                                       block_m=block_m, backend="xla"))
+    assert got.shape == want.shape == (len(tiles) * block_m, n)
+    assert _rel(got, want) < W8_REL
+
+
+@pytest.fixture(scope="module")
+def w8_moe():
+    """JAX's make_device_params(quant="w8") for PRESET, as numpy, and the
+    port's model carried from it."""
+    mp = pytest.MonkeyPatch()
+    mp.setitem(jsynthetic.PRESETS, "w8-moe", PRESET)
+    mp.setitem(synthetic.PRESETS, "w8-moe", PRESET)
+    try:
+        jcfg, jparams = jmake_device_params("w8-moe", "w8")
+        cfg, own = make_device_params("w8-moe", "w8", device="cpu")
+    finally:
+        mp.undo()
+    tree = dataclasses.asdict(jax.tree_util.tree_map(np.asarray, jparams))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    return jcfg, jparams, tree, cfg, own
+
+
+def test_w8_expert_slabs_carry_across(w8_moe):
+    """[L, E, K, N] int8 expert leaves with [L, E, K/128, N] f32 scales
+    become W8 stacks; the port's own make_device_params gives the same
+    layout; a slab and a stack of slabs round-trip."""
+    _, _, tree, cfg, own = w8_moe
+    llm = cfg.llm
+    model = params_from_numpy(tree, cfg, device="cpu")
+    for m in (model, own):
+        stack = m.layers[1].w_down_exps
+        assert stack.w8 and stack.n_slabs == 4
+        assert stack.q.shape == (4, llm.hidden_dim, llm.dim)
+        assert stack.q.dtype == torch.int8
+        assert stack.scales.shape == (4, llm.hidden_dim // 128, llm.dim)
+        assert stack.scales.dtype == torch.float32
+    lw = tree["layers"]["w_gate_exps"]
+    gate = model.layers[1].w_gate_exps
+    np.testing.assert_array_equal(gate.q.numpy(), lw["q"][1])
+    np.testing.assert_array_equal(gate.scales.numpy(), lw["scales"][1])
+    again = QLinear.stack([gate.slab(i) for i in range(gate.n_slabs)])
+    assert again.w8 and torch.equal(again.q, gate.q)
+    assert torch.equal(again.scales, gate.scales)
+
+
+def _route_gaps(monkeypatch) -> list:
+    """Per MoE layer run, each row's gap between the logs of its k-th and
+    (k+1)-th router probabilities (test_torch_moe.py's rule)."""
+    gaps = []
+    real = tllama.LlamaLayer.route
+
+    def route(self, h, k):
+        probs = torch.softmax(h.float() @ self.router.float(), dim=-1)
+        top = probs.topk(k + 1, dim=-1).values.log()
+        gaps.append((top[:, k - 1] - top[:, k]).numpy())
+        return real(self, h, k)
+
+    monkeypatch.setattr(tllama.LlamaLayer, "route", route)
+    return gaps
+
+
+_jforward = jax.jit(functools.partial(jforward, backend="xla",
+                                      logits_mode="all"),
+                    static_argnums=(1,))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 3, 4))
+def _jax_moe_ffn(jparams, layer: int, h, k: int, bm: int):
+    """JAX's grouped expert FFN of one layer (its models/llama.py MoE
+    branch: router, top-k, group_dispatch, three qmatmul_grouped, combine)
+    on rows h [N, dim] bf16."""
+    lw = jax.tree_util.tree_map(lambda a: a[layer], jparams.layers)
+    probs = jax.nn.softmax(h.astype(jnp.float32)
+                           @ lw.router.astype(jnp.float32), axis=-1)
+    topw, topi = jax.lax.top_k(probs, k)
+    topw = topw / jnp.maximum(topw.sum(-1, keepdims=True), 1e-9)
+    e = lw.router.shape[-1]
+    tok, w, tile_e = jmoe.group_dispatch(topi, topw, e, 0, bm)
+    xg = h[jnp.maximum(tok, 0)]
+
+    def mm(a, lin):
+        return jqmatmul_grouped(a, lin, tile_e, block_m=bm, backend="xla")
+
+    a = jsilu(mm(xg, lw.w_gate_exps), mm(xg, lw.w_up_exps))
+    y = mm(a.astype(jnp.bfloat16), lw.w_down_exps)
+    return jmoe.combine(y, tok, w, h.shape[0])
+
+
+@pytest.mark.parametrize("rows", [1, 9, 70])
+def test_w8_moe_forward_matches_jax(w8_moe, monkeypatch, rows):
+    """The carried model against JAX through the single-token route, GEMV
+    tiles (block_m 16) and tensor-core tiles (block_m 128): each layer's
+    expert FFN on the same rows (JAX's grouped branch at that block_m),
+    and the logits of a prompt of `rows` tokens (rows 1: a 4-token
+    prefill, then the token). A row whose k-th and (k+1)-th router
+    probabilities are within 1% may route to another expert in JAX (a
+    known difference, ROADMAP section 3): those rows are left out of the
+    FFN comparison. The logits compare by their median row and their
+    correlation: random full-range weights make a few rows swing with
+    any rounding (up to 59% of the range at 70 rows, with every FFN within
+    W8_REL; test_torch_moe.py's carried device params show the same), and
+    the dense W8 layers add the a8 rounding against JAX's bf16 XLA route
+    (W8_LOGIT_REL: test_torch_w8.py's bound for it). Measured: median row
+    2.5-3.5% of the range, correlation 0.948-0.999; the FFN comparison is
+    the strict one."""
+    jcfg, jparams, tree, cfg, _ = w8_moe
+    llm = cfg.llm
+    model = params_from_numpy(tree, cfg, device="cpu")
+    route = {1: ("single", 1), 9: ("grouped", 16), 70: ("grouped", 128)}
+    assert moe_route(rows) == route[rows]
+    gaps = _route_gaps(monkeypatch)
+    # the single-token route takes 8 rows one by one
+    h = np.asarray(jnp.asarray(np.random.default_rng(rows).standard_normal(
+        (max(rows, 8), llm.dim)), jnp.bfloat16).astype(jnp.float32))
+    batches = np.split(h, len(h)) if rows == 1 else [h]
+    for layer in range(llm.n_layers):
+        gaps.clear()
+        got = np.concatenate([model.layers[layer].moe_ffn(
+            torch.from_numpy(b).to(torch.bfloat16),
+            llm.n_experts_used).numpy() for b in batches])
+        want = np.concatenate([np.asarray(_jax_moe_ffn(
+            jparams, layer, jnp.asarray(b, jnp.bfloat16), llm.n_experts_used,
+            route[rows][1])) for b in batches])
+        keep = np.concatenate(gaps) >= 1e-2
+        assert keep.mean() >= 0.5
+        assert _rel(got[keep], want[keep]) < W8_REL
+
+    toks = np.arange(max(rows, 5), dtype=np.int32)[None] * 11 % 500 + 1
+    calls = [(toks[:, :4], 0), (toks[:, 4:5], 4)] if rows == 1 else [
+        (toks, 0)]
+    kv = KVCache.create(llm.n_layers, 1, 96, llm.n_kv_heads, llm.head_size,
+                        device="cpu")
+    jkv = JKVCache.create(llm.n_layers, 1, 96, llm.n_kv_heads, llm.head_size)
+    for t, start in calls:
+        pos = start + np.arange(t.shape[1], dtype=np.int32)[None]
+        got = model(kv, torch.from_numpy(t).long(),
+                    torch.from_numpy(pos).long(), logits_mode="all").numpy()
+        want, jkv = _jforward(jparams, jcfg.llm, jkv, jnp.asarray(t),
+                              jnp.asarray(pos))
+    want = np.asarray(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = np.abs(got - want).max(-1) / np.abs(want).max()
+    assert np.median(err) < W8_LOGIT_REL, err
+    assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9
