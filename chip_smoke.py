@@ -44,7 +44,10 @@ Phases, each printing one JSON line:
              S = 1 over 2048 positions, the paged verify at S = 8 over
              560-650, each twice bit for bit, SDPA with the same
              visibility for information) and the causal rule's bits
-             through the tree mode, dense and paged
+             through the tree mode, dense and paged; last, the shapes
+             perplexity adds: the Q4_K lm_head 4096 -> 128256 as the
+             prefill GEMM at M = 32 and 490, and flash-prefill at S = 1,
+             Tq = 32 from start 448 over a 490-position cache
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
              cpu plain path (tiny and tiny-k also with
@@ -87,6 +90,27 @@ Phases, each printing one JSON line:
              before each path and read just after it, and each path
              must have launched its kernels. Both tok/s of each path,
              the graphs captured, their capture time and pool memory.
+  tools_full_width  (after trace) tools/perplexity.py on llama-8b: 490
+             seeded ids at batch 32 (15 chunks of 32 on the prefill
+             kernels, a last one of 10 on flash-decode and the fused
+             head; the four kernels must launch) and at batch 512 (one
+             chunk), tok/s of each; 74 ids at batch 32 on the kernels and
+             on the plain twins on the card (each row's log-probability
+             and the log-perplexity within LOGP_SHARE of their
+             magnitudes); dump_forward of 64 ids on the kernels and on the
+             twins (every layer's cosine >= DUMP_COS, the logits by the
+             near-tie rule)
+  tools_cli  the tools as `python -m powerserve_tpu_torch` processes on an
+             HF directory at llama-8b's widths (2 layers, a 32,000-token
+             vocabulary, BF16 written by tools/safetensors.py, a BPE
+             tokenizer.json): convert --quant q4_k and workspace create;
+             then at once perplexity, dump-activations on cuda, run
+             --dump-speedinfo, param-search --engine chain
+             --self-draft-layers 1 and gate (a corpus, --draft self:1, a
+             4-question MMLU CSV against the server it starts); then
+             dump-activations on the cpu, cos-sim of the two dumps (every
+             layer >= DUMP_COS) and, alone on the card, bench-kernels;
+             each exiting 0; seconds of each
   serve_full_width  llama-8b behind the HTTP server: 8 slots over a paged
              pool of half of 8 x 2048 positions, 8 concurrent greedy
              requests (prompts of 128-1024 tokens, 64 new tokens): all
@@ -280,12 +304,14 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --vlm
        python3 chip_smoke.py --tp
        python3 chip_smoke.py --ticks
+       python3 chip_smoke.py --tools
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build and the two VLM phases; the fourth the
 build and the three tensor-parallel phases; the fifth the build and the
 paged plain tick's device-to-host copies on llama-8b (the scheduler's
-public surface only, so a copy of this script counts a parent tree's).
+public surface only, so a copy of this script counts a parent tree's);
+the sixth the build and the two tools phases.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -296,8 +322,10 @@ import contextlib
 import http.client
 import json
 import logging
+import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -870,9 +898,9 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             vis | ~seen[:, None, None]))
     del q, kp, vp, o, ro
 
-    def prefill_row(name, S, Tq, starts, committed):
-        """A timed flash-prefill case at llama-8b's heads, T = 2048, twice
-        bit for bit."""
+    def prefill_row(name, S, Tq, starts, committed, T=T):
+        """A timed flash-prefill case at llama-8b's heads over a cache of
+        T positions (default 2048), twice bit for bit."""
         q = randn(S, Tq, H, D)
         kq, ks, vq, vs = cache(S, Hkv, T, D)
         mask = (torch.arange(T, device=dev)[None, :]
@@ -1047,6 +1075,18 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             case="causal rows", S=S, Tq=Tq, T=T, same_bits=True,
             ms=timer(lambda: flash_decode_cuda(*args)),
             bits_ms=timer(lambda: flash_decode_cuda(*args, bits=causal))))
+    # -- then, with a seed of their own: the shapes perplexity and the
+    #    activation dumps add (tools/perplexity.py, logits_mode "all"): the
+    #    Q4_K lm_head as a prefill GEMM, 4096 -> 128256 (295 MB of packed
+    #    weight), at a 32-row chunk and a 490-row one, and flash-prefill
+    #    at a 32-row chunk deep into a 490-position corpus (start 448)
+    g.manual_seed(5)
+    head = _rand_qlinear(g, 4096, 128256, "q4_k", dev)
+    for m in (32, 490):
+        qmm_rows.append(gemm_row(head, m, 4096, 128256))
+    del head
+    fp_rows.append(prefill_row("perplexity chunk", 1, 32, [448], [448],
+                               T=490))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
@@ -4424,6 +4464,325 @@ def phase_trace(dev: torch.device, cfg, model) -> dict:
             "paged_tick": ticks}
 
 
+# perplexity on the kernels against the plain twins on the card: a row's
+# log-probability moves by at most twice its logits' error (the token's
+# logit and the log-sum), which LOGIT_REL bounds at 1e-2 of their range;
+# each row within LOGP_SHARE of its magnitude, so the log-perplexity, the
+# rows' mean, within LOGP_SHARE of its own (random weights give ln ppl ~
+# 70: a relative gap of the perplexity itself scales with it)
+LOGP_SHARE = 1e-2
+# each layer's residual stream on the kernels against the twins' (and on
+# the card against the CPU): bf16 roundings that fall the other way
+# (LOGIT_REL's reason) leave the directions all but equal
+DUMP_COS = 0.999
+
+
+def phase_tools_full_width(dev: torch.device, cfg, model) -> dict:
+    """tools/perplexity.py and tools/dump_activations.py on llama-8b
+    (32 layers, Q4_K): token_log_probs over 490 seeded ids at batch 32
+    (15 chunks of 32 rows on the prefill kernels and the lm_head's
+    prefill GEMM, a last chunk of 10 on flash-decode and the fused head)
+    and at batch 512 (one chunk of 490), each timed, its launches zeroed
+    before and read after, the four kernels required at batch 32; 74 ids
+    at batch 32 (chunks of 32, 32 and 10) on the kernels and on the plain
+    twins on the card, each row's log-probability and the log-perplexity
+    within LOGP_SHARE of their magnitudes; dump_forward of 64
+    ids on the kernels and on the twins, every layer's cosine >= DUMP_COS
+    and the logits by the near-tie rule."""
+    import numpy as np
+
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.tools.cos_sim import compare
+    from powerserve_tpu_torch.tools.dump_activations import dump_forward
+    from powerserve_tpu_torch.tools.perplexity import (PerplexityCalculator,
+                                                       token_log_probs)
+
+    t_phase = time.perf_counter()
+    llm = cfg.llm
+    g = torch.Generator(device="cpu")
+    g.manual_seed(7)
+    ids = torch.randint(3, llm.vocab_size, (490,), generator=g).tolist()
+
+    def ppl(lp: np.ndarray, warmup: int) -> float:
+        calc = PerplexityCalculator(warmup)
+        calc.add_log_probs(lp)
+        return calc.ppl
+
+    token_log_probs(model, ids[:74], 32, max_seq=512)  # allocator warm-up
+    runs = {}
+    for batch in (32, 512):
+        cuda_lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = token_log_probs(model, ids, batch, max_seq=512)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in cuda_lib.launch_counts().items() if v}
+        need = (("qmatmul", "flash_prefill", "flash_decode", "fused_head")
+                if batch == 32 else ("qmatmul", "flash_prefill"))
+        if any(not counts.get(k) for k in need) or not np.isfinite(lp).all():
+            raise AssertionError(f"tools_full_width batch {batch}: launches "
+                                 f"{counts}, finite {np.isfinite(lp).all()}")
+        runs[f"batch_{batch}"] = dict(
+            seconds=dt, tok_s=len(ids) / dt, launches=counts,
+            perplexity_all_rows=ppl(lp, 0))
+    twin_ids = ids[:74]
+    got = token_log_probs(model, twin_ids, 32, max_seq=128)
+    want = step_on(plain_routes(),
+                   lambda: token_log_probs(model, twin_ids, 32, max_seq=128))
+    share = float((np.abs(got - want) / np.abs(want)).max())
+    p_got, p_want = ppl(got, 32), ppl(want, 32)
+    log_gap = abs(math.log(p_got) - math.log(p_want)) / math.log(p_want)
+    if not (share <= LOGP_SHARE and log_gap <= LOGP_SHARE):
+        raise AssertionError(f"tools_full_width: log-probabilities within "
+                             f"{share} of the twins', perplexity {p_got} "
+                             f"against {p_want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        a = dump_forward(model, ids[:64], os.path.join(tmp, "kernels"))
+        b = step_on(plain_routes(), lambda: dump_forward(
+            model, ids[:64], os.path.join(tmp, "twins")))
+        rows = compare(a, b)
+        layers = [cs for name, cs, _ in rows if name.startswith("layer_")]
+        logits = [np.load(d / "logits.npy") for d in (a, b)]
+    if len(layers) != llm.n_layers or min(layers) < DUMP_COS:
+        raise AssertionError(f"tools_full_width dumps: cosines {layers}")
+    gap = near_tie_agree("tools_full_width dump logits",
+                         torch.from_numpy(logits[0]),
+                         torch.from_numpy(logits[1]))
+    return {"phase": "tools_full_width", "card": card_line(),
+            "seconds": time.perf_counter() - t_phase,
+            "tokens": len(ids), **runs,
+            "twins": dict(tokens=len(twin_ids), chunks=[32, 32, 10],
+                          max_row_share=share, perplexity=p_got,
+                          twin_perplexity=p_want,
+                          perplexity_rel_gap=abs(p_got - p_want) / p_want,
+                          log_perplexity_gap=log_gap,
+                          share_limit=LOGP_SHARE),
+            "dump": dict(tokens=64, min_layer_cos=min(layers),
+                         logits_cos=rows[-1][1], logit_gap=gap)}
+
+
+def write_hf_llama(d: str, dev: torch.device, layers: int, vocab: int,
+                   widths: tuple = (4096, 14336, 32, 8)) -> None:
+    """An HF directory as a Llama-3.1-8B checkpoint has it (config.json,
+    BF16 model.safetensors written by the port's tools/safetensors.py, a
+    byte-level BPE tokenizer.json and tokenizer_config.json), cut to
+    `layers` layers and a `vocab`-token vocabulary, random weights from
+    seed 8; widths (dim, ffn, heads, kv heads) llama-8b's."""
+    from tokenizers import Tokenizer as HFTokenizer
+    from tokenizers import decoders, models, pre_tokenizers, trainers
+
+    from powerserve_tpu_torch.tools.safetensors import save_file
+
+    dim, ff, H, Hkv = widths
+    hd = dim // H
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+
+    def w(*shape, one=False):
+        t = torch.randn(shape, generator=g, device=dev) * (0.1 if one
+                                                            else 0.02)
+        return (t + 1 if one else t).bfloat16().cpu()
+
+    sd = {"model.embed_tokens.weight": w(vocab, dim),
+          "model.norm.weight": w(dim, one=True),
+          "lm_head.weight": w(vocab, dim)}
+    for i in range(layers):
+        p = f"model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": w(dim, one=True),
+            p + "post_attention_layernorm.weight": w(dim, one=True),
+            p + "self_attn.q_proj.weight": w(H * hd, dim),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, dim),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, dim),
+            p + "self_attn.o_proj.weight": w(dim, H * hd),
+            p + "mlp.gate_proj.weight": w(ff, dim),
+            p + "mlp.up_proj.weight": w(ff, dim),
+            p + "mlp.down_proj.weight": w(dim, ff)})
+    os.makedirs(d, exist_ok=True)
+    save_file(sd, os.path.join(d, "model.safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"],
+                   "hidden_size": dim, "intermediate_size": ff,
+                   "num_hidden_layers": layers, "num_attention_heads": H,
+                   "num_key_value_heads": Hkv,
+                   "max_position_embeddings": 1024, "rope_theta": 500000.0,
+                   "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                                    "high_freq_factor": 4.0,
+                                    "original_max_position_embeddings": 8192,
+                                    "rope_type": "llama3"},
+                   "rms_norm_eps": 1e-5, "vocab_size": vocab,
+                   "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"}, f)
+    tok = HFTokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(
+        ["the quick brown fox jumps over the lazy dog"] * 8,
+        trainers.BpeTrainer(
+            vocab_size=300, special_tokens=["<s>", "</s>"],
+            initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    tok.save(os.path.join(d, "tokenizer.json"))
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                   "add_bos_token": True}, f)
+
+
+def port_cli(cmds: dict, tmp: str, timeout: float = 600) -> dict:
+    """Run each of cmds' argvs as `python -m powerserve_tpu_torch argv`
+    from the checkout's root, all at once; {name: (stdout, seconds from
+    the start to its exit)}. A non-zero exit raises with its stderr's end.
+    Processes still running on a failure get SIGINT (the gate then kills
+    its server in its `finally`), then SIGKILL."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs, files, ends = {}, {}, {}
+    try:
+        for name, argv in cmds.items():
+            files[name] = tuple(open(os.path.join(tmp, f"{name}.{ext}"),
+                                     "w+") for ext in ("out", "err"))
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "powerserve_tpu_torch", *argv],
+                stdout=files[name][0], stderr=files[name][1], cwd=root)
+        while len(ends) < len(procs):
+            if time.perf_counter() - t0 > timeout:
+                left = sorted(set(procs) - set(ends))
+                raise AssertionError(f"tools_cli: {left} still running "
+                                     f"after {timeout} s")
+            for name, proc in procs.items():
+                if name not in ends and proc.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+                    if proc.returncode != 0:
+                        files[name][1].seek(0)
+                        raise AssertionError(
+                            f"{cmds[name][0]} exited {proc.returncode}: "
+                            f"{files[name][1].read()[-3000:]}")
+            time.sleep(0.1)
+        out = {}
+        for name, (fo, _) in files.items():
+            fo.seek(0)
+            out[name] = (fo.read(), ends[name])
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        for fo, fe in files.values():
+            fo.close()
+            fe.close()
+
+
+def phase_tools_cli(dev: torch.device) -> dict:
+    """The tools as `python -m powerserve_tpu_torch` processes on the card,
+    over an HF directory at llama-8b's widths (2 layers, a 32,000-token
+    vocabulary, BF16, write_hf_llama): convert --quant q4_k and workspace
+    create; then at once perplexity, dump-activations on the card, run
+    --dump-speedinfo, param-search over CHAIN_GRID with a 1-layer
+    self-draft and gate (a corpus, --draft self:1, a 4-question MMLU CSV
+    against the server it starts); then dump-activations --device cpu
+    and cos-sim of the two dumps (every layer >= DUMP_COS) and, alone on
+    the card, bench-kernels. Each must exit 0; the speed-info line is read
+    back. Seconds of each (those run at once share the card and the
+    host: their speeds are not measurements)."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tools_cli_")
+    secs = {}
+    try:
+        hf, out, ws = (os.path.join(tmp, n) for n in ("hf", "out", "ws"))
+        t0 = time.perf_counter()
+        write_hf_llama(hf, dev, layers=2, vocab=32000)
+        secs["write_hf"] = time.perf_counter() - t0
+        model_dir = os.path.join(out, "model")
+        for name, argv in (("convert", ["convert", hf, out, "--quant",
+                                        "q4_k"]),
+                           ("workspace", ["workspace", "create", "-m",
+                                          model_dir, "-o", ws])):
+            secs[name] = port_cli({name: argv}, tmp)[name][1]
+        if not os.path.exists(os.path.join(model_dir, "tokenizer.json")):
+            raise AssertionError("convert: tokenizer.json not copied")
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "w") as f:
+            f.write("The quick brown fox jumps over the lazy dog while the "
+                    "lazy dog sleeps under the brown tree. " * 14)
+        mmlu_dir = os.path.join(tmp, "mmlu")
+        os.makedirs(mmlu_dir)
+        with open(os.path.join(mmlu_dir, "arith_test.csv"), "w") as f:
+            f.write("What is 1+1?,1,2,3,4,B\nWhat is 2+2?,3,4,5,6,B\n"
+                    "What is 3+3?,6,7,8,9,A\nWhat is 4+4?,5,6,7,8,D\n"
+                    "What is 5+5?,9,10,11,12,B\n")
+        dumps = {d: os.path.join(tmp, f"dump_{d}") for d in ("cuda", "cpu")}
+        speed, search, gate_json = (os.path.join(tmp, n) for n in (
+            "speed.jsonl", "search.jsonl", "gate.json"))
+        text = "the quick brown fox jumps over the lazy dog"
+        dump = {d: ["dump-activations", "-d", model_dir, "-p", text, "-o",
+                    dumps[d], "--device", d] for d in dumps}
+        together = {
+            "perplexity": ["perplexity", "-d", model_dir, "-p", corpus],
+            "dump_activations_cuda": dump["cuda"],
+            "run": ["run", "-d", ws, "-p", "the quick brown", "-n", "16",
+                    "--temperature", "0", "--no-progress",
+                    "--dump-speedinfo", speed],
+            "param_search": ["param-search", "-d", model_dir, "--engine",
+                             "chain", "--self-draft-layers", "1", "-n", "32",
+                             "-o", search],
+            "gate": ["gate", "-d", ws, "--prompt-file", corpus, "--draft",
+                     "self:1", "--spec-tokens", "32", "--mmlu-data",
+                     mmlu_dir, "--mmlu-limit", "4", "-o", gate_json]}
+        t0 = time.perf_counter()
+        res = port_cli(together, tmp)
+        secs["together"] = time.perf_counter() - t0
+        secs.update({name: r[1] for name, r in res.items()})
+        ppl = json.loads(res["perplexity"][0].strip().splitlines()[-1])
+        if set(ppl) != {"perplexity", "n_tokens"} or not (
+                1 < ppl["perplexity"] < float("inf")):
+            raise AssertionError(f"perplexity: {ppl}")
+        with open(speed) as f:
+            speedinfo = json.loads(f.read().strip().splitlines()[-1])
+        if list(speedinfo) != ["prefill_speed", "decode_speed", "n_prefill",
+                               "n_decode"] or not speedinfo["n_decode"]:
+            raise AssertionError(f"run --dump-speedinfo: {speedinfo}")
+        with open(search) as f:
+            recs = [json.loads(ln) for ln in f]
+        if [r["k"] for r in recs] != [3, 4, 6] or any(
+                r["emitted"] != 32 for r in recs):
+            raise AssertionError(f"param-search: {recs}")
+        with open(gate_json) as f:
+            verdict = json.load(f)
+        if not verdict["pass"] or verdict["checks"]["mmlu"]["total_n"] != 4:
+            raise AssertionError(f"gate: {verdict}")
+        # the CPU forward's threads would take the host from the others
+        secs["dump_activations_cpu"] = port_cli(
+            {"dump": dump["cpu"]}, tmp)["dump"][1]
+        cos_out, secs["cos_sim"] = port_cli(
+            {"cos_sim": ["cos-sim", dumps["cuda"], dumps["cpu"]]},
+            tmp)["cos_sim"]
+        cos = {ln.split(":")[0]: float(ln.split("cos=")[1].split()[0])
+               for ln in cos_out.strip().splitlines()}
+        layers = [v for k, v in cos.items() if k.startswith("layer_")]
+        if len(layers) != 2 or min(layers) < DUMP_COS:
+            raise AssertionError(f"cos-sim cuda vs cpu: {cos}")
+        bench_out, secs["bench_kernels"] = port_cli(
+            {"bench_kernels": ["bench-kernels", "--iters", "200"]},
+            tmp)["bench_kernels"]
+        bench = [json.loads(ln) for ln in bench_out.strip().splitlines()]
+        if len(bench) != 6:
+            raise AssertionError(f"bench-kernels: {bench_out}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "tools_cli", "card": card_line(),
+            "phase_seconds": time.perf_counter() - t_phase,
+            "hf": dict(widths="llama-8b", layers=2, vocab=32000,
+                       dtype="bf16"),
+            "seconds": secs, "perplexity": ppl, "cos_cuda_cpu": cos,
+            "speedinfo": speedinfo, "param_search": recs,
+            "gate": verdict["checks"], "bench_kernels": bench}
+
+
 def random_q4k(rng, n_out: int, k_in: int):
     """A Q4_K payload [n_out, k_in] of random bytes with finite block
     scales (fp16 d and dmin in [0, 0.01))."""
@@ -4615,6 +4974,16 @@ def main() -> int:
               **paged_tick_copies(dev, cfg, model)})
         print(card, flush=True)
         return 0
+    if "--tools" in sys.argv[1:]:
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        emit(phase_tools_full_width(dev, cfg, model))
+        del cfg, model
+        torch.cuda.empty_cache()
+        emit(phase_tools_cli(dev))
+        print(card, flush=True)
+        return 0
     if "--vlm" in sys.argv[1:]:
         torch.zeros(1, device=dev)  # the allocator, before its peak reset
         vlm, vlm_ref = phase_vlm_full_width(dev)
@@ -4637,6 +5006,10 @@ def main() -> int:
     emit(full)
     trace = phase_trace(dev, cfg, model)
     emit(trace)
+    tools = phase_tools_full_width(dev, cfg, model)
+    emit(tools)
+    tools_cli = phase_tools_cli(dev)
+    emit(tools_cli)
     serve, serve_counts = phase_serve_full_width(dev, cfg, model,
                                                  "serve_full_width")
     emit(serve)
@@ -4831,6 +5204,9 @@ def main() -> int:
           "trace_decode_tok_s_untraced": trace["decode_tok_s_untraced"],
           "paged_tick_dtoh_copies": trace["paged_tick"][
               "dtoh_copies_per_tick"],
+          "tools_perplexity_batch_32_tok_s": tools["batch_32"]["tok_s"],
+          "tools_perplexity_batch_512_tok_s": tools["batch_512"]["tok_s"],
+          "tools_cli_seconds": tools_cli["phase_seconds"],
           "native_load_s": nat["load_s_native"],
           "numpy_load_s": nat["load_s_numpy"],
           "native_tokenize_ms": nat["tokenize_ms_native"],

@@ -100,10 +100,12 @@ def internvl_from_workspace(model_dir, device: str | torch.device | None = None,
                             mxu: bool = False) -> InternVLModel:
     """A VLM from a GGUF model dir, onto `device` (default cuda): the text
     weights from weights.gguf, the vision tower and projector from
-    vision.gguf (HF tensor names, vlm.* metadata), as the JAX package's
-    tools/convert_hf.py convert_internvl writes them. An HF checkpoint
-    dir is converted first with that tool: the port does not read
-    checkpoints. mxu: the text model in the W8 format (load_gguf_model)."""
+    vision.gguf (HF tensor names, vlm.* metadata), as tools/convert_hf.py
+    convert_internvl writes them (the JAX package's bytes). An HF
+    checkpoint dir is converted first with that tool (`python -m
+    powerserve_tpu_torch convert <hf dir> <out>`): the loader does not
+    read checkpoints. mxu: the text model in the W8 format
+    (load_gguf_model)."""
     from ..core.gguf import GGUFReader
     from .loader import load_gguf_model
 
@@ -118,8 +120,8 @@ def internvl_from_workspace(model_dir, device: str | torch.device | None = None,
                                                    for a in archs)
                 else "no vision.gguf")
         raise ValueError(f"{model_dir}: {what}; convert it to a GGUF "
-                         f"workspace first (the JAX package's "
-                         f"tools/convert_hf.py convert_internvl)")
+                         f"workspace first (python -m powerserve_tpu_torch "
+                         f"convert, tools/convert_hf.py convert_internvl)")
     cfg, llm = load_gguf_model(model_dir, device=dev, mxu=mxu)
     with GGUFReader(vision_path) as r:
         md = r.metadata

@@ -410,6 +410,7 @@ class LlamaModel(nn.Module):
                 key_positions: torch.Tensor | None = None,
                 attn_mask: torch.Tensor | None = None,
                 return_final_hidden: bool = False,
+                return_hidden: bool = False,
                 embeds: torch.Tensor | None = None):
         """One forward pass over a batch of slots; updates kv in place.
 
@@ -443,6 +444,10 @@ class LlamaModel(nn.Module):
         return_final_hidden: return (logits, hidden) with hidden the last
           layer's pre-norm output [S, Tq, dim] bf16, the feature an EAGLE
           head autoregresses over (speculative/eagle.py).
+        return_hidden: return (logits, hidden) with hidden the residual
+          stream after each layer [L, S, Tq, dim] bf16 (the per-layer
+          dumps of tools/dump_activations.py); not with kv_update
+          "deferred". Off, the forward does no work for it.
         embeds: [S, Tq, dim] input rows in place of the embedding lookup
           (rounded to bf16): a multimodal prefill's text embeddings with
           image features at the image-context positions
@@ -458,6 +463,8 @@ class LlamaModel(nn.Module):
                              f"and at most {DECODE_MAX_TQ} query rows")
         deferred = None
         if kv_update == "deferred":
+            if return_hidden:
+                raise ValueError("return_hidden takes kv_update='inline'")
             if (not isinstance(kv, PagedKVCache) or Tq > DECODE_MAX_TQ
                     or key_positions is not None or attn_mask is not None):
                 raise ValueError("kv_update='deferred' takes the paged pool, "
@@ -473,15 +480,20 @@ class LlamaModel(nn.Module):
         keys32 = keys.to(torch.int32)
         bits = None if intra_mask is None else pack_intra(intra_mask)
         index = kv.write_index(cpos)
+        hidden = [] if return_hidden else None
         for i, layer in enumerate(self.layers):
             x = layer(x, llm, kv, i, cos, sin, keys32, index,
                       fuse=fuse_layers, deferred=deferred, bits=bits,
                       attn_mask=attn_mask, tp=self.tp)
+            if hidden is not None:
+                hidden.append(x)
         if deferred is not None:
             kv.commit(deferred.blocks, index)
         kv.advance(cpos, active=active)
 
         logits = self.logits(x, logits_mode)
+        if hidden is not None:
+            return logits, torch.stack(hidden)
         return (logits, x) if return_final_hidden else logits
 
     def logits(self, x: torch.Tensor, logits_mode: str) -> torch.Tensor:

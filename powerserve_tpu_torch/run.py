@@ -33,11 +33,16 @@ at load (int8 weights with per-128 scales, csrc/qmatmul_w8.cu): the
 target, a --draft model and a VLM's text model alike, as the JAX
 package's POWERSERVE_WEIGHT_FORMAT=w8 does (the port reads no
 environment). Default gguf: the GGUF's own formats.
+
+--dump-speedinfo <file> appends one JSON line of the plain engine's
+prefill_speed, decode_speed (tokens/s), n_prefill and n_decode, as the
+JAX package's run does under POWERSERVE_DUMP_SPEEDINFO.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from dataclasses import dataclass
 from pathlib import Path
@@ -132,6 +137,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="a saved KV prefix (.npz) to preload into slot 0")
     ap.add_argument("--save-kv", default=None,
                     help="save slot 0's KV prefix (.npz) after generation")
+    ap.add_argument("--dump-speedinfo", default=None,
+                    help="append the run's prefill/decode speeds as a JSON "
+                         "line to this file (the plain engine)")
     return ap.parse_args(argv)
 
 
@@ -162,12 +170,12 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     mxu = args.weight_format == "w8"
     images = None
     spec = None
-    if (args.load_kv or args.save_kv) and (
+    if (args.load_kv or args.save_kv or args.dump_speedinfo) and (
             args.image or args.draft or args.self_draft_layers
             or args.spec_engine != "chain"):
-        raise SystemExit("--load-kv/--save-kv take the plain engine (no "
-                         "--image, --draft, --self-draft-layers or "
-                         "--spec-engine)")
+        raise SystemExit("--load-kv/--save-kv/--dump-speedinfo take the "
+                         "plain engine (no --image, --draft, "
+                         "--self-draft-layers or --spec-engine)")
     if args.image:
         images = [load_image(p) for p in args.image]
         engine = VLMEngine(internvl_from_workspace(model_dir, args.device,
@@ -213,6 +221,13 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
     else:
         log.info(f"prefill speed: {stats.prefill_speed:.2f} tokens/s")
         log.info(f"decode speed: {stats.decode_speed:.2f} tokens/s")
+    if args.dump_speedinfo:
+        with open(args.dump_speedinfo, "a") as f:
+            json.dump({"prefill_speed": stats.prefill_speed,
+                       "decode_speed": stats.decode_speed,
+                       "n_prefill": stats.prefill_tokens,
+                       "n_decode": stats.decode_tokens}, f)
+            f.write("\n")
     return RunResult(ids, out_ids, stats, spec)
 
 

@@ -351,10 +351,11 @@ def make_vlm_workspace(out_dir: str | Path, preset: str = "tiny-vlm",
     return Path(out_dir)
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> int:
     import argparse
 
-    ap = argparse.ArgumentParser(description="generate a synthetic workspace")
+    ap = argparse.ArgumentParser(prog="powerserve_tpu_torch synthetic",
+                                 description="generate a synthetic workspace")
     ap.add_argument("out_dir")
     ap.add_argument("--preset", default="tiny", choices=sorted(PRESETS))
     ap.add_argument("--quant", default="q4_k",
@@ -369,7 +370,7 @@ def main() -> None:
     ap.add_argument("--vlm", default="", choices=[""] + sorted(VLM_PRESETS),
                     help="write a vision-language workspace (text model "
                          "and vision.gguf) of this preset instead")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     fmt = {"q4_0": GGMLType.Q4_0, "q4_1": GGMLType.Q4_1,
            "q5_0": GGMLType.Q5_0, "q8_0": GGMLType.Q8_0,
            "q2_k": GGMLType.Q2_K, "q3_k": GGMLType.Q3_K,
@@ -380,15 +381,16 @@ def main() -> None:
         out = make_vlm_workspace(args.out_dir, args.vlm, fmt, args.seed,
                                  args.seq_len)
         print(f"vision-language workspace written to {out}")
-        return
+        return 0
     if args.eagle_head:
         out = make_eagle_gguf(args.out_dir, args.preset, fmt, args.seed)
         print(f"eagle head written to {out}")
-        return
+        return 0
     out = make_synthetic_gguf(args.out_dir, args.preset, fmt, args.seed,
                               args.seq_len)
     print(f"workspace written to {out}")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

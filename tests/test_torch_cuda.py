@@ -2123,3 +2123,102 @@ def test_evicting_a_model_context_gives_its_memory_back(dev, tmp_path):
                            for seg in torch.cuda.memory_snapshot())
     finally:
         ctx.close()
+
+
+def _plain_forward_routes():
+    """The forward's kernel calls (models/llama.py) sent to their plain
+    twins on the card, for mock.patch.multiple."""
+    from powerserve_tpu_torch.ops.flash_decode import (
+        flash_decode_paged_reference)
+    from powerserve_tpu_torch.ops.flash_prefill import (
+        flash_prefill_quant_reference)
+
+    def plain_qmm(x, lin):
+        y = qmatmul_reference(x.reshape(-1, x.shape[-1]), lin)
+        return y.reshape(*x.shape[:-1], lin.out_features)
+
+    return dict(qmatmul=plain_qmm, qmatmul_grouped=qmatmul_grouped_reference,
+                fused_linear=fused_linear_reference,
+                flash_decode_quant=flash_decode_quant_reference,
+                flash_decode_paged=flash_decode_paged_reference,
+                flash_prefill_quant=flash_prefill_quant_reference)
+
+
+# perplexity on the kernels against the plain twins on the card: a row's
+# log-probability moves by at most twice its logits' error (the logit of
+# the token and the log-sum), ~1e-3 of their range; each row within 1%
+# of its magnitude, so the log-perplexity, their mean, within 1% of its
+# own (on random weights ln ppl reaches ~70, and a relative gap of the
+# perplexity itself scales with it)
+LOGP_SHARE = 1e-2
+
+
+@pytest.mark.parametrize("preset", ["tiny", "llama-1b"])
+def test_perplexity_kernels_match_twins(dev, preset):
+    """token_log_probs over 74 tokens at batch 32 (chunks of 32, 32 and
+    10: the prefill kernels, then the decode ones) on the kernels and on
+    the plain twins on the card; the path launches all four kernels."""
+    from unittest import mock
+
+    import powerserve_tpu_torch.models.llama as llama
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+    from powerserve_tpu_torch.tools.perplexity import (PerplexityCalculator,
+                                                       token_log_probs)
+
+    cfg, model = make_device_params(preset, "q4_k", seed=0, device=dev)
+    if preset == "llama-1b":
+        model.layers = model.layers[:4]
+        model.llm.n_layers = 4
+    ids = np.random.default_rng(0).integers(
+        3, cfg.llm.vocab_size, 74).tolist()
+    cuda_lib.reset_launch_counts()
+    got = token_log_probs(model, ids, 32, max_seq=128)
+    counts = cuda_lib.launch_counts()
+    for name in ("qmatmul", "flash_prefill", "flash_decode", "fused_head"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    with mock.patch.multiple(llama, **_plain_forward_routes()):
+        cuda_lib.reset_launch_counts()
+        want = token_log_probs(model, ids, 32, max_seq=128)
+        assert not any(cuda_lib.launch_counts().values())
+    assert got.shape == want.shape == (73,) and np.isfinite(got).all()
+    assert (np.abs(got - want) <= LOGP_SHARE * np.abs(want)).all(), \
+        np.abs(got - want).max()
+    ppl = []
+    for lp in (got, want):
+        calc = PerplexityCalculator(32)
+        calc.add_log_probs(lp)
+        ppl.append(np.log(calc.ppl))
+    assert abs(ppl[0] - ppl[1]) <= LOGP_SHARE * ppl[1], ppl
+
+
+def test_return_hidden_leaves_replayed_decode_steps_alone(dev, tmp_path):
+    """A prefill with return_hidden=True gives the plain prefill's logits
+    and cache bits; the decode_scan replayed after it launches the same
+    kernels and gives the same tokens and cache bits as after the plain
+    prefill; the hidden states are the residual stream's."""
+    from powerserve_tpu_torch.engine.loops import decode_scan
+    from powerserve_tpu_torch.kv.cache import KVCache
+
+    cfg, model = _graph_model(tmp_path, "tiny-k", dev)
+    llm = cfg.llm
+    toks = torch.arange(2 * 20, device=dev).reshape(2, 20) * 7 % 200 + 3
+    pos = torch.arange(20, device=dev).expand(2, 20).clone()
+    pos[1, 13:] = -1
+    runs = []
+    for hidden in (False, True):
+        kv = KVCache.create(llm.n_layers, 2, 128, llm.n_kv_heads,
+                            llm.head_size, dev)
+        out = model(kv, toks, pos, logits_mode="all", return_hidden=hidden)
+        logits, h = out if hidden else (out, None)
+        steps = []
+        for n in (9, 7):  # captured, then replayed
+            steps.append(_counted(
+                lambda: decode_scan(model, toks[:, -1], kv, n)))
+        runs.append((logits, h, kv, steps))
+    (l0, _, kv0, s0), (l1, h1, kv1, s1) = runs
+    assert torch.equal(l0, l1)
+    _same_cache_bits(kv0, kv1)
+    for (t0, c0), (t1, c1) in zip(s0, s1):
+        assert torch.equal(t0, t1) and c0 == c1
+    assert h1.shape == (llm.n_layers, 2, 20, llm.dim)
+    assert h1.dtype == torch.bfloat16 and torch.isfinite(h1.float()).all()

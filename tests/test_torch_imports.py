@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither jax nor any module of
-powerserve_tpu (nor aiohttp, PIL, transformers or httpx, which the
-machine with the GPU lacks), its
+powerserve_tpu (nor aiohttp, PIL, transformers, httpx or safetensors:
+it has its own code for what the JAX package takes from them), its
 kernel wrappers run the plain twins on CPU tensors, and its entry points
 refuse to fall back to the CPU on their own."""
 
@@ -16,7 +16,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "powerserve_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "powerserve_tpu", "aiohttp", "PIL",
-           "transformers", "httpx")
+           "transformers", "httpx", "safetensors")
 
 
 def _port_sources() -> list[pathlib.Path]:
