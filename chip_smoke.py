@@ -279,6 +279,28 @@ Phases, each printing one JSON line:
              generate (512 + 64, replayed, a first and a steady call);
              an S = 8 decode step with every W8 product held against its
              twin; each MoE route under set_sync_debug_mode("error")
+  vlm_hf_dir  (after serve_vlm_full_width) an HF InternVL checkpoint dir
+             at InternVL2.5-4B's widths and 151,936-token vocabulary, 2
+             text and 2 vision layers, BF16 safetensors written by the port's own writer: `run --image
+             <the JPEG fixture>` on the dir as it is gives the tokens of
+             `run` on its `convert --quant q8_0` workspace
+  serve_tp_vlm  the server over tp = 2 ranks with an InternVL2.5-4B-width
+             VLM (text cut to 8 layers over the ranks, the tower on rank
+             0): a JPEG chat and a text completion, replies the single-
+             device server's (near-tie rule), each rank's launches
+  tp_moe_kernels  the grouped qmatmul at mixtral-lite's local expert
+             shapes at tp = 2 (8 slabs of 4096 -> 1792 / 1792 -> 4096)
+             and ep = 2 (4 slabs a rank), prefill, decode and single
+             token, against the twins with times and bounds
+  tp_moe_full_width  mixtral-lite Q4_K cut to 8 layers over two ranks,
+             tp = 2 and ep = 2: prefill and decode-step logits against
+             one device's, 16 greedy tokens, and a served run against the
+             single-device server, each rank's launches
+  tp_eagle_full_width  llama-8b Q4_K cut to 8 layers with a random EAGLE
+             head over tp = 2 ranks: the scheduler's chain and tree
+             ticks against one device's and generate's tokens, and the
+             exact-replica head over the 1-layer target's shards (every
+             draft accepted)
   native     (last) core/native.py: a llama-8b-width Q4_K GGUF (4 layers,
              a 32,000-token tied vocabulary) loaded onto the card with
              the C++ repack and with the numpy twin, bit for bit, seconds
@@ -305,9 +327,13 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --tp
        python3 chip_smoke.py --ticks
        python3 chip_smoke.py --tools
+       python3 chip_smoke.py --compose
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
-line last; the third the build and the two VLM phases; the fourth the
+line last; the third the build, the two VLM phases and vlm_hf_dir; the
+seventh the build, tp_kernels and the rank-group compositions (tp_moe_
+kernels, tp_moe_full_width, serve_tp_vlm, tp_eagle_full_width) and
+vlm_hf_dir; the fourth the
 build and the three tensor-parallel phases; the fifth the build and the
 paged plain tick's device-to-host copies on llama-8b (the scheduler's
 public surface only, so a copy of this script counts a parent tree's);
@@ -357,7 +383,16 @@ VISION_REL = 2e-2
 TP_LOGIT_REL = 1e-2
 
 
+_EMITTED = [time.perf_counter()]
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also gets phase_s, the seconds since
+    the line before it (the phase's own wall time, its build included)."""
+    now = time.perf_counter()
+    if "phase" in obj:
+        obj = {**obj, "phase_s": now - _EMITTED[0]}
+    _EMITTED[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -2087,7 +2122,9 @@ def serve_run(ws, hp, device: str, model: str = "model",
     the model name `model`. The scheduler admits nothing until all six
     are queued (or 10 s passed), so they contend for the slots and the
     pool the same way on every run: otherwise the first requests may run
-    alone, and a small pool preempts or not by thread timing. ctx: serve
+    alone, and a small pool preempts or not by thread timing; from that
+    first admission on it admits as it does (the two requests past the
+    four slots used to wait out the 10 s). ctx: serve
     this ServerContext (left open) in place of a new one on ws; over a
     rank group, each rank's launches come back as rank_launches.
     same_chats False: the streamed and the plain chat (the same prompt)
@@ -2102,9 +2139,12 @@ def serve_run(ws, hp, device: str, model: str = "model",
 
     admit = BatchScheduler._admit
     deadline = time.monotonic() + 10.0
+    released = []  # the first admission happened: admit as usual from then
 
     def admit_all_at_once(sched):
-        if sched.pending.qsize() >= 6 or time.monotonic() > deadline:
+        if released or sched.pending.qsize() >= 6 or \
+                time.monotonic() > deadline:
+            released.append(True)
             admit(sched)
 
     own = ctx is None
@@ -3217,20 +3257,17 @@ def phase_eagle_full_width(dev: torch.device, cfg, model,
           step cut at 64 tokens), the tokens those of that target's
           generate (near-tie rule).
     Returns the phase's line and each path's launch counts."""
-    import numpy as np
-
     from powerserve_tpu_torch.core.config import HyperParams, ModelConfig
     from powerserve_tpu_torch.core.gguf import GGMLType
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
     from powerserve_tpu_torch.engine.graphs import graphs_of
     from powerserve_tpu_torch.models.loader import load_eagle_gguf
-    from powerserve_tpu_torch.ops.qmatmul import QLinear
     from powerserve_tpu_torch.speculative.chain import self_draft_model
     from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
     from powerserve_tpu_torch.speculative.eagle import (EagleChainEngine,
-                                                        EagleHead,
-                                                        eagle_spec_scan)
+                                                        eagle_spec_scan,
+                                                        replica_head)
     from powerserve_tpu_torch.speculative.engine import SpecStats
     from powerserve_tpu_torch.tools.synthetic import make_eagle_gguf
 
@@ -3334,14 +3371,7 @@ def phase_eagle_full_width(dev: torch.device, cfg, model,
     # (d) the exact replica over a 1-layer target
     target = self_draft_model(model, 1)
     tcfg = ModelConfig(arch=cfg.arch, llm=target.llm)
-    dim = llm.dim
-    eye = np.concatenate([np.eye(dim, dtype=np.float32),
-                          np.zeros((dim, dim), np.float32)])
-    replica = EagleHead(target.llm,
-                        QLinear.from_float(eye, GGMLType.Q8_0, device=dev),
-                        None, [target.layers[0]], target.embed,
-                        target.lm_head, target.out_norm, input_norm=True)
-    del eye
+    replica = replica_head(target)
     one = InferenceEngine(target, tcfg, hp, device=dev)
     want1, _ = counted("replica plain generate", ("qmatmul",),
                        lambda: list(one.generate(prompt, n_new)))
@@ -3416,7 +3446,9 @@ def phase_vlm_full_width(dev: torch.device) -> tuple[dict, dict]:
     second steady). The multimodal prefill's logits and one decode step on
     the kernels against the plain twins on the card (near-tie rule), the
     prefill under set_sync_debug_mode("error"); the tower on the card
-    against the CPU on one tile through its first 4 layers."""
+    against the CPU on one tile through its first 4 layers. First, the
+    committed 896 x 448 progressive 4:2:0 JPEG decoded (jpeg_fixture: its
+    pixels' sha256 Pillow's, the decode's host ms)."""
     import numpy as np
 
     from powerserve_tpu_torch.core.config import HyperParams
@@ -3453,7 +3485,8 @@ def phase_vlm_full_width(dev: torch.device) -> tuple[dict, dict]:
     n_img = ids.count(vlm.image_token_id)
     if px.shape != (3, 3, tile, tile) or n_img != 3 * vlm.tokens_per_tile:
         raise AssertionError(f"tiles {px.shape}, image tokens {n_img}")
-    out: dict = {"phase": "vlm_full_width", "preset": VLM_PRESET,
+    jpeg = jpeg_fixture()["info"]
+    out: dict = {"phase": "vlm_full_width", "preset": VLM_PRESET, "jpeg": jpeg,
                  "vision_layers": len(vp.layers), "vision_dim": vp.dim,
                  "text_layers": llm.n_layers, "text_dim": llm.dim,
                  "vocab": llm.vocab_size, "build_s": build_s,
@@ -3568,8 +3601,9 @@ def phase_serve_vlm_full_width(dev: torch.device, ref: dict) -> dict:
     request ends "length", the paged and prefill kernels launch, the
     second serving's tokens are the first's, every image request's tokens
     are VLMEngine's (near-tie rule); then image request 0 alone must get
-    its batched tokens, and the same request to "model+self:4" the plain
-    ones. Generated tok/s and TTFT p50/p90 of each serving (the
+    its batched tokens, the same request to "model+self:4" the plain
+    ones, and the JPEG fixture as data:image/jpeg, alone, the tokens of
+    the PNG of its decoded pixels. Generated tok/s and TTFT p50/p90 of each serving (the
     scheduler's, from the submit, which follows the request's image
     encode on the scheduler thread: each encode job's ms, from its call
     to its future's result (the wait for the thread and the launches;
@@ -3692,6 +3726,26 @@ def phase_serve_vlm_full_width(dev: torch.device, ref: dict) -> dict:
                 alone[f"self_draft_{depth}"]["spec_tokens_per_step"] = \
                     ctx.get(spec_name).scheduler.metrics().get(
                         "spec_tokens_per_step")
+                # the JPEG fixture as data:image/jpeg, then the PNG of its
+                # decoded pixels, each alone: the same tokens
+                fixture = jpeg_fixture()
+                kinds = {}
+                for kind, url in image_urls(fixture).items():
+                    with ServeRecorder() as rec3:
+                        status, data = chat_image(port, url, questions[1],
+                                                  n_new)
+                    rec3.check(f"{label} {kind}")
+                    if status != 200:
+                        raise AssertionError(f"{kind}: {status} "
+                                             f"{data[:200]}")
+                    kinds[kind] = rec3.tokens()
+                if kinds["jpeg"] != kinds["png"]:
+                    raise AssertionError(f"the JPEG's reply {kinds['jpeg']} "
+                                         f"!= its pixels' PNG's "
+                                         f"{kinds['png']}")
+                alone["jpeg_equals_png"] = dict(
+                    equal=True, jpeg=fixture["info"],
+                    tokens=len(next(iter(kinds["jpeg"].values()))))
                 return run
             finally:
                 server.shutdown()
@@ -3769,8 +3823,10 @@ def phase_tp_kernels(dev: torch.device, read_flush: bool = False) -> dict:
     3072, wo 2048 -> 4096, gate|up 4096 -> 14336 and down 7168 -> 4096
     (pack group 1792, new to the kernels); the fused head 4096 -> 64128
     with and without its argmax; flash-decode (S = 1 and 8, T = 1024) and
-    flash-prefill (S = 1, 512 rows from 0 of 2048) at 16/4 heads. Every
-    GEMM and attention case twice, bit for bit."""
+    flash-prefill (S = 1, 512 rows from 0 of 2048) at 16/4 heads, and
+    flash-decode's tree mode at an EAGLE [2, 1, 1] tree's verify (S = 1,
+    7 nodes over 1000 committed positions) at 16/4 heads. Every GEMM and
+    attention case twice, bit for bit."""
     from powerserve_tpu_torch.ops.flash_decode import (
         decode_visibility, flash_decode_cuda, flash_decode_quant_reference)
     from powerserve_tpu_torch.ops.flash_prefill import (
@@ -3906,6 +3962,30 @@ def phase_tp_kernels(dev: torch.device, read_flush: bool = False) -> dict:
                      lambda: flash_prefill_cuda(*args),
                      lambda: flash_prefill_quant_reference(*args),
                      nbytes(mask, start)))
+    # the tree mode at the local heads (an EAGLE [2, 1, 1] tree's verify
+    # over the ranks: 7 nodes at c + i over 1000 committed positions)
+    from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+    parents = [-1, 0, 0, 1, 2, 3, 4]
+    N = len(parents)
+    anc = torch.zeros(N, N, dtype=torch.bool, device=dev)
+    for i_ in range(N):
+        j_ = i_
+        while j_ >= 0:
+            anc[i_, j_] = True
+            j_ = parents[j_]
+    bits = pack_intra(anc)
+    T = 2048
+    q = randn(1, N, H, D)
+    kv4 = cache(1, T)
+    mask = torch.arange(T, device=dev)[None, :] < 1000
+    keys = (1000 + torch.arange(N, device=dev)[None, :]).to(torch.int32)
+    args = (q, *kv4, mask, keys, scale)
+    rows.append(attn("flash_decode_tree", f"S=1 Tq={N} T={T} verify", q,
+                     kv4, decode_visibility(mask, keys, N, bits),
+                     lambda: flash_decode_cuda(*args, bits=bits),
+                     lambda: flash_decode_quant_reference(*args, bits=bits),
+                     nbytes(mask, keys, bits)))
     torch.cuda.synchronize()
     return {"phase": "tp_kernels", "tp": TP,
             "flush": "read" if read_flush else "write", "rows": rows}
@@ -4562,6 +4642,25 @@ def phase_tools_full_width(dev: torch.device, cfg, model) -> dict:
                          logits_cos=rows[-1][1], logit_gap=gap)}
 
 
+def write_bpe_tokenizer(d: str, text: str) -> None:
+    """A byte-level BPE tokenizer.json trained on `text` (300 tokens) and
+    its tokenizer_config.json, in d."""
+    from tokenizers import Tokenizer as HFTokenizer
+    from tokenizers import decoders, models, pre_tokenizers, trainers
+
+    tok = HFTokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator([text] * 8, trainers.BpeTrainer(
+        vocab_size=300, special_tokens=["<s>", "</s>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+        show_progress=False))
+    tok.save(os.path.join(d, "tokenizer.json"))
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                   "add_bos_token": True}, f)
+
+
 def write_hf_llama(d: str, dev: torch.device, layers: int, vocab: int,
                    widths: tuple = (4096, 14336, 32, 8)) -> None:
     """An HF directory as a Llama-3.1-8B checkpoint has it (config.json,
@@ -4569,9 +4668,6 @@ def write_hf_llama(d: str, dev: torch.device, layers: int, vocab: int,
     byte-level BPE tokenizer.json and tokenizer_config.json), cut to
     `layers` layers and a `vocab`-token vocabulary, random weights from
     seed 8; widths (dim, ffn, heads, kv heads) llama-8b's."""
-    from tokenizers import Tokenizer as HFTokenizer
-    from tokenizers import decoders, models, pre_tokenizers, trainers
-
     from powerserve_tpu_torch.tools.safetensors import save_file
 
     dim, ff, H, Hkv = widths
@@ -4614,18 +4710,7 @@ def write_hf_llama(d: str, dev: torch.device, layers: int, vocab: int,
                    "rms_norm_eps": 1e-5, "vocab_size": vocab,
                    "tie_word_embeddings": False,
                    "torch_dtype": "bfloat16"}, f)
-    tok = HFTokenizer(models.BPE())
-    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
-    tok.decoder = decoders.ByteLevel()
-    tok.train_from_iterator(
-        ["the quick brown fox jumps over the lazy dog"] * 8,
-        trainers.BpeTrainer(
-            vocab_size=300, special_tokens=["<s>", "</s>"],
-            initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
-    tok.save(os.path.join(d, "tokenizer.json"))
-    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
-        json.dump({"bos_token": "<s>", "eos_token": "</s>",
-                   "add_bos_token": True}, f)
+    write_bpe_tokenizer(d, "the quick brown fox jumps over the lazy dog")
 
 
 def port_cli(cmds: dict, tmp: str, timeout: float = 600) -> dict:
@@ -4931,6 +5016,702 @@ def phase_native(dev: torch.device) -> dict:
     return result
 
 
+# -- JPEG input, HF InternVL dirs as they are, and MoE (with expert
+#    parallelism), VLM and EAGLE over rank groups ------------------------
+
+JPEG_FIXTURE = "progressive_420_896x448.jpg"
+# the depth the rank-group compositions cut their models to: full width,
+# the first layers of the full model's (the same seed on every rank)
+COMPOSE_LAYERS = 8
+
+
+def jpeg_fixture() -> dict:
+    """The committed 896 x 448 progressive 4:2:0 JPEG (tests/data/jpeg,
+    written by Pillow) decoded by core/image.py: its pixels' sha256
+    against the one recorded from Pillow beside it (this machine has no
+    Pillow), and the decode's host ms (median of 5 calls, after a first
+    one). Returns {data, pixels, info}."""
+    import hashlib
+
+    import numpy as np
+
+    from powerserve_tpu_torch.core.image import decode_image
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "data", "jpeg")
+    with open(os.path.join(d, JPEG_FIXTURE), "rb") as f:
+        data = f.read()
+    with open(os.path.join(d, "expected.json")) as f:
+        want = json.load(f)[JPEG_FIXTURE]
+    t0 = time.perf_counter()
+    pixels = decode_image(data)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_image(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    sha = hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+    if sha != want["sha256"] or list(pixels.shape) != want["shape"]:
+        raise AssertionError(f"{JPEG_FIXTURE}: decoded {pixels.shape}, sha256 "
+                             f"{sha}; Pillow's {want}")
+    return dict(data=data, pixels=pixels, info=dict(
+        file=f"tests/data/jpeg/{JPEG_FIXTURE}", bytes=len(data),
+        shape=list(pixels.shape), pillow_sha256_equal=True,
+        decode_ms=statistics.median(times), decode_ms_runs=times,
+        first_decode_ms=first_ms))
+
+
+def chat_image(port: int, url: str, question: str, n_new: int,
+               model: str = "model") -> tuple[int, bytes]:
+    return http_call(port, "POST", "/v1/chat/completions", {
+        "model": model, "max_tokens": n_new, "temperature": 0,
+        "messages": [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": url}},
+            {"type": "text", "text": question}]}]})
+
+
+def image_urls(fixture: dict) -> dict:
+    """The fixture as a data:image/jpeg URI, and the PNG of its decoded
+    pixels as a data:image/png one."""
+    import base64
+
+    from powerserve_tpu_torch.core.image import encode_png
+
+    return {"jpeg": "data:image/jpeg;base64,"
+                    + base64.b64encode(fixture["data"]).decode(),
+            "png": "data:image/png;base64," + base64.b64encode(
+                encode_png(fixture["pixels"], (1, 4))).decode()}
+
+
+def write_hf_internvl(d: str, dev: torch.device, text_layers: int = 2,
+                      vision_layers: int = 2) -> dict:
+    """An HF InternVL checkpoint dir at InternVL2.5-4B's widths (the text
+    model Qwen2.5-3B's: 2048 wide, FFN 11008, 16/2 heads with QKV biases;
+    the tower InternViT-300M-448px's: 1024 wide, FFN 4096, 16 heads, patch
+    14, 448-pixel tiles; the projector 4096 -> 2048 -> 2048), cut to
+    `text_layers` and `vision_layers` layers, at Qwen2.5-3B's 151,936-token
+    vocabulary, untied, with the image-context token at 151,667 (the
+    internvl2.5-4b preset of tools/synthetic.py): the
+    save_pretrained layout (language_model.model.*, vision_tower.*,
+    multi_modal_projector.*) in BF16 by the port's tools/safetensors.py,
+    config.json, and a byte-level BPE tokenizer.json; random weights from
+    seed 18. Returns the widths."""
+    from powerserve_tpu_torch.tools.safetensors import save_file
+
+    dim, ff, H, Hkv, vocab = 2048, 11008, 16, 2, 151936
+    vd, vff, vh, patch, image = 1024, 4096, 16, 14, 448
+    hd = dim // H
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+
+    def w(*shape, scale=0.02, mean=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                + mean).bfloat16().cpu()
+
+    sd = {"language_model.model.embed_tokens.weight": w(vocab, dim),
+          "language_model.model.norm.weight": w(dim, scale=0.1, mean=1.0),
+          "language_model.lm_head.weight": w(vocab, dim)}
+    for i in range(text_layers):
+        p = f"language_model.model.layers.{i}."
+        sd.update({
+            p + "input_layernorm.weight": w(dim, scale=0.1, mean=1.0),
+            p + "post_attention_layernorm.weight": w(dim, scale=0.1,
+                                                     mean=1.0),
+            p + "self_attn.q_proj.weight": w(H * hd, dim),
+            p + "self_attn.q_proj.bias": w(H * hd),
+            p + "self_attn.k_proj.weight": w(Hkv * hd, dim),
+            p + "self_attn.k_proj.bias": w(Hkv * hd),
+            p + "self_attn.v_proj.weight": w(Hkv * hd, dim),
+            p + "self_attn.v_proj.bias": w(Hkv * hd),
+            p + "self_attn.o_proj.weight": w(dim, H * hd),
+            p + "mlp.gate_proj.weight": w(ff, dim),
+            p + "mlp.up_proj.weight": w(ff, dim),
+            p + "mlp.down_proj.weight": w(dim, ff)})
+    n_pos = (image // patch) ** 2 + 1
+    sd.update({
+        "vision_tower.embeddings.patch_embeddings.projection.weight":
+            w(vd, 3, patch, patch),
+        "vision_tower.embeddings.patch_embeddings.projection.bias": w(vd),
+        "vision_tower.embeddings.cls_token": w(1, 1, vd),
+        "vision_tower.embeddings.position_embeddings": w(1, n_pos, vd)})
+    for i in range(vision_layers):
+        p = f"vision_tower.encoder.layer.{i}."
+        for n in "qkv":
+            sd[p + f"attention.{n}_proj.weight"] = w(vd, vd)
+            sd[p + f"attention.{n}_proj.bias"] = w(vd, scale=0.01)
+        sd.update({
+            p + "attention.projection_layer.weight": w(vd, vd),
+            p + "attention.projection_layer.bias": w(vd, scale=0.01),
+            p + "mlp.fc1.weight": w(vff, vd), p + "mlp.fc1.bias": w(vff),
+            p + "mlp.fc2.weight": w(vd, vff), p + "mlp.fc2.bias": w(vd),
+            p + "layernorm_before.weight": w(vd, scale=0.1, mean=1.0),
+            p + "layernorm_before.bias": w(vd, scale=0.01),
+            p + "layernorm_after.weight": w(vd, scale=0.1, mean=1.0),
+            p + "layernorm_after.bias": w(vd, scale=0.01),
+            p + "lambda_1": w(vd, scale=0.01, mean=0.1),
+            p + "lambda_2": w(vd, scale=0.01, mean=0.1)})
+    d4 = vd * 4  # pixel shuffle 0.5
+    sd.update({"multi_modal_projector.layer_norm.weight": w(d4, scale=0.1,
+                                                            mean=1.0),
+               "multi_modal_projector.layer_norm.bias": w(d4, scale=0.01),
+               "multi_modal_projector.linear_1.weight": w(dim, d4),
+               "multi_modal_projector.linear_1.bias": w(dim, scale=0.01),
+               "multi_modal_projector.linear_2.weight": w(dim, dim),
+               "multi_modal_projector.linear_2.bias": w(dim, scale=0.01)})
+    os.makedirs(d, exist_ok=True)
+    save_file(sd, os.path.join(d, "model.safetensors"))
+    text = {"model_type": "qwen2", "hidden_size": dim,
+            "intermediate_size": ff, "num_hidden_layers": text_layers,
+            "num_attention_heads": H, "num_key_value_heads": Hkv,
+            "max_position_embeddings": 4096, "rope_theta": 1000000.0,
+            "rms_norm_eps": 1e-6, "vocab_size": vocab,
+            "tie_word_embeddings": False}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"architectures": ["InternVLForConditionalGeneration"],
+                   "text_config": text,
+                   "vision_config": {"hidden_size": vd,
+                                     "intermediate_size": vff,
+                                     "num_hidden_layers": vision_layers,
+                                     "num_attention_heads": vh,
+                                     "patch_size": [patch, patch],
+                                     "image_size": [image, image],
+                                     "layer_norm_eps": 1e-6},
+                   "downsample_ratio": 0.5, "image_token_id": 151667,
+                   "image_seq_length": 256, "torch_dtype": "bfloat16"}, f)
+    write_bpe_tokenizer(d, "describe the picture and count the stripes")
+    return dict(text_layers=text_layers, vision_layers=vision_layers,
+                dim=dim, ffn=ff, heads=(H, Hkv), vocab=vocab,
+                vision_dim=vd, vision_ffn=vff, tensors=len(sd),
+                bytes=sum(t.numel() * 2 for t in sd.values()))
+
+
+def phase_vlm_hf_dir(dev: torch.device) -> dict:
+    """An HF InternVL checkpoint dir at InternVL2.5-4B's widths and
+    vocabulary, 2 text and 2 vision layers (write_hf_internvl), loaded as
+    it is: `run --image <the JPEG fixture> -d <hf dir>` (the text
+    weights quantized to Q8_0 in memory, models/internvl.py
+    internvl_from_hf_dir) against
+    `run` on the workspace `convert --quant q8_0` writes of the same dir:
+    the same greedy tokens (the same Q8_0 blocks of the same values, the
+    same f32 tower), each run's launches counted. Both in this process
+    (run.run_prompt on parse_args, the CLI's own path); seconds of each
+    step."""
+    import io
+
+    from powerserve_tpu_torch import run
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.tools import convert_hf
+
+    out: dict = {"phase": "vlm_hf_dir", "card": card_line()}
+    secs = {}
+    tmp = tempfile.mkdtemp(prefix="vlm_hf_")
+    try:
+        hf, ws = os.path.join(tmp, "hf"), os.path.join(tmp, "ws")
+        t0 = time.perf_counter()
+        out["hf"] = write_hf_internvl(hf, dev)
+        secs["write_hf"] = time.perf_counter() - t0
+        fixture = jpeg_fixture()
+        img = os.path.join(tmp, "a.jpg")
+        with open(img, "wb") as f:
+            f.write(fixture["data"])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_hf.main([hf, ws, "--quant", "q8_0"])
+        secs["convert"] = time.perf_counter() - t0
+        need = ("qmatmul", "fused_head", "flash_prefill", "flash_decode")
+        runs = {}
+        for label, d in (("hf_dir", hf), ("workspace", ws)):
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = run.run_prompt(run.parse_args([
+                    "-d", d, "-p", "describe the picture", "-n", "16",
+                    "--temperature", "0", "--image", img,
+                    "--no-progress"]))
+            torch.cuda.synchronize()
+            secs[f"run_{label}"] = time.perf_counter() - t0
+            launches = cuda_lib.launch_counts()
+            missing = [k for k in need if not launches[k]]
+            if missing:
+                raise AssertionError(f"vlm_hf_dir {label}: no {missing}")
+            runs[label] = dict(ids=res.ids, prompt_tokens=len(res.prompt_ids),
+                               launches={k: launches[k] for k in need})
+        if runs["hf_dir"]["ids"] != runs["workspace"]["ids"] or len(
+                runs["hf_dir"]["ids"]) != 16:
+            raise AssertionError(f"run --image on the HF dir "
+                                 f"{runs['hf_dir']['ids']} != on its "
+                                 f"workspace {runs['workspace']['ids']}")
+        out.update(runs=runs, tokens_equal=True, seconds=secs,
+                   jpeg=fixture["info"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# the serving settings of the rank-group compositions, on one device and
+# over the ranks alike
+COMPOSE_HP = dict(max_slots=4, batch_size=128, max_seq_len=2048)
+
+
+@contextlib.contextmanager
+def compose_context(dev: torch.device):
+    """One ServerContext over TP ranks (two ranks, gloo on the one card or
+    nccl on two) that the rank-group phases share: each registers its
+    models on the context's ranks (ep = 2 builds on the same ranks'
+    (tp = 1, ep = 2) mesh), so the followers start once."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.serving.server import ServerContext
+
+    backend, _ = tp_backend()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = ServerContext(tmp, "model", HyperParams(**COMPOSE_HP),
+                            dev.type, tp=TP, dist_backend=backend)
+        ctx.start_s = time.perf_counter() - t0
+        try:
+            yield ctx
+        finally:
+            ctx.close()
+
+
+def phase_tp_moe_kernels(dev: torch.device) -> dict:
+    """The grouped qmatmul at mixtral-lite's local expert shapes over a
+    rank group, against its twin on the card with CUDA-event times and
+    bounds (the kernels phase's rule): tp = 2 (rows 2tp: 8 slabs of
+    4096 -> 1792 for gate and up, 1792 -> 4096 for down, pack group
+    1792) and ep = 2 (rows 2ep: 4 slabs of 4096 -> 3584 and 3584 ->
+    4096, the ep rank's share of the routed rows, e_off 4); a 256-token
+    prefill (block_m 128), 8 decoding slots (block_m 16) and, at tp = 2,
+    one token (block_m 1, its 2 routed slabs); twice bit for bit."""
+    from powerserve_tpu_torch.ops.moe import group_dispatch
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_grouped_cuda,
+                                                  qmatmul_grouped_reference)
+    from powerserve_tpu_torch.parallel.tp import _repack_rows, _rows
+    from powerserve_tpu_torch.tools.bench_params import _rand_qlinear
+
+    timer = Timer(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    rows = []
+    for mesh, E, n_local, e_off, shapes in (
+            ("tp2", 8, 8, 0, (("gate", 4096, 1792), ("down", 1792, 4096))),
+            ("ep2", 8, 4, 4, (("gate", 4096, 3584), ("down", 3584, 4096)))):
+        for proj, K, N in shapes:
+            if mesh == "tp2" and proj == "down":
+                # the down slabs as shard_params_tp leaves them: rank 1's
+                # rows of the repacked 3584 -> 4096 stack
+                whole = _rand_qlinear(g, 2 * K, N, "q4_k", dev, experts=E)
+                stack = _rows(_repack_rows(whole, 2), 1, 2)
+                del whole
+            else:
+                stack = _rand_qlinear(g, K, N, "q4_k", dev, experts=n_local)
+            for n_tok, bm in ((256, 128), (8, 16), (1, 1)):
+                if bm == 1 and mesh == "ep2":
+                    continue  # under ep a token takes the grouped route
+                logits = torch.randn(n_tok, E, generator=g, device=dev)
+                topw, topi = torch.softmax(logits, dim=-1).topk(2, dim=-1)
+                # the rows routed to this rank's experts, and their slabs
+                mine = topi[(topi >= e_off) & (topi < e_off + n_local)]
+                routed, distinct = mine.numel(), int(mine.unique().numel())
+                if bm == 1:
+                    ids = topi[0].to(torch.int32)
+                    x = (torch.randn(1, K, generator=g, device=dev)
+                         .to(torch.bfloat16).expand(2, K).contiguous())
+                else:
+                    tok, _, ids = group_dispatch(topi, topw, n_local, e_off,
+                                                 bm)
+                    x = torch.randn(n_tok, K, generator=g, device=dev).to(
+                        torch.bfloat16)[tok.clamp(min=0).long()]
+                name = f"{mesh} qmatmul_grouped {proj} {n_tok} tokens"
+                ref = qmatmul_grouped_reference(x, stack, ids, bm)
+                got = qmatmul_grouped_cuda(x, stack, ids, bm)
+                err = (got - ref).abs().max().item()
+                tol = 1e-4 * max(1.0, ref.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"{name}: max abs err {err} over "
+                                         f"{tol}")
+                if not torch.equal(got, qmatmul_grouped_cuda(x, stack, ids,
+                                                             bm)):
+                    raise AssertionError(f"{name}: two runs gave different "
+                                         f"bits")
+                b, by = bound_ms(routed * K * 2 + nbytes(ids)
+                                 + distinct * stack.nbytes() // n_local
+                                 + routed * N * 4, 2.0 * routed * N * K)
+                rows.append(dict(
+                    kernel="qmatmul_grouped", mesh=mesh, proj=proj,
+                    tokens=n_tok, block_m=bm, slabs=n_local, k=K, n=N,
+                    pack_group=stack.pack_group, P=x.shape[0],
+                    routed_rows=routed, distinct_slabs=distinct,
+                    max_abs_err=err,
+                    ms=timer(lambda: qmatmul_grouped_cuda(x, stack, ids,
+                                                          bm)),
+                    plain_ms=timer(lambda: qmatmul_grouped_reference(
+                        x, stack, ids, bm), reps=5),
+                    bound_ms=b, bound_by=by, library_ms=None))
+            del stack
+    return {"phase": "tp_moe_kernels", "rows": rows}
+
+
+def phase_tp_moe_full_width(dev: torch.device, ctx) -> dict:
+    """mixtral-lite Q4_K (8 experts of 3584, top-2; random weights from
+    seed 0 on every rank) cut to COMPOSE_LAYERS layers, over the two
+    ranks of ctx (compose_context): tp = 2 (every expert stack split like
+    the dense FFN) and ep = 2, tp = 1 (4 experts a rank). Each: a
+    256-token prefill (the grouped route at 128-row tiles) and a
+    one-token decode step (the single-token route at tp = 2, the grouped
+    one under ep) held against the single device's logits (TP_LOGIT_REL,
+    the greedy token up to a near-tie), 16 greedy tokens over the ranks
+    against generate's (near-tie rule), then serve_run's traffic to the
+    model registered on ctx against the single-device server's tokens
+    (near-tie rule). Every rank's launches of each path."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.parallel.tp import (tp_decode_scan, tp_forward,
+                                                  tp_prefill)
+    from powerserve_tpu_torch.serving.server import ServerContext
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+    backend, how = tp_backend()
+    group = ctx.ranks
+    L = COMPOSE_LAYERS
+    cfg, model = make_device_params("mixtral-lite", "q4_k", seed=0,
+                                    device=dev, layers=L)
+    llm = cfg.llm
+    n_prompt, n_tokens, max_seq = 256, 16, 1024
+    g = torch.Generator(device="cpu")
+    g.manual_seed(3)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=g)
+    hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=max_seq)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    want_tokens = list(engine.generate(prompt.tolist(), n_tokens))
+    tok = synthetic_tokenizer(llm.vocab_size)
+    shp = HyperParams(**COMPOSE_HP)
+    with tempfile.TemporaryDirectory() as tmp:
+        one = ServerContext(tmp, "moe", shp, dev)
+        try:
+            one.register("moe", model, cfg, tok)
+            served_one = serve_run(None, shp, dev.type, "moe", ctx=one)
+        finally:
+            one.close()
+    out: dict = {"phase": "tp_moe_full_width", "preset": "mixtral-lite",
+                 "layers": L, "backend": backend, "ranks": how,
+                 "rank_group_start_s": ctx.start_s, "card": card_line()}
+    need = ("qmatmul", "qmatmul_grouped", "fused_head")
+    for label, tp, ep in (("tp2", 2, 1), ("ep2", 1, 2)):
+        res: dict = {}
+        t0 = time.perf_counter()
+        _, tm = group.preset("mixtral-lite", "q4_k", 0, tp, ep=ep, layers=L)
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+        lw = tm.shard.model.layers[0]
+        res["local_shapes"] = dict(
+            experts=lw.w_gate_exps.n_slabs,
+            gate_up=lw.w_gate_exps.out_features,
+            down_k=lw.w_down_exps.in_features,
+            down_pack_group=lw.w_down_exps.pack_group,
+            heads=(tm.shard.model.llm.n_heads, tm.shard.model.llm.n_kv_heads))
+        E, F = llm.n_experts, llm.hidden_dim
+        if (lw.w_gate_exps.n_slabs, lw.w_gate_exps.out_features,
+                lw.w_down_exps.in_features) != (E // ep, F // tp, F // tp):
+            raise AssertionError(f"{label} shards: {res['local_shapes']}")
+        kv1 = KVCache.create(L, 1, max_seq, llm.n_kv_heads, llm.head_size,
+                             dev)
+        kv2 = tm.create_cache(L, 1, max_seq, llm.n_kv_heads, llm.head_size)
+        toks = prompt[None].to(dev)
+        pos = torch.arange(n_prompt, device=dev)[None]
+        counts = {}
+
+        def timed(name, fn):
+            group.launch_counts(reset=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            res[f"{name}_wall_s"] = time.perf_counter() - t
+            counts[name] = rank_counts(group.launch_counts(), need,
+                                       f"{label} {name}")
+            return r
+
+        want = model(kv1, toks, pos, logits_mode="last")
+        got = timed("prefill", lambda: tp_prefill(tm, toks, pos, kv2))
+        res["prefill_logit_gap"] = tp_agree(f"{label} prefill", got, want)
+        first = want.argmax(-1)
+        dpos = torch.full((1, 1), n_prompt, device=dev)
+        want_d = model(kv1, first[:, None], dpos, logits_mode="last")
+        got_d = timed("decode_step", lambda: tp_forward(
+            tm, kv2, first[:, None], dpos, logits_mode="last"))
+        res["decode_step_logit_gap"] = tp_agree(f"{label} decode step",
+                                                got_d, want_d)
+        scan = timed("decode_scan", lambda: tp_decode_scan(
+            tm, got_d.argmax(-1), kv2, n_tokens - 2))
+        got_tokens = ([int(got.argmax(-1)), int(got_d.argmax(-1))]
+                      + scan[0].tolist())
+        res["decode_tok_s"] = (n_tokens - 2) / res["decode_scan_wall_s"]
+        res["near_tie_gap"] = agree(f"{label} greedy vs generate",
+                                    got_tokens, want_tokens, engine,
+                                    prompt.tolist())
+        res["tokens_equal"] = got_tokens == want_tokens
+        del kv2
+        name = f"moe_{label}"
+        ctx.register(name, tm, cfg, tok)
+        t0 = time.perf_counter()
+        served = serve_run(None, shp, dev.type, name, ctx=ctx)
+        res["served_s"] = time.perf_counter() - t0
+        gaps = []
+        for p, ids in served["all_tokens"]:
+            gaps.append(agree(f"{label} served vs one device", ids,
+                              served_one["tokens"][p], engine, list(p)))
+        res["served_texts"] = served["texts"]
+        res["served_near_ties"] = [x for x in gaps if x is not None]
+        res["served_rank_launches"] = rank_counts(
+            served["rank_launches"], need, f"{label} served")
+        res["launches"] = counts
+        out[label] = res
+    return out
+
+
+def phase_serve_tp_vlm(dev: torch.device, ctx) -> dict:
+    """The HTTP server over ctx's two ranks (tp = 2) with an InternVL2.5-4B-width
+    VLM (random weights; the text model cut to COMPOSE_LAYERS layers over
+    the ranks, the whole tower on rank 0's card): one chat request with
+    the JPEG fixture (as data:image/jpeg) and one text completion at
+    once, 16 greedy tokens each; each reply is the single-device server's
+    with the same model (near-tie rule: the image reply's by its
+    multimodal prefill, the text reply's by generate's prefill), with
+    each rank's launches."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.vlm import VLMEngine
+    from powerserve_tpu_torch.models.internvl import InternVLModel
+    from powerserve_tpu_torch.serving.server import ServerContext
+    from powerserve_tpu_torch.tools.bench_params import make_device_internvl
+    from powerserve_tpu_torch.tools.synthetic import VLM_PRESETS
+
+    backend, how = tp_backend()
+    n_new = 16
+    vlm = make_device_internvl(VLM_PRESET, "q4_k", seed=0, device=dev,
+                               text_layers=COMPOSE_LAYERS)
+    tok = synthetic_tokenizer(vlm.cfg.llm.vocab_size)
+    fixture = jpeg_fixture()
+    url = image_urls(fixture)["jpeg"]
+    hp = HyperParams(**COMPOSE_HP)
+    need = ("qmatmul", "fused_head", "flash_prefill", "flash_decode")
+
+    def traffic(ctx, name) -> tuple[dict, list | None]:
+        server = serving(ctx)
+        port = server.server_address[1]
+        try:
+            calls = [lambda: chat_image(port, url, "describe the picture",
+                                        n_new, model=name),
+                     lambda: http_call(port, "POST", "/v1/completions", {
+                         "model": name, "prompt": "the quick brown fox",
+                         "max_tokens": n_new, "temperature": 0})]
+            with ServeRecorder() as rec:
+                if ctx.ranks is not None:
+                    ctx.ranks.launch_counts(reset=True)
+                t0 = time.perf_counter()
+                replies = concurrently(calls)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = (None if ctx.ranks is None
+                            else ctx.ranks.launch_counts())
+            rec.check("serve_tp_vlm")
+            for status, data in replies:
+                if status != 200:
+                    raise AssertionError(f"serve_tp_vlm: {status} "
+                                         f"{data[:200]}")
+            return dict(tokens=rec.tokens(), wall_s=wall), launches
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    out: dict = {"phase": "serve_tp_vlm", "preset": VLM_PRESET,
+                 "text_layers": COMPOSE_LAYERS, "backend": backend,
+                 "ranks": how, "jpeg": fixture["info"], "card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp:
+        one = ServerContext(tmp, "model", hp, dev)
+        try:
+            one.register("vlm", vlm.llm, vlm.cfg, tok, vlm=vlm)
+            ref, _ = traffic(one, "vlm")
+        finally:
+            one.close()
+    text = VLM_PRESETS[VLM_PRESET][0]
+    t0 = time.perf_counter()
+    cfg, tm = ctx.ranks.preset(text, "q4_k", 0, TP, layers=COMPOSE_LAYERS)
+    out["build_s"] = time.perf_counter() - t0
+    tvlm = InternVLModel(vision=vlm.vision, llm=tm, cfg=cfg,
+                         image_token_id=vlm.image_token_id,
+                         tokens_per_tile=vlm.tokens_per_tile,
+                         image_size=vlm.image_size)
+    ctx.register("vlm", tm, cfg, tok, vlm=tvlm)
+    got, launches = traffic(ctx, "vlm")
+    if set(got["tokens"]) != set(ref["tokens"]):
+        raise AssertionError("serve_tp_vlm: the prompts over the ranks are "
+                             "not one device's")
+    px = VLMEngine(vlm, HyperParams(max_seq_len=2048), device=dev
+                   ).pixel_values([fixture["pixels"]])
+    hp1 = HyperParams(max_slots=1, batch_size=128, max_seq_len=2048)
+    hp1.sampler.temperature = 0.0
+    engine = InferenceEngine(vlm.llm, vlm.cfg, hp1, device=dev)
+    gaps, exact = [], []
+    for p, ids in got["tokens"].items():
+        want = ref["tokens"][p]
+        exact.append(ids == want)
+        if p.count(vlm.image_token_id):
+            out["image_tokens"] = p.count(vlm.image_token_id)
+            gaps.append(mm_agree("serve_tp_vlm image reply", ids, want, vlm,
+                                 list(p), px))
+        else:
+            gaps.append(agree("serve_tp_vlm text reply", ids, want, engine,
+                              list(p)))
+    out.update(wall_s=got["wall_s"], single_device_wall_s=ref["wall_s"],
+               replies_exact=exact,
+               near_ties=[x for x in gaps if x is not None],
+               rank_launches=rank_counts(launches, need, "serve_tp_vlm"))
+    return out
+
+
+def phase_tp_eagle_full_width(dev: torch.device, group,
+                              head_dir: str | None = None) -> dict:
+    """llama-8b Q4_K (random weights from seed 0, cut to COMPOSE_LAYERS
+    layers) with a random EAGLE-1 head at EAGLE-LLaMA3-8B's widths
+    (make_eagle_gguf, seed 4, Q8_0) over two ranks (tp = 2: the head's
+    layer split like a target layer, its cache over kv heads, its
+    embedding and lm_head the target's vocab shards): the scheduler's
+    EAGLE chain (k = 4) and tree ([2, 1, 1]) ticks for two 64-token
+    prompts, 24 greedy tokens each, against the single device's
+    scheduler with the same head and against generate (near-tie rule);
+    then the exact-replica head over the 1-layer target's shards, every
+    draft accepted. Every rank's launches of each path."""
+    from powerserve_tpu_torch.core.config import HyperParams, ModelConfig
+    from powerserve_tpu_torch.core.gguf import GGMLType
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+    from powerserve_tpu_torch.models.loader import load_eagle_gguf
+    from powerserve_tpu_torch.speculative.chain import self_draft_model
+    from powerserve_tpu_torch.speculative.eagle import replica_head
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
+    from powerserve_tpu_torch.tools.synthetic import make_eagle_gguf
+
+    backend, how = tp_backend()
+    L, n_new = COMPOSE_LAYERS, 24
+    cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev,
+                                    layers=L)
+    llm = cfg.llm
+    g = torch.Generator(device="cpu")
+    g.manual_seed(4)
+    prompts = [torch.randint(3, llm.vocab_size, (64,),
+                             generator=g).tolist() for _ in range(2)]
+    hp1 = HyperParams(max_slots=1, batch_size=128, max_seq_len=1024)
+    hp1.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp1, device=dev)
+    plain = [list(engine.generate(p, n_new)) for p in prompts]
+
+    def stepwise(sched) -> list[list[int]]:
+        outs, done = [[] for _ in prompts], []
+        for o, p in zip(outs, prompts):
+            def sink(t, o=o):
+                done.append(True) if t is None else o.append(t)
+
+            sched.submit(Request(prompt_ids=list(p), max_tokens=n_new,
+                                 temperature=0.0, sink=sink))
+        for _ in range(2000):
+            if len(done) == len(prompts):
+                break
+            sched.step()
+        if len(done) != len(prompts):
+            raise AssertionError("tp_eagle: requests did not finish")
+        return outs
+
+    out: dict = {"phase": "tp_eagle_full_width", "layers": L,
+                 "backend": backend, "ranks": how, "card": card_line()}
+    own = head_dir is None
+    if own:  # eagle_full_width's head (the same seed) when it is given
+        head_dir = tempfile.mkdtemp(prefix="tp_eagle_head_")
+    try:
+        if own:
+            make_eagle_gguf(head_dir, "llama-8b", GGMLType.Q8_0, seed=4)
+        _, head = load_eagle_gguf(head_dir, model, llm, device=dev)
+        _, tm = group.preset("llama-8b", "q4_k", 0, TP, layers=L)
+        th = group.eagle(tm, head_dir)
+        sh = th.shard.head
+        out["head_local"] = dict(
+            heads=(sh.llm.n_heads, sh.llm.n_kv_heads),
+            qkv=sh.layers[0].wqkv.out_features,
+            down_k=sh.layers[0].w_down.in_features,
+            lm_head=sh.lm_head.out_features)
+        for label, kw, need in (
+                ("chain", dict(spec_k=4),
+                 ("fused_concat2", "qmatmul", "fused_head",
+                  "flash_decode", "flash_prefill")),
+                ("tree", dict(spec_tree="2,1,1"),
+                 ("fused_concat2", "qmatmul", "fused_head",
+                  "flash_decode_tree", "flash_prefill"))):
+            hp = HyperParams(max_slots=2, batch_size=128,
+                             max_seq_len=1024, **kw)
+            want = stepwise(BatchScheduler(model, cfg, hp, dev,
+                                           eagle_head=head))
+            sched = BatchScheduler(tm, cfg, hp, dev, eagle_head=th)
+            group.launch_counts(reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = stepwise(sched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = rank_counts(group.launch_counts(), need,
+                                 f"tp_eagle {label}")
+            gaps = [agree(f"tp_eagle {label} vs one device", a, b,
+                          engine, p)
+                    for a, b, p in zip(got, want, prompts)]
+            gaps += [agree(f"tp_eagle {label} vs generate", a, b,
+                           engine, p)
+                     for a, b, p in zip(got, plain, prompts)]
+            m = sched.metrics()
+            out[label] = dict(
+                wall_s=wall, tokens_equal=got == want,
+                near_ties=[x for x in gaps if x is not None],
+                spec_steps=sched.n_spec_steps,
+                accepted=sched.n_spec_accepted,
+                drafted=sched.n_spec_drafted,
+                tokens_per_step=m.get("spec_tokens_per_step"),
+                rank_launches=counts)
+            sched.release()
+        # the exact replica over the 1-layer target's shards
+        one = group.self_draft(tm, 1)
+        rh = group.replica_eagle(one)
+        one_cfg = ModelConfig(arch=cfg.arch, llm=one.llm)
+        hp = HyperParams(max_slots=2, batch_size=128, max_seq_len=1024,
+                         spec_k=4)
+        sched = BatchScheduler(one, one_cfg, hp, dev, eagle_head=rh)
+        got = stepwise(sched)
+        target1 = self_draft_model(model, 1)
+        want = stepwise(BatchScheduler(
+            target1, one_cfg, HyperParams(max_slots=2, batch_size=128,
+                                          max_seq_len=1024), dev,
+            eagle_head=replica_head(target1)))
+        if sched.n_spec_accepted != sched.n_spec_drafted or not \
+                sched.n_spec_drafted:
+            raise AssertionError(f"tp_eagle replica: accepted "
+                                 f"{sched.n_spec_accepted} of "
+                                 f"{sched.n_spec_drafted}")
+        engine1 = InferenceEngine(target1, one_cfg, hp1, device=dev)
+        gaps = [agree("tp_eagle replica vs one device", a, b, engine1,
+                      p) for a, b, p in zip(got, want, prompts)]
+        out["replica"] = dict(accept_rate=1.0,
+                              drafted=sched.n_spec_drafted,
+                              tokens_equal=got == want,
+                              near_ties=[x for x in gaps
+                                         if x is not None])
+        sched.release()
+    finally:
+        if own:
+            shutil.rmtree(head_dir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4989,6 +5770,17 @@ def main() -> int:
         vlm, vlm_ref = phase_vlm_full_width(dev)
         emit(vlm)
         emit(phase_serve_vlm_full_width(dev, vlm_ref))
+        emit(phase_vlm_hf_dir(dev))
+        print(card, flush=True)
+        return 0
+    if "--compose" in sys.argv[1:]:
+        emit(phase_tp_kernels(dev))
+        emit(phase_tp_moe_kernels(dev))
+        with compose_context(dev) as ctx:
+            emit(phase_serve_tp_vlm(dev, ctx))
+            emit(phase_tp_moe_full_width(dev, ctx))
+            emit(phase_tp_eagle_full_width(dev, ctx.ranks))
+        emit(phase_vlm_hf_dir(dev))
         print(card, flush=True)
         return 0
     kernels = phase_kernels(dev)
@@ -5028,20 +5820,19 @@ def main() -> int:
         "model+self:4",
         spec_tree="2,1,1", reference="serve_full_width", sampled=True)
     emit(tree_serve)
-    head_dir = tempfile.mkdtemp(prefix="eagle_head_")
-    try:
-        eagle, eagle_counts = phase_eagle_full_width(dev, cfg, model,
-                                                     head_dir)
-        emit(eagle)
-        eagle_serve, _ = phase_serve_full_width(
-            dev, cfg, model, "eagle_serve_full_width",
-            ("fused_concat2", "fused_x", "fused_norm", "fused_glu",
-             "qmatmul", "flash_decode", "flash_prefill",
-             "flash_decode_paged_state"),
-            "model+" + head_dir, reference="serve_full_width", sampled=True)
-        emit(eagle_serve)
-    finally:
-        shutil.rmtree(head_dir, ignore_errors=True)
+    # the EAGLE head's dir, kept for tp_eagle_full_width (removed at exit
+    # if a phase fails first)
+    head_tmp = tempfile.TemporaryDirectory(prefix="eagle_head_")
+    head_dir = head_tmp.name
+    eagle, eagle_counts = phase_eagle_full_width(dev, cfg, model, head_dir)
+    emit(eagle)
+    eagle_serve, _ = phase_serve_full_width(
+        dev, cfg, model, "eagle_serve_full_width",
+        ("fused_concat2", "fused_x", "fused_norm", "fused_glu",
+         "qmatmul", "flash_decode", "flash_prefill",
+         "flash_decode_paged_state"),
+        "model+" + head_dir, reference="serve_full_width", sampled=True)
+    emit(eagle_serve)
     emit(phase_tp_kernels(dev))
     tp_full = phase_tp_full_width(dev, cfg, model)
     emit(tp_full)
@@ -5053,6 +5844,18 @@ def main() -> int:
     serve_vlm = phase_serve_vlm_full_width(dev, vlm_ref)
     emit(serve_vlm)
     del vlm_ref
+    torch.cuda.empty_cache()
+    vlm_hf = phase_vlm_hf_dir(dev)
+    emit(vlm_hf)
+    emit(phase_tp_moe_kernels(dev))
+    with compose_context(dev) as ctx:
+        serve_tp_vlm = phase_serve_tp_vlm(dev, ctx)
+        emit(serve_tp_vlm)
+        tp_moe = phase_tp_moe_full_width(dev, ctx)
+        emit(tp_moe)
+        tp_eagle = phase_tp_eagle_full_width(dev, ctx.ranks, head_dir)
+        emit(tp_eagle)
+    head_tmp.cleanup()
     torch.cuda.empty_cache()
     moe, moe_counts, (cfg, model) = phase_moe_full_width(dev)
     emit(moe)
@@ -5195,6 +5998,16 @@ def main() -> int:
                                   for e in evict["evictions"]],
           "tp_full_width_ranks": tp_full["ranks"],
           "tp_full_width_decode_tok_s": tp_full["decode_tok_s"],
+          "jpeg_decode_ms": vlm["jpeg"]["decode_ms"],
+          "vlm_hf_dir_tokens_equal": vlm_hf["tokens_equal"],
+          "serve_tp_vlm_near_ties": serve_tp_vlm["near_ties"],
+          "tp_moe_tp2_decode_tok_s": tp_moe["tp2"]["decode_tok_s"],
+          "tp_moe_ep2_decode_tok_s": tp_moe["ep2"]["decode_tok_s"],
+          "tp_eagle_chain_tokens_per_step":
+              tp_eagle["chain"]["tokens_per_step"],
+          "tp_eagle_tree_tokens_per_step":
+              tp_eagle["tree"]["tokens_per_step"],
+          "tp_eagle_replica_accept_rate": tp_eagle["replica"]["accept_rate"],
           "w8_mixtral_lite_generate_decode_tok_s":
               w8_moe["generate_decode_tok_s"],
           "w8_mixtral_lite_generate_again_decode_tok_s":

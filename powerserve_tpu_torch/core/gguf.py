@@ -294,6 +294,18 @@ class GGUFReader:
         alignment = int(self.metadata.get("general.alignment", GGUF_DEFAULT_ALIGNMENT))
         self.data_offset = (r.pos + alignment - 1) // alignment * alignment
 
+    @classmethod
+    def from_bytes(cls, data: bytes, name: str = "<memory>") -> "GGUFReader":
+        """A reader over a GGUF file held in memory (GGUFWriter.to_bytes:
+        a checkpoint converted without a file)."""
+        self = cls.__new__(cls)
+        self.path, self.method = name, "memory"
+        self._file = self._mm = None
+        self._view = memoryview(data)
+        self.metadata, self.tensors = {}, {}
+        self._parse()
+        return self
+
     def tensor_raw(self, name: str) -> np.ndarray:
         """Zero-copy uint8 view of the tensor's on-disk payload."""
         info = self.tensors[name]
@@ -311,12 +323,14 @@ class GGUFReader:
     def close(self) -> None:
         try:
             self._view.release()
-            self._mm.close()
+            if self._mm is not None:
+                self._mm.close()
         except BufferError:
             # zero-copy tensor views are still alive; leave the mapping open
             # (the OS reclaims it at process exit)
             pass
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
 
     def __enter__(self) -> "GGUFReader":
         return self
@@ -389,7 +403,8 @@ class GGUFWriter:
             return out
         raise TypeError(f"unsupported metadata value type {type(v)}")
 
-    def write(self, path: str | os.PathLike) -> None:
+    def _chunks(self):
+        """The file's bytes, in pieces."""
         header = bytearray()
         header += GGUF_MAGIC
         header += struct.pack("<I", GGUF_VERSION)
@@ -414,11 +429,20 @@ class GGUFWriter:
             offset += len(payload)
         head = bytes(header) + bytes(infos)
         data_start = (len(head) + self.alignment - 1) // self.alignment * self.alignment
+        yield head
+        yield b"\x00" * (data_start - len(head))
+        pos = 0
+        for (name, ne, ggml_type, payload), off in zip(self._tensors, offsets):
+            yield b"\x00" * (off - pos)
+            yield payload
+            pos = off + len(payload)
+
+    def write(self, path: str | os.PathLike) -> None:
         with open(path, "wb") as f:
-            f.write(head)
-            f.write(b"\x00" * (data_start - len(head)))
-            pos = 0
-            for (name, ne, ggml_type, payload), off in zip(self._tensors, offsets):
-                f.write(b"\x00" * (off - pos))
-                f.write(payload)
-                pos = off + len(payload)
+            for part in self._chunks():
+                f.write(part)
+
+    def to_bytes(self) -> bytes:
+        """The file write() writes, in memory (GGUFReader.from_bytes
+        reads it)."""
+        return b"".join(self._chunks())

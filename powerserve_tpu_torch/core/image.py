@@ -1,26 +1,38 @@
-"""Image input without PIL: a PNG decoder and Pillow's bicubic resize.
+"""Image input without PIL: PNG and JPEG decoders and Pillow's bicubic
+resize.
 
-decode_image(data) takes a non-interlaced PNG of 8-bit gray, gray +
-alpha, RGB or RGBA, or a palette of 1, 2, 4 or 8 bits, with any of the
-five row filters, and returns RGB uint8 [H, W, 3] as Pillow's
-`Image.open(...).convert("RGB")` does: alpha dropped (not composited),
-gray and palette expanded. Anything else (JPEG, interlaced or 16-bit
-PNG, other files) raises a ValueError naming what is taken (FORMATS).
+decode_image(data) takes
+  - a PNG of 8-bit or 16-bit gray, gray + alpha, RGB or RGBA, or a
+    palette of 1, 2, 4 or 8 bits, with any of the five row filters,
+    interlaced (Adam7) or not;
+  - a JPEG: Huffman-coded 8-bit baseline, extended-sequential or
+    progressive, gray or 3-component (YCbCr, or RGB), sampling factors
+    of 1 or 2 (4:4:4, 4:2:2, 4:4:0, 4:2:0), with restart intervals
+    (csrc/host/jpeg_decode.cpp through core/native.py: libjpeg-turbo's
+    islow IDCT, fancy upsampling and fixed-point color tables);
+and returns RGB uint8 [H, W, 3] bit-equal to Pillow's
+`Image.open(...).convert("RGB")`: alpha dropped (not composited), gray
+and palette expanded, 16-bit samples as Pillow takes them (gray opens as
+I;16 and is clipped to 255, the other types keep the high byte).
+Anything else (WebP, GIF, BMP, TIFF, arithmetic-coded, lossless, 12-bit
+or CMYK JPEGs, other files) raises a ValueError naming what is taken
+(FORMATS).
 
-encode_png writes such a PNG (each row with a chosen filter).
+encode_png writes an 8-bit PNG (each row with a chosen filter).
 
-A PNG of more than MAX_PIXELS pixels (Pillow's MAX_IMAGE_PIXELS) is
-refused before its data is inflated, and the data is inflated to the
-IHDR's rows and no further; a malformed PNG (truncated, a corrupt zlib
-stream, a bad IHDR or PLTE, no pixels) is a ValueError too.
+An image of more than MAX_PIXELS pixels (Pillow's MAX_IMAGE_PIXELS) is
+refused from its header, before any pixel buffer is sized; PNG data is
+inflated to the IHDR's rows and no further; a malformed PNG (truncated,
+a corrupt zlib stream, a bad IHDR or PLTE, no pixels) and a corrupt or
+truncated JPEG are ValueErrors too.
 
 find_best_tile_grid and preprocess_image are InternVL's dynamic tiling
 and normalization (the JAX package's models/internvl.py, re-exported by
 the port's); pixel_values(data) runs decode and preprocessing for one
-image. This module imports numpy and the standard library only: the
-server runs it in worker processes (worker_loop, serving/image_workers.py),
-so that images are decoded off the interpreter lock the scheduler thread
-needs.
+image. This module imports numpy, the standard library and
+core/native.py (numpy and ctypes) only: the server runs it in worker
+processes (worker_loop, serving/image_workers.py), so that images are
+decoded off the interpreter lock the scheduler thread needs.
 
 resize_bicubic(img, (width, height)) reproduces Pillow's
 `Image.resize(size, Image.BICUBIC)` for 8-bit images bit for bit: the
@@ -41,8 +53,11 @@ from pathlib import Path
 
 import numpy as np
 
-FORMATS = ("PNG only: non-interlaced, 8-bit gray, gray + alpha, RGB or "
-           "RGBA, or a 1/2/4/8-bit palette")
+FORMATS = ("PNG (8- or 16-bit gray, gray + alpha, RGB or RGBA, or a "
+           "1/2/4/8-bit palette; interlaced or not) or JPEG (8-bit "
+           "Huffman-coded baseline or progressive, gray, YCbCr or RGB, "
+           "sampling factors of 1 or 2)")
+_JPEG_MAGIC = b"\xff\xd8\xff"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 # Pillow's Image.MAX_IMAGE_PIXELS: a larger PNG is refused before its data
 # is inflated (Pillow warns above it and refuses above twice it)
@@ -50,9 +65,12 @@ MAX_PIXELS = 89_478_485
 # the Average/Paeth wavefront's working buffers per band of rows
 _BAND_BYTES = 64 << 20
 # color type -> (name, channels, bit depths taken)
-_COLOR_TYPES = {0: ("gray", 1, (8,)), 2: ("RGB", 3, (8,)),
-                3: ("palette", 1, (1, 2, 4, 8)), 4: ("gray + alpha", 2, (8,)),
-                6: ("RGBA", 4, (8,))}
+_COLOR_TYPES = {0: ("gray", 1, (8, 16)), 2: ("RGB", 3, (8, 16)),
+                3: ("palette", 1, (1, 2, 4, 8)),
+                4: ("gray + alpha", 2, (8, 16)), 6: ("RGBA", 4, (8, 16))}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _refuse(what: str) -> ValueError:
@@ -61,15 +79,15 @@ def _refuse(what: str) -> ValueError:
 
 
 def _sniff(data: bytes) -> str:
-    if data[:3] == b"\xff\xd8\xff":
-        return "JPEG"
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     if data[:2] == b"BM":
         return "BMP"
-    return "not a PNG file"
+    if data[:4] in (b"II*\x00", b"MM\x00*"):
+        return "TIFF"
+    return "not a PNG or JPEG file"
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -209,27 +227,68 @@ def decode_png(data: bytes) -> np.ndarray:
     name, channels, depths = _COLOR_TYPES[color]
     if depth not in depths:
         raise _refuse(f"{depth}-bit {name} PNG")
-    if interlace:
-        raise _refuse("interlaced PNG")
-    stride = (width * channels * depth + 7) // 8
-    rows = _unfilter(_inflate(b"".join(idat), height * (stride + 1)),
-                     height, stride, max(1, channels * depth // 8))
+    if interlace > 1:
+        raise ValueError(f"PNG interlace method {interlace}")
+    bpp = max(1, channels * depth // 8)
+    passes = (_ADAM7 if interlace else ((0, 0, 1, 1),))
+    # (x0, y0, dx, dy, pass width, pass height, row bytes) of each pass
+    layout = []
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            layout.append((x0, y0, dx, dy, pw, ph,
+                           (pw * channels * depth + 7) // 8))
+    raw = _inflate(b"".join(idat), sum(ph * (st + 1)
+                                       for *_, ph, st in layout))
+    px = np.empty((height, width, channels),
+                  np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy, pw, ph, st in layout:
+        rows = _unfilter(raw[off:off + ph * (st + 1)], ph, st, bpp)
+        off += ph * (st + 1)
+        px[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
     if color == 3:
         if plte is None:
             raise ValueError("palette PNG without PLTE")
-        if depth < 8:
-            bits = np.unpackbits(rows, axis=1).reshape(height, -1, depth)
-            weights = 1 << np.arange(depth - 1, -1, -1, dtype=np.uint8)
-            idx = (bits * weights).sum(-1, dtype=np.uint8)[:, :width]
-        else:
-            idx = rows
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte)] = plte[:256]
-        return pal[idx]
-    px = rows.reshape(height, width, channels)
+        return pal[px[:, :, 0]]
+    if depth == 16:  # Pillow: I;16 gray clipped, else the high byte
+        px = (np.minimum(px, 255) if channels == 1 else px >> 8
+              ).astype(np.uint8)
     if channels <= 2:  # gray (+ alpha): the gray value thrice
         return np.repeat(px[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(px[:, :, :3])
+
+
+def _samples(rows: np.ndarray, width: int, channels: int,
+             depth: int) -> np.ndarray:
+    """Unfiltered rows uint8 [h, row bytes] -> samples [h, width,
+    channels] (uint16 for 16-bit, palette indices unpacked below 8)."""
+    rows = np.ascontiguousarray(rows)
+    h = rows.shape[0]
+    if depth == 16:
+        be = rows[:, :width * channels * 2].reshape(h, -1, 2).astype(
+            np.uint16)
+        return ((be[:, :, 0] << 8) | be[:, :, 1]).reshape(h, width,
+                                                          channels)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1, dtype=np.uint8)
+        return (bits * weights).sum(-1, dtype=np.uint8)[:, :width, None]
+    return rows[:, :width * channels].reshape(h, width, channels)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> RGB uint8 [H, W, 3] (see the module docstring)."""
+    from . import native
+
+    status, out = native.jpeg_decode(bytes(data), MAX_PIXELS)
+    if status == 2:
+        raise _refuse(out)
+    if status:
+        raise ValueError(f"corrupt JPEG ({out})")
+    return out
 
 
 def _filter_row(line: np.ndarray, prior: np.ndarray, ftype: int,
@@ -283,8 +342,11 @@ def encode_png(img: np.ndarray, filters: tuple[int, ...] = (0,)) -> bytes:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image bytes -> RGB uint8 [H, W, 3]; only PNG is taken."""
-    return decode_png(bytes(data))
+    """Image bytes -> RGB uint8 [H, W, 3]: a PNG or a JPEG (FORMATS)."""
+    data = bytes(data)
+    if data.startswith(_JPEG_MAGIC):
+        return decode_jpeg(data)
+    return decode_png(data)
 
 
 def load_image(path: str | Path) -> np.ndarray:

@@ -1,10 +1,11 @@
 """ctypes bindings for the port's native host runtime
-(csrc/host/gguf_loader.cpp): the GGUF reader over mmap (or another
+(csrc/host/gguf_loader.cpp: the GGUF reader over mmap (or another
 loading strategy), the multithreaded weight repack at load, the fp16
-conversion and the tokenizer's merge loop.
+conversion and the tokenizer's merge loop; csrc/host/jpeg_decode.cpp:
+the JPEG decoder of core/image.py).
 
-The library is built with g++ at first use into
-powerserve_tpu_torch/_build/<hash of the source and flags>/, under a
+The library is built from both sources with g++ at first use into
+powerserve_tpu_torch/_build/<hash of the sources and flags>/, under a
 file lock and through a temporary name, so processes that start at once
 (test workers, server ranks) build it once and never load a half-written
 file. A failed build raises with the compiler's output: nothing falls
@@ -35,6 +36,7 @@ log = get_logger("native")
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "host" / "gguf_loader.cpp"
+JPEG_SOURCE = PKG_DIR / "csrc" / "host" / "jpeg_decode.cpp"
 BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libpowerserve_native.so"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
@@ -54,10 +56,12 @@ def _ptr(a: np.ndarray, kind):
 
 
 def build(root: Path = BUILD_ROOT) -> Path:
-    """Compile the runtime (if this source and these flags are not built
+    """Compile the runtime (if these sources and flags are not built
     under root yet) and return the shared library's path."""
+    sources = (SOURCE, JPEG_SOURCE)
     h = hashlib.sha256(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in sources:
+        h.update(src.read_bytes())
     out = Path(root) / h.hexdigest()[:16]
     so = out / LIB_NAME
     if so.exists():
@@ -70,14 +74,15 @@ def build(root: Path = BUILD_ROOT) -> Path:
         cxx = shutil.which("g++") or shutil.which("c++")
         if cxx is None:
             raise RuntimeError("g++ not found: the port's native runtime "
-                               f"({SOURCE.name}) is built with it at first "
-                               "use")
+                               f"({', '.join(s.name for s in sources)}) is "
+                               "built with it at first use")
         tmp = out / f"{LIB_NAME}.tmp{os.getpid()}"
-        r = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), *LINK_FLAGS,
-                            "-o", str(tmp)], capture_output=True, text=True)
+        r = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources),
+                            *LINK_FLAGS, "-o", str(tmp)],
+                           capture_output=True, text=True)
         if r.returncode:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"building {SOURCE.name} failed "
+            raise RuntimeError("building the native runtime failed "
                                f"({cxx}):\n{r.stdout}{r.stderr}")
         os.replace(tmp, so)
         log.info(f"built {so}")
@@ -132,6 +137,13 @@ def get_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int64
         fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
                        _i32p]
+    lib.psv_jpeg_decode.restype = ctypes.c_int
+    lib.psv_jpeg_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(_u8p), ctypes.c_char_p, ctypes.c_int]
+    lib.psv_jpeg_free.restype = None
+    lib.psv_jpeg_free.argtypes = [_u8p]
     _lib = lib
     return lib
 
@@ -268,6 +280,27 @@ def native_repack(payload: np.ndarray, ggml_type: int, n_out: int,
           else lib.psv_repack_q6_k)
     fn(pp, n_out, k_in, _ptr(q, _i8p), sp)
     return q, scales, None, 0, False
+
+
+def jpeg_decode(data: bytes, max_pixels: int
+                ) -> tuple[int, np.ndarray | str]:
+    """csrc/host/jpeg_decode.cpp on JPEG bytes: (0, RGB uint8 [H, W, 3]),
+    or (1, why) for a corrupt or truncated stream (or more than
+    max_pixels pixels), or (2, what) for a JPEG of a kind not taken."""
+    lib = get_lib()
+    w, h = ctypes.c_int32(), ctypes.c_int32()
+    rgb = _u8p()
+    err = ctypes.create_string_buffer(256)
+    status = lib.psv_jpeg_decode(data, len(data), max_pixels,
+                                 ctypes.byref(w), ctypes.byref(h),
+                                 ctypes.byref(rgb), err, len(err))
+    if status:
+        return status, err.value.decode(errors="replace")
+    try:
+        out = np.ctypeslib.as_array(rgb, shape=(h.value, w.value, 3)).copy()
+    finally:
+        lib.psv_jpeg_free(rgb)
+    return 0, out
 
 
 def fp16_to_f32(payload: np.ndarray) -> np.ndarray:

@@ -59,15 +59,17 @@ EAGLE target; embed requests skip the prefix cache (image-context ids
 are all alike), a preempted one extends its rows with its generated
 tokens' embeddings, and a trimmed prompt trims its rows too.
 
-Over a rank group (parallel/tp.py), the model, the draft and the caches
-are rank 0's TPModel and TPCaches: every forward and cache operation is
+Over a rank group (parallel/tp.py), the model, the draft (a TPModel or
+an EAGLE head's TPEagleHead) and the caches are rank 0's handles: every
+forward and cache operation is
 broadcast to the follower ranks, which apply it to their shards, so the
 ticks run as they are. Those ticks run eagerly (their steps hold
 collectives, which no graph captures); with dp > 1 the paged pool's
 page grants keep each dp block's slots in that block's pages
 (PagePool(n_groups=dp)), and a starved slot preempts only a victim of
-its own block. EAGLE heads and requests with input rows are refused
-there (ROADMAP §1 item 8). Double-buffered ticks are not ported: like
+its own block. A request's input rows go to every rank with the
+forward, the other slots' rows from TPModel.embed's vocab-sharded
+lookup. Double-buffered ticks are not ported: like
 the plain tick, the spec tick syncs once. Each tick's one host fetch
 also refreshes a host mirror of every slot's cache position (pos_host),
 which admission and prefill keep up to date between ticks, so the paged
@@ -110,7 +112,7 @@ from ..core.logging import get_logger
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
-from ..parallel.tp import TPModel
+from ..parallel.tp import TPEagleHead, TPModel
 from ..sampling.sampler import (PenaltyState, categorical_from_dist,
                                 sample_dist_batched)
 from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
@@ -270,12 +272,11 @@ class BatchScheduler:
         # over a rank group: the caches are shards on every rank, and the
         # ticks stay eager (their steps hold collectives)
         self.tp = isinstance(model, TPModel)
-        if self.tp and eagle_head is not None:
-            raise ValueError("EAGLE under tensor parallelism is not ported "
-                             "(ROADMAP §1 item 8)")
-        if self.tp and not isinstance(draft, (TPModel, type(None))):
-            raise ValueError("a draft for a rank group's model must be "
-                             "sharded over the same ranks")
+        if self.tp and not (isinstance(draft, (TPModel, type(None)))
+                            and isinstance(eagle_head,
+                                           (TPEagleHead, type(None)))):
+            raise ValueError("a draft or EAGLE head for a rank group's "
+                             "model must be sharded over the same ranks")
         if self.hp.paged_pages > 0:
             page = max(int(self.hp.page_size), 8)
             self.kv = self._new_cache(llm, n_pages=int(self.hp.paged_pages),
@@ -387,10 +388,6 @@ class BatchScheduler:
     def submit(self, req: Request) -> Request:
         if self.kv is None:
             raise RuntimeError(self._RELEASED)
-        if req.embeds is not None and self.tp:
-            raise ValueError("requests with input rows (images) under "
-                             "tensor parallelism are not ported (ROADMAP "
-                             "§1 item 8)")
         if req.embeds is not None:
             dim = self.cfg.llm.dim
             if tuple(req.embeds.shape) != (len(req.prompt_ids), dim):

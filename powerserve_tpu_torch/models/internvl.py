@@ -42,7 +42,8 @@ class InternVLModel:
 
     @property
     def device(self) -> torch.device:
-        return self.llm.out_norm.device
+        """The tower's device (rank 0's over a rank group)."""
+        return next(self.vision.buffers()).device
 
     def expand_image_tokens(self, token_ids: list[int], n_tiles: int,
                             img_placeholder_id: int | None = None
@@ -101,38 +102,116 @@ def internvl_from_workspace(model_dir, device: str | torch.device | None = None,
     """A VLM from a GGUF model dir, onto `device` (default cuda): the text
     weights from weights.gguf, the vision tower and projector from
     vision.gguf (HF tensor names, vlm.* metadata), as tools/convert_hf.py
-    convert_internvl writes them (the JAX package's bytes). An HF
-    checkpoint dir is converted first with that tool (`python -m
-    powerserve_tpu_torch convert <hf dir> <out>`): the loader does not
-    read checkpoints. mxu: the text model in the W8 format
-    (load_gguf_model)."""
+    convert_internvl writes them (the JAX package's bytes). mxu: the text
+    model in the W8 format (load_gguf_model)."""
+    dev = resolve_device(device)
+    if vlm_source(model_dir) != "gguf":
+        raise ValueError(f"{model_dir}: no vision.gguf (an HF InternVL "
+                         f"checkpoint dir loads with internvl_from_hf_dir)")
+    return load_internvl(model_dir, dev, mxu)
+
+
+def vlm_source(model_dir) -> str | None:
+    """What a VLM dir holds: "gguf" (vision.gguf beside weights.gguf, as
+    convert writes them), "hf_internvl" (an HF InternVL checkpoint dir,
+    by config.json's architectures as the JAX server tells one), or None
+    (no VLM)."""
+    d = Path(model_dir)
+    if (d / "vision.gguf").exists():
+        return "gguf"
+    try:
+        archs = json.loads((d / "config.json").read_text()).get(
+            "architectures", [])
+    except (OSError, json.JSONDecodeError):
+        return None
+    return "hf_internvl" if any("InternVL" in a for a in archs) else None
+
+
+def load_vision(model_dir, device: str | torch.device | None = None
+                ) -> tuple[VisionParams, dict]:
+    """The vision tower and projector of a VLM dir onto `device` (default
+    cuda), from vision.gguf or from an HF InternVL checkpoint's tensors,
+    and the vlm.* metadata."""
     from ..core.gguf import GGUFReader
+    from ..tools.convert_hf import read_internvl
+
+    dev = resolve_device(device)
+    if vlm_source(model_dir) == "gguf":
+        with GGUFReader(Path(model_dir) / "vision.gguf") as r:
+            md = dict(r.metadata)
+            sd = {name: r.tensor_float(name) for name in r.tensors}
+    else:
+        _, _, sd, md = read_internvl(model_dir, text=False)
+    return _vision_params(sd, md, dev), md
+
+
+def _vision_params(sd: dict, md: dict, dev: torch.device) -> VisionParams:
+    return vision_params_from_hf(
+        sd, int(md["vlm.block_count"]), int(md["vlm.attention.head_count"]),
+        int(md["vlm.patch_size"]), float(md["vlm.layer_norm_epsilon"]),
+        float(md["vlm.downsample_ratio"]), device=dev)
+
+
+def assemble_internvl(vision: VisionParams, md: dict, llm,
+                      cfg: ModelConfig) -> InternVLModel:
+    """The VLM of a tower (with its vlm.* metadata) and a language model
+    (a LlamaModel, or a rank group's TPModel)."""
+    return InternVLModel(vision=vision, llm=llm, cfg=cfg,
+                         image_token_id=int(md["vlm.image_token_id"]),
+                         tokens_per_tile=int(md["vlm.image_seq_length"]),
+                         image_size=int(md["vlm.image_size"]))
+
+
+def hf_text_reader(model_dir):
+    """An HF InternVL checkpoint dir's text model as an in-memory
+    weights.gguf (Q8_0, tools/convert_hf.py's layout) and its vision
+    part: (GGUFReader, the tower's and projector's f32 tensors by HF
+    name, the vlm.* metadata)."""
+    from ..core.gguf import GGUFReader
+    from ..tools.convert_hf import model_gguf, read_internvl
+
+    flat, tsd, vsd, md = read_internvl(model_dir)
+    w, _ = model_gguf(flat, sorted(tsd.items()), "q8_0")
+    del tsd
+    return GGUFReader.from_bytes(w.to_bytes(), str(model_dir)), vsd, md
+
+
+def internvl_from_hf_dir(model_dir,
+                         device: str | torch.device | None = None,
+                         mxu: bool = False) -> InternVLModel:
+    """A VLM from an HF InternVL checkpoint dir as it is (config.json and
+    *.safetensors, read by tools/safetensors.py), onto `device` (default
+    cuda): the JAX package's internvl_from_hf. The text weights are
+    quantized to Q8_0 in memory (its params_from_hf_state_dict(...,
+    fmt=Q8_0)); the vision tower and projector stay f32. mxu: the text
+    model in the W8 format. The tokenizer is the dir's tokenizer.json
+    (tokenizer.Tokenizer.from_model_dir)."""
+    dev = resolve_device(device)
+    if vlm_source(model_dir) != "hf_internvl":
+        raise ValueError(f"{model_dir}: not an HF InternVL checkpoint dir")
+    return load_internvl(model_dir, dev, mxu)
+
+
+def load_internvl(model_dir, device: str | torch.device | None = None,
+                  mxu: bool = False, text=None) -> InternVLModel:
+    """A VLM from a GGUF workspace, or from an HF InternVL checkpoint dir
+    as it is (vlm_source), the tower onto `device` (default cuda). text:
+    a callable source -> (config, language model) that builds the text
+    model elsewhere (a rank group's load); by default it goes onto
+    `device` too."""
     from .loader import load_gguf_model
 
     dev = resolve_device(device)
-    model_dir = Path(model_dir)
-    vision_path = model_dir / "vision.gguf"
-    if not vision_path.exists():
-        cfg_path = model_dir / "config.json"
-        archs = (json.loads(cfg_path.read_text()).get("architectures", [])
-                 if cfg_path.exists() else [])
-        what = ("an HF InternVL checkpoint" if any("InternVL" in a
-                                                   for a in archs)
-                else "no vision.gguf")
-        raise ValueError(f"{model_dir}: {what}; convert it to a GGUF "
-                         f"workspace first (python -m powerserve_tpu_torch "
-                         f"convert, tools/convert_hf.py convert_internvl)")
+    source = vlm_source(model_dir)
+    if source is None:
+        raise ValueError(f"{model_dir}: not a VLM dir (no vision.gguf, no "
+                         f"InternVL config.json)")
+    if text is not None:
+        cfg, llm = text(source)
+        return assemble_internvl(*load_vision(model_dir, dev), llm, cfg)
+    if source == "hf_internvl":  # one read of the checkpoint for both
+        reader, vsd, md = hf_text_reader(model_dir)
+        cfg, llm = load_gguf_model(reader, device=dev, mxu=mxu)
+        return assemble_internvl(_vision_params(vsd, md, dev), md, llm, cfg)
     cfg, llm = load_gguf_model(model_dir, device=dev, mxu=mxu)
-    with GGUFReader(vision_path) as r:
-        md = r.metadata
-        sd = {name: r.tensor_float(name) for name in r.tensors}
-        vision = vision_params_from_hf(
-            sd, int(md["vlm.block_count"]),
-            int(md["vlm.attention.head_count"]), int(md["vlm.patch_size"]),
-            float(md["vlm.layer_norm_epsilon"]),
-            float(md["vlm.downsample_ratio"]), device=dev)
-        return InternVLModel(
-            vision=vision, llm=llm, cfg=cfg,
-            image_token_id=int(md["vlm.image_token_id"]),
-            tokens_per_tile=int(md["vlm.image_seq_length"]),
-            image_size=int(md["vlm.image_size"]))
+    return assemble_internvl(*load_vision(model_dir, dev), llm, cfg)

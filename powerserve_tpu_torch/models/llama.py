@@ -154,6 +154,41 @@ class DeferredKV:
             heads_first(vq), heads_first(vs), self.intra, scale)
 
 
+def vocab_rows(embed: "QEmbedding", tokens: torch.Tensor, vocab: int,
+               tp=None) -> torch.Tensor:
+    """The rows f32 [..., dim] of tokens in a table of `vocab` rows, or
+    in a rank's vocab shard of it (tp: the TPComm; each id's row on one
+    rank, zeros elsewhere, summed over the ranks)."""
+    n = embed.q.shape[0]
+    if tp is None or n == vocab:
+        return embed.lookup(tokens)
+    local = tokens.long() - tp.rank * n
+    ok = (local >= 0) & (local < n)
+    x = embed.lookup(torch.where(ok, local, 0))
+    return tp.all_reduce(torch.where(ok[..., None], x, 0.0))
+
+
+def vocab_linear(lin: QLinear, vocab: int, tp=None, argmax: bool = False,
+                 **prologue) -> torch.Tensor:
+    """fused_linear(lin, **prologue) over a head of `vocab` columns (+ the
+    greedy argmax), or over a rank's vocab shard of it: the logits
+    gathered over the ranks, or the argmax over the whole vocab (the
+    first index on ties) from each rank's (max, index)."""
+    if tp is None or lin.out_features == vocab:
+        return fused_linear(lin, argmax=argmax, **prologue)
+    y = fused_linear(lin, **prologue)  # this rank's columns
+    n = y.shape[-1]
+    if argmax:
+        i = y.argmax(dim=-1)
+        v = y.gather(-1, i[:, None])[:, 0]
+        top = tp.all_reduce(v.clone(), "max")
+        cand = torch.where(v == top, i + tp.rank * n, n * tp.size)
+        return tp.all_reduce(cand, "min").to(torch.int32)
+    full = y.new_zeros(y.shape[0], n * tp.size)
+    full[:, tp.rank * n:(tp.rank + 1) * n] = y
+    return tp.all_reduce(full)
+
+
 class QEmbedding(nn.Module):
     """Quantized embedding table: rows gathered, then dequantized."""
 
@@ -228,12 +263,13 @@ class LlamaLayer(nn.Module):
                 deferred: DeferredKV | None = None,
                 bits: torch.Tensor | None = None,
                 attn_mask: torch.Tensor | None = None,
-                norm_input: bool = True, tp=None) -> torch.Tensor:
+                norm_input: bool = True, tp=None, ep=None) -> torch.Tensor:
         """x [S, Tq, dim] (the residual stream: bf16 in a model, f32 in
         an EAGLE head) -> the layer's output in x's dtype. norm_input
         False feeds x to the QKV projection without the attention norm
         (an EAGLE-1 head's first layer). tp: the TPComm of a sharded
-        layer (wo and down all_reduced)."""
+        layer (wo and down all_reduced); ep: the expert-parallel TPComm
+        of an MoE layer holding its rank's experts."""
         reduce = (lambda t: t) if tp is None else tp.all_reduce
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
@@ -294,7 +330,10 @@ class LlamaLayer(nn.Module):
         h2 = rms_norm(x, self.ffn_norm, eps).to(torch.bfloat16)
         h2 = h2.reshape(S * Tq, -1)
         if self.router is not None:
-            down = self.moe_ffn(h2, llm.n_experts_used)
+            down = self.moe_ffn(h2, llm.n_experts_used, ep)
+            if ep is not None:  # the ranks' disjoint experts
+                down = ep.all_reduce(down)
+            down = reduce(down)  # row-parallel expert down slabs
             return x + down.reshape(S, Tq, -1).to(x.dtype)
         if self.wgu is not None:
             gu = qmatmul(h2, self.wgu)
@@ -322,11 +361,19 @@ class LlamaLayer(nn.Module):
         u = mm(h, self.w_up_exps)
         return mm(silu_hadamard(g, u).to(torch.bfloat16), self.w_down_exps)
 
-    def moe_ffn(self, h: torch.Tensor, k: int) -> torch.Tensor:
-        """The expert FFN of rows h [N, dim] (bf16) -> f32 [N, dim]."""
+    def moe_ffn(self, h: torch.Tensor, k: int, ep=None) -> torch.Tensor:
+        """The expert FFN of rows h [N, dim] (bf16) -> f32 [N, dim]; with
+        ep, this rank's experts' share of it (rows routed elsewhere add
+        zeros)."""
         n = h.shape[0]
         topi, topw = self.route(h, k)
         route, bm = moe_route(n)
+        n_local = self.w_gate_exps.n_slabs
+        e_off = 0
+        if ep is not None:
+            e_off = ep.rank * n_local
+            if route == "single":
+                route, bm = "grouped", GEMV_MAX_M
         if route == "single":
             # the k routed slabs only, as k one-row tiles; the outputs
             # summed in routing order
@@ -337,8 +384,7 @@ class LlamaLayer(nn.Module):
             for j in range(k):
                 out = out + y[j:j + 1] * topw[0, j]
             return out
-        tok, w, tile_e = group_dispatch(topi, topw, self.w_gate_exps.n_slabs,
-                                        0, bm)
+        tok, w, tile_e = group_dispatch(topi, topw, n_local, e_off, bm)
         y = self._experts(h[tok.clamp(min=0).long()],
                           lambda a, e: qmatmul_grouped(a, e, tile_e, bm))
         return combine(y, tok, w, n, k)
@@ -361,8 +407,10 @@ class LlamaModel(nn.Module):
         self.lm_head = lm_head
         self.lm_head_lr = None if lm_head_lr is None else nn.ModuleList(
             lm_head_lr)
-        # a rank's shards: its TPComm (parallel/tp.py shard_params_tp)
+        # a rank's shards: its TPComm (parallel/tp.py shard_params_tp), and
+        # under expert parallelism its ep TPComm
         self.tp = None
+        self.ep = None
 
     def head(self, h: torch.Tensor, argmax: bool = False) -> torch.Tensor:
         """Final norm + lm_head (+ greedy argmax) on rows [M, dim]; a
@@ -372,32 +420,14 @@ class LlamaModel(nn.Module):
         if self.lm_head_lr is not None:
             u, v = self.lm_head_lr
             return fused_linear(v, x=fused_linear(u, **norm), argmax=argmax)
-        if self.tp is None or self.lm_head.out_features == self.llm.vocab_size:
-            return fused_linear(self.lm_head, argmax=argmax, **norm)
-        y = fused_linear(self.lm_head, **norm)  # this rank's columns
-        n, tp = y.shape[-1], self.tp
-        if argmax:
-            # the first index of the largest logit over the vocab
-            i = y.argmax(dim=-1)
-            v = y.gather(-1, i[:, None])[:, 0]
-            top = tp.all_reduce(v.clone(), "max")
-            cand = torch.where(v == top, i + tp.rank * n, n * tp.size)
-            return tp.all_reduce(cand, "min").to(torch.int32)
-        full = y.new_zeros(y.shape[0], n * tp.size)
-        full[:, tp.rank * n:(tp.rank + 1) * n] = y
-        return tp.all_reduce(full)
+        return vocab_linear(self.lm_head, self.llm.vocab_size, self.tp,
+                            argmax, **norm)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """The input rows f32 [S, Tq, dim] of tokens: the table's, or a
         vocab-sharded table's rows summed over the ranks (each id on one
         rank)."""
-        n = self.embed.q.shape[0]
-        if self.tp is None or n == self.llm.vocab_size:
-            return self.embed.lookup(tokens)
-        local = tokens.long() - self.tp.rank * n
-        ok = (local >= 0) & (local < n)
-        x = self.embed.lookup(torch.where(ok, local, 0))
-        return self.tp.all_reduce(torch.where(ok[..., None], x, 0.0))
+        return vocab_rows(self.embed, tokens, self.llm.vocab_size, self.tp)
 
     @torch.no_grad()
     def forward(self, kv: KVCache, tokens: torch.Tensor,
@@ -484,7 +514,7 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, llm, kv, i, cos, sin, keys32, index,
                       fuse=fuse_layers, deferred=deferred, bits=bits,
-                      attn_mask=attn_mask, tp=self.tp)
+                      attn_mask=attn_mask, tp=self.tp, ep=self.ep)
             if hidden is not None:
                 hidden.append(x)
         if deferred is not None:

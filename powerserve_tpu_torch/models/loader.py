@@ -256,21 +256,25 @@ def gguf_architecture(path: str | os.PathLike) -> str | None:
         reader.close()
 
 
-def load_gguf_model(path: str | os.PathLike, pack: bool = True,
+def load_gguf_model(path: str | os.PathLike | GGUFReader, pack: bool = True,
                     fuse: bool = True,
                     device: str | torch.device | None = None,
                     mxu: bool = False) -> tuple[ModelConfig, LlamaModel]:
-    """Load weights.gguf (or a model dir holding it) onto `device`
-    (default cuda). Llama-family models, dense or MoE.
+    """Load weights.gguf (or a model dir holding it, or an open
+    GGUFReader, which this closes) onto `device` (default cuda).
+    Llama-family models, dense or MoE.
 
     mxu=True requantizes the attention, dense FFN and lm_head projections
     whose K is a multiple of 128 to the W8 format (core/quant.py:
     requantize_w8); expert stacks and the tied embedding keep theirs."""
     dev = resolve_device(device)
-    p = Path(path)
-    if p.is_dir():
-        p = p / "weights.gguf"
-    reader = GGUFReader(p)
+    if isinstance(path, GGUFReader):
+        reader = path
+    else:
+        p = Path(path)
+        if p.is_dir():
+            p = p / "weights.gguf"
+        reader = GGUFReader(p)
     cfg = config_from_gguf_metadata(reader.metadata)
     layers = []
     for i in range(cfg.llm.n_layers):

@@ -1,16 +1,24 @@
-"""Rank groups: the port's (dp, tp) mesh over torch.distributed.
+"""Rank groups: the port's (dp, ep, tp) mesh over torch.distributed.
 
 The JAX package's make_mesh lays devices out as (dp, pp, ep, sp, tp) for
-one controller. Here each rank is a process, and a Mesh(tp, dp) is the
-process groups that one model's collectives run in, over the first
-tp * dp ranks of the world (ranks past them hold nothing of it):
+one controller. Here each rank is a process, and a Mesh(tp, dp, ep=) is
+the process groups that one model's collectives run in, over the first
+tp * ep * dp ranks of the world (ranks past them hold nothing of it),
+laid out as JAX's (dp, ep, tp):
 
-  - rank r is tp rank r % tp of dp block r // tp;
-  - each dp block's tp ranks form a tp group: the forward's all_reduces
-    (models/llama.py) run there;
-  - the ranks holding the same heads in every block form a peer group:
-    a prefix-cache snapshot saved in one block is copied to the others;
-  - all tp * dp ranks form the mesh group: the blocks' rows of a
+  - rank r is tp rank r % tp of ep group (r // tp) % ep of dp block
+    r // (tp * ep); a dp block is its ep * tp ranks;
+  - the tp ranks of one (dp block, ep group) form a tp group: the
+    forward's all_reduces (models/llama.py) run there;
+  - with ep > 1, the ep ranks of one (dp block, tp rank) form an ep
+    group: each holds E / ep experts of every MoE layer (and the same
+    attention heads and cache: attention is replicated over ep, as JAX's
+    kv_specs has it), and an expert FFN's output is all_reduced there
+    before the tp all_reduce;
+  - the ranks holding the same heads and experts in every block form a
+    peer group: a prefix-cache snapshot saved in one block is copied to
+    the others;
+  - all ranks of the mesh form the mesh group: the blocks' rows of a
     forward's output are put together there.
 
 new_group is collective over the world, so every rank builds every
@@ -69,33 +77,48 @@ class TPComm:
 
 
 class Mesh:
-    """The (dp, tp) groups of one model, from the view of world rank
+    """The (dp, ep, tp) groups of one model, from the view of world rank
     `rank`. Built on every rank of the world in the same order."""
 
     def __init__(self, tp: int, dp: int, rank: int, world: int,
-                 backend: str):
-        if tp < 1 or dp < 1 or tp * dp > world:
-            raise ValueError(f"a mesh of tp={tp} x dp={dp} on {world} ranks")
-        self.tp, self.dp, self.rank = tp, dp, rank
-        self.size = tp * dp
+                 backend: str, ep: int = 1):
+        if tp < 1 or dp < 1 or ep < 1 or tp * ep * dp > world:
+            raise ValueError(f"a mesh of tp={tp} x ep={ep} x dp={dp} on "
+                             f"{world} ranks")
+        self.tp, self.dp, self.ep, self.rank = tp, dp, ep, rank
+        self.size = tp * ep * dp
         self.member = rank < self.size
-        self.tp_rank, self.dp_rank = rank % tp, rank // tp
+        block = tp * ep
+        self.tp_rank = rank % tp
+        self.ep_rank = (rank // tp) % ep
+        self.dp_rank = rank // block
         mine = {}
         for g in range(dp):
-            ranks = list(range(g * tp, (g + 1) * tp))
-            grp = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                mine["tp"] = grp
-        for t in range(tp):
-            ranks = [g * tp + t for g in range(dp)]
-            grp = dist.new_group(ranks, backend=backend)
-            if rank in ranks:
-                mine["peer"] = grp
+            for e in range(ep):
+                ranks = [g * block + e * tp + t for t in range(tp)]
+                grp = dist.new_group(ranks, backend=backend)
+                if rank in ranks:
+                    mine["tp"] = grp
+        if ep > 1:
+            for g in range(dp):
+                for t in range(tp):
+                    ranks = [g * block + e * tp + t for e in range(ep)]
+                    grp = dist.new_group(ranks, backend=backend)
+                    if rank in ranks:
+                        mine["ep"] = grp
+        for e in range(ep):
+            for t in range(tp):
+                ranks = [g * block + e * tp + t for g in range(dp)]
+                grp = dist.new_group(ranks, backend=backend)
+                if rank in ranks:
+                    mine["peer"] = grp
         grp = dist.new_group(list(range(self.size)), backend=backend)
         mine["mesh"] = grp if self.member else None
-        self.comm = self.peers = self.all = None
+        self.comm = self.ep_comm = self.peers = self.all = None
         if self.member:
             self.comm = TPComm(mine["tp"], self.tp_rank, tp, backend)
+            if ep > 1:
+                self.ep_comm = TPComm(mine["ep"], self.ep_rank, ep, backend)
             self.peers = TPComm(mine["peer"], self.dp_rank, dp, backend)
             self.all = TPComm(mine["mesh"], rank, self.size, backend)
 
@@ -109,7 +132,7 @@ class Mesh:
 
     def assemble(self, local: torch.Tensor, n: int) -> torch.Tensor:
         """The [n, ...] tensor whose dp blocks of rows the blocks hold
-        (each block's `local`, equal on its tp ranks), on every rank."""
+        (each block's `local`, equal on its ranks), on every rank."""
         if self.dp == 1:
             return local
         lo, hi = self.block(n)
@@ -117,6 +140,6 @@ class Mesh:
         wide = torch.int32 if dtype == torch.bool else dtype
         full = torch.zeros((n,) + tuple(local.shape[1:]), dtype=wide,
                            device=local.device)
-        if self.tp_rank == 0:
+        if self.tp_rank == 0 and self.ep_rank == 0:
             full[lo:hi] = local
         return self.all.all_reduce(full).to(dtype)

@@ -35,23 +35,41 @@ loaded one.
 
 The host re-layout is the JAX package's (tp.py:51-163): the fused QKV's
 columns permuted so each rank's slice is [q_r | k_r | v_r], gate|up's
-so it is [gate_r | up_r], and the row-parallel weights (wo, down)
-repacked so the nibble pack group divides the local K. shard_params_tp
-then takes param_specs' slices: QKV and gate|up column-parallel with
-their biases, wo and down row-parallel, the embedding and the lm_head
-over the vocab when it divides (else replicated), the norms and a
-factored draft head replicated.
+so it is [gate_r | up_r], and the row-parallel weights (wo, down, the
+expert down slabs) repacked so the nibble pack group divides the local
+K. shard_params_tp then takes param_specs' slices: QKV and gate|up
+column-parallel with their biases, wo and down row-parallel, the expert
+stacks [E, K, N] like the dense FFN (gate and up over N, down over K)
+and, under expert parallelism (a mesh's ep axis), E / ep experts a rank,
+the router, the norms and a factored draft head replicated, the
+embedding and the lm_head over the vocab when it divides (else
+replicated). A row-parallel weight whose local K is not a multiple of
+the 32-wide scale blocks is refused ("K=... not row-shardable"), as JAX
+refuses it.
+
+Compositions over a rank group:
+  - MoE models on every scheduler path, and with ep > 1 (reached through
+    start_rank_group / ServerContext(ep=), as JAX reaches it by a mesh;
+    no CLI flag) only the grouped route;
+  - VLM requests: the tower runs on rank 0, a request's input rows go to
+    every rank with the forward (TPModel.embed's lookup is the
+    vocab-sharded one, run on every rank); followers load the text
+    shards from weights.gguf or from an HF InternVL dir;
+  - EAGLE heads (prepare_eagle_for_tp / eagle_param_specs): TPEagleHead
+    runs eagle_forward on every rank's head shards and its cache shard;
+    the head's heads must divide tp.
 
     python -m powerserve_tpu_torch serve -d <root> --tp 2 [--dp 2]
         [--dist-backend nccl|gloo]
 
-Not ported (ROADMAP §1 item 8): pipeline and sequence parallelism, EAGLE
-and VLM requests under TP, MoE layers under TP, several hosts.
+Not ported (ROADMAP §1 item 8b): pipeline and sequence parallelism,
+several hosts, TP ticks replayed as CUDA graphs.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import itertools
 import pickle
@@ -174,32 +192,37 @@ def _model_like(model: LlamaModel, **changes) -> LlamaModel:
     return LlamaModel(**kw)
 
 
+def _prepare_layer(lw: LlamaLayer, H: int, Hkv: int, D: int,
+                   tp: int) -> LlamaLayer:
+    """One layer's host re-layout (a target's or an EAGLE head's: the
+    JAX _fix_layer_for_tp)."""
+    ch = dict(wo=_repack_rows(lw.wo, tp), w_down=_repack_rows(lw.w_down, tp),
+              w_down_exps=_repack_rows(lw.w_down_exps, tp))
+    if lw.wqkv is not None:
+        perm = _qkv_perm(H, Hkv, D, tp)
+        ch["wqkv"] = _permute_cols(lw.wqkv, perm)
+        if lw.bqkv is not None:
+            ch["bqkv"] = lw.bqkv.index_select(
+                -1, torch.as_tensor(perm, device=lw.bqkv.device))
+    if lw.wgu is not None:
+        ch["wgu"] = _permute_cols(lw.wgu,
+                                  _gu_perm(lw.wgu.out_features // 2, tp))
+    return _layer_like(lw, **ch)
+
+
 def prepare_params_for_tp(model: LlamaModel, tp: int) -> LlamaModel:
     """The host re-layout before sharding: the fused QKV's and gate|up's
-    columns permuted per rank, wo and down repacked to a pack group that
-    divides the local K. The model itself is not changed; tp == 1 returns
-    it."""
+    columns permuted per rank, wo, down and the expert down slabs
+    repacked to a pack group that divides the local K. The model itself
+    is not changed; tp == 1 returns it."""
     if tp == 1:
         return model
     llm = model.llm
     H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
     if H % tp or Hkv % tp:
         raise ValueError(f"heads {H}/{Hkv} not divisible by tp={tp}")
-    layers = []
-    for lw in model.layers:
-        ch = dict(wo=_repack_rows(lw.wo, tp),
-                  w_down=_repack_rows(lw.w_down, tp))
-        if lw.wqkv is not None:
-            perm = _qkv_perm(H, Hkv, D, tp)
-            ch["wqkv"] = _permute_cols(lw.wqkv, perm)
-            if lw.bqkv is not None:
-                ch["bqkv"] = lw.bqkv.index_select(
-                    -1, torch.as_tensor(perm, device=lw.bqkv.device))
-        if lw.wgu is not None:
-            ch["wgu"] = _permute_cols(lw.wgu,
-                                      _gu_perm(lw.wgu.out_features // 2, tp))
-        layers.append(_layer_like(lw, **ch))
-    return _model_like(model, layers=layers)
+    return _model_like(model, layers=[_prepare_layer(lw, H, Hkv, D, tp)
+                                      for lw in model.layers])
 
 
 def local_llm_config(llm: LLMConfig, tp: int) -> LLMConfig:
@@ -209,8 +232,6 @@ def local_llm_config(llm: LLMConfig, tp: int) -> LLMConfig:
         return llm
     if llm.n_heads % tp or llm.n_kv_heads % tp:
         raise ValueError(f"heads not divisible by tp={tp}")
-    import dataclasses
-
     return dataclasses.replace(
         llm, n_heads=llm.n_heads // tp, n_kv_heads=llm.n_kv_heads // tp,
         kv_dim=llm.n_kv_heads // tp * llm.head_size)
@@ -259,34 +280,112 @@ def _vec(t: torch.Tensor | None, rank: int, tp: int):
                                                tp)].contiguous()
 
 
-def shard_params_tp(model: LlamaModel, rank: int, tp: int) -> LlamaModel:
-    """Rank `rank`'s shards of `model` (after prepare_params_for_tp), with
-    the local head counts: the JAX package's param_specs, taken on the
-    host. The returned model has no TPComm yet (LlamaModel.tp)."""
-    if any(lw.router is not None for lw in model.layers):
-        raise ValueError("MoE layers under tensor parallelism are not "
-                         "ported (ROADMAP §1 item 8)")
-    if tp == 1:
-        return model
-    model = prepare_params_for_tp(model, tp)
-    layers = [_layer_like(
+def _experts(lin: QLinear | None, ep_rank: int, ep: int) -> QLinear | None:
+    """Expert parallelism: this rank's E / ep slabs of an expert stack."""
+    if lin is None or ep == 1:
+        return lin
+    sl = _span(lin.n_slabs, ep_rank, ep)
+
+    def cut(t):
+        return None if t is None else t[sl].contiguous()
+
+    return _qlinear_like(lin, cut(lin.q), cut(lin.scales), cut(lin.bias))
+
+
+def _shard_layer(lw: LlamaLayer, rank: int, tp: int, ep_rank: int = 0,
+                 ep: int = 1) -> LlamaLayer:
+    """Rank (tp rank, ep rank)'s shard of a prepared layer (the JAX
+    _layer_specs' slices)."""
+    return _layer_like(
         lw, wqkv=_cols(lw.wqkv, rank, tp), bqkv=_vec(lw.bqkv, rank, tp),
         wq=_cols(lw.wq, rank, tp), wk=_cols(lw.wk, rank, tp),
         wv=_cols(lw.wv, rank, tp), bq=_vec(lw.bq, rank, tp),
         bk=_vec(lw.bk, rank, tp), bv=_vec(lw.bv, rank, tp),
         wgu=_cols(lw.wgu, rank, tp), w_gate=_cols(lw.w_gate, rank, tp),
         w_up=_cols(lw.w_up, rank, tp), wo=_rows(lw.wo, rank, tp),
-        w_down=_rows(lw.w_down, rank, tp)) for lw in model.layers]
-    emb = model.embed
-    if emb.q.shape[0] % tp == 0:
-        sl = _span(emb.q.shape[0], rank, tp)
-        emb = QEmbedding(*(None if t is None else t[sl].contiguous()
-                           for t in (emb.q, emb.scales, emb.bias)))
-    head = model.lm_head
-    if head.out_features % tp == 0:
-        head = _cols(head, rank, tp)
+        w_down=_rows(lw.w_down, rank, tp),
+        w_gate_exps=_cols(_experts(lw.w_gate_exps, ep_rank, ep), rank, tp),
+        w_up_exps=_cols(_experts(lw.w_up_exps, ep_rank, ep), rank, tp),
+        w_down_exps=_rows(_experts(lw.w_down_exps, ep_rank, ep), rank, tp))
+
+
+def _shard_embed(emb: QEmbedding, rank: int, tp: int) -> QEmbedding:
+    if emb.q.shape[0] % tp:
+        return emb
+    sl = _span(emb.q.shape[0], rank, tp)
+    return QEmbedding(*(None if t is None else t[sl].contiguous()
+                        for t in (emb.q, emb.scales, emb.bias)))
+
+
+def _shard_head(head: QLinear, rank: int, tp: int) -> QLinear:
+    return _cols(head, rank, tp) if head.out_features % tp == 0 else head
+
+
+def shard_params_tp(model: LlamaModel, rank: int, tp: int,
+                    ep_rank: int = 0, ep: int = 1) -> LlamaModel:
+    """Rank `rank`'s shards of `model` (after prepare_params_for_tp), with
+    the local head counts; under expert parallelism (ep > 1) ep rank
+    `ep_rank`'s E / ep experts of every MoE layer: the JAX package's
+    param_specs, taken on the host. The returned model has no TPComm yet
+    (LlamaModel.tp, .ep)."""
+    n_exp = {lw.w_gate_exps.n_slabs for lw in model.layers
+             if lw.router is not None}
+    if ep > 1 and (not n_exp or any(e % ep for e in n_exp)):
+        raise ValueError(f"expert parallelism over ep={ep} takes an MoE "
+                         f"model whose experts split ({sorted(n_exp)})")
+    if tp == 1 and ep == 1:
+        return model
+    model = prepare_params_for_tp(model, tp)
+    layers = [_shard_layer(lw, rank, tp, ep_rank, ep) for lw in model.layers]
     return _model_like(model, llm=local_llm_config(model.llm, tp),
-                       embed=emb, layers=layers, lm_head=head)
+                       embed=_shard_embed(model.embed, rank, tp),
+                       layers=layers,
+                       lm_head=_shard_head(model.lm_head, rank, tp))
+
+
+def prepare_eagle_for_tp(head, tp: int):
+    """An EAGLE head's host re-layout before sharding (JAX
+    prepare_eagle_for_tp): each layer as a target layer's."""
+    if tp == 1:
+        return head
+    llm = head.llm
+    H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
+    if H % tp or Hkv % tp:
+        raise ValueError(f"eagle heads {H}/{Hkv} not divisible by tp={tp}")
+    return _eagle_like(head, layers=[_prepare_layer(lw, H, Hkv, D, tp)
+                                     for lw in head.layers])
+
+
+def _eagle_like(head, **changes):
+    from ..speculative.eagle import EagleHead
+
+    kw = dict(llm=head.llm, fc=head.fc, fc_bias=head.fc_bias,
+              layers=list(head.layers), embed=head.embed,
+              lm_head=head.lm_head, out_norm=head.out_norm,
+              input_norm=head.input_norm,
+              lm_head_lr=(None if head.lm_head_lr is None
+                          else tuple(head.lm_head_lr)))
+    kw.update(changes)
+    return EagleHead(**kw)
+
+
+def shard_eagle_tp(head, rank: int, tp: int, target: LlamaModel):
+    """Rank `rank`'s shards of an EAGLE head (JAX eagle_param_specs): its
+    layers as a target layer's, the fc, its bias, the norms and a
+    factored head replicated; the embedding and lm_head the target
+    shard's own objects where the head shares the target's (else its
+    own, over the vocab when it divides)."""
+    if tp == 1:
+        return head
+    prep = prepare_eagle_for_tp(head, tp)
+    embed = (target.embed if head.embed is target.embed
+             else _shard_embed(head.embed, rank, tp))
+    lm_head = (target.lm_head if head.lm_head is target.lm_head
+               else _shard_head(head.lm_head, rank, tp))
+    return _eagle_like(prep, llm=local_llm_config(head.llm, tp),
+                       layers=[_shard_layer(lw, rank, tp)
+                               for lw in prep.layers],
+                       embed=embed, lm_head=lm_head)
 
 
 def _gather_cols(lin: QLinear, comm: TPComm) -> QLinear:
@@ -304,6 +403,16 @@ def _gather_cols(lin: QLinear, comm: TPComm) -> QLinear:
                          out_features=lin.out_features * comm.size)
 
 
+def _factored(head: QLinear, base: "ShardModel", rank: int) -> tuple:
+    """A factored draft head (U, V) of a rank's lm_head (gathered whole
+    when it is a vocab shard), the same on every rank (replicated)."""
+    from ..speculative.draft_head import make_draft_head
+
+    if head.out_features != base.cfg.llm.vocab_size:
+        head = _gather_cols(head, base.mesh.comm)
+    return make_draft_head(head, rank=rank)
+
+
 # ---------------------------------------------------------------------------
 # the shards on each rank, and the operations on them
 # ---------------------------------------------------------------------------
@@ -313,6 +422,24 @@ _SLOT_ARGS = ("active", "cache_positions", "key_positions", "attn_mask",
               "embeds")
 
 
+def _block_args(mesh: Mesh, S: int, tensors: tuple, kw: dict):
+    """A dp block's rows of a batch's slot-first arguments."""
+    if mesh.dp == 1:
+        return tensors, kw
+    lo, hi = mesh.block(S)
+    return (tuple(t[lo:hi] for t in tensors),
+            {k: (v[lo:hi] if k in _SLOT_ARGS and v is not None else v)
+             for k, v in kw.items()})
+
+
+def _assemble_out(mesh: Mesh, out, S: int):
+    """A forward's output (a tensor, or a tuple of them) with every dp
+    block's rows."""
+    if isinstance(out, tuple):
+        return tuple(mesh.assemble(o, S) for o in out)
+    return mesh.assemble(out, S)
+
+
 class ShardModel:
     """One rank's shards of a model on a mesh; `cfg` is the global
     config, `model.llm` the local one."""
@@ -320,19 +447,49 @@ class ShardModel:
     def __init__(self, mesh: Mesh, model: LlamaModel, cfg: ModelConfig):
         self.mesh, self.model, self.cfg = mesh, model, cfg
         model.tp = mesh.comm
+        model.ep = mesh.ep_comm
 
     def forward(self, kv: "ShardCache", tokens: torch.Tensor,
                 positions: torch.Tensor, **kw) -> torch.Tensor:
         """The whole batch's forward: this block's rows through the local
-        shards, the blocks' outputs put together."""
+        shards, the blocks' outputs put together (with
+        return_final_hidden, the logits and the final hidden)."""
         S = tokens.shape[0]
-        if self.mesh.dp > 1:
-            lo, hi = self.mesh.block(S)
-            tokens, positions = tokens[lo:hi], positions[lo:hi]
-            kw = {k: (v[lo:hi] if k in _SLOT_ARGS and v is not None else v)
-                  for k, v in kw.items()}
-        return self.mesh.assemble(self.model(kv.kv, tokens, positions, **kw),
-                                  S)
+        (tokens, positions), kw = _block_args(self.mesh, S,
+                                              (tokens, positions), kw)
+        return _assemble_out(self.mesh, self.model(kv.kv, tokens, positions,
+                                                   **kw), S)
+
+    def embed_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' input rows f32 (the vocab-sharded lookup), on every
+        rank (the rows of a VLM request's overlay)."""
+        return self.model.embed_tokens(tokens)
+
+    def replica_eagle(self) -> "ShardEagle":
+        """The exact-replica head (speculative/eagle.py replica_head) of
+        this 1-layer model's shards."""
+        from ..speculative.eagle import replica_head
+
+        return ShardEagle(self.mesh, replica_head(self.model))
+
+
+class ShardEagle:
+    """One rank's shards of an EAGLE head (speculative/eagle.py) on its
+    target's mesh."""
+
+    def __init__(self, mesh: Mesh, head):
+        self.mesh, self.head = mesh, head
+        head.tp = mesh.comm
+
+    def forward(self, kv: "ShardCache", tokens: torch.Tensor,
+                features: torch.Tensor, positions: torch.Tensor, **kw):
+        from ..speculative.eagle import eagle_forward
+
+        S = tokens.shape[0]
+        (tokens, features, positions), kw = _block_args(
+            self.mesh, S, (tokens, features, positions), kw)
+        return _assemble_out(self.mesh, eagle_forward(
+            self.head, kv.kv, tokens, features, positions, **kw), S)
 
 
 def _all_heads(t: torch.Tensor, m: Mesh, axis: int) -> torch.Tensor:
@@ -460,13 +617,25 @@ def _model_from_gguf(group, path, mxu=False):
     return load_gguf_model(path, device=group.device, mxu=mxu)
 
 
-def _model_from_preset(group, preset, quant, seed):
+def _model_from_preset(group, preset, quant, seed, layers=None):
     from ..tools.bench_params import make_device_params
 
-    return make_device_params(preset, quant, seed=seed, device=group.device)
+    return make_device_params(preset, quant, seed=seed, device=group.device,
+                              layers=layers)
 
 
-_LOADERS = {"gguf": _model_from_gguf, "preset": _model_from_preset}
+def _model_from_hf_internvl(group, path, mxu=False):
+    """An HF InternVL checkpoint dir's text model (models/internvl.py
+    hf_text_reader: Q8_0 in memory, as JAX's internvl_from_hf)."""
+    from ..models.internvl import hf_text_reader
+    from ..models.loader import load_gguf_model
+
+    reader, _, _ = hf_text_reader(path)
+    return load_gguf_model(reader, device=group.device, mxu=mxu)
+
+
+_LOADERS = {"gguf": _model_from_gguf, "preset": _model_from_preset,
+            "hf_internvl": _model_from_hf_internvl}
 
 
 class RankGroup:
@@ -596,29 +765,46 @@ class RankGroup:
             self.objs.pop(oid, None)
         return getattr(self, "_op_" + op)(*args, **kw)
 
-    def mesh(self, tp: int, dp: int) -> Mesh:
-        key = (tp, dp)
+    def mesh(self, tp: int, dp: int, ep: int = 1) -> Mesh:
+        key = (tp, dp, ep)
         if key not in self.meshes:
             self.meshes[key] = Mesh(tp, dp, self.rank, self.world,
-                                    self.backend)
+                                    self.backend, ep=ep)
         return self.meshes[key]
 
-    def _op_model(self, oid, source, tp, dp, *args):
-        mesh = self.mesh(tp, dp)
+    def _op_model(self, oid, source, tp, dp, *args, ep=1):
+        mesh = self.mesh(tp, dp, ep)
         if not mesh.member:
             return None
         cfg, full = _LOADERS[source](self, *args)
-        local = shard_params_tp(full, mesh.tp_rank, tp)
+        local = shard_params_tp(full, mesh.tp_rank, tp, mesh.ep_rank, ep)
         del full
         self.objs[oid] = ShardModel(mesh, local, cfg)
+        return self.objs[oid]
+
+    def _op_eagle(self, oid, base: ShardModel, path: str, rank: int = 0):
+        """An EAGLE head GGUF against base's shards: every rank loads the
+        head against its target shard (sharing its embedding and lm_head)
+        and keeps its shard of the head's layers; rank > 0 factors the
+        head's lm_head (gathered whole) on every rank, replicated."""
+        if base is None:
+            return None
+        from ..models.loader import load_eagle_gguf
+        from ..speculative.eagle import with_lm_head_lr
+
+        mesh = base.mesh
+        _, head = load_eagle_gguf(path, base.model, base.cfg.llm,
+                                  device=self.device)
+        head = shard_eagle_tp(head, mesh.tp_rank, mesh.tp, base.model)
+        if rank:
+            head = with_lm_head_lr(head, _factored(head.lm_head, base, rank))
+        self.objs[oid] = ShardEagle(mesh, head)
         return self.objs[oid]
 
     def _op_self_draft(self, oid, base: ShardModel, n_layers: int):
         if base is None:
             return None
         from ..speculative.chain import self_draft_config, self_draft_model
-
-        import dataclasses
 
         draft = self_draft_model(base.model, n_layers)
         cfg = dataclasses.replace(base.cfg, llm=self_draft_config(
@@ -632,18 +818,15 @@ class RankGroup:
         if base is None:
             return None
         from ..speculative.chain import with_draft_head
-        from ..speculative.draft_head import make_draft_head
 
-        head = base.model.lm_head
-        if head.out_features != base.cfg.llm.vocab_size:
-            head = _gather_cols(head, base.mesh.comm)
-        model = with_draft_head(base.model, make_draft_head(head, rank=rank))
+        model = with_draft_head(base.model, _factored(base.model.lm_head,
+                                                      base, rank))
         self.objs[oid] = ShardModel(base.mesh, model, base.cfg)
         return self.objs[oid]
 
     def _op_cache(self, oid, tp, dp, n_layers, n_slots, max_seq, n_kv_heads,
-                  head_dim, n_pages=0, page_size=64):
-        mesh = self.mesh(tp, dp)
+                  head_dim, n_pages=0, page_size=64, ep=1):
+        mesh = self.mesh(tp, dp, ep)
         if not mesh.member:
             return None
         lo, hi = mesh.block(n_slots)
@@ -693,22 +876,44 @@ class RankGroup:
     def _drop(self, oid: int) -> None:
         self._drops.append(oid)
 
-    def load(self, path, tp: int, dp: int = 1, mxu: bool = False
+    def load(self, path, tp: int, dp: int = 1, mxu: bool = False,
+             ep: int = 1, source: str = "gguf"
              ) -> tuple[ModelConfig, "TPModel"]:
-        """A GGUF model dir (mxu: in the W8 format), sharded over a (tp,
-        dp) mesh: (the global config, rank 0's TPModel)."""
-        return self._model("gguf", tp, dp, str(path), mxu)
+        """A GGUF model dir (mxu: in the W8 format), or with source
+        "hf_internvl" the text model of an HF InternVL checkpoint dir (its
+        weights quantized to Q8_0 by every rank), sharded over a (tp, dp)
+        mesh (ep > 1: an MoE model's experts split over ep groups of tp
+        ranks in each dp block): (the global config, rank 0's TPModel)."""
+        return self._model(source, tp, dp, ep, str(path), mxu)
 
     def preset(self, preset: str, quant: str, seed: int, tp: int,
-               dp: int = 1) -> tuple[ModelConfig, "TPModel"]:
+               dp: int = 1, ep: int = 1, layers: int | None = None
+               ) -> tuple[ModelConfig, "TPModel"]:
         """Random weights (tools/bench_params.py, the same seed on every
-        rank), sharded over a (tp, dp) mesh."""
-        return self._model("preset", tp, dp, preset, quant, seed)
+        rank; layers: the depth cut), sharded over a (tp, dp) mesh (and
+        ep, as load())."""
+        return self._model("preset", tp, dp, ep, preset, quant, seed,
+                           layers)
 
-    def _model(self, source, tp, dp, *args):
+    def _model(self, source, tp, dp, ep, *args):
         oid = self._new_id()
-        shard = self.run("model", oid, source, tp, dp, *args)
+        shard = self.run("model", oid, source, tp, dp, *args, ep=ep)
         return shard.cfg, TPModel(self, oid, shard)
+
+    def eagle(self, model: "TPModel", path, rank: int = 0) -> "TPEagleHead":
+        """An EAGLE head GGUF dir against model's shards (rank > 0: its
+        drafting logits through a factored head of that rank)."""
+        oid = self._new_id()
+        shard = self.run("eagle", oid, model, str(path), rank)
+        return TPEagleHead(self, oid, shard)
+
+    def replica_eagle(self, model: "TPModel") -> "TPEagleHead":
+        """The exact-replica head of a 1-layer model (self_draft(m, 1)),
+        on its shards."""
+        oid = self._new_id()
+        shard = self.run("call", model.oid, "replica_eagle", (), {},
+                         keep=oid)
+        return TPEagleHead(self, oid, shard)
 
     def self_draft(self, model: "TPModel", n_layers: int) -> "TPModel":
         oid = self._new_id()
@@ -784,15 +989,13 @@ class TPModel(_Remote):
         self.shard = shard
         self.mesh = shard.mesh
         self.llm = shard.cfg.llm
+        self.embed = _TPEmbedding(self)
 
     def to(self, device) -> "TPModel":
         return self
 
     def __call__(self, kv: "TPCache", tokens: torch.Tensor,
                  positions: torch.Tensor, **kw):
-        if kw.get("return_final_hidden"):
-            raise ValueError("EAGLE under tensor parallelism is not ported "
-                             "(ROADMAP §1 item 8)")
         return self._call("forward", kv, tokens, positions, **kw)
 
     def create_cache(self, n_layers: int, n_slots: int, max_seq: int,
@@ -810,9 +1013,50 @@ class TPModel(_Remote):
         shard = self.group.run("cache", oid, self.mesh.tp, self.mesh.dp,
                                n_layers, n_slots, max_seq, n_kv_heads,
                                head_dim, n_pages=n_pages,
-                               page_size=page_size)
+                               page_size=page_size, ep=self.mesh.ep)
         cls = TPPagedCache if n_pages else TPCache
         return cls(self.group, oid, shard, n_slots, n_pages)
+
+
+class _TPEmbedding:
+    """A TPModel's embedding table as the scheduler and a VLM read it:
+    lookup(tokens) runs the vocab-sharded lookup on every rank and gives
+    rank 0 the rows."""
+
+    def __init__(self, model: TPModel):
+        self._model = weakref.ref(model)
+
+    def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self._model()._call("embed_rows", tokens)
+
+
+class TPEagleHead(_Remote):
+    """Rank 0's EAGLE head over a rank group: eagle_forward (speculative/
+    eagle.py) broadcast and run by every rank on its head shards and its
+    cache shard; `llm` is the head's global config."""
+
+    remote = True
+
+    def __init__(self, group: RankGroup, oid: int, shard: ShardEagle):
+        super().__init__(group, oid)
+        self.shard = shard
+        head = shard.head
+        self.llm = dataclasses.replace(
+            head.llm, n_heads=head.llm.n_heads * shard.mesh.tp,
+            n_kv_heads=head.llm.n_kv_heads * shard.mesh.tp,
+            kv_dim=head.llm.kv_dim * shard.mesh.tp)
+        width = (head.lm_head_lr[1].out_features if head.lm_head_lr
+                 is not None else head.lm_head.out_features)
+        if head.lm_head_lr is None and width != head.llm.vocab_size:
+            width *= shard.mesh.tp  # a vocab-sharded lm_head
+        self.head_width = width
+
+    def to(self, device) -> "TPEagleHead":
+        return self
+
+    def forward(self, kv: "TPCache", tokens: torch.Tensor,
+                features: torch.Tensor, positions: torch.Tensor, **kw):
+        return self._call("forward", kv, tokens, features, positions, **kw)
 
 
 class TPCache(_Remote, KVCache):

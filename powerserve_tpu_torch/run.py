@@ -16,10 +16,11 @@ depth) or tree (speculative/engine.py, the host-grown token tree; needs
 --spec-engine eagle insists on such a head. --draft-head-rank R factors
 the draft's lm_head, or the head's (speculative/draft_head.py).
 
---image <file> (repeatable) runs a vision-language workspace (a model dir
-with vision.gguf) through engine/vlm.py: every image's tiles go at the
-prompt's image placeholder, or ahead of the prompt; greedy. Images are
-PNG (core/image.py).
+--image <file> (repeatable) runs a vision-language model (a workspace whose
+model dir holds vision.gguf, or an HF InternVL checkpoint dir as it is)
+through engine/vlm.py: every image's tiles go at the prompt's image
+placeholder, or ahead of the prompt; greedy. Images are PNG or JPEG
+(core/image.py FORMATS).
 
 --load-kv <file.npz> fills slot 0 with a saved KV prefix before the
 prompt (kv/persist.py: the JAX package's format, written in place), and
@@ -55,7 +56,7 @@ from .core.logging import get_logger
 from .engine.generator import GenerationStats, InferenceEngine
 from .engine.vlm import VLMEngine
 from .kv.persist import load_prefix, save_prefix
-from .models.internvl import internvl_from_workspace
+from .models.internvl import load_internvl
 from .models.loader import (WEIGHT_FORMATS, gguf_architecture,
                             load_eagle_gguf, load_gguf_model)
 from .speculative.chain import ChainSpecEngine, with_draft_head
@@ -131,8 +132,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="device-tree widths per depth (a node at depth d "
                          "gets widths[d] draft children)")
     ap.add_argument("--image", action="append", default=None,
-                    help="PNG image for a vision-language workspace "
-                         "(repeatable): the multimodal engine, greedy")
+                    help="PNG or JPEG image for a vision-language "
+                         "workspace or HF InternVL dir (repeatable): the "
+                         "multimodal engine, greedy")
     ap.add_argument("--load-kv", default=None,
                     help="a saved KV prefix (.npz) to preload into slot 0")
     ap.add_argument("--save-kv", default=None,
@@ -178,8 +180,8 @@ def run_prompt(args: argparse.Namespace) -> RunResult:
                          "--self-draft-layers or --spec-engine)")
     if args.image:
         images = [load_image(p) for p in args.image]
-        engine = VLMEngine(internvl_from_workspace(model_dir, args.device,
-                                                   mxu=mxu), hp, args.device)
+        engine = VLMEngine(load_internvl(model_dir, args.device, mxu=mxu),
+                           hp, args.device)
         tok = Tokenizer.from_model_dir(model_dir)
     elif args.draft or args.self_draft_layers or args.spec_engine != "chain":
         engine, tok = build_spec_engine(args, str(model_dir), hp)

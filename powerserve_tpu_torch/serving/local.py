@@ -15,7 +15,8 @@ scheduler behind a small synchronous surface, no HTTP — for Python hosts
     srv.close()
 
 Same semantics as the HTTP server: chat templates, images on a
-vision-language model (data: URIs of PNGs; an HTTPError of status 400
+vision-language model (data: URIs of PNGs or JPEGs, on a workspace or an
+HF InternVL checkpoint dir; an HTTPError of status 400
 for what the server answers with a 400), UTF-8-safe streaming, stop
 strings and ids, per-request sampling. Thread-safe: requests ride the
 scheduler's own queue. Images are decoded in worker subprocesses

@@ -27,12 +27,13 @@ lm_head (an EAGLE head's too). Logprobs and penalties are not applied by
 speculative ticks, so such requests on a speculative name get a 400, as
 does a draft whose vocab differs from main's.
 
-A vision-language model dir (vision.gguf beside weights.gguf:
-models/internvl.py) serves chat requests whose content arrays hold
-`image_url` parts with data: URIs (PNG: core/image.py; another format,
-a URL that is not data:, or a prompt that ends in an image-context token
-gets a 400, as does a malformed PNG or one of more than
-core/image.py's MAX_PIXELS). The images are decoded and preprocessed in
+A vision-language model dir (vision.gguf beside weights.gguf, or an HF
+InternVL checkpoint dir as it is: models/internvl.py) serves chat
+requests whose content arrays hold `image_url` parts with data: URIs
+(PNG or JPEG: core/image.py FORMATS; another format, a URL that is not
+data:, or a prompt that ends in an image-context token gets a 400, as
+does a malformed or corrupt image or one of more than core/image.py's
+MAX_PIXELS). The images are decoded and preprocessed in
 worker processes (serving/image_workers.py: numpy work in a handler
 thread would hold the interpreter lock the scheduler thread needs
 between its kernel launches; the workers import nothing of the host's
@@ -49,7 +50,9 @@ forwards and cache operations to its shards (kv heads over tp, slots
 and pages over dp). --dist-backend names the collectives' backend:
 nccl (the default on cuda, one card a rank) or gloo (the default on the
 cpu; on cuda it lets ranks share a card). A follower that dies ends the
-server with an error. Under --tp, VLM dirs and EAGLE heads get a 400.
+server with an error. Every model kind serves under --tp: MoE models
+(ServerContext(ep=) also splits their experts), VLM dirs (the tower on
+rank 0) and "main+<eagle dir>" (the head sharded like a target layer).
 
 Sessions are named, pinned prompt prefixes (an agent's long system
 prompt, resumed by many requests without its prefill). POST /v1/sessions
@@ -76,7 +79,7 @@ scheduler another context shares: here every context has its own);
 sessions stay registered, and a later request re-prefills their tokens.
 
 --pp, --sp, --gspmd and --distributed exit with an error naming ROADMAP
-§1 item 8.
+§1 item 8b.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
@@ -99,6 +102,7 @@ import argparse
 import base64
 import binascii
 import contextlib
+import functools
 import gc
 import json
 import queue
@@ -118,7 +122,7 @@ from ..core.device import resolve_device
 from ..core.logging import get_logger
 from ..engine.scheduler import BatchScheduler, Request
 from ..kv.persist import load_session_apart, save_session
-from ..models.internvl import InternVLModel, internvl_from_workspace
+from ..models.internvl import InternVLModel, load_internvl, vlm_source
 from ..models.llama import LlamaModel
 from ..models.loader import (WEIGHT_FORMATS, gguf_architecture,
                              load_eagle_gguf, load_gguf_model)
@@ -235,13 +239,17 @@ class ServerContext:
     > 0 keeps at most that many contexts loaded (the least recently used
     idle one is evicted); `sessions` are the HTTP sessions by id.
     weight_format "w8" loads every model dir in the W8 format (run.py's
-    --weight-format), "gguf" (default) in the file's formats."""
+    --weight-format), "gguf" (default) in the file's formats. ep > 1
+    splits an MoE model's experts over ep groups of tp ranks (tp * ep *
+    dp ranks in all; JAX reaches it by a mesh, and `serve` has no flag
+    for it either)."""
 
     def __init__(self, model_root: str | Path, default_model: str = "",
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  tp: int = 1, dp: int = 1, dist_backend: str | None = None,
-                 max_models: int = 0, weight_format: str = "gguf"):
+                 max_models: int = 0, weight_format: str = "gguf",
+                 ep: int = 1):
         if weight_format not in WEIGHT_FORMATS:
             raise ValueError(f"weight format {weight_format!r}: gguf or w8")
         self.mxu = weight_format == "w8"
@@ -255,21 +263,31 @@ class ServerContext:
         self.sessions: dict[str, dict] = {}
         self._lock = threading.Lock()
         self.image_workers: ImageWorkers | None = None
-        self.tp, self.dp = int(tp), int(dp)
+        self.tp, self.dp, self.ep = int(tp), int(dp), int(ep)
         self.ranks = None
-        if self.tp * self.dp > 1:
+        world = self.tp * self.ep * self.dp
+        if world > 1:
             backend = dist_backend or default_backend(self.device)
-            log.info(f"{self.tp * self.dp} ranks (tp={self.tp}, "
+            log.info(f"{world} ranks (tp={self.tp}, ep={self.ep}, "
                      f"dp={self.dp}) over {backend} on {self.device.type}")
-            self.ranks = start_rank_group(self.tp * self.dp, backend,
-                                          self.device)
+            self.ranks = start_rank_group(world, backend, self.device)
             self.device = self.ranks.device
 
-    def _load(self, d: Path) -> tuple[ModelConfig, LlamaModel]:
-        """A model dir on this context's device, or over its ranks."""
+    def _load(self, d: Path, source: str = "gguf"
+              ) -> tuple[ModelConfig, LlamaModel]:
+        """A model dir on this context's device, or over its ranks
+        (source: RankGroup.load's)."""
         if self.ranks is not None:
-            return self.ranks.load(d, self.tp, self.dp, self.mxu)
+            return self.ranks.load(d, self.tp, self.dp, self.mxu, self.ep,
+                                   source=source)
         return load_gguf_model(d, device=self.device, mxu=self.mxu)
+
+    def _load_vlm(self, d: Path) -> InternVLModel:
+        """A VLM dir (vlm_source): on this context's device, or the tower
+        on rank 0 and the text model over the ranks."""
+        text = None if self.ranks is None else functools.partial(self._load,
+                                                                 d)
+        return load_internvl(d, self.device, self.mxu, text=text)
 
     def resolve_dir(self, name: str) -> Path:
         p = self.root / name
@@ -279,27 +297,17 @@ class ServerContext:
             return self.root
         raise HTTPError(404, f"unknown model '{name}'")
 
-    @staticmethod
-    def _is_vlm_dir(d: Path) -> bool:
-        if (d / "vision.gguf").exists():
-            return True
-        cfg = d / "config.json"
-        if not cfg.exists():
-            return False
-        try:
-            archs = json.loads(cfg.read_text()).get("architectures", [])
-        except json.JSONDecodeError:
-            return False
-        return any("InternVL" in a for a in archs)
-
     def register(self, name: str, model: LlamaModel, cfg: ModelConfig,
                  tokenizer: Tokenizer,
                  vlm: InternVLModel | None = None) -> ModelContext:
         """Serve an already built model under `name` (with vlm, the
-        vision-language model whose language half `model` is)."""
-        if self.ranks is not None:
-            raise ValueError("a context over a rank group serves the models "
-                             "it loads itself")
+        vision-language model whose language half `model` is). Over a
+        rank group, `model` is built on this context's ranks
+        (self.ranks.preset / load)."""
+        if self.ranks is not None and getattr(model, "group",
+                                              None) is not self.ranks:
+            raise ValueError("a context over a rank group serves models "
+                             "built on its own ranks")
         sched = BatchScheduler(model, cfg, self.hp, self.device)
         sched.start()
         ctx = ModelContext(name, sched, tokenizer, vlm=vlm)
@@ -384,15 +392,13 @@ class ServerContext:
             return self._speculative(name)
         d = self.resolve_dir(name)
         vlm = None
-        if self._is_vlm_dir(d) and self.ranks is not None:
-            raise HTTPError(400, f"model '{name}': vision-language models "
-                                 f"under --tp are not ported (ROADMAP §1 "
-                                 f"item 8)")
-        if self._is_vlm_dir(d):
+        if vlm_source(d) is not None:
             try:
-                vlm = internvl_from_workspace(d, self.device, self.mxu)
-            except ValueError as e:  # an HF checkpoint, not converted
-                raise HTTPError(400, f"model '{name}': {e}") from e
+                vlm = self._load_vlm(d)
+            except (ValueError, KeyError, FileNotFoundError) as e:
+                raise HTTPError(400, f"model '{name}': not a loadable "
+                                     f"InternVL dir ({type(e).__name__}: "
+                                     f"{e})") from e
             cfg, model = vlm.cfg, vlm.llm
             self._start_image_workers()
         else:
@@ -419,8 +425,8 @@ class ServerContext:
                                      f"the batched chain or tree scheduler "
                                      f"only (no EAGLE head)")
             if self.ranks is not None:
-                raise HTTPError(400, f"model '{name}': EAGLE under --tp is "
-                                     f"not ported (ROADMAP §1 item 8)")
+                return self._start(name, base, eagle_head=self.ranks.eagle(
+                    model, draft_dir, rank))
             # the head shares main's embedding and lm_head
             _, head = load_eagle_gguf(draft_dir, model, cfg.llm,
                                       device=self.device)
@@ -1074,7 +1080,7 @@ def main(argv: list[str] | None = None) -> int:
                       ("--gspmd", args.gspmd),
                       ("--distributed", args.distributed)):
         if val:
-            ap.error(f"{flag} is not ported: ROADMAP §1 item 8 "
+            ap.error(f"{flag} is not ported: ROADMAP §1 item 8b "
                      f"(parallelism) queues it")
 
     root = Path(args.model_root)

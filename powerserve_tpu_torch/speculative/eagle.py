@@ -35,6 +35,13 @@ with the ancestor mask; the acceptance walk of speculative/
 device_tree.py; the target compacts the accepted path, the head drops
 its N - |last level| drafted entries and re-prefills the path.
 
+Over a rank group (parallel/tp.py) the head is sharded like a target
+layer (its layers' QKV and gate|up over their columns, wo and down over
+their rows; the fc and the norms replicated; the embedding and lm_head
+the target's own shards) and its cache over kv heads: EagleHead.tp is a
+rank's TPComm, and rank 0's TPEagleHead runs eagle_forward on every rank
+(the JAX prepare_eagle_for_tp, eagle_param_specs, tp_eagle_*).
+
 The JAX package runs the steps inside one lax.scan (its window-KV
 routes for both caches are not ported: the port commits every step).
 Here a greedy step is one CUDA graph replayed once per step
@@ -52,7 +59,8 @@ from torch import nn
 from ..core.config import LLMConfig, ModelConfig
 from ..engine.graphs import graphs_of, steps_capacity
 from ..kv.cache import KVCache
-from ..models.llama import DECODE_MAX_TQ, LlamaLayer, LlamaModel, QEmbedding
+from ..models.llama import (DECODE_MAX_TQ, LlamaLayer, LlamaModel,
+                            QEmbedding, vocab_linear, vocab_rows)
 from ..ops.elementwise import rope_cos_sin
 from ..ops.flash_decode import pack_intra
 from ..ops.fused import fused_linear
@@ -66,7 +74,7 @@ from .device_tree import (TreeTemplate, _Consts, _consts_of, _greedy_walk,
 __all__ = ["EagleHead", "eagle_forward", "eagle_spec_scan",
            "eagle_tree_spec_scan", "eagle_sample_step",
            "eagle_tree_sample_step", "greedy_eagle_sample_step",
-           "EagleChainEngine", "with_lm_head_lr"]
+           "EagleChainEngine", "with_lm_head_lr", "replica_head"]
 
 
 class EagleHead(nn.Module):
@@ -101,6 +109,8 @@ class EagleHead(nn.Module):
         self.input_norm = bool(input_norm)
         self.lm_head_lr = None if lm_head_lr is None else nn.ModuleList(
             lm_head_lr)
+        # a rank's shards: its TPComm (parallel/tp.py shard_eagle_tp)
+        self.tp = None
 
     @property
     def head_width(self) -> int:
@@ -120,15 +130,18 @@ class EagleHead(nn.Module):
             u, v = self.lm_head_lr
             return fused_linear(v, x=fused_linear(u, eps=eps, **first),
                                 argmax=argmax)
-        return fused_linear(self.lm_head, eps=eps, argmax=argmax, **first)
+        return vocab_linear(self.lm_head, self.llm.vocab_size, self.tp,
+                            argmax, eps=eps, **first)
 
 
 def with_lm_head_lr(head: EagleHead, lm_head_lr: tuple) -> EagleHead:
     """A view of `head` whose drafting logits read the factored (U, V)
     (no weight is copied)."""
-    return EagleHead(head.llm, head.fc, head.fc_bias, list(head.layers),
+    view = EagleHead(head.llm, head.fc, head.fc_bias, list(head.layers),
                      head.embed, head.lm_head, head.out_norm,
                      head.input_norm, lm_head_lr)
+    view.tp = head.tp
+    return view
 
 
 @torch.no_grad()
@@ -157,7 +170,14 @@ def eagle_forward(head: EagleHead, kv: KVCache, tokens: torch.Tensor,
     composition otherwise).
 
     Returns (logits, feature_out [S, Tq, dim] f32): the head's predicted
-    next features, fed back in autoregressive drafting."""
+    next features, fed back in autoregressive drafting. A rank group's
+    head (parallel/tp.py TPEagleHead) runs this on every rank's shards."""
+    if getattr(head, "remote", False):
+        return head.forward(kv, tokens, features, positions, active=active,
+                            cache_positions=cache_positions,
+                            intra_mask=intra_mask,
+                            key_positions=key_positions, visible=visible,
+                            logits_mode=logits_mode, fuse_layers=fuse_layers)
     llm = head.llm
     S, Tq = tokens.shape
     M = S * Tq
@@ -166,7 +186,8 @@ def eagle_forward(head: EagleHead, kv: KVCache, tokens: torch.Tensor,
             and (Tq > DECODE_MAX_TQ or intra_mask is None)):
         raise ValueError("a token tree's options take an intra_mask and at "
                          f"most {DECODE_MAX_TQ} query rows")
-    emb = head.embed.lookup(tokens).reshape(M, -1)
+    emb = vocab_rows(head.embed, tokens, llm.vocab_size, head.tp).reshape(
+        M, -1)
     feat = features.reshape(M, -1)
     if fuse_layers:
         x = fused_linear(head.fc, parts=(emb, feat), bias=head.fc_bias)
@@ -182,7 +203,7 @@ def eagle_forward(head: EagleHead, kv: KVCache, tokens: torch.Tensor,
     index = kv.write_index(cpos)
     for i, layer in enumerate(head.layers):
         x = layer(x, llm, kv, i, cos, sin, keys, index, fuse=fuse_layers,
-                  bits=bits, norm_input=head.input_norm or i > 0)
+                  bits=bits, norm_input=head.input_norm or i > 0, tp=head.tp)
     vis = None if visible else torch.zeros_like(cpos, dtype=torch.bool)
     kv.advance(cpos, active=active, visible=vis)
     if logits_mode == "none":
@@ -196,6 +217,25 @@ def eagle_forward(head: EagleHead, kv: KVCache, tokens: torch.Tensor,
     else:
         raise ValueError(f"logits_mode {logits_mode!r}")
     return logits, x
+
+
+def replica_head(target: LlamaModel) -> EagleHead:
+    """The exact-replica head of a 1-layer target: fc = [I; 0] in Q8_0
+    feeds the token's embedding alone, and the head's layer, final norm,
+    embedding and lm_head are the target's own objects, so every draft
+    is the target's next token and a greedy step accepts all of them (a
+    check of the speculation plumbing, on one device or a rank's
+    shards)."""
+    if target.llm.n_layers != 1:
+        raise ValueError("the exact-replica head drafts a 1-layer target")
+    from ..core.gguf import GGMLType
+
+    dim = target.llm.dim
+    fc = torch.cat([torch.eye(dim), torch.zeros(dim, dim)])  # [2 dim, dim]
+    dev = target.out_norm.device
+    return EagleHead(target.llm, QLinear.from_float(
+        fc.numpy(), GGMLType.Q8_0, device=dev), None, [target.layers[0]],
+        target.embed, target.lm_head, target.out_norm, input_norm=True)
 
 
 # -- the chain ----------------------------------------------------------------

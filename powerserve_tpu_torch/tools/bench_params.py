@@ -70,14 +70,16 @@ def _rand_qlinear(g: torch.Generator, k: int, n: int, quant: str,
 
 def make_device_params(preset: str = "llama-8b", quant: str = "q4_k",
                        seed: int = 0,
-                       device: str | torch.device | None = None
+                       device: str | torch.device | None = None,
+                       layers: int | None = None
                        ) -> tuple[ModelConfig, LlamaModel]:
     """(ModelConfig, LlamaModel) with random weights on `device`
-    (default cuda)."""
+    (default cuda); layers: the preset's depth cut to that many (the
+    first layers of the full model's, the same seed)."""
     dev = resolve_device(device)
     p = PRESETS[preset]
     E = int(p.get("experts", 0))
-    dim, ffn, L = p["dim"], p["ffn"], p["layers"]
+    dim, ffn, L = p["dim"], p["ffn"], int(layers or p["layers"])
     H, Hkv, V = p["heads"], p["kv_heads"], p["vocab"]
     hd = dim // H
     vpad = (V + 255) // 256 * 256
@@ -158,12 +160,15 @@ def make_device_vision_params(preset: str = "internvit-300m",
 
 def make_device_internvl(preset: str = "internvl2.5-4b", quant: str = "q4_k",
                          seed: int = 0,
-                         device: str | torch.device | None = None
+                         device: str | torch.device | None = None,
+                         text_layers: int | None = None
                          ) -> InternVLModel:
     """A random vision-language model on `device` (default cuda): the
-    text preset's make_device_params and the vision preset's tower."""
+    text preset's make_device_params (text_layers: its depth cut) and
+    the vision preset's tower."""
     text, vision, image_id = VLM_PRESETS[preset]
-    cfg, llm = make_device_params(text, quant, seed, device)
+    cfg, llm = make_device_params(text, quant, seed, device,
+                                  layers=text_layers)
     vp = make_device_vision_params(vision, cfg.llm.dim, seed + 1, device)
     return InternVLModel(vision=vp, llm=llm, cfg=cfg,
                          image_token_id=image_id,

@@ -72,12 +72,13 @@ _LAYER_MAP = {
 }
 
 
-def _iter_hf_tensors(model_dir: Path):
-    """Yield (name, numpy array) from safetensors shards or torch bins."""
+def _iter_hf_tensors(model_dir: Path, keep=None):
+    """Yield (name, numpy array) from safetensors shards or torch bins
+    (keep: only the names it takes)."""
     st_files = sorted(model_dir.glob("*.safetensors"))
     if st_files:
         for f in st_files:
-            for name, arr in load_file(str(f)).items():
+            for name, arr in load_file(str(f), keep).items():
                 yield name, arr
         return
     bins = sorted(model_dir.glob("pytorch_model*.bin"))
@@ -88,7 +89,8 @@ def _iter_hf_tensors(model_dir: Path):
     for f in bins:
         sd = torch.load(f, map_location="cpu", weights_only=True)
         for name, t in sd.items():
-            yield name, t.float().numpy()
+            if keep is None or keep(name):
+                yield name, t.float().numpy()
 
 
 def _gguf_name(hf_name: str) -> str | None:
@@ -119,6 +121,27 @@ def write_model(hf_cfg: dict, tensors, tokenizer_dir: Path,
     out_dir = Path(out_dir)
     target = out_dir / "model"
     target.mkdir(parents=True, exist_ok=True)
+    w, n_written = model_gguf(hf_cfg, tensors, quant)
+    w.write(target / "weights.gguf")
+
+    for f in ("tokenizer.json", "tokenizer_config.json"):
+        if (tokenizer_dir / f).exists():
+            shutil.copy(tokenizer_dir / f, target / f)
+
+    (out_dir / "workspace.json").write_text(json.dumps({
+        "model_main": "model", "model_draft": "",
+        "hparams_config": "hparams.json"}))
+    (out_dir / "hparams.json").write_text(json.dumps({
+        "batch_size": 128, "max_slots": 4,
+        "sampler": {"temperature": 0.8, "top_k": 40, "top_p": 0.95}}))
+    print(f"wrote {n_written} tensors -> {target / 'weights.gguf'}")
+    return out_dir
+
+
+def model_gguf(hf_cfg: dict, tensors, quant: str = "q4_k"
+               ) -> tuple[GGUFWriter, int]:
+    """The weights.gguf of a parsed config.json and an iterable of (HF
+    name, array), in memory: (the writer, the tensors written)."""
     fmt = QUANTS[quant]
 
     arch_list = hf_cfg.get("architectures", ["LlamaForCausalLM"])
@@ -247,20 +270,7 @@ def write_model(hf_cfg: dict, tensors, tokenizer_dir: Path,
     if tied:
         pass  # loader falls back to token_embd for lm_head
     assert not exp_buf, f"incomplete expert groups: {list(exp_buf)}"
-    w.write(target / "weights.gguf")
-
-    for f in ("tokenizer.json", "tokenizer_config.json"):
-        if (tokenizer_dir / f).exists():
-            shutil.copy(tokenizer_dir / f, target / f)
-
-    (out_dir / "workspace.json").write_text(json.dumps({
-        "model_main": "model", "model_draft": "",
-        "hparams_config": "hparams.json"}))
-    (out_dir / "hparams.json").write_text(json.dumps({
-        "batch_size": 128, "max_slots": 4,
-        "sampler": {"temperature": 0.8, "top_k": 40, "top_p": 0.95}}))
-    print(f"wrote {n_written} tensors -> {target / 'weights.gguf'}")
-    return out_dir
+    return w, n_written
 
 
 def convert_eagle(model_dir: str | Path, out_dir: str | Path,
@@ -339,21 +349,20 @@ def convert_eagle(model_dir: str | Path, out_dir: str | Path,
     return out_dir
 
 
-def convert_internvl(model_dir: str | Path, out_dir: str | Path,
-                     quant: str = "q4_k") -> Path:
-    """InternVL VLM checkpoint -> workspace with BOTH weight files:
-    text weights quantized into weights.gguf (llama.cpp naming) and the
-    vision tower + projector into vision.gguf (HF tensor names, F32,
-    plus vlm.* metadata) — the reference ships its VLM as NPU context
-    binaries; here the whole VLM lives in the GGUF workspace and loads
-    via models/internvl.py:internvl_from_workspace."""
+_TEXT_PREFIXES = ("model.language_model.", "language_model.",
+                  "lm_head.weight")
+
+
+def read_internvl(model_dir: str | Path, text: bool = True
+                  ) -> tuple[dict, dict, dict, dict]:
+    """An InternVL checkpoint dir's parts: (the text model's flat
+    config.json, its tensors by HF llama/qwen2 name (none unless text),
+    the vision tower's and projector's tensors by HF name, the vlm.*
+    metadata). Every tensor f32."""
     model_dir = Path(model_dir)
-    out_dir = Path(out_dir)
     hf_cfg = json.loads((model_dir / "config.json").read_text())
     tc = hf_cfg["text_config"]
     vc = hf_cfg["vision_config"]
-
-    # --- text model: a flat llama/qwen2 config + its tensors ----------
     flat = dict(tc)
     flat["architectures"] = tc.get("architectures", ["Qwen2ForCausalLM"
                                    if "qwen2" in str(tc.get("model_type", ""))
@@ -363,7 +372,8 @@ def convert_internvl(model_dir: str | Path, out_dir: str | Path,
     # two checkpoint layouts exist: "model.language_model.X" /
     # "model.vision_tower.X" (state_dict) and
     # "language_model.model.X" / "vision_tower.X" (save_pretrained)
-    for name, arr in _iter_hf_tensors(model_dir):
+    keep = None if text else (lambda n: not n.startswith(_TEXT_PREFIXES))
+    for name, arr in _iter_hf_tensors(model_dir, keep):
         if name.startswith("model.language_model."):
             tsd["model." + name[len("model.language_model."):]] = \
                 np.asarray(arr, np.float32)
@@ -378,6 +388,30 @@ def convert_internvl(model_dir: str | Path, out_dir: str | Path,
         elif name.startswith(("vision_tower.",
                               "multi_modal_projector.")):
             vsd["model." + name] = np.asarray(arr, np.float32)
+    md = {"vlm.block_count": int(vc["num_hidden_layers"]),
+          "vlm.attention.head_count": int(vc["num_attention_heads"])}
+    patch = vc["patch_size"]
+    md["vlm.patch_size"] = int(patch[0] if isinstance(patch, list) else patch)
+    img = vc["image_size"]
+    md["vlm.image_size"] = int(img[0] if isinstance(img, list) else img)
+    md["vlm.layer_norm_epsilon"] = float(vc.get("layer_norm_eps", 1e-6))
+    md["vlm.downsample_ratio"] = float(hf_cfg.get("downsample_ratio", 0.5))
+    md["vlm.image_token_id"] = int(hf_cfg["image_token_id"])
+    md["vlm.image_seq_length"] = int(hf_cfg["image_seq_length"])
+    return flat, tsd, vsd, md
+
+
+def convert_internvl(model_dir: str | Path, out_dir: str | Path,
+                     quant: str = "q4_k") -> Path:
+    """InternVL VLM checkpoint -> workspace with BOTH weight files:
+    text weights quantized into weights.gguf (llama.cpp naming) and the
+    vision tower + projector into vision.gguf (HF tensor names, F32,
+    plus vlm.* metadata) — the reference ships its VLM as NPU context
+    binaries; here the whole VLM lives in the GGUF workspace and loads
+    via models/internvl.py:internvl_from_workspace."""
+    model_dir = Path(model_dir)
+    out_dir = Path(out_dir)
+    flat, tsd, vsd, vlm_md = read_internvl(model_dir)
     # the text tensors in the order the JAX tool reads them back from
     # the f32 safetensors file it writes them to: by name
     write_model(flat, sorted(tsd.items()), model_dir, out_dir, quant)
@@ -387,16 +421,7 @@ def convert_internvl(model_dir: str | Path, out_dir: str | Path,
     w = GGUFWriter()
     md = w.metadata
     md["general.architecture"] = "internvl-vision"
-    md["vlm.block_count"] = int(vc["num_hidden_layers"])
-    md["vlm.attention.head_count"] = int(vc["num_attention_heads"])
-    patch = vc["patch_size"]
-    md["vlm.patch_size"] = int(patch[0] if isinstance(patch, list) else patch)
-    img = vc["image_size"]
-    md["vlm.image_size"] = int(img[0] if isinstance(img, list) else img)
-    md["vlm.layer_norm_epsilon"] = float(vc.get("layer_norm_eps", 1e-6))
-    md["vlm.downsample_ratio"] = float(hf_cfg.get("downsample_ratio", 0.5))
-    md["vlm.image_token_id"] = int(hf_cfg["image_token_id"])
-    md["vlm.image_seq_length"] = int(hf_cfg["image_seq_length"])
+    md.update(vlm_md)
     for name, arr in vsd.items():
         w.add_float_tensor(name, np.asarray(arr, np.float32))
     w.write(target / "vision.gguf")

@@ -44,13 +44,16 @@ def read_header(path: str | Path) -> tuple[dict, int]:
     return header, 8 + n
 
 
-def load_file(path: str | Path) -> dict[str, np.ndarray]:
+def load_file(path: str | Path, keep=None) -> dict[str, np.ndarray]:
+    """The file's tensors by name (keep: read only the names it takes)."""
     header, start = read_header(path)
     out = {}
     with open(path, "rb") as f, mmap.mmap(f.fileno(), 0,
                                           access=mmap.ACCESS_READ) as mm:
         for name, info in sorted(header.items(),
                                  key=lambda kv: kv[1]["data_offsets"][0]):
+            if keep is not None and not keep(name):
+                continue
             dtype, shape = info["dtype"], tuple(info["shape"])
             begin, end = info["data_offsets"]
             raw = mm[start + begin:start + end]

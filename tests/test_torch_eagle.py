@@ -42,14 +42,14 @@ from powerserve_tpu_torch.engine.generator import InferenceEngine
 from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
 from powerserve_tpu_torch.models.loader import load_eagle_gguf, load_gguf_model
-from powerserve_tpu_torch.ops.qmatmul import QLinear
 from powerserve_tpu_torch.sampling.sampler import sample_dist_batched
 from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
 from powerserve_tpu_torch.speculative.eagle import (EagleChainEngine,
-                                                    EagleHead, eagle_forward,
+                                                    eagle_forward,
                                                     eagle_spec_scan,
-                                                    eagle_tree_spec_scan)
+                                                    eagle_tree_spec_scan,
+                                                    replica_head)
 from powerserve_tpu_torch.speculative.engine import SpecStats
 from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
                                                   make_synthetic_gguf)
@@ -120,13 +120,7 @@ def _replica(model) -> tuple:
     embedding alone, and the head's layer, norm and lm_head are the
     target's."""
     target = self_draft_model(model, 1)
-    dim = target.llm.dim
-    fc = np.concatenate([np.eye(dim, dtype=np.float32),
-                         np.zeros((dim, dim), np.float32)])  # [2 dim, dim]
-    head = EagleHead(target.llm, QLinear.from_float(
-        fc, GGMLType.Q8_0, device="cpu"), None, [target.layers[0]],
-        target.embed, target.lm_head, target.out_norm, input_norm=True)
-    return target, head
+    return target, replica_head(target)
 
 
 # -- KV and forward -----------------------------------------------------------

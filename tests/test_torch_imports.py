@@ -180,6 +180,11 @@ def test_entry_points_default_to_cuda(tmp_path):
         LocalServer(ws)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         server.main(["-d", str(ws), "--port", "0"])
+    from powerserve_tpu_torch.models import internvl
+
+    for load in (internvl.internvl_from_hf_dir, internvl.load_internvl):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            load(tmp_path)
     # asked for explicitly, the CPU works
     assert run.main(["-d", str(ws), "-n", "2", "--temperature", "0",
                      "--device", "cpu", "--no-progress"]) == 0

@@ -11,7 +11,11 @@ does not use (core/image.py decodes PNG and resizes by itself):
 - find_best_tile_grid and expand_image_tokens equal;
 - embed_multimodal and prefill_multimodal on a workspace both packages
   load (make_vlm_workspace: the tiny text model, the tiny tower), and
-  VLMEngine's and `run --image`'s greedy tokens against JAX's VLMEngine.
+  VLMEngine's and `run --image`'s greedy tokens against JAX's VLMEngine;
+- an HF InternVL checkpoint dir loaded as it is (internvl_from_hf_dir:
+  tests/hf_internvl.py writes one with transformers) against JAX's
+  internvl_from_hf on the same transformers model, and `run --image` on
+  it with a JPEG.
 
 The language model's logits follow tests/test_torch_model.py's bar:
 within 1.5% (JAX's interpret-mode kernels) or 3% (its XLA route) of the
@@ -42,6 +46,7 @@ from powerserve_tpu_torch.engine.vlm import VLMEngine
 from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.models import internvl as ivl
 from powerserve_tpu_torch.tools.synthetic import make_vlm_workspace
+from hf_internvl import make_hf_internvl
 from torch_threads import one_torch_thread  # noqa: F401
 
 Image = pytest.importorskip("PIL.Image")
@@ -130,24 +135,32 @@ def test_bands_and_blocks_bit_equal_to_pillow(monkeypatch, band_bytes):
 
 
 def test_other_formats_are_refused_by_name():
+    """What stays refused names FORMATS: WebP, a CMYK JPEG, an
+    arithmetic-coded JPEG (its SOF marker), a 2-bit gray PNG. JPEG and
+    interlaced PNGs decode (tests/test_torch_jpeg.py)."""
+    webp = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(webp, format="WEBP")
+    with pytest.raises(ValueError, match="WebP.*the port takes PNG"):
+        decode_image(webp.getvalue())
+    cmyk = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).convert("CMYK").save(
+        cmyk, format="JPEG")
+    with pytest.raises(ValueError, match="CMYK.*the port takes PNG"):
+        decode_image(cmyk.getvalue())
+    plain = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(plain, format="JPEG")
+    arith = plain.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)
+    with pytest.raises(ValueError, match="arithmetic-coded JPEG"):
+        decode_image(arith)
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, format="JPEG")
-    with pytest.raises(ValueError, match="JPEG.*PNG only"):
-        decode_image(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
-        buf, format="PNG", interlace=1)
-    # Pillow writes no interlaced PNGs: set the IHDR flag by hand
+    Image.fromarray(np.zeros((8, 8), np.uint8)).save(buf, format="PNG")
+    # an 8-bit gray PNG's IHDR made 2-bit by hand
     data = bytearray(buf.getvalue())
-    data[28] = 1
+    data[24] = 2
     data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
-    with pytest.raises(ValueError, match="interlaced PNG.*PNG only"):
+    with pytest.raises(ValueError, match="2-bit gray PNG.*the port takes"):
         decode_image(bytes(data))
-    buf = io.BytesIO()
-    Image.fromarray(np.zeros((8, 8), np.uint16)).save(buf, "PNG")
-    with pytest.raises(ValueError, match="16-bit gray PNG.*PNG only"):
-        decode_image(buf.getvalue())
-    with pytest.raises(ValueError, match="not a PNG file"):
+    with pytest.raises(ValueError, match="not a PNG or JPEG file"):
         decode_image(b"hello")
     with pytest.raises(ValueError, match="image array of shape"):
         ivl.preprocess_image(np.zeros((0, 5, 3), np.uint8))
@@ -303,5 +316,93 @@ def test_run_image_cli_matches_the_engine(models, tmp_path, capsys):
     assert capsys.readouterr().out.startswith("hello")
     bad = tmp_path / "x.jpg"
     bad.write_bytes(b"\xff\xd8\xff\xe0" + b"\0" * 16)
-    with pytest.raises(ValueError, match="JPEG"):
+    with pytest.raises(ValueError, match="corrupt JPEG"):
         run.run_prompt(run.parse_args(argv[:-2] + ["--image", str(bad)]))
+
+
+# -- an HF InternVL checkpoint dir, as it is -----------------------------------
+
+@pytest.fixture(scope="module")
+def hf(tmp_path_factory):
+    """(HF dir, JAX's internvl_from_hf of its transformers model, the
+    port's internvl_from_hf_dir of the dir)."""
+    d = tmp_path_factory.mktemp("hf_internvl")
+    model = make_hf_internvl(d)
+    return d, jivl.internvl_from_hf(model), ivl.internvl_from_hf_dir(
+        d, device="cpu")
+
+
+def test_hf_dir_matches_jax_internvl_from_hf(hf):
+    """Q8_0 text weights and f32 tower from the safetensors, without
+    transformers: logits within the XLA route's bar, greedy tokens equal
+    up to a near-tie."""
+    _, jm, m = hf
+    assert (m.image_token_id, m.tokens_per_tile, m.image_size) == (
+        jm.image_token_id, jm.tokens_per_tile, jm.image_size)
+    assert m.cfg.arch == jm.cfg.arch == "qwen2"
+    llm = m.cfg.llm
+    assert llm.vocab_size == 320 and m.llm.layers[0].bqkv is not None
+    # the engine's own prompt and tiles: JAX compiles its prefill once
+    images = _images()[:1]
+    px = np.concatenate([jivl.preprocess_image(i, tile=56, max_num=2)
+                         for i in images])
+    ids = jm.expand_image_tokens([1, 5, IMG_ID, 9], px.shape[0])
+    jkv = JKVCache.create(llm.n_layers, 1, 64, llm.n_kv_heads,
+                          llm.head_size)
+    want, _ = jm.prefill_multimodal(jkv, np.asarray(ids, np.int32), px,
+                                    backend="xla")
+    kv = KVCache.create(llm.n_layers, 1, 64, llm.n_kv_heads, llm.head_size,
+                        device="cpu")
+    got = m.prefill_multimodal(kv, ids, px)
+    assert _rel(got.numpy(), want) < LOGIT_REL["xla"]
+    jeng = JVLMEngine(jm, JHyperParams(max_seq_len=64), backend="xla")
+    want = list(jeng.generate([1, 5, IMG_ID, 9], images, 5, max_tiles=2))
+    eng = VLMEngine(m, HyperParams(max_seq_len=64), device="cpu")
+    got = list(eng.generate([1, 5, IMG_ID, 9], images, 5, max_tiles=2))
+    _near_tie_equal(got, want, jm, ids, px)
+    jax.clear_caches()
+
+
+def test_run_image_on_an_hf_dir_with_a_jpeg(hf, tmp_path, capsys):
+    d, _, m = hf
+    img = _images()[0]
+    path = tmp_path / "a.jpg"
+    Image.fromarray(img).save(path, "JPEG", quality=85, progressive=True)
+    pixels = _pil_rgb(path.read_bytes())
+    res = run.run_prompt(run.parse_args([
+        "-d", str(d), "-p", "the quick", "-n", "5", "--device", "cpu",
+        "--no-progress", "--image", str(path)]))
+    eng = VLMEngine(m, HyperParams(max_seq_len=256), device="cpu")
+    assert res.ids == list(eng.generate(res.prompt_ids, [pixels], 5))
+    assert len(res.ids) == 5
+    capsys.readouterr()
+
+
+def test_local_server_on_an_hf_dir_answers_the_engines_tokens(hf):
+    """LocalServer (ServerContext._get) takes the HF dir as it is: a chat
+    with a JPEG data URI answers VLMEngine's greedy tokens."""
+    import base64
+
+    from powerserve_tpu_torch.serving.local import LocalServer
+
+    d, _, m = hf
+    img = _images()[1]
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=90)
+    url = "data:image/jpeg;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+    with LocalServer(d.parent, d.name, HyperParams(max_slots=1, batch_size=8,
+                                                   max_seq_len=128),
+                     device="cpu") as srv:
+        reply = srv.chat([{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": url}},
+            {"type": "text", "text": "the quick fox"}]}], max_tokens=4,
+            temperature=0.0)
+        mctx = srv.ctx.get(d.name)
+        assert mctx.vlm is not None
+        tok = mctx.tokenizer
+    eng = VLMEngine(m, HyperParams(max_seq_len=128), device="cpu")
+    ids = tok.tokenize(tok.apply_chat_template(
+        [{"role": "user", "content": "the quick fox"}]))
+    want = list(eng.generate(ids, [_pil_rgb(buf.getvalue())], 4))
+    assert reply == tok.to_string(want)

@@ -43,7 +43,8 @@ from powerserve_tpu_torch.parallel.distributed import free_port
 from powerserve_tpu_torch.parallel.tp import start_rank_group
 from powerserve_tpu_torch.serving.server import ServerContext, make_server
 from powerserve_tpu_torch.serving.server import main as serve_main
-from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
+from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
+                                                  make_synthetic_gguf)
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,7 +58,8 @@ PROMPTS = [[3, 5, 7, 9, 11], [101, 7, 42], list(range(20, 45)),
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    """A model root: "model" (tiny-k Q4_K) and "draft" (another seed)."""
+    """A model root: "model" (tiny-k Q4_K), "draft" (another seed) and
+    "eagle" (a random EAGLE head at tiny-k's widths)."""
     r = tmp_path_factory.mktemp("tpserve")
     make_synthetic_gguf(r, "tiny-k", GGMLType.Q4_K, seed=0, seq_len=SEQ)
     # prefill chunks of 8 (the twins' prefill attention is slow at 128)
@@ -66,6 +68,7 @@ def root(tmp_path_factory):
     w = make_synthetic_gguf(tmp_path_factory.mktemp("draft"), "tiny-k",
                             GGMLType.Q4_K, seed=7, seq_len=SEQ)
     (w / "model").rename(r / "draft")
+    make_eagle_gguf(r / "eagle", "tiny-k", seed=9)
     return r
 
 
@@ -248,9 +251,10 @@ def test_refusals_over_ranks(ranks, single):
 
     group, models = ranks
     sched = BatchScheduler(models[(2, 1)], single[0], _hp(), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # input rows take (tests/test_torch_tp_vlm.py), at the prompt's shape
+    with pytest.raises(ValueError, match="Request.embeds of shape"):
         sched.submit(Request(prompt_ids=[1, 2],
-                             embeds=torch.zeros(2, single[0].llm.dim)))
+                             embeds=torch.zeros(3, single[0].llm.dim)))
     with pytest.raises(ValueError, match="same ranks"):
         BatchScheduler(models[(2, 1)], single[0], _hp(), "cpu",
                        draft=single[1])
@@ -348,11 +352,11 @@ def single_server(root):
 
 
 @pytest.mark.parametrize("flags,hp,names", [
-    (("--tp", "2"), {}, ("model", "model+self:1")),
+    (("--tp", "2"), {}, ("model", "model+self:1", "model+eagle")),
     (("--tp", "2", "--dp", "2", "--paged-pages", "16", "--page-size", "8",
       "--spec-tree", "2,1"), dict(paged_pages=16, page_size=8,
                                   spec_tree="2,1"),
-     ("model", "model+self:1")),
+     ("model", "model+self:1", "model+eagle")),
 ], ids=["tp2_dense_chain", "tp2_dp2_paged_tree"])
 def test_serve_tp_bodies_equal_the_single_rank_servers(root, single_server,
                                                        flags, hp, names):

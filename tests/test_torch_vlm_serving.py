@@ -11,8 +11,9 @@ hold the JAX package's.
   alone what it answers batched with text requests, and what VLMEngine
   generates (near-tie rule: the engine prefills the whole prompt in one
   forward, the scheduler in chunks and the last token by a decode step);
-  its images are encoded on the scheduler thread; JPEG, a URL that is
-  not data:, a trailing image token and an HF checkpoint dir get a 400;
+  its images are encoded on the scheduler thread; a corrupt JPEG, WebP,
+  a URL that is not data:, a trailing image token and an InternVL
+  config.json without its weights get a 400;
   "model+self:1" answers as "model"; an EAGLE head on the VLM gets a
   400. A malformed PNG, one of more pixels than MAX_PIXELS and image
   data that inflates past its IHDR get a 400 and the next image a 200;
@@ -294,11 +295,16 @@ def test_chat_with_an_image_alone_batched_and_on_the_scheduler_thread(
 
 def test_refusals(served, root):
     port = served["port"]
-    # a JPEG's first bytes (SOI, APP0): the decoder reads the magic only
+    # a JPEG's first bytes (SOI, APP0) and no more: a corrupt stream
     jpeg = "data:image/jpeg;base64," + base64.b64encode(
         b"\xff\xd8\xff\xe0" + bytes(16)).decode()
     status, raw = _chat(port, "describe", jpeg)
-    assert status == 400 and b"JPEG" in raw and b"PNG only" in raw
+    assert status == 400 and b"corrupt JPEG" in raw
+    # WebP stays refused, naming what is taken
+    webp = "data:image/webp;base64," + base64.b64encode(
+        b"RIFF\x24\x00\x00\x00WEBPVP8 " + bytes(24)).decode()
+    status, raw = _chat(port, "describe", webp)
+    assert status == 400 and b"WebP" in raw and b"the port takes PNG" in raw
     status, raw = _chat(port, "describe", "http://example.invalid/cat.png")
     assert status == 400 and b"only data: image URIs" in raw
     status, raw = _chat(port, "describe <IMG_CONTEXT>", _png_uri())
@@ -309,14 +315,14 @@ def test_refusals(served, root):
     status, raw = _chat(port, "describe", _png_uri(),
                         model="model+wide/model")
     assert status == 400 and b"draft dim 128 != target dim 64" in raw
-    # an HF checkpoint dir: the port reads GGUF workspaces only
+    # an InternVL config.json without its checkpoint (HF dirs load as
+    # they are: tests/test_torch_internvl.py)
     hf = root / "hf"
     hf.mkdir(exist_ok=True)
     (hf / "config.json").write_text(json.dumps(
         {"architectures": ["InternVLForConditionalGeneration"]}))
     status, raw = _chat(port, "describe", _png_uri(), model="hf")
-    assert status == 400 and b"HF InternVL checkpoint" in raw
-    assert b"convert_internvl" in raw
+    assert status == 400 and b"not a loadable InternVL dir" in raw
 
 
 def test_self_draft_name_answers_as_the_plain_model(served):
