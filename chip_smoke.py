@@ -47,7 +47,13 @@ Phases, each printing one JSON line:
              through the tree mode, dense and paged; last, the shapes
              perplexity adds: the Q4_K lm_head 4096 -> 128256 as the
              prefill GEMM at M = 32 and 490, and flash-prefill at S = 1,
-             Tq = 32 from start 448 over a 490-position cache
+             Tq = 32 from start 448 over a 490-position cache; last, the
+             sampler's draws (csrc/sample.cu) against their twin, 16
+             calls a case: the categorical draw at [8, 128256] and [8,
+             152064] (tokens equal but within CDF_SLACK of a boundary,
+             at most 1% of the rows; torch.multinomial's time beside
+             it), a chain's uniforms [8, 4] and a WOR level's Gumbel
+             noise [16, 128256], bit for bit
   cli        the `run` entry (greedy, -n 16) on synthetic tiny Q8_0,
              tiny-k Q4_K and tiny-moe Q8_0 workspaces, on cuda and on the
              cpu plain path (tiny and tiny-k also with
@@ -119,7 +125,16 @@ Phases, each printing one JSON line:
              and memory. The decode ticks replay their step graphs; the
              same traffic again with every step eager (the twin), each
              request's tokens the replayed run's (near-tie rule), and
-             its tok/s and TTFT
+             its tok/s and TTFT; the pool's paged_slow_ticks
+  sampled_serve  serve_full_width's traffic on one server: greedy, then
+             at temperature 0.8 with seeds 0..7 twice (the same replies),
+             request 3 alone (its reply beside the seven others'), then
+             "model+self:4" at 0.8; every step of a sampled tick a
+             graph call, all but each graph's first a replay, and the
+             sample kernel launched; tok/s, TTFT, paged_slow_ticks and
+             the tick split of each run (CUDA events around every graph
+             call of the scheduler's ticks: each tick's replay ms, the
+             card's wait between one tick's replays and the next's)
   session_full_width  an HTTP session on llama-8b behind the server: 8
              slots, max_seq 2048, a paged pool of 256 pages of 64; a
              1,536-token preamble pinned as a session, then 8 concurrent
@@ -136,8 +151,9 @@ Phases, each printing one JSON line:
              "model+self:4" (its draft prefix pinned too), every reply
              the plain name's
   evict      ServerContext(max_models=2) over three model dirs at
-             llama-1b's widths (2 layers, Q8_0, one GGUF written and
-             linked into each): a, b, c, a served in turn, one request
+             llama-1b's widths (2 layers, a 32,000-token vocabulary,
+             Q8_0, one GGUF written and linked into each): a, b, c, a
+             served in turn, one request
              each; every eviction must give back what its context took
              (weights, pool, buffers, snapshots) within 5% of the
              allocated bytes and leave no segment of its graphs' pool;
@@ -264,12 +280,14 @@ Phases, each printing one JSON line:
   weight_format  (after cli) `run --weight-format w8` on tiny-k Q4_K on
              cuda and on the cpu: tokens agree (near-tie rule), the W8
              kernel launched, the fused head and the GGUF qmatmul not
-  trace      (after full_width) llama-8b generate untraced and under
+  trace      (after full_width) first the paged plain tick's
+             device-to-host copies under torch.profiler (8 slots, pages
+             of 64; the process's first profiler session), which must be
+             1; then llama-8b generate untraced and under
              core/trace.py's Trace: the same tokens, one prefill span a
              chunk and one decode_step span a block, the port's kernels
              among the trace's kernel events, decode tok/s traced and
-             not; then the paged plain tick's device-to-host copies under
-             torch.profiler (8 slots, pages of 64), which must be 1
+             not
   w8_moe_full_width  (after serve_moe_full_width) mixtral-lite in W8:
              the grouped mode of csrc/qmatmul_w8.cu on layer 0's slabs
              at the gate and down shapes of a 512-token prefill (block_m
@@ -316,7 +334,8 @@ grouped qmatmul, the W8 generate for the W8 qmatmul, spec_full_width for
 the fused-linear modes and the state mode, tree_full_width's device tree
 for the tree mode, tree_serve_full_width for the paged tree mode and
 eagle_full_width's chain for concat2, w8_moe_full_width's steady
-generate for the grouped W8 mode), the card's
+generate for the grouped W8 mode, sampled_serve's first sampled run for
+the sample kernel), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -328,6 +347,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --ticks
        python3 chip_smoke.py --tools
        python3 chip_smoke.py --compose
+       python3 chip_smoke.py --sampled
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build, the two VLM phases and vlm_hf_dir; the
@@ -337,7 +357,9 @@ vlm_hf_dir; the fourth the
 build and the three tensor-parallel phases; the fifth the build and the
 paged plain tick's device-to-host copies on llama-8b (the scheduler's
 public surface only, so a copy of this script counts a parent tree's);
-the sixth the build and the two tools phases.
+the sixth the build and the two tools phases; the eighth the build,
+llama-8b's parameters and sampled_serve (copied into an older tree, it
+measures that tree's serving with the checks of in-graph draws off).
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -1122,6 +1144,10 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     del head
     fp_rows.append(prefill_row("perplexity chunk", 1, 32, [448], [448],
                                T=490))
+    # -- last, with a seed of their own: the sampler's draws
+    #    (csrc/sample.cu; absent from trees before it)
+    g.manual_seed(6)
+    sample_rows = sample_kernel_rows(dev, g, timer)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "flush": "read" if read_flush else "write",
           "empty_launch_ms": empty_ms, "qmatmul": qmm_rows,
@@ -1130,7 +1156,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
           "qmatmul_w8": w8_rows, "fused_linear": fl_rows,
           "flash_decode_paged_state": state_row,
-          "flash_decode_tree": tree_rows})
+          "flash_decode_tree": tree_rows, "sample": sample_rows})
 
     def entry(name, route_src, replaces, row):
         return dict(name=name, route="cuda", source=route_src,
@@ -1180,7 +1206,103 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         entry("flash_decode_paged_tree",
               "powerserve_tpu_torch/csrc/flash_decode.cu",
               "powerserve_tpu/ops/flash_decode.py:183", tree_rows[2]),
-    ] if tree_rows else [])
+    ] if tree_rows else []) + ([
+        # no TPU kernel: JAX draws with jax.random.categorical under jit
+        {**entry("sample", "powerserve_tpu_torch/csrc/sample.cu",
+                 "powerserve_tpu/sampling/sampler.py:243", sample_rows[0]),
+         "library_ms": sample_rows[0]["library_ms"]},
+    ] if sample_rows else [])
+
+
+# the inverse CDF's slack: the kernel's block scan and torch.cumsum add
+# the f32 values in other orders, so a categorical draw may differ from
+# the twin's only where u * total lies this close to a CDF boundary (the
+# f64 CDF at the smaller token)
+CDF_SLACK = 1e-3
+
+
+def sample_kernel_rows(dev: torch.device, g, timer) -> list[dict]:
+    """csrc/sample.cu against its twin on the card, 16 calls a case (the
+    counters moving on): the categorical draw at [8, V] for llama-8b's
+    and qwen2.5's vocabularies (softmax rows at temperature 1 and 0.3,
+    top-40 and top-p masked, one-hot, unnormalized), where a token may
+    differ only within CDF_SLACK of a CDF boundary and in at most 1% of
+    the rows; a chain's acceptance uniforms [8, 4] and a WOR tree
+    level's Gumbel noise [16, 128256], bit-equal. Each with its time,
+    its twin's, its bound (the distribution read once, the output
+    written once, at 3.35 TB/s) and, for the categorical draw,
+    torch.multinomial's on the same rows (information). Empty in a tree
+    without the kernel."""
+    try:
+        from powerserve_tpu_torch.ops import sample as sm
+    except ImportError:
+        return []
+    rows = []
+    for V in (128256, 152064):
+        R = 8
+        logits = torch.randn(R, V, generator=g, device=dev) * 3
+        dist = torch.softmax(logits, dim=-1)
+        dist[1] = torch.softmax(logits[1] / 0.3, dim=-1)
+        kth = dist[2].topk(40).values[-1]
+        dist[2] = torch.where(dist[2] >= kth, dist[2], 0.0)
+        srt = dist[3].sort(descending=True)
+        keep = (srt.values.cumsum(0) - srt.values) < 0.9
+        dist[3] = torch.zeros_like(dist[3]).scatter(
+            0, srt.indices, torch.where(keep, srt.values, 0.0))
+        dist[4] = 0.0
+        dist[4, V - 7] = 1.0
+        dist[5] *= 3.5
+        seed = torch.tensor([3, -1, 2 ** 40, 7, 11, 13, 17, 19], device=dev)
+        counter = torch.arange(R, device=dev) * 5
+        c1, c2 = counter.clone(), counter.clone()
+        differ, err = 0, 0.0
+        for _ in range(16):
+            c0 = c1.clone()
+            got = sm.sample_categorical(dist, seed, c1)
+            want = sm.categorical_reference(dist, seed, c2)
+            if not (dist.gather(1, got[:, None]) > 0).all():
+                raise AssertionError("sample: a token without mass")
+            u = sm.unit_floats(sm.draw_words(seed, c0,
+                                             torch.zeros_like(c0))[:, 0])
+            cdf = dist.double().cumsum(dim=-1)
+            for r in torch.nonzero(got != want)[:, 0].tolist():
+                lo = min(int(got[r]), int(want[r]))
+                gap = abs(float(cdf[r, lo]) - float(u[r]) * float(cdf[r, -1]))
+                if gap >= CDF_SLACK:
+                    raise AssertionError(f"sample: row {r} draws {got[r]} "
+                                         f"vs the twin's {want[r]}, "
+                                         f"{gap} from the boundary")
+                differ += 1
+                err = max(err, gap)
+        if not torch.equal(c1, c2) or differ > 0.01 * 16 * R:
+            raise AssertionError(f"sample: {differ} rows differ, counters "
+                                 f"{c1.tolist()} vs {c2.tolist()}")
+        b, by = bound_ms(nbytes(dist) + R * 8 + 3 * nbytes(seed), 0.0)
+        rows.append(dict(
+            mode="categorical", R=R, V=V, max_abs_err=err,
+            rows_differing=differ, of_rows=16 * R,
+            ms=timer(lambda: sm.sample_categorical(dist, seed, c1)),
+            plain_ms=timer(lambda: sm.categorical_reference(dist, seed, c2)),
+            library_ms=timer(lambda: torch.multinomial(dist, 1)),
+            bound_ms=b, bound_by=by))
+    for mode, R, n in (("uniform", 8, 4), ("gumbel", 16, 128256)):
+        fn = sm.sample_uniform if mode == "uniform" else sm.sample_gumbel
+        ref = sm.uniform_reference if mode == "uniform" else \
+            sm.gumbel_reference
+        seed = torch.arange(R // 2, device=dev) * 97 + 1
+        counter = torch.zeros(R // 2, dtype=torch.int64, device=dev)
+        c1, c2 = counter.clone(), counter.clone()
+        for _ in range(16):
+            a, b_ = fn(seed, c1, R, n), ref(seed, c2, R, n)
+            if not torch.equal(a, b_) or not torch.equal(c1, c2):
+                raise AssertionError(f"sample ({mode}): not the twin's "
+                                     f"bits")
+        b, by = bound_ms(R * n * 4 + 3 * nbytes(seed), 0.0)
+        rows.append(dict(mode=mode, R=R, V=n, max_abs_err=0.0,
+                         ms=timer(lambda: fn(seed, c1, R, n)),
+                         plain_ms=timer(lambda: ref(seed, c2, R, n)),
+                         library_ms=None, bound_ms=b, bound_by=by))
+    return rows
 
 
 def first_divergence(a: list[int], b: list[int]) -> int:
@@ -1391,15 +1513,16 @@ def eager_steps():
 
 def graph_stats(*owners) -> dict:
     """The step graphs the owners (StepGraphs) captured, the seconds
-    their captures took, and the bytes their memory pools hold on the
-    card."""
+    their captures took, the bytes their memory pools hold on the card,
+    and the replays they ran (a tree before replays were counted: 0)."""
     from powerserve_tpu_torch.engine.graphs import pool_bytes
 
     captured = [g for o in owners for g in o.graphs.values()
                 if g.graph is not None]
     return {"graphs": len(captured),
             "capture_s": sum(g.capture_s for g in captured),
-            "pool_mb": sum(pool_bytes(o) for o in owners) / 1e6}
+            "pool_mb": sum(pool_bytes(o) for o in owners) / 1e6,
+            "replays": sum(getattr(g, "replays", 0) for g in captured)}
 
 
 def same_cache_bits(label: str, a, b) -> None:
@@ -2483,6 +2606,7 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
            "latency_p50_s": metrics["request_latency_seconds_p50"],
            "pages_used_peak": run["peak_used"],
            "preemptions": metrics["paged_preemptions_total"],
+           "paged_slow_ticks": metrics.get("paged_slow_ticks"),
            "vs_generate_near_ties": [g for g in gaps if g is not None],
            "model": model_name, **spec, "graphs": run["graphs"],
            "launches": run["launches"], "peak_mem_gb": run["peak_gb"],
@@ -2502,6 +2626,220 @@ def phase_serve_full_width(dev: torch.device, cfg, model, phase: str,
         "latency_p50_s": tm["request_latency_seconds_p50"],
         "vs_replayed_near_ties": [g for g in twin_gaps if g is not None]}
     return out, run["launches"]
+
+
+class TickClock:
+    """While active: CUDA events around every step-graph call made inside
+    a decode tick of the scheduler `sched` (other schedulers' ticks are
+    left alone), and each tick's host wall time. summary()
+    splits the steady ticks (none right after a prefill tick) into the
+    card's replay time (a tick's first graph call to its last) and the
+    card's wait between one tick's last replay and the next tick's first
+    (the host time the replays did not hide). A tick without a graph
+    call (an eager spec tick of a tree before its sampled graphs) counts
+    only in its host time."""
+
+    def __init__(self, sched):
+        self.sched = sched
+
+    def __enter__(self):
+        from unittest import mock
+
+        from powerserve_tpu_torch.engine.graphs import StepGraph
+        from powerserve_tpu_torch.engine.scheduler import BatchScheduler
+
+        self.ticks: list[dict] = []
+        self.host: list[float] = []
+        self.busy = 0  # ticks entered with a decoding slot
+        self.cur = self.thread = None
+        self.after_prefill = False
+        call = StepGraph.__call__
+        tick = BatchScheduler._decode_tick
+        prefill = BatchScheduler._prefill_tick
+        clock = self
+
+        def timed_call(graph):
+            if clock.cur is None or clock.thread != threading.get_ident():
+                return call(graph)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = call(graph)
+            e1.record()
+            clock.cur["events"].append((e0, e1))
+            return out
+
+        def timed_tick(sched):
+            if sched is not clock.sched:
+                return tick(sched)
+            clock.thread = threading.get_ident()
+            clock.busy += any(s.req is not None and not s.prefilling
+                              for s in sched.slots)
+            clock.cur = dict(events=[], after_prefill=clock.after_prefill)
+            clock.after_prefill = False
+            t0 = time.perf_counter()
+            try:
+                return tick(sched)
+            finally:
+                clock.host.append(time.perf_counter() - t0)
+                if clock.cur["events"]:
+                    clock.ticks.append(clock.cur)
+                clock.cur = None
+
+        def timed_prefill(sched):
+            ran = prefill(sched)
+            if sched is clock.sched:
+                clock.after_prefill = clock.after_prefill or bool(ran)
+            return ran
+
+        self._patches = [mock.patch.object(StepGraph, "__call__", timed_call),
+                         mock.patch.object(BatchScheduler, "_decode_tick",
+                                           timed_tick),
+                         mock.patch.object(BatchScheduler, "_prefill_tick",
+                                           timed_prefill)]
+        for p_ in self._patches:
+            p_.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p_ in self._patches:
+            p_.stop()
+        # the patches' closures refer to this clock: drop them and the
+        # scheduler, or the cycle keeps its caches until a collection
+        self._patches = self.sched = None
+        return False
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        replay, gap = [], []
+        for a, b in zip(self.ticks, self.ticks[1:] + [None]):
+            replay.append(a["events"][0][0].elapsed_time(a["events"][-1][1]))
+            if b is not None and not b["after_prefill"]:
+                gap.append(a["events"][-1][1].elapsed_time(b["events"][0][0]))
+        steady = replay[:len(gap)]
+
+        def med(xs):
+            return statistics.median(xs) if xs else None
+
+        return {"ticks": len(self.host), "decoding_ticks": self.busy,
+                "graph_ticks": len(self.ticks),
+                "graph_calls": sum(len(t["events"]) for t in self.ticks),
+                "tick_host_ms_p50": med([h * 1e3 for h in self.host]),
+                "tick_replay_ms_p50": med(replay),
+                "tick_gap_ms_p50": med(gap), "steady_ticks": len(gap),
+                "card_wait_share": (sum(gap) / (sum(gap) + sum(steady))
+                                    if gap else None)}
+
+
+def phase_sampled_serve(dev: torch.device, cfg, model,
+                        check: bool = True) -> tuple[dict, dict]:
+    """serve_full_width's traffic (8 slots, 128 pages of 64, 8 requests
+    of 128-1024 prompt tokens and 64 new ones at once) on one server
+    without a prefix cache (every run prefills its prompts), in this
+    order: greedy on "model" twice (the first warms the server: its
+    graph's capture, the allocator); at temperature 0.8 with seeds 0..7
+    (the server's default temperature), twice; request 3 alone with its
+    seed; at 0.8 with the seeds on "model+self:4" (chain speculation, a
+    4-layer self-draft). Each run: generated tok/s, TTFT p50, the paged
+    pool's slow ticks and preemptions, and the plain or spec tick split
+    on the card (TickClock). check: the seeded replies reproduce (twice,
+    and alone), and every decode step of a sampled run went through a
+    graph (each step graph's first call eager, every other one a
+    replay); off where the script runs in an older tree, to measure it."""
+    import random
+
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.ops import cuda_lib
+    from powerserve_tpu_torch.serving.server import ServerContext
+
+    tok = synthetic_tokenizer(cfg.llm.vocab_size)
+    n_new, lengths = 64, [128, 256, 384, 512, 640, 768, 896, 1024]
+    rng = random.Random(0)
+    texts = ["".join(rng.choice("abcdefghijklmnopqrsuvwxyz")
+                     for _ in range(n - 4)) for n in lengths]
+    hp = HyperParams(max_slots=8, max_seq_len=2048, batch_size=128,
+                     paged_pages=128, page_size=64, prefix_cache=0)
+    out, launches = {"phase": "sampled_serve", "card": card_line()}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = ServerContext(tmp, "model", hp, dev)
+        ctx.register("model", model, cfg, tok)
+        server = serving(ctx)
+        port = server.server_address[1]
+        try:
+            for label, name, temp, which in (
+                    ("warm", "model", 0.0, range(8)),
+                    ("greedy", "model", 0.0, range(8)),
+                    ("sampled", "model", 0.8, range(8)),
+                    ("sampled_again", "model", 0.8, range(8)),
+                    ("sampled_alone", "model", 0.8, [3]),
+                    ("self4_sampled", "model+self:4", 0.8, range(8))):
+                sched = ctx.get(name).scheduler
+                sched._ttft.clear()
+                before = metrics_of(port)
+                g0 = graph_stats(sched.graphs)
+                calls = [lambda i=i: http_call(
+                    port, "POST", "/v1/completions", {
+                        "model": name, "prompt": texts[i],
+                        "max_tokens": n_new, "temperature": temp,
+                        "seed": i}) for i in which]
+                with ServeRecorder() as rec, TickClock(sched) as clock:
+                    cuda_lib.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    replies = concurrently(calls)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    counts = cuda_lib.launch_counts()
+                rec.check(label)
+                if any(st != 200 for st, _ in replies):
+                    raise AssertionError(f"{label}: {replies[0][1][:200]}")
+                tokens = rec.tokens()
+                m = metrics_of(port)
+                g1 = graph_stats(sched.graphs)
+                split = clock.summary()
+                run = {"wall_s": wall,
+                       "generated_tok_s": sum(map(len, tokens.values()))
+                       / wall,
+                       "ttft_p50_s": m["ttft_seconds_p50"],
+                       "paged_slow_ticks": m.get("paged_slow_ticks", 0)
+                       - before.get("paged_slow_ticks", 0),
+                       "preemptions": m["paged_preemptions_total"]
+                       - before["paged_preemptions_total"],
+                       "graph_replays": g1["replays"] - g0["replays"],
+                       "graphs": g1["graphs"], **split,
+                       "sample_launches": counts.get("sample", 0)}
+                if "spec_tokens_per_step" in m:
+                    run["spec_tokens_per_step"] = m["spec_tokens_per_step"]
+                out[label] = run
+                launches[label] = counts
+                out.setdefault("tokens", {})[label] = tokens
+                if check and temp > 0:
+                    # every decode step through a graph: each tick with a
+                    # decoding slot made one graph call a step, and all
+                    # but a step graph's first (eager) call replayed
+                    steps = hp.decode_horizon if name == "model" \
+                        else hp.spec_horizon
+                    eager = split["graph_calls"] - run["graph_replays"]
+                    if (split["graph_ticks"] != split["decoding_ticks"]
+                            or split["graph_calls"]
+                            != steps * split["graph_ticks"]
+                            or eager > 2 or not run["sample_launches"]):
+                        raise AssertionError(f"{label}: eager steps: {run}")
+                    run["eager_steps"] = eager
+        finally:
+            server.shutdown()
+            server.server_close()
+            ctx.close()
+    toks = out.pop("tokens")
+    if check:
+        if toks["sampled"] != toks["sampled_again"]:
+            raise AssertionError("sampled: seeded replies differ between "
+                                 "two runs")
+        (prompt, ids), = toks["sampled_alone"].items()
+        if toks["sampled"][prompt] != ids:
+            raise AssertionError("sampled: request 3 alone differs from "
+                                 "its reply beside seven others")
+    out["reproduced"] = check
+    return out, launches
 
 
 def phase_session_full_width(dev: torch.device, cfg, model) -> dict:
@@ -2714,8 +3052,9 @@ def phase_session_full_width(dev: torch.device, cfg, model) -> dict:
 
 def phase_evict(dev: torch.device) -> dict:
     """Multi-model eviction at llama-1b's widths (dim 2048, ffn 8192, 32
-    heads, 8 kv heads, vocab 128256; 2 layers, random Q8_0 weights: one
-    GGUF linked into three model dirs, each loaded on its own):
+    heads, 8 kv heads; 2 layers and a 32,000-token vocabulary, which
+    quarters the numpy write; random Q8_0 weights: one GGUF linked into
+    three model dirs, each loaded on its own):
     ServerContext(max_models=2) serves a, b, c, a, one request each (its
     decode steps captured as graphs, its prompt stored in the prefix
     cache). Each eviction must give back what its context took when it
@@ -2733,13 +3072,13 @@ def phase_evict(dev: torch.device) -> dict:
     from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
 
     out = {"phase": "evict", "preset": "llama-1b", "layers": 2,
-           "quant": "q8_0", "max_models": 2}
+           "vocab": 32000, "quant": "q8_0", "max_models": 2}
     hp = HyperParams(max_slots=4, max_seq_len=1024, batch_size=128,
                      paged_pages=64, page_size=64)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         make_synthetic_gguf(f"{tmp}/ws", "llama-1b", GGMLType.Q8_0, seed=0,
-                            seq_len=1024, layers=2)
+                            seq_len=1024, layers=2, vocab=32000)
         out["write_s"] = time.perf_counter() - t0
         for name in ("a", "b", "c"):
             os.makedirs(f"{tmp}/models/{name}")
@@ -2836,12 +3175,12 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
     timed: draft forwards, verifies, the rest (sampling, acceptance,
     rollback), and the tick's one host fetch. Then the same tick with
     its steps replayed as the scheduler replays them
-    (greedy_sample_step's graph, warmed and captured first)."""
+    (sample_step's graph without draws, warmed and captured first)."""
     from powerserve_tpu_torch.engine.graphs import StepGraphs
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
     from powerserve_tpu_torch.speculative.chain import (
-        chain_spec_sample_scan, greedy_sample_step, self_draft_model)
+        chain_spec_sample_scan, sample_step, self_draft_model)
 
     S, n, H, k, page = 8, 512, 2, 4, 64
     t_kv = PagedKVCache.create(llm.n_layers, S, 2048, llm.n_kv_heads,
@@ -2861,7 +3200,7 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
     root = toks[:, -1].clone()
     zeros = torch.zeros(S, device=dev)
     args = (root, H, k, torch.ones(S, dtype=torch.bool, device=dev),
-            [None] * S, zeros, torch.full((S,), 40, device=dev),
+            None, zeros, torch.full((S,), 40, device=dev),
             torch.ones(S, device=dev))
     tc, dc = Clock(model), Clock(draft)
     chain_spec_sample_scan(tc, dc, t_kv, d_kv, *args)  # warm
@@ -2882,8 +3221,8 @@ def spec_tick_breakdown(dev, model, llm, g) -> dict:
                 top_k=args[6], top_p=args[7], step=z(1),
                 spec_emitted=z(H, S, k + 1), spec_counts=z(H, S))
     graphs = StepGraphs(dev)
-    g = graphs.step(("spec",), lambda: (greedy_sample_step(
-        model, draft, t_kv, d_kv, bufs, k), bufs))
+    g = graphs.step(("spec",), lambda: (sample_step(
+        model, draft, t_kv, d_kv, bufs, k, None), bufs))
 
     def tick():
         bufs["step"].zero_()
@@ -4484,18 +4823,24 @@ OWN_KERNELS = ("qmm_gemv_kernel", "qmm_mma_kernel", "flash_decode_kernel",
 
 
 def phase_trace(dev: torch.device, cfg, model) -> dict:
-    """core/trace.py on llama-8b Q4_K: generate (a 256-token prompt in
-    128-token chunks, 16 greedy tokens in blocks of 4, replayed) untraced
-    and under Trace: the same tokens; the trace's prefill and decode_step
-    spans one a chunk and one a block; the port's kernels among its
-    kernel events; decode tok/s with and without the trace; then the
-    paged plain tick's device-to-host copies (paged_tick_copies), which
-    must be one."""
+    """First the paged plain tick's device-to-host copies
+    (paged_tick_copies), which must be one a tick: the process's first
+    profiler session, since a session over replayed graphs (the trace
+    below) leaves later sessions of the process without some device
+    events. Then core/trace.py on llama-8b Q4_K: generate (a 256-token
+    prompt in 128-token chunks, 16 greedy tokens in blocks of 4,
+    replayed) untraced and under Trace: the same tokens; the trace's
+    prefill and decode_step spans one a chunk and one a block; the
+    port's kernels among its kernel events; decode tok/s with and
+    without the trace."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.core.trace import Trace
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
 
+    ticks = paged_tick_copies(dev, cfg, model)
+    if ticks["dtoh_copies_per_tick"] != 1:
+        raise AssertionError(f"paged plain tick: {ticks}")
     llm = cfg.llm
     g = torch.Generator(device="cpu")
     g.manual_seed(6)
@@ -4532,9 +4877,6 @@ def phase_trace(dev: torch.device, cfg, model) -> dict:
             and own["flash_decode_kernel"]):
         raise AssertionError(f"trace: spans prefill {n_pre}, decode_step "
                              f"{n_dec}; the port's kernels {own}")
-    ticks = paged_tick_copies(dev, cfg, model)
-    if ticks["dtoh_copies_per_tick"] != 1:
-        raise AssertionError(f"paged plain tick: {ticks}")
     return {"phase": "trace", "card": card_line(), "spans_prefill": n_pre,
             "spans_decode_step": n_dec, "kernel_events": len(kernels),
             "own_kernel_events": own, "trace_mb": trace_mb,
@@ -5747,6 +6089,19 @@ def main() -> int:
         emit(phase_serve_tp(dev))
         print(card, flush=True)
         return 0
+    if "--sampled" in sys.argv[1:]:
+        # the sampled serving runs and the tick split alone; a copy of
+        # this script in an older tree measures that tree (no checks of
+        # the in-graph draws where the tree has none)
+        import importlib.util
+
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        emit(phase_sampled_serve(dev, cfg, model, check=importlib.util.find_spec(
+            "powerserve_tpu_torch.ops.sample") is not None)[0])
+        print(card, flush=True)
+        return 0
     if "--ticks" in sys.argv[1:]:
         from powerserve_tpu_torch.tools.bench_params import make_device_params
 
@@ -5805,6 +6160,8 @@ def main() -> int:
     serve, serve_counts = phase_serve_full_width(dev, cfg, model,
                                                  "serve_full_width")
     emit(serve)
+    sampled, sampled_counts = phase_sampled_serve(dev, cfg, model)
+    emit(sampled)
     session = phase_session_full_width(dev, cfg, model)
     emit(session)
     evict = phase_evict(dev)
@@ -5909,7 +6266,9 @@ def main() -> int:
            "flash_decode_paged_tree": tree_serve_counts,
            # the EAGLE chain's generate: the fc input of every draft and
            # re-prefill
-           "fused_concat2": eagle_counts["chain"]}
+           "fused_concat2": eagle_counts["chain"],
+           # the sampled plain ticks of 8 seeded requests at 0.8
+           "sample": sampled_counts["sampled"]}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     # each decode number replayed, and its eager twin's from this run
@@ -5934,6 +6293,16 @@ def main() -> int:
           "serve_full_width_generated_tok_s": serve["generated_tok_s"],
           "serve_full_width_eager_generated_tok_s":
               serve["eager_twin"]["generated_tok_s"],
+          "sampled_serve_generated_tok_s":
+              sampled["sampled_again"]["generated_tok_s"],
+          "sampled_serve_greedy_generated_tok_s":
+              sampled["greedy"]["generated_tok_s"],
+          "sampled_serve_self4_generated_tok_s":
+              sampled["self4_sampled"]["generated_tok_s"],
+          "sampled_serve_tick_gap_ms_p50":
+              sampled["sampled_again"]["tick_gap_ms_p50"],
+          "sampled_serve_tick_replay_ms_p50":
+              sampled["sampled_again"]["tick_replay_ms_p50"],
           "serve_moe_full_width_generated_tok_s":
               serve_moe["generated_tok_s"],
           "serve_moe_full_width_eager_generated_tok_s":

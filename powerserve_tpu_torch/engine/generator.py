@@ -8,10 +8,10 @@ in the same state. The cache is updated in place.
 
 A decode step replays a CUDA graph (engine/graphs.py) over the engine's
 static buffers (the token, `active`, the block's outputs and a step
-counter). A greedy step is one graph: forward, sampler chain, argmax and
-the penalty push. A sampled step replays the forward and the
-distribution; the draw from the engine's generator and the push run
-eagerly after it. Prefill, and the rollback after a stop, stay eager.
+counter): forward, sampler chain, the argmax or (sampled) the draw from
+the engine's one-slot Philox stream (a DrawState seeded from
+hp.sampler.seed; csrc/sample.cu on the card), and the penalty push.
+Prefill, and the rollback after a stop, stay eager.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from ..core.logging import Timer, get_logger
 from ..core.trace import Trace
 from ..kv.cache import KVCache
 from ..models.llama import LlamaModel
-from ..sampling.sampler import PenaltyState, sample_dist
+from ..sampling.sampler import (DrawState, PenaltyState,
+                                categorical_from_dist, sample_dist)
 from .graphs import StepGraphs
 
 log = get_logger("engine")
@@ -77,8 +78,8 @@ class InferenceEngine:
                                  llm.n_kv_heads, llm.head_size, self.device)
         self.penalty = PenaltyState.create(
             self.n_slots, max(self.hp.sampler.penalty_last_n, 1), self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(self.hp.sampler.seed)
+        # every row of a sampled step draws from one stream
+        self.draws = DrawState.create(1, self.device, self.hp.sampler.seed)
         self.horizon = max(int(self.hp.decode_horizon), 1)
         # the decode steps' static buffers and graphs
         dev, S = self.device, self.n_slots
@@ -134,37 +135,28 @@ class InferenceEngine:
         return None if logits is None else logits[slot]
 
     def _step_graph(self):
-        """The decode step for the sampler settings as they are now: the
-        whole greedy step, or a sampled step's forward and distribution
-        (f32 [S, V] out)."""
-        # (the body draws nothing: the seed is not part of it)
+        """The decode step for the sampler settings as they are now."""
+        # (the seed lives in the draw state, not in the body)
         scfg = dataclasses.replace(self.hp.sampler, seed=0)
         key = ("decode", dataclasses.astuple(scfg))
         return self.graphs.step(key, lambda: (_decode_step(
             self.model, self.kv, self.penalty, self.bufs, scfg,
-            self.cfg.llm.vocab_size, self.eos_id, self.nl_id), self.bufs))
+            self.cfg.llm.vocab_size, self.eos_id, self.nl_id, self.draws),
+            self.bufs))
 
     @torch.no_grad()
     def _decode_block(self, cur: int, slot: int) -> list[int]:
         """`horizon` greedy-or-sampled steps from token `cur`."""
         b = self.bufs
-        active = self._active(slot)
+        self._active(slot)
         b["tok"].fill_(cur)
         b["step"].zero_()
         g = self._step_graph()
-        greedy = self.hp.sampler.temperature <= 0.0
         # around the replays: a range inside the step's body would be
         # recorded only when the graph is captured
         with Trace.span(Trace.SPAN_DECODE):
-            for h in range(self.horizon):
-                dist = g()
-                if not greedy:
-                    tok = torch.multinomial(dist, 1,
-                                            generator=self.generator)
-                    tok = tok[:, 0]
-                    self.penalty.push(tok, active)
-                    b["tok"].copy_(tok)
-                    b["out"][:, h] = tok
+            for _ in range(self.horizon):
+                g()
         return b["out"][slot].tolist()
 
     def generate(self, prompt_tokens: list[int], n_predict: int,
@@ -215,11 +207,11 @@ class InferenceEngine:
 
 def _decode_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
                  bufs: dict, scfg, vocab: int, eos_id: int,
-                 nl_id: int) -> Callable[[], torch.Tensor | None]:
-    """The body of one decode step over the engine's buffers. Greedy
-    (scfg.temperature <= 0): the argmax, pushed to the penalty window,
-    feeds the next step and goes to column `step` of out. Sampled: the
-    distribution [S, V] the caller draws from."""
+                 nl_id: int, draws: DrawState) -> Callable[[], None]:
+    """The body of one decode step over the engine's buffers: the argmax
+    (greedy, scfg.temperature <= 0) or a draw from `draws` (every row of
+    the distribution [S, V] from its one stream), pushed to the penalty
+    window, feeds the next step and goes to column `step` of out."""
     tok, active, out, step = (bufs[k] for k in ("tok", "active", "out",
                                                 "step"))
     greedy = scfg.temperature <= 0.0
@@ -231,13 +223,10 @@ def _decode_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
         dist = sample_dist(logits, scfg, penalty, vocab_size=vocab,
                            eos_id=eos_id if eos_id >= 0 else None,
                            nl_id=nl_id if nl_id >= 0 else None)
-        if not greedy:
-            return dist
-        nxt = torch.argmax(dist, dim=-1)
+        nxt = categorical_from_dist(dist, None if greedy else draws)
         penalty.push(nxt, active)
         tok.copy_(nxt)
         out.index_copy_(1, step, nxt[:, None])
         step.add_(1)
-        return None
 
     return body

@@ -42,11 +42,18 @@ own memory pool and capture stream: scheduler threads of different
 models replay at the same time, and graphs that share a pool share their
 temporaries. Captures are serialized process-wide, since PyTorch runs
 one at a time, in "thread_local" mode, so other threads may go on (load
-a model, run a tick) while a scheduler thread captures.
+a model, run a tick) while a scheduler thread captures. Python's cyclic
+garbage collector is held off during a capture: a collection run by an
+allocation inside the body could destroy a graph no longer reachable
+(an owner left in a reference cycle), and destroying a graph is an
+operation not permitted while the thread captures, which invalidates the
+capture. Such a graph goes at the next collection after the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -57,6 +64,18 @@ import torch
 from ..ops import cuda_lib
 
 _capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collection_held_off():
+    """No automatic cyclic garbage collection inside (a capture)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -77,6 +96,7 @@ class StepGraph:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out = None
         self.counts: dict[str, int] = {}
+        self.replays = 0  # calls that replayed the graph
         self.warm = False
         self.capture_s = 0.0
 
@@ -89,6 +109,7 @@ class StepGraph:
                 return self.body()
             self._capture()
         self.graph.replay()
+        self.replays += 1
         for name, n in self.counts.items():
             cuda_lib.LAUNCHES[name] += n
         return self.out
@@ -99,7 +120,7 @@ class StepGraph:
 
     def _capture(self) -> None:
         graph = torch.cuda.CUDAGraph()
-        with _capture_lock:
+        with _capture_lock, _collection_held_off():
             before = cuda_lib.launch_counts()
             t0 = time.perf_counter()
             with torch.cuda.device(self.device), torch.cuda.graph(

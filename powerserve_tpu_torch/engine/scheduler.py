@@ -13,8 +13,8 @@ layers: speculative/chain.py self_draft_model) every decode tick runs
 `hp.spec_horizon` steps of batched speculation instead, over a dense
 int8 draft cache beside the dense or paged target cache. The topology is
 hp.spec_tree's widths (speculative/device_tree.py TreeTemplate), or a
-chain of hp.spec_k. A chain runs chain_spec_sample_scan: each slot
-drafts with its own sampler settings and generator, one target forward
+chain of hp.spec_k. A chain runs chain_spec_sample_scan's step: each
+slot drafts with its own sampler settings and stream, one target forward
 verifies all slots, speculative sampling accepts per slot (temperature 0
 is greedy). A tree runs tree_sample_step: one draft forward per level,
 one verify of every slot's tree with the ancestor mask, and exact-match
@@ -27,15 +27,37 @@ no logprobs (the server refuses such requests).
 A plain decode tick replays one CUDA graph per step (engine/graphs.py)
 over the scheduler's static [S] buffers (tokens, `active`, each slot's
 sampler settings and penalties) and writes each step's tokens and
-logprobs into static [S, horizon] outputs through a step counter. In an
-all-greedy tick the graph holds the whole step: forward, sampler chain,
-argmax, penalty push and logprobs; where any slot samples, it holds the
-forward, the distributions and the logprobs' parts, and each slot's draw
-from its own generator and the push run eagerly after each replay. A
-spec tick whose slots all decode greedily draws nothing, and replays
-one graph per speculative step; where any slot samples, its draws come
-between the draft forwards and the tick runs eagerly. The prefill tick
-stays eager.
+logprobs into static [S, horizon] outputs through a step counter. The
+graph holds the whole step: forward, sampler chain, the argmax (an
+all-greedy tick) or each slot's draw from its stream (csrc/sample.cu
+reads and advances the counters on the device), the penalty push and
+the logprobs. A spec tick replays one graph per speculative step the
+same way, greedy or sampled (its draws come between the draft
+forwards, inside the graph). So there are two graphs per tick shape,
+greedy and sampled. The prefill tick stays eager.
+
+Decode ticks are double-buffered, as the JAX scheduler's: tick N + 1 is
+dispatched before tick N's results are processed. Each tick's outputs
+(and kv.pos) leave the card in one asynchronous copy into pinned memory
+right after its replays, in stream order, before the next tick's first
+replay overwrites the static buffers; the drain waits on that copy's
+event only. Request identities are captured at dispatch, and the results
+of a slot reused since are void. A slot still owned by its request takes
+its next input token from the device (the last tick's token buffer,
+through a carry mask), not from the host's cur_token, which the drain
+has not set yet; a slot that finished in tick N has run tick N + 1 too,
+whose penalty push the next admission resets and whose draws the next
+request's first decode resets (its counter to 0). The host's
+inputs of a tick go to the card in one copy from pinned memory, so
+dispatch waits for nothing. On the paged pool a tick is fast (double-
+buffered) when every decoding slot's drained position is known and the
+pool grants two ticks ahead of it (_pos_drained, _pos_known: JAX's
+rule, with its two spare pages when the pool has slack); otherwise it
+drains, grants exactly, runs single-buffered and counts in
+paged_slow_ticks. Spec ticks are double-buffered on the dense cache and
+single-buffered on the pool (their acceptance decides the positions).
+Jobs (call), stop() and a failed step drain or drop the tick in flight
+first.
 
 With an EAGLE head (speculative/eagle.py) the draft is the head: its
 dense int8 cache sits beside the target's, and each slot carries the
@@ -46,8 +68,7 @@ the carried one); the carry becomes the feature at each slot's last
 real lane. Prefix-cache entries keep the feature too (an entry without
 one is no hit), and a preempted slot rebuilds it with both caches. Its
 ticks run eagle_sample_step (a chain of spec_k) or
-eagle_tree_sample_step (hp.spec_tree), replayed when every slot is
-greedy, as the draft model's.
+eagle_tree_sample_step (hp.spec_tree), replayed as the draft model's.
 
 A request may carry its prompt's input rows (Request.embeds: the text
 embeddings with image features at the image-context positions,
@@ -69,11 +90,13 @@ page grants keep each dp block's slots in that block's pages
 (PagePool(n_groups=dp)), and a starved slot preempts only a victim of
 its own block. A request's input rows go to every rank with the
 forward, the other slots' rows from TPModel.embed's vocab-sharded
-lookup. Double-buffered ticks are not ported: like
-the plain tick, the spec tick syncs once. Each tick's one host fetch
-also refreshes a host mirror of every slot's cache position (pos_host),
-which admission and prefill keep up to date between ticks, so the paged
-pool grants pages without reading the card.
+lookup; rank 0 makes every draw, and its ticks double-buffer as one
+device's (their gloo collectives wait for each forward, so nothing
+overlaps). The host keeps a mirror of every slot's cache position
+(pos_host): admission, prefill and each plain tick's dispatch (every
+active slot advances by the horizon) keep it exact, and a single-buffered
+spec tick's fetch refreshes it, so the paged pool grants pages without
+reading the card.
 Only the scheduler thread touches the device; submit() is thread-safe,
 and call(fn) runs fn on the scheduler thread between two steps (device
 work for a request, such as encoding its images, never lands inside a
@@ -113,14 +136,11 @@ from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache, PagePool
 from ..models.llama import LlamaModel
 from ..parallel.tp import TPEagleHead, TPModel
-from ..sampling.sampler import (PenaltyState, categorical_from_dist,
-                                sample_dist_batched)
-from ..speculative.chain import chain_spec_sample_scan, greedy_sample_step
-from ..speculative.device_tree import (TreeTemplate, greedy_tree_sample_step,
-                                       tree_spec_scan)
-from ..speculative.eagle import (EagleHead, eagle_forward, eagle_spec_scan,
-                                 eagle_tree_spec_scan,
-                                 greedy_eagle_sample_step)
+from ..sampling.sampler import (DrawState, PenaltyState,
+                                categorical_from_dist, sample_dist_batched)
+from ..speculative.chain import sample_step
+from ..speculative.device_tree import TreeTemplate, tree_sample_body
+from ..speculative.eagle import EagleHead, eagle_forward, eagle_sample_body
 from .graphs import StepGraphs
 
 log = get_logger("scheduler")
@@ -140,7 +160,7 @@ class Request:
     penalty_freq: float = 0.0
     penalty_present: float = 0.0
     stop_ids: set[int] = field(default_factory=set)
-    # explicit per-request seed (OpenAI `seed`): the slot's generator is
+    # explicit per-request seed (OpenAI `seed`): the slot's stream is
     # seeded with it, so the samples reproduce whatever else runs
     seed: int | None = None
     # top-logprob alternatives to record per token (0 = off)
@@ -172,6 +192,8 @@ class _Slot:
     prefill_off: int = 0
     cur_token: int = 0
     prefilling: bool = False
+    # the request's Philox seed: its stream starts when decoding does
+    seed: int = 0
     # tokens generated while resident: the recompute payload if the
     # paged pool preempts the slot (emitted tokens are never re-emitted)
     generated: list = field(default_factory=list)
@@ -307,9 +329,9 @@ class BatchScheduler:
             self.d_kv = self._new_cache(draft.llm)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
-        # one generator per slot, re-seeded at each admission
-        self.generators = [torch.Generator(device=self.device)
-                           for _ in range(self.S)]
+        # one Philox stream per slot, seeded when its request starts
+        # decoding
+        self.draws = DrawState.create(self.S, self.device)
         # the decode steps' static buffers: the slots' settings (filled
         # by _slot_settings) and the tick's outputs, and their graphs
         S, H, dev = self.S, self.horizon, self.device
@@ -346,6 +368,8 @@ class BatchScheduler:
         self.n_tokens_generated = 0
         self.n_prompt_tokens = 0
         self.n_preemptions = 0
+        # pool ticks that fell back to the single-buffered exact path
+        self.n_pool_slow_ticks = 0
         self.n_spec_steps = 0
         self.n_spec_drafted = 0
         self.n_spec_accepted = 0
@@ -363,6 +387,13 @@ class BatchScheduler:
         self._jobs_lock = threading.Lock()
         # the host's mirror of kv.pos: each slot's cache position
         self.pos_host = [0] * self.S
+        # the paged fast path's mirror (JAX's): each slot's drained
+        # position, an upper bound, and the slots where it is known
+        self._pos_drained = np.zeros(self.S, np.int64)
+        self._pos_known: set[int] = set()
+        # the dispatched tick whose results are not processed yet:
+        # (kind, decoding, requests at dispatch, fetch handle)
+        self._inflight: tuple | None = None
         self._ids = itertools.count()
         self._tick = 0
         self._stop = threading.Event()
@@ -489,6 +520,9 @@ class BatchScheduler:
             self._on_thread(self.prefix_cache.clear)
 
     def _run_jobs(self) -> None:
+        if not self._jobs.empty():
+            # a job may read what the tick in flight changes
+            self._drain()
         while True:
             try:
                 fn, fut = self._jobs.get_nowait()
@@ -514,6 +548,8 @@ class BatchScheduler:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._inflight is not None:
+            self._drain()  # the last tick's tokens reach their requests
         while not self._jobs.empty():  # jobs that will not run now
             _, fut = self._jobs.get_nowait()
             if fut.set_running_or_notify_cancel():
@@ -530,7 +566,7 @@ class BatchScheduler:
         self.graphs = StepGraphs(torch.device("cpu"))
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
-        self.bufs, self.penalty, self.generators = {}, None, []
+        self.bufs, self.penalty, self.draws = {}, None, None
         self.model = self.draft = None
 
     @property
@@ -556,6 +592,7 @@ class BatchScheduler:
     def _free_slot(self, i: int) -> None:
         if self.pool is not None:
             self.pool.release(i)
+            self._pos_known.discard(i)
         self.slots[i] = _Slot()
 
     def _preempt(self, i: int) -> None:
@@ -576,6 +613,12 @@ class BatchScheduler:
         self.n_preemptions += 1
         log.debug(f"req {req.id}: preempted (paged pool dry)")
 
+    def _seed_pos(self, i: int, pos: int) -> None:
+        """Paged mode: slot i's drained position for the fast path."""
+        if self.pool is not None:
+            self._pos_drained[i] = min(int(pos), self.max_seq)
+            self._pos_known.add(i)
+
     def _ensure_decode_pages(self, decoding: list[int],
                              extra: int) -> list[int]:
         """Paged mode: grow each decoding slot's pages to cover the `extra`
@@ -585,6 +628,8 @@ class BatchScheduler:
         pool cannot serve finishes with 'length'. The positions come from
         the host mirror: no read of the card."""
         pos = self.pos_host
+        for i in decoding:  # exact positions: the fast path's mirror too
+            self._seed_pos(i, pos[i])
         keep = []
         for i in decoding:
             s = self.slots[i]
@@ -683,9 +728,8 @@ class BatchScheduler:
                     or req.penalty_present):
                 # penalties count the prompt's tokens too
                 self.penalty.seed_slot(i, req.prompt_ids)
-            seed = (req.seed if req.seed is not None
-                    else self.hp.sampler.seed + req.id * 7919 + i)
-            self.generators[i].manual_seed(seed)
+            slot.seed = (req.seed if req.seed is not None
+                         else self.hp.sampler.seed + req.id * 7919 + i)
             self.n_requests += 1
             self.n_prompt_tokens += len(req.prompt_ids)
             log.debug(f"req {req.id} -> slot {i}")
@@ -710,7 +754,7 @@ class BatchScheduler:
             off = slot.prefill_off
             part = prompt[off:off + C]
             if not part:
-                slot.prefilling = False
+                self._start_decoding(i)
                 continue
             tokens[i, :len(part)] = part
             positions[i, :len(part)] = off + np.arange(len(part))
@@ -721,7 +765,7 @@ class BatchScheduler:
             slot.prefill_off += len(part)
             self.pos_host[i] = slot.prefill_off  # the chunk's writes
             if slot.prefill_off >= len(prompt):
-                slot.prefilling = False
+                self._start_decoding(i)
                 if self.prefix_cache is not None and slot.req.embeds is None:
                     stores.append((i, prompt))
         if not active.any():
@@ -755,6 +799,15 @@ class BatchScheduler:
                 self.prefix_cache.put(prefix, saved, pin=pin)
                 self._pin_reqs.discard(tuple(prefix))
         return True
+
+    def _start_decoding(self, i: int) -> None:
+        """Slot i's prompt is in the cache: it decodes from the next tick,
+        its stream from its first draw (ticks it sat out while prefilling
+        advanced the counter), its position known to the fast path."""
+        slot = self.slots[i]
+        slot.prefilling = False
+        self.draws.reset_slot(i, slot.seed)
+        self._seed_pos(i, len(slot.req.prompt_ids) - 1)
 
     @staticmethod
     def _overlay(model: LlamaModel, tokens: torch.Tensor,
@@ -807,47 +860,163 @@ class BatchScheduler:
         decoding = [i for i, s in enumerate(self.slots)
                     if s.req is not None and not s.prefilling]
         if not decoding:
-            return False
+            return self._drain()
         if self.draft is not None:
             return self._spec_decode_tick(decoding)
-        if self.pool is not None:
-            decoding = self._ensure_decode_pages(decoding, self.horizon)
-            if not decoding:
-                return True  # preemptions / finishes were work
-        gens = self._slot_settings(decoding)
+        decoding, fast = self._plain_grants(decoding)
+        if not decoding:
+            return True  # preemptions / finishes were work
+        greedy = self._slot_settings(decoding)
         b = self.bufs
-        greedy = all(g is None for g in gens)
         vocab = self.cfg.llm.vocab_size
+        draws = None if greedy else self.draws
         g = self.graphs.step(("tick", greedy), lambda: (_tick_step(
-            self.model, self.kv, self.penalty, b, vocab, greedy), b))
+            self.model, self.kv, self.penalty, b, vocab, draws), b))
+        reqs = [self.slots[i].req for i in decoding]
         b["step"].zero_()
-        for h in range(self.horizon):
-            out = g()
-            if not greedy:
-                probs, lf, lse = out
-                tok = categorical_from_dist(probs, gens)
-                self.penalty.push(tok, b["active"])
-                b["tok"].copy_(tok)
-                b["out_tok"][:, h] = tok
-                b["out_lp"][:, h] = lf.gather(1, tok[:, None])[:, 0] - lse
-        # one host fetch per tick: tokens, logprobs, top ids and
-        # logprobs, and the positions after the tick (as the JAX
-        # scheduler's capacity check reads them), in one f64 vector (exact
-        # for each of them)
-        parts = (b["out_tok"], b["out_lp"], b["out_ti"], b["out_tlp"],
-                 self.kv.pos)
-        flat = torch.cat([t.double().flatten() for t in parts]).cpu().numpy()
-        toks, lps, top_i, top_lp, pos_host = np.split(
-            flat, np.cumsum([t.numel() for t in parts[:-1]]))
-        toks = toks.astype(np.int64).reshape(self.S, -1).tolist()
-        lps = lps.reshape(self.S, -1).tolist()
-        top_i = top_i.astype(np.int64).reshape(self.S, self.horizon,
-                                               -1).tolist()
-        top_lp = top_lp.reshape(self.S, self.horizon, -1).tolist()
-        self.pos_host = pos_host = pos_host.astype(np.int64).tolist()
+        for _ in range(self.horizon):
+            g()
+        # every active slot wrote `horizon` positions (none past the end)
         for i in decoding:
+            self.pos_host[i] = min(self.pos_host[i] + self.horizon,
+                                   self.max_seq)
+        # tokens, logprobs, top ids and logprobs, and the positions after
+        # the tick (as the JAX scheduler's capacity check reads them)
+        handle = self._fetch((b["out_tok"], b["out_lp"], b["out_ti"],
+                              b["out_tlp"], self.kv.pos))
+        self._dispatched(("plain", decoding, reqs, handle), single=not fast)
+        return True
+
+    def _plain_grants(self, decoding: list[int]) -> tuple[list, bool]:
+        """The plain tick's pages (paged mode): the fast path's, or a
+        drain and the exact grants of a slow tick. Returns the slots that
+        decode and whether the tick is fast (double-buffered)."""
+        if self.pool is None:
+            return decoding, True
+        if self._pool_fast(decoding):
+            self.pool.flush(self.kv)
+            return decoding, True
+        self.n_pool_slow_ticks += 1
+        self._drain()
+        return self._ensure_decode_pages(decoding, self.horizon), False
+
+    def _pool_fast(self, decoding: list[int]) -> bool:
+        """Paged mode, JAX's fast path: every decoding slot's drained
+        position is known and the pool covers two ticks past it (a tick
+        may still be in flight); where a grant was needed and the pool
+        has slack, two more pages, so the next table flushes come later.
+        False: the tick must drain and grant exactly."""
+        for i in decoding:
+            need = int(self._pos_drained[i]) + 2 * self.horizon
+            if i not in self._pos_known or not self.pool.ensure(i, need):
+                return False
+            if self.pool.dirty and self.pool.n_free_for(i) > 2:
+                self.pool.ensure(i, need + 2 * self.pool.page_size)
+        return True
+
+    def _slot_settings(self, decoding: list[int]) -> bool:
+        """Fill the static [S] buffers with the decoding slots' inputs —
+        tokens, active, temperature, top_k, top_p, repeat / frequency /
+        presence penalties — in one copy from pinned memory (dispatch
+        waits for nothing). A slot still owned by the request of the tick
+        in flight keeps the token that tick left in the token buffer (the
+        drain has not set its cur_token). True if every slot is greedy."""
+        S = self.S
+        host = np.zeros((9, S), np.float64)
+        tokens, active, temp, top_k, top_p, pen, pfreq, ppres, carry = host
+        top_p[:], pen[:] = 1.0, 1.0
+        greedy = True
+        for i in decoding:
+            r = self.slots[i].req
+            tokens[i] = self.slots[i].cur_token
+            active[i] = 1.0
+            temp[i], top_k[i], top_p[i] = r.temperature, r.top_k, r.top_p
+            pen[i], pfreq[i], ppres[i] = (r.penalty_repeat, r.penalty_freq,
+                                          r.penalty_present)
+            greedy = greedy and r.temperature <= 0
+        if self._inflight is not None:
+            for j, r in zip(self._inflight[1], self._inflight[2]):
+                if self.slots[j].req is r:
+                    carry[j] = 1.0
+        stage = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            stage = stage.pin_memory()
+        stage = stage.to(self.device, non_blocking=True)
+        b = self.bufs
+        b["tok"].copy_(torch.where(stage[8] > 0, b["tok"],
+                                   stage[0].to(torch.int64)))
+        for j, name in enumerate(("active", "temp", "top_k", "top_p", "pen",
+                                  "pfreq", "ppres"), start=1):
+            b[name].copy_(stage[j] > 0 if name == "active" else stage[j])
+        return greedy
+
+    def _fetch(self, parts: tuple) -> tuple:
+        """One copy of the tick's outputs to the host, in one f64 vector
+        (exact for each of them): on the card an asynchronous copy into
+        pinned memory right after the tick's replays and an event, so the
+        next tick's replays, which overwrite the static buffers, come
+        after it in stream order. Returns (host vector, event or None,
+        sizes)."""
+        flat = torch.cat([t.double().flatten() for t in parts])
+        sizes = [t.numel() for t in parts]
+        if flat.device.type != "cuda":
+            return flat, None, sizes
+        host = torch.empty(flat.numel(), dtype=torch.float64,
+                           pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event, sizes
+
+    @staticmethod
+    def _fetched(handle: tuple) -> list[np.ndarray]:
+        """The parts of a fetch, waiting for its copy alone."""
+        host, event, sizes = handle
+        if event is not None:
+            event.synchronize()
+        return np.split(host.numpy().copy(), np.cumsum(sizes[:-1]))
+
+    def _dispatched(self, record: tuple, single: bool) -> None:
+        """Process the tick in flight (its copy overlaps this tick's
+        replays) and put this one in flight; a single-buffered tick is
+        processed at once."""
+        prev, self._inflight = self._inflight, record
+        if prev is not None:
+            self._drain_record(prev)
+        if single:
+            self._drain()
+
+    def _drain(self) -> bool:
+        """Process the tick in flight, if any. True if there was one."""
+        record, self._inflight = self._inflight, None
+        if record is None:
+            return False
+        self._drain_record(record)
+        return True
+
+    def _drain_record(self, record: tuple) -> None:
+        """Deliver a dispatched tick's results to the requests its slots
+        still hold (a slot reused since dispatch is skipped: its results
+        are void)."""
+        if record[0] == "spec":
+            self._drain_spec(*record[1:])
+            return
+        _, decoding, reqs, handle = record
+        toks, lps, top_i, top_lp, pos = self._fetched(handle)
+        H = self.horizon
+        toks = toks.astype(np.int64).reshape(self.S, H).tolist()
+        lps = lps.reshape(self.S, H).tolist()
+        top_i = top_i.astype(np.int64).reshape(self.S, H, -1).tolist()
+        top_lp = top_lp.reshape(self.S, H, -1).tolist()
+        pos = pos.astype(np.int64).tolist()
+        owned = [i for i, r in zip(decoding, reqs) if self.slots[i].req is r]
+        for i in owned:
+            # an upper bound (the tick after it may be in flight): page
+            # grants may only over-cover
+            self._seed_pos(i, pos[i] + H)
+        for i in owned:
             s = self.slots[i]
-            for h in range(self.horizon):
+            for h in range(H):
                 t = int(toks[i][h])
                 s.cur_token = t
                 if s.req.logprobs > 0:
@@ -855,39 +1024,8 @@ class BatchScheduler:
                     s.req.token_logprobs.append(float(lps[i][h]))
                     s.req.top_logprobs.append(
                         list(zip(top_i[i][h][:n], top_lp[i][h][:n])))
-                if self._deliver(i, t, pos_host[i] + h + 1
-                                 >= self.max_seq - 1):
+                if self._deliver(i, t, pos[i] + h + 1 >= self.max_seq - 1):
                     break
-        return True
-
-    def _slot_settings(self, decoding: list[int]) -> list:
-        """Fill the static [S] buffers with the decoding slots' inputs —
-        tokens, active, temperature, top_k, top_p, repeat / frequency /
-        presence penalties — and return each slot's generator (None for a
-        greedy slot, which draws nothing)."""
-        S = self.S
-        tokens = torch.zeros(S, dtype=torch.int64)
-        active = torch.zeros(S, dtype=torch.bool)
-        temp, top_k, top_p = (torch.zeros(S),
-                              torch.zeros(S, dtype=torch.int64),
-                              torch.ones(S))
-        pen, pfreq, ppres = torch.ones(S), torch.zeros(S), torch.zeros(S)
-        gens: list[torch.Generator | None] = [None] * S
-        for i in decoding:
-            r = self.slots[i].req
-            tokens[i] = self.slots[i].cur_token
-            active[i] = True
-            temp[i], top_k[i], top_p[i] = r.temperature, r.top_k, r.top_p
-            pen[i], pfreq[i] = r.penalty_repeat, r.penalty_freq
-            ppres[i] = r.penalty_present
-            if r.temperature > 0:
-                gens[i] = self.generators[i]
-        for name, t in zip(("tok", "active", "temp", "top_k", "top_p", "pen",
-                            "pfreq", "ppres"),
-                           (tokens, active, temp, top_k, top_p, pen, pfreq,
-                            ppres)):
-            self.bufs[name].copy_(t)
-        return gens
 
     def _deliver(self, i: int, t: int, out_of_room: bool) -> bool:
         """Emit token t of slot i's request. When it finishes the request
@@ -913,58 +1051,66 @@ class BatchScheduler:
 
     @torch.no_grad()
     def _spec_decode_tick(self, decoding: list[int]) -> bool:
-        """spec_horizon steps of batched chain or tree speculation for
-        every decoding slot, one host fetch at the end."""
+        """spec_horizon steps of batched chain or tree speculation (or
+        EAGLE's) for every decoding slot, one graph replay a step whether
+        the slots sample or not; one host fetch, drained with the next
+        tick on the dense cache, at once on the pool."""
         tpl, H = self.spec_template, self.spec_horizon
         D, N = tpl.max_depth, tpl.n_nodes
         if self.pool is not None:
-            # each step writes N entries, of which the accepted ones
-            # stay: up to H * (D + 1) committed plus one tree in flight
+            # the positions after a tick depend on its acceptance: pool
+            # ticks stay single-buffered. Each step writes N entries, of
+            # which the accepted ones stay: up to H * (D + 1) committed
+            # plus one tree in flight
+            self._drain()
             decoding = self._ensure_decode_pages(decoding, H * (D + 1) + N)
             if not decoding:
                 return True
-        S = self.S
-        gens = self._slot_settings(decoding)
+        greedy = self._slot_settings(decoding)
         b = self.bufs
         wor = bool(self.hp.spec_wor)
+        draws = None if greedy else self.draws
+        args = (self.model, self.draft, self.kv, self.d_kv, b)
         if self.is_eagle:
-            emitted, counts, next_tok = self._eagle_steps(gens, wor)
-        elif all(g is None for g in gens):
-            # nothing is drawn: each step replays one graph
-            if tpl.is_chain:
-                key, build = ("spec",), lambda: greedy_sample_step(
-                    self.model, self.draft, self.kv, self.d_kv, b, D)
-            else:
-                key, build = ("tree", wor), lambda: (
-                    greedy_tree_sample_step(self.model, self.draft, self.kv,
-                                            self.d_kv, b, tpl, wor))
-            g = self.graphs.step(key, lambda: (build(), b))
-            b["step"].zero_()
-            for _ in range(H):
-                g()
-            emitted, counts, next_tok = (b["spec_emitted"],
-                                         b["spec_counts"], b["root"])
+            key, build = ("eagle", wor, greedy), lambda: eagle_sample_body(
+                *args, D, None if tpl.is_chain else tpl, wor, draws)
         elif tpl.is_chain:
-            emitted, counts, next_tok = chain_spec_sample_scan(
-                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, D,
-                b["active"], gens, b["temp"], b["top_k"], b["top_p"])
+            key, build = ("spec", greedy), lambda: sample_step(*args, D,
+                                                               draws)
         else:
-            emitted, counts, next_tok = tree_spec_scan(
-                self.model, self.draft, self.kv, self.d_kv, b["tok"], H, tpl,
-                b["active"], gens, b["temp"], b["top_k"], b["top_p"],
-                sample="wor" if wor else True)
-        # one host fetch per tick
-        flat = torch.cat([emitted.flatten(), counts.flatten(), next_tok,
-                          self.kv.pos.long()]).cpu()
-        n_e = emitted.numel()
-        emitted = flat[:n_e].reshape(H, S, D + 1).tolist()
-        counts_h = flat[n_e:n_e + H * S].reshape(H, S)
-        next_tok = flat[n_e + H * S:n_e + H * S + S].tolist()
+            key, build = ("tree", wor, greedy), lambda: tree_sample_body(
+                *args, tpl, wor, draws)
+        g = self.graphs.step(key, lambda: (build(), b))
+        reqs = [self.slots[i].req for i in decoding]
+        b["step"].zero_()
+        for _ in range(H):
+            g()
+        handle = self._fetch((b["spec_emitted"], b["spec_counts"], b["root"],
+                              self.kv.pos))
+        self._dispatched(("spec", decoding, reqs, handle),
+                         single=self.pool is not None)
+        return True
+
+    def _drain_spec(self, decoding: list[int], reqs: list,
+                    handle: tuple) -> None:
+        """A spec tick's results: the spec_* counters over every slot it
+        ran, then each still-owned slot's accepted tokens."""
+        tpl, H, S = self.spec_template, self.spec_horizon, self.S
+        D, N = tpl.max_depth, tpl.n_nodes
+        emitted, counts_h, next_tok, pos_now = self._fetched(handle)
+        emitted = emitted.astype(np.int64).reshape(H, S, D + 1).tolist()
+        counts_h = counts_h.astype(np.int64).reshape(H, S)
+        next_tok = next_tok.astype(np.int64).tolist()
+        pos_now = pos_now.astype(np.int64)
+        if self._inflight is None:
+            # nothing was dispatched after it: the positions of the slots
+            # it still holds are kv.pos
+            for i, r in zip(decoding, reqs):
+                if self.slots[i].req is r:
+                    self.pos_host[i] = int(pos_now[i])
         # the committed length before the tick: every step advanced each
         # slot by its count
-        pos_now = flat[n_e + H * S + S:]
-        self.pos_host = pos_now.tolist()
-        pos_pre = (pos_now - counts_h.sum(dim=0)).tolist()
+        pos_pre = (pos_now - counts_h.sum(axis=0)).tolist()
         counts = counts_h.tolist()
         room = self.max_seq - H * (D + 1) - N
         self.n_spec_steps += H * len(decoding)
@@ -972,43 +1118,15 @@ class BatchScheduler:
         self.n_spec_accepted += (sum(counts[h][i] for h in range(H)
                                      for i in decoding)
                                  - H * len(decoding))
-        for i in decoding:
+        for i, r in zip(decoding, reqs):
+            if self.slots[i].req is not r:
+                continue  # reused since dispatch: the results are void
             self.slots[i].cur_token = int(next_tok[i])
             ids = [emitted[h][i][j] for h in range(H)
                    for j in range(counts[h][i])]
             for n_out, t in enumerate(ids, start=1):
                 if self._deliver(i, int(t), pos_pre[i] + n_out >= room):
                     break
-        return True
-
-    def _eagle_steps(self, gens: list, wor: bool) -> tuple:
-        """spec_horizon EAGLE steps over the static buffers (a chain of
-        spec_k, or the template's tree): (emitted [H, S, D + 1], counts
-        [H, S], next tokens [S]); the carried features move in bufs
-        feat."""
-        tpl, H, b = self.spec_template, self.spec_horizon, self.bufs
-        tree = None if tpl.is_chain else tpl
-        if all(g is None for g in gens):
-            # nothing is drawn: each step replays one graph
-            g = self.graphs.step(("eagle", wor), lambda: (
-                greedy_eagle_sample_step(self.model, self.draft, self.kv,
-                                         self.d_kv, b, tpl.max_depth, tree,
-                                         wor), b))
-            b["step"].zero_()
-            for _ in range(H):
-                g()
-            return b["spec_emitted"], b["spec_counts"], b["root"]
-        args = (self.model, self.draft, self.kv, self.d_kv, b["tok"],
-                b["feat"], H)
-        sets = (b["active"], gens, b["temp"], b["top_k"], b["top_p"])
-        if tree is None:
-            emitted, counts, next_tok, feat = eagle_spec_scan(
-                *args, tpl.max_depth, *sets, sample=True)
-        else:
-            emitted, counts, next_tok, feat = eagle_tree_spec_scan(
-                *args, tpl, *sets, sample="wor" if wor else True)
-        b["feat"].copy_(feat)
-        return emitted, counts, next_tok
 
     def step(self) -> bool:
         """One scheduler iteration; True if work was done. Prefill has
@@ -1066,6 +1184,7 @@ class BatchScheduler:
         if self.pool is not None:
             out["paged_pages_total"] = self.pool.n_pages
             out["paged_pages_free"] = self.pool.n_free
+            out["paged_slow_ticks"] = self.n_pool_slow_ticks
             out["paged_preemptions_total"] = self.n_preemptions
             out["paged_deferred_requests"] = len(self._waitq)
         for name, win in (("ttft_seconds", self._ttft),
@@ -1082,6 +1201,7 @@ class BatchScheduler:
                 # a failed step fails every in-flight request and the
                 # scheduler goes on with the next ones
                 log.exception("scheduler step failed; resetting slots")
+                self._inflight = None  # its results go with the slots
                 for i, s in enumerate(self.slots):
                     if s.req is not None:
                         s.req.finish_reason = "error"
@@ -1094,14 +1214,14 @@ class BatchScheduler:
 
 
 def _tick_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
-               bufs: dict, vocab: int, greedy: bool):
+               bufs: dict, vocab: int, draws: DrawState | None):
     """The body of one decode step of a tick over the scheduler's
     buffers: the forward, every slot's sampling distribution after its
-    penalties, and the raw logits' logsumexp and top N_TOP, written to
-    column `step` of the outputs. Greedy (no slot draws): also the
-    argmax, its logprob and the penalty push, and the argmax feeds the
-    next step. Otherwise it returns (distributions, raw logits f32 [S,
-    vocab], logsumexp [S]) for the eager draws."""
+    penalties, the token (the argmax where draws is None, an all-greedy
+    tick; else each slot's draw from its stream, one-hot for a greedy
+    slot), its logprob and the penalty push, and the raw logits'
+    logsumexp and top N_TOP, written to column `step` of the outputs; the
+    token feeds the next step."""
     b = bufs
     step = b["step"]
 
@@ -1125,16 +1245,11 @@ def _tick_step(model: LlamaModel, kv: KVCache, penalty: PenaltyState,
         tv, ti = torch.topk(lf, N_TOP, dim=-1)
         record("out_ti", ti)
         record("out_tlp", tv - lse[:, None])
-        out = None
-        if greedy:
-            tok = torch.argmax(probs, dim=-1)
-            penalty.push(tok, active)
-            b["tok"].copy_(tok)
-            record("out_tok", tok)
-            record("out_lp", lf.gather(1, tok[:, None])[:, 0] - lse)
-        else:
-            out = (probs, lf, lse)
+        tok = categorical_from_dist(probs, draws)
+        penalty.push(tok, active)
+        b["tok"].copy_(tok)
+        record("out_tok", tok)
+        record("out_lp", lf.gather(1, tok[:, None])[:, 0] - lse)
         step.add_(1)
-        return out
 
     return body

@@ -170,8 +170,14 @@ class PagedKVCache(KVCache):
         self.pos[slot] = n
 
     def assign_pages(self, table: np.ndarray) -> None:
-        """Replace the whole page table ([S, max_pages], P = unallocated)."""
-        self.page_table.copy_(torch.from_numpy(np.asarray(table, np.int32)))
+        """Replace the whole page table ([S, max_pages], P = unallocated).
+        On the card the copy leaves from pinned memory without a wait, in
+        stream order: a tick still in flight reads the table it was
+        dispatched with."""
+        t = torch.from_numpy(np.array(table, np.int32))
+        if self.page_table.is_cuda:
+            t = t.pin_memory()
+        self.page_table.copy_(t, non_blocking=True)
 
 
 class PagePool:

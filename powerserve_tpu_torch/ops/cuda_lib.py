@@ -39,7 +39,7 @@ LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
             "fused_x": 0, "fused_x_argmax": 0, "fused_glu": 0,
             "fused_concat2": 0, "flash_decode_paged_state": 0,
             "flash_decode_tree": 0, "flash_decode_paged_tree": 0,
-            "qmatmul_w8_grouped": 0}
+            "qmatmul_w8_grouped": 0, "sample": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -147,6 +147,8 @@ def lib() -> ctypes.CDLL:
         L.ps_flash_prefill.restype = I
         L.ps_flash_prefill_smem.argtypes = [I, I]
         L.ps_flash_prefill_smem.restype = ctypes.c_size_t
+        L.ps_sample.argtypes = [I] + [P] * 4 + [I] * 4 + [P]
+        L.ps_sample.restype = I
         L.ps_empty_launch.argtypes = [P]
         L.ps_empty_launch.restype = I
         _lib = L

@@ -2,17 +2,20 @@
 
 The reference chain order: RepeatPenalty -> TopK -> Temperature ->
 Softmax -> TopP -> Normalize -> Stochastic, with the repeat-penalty
-window in a per-slot ring buffer. Draws come from an explicit
-torch.Generator (they differ from jax.random's for the same seed; the
-greedy path draws nothing).
+window in a per-slot ring buffer. Draws come from a DrawState: one
+Philox stream per slot, its seed and counter in device buffers
+(ops/sample.py, csrc/sample.cu on the card). They differ from
+jax.random's for the same seed; the greedy path draws nothing.
 
 `sample_dist_batched` / `sample_logits_batched` are the scheduler's
 chain: every slot carries its own temperature, top-k, top-p and
-penalties as [S] tensors, and draws from its own generator, so a
-request with a seed reproduces its samples whatever else runs.
-`categorical_from_dist` and `uniform_draws` are the draws of speculative
-sampling (a draft's sample, the acceptance uniforms, the residual
-resample), from the same per-slot generators.
+penalties as [S] tensors, and draws from its own stream, so a request
+with a seed reproduces its samples whatever else runs. Every draw is a
+kernel launch that reads the counters on the device, so the steps that
+draw are captured and replayed as CUDA graphs. `categorical_from_dist`,
+`uniform_draws` and `gumbel_draws` are the draws of speculative sampling
+(a draft's sample, the acceptance uniforms, the residual resample, a
+WOR tree's Gumbel top-k), from the same per-slot streams.
 """
 
 from __future__ import annotations
@@ -20,8 +23,40 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SamplerConfig
+from ..ops.sample import sample_categorical, sample_gumbel, sample_uniform
 
 NEG_INF = -1e30
+
+
+def _int64(seed: int) -> int:
+    """A seed as the int64 whose bits are seed mod 2^64."""
+    seed %= 1 << 64
+    return seed - (1 << 64) if seed >= 1 << 63 else seed
+
+
+class DrawState:
+    """Per-slot Philox streams (ops/sample.py): seed [S] and counter [S]
+    int64 on the device. A slot's draws depend on its seed, its counter
+    and the value's index alone; every draw call advances the counter of
+    every slot by the rows it drew for it."""
+
+    def __init__(self, seed: torch.Tensor, counter: torch.Tensor):
+        self.seed, self.counter = seed, counter
+
+    @classmethod
+    def create(cls, n_slots: int, device: str | torch.device = "cpu",
+               seeds=0) -> "DrawState":
+        """seeds: one int for every slot, or one a slot."""
+        seeds = ([seeds] * n_slots if isinstance(seeds, int)
+                 else list(seeds))
+        return cls(torch.tensor([_int64(s) for s in seeds],
+                                dtype=torch.int64, device=device),
+                   torch.zeros(n_slots, dtype=torch.int64, device=device))
+
+    def reset_slot(self, slot: int, seed: int) -> None:
+        """A new stream for `slot`: its seed, its counter at 0."""
+        self.seed[slot] = _int64(seed)
+        self.counter[slot] = 0
 
 
 class PenaltyState:
@@ -153,12 +188,16 @@ def sample_logits(logits: torch.Tensor, cfg: SamplerConfig,
                   state: PenaltyState | None = None,
                   vocab_size: int | None = None, eos_id: int | None = None,
                   nl_id: int | None = None,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """Full chain -> sampled token ids [S] (int64)."""
+                  draws: DrawState | None = None) -> torch.Tensor:
+    """Full chain -> sampled token ids [S] (int64). A sampled chain draws
+    from `draws` (its rows split over its slots; default a one-slot
+    stream seeded with cfg.seed)."""
     dist = sample_dist(logits, cfg, state, vocab_size, eos_id, nl_id)
     if cfg.temperature <= 0.0:
         return torch.argmax(dist, dim=-1)
-    return torch.multinomial(dist, 1, generator=generator)[:, 0]
+    if draws is None:
+        draws = DrawState.create(1, dist.device, cfg.seed)
+    return categorical_from_dist(dist, draws)
 
 
 def sample_dist_batched(logits: torch.Tensor, temperature: torch.Tensor,
@@ -224,7 +263,7 @@ def sample_dist_batched(logits: torch.Tensor, temperature: torch.Tensor,
 
 def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
                           top_k: torch.Tensor, top_p: torch.Tensor,
-                          generators: list[torch.Generator | None],
+                          draws: DrawState | None,
                           state: PenaltyState | None = None,
                           penalty_repeat: torch.Tensor | None = None,
                           penalty_freq: torch.Tensor | None = None,
@@ -232,14 +271,13 @@ def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
                           max_top_k: int = 64,
                           vocab_size: int | None = None) -> torch.Tensor:
     """Per-slot sampling with tensor parameters [S] -> token ids [S]
-    (int64). Slot i draws from generators[i]; a slot whose generator is
-    None takes the argmax of its distribution without a draw (the caller
-    passes None for greedy slots, temperature <= 0, so the host needs no
-    look at the device to know which slots draw)."""
+    (int64). Row i draws from slot i's stream of `draws`; a greedy slot
+    (temperature <= 0) has a one-hot distribution, whose draw is its
+    argmax. draws None: every slot is greedy, and nothing is drawn."""
     probs = sample_dist_batched(logits, temperature, top_k, top_p, state,
                                 penalty_repeat, penalty_freq,
                                 penalty_present, max_top_k, vocab_size)
-    return categorical_from_dist(probs, generators)
+    return categorical_from_dist(probs, draws)
 
 
 def draft_probs(logits: torch.Tensor, top_k: int, temperature: float
@@ -250,25 +288,31 @@ def draft_probs(logits: torch.Tensor, top_k: int, temperature: float
     return torch.softmax(vals / max(temperature, 1e-6), dim=-1), ids
 
 
-def categorical_from_dist(dist: torch.Tensor,
-                          generators: list[torch.Generator | None]
+def categorical_from_dist(dist: torch.Tensor, draws: DrawState | None
                           ) -> torch.Tensor:
-    """One draw per row of the normalized distributions dist [S, V] ->
-    token ids [S] (int64). Row i draws from generators[i]; a row whose
-    generator is None (a greedy slot: its distribution is one-hot) takes
-    its argmax without a draw."""
-    tokens = torch.argmax(dist, dim=-1)
-    for i, gen in enumerate(generators):
-        if gen is not None:
-            tokens[i] = torch.multinomial(dist[i], 1, generator=gen)[0]
-    return tokens
+    """One draw per row of the distributions dist [R, V] -> token ids [R]
+    (int64), from the streams of `draws` (R / S rows a slot, slot-major).
+    A one-hot row (a greedy slot) draws its argmax. draws None: every row
+    takes its argmax without a draw."""
+    if draws is None:
+        return torch.argmax(dist, dim=-1)
+    return sample_categorical(dist.float().contiguous(), draws.seed,
+                              draws.counter)
 
 
-def uniform_draws(generators: list[torch.Generator | None], n: int,
+def uniform_draws(draws: DrawState | None, rows: int, n: int,
                   device: torch.device) -> torch.Tensor:
-    """[S, n] uniform draws in [0, 1), row i from generators[i]; zeros for
-    a row without a generator."""
-    rows = [torch.zeros(n, device=device) if gen is None
-            else torch.rand(n, generator=gen, device=device)
-            for gen in generators]
-    return torch.stack(rows)
+    """[rows, n] uniform draws in [0, 1) (rows / S a slot); zeros
+    without draws."""
+    if draws is None:
+        return torch.zeros(rows, n, device=device)
+    return sample_uniform(draws.seed, draws.counter, rows, n)
+
+
+def gumbel_draws(draws: DrawState | None, rows: int, n: int,
+                 device: torch.device) -> torch.Tensor:
+    """[rows, n] Gumbel(0, 1) draws (rows / S a slot); zeros without
+    draws."""
+    if draws is None:
+        return torch.zeros(rows, n, device=device)
+    return sample_gumbel(draws.seed, draws.counter, rows, n)

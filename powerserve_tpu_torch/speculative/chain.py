@@ -19,12 +19,14 @@ Per speculative step, with draft length k:
 Chain drafting keeps every K/V position sequential, so accepted entries
 are already where they belong and the losers roll back with one masked
 rollback. The JAX package runs the steps inside one lax.scan. Here a
-greedy step (its k + 1 draft forwards, the verify, the accept count and
-both rollbacks) is one CUDA graph, replayed once per step
-(engine/graphs.py); speculative sampling draws from per-slot generators
-between the draft forwards and stays a Python loop of eager steps. Both
-keep acceptance, counts and rollback on the device and read the host
-once per block.
+step (its k + 1 draft forwards, the verify, the accept count and both
+rollbacks) is one CUDA graph, replayed once per step (engine/graphs.py):
+chain_spec_scan's greedy step, or the scheduler's step over its buffers
+(sample_step: greedy, or with draws from per-slot Philox streams
+through csrc/sample.cu, launches a graph captures);
+chain_spec_sample_scan is the eager loop of the same steps. All keep
+acceptance, counts and rollback on the device and read the host once
+per block.
 
 Self-drafting (LayerSkip): the draft is the target's own first n layers
 with the shared final norm and lm_head (`self_draft_model`), costing n/L
@@ -51,12 +53,12 @@ from ..engine.graphs import graphs_of, steps_capacity
 from ..kv.cache import KVCache
 from ..kv.paged import PagedKVCache
 from ..models.llama import LlamaModel
-from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
-                                uniform_draws)
+from ..sampling.sampler import (DrawState, categorical_from_dist,
+                                sample_dist_batched, uniform_draws)
 from .engine import SpecStats
 
 __all__ = ["chain_spec_scan", "chain_spec_sample_scan", "ChainSpecEngine",
-           "greedy_sample_step", "self_draft_config", "self_draft_model",
+           "sample_step", "self_draft_config", "self_draft_model",
            "with_draft_head", "draft_fuse"]
 
 # drafts this shallow are launch-bound: they run the fused layer chain
@@ -165,7 +167,7 @@ def chain_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
 def chain_spec_sample_scan(target: LlamaModel, draft: LlamaModel,
                            t_kv: KVCache, d_kv: KVCache, root: torch.Tensor,
                            n_steps: int, k: int, active: torch.Tensor,
-                           generators: list[torch.Generator | None],
+                           draws: DrawState | None,
                            temp: torch.Tensor, top_k: torch.Tensor,
                            top_p: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor,
@@ -173,15 +175,16 @@ def chain_spec_sample_scan(target: LlamaModel, draft: LlamaModel,
     """n_steps steps of speculative sampling over a batch of slots.
 
     root int64 [S]; active bool [S]; temp/top_k/top_p [S] the slots'
-    sampler settings; generators[i] the generator slot i draws from (None
-    for a slot at temperature <= 0, which draws nothing). Returns
+    sampler settings; draws the slots' streams (None: every slot is at
+    temperature <= 0 and nothing is drawn; a greedy slot's one-hot
+    distributions make its draws the greedy scheme's). Returns
     (emitted [n_steps, S, k + 1], counts [n_steps, S], root [S]): each
     row holds the accepted drafts, then the resampled or bonus token, -1
     beyond its count (and everywhere for inactive slots)."""
     emitted, counts = [], []
     for _ in range(n_steps):
         emit, count, root = _sample_step(target, draft, t_kv, d_kv, root, k,
-                                         active, generators, temp, top_k,
+                                         active, draws, temp, top_k,
                                          top_p)
         emitted.append(emit)
         counts.append(count)
@@ -190,8 +193,7 @@ def chain_spec_sample_scan(target: LlamaModel, draft: LlamaModel,
 
 def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
                  d_kv: KVCache, root: torch.Tensor, k: int,
-                 active: torch.Tensor,
-                 generators: list[torch.Generator | None],
+                 active: torch.Tensor, draws: DrawState | None,
                  temp: torch.Tensor, top_k: torch.Tensor,
                  top_p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
@@ -213,7 +215,7 @@ def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
         if j < k:
             q = sample_dist_batched(logits[:, :V], temp, top_k, top_p,
                                     vocab_size=V)
-            tok = categorical_from_dist(q, generators)
+            tok = categorical_from_dist(q, draws)
             fed.append(tok)
             qs.append(q)
     fed = torch.stack(fed, dim=1)  # [S, k+1]
@@ -229,7 +231,7 @@ def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     d = fed[:, 1:]
     p_at_d = p[:, :k].gather(2, d[..., None])[..., 0]
     q_at_d = q_d.gather(2, d[..., None])[..., 0]
-    u = uniform_draws(generators, k, dev)
+    u = uniform_draws(draws, S, k, dev)
     accept = (u * q_at_d < p_at_d).long()
     n_acc = accept.cumprod(dim=1).sum(dim=1)  # [S]
     # 4. resample: the residual (p - q)^+ at the rejected position, p
@@ -242,7 +244,7 @@ def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     rsum = residual.sum(dim=-1, keepdim=True)
     residual = torch.where(rsum > 1e-12,
                            residual / torch.clamp(rsum, min=1e-30), p_sel)
-    new_root = torch.where(active, categorical_from_dist(residual, generators),
+    new_root = torch.where(active, categorical_from_dist(residual, draws),
                            root)
     emit = torch.where(
         lanes[None, :] < n_acc[:, None],
@@ -256,21 +258,21 @@ def _sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
             torch.where(active, n_acc + 1, 0), new_root)
 
 
-def greedy_sample_step(target: LlamaModel, draft: LlamaModel,
-                       t_kv: KVCache, d_kv: KVCache, bufs: dict, k: int):
-    """The body of one chain_spec_sample_scan step over slots that all
-    decode greedily (every generator None: nothing is drawn, so the step
-    replays as one CUDA graph). Reads bufs root, active, temp, top_k and
-    top_p ([S]); writes the step's emitted [S, k + 1] and counts [S] to
-    row `step` of bufs spec_emitted [H, S, k + 1] and spec_counts [H, S],
-    and the next root to bufs root."""
+def sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
+                d_kv: KVCache, bufs: dict, k: int,
+                draws: DrawState | None):
+    """The body of one chain_spec_sample_scan step over the scheduler's
+    buffers, replayed as one CUDA graph: reads bufs root, active, temp,
+    top_k and top_p ([S]); writes the step's emitted [S, k + 1] and
+    counts [S] to row `step` of bufs spec_emitted [H, S, k + 1] and
+    spec_counts [H, S], and the next root to bufs root. Its draws come
+    from `draws` (None: every slot greedy, nothing drawn)."""
     b = bufs
     step = b["step"]
-    gens = [None] * b["root"].shape[0]
 
     def body():
         emit, count, root = _sample_step(
-            target, draft, t_kv, d_kv, b["root"], k, b["active"], gens,
+            target, draft, t_kv, d_kv, b["root"], k, b["active"], draws,
             b["temp"], b["top_k"], b["top_p"])
         b["spec_emitted"].index_copy_(0, step, emit[None])
         b["spec_counts"].index_copy_(0, step, count[None])

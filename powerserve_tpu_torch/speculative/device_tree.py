@@ -33,8 +33,10 @@ The JAX package runs the steps inside one lax.scan (its window-KV route
 is not ported: the port commits every step). Here a greedy step, every
 level's forward, the top-k assignments, the verify, the acceptance walk,
 the rollbacks and the commits, is one CUDA graph, replayed once per step
-(engine/graphs.py); sampled steps draw from per-slot torch.Generators and
-run eagerly. Both read the host once per block.
+(engine/graphs.py); so is the scheduler's sampled step (tree_sample_body),
+whose draws come from per-slot Philox streams through csrc/sample.cu;
+tree_spec_scan(sample=...) runs the same steps eagerly. All read the host
+once per block.
 
 Trees raise tokens per step over chains at equal verify cost: siblings
 hedge the draft across its top-k at each depth, so one mispredicted
@@ -53,11 +55,13 @@ from ..core.config import ModelConfig
 from ..engine.graphs import graphs_of, steps_capacity
 from ..kv.cache import KVCache
 from ..models.llama import DECODE_MAX_TQ, LlamaModel
-from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
+from ..sampling.sampler import (DrawState, categorical_from_dist,
+                                gumbel_draws, sample_dist_batched,
                                 uniform_draws)
 from .chain import ChainSpecEngine, draft_fuse
 
 __all__ = ["TreeTemplate", "tree_spec_scan", "tree_sample_step",
+           "tree_sample_body",
            "DeviceTreeEngine", "MAX_NODES"]
 
 # a verify is one forward over every node, and decode-sized forwards
@@ -310,23 +314,16 @@ def _greedy_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     return body, bufs
 
 
-def _gumbel(generators: list[torch.Generator | None], shape: tuple,
+def _gumbel(draws: DrawState | None, S: int, n: int, V: int,
             device: torch.device) -> torch.Tensor:
-    """[S, *shape] Gumbel(0, 1) draws, row i from generators[i]; zeros
-    for a row without a generator."""
-    rows = []
-    for gen in generators:
-        if gen is None:
-            rows.append(torch.zeros(shape, device=device))
-        else:
-            u = torch.rand(shape, generator=gen, device=device)
-            rows.append(-torch.log(-torch.log(u.clamp(min=1e-20))))
-    return torch.stack(rows)
+    """[S, n, V] Gumbel(0, 1) draws, slot i's n rows from its stream;
+    zeros without draws."""
+    return gumbel_draws(draws, S * n, V, device).reshape(S, n, V)
 
 
 def _wor_accept_walk(tokens: torch.Tensor, q_dists: torch.Tensor,
                      p_dists: torch.Tensor, k: _Consts, active: torch.Tensor,
-                     generators: list, root: torch.Tensor) -> tuple:
+                     draws: DrawState | None, root: torch.Tensor) -> tuple:
     """Recursive-rejection acceptance over rank-ordered WOR candidates:
     a child t is accepted with probability min(1, p_t(x_t) / q_t(x_t));
     on its rejection p_{t+1} = norm((p_t - q_t)^+) and q_{t+1} = norm(q_t
@@ -347,7 +344,7 @@ def _wor_accept_walk(tokens: torch.Tensor, q_dists: torch.Tensor,
     for _ in range(tpl.max_depth):
         cand = k.child_tab[cur]  # [S, Cmax] rank order
         q_t = q_dists[srows, cur]  # [S, V]
-        u = uniform_draws(generators, tpl.max_children, dev)
+        u = uniform_draws(draws, S, tpl.max_children, dev)
         accepted = torch.zeros(S, dtype=torch.bool, device=dev)
         chosen = cur
         for t in range(tpl.max_children):
@@ -372,7 +369,7 @@ def _wor_accept_walk(tokens: torch.Tensor, q_dists: torch.Tensor,
             q_z = torch.where(qs > 1e-12, q_z / torch.clamp(qs, min=1e-30),
                               q_z)
             q_t = torch.where(rej, q_z, q_t)
-        res = categorical_from_dist(p_res, generators)
+        res = categorical_from_dist(p_res, draws)
         final_tok = torch.where(alive & ~accepted, res, final_tok)
         chain.append(torch.where(accepted, chosen, -1))
         p_next = p_dists[srows, chosen]
@@ -380,21 +377,20 @@ def _wor_accept_walk(tokens: torch.Tensor, q_dists: torch.Tensor,
         cur = torch.where(accepted, chosen, cur)
         alive = alive & accepted
     # a leaf (or a whole accepted path) emits the bonus or residual
-    res = categorical_from_dist(p_res, generators)
+    res = categorical_from_dist(p_res, draws)
     final_tok = torch.where(alive, res, final_tok)
     return torch.stack(chain, dim=1), final_tok
 
 
 def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
                      d_kv: KVCache, tpl: TreeTemplate, root: torch.Tensor,
-                     active: torch.Tensor,
-                     generators: list[torch.Generator | None],
+                     active: torch.Tensor, draws: DrawState | None,
                      temp: torch.Tensor, top_k: torch.Tensor,
                      top_p: torch.Tensor, wor: bool = False,
                      mask0: torch.Tensor | None = None) -> tuple:
     """One tree step over a batch of slots with their sampler settings
-    ([S] each; generators[i] None for a slot at temperature <= 0, which
-    draws nothing). By default greedy top-k children, a child accepted
+    ([S] each) and streams (draws; None: every slot at temperature <= 0,
+    nothing drawn). By default greedy top-k children, a child accepted
     when its token equals the target's sample after its parent; with
     wor, children drawn without replacement from the draft's
     distribution and recursive-rejection acceptance. mask0: a buffer for
@@ -426,7 +422,7 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
         lev = k.levels[d]
         q_rows = dists(logits, len(lev))
         q_dists[:, lev] = q_rows
-        g = _gumbel(generators, (len(lev), V), dev)
+        g = _gumbel(draws, S, len(lev), V, dev)
         scores = torch.where(q_rows > 0, torch.log(q_rows) + g,
                              float("-inf"))
         return torch.topk(scores, w, dim=-1).indices
@@ -440,7 +436,7 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     p = dists(logits, N)
     if wor:
         chain_m, final_tok = _wor_accept_walk(tokens, q_dists, p, k, active,
-                                              generators, root)
+                                              draws, root)
         acc_toks = torch.where(chain_m[:, 1:] >= 0,
                                tokens.gather(1, chain_m[:, 1:].clamp(min=0)),
                                -1)
@@ -451,9 +447,8 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
         emit = torch.where(lane == n_acc[:, None], final_tok[:, None], emit)
         new_root = torch.where(active, final_tok, root)
     else:
-        rows = [g for g in generators for _ in range(N)]
         sampled = categorical_from_dist(p.reshape(S * N, V),
-                                        rows).reshape(S, N)
+                                        draws).reshape(S, N)
         chain_m = _greedy_walk(k, tokens, sampled)
         emit = torch.where(chain_m >= 0,
                            sampled.gather(1, chain_m.clamp(min=0)), -1)
@@ -464,22 +459,21 @@ def tree_sample_step(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     return torch.where(act, emit, -1), count, new_root
 
 
-def greedy_tree_sample_step(target: LlamaModel, draft: LlamaModel,
-                            t_kv: KVCache, d_kv: KVCache, bufs: dict,
-                            tpl: TreeTemplate, wor: bool = False):
-    """The body of one tree_sample_step over slots that all decode
-    greedily (every generator None: nothing is drawn, so the step replays
-    as one CUDA graph). Reads bufs root, active, temp, top_k and top_p
-    ([S]) and the mask buffer mask0 ([S, T]); writes the step's emitted
-    [S, D + 1] and counts [S] to row `step` of bufs spec_emitted [H, S,
-    D + 1] and spec_counts [H, S], and the next root to bufs root."""
+def tree_sample_body(target: LlamaModel, draft: LlamaModel,
+                     t_kv: KVCache, d_kv: KVCache, bufs: dict,
+                     tpl: TreeTemplate, wor: bool, draws: DrawState | None):
+    """The body of one tree_sample_step over the scheduler's buffers,
+    replayed as one CUDA graph: reads bufs root, active, temp, top_k and
+    top_p ([S]) and the mask buffer mask0 ([S, T]); writes the step's
+    emitted [S, D + 1] and counts [S] to row `step` of bufs spec_emitted
+    [H, S, D + 1] and spec_counts [H, S], and the next root to bufs root.
+    Its draws come from `draws` (None: every slot greedy)."""
     b = bufs
     step = b["step"]
-    gens = [None] * b["root"].shape[0]
 
     def body():
         emit, count, root = tree_sample_step(
-            target, draft, t_kv, d_kv, tpl, b["root"], b["active"], gens,
+            target, draft, t_kv, d_kv, tpl, b["root"], b["active"], draws,
             b["temp"], b["top_k"], b["top_p"], wor, b["mask0"])
         b["spec_emitted"].index_copy_(0, step, emit[None])
         b["spec_counts"].index_copy_(0, step, count[None])
@@ -494,7 +488,7 @@ def tree_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
                    d_kv: KVCache, root: torch.Tensor, n_steps: int,
                    template: TreeTemplate,
                    active: torch.Tensor | None = None,
-                   generators: list[torch.Generator | None] | None = None,
+                   draws: DrawState | None = None,
                    temp: torch.Tensor | None = None,
                    top_k: torch.Tensor | None = None,
                    top_p: torch.Tensor | None = None,
@@ -506,8 +500,9 @@ def tree_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
     (default all). sample False: greedy drafting and verification, each
     step a replay of one CUDA graph (kept with t_kv); True: exact-match
     acceptance against the target's samples; "wor": draws without
-    replacement and recursive rejection (tree_sample_step; generators,
-    temp, top_k and top_p [S] the slots' sampler settings), eager.
+    replacement and recursive rejection (tree_sample_step; draws the
+    slots' streams, temp, top_k and top_p [S] their sampler settings),
+    eager.
     Returns (emitted [n_steps, S, D + 1], counts [n_steps, S], root [S])
     on the device: step i emitted emitted[i, s, :counts[i, s]]."""
     S, dev = root.shape[0], root.device
@@ -518,7 +513,7 @@ def tree_spec_scan(target: LlamaModel, draft: LlamaModel, t_kv: KVCache,
         for _ in range(n_steps):
             emit, count, root = tree_sample_step(
                 target, draft, t_kv, d_kv, template, root, active,
-                generators, temp, top_k, top_p, sample == "wor")
+                draws, temp, top_k, top_p, sample == "wor")
             emitted.append(emit)
             counts.append(count)
         return torch.stack(emitted), torch.stack(counts), root

@@ -44,9 +44,11 @@ rank's TPComm, and rank 0's TPEagleHead runs eagle_forward on every rank
 
 The JAX package runs the steps inside one lax.scan (its window-KV
 routes for both caches are not ported: the port commits every step).
-Here a greedy step is one CUDA graph replayed once per step
-(engine/graphs.py); sampled steps draw from per-slot generators and run
-eagerly.
+Here a step is one CUDA graph replayed once per step
+(engine/graphs.py): the scans' greedy steps, and the scheduler's steps
+over its buffers (eagle_sample_body), whose draws come from per-slot
+Philox streams through csrc/sample.cu; eagle_spec_scan and
+eagle_tree_spec_scan with sample= run the same steps eagerly.
 """
 
 from __future__ import annotations
@@ -65,15 +67,15 @@ from ..ops.elementwise import rope_cos_sin
 from ..ops.flash_decode import pack_intra
 from ..ops.fused import fused_linear
 from ..ops.qmatmul import QLinear, qmatmul
-from ..sampling.sampler import (categorical_from_dist, sample_dist_batched,
-                                uniform_draws)
+from ..sampling.sampler import (DrawState, categorical_from_dist,
+                                sample_dist_batched, uniform_draws)
 from .chain import ChainSpecEngine, _verify_update
 from .device_tree import (TreeTemplate, _Consts, _consts_of, _greedy_walk,
                           _gumbel, _wor_accept_walk)
 
 __all__ = ["EagleHead", "eagle_forward", "eagle_spec_scan",
            "eagle_tree_spec_scan", "eagle_sample_step",
-           "eagle_tree_sample_step", "greedy_eagle_sample_step",
+           "eagle_tree_sample_step", "eagle_sample_body",
            "EagleChainEngine", "with_lm_head_lr", "replica_head"]
 
 
@@ -344,12 +346,12 @@ def _greedy_chain_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
 def eagle_sample_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
                       e_kv: KVCache, root: torch.Tensor,
                       root_feat: torch.Tensor, k: int, active: torch.Tensor,
-                      generators: list[torch.Generator | None],
+                      draws: DrawState | None,
                       temp: torch.Tensor, top_k: torch.Tensor,
                       top_p: torch.Tensor) -> tuple:
     """One step of EAGLE speculative sampling over a batch of slots with
-    their sampler settings ([S] each; generators[i] None for a slot at
-    temperature <= 0, which draws nothing and is greedy): the head
+    their sampler settings ([S] each) and streams (draws; None: every
+    slot at temperature <= 0, greedy, nothing drawn): the head
     samples each draft from its own distribution q, a draft is accepted
     with probability min(1, p/q), and the first rejection resamples from
     the residual (p - q)^+. Returns (emitted [S, k + 1] (-1 past each
@@ -367,7 +369,7 @@ def eagle_sample_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
         q = sample_dist_batched(logits[:, :V], temp, top_k, top_p,
                                 vocab_size=V)
         qs.append(q)
-        return categorical_from_dist(q, generators)
+        return categorical_from_dist(q, draws)
 
     fed = torch.stack(_draft_chain(head, e_kv, root, root_feat, k, active,
                                    "last", pick), dim=1)
@@ -384,7 +386,7 @@ def eagle_sample_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
     d = fed[:, 1:]
     p_at_d = p[:, :k].gather(2, d[..., None])[..., 0]
     q_at_d = q_d.gather(2, d[..., None])[..., 0]
-    u = uniform_draws(generators, k, dev)
+    u = uniform_draws(draws, S, k, dev)
     n_acc = (u * q_at_d < p_at_d).long().cumprod(dim=1).sum(dim=1)
     # the residual (p - q)^+ at the rejected position, p itself at the
     # bonus position (n_acc == k)
@@ -396,7 +398,7 @@ def eagle_sample_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
     rsum = residual.sum(dim=-1, keepdim=True)
     residual = torch.where(rsum > 1e-12,
                            residual / torch.clamp(rsum, min=1e-30), p_sel)
-    new_root = torch.where(active, categorical_from_dist(residual, generators),
+    new_root = torch.where(active, categorical_from_dist(residual, draws),
                            root)
     emit = torch.where(lanes[None, :] < n_acc[:, None],
                        torch.cat([d, torch.zeros_like(d[:, :1])], dim=1),
@@ -410,24 +412,23 @@ def eagle_sample_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
             new_root, new_feat)
 
 
-def greedy_eagle_sample_step(target: LlamaModel, head: EagleHead,
-                             t_kv: KVCache, e_kv: KVCache, bufs: dict,
-                             k: int, template: TreeTemplate | None = None,
-                             wor: bool = False):
+def eagle_sample_body(target: LlamaModel, head: EagleHead, t_kv: KVCache,
+                      e_kv: KVCache, bufs: dict, k: int,
+                      template: TreeTemplate | None, wor: bool,
+                      draws: DrawState | None):
     """The body of one eagle_sample_step (a chain of k), or with template
-    one eagle_tree_sample_step, over slots that all decode greedily
-    (every generator None: nothing is drawn, so the step replays as one
-    CUDA graph). Reads bufs root, feat, active, temp, top_k and top_p;
+    one eagle_tree_sample_step, over the scheduler's buffers, replayed as
+    one CUDA graph. Reads bufs root, feat, active, temp, top_k and top_p;
     writes the step's emitted and counts to row `step` of bufs
     spec_emitted [H, S, width] and spec_counts [H, S], the next root and
-    its feature to bufs root and feat."""
+    its feature to bufs root and feat. Its draws come from `draws` (None:
+    every slot greedy, nothing drawn)."""
     b = bufs
     step = b["step"]
-    gens = [None] * b["root"].shape[0]
 
     def body():
         args = (b["root"], b["feat"])
-        sets = (b["active"], gens, b["temp"], b["top_k"], b["top_p"])
+        sets = (b["active"], draws, b["temp"], b["top_k"], b["top_p"])
         if template is None:
             emit, count, root, feat = eagle_sample_step(
                 target, head, t_kv, e_kv, *args, k, *sets)
@@ -460,7 +461,7 @@ def eagle_spec_scan(target: LlamaModel, head: EagleHead, t_kv: KVCache,
                     e_kv: KVCache, root: torch.Tensor,
                     root_feat: torch.Tensor, n_steps: int, k: int,
                     active: torch.Tensor | None = None,
-                    generators: list[torch.Generator | None] | None = None,
+                    draws: DrawState | None = None,
                     temp: torch.Tensor | None = None,
                     top_k: torch.Tensor | None = None,
                     top_p: torch.Tensor | None = None,
@@ -472,8 +473,8 @@ def eagle_spec_scan(target: LlamaModel, head: EagleHead, t_kv: KVCache,
     feature at c - 1 (the one whose logits gave the root); active: bool
     [S] (default all). sample False: greedy drafts and acceptance, each
     step a replay of one CUDA graph (kept with t_kv); True: speculative
-    sampling (eagle_sample_step; generators, temp, top_k and top_p [S]
-    the slots' settings), eager. Returns (emitted [n_steps, S, k + 1],
+    sampling (eagle_sample_step; draws the slots' streams, temp, top_k
+    and top_p [S] their settings), eager. Returns (emitted [n_steps, S, k + 1],
     counts [n_steps, S], root [S], root_feat [S, dim]) on the device:
     step i emitted emitted[i, s, :counts[i, s]]."""
     S, dev = root.shape[0], root.device
@@ -484,7 +485,7 @@ def eagle_spec_scan(target: LlamaModel, head: EagleHead, t_kv: KVCache,
         for _ in range(n_steps):
             emit, count, root, root_feat = eagle_sample_step(
                 target, head, t_kv, e_kv, root, root_feat, k, active,
-                generators, temp, top_k, top_p)
+                draws, temp, top_k, top_p)
             emitted.append(emit)
             counts.append(count)
         return torch.stack(emitted), torch.stack(counts), root, root_feat
@@ -607,13 +608,12 @@ def _greedy_tree_step(target: LlamaModel, head: EagleHead, t_kv: KVCache,
 def eagle_tree_sample_step(target: LlamaModel, head: EagleHead,
                            t_kv: KVCache, e_kv: KVCache, tpl: TreeTemplate,
                            root: torch.Tensor, root_feat: torch.Tensor,
-                           active: torch.Tensor,
-                           generators: list[torch.Generator | None],
+                           active: torch.Tensor, draws: DrawState | None,
                            temp: torch.Tensor, top_k: torch.Tensor,
                            top_p: torch.Tensor, wor: bool = False) -> tuple:
     """One EAGLE tree step over a batch of slots with their sampler
-    settings ([S] each; generators[i] None for a slot at temperature <=
-    0). By default the head's top-k children, a child accepted when its
+    settings ([S] each) and streams (draws; None: every slot at
+    temperature <= 0). By default the head's top-k children, a child accepted when its
     token equals the target's sample after its parent; with wor, children
     drawn without replacement from the head's distribution and
     recursive-rejection acceptance. Returns (emitted [S, D + 1], counts
@@ -641,7 +641,7 @@ def eagle_tree_sample_step(target: LlamaModel, head: EagleHead,
         lev = k.levels[d]
         q_rows = dists(logits, len(lev))
         q_dists[:, lev] = q_rows
-        g = _gumbel(generators, (len(lev), V), dev)
+        g = _gumbel(draws, S, len(lev), V, dev)
         scores = torch.where(q_rows > 0, torch.log(q_rows) + g,
                              float("-inf"))
         return torch.topk(scores, w, dim=-1).indices
@@ -656,7 +656,7 @@ def eagle_tree_sample_step(target: LlamaModel, head: EagleHead,
     p = dists(logits, N)
     if wor:
         chain_m, final_tok = _wor_accept_walk(tokens, q_dists, p, k, active,
-                                              generators, root)
+                                              draws, root)
         acc_toks = torch.where(chain_m[:, 1:] >= 0,
                                tokens.gather(1, chain_m[:, 1:].clamp(min=0)),
                                -1)
@@ -667,9 +667,8 @@ def eagle_tree_sample_step(target: LlamaModel, head: EagleHead,
         emit = torch.where(lane == n_acc[:, None], final_tok[:, None], emit)
         new_root = torch.where(active, final_tok, root)
     else:
-        rows = [g for g in generators for _ in range(N)]
         sampled = categorical_from_dist(p.reshape(S * N, V),
-                                        rows).reshape(S, N)
+                                        draws).reshape(S, N)
         chain_m = _greedy_walk(k, tokens, sampled)
         emit = torch.where(chain_m >= 0,
                            sampled.gather(1, chain_m.clamp(min=0)), -1)
@@ -691,7 +690,7 @@ def eagle_tree_spec_scan(target: LlamaModel, head: EagleHead, t_kv: KVCache,
                          root_feat: torch.Tensor, n_steps: int,
                          template: TreeTemplate,
                          active: torch.Tensor | None = None,
-                         generators: list | None = None,
+                         draws: DrawState | None = None,
                          temp: torch.Tensor | None = None,
                          top_k: torch.Tensor | None = None,
                          top_p: torch.Tensor | None = None,
@@ -710,7 +709,7 @@ def eagle_tree_spec_scan(target: LlamaModel, head: EagleHead, t_kv: KVCache,
         for _ in range(n_steps):
             emit, count, root, root_feat = eagle_tree_sample_step(
                 target, head, t_kv, e_kv, template, root, root_feat, active,
-                generators, temp, top_k, top_p, sample == "wor")
+                draws, temp, top_k, top_p, sample == "wor")
             emitted.append(emit)
             counts.append(count)
         return torch.stack(emitted), torch.stack(counts), root, root_feat

@@ -132,6 +132,68 @@ def test_qmatmul_gemm_same_bits_every_run(dev, fmt, pack):
     _close(a, qmatmul_reference(x, lin))
 
 
+# the inverse CDF's slack: the kernel's block scan and torch.cumsum add
+# the f32 values in other orders, so a draw may differ only where u *
+# total lies this close to a CDF boundary (the f64 CDF at the smaller of
+# the two tokens)
+CDF_SLACK = 1e-3
+
+
+@pytest.mark.parametrize("V", [128256, 152064])
+def test_sample_kernel_matches_twin(dev, V):
+    """csrc/sample.cu against its twin at [8, V], 16 calls a mode (the
+    counters moving on): uniforms and Gumbel noise bit-equal, the
+    counters alike; categorical tokens equal but where u * total lies
+    within CDF_SLACK of a CDF boundary, at most 1% of the rows. The
+    rows: softmax at temperature 1 and 0.3, top-40 and top-p masked,
+    one-hot and unnormalized."""
+    from powerserve_tpu_torch.ops import sample as sm
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(V)
+    R = 8
+    logits = torch.randn(R, V, generator=g, device=dev) * 3
+    dist = torch.softmax(logits, dim=-1)
+    dist[1] = torch.softmax(logits[1] / 0.3, dim=-1)
+    kth = dist[2].topk(40).values[-1]
+    dist[2] = torch.where(dist[2] >= kth, dist[2], 0.0)
+    srt = dist[3].sort(descending=True)
+    keep = (srt.values.cumsum(0) - srt.values) < 0.9
+    dist[3] = torch.zeros_like(dist[3]).scatter(
+        0, srt.indices, torch.where(keep, srt.values, 0.0))
+    dist[4] = 0.0
+    dist[4, V - 7] = 1.0
+    dist[5] *= 3.5
+    seed = torch.tensor([3, -1, 2 ** 40, 7, 11, 13, 17, 19], device=dev)
+    counter = torch.arange(R, device=dev) * 5
+    for mode in ("uniform", "gumbel"):
+        fn = sm.sample_uniform if mode == "uniform" else sm.sample_gumbel
+        ref = (sm.uniform_reference if mode == "uniform"
+               else sm.gumbel_reference)
+        c1, c2 = counter.clone(), counter.clone()
+        for _ in range(16):
+            assert torch.equal(fn(seed, c1, R, V), ref(seed, c2, R, V)), mode
+        assert torch.equal(c1, c2) and torch.equal(c1, counter + 16)
+    c1, c2 = counter.clone(), counter.clone()
+    differ = 0
+    for _ in range(16):
+        c0 = c1.clone()
+        got = sm.sample_categorical(dist, seed, c1)
+        want = sm.categorical_reference(dist, seed, c2)
+        assert (dist.gather(1, got[:, None]) > 0).all()
+        assert int(got[4]) == V - 7
+        u = sm.unit_floats(sm.draw_words(seed, c0, torch.zeros_like(c0))[:, 0])
+        cdf = dist.double().cumsum(dim=-1)
+        for r in torch.nonzero(got != want)[:, 0].tolist():
+            lo = min(int(got[r]), int(want[r]))
+            t = float(u[r]) * float(cdf[r, -1])
+            assert abs(float(cdf[r, lo]) - t) < CDF_SLACK, (r, lo, t)
+            differ += 1
+    assert torch.equal(c1, c2)
+    assert differ <= 0.01 * 16 * R, differ
+    torch.cuda.synchronize()
+
+
 def _sync_free(fn):
     """fn() with every host-device synchronization an error."""
     torch.cuda.synchronize()
@@ -161,7 +223,8 @@ sched = BatchScheduler(model, cfg, hp, "cuda", draft=self_draft_model(
     model, 1) if sys.argv[2] == "chain" else None)
 for i in range(4):
     sched.submit(Request(prompt_ids=list(range(3 + i, 20 + i)),
-                         max_tokens=200, temperature=0.0))
+                         max_tokens=200, temperature=float(sys.argv[3]),
+                         seed=i))
 warm = 0  # admission, prefill, the eager tick, the capture, a replay
 while warm < 3:
     warm += all(s.req is not None and not s.prefilling for s in sched.slots)
@@ -177,10 +240,12 @@ print(len(copies), sched.pos_host == sched.kv.pos.tolist())
 
 
 @pytest.mark.parametrize("spec", ["plain", "chain"])
-def test_paged_tick_reads_the_card_once(dev, tmp_path, spec):
+@pytest.mark.parametrize("temperature", ["0.0", "0.8"])
+def test_paged_tick_reads_the_card_once(dev, tmp_path, spec, temperature):
     """A paged decode tick, plain or speculative (a 1-layer self-draft),
-    copies from the card to the host once: its fetch. The page grants
-    read the scheduler's host mirror of the positions."""
+    greedy or sampled (the draws on the card), copies from the card to
+    the host once: its fetch. The page grants read the scheduler's host
+    mirror of the positions."""
     import subprocess
     import sys
     from pathlib import Path
@@ -190,7 +255,8 @@ def test_paged_tick_reads_the_card_once(dev, tmp_path, spec):
     ws = make_synthetic_gguf(tmp_path, "tiny", GGMLType.Q8_0, seed=0,
                              seq_len=256)
     out = subprocess.run(
-        [sys.executable, "-c", TICK_COPIES, str(ws / "model"), spec],
+        [sys.executable, "-c", TICK_COPIES, str(ws / "model"), spec,
+         temperature],
         capture_output=True, text=True, timeout=600,
         cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr[-2000:]
@@ -1153,9 +1219,9 @@ def test_decode_scan_replay_matches_eager(dev, tmp_path, preset):
 @pytest.mark.parametrize("temperature", [0.0, 0.9])
 def test_engine_blocks_replay_match_eager(dev, tmp_path, preset,
                                          temperature):
-    """InferenceEngine.generate with replayed blocks (greedy: whole
-    steps; sampled: forward and distribution, the draw eager) against
-    the same engine settings with every step eager: the same tokens, a
+    """InferenceEngine.generate with replayed blocks (whole steps, the
+    sampled draw through csrc/sample.cu inside the graph) against the
+    same engine settings with every step eager: the same tokens, a
     stop mid-block rolled back alike, the cache and the penalty window
     bit for bit, the same launch counts."""
     from powerserve_tpu_torch.core.config import HyperParams
@@ -1213,9 +1279,10 @@ def _sched_requests(temperature):
 def test_scheduler_ticks_replay_match_eager(dev, tmp_path, preset, paged,
                                            temperature):
     """Three decode ticks of the scheduler (horizon 3; dense cache or
-    paged pool) replayed against the same ticks with every step eager:
+    paged pool; a slot at 0.8 draws through csrc/sample.cu inside the
+    graph) replayed against the same ticks with every step eager:
     tokens, logprobs and top logprobs, the cache and the penalty window
-    bit for bit, the same launch counts."""
+    bit for bit, the same launch counts (the draws' included)."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
 
@@ -1244,6 +1311,8 @@ def test_scheduler_ticks_replay_match_eager(dev, tmp_path, preset, paged,
         assert counts == eager
         _same_cache_bits(got.kv, want.kv)
         assert torch.equal(got.penalty.recent, want.penalty.recent)
+    got._drain()  # the last tick's results (double-buffered ticks)
+    want._drain()
     logprobs = [len(sl.req.token_logprobs) for sl in got.slots
                 if sl.req is not None and sl.req.logprobs]
     assert logprobs and all(n == 9 for n in logprobs)
@@ -1252,12 +1321,15 @@ def test_scheduler_ticks_replay_match_eager(dev, tmp_path, preset, paged,
 
 @pytest.mark.parametrize("preset", ["tiny", "tiny-k"])
 @pytest.mark.parametrize("paged", [False, True])
-def test_spec_ticks_replay_match_eager(dev, tmp_path, preset, paged):
-    """Three greedy spec ticks of the scheduler (a 1-layer self-draft,
-    k = 3, two steps a tick; dense cache or paged pool, whose verify
-    takes the deferred route) replayed against the same ticks eager: the
-    same emitted tokens and counts, both caches bit for bit, the same
-    launch counts."""
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_spec_ticks_replay_match_eager(dev, tmp_path, preset, paged,
+                                      temperature):
+    """Three spec ticks of the scheduler (a 1-layer self-draft, k = 3,
+    two steps a tick; dense cache or paged pool, whose verify takes the
+    deferred route; greedy, or with a slot at 0.8 whose draws go through
+    csrc/sample.cu inside the graph) replayed against the same ticks
+    eager: the same emitted tokens and counts, both caches bit for bit,
+    the same launch counts."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
     from powerserve_tpu_torch.speculative.chain import self_draft_model
@@ -1270,7 +1342,7 @@ def test_spec_ticks_replay_match_eager(dev, tmp_path, preset, paged):
                          paged_pages=40 if paged else 0, page_size=8)
         s = BatchScheduler(model, cfg, hp, device=dev,
                            draft=self_draft_model(model, 1))
-        for r in _sched_requests(0.0):
+        for r in _sched_requests(temperature):
             s.submit(Request(max_tokens=60, **r))
         s._admit()
         while s._prefill_tick():
@@ -1287,6 +1359,8 @@ def test_spec_ticks_replay_match_eager(dev, tmp_path, preset, paged):
         assert counts == eager
         _same_cache_bits(got.kv, want.kv)
         _same_cache_bits(got.d_kv, want.d_kv)
+    got._drain()  # the last tick's results (double-buffered ticks)
+    want._drain()
     assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
     _replays_without_sync(got.graphs)
 
@@ -1366,6 +1440,47 @@ def test_deleting_an_engine_frees_its_graph_pool(dev, tmp_path):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved(dev) == base
+
+
+def test_capture_beside_an_unreachable_graph(dev):
+    """A captured graph whose owner is left in a reference cycle, then a
+    capture whose body allocates enough objects for an automatic garbage
+    collection: the collection is held off until the capture ends
+    (destroying the old graph inside the capture would invalidate it),
+    the new step replays right, and the old graph goes at the next
+    collection."""
+    import gc
+    import weakref
+
+    from powerserve_tpu_torch.engine.graphs import StepGraphs
+
+    x = torch.zeros(4, device=dev)
+    old = StepGraphs(dev)
+    step = old.step(("add",), lambda: (lambda: x.add_(1), {}))
+    step()
+    step()  # captured, then replayed
+    assert step.graph is not None
+    gone = weakref.ref(old)
+
+    def body():
+        junk = [[] for _ in range(4 * gc.get_threshold()[0])]
+        del junk
+        return x.mul_(2)
+
+    new = StepGraphs(dev)
+    g = new.step(("mul",), lambda: (body, {}))
+    g()  # eager: (1 + 1) * 2
+    gc.collect()
+    holder = {"graphs": old}
+    holder["self"] = holder  # the old graphs reachable only from a cycle
+    del old, step, holder
+    g()  # captured (the cycle's collection held off), then replayed
+    assert g.graph is not None and gone() is not None
+    g()
+    torch.cuda.synchronize()
+    assert torch.equal(x.cpu(), torch.full((4,), 16.0))
+    gc.collect()
+    assert gone() is None
 
 
 # -- token-tree speculation: the tree mode of flash-decode and the replayed
@@ -1545,8 +1660,11 @@ def test_tree_steps_replay_match_eager(dev, tmp_path, preset, draft):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("wor", [False, True])
-def test_tree_ticks_replay_match_eager(dev, tmp_path, paged, wor):
-    """Three greedy tree ticks of the scheduler (spec_tree "2,1", a
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_tree_ticks_replay_match_eager(dev, tmp_path, paged, wor,
+                                      temperature):
+    """Three tree ticks of the scheduler, greedy or with a slot at 0.8
+    (its draws, Gumbel noise for WOR, inside the graph) (spec_tree "2,1", a
     1-layer self-draft, two steps a tick; the dense cache or the paged
     pool, whose verify takes the deferred route with the ancestor rows)
     replayed against the same ticks eager: the same emitted tokens and
@@ -1563,7 +1681,7 @@ def test_tree_ticks_replay_match_eager(dev, tmp_path, paged, wor):
                          paged_pages=40 if paged else 0, page_size=8)
         s = BatchScheduler(model, cfg, hp, device=dev,
                            draft=self_draft_model(model, 1))
-        for r in _sched_requests(0.0):
+        for r in _sched_requests(temperature):
             s.submit(Request(max_tokens=60, **r))
         s._admit()
         while s._prefill_tick():
@@ -1580,6 +1698,8 @@ def test_tree_ticks_replay_match_eager(dev, tmp_path, paged, wor):
         assert counts == eager
         _same_cache_bits(got.kv, want.kv)
         _same_cache_bits(got.d_kv, want.d_kv)
+    got._drain()  # the last tick's results (double-buffered ticks)
+    want._drain()
     assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
     _replays_without_sync(got.graphs)
 
@@ -1733,8 +1853,11 @@ def test_eagle_steps_replay_match_eager(dev, tmp_path, tree):
 
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("spec_tree", ["", "2,1"])
-def test_eagle_ticks_replay_match_eager(dev, tmp_path, paged, spec_tree):
-    """Three greedy EAGLE ticks of the scheduler (a chain of 3 or the
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_eagle_ticks_replay_match_eager(dev, tmp_path, paged, spec_tree,
+                                       temperature):
+    """Three EAGLE ticks of the scheduler, greedy or with a slot at 0.8
+    drawing inside the graph (a chain of 3 or the
     [2, 1] tree, two steps a tick; the dense cache or the paged pool)
     replayed against the same ticks eager: emitted tokens, counts, roots
     and carried features, both caches bit for bit, the same launch
@@ -1749,7 +1872,7 @@ def test_eagle_ticks_replay_match_eager(dev, tmp_path, paged, spec_tree):
                          spec_k=3, spec_tree=spec_tree, spec_horizon=2,
                          paged_pages=40 if paged else 0, page_size=8)
         s = BatchScheduler(model, cfg, hp, device=dev, eagle_head=head)
-        for r in _sched_requests(0.0):
+        for r in _sched_requests(temperature):
             s.submit(Request(max_tokens=60, **r))
         s._admit()
         while s._prefill_tick():
@@ -1766,6 +1889,8 @@ def test_eagle_ticks_replay_match_eager(dev, tmp_path, paged, spec_tree):
         assert counts == eager and counts["fused_concat2"] > 0
         _same_cache_bits(got.kv, want.kv)
         _same_cache_bits(got.d_kv, want.d_kv)
+    got._drain()  # the last tick's results (double-buffered ticks)
+    want._drain()
     assert got.n_spec_steps == want.n_spec_steps == 3 * 2 * 4
     _replays_without_sync(got.graphs)
 

@@ -42,7 +42,8 @@ from powerserve_tpu_torch.engine.generator import InferenceEngine
 from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
 from powerserve_tpu_torch.models.loader import load_eagle_gguf, load_gguf_model
-from powerserve_tpu_torch.sampling.sampler import sample_dist_batched
+from powerserve_tpu_torch.sampling.sampler import (DrawState,
+                                                   sample_dist_batched)
 from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
 from powerserve_tpu_torch.speculative.eagle import (EagleChainEngine,
@@ -444,7 +445,7 @@ def _prefilled(model, head, S, lengths):
 def test_greedy_step_equals_sampled_step_at_temperature_zero(ws, tree):
     """The greedy step body (argmax drafts, an argmax_all verify: what
     the graphs replay) against the sampled step with every slot at
-    temperature 0 and no generator (the scheduler's tick): the same
+    temperature 0 and no draws (the scheduler's tick): the same
     tokens, counts, roots and features, and both caches bit for bit;
     three slots, one inactive."""
     cfg, model = ws["port"]
@@ -452,7 +453,7 @@ def test_greedy_step_equals_sampled_step_at_temperature_zero(ws, tree):
     S, steps = 3, 3
     active = torch.tensor([True, False, True])
     zeros = torch.zeros(S)
-    sets = (active, [None] * S, zeros, torch.full((S,), 40), torch.ones(S))
+    sets = (active, None, zeros, torch.full((S,), 40), torch.ones(S))
     outs = []
     for sample in (False, True):
         t_kv, e_kv, root, feat = _prefilled(model, head, S, [7, 4, 11])
@@ -474,7 +475,7 @@ def test_greedy_step_equals_sampled_step_at_temperature_zero(ws, tree):
 
 
 def _gens(S, seed):
-    return [torch.Generator().manual_seed(seed + i) for i in range(S)]
+    return DrawState.create(S, "cpu", range(seed, seed + S))
 
 
 @pytest.mark.parametrize("sample", ["chain", True, "wor"])

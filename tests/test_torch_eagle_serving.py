@@ -145,10 +145,10 @@ def test_eagle_prefix_cache_carries_the_feature(tiny):
                                 dict(spec_tree="2,1", spec_wor=True)],
                          ids=["chain", "tree", "tree-wor"])
 def test_eagle_sampled_tick_reproduces(tiny, hp):
-    """A seeded request at temperature 0.8 next to a greedy one (the tick
-    runs eagerly, each slot drawing from its own generator): the same
-    seed gives the same tokens, and the greedy neighbour keeps its plain
-    reply."""
+    """A seeded request at temperature 0.8 next to a greedy one (the
+    sampled tick's graph, each slot drawing from its own stream): the
+    same seed gives the same tokens, and the greedy neighbour keeps its
+    plain reply."""
     cfg, model, _, engine = tiny
     runs = []
     for _ in range(2):
@@ -169,6 +169,43 @@ def test_eagle_sampled_tick_reproduces(tiny, hp):
     plain = BatchScheduler(model, cfg, HyperParams(
         max_slots=2, batch_size=8, max_seq_len=128), "cpu")
     _agree(runs[0][1], _stepwise(plain, [PROMPTS[1]])[0], PROMPTS[1], engine)
+
+
+@pytest.mark.parametrize("hp", [dict(spec_k=3), dict(spec_tree="2,1")],
+                         ids=["chain", "tree"])
+def test_eagle_seeded_request_alone_equals_beside_seven(tiny, hp):
+    """A seeded request at temperature 0.8 on an 8-slot EAGLE scheduler
+    gives the same reply alone and beside seven others, greedy and
+    sampled, admitted last into the last slot."""
+    cfg, model, head, _ = tiny
+    prompt = [6, 1, 8, 3, 4]
+    seeded = dict(temperature=0.8, seed=1234)
+    others = [([3, 17, 5], 0.0, None), ([8, 1, 1, 4, 6], 0.8, 5),
+              ([2, 2], 1.1, None), (list(range(10, 31)), 0.0, None),
+              ([9, 8, 7], 0.6, 77), ([40], 0.0, None),
+              ([12, 13, 14, 15], 0.9, None)]
+
+    def serve(reqs):
+        sched = BatchScheduler(model, cfg, HyperParams(
+            max_slots=8, batch_size=8, max_seq_len=128, **hp), "cpu",
+            eagle_head=head)
+        outs = [[] for _ in reqs]
+        done = []
+        for out, (p, temp, seed) in zip(outs, reqs):
+            sched.submit(Request(
+                prompt_ids=p, max_tokens=10, temperature=temp, seed=seed,
+                sink=lambda t, o=out: done.append(1) if t is None
+                else o.append(t)))
+        for _ in range(1000):
+            if len(done) == len(reqs):
+                break
+            sched.step()
+        assert len(done) == len(reqs)
+        return outs
+
+    alone = serve([(prompt, *seeded.values())])[0]
+    assert serve(others + [(prompt, *seeded.values())])[-1] == alone
+    assert len(alone) == 10
 
 
 def _post(port, body):

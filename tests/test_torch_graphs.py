@@ -19,6 +19,7 @@ bookkeeping) runs here with torch.cuda's graph calls stubbed.
 """
 
 import contextlib
+import gc
 import threading
 import weakref
 
@@ -170,7 +171,7 @@ def _eager_block(eng, cur, slot):
             logits, scfg, eng.penalty, vocab_size=eng.cfg.llm.vocab_size,
             eos_id=eng.eos_id if eng.eos_id >= 0 else None,
             nl_id=eng.nl_id if eng.nl_id >= 0 else None,
-            generator=eng.generator)
+            draws=eng.draws)
         eng.penalty.push(tok, active)
         out.append(tok)
     return torch.stack(out, dim=1)[slot].tolist()
@@ -294,9 +295,8 @@ def _eager_tick(s):
     tick's (tokens, logprobs, top ids, top logprobs)."""
     decoding = [i for i, sl in enumerate(s.slots)
                 if sl.req is not None and not sl.prefilling]
-    if s.pool is not None:
-        decoding = s._ensure_decode_pages(decoding, s.horizon)
-    gens = s._slot_settings(decoding)
+    decoding, _ = s._plain_grants(decoding)  # the tick's page grants
+    greedy = s._slot_settings(decoding)
     b = {k: v.clone() for k, v in s.bufs.items()}
     tok, active, vocab = b["tok"], b["active"], s.cfg.llm.vocab_size
     outs = [], [], [], []
@@ -305,7 +305,8 @@ def _eager_tick(s):
         logits = s.model(s.kv, tok[:, None], positions, active=active,
                          logits_mode="last")
         tok = sample_logits_batched(
-            logits, b["temp"], b["top_k"], b["top_p"], gens,
+            logits, b["temp"], b["top_k"], b["top_p"],
+            None if greedy else s.draws,
             state=s.penalty, penalty_repeat=b["pen"],
             penalty_freq=b["pfreq"], penalty_present=b["ppres"],
             vocab_size=vocab)
@@ -348,7 +349,7 @@ def _decoding_scheduler(model, cfg, reqs, paged):
 def test_scheduler_tick_matches_eager_tick(ws, paged, mix):
     """Two ticks through the runner against the eager tick on the same
     slots (greedy, penalized, logprobs; "sampled" adds a slot that
-    draws from its seeded generator): tokens, logprobs, top logprobs,
+    draws from its seeded stream): tokens, logprobs, top logprobs,
     the cache and the penalty window bit for bit."""
     _, (cfg, model) = ws
     reqs = [r for r in REQUESTS if mix == "sampled" or not r["temperature"]]
@@ -357,6 +358,7 @@ def test_scheduler_tick_matches_eager_tick(ws, paged, mix):
     for _ in range(2):
         ref = _eager_tick(want)
         got._decode_tick()
+        got._drain()  # its results now: no next tick is dispatched here
         b = got.bufs
         for name, r in zip(("out_tok", "out_lp", "out_ti", "out_tlp"), ref):
             assert torch.equal(b[name], r), name
@@ -379,10 +381,11 @@ def _eager_spec_tick(s):
     H, k = s.spec_horizon, s.spec_k
     if s.pool is not None:
         decoding = s._ensure_decode_pages(decoding, H * (k + 1) + k + 1)
-    gens = s._slot_settings(decoding)
+    greedy = s._slot_settings(decoding)
     b = s.bufs
     return chain_spec_sample_scan(s.model, s.draft, s.kv, s.d_kv,
-                                  b["tok"].clone(), H, k, b["active"], gens,
+                                  b["tok"].clone(), H, k, b["active"],
+                                  None if greedy else s.draws,
                                   b["temp"], b["top_k"], b["top_p"])
 
 
@@ -411,6 +414,7 @@ def test_spec_tick_matches_eager_tick(ws, paged):
     for _ in range(2):
         emitted, counts, root = _eager_spec_tick(want)
         got._decode_tick()
+        got._drain()  # its results now: no next tick is dispatched here
         b = got.bufs
         assert torch.equal(b["spec_emitted"], emitted)
         assert torch.equal(b["spec_counts"], counts)
@@ -525,6 +529,32 @@ def test_capture_error_propagates(monkeypatch):
     with pytest.raises(RuntimeError, match="capturing"):
         g()
     assert state["runs"] == 2 and g.graph is None
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_holds_off_garbage_collection(monkeypatch, fails):
+    """No automatic garbage collection runs inside a capture (it could
+    destroy a graph left in a reference cycle, which invalidates the
+    capture); it is back on after the capture, a failed one too."""
+    state = {"capturing": False, "enabled": []}
+    _fake_capture(monkeypatch, state)
+
+    def body():
+        state["enabled"].append(gc.isenabled())
+        if state["capturing"] and fails:
+            raise RuntimeError("the capture failed")
+
+    g = StepGraph(body, {}, torch.device("cuda"), None, None, ())
+    assert gc.isenabled()
+    g()  # eager
+    if fails:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            g()
+    else:
+        g()
+        g()  # replayed: the body does not run
+    assert state["enabled"] == [True, False]
+    assert gc.isenabled()
 
 
 def test_launch_counts_come_with_replays(monkeypatch):

@@ -269,3 +269,45 @@ def test_paged_forward_matches_dense_and_jax(tiny):
             assert torch.equal(
                 paged.gather_slab(getattr(paged, name)[layer])[:, :, :26]
                 != 0, getattr(dense, name)[layer][:, :, :26] != 0)
+
+
+@pytest.mark.parametrize("pages", [6, 40])
+def test_fast_path_grants_cover_every_tick(tiny, pages):
+    """A paged scheduler driven by step() (6 pages of 8: preemption and
+    slow ticks; 40: mostly fast ticks), greedy and seeded sampled
+    requests: after every step the host mirror is kv.pos, every known
+    drained position (the fast path's) is at most one tick (the one in
+    flight) behind kv.pos, and each resident slot's pages cover its
+    position. /metrics reports paged_slow_ticks."""
+    _, (cfg, model) = tiny
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+
+    sched = BatchScheduler(model, cfg, HyperParams(
+        max_slots=3, batch_size=8, max_seq_len=64, decode_horizon=2,
+        paged_pages=pages, page_size=8), "cpu")
+    done = []
+    for n, p in enumerate([[3, 4, 5], list(range(10, 30)), [7, 7], [9, 1]]):
+        sched.submit(Request(prompt_ids=p, max_tokens=14,
+                             temperature=0.8 if n % 2 else 0.0, seed=n,
+                             sink=lambda t: done.append(1) if t is None
+                             else None))
+    steps = 0
+    while len(done) < 4:
+        sched.step()
+        steps += 1
+        assert steps < 500
+        pos = sched.kv.pos.tolist()
+        assert sched.pos_host == pos
+        for i in sched._pos_known:
+            assert sched._pos_drained[i] + 2 >= pos[i]
+        for i, s in enumerate(sched.slots):
+            if s.req is not None:
+                assert len(sched.pool.owned[i]) * 8 >= pos[i]
+    m = sched.metrics()
+    assert m["generated_tokens_total"] == 4 * 14
+    if pages == 6:  # pool pressure: slow ticks, and preemption
+        assert m["paged_slow_ticks"] > 0
+        assert m["paged_preemptions_total"] > 0
+    else:  # every tick double-buffered
+        assert m["paged_slow_ticks"] == 0

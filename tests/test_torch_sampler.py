@@ -72,10 +72,10 @@ def test_stochastic_draws_stay_in_the_nucleus():
     logits = torch.from_numpy(rng.standard_normal((S, V)).astype(np.float32))
     cfg = SamplerConfig(temperature=0.7, top_k=5, top_p=0.9)
     allowed = torch.topk(logits, 5, dim=-1).indices
-    g = torch.Generator().manual_seed(0)
-    draws = [ts.sample_logits(logits, cfg, generator=g) for _ in range(20)]
+    g = ts.DrawState.create(S, "cpu", 0)
+    draws = [ts.sample_logits(logits, cfg, draws=g) for _ in range(20)]
     for d in draws:
         assert all(int(d[r]) in allowed[r].tolist() for r in range(S))
-    g2 = torch.Generator().manual_seed(0)
-    again = [ts.sample_logits(logits, cfg, generator=g2) for _ in range(20)]
+    g2 = ts.DrawState.create(S, "cpu", 0)
+    again = [ts.sample_logits(logits, cfg, draws=g2) for _ in range(20)]
     assert all(torch.equal(a, b) for a, b in zip(draws, again))

@@ -29,7 +29,7 @@ from powerserve_tpu_torch.core.gguf import GGMLType
 from powerserve_tpu_torch.engine.generator import InferenceEngine
 from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
 from powerserve_tpu_torch.models.loader import load_gguf_model
-from powerserve_tpu_torch.sampling.sampler import (PenaltyState,
+from powerserve_tpu_torch.sampling.sampler import (DrawState, PenaltyState,
                                                    sample_dist_batched,
                                                    sample_logits_batched)
 from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
@@ -249,16 +249,105 @@ def test_batched_sampler_matches_jax(seed):
                               t["pen_pres"], vocab_size=290).numpy()
     # the same f32 chain; softmax and cumulative sums in another order
     np.testing.assert_allclose(got, want, atol=1e-6)
-    # greedy rows take the argmax without a draw; sampled rows draw from
-    # their own generator, reproducibly
-    gens = [None] + [torch.Generator().manual_seed(i) for i in range(1, S)]
+    # greedy rows draw their argmax (a one-hot distribution); sampled
+    # rows draw from their own stream, reproducibly
+    gens = DrawState.create(S, "cpu", range(S))
     a = sample_logits_batched(t["logits"], t["temperature"], t["top_k"],
                               t["top_p"], gens, state, t["pen_rep"],
                               t["pen_freq"], t["pen_pres"], vocab_size=290)
-    gens = [None] + [torch.Generator().manual_seed(i) for i in range(1, S)]
+    gens = DrawState.create(S, "cpu", range(S))
     b = sample_logits_batched(t["logits"], t["temperature"], t["top_k"],
                               t["top_p"], gens, state, t["pen_rep"],
                               t["pen_freq"], t["pen_pres"], vocab_size=290)
     assert torch.equal(a, b)
     assert int(a[0]) == int(np.argmax(want[0]))
     assert all(want[i, int(a[i])] > 0 for i in range(S))
+
+
+def _stepped(sched, prompts, max_tokens=12, **kw):
+    """Submit every prompt, then drive step() until all finish (the same
+    trace for either package); (finish reason, tokens) per request."""
+    outs = []
+    for p in prompts:
+        ids, done = [], []
+        cls = Request if isinstance(sched, BatchScheduler) else JRequest
+        req = cls(prompt_ids=list(p), max_tokens=max_tokens,
+                  sink=lambda t, ids=ids, done=done: done.append(1)
+                  if t is None else ids.append(t),
+                  **{"temperature": 0.0, **kw})
+        sched.submit(req)
+        outs.append((req, ids, done))
+    for _ in range(3000):
+        if all(done for _, _, done in outs):
+            break
+        sched.step()
+    assert all(done for _, _, done in outs), "requests did not finish"
+    return [(r.finish_reason, ids) for r, ids, _ in outs]
+
+
+POOLS = {"dense": {}, "paged": dict(paged_pages=4, page_size=8)}
+
+
+@pytest.fixture(scope="module")
+def jax_stepped(models):
+    """A JAX scheduler a cache kind (built once: it compiles), no prefix
+    cache, so runs after the first keep its timing."""
+    return {kind: JScheduler(models["jparams"], models["jcfg"], JHyperParams(
+        max_slots=2, batch_size=8, prefix_cache=0, **pool), backend="xla")
+        for kind, pool in POOLS.items()}
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_double_buffered_ticks_match_jax(models, jax_stepped, kind,
+                                         double_buffer):
+    """The port's double-buffered plain ticks, driven by step(), against
+    the JAX scheduler's with double_buffer off and on: the same greedy
+    replies (near-tie rule) on the dense cache and on a pool of 4 pages
+    that preempts; with JAX's default (on), the same paged_slow_ticks."""
+    sched = BatchScheduler(models["model"], models["cfg"], HyperParams(
+        max_slots=2, batch_size=8, prefix_cache=0, **POOLS[kind]), "cpu")
+    got = _stepped(sched, PROMPTS[:4])
+    jsched = jax_stepped[kind]
+    jsched.double_buffer = double_buffer
+    slow0 = jsched.n_pool_slow_ticks
+    want = _stepped(jsched, PROMPTS[:4])
+    for p, (fr, ids), (jfr, jids) in zip(PROMPTS, got, want):
+        assert fr == jfr == "length" and len(ids) == 12
+        _near_tie(ids, jids, p, models["jengine"])
+    if kind == "paged":
+        m = sched.metrics()
+        assert m["paged_preemptions_total"] > 0
+        if double_buffer:
+            assert (m["paged_slow_ticks"]
+                    == jsched.n_pool_slow_ticks - slow0 > 0)
+
+
+def test_reused_slot_gets_none_of_the_old_tokens(models):
+    """A request that finishes in tick N frees its slot while tick N + 1,
+    dispatched before N's drain, still runs it; the next request takes
+    the slot before N + 1's drain. Its reply is its reply alone (a lone
+    scheduler's), and the old request gets no token past its end."""
+    first, second = [1, 4, 9], [7, 8, 2, 6]
+    lone = BatchScheduler(models["model"], models["cfg"], HyperParams(
+        max_slots=1, batch_size=8, decode_horizon=2), "cpu")
+    (_, want), = _stepped(lone, [second], max_tokens=6)
+    sched = BatchScheduler(models["model"], models["cfg"], HyperParams(
+        max_slots=1, batch_size=8, decode_horizon=2), "cpu")
+    seen, outs = [], []
+    for p, n in ((first, 4), (second, 6)):
+        ids = []
+        req = Request(prompt_ids=p, max_tokens=n, temperature=0.0,
+                      sink=lambda t, ids=ids: ids.append(t))
+        sched.submit(req)
+        outs.append((req, ids))
+    while any(ids[-1:] != [None] for _, ids in outs):
+        sched.step()
+        inflight = sched._inflight
+        if inflight is not None and outs[0][0] in inflight[2]:
+            seen.append(outs[0][0].finish_reason)
+    assert "length" in seen  # N + 1 ran the finished request
+    (r1, ids1), (r2, ids2) = outs
+    assert ids1[:-1] == [t for t in ids1 if t is not None]
+    assert len(ids1) == 5 and r1.finish_reason == "length"
+    assert ids2[:-1] == want

@@ -6,7 +6,11 @@ tests/test_engine.py hold the JAX package's.
 Greedy speculation emits the plain greedy tokens; a verify of k + 1 rows
 and a decode step of one round differently, so two streams may part only
 where the plain engine's teacher-forced top-2 logit gap is < 0.5 (the
-reference's near-tie rule).
+reference's near-tie rule). The double-buffered chain tick is held
+against the JAX scheduler's with its double_buffer off and on, and a
+seeded sampled request gives the same reply alone and beside seven
+others (its slot's Philox stream depends on its seed and its own draws
+alone).
 """
 
 import http.client
@@ -17,6 +21,12 @@ import threading
 
 import pytest
 
+from powerserve_tpu.core.config import HyperParams as JHyperParams
+from powerserve_tpu.engine.scheduler import BatchScheduler as JScheduler
+from powerserve_tpu.engine.scheduler import Request as JRequest
+from powerserve_tpu.models.loader import load_gguf_model as jload
+from powerserve_tpu.speculative.chain import (
+    self_draft_config as jself_draft_config)
 from powerserve_tpu_torch import run
 from powerserve_tpu_torch.core.config import HyperParams
 from powerserve_tpu_torch.core.gguf import GGMLType
@@ -68,17 +78,20 @@ def _agree(got, want, prompt, engine):
     assert float(top2[0] - top2[1]) < NEAR_TIE, (i, got, want)
 
 
-def _stepwise(sched, prompts, max_tokens=8):
-    """Submit every prompt, step the scheduler until all finish."""
+def _stepwise(sched, prompts, max_tokens=8, kws=None):
+    """Submit every prompt (kws: each request's other fields; default
+    greedy), step the scheduler until all finish."""
     outs, dones = [], []
-    for p in prompts:
+    cls = Request if isinstance(sched, BatchScheduler) else JRequest
+    for n, p in enumerate(prompts):
         out, done = [], queue.Queue()
 
         def sink(t, out=out, done=done):
             done.put(True) if t is None else out.append(t)
 
-        sched.submit(Request(prompt_ids=list(p), max_tokens=max_tokens,
-                             temperature=0.0, sink=sink))
+        kw = kws[n] if kws else dict(temperature=0.0)
+        sched.submit(cls(prompt_ids=list(p), max_tokens=max_tokens,
+                         sink=sink, **kw))
         outs.append(out)
         dones.append(done)
     for _ in range(1000):
@@ -117,6 +130,82 @@ def test_spec_matches_plain(tiny, pool):
     assert m["spec_steps_total"] >= 1
     assert m["spec_drafted_total"] == 3 * m["spec_steps_total"]
     assert m["generated_tokens_total"] == 8
+
+
+CHAIN_POOLS = {"dense": {}, "paged": dict(paged_pages=16, page_size=16)}
+CHAIN_PROMPTS = [[3, 17, 5, 9], [8, 1, 1, 4, 6, 2, 9, 30, 31, 7], [5, 6]]
+
+
+@pytest.fixture(scope="module")
+def jax_chain(root):
+    """The JAX package's chain scheduler (a 1-layer self-draft, k = 3) a
+    cache kind, built once: it compiles."""
+    jcfg, jparams = jload(root / "model")
+    return {kind: JScheduler(
+        jparams, jcfg, JHyperParams(max_slots=2, batch_size=8,
+                                    max_seq_len=128, prefix_cache=0, **pool),
+        backend="xla", draft_params=jparams,
+        draft_llm=jself_draft_config(jcfg.llm, 1), spec_k=3)
+        for kind, pool in CHAIN_POOLS.items()}
+
+
+@pytest.mark.parametrize("double_buffer", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_double_buffered_chain_ticks_match_jax(tiny, jax_chain, kind,
+                                               double_buffer):
+    """Three requests on two slots through the port's chain tick (double-
+    buffered on the dense cache, single-buffered on the pool), driven by
+    step(), against the JAX scheduler's with double_buffer off and on:
+    the same greedy replies (near-tie rule)."""
+    cfg, model, engine = tiny
+    sched = BatchScheduler(model, cfg, HyperParams(
+        max_slots=2, batch_size=8, max_seq_len=128, spec_k=3, prefix_cache=0,
+        **CHAIN_POOLS[kind]), "cpu", draft=self_draft_model(model, 1))
+    got = _stepwise(sched, CHAIN_PROMPTS)
+    jsched = jax_chain[kind]
+    jsched.double_buffer = double_buffer
+    want = _stepwise(jsched, CHAIN_PROMPTS)
+    for p, a, b in zip(CHAIN_PROMPTS, got, want):
+        assert len(a) == len(b) == 8
+        _agree(a, b, p, engine)
+    # the tick dispatched before the last drain ran finished slots only:
+    # the next step drains it, and nothing is left in flight
+    sched.step()
+    assert sched._inflight is None and sched.n_active == 0
+
+
+SEEDED = dict(temperature=0.8, top_k=40, top_p=0.95, seed=1234)
+OTHERS = [([3, 17, 5, 9], dict(temperature=0.0)),
+          ([8, 1, 1, 4, 6], dict(temperature=0.8, seed=5)),
+          ([2, 2], dict(temperature=1.1, top_k=5)),
+          (list(range(10, 31)), dict(temperature=0.0)),
+          ([9, 8, 7], dict(temperature=0.6, top_p=0.5, seed=77)),
+          ([40], dict(temperature=0.0)),
+          ([12, 13, 14, 15], dict(temperature=0.9))]
+
+
+@pytest.mark.parametrize("spec", [{}, dict(spec_k=3), dict(spec_tree="2,1"),
+                                  dict(spec_tree="2,1", spec_wor=True)],
+                         ids=["plain", "chain", "tree", "tree-wor"])
+def test_seeded_request_alone_equals_beside_seven(tiny, spec):
+    """A seeded request at temperature 0.8 on an 8-slot scheduler gives
+    the same reply alone and beside seven others (greedy and sampled, of
+    other lengths), admitted last into the last slot: plain ticks, chain,
+    tree and WOR-tree speculation (a 1-layer self-draft)."""
+    cfg, model, _ = tiny
+    prompt = [6, 1, 8, 3, 4]
+
+    def serve(reqs):
+        sched = BatchScheduler(model, cfg, HyperParams(
+            max_slots=8, batch_size=8, max_seq_len=128, **spec), "cpu",
+            draft=self_draft_model(model, 1) if spec else None)
+        return _stepwise(sched, [p for p, _ in reqs], 10,
+                         [kw for _, kw in reqs])
+
+    alone = serve([(prompt, SEEDED)])[0]
+    beside = serve(OTHERS + [(prompt, SEEDED)])
+    assert beside[-1] == alone and len(alone) == 10
+    assert serve([(prompt, dict(SEEDED, seed=1235))])[0] != alone
 
 
 def test_spec_preemption(tiny):

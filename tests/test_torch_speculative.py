@@ -30,7 +30,8 @@ from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.kv.paged import PagedKVCache, PagePool
 from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.ops.qmatmul import QLinear, dequant
-from powerserve_tpu_torch.sampling.sampler import sample_dist_batched
+from powerserve_tpu_torch.sampling.sampler import (DrawState,
+                                                   sample_dist_batched)
 from powerserve_tpu_torch.speculative.chain import (ChainSpecEngine,
                                                     chain_spec_sample_scan,
                                                     chain_spec_scan,
@@ -199,7 +200,7 @@ def test_sample_scan_at_temperature_zero_is_greedy(ws):
     ones = torch.ones(S)
     emitted, counts2, r2 = chain_spec_sample_scan(
         model, draft, t2, d2, root, n, k, torch.ones(S, dtype=torch.bool),
-        [None] * S, torch.zeros(S), torch.full((S,), 40), ones)
+        None, torch.zeros(S), torch.full((S,), 40), ones)
     assert torch.equal(counts, counts2) and torch.equal(r1, r2)
     lanes = torch.arange(k + 1)
     keep = lanes[None, None, :] < counts[..., None]
@@ -227,10 +228,7 @@ def test_rejection_sampling_lossless_and_higher_acceptance(ws):
                    torch.zeros(1, 1, dtype=torch.long))
     p0 = sample_dist_batched(logits[:, :llm.vocab_size], temp[:1], top_k[:1],
                              top_p[:1])[0].numpy()
-    gens = []
-    for i in range(S):
-        gens.append(torch.Generator())
-        gens[-1].manual_seed(i)
+    gens = DrawState.create(S, "cpu", range(S))
     draft = self_draft_model(model, llm.n_layers)
     emitted, counts, _ = chain_spec_sample_scan(
         model, draft, fresh(), fresh(), root, 1, k,

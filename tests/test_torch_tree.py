@@ -46,7 +46,8 @@ from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.ops.flash_decode import (
     flash_decode_paged_reference, flash_decode_quant,
     flash_decode_quant_reference, pack_intra, unpack_bits)
-from powerserve_tpu_torch.sampling.sampler import sample_dist_batched
+from powerserve_tpu_torch.sampling.sampler import (DrawState,
+                                                   sample_dist_batched)
 from powerserve_tpu_torch.speculative.chain import self_draft_model
 from powerserve_tpu_torch.speculative.device_tree import (MAX_NODES,
                                                           DeviceTreeEngine,
@@ -552,7 +553,7 @@ def test_sampled_steps_at_temperature_zero_are_greedy(ws, sample):
     e1, c1, r1 = tree_spec_scan(model, draft, t1, d1, root, 3, tpl)
     e2, c2, r2 = tree_spec_scan(
         model, draft, t2, d2, root, 3, tpl, torch.ones(S_, dtype=torch.bool),
-        [None] * S_, torch.zeros(S_), torch.full((S_,), 40), torch.ones(S_),
+        None, torch.zeros(S_), torch.full((S_,), 40), torch.ones(S_),
         sample=sample)
     if sample == "wor":
         for s in range(S_):
@@ -588,10 +589,7 @@ def test_wor_first_token_is_the_targets_sample(ws):
     logits = model(one, root[:1, None], torch.zeros(1, 1, dtype=torch.long))
     p0 = sample_dist_batched(logits[:, :llm.vocab_size], temp[:1],
                              top_k[:1], top_p[:1])[0].numpy()
-    gens = []
-    for i in range(S_):
-        gens.append(torch.Generator())
-        gens[-1].manual_seed(i)
+    gens = DrawState.create(S_, "cpu", range(S_))
     draft = self_draft_model(model, 1)
     emitted, counts, _ = tree_spec_scan(
         model, draft, fresh(llm.n_layers), fresh(1), root, 1, tpl,
