@@ -39,8 +39,11 @@ Phases, each printing one JSON line:
              argmax -> a factored head's V), each beside the plain GEMV on
              its weight and rows (the fused head too: 4096 -> 128256), and
              the state mode of paged flash-decode (S = 8, Tq = 5, a slot
-             that sees nothing); last, flash-decode's tree mode at a
-             [2, 1, 1] token tree's shapes (a verify and a draft level at
+             that sees nothing), the dense state modes of flash-decode
+             (S = 8) and flash-prefill (S = 2, Tq = 128) over the second
+             2,048 of 4,096 positions at tp = 2 x sp = 2's 16/4 heads,
+             rows that see none of them included; last, flash-decode's
+             tree mode at a [2, 1, 1] token tree's shapes (a verify and a draft level at
              S = 1 over 2048 positions, the paged verify at S = 8 over
              560-650, each twice bit for bit, SDPA with the same
              visibility for information) and the causal rule's bits
@@ -250,6 +253,28 @@ Phases, each printing one JSON line:
              ranks on the card); every request's greedy tokens the
              single-device server's (near-tie rule), every rank's
              launches of the path's kernels
+  sp_full_width  (after serve_tp; one rank group of four for this and
+             the next two phases, gloo on the one card unless there are
+             four) llama-8b Q4_K over tp = 2 x sp = 2, a 4,096-position
+             cache (2,048 positions a rank): a 2,100-token prompt in
+             three 700-token chunks (the last straddles the slices) and
+             16 greedy tokens, each chunk's logits within SP_LOGIT_REL
+             of one device's, tokens by the near-tie rule, the cache put
+             together (mask, pos and layer 0 bit for bit; the later
+             layers' share of equal entries), each rank's launches of
+             the state modes; wall times beside one device's
+  pp_full_width  llama-8b Q4_K over two pipeline stages (the group's
+             first two ranks, 16 layers a stage): a 512-token prefill and
+             32 greedy tokens bit for bit one device's (logits, tokens,
+             the cache put together), tok/s beside one device's, the ms
+             of one hop of the residual ([1, 1], [8, 1] and [1, 512]
+             rows of 4096), and pp_prefill_microbatched of 8 x 128
+             tokens in 4 microbatches beside 1
+  serve_pp_sp  the HTTP server over that group with both models: 4
+             concurrent greedy completions of 204-2,457 prompt tokens to
+             "pp", the shortest and the longest to "sp", every reply a
+             lone generate's (near-tie rule), each rank's launches,
+             generated tok/s
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -335,7 +360,8 @@ the fused-linear modes and the state mode, tree_full_width's device tree
 for the tree mode, tree_serve_full_width for the paged tree mode and
 eagle_full_width's chain for concat2, w8_moe_full_width's steady
 generate for the grouped W8 mode, sampled_serve's first sampled run for
-the sample kernel), the card's
+the sample kernel, rank 0's sp_full_width decode and last prefill chunk
+for the dense state modes), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -348,6 +374,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --tools
        python3 chip_smoke.py --compose
        python3 chip_smoke.py --sampled
+       python3 chip_smoke.py --pp-sp
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build, the two VLM phases and vlm_hf_dir; the
@@ -359,7 +386,9 @@ paged plain tick's device-to-host copies on llama-8b (the scheduler's
 public surface only, so a copy of this script counts a parent tree's);
 the sixth the build and the two tools phases; the eighth the build,
 llama-8b's parameters and sampled_serve (copied into an older tree, it
-measures that tree's serving with the checks of in-graph draws off).
+measures that tree's serving with the checks of in-graph draws off); the
+ninth the build, the kernels phase, llama-8b's parameters and the three
+pp/sp phases, then the card's line and the state modes' kernel rows.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -955,6 +984,75 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             vis | ~seen[:, None, None]))
     del q, kp, vp, o, ro
 
+    # -- the dense state modes (sequence parallelism: a rank's slice of
+    #    the cache from global position t0) at tp = 2 x sp = 2's local
+    #    shapes, 16/4 heads over the second 2,048 positions of a 4,096-
+    #    position cache (t0 = 2048): flash-decode S = 8, Tq = 1, 1,748 to
+    #    3,508 committed (the last slot's all on the first slice: it sees
+    #    nothing here), and a 128-row flash-prefill chunk from 2,008 (its
+    #    first 40 rows see nothing here) beside one from 3,000
+    sp_rows = {}
+    Hs, Hkvs, Ts, t0s = 16, 4, 2048, 2048
+    scale = 1.0 / D ** 0.5
+    for kind, S, Tq, first in (
+            ("decode", 8, 1, [2100 + 201 * s_ for s_ in range(7)] + [1748]),
+            ("prefill", 2, 128, [2008, 3000])):
+        q = randn(S, Tq, Hs, D)
+        kq, ks, vq, vs = cache(S, Hkvs, Ts, D)
+        mask = (t0s + torch.arange(Ts, device=dev)[None, :]
+                < torch.tensor(first, device=dev)[:, None])
+        if kind == "decode":
+            pos = torch.tensor(first, dtype=torch.int32, device=dev)[:, None]
+            args = (q, kq, ks, vq, vs, mask, pos, scale)
+
+            def fn(args=args):
+                return flash_decode_cuda(*args, state=True, t0=t0s)
+
+            def ref_fn(args=args):
+                return flash_decode_quant_reference(*args, state=True,
+                                                    t0=t0s)
+
+            vis = decode_visibility(mask, pos - t0s, Tq)
+            extra = nbytes(mask, pos)
+        else:
+            start = torch.tensor(first, dtype=torch.int32, device=dev)
+            args = (q, kq, ks, vq, vs, mask, start, scale)
+
+            def fn(args=args):
+                return flash_prefill_cuda(*args, state=True, t0=t0s)
+
+            def ref_fn(args=args):
+                return flash_prefill_quant_reference(*args, state=True,
+                                                     t0=t0s)
+
+            vis = prefill_visibility(mask, start - t0s, Tq)[..., :Ts]
+            extra = nbytes(mask, start)
+        o, m_, l_ = fn()
+        ro, rm, rl = ref_fn()
+        seen = vis.any(dim=-1)[:, None, :].expand(S, Hs, Tq).reshape(S, -1)
+        if not (seen.any() and (~seen).any()):
+            raise AssertionError(f"state {kind}: the case lost its rows "
+                                 f"that see nothing")
+        if not ((m_[~seen] == -1e30).all() and (l_[~seen] == 0).all()
+                and (o[~seen] == 0).all()):
+            raise AssertionError(f"state {kind}: a row that sees nothing "
+                                 f"is not m = -1e30, l = 0, o = 0")
+        check(f"flash_{kind} state m", m_[seen], rm[seen], 1e-6)
+        check(f"flash_{kind} state l", l_[seen], rl[seen], 1e-4)
+        err = flips_check(f"flash_{kind} state o", o[seen], ro[seen], vs)
+        if not all(torch.equal(a, b) for a, b in zip((o, m_, l_), fn())):
+            raise AssertionError(f"state {kind}: two runs gave different "
+                                 f"bits")
+        b, by = attn_bound(q, vis, Hkvs, extra + nbytes(m_, l_))
+        sp_rows[kind] = dict(
+            S=S, Tq=Tq, H=Hs, Hkv=Hkvs, T=Ts, t0=t0s, first=first,
+            rows_seeing_nothing=int((~seen).sum()), max_abs_err=err,
+            ms=timer(fn), plain_ms=timer(ref_fn, reps=5), bound_ms=b,
+            bound_by=by, visible_positions=int(vis.sum()),
+            sdpa_bf16_dequantized_ms=sdpa_ms(
+                q, kq, ks, vq, vs, vis | ~vis.any(dim=-1, keepdim=True)))
+        del q, kq, vq, o, ro
+
     def prefill_row(name, S, Tq, starts, committed, T=T):
         """A timed flash-prefill case at llama-8b's heads over a cache of
         T positions (default 2048), twice bit for bit."""
@@ -1156,6 +1254,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
           "flash_decode_paged": fdp_rows, "qmatmul_grouped": grp_rows,
           "qmatmul_w8": w8_rows, "fused_linear": fl_rows,
           "flash_decode_paged_state": state_row,
+          "flash_decode_state": sp_rows["decode"],
+          "flash_prefill_state": sp_rows["prefill"],
           "flash_decode_tree": tree_rows, "sample": sample_rows})
 
     def entry(name, route_src, replaces, row):
@@ -1191,6 +1291,13 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
               "powerserve_tpu/ops/flash_decode.py:183", state_row),
         entry("flash_decode", "powerserve_tpu_torch/csrc/flash_decode.cu",
               "powerserve_tpu/ops/flash_decode.py:115", fd_rows[0]),
+        entry("flash_decode_state",
+              "powerserve_tpu_torch/csrc/flash_decode.cu",
+              "powerserve_tpu/ops/flash_decode.py:115", sp_rows["decode"]),
+        entry("flash_prefill_state",
+              "powerserve_tpu_torch/csrc/flash_prefill.cu",
+              "powerserve_tpu/ops/flash_prefill.py:115",
+              sp_rows["prefill"]),
         entry("flash_prefill", "powerserve_tpu_torch/csrc/flash_prefill.cu",
               "powerserve_tpu/ops/flash_prefill.py:115", fp_rows[1]),
         entry("flash_decode_paged",
@@ -4536,6 +4643,358 @@ def phase_serve_tp(dev: torch.device) -> dict:
     return result
 
 
+# -- pipeline and sequence parallelism on one rank group ------------------
+
+PP, SP = 2, 2
+PP_SP_PRESET = "llama-8b"
+# the tp x sp cache: 4,096 positions, 2,048 a sequence-parallel rank
+SP_SEQ = 4096
+# logits over tp = 2 x sp = 2 against one device, as a share of the
+# range: TP_LOGIT_REL's reasons, and each rank rounds p * vs to bf16 at
+# its own running maximum before the merge adds the ranks' states in
+# another order
+SP_LOGIT_REL = 2e-2
+# two slots: a prefill tick's rows cross the host in every collective
+PP_SP_HP = dict(max_slots=2, batch_size=128, max_seq_len=SP_SEQ)
+
+
+@contextlib.contextmanager
+def pp_sp_context(dev: torch.device):
+    """One ServerContext over tp = 2 x sp = 2 ranks (gloo with the four on
+    the one card, nccl with a card a rank where there are four) that the
+    pp and sp phases share: the sp model is built on the context's mesh,
+    the pp = 2 model on its first two ranks, and both are served from
+    it, so the followers start once."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.serving.server import ServerContext
+
+    world = TP * SP
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = ServerContext(tmp, "model", HyperParams(**PP_SP_HP), dev.type,
+                            tp=TP, sp=SP, dist_backend=backend)
+        ctx.start_s = time.perf_counter() - t0
+        ctx.how = (f"{world} ranks over {backend}"
+                   + (" on one card: a check of function, not of speed"
+                      if backend == "gloo" else ", a card a rank"))
+        try:
+            yield ctx
+        finally:
+            ctx.close()
+
+
+def stage_counts(counts: list[dict], need: dict, label: str) -> list[dict]:
+    """Each rank's launches of the kernels need[rank] names (a pp stage
+    runs its own part of the path); every rank must have launched each."""
+    out = [{k: c[k] for k in need[r]} for r, c in enumerate(counts)
+           if r in need]
+    for r, c in zip(need, out):
+        missing = [k for k, n in c.items() if not n]
+        if missing:
+            raise AssertionError(f"{label}: rank {r} launched no {missing}")
+    return out
+
+
+def phase_pp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
+    """llama-8b Q4_K over two pipeline stages (parallel/pp.py; ranks 0
+    and 1 of the context's group, 16 layers a stage, random weights from
+    seed 0 on each): a 512-token prefill and greedy decoding to 32
+    tokens, logits and tokens bit for bit the single-device forward's
+    on the same card, the cache put together over the stages bit for
+    bit; the wall time of each path beside one device's (eager), the ms
+    of one stage-to-stage hop of the residual, and the GPipe prefill of
+    8 slots x 128 tokens in 4 microbatches beside one. Each rank's
+    launches zeroed before each path and read after it."""
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.parallel.pp import (pp_decode_scan, pp_forward,
+                                                  pp_handoff_ms,
+                                                  pp_prefill_microbatched)
+
+    group, llm = ctx.ranks, cfg.llm
+    n_prompt, n_tokens, max_seq = 512, 32, 2048
+    out: dict = {"phase": "pp_full_width", "pp": PP, "ranks": ctx.how,
+                 "start_s": ctx.start_s}
+    t0 = time.perf_counter()
+    _, pm = group.preset(PP_SP_PRESET, "q4_k", 0, 1, pp=PP)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    stage = pm.shard.model
+    if len(stage.layers) != llm.n_layers // PP:
+        raise AssertionError(f"pp stage 0 holds {len(stage.layers)} layers")
+    out["stage_layers"] = len(stage.layers)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(1)
+    prompt = torch.randint(3, llm.vocab_size, (1, n_prompt),
+                           generator=g).to(dev)
+    pos = torch.arange(n_prompt, device=dev)[None]
+    args = (llm.n_layers, 1, max_seq, llm.n_kv_heads, llm.head_size)
+    kv1, kv2 = KVCache.create(*args, dev), pm.create_cache(*args)
+    counts = {}
+
+    def timed(name, fn, need=None):
+        group.launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_wall_s"] = time.perf_counter() - t
+        if need is not None:
+            counts[name] = stage_counts(group.launch_counts(), need,
+                                        f"pp {name}")
+        return res
+
+    stages = {0: ("qmatmul", "flash_prefill"),
+              1: ("qmatmul", "flash_prefill", "fused_head")}
+    want = timed("one_device_prefill", lambda: model(
+        kv1, prompt, pos, logits_mode="last"))
+    got = timed("prefill", lambda: pp_forward(pm, kv2, prompt, pos,
+                                              logits_mode="last"), stages)
+    if not torch.equal(got, want):
+        raise AssertionError(f"pp prefill: logits differ from one "
+                             f"device's by {logit_gap(got, want)}")
+    first = want.argmax(-1).to(torch.int32)
+
+    def one_device():
+        toks, tok = [], first
+        for _ in range(n_tokens - 1):
+            tok = model(kv1, tok[:, None], kv1.pos.long()[:, None],
+                        logits_mode="argmax")
+            toks.append(tok)
+        return torch.stack(toks, 1)
+
+    ref = timed("one_device_decode", one_device)
+    stages = {0: ("qmatmul", "flash_decode"),
+              1: ("qmatmul", "flash_decode", "fused_head")}
+    toks = timed("decode", lambda: pp_decode_scan(pm, first, kv2,
+                                                  n_tokens - 1), stages)
+    if not torch.equal(toks, ref):
+        raise AssertionError(f"pp decode: tokens {toks.tolist()} vs one "
+                             f"device's {ref.tolist()}")
+    whole = kv2.gathered()
+    for name in ("k", "v", "k_scale", "v_scale", "mask", "pos"):
+        if not torch.equal(whole[name], getattr(kv1, name)):
+            raise AssertionError(f"pp cache: {name} differs from one "
+                                 f"device's")
+    del whole
+    out.update(
+        tokens_equal=True, logits_bit_equal=True, cache_bit_equal=True,
+        prefill_tok_s=n_prompt / out["prefill_wall_s"],
+        one_device_prefill_tok_s=n_prompt / out["one_device_prefill_wall_s"],
+        decode_tok_s=(n_tokens - 1) / out["decode_wall_s"],
+        one_device_decode_tok_s=(n_tokens - 1)
+        / out["one_device_decode_wall_s"],
+        hop_ms={f"{s}x{t}x4096": pp_handoff_ms(pm, (s, t, 4096), 20)
+                for s, t in ((1, 1), (8, 1), (1, 512))})
+    del kv1, kv2
+    # GPipe: 8 slots x 128 tokens, one microbatch against four
+    S, C = 8, 128
+    toks8 = torch.randint(3, llm.vocab_size, (S, C), generator=g).to(dev)
+    pos8 = torch.arange(C, device=dev)[None].expand(S, C)
+    micro = {}
+    for n_micro in (1, 4, 1, 4):
+        kv = pm.create_cache(llm.n_layers, S, max_seq, llm.n_kv_heads,
+                             llm.head_size)
+        timed("micro", lambda: pp_prefill_microbatched(pm, kv, toks8, pos8,
+                                                       n_micro))
+        if kv.pos.tolist() != [C] * S:
+            raise AssertionError(f"pp microbatched prefill: pos "
+                                 f"{kv.pos.tolist()}")
+        micro.setdefault(n_micro, []).append(S * C / out.pop("micro_wall_s"))
+        del kv
+    out["microbatched_prefill_tok_s"] = {f"n_micro_{k}": v
+                                         for k, v in micro.items()}
+    out["launches"] = counts
+    return out, pm
+
+
+def phase_sp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
+    """llama-8b Q4_K over tp = 2 x sp = 2 (the context's four ranks,
+    random weights from seed 0 on each, 16/4 heads a rank) with a
+    4,096-position cache, 2,048 a rank: a 2,100-token prompt in three
+    700-token chunks (the third straddles the slices' boundary) and 16
+    greedy tokens on the second slice; each chunk's logits against the
+    single-device forward on the same card (SP_LOGIT_REL, the greedy
+    token one device's unless its top-2 gap is < NEAR_TIE), the tokens
+    by the near-tie rule, the cache put together over tp and sp: mask
+    and pos one device's, layer 0's K/V bit for bit (the later layers'
+    share of equal entries reported: the merge's roundings feed their
+    quantization). Wall times beside one device's, each rank's
+    launches."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.kv.cache import KVCache
+    from powerserve_tpu_torch.parallel.tp import tp_decode_scan
+
+    group, llm = ctx.ranks, cfg.llm
+    # 2,100 tokens in chunks of 700 at 4,096 positions: the last chunk
+    # straddles the slices
+    chunk, n_tokens = (SP_SEQ // 2 + SP_SEQ // 78) // 3, 16
+    n_prompt = 3 * chunk
+    out: dict = {"phase": "sp_full_width", "tp": TP, "sp": SP,
+                 "ranks": ctx.how, "max_seq": SP_SEQ}
+    t0 = time.perf_counter()
+    _, sm = group.preset(PP_SP_PRESET, "q4_k", 0, TP, sp=SP)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    args = (llm.n_layers, 1, SP_SEQ, llm.n_kv_heads, llm.head_size)
+    kv1, kv2 = KVCache.create(*args, dev), sm.create_cache(*args)
+    local = (sm.shard.model.llm.n_heads, sm.shard.model.llm.n_kv_heads,
+             kv2.shard.kv.t_local)
+    if local != (llm.n_heads // TP, llm.n_kv_heads // TP, SP_SEQ // SP):
+        raise AssertionError(f"tp x sp shards (heads, kv heads, positions "
+                             f"a rank): {local}")
+    out["local_shapes"] = local
+    g = torch.Generator(device="cpu")
+    g.manual_seed(2)
+    prompt = torch.randint(3, llm.vocab_size, (n_prompt,), generator=g)
+    counts, gaps = {}, []
+
+    def timed(name, fn, need=None):
+        group.launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_wall_s"] = out.get(f"{name}_wall_s", 0.0) + (
+            time.perf_counter() - t)
+        if need is not None:
+            counts[name] = rank_counts(group.launch_counts(), need,
+                                       f"sp {name}")
+        return res
+
+    for c0 in range(0, n_prompt, chunk):
+        toks = prompt[None, c0:c0 + chunk].to(dev)
+        pos = torch.arange(c0, c0 + chunk, device=dev)[None]
+        want = timed("one_device_prefill", lambda: model(
+            kv1, toks, pos, logits_mode="last"))
+        got = timed("prefill", lambda: sm(kv2, toks, pos,
+                                          logits_mode="last"),
+                    ("qmatmul", "flash_prefill_state", "fused_head"))
+        gap = logit_gap(got, want)
+        top2 = want[0].topk(2).values
+        if not gap <= SP_LOGIT_REL or (
+                got.argmax() != want.argmax()
+                and float(top2[0] - top2[1]) >= NEAR_TIE):
+            raise AssertionError(f"sp prefill chunk at {c0}: {gap} of the "
+                                 f"range")
+        gaps.append(gap)
+    out["prefill_logit_gaps"] = gaps
+    first = want.argmax(-1).to(torch.int32)
+
+    def one_device():
+        toks, tok = [], first
+        for _ in range(n_tokens - 1):
+            tok = model(kv1, tok[:, None], kv1.pos.long()[:, None],
+                        logits_mode="argmax")
+            toks.append(tok)
+        return torch.stack(toks, 1)
+
+    ref = timed("one_device_decode", one_device)
+    got_t = timed("decode", lambda: tp_decode_scan(sm, first, kv2,
+                                                   n_tokens - 1),
+                  ("qmatmul", "flash_decode_state", "fused_head"))
+    hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=SP_SEQ)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    plist = prompt.tolist() + [int(first)]
+    out["near_tie_gap"] = agree("sp greedy vs one device",
+                                got_t[0].tolist(), ref[0].tolist(), engine,
+                                plist)
+    out["tokens_equal"] = got_t.tolist() == ref.tolist()
+    del engine
+    whole = kv2.gathered()
+    for name in ("mask", "pos"):
+        if not torch.equal(whole[name], getattr(kv1, name)):
+            raise AssertionError(f"sp cache: {name} differs from one "
+                                 f"device's")
+    same = {}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = whole[name], getattr(kv1, name)
+        if not torch.equal(a[0], b[0]):
+            raise AssertionError(f"sp cache: layer 0's {name} differs from "
+                                 f"one device's")
+        same[name] = (a == b).float().mean().item()
+    del whole
+    out.update(
+        layer0_bit_equal=True, equal_share=same,
+        prefill_tok_s=n_prompt / out["prefill_wall_s"],
+        one_device_prefill_tok_s=n_prompt / out["one_device_prefill_wall_s"],
+        decode_tok_s=(n_tokens - 1) / out["decode_wall_s"],
+        one_device_decode_tok_s=(n_tokens - 1)
+        / out["one_device_decode_wall_s"], launches=counts)
+    return out, sm, counts["decode"][0] | counts["prefill"][0]
+
+
+def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm) -> dict:
+    """The HTTP server over the context's rank group with both models
+    registered: "pp" (two stages) and "sp" (tp = 2 x sp = 2), 2 slots,
+    4,096 positions; concurrent greedy completions, to "pp" 4 of 204 to
+    2,457 prompt tokens and 16 new ones, to "sp" the shortest and the
+    longest of them (which crosses the slices' boundary) and 8 new ones
+    (its gloo collectives cost ~4 ms each on one card): all finish
+    "length", every reply a lone one-device generate's (near-tie rule),
+    no request in error, each rank's launches of its path's kernels;
+    generated tok/s of each."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+
+    import random
+
+    tok = synthetic_tokenizer(cfg.llm.vocab_size)
+    hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=SP_SEQ)
+    hp.sampler.temperature = 0.0
+    engine = InferenceEngine(model, cfg, hp, device=dev)
+    rng = random.Random(3)
+    lengths = [SP_SEQ * k // 80 for k in (4, 16, 28, 48)]
+    texts = ["".join(rng.choice("abcdefghijklmnopqrsuvwxyz")
+                     for _ in range(n - 4)) for n in lengths]
+    traffic = {"pp": (texts, 16), "sp": ([texts[0], texts[-1]], 8)}
+    out: dict = {"phase": "serve_pp_sp", "ranks": ctx.how,
+                 "prompt_tokens": lengths}  # 204 to 2,457 at 4,096
+    ctx.register("pp", pm, cfg, tok)
+    ctx.register("sp", sm, cfg, tok)
+    need = {"pp": {0: ("qmatmul", "flash_prefill", "flash_decode"),
+                   1: ("qmatmul", "flash_prefill", "flash_decode",
+                       "fused_head")},
+            "sp": {r: ("qmatmul", "fused_head", "flash_prefill_state",
+                       "flash_decode_state") for r in range(TP * SP)}}
+    server = serving(ctx)
+    port = server.server_address[1]
+    try:
+        for name, (prompts, n_new) in traffic.items():
+            calls = [lambda t=t: http_call(port, "POST", "/v1/completions", {
+                "model": name, "prompt": t, "max_tokens": n_new,
+                "temperature": 0}) for t in prompts]
+            with ServeRecorder() as rec:
+                ctx.ranks.launch_counts(reset=True)
+                t0 = time.perf_counter()
+                replies = concurrently(calls)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = ctx.ranks.launch_counts()
+            rec.check(f"serve_pp_sp {name}")
+            for status, data in replies:
+                if status != 200 or json.loads(data)["choices"][0][
+                        "finish_reason"] != "length":
+                    raise AssertionError(f"serve_pp_sp {name}: {status} "
+                                         f"{data[:200]}")
+            gaps = []
+            for p, ids in rec.tokens().items():
+                want = list(engine.generate(list(p), n_new))
+                gaps.append(agree(f"serve_pp_sp {name}", ids, want, engine,
+                                  list(p)))
+            out[name] = dict(
+                generated_tok_s=n_new * len(prompts) / wall, wall_s=wall,
+                near_ties=[x for x in gaps if x is not None],
+                rank_launches=stage_counts(launches, need[name],
+                                           f"serve_pp_sp {name}"))
+    finally:
+        server.shutdown()
+        server.server_close()
+    return out
+
+
 # -- PR 16's phases: W8 from `run`, W8 expert slabs, tracing, the native
 #    host runtime ----------------------------------------------------------
 
@@ -6089,6 +6548,21 @@ def main() -> int:
         emit(phase_serve_tp(dev))
         print(card, flush=True)
         return 0
+    if "--pp-sp" in sys.argv[1:]:
+        kernels = phase_kernels(dev)
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        with pp_sp_context(dev) as ctx:
+            sp_full, sm, sp_counts = phase_sp_full_width(dev, cfg, model, ctx)
+            emit(sp_full)
+            pp_full, pm = phase_pp_full_width(dev, cfg, model, ctx)
+            emit(pp_full)
+            emit(phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm))
+        print(card, flush=True)
+        emit({"kernels": [dict(k, launches=sp_counts[k["name"]])
+                          for k in kernels if k["name"] in sp_counts]})
+        return 0
     if "--sampled" in sys.argv[1:]:
         # the sampled serving runs and the tick split alone; a copy of
         # this script in an older tree measures that tree (no checks of
@@ -6194,6 +6668,14 @@ def main() -> int:
     tp_full = phase_tp_full_width(dev, cfg, model)
     emit(tp_full)
     emit(phase_serve_tp(dev))
+    with pp_sp_context(dev) as ctx:
+        sp_full, sm, sp_counts = phase_sp_full_width(dev, cfg, model, ctx)
+        emit(sp_full)
+        pp_full, pm = phase_pp_full_width(dev, cfg, model, ctx)
+        emit(pp_full)
+        serve_pp_sp = phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm)
+        emit(serve_pp_sp)
+        del pm, sm
     del cfg, model
     torch.cuda.empty_cache()
     vlm, vlm_ref = phase_vlm_full_width(dev)
@@ -6268,7 +6750,9 @@ def main() -> int:
            # re-prefill
            "fused_concat2": eagle_counts["chain"],
            # the sampled plain ticks of 8 seeded requests at 0.8
-           "sample": sampled_counts["sampled"]}
+           "sample": sampled_counts["sampled"],
+           # rank 0's: sp_full_width's prefill chunks and decode
+           "flash_decode_state": sp_counts, "flash_prefill_state": sp_counts}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     # each decode number replayed, and its eager twin's from this run
@@ -6367,6 +6851,13 @@ def main() -> int:
                                   for e in evict["evictions"]],
           "tp_full_width_ranks": tp_full["ranks"],
           "tp_full_width_decode_tok_s": tp_full["decode_tok_s"],
+          "pp_full_width_prefill_tok_s": pp_full["prefill_tok_s"],
+          "pp_full_width_decode_tok_s": pp_full["decode_tok_s"],
+          "pp_hop_ms": pp_full["hop_ms"],
+          "sp_full_width_prefill_tok_s": sp_full["prefill_tok_s"],
+          "sp_full_width_decode_tok_s": sp_full["decode_tok_s"],
+          "serve_pp_generated_tok_s": serve_pp_sp["pp"]["generated_tok_s"],
+          "serve_sp_generated_tok_s": serve_pp_sp["sp"]["generated_tok_s"],
           "jpeg_decode_ms": vlm["jpeg"]["decode_ms"],
           "vlm_hf_dir_tokens_equal": vlm_hf["tokens_equal"],
           "serve_tp_vlm_near_ties": serve_tp_vlm["near_ties"],

@@ -84,13 +84,20 @@
 // that may still be staged.
 //
 // State mode (flash_decode_paged(..., state=True), the committed part of
-// flash_decode_paged_deferred): the merge skips the division by l and
-// writes the partition itself — o [S, R, D] unnormalized, m and l [S, R]
-// with R = (h, g, tq), tq minor, the TPU kernel's row order — for the
-// caller to merge with the in-flight block's partition. Its visibility
-// is the mask alone (no positions); steps no row sees are always
-// skipped, so a row that sees no committed position keeps m = -1e30
-// (<= -1e30 / 2) and that merge weighs it 0; an empty slot reads no K/V.
+// flash_decode_paged_deferred; flash_decode_quant(..., state=True), a
+// sequence-parallel rank's share of the dense cache): the merge skips the
+// division by l and writes the partition itself — o [S, R, D]
+// unnormalized, m and l [S, R] with R = (h, g, tq), tq minor, the TPU
+// kernel's row order — for the caller to merge with another partition
+// (the in-flight block's, or the other ranks' time slices). Steps no row
+// sees are always skipped, so an empty slot reads no K/V, and a row that
+// sees no position (m <= -1e30 / 2) is written as m = -1e30, l = 0,
+// o = 0: a merge weighs it 0, and no average of V leaks into it. The
+// dense state mode takes a key offset t0: cache position t is global
+// position t0 + t, and the new rows' positions are global (each is moved
+// by -t0 as it is read; one outside [0, T) matches nothing), which
+// replaces the JAX forward's remap of an sp shard's cache positions
+// (models/llama.py, sp_axis).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -217,6 +224,7 @@ struct Args {
   float* out;
   float *m_out, *l_out;   // non-null: the state mode
   int S, Tq, J, H, Hkv, T, D;
+  int t0;                 // global position of cache position 0
   float scale;
   int kv_vec, s_vec, mask_vec;
 };
@@ -388,6 +396,10 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+  if (a.t0 && a.pos) {  // global key positions -> this cache's
+    for (int j = tid; j < a.J; j += nthr) sm.pos[j] -= a.t0;
+    __syncthreads();
+  }
   // q rows as bf16, zeros past R and D; 1 + the last committed position
   for (int e = tid; e < Rp * (Dp / 4); e += nthr) {
     const int r = e / (Dp / 4), d = 4 * (e - r * (Dp / 4));
@@ -677,6 +689,11 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
         v.z += av[q].z * wgt, v.w += av[q].w * wgt;
       }
     const int g = r / a.Tq, tq = r - g * a.Tq;
+    if (state && M <= 0.5f * PS_NEG_INF) {  // the row saw no position
+      M = PS_NEG_INF;
+      L = 0.f;
+      v = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
     if (state) {
       const long row = ((long)s * a.H + h * G) * a.Tq + r;  // (s, h, g, tq)
       *reinterpret_cast<float4*>(a.out + row * a.D + d) = v;
@@ -784,14 +801,18 @@ PS_EXPORT size_t ps_flash_decode_smem(int S, int Hkv, int G, int Tq, int J,
 }
 
 // positions int32 [S, J] or null; bits uint32 [Tq] or null (causal:
-// positions [S, Tq], J ignored). Returns a CUDA error code (0 on
-// success).
+// positions [S, Tq], J ignored). m_out null: out f32 [S, Tq, H * D]
+// normalized; else the state mode: out f32 [S, R, D] unnormalized and
+// m_out, l_out f32 [S, R], R = H * Tq in (h, g, tq) order. t0: the global
+// position of cache position 0 (positions are global). Returns a CUDA
+// error code (0 on success).
 PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
                               const void* vq, const void* vs,
                               const void* mask, const void* positions,
-                              const void* bits, void* out, int S, int Tq,
-                              int J, int H, int Hkv, int T, int D,
-                              float scale, void* stream_ptr) {
+                              const void* bits, void* out, void* m_out,
+                              void* l_out, int S, int Tq, int J, int H,
+                              int Hkv, int T, int D, int t0, float scale,
+                              void* stream_ptr) {
   Args a{};
   a.q = reinterpret_cast<const float*>(q);
   a.kq = reinterpret_cast<const int8_t*>(kq);
@@ -804,7 +825,10 @@ PS_EXPORT int ps_flash_decode(const void* q, const void* kq, const void* ks,
   a.page = 1;
   a.n_pages = 1;
   a.out = reinterpret_cast<float*>(out);
+  a.m_out = reinterpret_cast<float*>(m_out);
+  a.l_out = reinterpret_cast<float*>(l_out);
   a.Tq = Tq, a.J = J, a.H = H, a.Hkv = Hkv, a.T = T, a.D = D;
+  a.t0 = t0;
   a.scale = scale;
   return launch(a, S, stream_ptr);
 }

@@ -60,6 +60,18 @@
 // the twin's (ops/flash_prefill.py walks the same chunks); only the order
 // of the f32 sums and exp2 against exp differ. Not yet: the next chunk's
 // scores overlapped with this chunk's softmax.
+//
+// State mode (m_out non-null; a sequence-parallel rank's share of the
+// cache, merged over the ranks by ops/attention.py gqa_attention_quant_sp):
+// the same walk with the normalization skipped. It writes o [S, R, D]
+// unnormalized, m and l [S, R] with R = (h, g, i), i minor (the decode
+// state mode's order), m in natural units (the running max over log2 e).
+// A unit walks only the chunks some row sees, never all of T, and a row
+// that sees no position is written as m = -1e30, l = 0, o = 0. The key
+// offset t0 makes the causal interval one of global positions: cache
+// position t is global position t0 + t, so the interval's first cache
+// position is start - t0, which may lie before 0 or past T (a chunk that
+// starts or ends on another rank's slice).
 #include "common.cuh"
 
 namespace {
@@ -113,7 +125,9 @@ struct Args {
   const uint8_t* mask;
   const int* start;
   float* out;
+  float *m_out, *l_out;  // non-null: the state mode
   int S, Tq, H, Hkv, T;
+  int t0;                // global position of cache position 0
   int bq;
   float scale2;  // scale * log2 e
   int s_vec;     // scale rows may be copied 16 bytes at a time
@@ -368,13 +382,14 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
   // the unit's walk: the chunks of [0, nch_end) that some row sees (all
   // of them when a row sees nothing). Row i sees the committed bits and
   // [start, start + i] (t >= 0, t < T); the unit's first row sees least.
-  const long st = a.start[s];
+  const bool state = a.m_out != nullptr;
+  const long st = (long)a.start[s] - a.t0;
   const int q_last = min(a.Tq, q_first + a.bq) - 1;
   const int lastc = sm.misc[1];
   const long lo = st > 0 ? st : 0;
   const long hi = min(st + q_last, (long)T - 1);
   const bool causal = lo <= hi;
-  const bool all_see = lastc > 0 || (st < T && st + q_first >= 0);
+  const bool all_see = state || lastc > 0 || (st < T && st + q_first >= 0);
   const long end = max((long)lastc, causal ? hi + 1 : 0L);
   const int nch_end = all_see ? (int)((end + kChunk - 1) / kChunk) : nch;
   if (warp == 0) {
@@ -638,6 +653,21 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_prefill_kernel(
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (qi[hr] >= a.Tq) continue;
+    if (state) {
+      const bool empty = m_run[hr] <= 0.5f * PS_NEG_INF;
+      const long row = ((long)s * a.H + head) * a.Tq + qi[hr];
+      float* o = a.out + row * D + 2 * t4;
+#pragma unroll
+      for (int nn = 0; nn < NT; ++nn)
+        *reinterpret_cast<float2*>(o + 8 * nn) =
+            empty ? make_float2(0.f, 0.f)
+                  : make_float2(acc[nn][2 * hr], acc[nn][2 * hr + 1]);
+      if (t4 == 0) {
+        a.m_out[row] = empty ? PS_NEG_INF : m_run[hr] / kLog2e;
+        a.l_out[row] = empty ? 0.f : l_run[hr];
+      }
+      continue;
+    }
     const float inv = 1.f / (l_run[hr] > 0.f ? l_run[hr] : 1.f);
     float* o = a.out + ((long)s * a.Tq + qi[hr]) * HD + (long)head * D + 2 * t4;
 #pragma unroll
@@ -674,13 +704,17 @@ PS_EXPORT size_t ps_flash_prefill_smem(int T, int D) {
 }
 
 // D must be 16, 32, 64 or 128; G = H / Hkv; bq a multiple of 16 with
-// G * bq <= 128 (the wrapper's query block). Returns a CUDA error code (0
-// on success).
+// G * bq <= 128 (the wrapper's query block). m_out null: out f32
+// [S, Tq, H * D] normalized; else the state mode: out f32 [S, R, D]
+// unnormalized, m_out and l_out f32 [S, R], R = H * Tq in (h, g, i)
+// order. t0: the global position of cache position 0 (start is global).
+// Returns a CUDA error code (0 on success).
 PS_EXPORT int ps_flash_prefill(const void* q, const void* kq, const void* ks,
                                const void* vq, const void* vs,
                                const void* cmask, const void* start, void* out,
-                               int S, int Tq, int H, int Hkv, int T, int D,
-                               float scale, int bq, void* stream_ptr) {
+                               void* m_out, void* l_out, int S, int Tq, int H,
+                               int Hkv, int T, int D, int t0, float scale,
+                               int bq, void* stream_ptr) {
   if (S <= 0 || Tq <= 0 || T <= 0 || Hkv <= 0 || H % Hkv || bq <= 0 ||
       bq % 16 || (H / Hkv) * bq > 16 * kMaxWarps)
     return (int)cudaErrorInvalidValue;
@@ -694,7 +728,10 @@ PS_EXPORT int ps_flash_prefill(const void* q, const void* kq, const void* ks,
   a.mask = reinterpret_cast<const uint8_t*>(cmask);
   a.start = reinterpret_cast<const int*>(start);
   a.out = reinterpret_cast<float*>(out);
+  a.m_out = reinterpret_cast<float*>(m_out);
+  a.l_out = reinterpret_cast<float*>(l_out);
   a.S = S, a.Tq = Tq, a.H = H, a.Hkv = Hkv, a.T = T;
+  a.t0 = t0;
   a.bq = bq;
   a.scale2 = scale * kLog2e;
   a.s_vec = T % 4 == 0 && al16(ks) && al16(vs);

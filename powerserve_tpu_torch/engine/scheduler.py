@@ -92,11 +92,19 @@ its own block. A request's input rows go to every rank with the
 forward, the other slots' rows from TPModel.embed's vocab-sharded
 lookup; rank 0 makes every draw, and its ticks double-buffer as one
 device's (their gloo collectives wait for each forward, so nothing
-overlaps). The host keeps a mirror of every slot's cache position
-(pos_host): admission, prefill and each plain tick's dispatch (every
-active slot advances by the horizon) keep it exact, and a single-buffered
-spec tick's fetch refreshes it, so the paged pool grants pages without
-reading the card.
+overlaps). On a pp mesh (parallel/pp.py, the JAX pp_mesh branches) each
+forward runs the stages in turn and the last one's logits, tokens or
+final hidden come back to rank 0, so the same ticks run: plain ones on
+the dense cache and the pool, multimodal prefills, a draft model's chain
+(its layers staged too) and EAGLE's chain and tree, the head and its
+cache whole on every stage; a draft model's tree is refused, as JAX's
+scheduler refuses it. On an sp mesh the dense cache's positions split
+over the sp ranks: plain ticks and a draft model's chain run; the pool,
+token trees and EAGLE heads are refused (ROADMAP.md §1 8b). The host
+keeps a mirror of every slot's cache position (pos_host): admission,
+prefill and each plain tick's dispatch (every active slot advances by
+the horizon) keep it exact, and a single-buffered spec tick's fetch
+refreshes it, so the paged pool grants pages without reading the card.
 Only the scheduler thread touches the device; submit() is thread-safe,
 and call(fn) runs fn on the scheduler thread between two steps (device
 work for a request, such as encoding its images, never lands inside a
@@ -325,8 +333,11 @@ class BatchScheduler:
             if draft.llm.vocab_size != llm.vocab_size:
                 raise ValueError(f"draft vocab {draft.llm.vocab_size} != "
                                  f"target vocab {llm.vocab_size}")
+            self._check_parallel_spec(model, any(w > 1 for w in widths))
             self.draft = draft.to(self.device)
-            self.d_kv = self._new_cache(draft.llm)
+            # an EAGLE head's cache is whole on every pp stage (the head
+            # runs replicated there, as JAX's does)
+            self.d_kv = self._new_cache(draft.llm, staged=not self.is_eagle)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
         # one Philox stream per slot, seeded when its request starts
@@ -400,13 +411,30 @@ class BatchScheduler:
         self._wake = threading.Event()
         self._thread: threading.Thread | None = None
 
-    def _new_cache(self, llm, **paged) -> KVCache:
+    def _check_parallel_spec(self, model, tree: bool) -> None:
+        """Refuse the speculation a pp or sp mesh does not run, as JAX's
+        scheduler refuses it: under pp a draft model's token tree (its
+        chain, and EAGLE's chain and tree, are pipelined); under sp token
+        trees and EAGLE heads (ROADMAP.md §1 8b)."""
+        if not self.tp:
+            return
+        if model.mesh.pp > 1 and tree and not self.is_eagle:
+            raise ValueError("a draft model's token tree does not run under "
+                             "pp (JAX's pp scheduler takes chains): use "
+                             "--spec-k, or an EAGLE head")
+        if model.mesh.sp > 1 and (tree or self.is_eagle):
+            raise ValueError("token trees and EAGLE heads are not "
+                             "sequence-parallel yet (ROADMAP.md §1 8b): use "
+                             "a draft model's chain")
+
+    def _new_cache(self, llm, staged: bool = True, **paged) -> KVCache:
         """A dense (or, with n_pages, paged) cache of llm's geometry for
-        every slot: over the model's rank group when it has one."""
+        every slot: over the model's rank group when it has one (staged:
+        its layers over a pp mesh's stages)."""
         args = (llm.n_layers, self.S, self.max_seq, llm.n_kv_heads,
                 llm.head_size)
         if self.tp:
-            return self.model.create_cache(*args, **paged)
+            return self.model.create_cache(*args, staged=staged, **paged)
         if paged:
             return PagedKVCache.create(*args, self.device, **paged)
         return KVCache.create(*args, self.device)

@@ -21,6 +21,14 @@ it.
 kv/paged.py's PagedKVCache keeps the same method names and signatures
 (write_index/write, the mask and pos ops, the prefix snapshots), so the
 model's forward and the scheduler take either cache.
+
+SeqShardCache is a sequence-parallel rank's share of a dense cache: its
+slabs hold positions [t0, t0 + T) of max_seq = sp * T, its mask those
+positions, and pos stays global and the same on every rank. The same
+methods take global positions: a write lands here when its position is
+in this rank's slice and is dropped otherwise (the JAX forward's remap of
+an sp shard's cache positions), and advance counts every in-range
+position into pos. Token-tree compaction is not sequence-parallel.
 """
 
 from __future__ import annotations
@@ -252,6 +260,10 @@ class KVCache:
         self.mask[slot] = False
         self.pos[slot] = 0
 
+    def n_local(self, n: int) -> int:
+        """How many of a slot's first n positions this cache holds."""
+        return n
+
     def save_slot_prefix(self, slot: int, n: int) -> dict:
         """Snapshot the first n cached tokens of one slot: copies, so
         later writes into the slot leave the snapshot as it was (a prompt
@@ -302,3 +314,116 @@ class KVCache:
         return {"n": int(saved["n"]),
                 **{name: saved[name].cpu().numpy()
                    for name in ("k", "v", "k_scale", "v_scale")}}
+
+
+class SeqShardCache(KVCache):
+    """Sequence-parallel rank `sp_rank` of `sp`: positions [t0, t0 + T) of
+    a dense cache of max_seq = sp * T positions (T = k.shape[3]); pos is
+    global (every rank's the same)."""
+
+    def __init__(self, storage: list[torch.Tensor], shape: tuple,
+                 mask: torch.Tensor, pos: torch.Tensor, t0: int,
+                 total: int):
+        super().__init__(storage, shape, mask, pos)
+        self.t0, self.total = int(t0), int(total)
+
+    @classmethod
+    def create(cls, n_layers: int, n_slots: int, max_seq: int,
+               n_kv_heads: int, head_dim: int,
+               device: str | torch.device | None = None, *, sp: int,
+               sp_rank: int) -> "SeqShardCache":
+        if max_seq % sp:
+            raise ValueError(f"max_seq {max_seq} does not split over "
+                             f"sp={sp}")
+        dev = resolve_device(device)
+        t = max_seq // sp
+        shape = (n_layers, n_slots, n_kv_heads, t, head_dim)
+        return cls(new_storage(shape, dev), shape,
+                   torch.zeros(n_slots, t, dtype=torch.bool, device=dev),
+                   torch.zeros(n_slots, dtype=torch.int32, device=dev),
+                   sp_rank * t, max_seq)
+
+    def clone(self) -> "SeqShardCache":
+        return SeqShardCache([f.clone() for f in self.storage],
+                             tuple(self.k.shape), self.mask.clone(),
+                             self.pos.clone(), self.t0, self.total)
+
+    @property
+    def max_seq(self) -> int:
+        return self.total
+
+    @property
+    def t_local(self) -> int:
+        return self.k.shape[3]
+
+    def local(self, positions: torch.Tensor) -> torch.Tensor:
+        """Global positions as this slice's (-1 where another rank's)."""
+        p = positions.long() - self.t0
+        return torch.where((p >= 0) & (p < self.t_local), p, -1)
+
+    def _columns(self) -> torch.Tensor:
+        return self.t0 + torch.arange(self.t_local, device=self.device)
+
+    def n_local(self, n: int) -> int:
+        return min(max(n - self.t0, 0), self.t_local)
+
+    def write_index(self, positions: torch.Tensor) -> torch.Tensor:
+        S, Tq = positions.shape
+        loc = self.local(positions)
+        ok = loc >= 0
+        slot = torch.arange(S, device=positions.device)[:, None].expand(S, Tq)
+        return self._storage_rows(ok, slot, torch.where(ok, loc, 0))
+
+    def advance(self, positions: torch.Tensor,
+                active: torch.Tensor | None = None,
+                visible: torch.Tensor | None = None) -> None:
+        S, T = positions.shape[0], self.t_local
+        dev = self.device
+        if active is None:
+            active = torch.ones(S, dtype=torch.bool, device=dev)
+        counted = active[:, None] & (positions >= 0) & (positions < self.total)
+        loc = self.local(positions)
+        write = counted & (loc >= 0)
+        ext = torch.zeros(S, T + 1, dtype=torch.bool, device=dev)
+        ext[:, :T] = self.mask
+        shown = write if visible is None else write & visible.bool()
+        ext.scatter_(1, torch.where(shown, loc, T), True)
+        if visible is not None:
+            ext.scatter_(1, torch.where(write & ~shown, loc, T), False)
+        self.mask.copy_(ext[:, :T])
+        self.pos += counted.sum(dim=1).to(torch.int32)
+
+    def rollback(self, n, active: torch.Tensor | None = None) -> None:
+        n, active = self._slots(n, active)
+        new_pos = torch.clamp(self.pos - torch.where(active, n, 0), min=0)
+        self.mask &= self._columns()[None, :] < new_pos[:, None]
+        self.pos.copy_(new_pos.to(torch.int32))
+
+    def truncate(self, n, active: torch.Tensor | None = None) -> None:
+        n, active = self._slots(n, active)
+        new_pos = torch.where(active, n, self.pos)
+        keep = self._columns()[None, :] < new_pos[:, None]
+        self.mask &= keep | ~active[:, None]
+        self.pos.copy_(new_pos.to(torch.int32))
+
+    def _tree_op(self, *args, **kw):
+        raise ValueError("token trees are not sequence-parallel (ROADMAP.md "
+                         "§1 8b)")
+
+    set_mask = gather_tokens = commit_tokens = copy_token = _tree_op
+
+    def save_slot_prefix(self, slot: int, n: int) -> dict:
+        """This slice's part of the slot's first n positions: {"n": n,
+        "k", "v" [L, H, n_local(n), D], "k_scale", "v_scale"}."""
+        m = self.n_local(n)
+        return {"n": n,
+                **{name: getattr(self, name)[:, slot, :, :m].clone()
+                   for name in ("k", "v", "k_scale", "v_scale")}}
+
+    def restore_slot_prefix(self, slot: int, saved: dict) -> None:
+        n = saved["n"]
+        m = self.n_local(n)
+        for name in ("k", "v", "k_scale", "v_scale"):
+            getattr(self, name)[:, slot, :, :m] = saved[name]
+        self.mask[slot] = self._columns() < n
+        self.pos[slot] = n

@@ -40,6 +40,15 @@ last layer's pre-norm hidden states, the features an EAGLE head drafts
 from (speculative/eagle.py, which runs LlamaLayer on an f32 residual
 stream, its first layer without the attention norm).
 
+Sequence parallelism (parallel/tp.py, a mesh's sp axis): a LlamaModel
+whose `sp` is a TPComm attends over a SeqShardCache, its rank's slice of
+the cache's time axis, through the kernels' state modes, and merges the
+ranks' softmax states (ops/attention.py gqa_attention_quant_sp); RoPE and
+the positions stay global, and the cache drops the writes that belong to
+another rank's slice (the JAX forward's sp_axis). Pipeline parallelism
+(parallel/pp.py) runs a stage's layers as this forward with the previous
+stage's residual as `embeds` and return_final_hidden=True.
+
 Tensor parallelism (parallel/tp.py): a LlamaModel whose `tp` is a
 TPComm (parallel/mesh.py) holds one rank's shards, with the local head
 counts in its llm, and its forward runs the megatron collectives of the
@@ -73,8 +82,9 @@ from torch import nn
 
 from ..core.config import LLMConfig
 from ..core.quant import QK
-from ..kv.cache import KVCache
+from ..kv.cache import KVCache, SeqShardCache
 from ..kv.paged import PagedKVCache
+from ..ops.attention import gqa_attention_quant_sp
 from ..ops.elementwise import apply_rope, rms_norm, rope_cos_sin, silu_hadamard
 from ..ops.flash_decode import (flash_decode_paged,
                                 flash_decode_paged_deferred,
@@ -103,15 +113,23 @@ def moe_route(rows: int) -> tuple[str, int]:
 def attention(kv: KVCache, layer: int, q: torch.Tensor,
               positions: torch.Tensor, scale: float,
               bits: torch.Tensor | None = None,
-              mask: torch.Tensor | None = None) -> torch.Tensor:
+              mask: torch.Tensor | None = None, sp=None) -> torch.Tensor:
     """One layer's attention over the cache (the new K/V already
     written): q [S, Tq, H, D]; positions int32 [S, Tq] (causal), or with
     bits (int32 [Tq], a token tree's rows: ops/flash_decode.py) the key
     positions [S, J]; mask [S, T] the committed visibility (default
-    kv.mask, as before this batch). Returns f32 [S, Tq, H * D]."""
+    kv.mask, as before this batch). sp: the TPComm of the sequence-
+    parallel ranks, kv a SeqShardCache (the kernels' state modes over its
+    slice, merged: gqa_attention_quant_sp). Returns f32 [S, Tq, H * D]."""
     slabs = (kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer])
-    mask = kv.mask if mask is None else mask
     decode = q.shape[1] <= DECODE_MAX_TQ
+    if sp is not None:
+        if mask is not None or not isinstance(kv, SeqShardCache):
+            raise ValueError("sequence parallelism takes the dense int8 "
+                             "cache's slices and no attn_mask")
+        return gqa_attention_quant_sp(q, *slabs, kv.mask, positions, scale,
+                                      sp, kv.t0, bits, prefill=not decode)
+    mask = kv.mask if mask is None else mask
     if isinstance(kv, PagedKVCache):
         if decode:
             return flash_decode_paged(q, *slabs, kv.page_table, mask,
@@ -263,13 +281,15 @@ class LlamaLayer(nn.Module):
                 deferred: DeferredKV | None = None,
                 bits: torch.Tensor | None = None,
                 attn_mask: torch.Tensor | None = None,
-                norm_input: bool = True, tp=None, ep=None) -> torch.Tensor:
+                norm_input: bool = True, tp=None, ep=None,
+                sp=None) -> torch.Tensor:
         """x [S, Tq, dim] (the residual stream: bf16 in a model, f32 in
         an EAGLE head) -> the layer's output in x's dtype. norm_input
         False feeds x to the QKV projection without the attention norm
         (an EAGLE-1 head's first layer). tp: the TPComm of a sharded
         layer (wo and down all_reduced); ep: the expert-parallel TPComm
-        of an MoE layer holding its rank's experts."""
+        of an MoE layer holding its rank's experts; sp: the sequence-
+        parallel TPComm (kv a SeqShardCache)."""
         reduce = (lambda t: t) if tp is None else tp.all_reduce
         S, Tq, _ = x.shape
         H, Hkv, D = llm.n_heads, llm.n_kv_heads, llm.head_size
@@ -309,7 +329,8 @@ class LlamaLayer(nn.Module):
             attn = deferred.attend(kv, layer, q, k, v, scale)
         else:
             kv.write(layer, k, v, index)
-            attn = attention(kv, layer, q, positions, scale, bits, attn_mask)
+            attn = attention(kv, layer, q, positions, scale, bits, attn_mask,
+                             sp)
         if fused:
             # attn_out stays f32 into the next norm and the residual sum,
             # as in the JAX fused chain
@@ -407,10 +428,12 @@ class LlamaModel(nn.Module):
         self.lm_head = lm_head
         self.lm_head_lr = None if lm_head_lr is None else nn.ModuleList(
             lm_head_lr)
-        # a rank's shards: its TPComm (parallel/tp.py shard_params_tp), and
-        # under expert parallelism its ep TPComm
+        # a rank's shards: its TPComm (parallel/tp.py shard_params_tp),
+        # under expert parallelism its ep TPComm, under sequence
+        # parallelism its sp TPComm (the cache a SeqShardCache)
         self.tp = None
         self.ep = None
+        self.sp = None
 
     def head(self, h: torch.Tensor, argmax: bool = False) -> torch.Tensor:
         """Final norm + lm_head (+ greedy argmax) on rows [M, dim]; a
@@ -514,7 +537,8 @@ class LlamaModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, llm, kv, i, cos, sin, keys32, index,
                       fuse=fuse_layers, deferred=deferred, bits=bits,
-                      attn_mask=attn_mask, tp=self.tp, ep=self.ep)
+                      attn_mask=attn_mask, tp=self.tp, ep=self.ep,
+                      sp=self.sp)
             if hidden is not None:
                 hidden.append(x)
         if deferred is not None:

@@ -5,6 +5,13 @@ positions, so one code path serves chunked prefill and decode. The model
 attends through the kernels (ops/flash_decode.py for decode-sized
 batches, ops/flash_prefill.py for prefill chunks); `gqa_attention_quant`
 is the one-softmax reference the tests hold their twins against.
+
+`gqa_attention_quant_sp` is a sequence-parallel rank's attention (the
+JAX gqa_attention_quant_sp): the state mode of a kernel over the rank's
+time slice of the cache, then the softmax merged over the sp ranks by
+one max and one sum (of l and o side by side). The collectives and the
+merge are plain PyTorch, as the JAX package computes them in XLA outside
+its kernels.
 """
 
 from __future__ import annotations
@@ -57,3 +64,41 @@ def gqa_attention_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     pf = (probs * vs[:, :, None, None, :]).to(torch.bfloat16).float()
     out = torch.einsum("shgqk,shkd->sqhgd", pf, vq.float())
     return out.reshape(S, Tq, H * D)
+
+
+def gqa_attention_quant_sp(q: torch.Tensor, kq: torch.Tensor,
+                           ks: torch.Tensor, vq: torch.Tensor,
+                           vs: torch.Tensor, mask: torch.Tensor,
+                           positions: torch.Tensor, scale: float, comm,
+                           t0: int, bits: torch.Tensor | None = None,
+                           prefill: bool = False) -> torch.Tensor:
+    """Sequence-parallel attention of one rank: kq/vq int8 [S, Hkv, T, D],
+    ks/vs [S, Hkv, T] and mask [S, T] are its slice of the time axis,
+    global positions t0 .. t0 + T - 1; q [S, Tq, H, D] and positions
+    [S, Tq] (global; with bits, the decode tree mode's key positions) the
+    same on every rank. Decode-sized batches take flash-decode's state
+    mode, prefill chunks (prefill=True: each slot's rows contiguous from
+    positions[:, 0]) flash-prefill's. The states (o [S, R, D], m, l
+    [S, R]; R = (h, g, tq), tq minor) merge as JAX's shards do: m_max the
+    max of m over comm, each rank's weight exp(m - m_max), or 0 for a row
+    it does not see (m <= NEG_INF / 2), l and o summed with that weight
+    (one sum of the two side by side, where JAX runs two), o / l.
+    Returns f32 [S, Tq, H * D]."""
+    from .flash_decode import flash_decode_quant
+    from .flash_prefill import flash_prefill_quant
+
+    if prefill:
+        o, m, l = flash_prefill_quant(q, kq, ks, vq, vs, mask,
+                                      positions[:, 0], scale, state=True,
+                                      t0=t0)
+    else:
+        o, m, l = flash_decode_quant(q, kq, ks, vq, vs, mask, positions,
+                                     scale, bits=bits, state=True, t0=t0)
+    S, Tq, H, D = q.shape
+    m_max = comm.all_reduce(m.clone(), "max")
+    w = torch.where(m > NEG_INF / 2, torch.exp(m - m_max), 0.0)
+    ol = comm.all_reduce(torch.cat([o, l[..., None]], dim=-1)
+                         * w[..., None])
+    out = ol[..., :D] / torch.where(ol[..., D] > 0, ol[..., D],
+                                    1.0)[..., None]
+    return out.reshape(S, H, Tq, D).transpose(1, 2).reshape(S, Tq, H * D)

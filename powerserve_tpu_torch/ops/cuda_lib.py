@@ -39,7 +39,8 @@ LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
             "fused_x": 0, "fused_x_argmax": 0, "fused_glu": 0,
             "fused_concat2": 0, "flash_decode_paged_state": 0,
             "flash_decode_tree": 0, "flash_decode_paged_tree": 0,
-            "qmatmul_w8_grouped": 0, "sample": 0}
+            "qmatmul_w8_grouped": 0, "sample": 0,
+            "flash_decode_state": 0, "flash_prefill_state": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None
@@ -137,13 +138,13 @@ def lib() -> ctypes.CDLL:
                                       P, I, I, I, I, I, I, I, P, I, P, P,
                                       I, P, P, P, P, P]
         L.ps_fused_linear.restype = I
-        L.ps_flash_decode.argtypes = [P] * 9 + [I] * 7 + [F, P]
+        L.ps_flash_decode.argtypes = [P] * 11 + [I] * 8 + [F, P]
         L.ps_flash_decode.restype = I
         L.ps_flash_decode_smem.argtypes = [I] * 8
         L.ps_flash_decode_smem.restype = ctypes.c_size_t
         L.ps_flash_decode_paged.argtypes = [P] * 12 + [I] * 9 + [F, P]
         L.ps_flash_decode_paged.restype = I
-        L.ps_flash_prefill.argtypes = [P] * 8 + [I] * 6 + [F, I, P]
+        L.ps_flash_prefill.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
         L.ps_flash_prefill.restype = I
         L.ps_flash_prefill_smem.argtypes = [I, I]
         L.ps_flash_prefill_smem.restype = ctypes.c_size_t

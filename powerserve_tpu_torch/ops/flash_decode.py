@@ -38,6 +38,16 @@ A row that sees no position at all averages V over the T positions (the
 masked scores are a finite -1e30, as in the JAX reference); the JAX
 Pallas kernel averages over T rounded up to its chunk instead.
 
+The dense state mode (`flash_decode_quant(..., state=True, t0=)`, a
+sequence-parallel rank's share: ops/attention.py gqa_attention_quant_sp)
+returns the unnormalized partition over the cache's positions as the
+paged state mode below does, with the kernel's walk of a state (no walk
+of all of T). Its key offset t0 says where the cache's positions start:
+local position t is global position t0 + t, and the new rows' positions
+are global (positions - t0 match local positions; the others match
+nothing). A row that sees no position returns m = -1e30, l = 0 and
+o = 0, in both state modes, so a merge weighs it 0 whatever it does.
+
 `flash_decode_paged` is the same attention over the paged pool
 (kv/paged.py): the kernel reads logical position t of slot s from pool
 page page_table[s, t // page], row t % page; the twin
@@ -188,6 +198,19 @@ def _decode_state(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     return am, mm, lm
 
 
+def _state_rows(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+                ) -> tuple:
+    """A state partition (acc [S, Hkv, G, Tq, D], m, l [S, Hkv, G, Tq]) as
+    the kernel writes it: (o [S, R, D], m [S, R], l [S, R]), R = (h, g,
+    tq) with tq minor, and a row that saw no position (m <= -1e30 / 2)
+    as m = -1e30, l = 0, o = 0."""
+    S, D = acc.shape[0], acc.shape[-1]
+    seen = m > NEG_INF / 2
+    o = torch.where(seen[..., None], acc, 0.0).reshape(S, -1, D)
+    return (o, torch.where(seen, m, NEG_INF).reshape(S, -1),
+            torch.where(seen, l, 0.0).reshape(S, -1))
+
+
 def flash_decode_visibility_reference(q: torch.Tensor, kq: torch.Tensor,
                                       ks: torch.Tensor, vq: torch.Tensor,
                                       vs: torch.Tensor,
@@ -211,19 +234,27 @@ def flash_decode_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                                  positions: torch.Tensor | None,
                                  scale: float, chunk: int = KERNEL_CHUNK,
                                  split: int | None = None,
-                                 bits: torch.Tensor | None = None
-                                 ) -> torch.Tensor:
+                                 bits: torch.Tensor | None = None,
+                                 state: bool = False, t0: int = 0):
     """Plain PyTorch twin of the kernel: mask [S, T] bool, positions
     [S, Tq] (or None; with bits int32 [Tq], the tree mode, key positions
     [S, J]); split None: the kernel's walk (kernel_walk), else all of T
-    in states of `split` tokens. Returns f32 [S, Tq, H * D]."""
+    in states of `split` tokens. Returns f32 [S, Tq, H * D]; with
+    state=True the unnormalized partition (o [S, R, D], m [S, R],
+    l [S, R]), R = (h, g, tq), positions global and the cache's first
+    position t0."""
     Hkv = kq.shape[1]
+    if positions is not None and t0:
+        positions = positions.long() - t0
     vis = decode_visibility(mask, positions, q.shape[1], bits)
     end = None
     if split is None:
-        end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv)
-    return flash_decode_visibility_reference(q, kq, ks, vq, vs, vis, scale,
-                                             chunk, split, end)
+        end, split = kernel_walk(vis, Hkv, q.shape[2] // Hkv, state)
+    if not state:
+        return flash_decode_visibility_reference(q, kq, ks, vq, vs, vis,
+                                                 scale, chunk, split, end)
+    return _state_rows(*_decode_state(q, kq, ks, vq, vs, vis, scale, chunk,
+                                      split, end))
 
 
 def gather_pages(slab: torch.Tensor, page_table: torch.Tensor
@@ -263,9 +294,8 @@ def flash_decode_paged_reference(q: torch.Tensor, k_pool: torch.Tensor,
     if not state:
         return flash_decode_visibility_reference(q, *views, vis, scale,
                                                  chunk, split, end)
-    acc, m, l = _decode_state(q, *views, vis, scale, chunk, split, end)
-    S, D = q.shape[0], q.shape[-1]
-    return acc.reshape(S, -1, D), m.reshape(S, -1), l.reshape(S, -1)
+    return _state_rows(*_decode_state(q, *views, vis, scale, chunk, split,
+                                      end))
 
 
 def _check_shapes(S: int, H: int, Hkv: int, Tq: int, J: int, D: int,
@@ -310,9 +340,11 @@ def _mask_positions(mask: torch.Tensor, positions: torch.Tensor | None,
 def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                       vq: torch.Tensor, vs: torch.Tensor, mask: torch.Tensor,
                       positions: torch.Tensor | None, scale: float,
-                      bits: torch.Tensor | None = None) -> torch.Tensor:
+                      bits: torch.Tensor | None = None, state: bool = False,
+                      t0: int = 0):
     """Launch csrc/flash_decode.cu (all operands on one CUDA device); its
-    tree mode with bits."""
+    tree mode with bits, its state mode with state=True (key offset
+    t0)."""
     dev = q.device
     S, Tq, H, D = q.shape
     if kq.dim() != 4:
@@ -327,16 +359,24 @@ def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     mask, positions, bits, J = _mask_positions(mask, positions, bits, dev,
                                                S, Tq, T)
     _check_shapes(S, H, Hkv, Tq, J, D, T, 0, dev, "flash_decode")
-    out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+    if state:
+        out = torch.empty(S, H * Tq, D, dtype=torch.float32, device=dev)
+        m_out = torch.empty(S, H * Tq, dtype=torch.float32, device=dev)
+        l_out = torch.empty_like(m_out)
+    else:
+        out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+        m_out = l_out = None
     rc = cuda_lib.lib().ps_flash_decode(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), mask.data_ptr(), cuda_lib.ptr(positions),
-        cuda_lib.ptr(bits), out.data_ptr(), S, Tq, J, H, Hkv, T, D,
-        float(scale), cuda_lib.stream(dev))
-    name = "flash_decode" if bits is None else "flash_decode_tree"
+        cuda_lib.ptr(bits), out.data_ptr(), cuda_lib.ptr(m_out),
+        cuda_lib.ptr(l_out), S, Tq, J, H, Hkv, T, D, int(t0), float(scale),
+        cuda_lib.stream(dev))
+    name = ("flash_decode_state" if state else "flash_decode"
+            if bits is None else "flash_decode_tree")
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.check(rc, name)
-    return out
+    return (out, m_out, l_out) if state else out
 
 
 def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
@@ -344,19 +384,24 @@ def flash_decode_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                        positions: torch.Tensor | None, scale: float,
                        chunk: int = KERNEL_CHUNK,
                        split: int | None = None,
-                       bits: torch.Tensor | None = None) -> torch.Tensor:
+                       bits: torch.Tensor | None = None,
+                       state: bool = False, t0: int = 0):
     """q: [S, Tq, H, D]; kq/vq: [S, Hkv, T, D] int8; ks/vs: [S, Hkv, T];
     mask: [S, T] bool; positions: [S, Tq] int (or None: the mask alone);
     bits: int32 [Tq] (pack_intra), the tree mode over key positions
-    [S, J]. Returns [S, Tq, H*D] f32."""
+    [S, J]. Returns [S, Tq, H*D] f32; with state=True the unnormalized
+    partition (o [S, R, D], m [S, R], l [S, R]), R = (h, g, tq) with tq
+    minor, over a cache whose position t is global position t0 + t
+    (positions global)."""
     if q.device.type == "cpu":
         return flash_decode_quant_reference(q, kq, ks, vq, vs, mask,
                                             positions, scale, chunk, split,
-                                            bits)
+                                            bits, state, t0)
     if chunk != KERNEL_CHUNK or split is not None:
         raise ValueError(f"the kernel walks {KERNEL_CHUNK}-token steps in "
                          f"its own splits, got {chunk}, {split}")
-    return flash_decode_cuda(q, kq, ks, vq, vs, mask, positions, scale, bits)
+    return flash_decode_cuda(q, kq, ks, vq, vs, mask, positions, scale, bits,
+                             state, t0)
 
 
 def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,

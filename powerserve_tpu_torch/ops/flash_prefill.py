@@ -35,6 +35,16 @@ A row that sees no position at all averages V over the T positions (the
 masked scores are a finite -1e30, as in the JAX reference); the JAX
 Pallas kernel averages over T rounded up to its chunk instead. Only
 garbage rows (padded lanes, inactive slots) can see nothing.
+
+The state mode (state=True, a sequence-parallel rank's share:
+ops/attention.py gqa_attention_quant_sp) skips the normalization and
+returns the partition (o [S, R, D], m [S, R], l [S, R]), R = (h, g, i)
+with i minor, as flash-decode's state modes do. Its key offset t0 makes
+visibility that of global positions: cache position t is global position
+t0 + t, start is global, so the batch's interval begins at cache position
+start - t0 (before 0, or past T, when the chunk begins or ends on another
+rank's slice). A unit walks only the chunks some row sees, and a row that
+sees nothing returns m = -1e30, l = 0, o = 0.
 """
 
 from __future__ import annotations
@@ -71,10 +81,11 @@ def prefill_visibility(cache_mask: torch.Tensor, start: torch.Tensor,
 
 
 def kernel_walk(cache_mask: torch.Tensor, start: torch.Tensor, Tq: int,
-                bq: int, chunk: int = KERNEL_CHUNK) -> torch.Tensor:
+                bq: int, chunk: int = KERNEL_CHUNK,
+                state: bool = False) -> torch.Tensor:
     """How far each (slot, query block) walks, int64 [S, Tq / bq]: chunks
     [0, n_end), up to 1 + the last position one of its rows sees, all of
-    T where a row sees nothing."""
+    T where a row sees nothing (not in the state mode)."""
     T = cache_mask.shape[1]
     dev = cache_mask.device
     last = torch.where(cache_mask.bool(), torch.arange(1, T + 1, device=dev),
@@ -84,7 +95,7 @@ def kernel_walk(cache_mask: torch.Tensor, start: torch.Tensor, Tq: int,
     st = start.long().to(dev)[:, None]
     lo, hi = st.clamp(min=0), (st + q_last).clamp(max=T - 1)
     end = torch.maximum(last, torch.where(lo <= hi, hi + 1, 0))
-    all_see = (last > 0) | ((st < T) & (st + first >= 0))
+    all_see = (last > 0) | ((st < T) & (st + first >= 0)) | state
     return torch.where(all_see, (end + chunk - 1) // chunk, _ceil(T, chunk))
 
 
@@ -93,24 +104,29 @@ def flash_prefill_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                                   vs: torch.Tensor, cache_mask: torch.Tensor,
                                   start: torch.Tensor, scale: float,
                                   qb: int | None = None,
-                                  chunk: int = KERNEL_CHUNK) -> torch.Tensor:
+                                  chunk: int = KERNEL_CHUNK,
+                                  state: bool = False, t0: int = 0):
     """Plain PyTorch twin of the kernel. q [S, Tq, H, D]; kq/vq int8
     [S, Hkv, T, D]; ks/vs f32 [S, Hkv, T]; cache_mask bool [S, T];
     start int [S]. Query blocks of qb rows (None: the kernel's), each
     walking its chunks [0, n_end) (kernel_walk). Returns f32
-    [S, Tq, H * D]."""
+    [S, Tq, H * D]; with state=True the unnormalized partition (o
+    [S, R, D], m [S, R], l [S, R]), R = (h, g, i), start global and the
+    cache's first position t0."""
     S, Tq, H, D = q.shape
     Hkv, T = kq.shape[1], kq.shape[2]
     G = H // Hkv
     dev = q.device
     if qb is None:
         qb = kernel_query_block(Tq, G)
-    n_end = kernel_walk(cache_mask, start, Tq, qb, chunk)
+    start = start.long() - t0
+    n_end = kernel_walk(cache_mask, start, Tq, qb, chunk, state)
     qg = (q.reshape(S, Tq, Hkv, G, D).permute(0, 2, 3, 1, 4)
           .to(torch.bfloat16).float())  # [S, Hkv, G, Tq, D]
     neg = torch.tensor(NEG_INF, device=dev)
     st = start.long()[:, None, None]
     out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+    states = []
     for b, q0 in enumerate(range(0, Tq, qb)):
         q1 = min(Tq, q0 + qb)
         rows = torch.arange(q0, q1, device=dev)[None, :, None]
@@ -137,16 +153,25 @@ def flash_prefill_quant_reference(q: torch.Tensor, kq: torch.Tensor,
                 live[..., None], acc * alpha[..., None] + torch.einsum(
                     "shgqc,shcd->shgqd", pf, vq[:, :, t0:t1].float()), acc)
             m = torch.where(live, m_new, m)
+        if state:
+            states.append((acc, m, l))
+            continue
         o = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
         out[:, q0:q1] = o.permute(0, 3, 1, 2, 4).reshape(S, q1 - q0, H * D)
+    if state:
+        from .flash_decode import _state_rows
+
+        return _state_rows(*(torch.cat(parts, dim=3)
+                             for parts in zip(*states)))
     return out
 
 
 def flash_prefill_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                        vq: torch.Tensor, vs: torch.Tensor,
                        cache_mask: torch.Tensor, start: torch.Tensor,
-                       scale: float) -> torch.Tensor:
-    """Launch csrc/flash_prefill.cu (all operands on one CUDA device)."""
+                       scale: float, state: bool = False, t0: int = 0):
+    """Launch csrc/flash_prefill.cu (all operands on one CUDA device); its
+    state mode with state=True (key offset t0)."""
     dev = q.device
     S, Tq, H, D = q.shape
     if kq.dim() != 4:
@@ -174,25 +199,38 @@ def flash_prefill_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
     if smem > limit:
         raise ValueError(f"flash_prefill: T={T}, D={D} needs {smem} bytes of "
                          f"shared memory, the card has {limit}")
-    out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+    if state:
+        out = torch.empty(S, H * Tq, D, dtype=torch.float32, device=dev)
+        m_out = torch.empty(S, H * Tq, dtype=torch.float32, device=dev)
+        l_out = torch.empty_like(m_out)
+    else:
+        out = torch.empty(S, Tq, H * D, dtype=torch.float32, device=dev)
+        m_out = l_out = None
     rc = L.ps_flash_prefill(q.data_ptr(), kq.data_ptr(), ks.data_ptr(),
                             vq.data_ptr(), vs.data_ptr(), mask.data_ptr(),
-                            start.data_ptr(), out.data_ptr(), S, Tq, H, Hkv, T,
-                            D, float(scale), kernel_query_block(Tq, H // Hkv),
+                            start.data_ptr(), out.data_ptr(),
+                            cuda_lib.ptr(m_out), cuda_lib.ptr(l_out), S, Tq,
+                            H, Hkv, T, D, int(t0), float(scale),
+                            kernel_query_block(Tq, H // Hkv),
                             cuda_lib.stream(dev))
-    cuda_lib.LAUNCHES["flash_prefill"] += 1
-    cuda_lib.check(rc, "flash_prefill")
-    return out
+    name = "flash_prefill_state" if state else "flash_prefill"
+    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.check(rc, name)
+    return (out, m_out, l_out) if state else out
 
 
 def flash_prefill_quant(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                         vq: torch.Tensor, vs: torch.Tensor,
                         cache_mask: torch.Tensor, start: torch.Tensor,
-                        scale: float) -> torch.Tensor:
+                        scale: float, state: bool = False, t0: int = 0):
     """q: [S, Tq, H, D]; kq/vq: [S, Hkv, T, D] int8; ks/vs: [S, Hkv, T];
     cache_mask: [S, T] bool (before this batch's advance); start: [S]
-    (positions[:, 0]). Returns [S, Tq, H*D] f32."""
+    (positions[:, 0]). Returns [S, Tq, H*D] f32; with state=True the
+    unnormalized partition (o [S, R, D], m [S, R], l [S, R]), R = (h, g,
+    i), over a cache whose position t is global position t0 + t."""
     if q.device.type == "cpu":
         return flash_prefill_quant_reference(q, kq, ks, vq, vs, cache_mask,
-                                             start, scale)
-    return flash_prefill_cuda(q, kq, ks, vq, vs, cache_mask, start, scale)
+                                             start, scale, state=state,
+                                             t0=t0)
+    return flash_prefill_cuda(q, kq, ks, vq, vs, cache_mask, start, scale,
+                              state, t0)

@@ -59,11 +59,30 @@ Compositions over a rank group:
     runs eagle_forward on every rank's head shards and its cache shard;
     the head's heads must divide tp.
 
-    python -m powerserve_tpu_torch serve -d <root> --tp 2 [--dp 2]
-        [--dist-backend nccl|gloo]
+Pipeline and sequence parallelism ride the same operations on a mesh's
+pp and sp axes (parallel/mesh.py):
+  - pp (alone: check_mesh): each stage's ShardModel holds its layers
+    (parallel/pp.py shard_params_pp) and a forward is the stage chain
+    (pp.stage_forward: recv the residual, run the layers, send it on; the
+    last stage runs the head and sends the result to rank 0); its caches
+    hold the stage's layers, but an EAGLE head's (staged=False), which is
+    whole on every stage, as the head is; a factored draft head factors
+    the whole lm_head every stage holds;
+  - sp: each rank's cache is a SeqShardCache, its slice of the positions
+    (kv/cache.py), and the model's attention merges the slices' states
+    over the sp group (LlamaModel.sp); the paged pool and MoE models are
+    refused.
+A snapshot under either is put together (over the stages' layers, over
+the slices' positions) to be saved and cut again to be loaded
+(ShardCache.export_prefix / import_prefix), so a session file is one
+device's.
 
-Not ported (ROADMAP §1 item 8b): pipeline and sequence parallelism,
-several hosts, TP ticks replayed as CUDA graphs.
+    python -m powerserve_tpu_torch serve -d <root> --tp 2 [--sp 2]
+        [--dp 2] [--dist-backend nccl|gloo]
+    python -m powerserve_tpu_torch serve -d <root> --pp 2
+
+Not ported (ROADMAP §1 item 8b): token trees, EAGLE heads, VLM dirs and
+MoE models under sp, several hosts, TP ticks replayed as CUDA graphs.
 """
 
 from __future__ import annotations
@@ -84,7 +103,7 @@ import torch.distributed as dist
 from ..core.config import LLMConfig, ModelConfig
 from ..core.logging import get_logger
 from ..core.quant import QK, choose_pack_group
-from ..kv.cache import KVCache
+from ..kv.cache import KVCache, SeqShardCache
 from ..kv.paged import PagedKVCache
 from ..models.llama import LlamaLayer, LlamaModel, QEmbedding
 from ..ops import cuda_lib
@@ -321,6 +340,26 @@ def _shard_head(head: QLinear, rank: int, tp: int) -> QLinear:
     return _cols(head, rank, tp) if head.out_features % tp == 0 else head
 
 
+def check_mesh(tp: int, dp: int, ep: int, sp: int, pp: int) -> None:
+    """Refuse the meshes the port does not run: pp beside any other axis
+    (JAX's pp mesh is {"pp": N})."""
+    if pp > 1 and (tp, dp, ep, sp) != (1, 1, 1, 1):
+        raise ValueError(f"pp runs alone: pp={pp} with tp={tp}, dp={dp}, "
+                         f"ep={ep}, sp={sp}")
+
+
+def _check_model(cfg: ModelConfig, model: LlamaModel, sp: int,
+                 pp: int) -> None:
+    """Refuse a depth pp does not divide, and MoE models under sp
+    (ROADMAP.md §1 8b)."""
+    if cfg.llm.n_layers % pp:
+        raise ValueError(f"{cfg.llm.n_layers} layers do not split into "
+                         f"pp={pp} stages")
+    if sp > 1 and any(lw.router is not None for lw in model.layers):
+        raise ValueError("MoE models are not served under sequence "
+                         "parallelism yet (ROADMAP.md §1 8b)")
+
+
 def shard_params_tp(model: LlamaModel, rank: int, tp: int,
                     ep_rank: int = 0, ep: int = 1) -> LlamaModel:
     """Rank `rank`'s shards of `model` (after prepare_params_for_tp), with
@@ -448,17 +487,36 @@ class ShardModel:
         self.mesh, self.model, self.cfg = mesh, model, cfg
         model.tp = mesh.comm
         model.ep = mesh.ep_comm
+        model.sp = mesh.sp_comm
 
     def forward(self, kv: "ShardCache", tokens: torch.Tensor,
                 positions: torch.Tensor, **kw) -> torch.Tensor:
         """The whole batch's forward: this block's rows through the local
         shards, the blocks' outputs put together (with
-        return_final_hidden, the logits and the final hidden)."""
+        return_final_hidden, the logits and the final hidden); on a pp
+        mesh this stage's part of the pipelined forward (parallel/pp.py)."""
+        if self.mesh.pp > 1:
+            from .pp import stage_forward
+
+            return stage_forward(self, kv, tokens, positions, **kw)
         S = tokens.shape[0]
         (tokens, positions), kw = _block_args(self.mesh, S,
                                               (tokens, positions), kw)
         return _assemble_out(self.mesh, self.model(kv.kv, tokens, positions,
                                                    **kw), S)
+
+    def prefill_microbatched(self, kv: "ShardCache", tokens: torch.Tensor,
+                             positions: torch.Tensor, n_micro: int) -> None:
+        """This stage's part of the GPipe prefill (parallel/pp.py)."""
+        from .pp import stage_prefill_microbatched
+
+        stage_prefill_microbatched(self, kv, tokens, positions, n_micro)
+
+    def handoff_ms(self, shape: tuple, reps: int) -> float | None:
+        """A timed stage-to-stage hand-off (parallel/pp.py)."""
+        from .pp import stage_handoff_ms
+
+        return stage_handoff_ms(self, shape, reps)
 
     def embed_rows(self, tokens: torch.Tensor) -> torch.Tensor:
         """The tokens' input rows f32 (the vocab-sharded lookup), on every
@@ -492,31 +550,62 @@ class ShardEagle:
             self.head, kv.kv, tokens, features, positions, **kw), S)
 
 
+def _put_together(t: torch.Tensor, comm: TPComm | None, axis: int,
+                  offset: int, total: int) -> torch.Tensor:
+    """t, this rank's [offset, offset + len) of `axis`, put together with
+    the other ranks' of comm into all `total`: an all_reduce of
+    zero-filled copies (int8 and bool widened to int32, so a value plus
+    zeros is exact), in t's dtype. comm None: t."""
+    if comm is None:
+        return t
+    wide = t.to(torch.int32) if t.dtype in (torch.int8, torch.bool) else t
+    shape = list(wide.shape)
+    shape[axis] = total
+    full = wide.new_zeros(shape)
+    full.narrow(axis, offset, wide.shape[axis]).copy_(wide)
+    return comm.all_reduce(full).to(t.dtype)
+
+
 def _all_heads(t: torch.Tensor, m: Mesh, axis: int) -> torch.Tensor:
     """t with this rank's heads on `axis` put together with the other tp
-    ranks' in the global head order: an all_reduce of zero-filled copies
-    (int8 widened to int32, so a value plus zeros is exact; the caller
-    narrows it back)."""
-    wide = t.to(torch.int32) if t.dtype == torch.int8 else t
-    h = wide.shape[axis]
-    shape = list(wide.shape)
-    shape[axis] = h * m.tp
-    full = wide.new_zeros(shape)
-    full.narrow(axis, m.tp_rank * h, h).copy_(wide)
-    return m.comm.all_reduce(full)
+    ranks' in the global head order."""
+    h = t.shape[axis]
+    return _put_together(t, m.comm, axis, m.tp_rank * h, h * m.tp)
+
+
+def _all_layers(t: torch.Tensor, m: Mesh) -> torch.Tensor:
+    """t [L_stage, ...] with every stage's layers, in order (axis 0)."""
+    n = t.shape[0]
+    return _put_together(t, m.pp_comm, 0, m.pp_rank * n, n * m.pp)
 
 
 class ShardCache:
     """One rank's cache: its kv heads of its dp block's slots (paged: of
-    its block's pages). The methods take the whole batch's arguments."""
+    its block's pages), under sp its slice of the positions (a
+    SeqShardCache), under pp its stage's layers (whole: a replicated
+    EAGLE head's cache). The methods take the whole batch's arguments."""
 
     def __init__(self, mesh: Mesh, kv: KVCache, n_slots: int,
-                 n_pages: int = 0):
+                 n_pages: int = 0, staged: bool = True):
         self.mesh, self.kv = mesh, kv
         self.lo, self.hi = mesh.block(n_slots)
         self.n_slots = n_slots
+        # the layers split over the pp stages
+        self.staged = staged and mesh.pp > 1
         if n_pages:
             self.p_lo, self.p_hi = mesh.block(n_pages)
+
+    def _layers(self, t: torch.Tensor) -> torch.Tensor:
+        """t [L_stage, ...] with every layer (over pp when staged)."""
+        return _all_layers(t, self.mesh) if self.staged else t
+
+    def _times(self, t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+        """t, this rank's part of n positions on `axis` (under sp its
+        slice, from its t0), with every rank's."""
+        if self.mesh.sp == 1:
+            return t
+        return _put_together(t, self.mesh.sp_comm, axis, min(self.kv.t0, n),
+                             n)
 
     def _rows(self, x):
         if self.mesh.dp == 1 or not torch.is_tensor(x) or x.dim() == 0:
@@ -530,7 +619,8 @@ class ShardCache:
         return self.mesh.assemble(self.kv.pos, self.n_slots)
 
     def mask(self) -> torch.Tensor:
-        return self.mesh.assemble(self.kv.mask, self.n_slots)
+        mask = self._times(self.kv.mask, 1, self.kv.max_seq)
+        return self.mesh.assemble(mask, self.n_slots)
 
     def reset_slot(self, slot: int) -> None:
         if self._mine(slot):
@@ -553,11 +643,12 @@ class ShardCache:
         else:
             L, _, H, _, D = self.kv.k.shape
             dev = self.kv.device
+            m = self.kv.n_local(n)
             snap = {"n": n,
-                    "k": torch.zeros(L, H, n, D, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(L, H, n, D, dtype=torch.int8, device=dev),
-                    "k_scale": torch.zeros(L, H, n, device=dev),
-                    "v_scale": torch.zeros(L, H, n, device=dev)}
+                    "k": torch.zeros(L, H, m, D, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(L, H, m, D, dtype=torch.int8, device=dev),
+                    "k_scale": torch.zeros(L, H, m, device=dev),
+                    "v_scale": torch.zeros(L, H, m, device=dev)}
         if self.mesh.dp > 1:
             for name in ("k", "v", "k_scale", "v_scale"):
                 self.mesh.peers.broadcast(snap[name], owner)
@@ -568,35 +659,49 @@ class ShardCache:
             self.kv.restore_slot_prefix(int(slot) - self.lo, saved["handle"])
 
     def import_prefix(self, host: dict) -> dict:
-        """This rank's heads of a whole snapshot (every head, on the
-        cpu), on its device: every dp block keeps them, as
-        save_slot_prefix leaves a snapshot in every block."""
+        """This rank's part of a whole snapshot (every layer, head and
+        position, on the cpu), on its device: its heads, under pp its
+        stage's layers, under sp its slice of the positions. Every dp
+        block keeps it, as save_slot_prefix leaves a snapshot in every
+        block."""
+        m, n = self.mesh, int(host["n"])
         h = self.kv.n_kv_heads
-        cut = slice(self.mesh.tp_rank * h, (self.mesh.tp_rank + 1) * h)
-        out = {"n": int(host["n"])}
+        heads = slice(m.tp_rank * h, (m.tp_rank + 1) * h)
+        L = self.kv.n_layers
+        layers = (slice(m.pp_rank * L, (m.pp_rank + 1) * L) if self.staged
+                  else slice(None))
+        t0 = getattr(self.kv, "t0", 0)
+        times = slice(t0, t0 + self.kv.n_local(n))
+        out = {"n": n}
         for name in ("k", "v", "k_scale", "v_scale"):
-            out[name] = host[name][:, cut].to(self.kv.device).contiguous()
+            out[name] = (torch.as_tensor(host[name])[layers, heads, times]
+                         .to(self.kv.device).contiguous())
         return out
 
     def export_prefix(self, saved: dict) -> dict:
-        """A snapshot's every head, put together over tp in the global
-        head order, on every rank of the mesh (each dp block holds the
-        whole snapshot)."""
+        """A snapshot's every head (over tp, in the global head order),
+        every layer (over pp) and every position (over sp), on every rank
+        of the mesh (each dp block holds the whole snapshot)."""
         snap = saved["handle"]
-        return {"n": snap["n"],
-                **{name: _all_heads(snap[name], self.mesh, 1).to(
-                    snap[name].dtype)  # [L, h, n(, D)] -> every head
-                   for name in ("k", "v", "k_scale", "v_scale")}}
+        n = snap["n"]
+        return {"n": n, **{  # [L, h, n(, D)] -> every layer, head, position
+            name: self._layers(self._times(_all_heads(snap[name], self.mesh,
+                                                      1), 2, n))
+            for name in ("k", "v", "k_scale", "v_scale")}}
 
     def gathered(self) -> dict:
         """The whole cache on every rank of the mesh: k, v, k_scale,
-        v_scale with every head (put together over tp) and every slot or
-        page (over dp), and pos and mask (checks and tests)."""
+        v_scale with every head (put together over tp), every slot or
+        page (over dp), every position (over sp) and every layer (over
+        pp), and pos and mask (checks and tests)."""
         out = {"pos": self.pos(), "mask": self.mask()}
         m = self.mesh
         for name in ("k", "v", "k_scale", "v_scale"):
             t = getattr(self.kv, name)  # [L, slots or pages, H, T(, D)]
+            t = self._layers(self._times(t, 3, self.kv.max_seq))
             full = _all_heads(t, m, 2).movedim(1, 0).contiguous()
+            if full.dtype == torch.int8:
+                full = full.to(torch.int32)
             full = m.assemble(full, full.shape[0] * m.dp)
             out[name] = full.movedim(0, 1).to(t.dtype)
         return out
@@ -765,20 +870,27 @@ class RankGroup:
             self.objs.pop(oid, None)
         return getattr(self, "_op_" + op)(*args, **kw)
 
-    def mesh(self, tp: int, dp: int, ep: int = 1) -> Mesh:
-        key = (tp, dp, ep)
+    def mesh(self, tp: int, dp: int, ep: int = 1, sp: int = 1,
+             pp: int = 1) -> Mesh:
+        check_mesh(tp, dp, ep, sp, pp)
+        key = (tp, dp, ep, sp, pp)
         if key not in self.meshes:
             self.meshes[key] = Mesh(tp, dp, self.rank, self.world,
-                                    self.backend, ep=ep)
+                                    self.backend, ep=ep, sp=sp, pp=pp)
         return self.meshes[key]
 
-    def _op_model(self, oid, source, tp, dp, *args, ep=1):
-        mesh = self.mesh(tp, dp, ep)
+    def _op_model(self, oid, source, tp, dp, *args, ep=1, sp=1, pp=1):
+        mesh = self.mesh(tp, dp, ep, sp, pp)
         if not mesh.member:
             return None
         cfg, full = _LOADERS[source](self, *args)
+        _check_model(cfg, full, sp, pp)
         local = shard_params_tp(full, mesh.tp_rank, tp, mesh.ep_rank, ep)
         del full
+        if pp > 1:
+            from .pp import shard_params_pp
+
+            local = shard_params_pp(local, mesh.pp_rank, pp)
         self.objs[oid] = ShardModel(mesh, local, cfg)
         return self.objs[oid]
 
@@ -825,19 +937,23 @@ class RankGroup:
         return self.objs[oid]
 
     def _op_cache(self, oid, tp, dp, n_layers, n_slots, max_seq, n_kv_heads,
-                  head_dim, n_pages=0, page_size=64, ep=1):
-        mesh = self.mesh(tp, dp, ep)
+                  head_dim, n_pages=0, page_size=64, ep=1, sp=1, pp=1,
+                  staged=True):
+        mesh = self.mesh(tp, dp, ep, sp, pp)
         if not mesh.member:
             return None
         lo, hi = mesh.block(n_slots)
-        args = (n_layers, hi - lo, max_seq, n_kv_heads // tp, head_dim,
+        layers = n_layers // pp if staged else n_layers
+        args = (layers, hi - lo, max_seq, n_kv_heads // tp, head_dim,
                 self.device)
         if n_pages:
             kv = PagedKVCache.create(*args, n_pages=n_pages // dp,
                                      page_size=page_size)
+        elif sp > 1:
+            kv = SeqShardCache.create(*args, sp=sp, sp_rank=mesh.sp_rank)
         else:
             kv = KVCache.create(*args)
-        self.objs[oid] = ShardCache(mesh, kv, n_slots, n_pages)
+        self.objs[oid] = ShardCache(mesh, kv, n_slots, n_pages, staged)
         return self.objs[oid]
 
     def _op_call(self, oid, method: str, args, kw, keep=None):
@@ -877,27 +993,30 @@ class RankGroup:
         self._drops.append(oid)
 
     def load(self, path, tp: int, dp: int = 1, mxu: bool = False,
-             ep: int = 1, source: str = "gguf"
+             ep: int = 1, source: str = "gguf", sp: int = 1, pp: int = 1
              ) -> tuple[ModelConfig, "TPModel"]:
         """A GGUF model dir (mxu: in the W8 format), or with source
         "hf_internvl" the text model of an HF InternVL checkpoint dir (its
         weights quantized to Q8_0 by every rank), sharded over a (tp, dp)
         mesh (ep > 1: an MoE model's experts split over ep groups of tp
-        ranks in each dp block): (the global config, rank 0's TPModel)."""
-        return self._model(source, tp, dp, ep, str(path), mxu)
+        ranks in each dp block; sp > 1: the caches' positions split over
+        sp ranks; pp > 1, alone: the layers over pp stages): (the global
+        config, rank 0's TPModel)."""
+        return self._model(source, tp, dp, ep, sp, pp, str(path), mxu)
 
     def preset(self, preset: str, quant: str, seed: int, tp: int,
-               dp: int = 1, ep: int = 1, layers: int | None = None
-               ) -> tuple[ModelConfig, "TPModel"]:
+               dp: int = 1, ep: int = 1, layers: int | None = None,
+               sp: int = 1, pp: int = 1) -> tuple[ModelConfig, "TPModel"]:
         """Random weights (tools/bench_params.py, the same seed on every
         rank; layers: the depth cut), sharded over a (tp, dp) mesh (and
-        ep, as load())."""
-        return self._model("preset", tp, dp, ep, preset, quant, seed,
-                           layers)
+        ep, sp and pp, as load())."""
+        return self._model("preset", tp, dp, ep, sp, pp, preset, quant,
+                           seed, layers)
 
-    def _model(self, source, tp, dp, ep, *args):
+    def _model(self, source, tp, dp, ep, sp, pp, *args):
         oid = self._new_id()
-        shard = self.run("model", oid, source, tp, dp, *args, ep=ep)
+        shard = self.run("model", oid, source, tp, dp, *args, ep=ep, sp=sp,
+                         pp=pp)
         return shard.cfg, TPModel(self, oid, shard)
 
     def eagle(self, model: "TPModel", path, rank: int = 0) -> "TPEagleHead":
@@ -916,6 +1035,10 @@ class RankGroup:
         return TPEagleHead(self, oid, shard)
 
     def self_draft(self, model: "TPModel", n_layers: int) -> "TPModel":
+        if model.mesh.pp > 1:
+            raise ValueError("self-draft speculation does not compose with "
+                             "pp (the first layers lie on one stage); use a "
+                             "separate draft model")
         oid = self._new_id()
         return TPModel(self, oid, self.run("self_draft", oid, model,
                                            n_layers))
@@ -1000,22 +1123,30 @@ class TPModel(_Remote):
 
     def create_cache(self, n_layers: int, n_slots: int, max_seq: int,
                      n_kv_heads: int, head_dim: int, *, n_pages: int = 0,
-                     page_size: int = 64) -> "TPCache":
+                     page_size: int = 64, staged: bool = True) -> "TPCache":
         """KVCache.create / PagedKVCache.create (n_pages > 0) over this
-        model's mesh: each rank its kv heads of its block's slots."""
+        model's mesh: each rank its kv heads of its block's slots, under
+        sp its slice of the positions (the dense cache only), under pp
+        its stage's layers (staged=False: every layer on every stage, a
+        replicated EAGLE head's cache)."""
         m = self.mesh
+        if n_pages and m.sp > 1:
+            raise ValueError("the paged pool is not sequence-parallel: "
+                             "paged KV + sequence parallel unsupported")
         for what, n, by in (("kv heads", n_kv_heads, m.tp),
                             ("slots", n_slots, m.dp),
-                            ("pages", n_pages, m.dp)):
+                            ("pages", n_pages, m.dp),
+                            ("positions", max_seq, m.sp),
+                            ("layers", n_layers, m.pp if staged else 1)):
             if n % by:
                 raise ValueError(f"{n} {what} do not split over {by} ranks")
         oid = self.group._new_id()
-        shard = self.group.run("cache", oid, self.mesh.tp, self.mesh.dp,
-                               n_layers, n_slots, max_seq, n_kv_heads,
-                               head_dim, n_pages=n_pages,
-                               page_size=page_size, ep=self.mesh.ep)
+        shard = self.group.run("cache", oid, m.tp, m.dp, n_layers, n_slots,
+                               max_seq, n_kv_heads, head_dim,
+                               n_pages=n_pages, page_size=page_size,
+                               ep=m.ep, sp=m.sp, pp=m.pp, staged=staged)
         cls = TPPagedCache if n_pages else TPCache
-        return cls(self.group, oid, shard, n_slots, n_pages)
+        return cls(self.group, oid, shard, n_slots, n_pages, n_layers)
 
 
 class _TPEmbedding:
@@ -1066,11 +1197,12 @@ class TPCache(_Remote, KVCache):
     blocks)."""
 
     def __init__(self, group: RankGroup, oid: int, shard: ShardCache,
-                 n_slots: int, n_pages: int = 0):
+                 n_slots: int, n_pages: int = 0, n_layers: int = 0):
         _Remote.__init__(self, group, oid)
         self.shard = shard
         self._n_slots = n_slots
         self._n_pages = n_pages
+        self._n_layers = n_layers or shard.kv.n_layers
 
     @property
     def pos(self) -> torch.Tensor:
@@ -1080,13 +1212,13 @@ class TPCache(_Remote, KVCache):
 
     @property
     def mask(self) -> torch.Tensor:
-        if self.shard.mesh.dp == 1:
+        if self.shard.mesh.dp == 1 and self.shard.mesh.sp == 1:
             return self.shard.kv.mask
         return self._call("mask")
 
     @property
     def n_layers(self) -> int:
-        return self.shard.kv.n_layers
+        return self._n_layers
 
     @property
     def n_slots(self) -> int:

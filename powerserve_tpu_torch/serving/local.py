@@ -94,7 +94,7 @@ class LocalServer:
         """The reply's pieces with the model's context in flight (no
         eviction takes it) from the prompt's preparation to the end of the
         stream: prompt(mctx) -> (ids, input rows or None)."""
-        with self.ctx.use(model or self.default_model) as mctx:
+        with self.ctx.use(model or self.default_model) as (mctx, _):
             ids, embeds = prompt(mctx)
             yield from self._stream(mctx, ids, sampling, stop, embeds)
 

@@ -78,14 +78,24 @@ the newest are never evicted (nor, in the JAX server, one whose
 scheduler another context shares: here every context has its own);
 sessions stay registered, and a later request re-prefills their tokens.
 
---pp, --sp, --gspmd and --distributed exit with an error naming ROADMAP
-§1 item 8b.
+--pp N serves every model over N pipeline stages (parallel/pp.py: each
+rank holds L / N layers and their cache, the residual goes from stage to
+stage), alone: with --tp it exits with an error (JAX's server ignores
+--tp there). A self-draft ("main+self:N"), a draft model's --spec-tree
+and a VLM's speculation get a 400 under --pp, as in the JAX server; a
+draft dir's chain, EAGLE chains and trees and plain VLM requests serve.
+--tp T --sp N [--dp M] splits each dense cache's positions over N
+sequence-parallel ranks (T * N * M ranks in all; the attention merges
+the ranks' softmax states); the paged pool exits with an error there,
+and token trees, EAGLE heads, VLM dirs and MoE models get a 400 naming
+ROADMAP §1 8b. --gspmd and --distributed exit with an error naming
+ROADMAP §1 item 8b.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
         [--spec-wor]] [--spec-horizon H] [--draft-head-rank R]
-        [--max-models N] [--tp N [--dp M] [--dist-backend nccl|gloo]]
-        [--device cuda|cpu]
+        [--max-models N] [--tp N [--sp N] [--dp M] | --pp N]
+        [--dist-backend nccl|gloo] [--device cuda|cpu]
 
     curl -d '{"model": "model", "prompt": "You are ...", "id": "s1",
               "save_path": "s1.npz"}' localhost:8080/v1/sessions
@@ -127,7 +137,7 @@ from ..models.llama import LlamaModel
 from ..models.loader import (WEIGHT_FORMATS, gguf_architecture,
                              load_eagle_gguf, load_gguf_model)
 from ..parallel.distributed import default_backend
-from ..parallel.tp import start_rank_group
+from ..parallel.tp import check_mesh, start_rank_group
 from ..speculative.chain import self_draft_model, with_draft_head
 from ..speculative.draft_head import make_draft_head
 from ..speculative.eagle import with_lm_head_lr
@@ -242,14 +252,16 @@ class ServerContext:
     --weight-format), "gguf" (default) in the file's formats. ep > 1
     splits an MoE model's experts over ep groups of tp ranks (tp * ep *
     dp ranks in all; JAX reaches it by a mesh, and `serve` has no flag
-    for it either)."""
+    for it either). sp > 1 splits the dense caches' positions over sp
+    ranks (tp * ep * sp * dp in all); pp > 1, alone, the layers over pp
+    stages (pp ranks)."""
 
     def __init__(self, model_root: str | Path, default_model: str = "",
                  hp: HyperParams | None = None,
                  device: str | torch.device | None = None,
                  tp: int = 1, dp: int = 1, dist_backend: str | None = None,
                  max_models: int = 0, weight_format: str = "gguf",
-                 ep: int = 1):
+                 ep: int = 1, sp: int = 1, pp: int = 1):
         if weight_format not in WEIGHT_FORMATS:
             raise ValueError(f"weight format {weight_format!r}: gguf or w8")
         self.mxu = weight_format == "w8"
@@ -264,12 +276,18 @@ class ServerContext:
         self._lock = threading.Lock()
         self.image_workers: ImageWorkers | None = None
         self.tp, self.dp, self.ep = int(tp), int(dp), int(ep)
+        self.sp, self.pp = int(sp), int(pp)
+        check_mesh(self.tp, self.dp, self.ep, self.sp, self.pp)
+        if self.sp > 1 and self.hp.paged_pages > 0:
+            raise ValueError("paged KV + sequence parallel unsupported: the "
+                             "pool is not split over sp")
         self.ranks = None
-        world = self.tp * self.ep * self.dp
+        world = self.tp * self.ep * self.sp * self.dp * self.pp
         if world > 1:
             backend = dist_backend or default_backend(self.device)
             log.info(f"{world} ranks (tp={self.tp}, ep={self.ep}, "
-                     f"dp={self.dp}) over {backend} on {self.device.type}")
+                     f"sp={self.sp}, pp={self.pp}, dp={self.dp}) over "
+                     f"{backend} on {self.device.type}")
             self.ranks = start_rank_group(world, backend, self.device)
             self.device = self.ranks.device
 
@@ -278,8 +296,12 @@ class ServerContext:
         """A model dir on this context's device, or over its ranks
         (source: RankGroup.load's)."""
         if self.ranks is not None:
-            return self.ranks.load(d, self.tp, self.dp, self.mxu, self.ep,
-                                   source=source)
+            try:
+                return self.ranks.load(d, self.tp, self.dp, self.mxu,
+                                       self.ep, source=source, sp=self.sp,
+                                       pp=self.pp)
+            except ValueError as e:  # a model the mesh does not take
+                raise HTTPError(400, f"model dir '{d.name}': {e}") from e
         return load_gguf_model(d, device=self.device, mxu=self.mxu)
 
     def _load_vlm(self, d: Path) -> InternVLModel:
@@ -323,18 +345,27 @@ class ServerContext:
 
     @contextlib.contextmanager
     def use(self, name: str):
-        """The context of `name` (as get) for one request: in flight,
-        so no eviction takes it, until the with-block ends however it
-        ends."""
+        """(ctx, done) for one request: the context of `name` (as get),
+        in flight, so no eviction takes it, until done() is called (the
+        reply is whole: a handler calls it before the reply's last bytes
+        go out, so a client that has read its reply finds the context
+        idle) or the with-block ends however it ends."""
         name = name or self.default_model or "default"
         with self._lock:
             ctx = self._get(name)
             ctx.in_flight += 1
-        try:
-            yield ctx
-        finally:
+        left = [False]
+
+        def done() -> None:
             with self._lock:
-                ctx.in_flight -= 1
+                if not left[0]:
+                    left[0] = True
+                    ctx.in_flight -= 1
+
+        try:
+            yield ctx, done
+        finally:
+            done()
 
     def _add(self, name: str, ctx: ModelContext) -> ModelContext:
         """Register a new context as the most recently used, then evict
@@ -393,6 +424,10 @@ class ServerContext:
         d = self.resolve_dir(name)
         vlm = None
         if vlm_source(d) is not None:
+            if self.sp > 1:
+                raise HTTPError(400, f"model '{name}': VLM dirs are not "
+                                     f"served under sequence parallelism "
+                                     f"yet (ROADMAP.md §1 8b)")
             try:
                 vlm = self._load_vlm(d)
             except (ValueError, KeyError, FileNotFoundError) as e:
@@ -419,11 +454,23 @@ class ServerContext:
         base = self._get(main_name)
         model, cfg = base.scheduler.model, base.scheduler.cfg
         rank = int(self.hp.draft_head_rank)
+        if self.pp > 1 and base.vlm is not None:
+            raise HTTPError(400, f"model '{name}': VLM speculation does not "
+                                 f"run under --pp")
+        if self.pp > 1 and draft_dir is None:
+            raise HTTPError(400, f"model '{name}': self-draft speculation "
+                                 f"does not compose with --pp (layer "
+                                 f"truncation breaks the stage layout); use "
+                                 f"a separate draft model")
         if draft_dir is not None and gguf_architecture(draft_dir) == "eagle":
             if base.vlm is not None:
                 raise HTTPError(400, f"model '{name}': VLM speculation takes "
                                      f"the batched chain or tree scheduler "
                                      f"only (no EAGLE head)")
+            if self.sp > 1:
+                raise HTTPError(400, f"model '{name}': EAGLE heads are not "
+                                     f"sequence-parallel yet (ROADMAP.md §1 "
+                                     f"8b)")
             if self.ranks is not None:
                 return self._start(name, base, eagle_head=self.ranks.eagle(
                     model, draft_dir, rank))
@@ -696,6 +743,7 @@ class _Handler(BaseHTTPRequestHandler):
     # -- plumbing ----------------------------------------------------------
 
     def _send(self, status: int, body: bytes, ctype: str) -> None:
+        self._reply_whole()
         self.send_response(status)
         self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(body)))
@@ -724,7 +772,15 @@ class _Handler(BaseHTTPRequestHandler):
         except json.JSONDecodeError as e:
             raise HTTPError(400, f"invalid JSON body: {e}") from e
 
+    def _reply_whole(self) -> None:
+        """The request leaves "in flight" (ServerContext.use): its reply
+        is whole, and what is left is writing it."""
+        done, self._done = getattr(self, "_done", None), None
+        if done is not None:
+            done()
+
     def _dispatch(self, routes: dict) -> None:
+        self._done = None
         fn = routes.get(self.path.split("?", 1)[0])
         try:
             if fn is None:
@@ -764,7 +820,7 @@ class _Handler(BaseHTTPRequestHandler):
     def _completion(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        with self.server_ctx.use(model_name) as ctx:
+        with self.server_ctx.use(model_name) as (ctx, self._done):
             self._complete(ctx, body, model_name)
 
     def _complete(self, ctx: ModelContext, body: dict,
@@ -785,7 +841,7 @@ class _Handler(BaseHTTPRequestHandler):
     def _chat(self) -> None:
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        with self.server_ctx.use(model_name) as ctx:
+        with self.server_ctx.use(model_name) as (ctx, self._done):
             self._chat_reply(ctx, body, model_name)
 
     def _chat_reply(self, ctx: ModelContext, body: dict,
@@ -834,7 +890,7 @@ class _Handler(BaseHTTPRequestHandler):
         its snapshot; save it to save_path when given."""
         body = self._body()
         model_name = body.get("model", self.server_ctx.default_model)
-        with self.server_ctx.use(model_name) as ctx:
+        with self.server_ctx.use(model_name) as (ctx, self._done):
             self._session_prime(ctx, body, model_name)
 
     def _session_prime(self, ctx: ModelContext, body: dict,
@@ -966,6 +1022,7 @@ class _Handler(BaseHTTPRequestHandler):
                     tail += matcher.flush()
             if tail:
                 self._event(chunk(tail))
+            self._reply_whole()
             choice = {"index": 0, **({"delta": {}} if chat else {"text": ""}),
                       "finish_reason": finish_reason()}
             if want_logprobs and last_req is not None:
@@ -1066,8 +1123,12 @@ def main(argv: list[str] | None = None) -> int:
                     help="the ranks' collectives: nccl (default on cuda, one "
                          "card a rank) or gloo (default on cpu; on cuda "
                          "ranks may share a card)")
-    for flag in ("--pp", "--sp"):
-        ap.add_argument(flag, type=int, default=1, help=argparse.SUPPRESS)
+    ap.add_argument("--sp", type=int, default=1,
+                    help="sequence-parallel ranks: each dense cache's "
+                         "positions split over sp ranks (with --tp, --dp)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages: each model's layers and their "
+                         "cache split over pp ranks (alone)")
     for flag in ("--gspmd", "--distributed"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda",
@@ -1076,8 +1137,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="gguf: the files' formats; w8: requantize the "
                          "projections to int8 with per-128 scales at load")
     args = ap.parse_args(argv)
-    for flag, val in (("--pp", args.pp > 1), ("--sp", args.sp > 1),
-                      ("--gspmd", args.gspmd),
+    for flag, val in (("--gspmd", args.gspmd),
                       ("--distributed", args.distributed)):
         if val:
             ap.error(f"{flag} is not ported: ROADMAP §1 item 8b "
@@ -1102,10 +1162,14 @@ def main(argv: list[str] | None = None) -> int:
         hp.draft_head_rank = args.draft_head_rank
     hp.spec_tree = args.spec_tree or hp.spec_tree
     hp.spec_wor = args.spec_wor or hp.spec_wor
-    ctx = ServerContext(root_dir, default, hp, args.device, tp=args.tp,
-                        dp=args.dp, dist_backend=args.dist_backend,
-                        max_models=args.max_models,
-                        weight_format=args.weight_format)
+    try:
+        ctx = ServerContext(root_dir, default, hp, args.device, tp=args.tp,
+                            dp=args.dp, sp=args.sp, pp=args.pp,
+                            dist_backend=args.dist_backend,
+                            max_models=args.max_models,
+                            weight_format=args.weight_format)
+    except ValueError as e:  # a mesh or a cache the port does not run
+        ap.error(str(e))
     server = make_server(ctx, args.host, args.port)
     log.info(f"serving on http://{args.host}:{server.server_address[1]}")
     # SIGTERM ends the server as ^C does: the schedulers stop, and a rank

@@ -2347,3 +2347,95 @@ def test_return_hidden_leaves_replayed_decode_steps_alone(dev, tmp_path):
         assert torch.equal(t0, t1) and c0 == c1
     assert h1.shape == (llm.n_layers, 2, 20, llm.dim)
     assert h1.dtype == torch.bfloat16 and torch.isfinite(h1.float()).all()
+
+
+# -- the dense state modes: a sequence-parallel rank's slice of the cache --
+
+
+def _slice_state(dev, g, S, Hkv, T, D):
+    kq, vq = (torch.randint(-127, 128, (S, Hkv, T, D), generator=g,
+                            device=dev, dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(S, Hkv, T, generator=g, device=dev) * 0.05
+              for _ in range(2))
+    return kq, ks, vq, vs
+
+
+def _held_state(got, ref, seen, vs):
+    """A state (o, m, l) against the twin's: rows that see the slice
+    within f32 rounding (o: the flips rule), the others m = -1e30,
+    l = 0, o = 0 exactly."""
+    from powerserve_tpu_torch.ops.attention import NEG_INF
+
+    (o, m, l), (ro, rm, rl) = got, ref
+    assert (m[~seen] == NEG_INF).all() and (l[~seen] == 0).all()
+    assert (o[~seen] == 0).all()
+    _close(m[seen], rm[seen], rel=1e-6)
+    _close(l[seen], rl[seen], rel=1e-4)
+    _close_flips(o[seen], ro[seen], vs)
+
+
+@pytest.mark.parametrize("Tq,t0", [(1, 2048), (1, 0), (5, 2048)])
+def test_flash_decode_state_kernel(dev, Tq, t0):
+    """The dense state mode at llama-8b's heads over a 2,048-position
+    slice that starts at global position t0: slot 0 decodes past the
+    slice's start, slot 1 deep in it, slot 2 (its positions on the other
+    rank) sees none of it."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(Tq + t0)
+    S, H, Hkv, D, T = 3, 32, 8, 128, 2048
+    first = ([t0 + 40, t0 + 1500, t0 - 300] if t0
+             else [40, 1500, 2100])
+    committed = first[:2] + [first[2] if t0 else 0]
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _slice_state(dev, g, S, Hkv, T, D)
+    pos = (torch.tensor(first, device=dev)[:, None]
+           + torch.arange(Tq, device=dev)[None, :]).to(torch.int32)
+    mask = (t0 + torch.arange(T, device=dev)[None, :]
+            < torch.tensor(committed, device=dev)[:, None])
+    args = (q, kq, ks, vq, vs, mask, pos, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_decode_state"]
+    got = flash_decode_cuda(*args, state=True, t0=t0)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_decode_state"] == before + 1
+    ref = flash_decode_quant_reference(*args, state=True, t0=t0)
+    seen = torch.tensor([True, True, False], device=dev)
+    seen = seen[:, None].expand(S, H * Tq)
+    _held_state(got, ref, seen, vs)
+    again = flash_decode_cuda(*args, state=True, t0=t0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("starts,committed,t0", [
+    ([2008, 3000, 500], [2008, 3000, 500], 2048),
+    ([0, 1990, 2100], [0, 1990, 0], 0),
+])
+def test_flash_prefill_state_kernel(dev, starts, committed, t0):
+    """The prefill state mode at llama-8b's heads over a 2,048-position
+    slice from t0: a 128-row chunk that starts before the slice (its
+    first rows see none of it), one inside it, one wholly on the other
+    rank."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(t0 + 7)
+    S, Tq, H, Hkv, D, T = 3, 128, 32, 8, 128, 2048
+    q = torch.randn(S, Tq, H, D, generator=g, device=dev)
+    kq, ks, vq, vs = _slice_state(dev, g, S, Hkv, T, D)
+    mask = (t0 + torch.arange(T, device=dev)[None, :]
+            < torch.tensor(committed, device=dev)[:, None])
+    start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, mask, start, 1.0 / D ** 0.5)
+    before = cuda_lib.launch_counts()["flash_prefill_state"]
+    got = flash_prefill_cuda(*args, state=True, t0=t0)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["flash_prefill_state"] == before + 1
+    ref = flash_prefill_quant_reference(*args, state=True, t0=t0)
+    # row i of slot s sees the slice where the mask does or where its
+    # interval [start, start + i] meets [t0, t0 + T)
+    rows = torch.arange(Tq, device=dev)[None, :]
+    st = start.long()[:, None]
+    sees = (((st + rows >= t0) & (st < t0 + T))
+            | mask.any(dim=1)[:, None])
+    seen = sees[:, None, :].expand(S, H, Tq).reshape(S, H * Tq)
+    assert (~seen).any() and seen.any()
+    _held_state(got, ref, seen, vs)
+    again = flash_prefill_cuda(*args, state=True, t0=t0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

@@ -500,6 +500,50 @@ REFUSED = {
 }
 
 
+def _same_arrays(a, b):
+    ids_a, ga = load_session(a)
+    ids_b, gb = load_session(b)
+    assert ids_a == ids_b and set(ga) == set(gb)
+    for g in ga:
+        for k, v in ga[g].items():
+            assert np.array_equal(v, gb[g][k]), (g, k)
+
+
+@pytest.mark.parametrize("mesh", ["pp", "sp"])
+def test_sessions_over_pp_and_sp_load_on_one_rank(served, ws, tmp_path,
+                                                  mesh):
+    """A session saved by a pp = 2 server (two stages: every layer put
+    together) or an sp = 2 server (two slices of the positions put
+    together) loads on the single-rank server to the same reply, and the
+    single rank's file on theirs; under pp the file is the single
+    rank's bit for bit (the pipelined forward is)."""
+    single = served["dense"]
+    sid = f"one_{mesh}"
+    assert single("POST", "/v1/sessions", {
+        "model": "model", "prompt": SESS, "id": sid,
+        "save_path": str(tmp_path / "one.npz")})[0] == 200
+    want = single.ask(sid)
+    par = _Served(ws, _hp(max_seq_len=128), **{mesh: 2})
+    try:
+        status, raw = par("POST", "/v1/sessions", {
+            "model": "model", "prompt": SESS, "id": "p",
+            "save_path": str(tmp_path / "par.npz")})
+        assert status == 200, raw
+        assert par.ask("p") == want
+        if mesh == "pp":
+            _same_arrays(tmp_path / "one.npz", tmp_path / "par.npz")
+        assert par("POST", "/v1/sessions", {
+            "model": "model", "id": "from_one",
+            "load_path": str(tmp_path / "one.npz")})[0] == 200
+        assert par.ask("from_one") == want
+    finally:
+        par.close()
+    assert single("POST", "/v1/sessions", {
+        "model": "model", "id": f"from_{mesh}",
+        "load_path": str(tmp_path / "par.npz")})[0] == 200
+    assert single.ask(f"from_{mesh}") == want
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_session_refusals_match_jax(served, case):
     method, path, body, status = REFUSED[case]

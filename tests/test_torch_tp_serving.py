@@ -402,10 +402,18 @@ def test_a_dead_follower_ends_the_server_with_an_error(root):
     assert "rank 1 of 2 exited with code -9" in err, err
 
 
-@pytest.mark.parametrize("flag", [("--pp", "2"), ("--sp", "2"), ("--gspmd",),
-                                  ("--distributed",)])
+# what each refusal names: pp runs alone, sp takes the dense cache;
+# --gspmd and --distributed are queued
+REFUSED_BECAUSE = {"--pp": "pp runs alone", "--sp": "paged KV",
+                   "--gspmd": "ROADMAP §1 item 8",
+                   "--distributed": "ROADMAP §1 item 8"}
+
+
+@pytest.mark.parametrize("flag", [("--pp", "2", "--tp", "2"),
+                                  ("--sp", "2", "--paged-pages", "16"),
+                                  ("--gspmd",), ("--distributed",)])
 def test_serve_refuses_what_is_not_ported(root, capsys, flag):
     with pytest.raises(SystemExit) as e:
         serve_main(["-d", str(root), "--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "ROADMAP §1 item 8" in capsys.readouterr().err
+    assert REFUSED_BECAUSE[flag[0]] in capsys.readouterr().err
