@@ -42,7 +42,9 @@ Phases, each printing one JSON line:
              that sees nothing), the dense state modes of flash-decode
              (S = 8) and flash-prefill (S = 2, Tq = 128) over the second
              2,048 of 4,096 positions at tp = 2 x sp = 2's 16/4 heads,
-             rows that see none of them included; last, flash-decode's
+             rows that see none of them included, and the dense state
+             mode's tree mode there (a [2, 1, 1] verify at S = 3, its
+             key positions across the slice's start); last, flash-decode's
              tree mode at a [2, 1, 1] token tree's shapes (a verify and a draft level at
              S = 1 over 2048 positions, the paged verify at S = 8 over
              560-650, each twice bit for bit, SDPA with the same
@@ -112,14 +114,14 @@ Phases, each printing one JSON line:
   tools_cli  the tools as `python -m powerserve_tpu_torch` processes on an
              HF directory at llama-8b's widths (2 layers, a 32,000-token
              vocabulary, BF16 written by tools/safetensors.py, a BPE
-             tokenizer.json): convert --quant q4_k and workspace create;
+             tokenizer.json): convert --quant q8_0 and workspace create;
              then at once perplexity, dump-activations on cuda, run
              --dump-speedinfo, param-search --engine chain
-             --self-draft-layers 1 and gate (a corpus, --draft self:1, a
-             4-question MMLU CSV against the server it starts); then
-             dump-activations on the cpu, cos-sim of the two dumps (every
-             layer >= DUMP_COS) and, alone on the card, bench-kernels;
-             each exiting 0; seconds of each
+             --self-draft-layers 1, gate (a corpus, --draft self:1, a
+             4-question MMLU CSV against the server it starts) and
+             bench-kernels; then dump-activations on the cpu and cos-sim
+             of the two dumps (every layer >= DUMP_COS); each exiting 0;
+             seconds of each
   serve_full_width  llama-8b behind the HTTP server: 8 slots over a paged
              pool of half of 8 x 2048 positions, 8 concurrent greedy
              requests (prompts of 128-1024 tokens, 64 new tokens): all
@@ -254,9 +256,11 @@ Phases, each printing one JSON line:
              single-device server's (near-tie rule), every rank's
              launches of the path's kernels
   sp_full_width  (after serve_tp; one rank group of four for this and
-             the next two phases, gloo on the one card unless there are
-             four) llama-8b Q4_K over tp = 2 x sp = 2, a 4,096-position
-             cache (2,048 positions a rank): a 2,100-token prompt in
+             the next three phases, gloo on the one card unless there are
+             four) llama-8b Q4_K cut to 8 layers over tp = 2 x sp = 2
+             (against a single-device twin at that depth), a
+             4,096-position cache (2,048 positions a rank): a
+             2,100-token prompt in
              three 700-token chunks (the last straddles the slices) and
              16 greedy tokens, each chunk's logits within SP_LOGIT_REL
              of one device's, tokens by the near-tie rule, the cache put
@@ -272,9 +276,21 @@ Phases, each printing one JSON line:
              tokens in 4 microbatches beside 1
   serve_pp_sp  the HTTP server over that group with both models: 4
              concurrent greedy completions of 204-2,457 prompt tokens to
-             "pp", the shortest and the longest to "sp", every reply a
-             lone generate's (near-tie rule), each rank's launches,
-             generated tok/s
+             "pp", the shortest and the longest to "sp" (8 layers), every
+             reply a lone generate's (near-tie rule), each rank's
+             launches, generated tok/s
+  sp_compositions_full_width  the scheduler over that group's tp = 2 x
+             sp = 2 ranks, a 512-position cache (256 a rank), at full
+             widths: llama-8b (its 8 layers) with the 4-layer
+             self-draft's [2, 1, 1]
+             tree, with the random EAGLE head's chain and [2, 1, 1] tree
+             (a 253-token prompt: the first tree straddles position
+             256), mixtral-lite cut to 8 layers, InternVL2.5-4B (text
+             cut to 8 layers) with one 448 x 448 PNG whose rows cross
+             256; 8 greedy tokens each against the single device's
+             (near-tie rule), each rank's launches of the path's
+             kernels (the state mode's tree mode in the verifies), the
+             cuts printed
   moe_full_width  mixtral-lite Q4_K (32 layers, 8 experts of width 3584,
              top-2): InferenceEngine.generate of a 512-token prompt and 64
              greedy tokens (the grouped prefill, the single-token route;
@@ -361,7 +377,8 @@ for the tree mode, tree_serve_full_width for the paged tree mode and
 eagle_full_width's chain for concat2, w8_moe_full_width's steady
 generate for the grouped W8 mode, sampled_serve's first sampled run for
 the sample kernel, rank 0's sp_full_width decode and last prefill chunk
-for the dense state modes), the card's
+for the dense state modes, and rank 0's self-draft tree in
+sp_compositions_full_width for the state mode's tree mode), the card's
 nvidia-smi line and, last, {"ok": true, "device": ...}.
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -387,8 +404,9 @@ public surface only, so a copy of this script counts a parent tree's);
 the sixth the build and the two tools phases; the eighth the build,
 llama-8b's parameters and sampled_serve (copied into an older tree, it
 measures that tree's serving with the checks of in-graph draws off); the
-ninth the build, the kernels phase, llama-8b's parameters and the three
-pp/sp phases, then the card's line and the state modes' kernel rows.
+ninth the build, the kernels phase, llama-8b's parameters, the three
+pp/sp phases and sp_compositions_full_width, then the card's line and the
+state modes' kernel rows.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -990,30 +1008,48 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     #    position cache (t0 = 2048): flash-decode S = 8, Tq = 1, 1,748 to
     #    3,508 committed (the last slot's all on the first slice: it sees
     #    nothing here), and a 128-row flash-prefill chunk from 2,008 (its
-    #    first 40 rows see nothing here) beside one from 3,000
+    #    first 40 rows see nothing here) beside one from 3,000; then the
+    #    tree mode in the state mode, a [2, 1, 1] verify (Tq = 7 over its
+    #    7 nodes' key positions and bit rows) at S = 3: slot 0's nodes
+    #    from 2,045 (its root's row sees nothing here), slot 1's from
+    #    3,048, slot 2's from 1,748 (all on the first slice)
     sp_rows = {}
     Hs, Hkvs, Ts, t0s = 16, 4, 2048, 2048
     scale = 1.0 / D ** 0.5
+    from powerserve_tpu_torch.ops.flash_decode import pack_intra
+
+    parents = [-1, 0, 0, 1, 2, 3, 4]  # TreeTemplate [2, 1, 1]
+    anc = torch.zeros(7, 7, dtype=torch.bool, device=dev)
+    for i_ in range(7):
+        j_ = i_
+        while j_ >= 0:  # ancestors-or-self
+            anc[i_, j_] = True
+            j_ = parents[j_]
     for kind, S, Tq, first in (
             ("decode", 8, 1, [2100 + 201 * s_ for s_ in range(7)] + [1748]),
-            ("prefill", 2, 128, [2008, 3000])):
+            ("prefill", 2, 128, [2008, 3000]),
+            ("decode_tree", 3, 7, [t0s - 3, t0s + 1000, 1748])):
         q = randn(S, Tq, Hs, D)
         kq, ks, vq, vs = cache(S, Hkvs, Ts, D)
         mask = (t0s + torch.arange(Ts, device=dev)[None, :]
                 < torch.tensor(first, device=dev)[:, None])
-        if kind == "decode":
-            pos = torch.tensor(first, dtype=torch.int32, device=dev)[:, None]
+        if kind.startswith("decode"):
+            pos = (torch.tensor(first, dtype=torch.int32, device=dev)[:, None]
+                   + torch.arange(Tq, dtype=torch.int32, device=dev))
             args = (q, kq, ks, vq, vs, mask, pos, scale)
+            bits = pack_intra(anc) if kind == "decode_tree" else None
 
-            def fn(args=args):
-                return flash_decode_cuda(*args, state=True, t0=t0s)
+            def fn(args=args, bits=bits):
+                return flash_decode_cuda(*args, bits=bits, state=True,
+                                         t0=t0s)
 
-            def ref_fn(args=args):
-                return flash_decode_quant_reference(*args, state=True,
-                                                    t0=t0s)
+            def ref_fn(args=args, bits=bits):
+                return flash_decode_quant_reference(*args, bits=bits,
+                                                    state=True, t0=t0s)
 
-            vis = decode_visibility(mask, pos - t0s, Tq)
-            extra = nbytes(mask, pos)
+            vis = decode_visibility(mask, pos - t0s, Tq, bits)
+            extra = nbytes(mask, pos) + (0 if bits is None
+                                         else nbytes(bits))
         else:
             start = torch.tensor(first, dtype=torch.int32, device=dev)
             args = (q, kq, ks, vq, vs, mask, start, scale)
@@ -1140,14 +1176,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         from powerserve_tpu_torch.ops.flash_decode import pack_intra
 
         g.manual_seed(4)
-        parents = [-1, 0, 0, 1, 2, 3, 4]  # TreeTemplate [2, 1, 1]
-        N = len(parents)
-        anc = torch.zeros(N, N, dtype=torch.bool, device=dev)
-        for i_ in range(N):
-            j_ = i_
-            while j_ >= 0:  # ancestors-or-self
-                anc[i_, j_] = True
-                j_ = parents[j_]
+        N = anc.shape[0]  # the [2, 1, 1] tree's, built for the state rows
         for case, S, rows, paged in (("verify", 1, list(range(N)), False),
                                      ("draft level 1", 1, [1, 2], False),
                                      ("paged verify", 8, list(range(N)),
@@ -1256,6 +1285,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
           "flash_decode_paged_state": state_row,
           "flash_decode_state": sp_rows["decode"],
           "flash_prefill_state": sp_rows["prefill"],
+          "flash_decode_state_tree": sp_rows["decode_tree"],
           "flash_decode_tree": tree_rows, "sample": sample_rows})
 
     def entry(name, route_src, replaces, row):
@@ -1294,6 +1324,10 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         entry("flash_decode_state",
               "powerserve_tpu_torch/csrc/flash_decode.cu",
               "powerserve_tpu/ops/flash_decode.py:115", sp_rows["decode"]),
+        entry("flash_decode_state_tree",
+              "powerserve_tpu_torch/csrc/flash_decode.cu",
+              "powerserve_tpu/ops/flash_decode.py:115",
+              sp_rows["decode_tree"]),
         entry("flash_prefill_state",
               "powerserve_tpu_torch/csrc/flash_prefill.cu",
               "powerserve_tpu/ops/flash_prefill.py:115",
@@ -4649,6 +4683,10 @@ PP, SP = 2, 2
 PP_SP_PRESET = "llama-8b"
 # the tp x sp cache: 4,096 positions, 2,048 a sequence-parallel rank
 SP_SEQ = 4096
+# the tp x sp model's depth: llama-8b's first 8 layers (the time limit's
+# cut; every sp phase runs it, against a single-device twin built at the
+# same depth from the same seed)
+SP_LAYERS = 8
 # logits over tp = 2 x sp = 2 against one device, as a share of the
 # range: TP_LOGIT_REL's reasons, and each rank rounds p * vs to bf16 at
 # its own running maximum before the merge adds the ranks' states in
@@ -4808,10 +4846,11 @@ def phase_pp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
     return out, pm
 
 
-def phase_sp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
-    """llama-8b Q4_K over tp = 2 x sp = 2 (the context's four ranks,
-    random weights from seed 0 on each, 16/4 heads a rank) with a
-    4,096-position cache, 2,048 a rank: a 2,100-token prompt in three
+def phase_sp_full_width(dev: torch.device, ctx) -> tuple:
+    """llama-8b Q4_K cut to SP_LAYERS layers over tp = 2 x sp = 2 (the
+    context's four ranks, random weights from seed 0 on each, 16/4 heads
+    a rank; its single-device twin built at that depth on the card) with
+    a 4,096-position cache, 2,048 a rank: a 2,100-token prompt in three
     700-token chunks (the third straddles the slices' boundary) and 16
     greedy tokens on the second slice; each chunk's logits against the
     single-device forward on the same card (SP_LOGIT_REL, the greedy
@@ -4820,21 +4859,27 @@ def phase_sp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
     and pos one device's, layer 0's K/V bit for bit (the later layers'
     share of equal entries reported: the merge's roundings feed their
     quantization). Wall times beside one device's, each rank's
-    launches."""
+    launches. Returns (line, the sp model, rank 0's launches, the twin's
+    (cfg, model))."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import InferenceEngine
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.parallel.tp import tp_decode_scan
+    from powerserve_tpu_torch.tools.bench_params import make_device_params
 
+    cfg, model = make_device_params(PP_SP_PRESET, "q4_k", seed=0,
+                                    device=dev, layers=SP_LAYERS)
     group, llm = ctx.ranks, cfg.llm
     # 2,100 tokens in chunks of 700 at 4,096 positions: the last chunk
     # straddles the slices
     chunk, n_tokens = (SP_SEQ // 2 + SP_SEQ // 78) // 3, 16
     n_prompt = 3 * chunk
     out: dict = {"phase": "sp_full_width", "tp": TP, "sp": SP,
-                 "ranks": ctx.how, "max_seq": SP_SEQ}
+                 "ranks": ctx.how, "max_seq": SP_SEQ,
+                 "cuts": {PP_SP_PRESET: f"32 -> {SP_LAYERS} layers"}}
     t0 = time.perf_counter()
-    _, sm = group.preset(PP_SP_PRESET, "q4_k", 0, TP, sp=SP)
+    _, sm = group.preset(PP_SP_PRESET, "q4_k", 0, TP, sp=SP,
+                         layers=SP_LAYERS)
     torch.cuda.synchronize()
     out["build_s"] = time.perf_counter() - t0
     args = (llm.n_layers, 1, SP_SEQ, llm.n_kv_heads, llm.head_size)
@@ -4923,12 +4968,15 @@ def phase_sp_full_width(dev: torch.device, cfg, model, ctx) -> tuple:
         decode_tok_s=(n_tokens - 1) / out["decode_wall_s"],
         one_device_decode_tok_s=(n_tokens - 1)
         / out["one_device_decode_wall_s"], launches=counts)
-    return out, sm, counts["decode"][0] | counts["prefill"][0]
+    return (out, sm, counts["decode"][0] | counts["prefill"][0],
+            (cfg, model))
 
 
-def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm) -> dict:
+def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm,
+                      sp_twin) -> dict:
     """The HTTP server over the context's rank group with both models
-    registered: "pp" (two stages) and "sp" (tp = 2 x sp = 2), 2 slots,
+    registered: "pp" (two stages) and "sp" (tp = 2 x sp = 2, SP_LAYERS
+    layers; sp_twin its single-device (cfg, model)), 2 slots,
     4,096 positions; concurrent greedy completions, to "pp" 4 of 204 to
     2,457 prompt tokens and 16 new ones, to "sp" the shortest and the
     longest of them (which crosses the slices' boundary) and 8 new ones
@@ -4944,16 +4992,19 @@ def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm) -> dict:
     tok = synthetic_tokenizer(cfg.llm.vocab_size)
     hp = HyperParams(max_slots=1, batch_size=128, max_seq_len=SP_SEQ)
     hp.sampler.temperature = 0.0
-    engine = InferenceEngine(model, cfg, hp, device=dev)
+    engines = {"pp": InferenceEngine(model, cfg, hp, device=dev),
+               "sp": InferenceEngine(sp_twin[1], sp_twin[0], hp,
+                                     device=dev)}
     rng = random.Random(3)
     lengths = [SP_SEQ * k // 80 for k in (4, 16, 28, 48)]
     texts = ["".join(rng.choice("abcdefghijklmnopqrsuvwxyz")
                      for _ in range(n - 4)) for n in lengths]
     traffic = {"pp": (texts, 16), "sp": ([texts[0], texts[-1]], 8)}
     out: dict = {"phase": "serve_pp_sp", "ranks": ctx.how,
-                 "prompt_tokens": lengths}  # 204 to 2,457 at 4,096
+                 "prompt_tokens": lengths,  # 204 to 2,457 at 4,096
+                 "cuts": {"sp": f"{PP_SP_PRESET} 32 -> {SP_LAYERS} layers"}}
     ctx.register("pp", pm, cfg, tok)
-    ctx.register("sp", sm, cfg, tok)
+    ctx.register("sp", sm, sp_twin[0], tok)
     need = {"pp": {0: ("qmatmul", "flash_prefill", "flash_decode"),
                    1: ("qmatmul", "flash_prefill", "flash_decode",
                        "fused_head")},
@@ -4979,7 +5030,7 @@ def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm) -> dict:
                         "finish_reason"] != "length":
                     raise AssertionError(f"serve_pp_sp {name}: {status} "
                                          f"{data[:200]}")
-            gaps = []
+            gaps, engine = [], engines[name]
             for p, ids in rec.tokens().items():
                 want = list(engine.generate(list(p), n_new))
                 gaps.append(agree(f"serve_pp_sp {name}", ids, want, engine,
@@ -4993,6 +5044,184 @@ def phase_serve_pp_sp(dev: torch.device, cfg, model, ctx, pm, sm) -> dict:
         server.shutdown()
         server.server_close()
     return out
+
+
+# -- what sp serves since the compositions were ported: MoE models,
+#    InternVL, token trees and EAGLE heads over tp = 2 x sp = 2 ---------
+
+# their cache: 512 positions, 256 a sequence-parallel rank (the slices'
+# boundary sits inside each prompt's tree or decoding)
+SPC_SEQ = 512
+SPC_NEW = 8
+
+
+def phase_sp_compositions_full_width(dev: torch.device, sp_twin, ctx, sm,
+                                     head_dir: str) -> tuple:
+    """The scheduler (BatchScheduler, the server's) over the context's
+    tp = 2 x sp = 2 ranks at full widths, each composition a greedy
+    request of SPC_NEW tokens whose tree or decoding crosses position
+    256, the slices' boundary: llama-8b Q4_K (sm, SP_LAYERS layers;
+    sp_twin its single-device (cfg, model)) with the
+    4-layer self-draft's [2, 1, 1] tree (a 253-token prompt: the first
+    tree's nodes at 253..259) and with the random EAGLE head's chain (k =
+    4) and [2, 1, 1] tree (the head's cache whole on every sp rank);
+    mixtral-lite Q4_K cut to COMPOSE_LAYERS layers (the grouped expert
+    route); InternVL2.5-4B (the text cut to COMPOSE_LAYERS layers, the
+    tower on rank 0's card) with one 448 x 448 PNG whose 256 image rows
+    sit at 10..265. Each reply against the single device's greedy
+    tokens on the same card (generate, or VLMEngine.generate; near-tie
+    rule: speculation returns the target's tokens), each rank's
+    launches of every kernel of the path, the wall time of each."""
+    from powerserve_tpu_torch.core.config import HyperParams
+    from powerserve_tpu_torch.engine.generator import InferenceEngine
+    from powerserve_tpu_torch.engine.scheduler import BatchScheduler, Request
+    from powerserve_tpu_torch.engine.vlm import VLMEngine
+    from powerserve_tpu_torch.tools.bench_params import (make_device_internvl,
+                                                         make_device_params)
+    from powerserve_tpu_torch.tools.synthetic import VLM_PRESETS
+
+    group, L = ctx.ranks, COMPOSE_LAYERS
+    cfg, model = sp_twin
+    text_preset = VLM_PRESETS[VLM_PRESET][0]
+    out: dict = {"phase": "sp_compositions_full_width", "tp": TP, "sp": SP,
+                 "ranks": ctx.how, "max_seq": SPC_SEQ, "card": card_line(),
+                 "cuts": {PP_SP_PRESET: f"32 -> {SP_LAYERS} layers",
+                          "mixtral-lite": f"32 -> {L} layers",
+                          f"{text_preset} (InternVL2.5-4B's text)":
+                              f"36 -> {L} layers",
+                          "cache": f"{SPC_SEQ} positions, "
+                                   f"{SPC_SEQ // SP} a rank"}}
+
+    def hp(**kw) -> HyperParams:
+        return HyperParams(max_slots=1, batch_size=128, max_seq_len=SPC_SEQ,
+                           prefix_cache=0, **kw)
+
+    def reference(m, c) -> InferenceEngine:
+        h = HyperParams(max_slots=1, batch_size=128, max_seq_len=SPC_SEQ)
+        h.sampler.temperature = 0.0
+        return InferenceEngine(m, c, h, device=dev)
+
+    def run(label, sched, prompt, need, embeds=None) -> tuple:
+        """One greedy request through sched.step(), each rank's launches
+        zeroed just before and read just after."""
+        toks, done = [], []
+        sched.submit(Request(prompt_ids=list(prompt), max_tokens=SPC_NEW,
+                             temperature=0.0, embeds=embeds,
+                             sink=lambda t: done.append(True) if t is None
+                             else toks.append(t)))
+        group.launch_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            if done:
+                break
+            sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not done or len(toks) != SPC_NEW:
+            raise AssertionError(f"sp {label}: {len(toks)} tokens, "
+                                 f"finished {bool(done)}")
+        counts = rank_counts(group.launch_counts(), need, f"sp {label}")
+        res = dict(wall_s=wall, tokens=toks, rank_launches=counts)
+        if sched.draft is not None:
+            m = sched.metrics()
+            res.update(spec_steps=sched.n_spec_steps,
+                       accepted=sched.n_spec_accepted,
+                       drafted=sched.n_spec_drafted,
+                       tokens_per_step=m.get("spec_tokens_per_step"))
+        sched.release()
+        return res, counts
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(21)
+    half = SPC_SEQ // SP
+    llm = cfg.llm
+    prompt = torch.randint(3, llm.vocab_size, (half - 3,),
+                           generator=g).tolist()
+    engine = reference(model, cfg)
+    want = list(engine.generate(prompt, SPC_NEW))
+    heads = {}
+    tree_counts = None
+    for label, kw, extra, need in (
+            ("tree_self_draft_4", dict(spec_tree="2,1,1"), "self:4",
+             ("qmatmul", "fused_head", "flash_prefill_state",
+              "flash_decode_state_tree")),
+            ("eagle_chain", dict(spec_k=4), "eagle",
+             ("fused_concat2", "qmatmul", "fused_head", "flash_prefill",
+              "flash_prefill_state", "flash_decode", "flash_decode_state")),
+            ("eagle_tree", dict(spec_tree="2,1,1"), "eagle",
+             ("fused_concat2", "qmatmul", "fused_head", "flash_prefill",
+              "flash_prefill_state", "flash_decode_tree",
+              "flash_decode_state_tree"))):
+        if extra == "eagle":
+            if "eagle" not in heads:
+                heads["eagle"] = group.eagle(sm, head_dir)
+            spec = dict(eagle_head=heads["eagle"])
+        else:
+            spec = dict(draft=group.self_draft(sm, 4))
+        res, counts = run(label, BatchScheduler(sm, cfg, hp(**kw), dev,
+                                                **spec), prompt, need)
+        res["near_tie_gap"] = agree(f"sp {label} vs one device",
+                                    res["tokens"], want, engine, prompt)
+        res["tokens_equal"] = res["tokens"] == want
+        out[label] = res
+        if label == "tree_self_draft_4":
+            tree_counts = counts[0]
+    del heads, engine
+    # mixtral-lite: the grouped expert route over the slices
+    t0 = time.perf_counter()
+    mcfg, one = make_device_params("mixtral-lite", "q4_k", seed=0,
+                                   device=dev, layers=L)
+    _, tm = group.preset("mixtral-lite", "q4_k", 0, TP, layers=L, sp=SP)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mprompt = torch.randint(3, mcfg.llm.vocab_size, (half - 3,),
+                            generator=g).tolist()
+    engine = reference(one, mcfg)
+    mwant = list(engine.generate(mprompt, SPC_NEW))
+    res, _ = run("moe", BatchScheduler(tm, mcfg, hp(), dev), mprompt,
+                 ("qmatmul", "qmatmul_grouped", "fused_head",
+                  "flash_prefill_state", "flash_decode_state"))
+    res.update(preset="mixtral-lite", layers=L, build_s=build_s,
+               near_tie_gap=agree("sp moe vs one device", res["tokens"],
+                                  mwant, engine, mprompt),
+               tokens_equal=res["tokens"] == mwant)
+    out["moe"] = res
+    del one, tm, engine
+    torch.cuda.empty_cache()
+    # InternVL2.5-4B: one image's rows across the boundary
+    t0 = time.perf_counter()
+    vlm = make_device_internvl(VLM_PRESET, "q4_k", seed=0, device=dev,
+                               text_layers=L)
+    vcfg, tm = group.preset(text_preset, "q4_k", 0, TP, layers=L, sp=SP)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _, img = vlm_png(21, 448, 448)
+    vengine = VLMEngine(vlm, HyperParams(max_seq_len=SPC_SEQ,
+                                         batch_size=128), device=dev)
+    px = torch.as_tensor(vengine.pixel_values([img]), device=dev)
+    vprompt = (torch.randint(3, 1000, (10,), generator=g).tolist()
+               + [vlm.image_token_id]
+               + torch.randint(3, 1000, (6,), generator=g).tolist())
+    ids = vlm.expand_image_tokens(vprompt, px.shape[0])
+    image = [i for i, t in enumerate(ids) if t == vlm.image_token_id]
+    if not image[0] < half <= image[-1]:
+        raise AssertionError(f"sp vlm: image rows {image[0]}..{image[-1]} "
+                             f"do not cross {half}")
+    rows = vlm.embed_multimodal(torch.tensor([ids], device=dev), px)[0]
+    vwant = list(vengine.generate(vprompt, [img], SPC_NEW))
+    res, _ = run("vlm", BatchScheduler(tm, vcfg, hp(), dev), ids,
+                 ("qmatmul", "fused_head", "flash_prefill_state",
+                  "flash_decode_state"), embeds=rows.to(torch.bfloat16))
+    res.update(preset=VLM_PRESET, text_layers=L, build_s=build_s,
+               image_rows=[image[0], image[-1]],
+               near_tie_gap=mm_agree("sp vlm vs VLMEngine", res["tokens"],
+                                     vwant, vlm, ids, px),
+               tokens_equal=res["tokens"] == vwant)
+    out["vlm"] = res
+    del vlm, tm, vengine
+    torch.cuda.empty_cache()
+    return out, tree_counts
 
 
 # -- PR 16's phases: W8 from `run`, W8 expert slabs, tracing, the native
@@ -5566,15 +5795,18 @@ def port_cli(cmds: dict, tmp: str, timeout: float = 600) -> dict:
 def phase_tools_cli(dev: torch.device) -> dict:
     """The tools as `python -m powerserve_tpu_torch` processes on the card,
     over an HF directory at llama-8b's widths (2 layers, a 32,000-token
-    vocabulary, BF16, write_hf_llama): convert --quant q4_k and workspace
+    vocabulary, BF16, write_hf_llama): convert --quant q8_0 and workspace
     create; then at once perplexity, dump-activations on the card, run
     --dump-speedinfo, param-search over CHAIN_GRID with a 1-layer
-    self-draft and gate (a corpus, --draft self:1, a 4-question MMLU CSV
-    against the server it starts); then dump-activations --device cpu
-    and cos-sim of the two dumps (every layer >= DUMP_COS) and, alone on
-    the card, bench-kernels. Each must exit 0; the speed-info line is read
-    back. Seconds of each (those run at once share the card and the
-    host: their speeds are not measurements)."""
+    self-draft, gate (a corpus, --draft self:1, a 4-question MMLU CSV
+    against the server it starts) and bench-kernels (its six lines);
+    then dump-activations --device cpu and cos-sim of the two dumps
+    (every layer >= DUMP_COS). Each must exit 0; the speed-info line is
+    read back. Seconds of each (those run at once share the card and the
+    host: their speeds are not measurements). Two cuts for the script's
+    time, printed: convert quantizes to Q8_0 (Q4_K's k-quant search took
+    the longer part of its 30-38 s), and bench-kernels runs beside the
+    others, not alone."""
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="tools_cli_")
     secs = {}
@@ -5585,7 +5817,7 @@ def phase_tools_cli(dev: torch.device) -> dict:
         secs["write_hf"] = time.perf_counter() - t0
         model_dir = os.path.join(out, "model")
         for name, argv in (("convert", ["convert", hf, out, "--quant",
-                                        "q4_k"]),
+                                        "q8_0"]),
                            ("workspace", ["workspace", "create", "-m",
                                           model_dir, "-o", ws])):
             secs[name] = port_cli({name: argv}, tmp)[name][1]
@@ -5618,7 +5850,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
                              "-o", search],
             "gate": ["gate", "-d", ws, "--prompt-file", corpus, "--draft",
                      "self:1", "--spec-tokens", "32", "--mmlu-data",
-                     mmlu_dir, "--mmlu-limit", "4", "-o", gate_json]}
+                     mmlu_dir, "--mmlu-limit", "4", "-o", gate_json],
+            "bench_kernels": ["bench-kernels", "--iters", "200"]}
         t0 = time.perf_counter()
         res = port_cli(together, tmp)
         secs["together"] = time.perf_counter() - t0
@@ -5652,10 +5885,8 @@ def phase_tools_cli(dev: torch.device) -> dict:
         layers = [v for k, v in cos.items() if k.startswith("layer_")]
         if len(layers) != 2 or min(layers) < DUMP_COS:
             raise AssertionError(f"cos-sim cuda vs cpu: {cos}")
-        bench_out, secs["bench_kernels"] = port_cli(
-            {"bench_kernels": ["bench-kernels", "--iters", "200"]},
-            tmp)["bench_kernels"]
-        bench = [json.loads(ln) for ln in bench_out.strip().splitlines()]
+        bench = [json.loads(ln) for ln in
+                 res["bench_kernels"][0].strip().splitlines()]
         if len(bench) != 6:
             raise AssertionError(f"bench-kernels: {bench_out}")
     finally:
@@ -5664,6 +5895,10 @@ def phase_tools_cli(dev: torch.device) -> dict:
             "phase_seconds": time.perf_counter() - t_phase,
             "hf": dict(widths="llama-8b", layers=2, vocab=32000,
                        dtype="bf16"),
+            "cuts": {"convert": "--quant q4_k -> q8_0",
+                     "bench_kernels": "alone on the card -> beside the "
+                                      "other tools (its speeds are not "
+                                      "measurements)"},
             "seconds": secs, "perplexity": ppl, "cos_cuda_cpu": cos,
             "speedinfo": speedinfo, "param_search": recs,
             "gate": verdict["checks"], "bench_kernels": bench}
@@ -6550,18 +6785,30 @@ def main() -> int:
         return 0
     if "--pp-sp" in sys.argv[1:]:
         kernels = phase_kernels(dev)
+        from powerserve_tpu_torch.core.gguf import GGMLType
         from powerserve_tpu_torch.tools.bench_params import make_device_params
+        from powerserve_tpu_torch.tools.synthetic import make_eagle_gguf
 
         cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
-        with pp_sp_context(dev) as ctx:
-            sp_full, sm, sp_counts = phase_sp_full_width(dev, cfg, model, ctx)
+        with pp_sp_context(dev) as ctx, tempfile.TemporaryDirectory(
+                prefix="eagle_head_") as head_dir:
+            # eagle_full_width's head (the same seed)
+            make_eagle_gguf(head_dir, "llama-8b", GGMLType.Q8_0, seed=4)
+            sp_full, sm, sp_counts, sp_twin = phase_sp_full_width(dev, ctx)
             emit(sp_full)
             pp_full, pm = phase_pp_full_width(dev, cfg, model, ctx)
             emit(pp_full)
-            emit(phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm))
+            emit(phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm, sp_twin))
+            del pm
+            sp_comp, tree_counts = phase_sp_compositions_full_width(
+                dev, sp_twin, ctx, sm, head_dir)
+            emit(sp_comp)
+            del sm, sp_twin
         print(card, flush=True)
-        emit({"kernels": [dict(k, launches=sp_counts[k["name"]])
-                          for k in kernels if k["name"] in sp_counts]})
+        own = {**sp_counts, "flash_decode_state_tree":
+               tree_counts["flash_decode_state_tree"]}
+        emit({"kernels": [dict(k, launches=own[k["name"]])
+                          for k in kernels if k["name"] in own]})
         return 0
     if "--sampled" in sys.argv[1:]:
         # the sampled serving runs and the tick split alone; a copy of
@@ -6669,13 +6916,18 @@ def main() -> int:
     emit(tp_full)
     emit(phase_serve_tp(dev))
     with pp_sp_context(dev) as ctx:
-        sp_full, sm, sp_counts = phase_sp_full_width(dev, cfg, model, ctx)
+        sp_full, sm, sp_counts, sp_twin = phase_sp_full_width(dev, ctx)
         emit(sp_full)
         pp_full, pm = phase_pp_full_width(dev, cfg, model, ctx)
         emit(pp_full)
-        serve_pp_sp = phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm)
+        serve_pp_sp = phase_serve_pp_sp(dev, cfg, model, ctx, pm, sm,
+                                        sp_twin)
         emit(serve_pp_sp)
-        del pm, sm
+        del pm
+        sp_comp, sp_tree_counts = phase_sp_compositions_full_width(
+            dev, sp_twin, ctx, sm, head_dir)
+        emit(sp_comp)
+        del sm, sp_twin
     del cfg, model
     torch.cuda.empty_cache()
     vlm, vlm_ref = phase_vlm_full_width(dev)
@@ -6752,7 +7004,9 @@ def main() -> int:
            # the sampled plain ticks of 8 seeded requests at 0.8
            "sample": sampled_counts["sampled"],
            # rank 0's: sp_full_width's prefill chunks and decode
-           "flash_decode_state": sp_counts, "flash_prefill_state": sp_counts}
+           "flash_decode_state": sp_counts, "flash_prefill_state": sp_counts,
+           # rank 0's: the self-draft's tree over the slices
+           "flash_decode_state_tree": sp_tree_counts}
     for k in kernels:
         k["launches"] = own.get(k["name"], counts)[k["name"]]
     # each decode number replayed, and its eager twin's from this run

@@ -99,8 +99,12 @@ the dense cache and the pool, multimodal prefills, a draft model's chain
 (its layers staged too) and EAGLE's chain and tree, the head and its
 cache whole on every stage; a draft model's tree is refused, as JAX's
 scheduler refuses it. On an sp mesh the dense cache's positions split
-over the sp ranks: plain ticks and a draft model's chain run; the pool,
-token trees and EAGLE heads are refused (ROADMAP.md §1 8b). The host
+over the sp ranks, and every tick runs: plain ones, multimodal prefills,
+MoE models, a draft model's chain and tree (a draft level's attn_mask
+is cut to each rank's slice, and the commit moves an accepted entry to
+the rank whose slice holds its destination), and EAGLE's chain and tree
+with the head's cache whole on every sp rank; the pool is refused, as
+JAX refuses paged KV under sequence parallelism. The host
 keeps a mirror of every slot's cache position (pos_host): admission,
 prefill and each plain tick's dispatch (every active slot advances by
 the horizon) keep it exact, and a single-buffered spec tick's fetch
@@ -335,8 +339,9 @@ class BatchScheduler:
                                  f"target vocab {llm.vocab_size}")
             self._check_parallel_spec(model, any(w > 1 for w in widths))
             self.draft = draft.to(self.device)
-            # an EAGLE head's cache is whole on every pp stage (the head
-            # runs replicated there, as JAX's does)
+            # an EAGLE head's cache is whole on every pp stage and sp
+            # rank (the head runs replicated there; under pp as JAX's
+            # does)
             self.d_kv = self._new_cache(draft.llm, staged=not self.is_eagle)
         self.penalty = PenaltyState.create(
             self.S, max(self.hp.sampler.penalty_last_n, 1), self.device)
@@ -412,20 +417,13 @@ class BatchScheduler:
         self._thread: threading.Thread | None = None
 
     def _check_parallel_spec(self, model, tree: bool) -> None:
-        """Refuse the speculation a pp or sp mesh does not run, as JAX's
-        scheduler refuses it: under pp a draft model's token tree (its
-        chain, and EAGLE's chain and tree, are pipelined); under sp token
-        trees and EAGLE heads (ROADMAP.md §1 8b)."""
-        if not self.tp:
-            return
-        if model.mesh.pp > 1 and tree and not self.is_eagle:
+        """Refuse the speculation a pp mesh does not run, as JAX's
+        scheduler refuses it: a draft model's token tree (its chain, and
+        EAGLE's chain and tree, are pipelined)."""
+        if self.tp and model.mesh.pp > 1 and tree and not self.is_eagle:
             raise ValueError("a draft model's token tree does not run under "
                              "pp (JAX's pp scheduler takes chains): use "
                              "--spec-k, or an EAGLE head")
-        if model.mesh.sp > 1 and (tree or self.is_eagle):
-            raise ValueError("token trees and EAGLE heads are not "
-                             "sequence-parallel yet (ROADMAP.md §1 8b): use "
-                             "a draft model's chain")
 
     def _new_cache(self, llm, staged: bool = True, **paged) -> KVCache:
         """A dense (or, with n_pages, paged) cache of llm's geometry for

@@ -28,7 +28,11 @@ positions, and pos stays global and the same on every rank. The same
 methods take global positions: a write lands here when its position is
 in this rank's slice and is dropped otherwise (the JAX forward's remap of
 an sp shard's cache positions), and advance counts every in-range
-position into pos. Token-tree compaction is not sequence-parallel.
+position into pos. The token-tree operations act on the positions of the
+slice too; a compaction whose source lies on another rank than its
+destination moves the entries' bytes between the ranks: every rank reads
+the sources it holds (zeros for the others), one sum over the sp group
+gives each rank every source, and each writes the destinations it holds.
 """
 
 from __future__ import annotations
@@ -180,20 +184,22 @@ class KVCache:
             active = torch.ones(S, dtype=torch.bool, device=self.device)
         return n, active
 
+    def _columns(self) -> torch.Tensor:
+        """The global position of each of the mask's columns."""
+        return torch.arange(self.max_seq, device=self.device)
+
     def rollback(self, n, active: torch.Tensor | None = None) -> None:
         """Drop the last n tokens of every active slot."""
         n, active = self._slots(n, active)
         new_pos = torch.clamp(self.pos - torch.where(active, n, 0), min=0)
-        col = torch.arange(self.max_seq, device=self.device)
-        self.mask &= col[None, :] < new_pos[:, None]
+        self.mask &= self._columns()[None, :] < new_pos[:, None]
         self.pos.copy_(new_pos.to(torch.int32))
 
     def truncate(self, n, active: torch.Tensor | None = None) -> None:
         """Keep only the first n tokens of every active slot."""
         n, active = self._slots(n, active)
         new_pos = torch.where(active, n, self.pos)
-        col = torch.arange(self.max_seq, device=self.device)
-        keep = col[None, :] < new_pos[:, None]
+        keep = self._columns()[None, :] < new_pos[:, None]
         self.mask &= keep | ~active[:, None]
         self.pos.copy_(new_pos.to(torch.int32))
 
@@ -241,7 +247,7 @@ class KVCache:
         start = self.pos.long()
         self.gather_tokens(slot_indices, src_positions, start)
         end = start + n_accept.long()
-        col = torch.arange(self.max_seq, device=self.device)[None, :]
+        col = self._columns()[None, :]
         self.mask |= (col >= start[:, None]) & (col < end[:, None])
         self.pos += n_accept.to(torch.int32)
 
@@ -319,19 +325,21 @@ class KVCache:
 class SeqShardCache(KVCache):
     """Sequence-parallel rank `sp_rank` of `sp`: positions [t0, t0 + T) of
     a dense cache of max_seq = sp * T positions (T = k.shape[3]); pos is
-    global (every rank's the same)."""
+    global (every rank's the same). comm: the sp group's TPComm, which
+    the token-tree compaction sums over (None: this slice alone)."""
 
     def __init__(self, storage: list[torch.Tensor], shape: tuple,
                  mask: torch.Tensor, pos: torch.Tensor, t0: int,
-                 total: int):
+                 total: int, comm=None):
         super().__init__(storage, shape, mask, pos)
         self.t0, self.total = int(t0), int(total)
+        self.comm = comm
 
     @classmethod
     def create(cls, n_layers: int, n_slots: int, max_seq: int,
                n_kv_heads: int, head_dim: int,
                device: str | torch.device | None = None, *, sp: int,
-               sp_rank: int) -> "SeqShardCache":
+               sp_rank: int, comm=None) -> "SeqShardCache":
         if max_seq % sp:
             raise ValueError(f"max_seq {max_seq} does not split over "
                              f"sp={sp}")
@@ -341,12 +349,13 @@ class SeqShardCache(KVCache):
         return cls(new_storage(shape, dev), shape,
                    torch.zeros(n_slots, t, dtype=torch.bool, device=dev),
                    torch.zeros(n_slots, dtype=torch.int32, device=dev),
-                   sp_rank * t, max_seq)
+                   sp_rank * t, max_seq, comm)
 
     def clone(self) -> "SeqShardCache":
         return SeqShardCache([f.clone() for f in self.storage],
                              tuple(self.k.shape), self.mask.clone(),
-                             self.pos.clone(), self.t0, self.total)
+                             self.pos.clone(), self.t0, self.total,
+                             self.comm)
 
     @property
     def max_seq(self) -> int:
@@ -393,24 +402,51 @@ class SeqShardCache(KVCache):
         self.mask.copy_(ext[:, :T])
         self.pos += counted.sum(dim=1).to(torch.int32)
 
-    def rollback(self, n, active: torch.Tensor | None = None) -> None:
-        n, active = self._slots(n, active)
-        new_pos = torch.clamp(self.pos - torch.where(active, n, 0), min=0)
-        self.mask &= self._columns()[None, :] < new_pos[:, None]
-        self.pos.copy_(new_pos.to(torch.int32))
+    # -- token trees over the slice ------------------------------------------
 
-    def truncate(self, n, active: torch.Tensor | None = None) -> None:
-        n, active = self._slots(n, active)
-        new_pos = torch.where(active, n, self.pos)
-        keep = self._columns()[None, :] < new_pos[:, None]
-        self.mask &= keep | ~active[:, None]
-        self.pos.copy_(new_pos.to(torch.int32))
+    def set_mask(self, slot, index, value) -> None:
+        """Mask or unmask the global positions `index` of one slot that
+        lie in this slice."""
+        T = self.t_local
+        loc = self.local(torch.as_tensor(index, device=self.device))
+        row = torch.cat([self.mask[slot], self.mask.new_zeros(1)])
+        row[torch.where(loc >= 0, loc, T)] = value
+        self.mask[slot] = row[:T]
 
-    def _tree_op(self, *args, **kw):
-        raise ValueError("token trees are not sequence-parallel (ROADMAP.md "
-                         "§1 8b)")
-
-    set_mask = gather_tokens = commit_tokens = copy_token = _tree_op
+    def gather_tokens(self, slot_indices, src_positions: torch.Tensor,
+                      dst_start: torch.Tensor) -> None:
+        """KVCache.gather_tokens in global positions: each source is read
+        on the rank that holds it, summed over the sp group (the others
+        add zeros; the scales as their int32 bits, so the sum is the
+        bytes), and written where this slice holds the destination."""
+        S, n = src_positions.shape
+        dev = src_positions.device
+        T = self.total
+        dst = (dst_start.long()[:, None]
+               + torch.arange(n, device=dev)[None, :])
+        ok = ((src_positions >= 0) & (src_positions < T) & (dst >= 0)
+              & (dst < T))
+        src_loc, dst_loc = self.local(src_positions), self.local(dst)
+        slot = torch.arange(S, device=dev)[:, None].expand(S, n)
+        held = ok & (src_loc >= 0)
+        src = self._storage_rows(held, slot, torch.where(held, src_loc, 0))
+        put = ok & (dst_loc >= 0)
+        dst = self._storage_rows(put, slot, torch.where(put, dst_loc, 0))
+        moved = []
+        for flat in self.storage:  # [L, S, n, Hkv(, D)] as int32
+            v = flat[src]
+            v = v.to(torch.int32) if v.dtype == torch.int8 else v.view(
+                torch.int32)
+            keep = held.view(1, S, n, *(1,) * (v.dim() - 3))
+            moved.append(torch.where(keep, v, 0))
+        if self.comm is not None:
+            summed = self.comm.all_reduce(torch.cat(
+                [m.reshape(-1) for m in moved]))
+            moved = [b.view(m.shape) for b, m in zip(
+                summed.split([m.numel() for m in moved]), moved)]
+        for flat, v in zip(self.storage, moved):
+            flat[dst] = (v.to(torch.int8) if flat.dtype == torch.int8
+                         else v.view(flat.dtype))
 
     def save_slot_prefix(self, slot: int, n: int) -> dict:
         """This slice's part of the slot's first n positions: {"n": n,

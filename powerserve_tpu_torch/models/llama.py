@@ -120,14 +120,18 @@ def attention(kv: KVCache, layer: int, q: torch.Tensor,
     positions [S, J]; mask [S, T] the committed visibility (default
     kv.mask, as before this batch). sp: the TPComm of the sequence-
     parallel ranks, kv a SeqShardCache (the kernels' state modes over its
-    slice, merged: gqa_attention_quant_sp). Returns f32 [S, Tq, H * D]."""
+    slice, merged: gqa_attention_quant_sp), mask [S, max_seq] over every
+    position (the slice's columns taken here). Returns f32
+    [S, Tq, H * D]."""
     slabs = (kv.k[layer], kv.k_scale[layer], kv.v[layer], kv.v_scale[layer])
     decode = q.shape[1] <= DECODE_MAX_TQ
     if sp is not None:
-        if mask is not None or not isinstance(kv, SeqShardCache):
+        if not isinstance(kv, SeqShardCache):
             raise ValueError("sequence parallelism takes the dense int8 "
-                             "cache's slices and no attn_mask")
-        return gqa_attention_quant_sp(q, *slabs, kv.mask, positions, scale,
+                             "cache's slices")
+        mask = (kv.mask if mask is None
+                else mask[:, kv.t0:kv.t0 + kv.t_local])
+        return gqa_attention_quant_sp(q, *slabs, mask, positions, scale,
                                       sp, kv.t0, bits, prefill=not decode)
     mask = kv.mask if mask is None else mask
     if isinstance(kv, PagedKVCache):

@@ -40,7 +40,8 @@ LAUNCHES = {"qmatmul": 0, "fused_head": 0, "flash_decode": 0,
             "fused_concat2": 0, "flash_decode_paged_state": 0,
             "flash_decode_tree": 0, "flash_decode_paged_tree": 0,
             "qmatmul_w8_grouped": 0, "sample": 0,
-            "flash_decode_state": 0, "flash_prefill_state": 0}
+            "flash_decode_state": 0, "flash_prefill_state": 0,
+            "flash_decode_state_tree": 0}
 BUILD_INFO: dict = {}
 
 _lib: ctypes.CDLL | None = None

@@ -45,8 +45,11 @@ paged state mode below does, with the kernel's walk of a state (no walk
 of all of T). Its key offset t0 says where the cache's positions start:
 local position t is global position t0 + t, and the new rows' positions
 are global (positions - t0 match local positions; the others match
-nothing). A row that sees no position returns m = -1e30, l = 0 and
-o = 0, in both state modes, so a merge weighs it 0 whatever it does.
+nothing), the tree mode's key positions too (a token tree's verify or
+draft level over a rank's slice; its launches count as
+flash_decode_state_tree). A row that sees no position returns m = -1e30,
+l = 0 and o = 0, in both state modes, so a merge weighs it 0 whatever it
+does.
 
 `flash_decode_paged` is the same attention over the paged pool
 (kv/paged.py): the kernel reads logical position t of slot s from pool
@@ -372,8 +375,8 @@ def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
         cuda_lib.ptr(bits), out.data_ptr(), cuda_lib.ptr(m_out),
         cuda_lib.ptr(l_out), S, Tq, J, H, Hkv, T, D, int(t0), float(scale),
         cuda_lib.stream(dev))
-    name = ("flash_decode_state" if state else "flash_decode"
-            if bits is None else "flash_decode_tree")
+    name = (("flash_decode_state" if state else "flash_decode")
+            + ("" if bits is None else "_tree"))
     cuda_lib.LAUNCHES[name] += 1
     cuda_lib.check(rc, name)
     return (out, m_out, l_out) if state else out

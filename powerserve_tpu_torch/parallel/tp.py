@@ -70,8 +70,12 @@ pp and sp axes (parallel/mesh.py):
     the whole lm_head every stage holds;
   - sp: each rank's cache is a SeqShardCache, its slice of the positions
     (kv/cache.py), and the model's attention merges the slices' states
-    over the sp group (LlamaModel.sp); the paged pool and MoE models are
-    refused.
+    over the sp group (LlamaModel.sp); a token tree's compaction moves an
+    accepted entry between the ranks when its source and destination lie
+    on different slices (SeqShardCache.gather_tokens), an EAGLE head's
+    cache is whole on every sp rank (staged=False, as under pp), and the
+    expert FFN, which acts on each token alone, runs as under tp (and
+    ep); the paged pool is refused.
 A snapshot under either is put together (over the stages' layers, over
 the slices' positions) to be saved and cut again to be loaded
 (ShardCache.export_prefix / import_prefix), so a session file is one
@@ -81,8 +85,8 @@ device's.
         [--dp 2] [--dist-backend nccl|gloo]
     python -m powerserve_tpu_torch serve -d <root> --pp 2
 
-Not ported (ROADMAP §1 item 8b): token trees, EAGLE heads, VLM dirs and
-MoE models under sp, several hosts, TP ticks replayed as CUDA graphs.
+Not ported (ROADMAP §1 item 8b): several hosts, TP ticks replayed as CUDA
+graphs.
 """
 
 from __future__ import annotations
@@ -348,16 +352,11 @@ def check_mesh(tp: int, dp: int, ep: int, sp: int, pp: int) -> None:
                          f"ep={ep}, sp={sp}")
 
 
-def _check_model(cfg: ModelConfig, model: LlamaModel, sp: int,
-                 pp: int) -> None:
-    """Refuse a depth pp does not divide, and MoE models under sp
-    (ROADMAP.md §1 8b)."""
+def _check_model(cfg: ModelConfig, pp: int) -> None:
+    """Refuse a depth pp does not divide."""
     if cfg.llm.n_layers % pp:
         raise ValueError(f"{cfg.llm.n_layers} layers do not split into "
                          f"pp={pp} stages")
-    if sp > 1 and any(lw.router is not None for lw in model.layers):
-        raise ValueError("MoE models are not served under sequence "
-                         "parallelism yet (ROADMAP.md §1 8b)")
 
 
 def shard_params_tp(model: LlamaModel, rank: int, tp: int,
@@ -582,8 +581,9 @@ def _all_layers(t: torch.Tensor, m: Mesh) -> torch.Tensor:
 class ShardCache:
     """One rank's cache: its kv heads of its dp block's slots (paged: of
     its block's pages), under sp its slice of the positions (a
-    SeqShardCache), under pp its stage's layers (whole: a replicated
-    EAGLE head's cache). The methods take the whole batch's arguments."""
+    SeqShardCache), under pp its stage's layers (staged=False: every
+    layer and position, a replicated EAGLE head's cache). The methods
+    take the whole batch's arguments."""
 
     def __init__(self, mesh: Mesh, kv: KVCache, n_slots: int,
                  n_pages: int = 0, staged: bool = True):
@@ -602,7 +602,7 @@ class ShardCache:
     def _times(self, t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
         """t, this rank's part of n positions on `axis` (under sp its
         slice, from its t0), with every rank's."""
-        if self.mesh.sp == 1:
+        if not isinstance(self.kv, SeqShardCache):
             return t
         return _put_together(t, self.mesh.sp_comm, axis, min(self.kv.t0, n),
                              n)
@@ -884,7 +884,7 @@ class RankGroup:
         if not mesh.member:
             return None
         cfg, full = _LOADERS[source](self, *args)
-        _check_model(cfg, full, sp, pp)
+        _check_model(cfg, pp)
         local = shard_params_tp(full, mesh.tp_rank, tp, mesh.ep_rank, ep)
         del full
         if pp > 1:
@@ -949,8 +949,9 @@ class RankGroup:
         if n_pages:
             kv = PagedKVCache.create(*args, n_pages=n_pages // dp,
                                      page_size=page_size)
-        elif sp > 1:
-            kv = SeqShardCache.create(*args, sp=sp, sp_rank=mesh.sp_rank)
+        elif sp > 1 and staged:
+            kv = SeqShardCache.create(*args, sp=sp, sp_rank=mesh.sp_rank,
+                                      comm=mesh.sp_comm)
         else:
             kv = KVCache.create(*args)
         self.objs[oid] = ShardCache(mesh, kv, n_slots, n_pages, staged)
@@ -1127,8 +1128,9 @@ class TPModel(_Remote):
         """KVCache.create / PagedKVCache.create (n_pages > 0) over this
         model's mesh: each rank its kv heads of its block's slots, under
         sp its slice of the positions (the dense cache only), under pp
-        its stage's layers (staged=False: every layer on every stage, a
-        replicated EAGLE head's cache)."""
+        its stage's layers (staged=False: every layer on every stage and
+        every position on every sp rank, a replicated EAGLE head's
+        cache)."""
         m = self.mesh
         if n_pages and m.sp > 1:
             raise ValueError("the paged pool is not sequence-parallel: "
@@ -1136,7 +1138,7 @@ class TPModel(_Remote):
         for what, n, by in (("kv heads", n_kv_heads, m.tp),
                             ("slots", n_slots, m.dp),
                             ("pages", n_pages, m.dp),
-                            ("positions", max_seq, m.sp),
+                            ("positions", max_seq, m.sp if staged else 1),
                             ("layers", n_layers, m.pp if staged else 1)):
             if n % by:
                 raise ValueError(f"{n} {what} do not split over {by} ranks")
@@ -1212,7 +1214,8 @@ class TPCache(_Remote, KVCache):
 
     @property
     def mask(self) -> torch.Tensor:
-        if self.shard.mesh.dp == 1 and self.shard.mesh.sp == 1:
+        if (self.shard.mesh.dp == 1
+                and not isinstance(self.shard.kv, SeqShardCache)):
             return self.shard.kv.mask
         return self._call("mask")
 

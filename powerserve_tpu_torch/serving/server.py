@@ -86,10 +86,11 @@ and a VLM's speculation get a 400 under --pp, as in the JAX server; a
 draft dir's chain, EAGLE chains and trees and plain VLM requests serve.
 --tp T --sp N [--dp M] splits each dense cache's positions over N
 sequence-parallel ranks (T * N * M ranks in all; the attention merges
-the ranks' softmax states); the paged pool exits with an error there,
-and token trees, EAGLE heads, VLM dirs and MoE models get a 400 naming
-ROADMAP §1 8b. --gspmd and --distributed exit with an error naming
-ROADMAP §1 item 8b.
+the ranks' softmax states); every model and speculation serves there
+(MoE models, VLM dirs, draft chains and --spec-tree, EAGLE heads), and
+the paged pool exits with an error, as JAX asserts paged KV + sequence
+parallel unsupported. --gspmd and --distributed exit with an error
+naming ROADMAP §1 item 8b.
 
     python -m powerserve_tpu_torch serve -d <model_root> [--paged-pages N
         --page-size P] [--max-slots S] [--spec-k K | --spec-tree W,...
@@ -424,10 +425,6 @@ class ServerContext:
         d = self.resolve_dir(name)
         vlm = None
         if vlm_source(d) is not None:
-            if self.sp > 1:
-                raise HTTPError(400, f"model '{name}': VLM dirs are not "
-                                     f"served under sequence parallelism "
-                                     f"yet (ROADMAP.md §1 8b)")
             try:
                 vlm = self._load_vlm(d)
             except (ValueError, KeyError, FileNotFoundError) as e:
@@ -467,10 +464,6 @@ class ServerContext:
                 raise HTTPError(400, f"model '{name}': VLM speculation takes "
                                      f"the batched chain or tree scheduler "
                                      f"only (no EAGLE head)")
-            if self.sp > 1:
-                raise HTTPError(400, f"model '{name}': EAGLE heads are not "
-                                     f"sequence-parallel yet (ROADMAP.md §1 "
-                                     f"8b)")
             if self.ranks is not None:
                 return self._start(name, base, eagle_head=self.ranks.eagle(
                     model, draft_dir, rank))

@@ -2374,17 +2374,29 @@ def _held_state(got, ref, seen, vs):
     _close_flips(o[seen], ro[seen], vs)
 
 
-@pytest.mark.parametrize("Tq,t0", [(1, 2048), (1, 0), (5, 2048)])
-def test_flash_decode_state_kernel(dev, Tq, t0):
+@pytest.mark.parametrize("Tq,t0,tree", [
+    (1, 2048, False), (1, 0, False), (5, 2048, False), (7, 2048, True),
+    (7, 0, True)], ids=["1-2048", "1-0", "5-2048", "tree-7-2048",
+                        "tree-7-0"])
+def test_flash_decode_state_kernel(dev, Tq, t0, tree):
     """The dense state mode at llama-8b's heads over a 2,048-position
     slice that starts at global position t0: slot 0 decodes past the
     slice's start, slot 1 deep in it, slot 2 (its positions on the other
-    rank) sees none of it."""
+    rank) sees none of it. The tree cases: a [2, 1, 1] verify (the bit
+    rows of its ancestors over its 7 nodes' key positions), slot 0's
+    nodes from 3 before the slice's start (its first rows see none of
+    the slice) or, at t0 = 0, from 3 before its end."""
+    from powerserve_tpu_torch.ops.flash_decode import (decode_visibility,
+                                                       pack_intra)
+    from powerserve_tpu_torch.speculative.device_tree import TreeTemplate
+
     g = torch.Generator(device=dev)
     g.manual_seed(Tq + t0)
     S, H, Hkv, D, T = 3, 32, 8, 128, 2048
     first = ([t0 + 40, t0 + 1500, t0 - 300] if t0
              else [40, 1500, 2100])
+    if tree:
+        first[0] = t0 - 3 if t0 else T - 3
     committed = first[:2] + [first[2] if t0 else 0]
     q = torch.randn(S, Tq, H, D, generator=g, device=dev)
     kq, ks, vq, vs = _slice_state(dev, g, S, Hkv, T, D)
@@ -2392,16 +2404,24 @@ def test_flash_decode_state_kernel(dev, Tq, t0):
            + torch.arange(Tq, device=dev)[None, :]).to(torch.int32)
     mask = (t0 + torch.arange(T, device=dev)[None, :]
             < torch.tensor(committed, device=dev)[:, None])
+    bits = None
+    if tree:
+        anc = torch.from_numpy(TreeTemplate.from_widths([2, 1, 1]).anc)
+        bits = pack_intra(anc.to(dev))
     args = (q, kq, ks, vq, vs, mask, pos, 1.0 / D ** 0.5)
-    before = cuda_lib.launch_counts()["flash_decode_state"]
-    got = flash_decode_cuda(*args, state=True, t0=t0)
+    name = "flash_decode_state_tree" if tree else "flash_decode_state"
+    before = cuda_lib.launch_counts()[name]
+    got = flash_decode_cuda(*args, bits=bits, state=True, t0=t0)
     torch.cuda.synchronize()
-    assert cuda_lib.launch_counts()["flash_decode_state"] == before + 1
-    ref = flash_decode_quant_reference(*args, state=True, t0=t0)
-    seen = torch.tensor([True, True, False], device=dev)
-    seen = seen[:, None].expand(S, H * Tq)
+    assert cuda_lib.launch_counts()[name] == before + 1
+    ref = flash_decode_quant_reference(*args, bits=bits, state=True, t0=t0)
+    vis = decode_visibility(mask, pos.long() - t0, Tq, bits)
+    seen = vis.any(dim=-1)[:, None, :].expand(S, H, Tq).reshape(S, H * Tq)
+    assert not seen[2].any() and seen[1].all()
+    if tree and t0:  # slot 0: some rows see the slice, the root's not
+        assert seen[0].any() and not seen[0].all()
     _held_state(got, ref, seen, vs)
-    again = flash_decode_cuda(*args, state=True, t0=t0)
+    again = flash_decode_cuda(*args, bits=bits, state=True, t0=t0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

@@ -28,6 +28,7 @@ import queue
 import subprocess
 import sys
 import tempfile
+import threading
 from pathlib import Path
 
 import jax
@@ -51,8 +52,7 @@ from powerserve_tpu_torch.ops.attention import NEG_INF, build_visibility
 from powerserve_tpu_torch.ops.flash_decode import flash_decode_quant
 from powerserve_tpu_torch.ops.flash_prefill import flash_prefill_quant
 from powerserve_tpu_torch.parallel import tp
-from powerserve_tpu_torch.tools.synthetic import (make_eagle_gguf,
-                                                  make_synthetic_gguf)
+from powerserve_tpu_torch.tools.synthetic import make_synthetic_gguf
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -200,12 +200,55 @@ def test_sp_attention_over_two_ranks_matches_jax():
         assert np.abs(got[0][k] - want).max() <= 3e-3 * np.abs(want).max()
 
 
+class _ThreadComm:
+    """One rank of an in-process sp group whose ranks are threads: the
+    all_reduce sums every rank's tensor (as a TPComm over gloo does)."""
+
+    def __init__(self, shared: dict, rank: int):
+        self.shared, self.rank = shared, rank
+
+    def all_reduce(self, t, op="sum"):
+        sh = self.shared
+        sh["parts"][self.rank] = t.clone()
+        sh["barrier"].wait()
+        total = sum(sh["parts"])
+        sh["barrier"].wait()
+        return t.copy_(total)
+
+
+def _on_ranks(parts, fn):
+    """fn(part) on every part at once, one thread a rank."""
+    errors = []
+
+    def run(c):
+        try:
+            fn(c)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in parts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+
+
 def test_seq_shard_cache_keeps_global_positions():
     """Writes land on the rank whose slice holds them, pos counts every
     in-range position on every rank, rollback and the prefix snapshots
-    work in global positions."""
+    work in global positions; the token-tree operations too: set_mask
+    acts on the slice's positions, and a commit whose accepted entries
+    lie on the other slice than their destinations moves their bytes
+    there (two ranks as threads over an in-process sum)."""
     full = KVCache.create(1, 2, 16, 1, 4, "cpu")
-    parts = [SeqShardCache.create(1, 2, 16, 1, 4, "cpu", sp=2, sp_rank=r)
+    shared = {"parts": [None, None],
+              "barrier": threading.Barrier(2, timeout=60)}
+    parts = [SeqShardCache.create(1, 2, 16, 1, 4, "cpu", sp=2, sp_rank=r,
+                                  comm=_ThreadComm(shared, r))
              for r in range(2)]
     pos = torch.tensor([[5, 6, 7, 8, 9], [-1, 14, 15, 16, -1]])
     k = torch.randn(2, 5, 1, 4)
@@ -223,8 +266,42 @@ def test_seq_shard_cache_keeps_global_positions():
             [2, 0])[:, None]) & c.mask)
         c.restore_slot_prefix(1, snap)
         assert int(c.pos[1]) == 9
-    with pytest.raises(ValueError, match="token trees"):
-        parts[0].commit_tokens(None, pos, torch.tensor([1, 1]))
+    snap = full.save_slot_prefix(0, 9)
+    full.rollback(3)
+    full.restore_slot_prefix(1, snap)
+    # a tree of 5 nodes from 6 in slot 0 (across the boundary at 8) and
+    # from 12 in slot 1; slot 0 accepts nodes 0, 3, 4 (at 6, 9, 10: to
+    # 6, 7, 8), slot 1 nodes 0, 2 (at 12, 14: to 12, 13)
+    full.rollback(full.pos.long() - torch.tensor([6, 12]))
+    for c in parts:
+        c.rollback(c.pos.long() - torch.tensor([6, 12]))
+    tree = torch.tensor([[6, 7, 8, 9, 10], [12, 13, 14, 15, 16]])
+    k = torch.randn(2, 5, 1, 4)
+    for c in [full] + parts:
+        c.write(0, k, -k, c.write_index(tree))
+        c.advance(tree, visible=torch.zeros(2, 5, dtype=torch.bool))
+    src = torch.tensor([[6, 9, 10], [12, 14, -1]])
+    n_acc = torch.tensor([3, 2])
+    full.rollback(full.pos.long() - torch.tensor([6, 12]))
+    full.commit_tokens(None, src, n_acc)
+    full.set_mask(1, torch.tensor([3, 9]), False)
+    full.copy_token(0, torch.tensor(11), torch.tensor(7))
+
+    def tree_ops(c):
+        c.rollback(c.pos.long() - torch.tensor([6, 12]))
+        c.commit_tokens(None, src, n_acc)
+        c.set_mask(1, torch.tensor([3, 9]), False)
+        c.copy_token(0, torch.tensor(11), torch.tensor(7))
+
+    _on_ranks(parts, tree_ops)
+    assert full.pos.tolist() == [9, 14]
+    for r, c in enumerate(parts):
+        cut = slice(8 * r, 8 * r + 8)
+        assert torch.equal(c.pos, full.pos)
+        assert torch.equal(c.mask, full.mask[:, cut])
+        for name in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(getattr(c, name),
+                               getattr(full, name)[:, :, :, cut]), name
 
 
 # -- tp = 2 x sp = 2 over a rank group ------------------------------------
@@ -232,13 +309,12 @@ def test_seq_shard_cache_keeps_global_positions():
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    """"model" (tiny-k Q4_K), "draft" (another seed), "eagle" (a head)."""
+    """"model" (tiny-k Q4_K), "draft" (another seed)."""
     r = tmp_path_factory.mktemp("spserve")
     make_synthetic_gguf(r, "tiny-k", GGMLType.Q4_K, seed=0, seq_len=SEQ)
     w = make_synthetic_gguf(tmp_path_factory.mktemp("draft"), "tiny-k",
                             GGMLType.Q4_K, seed=7, seq_len=SEQ)
     (w / "model").rename(r / "draft")
-    make_eagle_gguf(r / "eagle", "tiny-k", seed=9)
     return r
 
 
@@ -378,19 +454,14 @@ def test_sp_scheduler_gives_the_single_ranks_tokens(root, single, ranks,
 
 
 def test_sp_refusals(root, single, ranks):
-    """The pool, token trees and EAGLE heads under sp are refused (JAX
-    asserts "paged KV + sequence parallel unsupported"); serve --sp with
-    --paged-pages exits 2."""
-    group, model = ranks
+    """The pool under sp is refused (JAX asserts "paged KV + sequence
+    parallel unsupported"); serve --sp with --paged-pages exits 2. Token
+    trees and EAGLE heads under sp serve
+    (tests/test_torch_sp_compositions.py)."""
+    _, model = ranks
     cfg = single[0]
     with pytest.raises(ValueError, match="paged KV"):
         BatchScheduler(model, cfg, _hp(paged_pages=16, page_size=8), "cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BatchScheduler(model, cfg, _hp(spec_tree="2,1"), "cpu",
-                       draft=group.self_draft(model, 1))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BatchScheduler(model, cfg, _hp(), "cpu",
-                       eagle_head=group.eagle(model, root / "eagle"))
     out = subprocess.run(
         [sys.executable, "-m", "powerserve_tpu_torch", "serve", "-d",
          str(root), "--device", "cpu", "--tp", "2", "--sp", "2",
