@@ -29,7 +29,8 @@ Phases, each printing one JSON line:
              qmatmul at llama-8b's 4096 -> 28672 for M = 1 and 512 (and,
              after every other row, at the four layer shapes for M = 1
              and 512, the head's 4096 -> 128256 at M = 1 and 4096 ->
-             28672 at M = 40 and 1024), each twice bit for bit, its
+             28672 at M = 40 and 1024, then at 4096 -> 28672 for M = 2,
+             5, 8, 9 and 16), each twice bit for bit, its
              quantize pass bit-equal to quantize_activations and timed
              alone, torch._int_mm on the same int8 operands beside it; the
              fused linear's modes at llama-8b's draft shapes (x -> wo,
@@ -332,12 +333,14 @@ Phases, each printing one JSON line:
   w8_moe_full_width  (after serve_moe_full_width) mixtral-lite in W8:
              the grouped mode of csrc/qmatmul_w8.cu on layer 0's slabs
              at the gate and down shapes of a 512-token prefill (block_m
-             128), 32 decoding slots (block_m 16) and one token (block_m
-             1), each against its twin within 1e-4, twice bit for bit,
-             timed beside the Q4_K grouped mode at the same routing;
-             generate (512 + 64, replayed, a first and a steady call);
-             an S = 8 decode step with every W8 product held against its
-             twin; each MoE route under set_sync_debug_mode("error")
+             128), 32 and 8 decoding slots (block_m 16) and one token
+             (block_m 1), each against its twin within 1e-4, twice bit
+             for bit, timed beside the Q4_K grouped mode at the same
+             routing; generate (512 + 64, replayed, a first and a steady
+             call); an S = 8 decode step with every W8 product held
+             against its twin, then timed eager and replayed (CUDA
+             events) with its launches; each MoE route under
+             set_sync_debug_mode("error")
   vlm_hf_dir  (after serve_vlm_full_width) an HF InternVL checkpoint dir
              at InternVL2.5-4B's widths and 151,936-token vocabulary, 2
              text and 2 vision layers, BF16 safetensors written by the port's own writer: `run --image
@@ -392,6 +395,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --compose
        python3 chip_smoke.py --sampled
        python3 chip_smoke.py --pp-sp
+       python3 chip_smoke.py --w8
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build, the two VLM phases and vlm_hf_dir; the
@@ -406,7 +410,8 @@ llama-8b's parameters and sampled_serve (copied into an older tree, it
 measures that tree's serving with the checks of in-graph draws off); the
 ninth the build, the kernels phase, llama-8b's parameters, the three
 pp/sp phases and sp_compositions_full_width, then the card's line and the
-state modes' kernel rows.
+state modes' kernel rows; the tenth the build, the kernels phase and
+w8_moe_full_width, then the card's line.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -1161,6 +1166,15 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         for m in ms:
             w8_rows.append(w8_row(lin8, m, k, n))
         del lin8
+    # -- then, with a seed of their own: the W8 GEMV at the tile heights
+    #    the decode paths give it at 4096 -> 28672 (M = 2, 5: a chain
+    #    verify of k + 1 rows, 8: the 8-slot tick, 9: the first height with
+    #    a second B tile, 16), beside M = 1's row
+    g.manual_seed(7)
+    lin8 = _rand_qlinear(g, 4096, 28672, "w8", dev)
+    for m in (2, 5, 8, 9, 16):
+        w8_rows.append(w8_row(lin8, m, 4096, 28672))
+    del lin8
     # -- then, with a seed of their own: flash-decode's tree mode (absent
     #    from trees before it), a [2, 1, 1] token tree (N = 7 nodes at
     #    c + i): DeviceTreeEngine's verify (S = 1, the ancestor rows over
@@ -5302,20 +5316,24 @@ def phase_w8_moe_full_width(dev: torch.device) -> tuple[dict, dict, list]:
     scales): the grouped mode of csrc/qmatmul_w8.cu on layer 0's slabs,
     routed by its router, at the gate (4096 -> 3584) and down (3584 ->
     4096) shapes of a 512-token prefill (block_m 128, P = 2048, 1,024
-    routed rows), 32 decoding slots (block_m 16, 64 routed rows) and one
-    token (its top-2 slabs as one-row tiles), each against its twin within
-    1e-4 of the largest output, twice bit for bit, timed beside the Q4_K
-    grouped mode at the same shapes and routing; generate (512 + 64
+    routed rows), 32 and 8 decoding slots (block_m 16, 64 and 16 routed
+    rows) and one token (its top-2 slabs as one-row tiles), each against
+    its twin within 1e-4 of the largest output, twice bit for bit, timed
+    beside the Q4_K grouped mode at the same shapes and routing; generate (512 + 64
     greedy tokens, replayed, a first and a steady call); an S = 8 decode
     step whose every grouped and dense W8 product is held against its twin
-    (random full-range int8 weights are not held end to end: PERF.md);
+    (random full-range int8 weights are not held end to end: PERF.md),
+    then timed eager and replayed as a CUDA graph (CUDA events), with its
+    launches;
     each MoE route under set_sync_debug_mode("error"). Returns (result,
     the steady generate's launches, the kernel rows)."""
     from powerserve_tpu_torch.core.config import HyperParams
     from powerserve_tpu_torch.engine.generator import (GenerationStats,
                                                        InferenceEngine)
+    from powerserve_tpu_torch.engine.graphs import StepGraph
     from powerserve_tpu_torch.kv.cache import KVCache
     from powerserve_tpu_torch.models.llama import moe_route
+    from powerserve_tpu_torch.ops import cuda_lib
     from powerserve_tpu_torch.ops.moe import group_dispatch
     from powerserve_tpu_torch.ops.qmatmul import (qmatmul_grouped_cuda,
                                                   qmatmul_grouped_reference,
@@ -5351,6 +5369,7 @@ def phase_w8_moe_full_width(dev: torch.device) -> tuple[dict, dict, list]:
     rows = []
     for case, n_tok, bm in (("prefill 512 tokens", 512, 128),
                             ("decode 32 slots", 32, 16),
+                            ("decode 8 slots", 8, 16),
                             ("single token", 1, 1)):
         h = torch.randn(n_tok, dim, generator=g, device=dev).to(
             torch.bfloat16)
@@ -5441,10 +5460,47 @@ def phase_w8_moe_full_width(dev: torch.device) -> tuple[dict, dict, list]:
     g_err, g_calls = w8_grouped_calls_check(
         lambda: dense.update(calls=w8_calls_check(step)))
     d_err, d_calls = dense["calls"]
+    # the same step on the kernels, timed with CUDA events (median of 11,
+    # warm; a clone of the cache, its position 64 written again each
+    # call): eager, where the host's launches set the pace, then replayed
+    # as one CUDA graph (engine/graphs.py's StepGraph), the device's time;
+    # and its launches (zeroed just before one eager step, read after)
+    kv_t = kv.clone()
+    pos = kv.pos.long()[:, None]
+    run_step = lambda: model(kv_t, toks[:, 64:], pos,  # noqa: E731
+                             logits_mode="last")
+
+    def median_ms(fn, reps=11):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times
+
+    run_step()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    run_step()
+    torch.cuda.synchronize()
+    step_counts = {n: c for n, c in cuda_lib.launch_counts().items() if c}
+    eager_ms, eager_runs = median_ms(run_step)
+    graph = StepGraph(run_step, {}, dev, None, torch.cuda.Stream(dev), ())
+    graph()  # eager, then captured and replayed
+    graph()
+    replay_ms, replay_runs = median_ms(graph)
     result["decode_step"] = dict(route=moe_route(8), grouped_calls=g_calls,
                                  grouped_err_share=g_err,
-                                 dense_calls=d_calls, dense_err_share=d_err)
-    del kv
+                                 dense_calls=d_calls, dense_err_share=d_err,
+                                 eager_ms=eager_ms, eager_ms_runs=eager_runs,
+                                 replayed_ms=replay_ms,
+                                 replayed_ms_runs=replay_runs,
+                                 launches=step_counts)
+    del kv_t, graph, kv
     # -- every route without a host sync
     routes = []
     for n in (1, 8, 512):
@@ -6770,6 +6826,13 @@ def main() -> int:
     if "--kernels" in sys.argv[1:]:
         phase_kernels(dev, read_flush="--read-flush" in sys.argv[1:])
         emit(phase_tp_kernels(dev, read_flush="--read-flush" in sys.argv[1:]))
+        print(card, flush=True)
+        return 0
+    if "--w8" in sys.argv[1:]:
+        # the kernels phase and mixtral-lite in W8 alone; a copy of this
+        # script in an older tree measures that tree
+        phase_kernels(dev)
+        emit(phase_w8_moe_full_width(dev)[0])
         print(card, flush=True)
         return 0
     if "--tp" in sys.argv[1:]:

@@ -133,19 +133,6 @@ __device__ __forceinline__ float ld_scale(const void* p, long idx, int bf16) {
   return reinterpret_cast<const float*>(p)[idx];
 }
 
-// Four bytes of stored row `row` at columns n0..n0+3; columns past N
-// read as zero. vec: N % 4 == 0, so the word load is aligned.
-__device__ __forceinline__ uint32_t ld_row4(const uint8_t* q, long row, int n0,
-                                            int N, bool vec) {
-  const uint8_t* p = q + row * (long)N + n0;
-  if (vec) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  uint32_t v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (n0 + j < N) v |= (uint32_t)__ldg(p + j) << (8 * j);
-  return v;
-}
-
 // A wgmma operand in shared memory. swizzle 0: 8 x 16-byte core matrices
 // (128 contiguous bytes), lbo the byte stride between core matrices
 // along K, sbo along M or N (K-major and MN-major alike); swizzle 2: rows

@@ -18,16 +18,34 @@
 //    codes written once; a few microseconds at M <= 1024. Its product
 //    launches as soon as every pass block has started, and streams its
 //    first weights while the pass runs.
-//  - decode (M <= 16): weight bytes, 1 byte per weight plus 4 per 128
-//    (4096 x 28672 is ~118 MB, ~35 us at 3.35 TB/s). A split-K GEMV:
-//    each thread owns four adjacent columns (one 32-bit load per row, a
-//    warp reads 128 contiguous bytes), a warp takes whole 128-deep
-//    blocks, and 32 row loads are in flight per thread. Four rows of four
-//    columns are transposed in registers (__byte_perm) into four k-quads,
-//    each the operand of one __dp4a against four activations. The K
-//    splits of a column tile form one cluster (at most 8) and add their
-//    partials in rank order through distributed shared memory: the same
-//    bits on every run, no partial buffer, no reduce launch.
+//  - decode (M <= 16 rows, dense or a grouped tile): weight bytes, 1
+//    byte per weight plus 4 per 128 (4096 x 28672 is ~118 MB, ~35 us at
+//    3.35 TB/s), whatever the row count. The product runs on the tensor
+//    cores: int8 mma.sync m16n8k32 (s8.s8.s32) with 16 weight columns x
+//    32 k as A and x8 as B (rows 0-7; a second mma for rows 8-15), so a
+//    tile of 16 rows costs what one row costs, padding rows included. A
+//    block owns 128 columns and its threads fill a ring of eight units
+//    of 32 k (two 128-deep blocks) by cp.async, a warp instruction
+//    copying four whole 128-byte weight rows; a warp takes 32 columns of
+//    each unit. mma's A is K-major and the weights are stored [K, N]:
+//    each unit's rows are staged in a permuted order (staged_k) so that
+//    ldmatrix.trans and two byte permutes give the K-major quads, with no
+//    transpose pass. A 128-deep block's four mmas chain in s32, exactly,
+//    then take one f32 multiply-add by the block's scale. The K splits of
+//    a column tile form one cluster (at most 8, as many as fill one wave
+//    of resident blocks) and add their partials in rank order through
+//    distributed shared memory: the same bits on every run, no partial
+//    buffer, no reduce launch. The first seven units' weights are copied
+//    before griddepcontrol.wait, while the quantize pass runs. The body
+//    it replaced ran one __dp4a per row for every 4 x 4 byte quad, so its
+//    work grew with the tile's rows, padding rows too. Tried on the card and slower: each warp its own ring
+//    over its 32 columns (a warp instruction then touched 16 rows x 32
+//    bytes; slower at every shape, and slower than the __dp4a body at
+//    one-row tiles), rings of 4 and 12 units, and 48-byte padded rows in
+//    place of the swizzle. Not tried: bf16 m16n8k16 on x8's codes through
+//    gemv.cuh's body (exact too, but at half the int8 rate, and its pass
+//    would write the codes in twice the bytes). One-row products take
+//    this body too: it was faster there than the __dp4a body in one call.
 //  - prefill (M > 16): operations, 2 * M * N * K at 1,979 TOP/s int8
 //    (4096 x 28672 at M = 512: 0.061 ms). int8 wgmma (m64n128k32
 //    s8.s8.s32) at a 128 x 128 output tile, two warpgroups, one block an
@@ -69,8 +87,8 @@
 namespace {
 
 constexpr int kW8Block = 128;  // scale group = depth of one exact int8 dot
-constexpr int kGemvCols = 128;
-constexpr int kGemvWarps = 8;
+constexpr int kGemvWarps = 4;
+constexpr int kGemvCols = 32 * kGemvWarps;
 constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr int kPassThreads = 256;
 
@@ -142,13 +160,87 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
   c[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// One layer of the grid (blockIdx.z) per tile of M rows; with tile_ids,
-// tile z reads slab tile_ids[z] of the stack (the grouped mode).
+// ---- decode GEMV (M <= 16): int8 mma.sync (the design note at the top) ----
+//
+// A block is four warps over 128 output columns; a warp owns 32 of them
+// (two groups of 16, each the A operand of an m16n8k32 mma). The block
+// walks its K split in units of 32 k through a ring of kRing stages that
+// all its threads fill by cp.async, a warp instruction four whole
+// 128-byte rows: the unit's 32 weight rows x 128 columns, its rows of x8
+// (rows past M are not copied and read as zeros) and, in the last unit of
+// a 128-deep block, that block's 128 scales. One barrier a unit. A unit's
+// slot modulo 4 is its index in its 128-deep block, so every offset is a
+// constant.
+constexpr int kRing = 8;  // units of 32 k: two 128-deep blocks
+
+// Staged weight rows are 128 bytes, their 16-byte chunk j stored at j ^
+// (row % 8): ldmatrix's eight rows hit 32 distinct banks. Staged x8 rows
+// are 32 bytes, their halves swapped in rows with bit 2 set: a warp's B
+// loads hit 32 distinct banks.
+__device__ __forceinline__ int swz_w(int row, int chunk) {
+  return row * kGemvCols + 16 * (chunk ^ (row & 7));
+}
+__device__ __forceinline__ int swz_x(int row, int half) {
+  return row * 32 + 16 * (half ^ ((row >> 2) & 1));
+}
+
 template <int MT>
-__global__ __launch_bounds__(256) void w8_gemv_kernel(
+struct GemvStage {
+  static constexpr int X = 32 * kGemvCols;  // x8 rows [MT][32 k]
+  static constexpr int S = X + MT * 32;     // a 128-deep block's scales
+  static constexpr int BYTES = S + kGemvCols * 4;
+};
+
+// Staged row p of a unit holds its k row staged_k(p): rows p = 0-7 are k
+// {0, 1, 4, 5, 8, 9, 12, 13}, 8-15 k {2, 3, 6, 7, ...}, and 16-31 the same
+// plus 16. ldmatrix.trans over staged rows 0-7 then hands lane (g, t4)
+// columns 2g, 2g + 1 at k 4 t4 and 4 t4 + 1, over rows 8-15 the same
+// columns at k 4 t4 + 2 and 4 t4 + 3: two byte permutes make the K-major
+// quads of A rows g (column 2g) and g + 8 (column 2g + 1).
+__device__ __forceinline__ int staged_k(int p) {
+  return (p & 16) + 4 * ((p & 7) >> 1) + (p & 1) + 2 * ((p >> 3) & 1);
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32 sums (exact here)
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A thread's two weight chunks and scale chunk element by element, for
+// weights whose rows are not 16-byte aligned (columns past N read as
+// zero); out of line, so the loader's state stays in registers.
+__device__ __noinline__ void w8_load_slow(const uint8_t* w0,
+                                          const uint8_t* w1, int col, int N,
+                                          uint8_t* d0, uint8_t* d1,
+                                          const float* sp, int scol,
+                                          float* sd) {
+  for (int b = 0; b < 16; ++b) {
+    d0[b] = col + b < N ? w0[b] : 0;
+    d1[b] = col + b < N ? w1[b] : 0;
+  }
+  if (sp)
+    for (int j = 0; j < 4; ++j) sd[j] = scol + j < N ? sp[j] : 0.f;
+}
+
+// One layer of the grid (blockIdx.z) per tile of M <= MT rows; with
+// tile_ids, tile z reads slab tile_ids[z] of the stack (the grouped mode).
+// gridDim.y K splits of whole 128-deep blocks, one cluster per column
+// tile and tile when gridDim.y > 1. vec: N % 16 == 0 and q, s 16-byte
+// aligned.
+template <int MT>
+__global__ __launch_bounds__(32 * kGemvWarps) void w8_gemv_kernel(
     const int8_t* __restrict__ x8, const float* __restrict__ sx,
     const uint8_t* __restrict__ q, const float* __restrict__ s, int M, int K,
-    int N, float* out, int kb_per_split, const int* tile_ids, int n_slabs) {
+    int N, float* out, int vec, const int* tile_ids, int n_slabs) {
+  constexpr int RB = MT > 8 ? 2 : 1;  // B tiles of 8 rows
+  using St = GemvStage<MT>;
+  extern __shared__ __align__(128) uint8_t smem[];
   // written before the quantize pass started: readable before the wait
   const int tile = blockIdx.z;
   if (tile_ids) {
@@ -159,104 +251,171 @@ __global__ __launch_bounds__(256) void w8_gemv_kernel(
   x8 += (long)tile * M * K;
   sx += (long)tile * M;
   out += (long)tile * M * N;
-  const int lane = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int n0 = (blockIdx.x * 32 + lane) * 4;
-  const int KB = K / kW8Block;
-  const int kb_begin = blockIdx.y * kb_per_split;
-  const int kb_end = min(KB, kb_begin + kb_per_split);
-  const bool vec = (N % 4) == 0;
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-  // launched as the quantize pass's dependent: the first 32 weight rows of
-  // this warp's first block head for the L2 (lane i: row i, the warp's 128
-  // bytes) while the pass runs; its codes are read after the wait
-  if (kb_begin + ty < kb_end)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-        q + ((long)(kb_begin + ty) * kW8Block + lane) * N +
-        blockIdx.x * kGemvCols));
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  if (n0 < N) {
-    for (int kb = kb_begin + ty; kb < kb_end; kb += kGemvWarps) {
-      int isum[MT][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) isum[m][j] = 0;
-#pragma unroll 1
-      for (int c = 0; c < kW8Block; c += 32) {
-        const long row0 = (long)kb * kW8Block + c;
-        uint32_t words[32];
-#pragma unroll
-        for (int i = 0; i < 32; ++i) words[i] = ld_row4(q, row0 + i, n0, N, vec);
-#pragma unroll
-        for (int g = 0; g < 8; ++g) {
-          const uint32_t rows[4] = {words[4 * g], words[4 * g + 1],
-                                    words[4 * g + 2], words[4 * g + 3]};
-          uint32_t col[4];
-          transpose4(rows, col);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m < M) {
-              const int xw = __ldg(reinterpret_cast<const int*>(
-                  x8 + (long)m * K + row0 + 4 * g));
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                isum[m][j] = __dp4a((int)col[j], xw, isum[m][j]);
-            }
-          }
-        }
-      }
-      float sc[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sc[j] = n0 + j < N ? __ldg(s + (long)kb * N + n0 + j) : 0.f;
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[m][j] = fmaf((float)isum[m][j], sc[j], acc[m][j]);
-    }
-  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n0 = blockIdx.x * kGemvCols;
+  const int KB = K / kW8Block, splits = gridDim.y;
+  const int kb0 = (int)((long)blockIdx.y * KB / splits);
+  const int units = ((int)((long)(blockIdx.y + 1) * KB / splits) - kb0) *
+                    (kW8Block / 32);
 
-  // the warps' sums, added in warp order, make this block's partial [M,
-  // 128]; then the K splits of the column tile (one cluster, rank = split)
-  // add theirs in rank order through distributed shared memory, and the
-  // row scale comes last
-  __shared__ float red[kGemvWarps][kGemvCols];
-  __shared__ float part[MT][kGemvCols];
+  // this thread's copies of a unit: weight chunks tid and tid + 128
+  // (staged rows tid / 8 and tid / 8 + 16, 16 columns from 16 (tid % 8)),
+  // x8 chunk tid (row tid / 2 < M), scale chunk tid < 32 (columns 4 tid ..
+  // + 3)
+  const int p0 = tid >> 3, ch = tid & 7;
+  const int col = n0 + 16 * ch;
+  const bool col_ok = col < N;
+  const uint8_t* wsrc[2];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m < M) {
+  for (int i = 0; i < 2; ++i)
+    wsrc[i] = q + ((long)kb0 * kW8Block + staged_k(p0 + 16 * i)) * N + col;
+  const int xr = tid >> 1, xh = tid & 1;
+  const bool x_ok = xr < M && xr < MT;
+  const int8_t* xsrc = x8 + (long)(x_ok ? xr : 0) * K +
+                       (long)kb0 * kW8Block + 16 * xh;
+  const int scol = n0 + 4 * tid;
+  const bool s_ok = tid < kGemvCols / 4 && scol < N;
+  const float* ssrc = s + (long)kb0 * N + (s_ok ? scol : 0);
+  const long wstep = 32L * N;
+
+  auto load = [&](uint8_t* st, bool scales, bool with_w, bool with_x) {
+    if (with_w) {
+      if (vec) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[ty][lane * 4 + j] = acc[m][j];
+        for (int i = 0; i < 2; ++i)
+          cp_async16(st + swz_w(p0 + 16 * i, ch), col_ok ? wsrc[i] : q,
+                     col_ok);
+        if (scales && tid < kGemvCols / 4)
+          cp_async16(st + St::S + 16 * tid, s_ok ? ssrc : s, s_ok);
+      } else {
+        w8_load_slow(wsrc[0], wsrc[1], col, N, st + swz_w(p0, ch),
+                     st + swz_w(p0 + 16, ch),
+                     scales && tid < kGemvCols / 4 ? ssrc : nullptr, scol,
+                     reinterpret_cast<float*>(st + St::S) + 4 * tid);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wsrc[i] += wstep;
+      if (scales) ssrc += N;
+    }
+    if (with_x) {
+      if (x_ok) cp_async16(st + St::X + swz_x(xr, xh), xsrc, true);
+      xsrc += 32;
+    }
+  };
+
+  int isum[2][RB][4];
+  float acc[2][RB][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) isum[c][rb][i] = 0, acc[c][rb][i] = 0.f;
+
+  // launched as the quantize pass's dependent: the first units' weights
+  // stream while the pass runs, their rows of x8 once it is done (stage
+  // 0's commit group holds all those weights)
+#pragma unroll
+  for (int u = 0; u < kRing - 1; ++u)
+    if (u < units) load(smem + u * St::BYTES, u % 4 == 3, true, false);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+  for (int u = 0; u < kRing - 1; ++u) {
+    if (u < units) load(smem + u * St::BYTES, false, false, true);
+    cp_async_commit();
+  }
+  for (int base = 0; base < units; base += kRing) {
+#pragma unroll
+    for (int slot = 0; slot < kRing; ++slot) {
+      if (base + slot >= units) break;
+      cp_async_wait<kRing - 2>();
+      // this unit has landed, and every warp is done with the one before
       __syncthreads();
-      if (ty == 0) {
+      const int ahead = (slot + kRing - 1) % kRing;
+      if (base + slot + kRing - 1 < units)
+        load(smem + ahead * St::BYTES, ahead % 4 == 3, true, true);
+      cp_async_commit();
+      const uint8_t* st = smem + slot * St::BYTES;
+      uint32_t a[2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float v = 0.f;
+      for (int c = 0; c < 2; ++c) {
+        uint32_t r[4];
+        ldsm_x4_trans(r, st + swz_w(lane, 2 * warp + c));
+        a[c][0] = __byte_perm(r[0], r[1], 0x6420);  // column 2g
+        a[c][1] = __byte_perm(r[0], r[1], 0x7531);  // column 2g + 1
+        a[c][2] = __byte_perm(r[2], r[3], 0x6420);
+        a[c][3] = __byte_perm(r[2], r[3], 0x7531);
+      }
 #pragma unroll
-          for (int t = 0; t < kGemvWarps; ++t) v += red[t][lane * 4 + j];
-          part[m][lane * 4 + j] = v;
+      for (int rb = 0; rb < RB; ++rb) {
+        // rows past M read as zeros (their chunks are never copied)
+        uint32_t b[2] = {0u, 0u};
+        if (g + 8 * rb < M) {
+          const uint8_t* xs = st + St::X + 4 * t4;
+          b[0] = *reinterpret_cast<const uint32_t*>(xs + swz_x(g + 8 * rb, 0));
+          b[1] = *reinterpret_cast<const uint32_t*>(xs + swz_x(g + 8 * rb, 1));
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) mma_s8_16832(isum[c][rb], a[c], b);
+      }
+      if (slot % 4 == 3) {
+        // the 128-deep block's exact sums, scaled once per column
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float2 sv = *reinterpret_cast<const float2*>(
+              st + St::S + (warp * 32 + 16 * c + 2 * g) * 4);
+#pragma unroll
+          for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[c][rb][i] = fmaf((float)isum[c][rb][i], i < 2 ? sv.x : sv.y,
+                                   acc[c][rb][i]);
+              isum[c][rb][i] = 0;
+            }
         }
       }
-      __syncthreads();
     }
   }
-  const int splits = gridDim.y;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this block's partial [M, 128] into shared memory (sum i of a group:
+  // column 2g + (i >> 1), row 2 t4 + (i & 1) + 8 rb); then the K splits of
+  // the column tile (one cluster, rank = split) add theirs in rank order
+  // through distributed shared memory, and the row scale comes last
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = 2 * t4 + (i & 1) + 8 * rb;
+        if (m < M)
+          red[m * kGemvCols + warp * 32 + 16 * c + 2 * g + (i >> 1)] =
+              acc[c][rb][i];
+      }
   namespace cg = cooperative_groups;
-  if (splits > 1) cg::this_cluster().sync();
-  const int tid = ty * 32 + lane;
-  for (int i = blockIdx.y * 256 + tid; i < M * kGemvCols; i += splits * 256) {
+  if (splits > 1)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+  for (int i = blockIdx.y * kGemvCols + tid; i < M * kGemvCols;
+       i += splits * kGemvCols) {
     const int m = i / kGemvCols;
-    const int n = blockIdx.x * kGemvCols + i % kGemvCols;
+    const int n = n0 + i % kGemvCols;
+    // every rank's partial read first, then added in rank order
+    float part[kMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits)
+        part[r] =
+            (splits > 1 ? cg::this_cluster().map_shared_rank(red, r) : red)[i];
     float v = 0.f;
-    for (int r = 0; r < splits; ++r)
-      v += (splits > 1 ? cg::this_cluster().map_shared_rank(&part[0][0], r)
-                       : &part[0][0])[i];
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r)
+      if (r < splits) v += part[r];
     if (n < N) out[(long)m * N + n] = v * sx[m];
   }
   // keep this block's partial until every block of the cluster read it
@@ -537,14 +696,6 @@ __global__ __launch_bounds__(kGemmThreads, 1) void w8_wgmma_kernel(
   }
 }
 
-// K splits of the GEMV: about four blocks per SM, each split at least
-// eight 128-deep blocks (one per warp), at most a portable cluster
-int w8_splits(int K, int N, int tiles) {
-  const int blocks = (N + kGemvCols - 1) / kGemvCols * tiles;
-  const int want = (4 * sm_count() + blocks - 1) / blocks;
-  return max(1, min(min(want, K / kW8Block / 8), kMaxSplits));
-}
-
 // A launch as the programmatic dependent of the kernel before it on the
 // stream (the quantize pass), in a cluster of (1, cluster_y, 1) blocks
 // when cluster_y > 1.
@@ -573,36 +724,41 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// M rows a tile, `tiles` tiles (tile_ids null: one tile, one weight)
+// M rows a tile, `tiles` tiles (tile_ids null: one tile, one weight). K
+// splits: as many as fill one wave of resident blocks without a second,
+// at most a portable cluster and one 128-deep block each.
 template <int MT>
 cudaError_t launch_w8_gemv(const int8_t* x8, const float* sx,
                            const uint8_t* q, const float* s, int M, int K,
                            int N, float* out, int tiles, const int* tile_ids,
                            int n_slabs, cudaStream_t stream) {
-  const int splits = w8_splits(K, N, tiles);
-  const int KB = K / kW8Block;
+  constexpr int smem = kRing * GemvStage<MT>::BYTES;
+  static const cudaError_t attr_rc = cudaFuncSetAttribute(
+      w8_gemv_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr_rc != cudaSuccess) return attr_rc;
+  static const int per_sm = [] {
+    int n = 1;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, w8_gemv_kernel<MT>,
+                                                  32 * kGemvWarps, smem);
+    return max(n, 1);
+  }();
+  const int blocks = (N + kGemvCols - 1) / kGemvCols * tiles;
+  const int splits = max(
+      1, min(min(per_sm * sm_count() / blocks, kMaxSplits), K / kW8Block));
+  const auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = N % 16 == 0 && al(q) && al(s);
   return launch_dependent(w8_gemv_kernel<MT>,
                           dim3((N + kGemvCols - 1) / kGemvCols, splits, tiles),
-                          dim3(32, kGemvWarps), 0, splits, stream, x8, sx, q,
-                          s, M, K, N, out, (KB + splits - 1) / splits,
-                          tile_ids, n_slabs);
+                          dim3(32 * kGemvWarps), smem, splits, stream, x8, sx,
+                          q, s, M, K, N, out, vec, tile_ids, n_slabs);
 }
 
-// The GEMV of M <= 16 rows a tile, at the smallest row count it holds
+// The GEMV of M <= 16 rows a tile: one B tile of 8 rows, or two
 cudaError_t launch_w8_gemv_rows(const int8_t* x8, const float* sx,
                                 const uint8_t* q, const float* s, int M,
                                 int K, int N, float* out, int tiles,
                                 const int* tile_ids, int n_slabs,
                                 cudaStream_t stream) {
-  if (M <= 1)
-    return launch_w8_gemv<1>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
-                             n_slabs, stream);
-  if (M <= 2)
-    return launch_w8_gemv<2>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
-                             n_slabs, stream);
-  if (M <= 4)
-    return launch_w8_gemv<4>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
-                             n_slabs, stream);
   if (M <= 8)
     return launch_w8_gemv<8>(x8, sx, q, s, M, K, N, out, tiles, tile_ids,
                              n_slabs, stream);

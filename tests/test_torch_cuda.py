@@ -831,12 +831,19 @@ def test_qmatmul_grouped_kernel(dev, fmt, k, n, pack, block_m, tiles, bf16):
         _close(got[rows], qmatmul_reference(x[rows], lin.slab(e)))
 
 
-@pytest.mark.parametrize("k,n", [(1024, 256), (512, 200), (256, 1),
-                                 (4096, 640)])
-@pytest.mark.parametrize("m", [1, 3, 16, 17, 48, 130])
+# K from one 128-deep block, an odd number of blocks, llama-8b's down
+# projection; N ragged (1, 130, 200) and not
+W8_GEMV_SHAPES = [(1024, 256), (512, 200), (256, 1), (4096, 640), (128, 130),
+                  (384, 200), (14336, 130), (384, 1)]
+
+
+@pytest.mark.parametrize("k,n", W8_GEMV_SHAPES)
+@pytest.mark.parametrize("m", [*range(1, 17), 17, 48, 130])
 def test_qmatmul_w8_kernel(dev, k, n, m):
     """Exact int32 block dots on both sides: only the f32 sum over the
-    blocks is taken in another order."""
+    blocks is taken in another order. Every row count of the GEMV (1-16:
+    8 and 9 on either side of its second B tile), then the GEMM; the same
+    bits on two runs."""
     g = torch.Generator(device=dev)
     g.manual_seed(k + n + m)
     q = torch.randint(-128, 128, (k, n), generator=g, device=dev,
@@ -852,6 +859,42 @@ def test_qmatmul_w8_kernel(dev, k, n, m):
     assert cuda_lib.launch_counts()["qmatmul_w8"] == before + 1
     _close(got, qmatmul_w8_reference(x, lin))
     assert not got[0].any()
+    assert torch.equal(got, qmatmul_w8_cuda(x, lin))
+
+
+def _w8_extremes(g, dev, m, k, n, e=None):
+    """Rows whose codes are all +-127 (every entry of magnitude 0.75; row 0
+    all +127, row 1 all -127) and int8 weights of +-127 and -128 (a whole
+    column at -128, one at +127): the largest integer partials a 128-deep
+    block holds, 128 * 127 * 128 < 2^24. Returns (x bf16 [m, k], q int8
+    [(e,) k, n])."""
+    lead = () if e is None else (e,)
+    signs = torch.randint(0, 2, (m, k), generator=g, device=dev) * 2 - 1
+    signs[0], signs[1 % m] = 1, -1
+    x = (signs * 0.75).to(torch.bfloat16)
+    vals = torch.tensor([-128, -127, 127], dtype=torch.int8, device=dev)
+    q = vals[torch.randint(0, 3, (*lead, k, n), generator=g, device=dev)]
+    q[..., 0], q[..., 1 % n] = -128, 127
+    return x, q
+
+
+@pytest.mark.parametrize("k,n", [(128, 130), (384, 200), (14336, 130)])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17])
+def test_qmatmul_w8_kernel_extreme_codes(dev, k, n, m):
+    """At the extreme codes the tensor cores' s32 block sums must be the
+    twin's exact ones: within 2e-5 of the largest output, the same bits
+    on two runs."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k * 3 + n + m)
+    x, q = _w8_extremes(g, dev, m, k, n)
+    s = torch.rand(k // 128, n, generator=g, device=dev) * 0.02 + 0.001
+    lin = QLinear(q, s, None, packed=False, unsigned=False, in_features=k,
+                  out_features=n, scale_group=128)
+    x8, _ = quantize_activations(x)
+    assert x8.abs().eq(127).all()
+    got = qmatmul_w8_cuda(x, lin)
+    _close(got, qmatmul_w8_reference(x, lin))
+    assert torch.equal(got, qmatmul_w8_cuda(x, lin))
 
 
 def _w8_lin(g, dev, k, n):
@@ -945,21 +988,26 @@ def _w8_stack(g, dev, e, k, n):
     return QLinear.stack([_w8_lin(g, dev, k, n) for _ in range(e)])
 
 
-@pytest.mark.parametrize("k,n", [(512, 384), (256, 200), (4096, 130),
-                                 (128, 1)])
-@pytest.mark.parametrize("block_m,tiles", [
-    (16, [3, 0, 3, 1, 2]), (128, [1, 3, 0]), (1, [2, 0, 1, 1]),
-    (8, [0, 3]), (5, [1, 2])])
+W8_GROUPED_CASES = [
+    (k, n, block_m, tiles)
+    for k, n in ((512, 384), (256, 200), (4096, 130), (128, 1))
+    for block_m, tiles in ((16, [3, 0, 3, 1, 2]), (128, [1, 3, 0]),
+                           (1, [2, 0, 1, 1]), (8, [0, 3]), (5, [1, 2]))
+] + [(384, 200, block_m, [1, 2, 0]) for block_m in range(1, 17)] + [
+    (14336, 130, 16, [2, 0]), (14336, 130, 9, [1])]
+
+
+@pytest.mark.parametrize("k,n,block_m,tiles", W8_GROUPED_CASES)
 def test_qmatmul_w8_grouped_kernel(dev, k, n, block_m, tiles):
     """The grouped mode of the W8 kernel: each tile against the twin on
     its slab, padding tiles that repeat the last expert and an id past the
-    stack (clipped to the last slab), ragged N; one count, the same bits
-    on two runs."""
+    stack (clipped to the last slab), every tile height of the GEMV
+    (1-16), K of one, three and 112 blocks, ragged N; one count, the same
+    bits on two runs."""
     g = torch.Generator(device=dev)
     g.manual_seed(k + n + block_m)
     lin = _w8_stack(g, dev, 4, k, n)
-    ids = torch.tensor(tiles + [3, 9][:1 + (block_m <= 8)], dtype=torch.int32,
-                       device=dev)
+    ids = torch.tensor(tiles + [3, 9], dtype=torch.int32, device=dev)
     x = torch.randn(ids.numel() * block_m, k, generator=g,
                     device=dev).to(torch.bfloat16)
     x[0] = 0.0  # a zero row: scale 0, output 0
@@ -972,6 +1020,23 @@ def test_qmatmul_w8_grouped_kernel(dev, k, n, block_m, tiles):
         rows = slice(i * block_m, (i + 1) * block_m)
         _close(got[rows], qmatmul_w8_reference(x[rows], lin.slab(e)))
     assert not got[0].any()
+    assert torch.equal(got, qmatmul_w8_grouped_cuda(x, lin, ids, block_m))
+
+
+@pytest.mark.parametrize("k,n", [(384, 200), (14336, 130)])
+@pytest.mark.parametrize("block_m", [1, 2, 8, 16])
+def test_qmatmul_w8_grouped_kernel_extreme_codes(dev, k, n, block_m):
+    """The grouped mode at the extreme codes (see
+    test_qmatmul_w8_kernel_extreme_codes), an id past the stack."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(k + n + block_m)
+    ids = torch.tensor([2, 0, 7], dtype=torch.int32, device=dev)
+    x, q = _w8_extremes(g, dev, ids.numel() * block_m, k, n, e=3)
+    s = torch.rand(3, k // 128, n, generator=g, device=dev) * 0.02 + 0.001
+    lin = QLinear(q, s, None, packed=False, unsigned=False, in_features=k,
+                  out_features=n, scale_group=128)
+    got = qmatmul_w8_grouped_cuda(x, lin, ids, block_m)
+    _close(got, qmatmul_grouped_reference(x, lin, ids, block_m))
     assert torch.equal(got, qmatmul_w8_grouped_cuda(x, lin, ids, block_m))
 
 

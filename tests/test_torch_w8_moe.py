@@ -219,3 +219,97 @@ def test_w8_moe_forward_matches_jax(w8_moe, monkeypatch, rows):
     err = np.abs(got - want).max(-1) / np.abs(want).max()
     assert np.median(err) < W8_LOGIT_REL, err
     assert np.corrcoef(got.ravel(), want.ravel())[0, 1] > 0.9
+
+
+def _extreme_w8(k: int, n: int, e: int = 1, seed: int = 0):
+    """Rows whose codes are all +-127 and int8 weights of +-127 and -128:
+    the largest integer partials a 128-deep block can hold (128 * 127 *
+    128 < 2^24). Returns (x bf16 [8, k], q int8 [e, k, n], s f32 [e, k /
+    128, n])."""
+    rng = np.random.default_rng(seed)
+    signs = rng.choice([-1.0, 1.0], (8, k))
+    signs[0], signs[1] = 1.0, -1.0  # every code +127, every code -127
+    signs[2, 1::2] *= -1.0
+    x = torch.from_numpy(signs * 0.75).to(torch.bfloat16)
+    q = rng.choice(np.array([-128, -127, 127], np.int8), (e, k, n))
+    q[:, :, 0], q[:, :, 1] = -128, 127  # whole columns at the extremes
+    q[:, :, 2] = 127
+    q[:, 1::2, 2] = -128
+    s = rng.random((e, k // 128, n), dtype=np.float32) * 0.02 + 0.001
+    return x, torch.from_numpy(q), torch.from_numpy(s)
+
+
+def _w8_f64(x8: torch.Tensor, sx: torch.Tensor, q: torch.Tensor,
+            s: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """The W8 function in int64 block dots and an f64 sum of the scaled
+    blocks: (dots [KB, M, N], f64 [M, N], the f32 rounding bound [M,
+    N])."""
+    m, k = x8.shape
+    kb = k // 128
+    xb = x8.numpy().astype(np.int64).reshape(m, kb, 128).transpose(1, 0, 2)
+    qb = q.numpy().astype(np.int64).reshape(kb, 128, -1)
+    dots = np.matmul(xb, qb)
+    scaled = dots * s.numpy().astype(np.float64)[:, None, :]
+    rs = sx.numpy().astype(np.float64)
+    f64 = scaled.sum(axis=0) * rs
+    # each product and each of the kb - 1 additions rounds once in f32,
+    # the row scale once more
+    bound = (kb + 2) * 2.0 ** -24 * np.abs(scaled).sum(axis=0) * np.abs(rs)
+    return dots, f64, bound
+
+
+@pytest.mark.parametrize("k", [128, 384, 14336])
+def test_w8_twin_block_dots_exact_at_extreme_codes(k):
+    """qmatmul_w8_reference's f32 block dots (its torch.bmm) equal the
+    int64 dots exactly at the largest partials a block can hold, and its
+    output agrees with an f64 sum of the scaled blocks within f32
+    rounding: the yardstick the W8 kernel is held to."""
+    from unittest import mock
+
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_w8_reference,
+                                                  quantize_activations)
+
+    n = 40
+    x, q, s = _extreme_w8(k, n, seed=k)
+    lin = QLinear(q[0], s[0], None, packed=False, unsigned=False,
+                  in_features=k, out_features=n, scale_group=128)
+    x8, sx = quantize_activations(x)
+    assert x8[0].eq(127).all() and x8[1].eq(-127).all()
+    assert x8.abs().eq(127).all()
+    bmm, parts = torch.bmm, []
+
+    def spy(a, b):
+        parts.append(bmm(a, b))
+        return parts[-1]
+
+    with mock.patch.object(torch, "bmm", spy):
+        got = qmatmul_w8_reference(x, lin).numpy().astype(np.float64)
+    dots, f64, bound = _w8_f64(x8, sx, q[0], s[0])
+    assert len(parts) == 1 and parts[0].dtype == torch.float32
+    assert np.abs(dots).max() == 128 * 127 * 128
+    assert np.array_equal(parts[0].numpy().astype(np.int64), dots)
+    assert (np.abs(got - f64) <= bound).all()
+
+
+@pytest.mark.parametrize("block_m", [1, 8, 16])
+def test_w8_grouped_twin_exact_at_extreme_codes(block_m):
+    """qmatmul_grouped_reference over W8 slabs at the extreme codes, tile
+    ids past the stack clipped into it: each tile within f32 rounding of
+    the f64 sum of its slab's scaled exact blocks."""
+    from powerserve_tpu_torch.ops.qmatmul import (qmatmul_grouped_reference,
+                                                  quantize_activations)
+
+    e, k, n = 3, 384, 24
+    x, q, s = _extreme_w8(k, n, e, seed=block_m)
+    tiles = [2, 0, 5, 1] if block_m == 1 else [2, 5]
+    rows = x.repeat(len(tiles) * block_m // 8 + 1, 1)[:len(tiles) * block_m]
+    lin = QLinear(q, s, None, packed=False, unsigned=False, in_features=k,
+                  out_features=n, scale_group=128)
+    ids = torch.tensor(tiles, dtype=torch.int32)
+    got = qmatmul_grouped_reference(rows, lin, ids, block_m).numpy()
+    x8, sx = quantize_activations(rows)
+    for i, t in enumerate(tiles):
+        sl = slice(i * block_m, (i + 1) * block_m)
+        slab = min(max(t, 0), e - 1)
+        _, f64, bound = _w8_f64(x8[sl], sx[sl], q[slab], s[slab])
+        assert (np.abs(got[sl].astype(np.float64) - f64) <= bound).all()
