@@ -50,7 +50,14 @@ Phases, each printing one JSON line:
              S = 1 over 2048 positions, the paged verify at S = 8 over
              560-650, each twice bit for bit, SDPA with the same
              visibility for information) and the causal rule's bits
-             through the tree mode, dense and paged; last, the shapes
+             through the tree mode, dense and paged, then the verify over
+             a 1,024-position cache and a one-row decode over the
+             verify's 2,048 (the cache length's share of its time against
+             its rows'), and a flash_decode_geometry line: each tree row's
+             splits, token groups, tiles a warp and clusters the card
+             holds at once (cudaOccupancyMaxActiveClusters), beside its
+             walk, and the clusters of 1 to 8 blocks the card holds at
+             the verify's shared memory; last, the shapes
              perplexity adds: the Q4_K lm_head 4096 -> 128256 as the
              prefill GEMM at M = 32 and 490, and flash-prefill at S = 1,
              Tq = 32 from start 448 over a 490-position cache; last, the
@@ -396,6 +403,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --sampled
        python3 chip_smoke.py --pp-sp
        python3 chip_smoke.py --w8
+       python3 chip_smoke.py --trees
 The second form runs the build, kernels and tp_kernels phases only (the
 L2 flushed by reading 256 MB with --read-flush) and prints the card's
 line last; the third the build, the two VLM phases and vlm_hf_dir; the
@@ -411,7 +419,9 @@ measures that tree's serving with the checks of in-graph draws off); the
 ninth the build, the kernels phase, llama-8b's parameters, the three
 pp/sp phases and sp_compositions_full_width, then the card's line and the
 state modes' kernel rows; the tenth the build, the kernels phase and
-w8_moe_full_width, then the card's line.
+w8_moe_full_width, then the card's line; the eleventh the build,
+llama-8b's parameters, tree_full_width and tree_serve_full_width twice
+(without serve_full_width's replies to hold it to), then the card's line.
 Copied into an unpacked archive of another commit and run there, it
 times that commit's kernels at the same cases.
 """
@@ -523,7 +533,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     from powerserve_tpu_torch.ops.flash_decode import (
         decode_visibility, flash_decode_cuda, flash_decode_paged_cuda,
         flash_decode_paged_reference, flash_decode_quant_reference,
-        gather_pages)
+        gather_pages, kernel_walk)
     from powerserve_tpu_torch.ops.flash_prefill import (
         flash_prefill_cuda, flash_prefill_quant_reference, prefill_visibility)
     from powerserve_tpu_torch.ops.fused import (fused_linear_cuda,
@@ -542,6 +552,17 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     # the W8 quantize pass alone (absent from trees before it, whose W8
     # rows this script still times when copied into them)
     quant_pass = getattr(qm, "quantize_activations_cuda", None)
+    # flash-decode's launch geometry (absent from trees before it) beside
+    # the twin's walk (end, tokens a warp)
+    fd_mod = sys.modules["powerserve_tpu_torch.ops.flash_decode"]
+    geometry_of = getattr(fd_mod, "launch_geometry", None)
+
+    def fd_geometry(q, Hkv_, T_, J, vis, page_=0, tree=True, state=False):
+        S_, Tq_, H_, D_ = q.shape
+        out = ({} if geometry_of is None else geometry_of(
+            S_, Hkv_, H_ // Hkv_, Tq_, T_, D_, J, page_, tree))
+        end, per_warp = kernel_walk(vis, Hkv_, H_ // Hkv_, state)
+        return dict(out, end=end.tolist(), tokens_per_warp=per_warp.tolist())
 
     timer = Timer(dev, read_flush)
     g = torch.Generator(device=dev)
@@ -796,7 +817,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                 bound_ms=b, bound_by=by,
                 sdpa_bf16_dequantized_ms=sdpa_ms(
                     q, *(gather_pages(t, pt) for t in (kp, ksp, vp, vsp)),
-                    vis))
+                    vis),
+                geometry=fd_geometry(q, Hkv, T, Tq, vis, page, False))
         fdp_rows.append(row)
 
     # -- grouped qmatmul (the MoE expert FFN), Q4_K stacks with bf16
@@ -1004,7 +1026,8 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         bound_ms=b, bound_by=by,
         sdpa_bf16_dequantized_ms=sdpa_ms(
             q, *(gather_pages(t, pt) for t in (kp, ksp, vp, vsp)),
-            vis | ~seen[:, None, None]))
+            vis | ~seen[:, None, None]),
+        geometry=fd_geometry(q, Hkv, T, Tq, vis, page, False, True))
     del q, kp, vp, o, ro
 
     # -- the dense state modes (sequence parallelism: a rank's slice of
@@ -1092,6 +1115,9 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             bound_by=by, visible_positions=int(vis.sum()),
             sdpa_bf16_dequantized_ms=sdpa_ms(
                 q, kq, ks, vq, vs, vis | ~vis.any(dim=-1, keepdim=True)))
+        if kind.startswith("decode"):
+            sp_rows[kind]["geometry"] = fd_geometry(
+                q, Hkvs, Ts, Tq, vis, 0, kind == "decode_tree", True)
         del q, kq, vq, o, ro
 
     def prefill_row(name, S, Tq, starts, committed, T=T):
@@ -1184,28 +1210,34 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
     #    each against its twin (flips_check), twice bit for bit, SDPA with
     #    the same boolean visibility for information; the causal rows
     #    (lower-triangular bits) give today's bits, dense and paged
+    #    Two more cases part the cache length's share of the verify's time
+    #    from its rows' share: the verify over a 1,024-position cache, and
+    #    row 5's one-row decode (the causal rule) over the verify's 2,048
+    #    positions and its span. Each tree row records its launch geometry
+    #    (splits, token groups, tiles a warp, the clusters the card holds
+    #    at once; absent from trees before it) and the twin's walk (end,
+    #    tokens a warp)
     tree_rows = []
-    fd_mod = sys.modules["powerserve_tpu_torch.ops.flash_decode"]
     if hasattr(fd_mod, "pack_intra"):
         from powerserve_tpu_torch.ops.flash_decode import pack_intra
 
         g.manual_seed(4)
         N = anc.shape[0]  # the [2, 1, 1] tree's, built for the state rows
-        for case, S, rows, paged in (("verify", 1, list(range(N)), False),
-                                     ("draft level 1", 1, [1, 2], False),
-                                     ("paged verify", 8, list(range(N)),
-                                      True)):
-            intra = anc[rows]
-            bits = pack_intra(intra)
-            Tq = len(rows)
+
+        def tree_case(case, S, rows, paged, Tc):
+            causal = rows is None
+            intra = anc[[0] if causal else rows]
+            bits = None if causal else pack_intra(intra)
+            Tq = intra.shape[0]
             starts = ([1000] if S == 1
                       else [560 + 13 * s_ for s_ in range(S)])
-            mask = (torch.arange(T, device=dev)[None, :]
+            mask = (torch.arange(Tc, device=dev)[None, :]
                     < torch.tensor(starts, device=dev)[:, None])
             keys = (torch.tensor(starts, device=dev)[:, None]
-                    + torch.arange(N, device=dev)[None, :]).to(torch.int32)
+                    + torch.arange(Tq if causal else N, device=dev)[None, :]
+                    ).to(torch.int32)
             q = randn(S, Tq, H, D)
-            extra = nbytes(mask, keys, bits)
+            extra = nbytes(mask, keys) + (0 if causal else nbytes(bits))
             if paged:
                 MP = T // page
                 n_alloc = [-(-(c_ + N) // page) for c_ in starts]
@@ -1225,7 +1257,7 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
                 dense4 = tuple(gather_pages(t, pt) for t in kv4)
                 extra += nbytes(pt)
             else:
-                dense4 = cache(S, Hkv, T, D)
+                dense4 = cache(S, Hkv, Tc, D)
                 args = (q, *dense4, mask, keys, scale)
                 fn = lambda: flash_decode_cuda(*args, bits=bits)  # noqa
                 ref_fn = lambda: flash_decode_quant_reference(  # noqa: E731
@@ -1239,11 +1271,18 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
             vis = decode_visibility(mask, keys, Tq, bits)
             b, by = attn_bound(q, vis, Hkv, extra)
             tree_rows.append(dict(
-                case=case, S=S, Tq=Tq, keys=N, T=T, paged=paged,
-                page=page if paged else None, committed=starts,
-                max_abs_err=err, ms=timer(fn),
+                case=case, S=S, Tq=Tq, keys=keys.shape[1], T=Tc,
+                paged=paged, page=page if paged else None,
+                committed=starts, max_abs_err=err, ms=timer(fn),
                 plain_ms=timer(ref_fn, reps=10), bound_ms=b, bound_by=by,
-                sdpa_bf16_dequantized_ms=sdpa_ms(q, *dense4, vis)))
+                sdpa_bf16_dequantized_ms=sdpa_ms(q, *dense4, vis),
+                geometry=fd_geometry(q, Hkv, Tc, keys.shape[1], vis,
+                                     page if paged else 0, not causal)))
+
+        for case in (("verify", 1, list(range(N)), False, T),
+                     ("draft level 1", 1, [1, 2], False, T),
+                     ("paged verify", 8, list(range(N)), True, T)):
+            tree_case(*case)
         # the causal rows: today's bits, and their time beside today's
         S, Tq = 2, 5
         q = randn(S, Tq, H, D)
@@ -1272,7 +1311,29 @@ def phase_kernels(dev: torch.device, read_flush: bool = False) -> list[dict]:
         tree_rows.append(dict(
             case="causal rows", S=S, Tq=Tq, T=T, same_bits=True,
             ms=timer(lambda: flash_decode_cuda(*args)),
-            bits_ms=timer(lambda: flash_decode_cuda(*args, bits=causal))))
+            bits_ms=timer(lambda: flash_decode_cuda(*args, bits=causal)),
+            geometry=fd_geometry(q, Hkv, T, Tq,
+                                 decode_visibility(mask, pos, Tq))))
+        g.manual_seed(8)
+        tree_case("verify T=1024", 1, list(range(N)), False, 1024)
+        tree_case("decode Tq=1", 1, None, False, T)
+        # the clusters of 1 to 8 blocks the card holds at once, at the
+        # verify's shared memory (the card's layout of SMs)
+        fits = (None if geometry_of is None else {
+            n: geometry_of(1, Hkv, H // Hkv, 7, T, D, N, 0, True,
+                           splits=n)["max_active_clusters"]
+            for n in range(1, 9)})
+        emit({"phase": "flash_decode_geometry", "card": card_line(),
+              "max_active_clusters_by_size": fits,
+              "rows": [dict(case=r_["case"], S=r_["S"], Tq=r_["Tq"],
+                            T=r_["T"], ms=r_["ms"], **r_["geometry"])
+                       for r_ in tree_rows]
+              + [dict(case=case, ms=row["ms"], **row["geometry"])
+                 for case, row in (
+                     ("state tree (5ts)", sp_rows["decode_tree"]),
+                     ("state (5s)", sp_rows["decode"]),
+                     ("paged state (6b)", state_row),
+                     ("paged (6)", fdp_rows[0]))]})
     # -- then, with a seed of their own: the shapes perplexity and the
     #    activation dumps add (tools/perplexity.py, logits_mode "all"): the
     #    Q4_K lm_head as a prefill GEMM, 4096 -> 128256 (295 MB of packed
@@ -6884,6 +6945,22 @@ def main() -> int:
         cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
         emit(phase_sampled_serve(dev, cfg, model, check=importlib.util.find_spec(
             "powerserve_tpu_torch.ops.sample") is not None)[0])
+        print(card, flush=True)
+        return 0
+    if "--trees" in sys.argv[1:]:
+        # the token-tree phases alone, each twice: the first pass also
+        # pays the process's first calls (library loads, allocations); a
+        # copy of this script in an older tree measures that tree
+        from powerserve_tpu_torch.tools.bench_params import make_device_params
+
+        cfg, model = make_device_params("llama-8b", "q4_k", seed=0, device=dev)
+        for pass_ in ("first", "second"):
+            emit(dict(phase_tree_full_width(dev, cfg, model)[0], run=pass_))
+            emit(dict(phase_serve_full_width(
+                dev, cfg, model, "tree_serve_full_width",
+                TREE_NEED + ("flash_prefill", "flash_decode_paged_tree"),
+                "model+self:4", spec_tree="2,1,1", sampled=True)[0],
+                run=pass_))
         print(card, flush=True)
         return 0
     if "--ticks" in sys.argv[1:]:

@@ -112,6 +112,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
       : "r"(a));
 }
 
+// lanes 0-7 address the rows of the first matrix, 8-15 the second's, ...
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 // 2^x by the special function unit (ex2.approx: 2 ulp, subnormals flushed)
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;

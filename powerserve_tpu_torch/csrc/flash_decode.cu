@@ -29,12 +29,13 @@
 // T = 1024, D = 128 at 3.35 TB/s: a few MB, so latency and the launch
 // itself set the time. The design:
 //  - One launch. Grid (splits, Hkv, S); the splits of one (slot, kv
-//    head) form a thread block cluster (up to 16 ranks, non-portable
-//    above 8) and merge their softmax states through distributed shared
-//    memory in rank order: the same bits on every run. The splits aim at
-//    ~128 blocks of eight warps (S = 1, T = 1024: 64 blocks; S = 8: two
-//    splits a slot): a grid of 256 four-block clusters did not fit in one
-//    wave on the card.
+//    head) form a thread block cluster (up to 8 ranks, portable) and
+//    merge their softmax states through distributed shared memory in rank
+//    order: the same bits on every run. The splits aim at no more than
+//    128 blocks of eight warps (S = 1: 64 blocks; S = 8: two splits a
+//    slot), so that the grid's clusters are resident at once: a grid of
+//    256 four-block clusters did not fit in one wave on the card, nor
+//    eight clusters of 16 (the card held 7).
 //  - The visibility is formed in the kernel: a block reads its slot's
 //    mask row once (16-byte cp.async) and the slot's J key positions, and
 //    keeps one byte per token of its range: the first key j written
@@ -55,8 +56,12 @@
 //    averages V over T as the JAX XLA reference does (the masked scores
 //    are a finite -1e30).
 //  - The block's range is cut into token groups of 16-token steps; a
-//    warp owns one 16-row tile of the G * Tq query rows and one token
-//    group, with its own online softmax. Scores and the value product
+//    warp owns one token group, with its own online softmax, and one
+//    16-row tile of the G * Tq query rows, or both tiles of 17 to 32 rows
+//    (a tree's verify or draft level, a chain's verify): it loads and
+//    widens each staged K and V word once for both tiles' mma, and a
+//    block keeps eight token groups, as at one tile (33 to 128 rows: a
+//    tile a warp, two or one token groups). Scores and the value product
 //    run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out):
 //    q . K^T with q rows as A and the int8 K rows, exact in bf16, as B
 //    (the head dim permuted alike in both operands, so one 32-bit load
@@ -67,7 +72,14 @@
 //    and V through ldmatrix.trans on 16-bit column pairs: even columns
 //    feed one n tile and odd columns another (the GEMV's trick in
 //    csrc/gemv.cuh). Head sizes pad to a multiple of 16 in shared
-//    memory.
+//    memory. q is staged as bf16 in the mma's k order and read by
+//    ldmatrix: held in registers for one tile, read again each step for
+//    two (whose f32 accumulators take 128 registers at D = 128).
+//  - The set-up: one warp forms the keys' state (positions moved by t0,
+//    the tree mode's folding of keys that share a position, the keys each
+//    row sees) with ballots, matches and shuffles, beside the other warps'
+//    scan of the mask row; one block barrier follows. Each warp builds
+//    its own list of the steps some row sees, so none follows that.
 //  - K/V rows and their scales stream into shared memory by cp.async
 //    (16 bytes where rows allow), two or three steps in flight.
 // The f32 softmax, the -1e30 masking and the bf16 rounding of p * vs are
@@ -100,15 +112,18 @@
 // (models/llama.py, sp_axis).
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kSub = 16;        // tokens per warp step (one mma k / two n tiles)
-constexpr int kMaxSplits = 16;  // cluster ranks per (slot, kv head)
+constexpr int kMaxSplits = 8;   // cluster ranks per (slot, kv head): portable
 constexpr int kTargetBlocks = 128;  // fewer splits when S * Hkv is large
 constexpr int kMaxStages = 3;
-constexpr int kMaxWarps = 8;    // G * Tq <= 128 query rows per kv head
+constexpr int kMaxWarps = 8;    // warps (and token groups) a block
+constexpr int kMaxRows = 128;   // G * Tq query rows per kv head
 constexpr uint8_t kHidden = 255;  // no row sees the position
 constexpr uint8_t kPast = 254;    // past the slot's walked span: no score
 constexpr uint8_t kMask = 253;    // committed: every row sees it
@@ -121,9 +136,11 @@ constexpr int kMaxKeys = 32;      // keys of the tree mode (bits a row)
 // n_steps here are the largest, at end = T.
 struct Geo {
   int R, n_mt, tg, warps;  // rows, 16-row tiles, token groups, warps
+  int mpw, wpg;            // 16-row tiles a warp, warps a token group
   int ws, bs, n_split;     // tokens per warp range, per block; splits
   int n_steps, stages;     // 16-token steps per token group; ring depth
   int Dp, pitch, qpitch;   // padded head dim; staged K/V row bytes; q row bf16s
+  int apitch;              // a state row's f32s
   int sub_bytes;           // one staged step of one token group
 };
 
@@ -138,10 +155,15 @@ __host__ __device__ inline Geo geometry(int G, int Tq, int T, int D,
   Geo g;
   g.R = G * Tq;
   g.n_mt = (g.R + 15) / 16;
-  // eight warps a block where the row tiles allow: tg a power of two
-  g.tg = g.n_mt == 1 ? 8 : g.n_mt == 2 ? 4 : g.n_mt <= 4 ? 2 : 1;
-  g.warps = g.n_mt * g.tg;
-  const int want = (kTargetBlocks + slots_heads - 1) / slots_heads;
+  // up to 32 rows a warp holds both tiles; eight warps a block where the
+  // row tiles allow: tg a power of two
+  g.mpw = g.n_mt == 2 ? 2 : 1;
+  g.wpg = g.n_mt / g.mpw;
+  g.tg = g.wpg == 1 ? 8 : g.wpg <= 4 ? 2 : 1;
+  g.warps = g.wpg * g.tg;
+  // at most ~kTargetBlocks blocks, so that the grid's clusters are
+  // resident at once
+  const int want = slots_heads < kTargetBlocks ? kTargetBlocks / slots_heads : 1;
   const int most = want < kMaxSplits ? want : kMaxSplits;
   g.ws = warp_span(T, g.tg, most);
   g.bs = g.tg * g.ws;
@@ -150,10 +172,15 @@ __host__ __device__ inline Geo geometry(int G, int Tq, int T, int D,
   const int db = (D + 15) / 16;
   g.Dp = 16 * (db <= 1 ? 1 : db <= 2 ? 2 : db <= 4 ? 4 : 8);
   g.pitch = g.Dp + 16;
-  g.qpitch = g.Dp + 16;
+  g.qpitch = g.Dp + 8;  // 16-byte rows, the 8 of an ldmatrix on other banks
+  // 64 bytes apart mod 128: the rows g and g + 1 of a quarter warp's
+  // float4 stores of its state on other banks
+  g.apitch = g.Dp + 16 - g.Dp % 32;
   g.sub_bytes = 2 * kSub * g.pitch + 2 * kSub * 4;
-  // two to three steps in flight, within ~64 KB of ring
-  const int fit = (64 << 10) / (g.tg * g.sub_bytes);
+  // two to three steps in flight, within ~64 KB of ring or the space the
+  // states take after it
+  const int states = 4 * g.tg * 16 * g.n_mt * g.apitch;
+  const int fit = (states > (64 << 10) ? states : 64 << 10) / (g.tg * g.sub_bytes);
   g.stages = g.n_steps < 2 || fit < 2 ? 2
              : g.n_steps < kMaxStages && g.n_steps < fit ? g.n_steps
              : fit < kMaxStages ? fit : kMaxStages;
@@ -163,13 +190,16 @@ __host__ __device__ inline Geo geometry(int G, int Tq, int T, int D,
 struct Smem {
   __nv_bfloat16* qs;  // [n_mt * 16][qpitch]
   uint8_t* ring;      // [stages][tg][K rows | V rows | ks | vs]
-  float* st_acc;      // [tg][Rp][Dp] (over the ring once it is drained)
+  float* st_acc;      // [tg][Rp][apitch] (over the ring once it is drained)
   float *st_m, *st_l;  // [tg][Rp]
   float *blk_m, *blk_l;  // [Rp]: the block's merged state
   float* w;           // [tg][Rp]: the token groups' merge weights
-  int *pos, *flags, *list, *misc;  // misc: n_list, per-warp last mask bit
-  int* first;         // [J]: the first key at the same position (tree mode)
+  int* pos;           // [J]: key positions (this cache's)
+  int* misc;          // key end, each, seen (tree mode); a warp's last mask bit
+  int* first;         // [32]: the first key at the same position (tree mode)
   uint32_t *bits, *kbits;  // [Tq]: the keys a row sees, as given and folded
+  int *flags, *list;  // [n_steps]; [warps][n_steps]: the steps some row sees,
+                      // a warp's copy
   int* pages;         // [T / page]: the slot's page table, clipped
   uint8_t* mask;      // [T]: the slot's mask row
   uint8_t* vf;        // [bs]: first row that sees the token
@@ -188,7 +218,7 @@ __host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int J,
   Smem m;
   m.qs = (__nv_bfloat16*)take((size_t)2 * Rp * g.qpitch);
   const size_t ring = (size_t)g.stages * g.tg * g.sub_bytes;
-  const size_t states = (size_t)4 * g.tg * Rp * g.Dp;
+  const size_t states = (size_t)4 * g.tg * Rp * g.apitch;
   m.ring = take(ring > states ? ring : states);
   m.st_acc = (float*)m.ring;
   m.st_m = (float*)take((size_t)4 * g.tg * Rp);
@@ -197,12 +227,12 @@ __host__ __device__ inline size_t smem_layout(const Geo& g, int Tq, int J,
   m.blk_l = (float*)take((size_t)4 * Rp);
   m.w = (float*)take((size_t)4 * g.tg * Rp);
   m.pos = (int*)take((size_t)4 * (J > 0 ? J : 1));
-  m.flags = (int*)take((size_t)4 * g.n_steps);
-  m.list = (int*)take((size_t)4 * g.n_steps);
-  m.misc = (int*)take(4 * (1 + kMaxWarps));
-  m.first = (int*)take((size_t)4 * (J > 0 ? J : 1));
+  m.misc = (int*)take(4 * (3 + kMaxWarps));
+  m.first = (int*)take(4 * kMaxKeys);
   m.bits = (uint32_t*)take((size_t)4 * Tq);
   m.kbits = (uint32_t*)take((size_t)4 * Tq);
+  m.flags = (int*)take((size_t)4 * g.n_steps);
+  m.list = (int*)take((size_t)4 * g.warps * g.n_steps);
   m.pages = (int*)take((size_t)4 * n_pt);
   m.mask = take(T);
   m.vf = take(g.bs);
@@ -239,91 +269,117 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
     cp_async_wait<2>();
 }
 
-// One warp's 16-token step for its 16-row tile: scores, online softmax,
-// P . V into acc. kt: the step's staged K rows, then V rows, then ks, vs.
-// kTree: a token's byte names a key that a row sees when its bit in the
-// row's kb is set (kMask: every row); else the causal rule, the byte the
-// first row that sees it.
-template <int DB, bool kTree>
-__device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
-                                          const Smem& sm, const uint8_t* kt,
-                                          int tl0, const uint32_t (&qa)[DB][4],
-                                          const int (&tq)[2],
-                                          const uint32_t (&kb)[2], int lane,
-                                          float (&m_run)[2], float (&l_run)[2],
-                                          float (&acc)[DB][2][4]) {
+// One warp's 16-token step for its MT 16-row tiles: scores, online
+// softmax, P . V into acc. kt: the step's staged K rows, then V rows, then
+// ks, vs; each K and V word is loaded and widened to bf16 once and feeds
+// every tile's mma. q: one tile's A fragments in registers (MT = 1), or
+// read by ldmatrix from the lane's row of sm.qs each step (qld; MT = 2,
+// whose accumulators take the registers). kTree: a token's byte names a
+// key that a row sees when its bit in the row's kb is set (kMask: every
+// row); else the causal rule, the byte the first row that sees it.
+template <int DB, int MT, bool kTree>
+__device__ __forceinline__ void warp_step(
+    const Args& a, const Geo& geo, const Smem& sm, const uint8_t* kt, int tl0,
+    const uint32_t (&qa)[MT == 1 ? DB : 1][4], const __nv_bfloat16* qld,
+    const int (&tq)[MT][2], const uint32_t (&kb)[MT][2], int lane,
+    float (&m_run)[MT][2], float (&l_run)[MT][2], float (&acc)[MT][DB][2][4]) {
   const int g = lane >> 2, t4 = lane & 3;
   const int pitch = geo.pitch;
   const uint8_t* vt = kt + kSub * pitch;
   const float* kss = reinterpret_cast<const float*>(kt + 2 * kSub * pitch);
   const float* vss = kss + kSub;
 
-  // scores [16 rows][16 tokens] as two n tiles of 8 tokens; head dim d of
-  // k16 step ks at mma k 2 t4 + j (j < 2) is 16 ks + 4 t4 + 2 j, at
+  // scores [16 rows][16 tokens] a tile as two n tiles of 8 tokens; head dim
+  // d of k16 step ks at mma k 2 t4 + j (j < 2) is 16 ks + 4 t4 + 2 j, at
   // 2 t4 + 8 + j it is 16 ks + 4 t4 + 1 + 2 j
-  float sc[2][4];
+  float sc[MT][2][4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[mt][j][c] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < DB; ++ks) {
+    uint32_t bf[2][2];
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const uint32_t w = *reinterpret_cast<const uint32_t*>(
           kt + (8 * j + g) * pitch + 16 * ks + 4 * t4);
-      const uint32_t bf[2] = {i8_even_bf16x2(w), i8_even_bf16x2(w >> 8)};
-      mma_16816(sc[j], qa[ks], bf);
+      bf[j][0] = i8_even_bf16x2(w);
+      bf[j][1] = i8_even_bf16x2(w >> 8);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (MT == 1) {
+        mma_16816(sc[0][0], qa[ks], bf[0]);
+        mma_16816(sc[0][1], qa[ks], bf[1]);
+      } else {
+        uint32_t af[4];
+        ldsm_x4(af, qld + mt * 16 * geo.qpitch + 16 * ks);
+        mma_16816(sc[mt][0], af, bf[0]);
+        mma_16816(sc[mt][1], af, bf[1]);
+      }
     }
   }
 
-  // mask, scale and the running max of rows g (h = 0) and g + 8 (h = 1)
-  float mx[2] = {-INFINITY, -INFINITY};
+  // mask, scale and the running max of each tile's rows g (h = 0) and
+  // g + 8 (h = 1)
+  float alpha[MT][2];
+  bool moved = false;
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int mt = 0; mt < MT; ++mt) {
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
-      const uint8_t v = sm.vf[tl0 + t];
-      float x;
-      if (v == kPast)
-        x = -INFINITY;
-      else if (kTree ? v == kMask || (v < kMaxKeys && (kb[h] >> v) & 1u)
-                     : tq[h] >= v)
-        x = sc[j][c] * (kss[t] * a.scale);
-      else
-        x = PS_NEG_INF;
-      sc[j][c] = x;
-      mx[h] = fmaxf(mx[h], x);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
+        const uint8_t v = sm.vf[tl0 + t];
+        float x;
+        if (v == kPast)
+          x = -INFINITY;
+        else if (kTree ? v == kMask || (v < kMaxKeys && (kb[mt][h] >> v) & 1u)
+                       : tq[mt][h] >= v)
+          x = sc[mt][j][c] * (kss[t] * a.scale);
+        else
+          x = PS_NEG_INF;
+        sc[mt][j][c] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_run[mt][h], mx[h]);
+      alpha[mt][h] = expf(m_run[mt][h] - m_new);
+      m_run[mt][h] = m_new;
+      l_run[mt][h] *= alpha[mt][h];
+      moved = moved || alpha[mt][h] != 1.f;
     }
-  float alpha[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m_run[h], mx[h]);
-    alpha[h] = expf(m_run[h] - m_new);
-    m_run[h] = m_new;
-    l_run[h] *= alpha[h];
   }
   // a rescale by 1 changes nothing: skipped when no row's max moved
-  const bool rescale = __any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f);
-  float pf[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
-      const float p = expf(sc[j][c] - m_run[h]);
-      l_run[h] += p;
-      pf[j][c] = p * vss[t];
-    }
+  const bool rescale = __any_sync(0xffffffffu, moved);
   // the score fragments as the A operand: rows g, g + 8; tokens 2 t4 (+1),
   // 8 + 2 t4 (+1)
-  const uint32_t pa[4] = {pack_bf16(pf[0][0], pf[0][1]),
-                          pack_bf16(pf[0][2], pf[0][3]),
-                          pack_bf16(pf[1][0], pf[1][1]),
-                          pack_bf16(pf[1][2], pf[1][3])};
+  uint32_t pa[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float pf[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int t = 8 * j + 2 * t4 + (c & 1), h = c >> 1;
+        const float p = expf(sc[mt][j][c] - m_run[mt][h]);
+        l_run[mt][h] += p;
+        pf[j][c] = p * vss[t];
+      }
+    pa[mt][0] = pack_bf16(pf[0][0], pf[0][1]);
+    pa[mt][1] = pack_bf16(pf[0][2], pf[0][3]);
+    pa[mt][2] = pack_bf16(pf[1][0], pf[1][1]);
+    pa[mt][3] = pack_bf16(pf[1][2], pf[1][3]);
+  }
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
     uint32_t r[2];  // tokens 0-7, 8-15 of columns 16 db .. 16 db + 15
@@ -331,30 +387,33 @@ __device__ __forceinline__ void warp_step(const Args& a, const Geo& geo,
     const uint32_t be[2] = {i8_even_bf16x2(r[0]), i8_even_bf16x2(r[1])};
     const uint32_t bo[2] = {i8_even_bf16x2(r[0] >> 8),
                             i8_even_bf16x2(r[1] >> 8)};
-    if (rescale)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float* c = acc[db][e];
-        c[0] *= alpha[0];
-        c[1] *= alpha[0];
-        c[2] *= alpha[1];
-        c[3] *= alpha[1];
-      }
-    mma_16816(acc[db][0], pa, be);
-    mma_16816(acc[db][1], pa, bo);
+    for (int mt = 0; mt < MT; ++mt) {
+      if (rescale)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* c = acc[mt][db][e];
+          c[0] *= alpha[mt][0];
+          c[1] *= alpha[mt][0];
+          c[2] *= alpha[mt][1];
+          c[3] *= alpha[mt][1];
+        }
+      mma_16816(acc[mt][db][0], pa[mt], be);
+      mma_16816(acc[mt][db][1], pa[mt], bo);
+    }
   }
 }
 
-// kTree: the tree mode (bit rows given); else the causal rule, or the
-// mask alone without positions
-template <int DB, bool kTree>
+// MT: 16-row tiles a warp (geo.mpw). kTree: the tree mode (bit rows
+// given); else the causal rule, or the mask alone without positions
+template <int DB, int MT, bool kTree>
 __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     Args a) {
   namespace cg = cooperative_groups;
   const int split = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
   const int G = a.H / a.Hkv;
   const Geo geo = geometry(G, a.Tq, a.T, a.D, a.S * a.Hkv);
-  const int Rp = 16 * geo.n_mt, Dp = geo.Dp;
+  const int Rp = 16 * geo.n_mt, Dp = geo.Dp, AP = geo.apitch;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthr = blockDim.x;
   const bool state = a.m_out != nullptr;
@@ -396,20 +455,23 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (a.t0 && a.pos) {  // global key positions -> this cache's
-    for (int j = tid; j < a.J; j += nthr) sm.pos[j] -= a.t0;
-    __syncthreads();
-  }
-  // q rows as bf16, zeros past R and D; 1 + the last committed position
+  // q rows as bf16, zeros past R and D, each 16 columns in the order of
+  // the mma's k (ldmatrix then gives the A fragments whose k 2 t4 (+1)
+  // hold head dims 4 t4 (+2) and k 2 t4 + 8 (+1) dims 4 t4 + 1 (+2): the
+  // order of a K word's bytes (0, 2) and (1, 3) in the B fragments)
   for (int e = tid; e < Rp * (Dp / 4); e += nthr) {
     const int r = e / (Dp / 4), d = 4 * (e - r * (Dp / 4));
-    uint2 v = make_uint2(0u, 0u);
+    uint32_t lo = 0u, hi = 0u;
     if (r < geo.R && d < a.D) {
       const float4 f = *reinterpret_cast<const float4*>(qf + r * a.D + d);
-      v = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+      lo = pack_bf16(f.x, f.z);
+      hi = pack_bf16(f.y, f.w);
     }
-    *reinterpret_cast<uint2*>(sm.qs + r * geo.qpitch + d) = v;
+    uint32_t* q16 = reinterpret_cast<uint32_t*>(sm.qs + r * geo.qpitch + (d & ~15));
+    q16[(d & 15) / 4] = lo;
+    q16[4 + (d & 15) / 4] = hi;
   }
+  // 1 + the last committed position, a warp's share each
   int last = 0;
   for (int i = 4 * tid; i < a.T; i += 4 * nthr) {
     uint32_t w = 0;
@@ -419,49 +481,64 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     if (w) last = i + (31 - __clz(w)) / 8 + 1;
   }
   last = __reduce_max_sync(0xffffffffu, last);
-  if (lane == 0) sm.misc[1 + warp] = last;
-  const auto valid = [&](int j) { return sm.pos[j] >= 0 && sm.pos[j] < a.T; };
-  if (kTree) {
-    // each key folded onto the first key at its position
-    for (int j = tid; j < a.J; j += nthr) {
-      int f = j;
-      for (int i = 0; i < j; ++i)
-        if (sm.pos[i] == sm.pos[j]) {
-          f = i;
-          break;
-        }
-      sm.first[j] = f;
+  if (lane == 0) sm.misc[3 + warp] = last;
+  // the keys, by warp 0 beside the others' share of the above: positions
+  // moved to this cache's, 1 + the last one a row sees, whether every row
+  // sees one; in the tree mode (a lane a key, J <= 32) each key folded
+  // onto the first key at its position, the keys each row sees (kbits)
+  // and those some row sees
+  if (warp == 0) {
+    int key_end = 0;
+    for (int j = lane; j < a.J; j += 32) {
+      const int p = sm.pos[j] - (a.pos ? a.t0 : 0);
+      sm.pos[j] = p;
+      if (p >= 0 && p < a.T) key_end = max(key_end, p + 1);
     }
-    __syncthreads();
-    for (int r = tid; r < a.Tq; r += nthr) {
-      const uint32_t b = sm.bits[r];
-      uint32_t k = 0;
-      for (int j = 0; j < a.J; ++j)
-        if ((b >> j) & 1u && valid(j)) k |= 1u << sm.first[j];
-      sm.kbits[r] = k;
+    __syncwarp();
+    const auto valid = [&](int j) { return sm.pos[j] >= 0 && sm.pos[j] < a.T; };
+    bool each;  // every row sees some key
+    uint32_t seen = 0;
+    if (kTree) {
+      const bool ok = lane < a.J && valid(lane);
+      const unsigned vmask = __ballot_sync(0xffffffffu, ok);
+      // lanes past J match nothing: a value that no position takes
+      const unsigned same = __match_any_sync(
+          0xffffffffu, lane < a.J ? sm.pos[lane] : (int)(0x80000000u + lane));
+      const int first = __ffs(same) - 1;
+      sm.first[lane] = first;
+      __syncwarp();
+      bool mine = true;
+      for (int r = lane; r < a.Tq; r += 32) {
+        uint32_t b = sm.bits[r] & vmask, k = 0;
+        while (b) {
+          k |= 1u << sm.first[__ffs(b) - 1];
+          b &= b - 1;
+        }
+        sm.kbits[r] = k;
+        seen |= k;
+        mine = mine && k != 0u;
+      }
+      seen = __reduce_or_sync(0xffffffffu, seen);
+      each = __all_sync(0xffffffffu, mine);
+      key_end = ok && (seen >> first) & 1u ? sm.pos[lane] + 1 : 0;
+    } else {
+      // causal: rows see more as tq grows, and the last row every key
+      each = valid(0);
+    }
+    key_end = __reduce_max_sync(0xffffffffu, key_end);
+    if (lane == 0) {
+      sm.misc[0] = key_end;
+      sm.misc[1] = each;
+      sm.misc[2] = (int)seen;
     }
   }
   __syncthreads();
   // the span this slot walks, the same in every block of the cluster
   int end = 0;
-  for (int w = 0; w < geo.warps; ++w) end = max(end, sm.misc[1 + w]);
-  bool all_rows = end > 0;  // every row sees something
-  uint32_t seen = 0;        // tree mode: the keys some row sees
-  if (kTree) {
-    bool each = true;
-    for (int r = 0; r < a.Tq; ++r) {
-      seen |= sm.kbits[r];
-      each = each && sm.kbits[r] != 0u;
-    }
-    all_rows = all_rows || each;
-    for (int j = 0; j < a.J; ++j)
-      if (valid(j) && (seen >> sm.first[j]) & 1u) end = max(end, sm.pos[j] + 1);
-  } else {
-    // causal: rows see more as tq grows, and the last row every key
-    all_rows = all_rows || valid(0);
-    for (int j = 0; j < a.J; ++j)
-      if (valid(j)) end = max(end, sm.pos[j] + 1);
-  }
+  for (int w = 0; w < geo.warps; ++w) end = max(end, sm.misc[3 + w]);
+  const bool all_rows = end > 0 || sm.misc[1];  // every row sees something
+  const uint32_t seen = (uint32_t)sm.misc[2];   // tree mode: keys some row sees
+  end = max(end, sm.misc[0]);
   const bool walk_all = !state && !all_rows;
   if (walk_all) end = a.T;
   const int ws = warp_span(end, geo.tg, geo.n_split);
@@ -481,19 +558,17 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     if (walk_all ? v != kPast : seen_v) sm.flags[(t % ws) / kSub] = 1;
   }
   __syncthreads();
-  if (warp == 0) {
-    int n = 0;
-    for (int i0 = 0; i0 < n_steps; i0 += 32) {
-      const int i = i0 + lane;
-      const bool need = i < n_steps && sm.flags[i];
-      const unsigned bal = __ballot_sync(0xffffffffu, need);
-      if (need) sm.list[n + __popc(bal & ((1u << lane) - 1u))] = i;
-      n += __popc(bal);
-    }
-    if (lane == 0) sm.misc[0] = n;
+  // the steps some row sees, in order: each warp its own copy of the list
+  int* list = sm.list + warp * geo.n_steps;
+  int n_list = 0;
+  for (int i0 = 0; i0 < n_steps; i0 += 32) {
+    const int i = i0 + lane;
+    const bool need = i < n_steps && sm.flags[i];
+    const unsigned bal = __ballot_sync(0xffffffffu, need);
+    if (need) list[n_list + __popc(bal & ((1u << lane) - 1u))] = i;
+    n_list += __popc(bal);
   }
-  __syncthreads();
-  const int n_list = sm.misc[0];
+  __syncwarp();
 
   // cache row (token row of kv head h) of logical position t < T: the
   // slot's contiguous slab, or through the page table
@@ -545,108 +620,130 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
     }
   };
 
-  const int mt = warp % geo.n_mt, grp = warp / geo.n_mt;
-  const int tq[2] = {(mt * 16 + (lane >> 2)) % a.Tq,
-                     (mt * 16 + (lane >> 2) + 8) % a.Tq};
-  const uint32_t kb[2] = {kTree ? sm.kbits[tq[0]] : 0u,
-                          kTree ? sm.kbits[tq[1]] : 0u};
-  // this warp's q rows as mma A fragments: head dim 16 ks + 4 t4 + (0, 2)
-  // at k 2 t4 (+1) and + (1, 3) at k 2 t4 + 8 (+1), rows g and g + 8 (the
-  // order of a K word's bytes (0, 2) and (1, 3) in the B fragments)
-  uint32_t qa[DB][4];
-  {
-    const __nv_bfloat16* q0 =
-        sm.qs + (mt * 16 + (lane >> 2)) * geo.qpitch + 4 * (lane & 3);
+  // this warp's tiles mt0 .. mt0 + MT - 1 and its token group
+  const int mt0 = (warp % geo.wpg) * MT, grp = warp / geo.wpg;
+  int tq[MT][2];
+  uint32_t kb[MT][2];
 #pragma unroll
-    for (int ks = 0; ks < DB; ++ks) {
-      const uint2 lo = *reinterpret_cast<const uint2*>(q0 + 16 * ks);
-      const uint2 hi =
-          *reinterpret_cast<const uint2*>(q0 + 8 * geo.qpitch + 16 * ks);
-      qa[ks][0] = __byte_perm(lo.x, lo.y, 0x5410);  // d, d + 2
-      qa[ks][1] = __byte_perm(hi.x, hi.y, 0x5410);
-      qa[ks][2] = __byte_perm(lo.x, lo.y, 0x7632);  // d + 1, d + 3
-      qa[ks][3] = __byte_perm(hi.x, hi.y, 0x7632);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      tq[mt][hh] = ((mt0 + mt) * 16 + (lane >> 2) + 8 * hh) % a.Tq;
+      kb[mt][hh] = kTree ? sm.kbits[tq[mt][hh]] : 0u;
     }
+  // the lane's ldmatrix row of the first tile: rows 0-15 at k 0-7, then
+  // at k 8-15
+  const __nv_bfloat16* qld =
+      sm.qs + (mt0 * 16 + (lane & 15)) * geo.qpitch + (lane >> 4) * 8;
+  uint32_t qa[MT == 1 ? DB : 1][4];
+  if constexpr (MT == 1) {
+#pragma unroll
+    for (int ks = 0; ks < DB; ++ks) ldsm_x4(qa[ks], qld + 16 * ks);
   }
-  float m_run[2] = {PS_NEG_INF, PS_NEG_INF}, l_run[2] = {0.f, 0.f};
-  float acc[DB][2][4];
+  float m_run[MT][2], l_run[MT][2];
+  float acc[MT][DB][2][4];
 #pragma unroll
-  for (int db = 0; db < DB; ++db)
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
+    for (int hh = 0; hh < 2; ++hh) {
+      m_run[mt][hh] = PS_NEG_INF;
+      l_run[mt][hh] = 0.f;
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[db][e][c] = 0.f;
+    for (int db = 0; db < DB; ++db)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][db][e][c] = 0.f;
+  }
 
   // the ring: the steps ahead are issued once every warp is past the
   // step whose slot they take
   for (int p = 0; p < geo.stages - 1; ++p) {
-    if (p < n_list) issue(sm.list[p], p);
+    if (p < n_list) issue(list[p], p);
     cp_async_commit();
   }
   for (int i = 0; i < n_list; ++i) {
     cp_async_wait_n(geo.stages - 2);  // step i's copies have landed
     __syncthreads();
     const int ahead = i + geo.stages - 1;
-    if (ahead < n_list) issue(sm.list[ahead], ahead % geo.stages);
+    if (ahead < n_list) issue(list[ahead], ahead % geo.stages);
     cp_async_commit();
-    const int tl0 = grp * ws + sm.list[i] * kSub;  // block-relative
+    const int tl0 = grp * ws + list[i] * kSub;  // block-relative
     const uint8_t* kt =
         sm.ring + ((size_t)(i % geo.stages) * geo.tg + grp) * geo.sub_bytes;
     if (b0 + tl0 < end)
-      warp_step<DB, kTree>(a, geo, sm, kt, tl0, qa, tq, kb, lane, m_run, l_run,
-                           acc);
+      warp_step<DB, MT, kTree>(a, geo, sm, kt, tl0, qa, qld, tq, kb, lane,
+                               m_run, l_run, acc);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is drained: its space holds the states now
 
-  // this warp's state: rows mt * 16 + g (+ 8); acc[db][e][c] is column
-  // 16 db + 4 t4 + 2 (c & 1) + e
+  // this warp's state: rows (mt0 + mt) * 16 + g (+ 8); acc[mt][db][e][c]
+  // is column 16 db + 4 t4 + 2 (c & 1) + e
   {
     const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float l = l_run[hh];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int r = mt * 16 + g + 8 * hh;
-      if (t4 == 0) {
-        sm.st_m[grp * Rp + r] = m_run[hh];
-        sm.st_l[grp * Rp + r] = l;
-      }
-      float* dst = sm.st_acc + ((size_t)grp * Rp + r) * Dp + 4 * t4;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int db = 0; db < DB; ++db)
-        *reinterpret_cast<float4*>(dst + 16 * db) =
-            make_float4(acc[db][0][2 * hh], acc[db][1][2 * hh],
-                        acc[db][0][2 * hh + 1], acc[db][1][2 * hh + 1]);
-    }
+      for (int hh = 0; hh < 2; ++hh) {
+        float l = l_run[mt][hh];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = (mt0 + mt) * 16 + g + 8 * hh;
+        if (t4 == 0) {
+          sm.st_m[grp * Rp + r] = m_run[mt][hh];
+          sm.st_l[grp * Rp + r] = l;
+        }
+        float* dst = sm.st_acc + ((size_t)grp * Rp + r) * AP + 4 * t4;
+#pragma unroll
+        for (int db = 0; db < DB; ++db)
+          *reinterpret_cast<float4*>(dst + 16 * db) = make_float4(
+              acc[mt][db][0][2 * hh], acc[mt][db][1][2 * hh],
+              acc[mt][db][0][2 * hh + 1], acc[mt][db][1][2 * hh + 1]);
+      }
   }
   __syncthreads();
-  // merge the token groups in order into group 0's slots: the weights
-  // per row, then the rows' columns
-  for (int r = tid; r < geo.R; r += nthr) {
-    float m = sm.st_m[r];
-    for (int q = 1; q < geo.tg; ++q) m = fmaxf(m, sm.st_m[q * Rp + r]);
-    float l = 0.f;
-    for (int q = 0; q < geo.tg; ++q) {
-      const float wgt = expf(sm.st_m[q * Rp + r] - m);
+  // merge the token groups into group 0's slots: the weights, a lane a
+  // (row, group) with the row's groups in neighbouring lanes (tg divides
+  // 32; whole warps, past R idle), then the rows' columns
+  for (int e = tid; e < (geo.R * geo.tg + 31) / 32 * 32; e += nthr) {
+    const int r = e >> tg_shift, q = e & (geo.tg - 1);
+    const bool ok = r < geo.R;
+    const float mq = ok ? sm.st_m[q * Rp + r] : PS_NEG_INF;
+    float m = mq;
+    for (int o = 1; o < geo.tg; o <<= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float wgt = expf(mq - m);
+    float l = ok ? sm.st_l[q * Rp + r] * wgt : 0.f;
+    for (int o = 1; o < geo.tg; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (ok) {
       sm.w[q * Rp + r] = wgt;
-      l += sm.st_l[q * Rp + r] * wgt;
+      if (q == 0) {
+        sm.blk_m[r] = m;
+        sm.blk_l[r] = l;
+      }
     }
-    sm.blk_m[r] = m;
-    sm.blk_l[r] = l;
   }
   if (geo.tg > 1) {
     __syncthreads();
     for (int e = tid; e < geo.R * d4; e += nthr) {
-      const int r = e / d4, i = r * Dp + 4 * (e - r * d4);
+      const int r = e / d4, i = r * AP + 4 * (e - r * d4);
+      float4 x[kMaxWarps];  // every group's loads at once, then summed in order
+      float wgt[kMaxWarps];
+#pragma unroll
+      for (int q = 0; q < kMaxWarps; ++q)
+        if (q < geo.tg) {
+          x[q] = *reinterpret_cast<const float4*>(sm.st_acc + (size_t)q * Rp * AP + i);
+          wgt[q] = sm.w[q * Rp + r];
+        }
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int q = 0; q < geo.tg; ++q) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(sm.st_acc + (size_t)q * Rp * Dp + i);
-        const float wgt = sm.w[q * Rp + r];
-        v.x += x.x * wgt, v.y += x.y * wgt, v.z += x.z * wgt, v.w += x.w * wgt;
-      }
+#pragma unroll
+      for (int q = 0; q < kMaxWarps; ++q)
+        if (q < geo.tg) {
+          v.x += x[q].x * wgt[q], v.y += x[q].y * wgt[q];
+          v.z += x[q].z * wgt[q], v.w += x[q].w * wgt[q];
+        }
       *reinterpret_cast<float4*>(sm.st_acc + i) = v;
     }
   }
@@ -672,7 +769,7 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
       if (q < n) {
         mv[q] = peer(sm.blk_m, q)[r];
         lv[q] = peer(sm.blk_l, q)[r];
-        av[q] = *reinterpret_cast<const float4*>(peer(sm.st_acc, q) + r * Dp + d);
+        av[q] = *reinterpret_cast<const float4*>(peer(sm.st_acc, q) + r * AP + d);
       }
     float M = mv[0];
 #pragma unroll
@@ -712,19 +809,15 @@ __global__ __launch_bounds__(32 * kMaxWarps, 1) void flash_decode_kernel(
   if (n > 1) cg::this_cluster().sync();
 }
 
-template <int DB, bool kTree>
-cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
-                     cudaStream_t stream) {
-  const auto kernel = flash_decode_kernel<DB, kTree>;
+// the kernel's attributes, set once: all of the SM's shared memory, so
+// that a whole grid of clusters is resident at once
+template <int DB, int MT, bool kTree>
+cudaError_t prepare() {
+  const auto kernel = flash_decode_kernel<DB, MT, kTree>;
   static const cudaError_t attr_rc = [&] {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-    // all of the SM's shared memory, so that a whole grid of clusters is
-    // resident at once
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return e;
     int dev = 0, optin = 0;
     cudaGetDevice(&dev);
@@ -733,20 +826,77 @@ cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   }();
-  if (attr_rc != cudaSuccess) return attr_rc;
+  return attr_rc;
+}
+
+// grid (splits, Hkv, S), the splits of a (slot, kv head) one cluster
+cudaLaunchConfig_t launch_config(const Geo& geo, int S, int Hkv, size_t smem,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(geo.n_split, a.Hkv, S);
+  cfg.gridDim = dim3(geo.n_split, Hkv, S);
   cfg.blockDim = dim3(32 * geo.warps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = geo.n_split;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = geo.n_split > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, a);
+  return cfg;
+}
+
+template <int DB, int MT, bool kTree>
+cudaError_t launch_t(const Args& a, const Geo& geo, int S, size_t smem,
+                     cudaStream_t stream) {
+  const cudaError_t e = prepare<DB, MT, kTree>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(geo, S, a.Hkv, smem, stream, attr);
+  return cudaLaunchKernelEx(&cfg, flash_decode_kernel<DB, MT, kTree>, a);
+}
+
+// clusters of this launch's size and shared memory that the card holds
+// at once
+template <int DB, int MT, bool kTree>
+cudaError_t max_clusters(const Geo& geo, int S, int Hkv, size_t smem,
+                         int* n) {
+  const cudaError_t e = prepare<DB, MT, kTree>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(geo, S, Hkv, smem, nullptr, attr);
+  cfg.numAttrs = 1;  // a cluster of one where there is one split
+  return cudaOccupancyMaxActiveClusters(
+      n, (const void*)flash_decode_kernel<DB, MT, kTree>, &cfg);
+}
+
+// f(DB, MT, kTree) as integral constants, for the geometry's head size
+// and tiles a warp
+template <int DB, typename F>
+cudaError_t dispatch_t(int mpw, bool tree, F&& f) {
+  using std::integral_constant;
+  using D = integral_constant<int, DB>;
+  if (mpw == 2)
+    return tree ? f(D{}, integral_constant<int, 2>{}, std::true_type{})
+                : f(D{}, integral_constant<int, 2>{}, std::false_type{});
+  return tree ? f(D{}, integral_constant<int, 1>{}, std::true_type{})
+              : f(D{}, integral_constant<int, 1>{}, std::false_type{});
+}
+
+template <typename F>
+cudaError_t dispatch(const Geo& geo, bool tree, F&& f) {
+  switch (geo.Dp / 16) {
+    case 1:
+      return dispatch_t<1>(geo.mpw, tree, f);
+    case 2:
+      return dispatch_t<2>(geo.mpw, tree, f);
+    case 4:
+      return dispatch_t<4>(geo.mpw, tree, f);
+    default:
+      return dispatch_t<8>(geo.mpw, tree, f);
+  }
 }
 
 int launch(Args a, int S, void* stream_ptr) {
@@ -755,7 +905,7 @@ int launch(Args a, int S, void* stream_ptr) {
   if (!a.pos) a.bits = nullptr;  // the mask alone: J = Tq keys at -1
   if (!a.bits) a.J = a.Tq;
   if (S <= 0 || a.Tq <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.D % 4 ||
-      a.D > 128 || G * a.Tq > 16 * kMaxWarps ||
+      a.D > 128 || G * a.Tq > kMaxRows ||
       (a.bits && (a.J <= 0 || a.J > kMaxKeys)))
     return (int)cudaErrorInvalidValue;
   a.S = S;
@@ -767,26 +917,11 @@ int launch(Args a, int S, void* stream_ptr) {
   a.s_vec = rows4 && al16(a.ks) && al16(a.vs);
   a.mask_vec = a.T % 16 == 0 && al16(a.mask);
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  cudaError_t e;
-  const bool tree = a.bits != nullptr;
-  switch (geo.Dp / 16) {
-    case 1:
-      e = tree ? launch_t<1, true>(a, geo, S, smem, stream)
-               : launch_t<1, false>(a, geo, S, smem, stream);
-      break;
-    case 2:
-      e = tree ? launch_t<2, true>(a, geo, S, smem, stream)
-               : launch_t<2, false>(a, geo, S, smem, stream);
-      break;
-    case 4:
-      e = tree ? launch_t<4, true>(a, geo, S, smem, stream)
-               : launch_t<4, false>(a, geo, S, smem, stream);
-      break;
-    default:
-      e = tree ? launch_t<8, true>(a, geo, S, smem, stream)
-               : launch_t<8, false>(a, geo, S, smem, stream);
-      break;
-  }
+  const cudaError_t e =
+      dispatch(geo, a.bits != nullptr, [&](auto db, auto mt, auto tree) {
+        return launch_t<decltype(db)::value, decltype(mt)::value,
+                        decltype(tree)::value>(a, geo, S, smem, stream);
+      });
   const cudaError_t last = cudaGetLastError();
   return (int)(e != cudaSuccess ? e : last);
 }
@@ -798,6 +933,31 @@ PS_EXPORT size_t ps_flash_decode_smem(int S, int Hkv, int G, int Tq, int J,
                                       int T, int D, int page) {
   return smem_layout(geometry(G, Tq, T, D, S * Hkv), Tq, J, T,
                      page ? T / page : 0, nullptr, nullptr);
+}
+
+// The launch geometry at these shapes, for a measurement's record: out[0]
+// splits (the cluster's size), [1] token groups a block, [2] warps a
+// block, [3] 16-row tiles a warp, [4] shared memory bytes, [5] the clusters
+// of this size and shared memory the card holds at once
+// (cudaOccupancyMaxActiveClusters; of `splits` blocks where splits > 0),
+// [6] the grid's clusters (S * Hkv). Returns a CUDA error code.
+PS_EXPORT int ps_flash_decode_geometry(int S, int Hkv, int G, int Tq, int J,
+                                       int T, int D, int page, int tree,
+                                       int splits, int* out) {
+  Geo geo = geometry(G, Tq, T, D, S * Hkv);
+  const size_t smem = smem_layout(geo, Tq, tree ? J : Tq, T,
+                                  page ? T / page : 0, nullptr, nullptr);
+  out[0] = geo.n_split;
+  out[1] = geo.tg;
+  out[2] = geo.warps;
+  out[3] = geo.mpw;
+  out[4] = (int)smem;
+  out[6] = S * Hkv;
+  if (splits > 0) geo.n_split = splits;
+  return (int)dispatch(geo, tree != 0, [&](auto db, auto mt, auto t) {
+    return max_clusters<decltype(db)::value, decltype(mt)::value,
+                        decltype(t)::value>(geo, S, Hkv, smem, out + 5);
+  });
 }
 
 // positions int32 [S, J] or null; bits uint32 [Tq] or null (causal:

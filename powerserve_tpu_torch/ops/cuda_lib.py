@@ -143,6 +143,8 @@ def lib() -> ctypes.CDLL:
         L.ps_flash_decode.restype = I
         L.ps_flash_decode_smem.argtypes = [I] * 8
         L.ps_flash_decode_smem.restype = ctypes.c_size_t
+        L.ps_flash_decode_geometry.argtypes = [I] * 10 + [P]
+        L.ps_flash_decode_geometry.restype = I
         L.ps_flash_decode_paged.argtypes = [P] * 12 + [I] * 9 + [F, P]
         L.ps_flash_decode_paged.restype = I
         L.ps_flash_prefill.argtypes = [P] * 10 + [I] * 7 + [F, I, P]

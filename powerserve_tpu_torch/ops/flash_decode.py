@@ -66,6 +66,8 @@ computes it in XLA outside its kernel).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import cuda_lib
@@ -73,7 +75,7 @@ from .attention import NEG_INF, build_visibility
 
 # the kernel's step (tokens) and bounds (csrc/flash_decode.cu)
 KERNEL_CHUNK = 16
-_MAX_SPLITS = 16
+_MAX_SPLITS = 8
 _TARGET_BLOCKS = 128
 MAX_ROWS = 128  # G * Tq query rows per kv head
 MAX_HEAD = 128
@@ -89,7 +91,10 @@ def kernel_walk(visibility: torch.Tensor, Hkv: int, G: int,
     """How csrc/flash_decode.cu walks each slot, int64 [S] each: (end,
     split). It walks positions [0, end), 1 + the last one any row sees
     (all of T in the normalized output where a row sees nothing), in
-    online-softmax states of `split` tokens, each a warp's."""
+    online-softmax states of `split` tokens, each a warp's: a block holds
+    eight token groups up to 32 rows (G * Tq; a warp takes both 16-row
+    tiles of 17 to 32), two up to 64, else one; a (slot, kv head) takes
+    128 // (S * Hkv) blocks, 1 to 8."""
     S, Tq, T = visibility.shape
     dev = visibility.device
     end = torch.where(visibility.any(dim=1),
@@ -97,8 +102,8 @@ def kernel_walk(visibility: torch.Tensor, Hkv: int, G: int,
     if not state:
         end = torch.where(visibility.any(dim=-1).all(dim=-1), end, T)
     n_mt = _ceil(G * Tq, 16)
-    groups = 8 if n_mt == 1 else 4 if n_mt == 2 else 2 if n_mt <= 4 else 1
-    most = min(_MAX_SPLITS, _ceil(_TARGET_BLOCKS, S * Hkv))
+    groups = 8 if n_mt <= 2 else 2 if n_mt <= 4 else 1
+    most = min(_MAX_SPLITS, max(1, _TARGET_BLOCKS // (S * Hkv)))
     widest = KERNEL_CHUNK * _ceil(_ceil(T, KERNEL_CHUNK), most * groups)
     per = _ceil(T, groups * widest) * groups  # splits x token groups
     steps = (end + KERNEL_CHUNK - 1) // KERNEL_CHUNK
@@ -338,6 +343,25 @@ def _mask_positions(mask: torch.Tensor, positions: torch.Tensor | None,
         bits = bits.to(torch.int32).contiguous()
         cuda_lib.require(bits, "bits", dev, (torch.int32,), (Tq,))
     return mask, positions, bits, J
+
+
+def launch_geometry(S: int, Hkv: int, G: int, Tq: int, T: int, D: int,
+                    J: int | None = None, page: int = 0,
+                    tree: bool = False, splits: int = 0) -> dict:
+    """The kernel's launch at these shapes, for a measurement's record:
+    splits (the cluster's size), token groups and warps a block, 16-row
+    tiles a warp, shared memory bytes, the clusters of that size and
+    shared memory the card holds at once (cudaOccupancyMaxActiveClusters;
+    of `splits` blocks each where splits > 0) and the grid's clusters
+    (S * Hkv). Needs the card."""
+    out = (ctypes.c_int * 7)()
+    rc = cuda_lib.lib().ps_flash_decode_geometry(
+        S, Hkv, G, Tq, Tq if J is None else J, T, D, page, int(tree),
+        splits, ctypes.addressof(out))
+    cuda_lib.check(rc, "flash_decode geometry")
+    keys = ("splits", "token_groups", "warps", "tiles_per_warp",
+            "smem_bytes", "max_active_clusters", "clusters")
+    return dict(zip(keys, out))
 
 
 def flash_decode_cuda(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,

@@ -1578,23 +1578,27 @@ def _tree_rows(widths, level=None):
 @pytest.mark.parametrize("S,H,Hkv,D,T", [(1, 32, 8, 128, 2048),
                                          (3, 8, 2, 64, 300),
                                          (8, 32, 8, 128, 1024)])
-@pytest.mark.parametrize("rows", ["verify", "level1", "level2", "random"])
+@pytest.mark.parametrize("rows", ["verify", "level1", "level2", "random",
+                                  "rows20", "rows28", "rows32", "rows36",
+                                  "rows64"])
 @pytest.mark.parametrize("widths", [[2, 1, 1], [2, 2, 1]])
 def test_flash_decode_tree_kernel(dev, S, H, Hkv, D, T, rows, widths):
     """The tree mode against its twin (the paged mode's tolerance: a
     p * vs next to a bf16 midpoint may round the other way): a verify's
     ancestor rows, a draft level's rows over all nodes, and random bit
-    rows over 32 keys with repeated, -1 and past-T positions; an
-    inactive slot; one launch of the tree counter; the same bits
-    twice."""
+    rows over 32 keys with repeated, -1 and past-T positions (16 rows a
+    kv head's 4 heads, or "rowsR": G * Tq = R rows, on both sides of 32,
+    the most one warp holds); an inactive slot; one launch of the tree
+    counter; the same bits twice."""
     from powerserve_tpu_torch.ops.flash_decode import pack_intra
 
     g = torch.Generator(device=dev)
     g.manual_seed(S * T + len(rows))
     N = _tree_rows(widths).shape[0]
     starts = [min(T - 40, 500 + 61 * s) for s in range(S)]
-    if rows == "random":
-        J, Tq = 32, 16
+    if rows.startswith("r"):
+        J = 32
+        Tq = 16 if rows == "random" else int(rows[4:]) // (H // Hkv)
         intra = torch.rand(Tq, J, generator=g, device=dev) < 0.3
         mask, keys = _tree_case(g, dev, S, J, starts, T)
         keys[:, 5] = keys[:, 3]
@@ -1620,10 +1624,16 @@ def test_flash_decode_tree_kernel(dev, S, H, Hkv, D, T, rows, widths):
 
 
 @pytest.mark.parametrize("Tq,H,Hkv,D", [(1, 32, 8, 128), (5, 32, 8, 128),
-                                        (16, 8, 2, 64), (7, 4, 1, 40)])
+                                        (16, 8, 2, 64), (7, 4, 1, 40),
+                                        (7, 32, 8, 128), (8, 32, 8, 128),
+                                        (9, 32, 8, 128), (16, 32, 8, 128),
+                                        (5, 8, 2, 64), (8, 8, 2, 64),
+                                        (9, 8, 2, 64)])
 def test_flash_decode_causal_rows_keep_their_bits(dev, Tq, H, Hkv, D):
     """The causal rule is the tree mode with lower-triangular rows: both
-    give the bits of today's call, dense and paged."""
+    give the bits of today's call, dense and paged, twice, within the
+    flips rule of the twin; G * Tq from 4 to 64 rows, on both sides of
+    32, the most one warp holds."""
     from powerserve_tpu_torch.ops.flash_decode import pack_intra
 
     g = torch.Generator(device=dev)
@@ -1635,8 +1645,10 @@ def test_flash_decode_causal_rows_keep_their_bits(dev, Tq, H, Hkv, D):
     causal = pack_intra(torch.ones(Tq, Tq, dtype=torch.bool,
                                    device=dev).tril())
     args = (q, kq, ks, vq, vs, mask, pos, 0.1)
-    assert torch.equal(flash_decode_cuda(*args, bits=causal),
-                       flash_decode_cuda(*args))
+    got = flash_decode_cuda(*args)
+    assert torch.equal(flash_decode_cuda(*args, bits=causal), got)
+    assert torch.equal(flash_decode_cuda(*args), got)
+    _close_flips(got, flash_decode_quant_reference(*args), vs)
     MP = T // page
     pt = _page_table(g, dev, S, MP, S * MP, [MP] * S)
     kp, ksp, vp, vsp = _cache(g, dev, S * MP, Hkv, page, D)
@@ -1646,17 +1658,25 @@ def test_flash_decode_causal_rows_keep_their_bits(dev, Tq, H, Hkv, D):
 
 
 @pytest.mark.parametrize("page", [8, 64])
-@pytest.mark.parametrize("rows", ["verify", "level1"])
+@pytest.mark.parametrize("rows", ["verify", "level1", "rows20", "rows32",
+                                  "rows36", "rows64"])
 def test_flash_decode_paged_tree_kernel(dev, page, rows):
     """The paged tree mode against its twin: 8 slots, a [2, 1, 1] tree
-    over 560-650 positions, scrambled pages, an inactive slot."""
+    over 560-650 positions (its verify's or a draft level's rows, or
+    "rowsR": R / 4 random bit rows over its 7 keys, G * Tq = R on both
+    sides of 32, the most one warp holds), scrambled pages, an inactive
+    slot."""
     from powerserve_tpu_torch.ops.flash_decode import pack_intra
 
     g = torch.Generator(device=dev)
     g.manual_seed(page)
     S, H, Hkv, D, MP_tokens = 8, 32, 8, 128, 2048
-    intra = (_tree_rows([2, 1, 1]) if rows == "verify"
-             else _tree_rows([2, 1, 1], 1)).to(dev)
+    if rows.startswith("rows"):
+        intra = torch.rand(int(rows[4:]) // (H // Hkv), 7, generator=g,
+                           device=dev) < 0.4
+    else:
+        intra = (_tree_rows([2, 1, 1]) if rows == "verify"
+                 else _tree_rows([2, 1, 1], 1)).to(dev)
     Tq, N = intra.shape
     MP = MP_tokens // page
     starts = [560 + 13 * s for s in range(S)]
@@ -2439,16 +2459,24 @@ def _held_state(got, ref, seen, vs):
     _close_flips(o[seen], ro[seen], vs)
 
 
-@pytest.mark.parametrize("Tq,t0,tree", [
-    (1, 2048, False), (1, 0, False), (5, 2048, False), (7, 2048, True),
-    (7, 0, True)], ids=["1-2048", "1-0", "5-2048", "tree-7-2048",
-                        "tree-7-0"])
-def test_flash_decode_state_kernel(dev, Tq, t0, tree):
-    """The dense state mode at llama-8b's heads over a 2,048-position
-    slice that starts at global position t0: slot 0 decodes past the
-    slice's start, slot 1 deep in it, slot 2 (its positions on the other
-    rank) sees none of it. The tree cases: a [2, 1, 1] verify (the bit
-    rows of its ancestors over its 7 nodes' key positions), slot 0's
+@pytest.mark.parametrize("Tq,t0,tree,H,Hkv,D", [
+    (1, 2048, False, 32, 8, 128), (1, 0, False, 32, 8, 128),
+    (5, 2048, False, 32, 8, 128), (7, 2048, True, 32, 8, 128),
+    (7, 0, True, 32, 8, 128), (5, 2048, True, 32, 8, 128),
+    (8, 2048, True, 32, 8, 128), (9, 2048, True, 32, 8, 128),
+    (16, 0, True, 32, 8, 128), (9, 2048, True, 8, 2, 64),
+    (7, 0, True, 8, 2, 64)],
+    ids=["1-2048", "1-0", "5-2048", "tree-7-2048", "tree-7-0",
+         "tree-5-2048", "tree-8-2048", "tree-9-2048", "tree-16-0",
+         "tree-9-2048-d64", "tree-7-0-d64"])
+def test_flash_decode_state_kernel(dev, Tq, t0, tree, H, Hkv, D):
+    """The dense state mode over a 2,048-position slice that starts at
+    global position t0, at llama-8b's heads or 8/2 heads of 64: slot 0
+    decodes past the slice's start, slot 1 deep in it, slot 2 (its
+    positions on the other rank) sees none of it. The tree cases: a
+    [2, 1, 1] verify (the bit rows of its ancestors over its 7 nodes' key
+    positions) or, at other Tq, lower-triangular bit rows (G * Tq = 20 to
+    64 rows, on both sides of 32, the most one warp holds); slot 0's
     nodes from 3 before the slice's start (its first rows see none of
     the slice) or, at t0 = 0, from 3 before its end."""
     from powerserve_tpu_torch.ops.flash_decode import (decode_visibility,
@@ -2457,7 +2485,7 @@ def test_flash_decode_state_kernel(dev, Tq, t0, tree):
 
     g = torch.Generator(device=dev)
     g.manual_seed(Tq + t0)
-    S, H, Hkv, D, T = 3, 32, 8, 128, 2048
+    S, T = 3, 2048
     first = ([t0 + 40, t0 + 1500, t0 - 300] if t0
              else [40, 1500, 2100])
     if tree:
@@ -2471,7 +2499,8 @@ def test_flash_decode_state_kernel(dev, Tq, t0, tree):
             < torch.tensor(committed, device=dev)[:, None])
     bits = None
     if tree:
-        anc = torch.from_numpy(TreeTemplate.from_widths([2, 1, 1]).anc)
+        anc = (torch.from_numpy(TreeTemplate.from_widths([2, 1, 1]).anc)
+               if Tq == 7 else torch.ones(Tq, Tq, dtype=torch.bool).tril())
         bits = pack_intra(anc.to(dev))
     args = (q, kq, ks, vq, vs, mask, pos, 1.0 / D ** 0.5)
     name = "flash_decode_state_tree" if tree else "flash_decode_state"

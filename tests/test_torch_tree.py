@@ -44,8 +44,9 @@ from powerserve_tpu_torch.kv.cache import KVCache
 from powerserve_tpu_torch.kv.paged import PagedKVCache
 from powerserve_tpu_torch.models.loader import load_gguf_model
 from powerserve_tpu_torch.ops.flash_decode import (
-    flash_decode_paged_reference, flash_decode_quant,
-    flash_decode_quant_reference, pack_intra, unpack_bits)
+    KERNEL_CHUNK, decode_visibility, flash_decode_paged_reference,
+    flash_decode_quant, flash_decode_quant_reference, kernel_walk,
+    pack_intra, unpack_bits)
 from powerserve_tpu_torch.sampling.sampler import (DrawState,
                                                    sample_dist_batched)
 from powerserve_tpu_torch.speculative.chain import self_draft_model
@@ -273,6 +274,42 @@ def test_tree_twin_matches_jax_kernel(rows):
     # of the f32 dot sums differs (a bf16-rounded p * vs by one last bit)
     one = flash_decode_quant(*t, scale, chunk=512, split=T_, bits=bits)
     assert _rel(one.numpy(), want) < 1e-5
+    # the kernel's own 16-token steps in its per-warp splits round p * vs
+    # at other running maxima (2^-9 relative per probability)
+    assert _rel(flash_decode_quant(*t, scale, bits=bits).numpy(),
+                want) < 3e-3
+
+
+@pytest.mark.parametrize("widths", [[2, 1], [2, 1, 1], [7], [3, 2, 1]],
+                         ids=["rows20", "rows28", "rows32", "rows64"])
+def test_tree_twin_walk_matches_jax_kernel(widths):
+    """The twin's default walk (kernel_walk: the kernel's 16-token steps
+    over its per-warp ranges) at G * Tq = 4 * N verify rows, on both sides
+    of 32, the most one warp of the kernel holds: four slots at 32/8
+    heads, so that a warp walks several steps, against JAX
+    flash_decode_quant in interpret mode on JAX's visibility."""
+    tpl = TreeTemplate.from_widths(widths)
+    N, S_, T_, H_, Hkv_, D_ = tpl.n_nodes, 4, 640, 32, 8, 32
+    c = np.array([400, 517, 450, 610], np.int32)
+    mask = np.arange(T_)[None, :] < c[:, None]
+    keys = (c[:, None] + np.arange(N)[None, :]).astype(np.int32)
+    jvis = jbuild_visibility(jnp.asarray(mask), jnp.asarray(keys),
+                             jnp.asarray(tpl.anc))
+    rng = np.random.default_rng(N)
+    q = rng.standard_normal((S_, N, H_, D_)).astype(np.float32)
+    kq, vq = (rng.integers(-127, 128, (S_, Hkv_, T_, D_)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = ((rng.random((S_, Hkv_, T_)) * 0.05).astype(np.float32)
+              for _ in range(2))
+    scale = 1.0 / np.sqrt(D_)
+    want = np.asarray(jflash_decode_quant(
+        *(jnp.asarray(a) for a in (q, kq, ks, vq, vs)), jvis, scale,
+        interpret=True))
+    bits = pack_intra(torch.from_numpy(tpl.anc))
+    t = [torch.from_numpy(a) for a in (q, kq, ks, vq, vs, mask, keys)]
+    vis = decode_visibility(t[5], t[6], N, bits)
+    _, split = kernel_walk(vis, Hkv_, H_ // Hkv_)
+    assert (split > KERNEL_CHUNK).all()  # several steps a warp
     # the kernel's own 16-token steps in its per-warp splits round p * vs
     # at other running maxima (2^-9 relative per probability)
     assert _rel(flash_decode_quant(*t, scale, bits=bits).numpy(),
